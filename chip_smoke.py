@@ -1,20 +1,30 @@
 #!/usr/bin/env python3
-"""Drive multiverso_tpu_torch's main path on one CUDA card and check it.
+"""Drive multiverso_tpu_torch's main paths on one CUDA card and check them.
 
-    python3 chip_smoke.py             # the whole check, about a minute
+    python3 chip_smoke.py             # the whole check, about three minutes
     python3 chip_smoke.py --profile   # also a torch.profiler window on one
-                                      # word2vec call (where the time goes)
+                                      # word2vec call and one LightLDA sweep
 
-Phases (any failure ends the run with a non-zero exit code):
+Phases (any failure ends the run with a non-zero exit code; each prints
+its seconds):
 
 1. Device: the card's name and power limit; build the CUDA kernels from
    the sources in this checkout (``multiverso_tpu_torch/ops/csrc``).
 2. Kernels vs plain: each kernel against its plain PyTorch version on the
-   card, at the word2vec path's shapes (table 10,001 x 100; 4,096 and
-   24,576 Zipf-1.2 ids), with its time, the plain version's, one PyTorch
-   library call's and the least time the card could take (bound). Then
-   a small word2vec run on the card against the same run on the CPU
-   (plain versions), from the same weights and negatives.
+   card, with its time, the plain version's, one PyTorch library call's
+   and the least time the card could take (bound). The row kernels at the
+   word2vec path's shapes (table 10,001 x 100; 4,096 and 24,576 Zipf-1.2
+   ids); the COO kernels at a LightLDA call's 512,000 lanes into a
+   [50,001, 1024] int32 table (exact against the plain version on the
+   CPU); the Gibbs sampler kernels at the LightLDA step (B 512,000,
+   K 1024, blocks of 512 tokens and 16 docs) in the production dtypes
+   (int16 doc counts, bf16 word rows) and the exact-tiled ones (int32),
+   under the tie rule (at least 99.9% of real lanes agree with the plain
+   version, every other lane is a float32 CDF tie; nkd and the doc counts
+   exact given the kernel's draws; build mode equals read mode). Then a
+   small word2vec and a small LightLDA run on the card against the same
+   runs on the CPU (plain versions), from the same weights, negatives
+   and uniforms.
 3. Table Get/Add: MatrixTable add_rows / get_rows with duplicate ids under
    the default, sgd and adagrad updaters, against numpy.
 4. word2vec at the bench's width (synthetic Zipf corpus of 1M tokens and
@@ -22,11 +32,25 @@ Phases (any failure ends the run with a non-zero exit code):
    512 steps per call): one warm-up call and two timed calls of skip-gram
    negative sampling. The loss must fall and stay finite, and both
    kernels' launch counts must rise by the expected count per step.
+5. SparseMatrixTable on the card against numpy: add_sparse (int32
+   ``default``, float32 ``sgd``), get_rows, get_rows_sparse, flat and
+   tiled.
+6. LightLDA at the width of the LDA metric of record
+   (``benchmarks/measure_lda.py``: V 50,000, D 100,000, T 10M, K 1024,
+   batch 512,000, one step per call, doc-blocked, seed 1, its Zipf-1.1
+   corpus recipe): one warm-up and three timed sweeps, each fenced by a
+   host sync; loglik before and after (it must rise), the count
+   invariants exactly, doc-tokens/s and its spread, and launch counts per
+   step (sampler, W gather) and per sweep (COO rebuild).
+7. LightLDA ``sampler="tiled"`` at the same width, exact and stale, one
+   warm-up and one timed sweep each.
+8. At reduced depth (T 1M, D 10k): the streamed (out-of-core) doc-blocked
+   mode against the in-memory one, bit-identical after 2 sweeps.
 
-Launch counts are set to 0 after phase 2 and read after phase 4, so they
-count the main path (phases 3 and 4) only. Before the last line the
-script prints one ``{"kernels": [...]}`` JSON line and the card's name
-and power limit; the last line is
+Launch counts are set to 0 before each main path (phases 3-4 word2vec,
+5, 6, 7, 8) and read after it. Before the last line the script prints
+one ``{"kernels": [...]}`` JSON line and the card's name and power limit;
+the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -60,6 +84,14 @@ BATCH, STEPS = 4096, 512
 # the JAX package as in this one
 LR = 0.01
 TIMED_CALLS = 2
+
+# LightLDA at the LDA metric of record (benchmarks/measure_lda.py:56-61,
+# 133-143): corpus seed 0 as there, app seed 1
+LDA_V, LDA_D, LDA_T, LDA_K = 50_000, 100_000, 10_000_000, 1024
+LDA_B, LDA_TB, LDA_MAXD = 512_000, 512, 16
+LDA_ALPHA, LDA_BETA = 50.0 / LDA_K, 0.01
+LDA_TIMED_SWEEPS = 3
+LDA_SMALL_T, LDA_SMALL_D = 1_000_000, 10_000
 
 
 def log(msg: str) -> None:
@@ -336,28 +368,497 @@ def phase_w2v(torch, tk, Corpus, synthetic_text, W2VConfig, WordEmbedding,
                loss_start=start_loss, loss_warm=warm, losses=losses,
                launches_per_step={k: grown[k] / steps for k in grown})
     if profile:
-        out["profile"] = profile_call(torch, app,
-                                      batches[(1 + TIMED_CALLS) * STEPS:],
-                                      dt / TIMED_CALLS * 1e3)
+        rest = batches[(1 + TIMED_CALLS) * STEPS:]
+        out["profile"] = profile_call(
+            torch, "w2v_call_trace.json",
+            lambda: app.train(total_steps=STEPS, batches=rest),
+            dt / TIMED_CALLS * 1e3)
     return out
 
 
-def profile_call(torch, app, batches, call_ms: float) -> dict:
-    """One superstep call under torch.profiler: device time by kernel and
-    the device's busy time, read from the trace's device events (kernels,
-    copies, memsets; the union of their intervals). The profiler slows
-    the host, so the busy share is also given against ``call_ms``, the
-    same call's wall time without the profiler."""
+def _sync(torch):
+    torch.cuda.synchronize()
+
+
+def zipf_lda_corpus(vocab: int, docs: int, tokens: int, seed: int):
+    """(token words, token docs) by benchmarks/measure_lda.py's recipe:
+    Zipf-1.1 words, doc ids uniform and sorted."""
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, vocab + 1) ** 1.1
+    p /= p.sum()
+    tw = rng.choice(vocab, tokens, p=p).astype(np.int32)
+    td = np.sort(rng.integers(0, docs, tokens)).astype(np.int32)
+    return tw, td
+
+
+def lda_step_inputs(torch, a_dtype, w_dtype, seed: int):
+    """Sampler operands at the LightLDA step shape, drawn on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    B, C = LDA_B, LDA_K // 128
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g, device="cuda",
+                             dtype=torch.int32)
+
+    A = ints(0, 6, (B, C, 128)).to(a_dtype)
+    W = ints(0, 600, (B, C, 128)).to(w_dtype)
+    sinv = 1.0 / (ints(5000, 15000, (C, 128)).float() + LDA_V * LDA_BETA)
+    zi = ints(0, LDA_K, (B,))
+    msk = (torch.rand(B, generator=g, device="cuda") < 0.97).to(torch.int32)
+    u1 = torch.rand(B, generator=g, device="cuda")
+    u2 = torch.rand(B, generator=g, device="cuda")
+    return A, W, sinv, zi, msk, u1, u2
+
+
+def tie_rule(torch, ls, name, A3, W3, sinv, zi, msk, u1, u2, got, want):
+    """Fail unless >= 99.9% of real lanes agree and every other real lane
+    is a float32 CDF tie; returns the number of differing lanes."""
+    real = msk > 0
+    diff = torch.nonzero(real & (got != want)).view(-1)
+    agree = 1.0 - diff.numel() / max(int(real.sum()), 1)
+    if agree < 0.999:
+        raise SystemExit(f"{name}: kernel agrees with plain on {agree:.5f} "
+                         "of real lanes (< 0.999)")
+    if diff.numel():
+        cpu = [x[diff].float().cpu().numpy() if x.dtype == torch.bfloat16
+               else x[diff].cpu().numpy()
+               for x in (A3, W3, zi, msk, u1, u2, got, want)]
+        A, W, z, m, a, b, zg, zw = cpu
+        if not ls.explained_by_ties(A, W, sinv.cpu().numpy(), z, m, a, b,
+                                    zg, zw, alpha=LDA_ALPHA,
+                                    beta=LDA_BETA).all():
+            raise SystemExit(f"{name}: a lane differs from the plain "
+                             "version beyond a float32 tie")
+    if not torch.equal(got[~real], zi[~real]):
+        raise SystemExit(f"{name}: padded lanes changed topic")
+    return int(diff.numel())
+
+
+def phase_lda_kernels(torch, tk, ls) -> dict:
+    """Phase 2, LightLDA kernels vs plain at the LDA step shapes; returns
+    {name: row} for the kernels JSON (and a few extra shapes)."""
+    out = {}
+    C, B, K = LDA_K // 128, LDA_B, LDA_K
+
+    # COO: a call's 512k (word, topic, 1) lanes into the word table
+    rng = np.random.default_rng(5)
+    tw, _ = zipf_lda_corpus(LDA_V, 1, B, seed=5)
+    rows = torch.as_tensor(tw, device="cuda")
+    cols = torch.as_tensor(rng.integers(0, K, B).astype(np.int32),
+                           device="cuda")
+    vals = torch.as_tensor((rng.random(B) < 0.97).astype(np.int32),
+                           device="cuda")
+    table0 = torch.zeros((LDA_V + 1, C, 128), dtype=torch.int32,
+                         device="cuda")
+    want = tk.coo_scatter_add_plain(table0.cpu(), rows.cpu(), cols.cpu(),
+                                    vals.cpu())
+    got = tk.coo_scatter_add(table0.clone(), rows, cols, vals)
+    _sync(torch)
+    err = float((got.cpu() - want).abs().max())
+    if not torch.equal(got.cpu(), want):
+        raise SystemExit(f"coo_scatter_add: kernel != plain on the CPU "
+                         f"(max abs err {err})")
+    srows, order = torch.sort(rows, stable=True)
+    scols, svals = cols[order], vals[order]
+    valid = torch.as_tensor((rng.random(B) < 0.9).astype(np.int32),
+                            device="cuda")
+    want_m = tk.coo_scatter_add_masked_plain(
+        table0.cpu(), srows.cpu(), scols.cpu(), svals.cpu(), valid.cpu())
+    got_m = tk.coo_scatter_add_masked(table0.clone(), srows, scols, svals,
+                                      valid)
+    _sync(torch)
+    err_m = float((got_m.cpu() - want_m).abs().max())
+    if not torch.equal(got_m.cpu(), want_m):
+        raise SystemExit("coo_scatter_add_masked: kernel != plain on the "
+                         f"CPU (max abs err {err_m})")
+    flat_idx = rows.long() * K + cols.long()
+    touched = int(torch.unique(flat_idx).numel())
+    touched_m = int(torch.unique(flat_idx[order][valid > 0]).numel())
+    t = table0.clone()
+    lib_vals = vals.clone()
+    b, by = bound_ms(B * 12 + touched * 8, B)
+    out["coo_scatter_add"] = dict(
+        max_abs_err=err, ms=cuda_ms(
+            lambda: tk.coo_scatter_add(t, rows, cols, vals), 20),
+        plain_ms=cuda_ms(
+            lambda: tk.coo_scatter_add_plain(t, rows, cols, vals), 20),
+        library_ms=cuda_ms(lambda: t.view(-1).index_put_(
+            (flat_idx,), lib_vals, accumulate=True), 20),
+        bound_ms=b, bound_by=by, n=B, touched=touched)
+    nv = int(valid.sum())
+    b, by = bound_ms(B * 16 + touched_m * 8, nv)
+    out["coo_scatter_add_masked"] = dict(
+        max_abs_err=err_m, ms=cuda_ms(lambda: tk.coo_scatter_add_masked(
+            t, srows, scols, svals, valid), 20),
+        plain_ms=cuda_ms(lambda: tk.coo_scatter_add_masked_plain(
+            t, srows, scols, svals, valid), 20),
+        library_ms=None, bound_ms=b, bound_by=by, n=B, touched=touched_m)
+    del t, table0, got, got_m
+
+    # the step's W-row gather from the bf16 mirror (row_gather at the LDA
+    # shape; the kernels JSON keeps the word2vec shape's row)
+    mirror = torch.randint(0, 600, (LDA_V + 1, C, 128), device="cuda",
+                           dtype=torch.int32).to(torch.bfloat16)
+    g = tk.gather_rows(mirror, rows)
+    if not torch.equal(g, tk.gather_rows_plain(mirror, rows)):
+        raise SystemExit("row_gather (bf16 LDA rows): kernel != plain")
+    uniq = int(torch.unique(rows).numel())
+    b, by = bound_ms(B * 4 + uniq * K * 2 + B * K * 2, 0)
+    out["row_gather_lda_bf16"] = dict(
+        max_abs_err=0.0, ms=cuda_ms(lambda: tk.gather_rows(mirror, rows), 20),
+        plain_ms=cuda_ms(lambda: tk.gather_rows_plain(mirror, rows), 20),
+        library_ms=cuda_ms(lambda: mirror.view(LDA_V + 1, -1)
+                           .index_select(0, rows), 20),
+        bound_ms=b, bound_by=by, n=B, unique_rows=uniq)
+    del mirror, g
+
+    # gibbs_sample_tiled, production (int16/bf16) and exact (int32) dtypes
+    for a_dt, w_dt, tag in ((torch.int16, torch.bfloat16, ""),
+                            (torch.int32, torch.int32, "_int32")):
+        args = lda_step_inputs(torch, a_dt, w_dt, seed=21)
+        kw = dict(alpha=LDA_ALPHA, beta=LDA_BETA)
+        znew, nkd = ls.gibbs_sample_tiled(*args, **kw)
+        want, want_nkd = ls.gibbs_sample_tiled_plain(*args, **kw)
+        _sync(torch)
+        diff = tie_rule(torch, ls, "gibbs_sample_tiled" + tag, *args, znew,
+                        want)
+        if not torch.equal(nkd, ls._nk_delta(args[3], znew, args[4], C)):
+            raise SystemExit("gibbs_sample_tiled: nkd != the moves of its "
+                             "own draws")
+        err = float((nkd - want_nkd).abs().max())
+        nbytes = sum(x.numel() * x.element_size() for x in args) \
+            + B * 4 + K * 4
+        b, by = bound_ms(nbytes, 8 * B * K)
+        out["gibbs_sample_tiled" + tag] = dict(
+            max_abs_err=err, mismatches=diff,
+            ms=cuda_ms(lambda: ls.gibbs_sample_tiled(*args, **kw), 10),
+            plain_ms=cuda_ms(lambda: ls.gibbs_sample_tiled_plain(*args, **kw),
+                             2),
+            library_ms=None, bound_ms=b, bound_by=by, n=B)
+        del args, znew, want
+        torch.cuda.empty_cache()
+
+    # gibbs_sample_docblock (read mode) and its build mode
+    nb = B // LDA_TB
+    for n_dt, w_dt, tag in ((torch.int16, torch.bfloat16, ""),
+                            (torch.int32, torch.int32, "_int32")):
+        _, W3, sinv, zi, msk, u1, u2 = lda_step_inputs(
+            torch, torch.int32, w_dt, seed=31)
+        g = torch.Generator(device="cuda").manual_seed(32)
+        drel = torch.randint(0, LDA_MAXD, (B,), generator=g, device="cuda",
+                             dtype=torch.int32)
+        rws = ls._block_rows(drel, LDA_TB, LDA_MAXD)
+        real = msk > 0
+        ndk = torch.zeros(nb * LDA_MAXD, K, dtype=torch.int32, device="cuda")
+        ndk.view(-1).index_add_(0, rws * K + zi.long(), msk)
+        ndk0 = ndk.to(n_dt).view(nb, LDA_MAXD, C, 128)
+        vec = (W3, sinv, zi, drel, msk, u1, u2)
+        kw = dict(alpha=LDA_ALPHA, beta=LDA_BETA)
+        ndk_k = ndk0.clone()
+        _, znew, nkd = ls.gibbs_sample_docblock(ndk_k, *vec, tb=LDA_TB, **kw)
+        zb, nkdb = ls.gibbs_sample_docblock_build(*vec, tb=LDA_TB,
+                                                  maxd=LDA_MAXD, **kw)
+        ndk_p = ndk0.clone()
+        _, want, want_nkd = ls.gibbs_sample_docblock_plain(
+            ndk_p, *vec, tb=LDA_TB, **kw)
+        _sync(torch)
+        A3 = ndk0.view(nb * LDA_MAXD, K)[rws].view(B, C, 128)
+        diff = tie_rule(torch, ls, "gibbs_sample_docblock" + tag, A3, W3,
+                        sinv, zi, msk, u1, u2, znew, want)
+        if not (torch.equal(zb[real], znew[real]) and torch.equal(nkdb, nkd)):
+            raise SystemExit("gibbs_sample_docblock_build != read mode")
+        moved = ndk.clone()
+        one = torch.ones(int(real.sum()), dtype=torch.int32, device="cuda")
+        moved.index_put_((rws[real], zi[real].long()), -one,
+                         accumulate=True)
+        moved.index_put_((rws[real], znew[real].long()), one,
+                         accumulate=True)
+        ndk_err = float((ndk_k.view(nb * LDA_MAXD, K).int() - moved)
+                        .abs().max())
+        if ndk_err or not torch.equal(nkd, ls._nk_delta(zi, znew, msk, C)):
+            raise SystemExit("gibbs_sample_docblock: ndk_out or nkd != the "
+                             "moves of its own draws")
+        # against the plain version's outputs: 0 unless a tie flipped a draw
+        err = max(float((nkd - want_nkd).abs().max()),
+                  float((ndk_k.int() - ndk_p.int()).abs().max()))
+        err_b = float((nkdb - want_nkd).abs().max())
+        del A3, moved, ndk, want, ndk_p
+        vec_bytes = sum(x.numel() * x.element_size() for x in vec) \
+            + B * 4 + K * 4
+        ndk_bytes = ndk0.numel() * ndk0.element_size()
+        t_ndk = ndk0.clone()
+        b, by = bound_ms(vec_bytes + 2 * ndk_bytes, 8 * B * K)
+        out["gibbs_sample_docblock" + tag] = dict(
+            max_abs_err=err, mismatches=diff,
+            ms=cuda_ms(lambda: ls.gibbs_sample_docblock(
+                t_ndk, *vec, tb=LDA_TB, **kw), 10),
+            plain_ms=cuda_ms(lambda: ls.gibbs_sample_docblock_plain(
+                t_ndk, *vec, tb=LDA_TB, **kw), 2),
+            library_ms=None, bound_ms=b, bound_by=by, n=B)
+        b, by = bound_ms(vec_bytes, 8 * B * K)
+        out["gibbs_sample_docblock_build" + tag] = dict(
+            max_abs_err=err_b, mismatches=diff,
+            ms=cuda_ms(lambda: ls.gibbs_sample_docblock_build(
+                *vec, tb=LDA_TB, maxd=LDA_MAXD, **kw), 10),
+            plain_ms=cuda_ms(lambda: ls.gibbs_sample_docblock_build_plain(
+                *vec, tb=LDA_TB, maxd=LDA_MAXD, **kw), 2),
+            library_ms=None, bound_ms=b, bound_by=by, n=B)
+        del vec, t_ndk, ndk0, ndk_k
+        torch.cuda.empty_cache()
+    for name, r in out.items():
+        lib = r["library_ms"]
+        log(f"  {name:30s} n={r['n']:7d} kernel {r['ms']:.4f} ms  plain "
+            f"{r['plain_ms']:.4f} ms  library "
+            f"{'none' if lib is None else f'{lib:.4f} ms'}  bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})  "
+            f"{r['ms'] / r['bound_ms']:.1f}x bound; max|err| "
+            f"{r['max_abs_err']:.3g}"
+            + (f"; {r['mismatches']} draws differ" if "mismatches" in r
+               else ""))
+    return out
+
+
+def lda_small_parity(LDAConfig, LightLDA, load_docs, synthetic_docs,
+                     tmp) -> None:
+    """LightLDA on the card vs on the CPU (plain versions): same corpus,
+    config and uniforms, doc-blocked and tiled stale modes. z must agree
+    on 99% of tokens (the tie rule) and the invariants hold exactly."""
+    path = os.path.join(tmp, "lda_small.txt")
+    synthetic_docs(path, num_docs=300, vocab_size=500, avg_doc_len=60,
+                   num_topics=10, seed=1)
+    tw, td, vocab = load_docs(path)
+    for extra in (dict(doc_blocked=True, block_tokens=256, block_docs=8),
+                  dict(stale_words=True)):
+        cfg = LDAConfig(num_topics=256, batch_tokens=4096, steps_per_call=2,
+                        seed=2, sampler="tiled", **extra)
+        apps = [LightLDA(tw, td, vocab, cfg, device=d)
+                for d in ("cuda", "cpu")]
+        for _ in range(2):
+            for a in apps:
+                a.sweep(uniforms=apps[1].uniforms)
+        z = [a._z_numpy() for a in apps]
+        agree = float(np.mean(z[0] == z[1]))
+        if agree < 0.99:
+            raise SystemExit(f"LDA {extra}: card vs CPU z agree {agree}")
+        for a in apps:
+            check_lda_invariants(a, td)
+        lls = [a.loglik() for a in apps]
+        log(f"  LightLDA {sorted(extra)[0]} card vs CPU: z agrees on "
+            f"{agree:.5f} of tokens after 2 sweeps; loglik {lls[0]:.6f} vs "
+            f"{lls[1]:.6f}; invariants exact")
+
+
+def check_lda_invariants(app, td) -> None:
+    nwk = app.word_topics()
+    nk = app.summary.get()
+    ndk = app.doc_topics()
+    ok = (nwk.sum() == app.num_tokens
+          and np.array_equal(nk[:app.K], nwk.sum(0))
+          and np.array_equal(ndk.sum(1),
+                             np.bincount(td, minlength=app.num_docs))
+          and (nwk >= 0).all() and (ndk >= 0).all() and (nk >= 0).all())
+    if not ok:
+        raise SystemExit("LightLDA count invariants do not hold")
+
+
+def phase_sparse_tables(SparseMatrixTable, rng) -> None:
+    """Phase 5: SparseMatrixTable add_sparse / get_rows / get_rows_sparse
+    on the card against numpy, flat and tiled."""
+    for tiled, updater, dtype in ((False, "default", "int32"),
+                                  (True, "default", "int32"),
+                                  (False, "sgd", "float32"),
+                                  (True, "sgd", "float32")):
+        rows, cols = 5_000, 1024
+        t = SparseMatrixTable(rows, cols, dtype, updater=updater,
+                              device="cuda", tiled=tiled,
+                              name=f"smoke_sparse_{tiled}_{updater}")
+        ref = np.zeros((rows, cols), dtype)
+        for _ in range(3):
+            n = 100_000
+            r = np.clip(rng.zipf(1.1, n) - 1, 0, rows - 1)
+            c = rng.integers(0, cols, n)
+            v = rng.integers(-3, 4, n).astype(dtype)
+            t.add_sparse(r, c, v)
+            np.add.at(ref, (r, c), v if updater == "default"
+                      else np.float32(-0.1) * v)
+        q = zipf_ids(rng, 2000, rows + 1)
+        got, got_rows = t.get(), t.get_rows(q)
+        indptr, sc, sv = t.get_rows_sparse(q)
+        dense = np.zeros((len(q), cols), dtype)
+        for i in range(len(q)):
+            dense[i, sc[indptr[i]:indptr[i + 1]]] = sv[indptr[i]:indptr[i + 1]]
+        err = float(np.abs(got - ref).max())
+        if not (np.allclose(got, ref, rtol=1e-5, atol=1e-5)
+                and np.allclose(got_rows, ref[q], rtol=1e-5, atol=1e-5)
+                and np.array_equal(dense, got_rows)):
+            raise SystemExit(f"SparseMatrixTable {updater} tiled={tiled}: "
+                             f"differs from numpy (max {err})")
+        if dtype == "int32" and not np.array_equal(got, ref):
+            raise SystemExit("SparseMatrixTable int32 counts not exact")
+        log(f"  SparseMatrixTable {updater:7s} {dtype} tiled={tiled!s:5s} "
+            f"add_sparse x3 + get_rows + get_rows_sparse: matches numpy "
+            f"(max |err| {err:.3g}; {int(indptr[-1])} nonzeros fetched)")
+
+
+def lda_app(LightLDA, LDAConfig, tw, td, **extra):
+    """LightLDA at the metric of record's width on the card."""
+    cfg = dict(num_topics=LDA_K, batch_tokens=LDA_B, steps_per_call=1,
+               seed=1, sampler="tiled")
+    cfg.update(extra)
+    return LightLDA(tw, td, LDA_V, LDAConfig(**cfg), device="cuda",
+                    name="smoke_lda")
+
+
+def phase_lda(torch, tk, ls, LightLDA, LDAConfig, tw, td,
+              profile: bool) -> dict:
+    """Phase 6: LightLDA doc-blocked at the LDA metric of record."""
+    t0 = time.perf_counter()
+    app = lda_app(LightLDA, LDAConfig, tw, td, stale_words=True,
+                  doc_blocked=True)
+    _sync(torch)
+    setup_s = time.perf_counter() - t0
+    ll0 = app.loglik()
+    t0 = time.perf_counter()
+    app.sweep()
+    _sync(torch)
+    warm_s = time.perf_counter() - t0
+    runs, counts = [], None
+    for i in range(LDA_TIMED_SWEEPS):
+        before = {**tk.LAUNCHES, **ls.LAUNCHES}
+        t0 = time.perf_counter()
+        app.sweep()
+        _sync(torch)
+        runs.append(time.perf_counter() - t0)
+        if i == 0:
+            after = {**tk.LAUNCHES, **ls.LAUNCHES}
+            counts = {k: after[k] - before[k] for k in after}
+    ll1 = app.loglik()
+    steps = app.calls_per_sweep * app.config.steps_per_call
+    want = {"gibbs_sample_docblock": steps, "row_gather": steps,
+            "coo_scatter_add": 1}
+    for name, n in want.items():
+        if counts[name] != n:
+            raise SystemExit(f"LightLDA sweep: {name} launched "
+                             f"{counts[name]} times, expected {n}")
+    if not (np.isfinite(ll0) and np.isfinite(ll1) and ll1 > ll0):
+        raise SystemExit(f"LightLDA loglik did not rise: {ll0} -> {ll1}")
+    t0 = time.perf_counter()
+    check_lda_invariants(app, td)
+    inv_s = time.perf_counter() - t0
+    # the sweep-end rebuild alone (sort + COO add of every token), and
+    # the bf16 mirror cast
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    app._word_counts_from_z()
+    end.record()
+    end.synchronize()
+    rebuild_ms = start.elapsed_time(end)
+    rates = [LDA_T / r for r in runs]
+    out = dict(
+        doc_tokens_per_sec=LDA_T * len(runs) / sum(runs),
+        runs_tok_per_sec=rates,
+        spread_pct=100 * (max(rates) - min(rates)) / max(rates),
+        secs_per_sweep=runs, warm_sweep_s=warm_s, setup_s=setup_s,
+        invariants_s=inv_s, loglik_before=ll0, loglik_after=ll1,
+        calls_per_sweep=app.calls_per_sweep, blocks=app._nb_pad,
+        packing_fill=app.packing_fill, launches_per_sweep=counts,
+        rebuild_ms=rebuild_ms,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"  setup {setup_s:.2f} s ({app._nb_pad} blocks, "
+        f"{100 * app.packing_fill:.1f}% full, {app.calls_per_sweep} calls "
+        f"per sweep); warm-up sweep {warm_s:.3f} s; timed sweeps "
+        f"{[round(r, 4) for r in runs]} s")
+    log(f"  loglik {ll0:.5f} -> {ll1:.5f}; invariants exact; launches per "
+        f"sweep {counts}; rebuild {rebuild_ms:.2f} ms")
+    if profile:
+        out["profile"] = profile_call(torch, "lda_sweep_trace.json",
+                                      app.sweep, 1e3 * min(runs))
+    del app
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_lda_tiled(torch, tk, ls, LightLDA, LDAConfig, tw, td) -> dict:
+    """Phase 7: sampler="tiled" at the same width, exact and stale."""
+    out = {}
+    for stale in (False, True):
+        app = lda_app(LightLDA, LDAConfig, tw, td, stale_words=stale)
+        ll0 = app.loglik()
+        app.sweep()
+        _sync(torch)
+        before = {**tk.LAUNCHES, **ls.LAUNCHES}
+        t0 = time.perf_counter()
+        app.sweep()
+        _sync(torch)
+        dt = time.perf_counter() - t0
+        after = {**tk.LAUNCHES, **ls.LAUNCHES}
+        counts = {k: after[k] - before[k] for k in after}
+        steps = app.calls_per_sweep * app.config.steps_per_call
+        want = {"gibbs_sample_tiled": steps, "row_gather": 2 * steps,
+                "coo_scatter_add": 1 if stale else steps}
+        for name, n in want.items():
+            if counts[name] != n:
+                raise SystemExit(f"LightLDA tiled: {name} launched "
+                                 f"{counts[name]} times, expected {n}")
+        ll1 = app.loglik()
+        if not (np.isfinite(ll1) and ll1 > ll0):
+            raise SystemExit(f"LightLDA tiled: loglik {ll0} -> {ll1}")
+        check_lda_invariants(app, td)
+        key = "stale" if stale else "exact"
+        out[key] = dict(doc_tokens_per_sec=LDA_T / dt, sweep_s=dt,
+                        loglik_before=ll0, loglik_after=ll1,
+                        launches_per_sweep=counts)
+        log(f"  tiled {key}: {LDA_T / dt:.0f} doc-tokens/s (one timed "
+            f"sweep, {dt:.3f} s); loglik {ll0:.5f} -> {ll1:.5f}; "
+            f"invariants exact")
+        del app
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_lda_streamed(torch, LightLDA, LDAConfig) -> dict:
+    """Phase 8: streamed vs in-memory doc-blocked, bit-identical."""
+    tw, td = zipf_lda_corpus(LDA_V, LDA_SMALL_D, LDA_SMALL_T, seed=0)
+    runs = {}
+    for streamed in (False, True):
+        app = lda_app(LightLDA, LDAConfig, tw, td, doc_blocked=True,
+                      stream_blocks=streamed)
+        t0 = time.perf_counter()
+        app.train(num_iterations=2)
+        _sync(torch)
+        runs[streamed] = (app, time.perf_counter() - t0)
+    (mem, mem_s), (st, st_s) = runs[False], runs[True]
+    same = (np.array_equal(st._z_host, mem._z.cpu().numpy())
+            and np.array_equal(st.word_topics(), mem.word_topics())
+            and np.array_equal(st.doc_topics(), mem.doc_topics())
+            and np.array_equal(st.summary.get(), mem.summary.get())
+            and st.ll_history == mem.ll_history)
+    if not same:
+        raise SystemExit("LightLDA streamed != in-memory after 2 sweeps")
+    check_lda_invariants(st, td)
+    log(f"  T {LDA_SMALL_T}, D {LDA_SMALL_D}: streamed == in-memory bit for "
+        f"bit after 2 sweeps (z, tables, doc counts, loglik "
+        f"{mem.ll_history}); {mem_s:.2f} s in memory, {st_s:.2f} s streamed")
+    return dict(inmemory_s=mem_s, streamed_s=st_s, ll=mem.ll_history)
+
+
+def profile_call(torch, trace_name: str, run, call_ms: float) -> dict:
+    """``run()`` (one superstep call or sweep) under torch.profiler:
+    device time by kernel and the device's busy time, read from the
+    trace's device events (kernels, copies, memsets; the union of their
+    intervals). The profiler slows the host, so the busy share is also
+    given against ``call_ms``, the same run's wall time without the
+    profiler."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        app.train(total_steps=STEPS, batches=batches)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
-    path = os.path.join(HERE, "chiprun_out", "w2v_call_trace.json")
+    path = os.path.join(HERE, "chiprun_out", trace_name)
     prof.export_chrome_trace(path)
     with open(path) as f:
         trace = json.load(f)
@@ -398,19 +899,39 @@ def main(argv) -> int:
               f"script ({e}); run it from a checkout of the repository",
               file=sys.stderr)
         return 2
+    from multiverso_tpu_torch.apps.lightlda import (LDAConfig, LightLDA,
+                                                    load_docs)
     from multiverso_tpu_torch.apps.word_embedding import (W2VConfig,
                                                           WordEmbedding)
-    from multiverso_tpu_torch.data import Corpus, synthetic_text
+    from multiverso_tpu_torch.data import (Corpus, synthetic_docs,
+                                           synthetic_text)
     from multiverso_tpu_torch.ops import _build
+    from multiverso_tpu_torch.ops import lda_sampler as ls
     from multiverso_tpu_torch.ops import table_kernels as tk
-    from multiverso_tpu_torch.tables import MatrixTable
+    from multiverso_tpu_torch.tables import MatrixTable, SparseMatrixTable
     from multiverso_tpu_torch.updaters import AddOption
     profile = "--profile" in argv
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    phase_s = {}
 
-    log("phase 1: device")
+    def phase(name: str, title: str):
+        phase_s[name] = time.perf_counter()
+        log(title)
+
+    def phase_end(name: str) -> None:
+        phase_s[name] = time.perf_counter() - phase_s[name]
+        log(f"  [{name}: {phase_s[name]:.1f} s]")
+
+    def counts() -> dict:
+        return {**tk.LAUNCHES, **ls.LAUNCHES}
+
+    def reset() -> None:
+        tk.reset_launches()
+        ls.reset_launches()
+
+    phase("device", "phase 1: device")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -421,58 +942,138 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     _build.load()
     log(f"  kernels built and loaded in {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {_build.build_seconds:.2f} s)")
+        f"(nvcc {_build.build_seconds:.2f} s, one process per source)")
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line:
             log(f"    {line.strip()}")
+    phase_end("device")
 
     rng = np.random.default_rng(0)
+    paths = {}
     with tempfile.TemporaryDirectory() as tmp:
-        log("phase 2: kernels vs plain (tolerance: gather exact; "
-            "scatter-add exact against the CPU plain version, within the "
-            "float32 sum-order bound against the card's)")
+        phase("kernels", "phase 2: kernels vs plain (tolerance: gather "
+              "exact; scatter-adds exact against the CPU plain version, "
+              "row scatter within the float32 sum-order bound against the "
+              "card's; Gibbs samplers under the tie rule, counts exact)")
         results = phase_kernels(torch, tk, rng)
+        lda_results = phase_lda_kernels(torch, tk, ls)
         w2v_small_parity(torch, Corpus, synthetic_text, W2VConfig,
                          WordEmbedding, tmp)
+        lda_small_parity(LDAConfig, LightLDA, load_docs, synthetic_docs,
+                         tmp)
+        phase_end("kernels")
 
-        tk.reset_launches()
-        log("phase 3: MatrixTable Get/Add on the card")
+        reset()
+        phase("w2v", "phase 3: MatrixTable Get/Add on the card")
         phase_tables(torch, MatrixTable, AddOption, rng)
         log("phase 4: word2vec skip-gram NS at full width")
         w2v = phase_w2v(torch, tk, Corpus, synthetic_text, W2VConfig,
                         WordEmbedding, tmp, profile)
-    launches = dict(tk.LAUNCHES)
-    for name, count in launches.items():
-        if count <= 0:
-            raise SystemExit(f"{name}: no launch on the main path")
+        paths["word2vec"] = counts()
+        phase_end("w2v")
+
+    reset()
+    phase("sparse", "phase 5: SparseMatrixTable on the card vs numpy")
+    phase_sparse_tables(SparseMatrixTable, rng)
+    paths["sparse_tables"] = counts()
+    phase_end("sparse")
+
+    phase("lda", "phase 6: LightLDA doc-blocked at the LDA metric of "
+          "record's width")
+    t0 = time.perf_counter()
+    tw, td = zipf_lda_corpus(LDA_V, LDA_D, LDA_T, seed=0)
+    log(f"  corpus: V {LDA_V}, D {LDA_D}, T {LDA_T} (Zipf-1.1), made in "
+        f"{time.perf_counter() - t0:.2f} s; top word holds "
+        f"{100 * np.bincount(tw).max() / LDA_T:.1f}% of the tokens")
+    reset()
+    torch.cuda.reset_peak_memory_stats()
+    lda = phase_lda(torch, tk, ls, LightLDA, LDAConfig, tw, td, profile)
+    paths["lightlda_doc_blocked"] = counts()
+    phase_end("lda")
+
+    reset()
+    phase("lda_tiled", "phase 7: LightLDA sampler=tiled at the same width")
+    lda_tiled = phase_lda_tiled(torch, tk, ls, LightLDA, LDAConfig, tw, td)
+    paths["lightlda_tiled"] = counts()
+    phase_end("lda_tiled")
+    del tw, td
+
+    reset()
+    phase("lda_streamed", "phase 8: LightLDA streamed vs in-memory at "
+          "reduced depth")
+    lda_streamed = phase_lda_streamed(torch, LightLDA, LDAConfig)
+    paths["lightlda_streamed"] = counts()
+    phase_end("lda_streamed")
+
+    # each kernel's launches on the main path that carries it
+    main_path = {
+        "row_gather": "word2vec", "row_scatter_add": "word2vec",
+        "row_scatter_add_masked": "word2vec",
+        "coo_scatter_add": "lightlda_doc_blocked",
+        "coo_scatter_add_masked": "sparse_tables",
+        "gibbs_sample_tiled": "lightlda_tiled",
+        "gibbs_sample_docblock": "lightlda_doc_blocked",
+        "gibbs_sample_docblock_build": "lightlda_streamed",
+    }
+    for name, path in main_path.items():
+        if paths[path][name] <= 0:
+            raise SystemExit(f"{name}: no launch on the {path} path")
     log(f"  word2vec: {w2v['words_per_sec']:.0f} words/s "
         f"({w2v['seconds']:.3f} s for {TIMED_CALLS} calls of "
         f"{STEPS}x{BATCH} pairs) on {card}")
-    log(f"  launches per step: {w2v['launches_per_step']}")
+    log(f"  word2vec launches per step: {w2v['launches_per_step']}")
+    log(f"  LightLDA doc-blocked: {lda['doc_tokens_per_sec']:.0f} "
+        f"doc-tokens/s (runs {[round(r) for r in lda['runs_tok_per_sec']]}, "
+        f"spread {lda['spread_pct']:.1f}%) on {card}")
+    log(f"  launches per path: {paths}")
 
-    source = "multiverso_tpu_torch/ops/csrc/row_kernels.cu"
+    row_src = "multiverso_tpu_torch/ops/csrc/row_kernels.cu"
+    coo_src = "multiverso_tpu_torch/ops/csrc/coo_kernels.cu"
+    lda_src = "multiverso_tpu_torch/ops/csrc/lda_kernels.cu"
+    source_of = {"row_gather": row_src, "row_scatter_add": row_src,
+                 "row_scatter_add_masked": row_src,
+                 "coo_scatter_add": coo_src,
+                 "coo_scatter_add_masked": coo_src,
+                 "gibbs_sample_tiled": lda_src,
+                 "gibbs_sample_docblock": lda_src,
+                 "gibbs_sample_docblock_build": lda_src}
     replaces = {
         "row_gather": "multiverso_tpu/ops/table_kernels.py:580",
         "row_scatter_add": "multiverso_tpu/ops/table_kernels.py:610",
         "row_scatter_add_masked": "multiverso_tpu/ops/table_kernels.py:990",
+        "coo_scatter_add": "multiverso_tpu/ops/table_kernels.py:652",
+        "coo_scatter_add_masked": "multiverso_tpu/ops/table_kernels.py:1068",
+        "gibbs_sample_tiled": "multiverso_tpu/ops/lda_sampler.py:80",
+        "gibbs_sample_docblock": "multiverso_tpu/ops/lda_sampler.py:187",
+        "gibbs_sample_docblock_build":
+            "multiverso_tpu/ops/lda_sampler.py:228",
     }
     main_n = BATCH * (1 + NEGATIVE)       # the w_out gather/scatter width
+    measured = {name: results[(name, main_n)]
+                for name in ("row_gather", "row_scatter_add",
+                             "row_scatter_add_masked")}
+    measured.update({name: lda_results[name] for name in source_of
+                     if name in lda_results})
     kernels = []
-    for name in ("row_gather", "row_scatter_add", "row_scatter_add_masked"):
-        r = results[(name, main_n)]
+    for name, r in measured.items():
         kernels.append(dict(
-            name=name, route="cuda", source=source,
-            replaces=replaces[name], launches=launches[name],
+            name=name, route="cuda", source=source_of[name],
+            replaces=replaces[name], launches=paths[main_path[name]][name],
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"),
               "w") as f:
-        json.dump(dict(card=card, kernels=kernels, w2v=w2v,
+        json.dump(dict(card=card, kernels=kernels, w2v=w2v, lightlda=lda,
+                       lightlda_tiled=lda_tiled,
+                       lightlda_streamed=lda_streamed,
+                       launches_per_path=paths, phase_seconds=phase_s,
                        kernel_shapes={f"{k[0]}@{k[1]}": v
                                       for k, v in results.items()},
+                       lda_kernel_shapes=lda_results,
                        seconds=time.perf_counter() - t_start), f, indent=1)
+    log(f"phase seconds: { {k: round(v, 1) for k, v in phase_s.items()} }")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,0 +1,957 @@
+"""LightLDA on the port's tables: collapsed-Gibbs topic modelling over a
+word-topic count matrix (SparseMatrixTable) and a topic-summary row
+(ArrayTable), with worker-local doc-topic counts and per-token topics.
+
+Counterpart of ``multiverso_tpu/apps/lightlda.py`` on one device, with its
+samplers:
+
+1. ``sampler="gibbs"``: exact vectorized collapsed Gibbs in plain torch
+   (no kernel): per step the batch's own counts leave the tables, the
+   posterior's CDF is drawn from with one uniform per token, the counts
+   come back.
+2. ``sampler="tiled"``: tile-aligned ``[*, C, 128]`` counts and the fused
+   posterior + two-level draw kernel (``ops.gibbs_sample_tiled``); the
+   word counts move by COO adds every step. ``stale_words=True`` gathers
+   word rows from a bf16 mirror refreshed per sweep, keeps doc counts in
+   int16 and rebuilds the int32 word table from z at sweep end.
+3. ``doc_blocked=True`` (the production mode): whole documents packed into
+   kernel blocks that own exclusive slices of a blocked doc-count array,
+   so the doc side never leaves the sampler kernel
+   (``ops.gibbs_sample_docblock``). ``stream_blocks=True`` keeps the
+   packed stream, z and the doc counts on the host and stages one call at
+   a time; the kernel then builds each block's counts from z
+   (``ops.gibbs_sample_docblock_build``) and the word table accumulates
+   from each call's z.
+
+Every count build and move of the word table is a COO add through the
+port's ``coo_scatter_add`` kernel; word and doc rows are gathered by the
+row gather kernel. The reference's ``lax.scan`` over the S steps of a call
+is a Python loop, and its ``jax.random`` uniforms are draws from a
+``torch.Generator`` on the device, seeded per call from (seed, call
+number); :meth:`LightLDA.sweep` also takes them as an input, so a caller
+can feed both packages the same ones.
+
+Not in the port yet (see ROADMAP.md): ``sampler="mh"``, ``local_corpus``
+and multi-process runs, model-parallel word tables, the run-directory
+manager, telemetry spans and health rollback, cached table views.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from multiverso_tpu_torch import core
+from multiverso_tpu_torch.data.pydata import PyData
+from multiverso_tpu_torch.ops.lda_sampler import (gibbs_sample_docblock,
+                                                  gibbs_sample_docblock_build,
+                                                  gibbs_sample_tiled)
+from multiverso_tpu_torch.tables import (ArrayTable, SparseMatrixTable,
+                                         make_superstep)
+from multiverso_tpu_torch.tables.base import (_local_path, _record_event,
+                                              loadz_stream, savez_stream)
+from multiverso_tpu_torch.tables.superstep import (coo_scatter_add,
+                                                   gather_rows)
+from multiverso_tpu_torch.utils import log
+from multiverso_tpu_torch.utils.async_buffer import prefetch_iterator
+
+STATE_MAGIC = "multiverso_tpu.lda_state.v1"
+
+#: ``uniforms(call_no) -> [S, n, B]`` float32 (n = 1 for gibbs, else 2)
+Uniforms = Callable[[int], "torch.Tensor | np.ndarray"]
+
+
+@dataclasses.dataclass
+class LDAConfig:
+    """The reference app's flag set (lightlda argv)."""
+    num_topics: int = 100
+    alpha: Optional[float] = None   # doc-topic prior; default 50/K
+    beta: float = 0.01              # word-topic prior
+    batch_tokens: int = 4096        # tokens per step
+    steps_per_call: int = 16        # steps per superstep call
+    num_iterations: int = 10        # full Gibbs sweeps
+    eval_every: int = 1             # likelihood eval cadence (sweeps)
+    checkpoint_prefix: str = ""     # periodic mid-train checkpoints
+    checkpoint_interval: int = 0    # store every N sweeps (0 = off)
+    sampler: str = "gibbs"          # "gibbs" (exact O(K), plain torch)
+    #                               | "tiled" (sampler kernel, K%128==0)
+    #                               | "mh" (not in the port yet)
+    stale_words: bool = False       # tiled only: word rows from a bf16
+    # mirror refreshed per sweep, int16 doc counts, word table rebuilt
+    # from z each sweep
+    doc_blocked: bool = False       # tiled only (implies stale_words):
+    # whole-doc kernel blocks owning exclusive doc-count slices
+    block_tokens: int = 512         # doc_blocked: tokens per kernel block
+    block_docs: int = 16            # doc_blocked: max docs per block
+    stream_blocks: bool = False     # doc_blocked only: stream, z and doc
+    # counts stay on the host; one call is staged at a time
+    local_corpus: bool = False      # per-process corpus shards (not in the
+    # port yet)
+    mh_steps: int = 2               # MH rounds (sampler "mh")
+    precision: str = "float32"      # gibbs posterior/CDF dtype (bfloat16)
+    seed: int = 0
+
+    def resolved_alpha(self) -> float:
+        return self.alpha if self.alpha is not None \
+            else 50.0 / self.num_topics
+
+
+def load_docs(path: str) -> Tuple[np.ndarray, np.ndarray, int]:
+    """Read 'word:count' bag-of-words docs into a flat token stream.
+
+    Returns (token_words [T], token_docs [T], vocab_size): counts expanded
+    to one entry per token occurrence (Gibbs assigns a topic per
+    occurrence)."""
+    offsets, word_ids, word_counts = PyData().lda_read_docs(path)
+    doc_of_entry = np.repeat(
+        np.arange(len(offsets) - 1, dtype=np.int32),
+        np.diff(offsets).astype(np.int64))
+    token_words = np.repeat(word_ids.astype(np.int32), word_counts)
+    token_docs = np.repeat(doc_of_entry, word_counts)
+    vocab = int(word_ids.max()) + 1 if len(word_ids) else 1
+    return token_words, token_docs, vocab
+
+
+def _predictive_ll(A, W, S, m, alpha, beta, K, vbeta) -> torch.Tensor:
+    """Per-token predictive log-likelihood under point estimates,
+    log sum_k theta_dk * phi_wk (the reference's `Eval` math), summed over
+    the tokens of mask ``m``. A/W are gathered 2-D float32 count rows, S
+    the [K] summary."""
+    theta = (A + alpha) / (A.sum(1, keepdim=True) + K * alpha)
+    phi = (W + beta) / (S + vbeta)
+    ll = torch.log(torch.clamp_min((theta * phi).sum(1), 1e-30))
+    return (ll * m).sum()
+
+
+def _eval_chunk(n: int) -> int:
+    """Largest chunk of ~64k tokens that divides ``n``: eval gathers
+    materialise [chunk, K] float32 rows, which must stay bounded however
+    large a call is."""
+    c = n
+    while c > (1 << 16) and c % 2 == 0:
+        c //= 2
+    return c
+
+
+class LightLDA:
+    """The app: count tables + the Gibbs-sweep superstep."""
+
+    def __init__(self, token_words: np.ndarray, token_docs: np.ndarray,
+                 vocab_size: int, config: LDAConfig, *,
+                 device: core.DeviceLike = None,
+                 name: str = "lightlda") -> None:
+        self.config = c = config
+        self.device = dev = core.resolve(device)
+        self.V = vocab_size
+        self.K = c.num_topics
+        self.num_docs = int(token_docs.max()) + 1 if len(token_docs) else 1
+        self.num_tokens = len(token_words)
+        if c.sampler == "mh" or c.local_corpus:
+            raise ValueError(
+                "sampler='mh' and local_corpus are not in the port yet "
+                "(see ROADMAP.md); use sampler='gibbs' or 'tiled'")
+        if c.sampler not in ("gibbs", "tiled"):
+            raise ValueError(f"sampler must be 'gibbs', 'mh' or 'tiled', "
+                             f"got {c.sampler!r}")
+        if c.precision not in ("float32", "bfloat16"):
+            raise ValueError(f"precision must be 'float32' or 'bfloat16', "
+                             f"got {c.precision!r}")
+        self.alpha = c.resolved_alpha()
+        self.beta = c.beta
+        tiled = c.sampler == "tiled"
+        if tiled and self.K % 128:
+            raise ValueError(f"sampler='tiled' needs num_topics % 128 "
+                             f"== 0, got {self.K}")
+        if (c.stale_words or c.doc_blocked) and not tiled:
+            raise ValueError(
+                f"stale_words/doc_blocked are sampler='tiled' modes; "
+                f"got sampler={c.sampler!r}")
+        if c.stream_blocks and not c.doc_blocked:
+            raise ValueError("stream_blocks requires doc_blocked=True")
+
+        # tables (the reference's server-side state); tiled storage puts
+        # one word's topic row in one [C, 128] tile
+        self.word_topic = SparseMatrixTable(
+            self.V, self.K, "int32", updater="default", device=dev,
+            name=f"{name}_word_topic", tiled=tiled)
+        self.summary = ArrayTable(self.K, "int32", updater="default",
+                                  device=dev, name=f"{name}_summary")
+        self._scratch_word = self.word_topic.padded_shape[0] - 1
+        self._scratch_doc = self.num_docs
+        self._docblock = tiled and c.doc_blocked
+        self._stale = tiled and (c.stale_words or c.doc_blocked)
+        ndk_dtype = torch.int32
+        if self._stale:
+            max_len = int(np.bincount(token_docs).max()) \
+                if len(token_docs) else 0
+            if max_len >= 32767:
+                raise ValueError(
+                    f"stale_words stores doc counts int16; a document "
+                    f"has {max_len} tokens (>= 32767)")
+            ndk_dtype = torch.int16
+        self._calls_done = 0
+        self.ll_history: list = []
+        self.doc_tokens_per_sec = 0.0   # of the last train()
+        self._last_store = ()
+        if self._docblock:
+            self._setup_docblock(token_words, token_docs, ndk_dtype)
+            if c.stream_blocks:
+                self._init_streamed_counts()
+                self._fused = make_superstep((self.summary,),
+                                             self._stream_body,
+                                             name="lda_docblock_stream")
+            else:
+                self._fused = make_superstep((self.summary,),
+                                             self._docblock_body,
+                                             name="lda_docblock")
+            return
+
+        ndk_shape = (self.num_docs + 1, self.K // 128, 128) if tiled \
+            else (self.num_docs + 1, self.K)
+        self._ndk = torch.zeros(ndk_shape, dtype=ndk_dtype, device=dev)
+        # token stream, padded to a whole number of superstep calls
+        call_tokens = c.batch_tokens * c.steps_per_call
+        T_pad = -(-max(self.num_tokens, 1) // call_tokens) * call_tokens
+        mask = np.zeros(T_pad, bool)
+        mask[: self.num_tokens] = True
+        tw = np.full(T_pad, self._scratch_word, np.int32)
+        tw[: self.num_tokens] = token_words
+        td = np.full(T_pad, self._scratch_doc, np.int32)
+        td[: self.num_tokens] = token_docs
+        # shuffle the stream: doc-contiguous order would put a whole doc
+        # in one batch, zeroing its doc-topic row under the batch-stale
+        # decrement; a fixed permutation spreads each doc/word over the
+        # sweep (padded lanes shuffle in too, masked)
+        perm = np.random.default_rng(c.seed ^ 0x5EED).permutation(T_pad)
+        self._tw = torch.as_tensor(tw[perm], device=dev)
+        self._td = torch.as_tensor(td[perm], device=dev)
+        self._mask = torch.as_tensor(mask[perm].astype(np.int32),
+                                     device=dev)
+        self.calls_per_sweep = T_pad // call_tokens
+        rng = np.random.default_rng(c.seed)
+        self._z = torch.as_tensor(
+            rng.integers(0, self.K, T_pad).astype(np.int32), device=dev)
+        self._init_counts()
+        if tiled:
+            self._fused = make_superstep(
+                (self.summary,) if self._stale
+                else (self.word_topic, self.summary),
+                self._tiled_body,
+                name="lda_tiled_stale" if self._stale else "lda_tiled")
+        else:
+            self._fused = make_superstep((self.word_topic, self.summary),
+                                         self._gibbs_body, name="lda_gibbs")
+
+    # -- doc-blocked stream / state ---------------------------------------
+
+    def _setup_docblock(self, token_words, token_docs, ndk_dtype) -> None:
+        """Pack the doc-sorted stream into whole-doc kernel blocks and
+        build the blocked doc-topic counts (see LDAConfig.doc_blocked)."""
+        c = self.config
+        TB, MAXD = c.block_tokens, c.block_docs
+        B, S = c.batch_tokens, c.steps_per_call
+        if TB % 8 or B % TB:
+            raise ValueError(f"block_tokens {TB} must be a multiple of 8 "
+                             f"dividing batch_tokens {B}")
+        order = np.argsort(token_docs, kind="stable")
+        tw, td = token_words[order], token_docs[order]
+        doc_ids, doc_starts = np.unique(td, return_index=True) \
+            if len(td) else (np.zeros(0, np.int64), np.zeros(0, np.int64))
+        doc_ends = np.append(doc_starts[1:], len(td)) if len(td) \
+            else doc_starts
+        lens = doc_ends - doc_starts
+        if len(lens) and lens.max() > TB:
+            raise ValueError(f"a document has {lens.max()} tokens > "
+                             f"block_tokens {TB}")
+        # greedy whole-doc block assignment (a scalar loop over doc
+        # lengths; the token-level copy below is vectorized)
+        n_real = len(doc_ids)
+        blk = np.empty(n_real, np.int64)
+        row = np.empty(n_real, np.int64)
+        off = np.empty(n_real, np.int64)
+        b = 0
+        cur_r = cur_tok = 0
+        for di, ln in enumerate(lens.tolist()):
+            if cur_tok + ln > TB or cur_r >= MAXD:
+                b += 1
+                cur_r = cur_tok = 0
+            blk[di], row[di], off[di] = b, cur_r, cur_tok
+            cur_r += 1
+            cur_tok += ln
+        n_blocks = (b + 1) if n_real else 1
+        nbs = B // TB                       # blocks per step
+        per_call = S * nbs
+        self._per_call, self._nbs = per_call, nbs
+        self._tb, self._maxd = TB, MAXD
+        n_calls = -(-n_blocks // per_call)
+        nb_pad = n_calls * per_call
+        self.calls_per_sweep = n_calls
+        self._nb_pad = nb_pad
+
+        tw_p = np.full((nb_pad, TB), self._scratch_word, np.int32)
+        drel_p = np.full((nb_pad, TB), MAXD - 1, np.int32)
+        mask_p = np.zeros((nb_pad, TB), np.int32)
+        # -1 = document with zero tokens (never packed into any block)
+        self._blk_of_doc = np.full(self.num_docs, -1, np.int64)
+        self._row_of_doc = np.full(self.num_docs, -1, np.int64)
+        if n_real:
+            tok_within = np.arange(len(td), dtype=np.int64) \
+                - np.repeat(doc_starts, lens)
+            flat = np.repeat(blk * TB + off, lens) + tok_within
+            tw_p.reshape(-1)[flat] = tw
+            drel_p.reshape(-1)[flat] = np.repeat(row, lens)
+            mask_p.reshape(-1)[flat] = 1
+            self._blk_of_doc[doc_ids] = blk
+            self._row_of_doc[doc_ids] = row
+        self.packing_fill = float(mask_p.sum() / max(nb_pad * TB, 1))
+        log.info("lda doc_blocked: %d blocks (%d/call, %.0f%% fill)",
+                 nb_pad, per_call, 100 * self.packing_fill)
+        # init z, shared by both residency modes so the streamed and
+        # in-memory runs are bit-identical for the same seed
+        rng = np.random.default_rng(c.seed)
+        z0 = rng.integers(0, self.K, (nb_pad, TB)).astype(np.int32)
+        dev = self.device
+        if c.stream_blocks:
+            self._tw_host, self._drel_host, self._z_host = tw_p, drel_p, z0
+            self._ndk = None
+            # inverse packing map for doc_topics(): (block, row) -> doc
+            self._doc_of_row = np.full((nb_pad, MAXD), -1, np.int64)
+            valid = self._blk_of_doc >= 0
+            self._doc_of_row[self._blk_of_doc[valid],
+                             self._row_of_doc[valid]] = np.nonzero(valid)[0]
+            return
+
+        self._tw = torch.as_tensor(tw_p, device=dev)
+        self._drel = torch.as_tensor(drel_p, device=dev)
+        self._mask = torch.as_tensor(mask_p, device=dev)
+        # eval-only doc-count rows of each token
+        self._rows = torch.as_tensor(
+            (np.arange(nb_pad)[:, None] * MAXD + drel_p).astype(np.int32),
+            device=dev)
+        self._z = torch.as_tensor(z0, device=dev)
+        self._word_counts_from_z()
+        K = self.K
+        ndk = torch.zeros(nb_pad * MAXD, K, dtype=torch.int32, device=dev)
+        ndk.view(-1).index_add_(
+            0, self._rows.view(-1).long() * K + self._z.view(-1).long(),
+            self._mask.view(-1))
+        self._ndk = ndk.to(ndk_dtype).view(nb_pad, MAXD, K // 128, 128)
+        nk = torch.zeros(self.summary.padded_shape, dtype=torch.int32,
+                         device=dev)
+        nk.index_add_(0, self._z.view(-1).long(), self._mask.view(-1))
+        self.summary.put_raw(nk)
+
+    def _word_counts_from_z(self) -> None:
+        """Install the word-topic counts of z (in-memory stream): one COO
+        add of (word, topic, mask) per token into a zero table."""
+        nwk = torch.zeros(self.word_topic.storage_shape, dtype=torch.int32,
+                          device=self.device)
+        coo_scatter_add(nwk, self._tw.view(-1), self._z.view(-1),
+                        self._mask.view(-1))
+        self.word_topic.put_raw(nwk)
+
+    def _init_counts(self) -> None:
+        """Counts of the initial z (shuffled-stream modes)."""
+        self._word_counts_from_z()
+        K = self.K
+        ndk = torch.zeros(self._ndk.shape[0], K, dtype=torch.int32,
+                          device=self.device)
+        ndk.view(-1).index_add_(0, self._td.long() * K + self._z.long(),
+                                self._mask)
+        self._ndk = ndk.to(self._ndk.dtype).view(self._ndk.shape)
+        nk = torch.zeros(self.summary.padded_shape, dtype=torch.int32,
+                         device=self.device)
+        nk.index_add_(0, self._z.long(), self._mask)
+        self.summary.put_raw(nk)
+
+    # -- uniforms ----------------------------------------------------------
+
+    def uniforms(self, call_no: int) -> torch.Tensor:
+        """The call's uniforms, ``[S, n, B]`` float32 (n = 1 for gibbs, 2
+        for the kernel samplers), drawn on the device from a generator
+        seeded by (seed, call number)."""
+        c = self.config
+        n = 1 if c.sampler == "gibbs" else 2
+        gen = core.generator(c.seed * 0x9E3779B1 + call_no,
+                             device=self.device)
+        return torch.rand((c.steps_per_call, n, c.batch_tokens),
+                          generator=gen, device=self.device)
+
+    def _call_uniforms(self, uniforms: Optional[Uniforms]) -> torch.Tensor:
+        call_no = self._calls_done
+        self._calls_done += 1
+        if uniforms is None:
+            return self.uniforms(call_no)
+        return core.place(uniforms(call_no), dtype=torch.float32,
+                          device=self.device)
+
+    def _sinv(self, nk: torch.Tensor) -> torch.Tensor:
+        """1 / (summary + V*beta) as the kernels' [C, 128] float32."""
+        return 1.0 / (nk[:self.K].to(torch.float32).view(-1, 128)
+                      + self.V * self.beta)
+
+    # -- superstep bodies --------------------------------------------------
+
+    def _gibbs_body(self, params, states, locals_, options, lo: int, u):
+        """Exact collapsed Gibbs, plain torch: S steps of B tokens from
+        stream position ``lo``."""
+        c = self.config
+        nwk, nk = params
+        ndk, z = locals_
+        K, B = self.K, c.batch_tokens
+        vbeta = self.V * self.beta
+        ft = torch.bfloat16 if c.precision == "bfloat16" else torch.float32
+        for s in range(c.steps_per_call):
+            sl = slice(lo + s * B, lo + (s + 1) * B)
+            w, d = self._tw[sl].long(), self._td[sl].long()
+            one = self._mask[sl]
+            zi = z[sl].long()
+            # remove the batch's own counts (proper collapsed Gibbs)
+            nwk.index_put_((w, zi), -one, accumulate=True)
+            ndk.index_put_((d, zi), -one, accumulate=True)
+            nk.index_add_(0, zi, -one)
+            A = ndk.index_select(0, d).to(ft)
+            W = nwk.index_select(0, w).to(ft)
+            Sd = (nk[:K].to(torch.float32) + vbeta).to(ft)
+            # linear-space posterior + inverse-CDF draw; batch-stale
+            # decrements can dip below zero: clamp (AD-LDA)
+            probs = torch.clamp_min((A + self.alpha) * (W + self.beta),
+                                    0.0) / Sd
+            cdf = torch.cumsum(probs, 1)
+            t = u[s, 0].to(ft)[:, None] * cdf[:, -1:]
+            znew = (cdf < t).sum(1).clamp_max(K - 1)
+            nwk.index_put_((w, znew), one, accumulate=True)
+            ndk.index_put_((d, znew), one, accumulate=True)
+            nk.index_add_(0, znew, one)
+            z[sl] = znew.to(torch.int32)
+        return (nwk, nk), states, (ndk, z), None
+
+    def _tiled_body(self, params, states, locals_, options, lo: int, u,
+                    wstale=None):
+        """The sampler kernel over tile-aligned counts: S steps of B
+        tokens from stream position ``lo``. Exact mode moves the word
+        counts by one COO add per step; stale mode (``wstale``, the bf16
+        mirror) leaves them to the sweep-end rebuild."""
+        c = self.config
+        K, B = self.K, c.batch_tokens
+        nk = params[-1]
+        ndk3, z = locals_
+        nwk3 = None if wstale is not None else params[0]
+        ndk_flat = ndk3.view(-1)
+        for s in range(c.steps_per_call):
+            sl = slice(lo + s * B, lo + (s + 1) * B)
+            w, d, msk = self._tw[sl], self._td[sl], self._mask[sl]
+            zi = z[sl]
+            W3 = gather_rows(nwk3 if wstale is None else wstale, w)
+            A3 = gather_rows(ndk3, d)
+            znew, nkd = gibbs_sample_tiled(
+                A3.view(B, -1, 128), W3.view(B, -1, 128), self._sinv(nk),
+                zi, msk, u[s, 0], u[s, 1], alpha=self.alpha, beta=self.beta)
+            one = msk.to(ndk3.dtype)
+            dk = d.long() * K
+            ndk_flat.index_add_(0, dk + zi.long(), -one)
+            ndk_flat.index_add_(0, dk + znew.long(), one)
+            nk[:K] += nkd.view(-1)
+            if nwk3 is not None:
+                coo_scatter_add(nwk3, torch.cat([w, w]),
+                                torch.cat([zi, znew]),
+                                torch.cat([-msk, msk]))
+            z[sl] = znew
+        return params, states, (ndk3, z), None
+
+    def _docblock_body(self, params, states, locals_, options, lo: int, u,
+                       wstale):
+        """The production step: per step, the word rows of B tokens from
+        the bf16 mirror, then the doc-blocked kernel over the step's
+        B / TB blocks (from block ``lo``), which moves their doc counts in
+        place."""
+        c = self.config
+        (nk,) = params
+        ndk, z = locals_
+        B, nbs, TB = c.batch_tokens, self._nbs, self._tb
+        for s in range(c.steps_per_call):
+            off = lo + s * nbs
+            blocks = slice(off, off + nbs)
+            W3 = gather_rows(wstale, self._tw[blocks].reshape(B))
+            _, znew, nkd = gibbs_sample_docblock(
+                ndk[blocks], W3.view(B, -1, 128), self._sinv(nk),
+                z[blocks].reshape(B), self._drel[blocks].reshape(B),
+                self._mask[blocks].reshape(B), u[s, 0], u[s, 1],
+                alpha=self.alpha, beta=self.beta, tb=TB)
+            z[blocks] = znew.view(nbs, TB)
+            nk[:self.K] += nkd.view(-1)
+        return (nk,), states, (ndk, z), None
+
+    def _stream_body(self, params, states, locals_, options, wstale,
+                     staged, u):
+        """One staged call of the out-of-core mode: ``staged`` [3, S, B]
+        holds (words, doc rows, z). The kernel builds each block's doc
+        counts from z; the call's word counts are added to ``acc``, which
+        after a sweep IS the new word table (the per-call +/- deltas of an
+        incremental update telescope to counts(z_end)). Returns the call's
+        new z as aux."""
+        c = self.config
+        (nk,) = params
+        (acc,) = locals_
+        S, B, TB, nbs = c.steps_per_call, c.batch_tokens, self._tb, self._nbs
+        tw, drel = staged[0], staged[1]
+        msk = (tw != self._scratch_word).to(torch.int32)
+        z = staged[2].reshape(S * nbs, TB)
+        for s in range(S):
+            blocks = slice(s * nbs, (s + 1) * nbs)
+            W3 = gather_rows(wstale, tw[s])
+            znew, nkd = gibbs_sample_docblock_build(
+                W3.view(B, -1, 128), self._sinv(nk), z[blocks].reshape(B),
+                drel[s], msk[s], u[s, 0], u[s, 1], alpha=self.alpha,
+                beta=self.beta, tb=TB, maxd=self._maxd)
+            z[blocks] = znew.view(nbs, TB)
+            nk[:self.K] += nkd.view(-1)
+        z_out = z.view(S, B)
+        coo_scatter_add(acc, tw.reshape(-1), z_out.reshape(-1),
+                        msk.reshape(-1))
+        return (nk,), states, (acc,), z_out
+
+    # -- out-of-core (streamed) doc-blocked mode ---------------------------
+
+    def _stream_stage(self, k: int) -> np.ndarray:
+        """Host side of staging call ``k``: one stacked [3, S, B] int32
+        array (words, doc rows, z), a single host-to-device copy."""
+        c = self.config
+        S, B = c.steps_per_call, c.batch_tokens
+        sl = slice(k * self._per_call, (k + 1) * self._per_call)
+        return np.stack([self._tw_host[sl].reshape(S, B),
+                         self._drel_host[sl].reshape(S, B),
+                         self._z_host[sl].reshape(S, B)])
+
+    def _stream_calls(self):
+        """Double-buffered staging: host slices are stacked on a prefetch
+        thread and copied to the device (asynchronously from pinned memory
+        on a card), so call k+1's copy overlaps call k's sweep."""
+        def gen():
+            for k in range(self.calls_per_sweep):
+                host = torch.from_numpy(self._stream_stage(k))
+                if self.device.type == "cuda":
+                    host = host.pin_memory()
+                yield k, host
+
+        for k, host in prefetch_iterator(gen(), depth=2):
+            yield k, host.to(self.device, non_blocking=True)
+
+    def _init_streamed_counts(self) -> None:
+        master = torch.zeros(self.word_topic.storage_shape,
+                             dtype=torch.int32, device=self.device)
+        nk = torch.zeros(self.summary.padded_shape, dtype=torch.int32,
+                         device=self.device)
+        for _k, staged in self._stream_calls():
+            tw, zf = staged[0].reshape(-1), staged[2].reshape(-1)
+            msk = (tw != self._scratch_word).to(torch.int32)
+            coo_scatter_add(master, tw, zf, msk)
+            nk.index_add_(0, zf.long(), msk)
+        self.word_topic.put_raw(master)
+        self.summary.put_raw(nk)
+
+    def _sweep_streamed(self, uniforms: Optional[Uniforms]) -> None:
+        wstale = self.word_topic.raw().to(torch.bfloat16)
+        acc = torch.zeros(self.word_topic.storage_shape, dtype=torch.int32,
+                          device=self.device)
+        per_call, TB = self._per_call, self._tb
+        pending: list = []
+
+        def drain(item):
+            k, host, event = item
+            if event is not None:
+                event.synchronize()
+            self._z_host[k * per_call:(k + 1) * per_call] = \
+                host.numpy().reshape(-1, TB)
+
+        for k, staged in self._stream_calls():
+            u = self._call_uniforms(uniforms)
+            (acc,), z_out = self._fused((acc,), wstale, staged, u)
+            pending.append((k, z_out.to("cpu", non_blocking=True),
+                            _record_event(self.device)))
+            if len(pending) > 2:
+                drain(pending.pop(0))
+        for item in pending:
+            drain(item)
+        self.word_topic.put_raw(acc)
+
+    # -- training ----------------------------------------------------------
+
+    def sweep(self, uniforms: Optional[Uniforms] = None) -> None:
+        """One full sampling pass over the corpus. ``uniforms`` (optional)
+        maps a call number to that call's ``[S, n, B]`` uniforms and
+        replaces the app's own draws (see :meth:`uniforms`)."""
+        c = self.config
+        if self._docblock and c.stream_blocks:
+            self._sweep_streamed(uniforms)
+            return
+        # a call's first block (doc-blocked) or stream position
+        per_call = self._per_call if self._docblock \
+            else c.batch_tokens * c.steps_per_call
+        # the stale modes read word rows from a bf16 mirror of the table
+        mirror = (self.word_topic.raw().to(torch.bfloat16),) \
+            if self._stale else ()
+        for call in range(self.calls_per_sweep):
+            u = self._call_uniforms(uniforms)
+            (self._ndk, self._z), _ = self._fused(
+                (self._ndk, self._z), call * per_call, u, *mirror)
+        if self._stale:
+            # fold the sweep's moves into the int32 table (the reference's
+            # block-end Add of accumulated deltas)
+            self._word_counts_from_z()
+
+    def train(self, num_iterations: Optional[int] = None,
+              uniforms: Optional[Uniforms] = None) -> float:
+        """Run Gibbs sweeps; returns the final per-token log-likelihood.
+        Eval runs every ``eval_every`` sweeps and on the last."""
+        c = self.config
+        iters = num_iterations if num_iterations is not None \
+            else c.num_iterations
+        every = max(c.eval_every, 1)
+        t0 = time.perf_counter()
+        for it in range(iters):
+            self.sweep(uniforms)
+            if c.checkpoint_interval > 0 and c.checkpoint_prefix \
+                    and (it + 1) % c.checkpoint_interval == 0:
+                self.store(c.checkpoint_prefix)
+            if (it + 1) % every and it + 1 != iters:
+                continue
+            ll = self.loglik()
+            self.ll_history.append(ll)
+            log.info("lightlda iter %d: loglik/token=%.4f", it, ll)
+        self.summary.wait()
+        dt = time.perf_counter() - t0
+        self.doc_tokens_per_sec = self.num_tokens * iters / max(dt, 1e-12)
+        log.info("lightlda done: %d iters, %.0f doc-tokens/s", iters,
+                 self.doc_tokens_per_sec)
+        return self.ll_history[-1] if self.ll_history else float("nan")
+
+    # -- eval / output -----------------------------------------------------
+
+    def _chunked_ll(self, nwk3, ndk_flat, ws, rows, m) -> torch.Tensor:
+        """The predictive log-likelihood of one call's tokens, summed in
+        float32 over chunks of ~64k tokens (eval rows stay bounded)."""
+        K = self.K
+        S = self.summary.raw()[:K].to(torch.float32)
+        n = _eval_chunk(ws.shape[0])
+        tot = torch.zeros((), dtype=torch.float32, device=self.device)
+        for lo in range(0, ws.shape[0], n):
+            sl = slice(lo, lo + n)
+            A = ndk_flat.index_select(0, rows[sl].long()).to(torch.float32)
+            W = gather_rows(nwk3, ws[sl]).to(torch.float32)
+            tot = tot + _predictive_ll(A, W, S, m[sl].to(torch.float32),
+                                       self.alpha, self.beta, K,
+                                       self.V * self.beta)
+        return tot
+
+    def loglik(self) -> float:
+        """Mean per-token predictive log-likelihood (the reference's
+        `Eval` role) over the device-resident stream."""
+        c = self.config
+        K = self.K
+        nwk = self.word_topic.raw()
+        total = 0.0
+        if self._docblock and c.stream_blocks:
+            S, B, TB, MAXD = (c.steps_per_call, c.batch_tokens, self._tb,
+                              self._maxd)
+            rows = ((torch.arange(S * B, device=self.device) // TB) * MAXD)
+            for _k, staged in self._stream_calls():
+                tw, drel, zf = (staged[i].reshape(-1) for i in range(3))
+                msk = (tw != self._scratch_word).to(torch.int32)
+                r = rows + drel
+                ndk = torch.zeros(S * B // TB * MAXD, K, dtype=torch.int32,
+                                  device=self.device)
+                ndk.view(-1).index_add_(0, r * K + zf.long(), msk)
+                total += float(self._chunked_ll(nwk, ndk.to(torch.int16),
+                                                tw, r, msk))
+            return total / max(self.num_tokens, 1)
+        call_tokens = c.batch_tokens * c.steps_per_call
+        if self._docblock:
+            ndk_flat = self._ndk.view(-1, K)
+            ws, rows, ms = (t.view(-1) for t in (self._tw, self._rows,
+                                                 self._mask))
+        else:
+            ndk_flat = self._ndk.view(-1, K)
+            ws, rows, ms = self._tw, self._td, self._mask
+        for lo in range(0, ws.shape[0], call_tokens):
+            sl = slice(lo, lo + call_tokens)
+            if c.sampler == "gibbs":
+                # the reference's one-shot gibbs eval: no chunks
+                A = ndk_flat.index_select(0, rows[sl].long()).to(
+                    torch.float32)
+                W = nwk.index_select(0, ws[sl].long()).to(torch.float32)
+                total += float(_predictive_ll(
+                    A, W, self.summary.raw()[:K].to(torch.float32),
+                    ms[sl].to(torch.float32), self.alpha, self.beta, K,
+                    self.V * self.beta))
+            else:
+                total += float(self._chunked_ll(nwk, ndk_flat, ws[sl],
+                                                rows[sl], ms[sl]))
+        return total / max(self.num_tokens, 1)
+
+    def doc_topics(self) -> np.ndarray:
+        """[num_docs, K] doc-topic counts (worker-local state)."""
+        if self._docblock and self.config.stream_blocks:
+            out = np.zeros((self.num_docs, self.K), np.int32)
+            chunk = max(1, (1 << 22) // self._tb)     # ~4M tokens
+            for lo in range(0, len(self._tw_host), chunk):
+                sl = slice(lo, lo + chunk)
+                tw, drel = self._tw_host[sl], self._drel_host[sl]
+                z = self._z_host[sl]
+                blocks = np.arange(lo, lo + len(tw))[:, None]
+                docs = self._doc_of_row[blocks, drel]
+                valid = (tw != self._scratch_word) & (docs >= 0)
+                np.add.at(out, (docs[valid], z[valid]), 1)
+            return out
+        if self._docblock:
+            blocked = self._ndk.cpu().numpy()
+            out = np.zeros((self.num_docs, self.K), np.int32)
+            valid = self._blk_of_doc >= 0
+            out[valid] = blocked[self._blk_of_doc[valid],
+                                 self._row_of_doc[valid]].reshape(
+                int(valid.sum()), self.K)
+            return out
+        return self._ndk[: self.num_docs].cpu().numpy().reshape(
+            self.num_docs, self.K).astype(np.int32)
+
+    def word_topics(self) -> np.ndarray:
+        """[V, K] word-topic counts from the table."""
+        return self.word_topic.get()
+
+    def top_words(self, topic: int, k: int = 10) -> np.ndarray:
+        return np.argsort(-self.word_topics()[:, topic])[:k]
+
+    def dump_model(self, uri: str, rows_per_fetch: int = 4096) -> None:
+        """Write the word-topic model in the reference's sparse text
+        format: one line per word, ``word_id topic:count ...`` with only
+        the NONZERO entries. Fetches go through
+        :meth:`SparseMatrixTable.get_rows_sparse`, so only nonzero entries
+        leave the device."""
+        with open(_local_path(uri), "wb") as stream:
+            for lo in range(0, self.V, rows_per_fetch):
+                ids = np.arange(lo, min(lo + rows_per_fetch, self.V))
+                indptr, cols, vals = self.word_topic.get_rows_sparse(ids)
+                lines = []
+                for i, w in enumerate(ids):
+                    ent = " ".join(
+                        f"{k}:{v}" for k, v in
+                        zip(cols[indptr[i]:indptr[i + 1]],
+                            vals[indptr[i]:indptr[i + 1]]))
+                    lines.append(f"{w} {ent}".rstrip())
+                stream.write(("\n".join(lines) + "\n").encode())
+
+    # -- checkpoint (the shared lda_state.v1 format) -----------------------
+
+    def _z_numpy(self) -> np.ndarray:
+        if self._docblock and self.config.stream_blocks:
+            return self._z_host.reshape(-1)
+        return self._z.cpu().numpy().reshape(-1)
+
+    def _export_sampler_state(self):
+        """(manifest scalars, payload arrays) of the sampler state: z and
+        the doc-topic counts (dense [D+1, K])."""
+        if self._docblock:
+            ndk_dtype = np.int16 if self.config.stream_blocks \
+                else torch.empty(0, dtype=self._ndk.dtype).numpy().dtype
+            dense = np.zeros((self.num_docs + 1, self.K), ndk_dtype)
+            dense[:self.num_docs] = self.doc_topics()
+            layout = "docblock"
+        else:
+            dense = self._ndk.cpu().numpy().reshape(self.num_docs + 1,
+                                                    self.K)
+            layout = "stream"
+        z = self._z_numpy()
+        manifest = {"magic": STATE_MAGIC,
+                    "num_tokens": self.num_tokens,
+                    "word_topic_step": self.word_topic.default_option.step,
+                    "perm_seed": self.config.seed,
+                    "t_pad": int(z.shape[0]),
+                    "layout": layout,
+                    "calls_done": self._calls_done}
+        if self._docblock:
+            manifest["block_tokens"] = self.config.block_tokens
+            manifest["block_docs"] = self.config.block_docs
+        return manifest, {"z": z, "ndk": dense}
+
+    def store(self, uri_prefix: str) -> None:
+        """Checkpoint tables AND sampler state (z, doc-topic counts), in
+        the format ``multiverso_tpu``'s LightLDA reads and writes."""
+        self.word_topic.store(f"{uri_prefix}.word_topic.npz")
+        self.summary.store(f"{uri_prefix}.summary.npz")
+        manifest, payload = self._export_sampler_state()
+        savez_stream(f"{uri_prefix}.state.npz", manifest, payload)
+        self._last_store = (uri_prefix, self._calls_done)
+
+    def load(self, uri_prefix: str) -> None:
+        self.word_topic.load(f"{uri_prefix}.word_topic.npz")
+        self.summary.load(f"{uri_prefix}.summary.npz")
+        manifest, data = loadz_stream(f"{uri_prefix}.state.npz", STATE_MAGIC)
+        self._import_sampler_state(manifest, data)
+
+    def _import_sampler_state(self, manifest, data) -> None:
+        """Validate sampler state against the live tables and install it."""
+        if manifest.get("layout") == "docblock_local":
+            raise ValueError("local_corpus checkpoints are not readable by "
+                             "the port yet (per-process z shards)")
+        if manifest["num_tokens"] != self.num_tokens:
+            raise ValueError(
+                f"checkpoint has {manifest['num_tokens']} tokens, app has "
+                f"{self.num_tokens} — same corpus required to resume")
+        if "word_topic_step" in manifest and \
+                self.word_topic.default_option.step \
+                != int(manifest["word_topic_step"]):
+            raise ValueError(
+                "lda checkpoint is torn: state was "
+                f"written at word_topic step "
+                f"{manifest['word_topic_step']} but the loaded table "
+                f"is at step {self.word_topic.default_option.step} — a "
+                "crash interrupted the multi-file store; use an older "
+                "complete checkpoint")
+        if manifest["perm_seed"] != self.config.seed:
+            raise ValueError(
+                f"checkpoint was written with seed "
+                f"{manifest['perm_seed']}, app has seed "
+                f"{self.config.seed}: z is indexed in the seed-derived "
+                "stream permutation, so the seeds must match to resume")
+        my_layout = "docblock" if self._docblock else "stream"
+        ck_layout = manifest.get("layout", "stream")
+        if ck_layout != my_layout:
+            raise ValueError(
+                f"checkpoint z layout {ck_layout!r} != app layout "
+                f"{my_layout!r}: z indexing is layout-specific")
+        if self._docblock:
+            want = (self.config.block_tokens, self.config.block_docs)
+            got = (manifest.get("block_tokens"), manifest.get("block_docs"))
+            if got != want:
+                raise ValueError(
+                    f"checkpoint block geometry {got} != app {want}: "
+                    "z packing must match to resume")
+        self._install_sampler_state(np.asarray(data["z"]),
+                                    np.asarray(data["ndk"]))
+        self._calls_done = int(manifest.get("calls_done", 0))
+
+    def _install_sampler_state(self, z: np.ndarray, dense: np.ndarray) -> None:
+        """Install z (in this app's layout, flattened) and the dense doc
+        counts ([D, K] or [D+1, K])."""
+        streamed = self._docblock and self.config.stream_blocks
+        z_shape = self._z_host.shape if streamed else tuple(self._z.shape)
+        if z.size != int(np.prod(z_shape)):
+            raise ValueError(
+                f"checkpoint z length {z.size} != app stream "
+                f"length {int(np.prod(z_shape))}: batch/block "
+                "geometry must match the checkpointing run to resume")
+        z = z.reshape(z_shape).astype(np.int32)
+        if streamed:
+            # host z is the sampler state; blocked doc counts are derived
+            # from it per call
+            self._z_host = z
+            return
+        self._z = torch.as_tensor(z, device=self.device)
+        dense = dense[:self.num_docs].reshape(self.num_docs, self.K)
+        np_dtype = torch.empty(0, dtype=self._ndk.dtype).numpy().dtype
+        if self._docblock:
+            blocked = np.zeros((self._nb_pad * self._maxd, self.K),
+                               np_dtype)
+            valid = self._blk_of_doc >= 0
+            rows = (self._blk_of_doc[valid] * self._maxd
+                    + self._row_of_doc[valid])
+            blocked[rows] = dense[valid]
+            self._ndk = torch.as_tensor(blocked, device=self.device).view(
+                self._ndk.shape)
+        else:
+            full = np.zeros((self.num_docs + 1, self.K), np_dtype)
+            full[:self.num_docs] = dense
+            self._ndk = torch.as_tensor(full, device=self.device).view(
+                self._ndk.shape)
+
+    def load_numpy(self, state) -> None:
+        """Install ``{"z", "ndk", "word_topic", "summary"}`` numpy state,
+        e.g. a ``multiverso_tpu`` LightLDA's
+        (:func:`multiverso_tpu_torch.convert.load_lightlda`)."""
+        from multiverso_tpu_torch.convert import load_lightlda
+        load_lightlda(self, state)
+
+
+def main(argv=None) -> None:
+    """CLI mirroring the reference lightlda binary's flags."""
+    from multiverso_tpu_torch.utils import configure
+    flags = [
+        (configure.define_string, "input_file", "",
+         "docs in word:count format"),
+        (configure.define_int, "num_topics", 100, "topics"),
+        (configure.define_float, "alpha", -1.0,
+         "doc-topic prior (<0 -> 50/K)"),
+        (configure.define_float, "beta", 0.01, "word-topic prior"),
+        (configure.define_int, "num_iterations", 10, "Gibbs sweeps"),
+        (configure.define_int, "eval_every", 1,
+         "likelihood eval cadence in sweeps"),
+        (configure.define_int, "batch_tokens", 4096, "tokens per step"),
+        (configure.define_int, "steps_per_call", 16,
+         "steps per superstep call"),
+        (configure.define_string, "output_file", "",
+         "model checkpoint prefix"),
+        (configure.define_string, "dump_file", "",
+         "sparse text model dump (word k:count ...)"),
+        (configure.define_string, "sampler", "gibbs",
+         "gibbs | tiled (K%128==0; sampler kernel)"),
+        (configure.define_bool, "stale_words", False,
+         "tiled: bf16 word mirror"),
+        (configure.define_bool, "doc_blocked", False,
+         "tiled: doc-blocked sampler (production mode)"),
+        (configure.define_int, "block_tokens", 512,
+         "doc_blocked: tokens per block"),
+        (configure.define_int, "block_docs", 16,
+         "doc_blocked: docs per block"),
+        (configure.define_bool, "stream_blocks", False,
+         "doc_blocked: host-resident stream and z"),
+        (configure.define_int, "seed", 0, "random seed"),
+        (configure.define_string, "device", "",
+         "torch device (default cuda:0)"),
+        (configure.define_int, "checkpoint_interval", 0,
+         "store -output_file every N sweeps (0 = only at end)"),
+    ]
+    for define, name, default, help_str in flags:
+        define(name, default, help_str, overwrite=True)
+    configure.parse_flags(argv or [])
+    core.init(device=configure.get_flag("device") or None)
+    path = configure.get_flag("input_file")
+    if not path:
+        raise SystemExit("-input_file is required")
+    tw, td, vocab = load_docs(path)
+    a = configure.get_flag("alpha")
+    cfg = LDAConfig(
+        num_topics=configure.get_flag("num_topics"),
+        alpha=None if a < 0 else a,
+        beta=configure.get_flag("beta"),
+        batch_tokens=configure.get_flag("batch_tokens"),
+        steps_per_call=configure.get_flag("steps_per_call"),
+        num_iterations=configure.get_flag("num_iterations"),
+        eval_every=configure.get_flag("eval_every"),
+        sampler=configure.get_flag("sampler"),
+        stale_words=configure.get_flag("stale_words"),
+        doc_blocked=configure.get_flag("doc_blocked"),
+        block_tokens=configure.get_flag("block_tokens"),
+        block_docs=configure.get_flag("block_docs"),
+        stream_blocks=configure.get_flag("stream_blocks"),
+        seed=configure.get_flag("seed"),
+        checkpoint_prefix=configure.get_flag("output_file"),
+        checkpoint_interval=configure.get_flag("checkpoint_interval"),
+    )
+    app = LightLDA(tw, td, vocab, cfg)
+    app.train()
+    out = configure.get_flag("output_file")
+    if out and app._last_store != (out, app._calls_done):
+        app.store(out)
+    dump = configure.get_flag("dump_file")
+    if dump:
+        app.dump_model(dump)
+    core.barrier()
+
+
+if __name__ == "__main__":
+    import sys
+    main(sys.argv[1:])

@@ -20,7 +20,8 @@ def load_table(table, arr: np.ndarray) -> None:
     table's value; the padding rows are zero when ``arr`` is logical.
     Advances the table's generation."""
     table.put_raw(torch.tensor(table._pad(np.asarray(arr)),
-                               device=table.device))
+                               device=table.device).reshape(
+        table.storage_shape))
 
 
 def load_word_embedding(app, weights: Dict[str, np.ndarray]) -> None:
@@ -32,3 +33,21 @@ def load_word_embedding(app, weights: Dict[str, np.ndarray]) -> None:
                          "expected 'w_in' and 'w_out'")
     for key, arr in weights.items():
         load_table(getattr(app, key), arr)
+
+
+def load_lightlda(app, state: Dict[str, np.ndarray]) -> None:
+    """Install a ``multiverso_tpu`` LightLDA's state into a
+    :class:`~multiverso_tpu_torch.apps.lightlda.LightLDA` on the same
+    corpus and config: ``z`` (flattened, in the app's own layout),
+    ``ndk`` (dense doc-topic counts ``[D, K]`` or ``[D+1, K]``),
+    ``word_topic`` (``[V, K]``) and ``summary`` (``[K]``)."""
+    missing = {"z", "ndk", "word_topic", "summary"} - set(state)
+    unknown = set(state) - {"z", "ndk", "word_topic", "summary"}
+    if missing or unknown:
+        raise ValueError(f"LightLDA state needs z, ndk, word_topic and "
+                         f"summary; missing {sorted(missing)}, unknown "
+                         f"{sorted(unknown)}")
+    load_table(app.word_topic, state["word_topic"])
+    load_table(app.summary, state["summary"])
+    app._install_sampler_state(np.asarray(state["z"]).reshape(-1),
+                               np.asarray(state["ndk"]))

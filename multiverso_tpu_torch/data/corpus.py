@@ -1,5 +1,5 @@
 """Corpus-level helpers: vocabulary, subsampling, negative-sampling
-distribution, Huffman codes, and batch iterators.
+distribution, Huffman codes, batch iterators, and synthetic corpora.
 
 Counterpart of ``multiverso_tpu/data/corpus.py`` on the Python backend
 (:class:`~multiverso_tpu_torch.data.pydata.PyData`); the reference's
@@ -168,3 +168,23 @@ def synthetic_text(path: str, num_tokens: int = 200_000,
                 line = []
         if line:
             f.write(" ".join(line) + "\n")
+
+
+def synthetic_docs(path: str, num_docs: int = 1000, vocab_size: int = 2000,
+                   avg_doc_len: int = 64, num_topics: int = 20,
+                   seed: int = 0) -> None:
+    """Write synthetic LDA docs in 'word:count' bag-of-words format with a
+    planted topic structure (so inference has something to find). The
+    same draws as ``multiverso_tpu.data.corpus.synthetic_docs``."""
+    rng = np.random.default_rng(seed)
+    # planted topics: each topic is a dirichlet over a vocab slice
+    topic_word = rng.dirichlet(np.full(vocab_size, 0.05), size=num_topics)
+    with open(path, "w") as f:
+        for _ in range(num_docs):
+            theta = rng.dirichlet(np.full(num_topics, 0.1))
+            length = max(1, rng.poisson(avg_doc_len))
+            topics = rng.choice(num_topics, size=length, p=theta)
+            words = np.array([rng.choice(vocab_size, p=topic_word[t])
+                              for t in topics])
+            uniq, cnts = np.unique(words, return_counts=True)
+            f.write(" ".join(f"{w}:{c}" for w, c in zip(uniq, cnts)) + "\n")

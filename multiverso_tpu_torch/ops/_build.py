@@ -1,7 +1,8 @@
 """Build and load the CUDA kernels of ``ops/csrc/``.
 
 The sources are compiled at first use with ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, loaded with
+(``sm_90a``), one ``nvcc`` per ``.cu`` file, all started together, and
+linked into one shared library with a plain C interface, loaded with
 ``ctypes``. The library goes to ``build/torch_kernels/`` at the root of the
 checkout, named by a hash of the sources, so an edited source rebuilds and
 an unchanged one loads the cached library. A build failure raises: there is
@@ -30,12 +31,23 @@ _LIB = None
 build_seconds = 0.0
 build_log = ""
 
-_P, _I64 = ctypes.c_void_p, ctypes.c_int64
+_P, _I64, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
 _SIGNATURES = {
-    # (param, rows, cols, ids, n, out, stream)
-    "mv_row_gather": [_P, _I64, _I64, _P, _I64, _P, _P],
-    # (param, rows, cols, ids, order, deltas, valid, n, stream)
-    "mv_row_scatter_add": [_P, _I64, _I64, _P, _P, _P, _P, _I64, _P],
+    # (param, rows, cols, elem_bytes, ids, n, out, stream)
+    "mv_row_gather": [_P, _I64, _I64, _I64, _P, _I64, _P, _P],
+    # (param, rows, cols, is_int, ids, order, deltas, valid, n, stream)
+    "mv_row_scatter_add": [_P, _I64, _I64, _I64, _P, _P, _P, _P, _I64, _P],
+    # (param, rows, cols, is_int, rows_ids, cols_ids, vals, valid, n,
+    #  stream)
+    "mv_coo_scatter_add": [_P, _I64, _I64, _I64, _P, _P, _P, _P, _I64, _P],
+    # (A, a_int16, W, w_bf16, sinv, zi, msk, u1, u2, b, C, alpha, beta,
+    #  znew, nkd, stream)
+    "mv_gibbs_tiled": [_P, _I64, _P, _I64, _P, _P, _P, _P, _P, _I64, _I64,
+                       _F, _F, _P, _P, _P],
+    # (ndk or None, n_int16, W, w_bf16, sinv, zi, drel, msk, u1, u2, nb,
+    #  tb, maxd, C, alpha, beta, znew, nkd, stream)
+    "mv_gibbs_docblock": [_P, _I64, _P, _I64, _P, _P, _P, _P, _P, _P, _I64,
+                          _I64, _I64, _I64, _F, _F, _P, _P, _P],
 }
 
 
@@ -68,19 +80,35 @@ def build() -> Path:
         build_seconds = 0.0
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in sources() if s.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, *cu]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, so)     # atomic: a concurrent loader sees all or none
+    cu = [s for s in sources() if s.suffix == ".cu"]
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objs = [os.path.join(work, s.stem + ".o") for s in cu]
+        procs = [subprocess.Popen(
+            [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-c", "-Xcompiler",
+             "-fPIC", "-Xptxas", "-v", "-o", obj, str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(cu, objs)]
+        logs, failed = [], []
+        for src, proc in zip(cu, procs):
+            out, _ = proc.communicate()
+            logs.append(f"== {src.name}\n{out}")
+            if proc.returncode != 0:
+                failed.append(f"{src.name} ({proc.returncode})")
+        tmp = os.path.join(work, "lib.so")
+        if not failed:
+            link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", tmp,
+                                   *objs], capture_output=True, text=True)
+            logs.append(link.stdout + link.stderr)
+            if link.returncode != 0:
+                failed.append(f"link ({link.returncode})")
+        build_seconds = time.perf_counter() - t0
+        build_log = "\n".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n"
+                               f"{build_log}")
+        os.replace(tmp, so)  # atomic: a concurrent loader sees all or none
     return so
 
 

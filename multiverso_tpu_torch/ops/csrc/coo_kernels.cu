@@ -1,0 +1,183 @@
+// Sorted COO scatter-add, param[rows[i], cols[i]] += vals[i], for Hopper
+// (sm_90a). Plain C interface, loaded with ctypes by ops/_build.py; the
+// entry point launches on the caller's stream, allocates nothing and
+// returns cudaGetLastError() of its launch.
+//
+// mv_coo_scatter_add replaces the TPU kernels of
+// multiverso_tpu/ops/table_kernels.py build_coo_scatter_add / _coo_kernel
+// and, with `valid` non-null, build_coo_scatter_add_masked /
+// _coo_masked_kernel. Lanes come sorted by row (the host prep or the
+// functional wrapper sorts them); a lane whose `valid` is 0, or whose row
+// or column is out of range, adds nothing. A tiled [R, C/128, 128] table
+// is the same memory as [R, C]. The table is updated in place.
+//
+// What bounds it: bytes. Each lane reads 12 bytes (row, column, value)
+// and makes one add; each touched element is read and written once.
+// LightLDA's sweep-end rebuild of the word-topic counts sends one lane per
+// token (10M) into a [50,001, 1024] int32 table, and its word ids are
+// Zipf-skewed: the top word owns about 14% of the lanes.
+//
+// What the design does about it.
+//
+// int32 (LightLDA's counts; exact in any order): the lanes are cut into
+// chunks of kChunk, one block each. Within a chunk a run of equal rows
+// shorter than kLongRun adds lane by lane with global atomics; a longer
+// run (a head word) is summed into a shared-memory row accumulator first
+// and its nonzero sums are merged into the table with one global atomic
+// each. A run that spans chunks is merged chunk by chunk the same way, so
+// no warp walks a long run alone and the head word's 1.4M lanes become at
+// most one atomic per touched column per chunk.
+//
+// float32 (the sgd updater's sparse Add): float sums depend on their
+// order, and the plain version (a stable-sorted index_add_ on the CPU)
+// adds each element's terms in sorted lane order. So one thread owns each
+// run of a row and adds its lanes in lane order: deterministic and equal
+// bit for bit to the plain version, the TPU kernel's order too. Long
+// float32 runs are walked by one thread; they are not on a hot path.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kItems = 16;                    // lanes per thread
+constexpr int kChunk = kThreads * kItems;     // lanes per block
+constexpr int kAccCols = 4096;                // shared row accumulator (16 KB)
+constexpr int kLongRun = 64;                  // runs this long use it
+
+// first index in s[0, len) whose value is >= v (s sorted ascending)
+__device__ __forceinline__ int lower_bound(const int32_t* s, int len,
+                                           int32_t v) {
+  int lo = 0, hi = len;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (s[mid] < v) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// first index in s[0, len) whose value is > v
+__device__ __forceinline__ int upper_bound(const int32_t* s, int len,
+                                           int32_t v) {
+  int lo = 0, hi = len;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (s[mid] <= v) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+__global__ void __launch_bounds__(kThreads)
+coo_add_int_kernel(int32_t* __restrict__ param, int64_t nrows, int64_t ncols,
+                   const int32_t* __restrict__ rows,
+                   const int32_t* __restrict__ cols,
+                   const int32_t* __restrict__ vals,
+                   const int32_t* __restrict__ valid, int64_t n) {
+  __shared__ int32_t s_rows[kChunk];
+  __shared__ int32_t s_acc[kAccCols];
+  __shared__ int s_long[kChunk / kLongRun + 1];  // first lane of each long run
+  __shared__ int s_nlong;
+  const int64_t base = (int64_t)blockIdx.x * kChunk;
+  const int64_t rest = n - base;
+  const int len = rest < kChunk ? (int)rest : kChunk;
+  const bool shared_ok = ncols <= kAccCols;
+  if (threadIdx.x == 0) s_nlong = 0;
+  for (int i = threadIdx.x; i < len; i += kThreads) s_rows[i] = rows[base + i];
+  __syncthreads();
+
+  // short runs: one global atomic per lane; long runs: note where they start
+  for (int i = threadIdx.x; i < len; i += kThreads) {
+    const int32_t r = s_rows[i];
+    if (shared_ok) {
+      const int lo = lower_bound(s_rows, len, r);
+      const int hi = upper_bound(s_rows, len, r);
+      if (hi - lo >= kLongRun) {
+        if (i == lo) s_long[atomicAdd(&s_nlong, 1)] = lo;
+        continue;
+      }
+    }
+    const int64_t j = base + i;
+    if (r < 0 || r >= nrows) continue;
+    if (valid != nullptr && valid[j] == 0) continue;
+    const int32_t c = cols[j];
+    if (c < 0 || c >= ncols) continue;
+    atomicAdd(param + (int64_t)r * ncols + c, vals[j]);
+  }
+  __syncthreads();
+
+  // long runs, one at a time: sum the chunk's part of the run in shared
+  // memory, then merge each nonzero column into the table
+  const int nlong = s_nlong;
+  for (int k = 0; k < nlong; ++k) {
+    const int lo = s_long[k];
+    const int32_t r = s_rows[lo];
+    const int hi = upper_bound(s_rows, len, r);
+    for (int x = threadIdx.x; x < ncols; x += kThreads) s_acc[x] = 0;
+    __syncthreads();
+    for (int i = lo + threadIdx.x; i < hi; i += kThreads) {
+      const int64_t j = base + i;
+      if (valid != nullptr && valid[j] == 0) continue;
+      const int32_t c = cols[j];
+      if (c < 0 || c >= ncols) continue;
+      atomicAdd(&s_acc[c], vals[j]);
+    }
+    __syncthreads();
+    if (r >= 0 && r < nrows) {
+      int32_t* dst = param + (int64_t)r * ncols;
+      for (int x = threadIdx.x; x < ncols; x += kThreads) {
+        const int32_t a = s_acc[x];
+        if (a != 0) atomicAdd(dst + x, a);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+coo_add_float_kernel(float* __restrict__ param, int64_t nrows, int64_t ncols,
+                     const int32_t* __restrict__ rows,
+                     const int32_t* __restrict__ cols,
+                     const float* __restrict__ vals,
+                     const int32_t* __restrict__ valid, int64_t n) {
+  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
+  const int32_t r = rows[i];
+  if (i > 0 && rows[i - 1] == r) return;  // the run's first lane owns it
+  if (r < 0 || r >= nrows) return;
+  float* dst = param + (int64_t)r * ncols;
+  for (int64_t j = i; j < n && rows[j] == r; ++j) {
+    if (valid != nullptr && valid[j] == 0) continue;
+    const int32_t c = cols[j];
+    if (c < 0 || c >= ncols) continue;
+    dst[c] += vals[j];
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// `is_int`: 0 for a float32 table and values, 1 for int32.
+// `valid` (nullable): per sorted lane; 0 gates the lane off.
+int mv_coo_scatter_add(void* param, int64_t nrows, int64_t ncols,
+                       int64_t is_int, const int32_t* rows,
+                       const int32_t* cols, const void* vals,
+                       const int32_t* valid, int64_t n, void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_int) {
+    const unsigned grid = (unsigned)((n + kChunk - 1) / kChunk);
+    coo_add_int_kernel<<<grid, kThreads, 0, s>>>(
+        static_cast<int32_t*>(param), nrows, ncols, rows, cols,
+        static_cast<const int32_t*>(vals), valid, n);
+  } else {
+    const unsigned grid = (unsigned)((n + kThreads - 1) / kThreads);
+    coo_add_float_kernel<<<grid, kThreads, 0, s>>>(
+        static_cast<float*>(param), nrows, ncols, rows, cols,
+        static_cast<const float*>(vals), valid, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,11 +1,13 @@
-// Row gather and sorted row scatter-add for float32 tables, for Hopper
-// (sm_90a). Plain C interface, loaded with ctypes by ops/_build.py; every
-// entry point launches on the caller's stream, allocates nothing and
-// returns cudaGetLastError() of its launch.
+// Row gather and sorted row scatter-add, for Hopper (sm_90a). Plain C
+// interface, loaded with ctypes by ops/_build.py; every entry point
+// launches on the caller's stream, allocates nothing and returns
+// cudaGetLastError() of its launch.
 //
 // Row gather (mv_row_gather) replaces the TPU kernel
 // multiverso_tpu/ops/table_kernels.py build_row_gather / _gather_kernel:
-// out[i] = param[ids[i]].
+// out[i] = param[ids[i]]. It copies rows of 2-byte or 4-byte elements
+// (float32 and int32 tables, the LDA's bf16 word-count mirror and int16
+// doc counts) as bytes.
 //
 // Sorted row scatter-add (mv_row_scatter_add) replaces
 // multiverso_tpu/ops/table_kernels.py build_row_scatter_add /
@@ -14,17 +16,19 @@
 // sorted ascending, every run of equal ids adds its (valid) deltas to its
 // row, which is read once and written once; rows no id names are not
 // touched (the table is updated in place, the counterpart of the TPU
-// kernel's input_output_aliases).
+// kernel's input_output_aliases). float32 and int32 tables.
 //
 // What bounds them: bytes moved. Both do one add per element at most, far
-// below the card's float32 rate. A word2vec step (batch 4096, 5 negatives,
+// below the card's rate. A word2vec step (batch 4096, 5 negatives,
 // dim 100) gathers B*(1+K) = 24,576 rows of 400 bytes from w_out and
-// scatters as many back, so each call moves about 10 MB each way.
+// scatters as many back, so each call moves about 10 MB each way; a
+// LightLDA step gathers 512,000 bf16 word-count rows of 2 KB (1 GB).
 //
-// What the design does about it: one warp per row, 16-byte float4 loads
-// and stores when the row width is a multiple of 4 and the pointers are
-// 16-byte aligned (a 100-wide row is 25 float4, one per lane), scalar
-// loads otherwise; each warp reads its own ids (no scalar prefetch).
+// What the design does about it: one warp per row, 16-byte loads and
+// stores when the row's bytes are a multiple of 16 and the pointers are
+// 16-byte aligned (a 100-wide float32 row is 25 of them, one per lane),
+// narrower accesses otherwise; each warp reads its own ids (no scalar
+// prefetch).
 //
 // The TPU scatter relied on its sequential grid to keep a row resident
 // across consecutive equal ids. Hopper blocks run in parallel and in no
@@ -46,70 +50,62 @@ constexpr int kWarp = 32;
 constexpr int kWarpsPerBlock = 8;
 constexpr unsigned kFull = 0xffffffffu;
 
-template <int W>
-struct Vec;
+// V is the access type: the element itself or a 16-byte vector of them.
+__device__ __forceinline__ void vadd(float& a, const float& b) { a += b; }
+__device__ __forceinline__ void vadd(int32_t& a, const int32_t& b) { a += b; }
+__device__ __forceinline__ void vadd(float4& a, const float4& b) {
+  a.x += b.x;
+  a.y += b.y;
+  a.z += b.z;
+  a.w += b.w;
+}
+__device__ __forceinline__ void vadd(int4& a, const int4& b) {
+  a.x += b.x;
+  a.y += b.y;
+  a.z += b.z;
+  a.w += b.w;
+}
 
-template <>
-struct Vec<1> {
-  using T = float;
-  __device__ static T zero() { return 0.0f; }
-  __device__ static void add(T& a, const T& b) { a += b; }
-};
-
-template <>
-struct Vec<4> {
-  using T = float4;
-  __device__ static T zero() { return make_float4(0.f, 0.f, 0.f, 0.f); }
-  __device__ static void add(T& a, const T& b) {
-    a.x += b.x;
-    a.y += b.y;
-    a.z += b.z;
-    a.w += b.w;
-  }
-};
-
-// W floats per lane per access: 4 (float4) or 1 (scalar). `cols` is a
-// multiple of W.
-template <int W>
+// Copies `words` units of type V per row (the row's bytes / sizeof(V)).
+template <typename V>
 __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
-row_gather_kernel(const float* __restrict__ param, int64_t rows, int64_t cols,
+row_gather_kernel(const V* __restrict__ param, int64_t rows, int64_t words,
                   const int32_t* __restrict__ ids, int64_t n,
-                  float* __restrict__ out) {
-  using T = typename Vec<W>::T;
+                  V* __restrict__ out) {
   const int lane = threadIdx.x % kWarp;
   const int64_t i = (int64_t)blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
   if (i >= n) return;
   const int64_t r = ids[i];
-  const int64_t vcols = cols / W;
-  T* dst = reinterpret_cast<T*>(out + i * cols);
+  V* dst = out + i * words;
   if (r < 0 || r >= rows) {  // out of range: a row of zeros
-    for (int64_t c = lane; c < vcols; c += kWarp) dst[c] = Vec<W>::zero();
+    for (int64_t c = lane; c < words; c += kWarp) dst[c] = V{};
     return;
   }
-  const T* src = reinterpret_cast<const T*>(param + r * cols);
-  for (int64_t c = lane; c < vcols; c += kWarp) dst[c] = src[c];
+  const V* src = param + r * words;
+  for (int64_t c = lane; c < words; c += kWarp) dst[c] = src[c];
 }
 
-template <int W>
+// E is the element type, V the access type (E or a 16-byte vector of E);
+// `vcols` counts V units per row.
+template <typename E, typename V>
 __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
-row_scatter_add_kernel(float* __restrict__ param, int64_t rows, int64_t cols,
+row_scatter_add_kernel(E* __restrict__ param, int64_t rows, int64_t vcols,
                        const int32_t* __restrict__ ids,
                        const int64_t* __restrict__ order,
-                       const float* __restrict__ deltas,
+                       const E* __restrict__ deltas,
                        const int32_t* __restrict__ valid, int64_t n) {
-  using T = typename Vec<W>::T;
   const int lane = threadIdx.x % kWarp;
   const int64_t i = (int64_t)blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
   if (i >= n) return;
   const int32_t r = ids[i];
   if (i > 0 && ids[i - 1] == r) return;  // the run's first lane owns the row
   if (r < 0 || r >= rows) return;         // out of range: dropped
-  const int64_t vcols = cols / W;
-  T* row = reinterpret_cast<T*>(param + (int64_t)r * cols);
-  // one pass per 32*W columns (a single pass for rows up to 128 wide)
+  V* row = reinterpret_cast<V*>(param) + (int64_t)r * vcols;
+  const V* dv = reinterpret_cast<const V*>(deltas);
+  // one pass per 32 V units of the row
   for (int64_t c = lane; c - lane < vcols; c += kWarp) {
     const bool has_col = c < vcols;
-    T acc = has_col ? row[c] : Vec<W>::zero();
+    V acc = has_col ? row[c] : V{};
     for (int64_t j0 = i;; j0 += kWarp) {
       const int64_t j = j0 + lane;
       const bool in_run = j < n && ids[j] == r;
@@ -126,8 +122,7 @@ row_scatter_add_kernel(float* __restrict__ param, int64_t rows, int64_t cols,
       for (int k = 0; k < len; ++k) {
         const int64_t s = __shfl_sync(kFull, src, k);
         const int okk = __shfl_sync(kFull, ok, k);
-        if (okk && has_col)
-          Vec<W>::add(acc, reinterpret_cast<const T*>(deltas + s * cols)[c]);
+        if (okk && has_col) vadd(acc, dv[s * vcols + c]);
       }
       if (len < kWarp) break;
     }
@@ -135,46 +130,72 @@ row_scatter_add_kernel(float* __restrict__ param, int64_t rows, int64_t cols,
   }
 }
 
-inline bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+inline bool aligned(const void* p, unsigned bytes) {
+  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
 }
 
 inline unsigned blocks_for(int64_t n) {
   return (unsigned)((n + kWarpsPerBlock - 1) / kWarpsPerBlock);
 }
 
+template <typename E, typename V4>
+int launch_scatter(E* param, int64_t rows, int64_t cols, const int32_t* ids,
+                   const int64_t* order, const E* deltas,
+                   const int32_t* valid, int64_t n, cudaStream_t s) {
+  const dim3 grid(blocks_for(n)), block(kWarp * kWarpsPerBlock);
+  if (cols % 4 == 0 && aligned(param, 16) && aligned(deltas, 16))
+    row_scatter_add_kernel<E, V4><<<grid, block, 0, s>>>(
+        param, rows, cols / 4, ids, order, deltas, valid, n);
+  else
+    row_scatter_add_kernel<E, E><<<grid, block, 0, s>>>(
+        param, rows, cols, ids, order, deltas, valid, n);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-int mv_row_gather(const float* param, int64_t rows, int64_t cols,
-                  const int32_t* ids, int64_t n, float* out, void* stream) {
+// `elem_bytes` is 2 or 4: the row is cols * elem_bytes bytes.
+int mv_row_gather(const void* param, int64_t rows, int64_t cols,
+                  int64_t elem_bytes, const int32_t* ids, int64_t n,
+                  void* out, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
+  if (elem_bytes != 2 && elem_bytes != 4) return (int)cudaErrorInvalidValue;
   const dim3 grid(blocks_for(n)), block(kWarp * kWarpsPerBlock);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (cols % 4 == 0 && aligned16(param) && aligned16(out))
-    row_gather_kernel<4><<<grid, block, 0, s>>>(param, rows, cols, ids, n, out);
+  const int64_t bytes = cols * elem_bytes;
+  if (bytes % 16 == 0 && aligned(param, 16) && aligned(out, 16))
+    row_gather_kernel<uint4><<<grid, block, 0, s>>>(
+        static_cast<const uint4*>(param), rows, bytes / 16, ids, n,
+        static_cast<uint4*>(out));
+  else if (bytes % 4 == 0 && aligned(param, 4) && aligned(out, 4))
+    row_gather_kernel<uint32_t><<<grid, block, 0, s>>>(
+        static_cast<const uint32_t*>(param), rows, bytes / 4, ids, n,
+        static_cast<uint32_t*>(out));
   else
-    row_gather_kernel<1><<<grid, block, 0, s>>>(param, rows, cols, ids, n, out);
+    row_gather_kernel<uint16_t><<<grid, block, 0, s>>>(
+        static_cast<const uint16_t*>(param), rows, bytes / 2, ids, n,
+        static_cast<uint16_t*>(out));
   return (int)cudaGetLastError();
 }
 
+// `is_int`: 0 for float32 tables and deltas, 1 for int32.
 // `order` (nullable): deltas row of sorted lane j is order[j], else j.
 // `valid` (nullable): indexed like deltas rows; 0 gates the lane off.
-int mv_row_scatter_add(float* param, int64_t rows, int64_t cols,
-                       const int32_t* ids, const int64_t* order,
-                       const float* deltas, const int32_t* valid, int64_t n,
-                       void* stream) {
+int mv_row_scatter_add(void* param, int64_t rows, int64_t cols,
+                       int64_t is_int, const int32_t* ids,
+                       const int64_t* order, const void* deltas,
+                       const int32_t* valid, int64_t n, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  const dim3 grid(blocks_for(n)), block(kWarp * kWarpsPerBlock);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (cols % 4 == 0 && aligned16(param) && aligned16(deltas))
-    row_scatter_add_kernel<4><<<grid, block, 0, s>>>(
-        param, rows, cols, ids, order, deltas, valid, n);
-  else
-    row_scatter_add_kernel<1><<<grid, block, 0, s>>>(
-        param, rows, cols, ids, order, deltas, valid, n);
-  return (int)cudaGetLastError();
+  if (is_int)
+    return launch_scatter<int32_t, int4>(
+        static_cast<int32_t*>(param), rows, cols, ids, order,
+        static_cast<const int32_t*>(deltas), valid, n, s);
+  return launch_scatter<float, float4>(
+      static_cast<float*>(param), rows, cols, ids, order,
+      static_cast<const float*>(deltas), valid, n, s);
 }
 
 }  // extern "C"

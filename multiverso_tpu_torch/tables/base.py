@@ -14,7 +14,9 @@ Counterpart of ``multiverso_tpu/tables/base.py``:
 
 The leading dimension is padded as the reference pads it on a one-device
 mesh (subclasses reserve scratch rows); the logical shape is what the API
-shows.
+shows. ``storage_shape`` is the physical layout of the param tensor: the
+padded shape, or a re-tiled view of it (``[R, C/128, 128]`` for a tiled
+SparseMatrixTable); checkpoints always hold the padded shape.
 """
 
 from __future__ import annotations
@@ -204,6 +206,7 @@ class Table:
         self.generation = 0
         lead = self.logical_shape[0] if self.logical_shape else 1
         self.padded_shape = (self._pad_lead(lead),) + self.logical_shape[1:]
+        self.storage_shape = self.padded_shape
         init = np.full(self.padded_shape, init_value, dtype=self.np_dtype) \
             if np.isscalar(init_value) else self._pad(np.asarray(init_value))
         self.param = torch.tensor(init, device=self.device)
@@ -249,13 +252,13 @@ class Table:
         return self.param
 
     def put_raw(self, padded: torch.Tensor) -> None:
-        """Replace table storage with a tensor of the padded shape and the
+        """Replace table storage with a tensor of the storage shape and the
         table's dtype (moved to the table's device); advances the
         generation. Updater state is untouched."""
-        if tuple(padded.shape) != self.padded_shape:
+        if tuple(padded.shape) != self.storage_shape:
             raise ValueError(
                 f"table {self.name!r}: put_raw shape {tuple(padded.shape)} "
-                f"!= padded shape {self.padded_shape}")
+                f"!= storage shape {self.storage_shape}")
         if padded.dtype != self.dtype:
             raise ValueError(f"table {self.name!r}: put_raw dtype "
                              f"{padded.dtype} != table dtype {self.dtype}")
@@ -265,8 +268,8 @@ class Table:
 
     def get_tensor(self) -> torch.Tensor:
         """The logical value (padding sliced off) as a fresh device tensor."""
-        return self.param[tuple(slice(0, l)
-                                for l in self.logical_shape)].clone()
+        return self.param.view(self.padded_shape)[
+            tuple(slice(0, l) for l in self.logical_shape)].clone()
 
     def get(self) -> np.ndarray:
         """Whole-table fetch to host (``WorkerTable::Get``)."""
@@ -296,8 +299,9 @@ class Table:
             delta = torch.tensor(self._pad(np.asarray(delta)),
                                  device=self.device)
         opt = self._resolve_option(option)
-        self.param, self.state = self.updater.apply(self.param, self.state,
-                                                    delta, opt)
+        param, self.state = self.updater.apply(
+            self.param.view(self.padded_shape), self.state, delta, opt)
+        self.param = param.reshape(self.storage_shape)
         handle = Handle(table=self, generation=self._bump_step())
         if sync:
             handle.wait()
@@ -327,7 +331,7 @@ class Table:
     def store(self, uri: str) -> None:
         """Serialize param + updater state (the padded arrays)."""
         manifest = self._manifest()
-        payload = {"param": self.param.cpu().numpy()}
+        payload = {"param": self.param.view(self.padded_shape).cpu().numpy()}
         keys = state_keys(self.state)
         for i, key in enumerate(keys):
             payload[f"state_{i}"] = self.state[key].cpu().numpy()
@@ -360,7 +364,8 @@ class Table:
                 arr = np.pad(arr, pad)
             return torch.tensor(arr.astype(dtype), device=self.device)
 
-        self.param = repad(data["param"], self.np_dtype)
+        self.param = repad(data["param"], self.np_dtype).reshape(
+            self.storage_shape)
         self.state = {key: repad(data[f"state_{i}"], np.dtype(np.float32))
                       for i, key in enumerate(keys)}
         self.default_option.step = int(manifest.get("step", 0))

@@ -1,0 +1,142 @@
+"""SparseMatrixTable: matrix table with COO sparse Add and sparse-row Get.
+
+Counterpart of ``multiverso_tpu/tables/sparse_matrix_table.py`` (the
+reference's ``SparseMatrixTable``, LightLDA's word-topic count store) on
+one device:
+
+- storage stays dense; ``tiled=True`` (``num_cols % 128 == 0``) stores it
+  as ``[rows, C, 128]``, ``C = num_cols / 128``, the layout LightLDA's
+  samplers gather from. The public API and checkpoints stay 2-D.
+- :meth:`add_sparse` (``param[rows[i], cols[i]] += values[i]``) sorts the
+  lanes by row on the host (stable), pads them to a power of two with
+  lanes on the scratch row and runs the masked COO kernel
+  (:func:`~multiverso_tpu_torch.ops.table_kernels.coo_scatter_add_masked`)
+  with the padding mask.
+- :meth:`get_rows_sparse` counts each requested row's nonzeros on the
+  device, extracts the top-k entries by magnitude there (k the largest
+  count, rounded up to a power of two) and builds the CSR on the host, so
+  only O(max_nnz * n) values leave the device.
+- ``get_rows`` / ``add_rows`` go through the row kernels (MatrixTable).
+
+Only the stateless updaters (``default``, the LDA count case, and
+``sgd``) are supported, as in the reference.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional, Tuple
+
+import numpy as np
+import torch
+
+from multiverso_tpu_torch import core
+from multiverso_tpu_torch.ops import table_kernels as tk
+from multiverso_tpu_torch.tables.base import Handle
+from multiverso_tpu_torch.tables.hashing import _bucket
+from multiverso_tpu_torch.tables.matrix_table import MatrixTable
+from multiverso_tpu_torch.updaters import AddOption
+
+LANES = 128
+
+
+class SparseMatrixTable(MatrixTable):
+    def __init__(self, num_rows: int, num_cols: int,
+                 dtype: Any = "float32", *, init_value: Any = 0,
+                 updater: Optional[str] = None,
+                 device: core.DeviceLike = None,
+                 name: str = "sparse_matrix_table",
+                 default_option: Optional[AddOption] = None,
+                 tiled: bool = False) -> None:
+        if tiled and num_cols % LANES:
+            raise ValueError(f"tiled storage needs num_cols % {LANES} == 0,"
+                             f" got {num_cols}")
+        self.tiled = tiled
+        self.tiles = num_cols // LANES if tiled else 0
+        super().__init__(num_rows, num_cols, dtype, init_value=init_value,
+                         updater=updater, device=device, name=name,
+                         default_option=default_option)
+        if self.updater.name not in ("default", "sgd"):
+            raise ValueError(
+                f"SparseMatrixTable supports stateless updaters "
+                f"(default, sgd), got {self.updater.name!r}")
+        if tiled:
+            self.storage_shape = (self.padded_shape[0], self.tiles, LANES)
+            self.param = self.param.view(self.storage_shape)
+
+    # -- COO sparse Add ----------------------------------------------------
+
+    def add_sparse(self, rows, cols, values,
+                   option: Optional[AddOption] = None,
+                   sync: bool = False) -> Handle:
+        """COO sparse Add: ``param[rows[i], cols[i]] += values[i]``.
+
+        Duplicate (row, col) pairs accumulate, in input order for each
+        element. With the ``sgd`` updater the values are treated as
+        gradients: ``param -= lr * values``."""
+        rows = np.asarray(rows, dtype=np.int32)
+        cols = np.asarray(cols, dtype=np.int32)
+        values = np.asarray(values)
+        if not (rows.shape == cols.shape == values.shape) or rows.ndim != 1:
+            raise ValueError(
+                f"COO arrays must be same-length 1-D, got rows={rows.shape} "
+                f"cols={cols.shape} values={values.shape}")
+        if len(rows) == 0:
+            raise ValueError("empty COO add")
+        self._check_ids(rows)
+        if cols.min() < 0 or cols.max() >= self.num_cols:
+            raise ValueError(f"col ids out of range [0, {self.num_cols})")
+        order = np.argsort(rows, kind="stable")
+        rows, cols, values = rows[order], cols[order], values[order]
+        if self.updater.name == "sgd":
+            lr = float(option.learning_rate if option is not None
+                       else self.default_option.learning_rate)
+            values = -lr * values
+        n, b = len(rows), _bucket(len(rows))
+        prows = np.full(b, self._scratch_row, dtype=np.int32)
+        pcols = np.zeros(b, dtype=np.int32)
+        pvals = np.zeros(b, dtype=self.np_dtype)
+        prows[:n], pcols[:n], pvals[:n] = rows, cols, values
+        valid = np.zeros(b, dtype=np.int32)
+        valid[:n] = 1
+        dev = self.device
+        tk.coo_scatter_add_masked(
+            self.param, torch.as_tensor(prows, device=dev),
+            torch.as_tensor(pcols, device=dev),
+            torch.as_tensor(pvals, device=dev),
+            torch.as_tensor(valid, device=dev))
+        handle = Handle(table=self, generation=self._bump_step())
+        if sync:
+            handle.wait()
+        return handle
+
+    # -- sparse Get --------------------------------------------------------
+
+    def get_rows_sparse(self, row_ids) -> Tuple[np.ndarray, np.ndarray,
+                                                np.ndarray]:
+        """Sparse Get: only the NONZERO entries of the requested rows
+        reach the host.
+
+        Returns CSR-style ``(indptr [n+1], cols [nnz], vals [nnz])``: row
+        ``i`` of the request holds entries
+        ``cols[indptr[i]:indptr[i+1]]`` (ascending col order)."""
+        ids = np.asarray(row_ids, dtype=np.int32)
+        self._check_ids(ids)
+        padded, _, n = self._pad_ids(ids)
+        rows = tk.gather_rows(self.param,
+                              torch.as_tensor(padded, device=self.device))
+        nnz = (rows != 0).sum(1).to(torch.int32).cpu().numpy()[:n]
+        k = min(_bucket(max(int(nnz.max(initial=0)), 1)), self.num_cols)
+        _, top = torch.topk(rows.to(torch.float32).abs(), k, dim=1)
+        cols = top.to(torch.int32).cpu().numpy()[:n]
+        vals = torch.gather(rows, 1, top).cpu().numpy()[:n]
+        indptr = np.zeros(n + 1, np.int64)
+        np.cumsum(nnz, out=indptr[1:])
+        # one vectorized pass: np.nonzero walks row-major, then one
+        # lexsort orders each row's entries by column
+        ri, ci = np.nonzero(vals != 0)
+        ecols = cols[ri, ci]
+        order = np.lexsort((ecols, ri))
+        return indptr, ecols[order], vals[ri, ci][order]
+
+
+__all__ = ["SparseMatrixTable"]

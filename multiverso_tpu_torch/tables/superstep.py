@@ -16,21 +16,23 @@ The reference compiles the body into one donated XLA program. Here the
 body runs eagerly on each table's live tensors: the reference's donation
 becomes an in-place update of each table's tensor (the scatter kernels
 write into it), and whatever tensors the body returns become the tables'
-storage. Bodies that gather or scatter table rows call the re-exported
-:func:`gather_rows` / :func:`row_scatter_add`, the port's CUDA kernels.
+storage. Bodies that gather, scatter or COO-add into table storage call
+the re-exported :func:`gather_rows` / :func:`row_scatter_add` /
+:func:`coo_scatter_add`, the port's CUDA kernels.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, Optional, Sequence, Tuple
 
-from multiverso_tpu_torch.ops.table_kernels import (gather_rows,
+from multiverso_tpu_torch.ops.table_kernels import (coo_scatter_add,
+                                                    gather_rows,
                                                     row_scatter_add)
 from multiverso_tpu_torch.tables.base import Handle, Table
 from multiverso_tpu_torch.updaters import AddOption
 
-__all__ = ["FusedSuperstep", "gather_rows", "make_superstep",
-           "row_scatter_add"]
+__all__ = ["FusedSuperstep", "coo_scatter_add", "gather_rows",
+           "make_superstep", "row_scatter_add"]
 
 
 class FusedSuperstep:

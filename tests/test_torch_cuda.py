@@ -6,19 +6,25 @@ that has only PyTorch:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerances: the gather is exact. The scatter-add kernel adds each run of
-duplicate ids in sorted-lane order, the order in which the plain version
-adds on the CPU (``index_add_`` goes lane by lane there), so the two are
-compared bit for bit; the plain version on the card (``index_add_`` with
-atomics) adds in no fixed order and is not the reference here.
+Tolerances: the gather is exact. The scatter-add kernels add each run of
+duplicate ids (COO: each element's lanes) in sorted-lane order, the order
+in which the plain version adds on the CPU (``index_add_`` goes lane by
+lane there), so the two are compared bit for bit; int32 is exact in any
+order. The plain version on the card (``index_add_`` with atomics) adds
+float32 in no fixed order and is not the reference here. The Gibbs
+sampler kernels take every float32 sum in the order their plain version
+takes it (``ops/lda_sampler.py``), so their draws, ``nkd`` and the doc
+counts are compared bit for bit too (tightened from the tie rule that
+holds against the JAX package: on the card no draw differed).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from multiverso_tpu_torch.ops import lda_sampler as ls
 from multiverso_tpu_torch.ops import table_kernels as tk
-from multiverso_tpu_torch.tables import MatrixTable
+from multiverso_tpu_torch.tables import MatrixTable, SparseMatrixTable
 
 pytestmark = pytest.mark.cuda
 
@@ -57,7 +63,7 @@ def test_kernels_match_plain(cuda, cols, n):
                                            valid.cpu())
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
-    for name in tk.LAUNCHES:
+    for name in ("row_gather", "row_scatter_add", "row_scatter_add_masked"):
         assert tk.LAUNCHES[name] == before[name] + 1
 
 
@@ -91,3 +97,194 @@ def test_matrix_table_round_trip(cuda):
     q = _zipf_ids(rng, 77, 300)
     np.testing.assert_array_equal(t.get_rows(q), ref[q])
     np.testing.assert_array_equal(t.get(), ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int16, torch.int32])
+def test_gather_copies_narrow_and_int_rows(cuda, dtype):
+    rng = np.random.default_rng(3)
+    p = torch.from_numpy(rng.integers(-300, 300, (501, 1024))).to(dtype)
+    ids = torch.from_numpy(_zipf_ids(rng, 4096, 501))
+    want = tk.gather_rows_plain(p, ids)
+    got = tk.gather_rows(p.to(cuda), ids.to(cuda))
+    assert torch.equal(got.cpu(), want)
+    odd = p[:, :7].contiguous()                 # 14-byte rows: 2-byte path
+    assert torch.equal(tk.gather_rows(odd.to(cuda), ids.to(cuda)).cpu(),
+                       tk.gather_rows_plain(odd, ids))
+
+
+def test_int32_row_scatter_add(cuda):
+    rng = np.random.default_rng(4)
+    p = torch.from_numpy(rng.integers(0, 9, (300, 256)).astype(np.int32))
+    ids = torch.from_numpy(_zipf_ids(rng, 5000, 300))
+    d = torch.from_numpy(rng.integers(-3, 4, (5000, 256)).astype(np.int32))
+    want = tk.row_scatter_add_plain(p.clone(), ids, d)
+    got = tk.row_scatter_add(p.to(cuda), ids.to(cuda), d.to(cuda))
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("dtype,shape,n", [
+    (torch.int32, (50_001, 1024), 512_000),
+    (torch.int32, (300, 8, 128), 20_000),
+    (torch.int32, (40, 5000), 9_000),           # wider than the accumulator
+    (torch.float32, (300, 100), 20_000),
+    (torch.float32, (300, 2, 128), 20_000),
+])
+def test_coo_matches_cpu_plain(cuda, dtype, shape, n):
+    rng = np.random.default_rng(n)
+    rows = torch.from_numpy(np.clip(rng.zipf(1.1, n) - 1, 0,
+                                    shape[0] - 1).astype(np.int32))
+    cols = torch.from_numpy(rng.integers(0, int(np.prod(shape[1:])), n)
+                            .astype(np.int32))
+    if dtype == torch.int32:
+        vals = torch.from_numpy(rng.integers(-2, 3, n).astype(np.int32))
+        p = torch.zeros(shape, dtype=dtype)
+    else:
+        vals = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+        p = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    before = dict(tk.LAUNCHES)
+    got = tk.coo_scatter_add(p.to(cuda), rows.to(cuda), cols.to(cuda),
+                             vals.to(cuda))
+    want = tk.coo_scatter_add_plain(p.clone(), rows, cols, vals)
+    assert torch.equal(got.cpu(), want)
+    srt = torch.sort(rows, stable=True)
+    valid = torch.from_numpy((rng.random(n) < 0.8).astype(np.int32))
+    got = tk.coo_scatter_add_masked(
+        p.to(cuda), srt.values.to(cuda), cols[srt.indices].to(cuda),
+        vals[srt.indices].to(cuda), valid.to(cuda))
+    want = tk.coo_scatter_add_masked_plain(
+        p.clone(), srt.values, cols[srt.indices], vals[srt.indices], valid)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert tk.LAUNCHES["coo_scatter_add"] == before["coo_scatter_add"] + 1
+    assert tk.LAUNCHES["coo_scatter_add_masked"] == \
+        before["coo_scatter_add_masked"] + 1
+
+
+ALPHA, BETA = 50.0 / 1024, 0.01
+
+
+def _lda_inputs(rng, b, c, a_dtype, w_dtype):
+    k = c * 128
+    A = rng.integers(0, 6, (b, c, 128))
+    W = rng.integers(0, 600, (b, c, 128))
+    nk = rng.integers(5000, 50_000, (c, 128))
+    sinv = (1.0 / (nk + 50_000 * BETA)).astype(np.float32)
+    zi = rng.integers(0, k, b).astype(np.int32)
+    msk = (rng.random(b) < 0.97).astype(np.int32)
+    u1 = rng.random(b).astype(np.float32)
+    u2 = rng.random(b).astype(np.float32)
+    return (torch.from_numpy(A).to(a_dtype), torch.from_numpy(W).to(w_dtype),
+            *(torch.from_numpy(x) for x in (sinv, zi, msk, u1, u2)))
+
+
+
+
+@pytest.mark.parametrize("a_dtype,w_dtype", [(torch.int16, torch.bfloat16),
+                                             (torch.int32, torch.int32)])
+def test_gibbs_tiled_matches_plain(cuda, a_dtype, w_dtype):
+    rng = np.random.default_rng(7)
+    args = _lda_inputs(rng, 8192, 8, a_dtype, w_dtype)
+    znew, nkd = ls.gibbs_sample_tiled(*(x.to(cuda) for x in args),
+                                      alpha=ALPHA, beta=BETA)
+    want, _ = ls.gibbs_sample_tiled_plain(*args, alpha=ALPHA, beta=BETA)
+    znew = znew.cpu()
+    assert torch.equal(znew, want)
+    zi, msk = args[3], args[4]
+    assert torch.equal(nkd.cpu(), ls._nk_delta(zi, znew, msk, 8))
+
+
+@pytest.mark.parametrize("n_dtype,w_dtype", [(torch.int16, torch.bfloat16),
+                                             (torch.int32, torch.int32)])
+def test_gibbs_docblock_and_build_mode(cuda, n_dtype, w_dtype):
+    rng = np.random.default_rng(8)
+    nb, maxd, tb, c = 24, 16, 512, 8
+    b = nb * tb
+    _, W3, sinv, zi, msk, u1, u2 = _lda_inputs(rng, b, c, torch.int32,
+                                               w_dtype)
+    drel = torch.from_numpy(rng.integers(0, maxd, b).astype(np.int32))
+    # consistent block counts: exactly the counts of the block's own z
+    rows = ls._block_rows(drel, tb, maxd)
+    ndk = torch.zeros(nb * maxd, c * 128, dtype=torch.int32)
+    real = msk > 0
+    ndk.index_put_((rows[real], zi[real].long()),
+                   torch.ones(int(real.sum()), dtype=torch.int32),
+                   accumulate=True)
+    ndk = ndk.view(nb, maxd, c, 128).to(n_dtype)
+    dev_ndk = ndk.to(cuda)
+    dev = [x.to(cuda) for x in (W3, sinv, zi, drel, msk, u1, u2)]
+    _, znew, nkd = ls.gibbs_sample_docblock(dev_ndk, *dev, alpha=ALPHA,
+                                            beta=BETA, tb=tb)
+    zb, nkdb = ls.gibbs_sample_docblock_build(*dev, alpha=ALPHA, beta=BETA,
+                                              tb=tb, maxd=maxd)
+    znew, zb = znew.cpu(), zb.cpu()
+    assert torch.equal(zb[real], znew[real])          # build == read
+    assert torch.equal(nkdb.cpu(), nkd.cpu())
+    p_ndk = ndk.clone()
+    _, want, _ = ls.gibbs_sample_docblock_plain(
+        p_ndk, W3, sinv, zi, drel, msk, u1, u2, alpha=ALPHA, beta=BETA,
+        tb=tb)
+    assert torch.equal(znew, want)
+    assert torch.equal(dev_ndk.cpu(), p_ndk)
+    assert torch.equal(nkd.cpu(), ls._nk_delta(zi, znew, msk, c))
+    moved = ndk.view(nb * maxd, -1).to(torch.int32)
+    one = torch.ones(int(real.sum()), dtype=torch.int32)
+    moved.index_put_((rows[real], zi[real].long()), -one, accumulate=True)
+    moved.index_put_((rows[real], znew[real].long()), one, accumulate=True)
+    assert torch.equal(dev_ndk.cpu().view(nb * maxd, -1).to(torch.int32),
+                       moved)
+
+
+def test_sparse_matrix_table_round_trip(cuda):
+    rng = np.random.default_rng(9)
+    for tiled, updater, dtype in ((False, "default", "int32"),
+                                  (True, "default", "int32"),
+                                  (True, "sgd", "float32")):
+        t = SparseMatrixTable(300, 256, dtype, updater=updater, device=cuda,
+                              tiled=tiled, name=f"cuda_sparse_{tiled}")
+        ref = np.zeros((300, 256), dtype)
+        for _ in range(3):
+            n = 3000
+            r = np.clip(rng.zipf(1.2, n) - 1, 0, 299)
+            c = rng.integers(0, 256, n)
+            v = rng.integers(-3, 4, n).astype(dtype)
+            t.add_sparse(r, c, v)
+            np.add.at(ref, (r, c), v if updater == "default"
+                      else np.float32(-0.1) * v)
+        q = np.arange(0, 300, 7)
+        np.testing.assert_allclose(t.get(), ref, rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(t.get_rows(q), ref[q], rtol=1e-6,
+                                   atol=1e-6)
+        indptr, cols, vals = t.get_rows_sparse(q)
+        dense = np.zeros((len(q), 256), dtype)
+        for i in range(len(q)):
+            dense[i, cols[indptr[i]:indptr[i + 1]]] = \
+                vals[indptr[i]:indptr[i + 1]]
+        np.testing.assert_array_equal(dense, t.get_rows(q))
+
+
+def test_lightlda_on_the_card_matches_cpu(cuda, tmp_path):
+    """A small doc-blocked and streamed LightLDA on the card against the
+    same run on the CPU (plain versions), from the same uniforms."""
+    from multiverso_tpu_torch.apps.lightlda import (LDAConfig, LightLDA,
+                                                    load_docs)
+    from multiverso_tpu_torch.data import synthetic_docs
+    path = tmp_path / "docs.txt"
+    synthetic_docs(str(path), num_docs=300, vocab_size=500, avg_doc_len=60,
+                   num_topics=10, seed=1)
+    tw, td, vocab = load_docs(str(path))
+    for extra in ({}, {"stream_blocks": True}):
+        cfg = LDAConfig(num_topics=256, batch_tokens=4096, steps_per_call=2,
+                        seed=2, sampler="tiled", doc_blocked=True,
+                        block_tokens=256, block_docs=8, **extra)
+        apps = [LightLDA(tw, td, vocab, cfg, device=d) for d in (cuda, "cpu")]
+        for _ in range(2):
+            for a in apps:
+                a.sweep(uniforms=lambda k: apps[1].uniforms(k))
+        z = [a._z_numpy() for a in apps]
+        assert np.mean(z[0] == z[1]) >= 0.99
+        for a in apps:
+            nwk = a.word_topics()
+            assert nwk.sum() == a.num_tokens
+            assert np.array_equal(a.summary.get(), nwk.sum(0))
+            assert np.array_equal(a.doc_topics().sum(1),
+                                  np.bincount(td, minlength=a.num_docs))
