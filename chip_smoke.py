@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive multiverso_tpu_torch's main paths on one CUDA card and check them.
 
-    python3 chip_smoke.py             # the whole check, about three minutes
-    python3 chip_smoke.py --profile   # also a torch.profiler window on one
-                                      # word2vec call and one LightLDA sweep
+    python3 chip_smoke.py             # the whole check, a few minutes
+    python3 chip_smoke.py --profile   # also torch.profiler windows on one
+                                      # word2vec call, one LightLDA sweep
+                                      # and four sparse-LR steps
 
 Phases (any failure ends the run with a non-zero exit code; each prints
 its seconds):
@@ -46,9 +47,23 @@ its seconds):
    warm-up and one timed sweep each.
 8. At reduced depth (T 1M, D 10k): the streamed (out-of-core) doc-blocked
    mode against the in-memory one, bit-identical after 2 sweeps.
+9. KVTable on the card against a numpy model: gets of missing keys, adds
+   under default, sgd, adagrad and ftrl at value_dim 0 and 2, re-adds,
+   the raises (duplicate keys, the empty key, a deferred bucket overflow
+   that leaves the table untouched), store -> load, len().
+10. Sparse logistic regression at a Criteo-like width (39 hashed features
+   per sample plus the bias, 2^24 dims, 131,072 samples, minibatch 4,096,
+   ftrl, a 2^25-slot KVTable): 2 epochs of 32 steps; samples/s and mean
+   loss per epoch, train accuracy, live keys, peak device memory, launches
+   per step, and one step's host prep against its device time.
+
+Phase 2 also holds the KV kernels against their plain versions on the CPU
+bit for bit at the sparse-LR step's shapes (a 2^25-slot table, 262,144
+padded lanes of about 159,000 keys, half present), the probe + commit under
+all six updaters, and a small sparse LR on the card against the CPU.
 
 Launch counts are set to 0 before each main path (phases 3-4 word2vec,
-5, 6, 7, 8) and read after it. Before the last line the script prints
+5, 6, 7, 8, 10) and read after it. Before the last line the script prints
 one ``{"kernels": [...]}`` JSON line and the card's name and power limit;
 the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -92,6 +107,19 @@ LDA_B, LDA_TB, LDA_MAXD = 512_000, 512, 16
 LDA_ALPHA, LDA_BETA = 50.0 / LDA_K, 0.01
 LDA_TIMED_SWEEPS = 3
 LDA_SMALL_T, LDA_SMALL_D = 1_000_000, 10_000
+
+# sparse logistic regression at a Criteo-like width: the Kaggle Display
+# Advertising Challenge's 13 integer + 26 categorical fields, 39 hashed
+# features per sample (plus the bias), over 2^24 hashed dims
+SLR_N, SLR_DIM, SLR_NNZ = 131_072, 1 << 24, 39
+SLR_CAPACITY, SLR_SLOTS, SLR_BATCH, SLR_EPOCHS = 1 << 25, 16, 4096, 2
+# the KV kernels' shapes at that step: about 159,000 unique keys a
+# minibatch, padded to 262,144 lanes
+KV_REAL = 159_000
+KV_UPDATERS = ("default", "sgd", "adagrad", "momentum", "adam", "ftrl")
+# float32 operations per value element of each updater's apply
+KV_UPDATER_OPS = {"default": 1, "sgd": 2, "adagrad": 6, "momentum": 4,
+                  "adam": 13, "ftrl": 17}
 
 
 def log(msg: str) -> None:
@@ -842,6 +870,426 @@ def phase_lda_streamed(torch, LightLDA, LDAConfig) -> dict:
     return dict(inmemory_s=mem_s, streamed_s=st_s, ll=mem.ll_history)
 
 
+def bits(torch, t):
+    """A float tensor's bit patterns on the host."""
+    return t.detach().contiguous().cpu().view(torch.int32)
+
+
+def same_bits(torch, a, b) -> bool:
+    return torch.equal(bits(torch, a), bits(torch, b))
+
+
+def kv_keys(rng, n):
+    """n distinct random 64-bit keys (never the empty key)."""
+    keys = np.unique(rng.integers(1, 2 ** 63, size=n + n // 50 + 16,
+                                  dtype=np.uint64))
+    rng.shuffle(keys)
+    return keys[:n]
+
+
+def kv_table(KVTable, updater, value_dim, capacity=SLR_CAPACITY,
+             slots=SLR_SLOTS, **kw):
+    return KVTable(capacity, value_dim=value_dim, slots_per_bucket=slots,
+                   updater=updater, device="cuda",
+                   name=f"smoke_kv_{updater}_{value_dim}", **kw)
+
+
+def kv_triple(table, device=None):
+    """Copies of a KVTable's (keys, values, state)."""
+    to = (lambda t: t.to(device)) if device else (lambda t: t.clone())
+    return (to(table.keys), to(table.values),
+            {k: to(v) for k, v in table.state.items()})
+
+
+def same_triple(torch, a, b) -> bool:
+    return (torch.equal(a[0].cpu(), b[0].cpu())
+            and same_bits(torch, a[1], b[1])
+            and sorted(a[2]) == sorted(b[2])
+            and all(same_bits(torch, a[2][k], b[2][k]) for k in a[2]))
+
+
+def free_tables(torch) -> None:
+    """Drop every table from the process-wide registry (which holds them
+    alive) and give their device memory back."""
+    from multiverso_tpu_torch.tables import reset_tables
+    reset_tables()
+    torch.cuda.empty_cache()
+
+
+def phase_kv_kernels(torch, tk, KVTable) -> dict:
+    """Phase 2, the KV kernels vs their plain versions on the CPU at the
+    sparse-LR step's shapes; returns {name: row}."""
+    from multiverso_tpu_torch.tables.hashing import _bucket, _split_keys
+    rng = np.random.default_rng(11)
+    keys = kv_keys(rng, KV_REAL)
+    present, missing = keys[:KV_REAL // 2], keys[KV_REAL // 2:]
+    out = {}
+
+    # lookup: a table pre-filled with the present half by one add
+    t = kv_table(KVTable, "default", 2)
+    t.add(present, rng.standard_normal((len(present), 2)).astype(
+        np.float32))
+    t.wait()
+    n, b = len(keys), _bucket(len(keys))
+    query = np.full((b, 2), 0xFFFFFFFF, np.uint32)
+    query[:n] = _split_keys(keys)
+    buckets = np.zeros(b, np.int32)
+    buckets[:n] = t._buckets_of(keys)
+    qd = torch.as_tensor(query.view(np.int32), device="cuda")
+    bd = torch.as_tensor(buckets, device="cuda")
+    got_v, got_f = tk.kv_lookup(t.keys, t.values, qd, bd, 0.0)
+    want_v, want_f = tk.kv_lookup_plain(t.keys.cpu(), t.values.cpu(),
+                                        qd.cpu(), bd.cpu(), 0.0)
+    _sync(torch)
+    if not (torch.equal(got_f.cpu(), want_f)
+            and same_bits(torch, got_v, want_v)):
+        raise SystemExit("kv_lookup: kernel != plain version on the CPU")
+    if int(want_f[:n].sum()) != len(present):
+        raise SystemExit("kv_lookup: found != the keys added")
+    err = float((got_v.cpu() - want_v).abs().max())
+    touched = int(torch.unique(bd).numel())
+    nb_, by = bound_ms(b * 12 + touched * SLR_SLOTS * (8 + 8) + b * 9, 0)
+    out["kv_lookup"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: tk.kv_lookup(t.keys, t.values, qd, bd), 50),
+        plain_ms=cuda_ms(lambda: tk.kv_lookup_plain(t.keys, t.values, qd,
+                                                    bd), 10),
+        library_ms=None, bound_ms=nb_, bound_by=by, n=b, real=n,
+        found=len(present))
+    del t, got_v, got_f
+    free_tables(torch)
+
+    # probe + commit: every updater at value_dim 2, default at 0, on a
+    # table pre-filled by one add (the batch matches half and claims half)
+    for name, vdim in [(u, 2) for u in KV_UPDATERS] + [("default", 0)]:
+        t = kv_table(KVTable, name, vdim)
+        shape = lambda m: (m, vdim) if vdim else (m,)
+        t.add(present, rng.standard_normal(shape(len(present))).astype(
+            np.float32))
+        t.wait()
+        prep = t.prepare_add(keys, rng.standard_normal(shape(n)).astype(
+            np.float32))
+        lanes = (prep.buckets, prep.query, prep.deltas, prep.valid)
+        cpu = kv_triple(t, "cpu")
+        want = tk.kv_probe_update_plain(*cpu, *(x.cpu() for x in lanes),
+                                        prep.option, name)
+        timed = kv_triple(t)
+        got = tk.kv_probe_update(t.keys, t.values, t.state, *lanes,
+                                 prep.option, name)
+        _sync(torch)
+        if int(got[3]) != 0 or int(want[3]) != 0:
+            raise SystemExit(f"kv_probe_update {name}: overflowed "
+                             f"({int(got[3])}, plain {int(want[3])})")
+        if not same_triple(torch, got[:3], want[:3]):
+            raise SystemExit(f"kv_probe_update {name} D={vdim}: kernel != "
+                             "plain version on the CPU")
+        err = max([float((got[1].cpu() - want[1]).abs().max())]
+                  + [float((got[2][k].cpu() - want[2][k]).abs().max())
+                     for k in want[2]])
+        if name == "ftrl" and vdim == 2:
+            over_lanes = kv_overflow_check(torch, tk, t, rng)
+        plain_t = kv_triple(t)
+        cols, ns = max(vdim, 1), len(t.state)
+        touched = int(torch.unique(prep.buckets).numel())
+        nbytes = (b * (4 + 8 + 1) + b * cols * 4 + touched * SLR_SLOTS * 8
+                  + n * (8 + 2 * cols * 4 * (1 + ns)) + 4)
+        nb_, by = bound_ms(nbytes, n * cols * KV_UPDATER_OPS[name])
+        out[f"kv_probe_update_{name}_{vdim}"] = dict(
+            max_abs_err=err,
+            ms=cuda_ms(lambda: tk.kv_probe_update(*timed, *lanes,
+                                                  prep.option, name), 20),
+            plain_ms=cuda_ms(lambda: tk.kv_probe_update_plain(
+                *plain_t, *lanes, prep.option, name), 5),
+            library_ms=None, bound_ms=nb_, bound_by=by, n=b, real=n,
+            claimed=n - len(present))
+        del t, timed, plain_t, cpu, want, got, prep, lanes
+        free_tables(torch)
+    for name, r in out.items():
+        log(f"  {name:30s} n={r['n']:7d} ({r['real']} real) kernel "
+            f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  library none  "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})  "
+            f"{r['ms'] / r['bound_ms']:.1f}x bound; bit-identical to the "
+            f"CPU plain version")
+    log(f"  kv_probe_update overflow batch: {over_lanes} of 32 lanes into "
+        "one bucket; n_over equal to the plain version's, the triple "
+        "bit-identical after it")
+    return out
+
+
+def kv_overflow_check(torch, tk, t, rng) -> int:
+    """One small batch that overflows a bucket: the kernel's n_over must
+    equal the plain version's and leave the triple bit-identical."""
+    row = t.keys[123_457].cpu()
+    empties = int((row == -1).all(-1).sum())
+    m = empties + 3                     # new keys: 3 past the empties
+    from multiverso_tpu_torch.tables.hashing import _split_keys
+    query = np.full((32, 2), -1, np.int32)
+    query[:m] = _split_keys(kv_keys(rng, m) | np.uint64(1 << 62)).view(
+        np.int32)
+    buckets = np.full(32, t.num_buckets - 1, np.int32)
+    buckets[:m] = 123_457
+    valid = np.arange(32) < m
+    deltas = rng.standard_normal((32, 2)).astype(np.float32)
+    lanes = [torch.as_tensor(x, device="cuda")
+             for x in (buckets, query, deltas, valid)]
+    before = kv_triple(t)
+    cpu = kv_triple(t, "cpu")
+    want = tk.kv_probe_update_plain(*cpu, *(x.cpu() for x in lanes),
+                                    t.default_option, t.updater)
+    got = tk.kv_probe_update(t.keys, t.values, t.state, *lanes,
+                             t.default_option, t.updater)
+    _sync(torch)
+    if int(got[3]) != int(want[3]) or int(got[3]) != 3:
+        raise SystemExit(f"kv overflow batch: n_over {int(got[3])}, plain "
+                         f"{int(want[3])}, expected 3")
+    if not (same_triple(torch, got[:3], before)
+            and same_triple(torch, want[:3], before)):
+        raise SystemExit("kv overflow batch: the table changed")
+    return m
+
+
+def slr_small_parity(torch, SparseLogisticRegression, SparseLRConfig,
+                     synthetic_sparse) -> None:
+    """Two minibatches of a small sparse LR on the card and on the CPU
+    (plain versions) from the same rows: keys bit for bit, losses and
+    values within rtol 1e-5 (the step's index_add_ on the card sums a key's
+    terms in no fixed order)."""
+    rows, y = synthetic_sparse(n=1024, dim=100_000, num_classes=2,
+                               nnz=SLR_NNZ, seed=5)
+    cfg = SparseLRConfig(max_features=64, capacity=1 << 18,
+                         minibatch_size=512, updater="ftrl")
+    apps = [SparseLogisticRegression(cfg, device=d, name=f"smoke_slr_{d}")
+            for d in ("cuda", "cpu")]
+    losses = []
+    for s in (0, 512):
+        losses.append([a.train_batch(rows[s:s + 512], y[s:s + 512])
+                       for a in apps])
+    gpu, host = (a.table for a in apps)
+    gpu.wait()
+    if not torch.equal(gpu.keys.cpu(), host.keys):
+        raise SystemExit("sparse LR card vs CPU: keys differ")
+    a, b = gpu.values.cpu().numpy(), host.values.numpy()
+    if not (np.allclose(a, b, rtol=1e-5, atol=1e-6)
+            and all(np.isclose(x, y_, rtol=1e-5) for x, y_ in losses)):
+        raise SystemExit(f"sparse LR card vs CPU: values max "
+                         f"{np.abs(a - b).max()}, losses {losses}")
+    log(f"  sparse LR card vs CPU: keys bit-identical ({len(host)} keys), "
+        f"values within rtol 1e-5 (max |diff| {np.abs(a - b).max():.3g}), "
+        f"losses {[round(x, 6) for x, _ in losses]} vs "
+        f"{[round(y_, 6) for _, y_ in losses]}")
+
+
+def np_update(name, opt, v, a, b, d):
+    """The numpy float32 model of one updater step on a key's row."""
+    f = np.float32
+    if name == "default":
+        return v + d, a, b
+    if name == "sgd":
+        return v - f(opt.learning_rate) * d, a, b
+    if name == "adagrad":
+        a = a + d * d
+        return v - f(opt.learning_rate) * d / (np.sqrt(a) + f(opt.lam)), a, b
+    alpha, beta, l1, l2 = (f(opt.learning_rate), f(opt.momentum),
+                           f(opt.lam), f(opt.rho))
+    n_new = b + d * d                       # ftrl: a = z, b = n
+    sigma = (np.sqrt(n_new) - np.sqrt(b)) / alpha
+    z = a + d - sigma * v
+    shrunk = np.sign(z) * np.maximum(np.abs(z) - l1, f(0))
+    with np.errstate(divide="ignore", invalid="ignore"):
+        w = np.where(np.abs(z) <= l1, f(0),
+                     -shrunk / ((beta + np.sqrt(n_new)) / alpha + l2))
+    return w.astype(np.float32), z, n_new
+
+
+def phase_kv_table(torch, KVTable, AddOption, rng, tmp) -> None:
+    """Phase 9: KVTable on the card against a numpy model."""
+    options = {"default": AddOption(), "sgd": AddOption(learning_rate=0.05),
+               "adagrad": AddOption(learning_rate=0.1, lam=1e-6),
+               "ftrl": AddOption.for_ftrl(0.1, 0.01, 0.001, 1.0)}
+    for name in ("default", "sgd", "adagrad", "ftrl"):
+        for vdim in (0, 2):
+            default = 0.25 if name == "default" else 0.0
+            t = kv_table(KVTable, name, vdim, capacity=1 << 17, slots=8,
+                         default_value=default,
+                         default_option=options[name])
+            opt = options[name]
+            pool = kv_keys(rng, 20_000)
+            v0, f0 = t.get(pool[:1000])
+            if f0.any() or not (v0 == default).all():
+                raise SystemExit(f"KVTable {name}: get of missing keys")
+            cols = max(vdim, 1)
+            model = {}
+            for _ in range(3):
+                keys = rng.choice(pool, size=6000, replace=False)
+                d = rng.standard_normal((len(keys), cols)).astype(
+                    np.float32)
+                t.add(keys, d if vdim else d[:, 0])
+                for k, dk in zip(keys.tolist(), d):
+                    v, a, b = model.get(k, (np.full(cols, default,
+                                                    np.float32),
+                                            np.zeros(cols, np.float32),
+                                            np.zeros(cols, np.float32)))
+                    model[k] = np_update(name, opt, v, a, b, dk)
+            t.wait()
+            mk = np.asarray(list(model), np.uint64)
+            want = np.stack([model[k][0] for k in model.keys()])
+            got, found = t.get(mk)
+            got = got.reshape(len(mk), cols)
+            err = float(np.abs(got - want).max())
+            if not (found.all() and np.allclose(got, want, rtol=1e-6,
+                                                atol=1e-7)):
+                raise SystemExit(f"KVTable {name} D={vdim}: differs from "
+                                 f"numpy (max {err})")
+            missing = np.setdiff1d(pool, mk)[:500]
+            vm, fm = t.get(missing)
+            if fm.any() or not (vm == default).all() or len(t) != len(mk):
+                raise SystemExit(f"KVTable {name}: missing keys or len()")
+            uri = os.path.join(tmp, f"kv_{name}_{vdim}.npz")
+            t.store(uri)
+            t2 = kv_table(KVTable, name, vdim, capacity=1 << 17, slots=8,
+                          default_value=default)
+            t2.load(uri)
+            if not same_triple(torch, kv_triple(t2), kv_triple(t)):
+                raise SystemExit(f"KVTable {name}: store -> load differs")
+            log(f"  KVTable {name:7s} D={vdim}: 3 adds of 6,000 keys "
+                f"(re-adds included) match numpy (max |err| {err:.3g}); "
+                f"{len(t)} live keys; missing keys at {default}; store -> "
+                f"load bit-identical")
+    # the raises: duplicates, the empty key, a deferred overflow
+    t = kv_table(KVTable, "sgd", 0, capacity=1 << 17, slots=8)
+    for bad in ([5, 5], [2 ** 64 - 1]):
+        try:
+            t.add(np.asarray(bad, np.uint64), np.ones(len(bad), np.float32))
+        except ValueError:
+            continue
+        raise SystemExit(f"KVTable: add of {bad} did not raise")
+    cand = np.arange(1, 400_000, dtype=np.uint64)
+    hb = t._buckets_of(cand)
+    same = cand[hb == hb[0]][:t.slots + 1]
+    t.add(same[:1], np.ones(1, np.float32), sync=True)
+    before = kv_triple(t)
+    t.add(same, np.ones(len(same), np.float32))   # 1 match + slots new
+    try:
+        t.wait()
+        raise SystemExit("KVTable: the overflowing add did not raise")
+    except RuntimeError as e:
+        if "overflowed" not in str(e):
+            raise
+    if not same_triple(torch, kv_triple(t), before) or len(t) != 1:
+        raise SystemExit("KVTable: the overflowing add changed the table")
+    log("  KVTable raises: duplicate keys and the empty key (ValueError); "
+        f"an add of {len(same)} keys into one {t.slots}-slot bucket raises "
+        "'overflowed' at the next wait() and leaves the table bit-identical")
+    del t
+    free_tables(torch)
+
+
+def phase_sparse_lr(torch, tk, counts, SparseLogisticRegression,
+                    SparseLRConfig, synthetic_sparse, lr_step,
+                    profile: bool):
+    """Phase 10: sparse LR at the Criteo-like width. Returns the measured
+    numbers and the launch counts read right after training and the
+    accuracy pass."""
+    from multiverso_tpu_torch.apps.sparse_logreg import BIAS_KEY
+    from multiverso_tpu_torch.tables.hashing import _bucket, _split_keys
+    t0 = time.perf_counter()
+    rows, y = synthetic_sparse(n=SLR_N, dim=SLR_DIM, num_classes=2,
+                               nnz=SLR_NNZ, seed=0)
+    gen_s = time.perf_counter() - t0
+    cfg = SparseLRConfig(capacity=SLR_CAPACITY, slots_per_bucket=SLR_SLOTS,
+                         max_features=64, minibatch_size=SLR_BATCH,
+                         updater="ftrl", learning_rate=0.1,
+                         epochs=SLR_EPOCHS)
+    free_tables(torch)                  # the earlier phases' tables
+    torch.cuda.reset_peak_memory_stats()
+    app = SparseLogisticRegression(cfg, device="cuda", name="smoke_slr")
+    start = counts()
+    app.train(rows, y)
+    grown = {k: v - start[k] for k, v in counts().items()}
+    steps = sum(e["steps"] for e in app.epoch_stats)
+    for name in ("kv_lookup", "kv_probe_update", "kv_commit"):
+        if grown[name] != steps:
+            raise SystemExit(f"sparse LR: {name} launched {grown[name]} "
+                             f"times in {steps} steps, expected {steps}")
+    losses = [e["loss"] for e in app.epoch_stats]
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise SystemExit(f"sparse LR: epoch losses {losses}")
+    t0 = time.perf_counter()
+    acc = app.accuracy(rows, y)
+    acc_s = time.perf_counter() - t0
+    path_counts = counts()
+    live = len(app.table)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    rates = [e["samples"] / e["seconds"] for e in app.epoch_stats]
+    step_ms = [1e3 * e["seconds"] / e["steps"] for e in app.epoch_stats]
+
+    # one step split: its device work replayed back to back on CUDA
+    # events; the rest of the step's wall time (it ends in a host sync) is
+    # host work, of which _pack is timed alone
+    tbl = app.table
+    brows, by = rows[:SLR_BATCH], y[:SLR_BATCH]
+    t0 = time.perf_counter()
+    keys, vals, uniq = app._pack(brows)
+    t_pack = time.perf_counter() - t0
+    upad = _bucket(len(uniq))
+    uniq_pad = np.full(upad, BIAS_KEY ^ np.uint64(1), np.uint64)
+    uniq_pad[:len(uniq)] = uniq
+    qd = torch.as_tensor(_split_keys(uniq_pad).view(np.int32),
+                         device="cuda")
+    gbd = torch.as_tensor(tbl._buckets_of(uniq_pad), device="cuda")
+    pos = app._positions(keys, vals, uniq, upad)
+    posd = torch.as_tensor(pos, device="cuda").long()
+    valsd = torch.as_tensor(vals, device="cuda")
+    yd = torch.as_tensor(by, device="cuda").long()
+    prep = tbl.prepare_add(uniq, np.zeros((len(uniq), 2), np.float32))
+    order = torch.as_tensor(np.argsort(tbl._buckets_of(uniq), kind="stable"),
+                            device="cuda")
+    zero = torch.zeros((1, 2), device="cuda")
+    u = len(uniq)
+
+    def device_step():
+        w, _ = tk.kv_lookup(tbl.keys, tbl.values, qd, gbd, 0.0)
+        _, dw = lr_step(torch.cat([w, zero]), posd, valsd, yd, 0.0)
+        pd = torch.zeros_like(prep.deltas)
+        pd[:u] = dw[:u][order]
+        tk.kv_probe_update(tbl.keys, tbl.values, tbl.state, prep.buckets,
+                           prep.query, pd, prep.valid, prep.option,
+                           tbl.updater)
+    device_ms = cuda_ms(device_step, 10)
+    host_ms = step_ms[-1] - device_ms
+    out = dict(samples=SLR_N, epochs=SLR_EPOCHS, steps=steps,
+               samples_per_sec=rates, step_ms=step_ms, epoch_loss=losses,
+               train_accuracy=acc, accuracy_s=acc_s, live_keys=live,
+               unique_keys_step=u, peak_mem_gb=peak, data_gen_s=gen_s,
+               launches_per_step={k: grown[k] / steps for k in
+                                  ("kv_lookup", "kv_probe_update",
+                                   "kv_commit")},
+               host_prep_ms=host_ms, pack_ms=1e3 * t_pack,
+               device_ms=device_ms)
+    log(f"  data: {SLR_N} samples x {SLR_NNZ} features over {SLR_DIM} dims, "
+        f"made in {gen_s:.1f} s; {u} unique keys in the first minibatch")
+    log(f"  epochs: samples/s {[round(r) for r in rates]}, ms/step "
+        f"{[round(m, 1) for m in step_ms]}, mean loss "
+        f"{[round(x, 5) for x in losses]}; train accuracy {acc:.4f} "
+        f"({acc_s:.1f} s); {live} live keys; peak device memory "
+        f"{peak:.2f} GB")
+    log(f"  launches per step {out['launches_per_step']}; one step of "
+        f"{step_ms[-1]:.1f} ms: device {device_ms:.3f} ms (CUDA events, its "
+        f"device work back to back), host {host_ms:.1f} ms (the rest; _pack "
+        f"alone {1e3 * t_pack:.1f} ms): the device is busy "
+        f"{100 * device_ms / step_ms[-1]:.1f}% of a step")
+    if profile:
+        mbs = [(rows[s:s + SLR_BATCH], y[s:s + SLR_BATCH])
+               for s in range(0, 4 * SLR_BATCH, SLR_BATCH)]
+        out["profile"] = profile_call(
+            torch, "slr_steps_trace.json",
+            lambda: [app.train_batch(r, yy) for r, yy in mbs],
+            4 * step_ms[-1])
+    del app, rows, y
+    torch.cuda.empty_cache()
+    return out, path_counts
+
+
 def profile_call(torch, trace_name: str, run, call_ms: float) -> dict:
     """``run()`` (one superstep call or sweep) under torch.profiler:
     device time by kernel and the device's busy time, read from the
@@ -908,7 +1356,10 @@ def main(argv) -> int:
     from multiverso_tpu_torch.ops import _build
     from multiverso_tpu_torch.ops import lda_sampler as ls
     from multiverso_tpu_torch.ops import table_kernels as tk
-    from multiverso_tpu_torch.tables import MatrixTable, SparseMatrixTable
+    from multiverso_tpu_torch.apps.sparse_logreg import (
+        SparseLogisticRegression, SparseLRConfig, lr_step, synthetic_sparse)
+    from multiverso_tpu_torch.tables import (KVTable, MatrixTable,
+                                             SparseMatrixTable)
     from multiverso_tpu_torch.updaters import AddOption
     profile = "--profile" in argv
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -954,13 +1405,18 @@ def main(argv) -> int:
         phase("kernels", "phase 2: kernels vs plain (tolerance: gather "
               "exact; scatter-adds exact against the CPU plain version, "
               "row scatter within the float32 sum-order bound against the "
-              "card's; Gibbs samplers under the tie rule, counts exact)")
+              "card's; Gibbs samplers under the tie rule, counts exact; KV "
+              "lookup and probe + commit bit-identical to the CPU plain "
+              "version)")
         results = phase_kernels(torch, tk, rng)
         lda_results = phase_lda_kernels(torch, tk, ls)
+        kv_results = phase_kv_kernels(torch, tk, KVTable)
         w2v_small_parity(torch, Corpus, synthetic_text, W2VConfig,
                          WordEmbedding, tmp)
         lda_small_parity(LDAConfig, LightLDA, load_docs, synthetic_docs,
                          tmp)
+        slr_small_parity(torch, SparseLogisticRegression, SparseLRConfig,
+                         synthetic_sparse)
         phase_end("kernels")
 
         reset()
@@ -1005,6 +1461,19 @@ def main(argv) -> int:
     paths["lightlda_streamed"] = counts()
     phase_end("lda_streamed")
 
+    with tempfile.TemporaryDirectory() as tmp:
+        phase("kv_table", "phase 9: KVTable on the card vs numpy")
+        phase_kv_table(torch, KVTable, AddOption, rng, tmp)
+        phase_end("kv_table")
+
+    reset()
+    phase("sparse_lr", "phase 10: sparse logistic regression at a "
+          "Criteo-like width")
+    slr, paths["sparse_logreg"] = phase_sparse_lr(
+        torch, tk, counts, SparseLogisticRegression, SparseLRConfig,
+        synthetic_sparse, lr_step, profile)
+    phase_end("sparse_lr")
+
     # each kernel's launches on the main path that carries it
     main_path = {
         "row_gather": "word2vec", "row_scatter_add": "word2vec",
@@ -1014,6 +1483,7 @@ def main(argv) -> int:
         "gibbs_sample_tiled": "lightlda_tiled",
         "gibbs_sample_docblock": "lightlda_doc_blocked",
         "gibbs_sample_docblock_build": "lightlda_streamed",
+        "kv_lookup": "sparse_logreg", "kv_probe_update": "sparse_logreg",
     }
     for name, path in main_path.items():
         if paths[path][name] <= 0:
@@ -1025,18 +1495,22 @@ def main(argv) -> int:
     log(f"  LightLDA doc-blocked: {lda['doc_tokens_per_sec']:.0f} "
         f"doc-tokens/s (runs {[round(r) for r in lda['runs_tok_per_sec']]}, "
         f"spread {lda['spread_pct']:.1f}%) on {card}")
+    log(f"  sparse LR: {[round(r) for r in slr['samples_per_sec']]} "
+        f"samples/s per epoch on {card}")
     log(f"  launches per path: {paths}")
 
     row_src = "multiverso_tpu_torch/ops/csrc/row_kernels.cu"
     coo_src = "multiverso_tpu_torch/ops/csrc/coo_kernels.cu"
     lda_src = "multiverso_tpu_torch/ops/csrc/lda_kernels.cu"
+    kv_src = "multiverso_tpu_torch/ops/csrc/kv_kernels.cu"
     source_of = {"row_gather": row_src, "row_scatter_add": row_src,
                  "row_scatter_add_masked": row_src,
                  "coo_scatter_add": coo_src,
                  "coo_scatter_add_masked": coo_src,
                  "gibbs_sample_tiled": lda_src,
                  "gibbs_sample_docblock": lda_src,
-                 "gibbs_sample_docblock_build": lda_src}
+                 "gibbs_sample_docblock_build": lda_src,
+                 "kv_lookup": kv_src, "kv_probe_update": kv_src}
     replaces = {
         "row_gather": "multiverso_tpu/ops/table_kernels.py:580",
         "row_scatter_add": "multiverso_tpu/ops/table_kernels.py:610",
@@ -1047,6 +1521,8 @@ def main(argv) -> int:
         "gibbs_sample_docblock": "multiverso_tpu/ops/lda_sampler.py:187",
         "gibbs_sample_docblock_build":
             "multiverso_tpu/ops/lda_sampler.py:228",
+        "kv_lookup": "multiverso_tpu/ops/table_kernels.py:285",
+        "kv_probe_update": "multiverso_tpu/ops/table_kernels.py:426",
     }
     main_n = BATCH * (1 + NEGATIVE)       # the w_out gather/scatter width
     measured = {name: results[(name, main_n)]
@@ -1054,6 +1530,9 @@ def main(argv) -> int:
                              "row_scatter_add_masked")}
     measured.update({name: lda_results[name] for name in source_of
                      if name in lda_results})
+    # the sparse-LR path's shapes: the ftrl table at value_dim 2
+    measured["kv_lookup"] = kv_results["kv_lookup"]
+    measured["kv_probe_update"] = kv_results["kv_probe_update_ftrl_2"]
     kernels = []
     for name, r in measured.items():
         kernels.append(dict(
@@ -1072,6 +1551,7 @@ def main(argv) -> int:
                        kernel_shapes={f"{k[0]}@{k[1]}": v
                                       for k, v in results.items()},
                        lda_kernel_shapes=lda_results,
+                       kv_kernel_shapes=kv_results, sparse_lr=slr,
                        seconds=time.perf_counter() - t_start), f, indent=1)
     log(f"phase seconds: { {k: round(v, 1) for k, v in phase_s.items()} }")
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -51,3 +51,37 @@ def load_lightlda(app, state: Dict[str, np.ndarray]) -> None:
     load_table(app.summary, state["summary"])
     app._install_sampler_state(np.asarray(state["z"]).reshape(-1),
                                np.asarray(state["ndk"]))
+
+
+def load_kv_table(table, keys: np.ndarray, values: np.ndarray,
+                  state) -> None:
+    """Install a ``multiverso_tpu`` KVTable's triple into a
+    :class:`~multiverso_tpu_torch.tables.KVTable` of the same geometry:
+    ``keys`` its ``np.asarray(table.keys)`` (``[B, S, 2]`` uint32),
+    ``values`` its values and ``state`` its updater-state leaves in
+    ``jax.tree.leaves`` order (a dict state's leaves sorted by name).
+    Advances the table's generation."""
+    from multiverso_tpu_torch.tables.base import state_keys
+    keys = np.ascontiguousarray(keys, np.uint32)
+    want = (table.num_buckets, table.slots, 2)
+    if keys.shape != want:
+        raise ValueError(f"keys shape {keys.shape} != table geometry {want}")
+    values = np.asarray(values)
+    if values.shape != tuple(table.values.shape):
+        raise ValueError(f"values shape {values.shape} != "
+                         f"{tuple(table.values.shape)}")
+    names = state_keys(table.state)
+    leaves = list(state)
+    if len(leaves) != len(names):
+        raise ValueError(f"{len(leaves)} state leaves; updater "
+                         f"{table.updater.name!r} has {len(names)}")
+    table._check_overflow()
+    dev = table.device
+    table.keys = torch.from_numpy(keys.view(np.int32).copy()).to(dev)
+    table.values = torch.from_numpy(
+        values.astype(table.np_dtype, copy=True)).to(dev)
+    table.state = {k: torch.from_numpy(np.array(leaf, copy=True)).to(
+        device=dev, dtype=table.state[k].dtype)
+        for k, leaf in zip(names, leaves)}
+    with table._option_lock:
+        table.generation += 1

@@ -1,15 +1,17 @@
 """Table kernels of the hot path: the row gather, the duplicate-safe
-sorted row scatter-add (with an optional per-lane mask) and the sorted
-COO scatter-add (with an optional per-lane mask).
+sorted row scatter-add (with an optional per-lane mask), the sorted COO
+scatter-add (with an optional per-lane mask), and the KVTable lookup and
+fused probe + updater apply.
 
 Counterpart of ``multiverso_tpu/ops/table_kernels.py`` (``build_row_gather``,
 ``build_row_scatter_add``, ``build_row_scatter_add_masked``,
-``build_coo_scatter_add``, ``build_coo_scatter_add_masked`` and the
-functional ``gather_rows`` / ``row_scatter_add`` / ``coo_scatter_add``). On
-a CUDA tensor each wrapper launches its hand-written kernel from
-``csrc/row_kernels.cu`` or ``csrc/coo_kernels.cu`` or raises; on a CPU
-tensor it runs the plain PyTorch version that stands beside it. Nothing
-falls back from one to the other.
+``build_coo_scatter_add``, ``build_coo_scatter_add_masked``,
+``build_kv_lookup``, ``build_kv_probe_update`` and the functional
+``gather_rows`` / ``row_scatter_add`` / ``coo_scatter_add``). On a CUDA
+tensor each wrapper launches its hand-written kernel from
+``csrc/row_kernels.cu``, ``csrc/coo_kernels.cu`` or ``csrc/kv_kernels.cu``
+or raises; on a CPU tensor it runs the plain PyTorch version that stands
+beside it. Nothing falls back from one to the other.
 
 Each wrapper adds one to ``LAUNCHES[<kernel>]`` where it launches its
 kernel, so a run can show that its main path went through the kernels.
@@ -28,7 +30,8 @@ import torch
 
 LAUNCHES = {"row_gather": 0, "row_scatter_add": 0,
             "row_scatter_add_masked": 0, "coo_scatter_add": 0,
-            "coo_scatter_add_masked": 0}
+            "coo_scatter_add_masked": 0, "kv_lookup": 0,
+            "kv_probe_update": 0, "kv_commit": 0}
 
 GATHER_DTYPES = (torch.float32, torch.int32, torch.bfloat16, torch.int16)
 ADD_DTYPES = (torch.float32, torch.int32)
@@ -301,8 +304,268 @@ def coo_scatter_add_masked(param: torch.Tensor, rows: torch.Tensor,
     return param
 
 
-__all__ = ["ADD_DTYPES", "GATHER_DTYPES", "LAUNCHES", "coo_scatter_add",
-           "coo_scatter_add_masked", "coo_scatter_add_masked_plain",
-           "coo_scatter_add_plain", "gather_rows", "gather_rows_plain",
+# -- KV lookup and fused probe + updater apply ---------------------------------
+#
+# KVTable storage: keys int32 [B, S, 2] holding the [hi, lo] uint32 bit
+# patterns of 64-bit keys (an empty slot is (-1, -1)); values [B, S] or
+# [B, S, D]; updater state leaves shaped like values. A lane carries its
+# query key int32 [2] and its bucket id. The CUDA kernels take float32
+# values and state only.
+
+#: updater name -> the commit kernel's code (csrc/kv_updaters.cuh)
+KV_UPDATERS = {"default": 0, "sgd": 1, "adagrad": 2, "momentum": 3,
+               "adam": 4, "ftrl": 5}
+# each updater's state leaves in the kernel's (a, b) operand order
+_KV_STATE = {"adagrad": ("h",), "momentum": ("v",), "adam": ("m", "v"),
+             "ftrl": ("z", "n")}
+
+
+def _check_kv(keys_arr: torch.Tensor, values_arr: torch.Tensor,
+              query: torch.Tensor, buckets: torch.Tensor, *operands) -> None:
+    if keys_arr.dim() != 3 or keys_arr.shape[2] != 2 \
+            or keys_arr.dtype != torch.int32:
+        raise TypeError(f"keys must be int32 [B, S, 2], got {keys_arr.dtype} "
+                        f"{tuple(keys_arr.shape)}")
+    if tuple(values_arr.shape[:2]) != tuple(keys_arr.shape[:2]) \
+            or values_arr.dim() not in (2, 3):
+        raise ValueError(f"values shape {tuple(values_arr.shape)} is not "
+                         f"[B, S] or [B, S, D] for keys "
+                         f"{tuple(keys_arr.shape)}")
+    if not (keys_arr.is_contiguous() and values_arr.is_contiguous()):
+        raise ValueError("keys and values must be contiguous")
+    if keys_arr.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no KV kernel for device {keys_arr.device}")
+    for t in (values_arr, query, buckets, *operands):
+        if t is not None and t.device != keys_arr.device:
+            raise ValueError(f"operand on {t.device}, table on "
+                             f"{keys_arr.device}")
+    _check_lanes("buckets", buckets)
+    n = buckets.shape[0]
+    if query.dtype != torch.int32 or tuple(query.shape) != (n, 2):
+        raise TypeError(f"query must be int32 ({n}, 2), got {query.dtype} "
+                        f"{tuple(query.shape)}")
+
+
+def _kv_cols(values_arr: torch.Tensor) -> int:
+    """Value columns per slot: D, or 1 for scalar values."""
+    return values_arr.shape[2] if values_arr.dim() == 3 else 1
+
+
+def _check_f32(what: str, t: torch.Tensor) -> None:
+    if t.dtype != torch.float32:
+        raise TypeError(f"the CUDA KV kernels take float32 {what}, got "
+                        f"{t.dtype}")
+
+
+def kv_lookup_plain(keys_arr: torch.Tensor, values_arr: torch.Tensor,
+                    query: torch.Tensor, buckets: torch.Tensor,
+                    default_value: float = 0.0):
+    """The reference's XLA ``lookup`` in plain PyTorch: match each lane's
+    query against its bucket's slots, sum ``match ? v : 0`` over the slots
+    in slot order, fill ``default_value`` where nothing matched. Returns
+    ``(picked [n] or [n, D], found [n] bool)``."""
+    b = buckets.long()
+    rows = keys_arr[b]                                   # (n, S, 2)
+    vals = values_arr[b]                                 # (n, S[, D])
+    match = (rows == query[:, None, :]).all(-1)          # (n, S)
+    found = match.any(1)
+    m = match if vals.dim() == 2 else match[..., None]
+    terms = torch.where(m, vals, torch.zeros((), dtype=vals.dtype,
+                                             device=vals.device))
+    picked = torch.zeros_like(terms[:, 0])
+    for s in range(terms.shape[1]):                      # slot order
+        picked = picked + terms[:, s]
+    fill = found if vals.dim() == 2 else found[:, None]
+    default = torch.full((), default_value, dtype=vals.dtype,
+                         device=vals.device)
+    return torch.where(fill, picked, default), found
+
+
+def kv_lookup(keys_arr: torch.Tensor, values_arr: torch.Tensor,
+              query: torch.Tensor, buckets: torch.Tensor,
+              default_value: float = 0.0):
+    """Batched KV lookup -> ``(picked, found)``; the signature of the
+    reference's ``build_kv_lookup`` closure with ``default_value`` as an
+    argument (slots and value width come from the shapes).
+
+    Replaces ``build_kv_lookup`` (the TPU ``_kv_lookup_kernel``): the CUDA
+    kernel ``mv_kv_lookup`` takes the same slot-order where-sum, so a
+    stored -0.0 comes back +0.0 and a NaN in another slot stays masked, as
+    in the reference. A lane whose bucket is out of range is not found
+    (the plain version raises)."""
+    _check_kv(keys_arr, values_arr, query, buckets)
+    if keys_arr.device.type == "cpu":
+        return kv_lookup_plain(keys_arr, values_arr, query, buckets,
+                               default_value)
+    _check_f32("values", values_arr)
+    n, cols = buckets.shape[0], _kv_cols(values_arr)
+    picked = torch.empty((n,) + tuple(values_arr.shape[2:]),
+                         dtype=torch.float32, device=keys_arr.device)
+    found = torch.empty(n, dtype=torch.bool, device=keys_arr.device)
+    if n:
+        buckets = buckets.to(torch.int32).contiguous()
+        query = query.contiguous()
+        _launch("kv_lookup", "mv_kv_lookup", keys_arr.data_ptr(),
+                values_arr.data_ptr(), keys_arr.shape[0], keys_arr.shape[1],
+                cols, query.data_ptr(), buckets.data_ptr(), n,
+                float(default_value), picked.data_ptr(), found.data_ptr())
+    return picked, found
+
+
+def _resolve_updater(updater):
+    from multiverso_tpu_torch.updaters import get_updater
+    return get_updater(updater) if isinstance(updater, str) else updater
+
+
+def kv_probe_update_plain(keys_arr: torch.Tensor, values_arr: torch.Tensor,
+                          state: Dict[str, torch.Tensor],
+                          buckets: torch.Tensor, query: torch.Tensor,
+                          deltas: torch.Tensor, valid: torch.Tensor,
+                          option, updater):
+    """The reference's XLA ``probe_update`` in plain PyTorch, in place.
+
+    A lane takes its matching slot if its key is present, else the
+    (rank+1)-th empty slot of its bucket's pre-batch row, where rank is its
+    position among the batch's new keys of the same bucket in batch order
+    (a stable argsort, an exclusive cumsum and a cummax over the sorted
+    bucket ids). If any valid lane finds no slot, nothing is written (all
+    or nothing). Written lanes store their key and the updater's result.
+    Returns ``(keys, values, state, n_over)``, n_over an int32 0-d tensor."""
+    upd = _resolve_updater(updater)
+    n_slots = keys_arr.shape[1]
+    b = buckets.long()
+    ok_lane = valid != 0
+    rows = keys_arr[b]                                   # (n, S, 2)
+    match = (rows == query[:, None, :]).all(-1)          # (n, S)
+    matched = match.any(1)
+    mlane = match.to(torch.int32).argmax(1)              # first match
+    empty = (rows == -1).all(-1)
+    new = ~matched & ok_lane
+    # rank among same-bucket new keys, in batch order
+    perm = torch.argsort(b, stable=True)
+    b_s = b[perm]
+    new_s = new[perm].to(torch.int64)
+    csx = torch.cumsum(new_s, 0) - new_s                 # exclusive
+    bound = torch.ones_like(new_s, dtype=torch.bool)
+    bound[1:] = b_s[1:] != b_s[:-1]
+    base = torch.cummax(torch.where(bound, csx, torch.full_like(csx, -1)),
+                        0).values
+    rank = torch.empty_like(csx)
+    rank[perm] = csx - base
+    # (rank+1)-th empty slot of the bucket
+    ecs = torch.cumsum(empty.to(torch.int64), 1)
+    hit = empty & (ecs == (rank + 1)[:, None])
+    placed = hit.any(1)
+    elane = hit.to(torch.int32).argmax(1)
+    ok = matched | placed
+    n_over = (~ok & ok_lane).sum().to(torch.int32)
+    slot = torch.where(matched, mlane, elane)
+    w = torch.nonzero(ok & ok_lane & (n_over == 0)).view(-1)
+    bw, sw = b[w], slot[w].long()
+    keys_arr[bw, sw] = query[w]
+    old_state = {k: v[bw, sw] for k, v in state.items()}
+    new_val, new_state = upd.apply(values_arr[bw, sw], old_state, deltas[w],
+                                   option)
+    values_arr[bw, sw] = new_val.to(values_arr.dtype)
+    for k, leaf in state.items():
+        leaf[bw, sw] = new_state[k].to(leaf.dtype)
+    return keys_arr, values_arr, state, n_over
+
+
+def _kv_scalars(name: str, option) -> list:
+    """The commit kernel's eight float32 scalars for updater ``name``,
+    computed on the CPU by the plain updater's own float32 expressions
+    (csrc/kv_updaters.cuh lists them)."""
+    from multiverso_tpu_torch.updaters.updaters import _f32
+    lr = _f32(option.learning_rate)
+    if name == "sgd":
+        vals = [lr]
+    elif name == "adagrad":
+        vals = [lr, _f32(option.lam)]
+    elif name == "momentum":
+        vals = [lr, _f32(option.momentum)]
+    elif name == "adam":
+        b1, b2 = _f32(option.momentum), _f32(option.rho)
+        t = _f32(option.step) + 1.0
+        vals = [lr, b1, b2, _f32(option.lam), 1.0 - b1, 1.0 - b2,
+                1.0 - b1 ** t, 1.0 - b2 ** t]
+    elif name == "ftrl":
+        vals = [lr, _f32(option.momentum), _f32(option.lam),
+                _f32(option.rho)]
+    else:
+        vals = []
+    return [float(v) for v in vals] + [0.0] * (8 - len(vals))
+
+
+def kv_probe_update(keys_arr: torch.Tensor, values_arr: torch.Tensor,
+                    state: Dict[str, torch.Tensor], buckets: torch.Tensor,
+                    query: torch.Tensor, deltas: torch.Tensor,
+                    valid: torch.Tensor, option, updater):
+    """Fused slot probe + updater apply + write, in place; returns
+    ``(keys, values, state, n_over)`` with ``n_over`` an int32 0-d device
+    tensor (nothing was written when it is not 0). The signature of the
+    reference's ``build_kv_probe_update`` closure, with the updater (an
+    ``Updater`` or its name) as the last argument.
+
+    Replaces ``build_kv_probe_update`` (the TPU ``_kv_probe_kernel`` with
+    ``_probe_lane`` and ``_apply_write``) by two CUDA launches on the
+    current stream: ``mv_kv_probe`` (slots and the overflow count, left on
+    the device) and ``mv_kv_commit`` (writes only if the count is 0; no
+    host sync). Lanes must be sorted by bucket, each bucket's valid lanes
+    first and in batch order, as ``KVTable.prepare_add`` lays them out
+    (padding last, on the last bucket); valid lanes must hold distinct
+    keys. Values and state must be float32 on the card."""
+    _check_kv(keys_arr, values_arr, query, buckets, deltas, valid)
+    n, cols = buckets.shape[0], _kv_cols(values_arr)
+    if deltas.numel() != n * cols:
+        raise ValueError(f"deltas shape {tuple(deltas.shape)} != "
+                         f"({n}, {cols})")
+    if valid.shape != (n,):
+        raise ValueError(f"valid shape {tuple(valid.shape)} != ({n},)")
+    if keys_arr.device.type == "cpu":
+        return kv_probe_update_plain(keys_arr, values_arr, state, buckets,
+                                     query, deltas, valid, option, updater)
+    upd = _resolve_updater(updater)
+    if upd.name not in KV_UPDATERS:
+        raise ValueError(f"no CUDA KV commit for updater {upd.name!r}; "
+                         f"the kernel has {sorted(KV_UPDATERS)}")
+    _check_f32("values", values_arr)
+    names = _KV_STATE.get(upd.name, ())
+    if sorted(state) != sorted(names):
+        raise ValueError(f"updater {upd.name!r} state {sorted(state)} != "
+                         f"{sorted(names)}")
+    leaves = [state[k] for k in names]
+    for leaf in leaves:
+        _check_f32("state", leaf)
+        if leaf.shape != values_arr.shape or not leaf.is_contiguous():
+            raise ValueError("state leaves must be contiguous and shaped "
+                             "like the values")
+    dev = keys_arr.device
+    n_over = torch.zeros(1, dtype=torch.int32, device=dev)
+    if n == 0:
+        return keys_arr, values_arr, state, n_over.view(())
+    slot = torch.empty(n, dtype=torch.int32, device=dev)
+    buckets = buckets.to(torch.int32).contiguous()
+    query = query.contiguous()
+    valid = (valid if valid.dtype == torch.bool else valid != 0).contiguous()
+    deltas = deltas.to(torch.float32).contiguous()
+    ptrs = [leaf.data_ptr() for leaf in leaves] + [None] * (2 - len(leaves))
+    nb, n_slots = keys_arr.shape[0], keys_arr.shape[1]
+    _launch("kv_probe_update", "mv_kv_probe", keys_arr.data_ptr(), nb,
+            n_slots, buckets.data_ptr(), query.data_ptr(), valid.data_ptr(),
+            n, slot.data_ptr(), n_over.data_ptr())
+    _launch("kv_commit", "mv_kv_commit", keys_arr.data_ptr(),
+            values_arr.data_ptr(), *ptrs, nb, n_slots, cols,
+            buckets.data_ptr(), query.data_ptr(), deltas.data_ptr(),
+            slot.data_ptr(), n_over.data_ptr(), n, KV_UPDATERS[upd.name],
+            *_kv_scalars(upd.name, option))
+    return keys_arr, values_arr, state, n_over.view(())
+
+
+__all__ = ["ADD_DTYPES", "GATHER_DTYPES", "KV_UPDATERS", "LAUNCHES",
+           "coo_scatter_add", "coo_scatter_add_masked",
+           "coo_scatter_add_masked_plain", "coo_scatter_add_plain",
+           "gather_rows", "gather_rows_plain", "kv_lookup",
+           "kv_lookup_plain", "kv_probe_update", "kv_probe_update_plain",
            "reset_launches", "row_scatter_add", "row_scatter_add_masked",
            "row_scatter_add_masked_plain", "row_scatter_add_plain"]

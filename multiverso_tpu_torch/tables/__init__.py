@@ -1,15 +1,17 @@
-"""The table layer: ArrayTable, MatrixTable, SparseMatrixTable, the fused
-superstep."""
+"""The table layer: ArrayTable, MatrixTable, SparseMatrixTable, KVTable,
+the fused superstep."""
 
 from multiverso_tpu_torch.tables.array_table import ArrayTable
 from multiverso_tpu_torch.tables.base import (Handle, Table, get_table,
                                               num_tables, reset_tables)
+from multiverso_tpu_torch.tables.kv_table import KVTable, KVTableOption
 from multiverso_tpu_torch.tables.matrix_table import MatrixTable
 from multiverso_tpu_torch.tables.sparse_matrix_table import SparseMatrixTable
 from multiverso_tpu_torch.tables.superstep import (FusedSuperstep,
                                                    coo_scatter_add,
                                                    make_superstep)
 
-__all__ = ["ArrayTable", "FusedSuperstep", "Handle", "MatrixTable",
+__all__ = ["ArrayTable", "FusedSuperstep", "Handle", "KVTable",
+           "KVTableOption", "MatrixTable",
            "SparseMatrixTable", "Table", "coo_scatter_add", "get_table",
            "make_superstep", "num_tables", "reset_tables"]

@@ -132,8 +132,8 @@ def _record_event(device: torch.device) -> Optional[torch.cuda.Event]:
 class Handle:
     """Async completion handle (the reference's Waiter).
 
-    - A **get-handle** wraps a snapshot tensor; ``wait()`` blocks until it
-      is computed and returns it.
+    - A **get-handle** wraps a snapshot tensor (or a tuple of them);
+      ``wait()`` blocks until it is computed and returns it.
     - An **add-handle** records the table and the *generation* its update
       produced. Updates apply in stream order, so once the table's queued
       work is done every generation up to the current one has landed;
@@ -149,8 +149,9 @@ class Handle:
         self._values = values
         self._table = table
         self._generation = generation
-        self._event = _record_event(values.device) \
-            if isinstance(values, torch.Tensor) else None
+        first = values[0] if isinstance(values, tuple) else values
+        self._event = _record_event(first.device) \
+            if isinstance(first, torch.Tensor) else None
 
     @property
     def generation(self) -> Optional[int]:
@@ -173,7 +174,7 @@ class Handle:
                 self._event.synchronize()
             return self._values
         self._table.wait()
-        return self._table.param
+        return self._table._live_value()
 
     def result(self) -> Any:
         return self.wait()
@@ -313,6 +314,10 @@ class Table:
         """Block until all queued updates on this table are applied."""
         if self._event is not None:
             self._event.synchronize()
+
+    def _live_value(self) -> torch.Tensor:
+        """What an add-handle's ``wait()`` returns: the current param."""
+        return self.param
 
     # -- checkpoint (ServerTable::Store/Load) ------------------------------
 

@@ -52,6 +52,16 @@ def _f32(x) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32)
 
 
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 sqrt, as XLA and the CUDA kernels take it.
+    torch's vectorized CPU sqrt is not (it misses by an ulp now and then),
+    so on the CPU it is taken in float64 and rounded once, which is exact
+    for a float32 input."""
+    if x.device.type == "cpu" and x.dtype == torch.float32:
+        return torch.sqrt(x.double()).to(torch.float32)
+    return torch.sqrt(x)
+
+
 def _zeros(param: torch.Tensor) -> torch.Tensor:
     return torch.zeros_like(param, dtype=torch.float32)
 
@@ -77,7 +87,7 @@ def _adagrad_apply(param, state, delta, option):
     lr, eps = _f32(option.learning_rate), _f32(option.lam)
     d32 = delta.to(torch.float32)
     h = state["h"] + d32 * d32
-    return (param - (lr * d32 / (torch.sqrt(h) + eps)).to(param.dtype),
+    return (param - (lr * d32 / (_sqrt(h) + eps)).to(param.dtype),
             {"h": h})
 
 
@@ -104,7 +114,7 @@ def _adam_apply(param, state, delta, option):
     v = b2 * state["v"] + (1.0 - b2) * d32 * d32
     mhat = m / (1.0 - b1 ** t)
     vhat = v / (1.0 - b2 ** t)
-    return (param - (lr * mhat / (torch.sqrt(vhat) + eps)).to(param.dtype),
+    return (param - (lr * mhat / (_sqrt(vhat) + eps)).to(param.dtype),
             {"m": m, "v": v})
 
 
@@ -121,13 +131,13 @@ def _ftrl_apply(param, state, delta, option):
     z, n = state["z"], state["n"]
     g = delta.to(torch.float32)
     n_new = n + g * g
-    sigma = (torch.sqrt(n_new) - torch.sqrt(n)) / alpha
+    sigma = (_sqrt(n_new) - _sqrt(n)) / alpha
     z_new = z + g - sigma * param.to(torch.float32)
     shrunk = torch.sign(z_new) * torch.clamp_min(torch.abs(z_new) - l1, 0.0)
     # |z| <= l1 selects w = 0 outside the division: with beta = l2 = 0 a
     # never-touched coordinate has n = z = 0 and the quotient is 0/0
     w = torch.where(torch.abs(z_new) <= l1, torch.zeros_like(z_new),
-                    -shrunk / ((beta + torch.sqrt(n_new)) / alpha + l2))
+                    -shrunk / ((beta + _sqrt(n_new)) / alpha + l2))
     return w.to(param.dtype), {"z": z_new, "n": n_new}
 
 

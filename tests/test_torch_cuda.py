@@ -288,3 +288,213 @@ def test_lightlda_on_the_card_matches_cpu(cuda, tmp_path):
             assert np.array_equal(a.summary.get(), nwk.sum(0))
             assert np.array_equal(a.doc_topics().sum(1),
                                   np.bincount(td, minlength=a.num_docs))
+
+
+# -- KVTable kernels -------------------------------------------------------------
+
+KV_UPDATERS = ["default", "sgd", "adagrad", "momentum", "adam", "ftrl"]
+KV_OPTIONS = {
+    "default": dict(),
+    "sgd": dict(learning_rate=0.05),
+    "adagrad": dict(learning_rate=0.1, lam=1e-6),
+    "momentum": dict(learning_rate=0.05, momentum=0.9),
+    "adam": dict(learning_rate=0.01, momentum=0.9, rho=0.999, lam=1e-8,
+                 step=4),
+    "ftrl": dict(learning_rate=0.1, lam=0.01, rho=0.001, momentum=1.0),
+}
+
+
+def _split(keys):
+    return np.stack([(keys >> np.uint64(32)).astype(np.uint32),
+                     (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32)],
+                    axis=1).view(np.int32)
+
+
+def _kv_filled(rng, nb, slots, vdim, fill=0.6):
+    """Keys int32 [nb, S, 2] with a random prefix of each bucket live,
+    float32 values (some -0.0), and the live mask."""
+    keys = np.full((nb, slots, 2), -1, np.int32)
+    live = rng.random((nb, slots)).cumprod(1) > (1 - fill)
+    n_live = int(live.sum())
+    ks = np.unique(rng.integers(1, 2 ** 63, size=2 * n_live,
+                                dtype=np.uint64))[:n_live]
+    keys[live] = _split(ks)
+    shape = (nb, slots, vdim) if vdim else (nb, slots)
+    vals = rng.standard_normal(shape).astype(np.float32)
+    vals.reshape(nb, slots, -1)[rng.random((nb, slots)) < 0.1] = -0.0
+    return keys, vals, live
+
+
+def _kv_batch(rng, keys, live, over, n_pad):
+    """Bucket-sorted lanes over every bucket: the live keys of every other
+    bucket (matches), up to two new keys per bucket within its empties
+    (claims), with ``over`` one more than bucket 0 holds; padding lanes on
+    the last bucket."""
+    nb, slots = keys.shape[:2]
+    q, b = [], []
+    fresh = iter(np.unique(rng.integers(1, 2 ** 63, size=4 * nb + 64,
+                                        dtype=np.uint64)))
+    for bucket in range(nb):
+        if bucket % 2 == 0:
+            idx = np.nonzero(live[bucket])[0]
+            q.append(keys[bucket, idx])
+            b.append(np.full(len(idx), bucket))
+        empties = slots - int(live[bucket].sum())
+        n_new = empties + 1 if over and bucket == 0 \
+            else min(empties, int(rng.integers(0, 3)))
+        q.append(_split(np.asarray([next(fresh) for _ in range(n_new)],
+                                   np.uint64)).reshape(-1, 2))
+        b.append(np.full(n_new, bucket))
+    query = np.concatenate(q)
+    buckets = np.concatenate(b).astype(np.int32)
+    order = np.argsort(buckets, kind="stable")
+    query = np.concatenate([query[order], np.full((n_pad, 2), -1, np.int32)])
+    buckets = np.concatenate([buckets[order],
+                              np.full(n_pad, nb - 1, np.int32)])
+    valid = np.arange(len(buckets)) < len(order)
+    return query, buckets, valid
+
+
+def _bits(t):
+    return t.cpu().contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("vdim", [0, 2, 5])
+def test_kv_lookup_matches_cpu_plain(cuda, vdim):
+    rng = np.random.default_rng(20 + vdim)
+    nb, slots = 2000, 16
+    keys, vals, live = _kv_filled(rng, nb, slots, vdim)
+    # a NaN in a live slot whose key is not queried: masked out
+    nan_b = np.nonzero(live[:, 1])[0][:50]
+    vals.reshape(nb, slots, -1)[nan_b, 1] = np.nan
+    live_q = live.copy()
+    live_q[nan_b, 1] = False
+    bb, ss = np.nonzero(live_q)
+    missing = _split(np.arange(10 ** 6, 10 ** 6 + 3000, dtype=np.uint64))
+    query = np.concatenate([keys[bb, ss], missing])
+    buckets = np.concatenate([bb, rng.integers(0, nb, 3000)]).astype(
+        np.int32)
+    args = [torch.from_numpy(x) for x in (keys, vals, query, buckets)]
+    want_v, want_f = tk.kv_lookup_plain(*args, default_value=0.5)
+    before = tk.LAUNCHES["kv_lookup"]
+    got_v, got_f = tk.kv_lookup(*(x.to(cuda) for x in args),
+                                default_value=0.5)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["kv_lookup"] == before + 1
+    assert torch.equal(got_f.cpu(), want_f)
+    assert torch.equal(_bits(got_v), _bits(want_v))
+    assert int(want_f.sum()) == len(bb)
+
+
+@pytest.mark.parametrize("over", [False, True])
+@pytest.mark.parametrize("vdim", [0, 2])
+@pytest.mark.parametrize("name", KV_UPDATERS)
+def test_kv_probe_update_matches_cpu_plain(cuda, name, vdim, over):
+    """Keys, values, state and n_over bit for bit against the plain version
+    on the CPU; an overflowing batch leaves the triple unchanged."""
+    from multiverso_tpu_torch import updaters as tup
+    rng = np.random.default_rng(KV_UPDATERS.index(name) * 4 + vdim + over)
+    nb, slots = 512, 8
+    keys, vals, live = _kv_filled(rng, nb, slots, vdim)
+    query, buckets, valid = _kv_batch(rng, keys, live, over, 5)
+    n = len(buckets)
+    deltas = rng.standard_normal((n, vdim) if vdim else (n,)).astype(
+        np.float32)
+    upd = tup.get_updater(name)
+    state = {k: torch.from_numpy(np.abs(rng.standard_normal(vals.shape))
+                                 .astype(np.float32))
+             for k in upd.init_state(torch.from_numpy(vals))}
+    opt = tup.AddOption(**KV_OPTIONS[name])
+    lanes = [torch.from_numpy(x) for x in (buckets, query, deltas, valid)]
+    cpu = (torch.from_numpy(keys.copy()), torch.from_numpy(vals.copy()),
+           {k: v.clone() for k, v in state.items()})
+    want = tk.kv_probe_update_plain(*cpu, *lanes, opt, name)
+    before = dict(tk.LAUNCHES)
+    got = tk.kv_probe_update(
+        torch.from_numpy(keys.copy()).to(cuda),
+        torch.from_numpy(vals.copy()).to(cuda),
+        {k: v.clone().to(cuda) for k, v in state.items()},
+        *(x.to(cuda) for x in lanes), opt, name)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["kv_probe_update"] == before["kv_probe_update"] + 1
+    assert tk.LAUNCHES["kv_commit"] == before["kv_commit"] + 1
+    assert int(got[3]) == int(want[3]) == int(over)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(_bits(got[1]), _bits(want[1]))
+    for k in state:
+        assert torch.equal(_bits(got[2][k]), _bits(want[2][k])), k
+    if over:
+        assert torch.equal(got[0].cpu(), torch.from_numpy(keys))
+        assert torch.equal(got[1].cpu(), torch.from_numpy(vals))
+        for k in state:
+            assert torch.equal(got[2][k].cpu(), state[k])
+    else:
+        assert not torch.equal(got[0].cpu(), torch.from_numpy(keys))
+
+
+def test_kv_table_on_the_card_matches_cpu(cuda):
+    """KVTable adds and gets on the card against the same table on the CPU,
+    bit for bit, through an overflow and its deferred raise."""
+    from multiverso_tpu_torch.tables import KVTable
+    rng = np.random.default_rng(30)
+    for updater, vdim in (("ftrl", 2), ("adagrad", 0), ("default", 3)):
+        tabs = [KVTable(600, value_dim=vdim, slots_per_bucket=4,
+                        updater=updater, device=d, name=f"kv_{d}")
+                for d in (cuda, "cpu")]
+        pool = np.unique(rng.integers(1, 2 ** 40, 900, dtype=np.uint64))
+        for step in range(6):
+            keys = rng.choice(pool, size=int(rng.integers(50, 300)),
+                              replace=False)
+            shape = (len(keys), vdim) if vdim else (len(keys),)
+            d = rng.standard_normal(shape).astype(np.float32)
+            errs = []
+            for t in tabs:
+                t.add(keys, d)
+                try:
+                    t.wait()
+                    errs.append(None)
+                except RuntimeError as e:
+                    errs.append(str(e).replace(t.name, "kv"))
+            assert errs[0] == errs[1], step
+        gpu, host = tabs
+        assert torch.equal(gpu.keys.cpu(), host.keys)
+        assert torch.equal(_bits(gpu.values), _bits(host.values))
+        for k in host.state:
+            assert torch.equal(_bits(gpu.state[k]), _bits(host.state[k]))
+        q = rng.choice(pool, size=333)
+        for a, b in zip(gpu.get(q), host.get(q)):
+            assert np.array_equal(a, b)
+        assert len(gpu) == len(host)
+
+
+def test_kv_table_raises_on_other_value_dtypes(cuda):
+    from multiverso_tpu_torch.tables import KVTable
+    t = KVTable(64, value_dim=2, dtype="float16", updater="default",
+                device=cuda, name="kv_f16")
+    keys = np.asarray([1, 2], np.uint64)
+    with pytest.raises(TypeError, match="float32"):
+        t.add(keys, np.ones((2, 2), np.float16))
+    with pytest.raises(TypeError, match="float32"):
+        t.get(keys)
+
+
+def test_sparse_logreg_on_the_card_matches_cpu(cuda):
+    """Two minibatches on the card and on the CPU from the same rows: keys
+    bit for bit; losses and values within rtol 1e-5 (index_add_ on the
+    card adds a key's gradient terms in no fixed order)."""
+    from multiverso_tpu_torch.apps.sparse_logreg import (
+        SparseLogisticRegression, SparseLRConfig, synthetic_sparse)
+    rows, y = synthetic_sparse(n=512, dim=20_000, num_classes=2, nnz=12,
+                               seed=5)
+    cfg = SparseLRConfig(max_features=16, capacity=1 << 14,
+                         minibatch_size=256, updater="ftrl")
+    apps = [SparseLogisticRegression(cfg, device=d, name=f"slr_{d}")
+            for d in (cuda, "cpu")]
+    for s in (0, 256):
+        losses = [a.train_batch(rows[s:s + 256], y[s:s + 256])
+                  for a in apps]
+        assert losses[0] == pytest.approx(losses[1], rel=1e-5)
+    gpu, host = (a.table for a in apps)
+    assert torch.equal(gpu.keys.cpu(), host.keys)
+    np.testing.assert_allclose(gpu.values.cpu().numpy(),
+                               host.values.numpy(), rtol=1e-5, atol=1e-6)

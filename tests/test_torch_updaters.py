@@ -78,3 +78,16 @@ def test_default_option_resolution_matches(name):
     t = tup.resolve_default_option(name, None)
     for field in ("learning_rate", "momentum", "rho", "lam", "step"):
         assert getattr(t, field) == getattr(j, field)
+
+
+def test_cpu_sqrt_is_correctly_rounded():
+    """The updaters' sqrt on the CPU equals IEEE float32 sqrt (numpy's)
+    bit for bit, as XLA's and the CUDA kernels' do; torch's own vectorized
+    CPU sqrt may miss by an ulp."""
+    from multiverso_tpu_torch.updaters.updaters import _sqrt
+    rng = np.random.default_rng(0)
+    x = (np.abs(rng.standard_normal(1 << 20))
+         * 10.0 ** rng.uniform(-30, 30, 1 << 20)).astype(np.float32)
+    got = _sqrt(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32),
+                                  np.sqrt(x).view(np.int32))
