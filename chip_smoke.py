@@ -56,14 +56,31 @@ its seconds):
    ftrl, a 2^25-slot KVTable): 2 epochs of 32 steps; samples/s and mean
    loss per epoch, train accuracy, live keys, peak device memory, launches
    per step, and one step's host prep against its device time.
+11. Tables split over a mesh of four model shards (``SHARDS``; on a
+   one-card machine all four on cuda:0) against the same tables
+   unsharded: MatrixTable 10,000 x 100 under default, sgd and adagrad
+   (24,576 Zipf ids), SparseMatrixTable 50,000 x 1024 int32 flat and
+   tiled (512,000-lane COO adds), KVTable of 2^25 slots (ftrl, value_dim
+   2, 159,000-key adds) with a batch that overflows one bucket of shard
+   0: bit-identical in the logical region, the same overflow verdict.
+12. Sparse logistic regression of phase 10 on the (1, 4) mesh through
+   ``SparseLogisticRegression(cfg, mesh=...)``, from phase 10's data: its
+   final keys, values and state must equal phase 10's bit for bit; the
+   same numbers as phase 10, per-device peak memory, and the launches per
+   step (4 per-shard lookups, probes and commits, 1 of each sharded form).
 
 Phase 2 also holds the KV kernels against their plain versions on the CPU
 bit for bit at the sparse-LR step's shapes (a 2^25-slot table, 262,144
 padded lanes of about 159,000 keys, half present), the probe + commit under
-all six updaters, and a small sparse LR on the card against the CPU.
+all six updaters, and a small sparse LR on the card against the CPU; and
+the five sharded forms at S = 4 against their plain versions on the CPU,
+bit for bit: the KV lookup and probe + commit (ftrl) at those shapes on
+four shards of 524,288 buckets (with a batch that overflows one bucket of
+shard 0), the row gather and scatter-add at the word2vec shapes, the COO
+add at the LightLDA call's.
 
 Launch counts are set to 0 before each main path (phases 3-4 word2vec,
-5, 6, 7, 8, 10) and read after it. Before the last line the script prints
+5, 6, 7, 8, 10, 11, 12) and read after it. Before the last line the script prints
 one ``{"kernels": [...]}`` JSON line and the card's name and power limit;
 the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -110,13 +127,17 @@ LDA_SMALL_T, LDA_SMALL_D = 1_000_000, 10_000
 
 # sparse logistic regression at a Criteo-like width: the Kaggle Display
 # Advertising Challenge's 13 integer + 26 categorical fields, 39 hashed
-# features per sample (plus the bias), over 2^24 hashed dims
-SLR_N, SLR_DIM, SLR_NNZ = 131_072, 1 << 24, 39
+# features per sample (plus the bias), over 2^24 hashed dims; the depth
+# (samples) is cut to 16 minibatches an epoch so that phases 10 and 12,
+# host-bound on the pack, keep the script near three minutes
+SLR_N, SLR_DIM, SLR_NNZ = 65_536, 1 << 24, 39
 SLR_CAPACITY, SLR_SLOTS, SLR_BATCH, SLR_EPOCHS = 1 << 25, 16, 4096, 2
 # the KV kernels' shapes at that step: about 159,000 unique keys a
 # minibatch, padded to 262,144 lanes
 KV_REAL = 159_000
 KV_UPDATERS = ("default", "sgd", "adagrad", "momentum", "adam", "ftrl")
+# the sharded phases' model shards (spread over the machine's cards)
+SHARDS = 4
 # float32 operations per value element of each updater's apply
 KV_UPDATER_OPS = {"default": 1, "sgd": 2, "adagrad": 6, "momentum": 4,
                   "adam": 13, "ftrl": 17}
@@ -969,7 +990,9 @@ def phase_kv_kernels(torch, tk, KVTable) -> dict:
         t.wait()
         prep = t.prepare_add(keys, rng.standard_normal(shape(n)).astype(
             np.float32))
-        lanes = (prep.buckets, prep.query, prep.deltas, prep.valid)
+        # the one shard's lane row: the flat kernel's layout
+        lanes = (prep.buckets[0], prep.query[0], prep.deltas[0],
+                 prep.valid[0])
         cpu = kv_triple(t, "cpu")
         want = tk.kv_probe_update_plain(*cpu, *(x.cpu() for x in lanes),
                                         prep.option, name)
@@ -990,7 +1013,7 @@ def phase_kv_kernels(torch, tk, KVTable) -> dict:
             over_lanes = kv_overflow_check(torch, tk, t, rng)
         plain_t = kv_triple(t)
         cols, ns = max(vdim, 1), len(t.state)
-        touched = int(torch.unique(prep.buckets).numel())
+        touched = int(torch.unique(lanes[0]).numel())
         nbytes = (b * (4 + 8 + 1) + b * cols * 4 + touched * SLR_SLOTS * 8
                   + n * (8 + 2 * cols * 4 * (1 + ns)) + 4)
         nb_, by = bound_ms(nbytes, n * cols * KV_UPDATER_OPS[name])
@@ -1052,8 +1075,8 @@ def slr_small_parity(torch, SparseLogisticRegression, SparseLRConfig,
                      synthetic_sparse) -> None:
     """Two minibatches of a small sparse LR on the card and on the CPU
     (plain versions) from the same rows: keys bit for bit, losses and
-    values within rtol 1e-5 (the step's index_add_ on the card sums a key's
-    terms in no fixed order)."""
+    values within rtol 1e-5 (the step's einsum sums a sample's features in
+    another order on the card)."""
     rows, y = synthetic_sparse(n=1024, dim=100_000, num_classes=2,
                                nnz=SLR_NNZ, seed=5)
     cfg = SparseLRConfig(max_features=64, capacity=1 << 18,
@@ -1188,10 +1211,8 @@ def phase_sparse_lr(torch, tk, counts, SparseLogisticRegression,
                     SparseLRConfig, synthetic_sparse, lr_step,
                     profile: bool):
     """Phase 10: sparse LR at the Criteo-like width. Returns the measured
-    numbers and the launch counts read right after training and the
-    accuracy pass."""
-    from multiverso_tpu_torch.apps.sparse_logreg import BIAS_KEY
-    from multiverso_tpu_torch.tables.hashing import _bucket, _split_keys
+    numbers, the launch counts read right after training and the accuracy
+    pass, and the data with the final table on the host (for phase 12)."""
     t0 = time.perf_counter()
     rows, y = synthetic_sparse(n=SLR_N, dim=SLR_DIM, num_classes=2,
                                nnz=SLR_NNZ, seed=0)
@@ -1206,6 +1227,11 @@ def phase_sparse_lr(torch, tk, counts, SparseLogisticRegression,
     start = counts()
     app.train(rows, y)
     grown = {k: v - start[k] for k, v in counts().items()}
+    keys_, vals_, state_ = app.table.global_arrays()
+    data = dict(rows=rows, y=y, losses=[e["loss"] for e in app.epoch_stats],
+                triple=(keys_.cpu(), vals_.cpu(),
+                        {k: v.cpu() for k, v in state_.items()}))
+    del keys_, vals_, state_
     steps = sum(e["steps"] for e in app.epoch_stats)
     for name in ("kv_lookup", "kv_probe_update", "kv_commit"):
         if grown[name] != steps:
@@ -1223,61 +1249,24 @@ def phase_sparse_lr(torch, tk, counts, SparseLogisticRegression,
     rates = [e["samples"] / e["seconds"] for e in app.epoch_stats]
     step_ms = [1e3 * e["seconds"] / e["steps"] for e in app.epoch_stats]
 
-    # one step split: its device work replayed back to back on CUDA
-    # events; the rest of the step's wall time (it ends in a host sync) is
-    # host work, of which _pack is timed alone
-    tbl = app.table
-    brows, by = rows[:SLR_BATCH], y[:SLR_BATCH]
-    t0 = time.perf_counter()
-    keys, vals, uniq = app._pack(brows)
-    t_pack = time.perf_counter() - t0
-    upad = _bucket(len(uniq))
-    uniq_pad = np.full(upad, BIAS_KEY ^ np.uint64(1), np.uint64)
-    uniq_pad[:len(uniq)] = uniq
-    qd = torch.as_tensor(_split_keys(uniq_pad).view(np.int32),
-                         device="cuda")
-    gbd = torch.as_tensor(tbl._buckets_of(uniq_pad), device="cuda")
-    pos = app._positions(keys, vals, uniq, upad)
-    posd = torch.as_tensor(pos, device="cuda").long()
-    valsd = torch.as_tensor(vals, device="cuda")
-    yd = torch.as_tensor(by, device="cuda").long()
-    prep = tbl.prepare_add(uniq, np.zeros((len(uniq), 2), np.float32))
-    order = torch.as_tensor(np.argsort(tbl._buckets_of(uniq), kind="stable"),
-                            device="cuda")
-    zero = torch.zeros((1, 2), device="cuda")
-    u = len(uniq)
-
-    def device_step():
-        w, _ = tk.kv_lookup(tbl.keys, tbl.values, qd, gbd, 0.0)
-        _, dw = lr_step(torch.cat([w, zero]), posd, valsd, yd, 0.0)
-        pd = torch.zeros_like(prep.deltas)
-        pd[:u] = dw[:u][order]
-        tk.kv_probe_update(tbl.keys, tbl.values, tbl.state, prep.buckets,
-                           prep.query, pd, prep.valid, prep.option,
-                           tbl.updater)
-    device_ms = cuda_ms(device_step, 10)
-    host_ms = step_ms[-1] - device_ms
+    split = slr_step_split(torch, tk, app, rows, y, lr_step,
+                           ["cuda:0"], step_ms[-1])
     out = dict(samples=SLR_N, epochs=SLR_EPOCHS, steps=steps,
                samples_per_sec=rates, step_ms=step_ms, epoch_loss=losses,
                train_accuracy=acc, accuracy_s=acc_s, live_keys=live,
-               unique_keys_step=u, peak_mem_gb=peak, data_gen_s=gen_s,
+               peak_mem_gb=peak, data_gen_s=gen_s,
                launches_per_step={k: grown[k] / steps for k in
                                   ("kv_lookup", "kv_probe_update",
-                                   "kv_commit")},
-               host_prep_ms=host_ms, pack_ms=1e3 * t_pack,
-               device_ms=device_ms)
+                                   "kv_commit")}, **split)
     log(f"  data: {SLR_N} samples x {SLR_NNZ} features over {SLR_DIM} dims, "
-        f"made in {gen_s:.1f} s; {u} unique keys in the first minibatch")
+        f"made in {gen_s:.1f} s; {split['unique_keys_step']} unique keys in "
+        "the first minibatch")
     log(f"  epochs: samples/s {[round(r) for r in rates]}, ms/step "
         f"{[round(m, 1) for m in step_ms]}, mean loss "
         f"{[round(x, 5) for x in losses]}; train accuracy {acc:.4f} "
         f"({acc_s:.1f} s); {live} live keys; peak device memory "
         f"{peak:.2f} GB")
-    log(f"  launches per step {out['launches_per_step']}; one step of "
-        f"{step_ms[-1]:.1f} ms: device {device_ms:.3f} ms (CUDA events, its "
-        f"device work back to back), host {host_ms:.1f} ms (the rest; _pack "
-        f"alone {1e3 * t_pack:.1f} ms): the device is busy "
-        f"{100 * device_ms / step_ms[-1]:.1f}% of a step")
+    log(f"  launches per step {out['launches_per_step']}")
     if profile:
         mbs = [(rows[s:s + SLR_BATCH], y[s:s + SLR_BATCH])
                for s in range(0, 4 * SLR_BATCH, SLR_BATCH)]
@@ -1285,8 +1274,511 @@ def phase_sparse_lr(torch, tk, counts, SparseLogisticRegression,
             torch, "slr_steps_trace.json",
             lambda: [app.train_batch(r, yy) for r, yy in mbs],
             4 * step_ms[-1])
-    del app, rows, y
+    del app
     torch.cuda.empty_cache()
+    return out, path_counts, data
+
+
+def slr_step_split(torch, tk, app, rows, y, lr_step, devices,
+                   step_ms: float) -> dict:
+    """One sparse-LR step split, on one shard or many: the host prep (the
+    pack, and the lookup's and the add's hashing, sort, lane slicing and
+    staging) timed alone, and the step's device work replayed back to
+    back on CUDA events; the rest of a ``step_ms`` step (it ends in a host
+    sync) is host work."""
+    from multiverso_tpu_torch.apps.sparse_logreg import BIAS_KEY
+    from multiverso_tpu_torch.tables.hashing import _bucket
+    tbl, dev0 = app.table, app.device
+    brows, by = rows[:SLR_BATCH], y[:SLR_BATCH]
+    t0 = time.perf_counter()
+    keys, vals, uniq = app._pack(brows)
+    t_pack = time.perf_counter() - t0
+    upad = _bucket(len(uniq))
+    uniq_pad = np.full(upad, BIAS_KEY ^ np.uint64(1), np.uint64)
+    uniq_pad[:len(uniq)] = uniq
+    t0 = time.perf_counter()
+    q, lb, iv, gcounts = tbl._get_lanes(uniq_pad, tbl._buckets_of(uniq_pad))
+    prep = tbl.prepare_add(uniq, np.zeros((len(uniq), 2), np.float32))
+    sync_all(torch, devices)
+    t_lanes = time.perf_counter() - t0
+    pos = app._positions(keys, vals, uniq, upad)
+    posd = torch.as_tensor(pos, device=dev0).long()
+    lanesd = torch.as_tensor(np.flatnonzero(pos.ravel() != upad),
+                             device=dev0)
+    valsd = torch.as_tensor(vals, device=dev0)
+    yd = torch.as_tensor(by, device=dev0).long()
+    order = torch.as_tensor(np.argsort(tbl._buckets_of(uniq), kind="stable"),
+                            device=dev0)
+    starts = np.concatenate([[0], np.cumsum(prep.counts)[:-1]])
+    lanes = int(to_host(torch, prep.buckets).shape[1])
+    zero = torch.zeros((1, 2), device=dev0)
+    u = len(uniq)
+
+    def device_step():
+        w, _ = tk.kv_lookup_sharded(tbl.key_shards, tbl.value_shards, q, lb,
+                                    iv, 0.0, counts=gcounts)
+        _, dw = lr_step(torch.cat([w, zero]), posd, valsd, yd, 0.0, lanesd)
+        sd = dw[:u][order]
+        pd = torch.zeros((len(prep.counts), lanes, 2), device=dev0)
+        for s, (st, c) in enumerate(zip(starts, prep.counts)):
+            pd[s, :c] = sd[st:st + c]
+        tk.kv_probe_update_sharded(tbl.key_shards, tbl.value_shards,
+                                   tbl.state_shards, prep.buckets,
+                                   prep.query, pd, prep.valid, prep.option,
+                                   tbl.updater, counts=prep.counts)
+        join(torch, devices)
+    device_ms = cuda_ms(device_step, 10)
+    host_ms = step_ms - device_ms
+    log(f"  one step of {step_ms:.1f} ms: device {device_ms:.3f} ms (CUDA "
+        f"events, its device work back to back), host {host_ms:.1f} ms "
+        f"(_pack alone {1e3 * t_pack:.1f} ms; the lookup's and the add's "
+        f"hashing, sort, lane slicing and staging {1e3 * t_lanes:.1f} ms): "
+        f"the device is busy {100 * device_ms / step_ms:.1f}% of a step")
+    return dict(unique_keys_step=u, lanes_per_shard=lanes,
+                real_lanes_per_shard=[int(c) for c in prep.counts],
+                host_prep_ms=host_ms, pack_ms=1e3 * t_pack,
+                lane_prep_ms=1e3 * t_lanes, device_ms=device_ms)
+
+
+def shard_devices(torch) -> list:
+    """The sharded phases' model shards, spread over the machine's cards
+    (all on cuda:0 on a one-card machine)."""
+    n = torch.cuda.device_count()
+    return [f"cuda:{s % n}" for s in range(SHARDS)]
+
+
+def join(torch, devices) -> None:
+    """Make cuda:0's stream wait for the other cards' queued work, so that
+    events on cuda:0 time a call spread over several cards."""
+    for dev in sorted(set(devices) - {"cuda:0"}):
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(dev))
+        torch.cuda.current_stream(0).wait_event(event)
+
+
+def sync_all(torch, devices) -> None:
+    for dev in sorted(set(devices)):
+        torch.cuda.synchronize(dev)
+
+
+def lane_slices(gids, per_shard, arrays, pads):
+    """Shard-sorted global ids -> the (SHARDS, L) lane slices of local ids
+    (``hashing.shard_lane_slices``), valid, the real-lane counts, the
+    shard ids and positions."""
+    from multiverso_tpu_torch.tables.hashing import shard_lane_slices
+    shard_ids = gids // per_shard
+    local = (gids - shard_ids * per_shard).astype(np.int32)
+    sliced, valid, pos = shard_lane_slices(
+        shard_ids, SHARDS, [local, *arrays], [np.int32(per_shard - 1), *pads])
+    return sliced, valid, valid.sum(1), shard_ids, pos
+
+
+def on_shards(torch, x, devices):
+    """A copy of a host array cut into SHARDS row blocks, block s on
+    devices[s]."""
+    t = torch.tensor(np.ascontiguousarray(x))
+    return [b.contiguous().to(d) for b, d in zip(t.chunk(SHARDS), devices)]
+
+
+def to_host(torch, lanes):
+    """A lane operand (a tensor, or per-shard rows) as one CPU tensor."""
+    if isinstance(lanes, torch.Tensor):
+        return lanes.cpu()
+    return torch.stack([row.cpu() for row in lanes])
+
+
+def launch_delta(tk, fn) -> dict:
+    before = dict(tk.LAUNCHES)
+    fn()
+    return {k: v - before[k] for k, v in tk.LAUNCHES.items()
+            if v != before[k]}
+
+
+def phase_sharded_kernels(torch, tk, core, KVTable, devices, rng) -> dict:
+    """Phase 2, the sharded forms at S = 4 against their plain versions on
+    the CPU, bit for bit; returns {name: row}."""
+    from multiverso_tpu_torch.tables.hashing import _bucket
+    out = {}
+    cpus = ["cpu"] * SHARDS
+    g = torch.Generator(device="cpu").manual_seed(4)
+
+    def timed(fn):
+        def run():
+            fn()
+            join(torch, devices)
+        return run
+
+    def record(name, got, want, fn, plain, iters, nbytes, flops, **extra):
+        sync_all(torch, devices)
+        same = [torch.equal(bits(torch, a) if a.is_floating_point()
+                            else a.cpu(), bits(torch, b)
+                            if b.is_floating_point() else b.cpu())
+                for a, b in zip(got, want)]
+        if not all(same):
+            raise SystemExit(f"{name}: kernel != plain version on the CPU")
+        err = max(float((a.cpu().double() - b.cpu().double()).abs().max())
+                  for a, b in zip(got, want))
+        per_call = launch_delta(tk, fn)
+        sync_all(torch, devices)
+        # the wall time of a call, the host's per-shard work included
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        sync_all(torch, devices)
+        call_ms = 1e3 * (time.perf_counter() - t0) / iters
+        b_ms, by = bound_ms(nbytes, flops)
+        out[name] = dict(max_abs_err=err, ms=cuda_ms(timed(fn), iters),
+                         plain_ms=cuda_ms(timed(plain), max(iters // 10, 3)),
+                         library_ms=None, bound_ms=b_ms, bound_by=by,
+                         call_ms=call_ms, launches_per_call=per_call,
+                         **extra)
+
+    # rows: the word2vec table of a 10k vocab on four shards, its lead
+    # padded as MatrixTable pads it (10,001 -> 10,004 rows)
+    lead = -(-ROWS // SHARDS) * SHARDS
+    rps = lead // SHARDS
+    param = (torch.randn(lead, DIM, generator=g) * 0.05).numpy()
+    n = BATCH * (1 + NEGATIVE)
+    ids = zipf_ids(rng, n, ROWS)
+    uniq = len(np.unique(ids))
+    order = np.argsort(ids // rps, kind="stable")
+    (local,), _, counts, sh, pos = lane_slices(ids[order], rps, [], [])
+    inv = np.zeros(n, np.int32)
+    inv[order] = sh * local.shape[1] + pos
+    shards = on_shards(torch, param, devices)
+    lo = torch.as_tensor(local, device=devices[0])
+    iv = torch.as_tensor(inv, device=devices[0])
+    fn = lambda: tk.gather_rows_sharded(shards, lo, iv, counts=counts)
+    record("row_gather_sharded", [fn()], [tk.gather_rows_sharded_plain(
+        on_shards(torch, param, cpus), torch.as_tensor(local),
+        torch.as_tensor(inv))], fn,
+        lambda: tk.gather_rows_sharded_plain(shards, lo, iv), 50,
+        n * 8 + uniq * DIM * 4 + n * DIM * 4, 0, n=n, lanes=local.shape[1])
+
+    sids = np.sort(ids)
+    deltas = torch.randn(n, DIM, generator=g).numpy()
+    (local, sd), valid, counts, _, _ = lane_slices(sids, rps, [deltas], [0])
+    host = on_shards(torch, param, cpus)
+    tk.row_scatter_add_sharded_plain(host, *(torch.as_tensor(x)
+                                             for x in (local, sd, valid)))
+    shards = on_shards(torch, param, devices)
+    ops = [torch.as_tensor(x, device=devices[0]) for x in (local, sd, valid)]
+    tk.row_scatter_add_sharded(shards, *ops, counts=counts)
+    fn = lambda: tk.row_scatter_add_sharded(shards, *ops, counts=counts)
+    record("row_scatter_add_sharded", shards, host, fn,
+           lambda: tk.row_scatter_add_sharded_plain(shards, *ops), 50,
+           n * 9 + n * DIM * 4 + 2 * uniq * DIM * 4, n * DIM, n=n,
+           lanes=local.shape[1])
+
+    # COO: a LightLDA call's 512,000 (word, topic, 1) lanes into the
+    # [50,000 + pad, 1024] int32 word table on four shards (50,004 rows)
+    lead = -(-(LDA_V + 1) // SHARDS) * SHARDS
+    rps = lead // SHARDS
+    tw, _ = zipf_lda_corpus(LDA_V, 1, LDA_B, seed=5)
+    cols = rng.integers(0, LDA_K, LDA_B).astype(np.int32)
+    vals = (rng.random(LDA_B) < 0.97).astype(np.int32)
+    order = np.argsort(tw, kind="stable")
+    (lr, sc, sv), valid, counts, _, _ = lane_slices(
+        tw[order], rps, [cols[order], vals[order]], [np.int32(0), 0])
+    table0 = np.zeros((lead, LDA_K // 128, 128), np.int32)
+    host = on_shards(torch, table0, cpus)
+    tk.coo_scatter_add_sharded_plain(host, *(torch.as_tensor(x)
+                                             for x in (lr, sc, sv, valid)))
+    shards = on_shards(torch, table0, devices)
+    ops = [torch.as_tensor(x, device=devices[0]) for x in (lr, sc, sv, valid)]
+    tk.coo_scatter_add_sharded(shards, *ops, counts=counts)
+    touched = len(np.unique(tw.astype(np.int64) * LDA_K + cols))
+    fn = lambda: tk.coo_scatter_add_sharded(shards, *ops, counts=counts)
+    record("coo_scatter_add_sharded", shards, host, fn,
+           lambda: tk.coo_scatter_add_sharded_plain(shards, *ops), 20,
+           LDA_B * 13 + touched * 8, LDA_B, n=LDA_B, lanes=lr.shape[1],
+           touched=touched)
+    del shards, host, ops, table0
+
+    # KV at the sparse-LR step's shapes: a 2^25-slot ftrl table at
+    # value_dim 2 on four shards of 524,288 buckets, filled with half of
+    # 159,000 keys; the batch matches that half and claims the other
+    mesh = core.Mesh([devices])
+    t = KVTable(SLR_CAPACITY, value_dim=2, slots_per_bucket=SLR_SLOTS,
+                updater="ftrl", mesh=mesh, name="smoke_kv_sharded")
+    keys = kv_keys(rng, KV_REAL)
+    present = keys[:KV_REAL // 2]
+    t.add(present, rng.standard_normal((len(present), 2)).astype(np.float32))
+    t.wait()
+    nk = len(keys)
+    q, lb, iv, counts = t._get_lanes(keys, t._buckets_of(keys))
+    lanes = int(to_host(torch, lb).shape[1])
+    hk = [k.cpu() for k in t.key_shards]
+    hv = [v.cpu() for v in t.value_shards]
+    fn = lambda: tk.kv_lookup_sharded(t.key_shards, t.value_shards, q, lb,
+                                      iv, 0.0, counts=counts)
+    got = fn()
+    want = tk.kv_lookup_sharded_plain(hk, hv, to_host(torch, q),
+                                      to_host(torch, lb), iv.cpu(), 0.0)
+    if int(want[1][:nk].sum()) != len(present):
+        raise SystemExit("kv_lookup_sharded: found != the keys added")
+    touched = len(np.unique(t._buckets_of(keys)))
+    record("kv_lookup_sharded", [got[0][:nk], got[1][:nk]],
+           [want[0][:nk], want[1][:nk]], fn,
+           lambda: tk.kv_lookup_sharded_plain(t.key_shards, t.value_shards,
+                                              q, lb, iv, 0.0), 50,
+           nk * 25 + touched * SLR_SLOTS * 16, 0, n=nk, lanes=lanes,
+           real_per_shard=[int(c) for c in counts], found=len(present))
+
+    prep = t.prepare_add(keys, rng.standard_normal((nk, 2)).astype(
+        np.float32))
+    ops = (prep.buckets, prep.query, prep.deltas, prep.valid)
+    host_ops = [to_host(torch, x) for x in ops]
+    hs = [{k: v.cpu() for k, v in st.items()} for st in t.state_shards]
+    want = tk.kv_probe_update_sharded_plain(hk, hv, hs, *host_ops,
+                                            prep.option, "ftrl")
+    clone = lambda: ([k.clone() for k in t.key_shards],
+                     [v.clone() for v in t.value_shards],
+                     [{k: v.clone() for k, v in st.items()}
+                      for st in t.state_shards])
+    timed_t, plain_t = clone(), clone()
+    got = tk.kv_probe_update_sharded(t.key_shards, t.value_shards,
+                                     t.state_shards, *ops, prep.option,
+                                     "ftrl", counts=prep.counts)
+    if int(got[3]) != 0 or int(want[3]) != 0:
+        raise SystemExit(f"kv_probe_update_sharded: overflowed "
+                         f"({int(got[3])}, plain {int(want[3])})")
+    flat = lambda r: ([*r[0], *r[1]] + [st[k] for st in r[2]
+                                        for k in sorted(st)])
+    fn = lambda: tk.kv_probe_update_sharded(*timed_t, *ops, prep.option,
+                                            "ftrl", counts=prep.counts)
+    cols, ns = 2, 2
+    record("kv_probe_update_sharded", flat(got[:3]), flat(want[:3]), fn,
+           lambda: tk.kv_probe_update_sharded_plain(*plain_t, *ops,
+                                                    prep.option, "ftrl"), 20,
+           nk * (4 + 8 + 1) + nk * cols * 4 + touched * SLR_SLOTS * 8
+           + nk * (8 + 2 * cols * 4 * (1 + ns)) + 4 * SHARDS,
+           nk * cols * KV_UPDATER_OPS["ftrl"], n=nk, lanes=lanes,
+           claimed=nk - len(present))
+    over = kv_sharded_overflow_check(torch, tk, t, rng)
+    del t, timed_t, plain_t, got, want, hk, hv, hs
+    free_tables(torch)
+    for name, r in out.items():
+        log(f"  {name:26s} n={r['n']:7d} (L {r['lanes']} x {SHARDS} "
+            f"shards) kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms"
+            f"  library none  bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})  {r['ms'] / r['bound_ms']:.1f}x bound; "
+            f"a call's wall time {r['call_ms']:.4f} ms; "
+            f"bit-identical to the CPU plain version; launches per call "
+            f"{r['launches_per_call']}")
+    log(f"  kv_probe_update_sharded overflow batch: {over} lanes, one "
+        "bucket of shard 0 overflowing; n_over global and equal to the "
+        "plain version's, all four shards bit-identical after it")
+    return out
+
+
+def same_bucket_keys(table, bucket: int, count: int, start: int = 1):
+    """``count`` keys that hash to ``bucket`` (scanned in chunks)."""
+    found = []
+    while len(found) < count:
+        cand = np.arange(start, start + (1 << 22), dtype=np.uint64)
+        found.extend(cand[table._buckets_of(cand) == bucket].tolist())
+        start += 1 << 22
+    return np.asarray(found[:count], np.uint64)
+
+
+def kv_sharded_overflow_check(torch, tk, t, rng) -> int:
+    """One batch with a bucket of shard 0 overflowing and fitting keys on
+    every other shard: the kernels' global n_over equals the plain
+    version's and no shard changes."""
+    bucket = t._buckets_per_shard // 4          # in shard 0
+    row = t.key_shards[0][bucket].cpu()
+    m = int((row == -1).all(-1).sum()) + 3
+    keys = np.concatenate([same_bucket_keys(t, bucket, m, 1 << 40),
+                           kv_keys(rng, 64)])
+    keys = np.unique(keys)
+    prep = t.prepare_add(keys, rng.standard_normal((len(keys), 2)).astype(
+        np.float32))
+    if not all(prep.counts):
+        raise SystemExit("kv overflow batch: a shard has no lanes")
+    ops = (prep.buckets, prep.query, prep.deltas, prep.valid)
+    before = t.global_arrays()
+    hs = [{k: v.cpu() for k, v in st.items()} for st in t.state_shards]
+    want = tk.kv_probe_update_sharded_plain(
+        [k.cpu() for k in t.key_shards], [v.cpu() for v in t.value_shards],
+        hs, *(to_host(torch, x) for x in ops), prep.option, t.updater)
+    got = tk.kv_probe_update_sharded(t.key_shards, t.value_shards,
+                                     t.state_shards, *ops, prep.option,
+                                     t.updater, counts=prep.counts)
+    if int(got[3]) != int(want[3]) or int(got[3]) != 3:
+        raise SystemExit(f"kv sharded overflow batch: n_over "
+                         f"{int(got[3])}, plain {int(want[3])}, expected 3")
+    if not same_triple(torch, t.global_arrays(), before):
+        raise SystemExit("kv sharded overflow batch: a shard changed")
+    return len(keys)
+
+
+def phase_sharded_tables(torch, tk, mesh, MatrixTable, SparseMatrixTable,
+                         KVTable, AddOption, rng) -> None:
+    """Phase 11: tables split over the mesh against the same tables
+    unsharded on the mesh's first device, bit for bit in the logical
+    region."""
+    one = dict(device=mesh.devices[0, 0])
+    for updater in ("default", "sgd", "adagrad"):
+        opt = AddOption(learning_rate=0.05, lam=1e-6)
+        init = (rng.standard_normal((ROWS - 1, DIM)) * 0.05).astype(
+            np.float32)
+        a, b = (MatrixTable(ROWS - 1, DIM, init_value=init, updater=updater,
+                            default_option=opt, name=f"sh_m_{updater}", **kw)
+                for kw in (dict(mesh=mesh), one))
+        for _ in range(2):
+            ids = zipf_ids(rng, BATCH * (1 + NEGATIVE), ROWS)
+            if updater == "adagrad":
+                ids = np.unique(ids)
+            d = rng.standard_normal((len(ids), DIM)).astype(np.float32)
+            a.add_rows(ids, d)
+            b.add_rows(ids, d)
+        q = zipf_ids(rng, 4096, ROWS)
+        if not (np.array_equal(a.get().view(np.int32),
+                               b.get().view(np.int32))
+                and np.array_equal(a.get_rows(q).view(np.int32),
+                                   b.get_rows(q).view(np.int32))):
+            raise SystemExit(f"sharded MatrixTable {updater} != unsharded")
+        log(f"  MatrixTable {ROWS - 1} x {DIM} {updater:8s} on "
+            f"{len(a.shards)} shards ({a._rows_per_shard} rows each): "
+            "2 add_rows of 24,576 Zipf ids + get_rows bit-identical to "
+            "the unsharded table")
+    for tiled in (False, True):
+        a, b = (SparseMatrixTable(LDA_V, LDA_K, "int32", tiled=tiled,
+                                  name=f"sh_s_{tiled}", **kw)
+                for kw in (dict(mesh=mesh), one))
+        for seed in (6, 7):
+            tw, _ = zipf_lda_corpus(LDA_V, 1, LDA_B, seed=seed)
+            c = rng.integers(0, LDA_K, LDA_B)
+            v = rng.integers(-1, 2, LDA_B)
+            a.add_sparse(tw, c, v)
+            b.add_sparse(tw, c, v)
+        q = zipf_ids(rng, 2000, LDA_V + 1)
+        if not (np.array_equal(a.get(), b.get())
+                and all(np.array_equal(x, y) for x, y in
+                        zip(a.get_rows_sparse(q), b.get_rows_sparse(q)))):
+            raise SystemExit(f"sharded SparseMatrixTable tiled={tiled} != "
+                             "unsharded")
+        log(f"  SparseMatrixTable {LDA_V} x {LDA_K} int32 tiled={tiled!s:5s}"
+            f" on {len(a.shards)} shards: 2 add_sparse of {LDA_B} lanes + "
+            "get_rows_sparse bit-identical to the unsharded table")
+        del a, b
+    free_tables(torch)
+    a, b = (KVTable(SLR_CAPACITY, value_dim=2, slots_per_bucket=SLR_SLOTS,
+                    updater="ftrl", name="sh_kv", **kw)
+            for kw in (dict(mesh=mesh), one))
+    keys = kv_keys(rng, 2 * KV_REAL)
+    for batch in (keys[:KV_REAL], keys[KV_REAL // 2:3 * KV_REAL // 2]):
+        d = rng.standard_normal((len(batch), 2)).astype(np.float32)
+        a.add(batch, d)
+        b.add(batch, d)
+    a.wait()
+    b.wait()
+    # a batch that overflows one bucket of shard 0, with fitting keys on
+    # every shard: the raise comes at wait(), and no shard changed
+    bucket = 7
+    fill = int((b.keys[bucket] != -1).any(-1).sum())
+    over = np.unique(np.concatenate([
+        same_bucket_keys(b, bucket, SLR_SLOTS - fill + 1, 1 << 41),
+        kv_keys(rng, 1000)]))
+    before = a.global_arrays()
+    errs = []
+    for t in (a, b):
+        t.add(over, np.ones((len(over), 2), np.float32))
+        try:
+            t.wait()
+            errs.append(None)
+        except RuntimeError as e:
+            errs.append(str(e).replace(t.name, "kv"))
+    if errs[0] is None or errs[0] != errs[1] or str(bucket) not in errs[0]:
+        raise SystemExit(f"sharded KVTable overflow verdicts: {errs}")
+    if not (same_triple(torch, a.global_arrays(), before)
+            and same_triple(torch, a.global_arrays(), b.global_arrays())):
+        raise SystemExit("sharded KVTable != unsharded (or the overflow "
+                         "changed a shard)")
+    qk = keys[::7]
+    if not all(np.array_equal(x, y) for x, y in zip(a.get(qk), b.get(qk))) \
+            or len(a) != len(b):
+        raise SystemExit("sharded KVTable get/len != unsharded")
+    log(f"  KVTable 2^25 slots ftrl D=2 on {len(a.key_shards)} shards of "
+        f"{a._buckets_per_shard} buckets: 2 adds of {KV_REAL} keys "
+        f"(re-adds included), a batch overflowing one bucket of shard 0 "
+        f"(raises at wait(), no shard changed), gets and len() ({len(a)} "
+        "keys) bit-identical to the unsharded table")
+    del a, b, before
+    free_tables(torch)
+
+
+def phase_sharded_sparse_lr(torch, tk, counts, mesh, devices,
+                            SparseLogisticRegression, SparseLRConfig,
+                            lr_step, data) -> tuple:
+    """Phase 12: sparse LR at the Criteo-like width on the (1, 4) mesh,
+    from phase 10's data; its final table must equal phase 10's bit for
+    bit. Returns the measured numbers and the path's launch counts."""
+    rows, y = data["rows"], data["y"]
+    cfg = SparseLRConfig(capacity=SLR_CAPACITY, slots_per_bucket=SLR_SLOTS,
+                         max_features=64, minibatch_size=SLR_BATCH,
+                         updater="ftrl", learning_rate=0.1,
+                         epochs=SLR_EPOCHS)
+    free_tables(torch)
+    for dev in set(devices):
+        torch.cuda.reset_peak_memory_stats(dev)
+    app = SparseLogisticRegression(cfg, mesh=mesh, name="smoke_slr_mesh")
+    start = counts()
+    app.train(rows, y)
+    grown = {k: v - start[k] for k, v in counts().items()}
+    steps = sum(e["steps"] for e in app.epoch_stats)
+    want = {"kv_lookup": SHARDS * steps, "kv_probe_update": SHARDS * steps,
+            "kv_commit": SHARDS * steps, "kv_lookup_sharded": steps,
+            "kv_probe_update_sharded": steps}
+    for name, n in want.items():
+        if grown[name] != n:
+            raise SystemExit(f"sharded sparse LR: {name} launched "
+                             f"{grown[name]} times in {steps} steps, "
+                             f"expected {n}")
+    losses = [e["loss"] for e in app.epoch_stats]
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise SystemExit(f"sharded sparse LR: epoch losses {losses}")
+    tbl = app.table
+    got = tbl.global_arrays()
+    if not same_triple(torch, got, data["triple"]):
+        raise SystemExit("sharded sparse LR: the final keys, values and "
+                         "state differ from phase 10's unsharded run")
+    del got
+    if losses != data["losses"]:
+        raise SystemExit(f"sharded sparse LR: losses {losses} != phase "
+                         f"10's {data['losses']}")
+    t0 = time.perf_counter()
+    acc = app.accuracy(rows, y)
+    acc_s = time.perf_counter() - t0
+    path_counts = counts()
+    live = len(tbl)
+    peak = {dev: torch.cuda.max_memory_allocated(dev) / 1e9
+            for dev in sorted(set(devices))}
+    rates = [e["samples"] / e["seconds"] for e in app.epoch_stats]
+    step_ms = [1e3 * e["seconds"] / e["steps"] for e in app.epoch_stats]
+
+    split = slr_step_split(torch, tk, app, rows, y, lr_step, devices,
+                           step_ms[-1])
+    out = dict(mesh=[str(d) for d in devices], samples=SLR_N,
+               epochs=SLR_EPOCHS, steps=steps, samples_per_sec=rates,
+               step_ms=step_ms, epoch_loss=losses, train_accuracy=acc,
+               accuracy_s=acc_s, live_keys=live, peak_mem_gb=peak,
+               launches_per_step={k: grown[k] / steps for k in want},
+               **split)
+    log(f"  mesh {[str(d) for d in devices]}: {tbl._buckets_per_shard} "
+        f"buckets a shard; a step's {split['unique_keys_step']} unique keys "
+        f"split {split['real_lanes_per_shard']} real lanes of L "
+        f"{split['lanes_per_shard']}")
+    log(f"  epochs: samples/s {[round(r) for r in rates]}, ms/step "
+        f"{[round(m, 1) for m in step_ms]}, mean loss "
+        f"{[round(x, 5) for x in losses]}; train accuracy {acc:.4f}; "
+        f"{live} live keys; peak device memory "
+        f"{ {k: round(v, 2) for k, v in peak.items()} } GB")
+    log(f"  final keys, values and state bit-identical to phase 10's "
+        f"unsharded table; launches per step {out['launches_per_step']}")
+    del app
+    free_tables(torch)
     return out, path_counts
 
 
@@ -1353,6 +1845,7 @@ def main(argv) -> int:
                                                           WordEmbedding)
     from multiverso_tpu_torch.data import (Corpus, synthetic_docs,
                                            synthetic_text)
+    from multiverso_tpu_torch import core
     from multiverso_tpu_torch.ops import _build
     from multiverso_tpu_torch.ops import lda_sampler as ls
     from multiverso_tpu_torch.ops import table_kernels as tk
@@ -1411,6 +1904,10 @@ def main(argv) -> int:
         results = phase_kernels(torch, tk, rng)
         lda_results = phase_lda_kernels(torch, tk, ls)
         kv_results = phase_kv_kernels(torch, tk, KVTable)
+        devices = shard_devices(torch)
+        log(f"  sharded forms on the mesh {devices} (S = {SHARDS})")
+        sharded_results = phase_sharded_kernels(torch, tk, core, KVTable,
+                                                devices, rng)
         w2v_small_parity(torch, Corpus, synthetic_text, W2VConfig,
                          WordEmbedding, tmp)
         lda_small_parity(LDAConfig, LightLDA, load_docs, synthetic_docs,
@@ -1469,10 +1966,28 @@ def main(argv) -> int:
     reset()
     phase("sparse_lr", "phase 10: sparse logistic regression at a "
           "Criteo-like width")
-    slr, paths["sparse_logreg"] = phase_sparse_lr(
+    slr, paths["sparse_logreg"], slr_data = phase_sparse_lr(
         torch, tk, counts, SparseLogisticRegression, SparseLRConfig,
         synthetic_sparse, lr_step, profile)
     phase_end("sparse_lr")
+
+    mesh = core.Mesh([devices])
+    reset()
+    phase("sharded_tables", f"phase 11: tables on the {SHARDS}-shard mesh "
+          f"{devices} vs unsharded")
+    phase_sharded_tables(torch, tk, mesh, MatrixTable, SparseMatrixTable,
+                         KVTable, AddOption, rng)
+    paths["sharded_tables"] = counts()
+    phase_end("sharded_tables")
+
+    reset()
+    phase("sharded_sparse_lr", f"phase 12: sparse LR at the Criteo-like "
+          f"width on the (1, {SHARDS}) mesh {devices}")
+    slr_mesh, paths["sparse_logreg_mesh"] = phase_sharded_sparse_lr(
+        torch, tk, counts, mesh, devices, SparseLogisticRegression,
+        SparseLRConfig, lr_step, slr_data)
+    del slr_data
+    phase_end("sharded_sparse_lr")
 
     # each kernel's launches on the main path that carries it
     main_path = {
@@ -1484,6 +1999,11 @@ def main(argv) -> int:
         "gibbs_sample_docblock": "lightlda_doc_blocked",
         "gibbs_sample_docblock_build": "lightlda_streamed",
         "kv_lookup": "sparse_logreg", "kv_probe_update": "sparse_logreg",
+        "kv_lookup_sharded": "sparse_logreg_mesh",
+        "kv_probe_update_sharded": "sparse_logreg_mesh",
+        "row_gather_sharded": "sharded_tables",
+        "row_scatter_add_sharded": "sharded_tables",
+        "coo_scatter_add_sharded": "sharded_tables",
     }
     for name, path in main_path.items():
         if paths[path][name] <= 0:
@@ -1497,6 +2017,9 @@ def main(argv) -> int:
         f"spread {lda['spread_pct']:.1f}%) on {card}")
     log(f"  sparse LR: {[round(r) for r in slr['samples_per_sec']]} "
         f"samples/s per epoch on {card}")
+    log(f"  sparse LR on the (1, {SHARDS}) mesh: "
+        f"{[round(r) for r in slr_mesh['samples_per_sec']]} samples/s per "
+        f"epoch on {card}")
     log(f"  launches per path: {paths}")
 
     row_src = "multiverso_tpu_torch/ops/csrc/row_kernels.cu"
@@ -1510,7 +2033,12 @@ def main(argv) -> int:
                  "gibbs_sample_tiled": lda_src,
                  "gibbs_sample_docblock": lda_src,
                  "gibbs_sample_docblock_build": lda_src,
-                 "kv_lookup": kv_src, "kv_probe_update": kv_src}
+                 "kv_lookup": kv_src, "kv_probe_update": kv_src,
+                 "kv_lookup_sharded": kv_src,
+                 "kv_probe_update_sharded": kv_src,
+                 "row_gather_sharded": row_src,
+                 "row_scatter_add_sharded": row_src,
+                 "coo_scatter_add_sharded": coo_src}
     replaces = {
         "row_gather": "multiverso_tpu/ops/table_kernels.py:580",
         "row_scatter_add": "multiverso_tpu/ops/table_kernels.py:610",
@@ -1523,6 +2051,13 @@ def main(argv) -> int:
             "multiverso_tpu/ops/lda_sampler.py:228",
         "kv_lookup": "multiverso_tpu/ops/table_kernels.py:285",
         "kv_probe_update": "multiverso_tpu/ops/table_kernels.py:426",
+        "kv_probe_update_sharded": "multiverso_tpu/ops/table_kernels.py:777",
+        "kv_lookup_sharded": "multiverso_tpu/ops/table_kernels.py:920",
+        "row_gather_sharded": "multiverso_tpu/ops/table_kernels.py:962",
+        "row_scatter_add_sharded":
+            "multiverso_tpu/ops/table_kernels.py:1039",
+        "coo_scatter_add_sharded":
+            "multiverso_tpu/ops/table_kernels.py:1122",
     }
     main_n = BATCH * (1 + NEGATIVE)       # the w_out gather/scatter width
     measured = {name: results[(name, main_n)]
@@ -1533,6 +2068,7 @@ def main(argv) -> int:
     # the sparse-LR path's shapes: the ftrl table at value_dim 2
     measured["kv_lookup"] = kv_results["kv_lookup"]
     measured["kv_probe_update"] = kv_results["kv_probe_update_ftrl_2"]
+    measured.update(sharded_results)
     kernels = []
     for name, r in measured.items():
         kernels.append(dict(
@@ -1552,6 +2088,8 @@ def main(argv) -> int:
                                       for k, v in results.items()},
                        lda_kernel_shapes=lda_results,
                        kv_kernel_shapes=kv_results, sparse_lr=slr,
+                       sharded_kernel_shapes=sharded_results,
+                       sparse_lr_mesh=slr_mesh,
                        seconds=time.perf_counter() - t_start), f, indent=1)
     log(f"phase seconds: { {k: round(v, 1) for k, v in phase_s.items()} }")
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -2,17 +2,20 @@
 PyTorch, with hand-written CUDA kernels for NVIDIA Hopper.
 
 The same Table API and Get/Add contract, the six updaters, the fused
-superstep and word2vec, on one ``torch.device``. Entry points run on
-``cuda:0`` unless the caller names another device (the tests pass
-``"cpu"``, where every kernel runs its plain PyTorch version).
+superstep and the apps, on a (data, model) mesh of ``torch.device``s
+whose model axis splits tables into shards. Entry points run on the CUDA
+devices unless the caller names others (the tests pass ``"cpu"``, where
+every kernel runs its plain PyTorch version).
 """
 
 from multiverso_tpu_torch.version import __version__
-from multiverso_tpu_torch.core import (barrier, device, generator, init,
-                                       is_initialized, num_servers,
-                                       num_workers, place, rank, shutdown,
-                                       size)
+from multiverso_tpu_torch.core import (Mesh, barrier, data_axis_size, device,
+                                       generator, init, is_initialized, mesh,
+                                       model_axis_size, num_servers,
+                                       num_workers, place, rank, server_id,
+                                       set_mesh, shutdown, size, worker_id)
 
-__all__ = ["__version__", "barrier", "device", "generator", "init",
-           "is_initialized", "num_servers", "num_workers", "place", "rank",
-           "shutdown", "size"]
+__all__ = ["Mesh", "__version__", "barrier", "data_axis_size", "device",
+           "generator", "init", "is_initialized", "mesh", "model_axis_size",
+           "num_servers", "num_workers", "place", "rank", "server_id",
+           "set_mesh", "shutdown", "size", "worker_id"]

@@ -52,7 +52,7 @@ from multiverso_tpu_torch.ops.lda_sampler import (gibbs_sample_docblock,
                                                   gibbs_sample_tiled)
 from multiverso_tpu_torch.tables import (ArrayTable, SparseMatrixTable,
                                          make_superstep)
-from multiverso_tpu_torch.tables.base import (_local_path, _record_event,
+from multiverso_tpu_torch.tables.base import (_local_path, _record_events,
                                               loadz_stream, savez_stream)
 from multiverso_tpu_torch.tables.superstep import (coo_scatter_add,
                                                    gather_rows)
@@ -562,8 +562,8 @@ class LightLDA:
         pending: list = []
 
         def drain(item):
-            k, host, event = item
-            if event is not None:
+            k, host, events = item
+            for event in events:
                 event.synchronize()
             self._z_host[k * per_call:(k + 1) * per_call] = \
                 host.numpy().reshape(-1, TB)
@@ -572,7 +572,7 @@ class LightLDA:
             u = self._call_uniforms(uniforms)
             (acc,), z_out = self._fused((acc,), wstale, staged, u)
             pending.append((k, z_out.to("cpu", non_blocking=True),
-                            _record_event(self.device)))
+                            _record_events([self.device])))
             if len(pending) > 2:
                 drain(pending.pop(0))
         for item in pending:

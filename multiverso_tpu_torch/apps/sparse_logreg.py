@@ -13,8 +13,10 @@ Per minibatch (the reference worker's Get -> train -> Add loop):
 - one step on the device computes the logits by a gather and an einsum
   over the fixed-width padded (feature position, value) arrays, the
   softmax cross-entropy (plus lazy L2 on the touched rows) and its
-  gradient written out: the per-key delta is an ``index_add_`` of every
-  lane's contribution (the client-side Aggregator role);
+  gradient written out: the per-key delta sums every lane's contribution
+  with the sorted row scatter-add (``ops.table_kernels.row_scatter_add``,
+  the client-side Aggregator role), in lane order, so a step gives the
+  same bits on every run and on every shard count;
 - ``table.add(uniq_keys, delta)`` folds the delta through the table's
   updater (sgd / adagrad / ftrl; the state lives with the table, per key),
   the delta staying on the device.
@@ -27,13 +29,14 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from multiverso_tpu_torch import core
 from multiverso_tpu_torch.apps.logreg import _parse_libsvm
+from multiverso_tpu_torch.ops.table_kernels import row_scatter_add
 from multiverso_tpu_torch.tables import KVTable
 from multiverso_tpu_torch.tables.hashing import _bucket
 from multiverso_tpu_torch.updaters import AddOption
@@ -90,12 +93,16 @@ def synthetic_sparse(n: int, dim: int, num_classes: int, nnz: int = 20,
 
 
 def lr_step(w: torch.Tensor, pos: torch.Tensor, vals: torch.Tensor,
-            y: torch.Tensor, regular_lambda: float):
+            y: torch.Tensor, regular_lambda: float, lanes: torch.Tensor):
     """One minibatch's loss and gradient, written out. ``w`` [U+1, C] (the
     last row the zero sentinel), ``pos`` [B, F] int64 rows of ``w``,
     ``vals`` [B, F], ``y`` [B] int64 -> (loss 0-d, dw [U+1, C]). The loss
     is the mean NLL of softmax(sum_f vals * w[pos]) plus
-    0.5 * lambda * |w[:-1]|^2."""
+    0.5 * lambda * |w[:-1]|^2. The gradient sums the terms of ``lanes``
+    (flat ``b * F + f`` indices) only: the app passes the real lanes, so
+    the padding lanes, which all point at the sentinel row, do not form
+    one long serial run of the scatter (their terms are zero and the
+    sentinel row's gradient is unused)."""
     b, c = y.shape[0], w.shape[1]
     rows = w[pos]                                        # [B, F, C]
     logits = torch.einsum("bf,bfc->bc", vals, rows)
@@ -107,8 +114,8 @@ def lr_step(w: torch.Tensor, pos: torch.Tensor, vals: torch.Tensor,
     g[torch.arange(b, device=w.device), y] -= 1.0
     g = g / b
     drows = vals[:, :, None] * g[:, None, :]             # [B, F, C]
-    dw = torch.zeros_like(w).index_add_(0, pos.reshape(-1),
-                                        drows.reshape(-1, c))
+    dw = row_scatter_add(torch.zeros_like(w), pos.reshape(-1)[lanes],
+                         drows.reshape(-1, c)[lanes])
     if regular_lambda:
         dw[:-1] += regular_lambda * w[:-1]
     return loss, dw
@@ -116,23 +123,26 @@ def lr_step(w: torch.Tensor, pos: torch.Tensor, vals: torch.Tensor,
 
 class SparseLogisticRegression:
     """The app: a KVTable-backed linear model over hashed sparse
-    features, on ``device`` (default ``cuda:0``)."""
+    features. The table lives on ``mesh`` (split over its model axis),
+    or on the (1, 1) mesh of ``device``, or on the runtime's mesh; the
+    step runs on the mesh's first device."""
 
     def __init__(self, config: SparseLRConfig, *,
                  device: core.DeviceLike = None,
+                 mesh: Optional[core.Mesh] = None,
                  name: str = "sparse_logreg") -> None:
         self.config = config
         c = config
         if c.num_classes < 2:
             raise ValueError("num_classes must be >= 2")
-        self.device = core.resolve(device)
         opt = AddOption.for_ftrl(c.learning_rate, c.ftrl_l1, c.ftrl_l2,
                                  c.ftrl_beta) if c.updater == "ftrl" \
             else AddOption(learning_rate=c.learning_rate)
         self.table = KVTable(
             c.capacity, value_dim=c.num_classes, dtype="float32",
             slots_per_bucket=c.slots_per_bucket, updater=c.updater,
-            device=self.device, name=name, default_option=opt)
+            device=device, mesh=mesh, name=name, default_option=opt)
+        self.device = self.table.device
         #: one dict per trained epoch: loss, seconds, samples
         self.epoch_stats: List[dict] = []
 
@@ -200,7 +210,9 @@ class SparseLogisticRegression:
             w_ext, torch.as_tensor(pos, device=dev).long(),
             torch.as_tensor(vals, device=dev),
             torch.as_tensor(np.asarray(y), device=dev).long(),
-            self.config.regular_lambda)
+            self.config.regular_lambda,
+            torch.as_tensor(np.flatnonzero(pos.ravel() != upad),
+                            device=dev))
         if len(uniq):           # all-zero minibatch has nothing to update
             self.table.add(uniq, dw[:len(uniq)])
         return float(loss)
@@ -264,7 +276,8 @@ def main(argv=None) -> None:
         (configure.define_int, "epoch", 1, "epochs"),
         (configure.define_string, "output_file", "", "checkpoint uri"),
         (configure.define_string, "device", "",
-         "torch device (default cuda:0)"),
+         "one torch device (default: the CUDA devices as a mesh of "
+         "-data_parallel x -model_parallel)"),
     ]
     for define, name, default, help_str in flags:
         define(name, default, help_str, overwrite=True)

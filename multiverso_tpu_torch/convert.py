@@ -16,11 +16,11 @@ import torch
 
 
 def load_table(table, arr: np.ndarray) -> None:
-    """Install ``arr`` (the table's logical or padded shape) as the
-    table's value; the padding rows are zero when ``arr`` is logical.
-    Advances the table's generation."""
-    table.put_raw(torch.tensor(table._pad(np.asarray(arr)),
-                               device=table.device).reshape(
+    """Install ``arr`` (the table's logical or padded shape: the JAX
+    package's global array) as the table's value, split into the table's
+    shards; the padding rows are zero when ``arr`` is logical. Advances
+    the table's generation."""
+    table.put_raw(torch.tensor(table._pad(np.asarray(arr))).reshape(
         table.storage_shape))
 
 
@@ -56,9 +56,10 @@ def load_lightlda(app, state: Dict[str, np.ndarray]) -> None:
 def load_kv_table(table, keys: np.ndarray, values: np.ndarray,
                   state) -> None:
     """Install a ``multiverso_tpu`` KVTable's triple into a
-    :class:`~multiverso_tpu_torch.tables.KVTable` of the same geometry:
-    ``keys`` its ``np.asarray(table.keys)`` (``[B, S, 2]`` uint32),
-    ``values`` its values and ``state`` its updater-state leaves in
+    :class:`~multiverso_tpu_torch.tables.KVTable` of the same geometry,
+    split into the table's shards: ``keys`` its ``np.asarray(table.keys)``
+    (the global ``[B, S, 2]`` uint32 array, whatever its mesh), ``values``
+    its values and ``state`` its updater-state leaves in
     ``jax.tree.leaves`` order (a dict state's leaves sorted by name).
     Advances the table's generation."""
     from multiverso_tpu_torch.tables.base import state_keys
@@ -67,21 +68,15 @@ def load_kv_table(table, keys: np.ndarray, values: np.ndarray,
     if keys.shape != want:
         raise ValueError(f"keys shape {keys.shape} != table geometry {want}")
     values = np.asarray(values)
-    if values.shape != tuple(table.values.shape):
-        raise ValueError(f"values shape {values.shape} != "
-                         f"{tuple(table.values.shape)}")
-    names = state_keys(table.state)
+    want_v = want[:2] + ((table.value_dim,) if table.value_dim else ())
+    if values.shape != want_v:
+        raise ValueError(f"values shape {values.shape} != {want_v}")
+    names = state_keys(table.state_shards[0])
     leaves = list(state)
     if len(leaves) != len(names):
         raise ValueError(f"{len(leaves)} state leaves; updater "
                          f"{table.updater.name!r} has {len(names)}")
     table._check_overflow()
-    dev = table.device
-    table.keys = torch.from_numpy(keys.view(np.int32).copy()).to(dev)
-    table.values = torch.from_numpy(
-        values.astype(table.np_dtype, copy=True)).to(dev)
-    table.state = {k: torch.from_numpy(np.array(leaf, copy=True)).to(
-        device=dev, dtype=table.state[k].dtype)
-        for k, leaf in zip(names, leaves)}
+    table.install_arrays(keys, values, [np.asarray(x) for x in leaves])
     with table._option_lock:
         table.generation += 1

@@ -1,18 +1,29 @@
-"""Core runtime: init / shutdown / barrier / topology on one torch device.
+"""Core runtime: init / shutdown / barrier / topology / the device mesh.
 
-Counterpart of ``multiverso_tpu/core.py``. The reference builds a
-(data, model) device mesh; in this port the mesh is one device, a
-(1, 1) mesh, so every table lives whole on it and every topology query
-answers for one worker that is also the one server.
+Counterpart of ``multiverso_tpu/core.py``. :func:`init` builds a
+:class:`Mesh`, a ``[data, model]`` grid of ``torch.device``s with the
+reference's axis names and rules. Tables split their leading dimension
+(rows, or KV buckets) into contiguous equal blocks over the ``model``
+axis, one tensor per shard, shard ``s`` on the device at ``[0, s]``; the
+``data`` axis holds replicas in the reference, which the port's apps do
+not use yet, so tables live on data row 0.
 
-:func:`init` with no device picks ``cuda:0`` and raises when CUDA is
-absent: the CPU is used only when the caller names it.
+One process drives the whole mesh, as the reference's single controller
+does: every worker and server of the topology queries is one mesh
+device, and this process is rank 0 of 1.
+
+One deliberate difference from a JAX mesh: a device may repeat.
+``devices=["cuda:0"] * 4`` gives four shards on one card, and
+``["cpu"] * 2`` two shards on the CPU.
+
+:func:`init` with no devices takes every CUDA device and raises when CUDA
+is absent: the CPU is used only when the caller names it.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Optional, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -21,10 +32,75 @@ from multiverso_tpu_torch.utils import configure, log
 
 DeviceLike = Union[str, torch.device, None]
 
+DATA_AXIS = "data"
+MODEL_AXIS = "model"
+
+
+def _device(dev: Union[str, torch.device]) -> torch.device:
+    """A torch device with the CUDA index filled in."""
+    dev = torch.device(dev)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+class Mesh:
+    """A ``[data, model]`` grid of torch devices (devices may repeat)."""
+
+    axis_names = (DATA_AXIS, MODEL_AXIS)
+
+    def __init__(self, devices) -> None:
+        grid = np.empty(np.shape(devices)[:2], dtype=object)
+        if grid.ndim != 2 or grid.size == 0:
+            raise ValueError("a mesh is a non-empty [data, model] grid of "
+                             "devices")
+        for idx in np.ndindex(grid.shape):
+            grid[idx] = _device(devices[idx[0]][idx[1]])
+        self.devices = grid
+
+    @classmethod
+    def single(cls, device: Union[str, torch.device]) -> "Mesh":
+        """The (1, 1) mesh on one device."""
+        return cls([[device]])
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {DATA_AXIS: self.devices.shape[0],
+                MODEL_AXIS: self.devices.shape[1]}
+
+    @property
+    def size(self) -> int:
+        return self.devices.size
+
+    @property
+    def shard_devices(self) -> List[torch.device]:
+        """Where a table's model shards live: data row 0 of the grid."""
+        return list(self.devices[0])
+
+    def __repr__(self) -> str:
+        names = [[str(d) for d in row] for row in self.devices]
+        return f"Mesh(data={self.shape[DATA_AXIS]}, " \
+               f"model={self.shape[MODEL_AXIS]}, devices={names})"
+
+
+def _build_mesh(devices: Sequence[DeviceLike], data_parallel: int,
+                model_parallel: int) -> Mesh:
+    n = len(devices)
+    if model_parallel <= 0:
+        raise ValueError("model_parallel must be >= 1")
+    if data_parallel <= 0:
+        data_parallel = n // model_parallel
+    if data_parallel * model_parallel != n:
+        raise ValueError(
+            f"mesh {data_parallel}x{model_parallel} != {n} devices")
+    flat = list(devices)
+    return Mesh([flat[r * model_parallel:(r + 1) * model_parallel]
+                 for r in range(data_parallel)])
+
 
 class _Runtime:
     def __init__(self) -> None:
-        self.device: Optional[torch.device] = None
+        self.mesh: Optional[Mesh] = None
         self.lock = threading.Lock()
         self.barrier_count = 0
 
@@ -33,47 +109,87 @@ _RT = _Runtime()
 
 
 def init(argv: Optional[Sequence[str]] = None, *,
-         device: DeviceLike = None) -> torch.device:
-    """Parse ``-name=value`` flags and select the device.
+         device: DeviceLike = None,
+         devices: Optional[Sequence[DeviceLike]] = None,
+         data_parallel: Optional[int] = None,
+         model_parallel: Optional[int] = None) -> Mesh:
+    """Parse ``-name=value`` flags and build the runtime's mesh.
 
-    ``device=None`` means ``cuda:0`` (an error without CUDA). A second
-    call with no arguments returns the device already selected."""
+    ``devices`` (default: every CUDA device, an error without CUDA) are
+    laid out as a ``data_parallel x model_parallel`` grid; the sizes
+    default to the ``-data_parallel`` / ``-model_parallel`` flags, and
+    ``data_parallel`` 0 means ``len(devices) // model_parallel``.
+    ``device=`` is the shorthand for the (1, 1) mesh on that device. A
+    second call with no arguments returns the mesh already built."""
     with _RT.lock:
         if argv:
             configure.parse_flags(argv)
-        if _RT.device is not None and not argv and device is None:
-            return _RT.device
+        if _RT.mesh is not None and not argv and device is None \
+                and devices is None and data_parallel is None \
+                and model_parallel is None:
+            return _RT.mesh
         log.set_level(configure.get_flag("log_level"))
         if configure.get_flag("log_file"):
             log.set_file(configure.get_flag("log_file"))
-        if device is None:
+        if device is not None:
+            if devices is not None:
+                raise ValueError("pass device= or devices=, not both")
+            devices, data_parallel, model_parallel = [device], 1, 1
+        if devices is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
                     "multiverso_tpu_torch.init: no CUDA device; pass "
                     "device='cpu' to run on the CPU")
-            device = "cuda:0"
-        dev = torch.device(device)
-        if dev.type == "cuda":
-            if dev.index is None:
-                dev = torch.device("cuda", torch.cuda.current_device())
-            torch.cuda.set_device(dev)
-        _RT.device = dev
-        log.info("multiverso_tpu_torch.init: device %s", dev)
-        return dev
+            devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+        dp = data_parallel if data_parallel is not None \
+            else configure.get_flag("data_parallel")
+        mp = model_parallel if model_parallel is not None \
+            else configure.get_flag("model_parallel")
+        mesh = _build_mesh(devices, dp, mp)
+        first = mesh.devices[0, 0]
+        if first.type == "cuda":
+            torch.cuda.set_device(first)
+        _RT.mesh = mesh
+        log.info("multiverso_tpu_torch.init: mesh data=%d model=%d on %s",
+                 mesh.shape[DATA_AXIS], mesh.shape[MODEL_AXIS],
+                 sorted({str(d) for d in mesh.devices.flat}))
+        return mesh
 
 
 def is_initialized() -> bool:
-    return _RT.device is not None
+    return _RT.mesh is not None
+
+
+def mesh() -> Mesh:
+    """The runtime's mesh (initialising on the CUDA devices if needed)."""
+    return _RT.mesh if _RT.mesh is not None else init()
+
+
+def set_mesh(m: Mesh) -> None:
+    """Install an externally built mesh."""
+    with _RT.lock:
+        _RT.mesh = m
 
 
 def device() -> torch.device:
-    """The runtime's device (initialising on ``cuda:0`` if needed)."""
-    return _RT.device if _RT.device is not None else init()
+    """The runtime mesh's first device."""
+    return mesh().devices[0, 0]
 
 
 def resolve(dev: DeviceLike = None) -> torch.device:
     """An explicit device, or the runtime's."""
     return torch.device(dev) if dev is not None else device()
+
+
+def resolve_mesh(m: Optional[Mesh] = None,
+                 dev: DeviceLike = None) -> Mesh:
+    """An explicit mesh, the (1, 1) mesh of an explicit device, or the
+    runtime's mesh."""
+    if m is not None:
+        if dev is not None:
+            raise ValueError("pass mesh= or device=, not both")
+        return m
+    return Mesh.single(dev) if dev is not None else mesh()
 
 
 def place(value, *, dtype: Optional[torch.dtype] = None,
@@ -93,23 +209,25 @@ def generator(seed: int, *, device: DeviceLike = None) -> torch.Generator:
 
 
 def barrier(name: Optional[str] = None) -> None:
-    """``MV_Barrier``: wait until the device has finished all queued work
-    (one process, one device: the only party to wait for)."""
-    dev = device()
+    """``MV_Barrier``: wait until every CUDA device of the mesh has
+    finished its queued work (one process: the only party to wait for)."""
+    m = mesh()
     _RT.barrier_count += 1
-    if dev.type == "cuda":
+    for dev in sorted({d for d in m.devices.flat if d.type == "cuda"},
+                      key=lambda d: d.index):
         torch.cuda.synchronize(dev)
 
 
 def shutdown() -> None:
-    """``MV_ShutDown``: forget the selected device."""
+    """``MV_ShutDown``: forget the mesh."""
     with _RT.lock:
-        _RT.device = None
+        _RT.mesh = None
 
 
 # -- Topology queries (reference MV_* names) ---------------------------------
 
 def rank() -> int:
+    """Host-process rank: one process drives the mesh."""
     return 0
 
 
@@ -118,8 +236,36 @@ def size() -> int:
 
 
 def num_workers() -> int:
-    return 1
+    """Every mesh device computes."""
+    return mesh().size
 
 
 def num_servers() -> int:
-    return 1
+    """Every mesh device holds a shard."""
+    return mesh().size
+
+
+def worker_id() -> int:
+    """This process's first device's position in the mesh."""
+    mesh()
+    return 0
+
+
+def server_id() -> int:
+    return worker_id()
+
+
+def is_worker() -> bool:
+    return True
+
+
+def is_server() -> bool:
+    return True
+
+
+def data_axis_size() -> int:
+    return mesh().shape[DATA_AXIS]
+
+
+def model_axis_size() -> int:
+    return mesh().shape[MODEL_AXIS]

@@ -288,7 +288,7 @@ def gibbs_sample_tiled(A3: torch.Tensor, W3: torch.Tensor,
                 int(W3.dtype == torch.bfloat16), sinv.data_ptr(),
                 zi.data_ptr(), msk.data_ptr(), u1.data_ptr(), u2.data_ptr(),
                 b, c, float(alpha), float(beta), znew.data_ptr(),
-                nkd.data_ptr(), counts=LAUNCHES)
+                nkd.data_ptr(), device=W3.device, counts=LAUNCHES)
     return znew, nkd
 
 
@@ -316,7 +316,7 @@ def _docblock_launch(name: str, ndk_blk, W3, sinv, zi, drel, msk, u1, u2,
                 sinv.data_ptr(), zi.data_ptr(), drel.data_ptr(),
                 msk.data_ptr(), u1.data_ptr(), u2.data_ptr(), nb, tb, maxd,
                 c, float(alpha), float(beta), znew.data_ptr(),
-                nkd.data_ptr(), counts=LAUNCHES)
+                nkd.data_ptr(), device=W3.device, counts=LAUNCHES)
     return znew, nkd
 
 

@@ -1,16 +1,18 @@
 """Table kernels of the hot path: the row gather, the duplicate-safe
 sorted row scatter-add (with an optional per-lane mask), the sorted COO
-scatter-add (with an optional per-lane mask), and the KVTable lookup and
-fused probe + updater apply.
+scatter-add (with an optional per-lane mask), the KVTable lookup and
+fused probe + updater apply, and their sharded forms over tables split
+across a mesh's model axis.
 
 Counterpart of ``multiverso_tpu/ops/table_kernels.py`` (``build_row_gather``,
 ``build_row_scatter_add``, ``build_row_scatter_add_masked``,
 ``build_coo_scatter_add``, ``build_coo_scatter_add_masked``,
-``build_kv_lookup``, ``build_kv_probe_update`` and the functional
-``gather_rows`` / ``row_scatter_add`` / ``coo_scatter_add``). On a CUDA
-tensor each wrapper launches its hand-written kernel from
-``csrc/row_kernels.cu``, ``csrc/coo_kernels.cu`` or ``csrc/kv_kernels.cu``
-or raises; on a CPU tensor it runs the plain PyTorch version that stands
+``build_kv_lookup``, ``build_kv_probe_update``, the ``*_sharded``
+builders and the functional ``gather_rows`` / ``row_scatter_add`` /
+``coo_scatter_add``). On CUDA tensors each wrapper launches its
+hand-written kernel from ``csrc/row_kernels.cu``, ``csrc/coo_kernels.cu``
+or ``csrc/kv_kernels.cu`` on the tensors' card and its current stream, or
+raises; on CPU tensors it runs the plain PyTorch version that stands
 beside it. Nothing falls back from one to the other.
 
 Each wrapper adds one to ``LAUNCHES[<kernel>]`` where it launches its
@@ -31,7 +33,12 @@ import torch
 LAUNCHES = {"row_gather": 0, "row_scatter_add": 0,
             "row_scatter_add_masked": 0, "coo_scatter_add": 0,
             "coo_scatter_add_masked": 0, "kv_lookup": 0,
-            "kv_probe_update": 0, "kv_commit": 0}
+            "kv_probe_update": 0, "kv_commit": 0,
+            # one per sharded call that launches; its per-shard
+            # launches count above as well
+            "kv_lookup_sharded": 0, "kv_probe_update_sharded": 0,
+            "row_gather_sharded": 0, "row_scatter_add_sharded": 0,
+            "coo_scatter_add_sharded": 0}
 
 GATHER_DTYPES = (torch.float32, torch.int32, torch.bfloat16, torch.int16)
 ADD_DTYPES = (torch.float32, torch.int32)
@@ -97,17 +104,25 @@ def _is_int(param: torch.Tensor) -> int:
     return int(param.dtype == torch.int32)
 
 
-def _launch(name: str, fn: str, *args,
-            counts: Optional[Dict[str, int]] = None) -> None:
-    """Call C entry point ``fn`` on the current stream; count the launch
-    under ``name`` in ``counts`` (this module's ``LAUNCHES`` by default)
-    and raise on a CUDA error."""
+def _launch(name: str, fn: str, *args, device: torch.device,
+            counts: Optional[Dict[str, int]] = None,
+            tag: Optional[str] = None) -> None:
+    """Call C entry point ``fn`` on ``device`` (the operands' card), on
+    that device's current stream; count the launch under ``name`` in
+    ``counts`` (this module's ``LAUNCHES`` by default), and under ``tag``
+    in ``LAUNCHES`` too when given (a sharded form tags its first
+    launch); raise on a CUDA error."""
     from multiverso_tpu_torch.ops import _build
-    stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(_build.load(), fn)(*args, stream)
+    lib = _build.load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, fn)(*args, stream)
     (LAUNCHES if counts is None else counts)[name] += 1
+    if tag is not None:
+        LAUNCHES[tag] += 1
     if err != 0:
-        raise RuntimeError(f"{fn} launch failed: CUDA error {err}")
+        raise RuntimeError(f"{fn} launch failed on {device}: CUDA error "
+                           f"{err}")
 
 
 # -- row gather --------------------------------------------------------------
@@ -128,15 +143,23 @@ def gather_rows(param: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     _check(param, ids, dtypes=GATHER_DTYPES)
     if param.device.type == "cpu":
         return gather_rows_plain(param, ids)
+    out = torch.empty((ids.shape[0], _rows(param).shape[1]),
+                      dtype=param.dtype, device=param.device)
+    _gather_into(param, ids, out)
+    return out
+
+
+def _gather_into(param: torch.Tensor, ids: torch.Tensor,
+                 out: torch.Tensor, tag: Optional[str] = None) -> None:
+    """Launch the gather of ``param[ids]`` into ``out`` ([n, C] rows,
+    contiguous, on the table's card)."""
     flat = _rows(param)
     ids = ids.to(torch.int32).contiguous()
-    out = torch.empty((ids.shape[0], flat.shape[1]), dtype=param.dtype,
-                      device=param.device)
     if ids.shape[0]:
         _launch("row_gather", "mv_row_gather", flat.data_ptr(),
                 flat.shape[0], flat.shape[1], param.element_size(),
-                ids.data_ptr(), ids.shape[0], out.data_ptr())
-    return out
+                ids.data_ptr(), ids.shape[0], out.data_ptr(),
+                device=param.device, tag=tag)
 
 
 # -- sorted row scatter-add ---------------------------------------------------
@@ -182,7 +205,8 @@ def row_scatter_add(param: torch.Tensor, ids: torch.Tensor,
     deltas = deltas.contiguous()
     _launch("row_scatter_add", "mv_row_scatter_add", flat.data_ptr(),
             flat.shape[0], flat.shape[1], _is_int(param), sids.data_ptr(),
-            order.data_ptr(), deltas.data_ptr(), None, ids.shape[0])
+            order.data_ptr(), deltas.data_ptr(), None, ids.shape[0],
+            device=param.device)
     return param
 
 
@@ -199,8 +223,15 @@ def row_scatter_add_masked(param: torch.Tensor, ids: torch.Tensor,
     _check(param, ids, deltas, valid)
     if param.device.type == "cpu":
         return row_scatter_add_masked_plain(param, ids, deltas, valid)
-    if ids.shape[0] == 0:
-        return param
+    if ids.shape[0]:
+        _row_scatter_masked_into(param, ids, deltas, valid)
+    return param
+
+
+def _row_scatter_masked_into(param: torch.Tensor, ids: torch.Tensor,
+                             deltas: torch.Tensor, valid: torch.Tensor,
+                             tag: Optional[str] = None) -> None:
+    """Launch the masked scatter-add of a non-empty sorted lane batch."""
     flat = _rows(param)
     ids = ids.to(torch.int32).contiguous()
     valid = valid.to(torch.int32).contiguous()
@@ -208,8 +239,7 @@ def row_scatter_add_masked(param: torch.Tensor, ids: torch.Tensor,
     _launch("row_scatter_add_masked", "mv_row_scatter_add",
             flat.data_ptr(), flat.shape[0], flat.shape[1], _is_int(param),
             ids.data_ptr(), None, deltas.data_ptr(), valid.data_ptr(),
-            ids.shape[0])
-    return param
+            ids.shape[0], device=param.device, tag=tag)
 
 
 # -- sorted COO scatter-add ---------------------------------------------------
@@ -251,12 +281,13 @@ def coo_scatter_add_masked_plain(param: torch.Tensor, rows: torch.Tensor,
 
 def _launch_coo(name: str, param: torch.Tensor, rows: torch.Tensor,
                 cols: torch.Tensor, vals: torch.Tensor,
-                valid: Optional[torch.Tensor]) -> None:
+                valid: Optional[torch.Tensor],
+                tag: Optional[str] = None) -> None:
     flat = _rows(param)
     _launch(name, "mv_coo_scatter_add", flat.data_ptr(), flat.shape[0],
             flat.shape[1], _is_int(param), rows.data_ptr(), cols.data_ptr(),
             vals.data_ptr(), None if valid is None else valid.data_ptr(),
-            rows.shape[0])
+            rows.shape[0], device=param.device, tag=tag)
 
 
 def coo_scatter_add(param: torch.Tensor, rows: torch.Tensor,
@@ -294,14 +325,20 @@ def coo_scatter_add_masked(param: torch.Tensor, rows: torch.Tensor,
     _check_coo(param, rows, cols, vals, valid)
     if param.device.type == "cpu":
         return coo_scatter_add_masked_plain(param, rows, cols, vals, valid)
-    if rows.shape[0] == 0:
-        return param
+    if rows.shape[0]:
+        _coo_masked_into(param, rows, cols, vals, valid)
+    return param
+
+
+def _coo_masked_into(param: torch.Tensor, rows: torch.Tensor,
+                     cols: torch.Tensor, vals: torch.Tensor,
+                     valid: torch.Tensor, tag: Optional[str] = None) -> None:
+    """Launch the masked COO add of a non-empty row-sorted lane batch."""
     _launch_coo("coo_scatter_add_masked", param,
                 rows.to(torch.int32).contiguous(),
                 cols.to(torch.int32).contiguous(),
                 vals.to(param.dtype).contiguous(),
-                valid.to(torch.int32).contiguous())
-    return param
+                valid.to(torch.int32).contiguous(), tag)
 
 
 # -- KV lookup and fused probe + updater apply ---------------------------------
@@ -397,19 +434,31 @@ def kv_lookup(keys_arr: torch.Tensor, values_arr: torch.Tensor,
     if keys_arr.device.type == "cpu":
         return kv_lookup_plain(keys_arr, values_arr, query, buckets,
                                default_value)
-    _check_f32("values", values_arr)
-    n, cols = buckets.shape[0], _kv_cols(values_arr)
+    n = buckets.shape[0]
     picked = torch.empty((n,) + tuple(values_arr.shape[2:]),
                          dtype=torch.float32, device=keys_arr.device)
     found = torch.empty(n, dtype=torch.bool, device=keys_arr.device)
+    _kv_lookup_into(keys_arr, values_arr, query, buckets, default_value,
+                    picked, found)
+    return picked, found
+
+
+def _kv_lookup_into(keys_arr: torch.Tensor, values_arr: torch.Tensor,
+                    query: torch.Tensor, buckets: torch.Tensor,
+                    default_value: float, picked: torch.Tensor,
+                    found: torch.Tensor, tag: Optional[str] = None) -> None:
+    """Launch the lookup of the lanes into ``picked`` / ``found``
+    (contiguous, on the table's card)."""
+    _check_f32("values", values_arr)
+    n = buckets.shape[0]
     if n:
         buckets = buckets.to(torch.int32).contiguous()
         query = query.contiguous()
         _launch("kv_lookup", "mv_kv_lookup", keys_arr.data_ptr(),
                 values_arr.data_ptr(), keys_arr.shape[0], keys_arr.shape[1],
-                cols, query.data_ptr(), buckets.data_ptr(), n,
-                float(default_value), picked.data_ptr(), found.data_ptr())
-    return picked, found
+                _kv_cols(values_arr), query.data_ptr(), buckets.data_ptr(),
+                n, float(default_value), picked.data_ptr(), found.data_ptr(),
+                device=keys_arr.device, tag=tag)
 
 
 def _resolve_updater(updater):
@@ -432,7 +481,6 @@ def kv_probe_update_plain(keys_arr: torch.Tensor, values_arr: torch.Tensor,
     or nothing). Written lanes store their key and the updater's result.
     Returns ``(keys, values, state, n_over)``, n_over an int32 0-d tensor."""
     upd = _resolve_updater(updater)
-    n_slots = keys_arr.shape[1]
     b = buckets.long()
     ok_lane = valid != 0
     rows = keys_arr[b]                                   # (n, S, 2)
@@ -497,6 +545,74 @@ def _kv_scalars(name: str, option) -> list:
     return [float(v) for v in vals] + [0.0] * (8 - len(vals))
 
 
+def _kv_leaves(values_arr: torch.Tensor, state: Dict[str, torch.Tensor],
+               upd) -> list:
+    """The updater's state leaves in the commit kernel's (a, b) operand
+    order, checked for the card."""
+    if upd.name not in KV_UPDATERS:
+        raise ValueError(f"no CUDA KV commit for updater {upd.name!r}; "
+                         f"the kernel has {sorted(KV_UPDATERS)}")
+    _check_f32("values", values_arr)
+    names = _KV_STATE.get(upd.name, ())
+    if sorted(state) != sorted(names):
+        raise ValueError(f"updater {upd.name!r} state {sorted(state)} != "
+                         f"{sorted(names)}")
+    leaves = [state[k] for k in names]
+    for leaf in leaves:
+        _check_f32("state", leaf)
+        if leaf.shape != values_arr.shape or not leaf.is_contiguous():
+            raise ValueError("state leaves must be contiguous and shaped "
+                             "like the values")
+    return leaves
+
+
+def _check_kv_add(keys_arr, values_arr, buckets, query, deltas,
+                  valid) -> None:
+    _check_kv(keys_arr, values_arr, query, buckets, deltas, valid)
+    n, cols = buckets.shape[0], _kv_cols(values_arr)
+    if deltas.numel() != n * cols:
+        raise ValueError(f"deltas shape {tuple(deltas.shape)} != "
+                         f"({n}, {cols})")
+    if valid.shape != (n,):
+        raise ValueError(f"valid shape {tuple(valid.shape)} != ({n},)")
+
+
+def _kv_lanes(buckets, query, deltas, valid) -> tuple:
+    """The probe and commit kernels' lane operands: int32 buckets, int32
+    [n, 2] queries, float32 deltas, bool valid, all contiguous."""
+    return (buckets.to(torch.int32).contiguous(), query.contiguous(),
+            deltas.to(torch.float32).contiguous(),
+            (valid if valid.dtype == torch.bool else valid != 0)
+            .contiguous())
+
+
+def _kv_probe(keys_arr: torch.Tensor, lanes: tuple, slot: torch.Tensor,
+              n_over: torch.Tensor, tag: Optional[str] = None) -> None:
+    """Launch the probe: each lane's slot, and the overflowing lanes added
+    to ``n_over`` (int32 [1], zeroed by the caller)."""
+    buckets, query, _, valid = lanes
+    _launch("kv_probe_update", "mv_kv_probe", keys_arr.data_ptr(),
+            keys_arr.shape[0], keys_arr.shape[1], buckets.data_ptr(),
+            query.data_ptr(), valid.data_ptr(), buckets.shape[0],
+            slot.data_ptr(), n_over.data_ptr(), device=keys_arr.device,
+            tag=tag)
+
+
+def _kv_commit(keys_arr: torch.Tensor, values_arr: torch.Tensor,
+               leaves: list, lanes: tuple, slot: torch.Tensor,
+               n_over: torch.Tensor, upd, option) -> None:
+    """Launch the commit: if ``*n_over`` is 0, write each slotted lane's
+    key and apply the updater to its value and state, in place."""
+    buckets, query, deltas, _ = lanes
+    ptrs = [leaf.data_ptr() for leaf in leaves] + [None] * (2 - len(leaves))
+    _launch("kv_commit", "mv_kv_commit", keys_arr.data_ptr(),
+            values_arr.data_ptr(), *ptrs, keys_arr.shape[0],
+            keys_arr.shape[1], _kv_cols(values_arr), buckets.data_ptr(),
+            query.data_ptr(), deltas.data_ptr(), slot.data_ptr(),
+            n_over.data_ptr(), buckets.shape[0], KV_UPDATERS[upd.name],
+            *_kv_scalars(upd.name, option), device=keys_arr.device)
+
+
 def kv_probe_update(keys_arr: torch.Tensor, values_arr: torch.Tensor,
                     state: Dict[str, torch.Tensor], buckets: torch.Tensor,
                     query: torch.Tensor, deltas: torch.Tensor,
@@ -515,57 +631,342 @@ def kv_probe_update(keys_arr: torch.Tensor, values_arr: torch.Tensor,
     first and in batch order, as ``KVTable.prepare_add`` lays them out
     (padding last, on the last bucket); valid lanes must hold distinct
     keys. Values and state must be float32 on the card."""
-    _check_kv(keys_arr, values_arr, query, buckets, deltas, valid)
-    n, cols = buckets.shape[0], _kv_cols(values_arr)
-    if deltas.numel() != n * cols:
-        raise ValueError(f"deltas shape {tuple(deltas.shape)} != "
-                         f"({n}, {cols})")
-    if valid.shape != (n,):
-        raise ValueError(f"valid shape {tuple(valid.shape)} != ({n},)")
+    _check_kv_add(keys_arr, values_arr, buckets, query, deltas, valid)
     if keys_arr.device.type == "cpu":
         return kv_probe_update_plain(keys_arr, values_arr, state, buckets,
                                      query, deltas, valid, option, updater)
     upd = _resolve_updater(updater)
-    if upd.name not in KV_UPDATERS:
-        raise ValueError(f"no CUDA KV commit for updater {upd.name!r}; "
-                         f"the kernel has {sorted(KV_UPDATERS)}")
-    _check_f32("values", values_arr)
-    names = _KV_STATE.get(upd.name, ())
-    if sorted(state) != sorted(names):
-        raise ValueError(f"updater {upd.name!r} state {sorted(state)} != "
-                         f"{sorted(names)}")
-    leaves = [state[k] for k in names]
-    for leaf in leaves:
-        _check_f32("state", leaf)
-        if leaf.shape != values_arr.shape or not leaf.is_contiguous():
-            raise ValueError("state leaves must be contiguous and shaped "
-                             "like the values")
+    leaves = _kv_leaves(values_arr, state, upd)
     dev = keys_arr.device
+    n = buckets.shape[0]
     n_over = torch.zeros(1, dtype=torch.int32, device=dev)
-    if n == 0:
-        return keys_arr, values_arr, state, n_over.view(())
-    slot = torch.empty(n, dtype=torch.int32, device=dev)
-    buckets = buckets.to(torch.int32).contiguous()
-    query = query.contiguous()
-    valid = (valid if valid.dtype == torch.bool else valid != 0).contiguous()
-    deltas = deltas.to(torch.float32).contiguous()
-    ptrs = [leaf.data_ptr() for leaf in leaves] + [None] * (2 - len(leaves))
-    nb, n_slots = keys_arr.shape[0], keys_arr.shape[1]
-    _launch("kv_probe_update", "mv_kv_probe", keys_arr.data_ptr(), nb,
-            n_slots, buckets.data_ptr(), query.data_ptr(), valid.data_ptr(),
-            n, slot.data_ptr(), n_over.data_ptr())
-    _launch("kv_commit", "mv_kv_commit", keys_arr.data_ptr(),
-            values_arr.data_ptr(), *ptrs, nb, n_slots, cols,
-            buckets.data_ptr(), query.data_ptr(), deltas.data_ptr(),
-            slot.data_ptr(), n_over.data_ptr(), n, KV_UPDATERS[upd.name],
-            *_kv_scalars(upd.name, option))
+    if n:
+        lanes = _kv_lanes(buckets, query, deltas, valid)
+        slot = torch.empty(n, dtype=torch.int32, device=dev)
+        _kv_probe(keys_arr, lanes, slot, n_over)
+        _kv_commit(keys_arr, values_arr, leaves, lanes, slot, n_over, upd,
+                   option)
     return keys_arr, values_arr, state, n_over.view(())
+
+
+# -- sharded forms ------------------------------------------------------------
+#
+# A table split over the mesh's model axis holds one tensor per shard:
+# shard s owns the contiguous block [s * per_shard, (s + 1) * per_shard) of
+# rows or KV buckets. A batch arrives as the (shards, L, ...) lane slices of
+# tables/hashing.shard_lane_slices: row s holds shard s's lanes with LOCAL
+# ids, its real lanes first in batch order, then padding on the shard's
+# last local id, masked off. A lane operand is a (shards, L, ...) tensor or
+# a sequence of per-shard rows; row s moves to shard s's device when it
+# lies elsewhere.
+#
+# Each form replaces a reference builder that wraps its flat kernel per
+# shard under shard_map, and does the same: it launches the flat kernel of
+# each shard on that shard's card and current stream. ``counts`` (host
+# ints from the host prep, required; the plain versions take none) limits
+# each launch to the shard's real lanes: a padding run is one id, and the
+# scatters walk a run of equal ids serially, so padding launched would be
+# a long serial chain that writes nothing. A form's first launch also
+# counts under the form's own ``LAUNCHES`` name; a call with no real lane
+# launches nothing and counts nothing. The kernels never talk across
+# shards; the KV overflow gate is the one global value, a sum of the
+# per-shard counts on the device.
+# What bounds them: the flat kernels' bytes, plus a launch and the host's
+# wrapper work per shard; shards that share a card run in turn on its
+# stream, so the longest runs of different shards add up.
+#
+# The plain version beside each is the reference's sharded XLA adapter:
+# globalize the local ids (local + s * per_shard), run the flat plain
+# version on the shards concatenated, write the shards back and unpermute.
+# It keeps the full (shards, L) layout.
+
+
+def _shard_kind(shards) -> str:
+    """'cpu' when every shard lies on the CPU, 'cuda' when every one lies
+    on a card; raises otherwise."""
+    kinds = {t.device.type for t in shards}
+    if len(kinds) != 1 or not kinds <= {"cpu", "cuda"}:
+        raise ValueError(
+            f"shards on {[str(t.device) for t in shards]}: the sharded "
+            "forms take shards all on the CPU or all on CUDA devices")
+    if len({t.shape for t in shards}) != 1:
+        raise ValueError(f"shards must be equal blocks, got shapes "
+                         f"{[tuple(t.shape) for t in shards]}")
+    return kinds.pop()
+
+
+def _lane_row(lanes, s: int, device: torch.device,
+              n: int) -> torch.Tensor:
+    """The first ``n`` lanes of row ``s`` of a lane operand, on
+    ``device``."""
+    return lanes[s][:n].to(device)
+
+
+def _stacked(lanes, device: torch.device) -> torch.Tensor:
+    """A lane operand as one (shards, L, ...) tensor on ``device``."""
+    if isinstance(lanes, torch.Tensor):
+        return lanes.to(device)
+    return torch.stack([row.to(device) for row in lanes])
+
+
+def _global(shards) -> torch.Tensor:
+    """The shards concatenated on the first shard's device."""
+    dev = shards[0].device
+    return torch.cat([t.to(dev) for t in shards])
+
+
+def _write_back(shards, whole: torch.Tensor) -> None:
+    per = shards[0].shape[0]
+    for s, t in enumerate(shards):
+        t.copy_(whole[s * per:(s + 1) * per])
+
+
+def _global_ids(shards, ids) -> torch.Tensor:
+    """Local lane ids made global (local + s * per_shard), flattened
+    shard-major, on the first shard's device."""
+    dev = shards[0].device
+    local = _stacked(ids, dev).long()
+    offs = torch.arange(len(shards), device=dev)[:, None] * shards[0].shape[0]
+    return (local + offs).reshape(-1)
+
+
+def _unpermute(flat: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
+    return flat.index_select(0, inv.to(flat.device).long())
+
+
+def kv_lookup_sharded_plain(keys, values, query, buckets, inv,
+                            default_value: float = 0.0):
+    """The reference's sharded XLA lookup adapter in plain PyTorch."""
+    dev = keys[0].device
+    picked, found = kv_lookup_plain(
+        _global(keys), _global(values), _stacked(query, dev).reshape(-1, 2),
+        _global_ids(keys, buckets), default_value)
+    return _unpermute(picked, inv), _unpermute(found, inv)
+
+
+def kv_lookup_sharded(keys, values, query, buckets, inv,
+                      default_value: float = 0.0, *, counts):
+    """Sharded KV lookup -> ``(picked, found)`` in ``inv`` order, on the
+    first shard's device. ``keys`` / ``values``: per-shard ``[bps, S, 2]``
+    / ``[bps, S(, D)]`` tensors; ``query`` ``(shards, L, 2)`` int32 and
+    ``buckets`` ``(shards, L)`` LOCAL bucket ids; ``inv`` the flat
+    ``shard * L + pos`` index of each caller lane; ``counts`` each shard's
+    real lanes.
+
+    Replaces ``build_kv_lookup_sharded``: ``mv_kv_lookup`` per shard into
+    one ``(shards, L)`` result on the first device, then the ``inv``
+    unpermute (an index op, as the reference's ``jnp.take`` sits outside
+    its kernel)."""
+    if _shard_kind(keys) == "cpu":
+        return kv_lookup_sharded_plain(keys, values, query, buckets, inv,
+                                       default_value)
+    dev0 = keys[0].device
+    n_sh, lanes = len(keys), len(buckets[0])
+    vshape = tuple(values[0].shape[2:])
+    picked = torch.empty((n_sh, lanes) + vshape, dtype=torch.float32,
+                         device=dev0)
+    found = torch.empty((n_sh, lanes), dtype=torch.bool, device=dev0)
+    tag = "kv_lookup_sharded"
+    for s, (k, v) in enumerate(zip(keys, values)):
+        n = int(counts[s])
+        q, b = (_lane_row(x, s, k.device, n) for x in (query, buckets))
+        _check_kv(k, v, q, b)
+        if not n:
+            continue
+        here = k.device == dev0
+        p_s = picked[s] if here else torch.empty(
+            (n,) + vshape, dtype=torch.float32, device=k.device)
+        f_s = found[s] if here else torch.empty(n, dtype=torch.bool,
+                                                device=k.device)
+        _kv_lookup_into(k, v, q, b, default_value, p_s, f_s, tag)
+        tag = None
+        if not here:
+            picked[s, :n].copy_(p_s)
+            found[s, :n].copy_(f_s)
+    return (_unpermute(picked.view((n_sh * lanes,) + vshape), inv),
+            _unpermute(found.view(-1), inv))
+
+
+def kv_probe_update_sharded_plain(keys, values, states, buckets, query,
+                                  deltas, valid, option, updater):
+    """The reference's sharded XLA probe-update adapter in plain PyTorch,
+    in place; ``n_over`` is global."""
+    dev = keys[0].device
+    gk, gv = _global(keys), _global(values)
+    gs = {k: _global([st[k] for st in states]) for k in states[0]}
+    d = _stacked(deltas, dev)
+    _, _, _, n_over = kv_probe_update_plain(
+        gk, gv, gs, _global_ids(keys, buckets),
+        _stacked(query, dev).reshape(-1, 2),
+        d.reshape((-1,) + tuple(d.shape[2:])),
+        _stacked(valid, dev).reshape(-1), option, updater)
+    _write_back(keys, gk)
+    _write_back(values, gv)
+    for k, whole in gs.items():
+        _write_back([st[k] for st in states], whole)
+    return keys, values, states, n_over
+
+
+def kv_probe_update_sharded(keys, values, states, buckets, query, deltas,
+                            valid, option, updater, *, counts):
+    """Sharded fused probe + updater apply, in place; returns ``(keys,
+    values, states, n_over)``, ``n_over`` the GLOBAL overflow count (int32
+    0-d, on the first shard's device): if any lane of any shard overflows,
+    no shard is written. ``states`` holds each shard's updater-state dict;
+    the lane operands are ``(shards, L, ...)`` with LOCAL bucket ids,
+    each shard's lanes sorted by bucket, its ``counts[s]`` valid lanes
+    first.
+
+    Replaces ``build_kv_probe_update_sharded`` (``_kv_probe_only_kernel``
+    + ``_kv_commit_kernel``): ``mv_kv_probe`` per shard into the shard's
+    own zeroed count; the gate, the sum of the counts, taken on the device
+    with no host sync (the reference's ``jnp.sum(nover)``) and copied to
+    each shard's device; ``mv_kv_commit`` per shard reading the gate."""
+    if _shard_kind(keys) == "cpu":
+        return kv_probe_update_sharded_plain(keys, values, states, buckets,
+                                             query, deltas, valid, option,
+                                             updater)
+    upd = _resolve_updater(updater)
+    dev0 = keys[0].device
+    work = []
+    tag = "kv_probe_update_sharded"
+    for s, (k, v, st) in enumerate(zip(keys, values, states)):
+        n = int(counts[s])
+        b, q, d, ok = (_lane_row(x, s, k.device, n)
+                       for x in (buckets, query, deltas, valid))
+        _check_kv_add(k, v, b, q, d, ok)
+        leaves = _kv_leaves(v, st, upd)
+        count = torch.zeros(1, dtype=torch.int32, device=k.device)
+        lanes = _kv_lanes(b, q, d, ok)
+        slot = torch.empty(n, dtype=torch.int32, device=k.device)
+        if n:
+            _kv_probe(k, lanes, slot, count, tag)
+            tag = None
+        work.append((k, v, leaves, lanes, slot, count))
+    # the one global interaction: ANY overflow voids the whole batch
+    n_over = torch.cat([w[5].to(dev0) for w in work]).sum(
+        dtype=torch.int32).view(1)
+    for k, v, leaves, lanes, slot, _ in work:
+        if slot.shape[0]:
+            _kv_commit(k, v, leaves, lanes, slot, n_over.to(k.device), upd,
+                       option)
+    return keys, values, states, n_over.view(())
+
+
+def gather_rows_sharded_plain(shards, ids, inv) -> torch.Tensor:
+    """The reference's sharded XLA gather adapter in plain PyTorch."""
+    return _unpermute(gather_rows_plain(_global(shards),
+                                        _global_ids(shards, ids)), inv)
+
+
+def gather_rows_sharded(shards, ids, inv, *, counts) -> torch.Tensor:
+    """Sharded row gather -> ``[len(inv), C]`` on the first shard's
+    device: ``ids`` ``(shards, L)`` LOCAL row ids, its first ``counts[s]``
+    real in row s; ``inv`` the flat ``shard * L + pos`` index of each
+    caller lane.
+
+    Replaces ``build_row_gather_sharded``: ``mv_row_gather`` per shard
+    into one ``(shards, L, C)`` buffer on the first device, then the
+    ``inv`` unpermute."""
+    if _shard_kind(shards) == "cpu":
+        return gather_rows_sharded_plain(shards, ids, inv)
+    dev0 = shards[0].device
+    n_sh, lanes, cols = len(shards), len(ids[0]), _rows(shards[0]).shape[1]
+    out = torch.empty((n_sh, lanes, cols), dtype=shards[0].dtype,
+                      device=dev0)
+    tag = "row_gather_sharded"
+    for s, p in enumerate(shards):
+        n = int(counts[s])
+        i_s = _lane_row(ids, s, p.device, n)
+        _check(p, i_s, dtypes=GATHER_DTYPES)
+        if not n:
+            continue
+        here = p.device == dev0
+        o_s = out[s] if here else torch.empty((n, cols), dtype=p.dtype,
+                                              device=p.device)
+        _gather_into(p, i_s, o_s, tag)
+        tag = None
+        if not here:
+            out[s, :n].copy_(o_s)
+    return _unpermute(out.view(n_sh * lanes, cols), inv)
+
+
+def row_scatter_add_sharded_plain(shards, ids, deltas, valid):
+    """The reference's sharded XLA scatter-add adapter in plain PyTorch,
+    in place."""
+    dev = shards[0].device
+    whole = _global(shards)
+    row_scatter_add_masked_plain(
+        whole, _global_ids(shards, ids),
+        _stacked(deltas, dev).reshape(-1, _rows(whole).shape[1]),
+        _stacked(valid, dev).reshape(-1))
+    _write_back(shards, whole)
+    return shards
+
+
+def row_scatter_add_sharded(shards, ids, deltas, valid, *, counts):
+    """Sharded duplicate-safe row scatter-add, in place: ``ids``
+    ``(shards, L)`` LOCAL row ids sorted per shard, ``deltas``
+    ``(shards, L, C)``, ``valid`` ``(shards, L)``, ``counts`` each
+    shard's real lanes.
+
+    Replaces ``build_row_scatter_add_sharded``: the masked
+    ``mv_row_scatter_add`` per shard."""
+    if _shard_kind(shards) == "cpu":
+        return row_scatter_add_sharded_plain(shards, ids, deltas, valid)
+    tag = "row_scatter_add_sharded"
+    for s, p in enumerate(shards):
+        n = int(counts[s])
+        ops = [_lane_row(x, s, p.device, n) for x in (ids, deltas, valid)]
+        _check(p, *ops)
+        if n:
+            _row_scatter_masked_into(p, *ops, tag)
+            tag = None
+    return shards
+
+
+def coo_scatter_add_sharded_plain(shards, rows, cols, vals, valid):
+    """The reference's sharded XLA COO adapter in plain PyTorch, in
+    place."""
+    dev = shards[0].device
+    whole = _global(shards)
+    coo_scatter_add_masked_plain(
+        whole, _global_ids(shards, rows), _stacked(cols, dev).reshape(-1),
+        _stacked(vals, dev).reshape(-1), _stacked(valid, dev).reshape(-1))
+    _write_back(shards, whole)
+    return shards
+
+
+def coo_scatter_add_sharded(shards, rows, cols, vals, valid, *, counts):
+    """Sharded COO scatter-add, in place: ``(shards, L)`` lanes with LOCAL
+    row ids sorted per shard, its first ``counts[s]`` real in row s, into
+    flat ``[rps, C]`` or tiled ``[rps, C/128, 128]`` shards.
+
+    Replaces ``build_coo_scatter_add_sharded``: the masked
+    ``mv_coo_scatter_add`` per shard."""
+    if _shard_kind(shards) == "cpu":
+        return coo_scatter_add_sharded_plain(shards, rows, cols, vals, valid)
+    tag = "coo_scatter_add_sharded"
+    for s, p in enumerate(shards):
+        n = int(counts[s])
+        ops = [_lane_row(x, s, p.device, n)
+               for x in (rows, cols, vals, valid)]
+        _check_coo(p, *ops)
+        if n:
+            _coo_masked_into(p, *ops, tag)
+            tag = None
+    return shards
 
 
 __all__ = ["ADD_DTYPES", "GATHER_DTYPES", "KV_UPDATERS", "LAUNCHES",
            "coo_scatter_add", "coo_scatter_add_masked",
            "coo_scatter_add_masked_plain", "coo_scatter_add_plain",
-           "gather_rows", "gather_rows_plain", "kv_lookup",
-           "kv_lookup_plain", "kv_probe_update", "kv_probe_update_plain",
-           "reset_launches", "row_scatter_add", "row_scatter_add_masked",
-           "row_scatter_add_masked_plain", "row_scatter_add_plain"]
+           "coo_scatter_add_sharded", "coo_scatter_add_sharded_plain",
+           "gather_rows", "gather_rows_plain", "gather_rows_sharded",
+           "gather_rows_sharded_plain", "kv_lookup", "kv_lookup_plain",
+           "kv_lookup_sharded", "kv_lookup_sharded_plain", "kv_probe_update",
+           "kv_probe_update_plain", "kv_probe_update_sharded",
+           "kv_probe_update_sharded_plain", "reset_launches",
+           "row_scatter_add", "row_scatter_add_masked",
+           "row_scatter_add_masked_plain", "row_scatter_add_plain",
+           "row_scatter_add_sharded", "row_scatter_add_sharded_plain"]

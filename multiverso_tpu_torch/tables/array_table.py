@@ -14,12 +14,13 @@ from multiverso_tpu_torch.updaters import AddOption
 class ArrayTable(Table):
     def __init__(self, size: int, dtype: Any = "float32", *,
                  init_value: Any = 0, updater: Optional[str] = None,
-                 device: core.DeviceLike = None, name: str = "array_table",
+                 device: core.DeviceLike = None,
+                 mesh: Optional[core.Mesh] = None, name: str = "array_table",
                  default_option: Optional[AddOption] = None) -> None:
         if size <= 0:
             raise ValueError(f"ArrayTable size must be positive, got {size}")
         super().__init__(name, (size,), dtype, updater=updater,
-                         device=device, init_value=init_value,
+                         device=device, mesh=mesh, init_value=init_value,
                          default_option=default_option)
 
     @property

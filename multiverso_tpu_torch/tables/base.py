@@ -1,4 +1,5 @@
-"""Table base: the Worker/Server table contract on one device tensor.
+"""Table base: the Worker/Server table contract on device tensors split
+over the mesh's model axis.
 
 Counterpart of ``multiverso_tpu/tables/base.py``:
 
@@ -12,11 +13,16 @@ Counterpart of ``multiverso_tpu/tables/base.py``:
   the padded arrays, each stamped with its CRC32), on local files: a table
   stored by either package loads in the other.
 
-The leading dimension is padded as the reference pads it on a one-device
-mesh (subclasses reserve scratch rows); the logical shape is what the API
-shows. ``storage_shape`` is the physical layout of the param tensor: the
-padded shape, or a re-tiled view of it (``[R, C/128, 128]`` for a tiled
-SparseMatrixTable); checkpoints always hold the padded shape.
+The leading dimension is padded as the reference pads it: to a multiple
+of the model-axis size, subclasses reserving scratch rows. Shard ``s``
+holds the contiguous row block ``s`` of the padded storage on the mesh
+device ``[0, s]`` (the reference shards its leading dimension over
+``model`` the same way); a one-shard mesh holds one tensor. The logical
+shape is what the API shows. ``storage_shape`` is the physical layout of
+the param: the padded shape, or a re-tiled view of it (``[R, C/128, 128]``
+for a tiled SparseMatrixTable); checkpoints always hold the global padded
+shape, whatever the shard count, so a table stored on S shards is
+byte-identical to the reference's on S shards and loads on any other.
 """
 
 from __future__ import annotations
@@ -119,14 +125,28 @@ def state_keys(state: Dict[str, torch.Tensor]) -> List[str]:
 # -- handles -------------------------------------------------------------------
 
 
-def _record_event(device: torch.device) -> Optional[torch.cuda.Event]:
-    """A CUDA event marking the work queued so far (None on the CPU,
-    where every op has finished when it returns)."""
-    if device.type != "cuda":
-        return None
-    event = torch.cuda.Event()
-    event.record(torch.cuda.current_stream(device))
-    return event
+def _record_events(devices) -> List[torch.cuda.Event]:
+    """CUDA events marking the work queued so far on each distinct card of
+    ``devices`` (none for the CPU, where every op has finished when it
+    returns)."""
+    events = []
+    for dev in dict.fromkeys(devices):
+        if dev.type == "cuda":
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(dev))
+            events.append(event)
+    return events
+
+
+def lanes_on(lanes, devices: List[torch.device]):
+    """A ``(shards, L, ...)`` lane array (numpy or tensor) on the shards'
+    devices: one tensor when they share one device, else a list of
+    per-shard rows, row s on ``devices[s]`` (the sharded kernel forms take
+    either)."""
+    if len(set(devices)) == 1:
+        return torch.as_tensor(lanes, device=devices[0])
+    return [torch.as_tensor(row, device=dev)
+            for row, dev in zip(lanes, devices)]
 
 
 class Handle:
@@ -137,8 +157,9 @@ class Handle:
     - An **add-handle** records the table and the *generation* its update
       produced. Updates apply in stream order, so once the table's queued
       work is done every generation up to the current one has landed;
-      ``wait()`` returns the CURRENT param tensor, which is this handle's
-      result only while it is the latest update (see :meth:`superseded`).
+      ``wait()`` returns the CURRENT param tensor (the list of shards for
+      a sharded table), which is this handle's result only while it is
+      the latest update (see :meth:`superseded`).
     """
 
     def __init__(self, values: Any = None, *, table: "Table" = None,
@@ -150,8 +171,8 @@ class Handle:
         self._table = table
         self._generation = generation
         first = values[0] if isinstance(values, tuple) else values
-        self._event = _record_event(first.device) \
-            if isinstance(first, torch.Tensor) else None
+        self._events = _record_events([first.device]) \
+            if isinstance(first, torch.Tensor) else []
 
     @property
     def generation(self) -> Optional[int]:
@@ -165,13 +186,13 @@ class Handle:
     def done(self) -> bool:
         """Non-blocking completion check (add-handles: of the table's
         latest queued update)."""
-        event = self._event if self._table is None else self._table._event
-        return event is None or event.query()
+        events = self._events if self._table is None else self._table._events
+        return all(e.query() for e in events)
 
     def wait(self) -> Any:
         if self._table is None:
-            if self._event is not None:
-                self._event.synchronize()
+            for e in self._events:
+                e.synchronize()
             return self._values
         self._table.wait()
         return self._table._live_value()
@@ -184,15 +205,22 @@ class Handle:
 
 
 class Table:
-    """Base class owning one param tensor (+ updater state) on a device."""
+    """Base class owning the param (+ updater state) of a table, split
+    over the mesh's model axis: ``shards[s]`` holds rows
+    ``[s * rows_per_shard, (s + 1) * rows_per_shard)`` of the padded
+    storage on ``devices[s]``, ``shard_states[s]`` its updater state. On
+    a one-shard mesh ``param`` and ``state`` are that shard's tensors."""
 
     def __init__(self, name: str, shape: Tuple[int, ...], dtype: Any,
                  *, updater: Optional[str] = None,
                  device: core.DeviceLike = None,
+                 mesh: Optional[core.Mesh] = None,
                  init_value: Any = 0,
                  default_option: Optional[AddOption] = None) -> None:
         self.name = name
-        self.device = core.resolve(device)
+        self.mesh = core.resolve_mesh(mesh, device)
+        self.devices = self.mesh.shard_devices
+        self.device = self.devices[0]
         self.logical_shape = tuple(int(s) for s in shape)
         self.np_dtype = np.dtype(dtype)
         self.dtype = torch_dtype(self.np_dtype)
@@ -205,23 +233,29 @@ class Table:
         # update counter behind the Handle generation contract (bumped on
         # every applied update / load)
         self.generation = 0
+        # the lead pads to a multiple of the model-axis size (subclasses
+        # reserve scratch rows); dense checkpoints repad across paddings
         lead = self.logical_shape[0] if self.logical_shape else 1
-        self.padded_shape = (self._pad_lead(lead),) + self.logical_shape[1:]
+        n_shards = len(self.devices)
+        self.padded_shape = (self._pad_lead(lead, n_shards),) \
+            + self.logical_shape[1:]
+        self._rows_per_shard = self.padded_shape[0] // n_shards
         self.storage_shape = self.padded_shape
         init = np.full(self.padded_shape, init_value, dtype=self.np_dtype) \
             if np.isscalar(init_value) else self._pad(np.asarray(init_value))
-        self.param = torch.tensor(init, device=self.device)
-        self.state = self.updater.init_state(self.param)
-        self._event = None
+        self.shards = self._split(init)
+        self.shard_states = [self.updater.init_state(p) for p in self.shards]
+        self._events: list = []
         self.table_id = _register(self)
         log.debug("table %r id=%d shape=%s padded=%s updater=%s on %s",
                   name, self.table_id, self.logical_shape,
-                  self.padded_shape, self.updater.name, self.device)
+                  self.padded_shape, self.updater.name,
+                  [str(d) for d in self.devices])
 
     # -- helpers -----------------------------------------------------------
 
-    def _pad_lead(self, lead: int) -> int:
-        return lead
+    def _pad_lead(self, lead: int, shards: int) -> int:
+        return -(-lead // shards) * shards
 
     def _pad(self, arr: np.ndarray) -> np.ndarray:
         if arr.shape == self.padded_shape:
@@ -232,6 +266,55 @@ class Table:
         pad = [(0, p - l) for p, l in zip(self.padded_shape, arr.shape)]
         return np.pad(arr.astype(self.np_dtype, copy=False), pad)
 
+    def _split(self, whole) -> List[torch.Tensor]:
+        """A padded (or storage-shaped) value, numpy (copied) or a tensor,
+        cut into the shards' row blocks, each on its device."""
+        rps = self._rows_per_shard
+        blocks = [whole[s * rps:(s + 1) * rps]
+                  for s in range(len(self.devices))]
+        if isinstance(whole, np.ndarray):
+            return [torch.tensor(b, device=d)
+                    for b, d in zip(blocks, self.devices)]
+        return [b.to(d).contiguous() for b, d in zip(blocks, self.devices)]
+
+    def _whole(self, shards: Optional[List[torch.Tensor]] = None
+               ) -> torch.Tensor:
+        """The shards as one tensor on the first device: the live shard
+        on a one-shard mesh, their concatenation otherwise."""
+        shards = self.shards if shards is None else shards
+        if len(shards) == 1:
+            return shards[0]
+        return torch.cat([t.to(self.device) for t in shards])
+
+    def _one_shard(self, what: str) -> None:
+        if len(self.shards) != 1:
+            raise NotImplementedError(
+                f"table {self.name!r} is split into {len(self.shards)} "
+                f"shards; {what} is one tensor only on a one-shard mesh "
+                "(use .shards / .shard_states)")
+
+    @property
+    def param(self) -> torch.Tensor:
+        """The storage tensor of a one-shard table."""
+        self._one_shard("param")
+        return self.shards[0]
+
+    @param.setter
+    def param(self, value: torch.Tensor) -> None:
+        self._one_shard("param")
+        self.shards[0] = value
+
+    @property
+    def state(self) -> Dict[str, torch.Tensor]:
+        """The updater state of a one-shard table."""
+        self._one_shard("state")
+        return self.shard_states[0]
+
+    @state.setter
+    def state(self, value: Dict[str, torch.Tensor]) -> None:
+        self._one_shard("state")
+        self.shard_states[0] = value
+
     def _resolve_option(self, option: Optional[AddOption]) -> AddOption:
         opt = option if option is not None else self.default_option
         return opt.snapshot()
@@ -239,7 +322,7 @@ class Table:
     def _bump_step(self) -> int:
         """Advance step + generation; returns the new generation (mint
         handles from it, not from a later read of ``self.generation``)."""
-        self._event = _record_event(self.device)
+        self._events = _record_events(self.devices)
         with self._option_lock:
             self.default_option.step += 1
             self.generation += 1
@@ -248,14 +331,15 @@ class Table:
     # -- the Get/Add contract ---------------------------------------------
 
     def raw(self) -> torch.Tensor:
-        """The padded param tensor — LIVE table storage, updated in place
-        by row adds and supersteps. Use :meth:`get_tensor` for a snapshot."""
+        """The padded param tensor of a one-shard table — LIVE table
+        storage, updated in place by row adds and supersteps. Use
+        :meth:`get_tensor` for a snapshot."""
         return self.param
 
     def put_raw(self, padded: torch.Tensor) -> None:
         """Replace table storage with a tensor of the storage shape and the
-        table's dtype (moved to the table's device); advances the
-        generation. Updater state is untouched."""
+        table's dtype (split into the shards' blocks, each moved to its
+        device); advances the generation. Updater state is untouched."""
         if tuple(padded.shape) != self.storage_shape:
             raise ValueError(
                 f"table {self.name!r}: put_raw shape {tuple(padded.shape)} "
@@ -263,13 +347,14 @@ class Table:
         if padded.dtype != self.dtype:
             raise ValueError(f"table {self.name!r}: put_raw dtype "
                              f"{padded.dtype} != table dtype {self.dtype}")
-        self.param = padded.to(self.device).contiguous()
+        self.shards = self._split(padded)
         with self._option_lock:
             self.generation += 1
 
     def get_tensor(self) -> torch.Tensor:
-        """The logical value (padding sliced off) as a fresh device tensor."""
-        return self.param.view(self.padded_shape)[
+        """The logical value (padding sliced off) as a fresh tensor on the
+        first device."""
+        return self._whole().view(self.padded_shape)[
             tuple(slice(0, l) for l in self.logical_shape)].clone()
 
     def get(self) -> np.ndarray:
@@ -284,7 +369,8 @@ class Table:
     def add(self, delta: Any, option: Optional[AddOption] = None,
             sync: bool = False) -> Handle:
         """``WorkerTable::Add``: fold a delta (numpy array or tensor, of
-        the logical or padded shape) through the updater."""
+        the logical or padded shape) through the updater, shard by
+        shard."""
         if isinstance(delta, torch.Tensor):
             delta = delta.to(self.device)
             if tuple(delta.shape) == self.logical_shape \
@@ -296,13 +382,17 @@ class Table:
                 raise ValueError(f"table {self.name!r}: delta shape "
                                  f"{tuple(delta.shape)} != table shape "
                                  f"{self.logical_shape}")
+            deltas = self._split(delta)
         else:
-            delta = torch.tensor(self._pad(np.asarray(delta)),
-                                 device=self.device)
+            deltas = self._split(self._pad(np.asarray(delta)))
         opt = self._resolve_option(option)
-        param, self.state = self.updater.apply(
-            self.param.view(self.padded_shape), self.state, delta, opt)
-        self.param = param.reshape(self.storage_shape)
+        shard_padded = (self._rows_per_shard,) + self.padded_shape[1:]
+        shard_storage = (self._rows_per_shard,) + self.storage_shape[1:]
+        for s, d in enumerate(deltas):
+            param, self.shard_states[s] = self.updater.apply(
+                self.shards[s].view(shard_padded), self.shard_states[s], d,
+                opt)
+            self.shards[s] = param.reshape(shard_storage)
         handle = Handle(table=self, generation=self._bump_step())
         if sync:
             handle.wait()
@@ -312,12 +402,13 @@ class Table:
 
     def wait(self) -> None:
         """Block until all queued updates on this table are applied."""
-        if self._event is not None:
-            self._event.synchronize()
+        for event in self._events:
+            event.synchronize()
 
-    def _live_value(self) -> torch.Tensor:
-        """What an add-handle's ``wait()`` returns: the current param."""
-        return self.param
+    def _live_value(self) -> Any:
+        """What an add-handle's ``wait()`` returns: the current param (the
+        list of shards for a sharded table)."""
+        return self.shards[0] if len(self.shards) == 1 else list(self.shards)
 
     # -- checkpoint (ServerTable::Store/Load) ------------------------------
 
@@ -334,16 +425,20 @@ class Table:
         }
 
     def store(self, uri: str) -> None:
-        """Serialize param + updater state (the padded arrays)."""
+        """Serialize param + updater state: the global padded arrays, the
+        shards concatenated."""
         manifest = self._manifest()
-        payload = {"param": self.param.view(self.padded_shape).cpu().numpy()}
-        keys = state_keys(self.state)
+        payload = {"param": self._whole().view(self.padded_shape).cpu()
+                   .numpy()}
+        keys = state_keys(self.shard_states[0])
         for i, key in enumerate(keys):
-            payload[f"state_{i}"] = self.state[key].cpu().numpy()
+            payload[f"state_{i}"] = self._whole(
+                [st[key] for st in self.shard_states]).cpu().numpy()
         manifest["n_state_leaves"] = len(keys)
         savez_stream(uri, manifest, payload)
 
     def load(self, uri: str) -> None:
+        """Restore a checkpoint of any padding and shard count."""
         manifest, data = loadz_stream(uri, CHECKPOINT_MAGIC)
         if tuple(manifest["logical_shape"]) != self.logical_shape:
             raise ValueError(
@@ -353,13 +448,13 @@ class Table:
             raise ValueError(
                 f"checkpoint updater {manifest['updater']!r} != table "
                 f"updater {self.updater.name!r}")
-        keys = state_keys(self.state)
+        keys = state_keys(self.shard_states[0])
         if int(manifest["n_state_leaves"]) != len(keys):
             raise ValueError(
                 f"checkpoint has {manifest['n_state_leaves']} state "
                 f"leaves, updater {self.updater.name!r} has {len(keys)}")
 
-        def repad(arr: np.ndarray, dtype: np.dtype) -> torch.Tensor:
+        def repad(arr: np.ndarray, dtype: np.dtype) -> np.ndarray:
             # slice to the logical region, then pad to this table's padded
             # shape: the checkpoint may come from another padding
             if arr.shape != self.padded_shape:
@@ -367,12 +462,14 @@ class Table:
                 pad = [(0, p - l) for p, l in zip(self.padded_shape,
                                                    arr.shape)]
                 arr = np.pad(arr, pad)
-            return torch.tensor(arr.astype(dtype), device=self.device)
+            return arr.astype(dtype)
 
-        self.param = repad(data["param"], self.np_dtype).reshape(
-            self.storage_shape)
-        self.state = {key: repad(data[f"state_{i}"], np.dtype(np.float32))
-                      for i, key in enumerate(keys)}
+        self.shards = self._split(repad(data["param"], self.np_dtype)
+                                  .reshape(self.storage_shape))
+        leaves = [self._split(repad(data[f"state_{i}"], np.dtype(np.float32)))
+                  for i in range(len(keys))]
+        self.shard_states = [{key: leaves[i][s] for i, key in enumerate(keys)}
+                             for s in range(len(self.devices))]
         self.default_option.step = int(manifest.get("step", 0))
         with self._option_lock:
             self.generation += 1

@@ -1,8 +1,13 @@
-"""KVTable: a fixed-capacity hashed key -> value table on one device.
+"""KVTable: a fixed-capacity hashed key -> value table, split over the
+mesh's model axis.
 
-Counterpart of ``multiverso_tpu/tables/kv_table.py`` (one shard). The open
-hash is ``num_buckets x slots_per_bucket`` slots in fixed tensors; a key's
-bucket is ``splitmix64(key) % num_buckets``:
+Counterpart of ``multiverso_tpu/tables/kv_table.py``. The open hash is
+``num_buckets x slots_per_bucket`` slots in fixed tensors; a key's bucket
+is ``splitmix64(key) % num_buckets``. On a mesh of S model shards
+``num_buckets`` rounds up to a multiple of S and shard s holds buckets
+``[s * bps, (s + 1) * bps)`` on the mesh device ``[0, s]``
+(``key_shards``, ``value_shards``, ``state_shards``; on one shard also
+``keys``, ``values``, ``state``):
 
 - ``keys`` int32 ``[B, S, 2]``: the ``[hi, lo]`` uint32 bit patterns of the
   64-bit keys (torch's uint32 supports few ops); an empty slot is
@@ -10,39 +15,45 @@ bucket is ``splitmix64(key) % num_buckets``:
 - ``values`` ``[B, S]`` (``value_dim`` 0) or ``[B, S, value_dim]``, empty
   slots at ``default_value``; ``state``: the updater's leaves, shaped alike.
 
-``get(keys)`` is one lookup (``ops.table_kernels.kv_lookup``): missing keys
-give ``default_value`` and ``found`` False. ``add(keys, deltas)`` is one
-fused probe + updater apply (``kv_probe_update``): a key takes its slot if
-present, else the next empty slot of its bucket, same-bucket new keys in
-batch order. If any key of the batch finds no slot, the whole batch is
-dropped on the device and the error is raised at a later table op (the
-reference's deferred overflow), so adds never wait for the device.
+``get(keys)`` is one lookup (``ops.table_kernels.kv_lookup_sharded``, the
+flat kernel per shard): missing keys give ``default_value`` and ``found``
+False. ``add(keys, deltas)`` is one fused probe + updater apply
+(``kv_probe_update_sharded``): a key takes its slot if present, else the
+next empty slot of its bucket, same-bucket new keys in batch order. If any
+key of the batch finds no slot, the whole batch is dropped on the device
+(on every shard) and the error is raised at a later table op (the
+reference's deferred overflow), so adds never wait for the device. The
+host prep sorts lanes by bucket, which sorts them by shard, and slices
+them per shard (``hashing.shard_lane_slices``); on one shard that is the
+reference's flat layout, the batch padded to a power of two.
 
 Tensors are updated in place (the reference donated its buffers). The
-checkpoint is the reference's ``multiverso_tpu.kvtable.v1`` npz: keys as
-uint32 ``[B, S, 2]``, values, ``bucket_fill`` and the state leaves sorted
-by name; a table stored by either package loads in the other, into any
-geometry (a different one is rehashed on the host).
+checkpoint is the reference's ``multiverso_tpu.kvtable.v1`` npz of the
+global arrays (the shards concatenated): keys as uint32 ``[B, S, 2]``,
+values, ``bucket_fill`` and the state leaves sorted by name; a table
+stored by either package loads in the other, into any geometry and shard
+count (a different bucket count is rehashed on the host).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from multiverso_tpu_torch import core
 from multiverso_tpu_torch.ops import table_kernels as tk
-from multiverso_tpu_torch.tables.base import (Handle, _record_event,
-                                              _register, loadz_stream,
-                                              savez_stream, state_keys,
-                                              torch_dtype)
+from multiverso_tpu_torch.tables.base import (Handle, _record_events,
+                                              _register, lanes_on,
+                                              loadz_stream, savez_stream,
+                                              state_keys, torch_dtype)
 from multiverso_tpu_torch.tables.hashing import (EMPTY_KEY, _bucket,
                                                  _hash_u64, _join_keys,
-                                                 _split_keys)
+                                                 _split_keys,
+                                                 shard_lane_slices)
 from multiverso_tpu_torch.updaters import (AddOption, get_updater,
                                            resolve_default_option)
 from multiverso_tpu_torch.utils import configure, log
@@ -63,15 +74,19 @@ class KVTableOption:
 @dataclasses.dataclass
 class PreparedKVAdd:
     """One Add batch with its host prep done and its operands on the
-    device: lanes sorted by bucket and padded to a power of two."""
-    buckets: torch.Tensor   # int32 [b]; padding lanes on the last bucket
-    query: torch.Tensor     # int32 [b, 2]; padding lanes (-1, -1)
-    deltas: torch.Tensor    # [b] or [b, D]; padding lanes 0
-    valid: torch.Tensor     # bool [b]
+    device: lanes sorted by bucket and sliced per shard into
+    ``(shards, L, ...)`` rows of local bucket ids (a tensor, or per-shard
+    rows on their devices), each row padded to the power of two ``L``."""
+    buckets: Any            # int32 (shards, L); padding on the last bucket
+    query: Any              # int32 (shards, L, 2); padding lanes (-1, -1)
+    deltas: Any             # (shards, L[, D]); padding lanes 0
+    valid: Any              # bool (shards, L)
     option: AddOption       # snapshot, resolved at prepare time
     #: host copy of the batch's bucket ids (sorted, no padding), kept with
     #: the deferred overflow count so a raise can name the buckets
-    host_buckets: Any = None
+    host_buckets: Any
+    #: each shard's real lane count (its lanes are a row prefix)
+    counts: Any
 
 
 def _keys_device(split: np.ndarray) -> np.ndarray:
@@ -86,13 +101,16 @@ class KVTable:
     def __init__(self, capacity: int, value_dim: int = 0,
                  dtype: Any = "float32", *, slots_per_bucket: int = 8,
                  updater: Optional[str] = None,
-                 device: core.DeviceLike = None, name: str = "kv_table",
+                 device: core.DeviceLike = None,
+                 mesh: Optional[core.Mesh] = None, name: str = "kv_table",
                  default_value: float = 0.0,
                  default_option: Optional[AddOption] = None) -> None:
         if capacity <= 0:
             raise ValueError("capacity must be positive")
         self.name = name
-        self.device = core.resolve(device)
+        self.mesh = core.resolve_mesh(mesh, device)
+        self.devices = self.mesh.shard_devices
+        self.device = self.devices[0]
         self.value_dim = value_dim
         self.np_dtype = np.dtype(dtype)
         self.dtype = torch_dtype(self.np_dtype)
@@ -105,25 +123,104 @@ class KVTable:
                                                      default_option)
         self._option_lock = threading.Lock()
         self.generation = 0
-        # one shard: the reference's bucket count before mesh padding
-        self.num_buckets = -(-capacity // self.slots)
+        # the reference's geometry: buckets round up to a multiple of the
+        # model-axis size; shard s owns buckets [s * bps, (s + 1) * bps),
+        # so a sort by bucket IS a sort by shard, then bucket
+        n_shards = len(self.devices)
+        buckets = -(-capacity // self.slots)
+        self.num_buckets = -(-buckets // n_shards) * n_shards
         self.capacity = self.num_buckets * self.slots
-        kv_shape = (self.num_buckets, self.slots)
-        self.keys = torch.full(kv_shape + (2,), -1, dtype=torch.int32,
-                               device=self.device)
-        self.values = torch.full(
-            kv_shape + ((value_dim,) if value_dim else ()), default_value,
-            dtype=self.dtype, device=self.device)
-        self.state = self.updater.init_state(self.values)
-        # deferred overflow: (n_over device tensor, CUDA event or None,
-        # host bucket ids) per add, drained without blocking in add and
+        self._buckets_per_shard = self.num_buckets // n_shards
+        shard_shape = (self._buckets_per_shard, self.slots)
+        vtail = (value_dim,) if value_dim else ()
+        self.key_shards = [torch.full(shard_shape + (2,), -1,
+                                      dtype=torch.int32, device=d)
+                           for d in self.devices]
+        self.value_shards = [torch.full(shard_shape + vtail, default_value,
+                                        dtype=self.dtype, device=d)
+                             for d in self.devices]
+        self.state_shards = [self.updater.init_state(v)
+                             for v in self.value_shards]
+        # deferred overflow: (n_over device tensor, CUDA events, host
+        # bucket ids) per add, drained without blocking in add and
         # blocking at every other table op
         self._pending_over: list = []
-        self._event = None
+        self._events: list = []
         self.table_id = _register(self)  # type: ignore[arg-type]
         log.debug("kv table %r: %d buckets x %d slots (capacity %d) on %s",
                   name, self.num_buckets, self.slots, self.capacity,
-                  self.device)
+                  [str(d) for d in self.devices])
+
+    # -- storage ------------------------------------------------------------
+
+    def _one_shard(self, what: str) -> None:
+        if len(self.key_shards) != 1:
+            raise NotImplementedError(
+                f"kv table {self.name!r} is split into "
+                f"{len(self.key_shards)} shards; {what} is one tensor only "
+                "on a one-shard mesh (use the *_shards lists or "
+                "global_arrays())")
+
+    @property
+    def keys(self) -> torch.Tensor:
+        self._one_shard("keys")
+        return self.key_shards[0]
+
+    @keys.setter
+    def keys(self, value: torch.Tensor) -> None:
+        self._one_shard("keys")
+        self.key_shards[0] = value
+
+    @property
+    def values(self) -> torch.Tensor:
+        self._one_shard("values")
+        return self.value_shards[0]
+
+    @values.setter
+    def values(self, value: torch.Tensor) -> None:
+        self._one_shard("values")
+        self.value_shards[0] = value
+
+    @property
+    def state(self) -> Dict[str, torch.Tensor]:
+        self._one_shard("state")
+        return self.state_shards[0]
+
+    @state.setter
+    def state(self, value: Dict[str, torch.Tensor]) -> None:
+        self._one_shard("state")
+        self.state_shards[0] = value
+
+    def global_arrays(self):
+        """Fresh copies of the global (keys, values, state) on the first
+        device: the shards concatenated in bucket order."""
+        cat = lambda ts: torch.cat([t.to(self.device) for t in ts])
+        return (cat(self.key_shards), cat(self.value_shards),
+                {k: cat([st[k] for st in self.state_shards])
+                 for k in self.state_shards[0]})
+
+    def install_arrays(self, keys: np.ndarray, values: np.ndarray,
+                       state_leaves) -> None:
+        """Replace the triple with global host arrays of this geometry
+        (keys as the uint32 planes; state leaves in checkpoint order), cut
+        into the shards' bucket blocks. Commits only once every tensor is
+        placed."""
+        bps = self._buckets_per_shard
+        names = state_keys(self.state_shards[0])
+
+        def split(arr, dtype):
+            return [torch.tensor(np.ascontiguousarray(
+                arr[s * bps:(s + 1) * bps]), device=d).to(dtype)
+                for s, d in enumerate(self.devices)]
+
+        key_shards = split(_keys_device(keys), torch.int32)
+        value_shards = split(np.asarray(values).astype(self.np_dtype),
+                             self.dtype)
+        leaves = [split(leaf, self.state_shards[0][k].dtype)
+                  for k, leaf in zip(names, state_leaves)]
+        self.key_shards, self.value_shards = key_shards, value_shards
+        self.state_shards = [{k: leaves[i][s] for i, k in enumerate(names)}
+                             for s in range(len(self.devices))]
 
     # -- keys and overflow ------------------------------------------------
 
@@ -168,8 +265,14 @@ class KVTable:
             return []
         ub, cnt = np.unique(np.asarray(host_buckets, np.int64),
                             return_counts=True)
-        rows = self.keys[torch.as_tensor(ub, device=self.device)].cpu()
-        fill = (rows != -1).any(-1).sum(-1).numpy()
+        bps = self._buckets_per_shard
+        fill = np.zeros(len(ub), np.int64)
+        for s in np.unique(ub // bps):
+            sel = ub // bps == s
+            keys = self.key_shards[s]
+            rows = keys[torch.as_tensor(ub[sel] - s * bps,
+                                        device=keys.device)].cpu()
+            fill[sel] = (rows != -1).any(-1).sum(-1).numpy()
         return [int(b) for b in ub[(fill + cnt) > self.slots]]
 
     def _drain_overflow(self, entries) -> None:
@@ -195,34 +298,51 @@ class KVTable:
         back-to-back adds keep the device queue full."""
         still, ready = [], []
         for entry in self._pending_over:
-            event = entry[1]
-            (ready if event is None or event.query() else still).append(
-                entry)
+            done = all(e.query() for e in entry[1])
+            (ready if done else still).append(entry)
         self._pending_over = still
         self._drain_overflow(ready)
 
     # -- Get ---------------------------------------------------------------
 
     def get_tensor(self, keys) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Batched lookup -> (values, found) as device tensors (the
-        reference's ``get_jax``). Queries are padded to a power of two with
-        the empty sentinel, whose lanes are sliced off."""
+        """Batched lookup -> (values, found) as device tensors: the
+        reference's lane-sliced ``_get_jax_sharded`` (its ``get_jax`` on
+        one shard, the queries padded to a power of two with the empty
+        sentinel, whose lanes are sliced off)."""
         self._check_overflow()
         keys = self._check_keys(keys)
         n = len(keys)
-        b = _bucket(n)
-        query = np.full((b, 2), 0xFFFFFFFF, np.uint32)
-        query[:n] = _split_keys(keys)
-        buckets = np.zeros(b, np.int32)
-        buckets[:n] = self._buckets_of(keys)
-        vals, found = tk.kv_lookup(
-            self.keys, self.values,
-            torch.as_tensor(_keys_device(query), device=self.device),
-            torch.as_tensor(buckets, device=self.device),
-            self.default_value)
-        if b != n:
+        query, local, inv, counts = self._get_lanes(keys,
+                                                    self._buckets_of(keys))
+        vals, found = tk.kv_lookup_sharded(
+            self.key_shards, self.value_shards, query, local, inv,
+            self.default_value, counts=counts)
+        if len(inv) != n:
             vals, found = vals[:n], found[:n]
         return vals, found
+
+    def _get_lanes(self, keys: np.ndarray, lane_buckets: np.ndarray):
+        """The host prep of a Get: sort the lanes by owning shard,
+        slice each shard its row of local bucket ids and queries, and build
+        ``inv`` (flat ``shard * L + pos`` indices, pow2-padded) that
+        unpermutes the results back to caller order. Returns the device
+        operands (query, local buckets, inv) and the real-lane counts."""
+        bps = self._buckets_per_shard
+        shard_ids = lane_buckets // bps
+        # a stable sort on a 16-bit key is numpy's radix sort
+        order = np.argsort(shard_ids.astype(np.int16), kind="stable")
+        sshard = shard_ids[order]
+        local = (lane_buckets[order] - sshard * bps).astype(np.int32)
+        (sl_local, sl_query), valid, pos = shard_lane_slices(
+            sshard, len(self.key_shards),
+            [local, _split_keys(keys[order])],
+            [np.int32(bps - 1), np.uint32(0xFFFFFFFF)])
+        inv = np.zeros(_bucket(len(keys)), np.int32)
+        inv[order] = (sshard * sl_local.shape[1] + pos).astype(np.int32)
+        return (lanes_on(_keys_device(sl_query), self.devices),
+                lanes_on(sl_local, self.devices),
+                torch.as_tensor(inv, device=self.device), valid.sum(1))
 
     def get(self, keys) -> Tuple[np.ndarray, np.ndarray]:
         """Batched lookup -> (values, found) on the host; missing keys give
@@ -240,7 +360,8 @@ class KVTable:
     def prepare_add(self, keys, deltas,
                     option: Optional[AddOption] = None) -> PreparedKVAdd:
         """Host half of an Add: validate, hash, sort the lanes stably by
-        bucket, pad to a power of two and stage the operands on the device.
+        bucket, slice them per shard, each row padded to a power of two,
+        and stage the operands on the devices.
         ``deltas`` may be a numpy array or a tensor (a device tensor stays
         on the device and is permuted there). The option is resolved
         here."""
@@ -270,31 +391,42 @@ class KVTable:
 
     def _pack_prepared(self, keys: np.ndarray, deltas, lane_buckets:
                        np.ndarray, opt: AddOption) -> PreparedKVAdd:
-        n = len(keys)
-        b = _bucket(n)
-        query = np.full((b, 2), 0xFFFFFFFF, np.uint32)
-        query[:n] = _split_keys(keys)
-        # padding lanes park on the LAST bucket so the lanes stay sorted
-        buckets = np.full(b, self.num_buckets - 1, np.int32)
-        buckets[:n] = lane_buckets
-        valid = np.zeros(b, bool)
-        valid[:n] = True
-        dev = self.device
+        """The reference's sharded ``_pack_prepared``: the bucket sort
+        already grouped the lanes by owning shard, each shard's lanes
+        bucket-sorted in batch order; slice them into per-shard rows of
+        local bucket ids, padding on each shard's last local bucket (so
+        each row stays sorted; on one shard, the reference's flat
+        layout)."""
+        bps = self._buckets_per_shard
+        n_shards = len(self.key_shards)
+        shard_ids = lane_buckets // bps
+        local = (lane_buckets - shard_ids * bps).astype(np.int32)
+        arrays = [local, _split_keys(keys)]
+        pads = [np.int32(bps - 1), np.uint32(0xFFFFFFFF)]
+        if not isinstance(deltas, torch.Tensor):
+            arrays.append(deltas.astype(_canonical_numpy(deltas.dtype),
+                                        copy=False))
+            pads.append(0)
+        sliced, valid, _ = shard_lane_slices(shard_ids, n_shards, arrays,
+                                             pads)
+        counts = valid.sum(1)
         if isinstance(deltas, torch.Tensor):
-            pdeltas = torch.zeros((b,) + tuple(deltas.shape[1:]),
-                                  dtype=_canonical_torch(deltas.dtype),
-                                  device=dev)
-            pdeltas[:n] = deltas.to(dev)
+            # a device delta is sliced on the device, a copy per shard
+            lanes = sliced[0].shape[1]
+            sl_deltas = torch.zeros(
+                (n_shards, lanes) + tuple(deltas.shape[1:]),
+                dtype=_canonical_torch(deltas.dtype), device=self.device)
+            starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+            deltas = deltas.to(self.device)
+            for s, (st, c) in enumerate(zip(starts, counts)):
+                sl_deltas[s, :c] = deltas[st:st + c]
         else:
-            host = np.zeros((b,) + deltas.shape[1:],
-                            _canonical_numpy(deltas.dtype))
-            host[:n] = deltas
-            pdeltas = torch.as_tensor(host, device=dev)
+            sl_deltas = sliced[2]
+        put = lambda a: lanes_on(a, self.devices)
         return PreparedKVAdd(
-            buckets=torch.as_tensor(buckets, device=dev),
-            query=torch.as_tensor(_keys_device(query), device=dev),
-            deltas=pdeltas, valid=torch.as_tensor(valid, device=dev),
-            option=opt, host_buckets=lane_buckets)
+            buckets=put(sliced[0]), query=put(_keys_device(sliced[1])),
+            deltas=put(sl_deltas), valid=put(valid), option=opt,
+            host_buckets=lane_buckets, counts=counts)
 
     def add_prepared(self, prepared: PreparedKVAdd,
                      sync: bool = False) -> Handle:
@@ -302,12 +434,13 @@ class KVTable:
         staged batch. The overflow count stays on the device until a later
         table op reads it."""
         self._poll_overflow()
-        _, _, _, n_over = tk.kv_probe_update(
-            self.keys, self.values, self.state, prepared.buckets,
-            prepared.query, prepared.deltas, prepared.valid,
-            prepared.option, self.updater)
-        self._event = _record_event(self.device)
-        self._pending_over.append((n_over, self._event,
+        n_over = tk.kv_probe_update_sharded(
+            self.key_shards, self.value_shards, self.state_shards,
+            prepared.buckets, prepared.query, prepared.deltas,
+            prepared.valid, prepared.option, self.updater,
+            counts=prepared.counts)[3]
+        self._events = _record_events(self.devices)
+        self._pending_over.append((n_over, self._events,
                                    prepared.host_buckets))
         with self._option_lock:
             self.default_option.step += 1
@@ -331,17 +464,19 @@ class KVTable:
     def wait(self) -> None:
         """Block until every queued add has applied; raise a pending
         overflow."""
-        if self._event is not None:
-            self._event.synchronize()
+        for event in self._events:
+            event.synchronize()
         self._check_overflow()
 
-    def _live_value(self) -> torch.Tensor:
-        return self.values
+    def _live_value(self) -> Any:
+        """The values (the list of value shards for a sharded table)."""
+        return self.value_shards[0] if len(self.value_shards) == 1 \
+            else list(self.value_shards)
 
     def __len__(self) -> int:
-        """Number of live keys (counted on the device)."""
+        """Number of live keys (counted on the devices)."""
         self._check_overflow()
-        return int((self.keys != -1).any(-1).sum())
+        return sum(int((k != -1).any(-1).sum()) for k in self.key_shards)
 
     # -- checkpoint --------------------------------------------------------
 
@@ -350,10 +485,9 @@ class KVTable:
         now (later adds update the live tensors in place), the host
         payload in the returned ``finish()``."""
         self._check_overflow()
-        keys = self.keys.clone()
-        vals = self.values.clone()
-        names = state_keys(self.state)
-        leaves = [self.state[k].clone() for k in names]
+        keys, vals, state = self.global_arrays()
+        names = state_keys(state)
+        leaves = [state[k] for k in names]
         manifest = {"magic": KV_MAGIC, "name": self.name,
                     "capacity": self.capacity, "value_dim": self.value_dim,
                     "slots": self.slots, "num_buckets": self.num_buckets,
@@ -391,7 +525,7 @@ class KVTable:
             raise ValueError(
                 f"checkpoint updater {manifest['updater']!r} != "
                 f"{self.updater.name!r}")
-        names = state_keys(self.state)
+        names = state_keys(self.state_shards[0])
         if int(manifest["n_state_leaves"]) != len(names):
             raise ValueError(
                 f"checkpoint has {manifest['n_state_leaves']} state "
@@ -404,15 +538,11 @@ class KVTable:
         else:
             host_keys, host_vals = data["keys"], data["values"]
             host_state = [data[f"state_{i}"] for i in range(len(names))]
-        put = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a),
-                                            device=self.device).to(dt)
-        keys = put(_keys_device(host_keys), torch.int32)
-        vals = put(host_vals.astype(self.np_dtype), self.dtype)
-        state = {k: put(leaf, self.state[k].dtype)
-                 for k, leaf in zip(names, host_state)}
-        # commit only once every tensor is placed
-        self.keys, self.values, self.state = keys, vals, state
-        if new_buckets != self.num_buckets:
+        grown = new_buckets != self.num_buckets
+        if grown:
+            self._buckets_per_shard = new_buckets // len(self.devices)
+        self.install_arrays(host_keys, host_vals, host_state)
+        if grown:
             log.warn(
                 "kv table %r: rehash from %dx%d into %dx%d overflowed a "
                 "bucket; geometry auto-grown to %dx%d (capacity %d -> "
@@ -431,8 +561,9 @@ class KVTable:
         this table's (num_buckets, slots) geometry, on the host. Within a
         bucket the slots follow the checkpoint's bucket-major order. If a
         bucket would overflow, the bucket count doubles until every key
-        fits. Returns (num_buckets, keys, values, state leaves) without
-        touching the table."""
+        fits (it stays a multiple of the shard count). Returns
+        (num_buckets, keys, values, state leaves) without touching the
+        table."""
         ck_keys = data["keys"]                        # [B0, S0, 2] u32
         live = ~(ck_keys == np.uint32(0xFFFFFFFF)).all(-1)
         bb, ss = np.nonzero(live)

@@ -4,15 +4,18 @@ Counterpart of ``multiverso_tpu/tables/matrix_table.py`` (the reference's
 ``MatrixWorkerTable<T>::Get(row_ids, ...)`` / ``Add(row_ids, deltas)``,
 word2vec's embedding store):
 
-- ``get_rows(ids)`` is the row gather kernel
-  (:func:`~multiverso_tpu_torch.ops.table_kernels.gather_rows`).
+- ``get_rows(ids)`` is the row gather kernel per shard
+  (:func:`~multiverso_tpu_torch.ops.table_kernels.gather_rows_sharded`).
 - ``add_rows(ids, deltas)`` under the ``default`` and ``sgd`` updaters is
-  the masked sorted row scatter-add kernel (duplicate ids accumulate);
-  stateful updaters gather the rows, apply the updater and write the rows
-  back in plain torch, as the reference leaves that path to XLA.
-- Row batches are stable-sorted on the host (scatters) and padded to a
-  power of two with a scratch row that lives beyond the logical rows, as
-  in the reference.
+  the masked sorted row scatter-add kernel per shard
+  (``row_scatter_add_sharded``; duplicate ids accumulate); stateful
+  updaters gather the rows, apply the updater and write the rows back in
+  plain torch, shard by shard, as the reference leaves that path to XLA.
+- Row batches are stable-sorted on the host (scatters by row, gathers by
+  shard) and sliced into per-shard lane rows of local ids
+  (``hashing.shard_lane_slices``), each row padded to a power of two on
+  its shard's last local row; the last shard's is the scratch row that
+  lives beyond the logical rows, as in the reference.
 """
 
 from __future__ import annotations
@@ -24,27 +27,30 @@ import torch
 
 from multiverso_tpu_torch import core
 from multiverso_tpu_torch.ops import table_kernels as tk
-from multiverso_tpu_torch.tables.base import Handle, Table
-from multiverso_tpu_torch.tables.hashing import _bucket
+from multiverso_tpu_torch.tables.base import Handle, Table, lanes_on
+from multiverso_tpu_torch.tables.hashing import _bucket, shard_lane_slices
 from multiverso_tpu_torch.updaters import AddOption
 
 
 class MatrixTable(Table):
     def __init__(self, num_rows: int, num_cols: int, dtype: Any = "float32",
                  *, init_value: Any = 0, updater: Optional[str] = None,
-                 device: core.DeviceLike = None, name: str = "matrix_table",
+                 device: core.DeviceLike = None,
+                 mesh: Optional[core.Mesh] = None,
+                 name: str = "matrix_table",
                  default_option: Optional[AddOption] = None) -> None:
         if num_rows <= 0 or num_cols <= 0:
             raise ValueError(f"MatrixTable dims must be positive, got "
                              f"{num_rows}x{num_cols}")
         super().__init__(name, (num_rows, num_cols), dtype, updater=updater,
-                         device=device, init_value=init_value,
+                         device=device, mesh=mesh, init_value=init_value,
                          default_option=default_option)
-        # scratch row: padding lanes point here, beyond the logical rows
+        # scratch row: the last shard's padding lanes point here, beyond
+        # the logical rows
         self._scratch_row = self.padded_shape[0] - 1
 
-    def _pad_lead(self, lead: int) -> int:
-        return lead + 1
+    def _pad_lead(self, lead: int, shards: int) -> int:
+        return -(-(lead + 1) // shards) * shards
 
     @property
     def num_rows(self) -> int:
@@ -57,33 +63,48 @@ class MatrixTable(Table):
     def _pad_ids(self, ids: np.ndarray,
                  deltas: Optional[np.ndarray] = None, *,
                  sort: bool = False):
-        """Pad a row batch to a power of two with scratch-row lanes.
-        Scatters stable-sort by row id (the scatter kernel's contract; the
-        scratch row, the largest id, keeps the padded batch sorted).
-        Gathers keep request order. Returns ``(ids, mask, n[, deltas])``."""
-        if sort and len(ids) > 1:
-            order = np.argsort(ids, kind="stable")
+        """Lane-slice prep for the sharded forms, the reference's
+        ``_pad_ids_sharded`` (on one shard, its ``_pad_ids``): group lanes
+        by owning shard (scatters sort by GLOBAL row id, which implies it
+        and keeps each shard's lanes row-sorted; gathers sort by shard
+        only) and slice them into per-shard rows of LOCAL ids, padding on
+        each shard's last local row. Returns ``(local_ids, valid, inv, n,
+        deltas or None)`` in the ``(shards, L, ...)`` layout; ``inv`` is
+        the pow2-padded flat ``shard * L + pos`` map a gather unpermutes
+        through."""
+        rps = self._rows_per_shard
+        if len(ids) > 1:
+            # gathers sort by shard only: a 16-bit key, numpy's radix sort
+            key = ids if sort else (ids // rps).astype(np.int16)
+            order = np.argsort(key, kind="stable")
             ids = ids[order]
             if deltas is not None:
                 deltas = deltas[order]
+        else:
+            order = np.arange(len(ids))
+        shard_ids = ids // rps
+        local = (ids - shard_ids * rps).astype(np.int32)
+        arrays, pads = [local], [np.int32(rps - 1)]
+        if deltas is not None:
+            arrays.append(deltas.astype(self.np_dtype, copy=False))
+            pads.append(0)
+        sliced, valid, pos = shard_lane_slices(shard_ids, len(self.shards),
+                                               arrays, pads)
         n = len(ids)
-        b = _bucket(n)
-        out_ids = np.full(b, self._scratch_row, dtype=np.int32)
-        out_ids[:n] = ids
-        mask = np.zeros(b, dtype=bool)
-        mask[:n] = True
-        if deltas is None:
-            return out_ids, mask, n
-        out_d = np.zeros((b, self.num_cols), dtype=self.np_dtype)
-        out_d[:n] = deltas
-        return out_ids, mask, n, out_d
+        lanes = sliced[0].shape[1]
+        inv = np.zeros(_bucket(n), np.int32)
+        inv[order] = (shard_ids * lanes + pos).astype(np.int32)
+        return (sliced[0], valid, inv, n,
+                sliced[1] if deltas is not None else None)
 
     # -- row API -----------------------------------------------------------
 
     def _gather(self, ids: np.ndarray) -> torch.Tensor:
-        padded, _, n = self._pad_ids(ids)
-        ids_t = torch.as_tensor(padded, device=self.device)
-        return tk.gather_rows(self.param, ids_t)[:n]
+        local, valid, inv, n, _ = self._pad_ids(ids)
+        return tk.gather_rows_sharded(
+            self.shards, lanes_on(local, self.devices),
+            torch.as_tensor(inv, device=self.device),
+            counts=valid.sum(1))[:n]
 
     def get_rows(self, row_ids) -> np.ndarray:
         """Fetch a list of rows (``MatrixWorkerTable::Get(row_ids, ...)``)."""
@@ -110,18 +131,17 @@ class MatrixTable(Table):
         if deltas.shape != (len(ids), self.num_cols):
             raise ValueError(f"deltas shape {deltas.shape} != "
                              f"({len(ids)}, {self.num_cols})")
-        dev = self.device
         if self.updater.name in ("default", "sgd"):
             if self.updater.name == "sgd":
                 # stateless: scatter-add of -lr*delta, duplicate-safe
                 opt = option if option is not None else self.default_option
                 deltas = (np.float32(-opt.learning_rate)
                           * deltas.astype(np.float32))
-            padded, mask, _, pd = self._pad_ids(ids, deltas, sort=True)
-            tk.row_scatter_add_masked(
-                self.param, torch.as_tensor(padded, device=dev),
-                torch.as_tensor(pd, device=dev),
-                torch.as_tensor(mask, device=dev))
+            local, valid, _, _, sl_d = self._pad_ids(ids, deltas, sort=True)
+            tk.row_scatter_add_sharded(
+                self.shards, *(lanes_on(x, self.devices)
+                               for x in (local, sl_d, valid)),
+                counts=valid.sum(1))
         else:
             if len(np.unique(ids)) != len(ids):
                 raise ValueError(
@@ -129,28 +149,32 @@ class MatrixTable(Table):
                     f"{self.updater.name!r} requires unique row ids; "
                     "pre-aggregate duplicates (Aggregator role)")
             opt = self._resolve_option(option)
-            padded, mask, _, pd = self._pad_ids(ids, deltas)
-            self._apply_rows(torch.as_tensor(padded, device=dev).long(),
-                             torch.as_tensor(pd, device=dev),
-                             torch.as_tensor(mask, device=dev), opt)
+            # each shard applies the updater to the rows it owns
+            rps = self._rows_per_shard
+            owner = ids // rps
+            for s in np.unique(owner):
+                sel = owner == s
+                dev = self.devices[s]
+                self._apply_rows(
+                    s, torch.as_tensor(ids[sel] - s * rps, device=dev).long(),
+                    torch.as_tensor(deltas[sel].astype(self.np_dtype),
+                                    device=dev), opt)
         handle = Handle(table=self, generation=self._bump_step())
         if sync:
             handle.wait()
         return handle
 
-    def _apply_rows(self, ids: torch.Tensor, deltas: torch.Tensor,
-                    mask: torch.Tensor, option: AddOption) -> None:
-        """Stateful row update: gather rows and state rows, apply the
-        updater, write back the masked lanes (padding lanes rewrite the
-        scratch row's old value)."""
-        rows = self.param.index_select(0, ids)
-        st_rows = {k: s.index_select(0, ids) for k, s in self.state.items()}
+    def _apply_rows(self, shard: int, ids: torch.Tensor,
+                    deltas: torch.Tensor, option: AddOption) -> None:
+        """Stateful row update of one shard (unique local ids): gather rows
+        and state rows, apply the updater, write them back."""
+        param, state = self.shards[shard], self.shard_states[shard]
+        rows = param.index_select(0, ids)
+        st_rows = {k: s.index_select(0, ids) for k, s in state.items()}
         new_rows, new_st = self.updater.apply(rows, st_rows, deltas, option)
-        m = mask[:, None]
-        self.param.index_copy_(0, ids,
-                               torch.where(m, new_rows, rows).to(self.dtype))
-        for k, s in self.state.items():
-            s.index_copy_(0, ids, torch.where(m, new_st[k], st_rows[k]))
+        param.index_copy_(0, ids, new_rows.to(self.dtype))
+        for k, s in state.items():
+            s.index_copy_(0, ids, new_st[k])
 
     def _check_ids(self, ids: np.ndarray) -> None:
         if len(ids) == 0:

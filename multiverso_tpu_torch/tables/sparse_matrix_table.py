@@ -1,17 +1,17 @@
 """SparseMatrixTable: matrix table with COO sparse Add and sparse-row Get.
 
 Counterpart of ``multiverso_tpu/tables/sparse_matrix_table.py`` (the
-reference's ``SparseMatrixTable``, LightLDA's word-topic count store) on
-one device:
+reference's ``SparseMatrixTable``, LightLDA's word-topic count store),
+split over the mesh's model axis like every table:
 
 - storage stays dense; ``tiled=True`` (``num_cols % 128 == 0``) stores it
   as ``[rows, C, 128]``, ``C = num_cols / 128``, the layout LightLDA's
   samplers gather from. The public API and checkpoints stay 2-D.
 - :meth:`add_sparse` (``param[rows[i], cols[i]] += values[i]``) sorts the
-  lanes by row on the host (stable), pads them to a power of two with
-  lanes on the scratch row and runs the masked COO kernel
-  (:func:`~multiverso_tpu_torch.ops.table_kernels.coo_scatter_add_masked`)
-  with the padding mask.
+  lanes by row on the host (stable), slices them per shard, each row
+  padded to a power of two on its shard's last local row (the last
+  shard's is the scratch row), and runs the masked COO kernel per shard
+  (:func:`~multiverso_tpu_torch.ops.table_kernels.coo_scatter_add_sharded`).
 - :meth:`get_rows_sparse` counts each requested row's nonzeros on the
   device, extracts the top-k entries by magnitude there (k the largest
   count, rounded up to a power of two) and builds the CSR on the host, so
@@ -31,8 +31,8 @@ import torch
 
 from multiverso_tpu_torch import core
 from multiverso_tpu_torch.ops import table_kernels as tk
-from multiverso_tpu_torch.tables.base import Handle
-from multiverso_tpu_torch.tables.hashing import _bucket
+from multiverso_tpu_torch.tables.base import Handle, lanes_on
+from multiverso_tpu_torch.tables.hashing import _bucket, shard_lane_slices
 from multiverso_tpu_torch.tables.matrix_table import MatrixTable
 from multiverso_tpu_torch.updaters import AddOption
 
@@ -44,6 +44,7 @@ class SparseMatrixTable(MatrixTable):
                  dtype: Any = "float32", *, init_value: Any = 0,
                  updater: Optional[str] = None,
                  device: core.DeviceLike = None,
+                 mesh: Optional[core.Mesh] = None,
                  name: str = "sparse_matrix_table",
                  default_option: Optional[AddOption] = None,
                  tiled: bool = False) -> None:
@@ -53,15 +54,17 @@ class SparseMatrixTable(MatrixTable):
         self.tiled = tiled
         self.tiles = num_cols // LANES if tiled else 0
         super().__init__(num_rows, num_cols, dtype, init_value=init_value,
-                         updater=updater, device=device, name=name,
-                         default_option=default_option)
+                         updater=updater, device=device, mesh=mesh,
+                         name=name, default_option=default_option)
         if self.updater.name not in ("default", "sgd"):
             raise ValueError(
                 f"SparseMatrixTable supports stateless updaters "
                 f"(default, sgd), got {self.updater.name!r}")
         if tiled:
+            # each shard's rows re-tiled in place (split along rows)
             self.storage_shape = (self.padded_shape[0], self.tiles, LANES)
-            self.param = self.param.view(self.storage_shape)
+            self.shards = [p.view(-1, self.tiles, LANES)
+                           for p in self.shards]
 
     # -- COO sparse Add ----------------------------------------------------
 
@@ -91,19 +94,20 @@ class SparseMatrixTable(MatrixTable):
             lr = float(option.learning_rate if option is not None
                        else self.default_option.learning_rate)
             values = -lr * values
-        n, b = len(rows), _bucket(len(rows))
-        prows = np.full(b, self._scratch_row, dtype=np.int32)
-        pcols = np.zeros(b, dtype=np.int32)
-        pvals = np.zeros(b, dtype=self.np_dtype)
-        prows[:n], pcols[:n], pvals[:n] = rows, cols, values
-        valid = np.zeros(b, dtype=np.int32)
-        valid[:n] = 1
-        dev = self.device
-        tk.coo_scatter_add_masked(
-            self.param, torch.as_tensor(prows, device=dev),
-            torch.as_tensor(pcols, device=dev),
-            torch.as_tensor(pvals, device=dev),
-            torch.as_tensor(valid, device=dev))
+        # row ownership is contiguous equal blocks, so the row sort above
+        # IS a shard sort; padding lanes take each shard's last local row
+        # and are masked out of the write-back
+        rps = self._rows_per_shard
+        shard_ids = rows // rps
+        local = (rows - shard_ids * rps).astype(np.int32)
+        sliced, valid, _ = shard_lane_slices(
+            shard_ids, len(self.shards),
+            [local, cols, values.astype(self.np_dtype, copy=False)],
+            [np.int32(rps - 1), np.int32(0), 0])
+        tk.coo_scatter_add_sharded(
+            self.shards, *(lanes_on(x, self.devices)
+                           for x in (*sliced, valid)),
+            counts=valid.sum(1))
         handle = Handle(table=self, generation=self._bump_step())
         if sync:
             handle.wait()
@@ -121,14 +125,13 @@ class SparseMatrixTable(MatrixTable):
         ``cols[indptr[i]:indptr[i+1]]`` (ascending col order)."""
         ids = np.asarray(row_ids, dtype=np.int32)
         self._check_ids(ids)
-        padded, _, n = self._pad_ids(ids)
-        rows = tk.gather_rows(self.param,
-                              torch.as_tensor(padded, device=self.device))
-        nnz = (rows != 0).sum(1).to(torch.int32).cpu().numpy()[:n]
+        n = len(ids)
+        rows = self._gather(ids)
+        nnz = (rows != 0).sum(1).to(torch.int32).cpu().numpy()
         k = min(_bucket(max(int(nnz.max(initial=0)), 1)), self.num_cols)
         _, top = torch.topk(rows.to(torch.float32).abs(), k, dim=1)
-        cols = top.to(torch.int32).cpu().numpy()[:n]
-        vals = torch.gather(rows, 1, top).cpu().numpy()[:n]
+        cols = top.to(torch.int32).cpu().numpy()
+        vals = torch.gather(rows, 1, top).cpu().numpy()
         indptr = np.zeros(n + 1, np.int64)
         np.cumsum(nnz, out=indptr[1:])
         # one vectorized pass: np.nonzero walks row-major, then one

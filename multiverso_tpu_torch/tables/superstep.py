@@ -36,13 +36,21 @@ __all__ = ["FusedSuperstep", "coo_scatter_add", "gather_rows",
 
 
 class FusedSuperstep:
-    """A fused update bound to one or more tables on one device."""
+    """A fused update bound to one or more one-shard tables on one
+    device (a sharded table raises ``NotImplementedError``)."""
 
     def __init__(self, tables: Sequence[Table],
                  body: Callable[..., Tuple[Any, Any, Any, Any]], *,
                  name: str = "superstep") -> None:
         if not tables:
             raise ValueError("FusedSuperstep needs at least one table")
+        for t in tables:
+            if len(t.shards) > 1:
+                raise NotImplementedError(
+                    f"superstep {name!r}: table {t.name!r} is split into "
+                    f"{len(t.shards)} shards; a superstep over a sharded "
+                    "table needs the in-trace sharded functional forms, "
+                    "not ported yet (ROADMAP queue B item 7b)")
         self.tables = tuple(tables)
         self.name = name
         self._body = body

@@ -168,9 +168,12 @@ def describe_flags() -> str:
 
 
 # Core framework flags, mirroring the reference's known set. The
-# multi-host and mesh flags of multiverso_tpu wait for the sharded port.
+# multi-host flags of multiverso_tpu wait for a multi-process port.
 define_bool("sync", True, "synchronous (BSP) mode")
 define_string("updater_type", "default",
               "server-side updater: default|sgd|adagrad|momentum|adam|ftrl")
 define_string("log_level", "info", "logging level: debug|info|warn|error|fatal")
 define_string("log_file", "", "optional log file sink (empty = stderr only)")
+define_int("data_parallel", 0,
+           "data-parallel mesh axis size (0 = all devices / model_parallel)")
+define_int("model_parallel", 1, "model-parallel mesh axis size")

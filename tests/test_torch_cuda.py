@@ -480,8 +480,8 @@ def test_kv_table_raises_on_other_value_dtypes(cuda):
 
 def test_sparse_logreg_on_the_card_matches_cpu(cuda):
     """Two minibatches on the card and on the CPU from the same rows: keys
-    bit for bit; losses and values within rtol 1e-5 (index_add_ on the
-    card adds a key's gradient terms in no fixed order)."""
+    bit for bit; losses and values within rtol 1e-5 (the step's einsum
+    sums a sample's features in another order on the card)."""
     from multiverso_tpu_torch.apps.sparse_logreg import (
         SparseLogisticRegression, SparseLRConfig, synthetic_sparse)
     rows, y = synthetic_sparse(n=512, dim=20_000, num_classes=2, nnz=12,
@@ -498,3 +498,267 @@ def test_sparse_logreg_on_the_card_matches_cpu(cuda):
     assert torch.equal(gpu.keys.cpu(), host.keys)
     np.testing.assert_allclose(gpu.values.cpu().numpy(),
                                host.values.numpy(), rtol=1e-5, atol=1e-6)
+
+
+# -- sharded forms and sharded tables ------------------------------------------
+
+
+def _mesh(devices):
+    from multiverso_tpu_torch import core
+    return core.Mesh([list(devices)])
+
+
+def _slice_lanes(global_ids, per_shard, shards, arrays, pads):
+    """Shard-sorted global ids -> the (shards, L) lane slices of local ids
+    (``hashing.shard_lane_slices``), valid and the real-lane counts."""
+    from multiverso_tpu_torch.tables.hashing import shard_lane_slices
+    shard_ids = global_ids // per_shard
+    local = (global_ids - shard_ids * per_shard).astype(np.int32)
+    sliced, valid, pos = shard_lane_slices(
+        shard_ids, shards, [local, *arrays], [np.int32(per_shard - 1), *pads])
+    return sliced, valid, valid.sum(1), shard_ids, pos
+
+
+def _on(x, dev, shards=None):
+    """A copy of ``x`` on ``dev``, or cut into ``shards`` row blocks."""
+    t = torch.tensor(np.ascontiguousarray(x))
+    if shards is None:
+        return t.to(dev)
+    return [b.contiguous().to(dev) for b in t.chunk(shards)]
+
+
+@pytest.mark.parametrize("cols,tiles,dtype", [
+    (100, 0, np.float32), (100, 0, np.int32), (1024, 8, np.int32),
+    (256, 2, np.float32)])
+def test_sharded_row_and_coo_forms_match_cpu_plain(cuda, cols, tiles, dtype):
+    """Four virtual shards on one card: each form launched over the real
+    lanes of each shard equals its plain version over the full (S, L)
+    layout on the CPU, bit for bit; one launch per shard under the flat
+    name and one per call under the sharded name."""
+    rng = np.random.default_rng(cols + tiles)
+    S, rows, n = 4, 2000, 24_576
+    rps = rows // S
+    param = (rng.standard_normal((rows, cols)) * 4).astype(dtype)
+    if tiles:
+        param = param.reshape(rows, tiles, 128)
+    ids = _zipf_ids(rng, n, rows)
+    # gather: request order, unpermuted through inv
+    order = np.argsort(ids // rps, kind="stable")
+    (local,), valid, counts, sh, pos = _slice_lanes(ids[order], rps, S,
+                                                    [], [])
+    inv = np.zeros(n, np.int32)
+    inv[order] = sh * local.shape[1] + pos
+    before = dict(tk.LAUNCHES)
+    got = tk.gather_rows_sharded(_on(param, cuda, S), _on(local, cuda),
+                                 _on(inv, cuda), counts=counts)
+    want = tk.gather_rows_sharded_plain(_on(param, "cpu", S),
+                                        _on(local, "cpu"), _on(inv, "cpu"))
+    assert torch.equal(got.cpu(), want)
+    assert tk.LAUNCHES["row_gather"] == before["row_gather"] + S
+    assert tk.LAUNCHES["row_gather_sharded"] == \
+        before["row_gather_sharded"] + 1
+    # the row scatter-add over sorted ids
+    sids = np.sort(ids)
+    deltas = (rng.standard_normal((n, cols)) * 3).astype(dtype)
+    (local, sd), valid, counts, _, _ = _slice_lanes(sids, rps, S, [deltas],
+                                                    [0])
+    shards = _on(param, cuda, S)
+    tk.row_scatter_add_sharded(shards, _on(local, cuda), _on(sd, cuda),
+                               _on(valid, cuda), counts=counts)
+    host = _on(param, "cpu", S)
+    tk.row_scatter_add_sharded_plain(host, _on(local, "cpu"), _on(sd, "cpu"),
+                                     _on(valid, "cpu"))
+    torch.cuda.synchronize()
+    for a, b in zip(shards, host):
+        assert torch.equal(a.cpu(), b)
+    # the COO add over row-sorted lanes
+    c = rng.integers(0, cols, n).astype(np.int32)
+    v = rng.integers(-3, 4, n).astype(dtype)
+    (lr, sc, sv), valid, counts, _, _ = _slice_lanes(
+        sids, rps, S, [c, v], [np.int32(0), 0])
+    shards = _on(param, cuda, S)
+    tk.coo_scatter_add_sharded(shards, *(_on(x, cuda)
+                                         for x in (lr, sc, sv, valid)),
+                               counts=counts)
+    host = _on(param, "cpu", S)
+    tk.coo_scatter_add_sharded_plain(host, *(_on(x, "cpu")
+                                             for x in (lr, sc, sv, valid)))
+    torch.cuda.synchronize()
+    for a, b in zip(shards, host):
+        assert torch.equal(a.cpu(), b)
+    assert tk.LAUNCHES["coo_scatter_add_sharded"] == \
+        before["coo_scatter_add_sharded"] + 1
+
+
+@pytest.mark.parametrize("over", [False, True])
+@pytest.mark.parametrize("name", KV_UPDATERS)
+def test_sharded_kv_forms_match_cpu_plain(cuda, name, over):
+    """Probe + commit and lookup on four virtual shards against the plain
+    versions on the CPU, bit for bit; a batch that overflows one bucket of
+    shard 0 leaves all four shards untouched, with the global count."""
+    from multiverso_tpu_torch import updaters as tup
+    rng = np.random.default_rng(KV_UPDATERS.index(name) * 2 + over)
+    S, nb, slots, vdim = 4, 512, 8, 2
+    bps = nb // S
+    keys, vals, live = _kv_filled(rng, nb, slots, vdim)
+    query, buckets, _ = _kv_batch(rng, keys, live, over, 0)
+    n = len(buckets)
+    deltas = rng.standard_normal((n, vdim)).astype(np.float32)
+    (lb, lq, ld), valid, counts, _, _ = _slice_lanes(
+        buckets, bps, S, [query, deltas], [np.int32(-1), 0])
+    upd = tup.get_updater(name)
+    state = {k: np.abs(rng.standard_normal(vals.shape)).astype(np.float32)
+             for k in upd.init_state(torch.from_numpy(vals))}
+    opt = tup.AddOption(**KV_OPTIONS[name])
+
+    def triple(dev):
+        return (_on(keys, dev, S), _on(vals, dev, S),
+                [{k: sh for k, sh in zip(state, parts)}
+                 for parts in zip(*(_on(state[k], dev, S) for k in state))]
+                if state else [{} for _ in range(S)])
+
+    gk, gv, gs = triple(cuda)
+    hk, hv, hs = triple("cpu")
+    before = dict(tk.LAUNCHES)
+    n_over = tk.kv_probe_update_sharded(
+        gk, gv, gs, *(_on(x, cuda) for x in (lb, lq, ld, valid)), opt, name,
+        counts=counts)[3]
+    want = tk.kv_probe_update_sharded_plain(
+        hk, hv, hs, *(_on(x, "cpu") for x in (lb, lq, ld, valid)), opt,
+        name)[3]
+    torch.cuda.synchronize()
+    assert int(n_over) == int(want) and (int(want) > 0) == over
+    assert tk.LAUNCHES["kv_probe_update"] == before["kv_probe_update"] + S
+    assert tk.LAUNCHES["kv_commit"] == before["kv_commit"] + S
+    assert tk.LAUNCHES["kv_probe_update_sharded"] == \
+        before["kv_probe_update_sharded"] + 1
+    for s in range(S):
+        assert torch.equal(gk[s].cpu(), hk[s])
+        assert torch.equal(_bits(gv[s]), _bits(hv[s]))
+        for k in state:
+            assert torch.equal(_bits(gs[s][k]), _bits(hs[s][k]))
+    if over:
+        assert torch.equal(torch.cat(hk), torch.from_numpy(keys))
+        assert torch.equal(torch.cat(hv), torch.from_numpy(vals))
+    # lookup of every batch key from the updated shards
+    order = np.arange(n)
+    (lb2, lq2), _, counts2, sh, pos = _slice_lanes(
+        buckets, bps, S, [query], [np.int32(-1)])
+    inv = sh * lb2.shape[1] + pos
+    got = tk.kv_lookup_sharded(gk, gv, _on(lq2, cuda), _on(lb2, cuda),
+                               _on(inv[order], cuda), 0.5, counts=counts2)
+    want = tk.kv_lookup_sharded_plain(hk, hv, _on(lq2, "cpu"),
+                                      _on(lb2, "cpu"), _on(inv, "cpu"), 0.5)
+    assert torch.equal(got[1].cpu(), want[1])
+    assert torch.equal(_bits(got[0]), _bits(want[0]))
+
+
+def test_sharded_forms_count_only_real_launches(cuda):
+    """A sharded form adds one to its own count at its first launch, and
+    nothing when no shard has a real lane; a one-shard table's row add
+    goes through the sharded form, one launch of the flat kernel."""
+    S, rps, cols = 4, 8, 4
+    shards = [torch.zeros(rps, cols, device=cuda) for _ in range(S)]
+    ids = torch.zeros(S, 8, dtype=torch.int32, device=cuda)
+    inv = torch.zeros(8, dtype=torch.int32, device=cuda)
+    deltas = torch.ones(S, 8, cols, device=cuda)
+    valid = torch.zeros(S, 8, dtype=torch.bool, device=cuda)
+    before = dict(tk.LAUNCHES)
+    tk.gather_rows_sharded(shards, ids, inv, counts=[0] * S)
+    tk.row_scatter_add_sharded(shards, ids, deltas, valid, counts=[0] * S)
+    assert tk.LAUNCHES == before
+    valid[2, :3] = True
+    tk.row_scatter_add_sharded(shards, ids, deltas, valid,
+                               counts=[0, 0, 3, 0])
+    torch.cuda.synchronize()
+    assert float(shards[2][0, 0]) == 3.0
+    assert tk.LAUNCHES["row_scatter_add_masked"] == \
+        before["row_scatter_add_masked"] + 1
+    assert tk.LAUNCHES["row_scatter_add_sharded"] == \
+        before["row_scatter_add_sharded"] + 1
+    t = MatrixTable(30, cols, device=cuda, name="one_shard")
+    t.add_rows([1, 1, 7], np.ones((3, cols), np.float32))
+    assert tk.LAUNCHES["row_scatter_add_masked"] == \
+        before["row_scatter_add_masked"] + 2
+    assert tk.LAUNCHES["row_scatter_add_sharded"] == \
+        before["row_scatter_add_sharded"] + 2
+    assert t.get_rows([1, 7]).tolist() == [[2.0] * cols, [1.0] * cols]
+
+
+def _sharded_vs_unsharded(cuda_devices, flat_device):
+    """Sharded tables on ``cuda_devices`` against the unsharded tables of
+    the same geometry on ``flat_device``: bit-identical logical regions."""
+    from multiverso_tpu_torch.tables import KVTable
+    rng = np.random.default_rng(len(cuda_devices))
+    mesh = _mesh(cuda_devices)
+    S = len(cuda_devices)
+    for updater in ("default", "adagrad"):
+        a = MatrixTable(1001, 100, updater=updater, mesh=mesh, name="mt_s")
+        b = MatrixTable(1001, 100, updater=updater, device=flat_device,
+                        name="mt_f")
+        for _ in range(3):
+            ids = _zipf_ids(rng, 4096, 1001)
+            if updater == "adagrad":
+                ids = np.unique(ids)
+            d = rng.standard_normal((len(ids), 100)).astype(np.float32)
+            a.add_rows(ids, d)
+            b.add_rows(ids, d)
+        q = _zipf_ids(rng, 3000, 1001)
+        assert np.array_equal(a.get(), b.get())
+        assert np.array_equal(a.get_rows(q), b.get_rows(q))
+    for tiled in (False, True):
+        a = SparseMatrixTable(999, 256, "int32", tiled=tiled, mesh=mesh,
+                              name="st_s")
+        b = SparseMatrixTable(999, 256, "int32", tiled=tiled,
+                              device=flat_device, name="st_f")
+        r = _zipf_ids(rng, 50_000, 999)
+        c = rng.integers(0, 256, 50_000)
+        v = rng.integers(-3, 4, 50_000)
+        a.add_sparse(r, c, v)
+        b.add_sparse(r, c, v)
+        assert np.array_equal(a.get(), b.get())
+    a = KVTable(1 << 14, value_dim=2, slots_per_bucket=4, updater="ftrl",
+                mesh=mesh, name="kv_s")
+    b = KVTable(a.num_buckets * 4, value_dim=2, slots_per_bucket=4,
+                updater="ftrl", device=flat_device, name="kv_f")
+    pool = np.unique(rng.integers(1, 2 ** 40, 20_000, dtype=np.uint64))
+    errs = []
+    for step in range(4):
+        keys = rng.choice(pool, 6000, replace=False)
+        d = rng.standard_normal((6000, 2)).astype(np.float32)
+        for t in (a, b):
+            t.add(keys, d)
+        for t in (a, b):
+            try:
+                t.wait()
+                errs.append(None)
+            except RuntimeError as e:
+                errs.append(str(e).replace(t.name, "kv"))
+        assert errs[-1] == errs[-2], step
+    for x, y in zip(a.global_arrays()[:2], b.global_arrays()[:2]):
+        assert torch.equal(_bits(x), _bits(y))
+    q = rng.choice(pool, 5000)
+    for x, y in zip(a.get(q), b.get(q)):
+        assert np.array_equal(x, y)
+    assert len(a) == len(b)
+    assert [str(k.device) for k in a.key_shards] == \
+        [str(torch.device(d)) for d in cuda_devices]
+
+
+def test_sharded_tables_on_one_card_match_unsharded(cuda):
+    _sharded_vs_unsharded(["cuda:0"] * 4, cuda)
+
+
+def test_launch_on_a_second_card(cuda):
+    """Kernels launch on their operands' card and its stream while another
+    card is current; shards spread over two cards equal the unsharded
+    tables on the CPU."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs a second card")
+    torch.cuda.set_device(0)
+    p = torch.arange(40, dtype=torch.float32).view(10, 4)
+    ids = torch.tensor([3, 3, 9, 0], dtype=torch.int32)
+    got = tk.gather_rows(p.to("cuda:1"), ids.to("cuda:1"))
+    assert got.device == torch.device("cuda", 1)
+    assert torch.equal(got.cpu(), tk.gather_rows_plain(p, ids))
+    _sharded_vs_unsharded(["cuda:0", "cuda:1"], "cpu")

@@ -381,14 +381,16 @@ def test_prepare_add_sorts_by_bucket_like_reference(mesh1, monkeypatch):
     keys = np.arange(1, 12, dtype=np.uint64)[::-1].copy()
     d = np.random.default_rng(2).standard_normal((11, 2)).astype(np.float32)
     jp, tp = jt.prepare_add(keys, d), tt.prepare_add(keys, d)
-    buckets = tp.buckets.numpy()
+    # one shard: the one lane row is the reference's flat layout
+    assert tp.buckets.shape == (1, 16) and list(tp.counts) == [11]
+    buckets = tp.buckets.numpy()[0]
     assert (np.diff(buckets) >= 0).all()
     assert (buckets[11:] == tt.num_buckets - 1).all()
     np.testing.assert_array_equal(buckets, np.asarray(jp.buckets))
-    np.testing.assert_array_equal(tp.query.numpy(),
+    np.testing.assert_array_equal(tp.query.numpy()[0],
                                   np.asarray(jp.query).view(np.int32))
-    np.testing.assert_array_equal(tp.deltas.numpy(), np.asarray(jp.deltas))
-    np.testing.assert_array_equal(tp.valid.numpy(), np.asarray(jp.valid))
+    np.testing.assert_array_equal(tp.deltas.numpy()[0], np.asarray(jp.deltas))
+    np.testing.assert_array_equal(tp.valid.numpy()[0], np.asarray(jp.valid))
     np.testing.assert_array_equal(tp.host_buckets, jp.host_buckets)
     # device deltas are permuted on the device alike
     tq = tt.prepare_add(keys, torch.from_numpy(d))

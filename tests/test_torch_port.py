@@ -52,8 +52,10 @@ def test_init_without_device_needs_cuda(monkeypatch):
 
 def test_init_on_cpu_and_topology():
     try:
-        dev = mvt.init(device="cpu")
+        mesh = mvt.init(device="cpu")
+        dev = mesh.devices[0, 0]
         assert dev == torch.device("cpu") and mvt.device() == dev
+        assert mesh.shape == {"data": 1, "model": 1}
         assert (mvt.rank(), mvt.size(), mvt.num_workers(),
                 mvt.num_servers()) == (0, 1, 1, 1)
         mvt.barrier()

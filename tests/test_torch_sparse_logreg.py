@@ -123,7 +123,7 @@ def test_step_gradient_is_the_loss_gradient():
     pos = torch.from_numpy(rng.integers(0, 9, (5, 4)))
     vals = torch.from_numpy(rng.standard_normal((5, 4)).astype(np.float32))
     y = torch.from_numpy(rng.integers(0, 3, 5))
-    loss, dw = tslr.lr_step(w, pos, vals, y, 0.3)
+    loss, dw = tslr.lr_step(w, pos, vals, y, 0.3, torch.arange(20))
     wg = w.clone().requires_grad_(True)
     logits = torch.einsum("bf,bfc->bc", vals, wg[pos])
     ref = torch.nn.functional.cross_entropy(logits, y) \
