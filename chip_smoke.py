@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py             # the whole check, a few minutes
     python3 chip_smoke.py --profile   # also torch.profiler windows on one
-                                      # word2vec call, one LightLDA sweep
-                                      # and four sparse-LR steps
+                                      # word2vec call (on one shard and on
+                                      # the (1, 4) mesh), one LightLDA
+                                      # sweep and four sparse-LR steps
 
 Phases (any failure ends the run with a non-zero exit code; each prints
 its seconds):
@@ -68,6 +69,15 @@ its seconds):
    final keys, values and state must equal phase 10's bit for bit; the
    same numbers as phase 10, per-device peak memory, and the launches per
    step (4 per-shard lookups, probes and commits, 1 of each sharded form).
+13. word2vec of phase 4 on the (1, 4) mesh through
+   ``WordEmbedding(corpus, cfg, mesh=...)``: the superstep hands the body
+   both tables as ShardedParams, and every gather and scatter-add runs the
+   functional form over them (one windowed launch per shard). From phase
+   4's corpus, initial weights, pairs and negatives: w_in and w_out must
+   equal phase 4's bit for bit, the loss must fall, the launches must be
+   exactly 4 per functional call; words/s beside phase 4's. Then a
+   superstep COO add over a (1, 4) SparseMatrixTable at the LightLDA
+   call's width, bit-identical to the (1, 1) table.
 
 Phase 2 also holds the KV kernels against their plain versions on the CPU
 bit for bit at the sparse-LR step's shapes (a 2^25-slot table, 262,144
@@ -77,10 +87,19 @@ the five sharded forms at S = 4 against their plain versions on the CPU,
 bit for bit: the KV lookup and probe + commit (ftrl) at those shapes on
 four shards of 524,288 buckets (with a batch that overflows one bucket of
 shard 0), the row gather and scatter-add at the word2vec shapes, the COO
-add at the LightLDA call's.
+add at the LightLDA call's. And the three functional forms over a
+ShardedParam of four shards (a superstep body's gather, row scatter-add
+and COO add over a split table) against their plain versions on the CPU,
+bit for bit, with their times beside ``index_select`` / ``index_add_`` /
+``index_put_`` on the table concatenated: the gather and scatter at the
+word2vec shapes (4 x 2,501 rows), the COO add at the LightLDA call's (4 x
+12,501 x 1024 int32); the sharded scatter also against the flat kernel on
+the whole table. Then a small CBOW HS run on the (1, 4) card mesh
+against the same run on a (1, 4) CPU mesh.
 
 Launch counts are set to 0 before each main path (phases 3-4 word2vec,
-5, 6, 7, 8, 10, 11, 12) and read after it. Before the last line the script prints
+5, 6, 7, 8, 10, 11, 12, 13's word2vec and its COO superstep) and read
+after it. Before the last line the script prints
 one ``{"kernels": [...]}`` JSON line and the card's name and power limit;
 the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -164,6 +183,29 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_ms(fn, iters: int) -> float:
+    """Mean host time to queue one call of ``fn`` (its Python wrappers and
+    launches), over ``iters`` calls queued while a spin kernel holds the
+    device, so the device never waits on the host inside the window."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e3 * dt / iters
+
+
+def longest_runs(ids, rps: int) -> list:
+    """The longest run of equal ids in each shard's row window."""
+    ids = np.asarray(ids)
+    return [int(np.bincount(ids[(ids // rps) == s]).max(initial=0))
+            for s in range(SHARDS)]
 
 
 def bound_ms(nbytes: float, flops: float) -> tuple:
@@ -386,15 +428,7 @@ def phase_w2v(torch, tk, Corpus, synthetic_text, W2VConfig, WordEmbedding,
 
     start_loss = (1 + NEGATIVE) * float(np.log(2.0))  # w_out = 0 at start
     before = dict(tk.LAUNCHES)
-    t0 = time.perf_counter()
-    warm = app.train(total_steps=STEPS, batches=batches[:STEPS])
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    app.train(total_steps=TIMED_CALLS * STEPS,
-              batches=batches[STEPS:(1 + TIMED_CALLS) * STEPS])
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    warm, warm_s, dt = w2v_calls(torch, app, batches)
     losses = app.loss_history
     steps = (1 + TIMED_CALLS) * STEPS
     grown = {k: tk.LAUNCHES[k] - before[k] for k in tk.LAUNCHES}
@@ -416,13 +450,32 @@ def phase_w2v(torch, tk, Corpus, synthetic_text, W2VConfig, WordEmbedding,
                pairs_per_token=pairs_per_token, steps=steps,
                loss_start=start_loss, loss_warm=warm, losses=losses,
                launches_per_step={k: grown[k] / steps for k in grown})
+    # what phase 13 repeats on the mesh and must equal bit for bit
+    run = dict(corpus=corpus, cfg=cfg, batches=batches,
+               pairs_per_token=pairs_per_token, w_in=app.w_in.get(),
+               w_out=app.w_out.get())
     if profile:
         rest = batches[(1 + TIMED_CALLS) * STEPS:]
         out["profile"] = profile_call(
             torch, "w2v_call_trace.json",
             lambda: app.train(total_steps=STEPS, batches=rest),
             dt / TIMED_CALLS * 1e3)
-    return out
+    return out, run
+
+
+def w2v_calls(torch, app, batches) -> tuple:
+    """Phase 4's sequence on ``app``: one warm-up call, then TIMED_CALLS
+    timed calls; returns (warm-up loss, warm-up s, timed s)."""
+    t0 = time.perf_counter()
+    warm = app.train(total_steps=STEPS, batches=batches[:STEPS])
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    app.train(total_steps=TIMED_CALLS * STEPS,
+              batches=batches[STEPS:(1 + TIMED_CALLS) * STEPS])
+    for dev in {t.device for t in app.w_in.shards}:
+        torch.cuda.synchronize(dev)
+    return warm, warm_s, time.perf_counter() - t0
 
 
 def _sync(torch):
@@ -1782,6 +1835,260 @@ def phase_sharded_sparse_lr(torch, tk, counts, mesh, devices,
     return out, path_counts
 
 
+def phase_mesh_kernels(torch, tk, devices, rng) -> dict:
+    """Phase 2, the functional forms over a ShardedParam (a superstep body
+    over (1, 4) tables) against their plain versions: the row gather and
+    scatter-add at word2vec's shapes (w_out's 10,004 x 100 rows as 4 x
+    2,501; 4,096 and 24,576 Zipf-1.2 ids in request order), the COO add at
+    a LightLDA call's (512,000 lanes into 4 x 12,501 x 1024 int32, tiled).
+    Exact against the plain versions on the CPU, and the scatters equal
+    to the flat kernel on the whole table; returns {name@n: row}."""
+    out = {}
+    cpus = ["cpu"] * SHARDS
+    g = torch.Generator(device="cpu").manual_seed(13)
+
+    def sharded(x, devs):
+        return tk.ShardedParam(b.to(d, copy=True)
+                               for b, d in zip(x.chunk(SHARDS), devs))
+
+    def host(param):
+        return torch.cat([t.cpu() for t in param.shards])
+
+    def timed(fn):
+        def run():
+            fn()
+            join(torch, devices)
+        return run
+
+    def record(key, got, want, fn, plain, library, iters, nbytes, flops,
+               **extra):
+        sync_all(torch, devices)
+        if not torch.equal(bits(torch, got), bits(torch, want)):
+            raise SystemExit(f"{key}: kernel != plain version on the CPU")
+        per_call = launch_delta(tk, fn)
+        b_ms, by = bound_ms(nbytes, flops)
+        out[key] = dict(
+            max_abs_err=float((got.double() - want.double()).abs().max()),
+            ms=cuda_ms(timed(fn), iters), plain_ms=cuda_ms(plain, iters),
+            library_ms=cuda_ms(library, iters), bound_ms=b_ms, bound_by=by,
+            launches_per_call=per_call, **extra)
+
+    lead = -(-ROWS // SHARDS) * SHARDS              # 10,004
+    x = torch.randn(lead, DIM, generator=g) * 0.05
+    whole = x.to(devices[0])
+    for n in (4096, BATCH * (1 + NEGATIVE)):
+        ids_h = torch.as_tensor(zipf_ids(rng, n, ROWS))
+        ids = ids_h.to(devices[0])
+        uniq = int(torch.unique(ids_h).numel())
+        param = sharded(x, devices)
+        fn = lambda: tk.gather_rows(param, ids)
+        flat_fn = lambda: tk.gather_rows(whole, ids)
+        # 100 calls: the host queues a call in about 0.15-0.18 ms (H100
+        # 80GB HBM3), so they stay inside cuda_ms's spin
+        record(f"gather_rows_mesh@{n}", fn().cpu(), x[ids_h.long()], fn,
+               lambda: tk.gather_rows_mesh_plain(param, ids),
+               lambda: whole.index_select(0, ids), 100,
+               n * 4 + uniq * DIM * 4 + n * DIM * 4, 0, n=n,
+               unique_rows=uniq, flat_ms=cuda_ms(flat_fn, 200),
+               host_ms=host_ms(fn, 200), flat_host_ms=host_ms(flat_fn, 200))
+
+        d_h = torch.randn(n, DIM, generator=g)
+        d = d_h.to(devices[0])
+        param = sharded(x, devices)
+        tk.row_scatter_add(param, ids, d)
+        want = host(tk.row_scatter_add(sharded(x, cpus), ids_h, d_h))
+        flat = tk.row_scatter_add(whole.clone(), ids, d)
+        sync_all(torch, devices)
+        if not torch.equal(bits(torch, flat), bits(torch, host(param))):
+            raise SystemExit(f"row_scatter_add_mesh n={n}: the sharded "
+                             "table != the flat kernel's whole table")
+        timed_p, lib_t = sharded(x, devices), whole.clone()
+        fn = lambda: tk.row_scatter_add(timed_p, ids, d)
+        flat_fn = lambda: tk.row_scatter_add(lib_t, ids, d)
+        record(f"row_scatter_add_mesh@{n}", host(param), want, fn,
+               lambda: tk.row_scatter_add_mesh_plain(timed_p, ids, d),
+               lambda: lib_t.index_add_(0, ids, d), 50,
+               n * 4 + n * DIM * 4 + 2 * uniq * DIM * 4, n * DIM, n=n,
+               unique_rows=uniq, flat_ms=cuda_ms(flat_fn, 50),
+               host_ms=host_ms(fn, 50), flat_host_ms=host_ms(flat_fn, 50),
+               longest_run_per_shard=longest_runs(ids_h.numpy(),
+                                                  lead // SHARDS))
+    del whole, lib_t, timed_p, param, flat
+
+    lead = -(-(LDA_V + 1) // SHARDS) * SHARDS      # 50,004
+    tw, _ = zipf_lda_corpus(LDA_V, 1, LDA_B, seed=5)
+    r_h = torch.as_tensor(tw.astype(np.int32))
+    c_h = torch.as_tensor(rng.integers(0, LDA_K, LDA_B).astype(np.int32))
+    v_h = torch.as_tensor((rng.random(LDA_B) < 0.97).astype(np.int32))
+    r, c, v = (t.to(devices[0]) for t in (r_h, c_h, v_h))
+    table0 = torch.zeros((lead, LDA_K // 128, 128), dtype=torch.int32)
+    param = sharded(table0, devices)
+    tk.coo_scatter_add(param, r, c, v)
+    want = host(tk.coo_scatter_add(sharded(table0, cpus), r_h, c_h, v_h))
+    lib_t = table0.to(devices[0]).view(lead, LDA_K)
+    idx = r.long() * LDA_K + c.long()
+    touched = int(torch.unique(idx).numel())
+    timed_p = sharded(table0, devices)
+    record(f"coo_scatter_add_mesh@{LDA_B}", host(param), want,
+           lambda: tk.coo_scatter_add(timed_p, r, c, v),
+           lambda: tk.coo_scatter_add_mesh_plain(timed_p, r, c, v),
+           lambda: lib_t.view(-1).index_put_((idx,), v, accumulate=True),
+           20, LDA_B * 12 + touched * 8, LDA_B, n=LDA_B, touched=touched)
+    del param, timed_p, lib_t, table0
+    for key, row in out.items():
+        log(f"  {key:30s} ({SHARDS} shards) kernel {row['ms']:.4f} ms  "
+            f"plain {row['plain_ms']:.4f} ms  library "
+            f"{row['library_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']})  {row['ms'] / row['bound_ms']:.1f}x "
+            f"bound; bit-identical to the CPU plain version; launches per "
+            f"call {row['launches_per_call']}")
+        if "flat_ms" in row:
+            log(f"    the flat kernel on the whole table {row['flat_ms']:.4f}"
+                f" ms; host time to queue a call {row['host_ms']:.4f} ms "
+                f"(flat {row['flat_host_ms']:.4f} ms)"
+                + (f"; longest run per shard "
+                   f"{row['longest_run_per_shard']}"
+                   if "longest_run_per_shard" in row else ""))
+    log("  row_scatter_add_mesh: the sharded tables equal the flat "
+        "kernel's whole table bit for bit")
+    return out
+
+
+def w2v_mesh_small_parity(torch, core, Corpus, synthetic_text, W2VConfig,
+                          WordEmbedding, devices, tmp) -> None:
+    """CBOW HS at a small width on the (1, SHARDS) card mesh against the
+    same run on a (1, SHARDS) CPU mesh (plain versions): same corpus,
+    weights and pairs."""
+    path = os.path.join(tmp, "small_mesh.txt")
+    synthetic_text(path, num_tokens=40_000, vocab_size=500, seed=3)
+    corpus = Corpus.from_file(path, min_count=1, subsample=1e-3)
+    cfg = W2VConfig(embedding_dim=DIM, window=WINDOW, model="cbow",
+                    objective="hs", batch_size=256, steps_per_call=4,
+                    learning_rate=0.025, seed=3)
+    apps = [WordEmbedding(corpus, cfg, mesh=core.Mesh([d]))
+            for d in (devices, ["cpu"] * SHARDS)]
+    it = corpus.cbow_batches(256, window=WINDOW, seed=3,
+                             pad_id=apps[0]._scratch)
+    batches = [next(it) for _ in range(8)]
+    for call in range(2):
+        src = np.stack([b[0] for b in batches[4 * call:4 * call + 4]])
+        tgt = np.stack([b[1] for b in batches[4 * call:4 * call + 4]])
+        losses = [float(a._dispatch(src, tgt, call, 2)) for a in apps]
+    sync_all(torch, devices)
+    for key in ("w_in", "w_out"):
+        a, b = (getattr(x, key).get() for x in apps)
+        if not np.allclose(a, b, rtol=1e-5, atol=1e-6):
+            raise SystemExit(f"w2v cbow/hs on the (1, {SHARDS}) card mesh: "
+                             f"{key} differs from the CPU mesh "
+                             f"(max {np.abs(a - b).max()})")
+    if not np.isclose(losses[0], losses[1], rtol=1e-5):
+        raise SystemExit(f"w2v cbow/hs on the meshes: loss {losses}")
+    log(f"  w2v cbow/hs on the (1, {SHARDS}) card mesh vs the CPU mesh: "
+        f"w_in, w_out within rtol 1e-5 atol 1e-6; loss {losses[0]:.6f} vs "
+        f"{losses[1]:.6f}")
+
+
+def phase_w2v_mesh(torch, tk, counts, reset, core, W2VConfig, WordEmbedding,
+                   SparseMatrixTable, make_superstep, devices, w2v,
+                   w2v_run, profile: bool) -> tuple:
+    """Phase 13: phase 4's skip-gram NS on the (1, SHARDS) mesh, from
+    phase 4's corpus, initial weights (the same seed), pairs and
+    negatives (drawn on the first shard's card): its w_in and w_out must
+    equal phase 4's bit for bit, the loss must fall, and every functional
+    call must launch once per shard. Then a superstep COO add over a
+    (1, SHARDS) SparseMatrixTable at the LightLDA call's width against
+    the (1, 1) table. Returns (numbers, {path: launch counts})."""
+    mesh = core.Mesh([devices])
+    paths = {}
+    app = WordEmbedding(w2v_run["corpus"], w2v_run["cfg"], mesh=mesh,
+                        name="smoke_w2v_mesh")
+    batches = w2v_run["batches"]
+    reset()
+    warm, warm_s, dt = w2v_calls(torch, app, batches)
+    paths["word2vec_mesh"] = counts()
+    losses = app.loss_history
+    steps = (1 + TIMED_CALLS) * STEPS
+    words_per_sec = TIMED_CALLS * STEPS * BATCH / dt \
+        / w2v_run["pairs_per_token"]
+    log(f"  {len(app.w_in.shards)} shards of {app.w_in._rows_per_shard} "
+        f"rows on {devices}; warm-up call {warm_s:.3f} s, loss "
+        f"{warm:.5f}; timed calls {dt:.3f} s, losses {losses}")
+    if not (np.isfinite(losses).all() and losses[-1] < warm
+            < w2v["loss_start"]):
+        raise SystemExit(f"w2v on the mesh: loss did not fall: warm-up "
+                         f"{warm}, then {losses}")
+    for key in ("w_in", "w_out"):
+        if getattr(app, key).get().tobytes() != w2v_run[key].tobytes():
+            raise SystemExit(f"w2v on the (1, {SHARDS}) mesh: {key} != "
+                             "phase 4's (1, 1) run")
+    grown = paths["word2vec_mesh"]
+    # skip-gram NS: 2 gathers + 2 scatter-adds a step, SHARDS launches each
+    for name in ("gather_rows_mesh", "row_scatter_add_mesh"):
+        if grown[name] != SHARDS * 2 * steps:
+            raise SystemExit(f"{name}: {grown[name]} launches over {steps} "
+                             f"steps, expected {SHARDS * 2 * steps}")
+    if grown["row_gather"] or grown["row_scatter_add"]:
+        raise SystemExit(f"w2v on the mesh launched the flat kernels: "
+                         f"{grown}")
+    ratio = words_per_sec / w2v["words_per_sec"]
+    log(f"  w_in, w_out bit-identical to phase 4's (1, 1) run; "
+        f"{words_per_sec:.0f} words/s against phase 4's "
+        f"{w2v['words_per_sec']:.0f} ({ratio:.3f}x); launches per step "
+        f"{grown['gather_rows_mesh'] / steps:.0f} "
+        f"gather + {grown['row_scatter_add_mesh'] / steps:.0f} scatter "
+        f"({SHARDS} per functional call)")
+    out = dict(words_per_sec=words_per_sec, seconds=dt, loss_warm=warm,
+               losses=losses, words_per_sec_one_shard=w2v["words_per_sec"],
+               launches_per_step={k: v / steps for k, v in grown.items()
+                                  if v})
+    if profile:
+        rest = batches[(1 + TIMED_CALLS) * STEPS:]
+        out["profile"] = profile_call(
+            torch, "w2v_mesh_call_trace.json",
+            lambda: app.train(total_steps=STEPS, batches=rest),
+            dt / TIMED_CALLS * 1e3)
+    del app
+
+    # the COO form through a superstep body over a split SparseMatrixTable
+    tables = [SparseMatrixTable(LDA_V, LDA_K, "int32", tiled=True,
+                                name=f"ss_coo_{i}", **kw)
+              for i, kw in enumerate((dict(mesh=mesh),
+                                      dict(device=devices[0])))]
+
+    def body(params, states, locals_, options, rows, cols, vals):
+        (p,) = params
+        return (tk.coo_scatter_add(p, rows, cols, vals),), states, \
+            locals_, None
+
+    steps_ss = [make_superstep([t], body, name=t.name) for t in tables]
+    lanes = []
+    for seed in (6, 7):
+        tw, _ = zipf_lda_corpus(LDA_V, 1, LDA_B, seed=seed)
+        lanes.append([torch.as_tensor(a, device=devices[0]) for a in (
+            tw.astype(np.int32), np.random.default_rng(seed).integers(
+                0, LDA_K, LDA_B).astype(np.int32),
+            np.ones(LDA_B, np.int32))])
+    reset()
+    for args in lanes:
+        steps_ss[0]((), *args)
+    paths["superstep_coo_mesh"] = counts()
+    for args in lanes:
+        steps_ss[1]((), *args)
+    if not np.array_equal(tables[0].get(), tables[1].get()):
+        raise SystemExit("superstep COO on the mesh != the (1, 1) table")
+    n_coo = paths["superstep_coo_mesh"]["coo_scatter_add_mesh"]
+    if n_coo != SHARDS * len(lanes):
+        raise SystemExit(f"coo_scatter_add_mesh: {n_coo} launches in "
+                         f"{len(lanes)} calls, expected "
+                         f"{SHARDS * len(lanes)}")
+    log(f"  superstep COO add of {LDA_B} lanes x 2 calls into a "
+        f"{LDA_V} x {LDA_K} int32 tiled SparseMatrixTable on {SHARDS} "
+        f"shards: bit-identical to the (1, 1) table, {n_coo} launches")
+    del tables, steps_ss
+    free_tables(torch)
+    return out, paths
+
+
 def profile_call(torch, trace_name: str, run, call_ms: float) -> dict:
     """``run()`` (one superstep call or sweep) under torch.profiler:
     device time by kernel and the device's busy time, read from the
@@ -1852,7 +2159,8 @@ def main(argv) -> int:
     from multiverso_tpu_torch.apps.sparse_logreg import (
         SparseLogisticRegression, SparseLRConfig, lr_step, synthetic_sparse)
     from multiverso_tpu_torch.tables import (KVTable, MatrixTable,
-                                             SparseMatrixTable)
+                                             SparseMatrixTable,
+                                             make_superstep)
     from multiverso_tpu_torch.updaters import AddOption
     profile = "--profile" in argv
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1908,8 +2216,11 @@ def main(argv) -> int:
         log(f"  sharded forms on the mesh {devices} (S = {SHARDS})")
         sharded_results = phase_sharded_kernels(torch, tk, core, KVTable,
                                                 devices, rng)
+        mesh_results = phase_mesh_kernels(torch, tk, devices, rng)
         w2v_small_parity(torch, Corpus, synthetic_text, W2VConfig,
                          WordEmbedding, tmp)
+        w2v_mesh_small_parity(torch, core, Corpus, synthetic_text,
+                              W2VConfig, WordEmbedding, devices, tmp)
         lda_small_parity(LDAConfig, LightLDA, load_docs, synthetic_docs,
                          tmp)
         slr_small_parity(torch, SparseLogisticRegression, SparseLRConfig,
@@ -1920,8 +2231,8 @@ def main(argv) -> int:
         phase("w2v", "phase 3: MatrixTable Get/Add on the card")
         phase_tables(torch, MatrixTable, AddOption, rng)
         log("phase 4: word2vec skip-gram NS at full width")
-        w2v = phase_w2v(torch, tk, Corpus, synthetic_text, W2VConfig,
-                        WordEmbedding, tmp, profile)
+        w2v, w2v_run = phase_w2v(torch, tk, Corpus, synthetic_text,
+                                 W2VConfig, WordEmbedding, tmp, profile)
         paths["word2vec"] = counts()
         phase_end("w2v")
 
@@ -1989,6 +2300,15 @@ def main(argv) -> int:
     del slr_data
     phase_end("sharded_sparse_lr")
 
+    phase("w2v_mesh", f"phase 13: word2vec skip-gram NS at full width on "
+          f"the (1, {SHARDS}) mesh {devices} vs phase 4's (1, 1) run")
+    w2v_mesh, mesh_paths = phase_w2v_mesh(
+        torch, tk, counts, reset, core, W2VConfig, WordEmbedding,
+        SparseMatrixTable, make_superstep, devices, w2v, w2v_run, profile)
+    paths.update(mesh_paths)
+    del w2v_run
+    phase_end("w2v_mesh")
+
     # each kernel's launches on the main path that carries it
     main_path = {
         "row_gather": "word2vec", "row_scatter_add": "word2vec",
@@ -2004,6 +2324,9 @@ def main(argv) -> int:
         "row_gather_sharded": "sharded_tables",
         "row_scatter_add_sharded": "sharded_tables",
         "coo_scatter_add_sharded": "sharded_tables",
+        "gather_rows_mesh": "word2vec_mesh",
+        "row_scatter_add_mesh": "word2vec_mesh",
+        "coo_scatter_add_mesh": "superstep_coo_mesh",
     }
     for name, path in main_path.items():
         if paths[path][name] <= 0:
@@ -2012,6 +2335,10 @@ def main(argv) -> int:
         f"({w2v['seconds']:.3f} s for {TIMED_CALLS} calls of "
         f"{STEPS}x{BATCH} pairs) on {card}")
     log(f"  word2vec launches per step: {w2v['launches_per_step']}")
+    log(f"  word2vec on the (1, {SHARDS}) mesh: "
+        f"{w2v_mesh['words_per_sec']:.0f} words/s, "
+        f"{w2v_mesh['words_per_sec'] / w2v['words_per_sec']:.3f}x the "
+        f"(1, 1) run's, on {card}")
     log(f"  LightLDA doc-blocked: {lda['doc_tokens_per_sec']:.0f} "
         f"doc-tokens/s (runs {[round(r) for r in lda['runs_tok_per_sec']]}, "
         f"spread {lda['spread_pct']:.1f}%) on {card}")
@@ -2038,7 +2365,10 @@ def main(argv) -> int:
                  "kv_probe_update_sharded": kv_src,
                  "row_gather_sharded": row_src,
                  "row_scatter_add_sharded": row_src,
-                 "coo_scatter_add_sharded": coo_src}
+                 "coo_scatter_add_sharded": coo_src,
+                 "gather_rows_mesh": row_src,
+                 "row_scatter_add_mesh": row_src,
+                 "coo_scatter_add_mesh": coo_src}
     replaces = {
         "row_gather": "multiverso_tpu/ops/table_kernels.py:580",
         "row_scatter_add": "multiverso_tpu/ops/table_kernels.py:610",
@@ -2058,6 +2388,9 @@ def main(argv) -> int:
             "multiverso_tpu/ops/table_kernels.py:1039",
         "coo_scatter_add_sharded":
             "multiverso_tpu/ops/table_kernels.py:1122",
+        "gather_rows_mesh": "multiverso_tpu/ops/table_kernels.py:1220",
+        "row_scatter_add_mesh": "multiverso_tpu/ops/table_kernels.py:1248",
+        "coo_scatter_add_mesh": "multiverso_tpu/ops/table_kernels.py:1282",
     }
     main_n = BATCH * (1 + NEGATIVE)       # the w_out gather/scatter width
     measured = {name: results[(name, main_n)]
@@ -2069,6 +2402,12 @@ def main(argv) -> int:
     measured["kv_lookup"] = kv_results["kv_lookup"]
     measured["kv_probe_update"] = kv_results["kv_probe_update_ftrl_2"]
     measured.update(sharded_results)
+    # the w2v mesh path's shapes: w_out's 24,576-lane gather and scatter
+    measured["gather_rows_mesh"] = mesh_results[f"gather_rows_mesh@{main_n}"]
+    measured["row_scatter_add_mesh"] = \
+        mesh_results[f"row_scatter_add_mesh@{main_n}"]
+    measured["coo_scatter_add_mesh"] = \
+        mesh_results[f"coo_scatter_add_mesh@{LDA_B}"]
     kernels = []
     for name, r in measured.items():
         kernels.append(dict(
@@ -2090,6 +2429,7 @@ def main(argv) -> int:
                        kv_kernel_shapes=kv_results, sparse_lr=slr,
                        sharded_kernel_shapes=sharded_results,
                        sparse_lr_mesh=slr_mesh,
+                       mesh_kernel_shapes=mesh_results, w2v_mesh=w2v_mesh,
                        seconds=time.perf_counter() - t_start), f, indent=1)
     log(f"phase seconds: { {k: round(v, 1) for k, v in phase_s.items()} }")
     log(f"total {time.perf_counter() - t_start:.1f} s")

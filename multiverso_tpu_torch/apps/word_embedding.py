@@ -12,6 +12,15 @@ Python loop; its ``jax.random`` negatives are draws from a
 ``torch.Generator`` on the device, seeded per call from (seed, call
 number). The superstep also takes the negatives as an input, so a caller
 can feed both packages the same ones.
+
+On a (1, S) mesh (``mesh=``) both tables split their rows over the S
+model shards and the superstep hands the body each one as a
+``ShardedParam``: every gather and scatter-add of a step then launches
+once per shard with that shard's row window, and the tables end
+bit-identical to a (1, 1) run. The constants (the NS table or alias, the
+labels, the HS paths), the pairs and the negatives' generator live on
+the first shard's device. ``python -m
+multiverso_tpu_torch.apps.word_embedding`` is the command line (:func:`main`).
 """
 
 from __future__ import annotations
@@ -121,15 +130,19 @@ def alias_sample(gen: torch.Generator, prob: torch.Tensor,
 
 
 class WordEmbedding:
-    """The app: two MatrixTables + the superstep."""
+    """The app: two MatrixTables + the superstep, on ``mesh`` (default:
+    the runtime's) or the (1, 1) mesh of ``device``."""
 
     META_MAGIC = "mvtpu.w2v.meta.v1"
 
     def __init__(self, corpus: Corpus, config: W2VConfig, *,
-                 device: core.DeviceLike = None, name: str = "w2v") -> None:
+                 device: core.DeviceLike = None,
+                 mesh: Optional[core.Mesh] = None,
+                 name: str = "w2v") -> None:
         self.corpus = corpus
         self.config = config
-        self.device = dev = core.resolve(device)
+        self.mesh = core.resolve_mesh(mesh, device)
+        self.device = dev = self.mesh.shard_devices[0]
         c = config
         if c.subsample is not None:
             corpus.set_subsample(c.subsample)
@@ -138,10 +151,10 @@ class WordEmbedding:
         # reference init: input embeddings ~ U(-0.5/dim, 0.5/dim), output 0
         w_in_init = rng.uniform(-0.5 / d, 0.5 / d, (v, d)).astype(c.dtype)
         self.w_in = MatrixTable(v, d, c.dtype, init_value=w_in_init,
-                                updater="default", device=dev,
+                                updater="default", mesh=self.mesh,
                                 name=f"{name}_in")
         self.w_out = MatrixTable(v, d, c.dtype, init_value=0,
-                                 updater="default", device=dev,
+                                 updater="default", mesh=self.mesh,
                                  name=f"{name}_out")
         self._scratch = self.w_in.padded_shape[0] - 1  # masked-lane row
         if c.objective == "ns":
@@ -463,3 +476,95 @@ class WordEmbedding:
         (:func:`multiverso_tpu_torch.convert.load_word_embedding`)."""
         from multiverso_tpu_torch.convert import load_word_embedding
         load_word_embedding(self, weights)
+
+
+USAGE = """python -m multiverso_tpu_torch.apps.word_embedding -train_file=PATH
+    [-size=100] [-window=5] [-negative=5 (0: hierarchical softmax)]
+    [-cbow=false] [-epoch=1] [-batch_size=1024] [-alpha=0.025]
+    [-sample=1e-3] [-min_count=5] [-output_file=PREFIX]
+    [-output_text=PATH] [-checkpoint_interval=0]
+    [-data_parallel=0] [-model_parallel=1] [-device=cpu]
+
+The mesh is -data_parallel x -model_parallel over every CUDA device, or
+over one device repeated with -device (-device=cpu: the CPU). A data
+axis above 1 is not ported (tables on the data axis). Not ported either:
+the fault-tolerance run flags -run_dir, -resume and -ckpt_every and the
+run checkpoint manager (wire_app); -output_file with
+-checkpoint_interval stores the tables every N superstep calls."""
+
+
+def main(argv=None) -> None:
+    """CLI mirroring the reference's word2vec-style argv (its ``main``);
+    ``-help`` prints the flags."""
+    from multiverso_tpu_torch.utils import configure
+    flags = [
+        (configure.define_string, "train_file", "", "corpus text file"),
+        (configure.define_int, "size", 100, "embedding dimension"),
+        (configure.define_int, "window", 5, "context window"),
+        (configure.define_int, "negative", 5, "negative samples (0 -> HS)"),
+        (configure.define_bool, "cbow", False, "CBOW instead of skip-gram"),
+        (configure.define_int, "epoch", 1, "epochs"),
+        (configure.define_int, "batch_size", 1024, "pairs per step"),
+        (configure.define_float, "alpha", 0.025, "initial learning rate"),
+        (configure.define_float, "sample", 1e-3, "subsampling threshold"),
+        (configure.define_int, "min_count", 5, "vocab min count"),
+        (configure.define_string, "output_file", "",
+         "embedding checkpoint prefix"),
+        (configure.define_string, "output_text", "",
+         "text-format embedding dump (the reference's output format)"),
+        (configure.define_int, "checkpoint_interval", 0,
+         "store -output_file every N superstep calls (0 = only at end)"),
+        (configure.define_string, "device", "",
+         "one torch device for every shard (default: the CUDA devices as "
+         "a mesh of -data_parallel x -model_parallel)"),
+    ]
+    for define, name, default, help_str in flags:
+        define(name, default, help_str, overwrite=True)
+    argv = list(argv or [])
+    if any(a.lstrip("-") in ("help", "h") for a in argv):
+        print(USAGE + "\n\n" + configure.describe_flags())
+        return
+    rest = configure.parse_flags(argv)
+    if rest:
+        raise SystemExit(f"unknown arguments {rest}\n\n{USAGE}")
+    train_file = configure.get_flag("train_file")
+    if not train_file:
+        raise SystemExit(f"-train_file is required\n\n{USAGE}")
+    dp = configure.get_flag("data_parallel")
+    mp = configure.get_flag("model_parallel")
+    dev = configure.get_flag("device")
+    mesh = core.init(devices=[dev] * (max(dp, 1) * mp) if dev else None,
+                     data_parallel=dp, model_parallel=mp)
+    corpus = Corpus.from_file(train_file,
+                              min_count=configure.get_flag("min_count"),
+                              subsample=configure.get_flag("sample"))
+    neg = configure.get_flag("negative")
+    cfg = W2VConfig(
+        embedding_dim=configure.get_flag("size"),
+        window=configure.get_flag("window"),
+        negative=max(neg, 1),
+        objective="ns" if neg > 0 else "hs",
+        model="cbow" if configure.get_flag("cbow") else "skipgram",
+        batch_size=configure.get_flag("batch_size"),
+        learning_rate=configure.get_flag("alpha"),
+        epochs=configure.get_flag("epoch"),
+        subsample=configure.get_flag("sample"),
+        checkpoint_prefix=configure.get_flag("output_file"),
+        checkpoint_interval=configure.get_flag("checkpoint_interval"),
+    )
+    app = WordEmbedding(corpus, cfg, mesh=mesh)
+    app.train()
+    out = configure.get_flag("output_file")
+    # skip the end-of-train store when the last periodic one wrote this
+    # exact state
+    if out and app._last_store != (out, app._step_no):
+        app.store(out)
+    out_text = configure.get_flag("output_text")
+    if out_text:
+        app.save_text(out_text)
+    core.barrier()
+
+
+if __name__ == "__main__":
+    import sys
+    main(sys.argv[1:])

@@ -34,6 +34,18 @@
 // run of a row and adds its lanes in lane order: deterministic and equal
 // bit for bit to the plain version, the TPU kernel's order too. Long
 // float32 runs are walked by one thread; they are not on a hot path.
+//
+// The row window: `lo` is the global id of the table's first row, a
+// lane's row is rows[i] - lo, and a lane outside [0, nrows) is foreign
+// and adds nothing. A flat table passes lo = 0; a table split into shards
+// launches each shard over the GLOBAL sorted lanes with lo = shard *
+// nrows, replacing the in-trace _sharded_coo_scatter_add of
+// multiverso_tpu/ops/table_kernels.py (masked lanes in a shard_map, the
+// foreign ones parked on the shard's last row). int32: a chunk wholly
+// outside the window exits before it loads anything (the lanes are
+// sorted, so its first and last rows decide), and a foreign run is never
+// summed in shared memory. float32: a foreign run's owner exits at the
+// range check.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -70,7 +82,7 @@ __device__ __forceinline__ int upper_bound(const int32_t* s, int len,
 
 __global__ void __launch_bounds__(kThreads)
 coo_add_int_kernel(int32_t* __restrict__ param, int64_t nrows, int64_t ncols,
-                   const int32_t* __restrict__ rows,
+                   int64_t lo, const int32_t* __restrict__ rows,
                    const int32_t* __restrict__ cols,
                    const int32_t* __restrict__ vals,
                    const int32_t* __restrict__ valid, int64_t n) {
@@ -81,24 +93,33 @@ coo_add_int_kernel(int32_t* __restrict__ param, int64_t nrows, int64_t ncols,
   const int64_t base = (int64_t)blockIdx.x * kChunk;
   const int64_t rest = n - base;
   const int len = rest < kChunk ? (int)rest : kChunk;
+  // sorted lanes: a chunk whose first row lies above the window or whose
+  // last row lies below it is wholly foreign
+  if ((int64_t)rows[base] - lo >= nrows || (int64_t)rows[base + len - 1] < lo)
+    return;
   const bool shared_ok = ncols <= kAccCols;
   if (threadIdx.x == 0) s_nlong = 0;
-  for (int i = threadIdx.x; i < len; i += kThreads) s_rows[i] = rows[base + i];
+  for (int i = threadIdx.x; i < len; i += kThreads) {
+    // local rows, a foreign lane as -1 below the window or nrows above it
+    // (still sorted)
+    const int64_t r = (int64_t)rows[base + i] - lo;
+    s_rows[i] = r < 0 ? -1 : (int32_t)(r < nrows ? r : nrows);
+  }
   __syncthreads();
 
   // short runs: one global atomic per lane; long runs: note where they start
   for (int i = threadIdx.x; i < len; i += kThreads) {
     const int32_t r = s_rows[i];
+    if (r < 0 || r >= nrows) continue;  // foreign or out of range
     if (shared_ok) {
-      const int lo = lower_bound(s_rows, len, r);
-      const int hi = upper_bound(s_rows, len, r);
-      if (hi - lo >= kLongRun) {
-        if (i == lo) s_long[atomicAdd(&s_nlong, 1)] = lo;
+      const int run_lo = lower_bound(s_rows, len, r);
+      const int run_hi = upper_bound(s_rows, len, r);
+      if (run_hi - run_lo >= kLongRun) {
+        if (i == run_lo) s_long[atomicAdd(&s_nlong, 1)] = run_lo;
         continue;
       }
     }
     const int64_t j = base + i;
-    if (r < 0 || r >= nrows) continue;
     if (valid != nullptr && valid[j] == 0) continue;
     const int32_t c = cols[j];
     if (c < 0 || c >= ncols) continue;
@@ -110,12 +131,12 @@ coo_add_int_kernel(int32_t* __restrict__ param, int64_t nrows, int64_t ncols,
   // memory, then merge each nonzero column into the table
   const int nlong = s_nlong;
   for (int k = 0; k < nlong; ++k) {
-    const int lo = s_long[k];
-    const int32_t r = s_rows[lo];
-    const int hi = upper_bound(s_rows, len, r);
+    const int run_lo = s_long[k];
+    const int32_t r = s_rows[run_lo];
+    const int run_hi = upper_bound(s_rows, len, r);
     for (int x = threadIdx.x; x < ncols; x += kThreads) s_acc[x] = 0;
     __syncthreads();
-    for (int i = lo + threadIdx.x; i < hi; i += kThreads) {
+    for (int i = run_lo + threadIdx.x; i < run_hi; i += kThreads) {
       const int64_t j = base + i;
       if (valid != nullptr && valid[j] == 0) continue;
       const int32_t c = cols[j];
@@ -123,12 +144,10 @@ coo_add_int_kernel(int32_t* __restrict__ param, int64_t nrows, int64_t ncols,
       atomicAdd(&s_acc[c], vals[j]);
     }
     __syncthreads();
-    if (r >= 0 && r < nrows) {
-      int32_t* dst = param + (int64_t)r * ncols;
-      for (int x = threadIdx.x; x < ncols; x += kThreads) {
-        const int32_t a = s_acc[x];
-        if (a != 0) atomicAdd(dst + x, a);
-      }
+    int32_t* dst = param + (int64_t)r * ncols;  // a long run is in the window
+    for (int x = threadIdx.x; x < ncols; x += kThreads) {
+      const int32_t a = s_acc[x];
+      if (a != 0) atomicAdd(dst + x, a);
     }
     __syncthreads();
   }
@@ -136,7 +155,7 @@ coo_add_int_kernel(int32_t* __restrict__ param, int64_t nrows, int64_t ncols,
 
 __global__ void __launch_bounds__(kThreads)
 coo_add_float_kernel(float* __restrict__ param, int64_t nrows, int64_t ncols,
-                     const int32_t* __restrict__ rows,
+                     int64_t lo, const int32_t* __restrict__ rows,
                      const int32_t* __restrict__ cols,
                      const float* __restrict__ vals,
                      const int32_t* __restrict__ valid, int64_t n) {
@@ -144,8 +163,9 @@ coo_add_float_kernel(float* __restrict__ param, int64_t nrows, int64_t ncols,
   if (i >= n) return;
   const int32_t r = rows[i];
   if (i > 0 && rows[i - 1] == r) return;  // the run's first lane owns it
-  if (r < 0 || r >= nrows) return;
-  float* dst = param + (int64_t)r * ncols;
+  const int64_t local = (int64_t)r - lo;
+  if (local < 0 || local >= nrows) return;  // foreign or out of range
+  float* dst = param + local * ncols;
   for (int64_t j = i; j < n && rows[j] == r; ++j) {
     if (valid != nullptr && valid[j] == 0) continue;
     const int32_t c = cols[j];
@@ -159,9 +179,10 @@ coo_add_float_kernel(float* __restrict__ param, int64_t nrows, int64_t ncols,
 extern "C" {
 
 // `is_int`: 0 for a float32 table and values, 1 for int32.
-// `valid` (nullable): per sorted lane; 0 gates the lane off.
+// `lo`: the global id of param's first row (lanes outside the window add
+// nothing). `valid` (nullable): per sorted lane; 0 gates the lane off.
 int mv_coo_scatter_add(void* param, int64_t nrows, int64_t ncols,
-                       int64_t is_int, const int32_t* rows,
+                       int64_t is_int, int64_t lo, const int32_t* rows,
                        const int32_t* cols, const void* vals,
                        const int32_t* valid, int64_t n, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
@@ -169,12 +190,12 @@ int mv_coo_scatter_add(void* param, int64_t nrows, int64_t ncols,
   if (is_int) {
     const unsigned grid = (unsigned)((n + kChunk - 1) / kChunk);
     coo_add_int_kernel<<<grid, kThreads, 0, s>>>(
-        static_cast<int32_t*>(param), nrows, ncols, rows, cols,
+        static_cast<int32_t*>(param), nrows, ncols, lo, rows, cols,
         static_cast<const int32_t*>(vals), valid, n);
   } else {
     const unsigned grid = (unsigned)((n + kThreads - 1) / kThreads);
     coo_add_float_kernel<<<grid, kThreads, 0, s>>>(
-        static_cast<float*>(param), nrows, ncols, rows, cols,
+        static_cast<float*>(param), nrows, ncols, lo, rows, cols,
         static_cast<const float*>(vals), valid, n);
   }
   return (int)cudaGetLastError();

@@ -40,6 +40,25 @@
 // deterministic: row + d[first] + d[second] + ..., the TPU kernel's order.
 // A frequent id (Zipf-skewed words) makes one warp walk a long run alone;
 // splitting long runs across warps is left for later work.
+//
+// The row window. Both entry points take `lo`, the global id of the
+// table's first row: a lane's row is ids[i] - lo, and a lane whose row
+// falls outside [0, rows) is foreign. A flat table passes lo = 0. A table
+// split into shards of `rows` rows launches each shard over the GLOBAL
+// lanes with lo = shard * rows; this replaces the in-trace sharded forms
+// of multiverso_tpu/ops/table_kernels.py (_sharded_gather_rows,
+// _sharded_row_scatter_add), which mask foreign lanes inside a shard_map.
+// The reference parks a foreign lane on the shard's last row under a
+// write gate. Here that would make a second run of that row (a warp that
+// rewrites it unchanged while the real run's warp adds to it: a lost
+// update) and a serial walk over every lane below the shard. With a window
+// a foreign lane exits at the run-owner and range checks, and sorted
+// global ids keep a shard's lanes contiguous, so a shard's walk is the
+// flat kernel's walk over the same lanes and its rows come out bit for
+// bit the same. The gather writes a foreign lane's out row as zeros when
+// `zero_foreign` is set (the flat form, and the first shard of a sharded
+// gather into one output), and leaves it untouched otherwise (the other
+// shards' lanes of that output).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -70,15 +89,17 @@ __device__ __forceinline__ void vadd(int4& a, const int4& b) {
 template <typename V>
 __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
 row_gather_kernel(const V* __restrict__ param, int64_t rows, int64_t words,
+                  int64_t lo, int zero_foreign,
                   const int32_t* __restrict__ ids, int64_t n,
                   V* __restrict__ out) {
   const int lane = threadIdx.x % kWarp;
   const int64_t i = (int64_t)blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
   if (i >= n) return;
-  const int64_t r = ids[i];
+  const int64_t r = (int64_t)ids[i] - lo;
   V* dst = out + i * words;
-  if (r < 0 || r >= rows) {  // out of range: a row of zeros
-    for (int64_t c = lane; c < words; c += kWarp) dst[c] = V{};
+  if (r < 0 || r >= rows) {  // foreign: a row of zeros, or untouched
+    if (zero_foreign)
+      for (int64_t c = lane; c < words; c += kWarp) dst[c] = V{};
     return;
   }
   const V* src = param + r * words;
@@ -90,7 +111,7 @@ row_gather_kernel(const V* __restrict__ param, int64_t rows, int64_t words,
 template <typename E, typename V>
 __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
 row_scatter_add_kernel(E* __restrict__ param, int64_t rows, int64_t vcols,
-                       const int32_t* __restrict__ ids,
+                       int64_t lo, const int32_t* __restrict__ ids,
                        const int64_t* __restrict__ order,
                        const E* __restrict__ deltas,
                        const int32_t* __restrict__ valid, int64_t n) {
@@ -99,8 +120,9 @@ row_scatter_add_kernel(E* __restrict__ param, int64_t rows, int64_t vcols,
   if (i >= n) return;
   const int32_t r = ids[i];
   if (i > 0 && ids[i - 1] == r) return;  // the run's first lane owns the row
-  if (r < 0 || r >= rows) return;         // out of range: dropped
-  V* row = reinterpret_cast<V*>(param) + (int64_t)r * vcols;
+  const int64_t local = (int64_t)r - lo;
+  if (local < 0 || local >= rows) return;  // foreign or out of range
+  V* row = reinterpret_cast<V*>(param) + local * vcols;
   const V* dv = reinterpret_cast<const V*>(deltas);
   // one pass per 32 V units of the row
   for (int64_t c = lane; c - lane < vcols; c += kWarp) {
@@ -139,16 +161,16 @@ inline unsigned blocks_for(int64_t n) {
 }
 
 template <typename E, typename V4>
-int launch_scatter(E* param, int64_t rows, int64_t cols, const int32_t* ids,
-                   const int64_t* order, const E* deltas,
+int launch_scatter(E* param, int64_t rows, int64_t cols, int64_t lo,
+                   const int32_t* ids, const int64_t* order, const E* deltas,
                    const int32_t* valid, int64_t n, cudaStream_t s) {
   const dim3 grid(blocks_for(n)), block(kWarp * kWarpsPerBlock);
   if (cols % 4 == 0 && aligned(param, 16) && aligned(deltas, 16))
     row_scatter_add_kernel<E, V4><<<grid, block, 0, s>>>(
-        param, rows, cols / 4, ids, order, deltas, valid, n);
+        param, rows, cols / 4, lo, ids, order, deltas, valid, n);
   else
     row_scatter_add_kernel<E, E><<<grid, block, 0, s>>>(
-        param, rows, cols, ids, order, deltas, valid, n);
+        param, rows, cols, lo, ids, order, deltas, valid, n);
   return (int)cudaGetLastError();
 }
 
@@ -156,45 +178,50 @@ int launch_scatter(E* param, int64_t rows, int64_t cols, const int32_t* ids,
 
 extern "C" {
 
-// `elem_bytes` is 2 or 4: the row is cols * elem_bytes bytes.
+// `elem_bytes` is 2 or 4: the row is cols * elem_bytes bytes. `lo`: the
+// global id of param's first row; `zero_foreign`: 1 writes zeros for a lane
+// outside [lo, lo + rows), 0 leaves its out row untouched.
 int mv_row_gather(const void* param, int64_t rows, int64_t cols,
-                  int64_t elem_bytes, const int32_t* ids, int64_t n,
-                  void* out, void* stream) {
+                  int64_t elem_bytes, int64_t lo, int64_t zero_foreign,
+                  const int32_t* ids, int64_t n, void* out, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   if (elem_bytes != 2 && elem_bytes != 4) return (int)cudaErrorInvalidValue;
   const dim3 grid(blocks_for(n)), block(kWarp * kWarpsPerBlock);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t bytes = cols * elem_bytes;
+  const int zf = zero_foreign != 0;
   if (bytes % 16 == 0 && aligned(param, 16) && aligned(out, 16))
     row_gather_kernel<uint4><<<grid, block, 0, s>>>(
-        static_cast<const uint4*>(param), rows, bytes / 16, ids, n,
+        static_cast<const uint4*>(param), rows, bytes / 16, lo, zf, ids, n,
         static_cast<uint4*>(out));
   else if (bytes % 4 == 0 && aligned(param, 4) && aligned(out, 4))
     row_gather_kernel<uint32_t><<<grid, block, 0, s>>>(
-        static_cast<const uint32_t*>(param), rows, bytes / 4, ids, n,
+        static_cast<const uint32_t*>(param), rows, bytes / 4, lo, zf, ids, n,
         static_cast<uint32_t*>(out));
   else
     row_gather_kernel<uint16_t><<<grid, block, 0, s>>>(
-        static_cast<const uint16_t*>(param), rows, bytes / 2, ids, n,
+        static_cast<const uint16_t*>(param), rows, bytes / 2, lo, zf, ids, n,
         static_cast<uint16_t*>(out));
   return (int)cudaGetLastError();
 }
 
 // `is_int`: 0 for float32 tables and deltas, 1 for int32.
-// `order` (nullable): deltas row of sorted lane j is order[j], else j.
-// `valid` (nullable): indexed like deltas rows; 0 gates the lane off.
+// `lo`: the global id of param's first row (lanes outside the window add
+// nothing). `order` (nullable): deltas row of sorted lane j is order[j],
+// else j. `valid` (nullable): indexed like deltas rows; 0 gates the lane
+// off.
 int mv_row_scatter_add(void* param, int64_t rows, int64_t cols,
-                       int64_t is_int, const int32_t* ids,
+                       int64_t is_int, int64_t lo, const int32_t* ids,
                        const int64_t* order, const void* deltas,
                        const int32_t* valid, int64_t n, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_int)
     return launch_scatter<int32_t, int4>(
-        static_cast<int32_t*>(param), rows, cols, ids, order,
+        static_cast<int32_t*>(param), rows, cols, lo, ids, order,
         static_cast<const int32_t*>(deltas), valid, n, s);
   return launch_scatter<float, float4>(
-      static_cast<float*>(param), rows, cols, ids, order,
+      static_cast<float*>(param), rows, cols, lo, ids, order,
       static_cast<const float*>(deltas), valid, n, s);
 }
 

@@ -1,8 +1,9 @@
 """Table kernels of the hot path: the row gather, the duplicate-safe
 sorted row scatter-add (with an optional per-lane mask), the sorted COO
 scatter-add (with an optional per-lane mask), the KVTable lookup and
-fused probe + updater apply, and their sharded forms over tables split
-across a mesh's model axis.
+fused probe + updater apply, their sharded forms over tables split
+across a mesh's model axis, and the functional forms of a superstep body
+over such tables (:class:`ShardedParam`).
 
 Counterpart of ``multiverso_tpu/ops/table_kernels.py`` (``build_row_gather``,
 ``build_row_scatter_add``, ``build_row_scatter_add_masked``,
@@ -38,7 +39,11 @@ LAUNCHES = {"row_gather": 0, "row_scatter_add": 0,
             # launches count above as well
             "kv_lookup_sharded": 0, "kv_probe_update_sharded": 0,
             "row_gather_sharded": 0, "row_scatter_add_sharded": 0,
-            "coo_scatter_add_sharded": 0}
+            "coo_scatter_add_sharded": 0,
+            # one per shard launch of the functional forms over a
+            # ShardedParam (counted under these names only)
+            "gather_rows_mesh": 0, "row_scatter_add_mesh": 0,
+            "coo_scatter_add_mesh": 0}
 
 GATHER_DTYPES = (torch.float32, torch.int32, torch.bfloat16, torch.int16)
 ADD_DTYPES = (torch.float32, torch.int32)
@@ -134,12 +139,15 @@ def gather_rows_plain(param: torch.Tensor,
     return _rows(param).index_select(0, ids.long())
 
 
-def gather_rows(param: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+def gather_rows(param, ids: torch.Tensor) -> torch.Tensor:
     """Row gather ``param[ids]`` -> ``[n, C]``, in request order.
 
-    Replaces ``build_row_gather`` (the TPU ``_gather_kernel``). Ids must
-    lie in ``[0, R)``: the plain version raises on others, the kernel
-    returns zero rows for them."""
+    Replaces ``build_row_gather`` (the TPU ``_gather_kernel``) behind the
+    functional ``gather_rows``. Ids must lie in ``[0, R)``: the plain
+    version raises on others, the kernel returns zero rows for them. A
+    :class:`ShardedParam` goes to :func:`gather_rows_mesh`."""
+    if isinstance(param, ShardedParam):
+        return gather_rows_mesh(param, ids)
     _check(param, ids, dtypes=GATHER_DTYPES)
     if param.device.type == "cpu":
         return gather_rows_plain(param, ids)
@@ -150,14 +158,18 @@ def gather_rows(param: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 
 
 def _gather_into(param: torch.Tensor, ids: torch.Tensor,
-                 out: torch.Tensor, tag: Optional[str] = None) -> None:
-    """Launch the gather of ``param[ids]`` into ``out`` ([n, C] rows,
-    contiguous, on the table's card)."""
+                 out: torch.Tensor, tag: Optional[str] = None, *,
+                 name: str = "row_gather", lo: int = 0,
+                 zero_foreign: bool = True) -> None:
+    """Launch the gather of ``param[ids - lo]`` into ``out`` ([n, C] rows,
+    contiguous, on the table's card); a lane outside the row window
+    ``[lo, lo + R)`` gets a zero row, or keeps its out row when
+    ``zero_foreign`` is False."""
     flat = _rows(param)
     ids = ids.to(torch.int32).contiguous()
     if ids.shape[0]:
-        _launch("row_gather", "mv_row_gather", flat.data_ptr(),
-                flat.shape[0], flat.shape[1], param.element_size(),
+        _launch(name, "mv_row_gather", flat.data_ptr(), flat.shape[0],
+                flat.shape[1], param.element_size(), lo, int(zero_foreign),
                 ids.data_ptr(), ids.shape[0], out.data_ptr(),
                 device=param.device, tag=tag)
 
@@ -186,28 +198,42 @@ def row_scatter_add_masked_plain(param: torch.Tensor, ids: torch.Tensor,
         param, ids[keep], deltas.reshape(ids.shape[0], -1)[keep])
 
 
-def row_scatter_add(param: torch.Tensor, ids: torch.Tensor,
-                    deltas: torch.Tensor) -> torch.Tensor:
+def row_scatter_add(param, ids: torch.Tensor, deltas: torch.Tensor):
     """Duplicate-safe ``param[ids] += deltas``, in place; returns ``param``.
 
     Replaces ``build_row_scatter_add`` (the TPU ``_row_scatter_kernel``)
     behind the functional ``row_scatter_add``: ids in any order are
     stable-sorted on the device and the kernel reads each sorted lane's
     delta through the sort's permutation. Ids out of ``[0, R)`` are
-    dropped by the kernel (the plain version raises)."""
+    dropped by the kernel (the plain version raises). A
+    :class:`ShardedParam` goes to :func:`row_scatter_add_mesh`."""
+    if isinstance(param, ShardedParam):
+        return row_scatter_add_mesh(param, ids, deltas)
     _check(param, ids, deltas)
     if param.device.type == "cpu":
         return row_scatter_add_plain(param, ids, deltas)
     if ids.shape[0] == 0:
         return param
-    flat = _rows(param)
     sids, order = torch.sort(ids.to(torch.int32), stable=True)
-    deltas = deltas.contiguous()
-    _launch("row_scatter_add", "mv_row_scatter_add", flat.data_ptr(),
-            flat.shape[0], flat.shape[1], _is_int(param), sids.data_ptr(),
-            order.data_ptr(), deltas.data_ptr(), None, ids.shape[0],
-            device=param.device)
+    _launch_scatter("row_scatter_add", param, sids, order,
+                    deltas.contiguous(), None)
     return param
+
+
+def _launch_scatter(name: str, param: torch.Tensor, ids: torch.Tensor,
+                    order: Optional[torch.Tensor], deltas: torch.Tensor,
+                    valid: Optional[torch.Tensor], tag: Optional[str] = None,
+                    lo: int = 0) -> None:
+    """Launch ``mv_row_scatter_add`` over sorted int32 ``ids`` (rows
+    ``ids - lo`` of ``param``; lanes outside the window add nothing),
+    deltas read through ``order`` when given, gated by ``valid`` when
+    given."""
+    flat = _rows(param)
+    _launch(name, "mv_row_scatter_add", flat.data_ptr(), flat.shape[0],
+            flat.shape[1], _is_int(param), lo, ids.data_ptr(),
+            None if order is None else order.data_ptr(), deltas.data_ptr(),
+            None if valid is None else valid.data_ptr(), ids.shape[0],
+            device=param.device, tag=tag)
 
 
 def row_scatter_add_masked(param: torch.Tensor, ids: torch.Tensor,
@@ -232,14 +258,10 @@ def _row_scatter_masked_into(param: torch.Tensor, ids: torch.Tensor,
                              deltas: torch.Tensor, valid: torch.Tensor,
                              tag: Optional[str] = None) -> None:
     """Launch the masked scatter-add of a non-empty sorted lane batch."""
-    flat = _rows(param)
-    ids = ids.to(torch.int32).contiguous()
-    valid = valid.to(torch.int32).contiguous()
-    deltas = deltas.contiguous()
-    _launch("row_scatter_add_masked", "mv_row_scatter_add",
-            flat.data_ptr(), flat.shape[0], flat.shape[1], _is_int(param),
-            ids.data_ptr(), None, deltas.data_ptr(), valid.data_ptr(),
-            ids.shape[0], device=param.device, tag=tag)
+    _launch_scatter("row_scatter_add_masked", param,
+                    ids.to(torch.int32).contiguous(), None,
+                    deltas.contiguous(), valid.to(torch.int32).contiguous(),
+                    tag)
 
 
 # -- sorted COO scatter-add ---------------------------------------------------
@@ -282,16 +304,19 @@ def coo_scatter_add_masked_plain(param: torch.Tensor, rows: torch.Tensor,
 def _launch_coo(name: str, param: torch.Tensor, rows: torch.Tensor,
                 cols: torch.Tensor, vals: torch.Tensor,
                 valid: Optional[torch.Tensor],
-                tag: Optional[str] = None) -> None:
+                tag: Optional[str] = None, lo: int = 0) -> None:
+    """Launch ``mv_coo_scatter_add`` over row-sorted int32 lanes (rows
+    ``rows - lo`` of ``param``; lanes outside the window add nothing)."""
     flat = _rows(param)
     _launch(name, "mv_coo_scatter_add", flat.data_ptr(), flat.shape[0],
-            flat.shape[1], _is_int(param), rows.data_ptr(), cols.data_ptr(),
-            vals.data_ptr(), None if valid is None else valid.data_ptr(),
-            rows.shape[0], device=param.device, tag=tag)
+            flat.shape[1], _is_int(param), lo, rows.data_ptr(),
+            cols.data_ptr(), vals.data_ptr(),
+            None if valid is None else valid.data_ptr(), rows.shape[0],
+            device=param.device, tag=tag)
 
 
-def coo_scatter_add(param: torch.Tensor, rows: torch.Tensor,
-                    cols: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+def coo_scatter_add(param, rows: torch.Tensor, cols: torch.Tensor,
+                    vals: torch.Tensor):
     """COO ``param[rows[i], cols[i]] += vals[i]`` with lanes in any order,
     in place; returns ``param``. Duplicates accumulate; ``vals`` are cast
     to the table's type.
@@ -299,7 +324,10 @@ def coo_scatter_add(param: torch.Tensor, rows: torch.Tensor,
     Replaces ``build_coo_scatter_add`` (the TPU ``_coo_kernel``) behind
     the functional ``coo_scatter_add``: the lanes are stable-sorted by row
     on the device, then the sorted COO kernel adds them. Lanes out of
-    range are dropped by the kernel (the plain version raises)."""
+    range are dropped by the kernel (the plain version raises). A
+    :class:`ShardedParam` goes to :func:`coo_scatter_add_mesh`."""
+    if isinstance(param, ShardedParam):
+        return coo_scatter_add_mesh(param, rows, cols, vals)
     _check_coo(param, rows, cols, vals)
     if param.device.type == "cpu":
         return coo_scatter_add_plain(param, rows, cols, vals)
@@ -958,15 +986,231 @@ def coo_scatter_add_sharded(shards, rows, cols, vals, valid, *, counts):
     return shards
 
 
+# -- the functional forms over a sharded param (superstep bodies) -------------
+#
+# A superstep body over tables split on the model axis receives each
+# table's storage as a ShardedParam: the shard list, with the padded
+# global shape, the dtype and the first shard's device, so the body reads
+# ``w.shape[1]`` and ``w.dtype`` as the reference's body reads a global
+# array. ``gather_rows`` / ``row_scatter_add`` / ``coo_scatter_add`` see the
+# type and take the forms below. The reference needs a context variable
+# (``kernel_mesh_scope``) for this, because its trace sees abstract arrays
+# that do not say how they are sharded; a ShardedParam says it itself, so
+# the port keeps no such scope.
+#
+# Each form replaces the reference's in-trace sharded form
+# (``_sharded_gather_rows``, ``_sharded_row_scatter_add``,
+# ``_sharded_coo_scatter_add``), which runs a flat kernel per shard inside
+# a shard_map over masked GLOBAL lanes and psums the gather. Here each
+# shard launches the flat CUDA kernel over all the lanes with its row
+# window ``[s * rps, (s + 1) * rps)``, a scalar of the launch: lanes
+# outside the window are foreign and exit at once (see csrc/row_kernels.cu
+# for why the reference's mapping of foreign lanes onto the shard's last
+# row is not copied). Lane counts per shard stay on the device, so nothing
+# syncs the host. The scatter-adds sort the lanes once, on the first
+# shard's device, for every shard; sorted global ids keep each shard's
+# lanes contiguous and in the flat kernel's order, so a sharded table ends
+# bit-identical to the unsharded one. Each launch counts one under the
+# form's own ``LAUNCHES`` name. The shards of a param are equal row
+# blocks (the port's tables always split evenly), so unlike the
+# reference, which falls back to XLA for an uneven split, no form has a
+# fallback: unequal shards raise ``ValueError``.
+#
+# What bounds them: the flat kernels' bytes, plus one launch and one
+# early-exit pass over the lanes per extra shard; shards that share a card
+# run in turn on its stream, so their longest runs add up.
+#
+# The plain version beside each is the reference's XLA engine: the flat
+# plain op on the shards concatenated, written back to the shards.
+
+
+class ShardedParam:
+    """A table's storage split over the mesh's model axis, as a superstep
+    body takes it: ``shards[s]`` holds the padded global rows ``[s * rps,
+    (s + 1) * rps)`` on its own device. ``shape`` is the padded global
+    shape, ``dtype`` the shards' type and ``device`` the first shard's
+    device, where the forms take their lane operands and return
+    gathers."""
+
+    def __init__(self, shards) -> None:
+        shards = list(shards)
+        if not shards:
+            raise ValueError("a sharded param needs at least one shard")
+        if len({(tuple(t.shape), t.dtype) for t in shards}) != 1:
+            raise ValueError(
+                "a sharded param splits its rows evenly: shards must be "
+                f"equal blocks of one dtype, got "
+                f"{[(tuple(t.shape), t.dtype) for t in shards]}")
+        self.shards = shards
+
+    @property
+    def rows_per_shard(self) -> int:
+        return self.shards[0].shape[0]
+
+    @property
+    def shape(self) -> torch.Size:
+        first = self.shards[0].shape
+        return torch.Size((first[0] * len(self.shards),) + tuple(first[1:]))
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.shards[0].dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.shards[0].device
+
+    def __repr__(self) -> str:
+        return (f"ShardedParam(shape={tuple(self.shape)}, dtype={self.dtype}"
+                f", devices={[str(t.device) for t in self.shards]})")
+
+
+def _check_mesh(param: ShardedParam, dtypes) -> str:
+    """Every shard a table the kernels take; 'cpu' or 'cuda'."""
+    kind = _shard_kind(param.shards)
+    for p in param.shards:
+        _check_table(p, dtypes)
+    return kind
+
+
+def _per_device(tensors, dev0: torch.device, cache: dict,
+                dev: torch.device) -> tuple:
+    """``tensors`` (on ``dev0``) on ``dev``, copied once per device."""
+    if dev not in cache:
+        cache[dev] = tensors if dev == dev0 else tuple(
+            t.to(dev) for t in tensors)
+    return cache[dev]
+
+
+def gather_rows_mesh_plain(param: ShardedParam,
+                           ids: torch.Tensor) -> torch.Tensor:
+    """The reference's XLA gather on the global table, in plain PyTorch."""
+    return gather_rows_plain(_global(param.shards), ids)
+
+
+def gather_rows_mesh(param: ShardedParam, ids: torch.Tensor) -> torch.Tensor:
+    """Row gather of global ids from a sharded param -> ``[n, C]`` on the
+    first shard's device, in request order.
+
+    Replaces the reference's in-trace ``_sharded_gather_rows``: one
+    windowed ``mv_row_gather`` per shard over all ``n`` lanes into one
+    output; each lane is written by the shard that owns it, the first
+    launch into an output zeroing the lanes it does not own. That is the
+    reference's ``psum`` of masked partial rows, and exact. A card other
+    than the first gathers its shards into its own partial output, which
+    is copied to the first device and added there (the one cross-shard
+    reduction; like the ``psum`` it turns a gathered -0.0 into +0.0)."""
+    kind = _check_mesh(param, GATHER_DTYPES)
+    _check(param.shards[0], ids, dtypes=GATHER_DTYPES)
+    if kind == "cpu":
+        return gather_rows_mesh_plain(param, ids)
+    dev0, n = param.device, ids.shape[0]
+    out = torch.empty((n, _rows(param.shards[0]).shape[1]),
+                      dtype=param.dtype, device=dev0)
+    if not n:
+        return out
+    lanes, outs = {}, {}
+    ids = (ids.to(torch.int32).contiguous(),)
+    for s, p in enumerate(param.shards):
+        dev = p.device
+        fresh = dev not in outs
+        if fresh:
+            outs[dev] = out if dev == dev0 else torch.empty_like(out,
+                                                                 device=dev)
+        (i_dev,) = _per_device(ids, dev0, lanes, dev)
+        _gather_into(p, i_dev, outs[dev], name="gather_rows_mesh",
+                     lo=s * param.rows_per_shard, zero_foreign=fresh)
+    for dev, part in outs.items():
+        if dev != dev0:
+            out.add_(part.to(dev0))
+    return out
+
+
+def row_scatter_add_mesh_plain(param: ShardedParam, ids: torch.Tensor,
+                               deltas: torch.Tensor) -> ShardedParam:
+    """The reference's XLA scatter-add on the global table, in plain
+    PyTorch, written back to the shards."""
+    whole = _global(param.shards)
+    row_scatter_add_plain(whole, ids, deltas)
+    _write_back(param.shards, whole)
+    return param
+
+
+def row_scatter_add_mesh(param: ShardedParam, ids: torch.Tensor,
+                         deltas: torch.Tensor) -> ShardedParam:
+    """Duplicate-safe ``param[ids] += deltas`` over a sharded param, in
+    place, global ids in any order; returns ``param``.
+
+    Replaces the reference's in-trace ``_sharded_row_scatter_add``: one
+    stable sort of the ids on the first device, shared by every shard,
+    then one windowed ``mv_row_scatter_add`` per shard on its card and
+    current stream, reading the deltas through the sort's permutation."""
+    kind = _check_mesh(param, ADD_DTYPES)
+    _check(param.shards[0], ids, deltas)
+    if kind == "cpu":
+        return row_scatter_add_mesh_plain(param, ids, deltas)
+    if ids.shape[0] == 0:
+        return param
+    sids, order = torch.sort(ids.to(torch.int32), stable=True)
+    lanes = (sids, order, deltas.contiguous())
+    cache = {}
+    for s, p in enumerate(param.shards):
+        i_s, o_s, d_s = _per_device(lanes, param.device, cache, p.device)
+        _launch_scatter("row_scatter_add_mesh", p, i_s, o_s, d_s, None,
+                        lo=s * param.rows_per_shard)
+    return param
+
+
+def coo_scatter_add_mesh_plain(param: ShardedParam, rows: torch.Tensor,
+                               cols: torch.Tensor,
+                               vals: torch.Tensor) -> ShardedParam:
+    """The reference's XLA COO add on the global table, in plain PyTorch,
+    written back to the shards."""
+    whole = _global(param.shards)
+    coo_scatter_add_plain(whole, rows, cols, vals)
+    _write_back(param.shards, whole)
+    return param
+
+
+def coo_scatter_add_mesh(param: ShardedParam, rows: torch.Tensor,
+                         cols: torch.Tensor,
+                         vals: torch.Tensor) -> ShardedParam:
+    """COO ``param[rows[i], cols[i]] += vals[i]`` over a sharded param
+    (flat or tiled shards), in place, global rows in any order; returns
+    ``param``.
+
+    Replaces the reference's in-trace ``_sharded_coo_scatter_add``: one
+    stable sort of the lanes by row on the first device, then one
+    windowed ``mv_coo_scatter_add`` per shard."""
+    kind = _check_mesh(param, ADD_DTYPES)
+    _check_coo(param.shards[0], rows, cols, vals)
+    if kind == "cpu":
+        return coo_scatter_add_mesh_plain(param, rows, cols, vals)
+    if rows.shape[0] == 0:
+        return param
+    srows, order = torch.sort(rows.to(torch.int32), stable=True)
+    lanes = (srows, cols.to(torch.int32)[order],
+             vals.to(param.dtype)[order])
+    cache = {}
+    for s, p in enumerate(param.shards):
+        r_s, c_s, v_s = _per_device(lanes, param.device, cache, p.device)
+        _launch_coo("coo_scatter_add_mesh", p, r_s, c_s, v_s, None,
+                    lo=s * param.rows_per_shard)
+    return param
+
+
 __all__ = ["ADD_DTYPES", "GATHER_DTYPES", "KV_UPDATERS", "LAUNCHES",
-           "coo_scatter_add", "coo_scatter_add_masked",
-           "coo_scatter_add_masked_plain", "coo_scatter_add_plain",
+           "ShardedParam", "coo_scatter_add", "coo_scatter_add_masked",
+           "coo_scatter_add_masked_plain", "coo_scatter_add_mesh",
+           "coo_scatter_add_mesh_plain", "coo_scatter_add_plain",
            "coo_scatter_add_sharded", "coo_scatter_add_sharded_plain",
-           "gather_rows", "gather_rows_plain", "gather_rows_sharded",
+           "gather_rows", "gather_rows_mesh", "gather_rows_mesh_plain",
+           "gather_rows_plain", "gather_rows_sharded",
            "gather_rows_sharded_plain", "kv_lookup", "kv_lookup_plain",
            "kv_lookup_sharded", "kv_lookup_sharded_plain", "kv_probe_update",
            "kv_probe_update_plain", "kv_probe_update_sharded",
            "kv_probe_update_sharded_plain", "reset_launches",
            "row_scatter_add", "row_scatter_add_masked",
-           "row_scatter_add_masked_plain", "row_scatter_add_plain",
+           "row_scatter_add_masked_plain", "row_scatter_add_mesh",
+           "row_scatter_add_mesh_plain", "row_scatter_add_plain",
            "row_scatter_add_sharded", "row_scatter_add_sharded_plain"]

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from multiverso_tpu_torch import core
+from multiverso_tpu_torch.ops.table_kernels import ShardedParam
 from multiverso_tpu_torch.updaters import (AddOption, Updater, get_updater,
                                            resolve_default_option)
 from multiverso_tpu_torch.utils import configure, log
@@ -314,6 +315,42 @@ class Table:
     def state(self, value: Dict[str, torch.Tensor]) -> None:
         self._one_shard("state")
         self.shard_states[0] = value
+
+    def superstep_view(self) -> Tuple[Any, Dict[str, Any]]:
+        """``(param, state)`` as a superstep body takes them: the shard's
+        tensors on a one-shard table; on a split one a
+        :class:`~multiverso_tpu_torch.ops.table_kernels.ShardedParam` of
+        the shards, and the state as one ShardedParam per leaf (the
+        reference's body sees the global arrays)."""
+        if len(self.shards) == 1:
+            return self.shards[0], self.shard_states[0]
+        return ShardedParam(self.shards), {
+            k: ShardedParam([st[k] for st in self.shard_states])
+            for k in self.shard_states[0]}
+
+    def _take_shards(self, value) -> List[torch.Tensor]:
+        """A body's returned param (or state leaf) of a split table as its
+        shards: a ShardedParam's own shards, or a whole tensor of the
+        storage shape cut into row blocks."""
+        if isinstance(value, ShardedParam):
+            if len(value.shards) != len(self.shards):
+                raise ValueError(
+                    f"table {self.name!r}: a superstep returned "
+                    f"{len(value.shards)} shards for {len(self.shards)}")
+            return list(value.shards)
+        return self._split(value)
+
+    def superstep_update(self, param: Any,
+                         state: Dict[str, Any]) -> None:
+        """Take a superstep body's returned ``(param, state)`` back as the
+        table's storage (the inverse of :meth:`superstep_view`)."""
+        if len(self.shards) == 1:
+            self.shards[0], self.shard_states[0] = param, state
+            return
+        self.shards = self._take_shards(param)
+        leaves = {k: self._take_shards(v) for k, v in state.items()}
+        self.shard_states = [{k: v[s] for k, v in leaves.items()}
+                             for s in range(len(self.shards))]
 
     def _resolve_option(self, option: Optional[AddOption]) -> AddOption:
         opt = option if option is not None else self.default_option

@@ -19,25 +19,37 @@ write into it), and whatever tensors the body returns become the tables'
 storage. Bodies that gather, scatter or COO-add into table storage call
 the re-exported :func:`gather_rows` / :func:`row_scatter_add` /
 :func:`coo_scatter_add`, the port's CUDA kernels.
+
+Tables split over the model axis of a (1, S) mesh take part too: the body
+gets each such table's storage as a
+:class:`~multiverso_tpu_torch.ops.table_kernels.ShardedParam` (the
+shards, read like one global array), on which the three functional forms
+launch once per shard with that shard's row window, the counterpart of
+the reference's ``kernel_mesh_scope`` around its dispatch. Tables
+replicated over a data axis above 1 are not ported yet.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, Optional, Sequence, Tuple
 
-from multiverso_tpu_torch.ops.table_kernels import (coo_scatter_add,
+from multiverso_tpu_torch.core import DATA_AXIS
+from multiverso_tpu_torch.ops.table_kernels import (ShardedParam,
+                                                    coo_scatter_add,
                                                     gather_rows,
                                                     row_scatter_add)
 from multiverso_tpu_torch.tables.base import Handle, Table
 from multiverso_tpu_torch.updaters import AddOption
 
-__all__ = ["FusedSuperstep", "coo_scatter_add", "gather_rows",
-           "make_superstep", "row_scatter_add"]
+__all__ = ["FusedSuperstep", "ShardedParam", "coo_scatter_add",
+           "gather_rows", "make_superstep", "row_scatter_add"]
 
 
 class FusedSuperstep:
-    """A fused update bound to one or more one-shard tables on one
-    device (a sharded table raises ``NotImplementedError``)."""
+    """A fused update bound to one or more tables that share one mesh
+    with a data axis of 1: one shard each on one device, or split the
+    same way over the model axis (a data axis above 1 raises
+    ``NotImplementedError``)."""
 
     def __init__(self, tables: Sequence[Table],
                  body: Callable[..., Tuple[Any, Any, Any, Any]], *,
@@ -45,22 +57,24 @@ class FusedSuperstep:
         if not tables:
             raise ValueError("FusedSuperstep needs at least one table")
         for t in tables:
-            if len(t.shards) > 1:
+            if t.mesh.shape[DATA_AXIS] > 1:
                 raise NotImplementedError(
-                    f"superstep {name!r}: table {t.name!r} is split into "
-                    f"{len(t.shards)} shards; a superstep over a sharded "
-                    "table needs the in-trace sharded functional forms, "
-                    "not ported yet (ROADMAP queue B item 7b)")
+                    f"superstep {name!r}: table {t.name!r} lives on a mesh "
+                    f"with a data axis of {t.mesh.shape[DATA_AXIS]}; tables "
+                    "replicated over the data axis are not ported yet "
+                    "(ROADMAP queue A item 1)")
         self.tables = tuple(tables)
         self.name = name
         self._body = body
         self._last_generation: Optional[int] = None
-        dev0 = self.tables[0].device
+        devs0 = self.tables[0].devices
         for t in self.tables[1:]:
-            if t.device != dev0:
+            if t.devices != devs0:
                 raise ValueError(
                     f"superstep {name!r}: tables {self.tables[0].name!r} "
-                    f"and {t.name!r} live on different devices")
+                    f"and {t.name!r} live on different devices "
+                    f"({[str(d) for d in devs0]} and "
+                    f"{[str(d) for d in t.devices]})")
 
     def __call__(self, locals_: Any = (), *inputs: Any,
                  options: Optional[Sequence[Optional[AddOption]]] = None
@@ -73,13 +87,12 @@ class FusedSuperstep:
             options = (None,) * len(self.tables)
         opts = tuple(t._resolve_option(o)
                      for t, o in zip(self.tables, options))
-        params = tuple(t.param for t in self.tables)
-        states = tuple(t.state for t in self.tables)
+        views = [t.superstep_view() for t in self.tables]
         new_params, new_states, new_locals, aux = self._body(
-            params, states, locals_, opts, *inputs)
+            tuple(v[0] for v in views), tuple(v[1] for v in views),
+            locals_, opts, *inputs)
         for t, p, s in zip(self.tables, new_params, new_states):
-            t.param = p
-            t.state = s
+            t.superstep_update(p, s)
             gen = t._bump_step()
             if t is self.tables[0]:
                 self._last_generation = gen

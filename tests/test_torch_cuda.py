@@ -762,3 +762,108 @@ def test_launch_on_a_second_card(cuda):
     assert got.device == torch.device("cuda", 1)
     assert torch.equal(got.cpu(), tk.gather_rows_plain(p, ids))
     _sharded_vs_unsharded(["cuda:0", "cuda:1"], "cpu")
+
+
+# -- the functional forms over a ShardedParam (the superstep's mesh path) -----
+
+
+def _mesh_param(x, devices):
+    """A global CPU tensor as a ShardedParam of equal row blocks, block s
+    on devices[s]."""
+    return tk.ShardedParam(b.to(d, copy=True)
+                           for b, d in zip(x.chunk(len(devices)), devices))
+
+
+def _mesh_host(param):
+    return torch.cat([t.cpu() for t in param.shards])
+
+
+@pytest.mark.parametrize("devices", [["cuda:0"] * 4, ["cuda:0"] * 2])
+def test_mesh_forms_match_cpu_plain(cuda, devices):
+    """Gather, row scatter-add (float32, int32) and COO add (int32 flat
+    and tiled, float32) over S shards on the card, bit for bit against
+    the plain versions on the CPU shards; S launches per call."""
+    rng = np.random.default_rng(len(devices))
+    cpus = ["cpu"] * len(devices)
+    rows = 10_004
+    x = torch.from_numpy(rng.standard_normal((rows, 100)).astype(
+        np.float32))
+    for n in (4096, 24_576):
+        ids = torch.from_numpy(_zipf_ids(rng, n, rows - 1))
+        ids[:4] = torch.tensor([rows - 1, 2500, 2501, 0])  # shard edges
+        tk.reset_launches()
+        got = tk.gather_rows(_mesh_param(x, devices), ids.to(cuda))
+        assert tk.LAUNCHES["gather_rows_mesh"] == len(devices)
+        assert torch.equal(got.cpu(), x[ids.long()])
+        d = torch.from_numpy(rng.standard_normal((n, 100)).astype(
+            np.float32))
+        param = _mesh_param(x, devices)
+        tk.row_scatter_add(param, ids.to(cuda), d.to(cuda))
+        want = tk.row_scatter_add(_mesh_param(x, cpus), ids, d)
+        torch.cuda.synchronize()
+        assert torch.equal(_mesh_host(param), _mesh_host(want))
+        assert tk.LAUNCHES["row_scatter_add_mesh"] == len(devices)
+        # the same lanes through the flat kernel on the whole table
+        flat = tk.row_scatter_add(x.to(cuda), ids.to(cuda), d.to(cuda))
+        assert torch.equal(flat.cpu(), _mesh_host(param))
+    xi = torch.from_numpy(rng.integers(-9, 9, (300, 256)).astype(np.int32))
+    di = torch.from_numpy(rng.integers(-3, 4, (5000, 256)).astype(np.int32))
+    ids = torch.from_numpy(_zipf_ids(rng, 5000, 300))
+    param = _mesh_param(xi, devices)
+    tk.row_scatter_add(param, ids.to(cuda), di.to(cuda))
+    assert torch.equal(_mesh_host(param),
+                       tk.row_scatter_add_plain(xi.clone(), ids, di))
+    for dtype, shape, n in ((torch.int32, (50_004, 1024), 512_000),
+                            (torch.int32, (304, 8, 128), 20_000),
+                            (torch.float32, (300, 2, 128), 20_000)):
+        r = torch.from_numpy(np.clip(rng.zipf(1.1, n) - 1, 0,
+                                     shape[0] - 1).astype(np.int32))
+        c = torch.from_numpy(rng.integers(0, int(np.prod(shape[1:])), n)
+                             .astype(np.int32))
+        v = torch.from_numpy(rng.integers(-2, 3, n).astype(np.float32))
+        p0 = torch.from_numpy(rng.integers(0, 5, shape)).to(dtype)
+        param = _mesh_param(p0, devices)
+        tk.coo_scatter_add(param, r.to(cuda), c.to(cuda), v.to(cuda))
+        want = tk.coo_scatter_add(_mesh_param(p0, cpus), r, c, v)
+        torch.cuda.synchronize()
+        assert torch.equal(_mesh_host(param), _mesh_host(want)), (dtype,
+                                                                  shape)
+
+
+def test_mesh_gather_leaves_foreign_lanes_to_their_shard(cuda):
+    """Out-of-range ids: zero rows, as the flat kernel gives them; every
+    other lane comes from the shard that owns it."""
+    x = torch.arange(80, dtype=torch.float32).view(20, 4) + 1.0
+    ids = torch.tensor([19, -1, 0, 20, 7, 5, 5], dtype=torch.int32)
+    got = tk.gather_rows(_mesh_param(x, ["cuda:0"] * 4), ids.to(cuda)).cpu()
+    flat = tk.gather_rows(x.to(cuda), ids.to(cuda)).cpu()
+    assert torch.equal(got, flat)
+    assert got[1].abs().sum() == 0 and got[3].abs().sum() == 0
+
+
+def test_mesh_word2vec_on_one_card_matches_one_shard(cuda, tmp_path):
+    """Skip-gram NS and CBOW HS at a small width on a (1, 4) mesh of
+    cuda:0: the tables equal the (1, 1) run's bit for bit, and each
+    functional call launches once per shard."""
+    from multiverso_tpu_torch import core
+    from multiverso_tpu_torch.apps.word_embedding import (W2VConfig,
+                                                          WordEmbedding)
+    from multiverso_tpu_torch.data import Corpus, synthetic_text
+    path = str(tmp_path / "c.txt")
+    synthetic_text(path, num_tokens=40_000, vocab_size=500, seed=3)
+    for model, objective in (("skipgram", "ns"), ("cbow", "hs")):
+        out = []
+        for mesh in (core.Mesh([["cuda:0"]]), core.Mesh([["cuda:0"] * 4])):
+            corpus = Corpus.from_file(path, min_count=1)
+            app = WordEmbedding(corpus, W2VConfig(
+                embedding_dim=100, model=model, objective=objective,
+                batch_size=256, steps_per_call=4, seed=3), mesh=mesh)
+            tk.reset_launches()
+            app.train(total_steps=8)
+            out.append((app.w_in.get(), app.w_out.get(), dict(tk.LAUNCHES)))
+        for a, b in zip(out[0][:2], out[1][:2]):
+            assert a.tobytes() == b.tobytes()
+        one, four = out[0][2], out[1][2]
+        assert four["gather_rows_mesh"] == 4 * one["row_gather"] > 0
+        assert four["row_scatter_add_mesh"] == 4 * one["row_scatter_add"]
+        assert four["row_gather"] == four["row_scatter_add"] == 0

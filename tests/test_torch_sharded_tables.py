@@ -343,10 +343,16 @@ def test_whole_table_add_and_param_access(devices):
 
 
 def test_superstep_refuses_sharded_tables(devices):
+    """A superstep takes tables split over the model axis of a (1, S)
+    mesh, and refuses tables on a mesh whose data axis is above 1 (tables
+    replicated over the data axis are not ported)."""
     _, tm = _meshes(devices, (1, 2))
     t = MatrixTable(8, 2, mesh=tm, name="ss_sh")
-    with pytest.raises(NotImplementedError, match="queue B item 7b"):
-        make_superstep([t], lambda *a: a)
+    make_superstep([t], lambda *a: a)
+    replicated = MatrixTable(8, 2, mesh=tcore._build_mesh(["cpu"] * 4, 2, 2),
+                             name="ss_dp")
+    with pytest.raises(NotImplementedError, match="queue A item 1"):
+        make_superstep([replicated], lambda *a: a)
     one = MatrixTable(8, 2, device="cpu", name="ss_one")
     make_superstep([one], lambda *a: a)
 
