@@ -16,10 +16,12 @@ its seconds):
    card, with its time, the plain version's, one PyTorch library call's
    and the least time the card could take (bound). The row kernels at the
    word2vec path's shapes (table 10,001 x 100; 4,096 and 24,576 Zipf-1.2
-   ids); the COO kernels at a LightLDA call's 512,000 lanes into a
-   [50,001, 1024] int32 table (exact against the plain version on the
-   CPU); the Gibbs sampler kernels at the LightLDA step (B 512,000,
-   K 1024, blocks of 512 tokens and 16 docs) in the production dtypes
+   ids, and 24,576 lanes of one id; each case's longest run beside its
+   time, and the row scatter's sort apart from its kernel); the COO kernels
+   at a LightLDA call's 512,000 lanes into a [50,001, 1024] int32 table
+   (exact against the plain version on the CPU); the Gibbs sampler
+   kernels at the LightLDA step (B 512,000, K 1024, blocks of 512 tokens
+   and 16 docs) in the production dtypes
    (int16 doc counts, bf16 word rows) and the exact-tiled ones (int32),
    under the tie rule (at least 99.9% of real lanes agree with the plain
    version, every other lane is a float32 CDF tie; nkd and the doc counts
@@ -72,12 +74,18 @@ its seconds):
 13. word2vec of phase 4 on the (1, 4) mesh through
    ``WordEmbedding(corpus, cfg, mesh=...)``: the superstep hands the body
    both tables as ShardedParams, and every gather and scatter-add runs the
-   functional form over them (one windowed launch per shard). From phase
-   4's corpus, initial weights, pairs and negatives: w_in and w_out must
+   functional form over them (the gather one windowed launch per shard,
+   the scatter-adds one launch per card over its shards). From phase 4's
+   corpus, initial weights, pairs and negatives: w_in and w_out must
    equal phase 4's bit for bit, the loss must fall, the launches must be
-   exactly 4 per functional call; words/s beside phase 4's. Then a
-   superstep COO add over a (1, 4) SparseMatrixTable at the LightLDA
-   call's width, bit-identical to the (1, 1) table.
+   exactly 4 per gather and 1 per scatter-add (one card); words/s beside
+   phase 4's. Then a superstep COO add over a (1, 4) SparseMatrixTable at
+   the LightLDA call's width, bit-identical to the (1, 1) table, one
+   launch per card a call.
+14. The row scatter's kernel on phase 2's sorted lanes taken apart by
+   torch.profiler: each kernel's device time, the device idle between
+   them, the host's time to queue a call. Last, so that no profiler
+   session comes before a timed phase.
 
 Phase 2 also holds the KV kernels against their plain versions on the CPU
 bit for bit at the sparse-LR step's shapes (a 2^25-slot table, 262,144
@@ -107,8 +115,10 @@ the last line is
 
 from __future__ import annotations
 
+import functools
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -232,36 +242,46 @@ def scatter_tolerance(torch, param, ids, deltas, valid=None):
 
 
 def phase_kernels(torch, tk, rng) -> list:
-    """Phase 2: each kernel vs its plain version; returns the JSON rows."""
+    """Phase 2: each kernel vs its plain version; returns the JSON rows.
+    The row kernels at 4,096 and 24,576 Zipf ids and at 24,576 lanes of
+    one id (``n`` "24576:one"), each case with its longest run, and the
+    row scatter's sort apart from its kernel. ``results["scatter_calls"]``
+    keeps each case's kernel call on sorted lanes for phase 14."""
     dev = "cuda"
     g = torch.Generator(device="cpu").manual_seed(0)
     param0 = (torch.randn(ROWS, DIM, generator=g) * 0.05).to(dev)
-    rows = []
-    results = {}
-    for n in (4096, BATCH * (1 + NEGATIVE)):
-        ids = torch.as_tensor(zipf_ids(rng, n, ROWS), device=dev)
+    results, scatter_calls = {}, []
+    main_n = BATCH * (1 + NEGATIVE)
+    cases = [(4096, zipf_ids(rng, 4096, ROWS)),
+             (main_n, zipf_ids(rng, main_n, ROWS)),
+             (f"{main_n}:one", np.full(main_n, 0, np.int32))]
+    for key, ids_h in cases:
+        n = len(ids_h)
+        ids = torch.as_tensor(ids_h, device=dev)
         uniq = int(torch.unique(ids).numel())
+        longest = int(np.bincount(ids_h).max())
         # gather: exact
         got = tk.gather_rows(param0, ids)
         want = tk.gather_rows_plain(param0, ids)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         if not torch.equal(got, want):
-            raise SystemExit(f"row_gather n={n}: kernel != plain "
+            raise SystemExit(f"row_gather n={key}: kernel != plain "
                              f"(max abs err {err})")
         ms = cuda_ms(lambda: tk.gather_rows(param0, ids), 200)
         plain = cuda_ms(lambda: tk.gather_rows_plain(param0, ids), 200)
         lib = cuda_ms(lambda: param0.index_select(0, ids), 200)
         b, by = bound_ms(n * 4 + uniq * DIM * 4 + n * DIM * 4, 0)
-        results[("row_gather", n)] = dict(
+        results[("row_gather", key)] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-            bound_ms=b, bound_by=by, n=n, unique_rows=uniq)
+            bound_ms=b, bound_by=by, n=n, unique_rows=uniq,
+            longest_run=longest)
 
         # scatter-add (ids in any order): against the plain version on the
         # card (index_add_ with atomics: float32 sum order) within the sum
         # bound, and against the plain version on the CPU, which adds in
         # the kernel's order: exact
-        deltas = torch.randn(n, DIM, generator=g).to(dev)
+        deltas = torch.randn(len(ids_h), DIM, generator=g).to(dev)
         p_k, p_p = param0.clone(), param0.clone()
         tk.row_scatter_add(p_k, ids, deltas)
         tk.row_scatter_add_plain(p_p, ids, deltas)
@@ -269,26 +289,36 @@ def phase_kernels(torch, tk, rng) -> list:
         err = float((p_k - p_p).abs().max())
         tol = scatter_tolerance(torch, param0, ids, deltas)
         if not bool(((p_k - p_p).abs() <= tol).all()):
-            raise SystemExit(f"row_scatter_add n={n}: kernel vs plain "
+            raise SystemExit(f"row_scatter_add n={key}: kernel vs plain "
                              f"beyond the float32 sum bound (max {err})")
         p_c = tk.row_scatter_add_plain(param0.cpu(), ids.cpu(),
                                        deltas.cpu())
         if not torch.equal(p_k.cpu(), p_c):
-            raise SystemExit(f"row_scatter_add n={n}: kernel != plain "
+            raise SystemExit(f"row_scatter_add n={key}: kernel != plain "
                              "version on the CPU (same sum order)")
         p_t = param0.clone()
         ms = cuda_ms(lambda: tk.row_scatter_add(p_t, ids, deltas), 200)
         plain = cuda_ms(lambda: tk.row_scatter_add_plain(p_t, ids, deltas),
                         200)
         lib = cuda_ms(lambda: p_t.index_add_(0, ids, deltas), 200)
+        # the call's two parts: the stable sort of the ids, and the kernel
+        # on the sorted lanes
+        sort_ms = cuda_ms(lambda: torch.sort(ids, stable=True), 200)
+        sids, order = torch.sort(ids, stable=True)
+        # bound now: phase 14 calls it after the loop has moved on
+        on_sorted = functools.partial(tk._launch_scatter, "row_scatter_add",
+                                      p_t, sids, order, deltas, None)
+        kernel_ms = cuda_ms(on_sorted, 200)
+        scatter_calls.append((key, longest, on_sorted))
         b, by = bound_ms(n * 4 + n * DIM * 4 + 2 * uniq * DIM * 4, n * DIM)
-        results[("row_scatter_add", n)] = dict(
+        results[("row_scatter_add", key)] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-            bound_ms=b, bound_by=by, n=n, unique_rows=uniq)
+            bound_ms=b, bound_by=by, n=n, unique_rows=uniq,
+            longest_run=longest, sort_ms=sort_ms, sorted_kernel_ms=kernel_ms)
 
         # masked scatter-add over sorted ids (the table's add_rows form)
         sids = torch.sort(ids).values
-        valid = torch.as_tensor(rng.random(n) < 0.9, device=dev)
+        valid = torch.as_tensor(rng.random(len(ids_h)) < 0.9, device=dev)
         nv = int(valid.sum())
         uniq_v = int(torch.unique(sids[valid]).numel())
         p_k, p_p = param0.clone(), param0.clone()
@@ -298,12 +328,12 @@ def phase_kernels(torch, tk, rng) -> list:
         err = float((p_k - p_p).abs().max())
         tol = scatter_tolerance(torch, param0, sids, deltas, valid)
         if not bool(((p_k - p_p).abs() <= tol).all()):
-            raise SystemExit(f"row_scatter_add_masked n={n}: kernel vs "
+            raise SystemExit(f"row_scatter_add_masked n={key}: kernel vs "
                              f"plain beyond the float32 sum bound ({err})")
         p_c = tk.row_scatter_add_masked_plain(
             param0.cpu(), sids.cpu(), deltas.cpu(), valid.cpu())
         if not torch.equal(p_k.cpu(), p_c):
-            raise SystemExit(f"row_scatter_add_masked n={n}: kernel != "
+            raise SystemExit(f"row_scatter_add_masked n={key}: kernel != "
                              "plain version on the CPU (same sum order)")
         p_t = param0.clone()
         ms = cuda_ms(lambda: tk.row_scatter_add_masked(p_t, sids, deltas,
@@ -312,16 +342,75 @@ def phase_kernels(torch, tk, rng) -> list:
             p_t, sids, deltas, valid), 200)
         b, by = bound_ms(n * 8 + nv * DIM * 4 + 2 * uniq_v * DIM * 4,
                          nv * DIM)
-        results[("row_scatter_add_masked", n)] = dict(
+        results[("row_scatter_add_masked", key)] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain, library_ms=None,
-            bound_ms=b, bound_by=by, n=n, unique_rows=uniq_v)
-    for (name, n), r in results.items():
-        log(f"  {name:24s} n={n:6d} rows={r['unique_rows']:5d} "
-            f"kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
-            f"library {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} ms  "
+            bound_ms=b, bound_by=by, n=n, unique_rows=uniq_v,
+            longest_run=longest)
+    for (name, key), r in results.items():
+        lib = r["library_ms"]
+        log(f"  {name:24s} n={str(key):>9s} rows={r['unique_rows']:5d} "
+            f"longest run {r['longest_run']:6d}  kernel {r['ms']:.4f} ms  "
+            f"plain {r['plain_ms']:.4f} ms  library "
+            f"{'none' if lib is None else f'{lib:.4f}'} ms  "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})  "
-            f"max|err| {r['max_abs_err']:.3g}")
+            f"max|err| {r['max_abs_err']:.3g}"
+            + (f"; of it the stable sort {r['sort_ms']:.4f} ms, the kernel "
+               f"on sorted lanes {r['sorted_kernel_ms']:.4f} ms"
+               if "sort_ms" in r else ""))
+    results["scatter_calls"] = scatter_calls
     return results
+
+
+def phase_scatter_parts(torch, scatter_calls) -> dict:
+    """Phase 14: the row scatter's kernel on phase 2's sorted lanes, taken
+    apart by the profiler. It runs last, so that no profiler session
+    comes before a timed phase."""
+    out = {}
+    for key, longest, on_sorted in scatter_calls:
+        out[key] = parts = kernel_parts(torch, on_sorted, 50)
+        log(f"  row_scatter_add n={str(key):>9s} longest run {longest:6d}: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
+            + " ms a call (device time by kernel, the period of the queued "
+            "calls, the device idle in it, the host's time to queue one)")
+    return out
+
+
+def kernel_parts(torch, fn, iters: int) -> dict:
+    """Device ms of each kernel that ``fn`` launches (its mean over the
+    launches the trace holds), over ``iters`` calls queued behind a spin
+    kernel as in :func:`cuda_ms`, from torch.profiler's device events;
+    "period" is the median time from one call's first kernel to the
+    next's, "gaps" the period less the kernels (the device idle between
+    them), "host" the host's time to queue a call (:func:`host_ms`,
+    without the profiler). The profiler can drop a few events; the means
+    and the median stand, and the log names the loss."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(SPIN_CYCLES)
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total, starts = {}, {}
+    for e in sorted(device_events(prof, "kernel_parts_trace.json"),
+                    key=lambda e: e["ts"]):
+        if "spin_kernel" in e["name"]:
+            continue
+        m = re.search(r"(\w+_kernel)", e["name"])
+        name = m.group(1) if m else e["name"][:40]
+        total[name] = total.get(name, 0.0) + e["dur"] / 1e3
+        starts.setdefault(name, []).append(e["ts"])
+    parts = {k: v / len(starts[k]) for k, v in total.items()}
+    first = starts[next(iter(starts))]     # the kernel each call starts with
+    period = float(np.median(np.diff(first))) / 1e3
+    lost = {k: iters - len(v) for k, v in starts.items() if len(v) != iters}
+    if lost:
+        log(f"    (the trace lost launches: {lost} of {iters} each)")
+    parts.update(period=period, gaps=period - sum(parts.values()),
+                 host=host_ms(fn, iters))
+    return parts
 
 
 def w2v_small_parity(torch, Corpus, synthetic_text, W2VConfig,
@@ -456,11 +545,28 @@ def phase_w2v(torch, tk, Corpus, synthetic_text, W2VConfig, WordEmbedding,
                w_out=app.w_out.get())
     if profile:
         rest = batches[(1 + TIMED_CALLS) * STEPS:]
+        out["longest_runs"] = step_runs(torch, app, rest[0])
         out["profile"] = profile_call(
             torch, "w2v_call_trace.json",
             lambda: app.train(total_steps=STEPS, batches=rest),
             dt / TIMED_CALLS * 1e3)
     return out, run
+
+
+def step_runs(torch, app, batch) -> dict:
+    """The longest run of equal ids in the first step of the profiled call:
+    w_out's scatter (targets and their negatives, B * (1 + K) lanes) and
+    w_in's (the sources, B lanes)."""
+    src, tgt = batch
+    negs = app.negatives(0, STEPS)[0].cpu().numpy()   # call 0, step 0
+    out_ids = np.concatenate([np.asarray(tgt)[:, None], negs], 1).ravel()
+    runs = dict(w_out=int(np.bincount(out_ids).max()), w_out_lanes=len(
+        out_ids), w_in=int(np.bincount(np.asarray(src)).max()),
+        w_in_lanes=len(src))
+    log(f"  longest run of a step's scatter ids: w_out {runs['w_out']} of "
+        f"{runs['w_out_lanes']} lanes, w_in {runs['w_in']} of "
+        f"{runs['w_in_lanes']}")
+    return runs
 
 
 def w2v_calls(torch, app, batches) -> tuple:
@@ -1461,7 +1567,8 @@ def phase_sharded_kernels(torch, tk, core, KVTable, devices, rng) -> dict:
             join(torch, devices)
         return run
 
-    def record(name, got, want, fn, plain, iters, nbytes, flops, **extra):
+    def record(name, got, want, fn, plain, iters, nbytes, flops,
+               library=None, **extra):
         sync_all(torch, devices)
         same = [torch.equal(bits(torch, a) if a.is_floating_point()
                             else a.cpu(), bits(torch, b)
@@ -1482,7 +1589,9 @@ def phase_sharded_kernels(torch, tk, core, KVTable, devices, rng) -> dict:
         b_ms, by = bound_ms(nbytes, flops)
         out[name] = dict(max_abs_err=err, ms=cuda_ms(timed(fn), iters),
                          plain_ms=cuda_ms(timed(plain), max(iters // 10, 3)),
-                         library_ms=None, bound_ms=b_ms, bound_by=by,
+                         library_ms=None if library is None
+                         else cuda_ms(library, iters),
+                         bound_ms=b_ms, bound_by=by,
                          call_ms=call_ms, launches_per_call=per_call,
                          **extra)
 
@@ -1501,12 +1610,17 @@ def phase_sharded_kernels(torch, tk, core, KVTable, devices, rng) -> dict:
     shards = on_shards(torch, param, devices)
     lo = torch.as_tensor(local, device=devices[0])
     iv = torch.as_tensor(inv, device=devices[0])
+    # the library calls take the table concatenated and the global ids
+    whole = torch.as_tensor(param, device=devices[0])
+    gids = torch.as_tensor(ids, device=devices[0])
     fn = lambda: tk.gather_rows_sharded(shards, lo, iv, counts=counts)
     record("row_gather_sharded", [fn()], [tk.gather_rows_sharded_plain(
         on_shards(torch, param, cpus), torch.as_tensor(local),
         torch.as_tensor(inv))], fn,
         lambda: tk.gather_rows_sharded_plain(shards, lo, iv), 50,
-        n * 8 + uniq * DIM * 4 + n * DIM * 4, 0, n=n, lanes=local.shape[1])
+        n * 8 + uniq * DIM * 4 + n * DIM * 4, 0,
+        library=lambda: whole.index_select(0, gids), n=n,
+        lanes=local.shape[1])
 
     sids = np.sort(ids)
     deltas = torch.randn(n, DIM, generator=g).numpy()
@@ -1518,10 +1632,14 @@ def phase_sharded_kernels(torch, tk, core, KVTable, devices, rng) -> dict:
     ops = [torch.as_tensor(x, device=devices[0]) for x in (local, sd, valid)]
     tk.row_scatter_add_sharded(shards, *ops, counts=counts)
     fn = lambda: tk.row_scatter_add_sharded(shards, *ops, counts=counts)
+    sd_all = torch.as_tensor(deltas, device=devices[0])
+    sids_all = torch.as_tensor(sids, device=devices[0])
     record("row_scatter_add_sharded", shards, host, fn,
            lambda: tk.row_scatter_add_sharded_plain(shards, *ops), 50,
-           n * 9 + n * DIM * 4 + 2 * uniq * DIM * 4, n * DIM, n=n,
+           n * 9 + n * DIM * 4 + 2 * uniq * DIM * 4, n * DIM,
+           library=lambda: whole.index_add_(0, sids_all, sd_all), n=n,
            lanes=local.shape[1])
+    del whole
 
     # COO: a LightLDA call's 512,000 (word, topic, 1) lanes into the
     # [50,000 + pad, 1024] int32 word table on four shards (50,004 rows)
@@ -1541,12 +1659,17 @@ def phase_sharded_kernels(torch, tk, core, KVTable, devices, rng) -> dict:
     ops = [torch.as_tensor(x, device=devices[0]) for x in (lr, sc, sv, valid)]
     tk.coo_scatter_add_sharded(shards, *ops, counts=counts)
     touched = len(np.unique(tw.astype(np.int64) * LDA_K + cols))
+    whole = torch.as_tensor(table0, device=devices[0]).view(-1)
+    idx = torch.as_tensor(tw.astype(np.int64) * LDA_K + cols,
+                          device=devices[0])
+    v_all = torch.as_tensor(vals, device=devices[0])
     fn = lambda: tk.coo_scatter_add_sharded(shards, *ops, counts=counts)
     record("coo_scatter_add_sharded", shards, host, fn,
            lambda: tk.coo_scatter_add_sharded_plain(shards, *ops), 20,
-           LDA_B * 13 + touched * 8, LDA_B, n=LDA_B, lanes=lr.shape[1],
-           touched=touched)
-    del shards, host, ops, table0
+           LDA_B * 13 + touched * 8, LDA_B,
+           library=lambda: whole.index_put_((idx,), v_all, accumulate=True),
+           n=LDA_B, lanes=lr.shape[1], touched=touched)
+    del shards, host, ops, table0, whole
 
     # KV at the sparse-LR step's shapes: a 2^25-slot ftrl table at
     # value_dim 2 on four shards of 524,288 buckets, filled with half of
@@ -1612,9 +1735,11 @@ def phase_sharded_kernels(torch, tk, core, KVTable, devices, rng) -> dict:
     del t, timed_t, plain_t, got, want, hk, hv, hs
     free_tables(torch)
     for name, r in out.items():
+        lib = r["library_ms"]
         log(f"  {name:26s} n={r['n']:7d} (L {r['lanes']} x {SHARDS} "
             f"shards) kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms"
-            f"  library none  bound {r['bound_ms']:.4f} ms "
+            f"  library {'none' if lib is None else f'{lib:.4f} ms'}  "
+            f"bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']})  {r['ms'] / r['bound_ms']:.1f}x bound; "
             f"a call's wall time {r['call_ms']:.4f} ms; "
             f"bit-identical to the CPU plain version; launches per call "
@@ -1994,8 +2119,9 @@ def phase_w2v_mesh(torch, tk, counts, reset, core, W2VConfig, WordEmbedding,
     """Phase 13: phase 4's skip-gram NS on the (1, SHARDS) mesh, from
     phase 4's corpus, initial weights (the same seed), pairs and
     negatives (drawn on the first shard's card): its w_in and w_out must
-    equal phase 4's bit for bit, the loss must fall, and every functional
-    call must launch once per shard. Then a superstep COO add over a
+    equal phase 4's bit for bit, the loss must fall, and every gather
+    must launch once per shard, every scatter-add once per card. Then a
+    superstep COO add over a
     (1, SHARDS) SparseMatrixTable at the LightLDA call's width against
     the (1, 1) table. Returns (numbers, {path: launch counts})."""
     mesh = core.Mesh([devices])
@@ -2022,11 +2148,14 @@ def phase_w2v_mesh(torch, tk, counts, reset, core, W2VConfig, WordEmbedding,
             raise SystemExit(f"w2v on the (1, {SHARDS}) mesh: {key} != "
                              "phase 4's (1, 1) run")
     grown = paths["word2vec_mesh"]
-    # skip-gram NS: 2 gathers + 2 scatter-adds a step, SHARDS launches each
-    for name in ("gather_rows_mesh", "row_scatter_add_mesh"):
-        if grown[name] != SHARDS * 2 * steps:
+    # skip-gram NS: 2 gathers + 2 scatter-adds a step; a gather launches
+    # once per shard, a scatter-add once per card
+    cards = len(set(devices))
+    for name, per_call in (("gather_rows_mesh", SHARDS),
+                           ("row_scatter_add_mesh", cards)):
+        if grown[name] != per_call * 2 * steps:
             raise SystemExit(f"{name}: {grown[name]} launches over {steps} "
-                             f"steps, expected {SHARDS * 2 * steps}")
+                             f"steps, expected {per_call * 2 * steps}")
     if grown["row_gather"] or grown["row_scatter_add"]:
         raise SystemExit(f"w2v on the mesh launched the flat kernels: "
                          f"{grown}")
@@ -2036,7 +2165,7 @@ def phase_w2v_mesh(torch, tk, counts, reset, core, W2VConfig, WordEmbedding,
         f"{w2v['words_per_sec']:.0f} ({ratio:.3f}x); launches per step "
         f"{grown['gather_rows_mesh'] / steps:.0f} "
         f"gather + {grown['row_scatter_add_mesh'] / steps:.0f} scatter "
-        f"({SHARDS} per functional call)")
+        f"({SHARDS} per gather, {cards} per scatter-add)")
     out = dict(words_per_sec=words_per_sec, seconds=dt, loss_warm=warm,
                losses=losses, words_per_sec_one_shard=w2v["words_per_sec"],
                launches_per_step={k: v / steps for k, v in grown.items()
@@ -2077,16 +2206,30 @@ def phase_w2v_mesh(torch, tk, counts, reset, core, W2VConfig, WordEmbedding,
     if not np.array_equal(tables[0].get(), tables[1].get()):
         raise SystemExit("superstep COO on the mesh != the (1, 1) table")
     n_coo = paths["superstep_coo_mesh"]["coo_scatter_add_mesh"]
-    if n_coo != SHARDS * len(lanes):
+    if n_coo != cards * len(lanes):
         raise SystemExit(f"coo_scatter_add_mesh: {n_coo} launches in "
                          f"{len(lanes)} calls, expected "
-                         f"{SHARDS * len(lanes)}")
+                         f"{cards * len(lanes)} (one per card a call)")
     log(f"  superstep COO add of {LDA_B} lanes x 2 calls into a "
         f"{LDA_V} x {LDA_K} int32 tiled SparseMatrixTable on {SHARDS} "
         f"shards: bit-identical to the (1, 1) table, {n_coo} launches")
     del tables, steps_ss
     free_tables(torch)
     return out, paths
+
+
+def device_events(prof, trace_name: str) -> list:
+    """The device events (kernels, copies, memsets) of a finished
+    torch.profiler session, through its chrome trace, which is kept under
+    chiprun_out/."""
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    path = os.path.join(HERE, "chiprun_out", trace_name)
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        trace = json.load(f)
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    return [e for e in events
+            if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
 
 
 def profile_call(torch, trace_name: str, run, call_ms: float) -> dict:
@@ -2104,14 +2247,7 @@ def profile_call(torch, trace_name: str, run, call_ms: float) -> dict:
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
-    path = os.path.join(HERE, "chiprun_out", trace_name)
-    prof.export_chrome_trace(path)
-    with open(path) as f:
-        trace = json.load(f)
-    events = trace["traceEvents"] if isinstance(trace, dict) else trace
-    device = [e for e in events
-              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    device = device_events(prof, trace_name)
     by_name = {}
     for e in device:
         ms, count = by_name.get(e["name"], (0.0, 0))
@@ -2210,6 +2346,7 @@ def main(argv) -> int:
               "lookup and probe + commit bit-identical to the CPU plain "
               "version)")
         results = phase_kernels(torch, tk, rng)
+        scatter_calls = results.pop("scatter_calls")
         lda_results = phase_lda_kernels(torch, tk, ls)
         kv_results = phase_kv_kernels(torch, tk, KVTable)
         devices = shard_devices(torch)
@@ -2308,6 +2445,12 @@ def main(argv) -> int:
     paths.update(mesh_paths)
     del w2v_run
     phase_end("w2v_mesh")
+
+    phase("scatter_parts", "phase 14: the row scatter's kernels apart "
+          "(torch.profiler, after every timed phase)")
+    scatter_parts = phase_scatter_parts(torch, scatter_calls)
+    del scatter_calls
+    phase_end("scatter_parts")
 
     # each kernel's launches on the main path that carries it
     main_path = {
@@ -2430,6 +2573,7 @@ def main(argv) -> int:
                        sharded_kernel_shapes=sharded_results,
                        sparse_lr_mesh=slr_mesh,
                        mesh_kernel_shapes=mesh_results, w2v_mesh=w2v_mesh,
+                       row_scatter_parts=scatter_parts,
                        seconds=time.perf_counter() - t_start), f, indent=1)
     log(f"phase seconds: { {k: round(v, 1) for k, v in phase_s.items()} }")
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -36,13 +36,20 @@ _SIGNATURES = {
     # (param, rows, cols, elem_bytes, lo, zero_foreign, ids, n, out,
     #  stream)
     "mv_row_gather": [_P, _I64, _I64, _I64, _I64, _I64, _P, _I64, _P, _P],
-    # (param, rows, cols, is_int, lo, ids, order, deltas, valid, n, stream)
-    "mv_row_scatter_add": [_P, _I64, _I64, _I64, _I64, _P, _P, _P, _P, _I64,
-                           _P],
-    # (param, rows, cols, is_int, lo, rows_ids, cols_ids, vals, valid, n,
-    #  stream)
-    "mv_coo_scatter_add": [_P, _I64, _I64, _I64, _I64, _P, _P, _P, _P, _I64,
-                           _P],
+    # (param, rows, cols, is_int, ids, order, deltas, valid, n, workspace,
+    #  ws_words, stream)
+    "mv_row_scatter_add": [_P, _I64, _I64, _I64, _P, _P, _P, _P, _I64, _P,
+                           _I64, _P],
+    # (bases, firsts, count, rows, cols, is_int, ids, order, deltas, valid,
+    #  n, workspace, ws_words, stream)
+    "mv_row_scatter_add_mesh": [_P, _P, _I64, _I64, _I64, _I64, _P, _P, _P,
+                                _P, _I64, _P, _I64, _P],
+    # (param, rows, cols, is_int, rows_ids, cols_ids, vals, valid, n, stream)
+    "mv_coo_scatter_add": [_P, _I64, _I64, _I64, _P, _P, _P, _P, _I64, _P],
+    # (bases, firsts, count, rows, cols, is_int, rows_ids, cols_ids, vals,
+    #  valid, n, stream)
+    "mv_coo_scatter_add_mesh": [_P, _P, _I64, _I64, _I64, _I64, _P, _P, _P,
+                                _P, _I64, _P],
     # (A, a_int16, W, w_bf16, sinv, zi, msk, u1, u2, b, C, alpha, beta,
     #  znew, nkd, stream)
     "mv_gibbs_tiled": [_P, _I64, _P, _I64, _P, _P, _P, _P, _P, _I64, _I64,

@@ -35,22 +35,29 @@
 // bit for bit to the plain version, the TPU kernel's order too. Long
 // float32 runs are walked by one thread; they are not on a hot path.
 //
-// The row window: `lo` is the global id of the table's first row, a
-// lane's row is rows[i] - lo, and a lane outside [0, nrows) is foreign
-// and adds nothing. A flat table passes lo = 0; a table split into shards
-// launches each shard over the GLOBAL sorted lanes with lo = shard *
-// nrows, replacing the in-trace _sharded_coo_scatter_add of
-// multiverso_tpu/ops/table_kernels.py (masked lanes in a shard_map, the
-// foreign ones parked on the shard's last row). int32: a chunk wholly
-// outside the window exits before it loads anything (the lanes are
-// sorted, so its first and last rows decide), and a foreign run is never
-// summed in shared memory. float32: a foreign run's owner exits at the
-// range check.
+// The row window and the shards (shards.cuh): a lane's row is found
+// among the launch's shards; a flat table is one shard whose first row has
+// the global id 0, and a lane outside every window is foreign and adds
+// nothing. A table split into shards launches
+// once per card over the GLOBAL sorted lanes with every shard that card
+// holds (mv_coo_scatter_add_mesh), replacing the in-trace
+// _sharded_coo_scatter_add of multiverso_tpu/ops/table_kernels.py (masked
+// lanes in a shard_map, the foreign ones parked on the shard's last row).
+// Shards that share a card then run in one launch, not in turn: their
+// long runs overlap. int32: a chunk whose rows meet no window exits
+// before it loads anything (the lanes are sorted, so its first and last
+// rows decide), and a foreign run is never summed in shared memory.
+// float32: a foreign run's owner exits at the window check.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "shards.cuh"
+
 namespace {
+
+using mv::Shards;
+using mv::shard_row;
 
 constexpr int kThreads = 256;
 constexpr int kItems = 16;                    // lanes per thread
@@ -81,8 +88,8 @@ __device__ __forceinline__ int upper_bound(const int32_t* s, int len,
 }
 
 __global__ void __launch_bounds__(kThreads)
-coo_add_int_kernel(int32_t* __restrict__ param, int64_t nrows, int64_t ncols,
-                   int64_t lo, const int32_t* __restrict__ rows,
+coo_add_int_kernel(__grid_constant__ const Shards sh, int64_t nrows,
+                   int64_t ncols, const int32_t* __restrict__ rows,
                    const int32_t* __restrict__ cols,
                    const int32_t* __restrict__ vals,
                    const int32_t* __restrict__ valid, int64_t n) {
@@ -93,24 +100,19 @@ coo_add_int_kernel(int32_t* __restrict__ param, int64_t nrows, int64_t ncols,
   const int64_t base = (int64_t)blockIdx.x * kChunk;
   const int64_t rest = n - base;
   const int len = rest < kChunk ? (int)rest : kChunk;
-  // sorted lanes: a chunk whose first row lies above the window or whose
-  // last row lies below it is wholly foreign
-  if ((int64_t)rows[base] - lo >= nrows || (int64_t)rows[base + len - 1] < lo)
-    return;
+  // sorted lanes: a chunk whose rows meet no shard's window is foreign
+  if (!mv::meets(sh, nrows, rows[base], rows[base + len - 1])) return;
   const bool shared_ok = ncols <= kAccCols;
   if (threadIdx.x == 0) s_nlong = 0;
-  for (int i = threadIdx.x; i < len; i += kThreads) {
-    // local rows, a foreign lane as -1 below the window or nrows above it
-    // (still sorted)
-    const int64_t r = (int64_t)rows[base + i] - lo;
-    s_rows[i] = r < 0 ? -1 : (int32_t)(r < nrows ? r : nrows);
-  }
+  for (int i = threadIdx.x; i < len; i += kThreads)
+    s_rows[i] = rows[base + i];  // global ids, sorted
   __syncthreads();
 
   // short runs: one global atomic per lane; long runs: note where they start
   for (int i = threadIdx.x; i < len; i += kThreads) {
     const int32_t r = s_rows[i];
-    if (r < 0 || r >= nrows) continue;  // foreign or out of range
+    int32_t* dst = shard_row<int32_t>(sh, nrows, ncols, r);
+    if (dst == nullptr) continue;  // foreign or out of range
     if (shared_ok) {
       const int run_lo = lower_bound(s_rows, len, r);
       const int run_hi = upper_bound(s_rows, len, r);
@@ -123,7 +125,7 @@ coo_add_int_kernel(int32_t* __restrict__ param, int64_t nrows, int64_t ncols,
     if (valid != nullptr && valid[j] == 0) continue;
     const int32_t c = cols[j];
     if (c < 0 || c >= ncols) continue;
-    atomicAdd(param + (int64_t)r * ncols + c, vals[j]);
+    atomicAdd(dst + c, vals[j]);
   }
   __syncthreads();
 
@@ -144,7 +146,7 @@ coo_add_int_kernel(int32_t* __restrict__ param, int64_t nrows, int64_t ncols,
       atomicAdd(&s_acc[c], vals[j]);
     }
     __syncthreads();
-    int32_t* dst = param + (int64_t)r * ncols;  // a long run is in the window
+    int32_t* dst = shard_row<int32_t>(sh, nrows, ncols, r);  // in a window
     for (int x = threadIdx.x; x < ncols; x += kThreads) {
       const int32_t a = s_acc[x];
       if (a != 0) atomicAdd(dst + x, a);
@@ -154,8 +156,8 @@ coo_add_int_kernel(int32_t* __restrict__ param, int64_t nrows, int64_t ncols,
 }
 
 __global__ void __launch_bounds__(kThreads)
-coo_add_float_kernel(float* __restrict__ param, int64_t nrows, int64_t ncols,
-                     int64_t lo, const int32_t* __restrict__ rows,
+coo_add_float_kernel(__grid_constant__ const Shards sh, int64_t nrows,
+                     int64_t ncols, const int32_t* __restrict__ rows,
                      const int32_t* __restrict__ cols,
                      const float* __restrict__ vals,
                      const int32_t* __restrict__ valid, int64_t n) {
@@ -163,9 +165,8 @@ coo_add_float_kernel(float* __restrict__ param, int64_t nrows, int64_t ncols,
   if (i >= n) return;
   const int32_t r = rows[i];
   if (i > 0 && rows[i - 1] == r) return;  // the run's first lane owns it
-  const int64_t local = (int64_t)r - lo;
-  if (local < 0 || local >= nrows) return;  // foreign or out of range
-  float* dst = param + local * ncols;
+  float* dst = shard_row<float>(sh, nrows, ncols, r);
+  if (dst == nullptr) return;  // foreign or out of range
   for (int64_t j = i; j < n && rows[j] == r; ++j) {
     if (valid != nullptr && valid[j] == 0) continue;
     const int32_t c = cols[j];
@@ -174,31 +175,53 @@ coo_add_float_kernel(float* __restrict__ param, int64_t nrows, int64_t ncols,
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-// `is_int`: 0 for a float32 table and values, 1 for int32.
-// `lo`: the global id of param's first row (lanes outside the window add
-// nothing). `valid` (nullable): per sorted lane; 0 gates the lane off.
-int mv_coo_scatter_add(void* param, int64_t nrows, int64_t ncols,
-                       int64_t is_int, int64_t lo, const int32_t* rows,
-                       const int32_t* cols, const void* vals,
-                       const int32_t* valid, int64_t n, void* stream) {
+int coo_add(const Shards& sh, int64_t nrows, int64_t ncols, int64_t is_int,
+            const int32_t* rows, const int32_t* cols, const void* vals,
+            const int32_t* valid, int64_t n, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_int) {
     const unsigned grid = (unsigned)((n + kChunk - 1) / kChunk);
     coo_add_int_kernel<<<grid, kThreads, 0, s>>>(
-        static_cast<int32_t*>(param), nrows, ncols, lo, rows, cols,
-        static_cast<const int32_t*>(vals), valid, n);
+        sh, nrows, ncols, rows, cols, static_cast<const int32_t*>(vals),
+        valid, n);
   } else {
     const unsigned grid = (unsigned)((n + kThreads - 1) / kThreads);
     coo_add_float_kernel<<<grid, kThreads, 0, s>>>(
-        static_cast<float*>(param), nrows, ncols, lo, rows, cols,
-        static_cast<const float*>(vals), valid, n);
+        sh, nrows, ncols, rows, cols, static_cast<const float*>(vals), valid,
+        n);
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// `is_int`: 0 for a float32 table and values, 1 for int32. Lanes whose
+// row lies outside [0, nrows) add nothing. `valid` (nullable): per sorted
+// lane; 0 gates the lane off.
+int mv_coo_scatter_add(void* param, int64_t nrows, int64_t ncols,
+                       int64_t is_int, const int32_t* rows,
+                       const int32_t* cols, const void* vals,
+                       const int32_t* valid, int64_t n, void* stream) {
+  return coo_add(mv::one_shard(param), nrows, ncols, is_int, rows, cols,
+                 vals, valid, n, stream);
+}
+
+// The same over the `count` shards of one card (at most mv::kMaxShards),
+// each of `nrows` rows: bases[k] is shard k's row 0, firsts[k] its global
+// id; rows are global. Host arrays, copied into the launch.
+int mv_coo_scatter_add_mesh(void* const* bases, const int64_t* firsts,
+                            int64_t count, int64_t nrows, int64_t ncols,
+                            int64_t is_int, const int32_t* rows,
+                            const int32_t* cols, const void* vals,
+                            const int32_t* valid, int64_t n, void* stream) {
+  Shards sh;
+  if (!mv::make_shards(sh, bases, firsts, count))
+    return (int)cudaErrorInvalidValue;
+  return coo_add(sh, nrows, ncols, is_int, rows, cols, vals, valid, n,
+                 stream);
 }
 
 }  // extern "C"

@@ -1,0 +1,78 @@
+// The shards of one table that one launch serves, passed to a kernel by
+// value (csrc/row_kernels.cu, csrc/coo_kernels.cu).
+//
+// A table split over a mesh's model axis holds equal blocks of `rows` rows;
+// shard k's first row has the global id first[k]. A launch serves every
+// shard that one card holds (at most kMaxShards; the caller launches a card
+// with more in groups): a lane whose global id falls in [first[k],
+// first[k] + rows) belongs to shard k, and a lane that falls in no window
+// is foreign and adds nothing. A flat table is one shard with first = 0.
+// Sorted global ids keep every run of equal ids inside one shard, so a
+// launch over several shards gives each shard's rows the flat kernel's
+// order.
+
+#pragma once
+
+#include <stdint.h>
+
+namespace mv {
+
+constexpr int kMaxShards = 16;
+
+struct Shards {
+  void* base[kMaxShards];     // each shard's row 0
+  int64_t first[kMaxShards];  // its global id
+  int count;
+};
+
+// Row `id`'s first element, as T*, or nullptr when no shard holds it. The
+// loop is unrolled so that every index into the by-value struct is a
+// constant (no copy of the parameters to local memory).
+template <typename T>
+__device__ __forceinline__ T* shard_row(const Shards& sh, int64_t rows,
+                                        int64_t width, int64_t id) {
+#pragma unroll
+  for (int k = 0; k < kMaxShards; ++k) {
+    if (k < sh.count) {
+      const int64_t local = id - sh.first[k];
+      if (local >= 0 && local < rows)
+        return static_cast<T*>(sh.base[k]) + local * width;
+    }
+  }
+  return nullptr;
+}
+
+// Does any shard's window meet the global ids [lo_id, hi_id]?
+__device__ __forceinline__ bool meets(const Shards& sh, int64_t rows,
+                                      int64_t lo_id, int64_t hi_id) {
+  bool hit = false;
+#pragma unroll
+  for (int k = 0; k < kMaxShards; ++k)
+    if (k < sh.count)
+      hit |= hi_id >= sh.first[k] && lo_id < sh.first[k] + rows;
+  return hit;
+}
+
+// A table of `count` shards: base pointers and first global ids.
+inline bool make_shards(Shards& sh, void* const* bases,
+                        const int64_t* firsts, int64_t count) {
+  if (count < 1 || count > kMaxShards) return false;
+  sh = Shards{};
+  for (int64_t k = 0; k < count; ++k) {
+    sh.base[k] = bases[k];
+    sh.first[k] = firsts[k];
+  }
+  sh.count = (int)count;
+  return true;
+}
+
+// A flat table: one shard whose row 0 has the global id 0.
+inline Shards one_shard(void* base) {
+  Shards sh{};
+  sh.base[0] = base;
+  sh.first[0] = 0;
+  sh.count = 1;
+  return sh;
+}
+
+}  // namespace mv

@@ -27,6 +27,7 @@ float32 or int32 tables.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, Optional
 
 import torch
@@ -40,13 +41,24 @@ LAUNCHES = {"row_gather": 0, "row_scatter_add": 0,
             "kv_lookup_sharded": 0, "kv_probe_update_sharded": 0,
             "row_gather_sharded": 0, "row_scatter_add_sharded": 0,
             "coo_scatter_add_sharded": 0,
-            # one per shard launch of the functional forms over a
-            # ShardedParam (counted under these names only)
+            # the functional forms over a ShardedParam (counted under
+            # these names only): the gather one per shard, the
+            # scatter-adds one per card (per group of MESH_MAX_SHARDS
+            # shards of one card)
             "gather_rows_mesh": 0, "row_scatter_add_mesh": 0,
             "coo_scatter_add_mesh": 0}
 
 GATHER_DTYPES = (torch.float32, torch.int32, torch.bfloat16, torch.int16)
 ADD_DTYPES = (torch.float32, torch.int32)
+
+#: ``kSplit`` of csrc/row_kernels.cu: ``mv_row_scatter_add`` gives a run of
+#: equal ids longer than this blocks of its own (staged in shared memory),
+#: a shorter run is one warp's. It sizes the workspace here; the C entry
+#: point refuses a workspace too small for its own constant
+SCATTER_SPLIT = 32
+#: the most shards one mesh launch serves (``kMaxShards``,
+#: csrc/shards.cuh); a card holding more launches in groups
+MESH_MAX_SHARDS = 16
 
 
 def reset_launches() -> None:
@@ -111,21 +123,29 @@ def _is_int(param: torch.Tensor) -> int:
 
 def _launch(name: str, fn: str, *args, device: torch.device,
             counts: Optional[Dict[str, int]] = None,
-            tag: Optional[str] = None) -> None:
+            tag: Optional[str] = None,
+            scatter_lanes: Optional[int] = None) -> None:
     """Call C entry point ``fn`` on ``device`` (the operands' card), on
     that device's current stream; count the launch under ``name`` in
     ``counts`` (this module's ``LAUNCHES`` by default), and under ``tag``
     in ``LAUNCHES`` too when given (a sharded form tags its first
-    launch); raise on a CUDA error."""
+    launch); raise on a CUDA error. ``scatter_lanes``: the row scatter's
+    lane count; its workspace (pointer, words) goes in before the
+    stream."""
     from multiverso_tpu_torch.ops import _build
     lib = _build.load()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
+        if scatter_lanes is not None:
+            ws = _scatter_workspace(scatter_lanes, device, stream)
+            args += (ws.data_ptr(), ws.numel())
         err = getattr(lib, fn)(*args, stream)
     (LAUNCHES if counts is None else counts)[name] += 1
     if tag is not None:
         LAUNCHES[tag] += 1
     if err != 0:
+        if scatter_lanes is not None:  # a failed call may leave it non-zero
+            _WORKSPACES.pop((device, stream), None)
         raise RuntimeError(f"{fn} launch failed on {device}: CUDA error "
                            f"{err}")
 
@@ -220,20 +240,47 @@ def row_scatter_add(param, ids: torch.Tensor, deltas: torch.Tensor):
     return param
 
 
+def scatter_workspace_size(n: int) -> int:
+    """int64 words of ``mv_row_scatter_add``'s workspace for ``n`` lanes:
+    the count of long runs and the long-run kernel's finished blocks, then
+    a (first lane, length) pair for each of at most ``n // SCATTER_SPLIT +
+    1`` runs longer than ``SCATTER_SPLIT``."""
+    return 2 + 2 * (n // SCATTER_SPLIT + 1)
+
+
+#: the row scatter's workspace of each (device, stream): zeroed when made,
+#: and left zero by every call (the kernel's last block clears it), so a
+#: call allocates and clears nothing; calls on one stream run in turn
+_WORKSPACES: Dict[tuple, torch.Tensor] = {}
+
+
+def _scatter_workspace(n: int, device: torch.device,
+                       stream: int) -> torch.Tensor:
+    """The workspace for ``n`` lanes on ``stream`` of ``device``, grown
+    (at least doubled) when too small."""
+    ws = _WORKSPACES.get((device, stream))
+    need = scatter_workspace_size(n)
+    if ws is None or ws.numel() < need:
+        grown = need if ws is None else max(need, 2 * ws.numel())
+        ws = torch.zeros(grown, dtype=torch.int64, device=device)
+        _WORKSPACES[(device, stream)] = ws
+    return ws
+
+
 def _launch_scatter(name: str, param: torch.Tensor, ids: torch.Tensor,
                     order: Optional[torch.Tensor], deltas: torch.Tensor,
-                    valid: Optional[torch.Tensor], tag: Optional[str] = None,
-                    lo: int = 0) -> None:
-    """Launch ``mv_row_scatter_add`` over sorted int32 ``ids`` (rows
-    ``ids - lo`` of ``param``; lanes outside the window add nothing),
-    deltas read through ``order`` when given, gated by ``valid`` when
-    given."""
+                    valid: Optional[torch.Tensor],
+                    tag: Optional[str] = None) -> None:
+    """Launch ``mv_row_scatter_add`` over sorted int32 ``ids`` (rows of
+    ``param``; lanes outside it add nothing), deltas read through
+    ``order`` when given, gated by ``valid`` when given."""
     flat = _rows(param)
+    n = ids.shape[0]
     _launch(name, "mv_row_scatter_add", flat.data_ptr(), flat.shape[0],
-            flat.shape[1], _is_int(param), lo, ids.data_ptr(),
+            flat.shape[1], _is_int(param), ids.data_ptr(),
             None if order is None else order.data_ptr(), deltas.data_ptr(),
-            None if valid is None else valid.data_ptr(), ids.shape[0],
-            device=param.device, tag=tag)
+            None if valid is None else valid.data_ptr(), n,
+            device=param.device, tag=tag, scatter_lanes=n)
 
 
 def row_scatter_add_masked(param: torch.Tensor, ids: torch.Tensor,
@@ -304,12 +351,12 @@ def coo_scatter_add_masked_plain(param: torch.Tensor, rows: torch.Tensor,
 def _launch_coo(name: str, param: torch.Tensor, rows: torch.Tensor,
                 cols: torch.Tensor, vals: torch.Tensor,
                 valid: Optional[torch.Tensor],
-                tag: Optional[str] = None, lo: int = 0) -> None:
-    """Launch ``mv_coo_scatter_add`` over row-sorted int32 lanes (rows
-    ``rows - lo`` of ``param``; lanes outside the window add nothing)."""
+                tag: Optional[str] = None) -> None:
+    """Launch ``mv_coo_scatter_add`` over row-sorted int32 lanes (rows of
+    ``param``; lanes outside it add nothing)."""
     flat = _rows(param)
     _launch(name, "mv_coo_scatter_add", flat.data_ptr(), flat.shape[0],
-            flat.shape[1], _is_int(param), lo, rows.data_ptr(),
+            flat.shape[1], _is_int(param), rows.data_ptr(),
             cols.data_ptr(), vals.data_ptr(),
             None if valid is None else valid.data_ptr(), rows.shape[0],
             device=param.device, tag=tag)
@@ -1001,24 +1048,28 @@ def coo_scatter_add_sharded(shards, rows, cols, vals, valid, *, counts):
 # Each form replaces the reference's in-trace sharded form
 # (``_sharded_gather_rows``, ``_sharded_row_scatter_add``,
 # ``_sharded_coo_scatter_add``), which runs a flat kernel per shard inside
-# a shard_map over masked GLOBAL lanes and psums the gather. Here each
-# shard launches the flat CUDA kernel over all the lanes with its row
-# window ``[s * rps, (s + 1) * rps)``, a scalar of the launch: lanes
-# outside the window are foreign and exit at once (see csrc/row_kernels.cu
-# for why the reference's mapping of foreign lanes onto the shard's last
-# row is not copied). Lane counts per shard stay on the device, so nothing
-# syncs the host. The scatter-adds sort the lanes once, on the first
-# shard's device, for every shard; sorted global ids keep each shard's
-# lanes contiguous and in the flat kernel's order, so a sharded table ends
+# a shard_map over masked GLOBAL lanes and psums the gather. Here the
+# gather launches the flat CUDA kernel once per shard over all the lanes
+# with its row window ``[s * rps, (s + 1) * rps)``, a scalar of the
+# launch; the scatter-adds launch once per card over all the lanes with
+# the table of every shard that card holds (base pointers and first
+# global rows, ``mesh_launch_tables``). Lanes outside a launch's windows
+# are foreign and exit at once (see csrc/row_kernels.cu for why the
+# reference's mapping of foreign lanes onto the shard's last row is not
+# copied). Lane counts per shard stay on the device, so nothing syncs the
+# host. The scatter-adds sort the lanes once, on the first shard's
+# device, for every card; sorted global ids keep every run inside one
+# shard and in the flat kernel's order, so a sharded table ends
 # bit-identical to the unsharded one. Each launch counts one under the
 # form's own ``LAUNCHES`` name. The shards of a param are equal row
 # blocks (the port's tables always split evenly), so unlike the
 # reference, which falls back to XLA for an uneven split, no form has a
 # fallback: unequal shards raise ``ValueError``.
 #
-# What bounds them: the flat kernels' bytes, plus one launch and one
-# early-exit pass over the lanes per extra shard; shards that share a card
-# run in turn on its stream, so their longest runs add up.
+# What bounds them: the flat kernels' bytes, plus the gather's one launch
+# and one early-exit pass over the lanes per extra shard; the
+# scatter-adds serve a card's shards in one launch, so the long runs of
+# different shards overlap.
 #
 # The plain version beside each is the reference's XLA engine: the flat
 # plain op on the shards concatenated, written back to the shards.
@@ -1042,6 +1093,20 @@ class ShardedParam:
                 f"equal blocks of one dtype, got "
                 f"{[(tuple(t.shape), t.dtype) for t in shards]}")
         self.shards = shards
+        self._launches = (None, [])  # (shard pointers, their launch tables)
+
+    def launch_tables(self) -> list:
+        """:func:`mesh_launch_tables` as the C entry points take them,
+        ``[(device, bases, firsts, count), ...]``, built again only when a
+        shard's storage moved."""
+        ptrs = tuple(t.data_ptr() for t in self.shards)
+        if self._launches[0] != ptrs:
+            self._launches = (ptrs, [
+                (dev, (ctypes.c_void_p * len(bases))(*bases),
+                 (ctypes.c_int64 * len(firsts))(*firsts), len(bases))
+                for dev, bases, firsts in mesh_launch_tables(
+                    self.shards, self.rows_per_shard)])
+        return self._launches[1]
 
     @property
     def rows_per_shard(self) -> int:
@@ -1071,6 +1136,29 @@ def _check_mesh(param: ShardedParam, dtypes) -> str:
     for p in param.shards:
         _check_table(p, dtypes)
     return kind
+
+
+def shard_groups(shards) -> list:
+    """The shards grouped by device, in shard order: ``[(device, [shard
+    index, ...]), ...]``, devices in the order of their first shard."""
+    groups: Dict[torch.device, list] = {}
+    for s, t in enumerate(shards):
+        groups.setdefault(t.device, []).append(s)
+    return list(groups.items())
+
+
+def mesh_launch_tables(shards, rows_per_shard: int,
+                       max_shards: int = MESH_MAX_SHARDS) -> list:
+    """The launches of a mesh scatter-add: one per group of at most
+    ``max_shards`` shards of one device, as ``(device, [base pointer of
+    each shard], [its first global row])``."""
+    out = []
+    for dev, idx in shard_groups(shards):
+        for k in range(0, len(idx), max_shards):
+            part = idx[k:k + max_shards]
+            out.append((dev, [shards[s].data_ptr() for s in part],
+                        [s * rows_per_shard for s in part]))
+    return out
 
 
 def _per_device(tensors, dev0: torch.device, cache: dict,
@@ -1142,22 +1230,27 @@ def row_scatter_add_mesh(param: ShardedParam, ids: torch.Tensor,
     place, global ids in any order; returns ``param``.
 
     Replaces the reference's in-trace ``_sharded_row_scatter_add``: one
-    stable sort of the ids on the first device, shared by every shard,
-    then one windowed ``mv_row_scatter_add`` per shard on its card and
-    current stream, reading the deltas through the sort's permutation."""
+    stable sort of the ids on the first device, shared by every card,
+    then one ``mv_row_scatter_add_mesh`` per card over the shards it
+    holds, on its current stream, reading the deltas through the sort's
+    permutation."""
     kind = _check_mesh(param, ADD_DTYPES)
     _check(param.shards[0], ids, deltas)
     if kind == "cpu":
         return row_scatter_add_mesh_plain(param, ids, deltas)
-    if ids.shape[0] == 0:
+    n = ids.shape[0]
+    if n == 0:
         return param
     sids, order = torch.sort(ids.to(torch.int32), stable=True)
     lanes = (sids, order, deltas.contiguous())
+    rows, cols = _rows(param.shards[0]).shape
     cache = {}
-    for s, p in enumerate(param.shards):
-        i_s, o_s, d_s = _per_device(lanes, param.device, cache, p.device)
-        _launch_scatter("row_scatter_add_mesh", p, i_s, o_s, d_s, None,
-                        lo=s * param.rows_per_shard)
+    for dev, *table in param.launch_tables():
+        i_s, o_s, d_s = _per_device(lanes, param.device, cache, dev)
+        _launch("row_scatter_add_mesh", "mv_row_scatter_add_mesh", *table,
+                rows, cols, _is_int(param.shards[0]), i_s.data_ptr(),
+                o_s.data_ptr(), d_s.data_ptr(), None, n, device=dev,
+                scatter_lanes=n)
     return param
 
 
@@ -1181,21 +1274,24 @@ def coo_scatter_add_mesh(param: ShardedParam, rows: torch.Tensor,
 
     Replaces the reference's in-trace ``_sharded_coo_scatter_add``: one
     stable sort of the lanes by row on the first device, then one
-    windowed ``mv_coo_scatter_add`` per shard."""
+    ``mv_coo_scatter_add_mesh`` per card over the shards it holds."""
     kind = _check_mesh(param, ADD_DTYPES)
     _check_coo(param.shards[0], rows, cols, vals)
     if kind == "cpu":
         return coo_scatter_add_mesh_plain(param, rows, cols, vals)
-    if rows.shape[0] == 0:
+    n = rows.shape[0]
+    if n == 0:
         return param
     srows, order = torch.sort(rows.to(torch.int32), stable=True)
     lanes = (srows, cols.to(torch.int32)[order],
              vals.to(param.dtype)[order])
+    nrows, ncols = _rows(param.shards[0]).shape
     cache = {}
-    for s, p in enumerate(param.shards):
-        r_s, c_s, v_s = _per_device(lanes, param.device, cache, p.device)
-        _launch_coo("coo_scatter_add_mesh", p, r_s, c_s, v_s, None,
-                    lo=s * param.rows_per_shard)
+    for dev, *table in param.launch_tables():
+        r_s, c_s, v_s = _per_device(lanes, param.device, cache, dev)
+        _launch("coo_scatter_add_mesh", "mv_coo_scatter_add_mesh", *table,
+                nrows, ncols, _is_int(param.shards[0]), r_s.data_ptr(),
+                c_s.data_ptr(), v_s.data_ptr(), None, n, device=dev)
     return param
 
 
@@ -1209,8 +1305,10 @@ __all__ = ["ADD_DTYPES", "GATHER_DTYPES", "KV_UPDATERS", "LAUNCHES",
            "gather_rows_sharded_plain", "kv_lookup", "kv_lookup_plain",
            "kv_lookup_sharded", "kv_lookup_sharded_plain", "kv_probe_update",
            "kv_probe_update_plain", "kv_probe_update_sharded",
-           "kv_probe_update_sharded_plain", "reset_launches",
+           "kv_probe_update_sharded_plain", "mesh_launch_tables",
+           "reset_launches",
            "row_scatter_add", "row_scatter_add_masked",
            "row_scatter_add_masked_plain", "row_scatter_add_mesh",
            "row_scatter_add_mesh_plain", "row_scatter_add_plain",
-           "row_scatter_add_sharded", "row_scatter_add_sharded_plain"]
+           "row_scatter_add_sharded", "row_scatter_add_sharded_plain",
+           "scatter_workspace_size", "shard_groups"]

@@ -24,7 +24,8 @@ Tables split over the model axis of a (1, S) mesh take part too: the body
 gets each such table's storage as a
 :class:`~multiverso_tpu_torch.ops.table_kernels.ShardedParam` (the
 shards, read like one global array), on which the three functional forms
-launch once per shard with that shard's row window, the counterpart of
+launch the gather once per shard with that shard's row window and the
+scatter-adds once per card over the shards it holds, the counterpart of
 the reference's ``kernel_mesh_scope`` around its dispatch. Tables
 replicated over a data axis above 1 are not ported yet.
 """

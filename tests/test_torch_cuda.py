@@ -782,7 +782,8 @@ def _mesh_host(param):
 def test_mesh_forms_match_cpu_plain(cuda, devices):
     """Gather, row scatter-add (float32, int32) and COO add (int32 flat
     and tiled, float32) over S shards on the card, bit for bit against
-    the plain versions on the CPU shards; S launches per call."""
+    the plain versions on the CPU shards; S gather launches per call, one
+    scatter-add launch per card."""
     rng = np.random.default_rng(len(devices))
     cpus = ["cpu"] * len(devices)
     rows = 10_004
@@ -802,7 +803,7 @@ def test_mesh_forms_match_cpu_plain(cuda, devices):
         want = tk.row_scatter_add(_mesh_param(x, cpus), ids, d)
         torch.cuda.synchronize()
         assert torch.equal(_mesh_host(param), _mesh_host(want))
-        assert tk.LAUNCHES["row_scatter_add_mesh"] == len(devices)
+        assert tk.LAUNCHES["row_scatter_add_mesh"] == len(set(devices))
         # the same lanes through the flat kernel on the whole table
         flat = tk.row_scatter_add(x.to(cuda), ids.to(cuda), d.to(cuda))
         assert torch.equal(flat.cpu(), _mesh_host(param))
@@ -844,7 +845,7 @@ def test_mesh_gather_leaves_foreign_lanes_to_their_shard(cuda):
 def test_mesh_word2vec_on_one_card_matches_one_shard(cuda, tmp_path):
     """Skip-gram NS and CBOW HS at a small width on a (1, 4) mesh of
     cuda:0: the tables equal the (1, 1) run's bit for bit, and each
-    functional call launches once per shard."""
+    gather launches once per shard, each scatter-add once per card."""
     from multiverso_tpu_torch import core
     from multiverso_tpu_torch.apps.word_embedding import (W2VConfig,
                                                           WordEmbedding)
@@ -865,5 +866,174 @@ def test_mesh_word2vec_on_one_card_matches_one_shard(cuda, tmp_path):
             assert a.tobytes() == b.tobytes()
         one, four = out[0][2], out[1][2]
         assert four["gather_rows_mesh"] == 4 * one["row_gather"] > 0
-        assert four["row_scatter_add_mesh"] == 4 * one["row_scatter_add"]
+        assert four["row_scatter_add_mesh"] == one["row_scatter_add"]
         assert four["row_gather"] == four["row_scatter_add"] == 0
+
+
+# -- the row scatter-add's long runs (a block per run) ------------------------
+
+
+def _mixed(rng, shape):
+    """float32 deltas of mixed magnitude (1e-3 to 1e7), so that any other
+    summation order than the plain version's shows in the bits."""
+    return (rng.standard_normal(shape)
+            * 10.0 ** rng.integers(-3, 8, shape)).astype(np.float32)
+
+
+def _scatter_on_card(cuda, x, ids, d, valid=None):
+    """The kernel's table (ids in any order; ``valid`` takes the masked
+    form over sorted ids) against the plain version's on the CPU."""
+    if valid is None:
+        got = tk.row_scatter_add(x.to(cuda), ids.to(cuda), d.to(cuda))
+        want = tk.row_scatter_add_plain(x.clone(), ids, d)
+    else:
+        got = tk.row_scatter_add_masked(x.to(cuda), ids.to(cuda),
+                                        d.to(cuda), valid.to(cuda))
+        want = tk.row_scatter_add_masked_plain(x.clone(), ids, d, valid)
+    torch.cuda.synchronize()
+    return got.cpu(), want
+
+
+def _run_ids(case, rng, rows):
+    split = tk.SCATTER_SPLIT
+    if case == "one_run_20000":
+        return np.full(20_000, 7, np.int32)
+    if case.startswith("split"):
+        k = split + int(case[len("split"):])
+        background = rng.integers(0, rows, 3000).astype(np.int32)
+        return rng.permutation(np.concatenate(
+            [np.full(k, 5, np.int32), np.full(k, rows - 1, np.int32),
+             background]))
+    if case == "zipf_24576":   # phase 2's ids (chip_smoke.zipf_ids)
+        return np.clip(rng.zipf(1.2, 24_576) - 1, 0, rows - 2).astype(
+            np.int32)
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case", ["one_run_20000", "split-1", "split+0",
+                                  "split+1", "zipf_24576"])
+@pytest.mark.parametrize("cols", [3, 100, 101, 1024])
+def test_row_scatter_long_runs_match_plain(cuda, case, cols):
+    """Runs on either side of the split, one run of 20,000 lanes and
+    phase 2's Zipf ids, ids in any order (read through the sort's
+    permutation), on the vector (100, 1024) and scalar (3, 101) paths:
+    bit for bit the plain version's sorted-lane order."""
+    rng = np.random.default_rng(cols)
+    rows = 10_001 if cols <= 101 else 2_001
+    ids = _run_ids(case, rng, rows)
+    x = torch.from_numpy(_mixed(rng, (rows, cols)))
+    d = torch.from_numpy(_mixed(rng, (len(ids), cols)))
+    before = tk.LAUNCHES["row_scatter_add"]
+    got, want = _scatter_on_card(cuda, x, torch.from_numpy(ids), d)
+    assert torch.equal(_bits(got), _bits(want))
+    assert tk.LAUNCHES["row_scatter_add"] == before + 1
+
+
+@pytest.mark.parametrize("cols", [100, 101])
+def test_row_scatter_masked_long_run_matches_plain(cuda, cols):
+    """A long run with masked lanes inside it (and a wholly masked one):
+    the masked lanes add nothing, the rest add in lane order."""
+    rng = np.random.default_rng(3 + cols)
+    rows = 500
+    ids = np.sort(np.concatenate([
+        np.full(9000, 17, np.int32), np.full(700, 400, np.int32),
+        rng.integers(0, rows, 4000).astype(np.int32)]))
+    valid = rng.random(len(ids)) < 0.7
+    valid[ids == 400] = False
+    x = torch.from_numpy(_mixed(rng, (rows, cols)))
+    d = torch.from_numpy(_mixed(rng, (len(ids), cols)))
+    got, want = _scatter_on_card(cuda, x, torch.from_numpy(ids), d,
+                                 torch.from_numpy(valid))
+    assert torch.equal(_bits(got), _bits(want))
+    assert torch.equal(_bits(got[400]), _bits(x[400]))
+
+
+@pytest.mark.parametrize("case", ["one_run_20000", "split+1", "zipf_24576"])
+def test_row_scatter_int32_wide_rows(cuda, case):
+    """int32 rows 1,024 wide: exact, and equal to the plain version."""
+    rng = np.random.default_rng(11)
+    rows = 2_001
+    ids = _run_ids(case, rng, rows)
+    x = torch.from_numpy(rng.integers(-50, 50, (rows, 1024)).astype(
+        np.int32))
+    d = torch.from_numpy(rng.integers(-9, 9, (len(ids), 1024)).astype(
+        np.int32))
+    got, want = _scatter_on_card(cuda, x, torch.from_numpy(ids), d)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("runs", [[(100, 6000)], [(100, 6000), (7600, 5000)]])
+def test_mesh_scatter_long_runs_in_shards(cuda, runs):
+    """Four shards of 2,501 rows on one card: a long run wholly inside one
+    shard, or two long runs in two shards, in one launch per call; the
+    tables equal the flat kernel's whole table and the plain version's,
+    bit for bit."""
+    rng = np.random.default_rng(len(runs))
+    rows, cols = 10_004, 100
+    ids = np.concatenate([np.full(k, r, np.int32) for r, k in runs]
+                         + [rng.integers(0, rows, 2000).astype(np.int32)])
+    ids = torch.from_numpy(rng.permutation(ids))
+    x = torch.from_numpy(_mixed(rng, (rows, cols)))
+    d = torch.from_numpy(_mixed(rng, (len(ids), cols)))
+    param = _mesh_param(x, ["cuda:0"] * 4)
+    before = dict(tk.LAUNCHES)
+    tk.row_scatter_add(param, ids.to(cuda), d.to(cuda))
+    assert tk.LAUNCHES["row_scatter_add_mesh"] == \
+        before["row_scatter_add_mesh"] + 1
+    flat, want = _scatter_on_card(cuda, x, ids, d)
+    assert torch.equal(_bits(_mesh_host(param)), _bits(want))
+    assert torch.equal(_bits(flat), _bits(want))
+
+
+def test_mesh_coo_is_one_launch_per_card(cuda):
+    """The mesh COO add (int32 tiled, float32 flat) over four shards of one
+    card: one launch a call, equal to the flat kernel on the whole table
+    bit for bit."""
+    rng = np.random.default_rng(5)
+    for dtype, shape in ((torch.int32, (50_004, 8, 128)),
+                         (torch.float32, (1_000, 64))):
+        n = 200_000
+        r = torch.from_numpy(np.clip(rng.zipf(1.1, n) - 1, 0,
+                                     shape[0] - 1).astype(np.int32))
+        c = torch.from_numpy(rng.integers(0, int(np.prod(shape[1:])), n)
+                             .astype(np.int32))
+        v = torch.from_numpy(rng.integers(-2, 3, n).astype(np.float32))
+        p0 = torch.from_numpy(rng.integers(0, 5, shape)).to(dtype)
+        param = _mesh_param(p0, ["cuda:0"] * 4)
+        before = tk.LAUNCHES["coo_scatter_add_mesh"]
+        tk.coo_scatter_add(param, r.to(cuda), c.to(cuda), v.to(cuda))
+        assert tk.LAUNCHES["coo_scatter_add_mesh"] == before + 1
+        flat = tk.coo_scatter_add(p0.to(cuda), r.to(cuda), c.to(cuda),
+                                  v.to(cuda))
+        torch.cuda.synchronize()
+        assert torch.equal(_mesh_host(param).view(shape), flat.cpu()), dtype
+
+
+def test_scatter_workspace_left_zero_and_its_size_checked(cuda):
+    """The long-run kernel's last block zeroes the workspace's head, so the
+    next call on the stream starts from an empty list; a workspace smaller
+    than the kernel's own split needs is refused, and nothing launches."""
+    from multiverso_tpu_torch.ops import _build
+    rng = np.random.default_rng(9)
+    ids = torch.from_numpy(np.concatenate([
+        np.full(5000, 3, np.int32), rng.integers(0, 400, 2000).astype(
+            np.int32)]))
+    x = torch.from_numpy(_mixed(rng, (400, 100)))
+    for _ in range(2):  # the second call reuses the workspace
+        d = torch.from_numpy(_mixed(rng, (len(ids), 100)))
+        got, want = _scatter_on_card(cuda, x, ids, d)
+        assert torch.equal(_bits(got), _bits(want))
+    dev = torch.device("cuda", torch.cuda.current_device())
+    ws = tk._WORKSPACES[(dev, torch.cuda.current_stream().cuda_stream)]
+    assert ws[:2].tolist() == [0, 0]
+    n = len(ids)
+    p, i, dd = x.to(cuda), ids.to(cuda), d.to(cuda)
+    small = torch.zeros(tk.scatter_workspace_size(n) - 1, dtype=torch.int64,
+                        device=cuda)
+    err = _build.load().mv_row_scatter_add(
+        p.data_ptr(), 400, 100, 0, i.data_ptr(), None, dd.data_ptr(), None,
+        n, small.data_ptr(), small.numel(),
+        torch.cuda.current_stream().cuda_stream)
+    assert err != 0
+    torch.cuda.synchronize()
+    assert torch.equal(p.cpu(), x)

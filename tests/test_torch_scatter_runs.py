@@ -1,0 +1,233 @@
+"""The row scatter-add's order contract and the host side of its dispatch.
+
+``mv_row_scatter_add`` gives a run of equal ids longer than
+``SCATTER_SPLIT`` a block of its own, and the mesh scatter-adds launch
+once per card over the shards it holds. Neither may change the sum: each
+row receives ``row + d[first] + d[second] + ...``, its valid deltas in
+stable-sorted lane order, which is what keeps sharded tables bit-identical
+to unsharded ones. On the CPU the wrappers run their plain versions; here
+those are held
+
+- against a numpy float32 left fold, bit for bit, at run lengths on both
+  sides of the warp and of the split, with deltas of mixed magnitude
+  (1e-3 to 1e7) so that any other order would show;
+- against the JAX package's ``build_row_scatter_add`` /
+  ``build_row_scatter_add_masked`` (``interpret=True``, as the JAX
+  package's own tests run them) on a long run over a Zipf background, at
+  rtol 1e-6 as in ``tests/test_torch_table_kernels.py``.
+
+The host pieces of the dispatch (the long-run workspace, the grouping of a
+sharded param's shards by device, the per-card launch tables) are plain
+functions, tested here on CPU tensors. The CUDA kernels are held against
+the plain versions on the card by ``tests/test_torch_cuda.py``.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from multiverso_tpu.ops import table_kernels as jtk
+from multiverso_tpu_torch.ops import table_kernels as tk
+
+RTOL, ATOL = 1e-6, 1e-6
+RUN_LENGTHS = [1, 31, 32, 33, 63, 64, 65, 255, 256, 257, 4534]
+ROWS, COLS, RUN_ROW = 6, 5, 2
+
+
+def _mixed(rng, shape):
+    """float32 values of mixed magnitude, 1e-3 to 1e7, either sign."""
+    return (rng.standard_normal(shape)
+            * 10.0 ** rng.integers(-3, 8, shape)).astype(np.float32)
+
+
+def _fold(row, deltas):
+    """``row + d[0] + d[1] + ...`` in float32, left to right."""
+    acc = row.copy()
+    for d in deltas:
+        acc = acc + d
+    return acc
+
+
+def _lanes(rng, length, sort):
+    """A run of ``length`` lanes on RUN_ROW among 40 background lanes on
+    the other rows; shuffled, or sorted ascending (stable)."""
+    others = np.setdiff1d(np.arange(ROWS), [RUN_ROW])
+    ids = np.concatenate([np.full(length, RUN_ROW),
+                          rng.choice(others, 40)]).astype(np.int32)
+    ids = rng.permutation(ids)
+    return np.sort(ids, kind="stable") if sort else ids
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("length", RUN_LENGTHS)
+def test_plain_scatter_is_a_left_fold_in_lane_order(length, masked):
+    rng = np.random.default_rng(length + 7 * masked)
+    ids = _lanes(rng, length, sort=masked)
+    x = _mixed(rng, (ROWS, COLS))
+    d = _mixed(rng, (len(ids), COLS))
+    valid = rng.random(len(ids)) < 0.75 if masked else np.ones(len(ids),
+                                                               bool)
+    if masked:
+        got = tk.row_scatter_add_masked_plain(
+            torch.from_numpy(x.copy()), torch.from_numpy(ids),
+            torch.from_numpy(d), torch.from_numpy(valid)).numpy()
+    else:
+        got = tk.row_scatter_add_plain(torch.from_numpy(x.copy()),
+                                       torch.from_numpy(ids),
+                                       torch.from_numpy(d)).numpy()
+    for r in range(ROWS):
+        lanes = np.flatnonzero((ids == r) & valid)   # lane order
+        want = _fold(x[r], d[lanes])
+        np.testing.assert_array_equal(got[r].view(np.int32),
+                                      want.view(np.int32), err_msg=str(r))
+    run = np.flatnonzero((ids == RUN_ROW) & valid)
+    if len(run) >= 31:   # the deltas tell the order apart
+        assert not np.array_equal(_fold(x[RUN_ROW], d[run]),
+                                  _fold(x[RUN_ROW], d[run[::-1]]))
+
+
+def _zipf_background(rng, n, rows):
+    return np.clip(rng.zipf(1.2, n) - 1, 0, rows - 1).astype(np.int32)
+
+
+@pytest.mark.parametrize("length", [63, 65, 257, 600])
+def test_long_run_matches_pallas(length):
+    rng = np.random.default_rng(length)
+    rows, cols = 40, 12
+    ids = np.concatenate([np.full(length, 9, np.int32),
+                          _zipf_background(rng, 300, rows)])
+    ids = rng.permutation(ids)
+    param = rng.standard_normal((rows, cols)).astype(np.float32)
+    deltas = rng.standard_normal((len(ids), cols)).astype(np.float32)
+    order = np.argsort(ids, kind="stable")        # the kernel's sorted input
+    want = jtk.build_row_scatter_add(num_cols=cols, tiles=0, interpret=True)(
+        jnp.asarray(param), jnp.asarray(ids[order]),
+        jnp.asarray(deltas[order]))
+    got = tk.row_scatter_add(torch.from_numpy(param.copy()),
+                             torch.from_numpy(ids), torch.from_numpy(deltas))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("length", [63, 65, 257, 600])
+def test_masked_long_run_matches_pallas(length):
+    rng = np.random.default_rng(100 + length)
+    rows, cols = 40, 12
+    ids = np.sort(np.concatenate([np.full(length, 9, np.int32),
+                                  _zipf_background(rng, 300, rows)]))
+    param = rng.standard_normal((rows, cols)).astype(np.float32)
+    deltas = rng.standard_normal((len(ids), cols)).astype(np.float32)
+    valid = rng.random(len(ids)) < 0.7
+    want = jtk.build_row_scatter_add_masked(
+        num_cols=cols, tiles=0, interpret=True)(
+        jnp.asarray(param), jnp.asarray(ids), jnp.asarray(deltas),
+        jnp.asarray(valid))
+    got = tk.row_scatter_add_masked(torch.from_numpy(param.copy()),
+                                    torch.from_numpy(ids),
+                                    torch.from_numpy(deltas),
+                                    torch.from_numpy(valid))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+
+
+# -- the host side of the dispatch ---------------------------------------------
+
+
+@pytest.mark.parametrize("n", [1, 32, 33, 65, 20_000, 24_576])
+def test_workspace_holds_every_long_run(n):
+    """Room for the count, the long-run kernel's block counter and a
+    (start, length) pair per run longer than the split: at most
+    n // (split + 1) such runs fit in n lanes."""
+    words = tk.scatter_workspace_size(n)
+    assert words == 2 + 2 * (n // tk.SCATTER_SPLIT + 1)
+    assert (words - 2) // 2 >= n // (tk.SCATTER_SPLIT + 1)
+
+
+def test_scatter_split_is_the_kernels_constant():
+    from multiverso_tpu_torch.ops import _build
+    src = (_build.CSRC / "row_kernels.cu").read_text()
+    assert f"constexpr int64_t kSplit = {tk.SCATTER_SPLIT};" in src
+
+
+def test_workspace_is_kept_per_stream_and_grown():
+    """One zeroed workspace per (device, stream), reused while large
+    enough, at least doubled when not."""
+    dev = torch.device("cpu")
+    key = (dev, 12345)
+    try:
+        a = tk._scatter_workspace(100, dev, 12345)
+        assert a.numel() == tk.scatter_workspace_size(100)
+        assert not a.any()
+        assert tk._scatter_workspace(50, dev, 12345) is a
+        b = tk._scatter_workspace(200, dev, 12345)
+        assert b is not a and b.numel() == 2 * a.numel() and not b.any()
+        c = tk._scatter_workspace(100_000, dev, 12345)
+        assert c.numel() == tk.scatter_workspace_size(100_000)
+        assert tk._scatter_workspace(10, dev, 54321) is not c
+    finally:
+        tk._WORKSPACES.pop(key, None)
+        tk._WORKSPACES.pop((dev, 54321), None)
+
+
+class _Shard:
+    """A stand-in shard on a named device (the CPU has only one)."""
+
+    def __init__(self, device, ptr):
+        self.device, self._ptr = device, ptr
+
+    def data_ptr(self):
+        return self._ptr
+
+
+def test_four_cpu_shards_make_one_group_and_one_launch():
+    shards = [torch.zeros(5, 3) for _ in range(4)]
+    assert tk.shard_groups(shards) == [(torch.device("cpu"), [0, 1, 2, 3])]
+    (table,) = tk.mesh_launch_tables(shards, 5)
+    dev, bases, firsts = table
+    assert dev == torch.device("cpu")
+    assert bases == [t.data_ptr() for t in shards]
+    assert firsts == [0, 5, 10, 15]
+
+
+@pytest.mark.parametrize("count,max_shards,groups", [
+    (4, 3, [[0, 1, 2], [3]]),
+    (16, 16, [list(range(16))]),
+    (17, 16, [list(range(16)), [16]]),
+    (8, 2, [[0, 1], [2, 3], [4, 5], [6, 7]])])
+def test_a_group_above_the_limit_splits(count, max_shards, groups):
+    shards = [_Shard("cpu", 1000 + s) for s in range(count)]
+    tables = tk.mesh_launch_tables(shards, 7, max_shards)
+    assert [[b - 1000 for b in bases] for _, bases, _ in tables] == groups
+    assert [firsts for _, _, firsts in tables] == \
+        [[7 * s for s in g] for g in groups]
+
+
+def test_shards_group_by_device_in_shard_order():
+    devs = ["cuda:0", "cuda:1", "cuda:0", "cuda:1", "cuda:2"]
+    shards = [_Shard(d, 10 * s) for s, d in enumerate(devs)]
+    assert tk.shard_groups(shards) == [("cuda:0", [0, 2]),
+                                       ("cuda:1", [1, 3]), ("cuda:2", [4])]
+    assert tk.mesh_launch_tables(shards, 100) == [
+        ("cuda:0", [0, 20], [0, 200]), ("cuda:1", [10, 30], [100, 300]),
+        ("cuda:2", [40], [400])]
+
+
+def test_launch_tables_follow_the_shards_storage():
+    """A ShardedParam keeps its ctypes launch tables while its shards keep
+    their storage, and builds them again when a shard's storage moves."""
+    param = tk.ShardedParam(torch.zeros(5, 3) for _ in range(4))
+    (dev, bases, firsts, count), = param.launch_tables()
+    assert dev == torch.device("cpu") and count == 4
+    assert list(bases) == [t.data_ptr() for t in param.shards]
+    assert list(firsts) == [0, 5, 10, 15]
+    assert param.launch_tables()[0][1] is bases   # kept
+    param.shards[2] = torch.ones(5, 3)
+    (_, moved, _, _), = param.launch_tables()
+    assert moved is not bases and moved[2] == param.shards[2].data_ptr()
+
+
+def test_mesh_max_shards_is_the_kernels_limit():
+    from multiverso_tpu_torch.ops import _build
+    src = (_build.CSRC / "shards.cuh").read_text()
+    assert f"constexpr int kMaxShards = {tk.MESH_MAX_SHARDS};" in src
