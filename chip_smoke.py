@@ -65,7 +65,8 @@ its seconds):
    (24,576 Zipf ids), SparseMatrixTable 50,000 x 1024 int32 flat and
    tiled (512,000-lane COO adds), KVTable of 2^25 slots (ftrl, value_dim
    2, 159,000-key adds) with a batch that overflows one bucket of shard
-   0: bit-identical in the logical region, the same overflow verdict.
+   0: bit-identical in the logical region, the same overflow verdict;
+   each MatrixTable get_rows and stateless add_rows one launch per card.
 12. Sparse logistic regression of phase 10 on the (1, 4) mesh through
    ``SparseLogisticRegression(cfg, mesh=...)``, from phase 10's data: its
    final keys, values and state must equal phase 10's bit for bit; the
@@ -74,14 +75,13 @@ its seconds):
 13. word2vec of phase 4 on the (1, 4) mesh through
    ``WordEmbedding(corpus, cfg, mesh=...)``: the superstep hands the body
    both tables as ShardedParams, and every gather and scatter-add runs the
-   functional form over them (the gather one windowed launch per shard,
-   the scatter-adds one launch per card over its shards). From phase 4's
-   corpus, initial weights, pairs and negatives: w_in and w_out must
-   equal phase 4's bit for bit, the loss must fall, the launches must be
-   exactly 4 per gather and 1 per scatter-add (one card); words/s beside
-   phase 4's. Then a superstep COO add over a (1, 4) SparseMatrixTable at
-   the LightLDA call's width, bit-identical to the (1, 1) table, one
-   launch per card a call.
+   functional form over them (one launch per card over its shards). From
+   phase 4's corpus, initial weights, pairs and negatives: w_in and w_out
+   must equal phase 4's bit for bit, the loss must fall, the launches must
+   be exactly 1 per gather and 1 per scatter-add (one card); words/s
+   beside phase 4's. Then a superstep COO add over a (1, 4)
+   SparseMatrixTable at the LightLDA call's width, bit-identical to the
+   (1, 1) table, one launch per card a call.
 14. The row scatter's kernel on phase 2's sorted lanes taken apart by
    torch.profiler: each kernel's device time, the device idle between
    them, the host's time to queue a call. Last, so that no profiler
@@ -94,8 +94,10 @@ all six updaters, and a small sparse LR on the card against the CPU; and
 the five sharded forms at S = 4 against their plain versions on the CPU,
 bit for bit: the KV lookup and probe + commit (ftrl) at those shapes on
 four shards of 524,288 buckets (with a batch that overflows one bucket of
-shard 0), the row gather and scatter-add at the word2vec shapes, the COO
-add at the LightLDA call's. And the three functional forms over a
+shard 0), the row gather and scatter-add at the word2vec shapes (each
+beside the flat kernel on the table concatenated and the host's time to
+queue a call), the COO add at the LightLDA call's. And the three
+functional forms over a
 ShardedParam of four shards (a superstep body's gather, row scatter-add
 and COO add over a split table) against their plain versions on the CPU,
 bit for bit, with their times beside ``index_select`` / ``index_add_`` /
@@ -1610,10 +1612,12 @@ def phase_sharded_kernels(torch, tk, core, KVTable, devices, rng) -> dict:
     shards = on_shards(torch, param, devices)
     lo = torch.as_tensor(local, device=devices[0])
     iv = torch.as_tensor(inv, device=devices[0])
-    # the library calls take the table concatenated and the global ids
+    # the library calls and the flat kernels take the table concatenated
+    # and the global ids
     whole = torch.as_tensor(param, device=devices[0])
     gids = torch.as_tensor(ids, device=devices[0])
     fn = lambda: tk.gather_rows_sharded(shards, lo, iv, counts=counts)
+    flat_fn = lambda: tk.gather_rows(whole, gids)
     record("row_gather_sharded", [fn()], [tk.gather_rows_sharded_plain(
         on_shards(torch, param, cpus), torch.as_tensor(local),
         torch.as_tensor(inv))], fn,
@@ -1621,6 +1625,10 @@ def phase_sharded_kernels(torch, tk, core, KVTable, devices, rng) -> dict:
         n * 8 + uniq * DIM * 4 + n * DIM * 4, 0,
         library=lambda: whole.index_select(0, gids), n=n,
         lanes=local.shape[1])
+    # timed after the check: a timing loop calls the form again
+    out["row_gather_sharded"].update(
+        flat_ms=cuda_ms(flat_fn, 200), host_ms=host_ms(fn, 200),
+        flat_host_ms=host_ms(flat_fn, 200))
 
     sids = np.sort(ids)
     deltas = torch.randn(n, DIM, generator=g).numpy()
@@ -1634,11 +1642,21 @@ def phase_sharded_kernels(torch, tk, core, KVTable, devices, rng) -> dict:
     fn = lambda: tk.row_scatter_add_sharded(shards, *ops, counts=counts)
     sd_all = torch.as_tensor(deltas, device=devices[0])
     sids_all = torch.as_tensor(sids, device=devices[0])
+    ok_all = torch.ones(n, dtype=torch.bool, device=devices[0])
+    flat_t = whole.clone()
+    # the same real lanes through the flat masked kernel, global ids
+    flat_fn = lambda: tk.row_scatter_add_masked(flat_t, sids_all, sd_all,
+                                                ok_all)
     record("row_scatter_add_sharded", shards, host, fn,
            lambda: tk.row_scatter_add_sharded_plain(shards, *ops), 50,
            n * 9 + n * DIM * 4 + 2 * uniq * DIM * 4, n * DIM,
            library=lambda: whole.index_add_(0, sids_all, sd_all), n=n,
-           lanes=local.shape[1])
+           lanes=local.shape[1],
+           longest_run_per_shard=longest_runs(sids, rps))
+    out["row_scatter_add_sharded"].update(
+        flat_ms=cuda_ms(flat_fn, 50), host_ms=host_ms(fn, 50),
+        flat_host_ms=host_ms(flat_fn, 50))
+    del flat_t
     del whole
 
     # COO: a LightLDA call's 512,000 (word, topic, 1) lanes into the
@@ -1744,6 +1762,12 @@ def phase_sharded_kernels(torch, tk, core, KVTable, devices, rng) -> dict:
             f"a call's wall time {r['call_ms']:.4f} ms; "
             f"bit-identical to the CPU plain version; launches per call "
             f"{r['launches_per_call']}")
+        if "flat_ms" in r:
+            log(f"    the flat kernel on the table concatenated "
+                f"{r['flat_ms']:.4f} ms; host time to queue a call "
+                f"{r['host_ms']:.4f} ms (flat {r['flat_host_ms']:.4f} ms)"
+                + (f"; longest run per shard {r['longest_run_per_shard']}"
+                   if "longest_run_per_shard" in r else ""))
     log(f"  kv_probe_update_sharded overflow batch: {over} lanes, one "
         "bucket of shard 0 overflowing; n_over global and equal to the "
         "plain version's, all four shards bit-identical after it")
@@ -1797,6 +1821,11 @@ def phase_sharded_tables(torch, tk, mesh, MatrixTable, SparseMatrixTable,
     unsharded on the mesh's first device, bit for bit in the logical
     region."""
     one = dict(device=mesh.devices[0, 0])
+    cards = len(set(mesh.shard_devices))
+    # a row Get or a stateless Add on the split table: one launch per card
+    per_call = {"get": {"row_gather_sharded": cards},
+                "add": {"row_scatter_add_sharded": cards,
+                        "row_scatter_add_masked": cards}}
     for updater in ("default", "sgd", "adagrad"):
         opt = AddOption(learning_rate=0.05, lam=1e-6)
         init = (rng.standard_normal((ROWS - 1, DIM)) * 0.05).astype(
@@ -1809,18 +1838,26 @@ def phase_sharded_tables(torch, tk, mesh, MatrixTable, SparseMatrixTable,
             if updater == "adagrad":
                 ids = np.unique(ids)
             d = rng.standard_normal((len(ids), DIM)).astype(np.float32)
-            a.add_rows(ids, d)
+            grown = launch_delta(tk, lambda: a.add_rows(ids, d))
+            if updater != "adagrad" and grown != per_call["add"]:
+                raise SystemExit(f"sharded add_rows launched {grown}, "
+                                 f"expected {per_call['add']}")
             b.add_rows(ids, d)
         q = zipf_ids(rng, 4096, ROWS)
+        got = {}
+        grown = launch_delta(tk, lambda: got.update(rows=a.get_rows(q)))
+        if grown != per_call["get"]:
+            raise SystemExit(f"sharded get_rows launched {grown}, expected "
+                             f"{per_call['get']}")
         if not (np.array_equal(a.get().view(np.int32),
                                b.get().view(np.int32))
-                and np.array_equal(a.get_rows(q).view(np.int32),
+                and np.array_equal(got["rows"].view(np.int32),
                                    b.get_rows(q).view(np.int32))):
             raise SystemExit(f"sharded MatrixTable {updater} != unsharded")
         log(f"  MatrixTable {ROWS - 1} x {DIM} {updater:8s} on "
             f"{len(a.shards)} shards ({a._rows_per_shard} rows each): "
             "2 add_rows of 24,576 Zipf ids + get_rows bit-identical to "
-            "the unsharded table")
+            f"the unsharded table; one launch per card a call ({cards})")
     for tiled in (False, True):
         a, b = (SparseMatrixTable(LDA_V, LDA_K, "int32", tiled=tiled,
                                   name=f"sh_s_{tiled}", **kw)
@@ -2008,7 +2045,7 @@ def phase_mesh_kernels(torch, tk, devices, rng) -> dict:
         param = sharded(x, devices)
         fn = lambda: tk.gather_rows(param, ids)
         flat_fn = lambda: tk.gather_rows(whole, ids)
-        # 100 calls: the host queues a call in about 0.15-0.18 ms (H100
+        # 100 calls: the host queues a call in well under 0.3 ms (H100
         # 80GB HBM3), so they stay inside cuda_ms's spin
         record(f"gather_rows_mesh@{n}", fn().cpu(), x[ids_h.long()], fn,
                lambda: tk.gather_rows_mesh_plain(param, ids),
@@ -2119,8 +2156,8 @@ def phase_w2v_mesh(torch, tk, counts, reset, core, W2VConfig, WordEmbedding,
     """Phase 13: phase 4's skip-gram NS on the (1, SHARDS) mesh, from
     phase 4's corpus, initial weights (the same seed), pairs and
     negatives (drawn on the first shard's card): its w_in and w_out must
-    equal phase 4's bit for bit, the loss must fall, and every gather
-    must launch once per shard, every scatter-add once per card. Then a
+    equal phase 4's bit for bit, the loss must fall, and every gather and
+    every scatter-add must launch once per card. Then a
     superstep COO add over a
     (1, SHARDS) SparseMatrixTable at the LightLDA call's width against
     the (1, 1) table. Returns (numbers, {path: launch counts})."""
@@ -2148,10 +2185,10 @@ def phase_w2v_mesh(torch, tk, counts, reset, core, W2VConfig, WordEmbedding,
             raise SystemExit(f"w2v on the (1, {SHARDS}) mesh: {key} != "
                              "phase 4's (1, 1) run")
     grown = paths["word2vec_mesh"]
-    # skip-gram NS: 2 gathers + 2 scatter-adds a step; a gather launches
-    # once per shard, a scatter-add once per card
+    # skip-gram NS: 2 gathers + 2 scatter-adds a step, each launched once
+    # per card
     cards = len(set(devices))
-    for name, per_call in (("gather_rows_mesh", SHARDS),
+    for name, per_call in (("gather_rows_mesh", cards),
                            ("row_scatter_add_mesh", cards)):
         if grown[name] != per_call * 2 * steps:
             raise SystemExit(f"{name}: {grown[name]} launches over {steps} "
@@ -2165,7 +2202,7 @@ def phase_w2v_mesh(torch, tk, counts, reset, core, W2VConfig, WordEmbedding,
         f"{w2v['words_per_sec']:.0f} ({ratio:.3f}x); launches per step "
         f"{grown['gather_rows_mesh'] / steps:.0f} "
         f"gather + {grown['row_scatter_add_mesh'] / steps:.0f} scatter "
-        f"({SHARDS} per gather, {cards} per scatter-add)")
+        f"({cards} per gather and per scatter-add)")
     out = dict(words_per_sec=words_per_sec, seconds=dt, loss_warm=warm,
                losses=losses, words_per_sec_one_shard=w2v["words_per_sec"],
                launches_per_step={k: v / steps for k, v in grown.items()

@@ -33,9 +33,12 @@ build_log = ""
 
 _P, _I64, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
 _SIGNATURES = {
-    # (param, rows, cols, elem_bytes, lo, zero_foreign, ids, n, out,
-    #  stream)
-    "mv_row_gather": [_P, _I64, _I64, _I64, _I64, _I64, _P, _I64, _P, _P],
+    # (param, rows, cols, elem_bytes, ids, n, out, stream)
+    "mv_row_gather": [_P, _I64, _I64, _I64, _P, _I64, _P, _P],
+    # (bases, firsts, count, rows, cols, elem_bytes, ids, inv, L,
+    #  zero_foreign, n, out, stream)
+    "mv_row_gather_mesh": [_P, _P, _I64, _I64, _I64, _I64, _P, _P, _I64,
+                           _I64, _I64, _P, _P],
     # (param, rows, cols, is_int, ids, order, deltas, valid, n, workspace,
     #  ws_words, stream)
     "mv_row_scatter_add": [_P, _I64, _I64, _I64, _P, _P, _P, _P, _I64, _P,
@@ -44,6 +47,10 @@ _SIGNATURES = {
     #  n, workspace, ws_words, stream)
     "mv_row_scatter_add_mesh": [_P, _P, _I64, _I64, _I64, _I64, _P, _P, _P,
                                 _P, _I64, _P, _I64, _P],
+    # (bases, firsts, count, rows, cols, is_int, ids, deltas, valid, lanes,
+    #  workspace, ws_words, stream): per-shard lane arrays
+    "mv_row_scatter_add_shards": [_P, _P, _I64, _I64, _I64, _I64, _P, _P,
+                                  _P, _P, _P, _I64, _P],
     # (param, rows, cols, is_int, rows_ids, cols_ids, vals, valid, n, stream)
     "mv_coo_scatter_add": [_P, _I64, _I64, _I64, _P, _P, _P, _P, _I64, _P],
     # (bases, firsts, count, rows, cols, is_int, rows_ids, cols_ids, vals,

@@ -27,17 +27,17 @@ struct Shards {
 
 // Row `id`'s first element, as T*, or nullptr when no shard holds it. The
 // loop is unrolled so that every index into the by-value struct is a
-// constant (no copy of the parameters to local memory).
+// constant (no copy of the parameters to local memory), and leaves at the
+// (uniform) count.
 template <typename T>
 __device__ __forceinline__ T* shard_row(const Shards& sh, int64_t rows,
                                         int64_t width, int64_t id) {
 #pragma unroll
   for (int k = 0; k < kMaxShards; ++k) {
-    if (k < sh.count) {
-      const int64_t local = id - sh.first[k];
-      if (local >= 0 && local < rows)
-        return static_cast<T*>(sh.base[k]) + local * width;
-    }
+    if (k >= sh.count) break;
+    const int64_t local = id - sh.first[k];
+    if (local >= 0 && local < rows)
+      return static_cast<T*>(sh.base[k]) + local * width;
   }
   return nullptr;
 }

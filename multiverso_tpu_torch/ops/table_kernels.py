@@ -36,15 +36,17 @@ LAUNCHES = {"row_gather": 0, "row_scatter_add": 0,
             "row_scatter_add_masked": 0, "coo_scatter_add": 0,
             "coo_scatter_add_masked": 0, "kv_lookup": 0,
             "kv_probe_update": 0, "kv_commit": 0,
-            # one per sharded call that launches; its per-shard
-            # launches count above as well
+            # the KV and COO sharded forms: one per call that launches;
+            # their per-shard launches count above as well
             "kv_lookup_sharded": 0, "kv_probe_update_sharded": 0,
-            "row_gather_sharded": 0, "row_scatter_add_sharded": 0,
             "coo_scatter_add_sharded": 0,
+            # one per card (per group of MESH_MAX_SHARDS shards of one
+            # card): the sharded row gather (mv_row_gather_mesh) and
+            # row scatter-add (the masked scatter over each shard's real
+            # lanes, which also counts under row_scatter_add_masked), and
             # the functional forms over a ShardedParam (counted under
-            # these names only): the gather one per shard, the
-            # scatter-adds one per card (per group of MESH_MAX_SHARDS
-            # shards of one card)
+            # these names only)
+            "row_gather_sharded": 0, "row_scatter_add_sharded": 0,
             "gather_rows_mesh": 0, "row_scatter_add_mesh": 0,
             "coo_scatter_add_mesh": 0}
 
@@ -128,8 +130,9 @@ def _launch(name: str, fn: str, *args, device: torch.device,
     """Call C entry point ``fn`` on ``device`` (the operands' card), on
     that device's current stream; count the launch under ``name`` in
     ``counts`` (this module's ``LAUNCHES`` by default), and under ``tag``
-    in ``LAUNCHES`` too when given (a sharded form tags its first
-    launch); raise on a CUDA error. ``scatter_lanes``: the row scatter's
+    in ``LAUNCHES`` too when given (a launch a second name counts: a KV
+    or COO sharded form's first launch, each sharded row scatter); raise
+    on a CUDA error. ``scatter_lanes``: the row scatter's
     lane count; its workspace (pointer, words) goes in before the
     stream."""
     from multiverso_tpu_torch.ops import _build
@@ -171,27 +174,16 @@ def gather_rows(param, ids: torch.Tensor) -> torch.Tensor:
     _check(param, ids, dtypes=GATHER_DTYPES)
     if param.device.type == "cpu":
         return gather_rows_plain(param, ids)
-    out = torch.empty((ids.shape[0], _rows(param).shape[1]),
-                      dtype=param.dtype, device=param.device)
-    _gather_into(param, ids, out)
-    return out
-
-
-def _gather_into(param: torch.Tensor, ids: torch.Tensor,
-                 out: torch.Tensor, tag: Optional[str] = None, *,
-                 name: str = "row_gather", lo: int = 0,
-                 zero_foreign: bool = True) -> None:
-    """Launch the gather of ``param[ids - lo]`` into ``out`` ([n, C] rows,
-    contiguous, on the table's card); a lane outside the row window
-    ``[lo, lo + R)`` gets a zero row, or keeps its out row when
-    ``zero_foreign`` is False."""
     flat = _rows(param)
+    out = torch.empty((ids.shape[0], flat.shape[1]), dtype=param.dtype,
+                      device=param.device)
     ids = ids.to(torch.int32).contiguous()
     if ids.shape[0]:
-        _launch(name, "mv_row_gather", flat.data_ptr(), flat.shape[0],
-                flat.shape[1], param.element_size(), lo, int(zero_foreign),
+        _launch("row_gather", "mv_row_gather", flat.data_ptr(),
+                flat.shape[0], flat.shape[1], param.element_size(),
                 ids.data_ptr(), ids.shape[0], out.data_ptr(),
-                device=param.device, tag=tag)
+                device=param.device)
+    return out
 
 
 # -- sorted row scatter-add ---------------------------------------------------
@@ -269,8 +261,7 @@ def _scatter_workspace(n: int, device: torch.device,
 
 def _launch_scatter(name: str, param: torch.Tensor, ids: torch.Tensor,
                     order: Optional[torch.Tensor], deltas: torch.Tensor,
-                    valid: Optional[torch.Tensor],
-                    tag: Optional[str] = None) -> None:
+                    valid: Optional[torch.Tensor]) -> None:
     """Launch ``mv_row_scatter_add`` over sorted int32 ``ids`` (rows of
     ``param``; lanes outside it add nothing), deltas read through
     ``order`` when given, gated by ``valid`` when given."""
@@ -280,7 +271,7 @@ def _launch_scatter(name: str, param: torch.Tensor, ids: torch.Tensor,
             flat.shape[1], _is_int(param), ids.data_ptr(),
             None if order is None else order.data_ptr(), deltas.data_ptr(),
             None if valid is None else valid.data_ptr(), n,
-            device=param.device, tag=tag, scatter_lanes=n)
+            device=param.device, scatter_lanes=n)
 
 
 def row_scatter_add_masked(param: torch.Tensor, ids: torch.Tensor,
@@ -297,18 +288,11 @@ def row_scatter_add_masked(param: torch.Tensor, ids: torch.Tensor,
     if param.device.type == "cpu":
         return row_scatter_add_masked_plain(param, ids, deltas, valid)
     if ids.shape[0]:
-        _row_scatter_masked_into(param, ids, deltas, valid)
+        _launch_scatter("row_scatter_add_masked", param,
+                        ids.to(torch.int32).contiguous(), None,
+                        deltas.contiguous(),
+                        valid.to(torch.int32).contiguous())
     return param
-
-
-def _row_scatter_masked_into(param: torch.Tensor, ids: torch.Tensor,
-                             deltas: torch.Tensor, valid: torch.Tensor,
-                             tag: Optional[str] = None) -> None:
-    """Launch the masked scatter-add of a non-empty sorted lane batch."""
-    _launch_scatter("row_scatter_add_masked", param,
-                    ids.to(torch.int32).contiguous(), None,
-                    deltas.contiguous(), valid.to(torch.int32).contiguous(),
-                    tag)
 
 
 # -- sorted COO scatter-add ---------------------------------------------------
@@ -736,19 +720,25 @@ def kv_probe_update(keys_arr: torch.Tensor, values_arr: torch.Tensor,
 # lies elsewhere.
 #
 # Each form replaces a reference builder that wraps its flat kernel per
-# shard under shard_map, and does the same: it launches the flat kernel of
-# each shard on that shard's card and current stream. ``counts`` (host
+# shard under shard_map. The KV and COO forms do the same: they launch the
+# flat kernel of each shard on that shard's card and current stream, and
+# their first launch also counts under the form's own ``LAUNCHES`` name.
+# The row gather and row scatter-add launch once per card (per group of
+# ``MESH_MAX_SHARDS`` shards of one card) over every shard it holds, with
+# each shard's base pointer and lane rows by value, counted under the
+# form's name per launch: the gather writes each caller lane's row where
+# ``inv`` puts it (no (shards, L, C) buffer, no unpermute), the scatter
+# walks each shard's real lanes as a segment of its own. ``counts`` (host
 # ints from the host prep, required; the plain versions take none) limits
-# each launch to the shard's real lanes: a padding run is one id, and the
+# the launches to the shards' real lanes: a padding run is one id, and the
 # scatters walk a run of equal ids serially, so padding launched would be
-# a long serial chain that writes nothing. A form's first launch also
-# counts under the form's own ``LAUNCHES`` name; a call with no real lane
+# a long serial chain that writes nothing. A call with no real lane
 # launches nothing and counts nothing. The kernels never talk across
 # shards; the KV overflow gate is the one global value, a sum of the
 # per-shard counts on the device.
 # What bounds them: the flat kernels' bytes, plus a launch and the host's
-# wrapper work per shard; shards that share a card run in turn on its
-# stream, so the longest runs of different shards add up.
+# wrapper work per launch; the KV and COO forms' shards that share a card
+# run in turn on its stream, so their longest runs add up.
 #
 # The plain version beside each is the reference's sharded XLA adapter:
 # globalize the local ids (local + s * per_shard), run the flat plain
@@ -807,6 +797,32 @@ def _global_ids(shards, ids) -> torch.Tensor:
 
 def _unpermute(flat: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
     return flat.index_select(0, inv.to(flat.device).long())
+
+
+def _lanes_as(lanes, dtype: Optional[torch.dtype] = None):
+    """A lane operand (a (shards, L, ...) tensor or per-shard rows) as
+    ``dtype`` (kept when None), contiguous."""
+    def conv(t):
+        return (t if dtype is None else t.to(dtype)).contiguous()
+    if isinstance(lanes, torch.Tensor):
+        return conv(lanes)
+    return [conv(row) for row in lanes]
+
+
+def _c_array(ctype, values) -> ctypes.Array:
+    return (ctype * len(values))(*values)
+
+
+def _shard_table(shards, part, rows_per_shard: int) -> tuple:
+    """A launch's shard table as the C entry points take it: (base
+    pointers, first global rows, count) of the shards ``part``."""
+    return (_c_array(ctypes.c_void_p, [shards[s].data_ptr() for s in part]),
+            _c_array(ctypes.c_int64, [s * rows_per_shard for s in part]),
+            len(part))
+
+
+def _c_ptrs(tensors) -> ctypes.Array:
+    return _c_array(ctypes.c_void_p, [t.data_ptr() for t in tensors])
 
 
 def kv_lookup_sharded_plain(keys, values, query, buckets, inv,
@@ -940,30 +956,35 @@ def gather_rows_sharded(shards, ids, inv, *, counts) -> torch.Tensor:
     real in row s; ``inv`` the flat ``shard * L + pos`` index of each
     caller lane.
 
-    Replaces ``build_row_gather_sharded``: ``mv_row_gather`` per shard
-    into one ``(shards, L, C)`` buffer on the first device, then the
-    ``inv`` unpermute."""
+    Replaces ``build_row_gather_sharded``: one ``mv_row_gather_mesh`` per
+    card over the shards it holds, caller lane j reading shard
+    ``inv[j] // L``'s local id at ``inv[j] % L`` and writing that row to
+    ``out[j]`` (:func:`_gather_cards`)."""
     if _shard_kind(shards) == "cpu":
         return gather_rows_sharded_plain(shards, ids, inv)
+    for p in shards:
+        _check_table(p, GATHER_DTYPES)
+    _check_lanes("inv", inv)
     dev0 = shards[0].device
-    n_sh, lanes, cols = len(shards), len(ids[0]), _rows(shards[0]).shape[1]
-    out = torch.empty((n_sh, lanes, cols), dtype=shards[0].dtype,
+    rows, cols = _rows(shards[0]).shape
+    out = torch.empty((inv.shape[0], cols), dtype=shards[0].dtype,
                       device=dev0)
-    tag = "row_gather_sharded"
-    for s, p in enumerate(shards):
-        n = int(counts[s])
-        i_s = _lane_row(ids, s, p.device, n)
-        _check(p, i_s, dtypes=GATHER_DTYPES)
-        if not n:
-            continue
-        here = p.device == dev0
-        o_s = out[s] if here else torch.empty((n, cols), dtype=p.dtype,
-                                              device=p.device)
-        _gather_into(p, i_s, o_s, tag)
-        tag = None
-        if not here:
-            out[s, :n].copy_(o_s)
-    return _unpermute(out.view(n_sh * lanes, cols), inv)
+    if not inv.shape[0] or not any(int(c) for c in counts):
+        return out
+    ids = _lanes_as(ids, torch.int32)
+    lanes = len(ids[0])
+    inv = (inv.to(dev0, torch.int32).contiguous(),)
+    cache, launches, keep = {}, [], []
+    for dev, part in card_launches(shards):
+        (inv_d,) = _per_device(inv, dev0, cache, dev)
+        id_rows = [ids[s].to(dev) for s in part]
+        for row in id_rows:
+            _check_lanes("ids", row)
+        keep.append(id_rows)
+        launches.append((dev, *_shard_table(shards, part, rows),
+                         _c_ptrs(id_rows), inv_d.data_ptr(), lanes))
+    _gather_cards("row_gather_sharded", out, launches, rows)
+    return out
 
 
 def row_scatter_add_sharded_plain(shards, ids, deltas, valid):
@@ -979,24 +1000,47 @@ def row_scatter_add_sharded_plain(shards, ids, deltas, valid):
     return shards
 
 
+def shard_lane_launches(shards, lanes, counts,
+                        max_shards: int = MESH_MAX_SHARDS) -> list:
+    """The launches of a host-sliced sharded form, once per card over the
+    real lanes of the shards it holds (:func:`card_launches` with
+    ``counts``): ``[(device, [shard index, ...], [[each shard's row of a
+    lane operand, on device] for each operand], [each shard's real
+    lanes]), ...]``. ``lanes``: the lane operands, ``(shards, L, ...)``
+    tensors or per-shard rows."""
+    out = []
+    for dev, part in card_launches(shards, counts, max_shards):
+        rows = [[x[s].to(dev) for s in part] for x in lanes]
+        out.append((dev, part, rows, [int(counts[s]) for s in part]))
+    return out
+
+
 def row_scatter_add_sharded(shards, ids, deltas, valid, *, counts):
     """Sharded duplicate-safe row scatter-add, in place: ``ids``
     ``(shards, L)`` LOCAL row ids sorted per shard, ``deltas``
     ``(shards, L, C)``, ``valid`` ``(shards, L)``, ``counts`` each
     shard's real lanes.
 
-    Replaces ``build_row_scatter_add_sharded``: the masked
-    ``mv_row_scatter_add`` per shard."""
+    Replaces ``build_row_scatter_add_sharded`` (the masked row scatter per
+    shard): one ``mv_row_scatter_add_shards`` per card, which runs the
+    masked scatter's kernels over the real lanes of every shard the card
+    holds, each shard's lanes a segment of their own (a run never spans
+    two shards), nothing sorted again. Each launch counts under
+    ``row_scatter_add_sharded`` and ``row_scatter_add_masked``."""
     if _shard_kind(shards) == "cpu":
         return row_scatter_add_sharded_plain(shards, ids, deltas, valid)
-    tag = "row_scatter_add_sharded"
-    for s, p in enumerate(shards):
-        n = int(counts[s])
-        ops = [_lane_row(x, s, p.device, n) for x in (ids, deltas, valid)]
-        _check(p, *ops)
-        if n:
-            _row_scatter_masked_into(p, *ops, tag)
-            tag = None
+    rows, cols = _rows(shards[0]).shape
+    ops = (_lanes_as(ids, torch.int32), _lanes_as(deltas),
+           _lanes_as(valid, torch.int32))
+    for dev, part, (i_r, d_r, v_r), real in shard_lane_launches(
+            shards, ops, counts):
+        for s, i, d, v, n in zip(part, i_r, d_r, v_r, real):
+            _check(shards[s], i[:n], d[:n], v[:n])
+        _launch("row_scatter_add_sharded", "mv_row_scatter_add_shards",
+                *_shard_table(shards, part, rows), rows, cols,
+                _is_int(shards[0]), _c_ptrs(i_r), _c_ptrs(d_r),
+                _c_ptrs(v_r), _c_array(ctypes.c_int64, real), device=dev,
+                tag="row_scatter_add_masked", scatter_lanes=sum(real))
     return shards
 
 
@@ -1048,28 +1092,25 @@ def coo_scatter_add_sharded(shards, rows, cols, vals, valid, *, counts):
 # Each form replaces the reference's in-trace sharded form
 # (``_sharded_gather_rows``, ``_sharded_row_scatter_add``,
 # ``_sharded_coo_scatter_add``), which runs a flat kernel per shard inside
-# a shard_map over masked GLOBAL lanes and psums the gather. Here the
-# gather launches the flat CUDA kernel once per shard over all the lanes
-# with its row window ``[s * rps, (s + 1) * rps)``, a scalar of the
-# launch; the scatter-adds launch once per card over all the lanes with
-# the table of every shard that card holds (base pointers and first
-# global rows, ``mesh_launch_tables``). Lanes outside a launch's windows
-# are foreign and exit at once (see csrc/row_kernels.cu for why the
-# reference's mapping of foreign lanes onto the shard's last row is not
-# copied). Lane counts per shard stay on the device, so nothing syncs the
-# host. The scatter-adds sort the lanes once, on the first shard's
-# device, for every card; sorted global ids keep every run inside one
-# shard and in the flat kernel's order, so a sharded table ends
-# bit-identical to the unsharded one. Each launch counts one under the
-# form's own ``LAUNCHES`` name. The shards of a param are equal row
+# a shard_map over masked GLOBAL lanes and psums the gather. Here each
+# form launches once per card over all the lanes with the table of every
+# shard that card holds (base pointers and first global rows,
+# ``mesh_launch_tables``): the gather ``mv_row_gather_mesh``, the
+# scatter-adds ``mv_row_scatter_add_mesh`` / ``mv_coo_scatter_add_mesh``.
+# Lanes outside a launch's windows are foreign (see csrc/row_kernels.cu
+# for why the reference's mapping of foreign lanes onto the shard's last
+# row is not copied). Lane counts per shard stay on the device, so
+# nothing syncs the host. The scatter-adds sort the lanes once, on the
+# first shard's device, for every card; sorted global ids keep every run
+# inside one shard and in the flat kernel's order, so a sharded table
+# ends bit-identical to the unsharded one. Each launch counts one under
+# the form's own ``LAUNCHES`` name. The shards of a param are equal row
 # blocks (the port's tables always split evenly), so unlike the
 # reference, which falls back to XLA for an uneven split, no form has a
 # fallback: unequal shards raise ``ValueError``.
 #
-# What bounds them: the flat kernels' bytes, plus the gather's one launch
-# and one early-exit pass over the lanes per extra shard; the
-# scatter-adds serve a card's shards in one launch, so the long runs of
-# different shards overlap.
+# What bounds them: the flat kernels' bytes; a card's shards are served
+# in one launch, so the long runs of different shards overlap.
 #
 # The plain version beside each is the reference's XLA engine: the flat
 # plain op on the shards concatenated, written back to the shards.
@@ -1093,20 +1134,33 @@ class ShardedParam:
                 f"equal blocks of one dtype, got "
                 f"{[(tuple(t.shape), t.dtype) for t in shards]}")
         self.shards = shards
-        self._launches = (None, [])  # (shard pointers, their launch tables)
+        # (shard pointers, their launch tables, their kind)
+        self._launches = (None, [], None)
 
-    def launch_tables(self) -> list:
-        """:func:`mesh_launch_tables` as the C entry points take them,
-        ``[(device, bases, firsts, count), ...]``, built again only when a
+    def _refresh(self) -> tuple:
+        """The launch tables and kind, built and checked again only when a
         shard's storage moved."""
         ptrs = tuple(t.data_ptr() for t in self.shards)
         if self._launches[0] != ptrs:
+            kind = _shard_kind(self.shards)
+            for t in self.shards:
+                _check_table(t, (self.dtype,))
             self._launches = (ptrs, [
                 (dev, (ctypes.c_void_p * len(bases))(*bases),
                  (ctypes.c_int64 * len(firsts))(*firsts), len(bases))
                 for dev, bases, firsts in mesh_launch_tables(
-                    self.shards, self.rows_per_shard)])
-        return self._launches[1]
+                    self.shards, self.rows_per_shard)], kind)
+        return self._launches
+
+    def launch_tables(self) -> list:
+        """:func:`mesh_launch_tables` as the C entry points take them,
+        ``[(device, bases, firsts, count), ...]``."""
+        return self._refresh()[1]
+
+    def kind(self) -> str:
+        """'cpu' or 'cuda' (:func:`_shard_kind`), every shard checked as
+        a contiguous table on one kind of device."""
+        return self._refresh()[2]
 
     @property
     def rows_per_shard(self) -> int:
@@ -1132,10 +1186,10 @@ class ShardedParam:
 
 def _check_mesh(param: ShardedParam, dtypes) -> str:
     """Every shard a table the kernels take; 'cpu' or 'cuda'."""
-    kind = _shard_kind(param.shards)
-    for p in param.shards:
-        _check_table(p, dtypes)
-    return kind
+    if param.dtype not in dtypes:
+        raise TypeError(f"this table kernel takes {_dtype_names(dtypes)} "
+                        f"tables, got {param.dtype}")
+    return param.kind()
 
 
 def shard_groups(shards) -> list:
@@ -1147,18 +1201,30 @@ def shard_groups(shards) -> list:
     return list(groups.items())
 
 
-def mesh_launch_tables(shards, rows_per_shard: int,
-                       max_shards: int = MESH_MAX_SHARDS) -> list:
-    """The launches of a mesh scatter-add: one per group of at most
-    ``max_shards`` shards of one device, as ``(device, [base pointer of
-    each shard], [its first global row])``."""
+def card_launches(shards, counts=None,
+                  max_shards: int = MESH_MAX_SHARDS) -> list:
+    """The launches that serve ``shards`` once per card: ``[(device,
+    [shard index, ...]), ...]``, each device's shards in shard order, cut
+    into groups of at most ``max_shards`` (a card holding more launches
+    once per group), devices in the order of their first shard. With
+    ``counts`` (each shard's real lanes), only the shards that have some:
+    a card whose shards have none launches nothing."""
     out = []
     for dev, idx in shard_groups(shards):
-        for k in range(0, len(idx), max_shards):
-            part = idx[k:k + max_shards]
-            out.append((dev, [shards[s].data_ptr() for s in part],
-                        [s * rows_per_shard for s in part]))
+        if counts is not None:
+            idx = [s for s in idx if int(counts[s]) > 0]
+        out.extend((dev, idx[k:k + max_shards])
+                   for k in range(0, len(idx), max_shards))
     return out
+
+
+def mesh_launch_tables(shards, rows_per_shard: int,
+                       max_shards: int = MESH_MAX_SHARDS) -> list:
+    """The launches of a mesh form (:func:`card_launches`), as ``(device,
+    [base pointer of each shard], [its first global row])``."""
+    return [(dev, [shards[s].data_ptr() for s in part],
+             [s * rows_per_shard for s in part])
+            for dev, part in card_launches(shards, max_shards=max_shards)]
 
 
 def _per_device(tensors, dev0: torch.device, cache: dict,
@@ -1176,18 +1242,45 @@ def gather_rows_mesh_plain(param: ShardedParam,
     return gather_rows_plain(_global(param.shards), ids)
 
 
+#: the integer type of each element size, to merge gathered partials bitwise
+_BITS = {4: torch.int32, 2: torch.int16}
+
+
+def _gather_cards(name: str, out: torch.Tensor, launches: list,
+                  rows_per_shard: int) -> None:
+    """Launch ``mv_row_gather_mesh`` once per entry of ``launches``,
+    ``(device, bases, firsts, count, ids pointers, inv pointer or None,
+    L)``, into ``out`` ([n, C] on the first shard's device), each counted
+    under ``name``. A device's first launch writes a zero row for every
+    lane its shards do not hold; a card other than out's writes a partial
+    of its own, merged into ``out`` by a bitwise OR: each lane's row is
+    the bits of the one card that holds it, -0.0 and NaN payloads
+    included (the reference's ``psum`` of masked rows, exact)."""
+    dev0 = out.device
+    n, cols = out.shape
+    parts = {}
+    for dev, bases, firsts, count, ids_p, inv_p, lanes in launches:
+        fresh = dev not in parts
+        if fresh:
+            parts[dev] = out if dev == dev0 else torch.empty_like(
+                out, device=dev)
+        _launch(name, "mv_row_gather_mesh", bases, firsts, count,
+                rows_per_shard, cols, out.element_size(), ids_p, inv_p,
+                lanes, int(fresh), n, parts[dev].data_ptr(), device=dev)
+    bits = _BITS[out.element_size()]
+    for dev, part in parts.items():
+        if dev != dev0:
+            out.view(bits).bitwise_or_(part.to(dev0).view(bits))
+
+
 def gather_rows_mesh(param: ShardedParam, ids: torch.Tensor) -> torch.Tensor:
     """Row gather of global ids from a sharded param -> ``[n, C]`` on the
     first shard's device, in request order.
 
-    Replaces the reference's in-trace ``_sharded_gather_rows``: one
-    windowed ``mv_row_gather`` per shard over all ``n`` lanes into one
-    output; each lane is written by the shard that owns it, the first
-    launch into an output zeroing the lanes it does not own. That is the
-    reference's ``psum`` of masked partial rows, and exact. A card other
-    than the first gathers its shards into its own partial output, which
-    is copied to the first device and added there (the one cross-shard
-    reduction; like the ``psum`` it turns a gathered -0.0 into +0.0)."""
+    Replaces the reference's in-trace ``_sharded_gather_rows`` (masked
+    partial rows per shard, ``psum``'d): one ``mv_row_gather_mesh`` per
+    card over all ``n`` lanes and every shard the card holds, each lane
+    finding its shard by the row windows (:func:`_gather_cards`)."""
     kind = _check_mesh(param, GATHER_DTYPES)
     _check(param.shards[0], ids, dtypes=GATHER_DTYPES)
     if kind == "cpu":
@@ -1197,20 +1290,12 @@ def gather_rows_mesh(param: ShardedParam, ids: torch.Tensor) -> torch.Tensor:
                       dtype=param.dtype, device=dev0)
     if not n:
         return out
-    lanes, outs = {}, {}
     ids = (ids.to(torch.int32).contiguous(),)
-    for s, p in enumerate(param.shards):
-        dev = p.device
-        fresh = dev not in outs
-        if fresh:
-            outs[dev] = out if dev == dev0 else torch.empty_like(out,
-                                                                 device=dev)
-        (i_dev,) = _per_device(ids, dev0, lanes, dev)
-        _gather_into(p, i_dev, outs[dev], name="gather_rows_mesh",
-                     lo=s * param.rows_per_shard, zero_foreign=fresh)
-    for dev, part in outs.items():
-        if dev != dev0:
-            out.add_(part.to(dev0))
+    cache, launches = {}, []
+    for dev, *table in param.launch_tables():
+        (i_dev,) = _per_device(ids, dev0, cache, dev)
+        launches.append((dev, *table, _c_ptrs([i_dev]), None, 0))
+    _gather_cards("gather_rows_mesh", out, launches, param.rows_per_shard)
     return out
 
 
@@ -1305,10 +1390,11 @@ __all__ = ["ADD_DTYPES", "GATHER_DTYPES", "KV_UPDATERS", "LAUNCHES",
            "gather_rows_sharded_plain", "kv_lookup", "kv_lookup_plain",
            "kv_lookup_sharded", "kv_lookup_sharded_plain", "kv_probe_update",
            "kv_probe_update_plain", "kv_probe_update_sharded",
-           "kv_probe_update_sharded_plain", "mesh_launch_tables",
-           "reset_launches",
+           "kv_probe_update_sharded_plain", "card_launches",
+           "mesh_launch_tables", "reset_launches",
            "row_scatter_add", "row_scatter_add_masked",
            "row_scatter_add_masked_plain", "row_scatter_add_mesh",
            "row_scatter_add_mesh_plain", "row_scatter_add_plain",
            "row_scatter_add_sharded", "row_scatter_add_sharded_plain",
-           "scatter_workspace_size", "shard_groups"]
+           "scatter_workspace_size", "shard_groups",
+           "shard_lane_launches"]

@@ -4,11 +4,13 @@ Counterpart of ``multiverso_tpu/tables/matrix_table.py`` (the reference's
 ``MatrixWorkerTable<T>::Get(row_ids, ...)`` / ``Add(row_ids, deltas)``,
 word2vec's embedding store):
 
-- ``get_rows(ids)`` is the row gather kernel per shard
+- ``get_rows(ids)`` is the row gather kernel, once per card over its
+  shards
   (:func:`~multiverso_tpu_torch.ops.table_kernels.gather_rows_sharded`).
 - ``add_rows(ids, deltas)`` under the ``default`` and ``sgd`` updaters is
-  the masked sorted row scatter-add kernel per shard
-  (``row_scatter_add_sharded``; duplicate ids accumulate); stateful
+  the masked sorted row scatter-add kernel, once per card over its
+  shards' real lanes (``row_scatter_add_sharded``; duplicate ids
+  accumulate); stateful
   updaters gather the rows, apply the updater and write the rows back in
   plain torch, shard by shard, as the reference leaves that path to XLA.
 - Row batches are stable-sorted on the host (scatters by row, gathers by
@@ -103,8 +105,8 @@ class MatrixTable(Table):
         local, valid, inv, n, _ = self._pad_ids(ids)
         return tk.gather_rows_sharded(
             self.shards, lanes_on(local, self.devices),
-            torch.as_tensor(inv, device=self.device),
-            counts=valid.sum(1))[:n]
+            torch.as_tensor(inv[:n], device=self.device),
+            counts=valid.sum(1))
 
     def get_rows(self, row_ids) -> np.ndarray:
         """Fetch a list of rows (``MatrixWorkerTable::Get(row_ids, ...)``)."""

@@ -532,9 +532,12 @@ def _on(x, dev, shards=None):
     (256, 2, np.float32)])
 def test_sharded_row_and_coo_forms_match_cpu_plain(cuda, cols, tiles, dtype):
     """Four virtual shards on one card: each form launched over the real
-    lanes of each shard equals its plain version over the full (S, L)
-    layout on the CPU, bit for bit; one launch per shard under the flat
-    name and one per call under the sharded name."""
+    lanes of its shards equals its plain version over the full (S, L)
+    layout on the CPU, bit for bit; the row gather and scatter-add launch
+    once per card (the scatter counted under the masked kernel's name
+    too, the gather not under the flat gather's), the COO add once per
+    shard under the flat name and once per call under the sharded
+    name."""
     rng = np.random.default_rng(cols + tiles)
     S, rows, n = 4, 2000, 24_576
     rps = rows // S
@@ -554,7 +557,7 @@ def test_sharded_row_and_coo_forms_match_cpu_plain(cuda, cols, tiles, dtype):
     want = tk.gather_rows_sharded_plain(_on(param, "cpu", S),
                                         _on(local, "cpu"), _on(inv, "cpu"))
     assert torch.equal(got.cpu(), want)
-    assert tk.LAUNCHES["row_gather"] == before["row_gather"] + S
+    assert tk.LAUNCHES["row_gather"] == before["row_gather"]
     assert tk.LAUNCHES["row_gather_sharded"] == \
         before["row_gather_sharded"] + 1
     # the row scatter-add over sorted ids
@@ -571,6 +574,8 @@ def test_sharded_row_and_coo_forms_match_cpu_plain(cuda, cols, tiles, dtype):
     torch.cuda.synchronize()
     for a, b in zip(shards, host):
         assert torch.equal(a.cpu(), b)
+    for name in ("row_scatter_add_sharded", "row_scatter_add_masked"):
+        assert tk.LAUNCHES[name] == before[name] + 1
     # the COO add over row-sorted lanes
     c = rng.integers(0, cols, n).astype(np.int32)
     v = rng.integers(-3, 4, n).astype(dtype)
@@ -654,9 +659,11 @@ def test_sharded_kv_forms_match_cpu_plain(cuda, name, over):
 
 
 def test_sharded_forms_count_only_real_launches(cuda):
-    """A sharded form adds one to its own count at its first launch, and
-    nothing when no shard has a real lane; a one-shard table's row add
-    goes through the sharded form, one launch of the flat kernel."""
+    """A sharded form counts its launches under its own name, and nothing
+    when no shard has a real lane; the row scatter-add launches once per
+    card over the shards with real lanes, counted under the masked
+    kernel's name too; a one-shard table's row add goes through the
+    sharded form, one launch."""
     S, rps, cols = 4, 8, 4
     shards = [torch.zeros(rps, cols, device=cuda) for _ in range(S)]
     ids = torch.zeros(S, 8, dtype=torch.int32, device=cuda)
@@ -782,8 +789,8 @@ def _mesh_host(param):
 def test_mesh_forms_match_cpu_plain(cuda, devices):
     """Gather, row scatter-add (float32, int32) and COO add (int32 flat
     and tiled, float32) over S shards on the card, bit for bit against
-    the plain versions on the CPU shards; S gather launches per call, one
-    scatter-add launch per card."""
+    the plain versions on the CPU shards; one gather and one scatter-add
+    launch per card."""
     rng = np.random.default_rng(len(devices))
     cpus = ["cpu"] * len(devices)
     rows = 10_004
@@ -794,7 +801,7 @@ def test_mesh_forms_match_cpu_plain(cuda, devices):
         ids[:4] = torch.tensor([rows - 1, 2500, 2501, 0])  # shard edges
         tk.reset_launches()
         got = tk.gather_rows(_mesh_param(x, devices), ids.to(cuda))
-        assert tk.LAUNCHES["gather_rows_mesh"] == len(devices)
+        assert tk.LAUNCHES["gather_rows_mesh"] == len(set(devices))
         assert torch.equal(got.cpu(), x[ids.long()])
         d = torch.from_numpy(rng.standard_normal((n, 100)).astype(
             np.float32))
@@ -845,7 +852,7 @@ def test_mesh_gather_leaves_foreign_lanes_to_their_shard(cuda):
 def test_mesh_word2vec_on_one_card_matches_one_shard(cuda, tmp_path):
     """Skip-gram NS and CBOW HS at a small width on a (1, 4) mesh of
     cuda:0: the tables equal the (1, 1) run's bit for bit, and each
-    gather launches once per shard, each scatter-add once per card."""
+    gather and each scatter-add launches once per card."""
     from multiverso_tpu_torch import core
     from multiverso_tpu_torch.apps.word_embedding import (W2VConfig,
                                                           WordEmbedding)
@@ -865,9 +872,211 @@ def test_mesh_word2vec_on_one_card_matches_one_shard(cuda, tmp_path):
         for a, b in zip(out[0][:2], out[1][:2]):
             assert a.tobytes() == b.tobytes()
         one, four = out[0][2], out[1][2]
-        assert four["gather_rows_mesh"] == 4 * one["row_gather"] > 0
+        assert four["gather_rows_mesh"] == one["row_gather"] > 0
         assert four["row_scatter_add_mesh"] == one["row_scatter_add"]
         assert four["row_gather"] == four["row_scatter_add"] == 0
+
+
+# -- the per-card sharded row forms at the splits they make risky ------------
+
+
+ROW_SPLITS = ["zipf", "empty_shard", "one_shard", "single", "edges"]
+
+
+def _split_ids(case, rng, shards, rps):
+    """Global ids in request order for one split: Zipf over the table, no
+    lane on shard 1, every lane on shard 2, one lane, or runs on each
+    shard's last row (beside its pads) and neighbouring shards that hold
+    equal local ids (shard 0 ends and shard 1 starts on local rps - 1,
+    shard 2 ends and shard 3 starts on local 0 ... )."""
+    top = shards * rps
+    if case == "zipf":
+        ids = _zipf_ids(rng, 3000, top)
+    elif case == "empty_shard":
+        ids = rng.integers(0, top, 2000)
+        ids = ids[ids // rps != 1]
+    elif case == "one_shard":
+        ids = rng.integers(2 * rps, 3 * rps, 1500)
+    elif case == "single":
+        ids = np.asarray([rps + 3])
+    else:
+        e = rps - 1
+        ids = np.tile([3, e, e, rps + e, rps + e, 2 * rps, 2 * rps + e,
+                       3 * rps, 3 * rps, 3 * rps + 5], 40)
+    return rng.permutation(ids).astype(np.int32)
+
+
+def _random_bits(rng, shape, dtype):
+    """Every bit pattern of the type (NaNs and -0.0 included)."""
+    width = torch.empty((), dtype=dtype).element_size()
+    ints = rng.integers(-2 ** (8 * width - 1), 2 ** (8 * width - 1), shape,
+                        dtype=np.int16 if width == 2 else np.int32)
+    return torch.from_numpy(ints).view(dtype)
+
+
+def _same_bits(a, b):
+    width = a.element_size()
+    kind = torch.int16 if width == 2 else torch.int32
+    return torch.equal(a.cpu().contiguous().view(kind),
+                       b.cpu().contiguous().view(kind))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32,
+                                   torch.bfloat16, torch.int16])
+@pytest.mark.parametrize("cols", [3, 100, 101, 1024])
+def test_mesh_gather_matches_plain_at_every_split(cuda, cols, dtype):
+    """mv_row_gather_mesh in both lane forms (global ids over a
+    ShardedParam; the host-sliced (S, L) lanes with ``inv``) against the
+    plain versions on the CPU, bit for bit, one launch per card: 4-byte
+    rows and 2-byte rows (widths 3 and 101 take the narrow units)."""
+    rng = np.random.default_rng(cols + dtype.itemsize)
+    S, rps = 4, 250
+    x = _random_bits(rng, (S * rps, cols), dtype)
+    for case in ROW_SPLITS:
+        ids = _split_ids(case, rng, S, rps)
+        tk.reset_launches()
+        got = tk.gather_rows(_mesh_param(x, ["cuda:0"] * S),
+                             torch.from_numpy(ids).to(cuda))
+        assert _same_bits(got, x[torch.from_numpy(ids).long()]), case
+        order = np.argsort(ids // rps, kind="stable")
+        (local,), valid, counts, sh, pos = _slice_lanes(ids[order], rps, S,
+                                                        [], [])
+        inv = np.zeros(len(ids), np.int32)
+        inv[order] = sh * local.shape[1] + pos
+        got = tk.gather_rows_sharded([b.contiguous().to(cuda)
+                                      for b in x.chunk(S)],
+                                     _on(local, cuda), _on(inv, cuda),
+                                     counts=counts)
+        want = tk.gather_rows_sharded_plain(list(x.chunk(S)),
+                                            torch.from_numpy(local),
+                                            torch.from_numpy(inv))
+        assert _same_bits(got, want), case
+        assert tk.LAUNCHES["gather_rows_mesh"] == 1
+        assert tk.LAUNCHES["row_gather_sharded"] == 1
+        assert tk.LAUNCHES["row_gather"] == 0
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+@pytest.mark.parametrize("cols", [3, 100, 101, 1024])
+def test_sliced_scatter_matches_plain_at_every_split(cuda, cols, dtype):
+    """The sharded row scatter-add, one launch per card over each shard's
+    real lanes (``valid`` 0 on a fifth of them), against its plain version
+    on the CPU and against the flat masked kernel on the whole table with
+    global ids, bit for bit."""
+    rng = np.random.default_rng(3 * cols + (dtype == np.int32))
+    S, rps = 4, 250
+    x = (_mixed(rng, (S * rps, cols)) if dtype == np.float32
+         else rng.integers(-9, 9, (S * rps, cols)).astype(dtype))
+    for case in ROW_SPLITS:
+        sids = np.sort(_split_ids(case, rng, S, rps))
+        deltas = (_mixed(rng, (len(sids), cols)) if dtype == np.float32
+                  else rng.integers(-3, 4, (len(sids), cols)).astype(dtype))
+        keep = rng.random(len(sids)) > 0.2
+        (local, sd, sv), valid, counts, _, _ = _slice_lanes(
+            sids, rps, S, [deltas, keep], [0, False])
+        shards = _on(x, cuda, S)
+        before = dict(tk.LAUNCHES)
+        tk.row_scatter_add_sharded(shards, _on(local, cuda), _on(sd, cuda),
+                                   _on(sv, cuda), counts=counts)
+        host = _on(x, "cpu", S)
+        tk.row_scatter_add_sharded_plain(host, _on(local, "cpu"),
+                                         _on(sd, "cpu"), _on(sv, "cpu"))
+        flat = tk.row_scatter_add_masked(
+            _on(x, cuda), _on(sids, cuda), _on(deltas, cuda),
+            _on(keep, cuda))
+        torch.cuda.synchronize()
+        assert torch.equal(torch.cat([t.cpu() for t in shards]),
+                           torch.cat(host)), case
+        assert torch.equal(flat.cpu(), torch.cat(host)), case
+        assert tk.LAUNCHES["row_scatter_add_sharded"] == \
+            before["row_scatter_add_sharded"] + 1
+
+
+def test_twenty_shards_on_one_card_launch_in_two_groups(cuda):
+    """A (1, 20) param on one card: every per-card form launches twice (16
+    shards, then 4) and still equals its plain version bit for bit."""
+    rng = np.random.default_rng(20)
+    S, rps, cols = 20, 50, 100
+    x = torch.from_numpy(_mixed(rng, (S * rps, cols)))
+    ids = _zipf_ids(rng, 5000, S * rps)
+    d = _mixed(rng, (len(ids), cols))
+    tk.reset_launches()
+    got = tk.gather_rows(_mesh_param(x, ["cuda:0"] * S),
+                         torch.from_numpy(ids).to(cuda))
+    assert _same_bits(got, x[torch.from_numpy(ids).long()])
+    param = _mesh_param(x, ["cuda:0"] * S)
+    tk.row_scatter_add(param, torch.from_numpy(ids).to(cuda),
+                       torch.from_numpy(d).to(cuda))
+    want = tk.row_scatter_add_plain(x.clone(), torch.from_numpy(ids),
+                                    torch.from_numpy(d))
+    torch.cuda.synchronize()
+    assert torch.equal(_mesh_host(param), want)
+    order = np.argsort(ids // rps, kind="stable")
+    (local,), _, counts, sh, pos = _slice_lanes(ids[order], rps, S, [], [])
+    inv = np.zeros(len(ids), np.int32)
+    inv[order] = sh * local.shape[1] + pos
+    got = tk.gather_rows_sharded(_on(x.numpy(), cuda, S), _on(local, cuda),
+                                 _on(inv, cuda), counts=counts)
+    assert _same_bits(got, x[torch.from_numpy(ids).long()])
+    sids = np.sort(ids)
+    (local, sd), valid, counts, _, _ = _slice_lanes(sids, rps, S, [d], [0])
+    shards = _on(x.numpy(), cuda, S)
+    tk.row_scatter_add_sharded(shards, _on(local, cuda), _on(sd, cuda),
+                               _on(valid, cuda), counts=counts)
+    host = _on(x.numpy(), "cpu", S)
+    tk.row_scatter_add_sharded_plain(host, _on(local, "cpu"),
+                                     _on(sd, "cpu"), _on(valid, "cpu"))
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat([t.cpu() for t in shards]),
+                       torch.cat(host))
+    for name in ("gather_rows_mesh", "row_scatter_add_mesh",
+                 "row_gather_sharded", "row_scatter_add_sharded"):
+        assert tk.LAUNCHES[name] == 2, name
+
+
+def _device_ms(fn, iters=30):
+    """Mean device ms of ``fn`` over calls queued behind a spin kernel."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def test_sliced_scatter_never_walks_the_pads(cuda):
+    """30,000 Zipf lanes on shard 0 and 50 on each other shard: L is
+    32,768, so shards 1-3 carry 32,718 pads each on one id, a run that a
+    walk would take about 0.1 ms over (the one-id case adds at 3-4 ns a
+    lane). The sharded call equals the flat masked kernel on the same
+    real lanes, bit for bit, and takes at most 0.05 ms longer."""
+    rng = np.random.default_rng(30)
+    S, rps, cols = 4, 10_000, 100
+    x = _mixed(rng, (S * rps, cols))
+    sids = np.sort(np.concatenate(
+        [_zipf_ids(rng, 30_000, rps)]
+        + [s * rps + rng.integers(0, rps, 50).astype(np.int32)
+           for s in range(1, S)]))
+    d = _mixed(rng, (len(sids), cols))
+    (local, sd), valid, counts, _, _ = _slice_lanes(sids, rps, S, [d], [0])
+    assert local.shape[1] - counts[1:].max() > 30_000
+    shards = _on(x, cuda, S)
+    ops = [_on(a, cuda) for a in (local, sd, valid)]
+    flat = _on(x, cuda)
+    f_ops = [_on(a, cuda) for a in (sids, d, np.ones(len(sids), bool))]
+    tk.row_scatter_add_sharded(shards, *ops, counts=counts)
+    tk.row_scatter_add_masked(flat, *f_ops)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat([t.cpu() for t in shards]), flat.cpu())
+    sharded_ms = _device_ms(
+        lambda: tk.row_scatter_add_sharded(shards, *ops, counts=counts))
+    flat_ms = _device_ms(lambda: tk.row_scatter_add_masked(flat, *f_ops))
+    assert sharded_ms < flat_ms + 0.05, (sharded_ms, flat_ms)
 
 
 # -- the row scatter-add's long runs (a block per run) ------------------------

@@ -231,3 +231,75 @@ def test_mesh_max_shards_is_the_kernels_limit():
     from multiverso_tpu_torch.ops import _build
     src = (_build.CSRC / "shards.cuh").read_text()
     assert f"constexpr int kMaxShards = {tk.MESH_MAX_SHARDS};" in src
+
+
+# -- the per-card launches of the host-sliced row forms ------------------------
+
+
+def test_card_launches_keep_only_shards_with_real_lanes():
+    """With counts, a card launches over the shards that have real lanes,
+    in groups of at most MESH_MAX_SHARDS; a card with none launches
+    nothing."""
+    devs = ["cuda:0"] * 20 + ["cuda:1"] * 2
+    shards = [_Shard(d, s) for s, d in enumerate(devs)]
+    counts = [0 if s in (3, 17) else 5 for s in range(20)] + [0, 0]
+    assert tk.card_launches(shards) == [
+        ("cuda:0", list(range(16))), ("cuda:0", [16, 17, 18, 19]),
+        ("cuda:1", [20, 21])]
+    kept = [s for s in range(20) if s not in (3, 17)]
+    assert tk.card_launches(shards, counts) == [
+        ("cuda:0", kept[:16]), ("cuda:0", kept[16:])]
+    assert tk.card_launches(shards, [0] * 22) == []
+
+
+@pytest.mark.parametrize("per_shard_rows", [False, True])
+def test_shard_lane_launches_point_at_each_shards_rows(per_shard_rows):
+    """Twenty CPU shards with (20, L) lane operands, or per-shard rows: one
+    launch per group of the shards with real lanes, each operand's row of
+    each shard in place (no copy on its own device), and the real lane
+    counts beside them."""
+    S, L = 20, 8
+    shards = [torch.zeros(3, 2) for _ in range(S)]
+    ids = torch.arange(S * L, dtype=torch.int32).view(S, L)
+    deltas = torch.randn(S, L, 2)
+    lanes = ([list(ids), list(deltas)] if per_shard_rows
+             else [ids, deltas])
+    counts = np.asarray([s and 1 + s % 3 for s in range(S)])  # 0 empty
+    launches = tk.shard_lane_launches(shards, lanes, counts)
+    real = [s for s in range(S) if counts[s]]
+    assert [part for _, part, _, _ in launches] == [real[:16], real[16:]]
+    for dev, part, (i_rows, d_rows), n_real in launches:
+        assert dev == torch.device("cpu")
+        assert n_real == [int(counts[s]) for s in part]
+        assert [r.data_ptr() for r in i_rows] == \
+            [ids[s].data_ptr() for s in part]
+        assert [r.data_ptr() for r in d_rows] == \
+            [deltas[s].data_ptr() for s in part]
+    assert launches[0][2][0][0].tolist() == ids[1].tolist()
+
+
+def test_shard_table_holds_bases_and_first_global_rows():
+    shards = [torch.zeros(7, 3) for _ in range(5)]
+    bases, firsts, count = tk._shard_table(shards, [1, 3, 4], 7)
+    assert list(bases) == [shards[s].data_ptr() for s in (1, 3, 4)]
+    assert list(firsts) == [7, 21, 28] and count == 3
+
+
+def test_gather_cards_zero_foreign_lanes_once_per_device(monkeypatch):
+    """Each launch of a card's groups writes into the same output; only
+    the card's first launch zeroes the lanes its shards do not hold."""
+    seen = []
+    monkeypatch.setattr(tk, "_launch",
+                        lambda name, fn, *args, device: seen.append(
+                            (name, fn, device, args)))
+    out, cpu = torch.empty(6, 4), torch.device("cpu")
+    launches = [(cpu, "b0", "f0", 16, "ids0", None, 0),
+                (cpu, "b1", "f1", 4, "ids1", None, 0)]
+    tk._gather_cards("gather_rows_mesh", out, launches, 50)
+    assert [(name, fn, dev) for name, fn, dev, _ in seen] == \
+        [("gather_rows_mesh", "mv_row_gather_mesh", cpu)] * 2
+    # (bases, firsts, count, rows, cols, elem, ids, inv, L, zero, n, out)
+    assert [args[:6] for *_, args in seen] == [
+        ("b0", "f0", 16, 50, 4, 4), ("b1", "f1", 4, 50, 4, 4)]
+    assert [args[9:11] for *_, args in seen] == [(1, 6), (0, 6)]
+    assert all(args[11] == out.data_ptr() for *_, args in seen)
