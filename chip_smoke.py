@@ -25,7 +25,11 @@ its seconds):
    (int16 doc counts, bf16 word rows) and the exact-tiled ones (int32),
    under the tie rule (at least 99.9% of real lanes agree with the plain
    version, every other lane is a float32 CDF tie; nkd and the doc counts
-   exact given the kernel's draws; build mode equals read mode). Then a
+   exact given the kernel's draws; build mode equals read mode); and the
+   doc-blocked kernel reading its word rows from the bf16 mirror
+   (``words=``) on the Zipf-1.1 words of ``zipf_lda_corpus``: bit for bit
+   the gathered form, timed beside ``row_gather`` + the gathered-rows
+   kernel on the same tokens. Then a
    small word2vec and a small LightLDA run on the card against the same
    runs on the CPU (plain versions), from the same weights, negatives
    and uniforms.
@@ -45,7 +49,8 @@ its seconds):
    corpus recipe): one warm-up and three timed sweeps, each fenced by a
    host sync; loglik before and after (it must rise), the count
    invariants exactly, doc-tokens/s and its spread, and launch counts per
-   step (sampler, W gather) and per sweep (COO rebuild).
+   step (the sampler, reading the mirror's rows itself: no W gather) and
+   per sweep (COO rebuild).
 7. LightLDA ``sampler="tiled"`` at the same width, exact and stale, one
    warm-up and one timed sweep each.
 8. At reduced depth (T 1M, D 10k): the streamed (out-of-core) doc-blocked
@@ -815,6 +820,7 @@ def phase_lda_kernels(torch, tk, ls) -> dict:
             library_ms=None, bound_ms=b, bound_by=by, n=B)
         del vec, t_ndk, ndk0, ndk_k
         torch.cuda.empty_cache()
+    out["gibbs_sample_docblock_rows"] = docblock_rows(torch, tk, ls)
     for name, r in out.items():
         lib = r["library_ms"]
         log(f"  {name:30s} n={r['n']:7d} kernel {r['ms']:.4f} ms  plain "
@@ -826,6 +832,87 @@ def phase_lda_kernels(torch, tk, ls) -> dict:
             + (f"; {r['mismatches']} draws differ" if "mismatches" in r
                else ""))
     return out
+
+
+def docblock_rows(torch, tk, ls) -> dict:
+    """The doc-blocked kernel reading its word rows from the bf16 mirror
+    [V + 1, K] (``words=``) at the LightLDA step, on the Zipf-1.1 words of
+    ``zipf_lda_corpus`` (random ids would misstate the caches' reuse):
+    under the tie rule against its plain version, bit for bit against the
+    gathered form on the rows ``row_gather`` gives, and timed beside
+    ``row_gather`` + the gathered-rows kernel on the same tokens."""
+    B, C, K, nb = LDA_B, LDA_K // 128, LDA_K, LDA_B // LDA_TB
+    tw, _ = zipf_lda_corpus(LDA_V, 1, B, seed=41)
+    words = torch.as_tensor(tw, device="cuda")
+    _, _, sinv, zi, msk, u1, u2 = lda_step_inputs(
+        torch, torch.int16, torch.bfloat16, seed=42)
+    words = torch.where(msk > 0, words, LDA_V)      # pads: the scratch row
+    g = torch.Generator(device="cuda").manual_seed(43)
+    mirror = torch.randint(0, 600, (LDA_V + 1, C, 128), generator=g,
+                           device="cuda", dtype=torch.int32).to(
+                               torch.bfloat16)
+    drel = torch.randint(0, LDA_MAXD, (B,), generator=g, device="cuda",
+                         dtype=torch.int32)
+    rws = ls._block_rows(drel, LDA_TB, LDA_MAXD)
+    real = msk > 0
+    ndk = torch.zeros(nb * LDA_MAXD, K, dtype=torch.int32, device="cuda")
+    ndk.view(-1).index_add_(0, rws * K + zi.long(), msk)
+    ndk0 = ndk.to(torch.int16).view(nb, LDA_MAXD, C, 128)
+    vec = (sinv, zi, drel, msk, u1, u2)
+    kw = dict(alpha=LDA_ALPHA, beta=LDA_BETA, tb=LDA_TB)
+    ndk_w, ndk_g, ndk_p = ndk0.clone(), ndk0.clone(), ndk0.clone()
+    _, zw, nw = ls.gibbs_sample_docblock(ndk_w, mirror, *vec, words=words,
+                                         **kw)
+    W3 = tk.gather_rows(mirror, words).view(B, C, 128)
+    _, zg, ng = ls.gibbs_sample_docblock(ndk_g, W3, *vec, **kw)
+    _, want, want_nkd = ls.gibbs_sample_docblock_plain(
+        ndk_p, mirror, *vec, words=words, **kw)
+    bw, bnw = ls.gibbs_sample_docblock_build(mirror, *vec, words=words,
+                                             maxd=LDA_MAXD, **kw)
+    _sync(torch)
+    if not (torch.equal(zw, zg) and torch.equal(nw, ng)
+            and torch.equal(ndk_w, ndk_g)):
+        raise SystemExit("gibbs_sample_docblock_rows != the gathered form")
+    if not (torch.equal(bw[real], zw[real]) and torch.equal(bnw, nw)):
+        raise SystemExit("gibbs_sample_docblock_rows: build mode != read "
+                         "mode")
+    A3 = ndk0.view(nb * LDA_MAXD, K)[rws].view(B, C, 128)
+    diff = tie_rule(torch, ls, "gibbs_sample_docblock_rows", A3, W3, sinv,
+                    zi, msk, u1, u2, zw, want)
+    if not torch.equal(nw, ls._nk_delta(zi, zw, msk, C)):
+        raise SystemExit("gibbs_sample_docblock_rows: nkd != the moves of "
+                         "its own draws")
+    err = max(float((nw - want_nkd).abs().max()),
+              float((ndk_w.int() - ndk_p.int()).abs().max()))
+    del A3, ndk, ndk_w, ndk_g, ndk_p, zg, want, bw
+    uniq = int(torch.unique(words[real]).numel())
+    ndk_bytes = ndk0.numel() * ndk0.element_size()
+    vec_bytes = sum(x.numel() * x.element_size() for x in vec) \
+        + words.numel() * 4 + B * 4 + K * 4
+    b, by = bound_ms(uniq * K * 2 + vec_bytes + 2 * ndk_bytes, 8 * B * K)
+    t_ndk = ndk0.clone()
+    row = dict(
+        max_abs_err=err, mismatches=diff,
+        ms=cuda_ms(lambda: ls.gibbs_sample_docblock(
+            t_ndk, mirror, *vec, words=words, **kw), 20),
+        plain_ms=cuda_ms(lambda: ls.gibbs_sample_docblock_plain(
+            t_ndk, mirror, *vec, words=words, **kw), 2),
+        library_ms=None, bound_ms=b, bound_by=by, n=B, unique_rows=uniq,
+        gather_ms=cuda_ms(lambda: tk.gather_rows(mirror, words), 20),
+        gathered_ms=cuda_ms(lambda: ls.gibbs_sample_docblock(
+            t_ndk, W3, *vec, **kw), 20),
+        build_ms=cuda_ms(lambda: ls.gibbs_sample_docblock_build(
+            mirror, *vec, words=words, maxd=LDA_MAXD, **kw), 20))
+    b, by = bound_ms(uniq * K * 2 + vec_bytes, 8 * B * K)
+    row.update(build_bound_ms=b, build_bound_by=by)
+    log(f"  gibbs_sample_docblock_rows on {uniq} unique Zipf-1.1 rows: "
+        f"{row['ms']:.4f} ms (build mode {row['build_ms']:.4f}) against "
+        f"row_gather {row['gather_ms']:.4f} + the gathered-rows kernel "
+        f"{row['gathered_ms']:.4f} on the same tokens; equal to the "
+        f"gathered form bit for bit")
+    del t_ndk, W3, mirror
+    torch.cuda.empty_cache()
+    return row
 
 
 def lda_small_parity(LDAConfig, LightLDA, load_docs, synthetic_docs,
@@ -944,7 +1031,8 @@ def phase_lda(torch, tk, ls, LightLDA, LDAConfig, tw, td,
             counts = {k: after[k] - before[k] for k in after}
     ll1 = app.loglik()
     steps = app.calls_per_sweep * app.config.steps_per_call
-    want = {"gibbs_sample_docblock": steps, "row_gather": steps,
+    want = {"gibbs_sample_docblock": steps,
+            "gibbs_sample_docblock_rows": steps, "row_gather": 0,
             "coo_scatter_add": 1}
     for name, n in want.items():
         if counts[name] != n:
@@ -2497,6 +2585,7 @@ def main(argv) -> int:
         "coo_scatter_add_masked": "sparse_tables",
         "gibbs_sample_tiled": "lightlda_tiled",
         "gibbs_sample_docblock": "lightlda_doc_blocked",
+        "gibbs_sample_docblock_rows": "lightlda_doc_blocked",
         "gibbs_sample_docblock_build": "lightlda_streamed",
         "kv_lookup": "sparse_logreg", "kv_probe_update": "sparse_logreg",
         "kv_lookup_sharded": "sparse_logreg_mesh",
@@ -2539,6 +2628,7 @@ def main(argv) -> int:
                  "coo_scatter_add_masked": coo_src,
                  "gibbs_sample_tiled": lda_src,
                  "gibbs_sample_docblock": lda_src,
+                 "gibbs_sample_docblock_rows": lda_src,
                  "gibbs_sample_docblock_build": lda_src,
                  "kv_lookup": kv_src, "kv_probe_update": kv_src,
                  "kv_lookup_sharded": kv_src,
@@ -2557,6 +2647,7 @@ def main(argv) -> int:
         "coo_scatter_add_masked": "multiverso_tpu/ops/table_kernels.py:1068",
         "gibbs_sample_tiled": "multiverso_tpu/ops/lda_sampler.py:80",
         "gibbs_sample_docblock": "multiverso_tpu/ops/lda_sampler.py:187",
+        "gibbs_sample_docblock_rows": "multiverso_tpu/ops/lda_sampler.py:187",
         "gibbs_sample_docblock_build":
             "multiverso_tpu/ops/lda_sampler.py:228",
         "kv_lookup": "multiverso_tpu/ops/table_kernels.py:285",

@@ -24,8 +24,9 @@ samplers:
    from each call's z.
 
 Every count build and move of the word table is a COO add through the
-port's ``coo_scatter_add`` kernel; word and doc rows are gathered by the
-row gather kernel. The reference's ``lax.scan`` over the S steps of a call
+port's ``coo_scatter_add`` kernel; the tiled modes gather word and doc
+rows with the row gather kernel, the doc-blocked kernel reads its word
+rows from the mirror itself. The reference's ``lax.scan`` over the S steps of a call
 is a Python loop, and its ``jax.random`` uniforms are draws from a
 ``torch.Generator`` on the device, seeded per call from (seed, call
 number); :meth:`LightLDA.sweep` also takes them as an input, so a caller
@@ -465,10 +466,10 @@ class LightLDA:
 
     def _docblock_body(self, params, states, locals_, options, lo: int, u,
                        wstale):
-        """The production step: per step, the word rows of B tokens from
-        the bf16 mirror, then the doc-blocked kernel over the step's
-        B / TB blocks (from block ``lo``), which moves their doc counts in
-        place."""
+        """The production step: per step, the doc-blocked kernel over the
+        step's B / TB blocks (from block ``lo``), which reads the tokens'
+        word rows from the bf16 mirror itself and moves their doc counts
+        in place."""
         c = self.config
         (nk,) = params
         ndk, z = locals_
@@ -476,12 +477,12 @@ class LightLDA:
         for s in range(c.steps_per_call):
             off = lo + s * nbs
             blocks = slice(off, off + nbs)
-            W3 = gather_rows(wstale, self._tw[blocks].reshape(B))
             _, znew, nkd = gibbs_sample_docblock(
-                ndk[blocks], W3.view(B, -1, 128), self._sinv(nk),
+                ndk[blocks], wstale, self._sinv(nk),
                 z[blocks].reshape(B), self._drel[blocks].reshape(B),
                 self._mask[blocks].reshape(B), u[s, 0], u[s, 1],
-                alpha=self.alpha, beta=self.beta, tb=TB)
+                alpha=self.alpha, beta=self.beta, tb=TB,
+                words=self._tw[blocks].reshape(B))
             z[blocks] = znew.view(nbs, TB)
             nk[:self.K] += nkd.view(-1)
         return (nk,), states, (ndk, z), None
@@ -503,11 +504,10 @@ class LightLDA:
         z = staged[2].reshape(S * nbs, TB)
         for s in range(S):
             blocks = slice(s * nbs, (s + 1) * nbs)
-            W3 = gather_rows(wstale, tw[s])
             znew, nkd = gibbs_sample_docblock_build(
-                W3.view(B, -1, 128), self._sinv(nk), z[blocks].reshape(B),
-                drel[s], msk[s], u[s, 0], u[s, 1], alpha=self.alpha,
-                beta=self.beta, tb=TB, maxd=self._maxd)
+                wstale, self._sinv(nk), z[blocks].reshape(B), drel[s],
+                msk[s], u[s, 0], u[s, 1], alpha=self.alpha, beta=self.beta,
+                tb=TB, maxd=self._maxd, words=tw[s])
             z[blocks] = znew.view(nbs, TB)
             nk[:self.K] += nkd.view(-1)
         z_out = z.view(S, B)

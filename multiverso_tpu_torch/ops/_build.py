@@ -61,10 +61,10 @@ _SIGNATURES = {
     #  znew, nkd, stream)
     "mv_gibbs_tiled": [_P, _I64, _P, _I64, _P, _P, _P, _P, _P, _I64, _I64,
                        _F, _F, _P, _P, _P],
-    # (ndk or None, n_int16, W, w_bf16, sinv, zi, drel, msk, u1, u2, nb,
-    #  tb, maxd, C, alpha, beta, znew, nkd, stream)
-    "mv_gibbs_docblock": [_P, _I64, _P, _I64, _P, _P, _P, _P, _P, _P, _I64,
-                          _I64, _I64, _I64, _F, _F, _P, _P, _P],
+    # (ndk or None, n_int16, W, w_bf16, words or None, V, sinv, zi, drel,
+    #  msk, u1, u2, nb, tb, maxd, C, alpha, beta, znew, nkd, stream)
+    "mv_gibbs_docblock": [_P, _I64, _P, _I64, _P, _I64, _P, _P, _P, _P, _P,
+                          _P, _I64, _I64, _I64, _I64, _F, _F, _P, _P, _P],
     # (keys, values, nb, S, D, query, buckets, n, default, picked, found,
     #  stream)
     "mv_kv_lookup": [_P, _P, _I64, _I64, _I64, _P, _P, _I64, _F, _P, _P, _P],

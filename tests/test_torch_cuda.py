@@ -234,6 +234,144 @@ def test_gibbs_docblock_and_build_mode(cuda, n_dtype, w_dtype):
                        moved)
 
 
+# topics at chunk and lane edges (K = 128 keeps those below 128)
+EDGE_TOPICS = (0, 3, 4, 127, 128, 131, 132, 1023, 1024, 8191)
+
+
+def _docblock_case(rng, nb, tb, maxd, c, n_dtype, w_dtype):
+    """Doc-blocked operands with every edge the kernel has: block 1 ends
+    in padded tokens, block 2 is all pads, block 3 has real tokens whose
+    drel lies outside [0, maxd), block 4's first tokens have word rows
+    peaked at topics on chunk and lane edges, block 5 draws with the
+    uniforms at 0 and 1. The block counts are those of the in-block real
+    tokens' own (zi, drel): a consistent state."""
+    k, b = c * 128, nb * tb
+    W3 = torch.from_numpy(rng.integers(0, 600, (b, c, 128), np.int32))
+    nk = rng.integers(5000, 50_000, (c, 128))
+    sinv = torch.from_numpy((1.0 / (nk + 50_000 * BETA)).astype(np.float32))
+    zi = torch.from_numpy(rng.integers(0, k, b).astype(np.int32))
+    msk = torch.from_numpy((rng.random(b) < 0.97).astype(np.int32))
+    u1 = torch.from_numpy(rng.random(b).astype(np.float32))
+    u2 = torch.from_numpy(rng.random(b).astype(np.float32))
+    drel = torch.from_numpy(rng.integers(0, maxd, b).astype(np.int32))
+    msk[tb - 40:tb] = 0
+    msk[tb:2 * tb] = 0
+    msk[2 * tb:3 * tb] = 1
+    drel[2 * tb:2 * tb + 6] = torch.tensor([-1, maxd, maxd + 5, -7, maxd,
+                                            -1], dtype=torch.int32)
+    edges = [e for e in EDGE_TOPICS if e < k]
+    for j in range(32):
+        t = 3 * tb + j
+        W3[t] = 0
+        W3[t].view(-1)[edges[j % len(edges)]] = 60_000
+        msk[t] = 1
+    ends = torch.tensor([0.0, 1.0, float(np.nextafter(np.float32(1),
+                                                      np.float32(0)))])
+    u1[4 * tb:4 * tb + 9] = ends.repeat_interleave(3)
+    u2[4 * tb:4 * tb + 9] = ends.repeat(3)
+    msk[4 * tb:4 * tb + 9] = 1
+    rows = ls._block_rows(drel, tb, maxd)
+    inb = (msk > 0) & (drel >= 0) & (drel < maxd)
+    ndk = torch.zeros(nb * maxd, k, dtype=torch.int32)
+    ndk.index_put_((rows[inb], zi[inb].long()),
+                   torch.ones(int(inb.sum()), dtype=torch.int32),
+                   accumulate=True)
+    return (ndk.view(nb, maxd, c, 128).to(n_dtype), W3.to(w_dtype),
+            (sinv, zi, drel, msk, u1, u2))
+
+
+@pytest.mark.parametrize("n_dtype,w_dtype", [(torch.int16, torch.bfloat16),
+                                             (torch.int32, torch.int32),
+                                             (torch.int16, torch.int32)])
+@pytest.mark.parametrize("k,maxd", [(128, 1), (128, 16), (1024, 1),
+                                    (1024, 16), (8192, 1), (8192, 4)])
+def test_gibbs_docblock_every_edge_matches_plain(cuda, n_dtype, w_dtype, k,
+                                                 maxd):
+    """Read and build mode against their plain versions bit for bit at
+    K 128 and 8,192 (the generic path) and 1,024 (the register path)."""
+    rng = np.random.default_rng(k + maxd)
+    nb, tb, c = 6, 256, k // 128
+    ndk, W3, vec = _docblock_case(rng, nb, tb, maxd, c, n_dtype, w_dtype)
+    sinv, zi, drel, msk, u1, u2 = vec
+    kw = dict(alpha=ALPHA, beta=BETA, tb=tb)
+    dev_ndk = ndk.clone().to(cuda)
+    dev = [x.to(cuda) for x in (W3, *vec)]
+    _, znew, nkd = ls.gibbs_sample_docblock(dev_ndk, *dev, **kw)
+    zb, nkdb = ls.gibbs_sample_docblock_build(*dev, maxd=maxd, **kw)
+    p_ndk = ndk.clone()
+    _, want, want_nkd = ls.gibbs_sample_docblock_plain(p_ndk, W3, *vec, **kw)
+    wb, wb_nkd = ls.gibbs_sample_docblock_build_plain(W3, *vec, maxd=maxd,
+                                                      **kw)
+    znew, zb = znew.cpu(), zb.cpu()
+    assert torch.equal(znew, want)
+    assert torch.equal(nkd.cpu(), want_nkd)
+    assert torch.equal(dev_ndk.cpu(), p_ndk)
+    assert torch.equal(zb, wb) and torch.equal(nkdb.cpu(), wb_nkd)
+    real = msk > 0
+    assert torch.equal(zb[real], znew[real])          # build == read
+    assert torch.equal(znew[~real], zi[~real])
+    out = drel[2 * tb:2 * tb + 6]                      # drew on a zero row
+    assert ((out < 0) | (out >= maxd)).all()
+    peaked = znew[3 * tb:3 * tb + 32]
+    edges = [e for e in EDGE_TOPICS if e < k]
+    hits = sum(int(peaked[j]) == edges[j % len(edges)] for j in range(32))
+    assert hits >= 24, f"only {hits} of 32 draws on the peaked edge topics"
+    assert int(znew[4 * tb]) == 0                      # u1 = u2 = 0
+
+
+@pytest.mark.parametrize("k,w_dtype", [(1024, torch.bfloat16),
+                                       (1024, torch.int32),
+                                       (256, torch.bfloat16)])
+def test_gibbs_docblock_words_equal_gathered_rows(cuda, k, w_dtype):
+    """words= reads the mirror's rows inside the kernel: bit for bit the
+    gathered form on the rows ``gather_rows`` gives (zero rows for ids
+    outside the mirror), in both modes, pads on the scratch row."""
+    rng = np.random.default_rng(11 + k)
+    nb, tb, maxd, c = 40, 512, 16, k // 128
+    v = 5_001
+    ndk, _, vec = _docblock_case(rng, nb, tb, maxd, c, torch.int16,
+                                 torch.int32)
+    sinv, zi, drel, msk, u1, u2 = vec
+    mirror = torch.from_numpy(rng.integers(0, 600, (v + 1, c, 128))) \
+        .to(w_dtype).to(cuda)
+    words = _zipf_ids(rng, nb * tb, v)
+    words[msk.numpy() == 0] = v                        # the scratch row
+    words[5 * tb:5 * tb + 4] = [-1, v + 1, 2 ** 31 - 1, -(2 ** 31)]
+    words = torch.from_numpy(words)
+    dev = [x.to(cuda) for x in vec]
+    dw = words.to(cuda)
+    W3 = tk.gather_rows(mirror, dw).view(-1, c, 128)
+    kw = dict(alpha=ALPHA, beta=BETA, tb=tb)
+    ndk_g, ndk_w = ndk.clone().to(cuda), ndk.clone().to(cuda)
+    _, zg, ng = ls.gibbs_sample_docblock(ndk_g, W3, *dev, **kw)
+    before = dict(ls.LAUNCHES)
+    _, zw, nw = ls.gibbs_sample_docblock(ndk_w, mirror, *dev, words=dw, **kw)
+    assert ls.LAUNCHES["gibbs_sample_docblock"] == \
+        before["gibbs_sample_docblock"] + 1
+    assert ls.LAUNCHES["gibbs_sample_docblock_rows"] == \
+        before["gibbs_sample_docblock_rows"] + 1
+    assert torch.equal(zg, zw) and torch.equal(ng, nw)
+    assert torch.equal(ndk_g, ndk_w)
+    bg, bng = ls.gibbs_sample_docblock_build(W3, *dev, maxd=maxd, **kw)
+    bw, bnw = ls.gibbs_sample_docblock_build(mirror, *dev, maxd=maxd,
+                                             words=dw, **kw)
+    assert torch.equal(bg, bw) and torch.equal(bng, bnw)
+    # the plain version raises on the ids outside the mirror; elsewhere
+    # it equals the kernel
+    with pytest.raises(IndexError):
+        ls.gibbs_sample_docblock_plain(ndk.clone(), mirror.cpu(), *vec,
+                                       words=words, **kw)
+    words[5 * tb:5 * tb + 4] = v
+    dw = words.to(cuda)
+    ndk_w = ndk.clone().to(cuda)
+    _, zw, nw = ls.gibbs_sample_docblock(ndk_w, mirror, *dev, words=dw, **kw)
+    p_ndk = ndk.clone()
+    _, want, want_nkd = ls.gibbs_sample_docblock_plain(
+        p_ndk, mirror.cpu(), *vec, words=words, **kw)
+    assert torch.equal(zw.cpu(), want) and torch.equal(nw.cpu(), want_nkd)
+    assert torch.equal(ndk_w.cpu(), p_ndk)
+
+
 def test_sparse_matrix_table_round_trip(cuda):
     rng = np.random.default_rng(9)
     for tiled, updater, dtype in ((False, "default", "int32"),
