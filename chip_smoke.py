@@ -18,8 +18,11 @@ its seconds):
    word2vec path's shapes (table 10,001 x 100; 4,096 and 24,576 Zipf-1.2
    ids, and 24,576 lanes of one id; each case's longest run beside its
    time, and the row scatter's sort apart from its kernel); the COO kernels
-   at a LightLDA call's 512,000 lanes into a [50,001, 1024] int32 table
-   (exact against the plain version on the CPU); the Gibbs sampler
+   at a LightLDA call's 512,000 lanes into a [50,001, 1024] int32 table in
+   request order (the kernel alone beside the call; ``index_put_`` and
+   ``index_add_``; the bound in bytes and in 32-byte sectors), into a
+   float32 table (sorted by row), and at the sweep-end rebuild's 10M
+   token lanes (exact against the plain version on the CPU); the Gibbs sampler
    kernels at the LightLDA step (B 512,000, K 1024, blocks of 512 tokens
    and 16 docs) in the production dtypes
    (int16 doc counts, bf16 word rows) and the exact-tiled ones (int32),
@@ -71,7 +74,8 @@ its seconds):
    tiled (512,000-lane COO adds), KVTable of 2^25 slots (ftrl, value_dim
    2, 159,000-key adds) with a batch that overflows one bucket of shard
    0: bit-identical in the logical region, the same overflow verdict;
-   each MatrixTable get_rows and stateless add_rows one launch per card.
+   each MatrixTable get_rows and stateless add_rows and each
+   SparseMatrixTable add_sparse one launch per card.
 12. Sparse logistic regression of phase 10 on the (1, 4) mesh through
    ``SparseLogisticRegression(cfg, mesh=...)``, from phase 10's data: its
    final keys, values and state must equal phase 10's bit for bit; the
@@ -595,15 +599,37 @@ def _sync(torch):
     torch.cuda.synchronize()
 
 
-def zipf_lda_corpus(vocab: int, docs: int, tokens: int, seed: int):
-    """(token words, token docs) by benchmarks/measure_lda.py's recipe:
-    Zipf-1.1 words, doc ids uniform and sorted."""
-    rng = np.random.default_rng(seed)
+def zipf_words(rng, vocab: int, n: int):
+    """``n`` Zipf-1.1 word ids over ``vocab`` words, by
+    benchmarks/measure_lda.py's recipe."""
     p = 1.0 / np.arange(1, vocab + 1) ** 1.1
     p /= p.sum()
-    tw = rng.choice(vocab, tokens, p=p).astype(np.int32)
+    return rng.choice(vocab, n, p=p).astype(np.int32)
+
+
+def zipf_lda_corpus(vocab: int, docs: int, tokens: int, seed: int):
+    """(token words, token docs): Zipf-1.1 words, doc ids uniform and
+    sorted."""
+    rng = np.random.default_rng(seed)
+    tw = zipf_words(rng, vocab, tokens)
     td = np.sort(rng.integers(0, docs, tokens)).astype(np.int32)
     return tw, td
+
+
+def rebuild_lanes(rng, vocab: int, topics: int, n: int, skewed: bool):
+    """(words, topics, mask) of LightLDA's sweep-end rebuild of ``n``
+    tokens in token order: Zipf-1.1 words; topics uniform (the rebuild of
+    an initial z), or skewed (word w's topic is its home topic plus 37
+    times a geometric(0.3) step, so about 30% of a word's tokens sit on
+    one element and the top word's tokens pile on it); a 0/1 mask with 3%
+    zeros (padding), the lanes' value."""
+    w = zipf_words(rng, vocab, n)
+    if skewed:
+        home = (w.astype(np.int64) * 2654435761) % topics
+        z = (home + 37 * (rng.geometric(0.3, n) - 1)) % topics
+    else:
+        z = rng.integers(0, topics, n)
+    return w, z.astype(np.int32), (rng.random(n) < 0.97).astype(np.int32)
 
 
 def lda_step_inputs(torch, a_dtype, w_dtype, seed: int):
@@ -649,13 +675,113 @@ def tie_rule(torch, ls, name, A3, W3, sinv, zi, msk, u1, u2, got, want):
     return int(diff.numel())
 
 
+def sector_bound_ms(lane_bytes: float, idx) -> float:
+    """The COO add's bound when each touched 32-byte sector of a table
+    that L2 does not hold moves in and out once: lane bytes plus 64 bytes
+    a touched sector, over the card's memory rate (``idx``: the lanes'
+    flat element indices into a table of 4-byte elements)."""
+    sectors = int((idx // 8).unique().numel())
+    return (lane_bytes + 64 * sectors) / PEAK_BYTES_PER_S * 1e3
+
+
+def int32_library(row: dict) -> dict:
+    """An int32 COO row's library time: ``index_put_(accumulate=True)``
+    and ``index_add_`` on the flat indices both compute the add exactly
+    (integer adds in any order), so ``library_ms`` is the faster of the
+    two; both stay in the row as ``index_put_ms`` and ``index_add_ms``."""
+    row["library_ms"] = min(row["index_put_ms"], row["index_add_ms"])
+    return row
+
+
+def coo_rows(torch, tk, table0, rows, cols, vals, masked, key: str,
+             iters: int = 20) -> dict:
+    """Phase 2's COO rows of one lane batch into a copy of ``table0``:
+    ``coo_scatter_add`` (the call; for int32 the kernel alone on the same
+    lanes too) and, with ``masked`` (row-sorted rows, cols, vals, valid),
+    ``coo_scatter_add_masked``; each exact against its plain version on
+    the CPU, beside ``index_put_`` and ``index_add_`` on the flat indices
+    (``library_ms``: ``index_put_`` for float32, whose sums depend on
+    their order; the faster of the two for int32) and the bound counted
+    two ways (bytes: lanes x 12 + touched elements x 8; sectors: each
+    touched 32-byte sector read and written)."""
+    out, K = {}, table0[0].numel()
+    want = tk.coo_scatter_add_plain(table0.cpu(), rows.cpu(), cols.cpu(),
+                                    vals.cpu())
+    got = tk.coo_scatter_add(table0.clone(), rows, cols, vals)
+    _sync(torch)
+    err = float((got.cpu() - want).abs().max())
+    if not torch.equal(got.cpu().view(torch.int32),
+                       want.view(torch.int32)):
+        raise SystemExit(f"coo_scatter_add{key}: kernel != plain on the CPU"
+                         f" (max abs err {err})")
+    del got, want
+    n = rows.shape[0]
+    idx = rows.long() * K + cols.long()
+    touched = int(idx.unique().numel())
+    t = table0.clone()
+    lib_vals = vals.to(t.dtype)
+    b, by = bound_ms(n * 12 + touched * 8, n)
+    row = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: tk.coo_scatter_add(t, rows, cols, vals), iters),
+        plain_ms=cuda_ms(
+            lambda: tk.coo_scatter_add_plain(t, rows, cols, vals), iters),
+        index_put_ms=cuda_ms(lambda: t.view(-1).index_put_(
+            (idx,), lib_vals, accumulate=True), iters),
+        index_add_ms=cuda_ms(lambda: t.view(-1).index_add_(0, idx, lib_vals),
+                             iters),
+        bound_ms=b, bound_by=by, sector_bound_ms=sector_bound_ms(n * 12, idx),
+        n=n, touched=touched, dtype=str(t.dtype).replace("torch.", ""))
+    row["library_ms"] = row["index_put_ms"]
+    if t.dtype == torch.int32:
+        int32_library(row)
+        # the kernel alone: the call minus its casts (none for int32 lanes)
+        lanes = [x.to(torch.int32).contiguous() for x in (rows, cols, vals)]
+        row["kernel_ms"] = cuda_ms(functools.partial(
+            tk._launch_coo, "coo_scatter_add", t, *lanes, None), iters)
+    out["coo_scatter_add" + key] = row
+    if masked is None:
+        return out
+    srows, scols, svals, valid = masked
+    want_m = tk.coo_scatter_add_masked_plain(
+        table0.cpu(), srows.cpu(), scols.cpu(), svals.cpu(), valid.cpu())
+    got_m = tk.coo_scatter_add_masked(table0.clone(), srows, scols, svals,
+                                      valid)
+    _sync(torch)
+    err_m = float((got_m.cpu() - want_m).abs().max())
+    if not torch.equal(got_m.cpu(), want_m):
+        raise SystemExit(f"coo_scatter_add_masked{key}: kernel != plain on "
+                         f"the CPU (max abs err {err_m})")
+    del got_m, want_m
+    keep = valid > 0
+    idx_m = (srows.long() * K + scols.long())[keep]
+    v_m = svals[keep].to(t.dtype)
+    nv = int(keep.sum())
+    touched_m = int(idx_m.unique().numel())
+    b, by = bound_ms(n * 16 + touched_m * 8, nv)
+    out["coo_scatter_add_masked" + key] = dict(
+        max_abs_err=err_m, ms=cuda_ms(lambda: tk.coo_scatter_add_masked(
+            t, srows, scols, svals, valid), iters),
+        plain_ms=cuda_ms(lambda: tk.coo_scatter_add_masked_plain(
+            t, srows, scols, svals, valid), iters),
+        library_ms=None,
+        # index_add_ of the valid lanes, selected beforehand
+        index_add_ms=cuda_ms(lambda: t.view(-1).index_add_(0, idx_m, v_m),
+                             iters),
+        bound_ms=b, bound_by=by,
+        sector_bound_ms=sector_bound_ms(n * 16, idx_m), n=n,
+        touched=touched_m, dtype=str(t.dtype).replace("torch.", ""))
+    return out
+
+
 def phase_lda_kernels(torch, tk, ls) -> dict:
     """Phase 2, LightLDA kernels vs plain at the LDA step shapes; returns
     {name: row} for the kernels JSON (and a few extra shapes)."""
     out = {}
     C, B, K = LDA_K // 128, LDA_B, LDA_K
 
-    # COO: a call's 512k (word, topic, 1) lanes into the word table
+    # COO: a call's 512k (word, topic, 1) lanes into the word table, in
+    # request order (an int32 table takes them unsorted)
     rng = np.random.default_rng(5)
     tw, _ = zipf_lda_corpus(LDA_V, 1, B, seed=5)
     rows = torch.as_tensor(tw, device="cuda")
@@ -665,50 +791,31 @@ def phase_lda_kernels(torch, tk, ls) -> dict:
                            device="cuda")
     table0 = torch.zeros((LDA_V + 1, C, 128), dtype=torch.int32,
                          device="cuda")
-    want = tk.coo_scatter_add_plain(table0.cpu(), rows.cpu(), cols.cpu(),
-                                    vals.cpu())
-    got = tk.coo_scatter_add(table0.clone(), rows, cols, vals)
-    _sync(torch)
-    err = float((got.cpu() - want).abs().max())
-    if not torch.equal(got.cpu(), want):
-        raise SystemExit(f"coo_scatter_add: kernel != plain on the CPU "
-                         f"(max abs err {err})")
     srows, order = torch.sort(rows, stable=True)
     scols, svals = cols[order], vals[order]
     valid = torch.as_tensor((rng.random(B) < 0.9).astype(np.int32),
                             device="cuda")
-    want_m = tk.coo_scatter_add_masked_plain(
-        table0.cpu(), srows.cpu(), scols.cpu(), svals.cpu(), valid.cpu())
-    got_m = tk.coo_scatter_add_masked(table0.clone(), srows, scols, svals,
-                                      valid)
-    _sync(torch)
-    err_m = float((got_m.cpu() - want_m).abs().max())
-    if not torch.equal(got_m.cpu(), want_m):
-        raise SystemExit("coo_scatter_add_masked: kernel != plain on the "
-                         f"CPU (max abs err {err_m})")
-    flat_idx = rows.long() * K + cols.long()
-    touched = int(torch.unique(flat_idx).numel())
-    touched_m = int(torch.unique(flat_idx[order][valid > 0]).numel())
-    t = table0.clone()
-    lib_vals = vals.clone()
-    b, by = bound_ms(B * 12 + touched * 8, B)
-    out["coo_scatter_add"] = dict(
-        max_abs_err=err, ms=cuda_ms(
-            lambda: tk.coo_scatter_add(t, rows, cols, vals), 20),
-        plain_ms=cuda_ms(
-            lambda: tk.coo_scatter_add_plain(t, rows, cols, vals), 20),
-        library_ms=cuda_ms(lambda: t.view(-1).index_put_(
-            (flat_idx,), lib_vals, accumulate=True), 20),
-        bound_ms=b, bound_by=by, n=B, touched=touched)
-    nv = int(valid.sum())
-    b, by = bound_ms(B * 16 + touched_m * 8, nv)
-    out["coo_scatter_add_masked"] = dict(
-        max_abs_err=err_m, ms=cuda_ms(lambda: tk.coo_scatter_add_masked(
-            t, srows, scols, svals, valid), 20),
-        plain_ms=cuda_ms(lambda: tk.coo_scatter_add_masked_plain(
-            t, srows, scols, svals, valid), 20),
-        library_ms=None, bound_ms=b, bound_by=by, n=B, touched=touched_m)
-    del t, table0, got, got_m
+    out.update(coo_rows(torch, tk, table0, rows, cols, vals,
+                        (srows, scols, svals, valid), key=""))
+    # the same lanes into a float32 table (the sgd updater's sparse Add):
+    # the call sorts them by row, each element sums in lane order
+    g = torch.Generator(device="cuda").manual_seed(5)
+    f_vals = torch.randn(B, generator=g, device="cuda")
+    out.update(coo_rows(torch, tk, table0.float(), rows, cols, f_vals, None,
+                        key="_f32"))
+    del table0
+    # the sweep-end rebuild's 10M token lanes (Zipf-1.1 words in token
+    # order, the 0/1 mask as the value) into a zero table, with the uniform
+    # topics of an initial z (phase 6 times the rebuild of a sampled z)
+    w10, z10, m10 = (torch.as_tensor(x, device="cuda") for x in
+                     rebuild_lanes(np.random.default_rng(10), LDA_V, K,
+                                   LDA_T, False))
+    out.update(coo_rows(torch, tk, torch.zeros((LDA_V + 1, C, 128),
+                                               dtype=torch.int32,
+                                               device="cuda"),
+                        w10, z10, m10, None, key="@10M", iters=10))
+    del w10, z10, m10
+    torch.cuda.empty_cache()
 
     # the step's W-row gather from the bf16 mirror (row_gather at the LDA
     # shape; the kernels JSON keeps the word2vec shape's row)
@@ -831,6 +938,14 @@ def phase_lda_kernels(torch, tk, ls) -> dict:
             f"{r['max_abs_err']:.3g}"
             + (f"; {r['mismatches']} draws differ" if "mismatches" in r
                else ""))
+        if "sector_bound_ms" in r:
+            log(f"    {r['dtype']}, {r['touched']} elements touched; "
+                + (f"the kernel alone {r['kernel_ms']:.4f} ms; "
+                   if "kernel_ms" in r else "")
+                + (f"index_put_ {r['index_put_ms']:.4f} ms; "
+                   if "index_put_ms" in r else "")
+                + f"index_add_ {r['index_add_ms']:.4f} ms; sector bound "
+                f"{r['sector_bound_ms']:.4f} ms")
     return out
 
 
@@ -1775,6 +1890,11 @@ def phase_sharded_kernels(torch, tk, core, KVTable, devices, rng) -> dict:
            LDA_B * 13 + touched * 8, LDA_B,
            library=lambda: whole.index_put_((idx,), v_all, accumulate=True),
            n=LDA_B, lanes=lr.shape[1], touched=touched)
+    out["coo_scatter_add_sharded"].update(
+        index_put_ms=out["coo_scatter_add_sharded"]["library_ms"],
+        index_add_ms=cuda_ms(lambda: whole.index_add_(0, idx, v_all), 20),
+        sector_bound_ms=sector_bound_ms(LDA_B * 13, idx))
+    int32_library(out["coo_scatter_add_sharded"])
     del shards, host, ops, table0, whole
 
     # KV at the sparse-LR step's shapes: a 2^25-slot ftrl table at
@@ -1850,6 +1970,11 @@ def phase_sharded_kernels(torch, tk, core, KVTable, devices, rng) -> dict:
             f"a call's wall time {r['call_ms']:.4f} ms; "
             f"bit-identical to the CPU plain version; launches per call "
             f"{r['launches_per_call']}")
+        if "sector_bound_ms" in r:
+            log(f"    on the table concatenated: index_put_ "
+                f"{r['index_put_ms']:.4f} ms, index_add_ "
+                f"{r['index_add_ms']:.4f} ms; sector bound "
+                f"{r['sector_bound_ms']:.4f} ms")
         if "flat_ms" in r:
             log(f"    the flat kernel on the table concatenated "
                 f"{r['flat_ms']:.4f} ms; host time to queue a call "
@@ -1911,9 +2036,12 @@ def phase_sharded_tables(torch, tk, mesh, MatrixTable, SparseMatrixTable,
     one = dict(device=mesh.devices[0, 0])
     cards = len(set(mesh.shard_devices))
     # a row Get or a stateless Add on the split table: one launch per card
+    # (a COO Add's first launch also counts under the masked name)
     per_call = {"get": {"row_gather_sharded": cards},
                 "add": {"row_scatter_add_sharded": cards,
-                        "row_scatter_add_masked": cards}}
+                        "row_scatter_add_masked": cards},
+                "add_sparse": {"coo_scatter_add_sharded": cards,
+                               "coo_scatter_add_masked": 1}}
     for updater in ("default", "sgd", "adagrad"):
         opt = AddOption(learning_rate=0.05, lam=1e-6)
         init = (rng.standard_normal((ROWS - 1, DIM)) * 0.05).astype(
@@ -1954,7 +2082,10 @@ def phase_sharded_tables(torch, tk, mesh, MatrixTable, SparseMatrixTable,
             tw, _ = zipf_lda_corpus(LDA_V, 1, LDA_B, seed=seed)
             c = rng.integers(0, LDA_K, LDA_B)
             v = rng.integers(-1, 2, LDA_B)
-            a.add_sparse(tw, c, v)
+            grown = launch_delta(tk, lambda: a.add_sparse(tw, c, v))
+            if grown != per_call["add_sparse"]:
+                raise SystemExit(f"sharded add_sparse launched {grown}, "
+                                 f"expected {per_call['add_sparse']}")
             b.add_sparse(tw, c, v)
         q = zipf_ids(rng, 2000, LDA_V + 1)
         if not (np.array_equal(a.get(), b.get())
@@ -1964,7 +2095,8 @@ def phase_sharded_tables(torch, tk, mesh, MatrixTable, SparseMatrixTable,
                              "unsharded")
         log(f"  SparseMatrixTable {LDA_V} x {LDA_K} int32 tiled={tiled!s:5s}"
             f" on {len(a.shards)} shards: 2 add_sparse of {LDA_B} lanes + "
-            "get_rows_sparse bit-identical to the unsharded table")
+            "get_rows_sparse bit-identical to the unsharded table; one "
+            f"launch per card an add ({cards})")
         del a, b
     free_tables(torch)
     a, b = (KVTable(SLR_CAPACITY, value_dim=2, slots_per_bucket=SLR_SLOTS,
@@ -2183,7 +2315,13 @@ def phase_mesh_kernels(torch, tk, devices, rng) -> dict:
            lambda: tk.coo_scatter_add(timed_p, r, c, v),
            lambda: tk.coo_scatter_add_mesh_plain(timed_p, r, c, v),
            lambda: lib_t.view(-1).index_put_((idx,), v, accumulate=True),
-           20, LDA_B * 12 + touched * 8, LDA_B, n=LDA_B, touched=touched)
+           20, LDA_B * 12 + touched * 8, LDA_B, n=LDA_B, touched=touched,
+           index_add_ms=cuda_ms(
+               lambda: lib_t.view(-1).index_add_(0, idx, v), 20),
+           sector_bound_ms=sector_bound_ms(LDA_B * 12, idx))
+    coo_mesh = out[f"coo_scatter_add_mesh@{LDA_B}"]
+    coo_mesh["index_put_ms"] = coo_mesh["library_ms"]
+    int32_library(coo_mesh)
     del param, timed_p, lib_t, table0
     for key, row in out.items():
         log(f"  {key:30s} ({SHARDS} shards) kernel {row['ms']:.4f} ms  "
@@ -2192,6 +2330,10 @@ def phase_mesh_kernels(torch, tk, devices, rng) -> dict:
             f"({row['bound_by']})  {row['ms'] / row['bound_ms']:.1f}x "
             f"bound; bit-identical to the CPU plain version; launches per "
             f"call {row['launches_per_call']}")
+        if "sector_bound_ms" in row:
+            log(f"    index_put_ {row['index_put_ms']:.4f} ms, index_add_ "
+                f"{row['index_add_ms']:.4f} ms; sector bound "
+                f"{row['sector_bound_ms']:.4f} ms")
         if "flat_ms" in row:
             log(f"    the flat kernel on the whole table {row['flat_ms']:.4f}"
                 f" ms; host time to queue a call {row['host_ms']:.4f} ms "
@@ -2669,6 +2811,8 @@ def main(argv) -> int:
                              "row_scatter_add_masked")}
     measured.update({name: lda_results[name] for name in source_of
                      if name in lda_results})
+    # the doc-blocked sweep's one COO add is its 10M-lane rebuild
+    measured["coo_scatter_add"] = lda_results["coo_scatter_add@10M"]
     # the sparse-LR path's shapes: the ftrl table at value_dim 2
     measured["kv_lookup"] = kv_results["kv_lookup"]
     measured["kv_probe_update"] = kv_results["kv_probe_update_ftrl_2"]

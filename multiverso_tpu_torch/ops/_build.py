@@ -57,6 +57,10 @@ _SIGNATURES = {
     #  valid, n, stream)
     "mv_coo_scatter_add_mesh": [_P, _P, _I64, _I64, _I64, _I64, _P, _P, _P,
                                 _P, _I64, _P],
+    # (bases, firsts, count, rows, cols, is_int, rows_ids, cols_ids, vals,
+    #  valid, lanes, stream): per-shard lane arrays
+    "mv_coo_scatter_add_shards": [_P, _P, _I64, _I64, _I64, _I64, _P, _P,
+                                  _P, _P, _P, _P],
     # (A, a_int16, W, w_bf16, sinv, zi, msk, u1, u2, b, C, alpha, beta,
     #  znew, nkd, stream)
     "mv_gibbs_tiled": [_P, _I64, _P, _I64, _P, _P, _P, _P, _P, _I64, _I64,

@@ -120,7 +120,9 @@
 namespace {
 
 using mv::Shards;
+using mv::aligned;
 using mv::shard_row;
+using mv::sm_count;
 
 constexpr int kWarp = 32;
 constexpr int kWarpsPerBlock = 8;
@@ -364,23 +366,14 @@ struct ShardLanes {
   int64_t start[mv::kMaxShards + 1];
   int count;
   int masked;
-  // the segment that holds launch lane g (the last one that starts at or
-  // before g; every segment is non-empty)
+  // the segment that holds launch lane g (mv::find_segment)
   __device__ __forceinline__ Segment segment(const Shards& sh,
                                              int64_t g) const {
-    Segment s{ids[0], deltas[0], valid[0], 0, start[1], sh.first[0]};
-#pragma unroll
-    for (int k = 1; k < mv::kMaxShards; ++k) {
-      if (k >= count) break;  // uniform: the launch's count
-      if (g >= start[k]) {
-        s.ids = ids[k];
-        s.deltas = deltas[k];
-        s.valid = valid[k];
-        s.start = start[k];
-        s.n = start[k + 1] - start[k];
-        s.first = sh.first[k];
-      }
-    }
+    Segment s;
+    mv::find_segment(start, count, g, [&](int k) {
+      s = Segment{ids[k], deltas[k], valid[k], start[k],
+                  start[k + 1] - start[k], sh.first[k]};
+    });
     return s;
   }
   int64_t lanes() const { return start[count]; }
@@ -617,28 +610,8 @@ scatter_long_kernel(__grid_constant__ const Shards sh,
   }
 }
 
-inline bool aligned(const void* p, unsigned bytes) {
-  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
-}
-
 inline unsigned blocks_for(int64_t n, int warps = kWarpsPerBlock) {
   return (unsigned)((n + warps - 1) / warps);
-}
-
-// The current device's SM count, read once per device.
-cudaError_t sm_count(int* sms) {
-  constexpr int kDevices = 64;
-  static int cached[kDevices];  // 0 until read
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < kDevices && cached[dev] > 0) {
-    *sms = cached[dev];
-    return cudaSuccess;
-  }
-  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess && dev < kDevices) cached[dev] = *sms;
-  return err;
 }
 
 bool GlobalLanes::deltas_aligned(unsigned bytes) const {

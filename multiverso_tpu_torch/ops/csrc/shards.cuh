@@ -1,5 +1,7 @@
 // The shards of one table that one launch serves, passed to a kernel by
-// value (csrc/row_kernels.cu, csrc/coo_kernels.cu).
+// value (csrc/row_kernels.cu, csrc/coo_kernels.cu), the segment lookup of
+// their host-sliced launches, and the host helpers both sources size their
+// launches with.
 //
 // A table split over a mesh's model axis holds equal blocks of `rows` rows;
 // shard k's first row has the global id first[k]. A launch serves every
@@ -13,6 +15,7 @@
 
 #pragma once
 
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace mv {
@@ -42,15 +45,24 @@ __device__ __forceinline__ T* shard_row(const Shards& sh, int64_t rows,
   return nullptr;
 }
 
-// Does any shard's window meet the global ids [lo_id, hi_id]?
-__device__ __forceinline__ bool meets(const Shards& sh, int64_t rows,
-                                      int64_t lo_id, int64_t hi_id) {
-  bool hit = false;
+// The segment of a host-sliced launch that holds launch position u:
+// segment k (shard k's real lanes, never empty) starts at start[k], and
+// u's segment is the last of the `count` that starts at or before u.
+// take(k) runs for segment 0 and for each later one that starts at or
+// before u, so its last run names u's segment. The loop is unrolled, so
+// k is a constant in each run and no index into a kernel's by-value
+// parameters copies them to local memory; it leaves at the (uniform)
+// count.
+template <typename F>
+__device__ __forceinline__ void find_segment(const int64_t* start,
+                                             int count, int64_t u,
+                                             F&& take) {
+  take(0);
 #pragma unroll
-  for (int k = 0; k < kMaxShards; ++k)
-    if (k < sh.count)
-      hit |= hi_id >= sh.first[k] && lo_id < sh.first[k] + rows;
-  return hit;
+  for (int k = 1; k < kMaxShards; ++k) {
+    if (k >= count) break;
+    if (u >= start[k]) take(k);
+  }
 }
 
 // A table of `count` shards: base pointers and first global ids.
@@ -73,6 +85,26 @@ inline Shards one_shard(void* base) {
   sh.first[0] = 0;
   sh.count = 1;
   return sh;
+}
+
+inline bool aligned(const void* p, unsigned bytes) {
+  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
+}
+
+// The current device's SM count, read once per device.
+inline cudaError_t sm_count(int* sms) {
+  constexpr int kDevices = 64;
+  static int cached[kDevices];  // 0 until read
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kDevices && cached[dev] > 0) {
+    *sms = cached[dev];
+    return cudaSuccess;
+  }
+  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess && dev < kDevices) cached[dev] = *sms;
+  return err;
 }
 
 }  // namespace mv

@@ -1,5 +1,5 @@
 """Table kernels of the hot path: the row gather, the duplicate-safe
-sorted row scatter-add (with an optional per-lane mask), the sorted COO
+sorted row scatter-add (with an optional per-lane mask), the COO
 scatter-add (with an optional per-lane mask), the KVTable lookup and
 fused probe + updater apply, their sharded forms over tables split
 across a mesh's model axis, and the functional forms of a superstep body
@@ -36,16 +36,18 @@ LAUNCHES = {"row_gather": 0, "row_scatter_add": 0,
             "row_scatter_add_masked": 0, "coo_scatter_add": 0,
             "coo_scatter_add_masked": 0, "kv_lookup": 0,
             "kv_probe_update": 0, "kv_commit": 0,
-            # the KV and COO sharded forms: one per call that launches;
-            # their per-shard launches count above as well
+            # the KV sharded forms: one per call that launches; their
+            # per-shard launches count above as well
             "kv_lookup_sharded": 0, "kv_probe_update_sharded": 0,
-            "coo_scatter_add_sharded": 0,
             # one per card (per group of MESH_MAX_SHARDS shards of one
-            # card): the sharded row gather (mv_row_gather_mesh) and
-            # row scatter-add (the masked scatter over each shard's real
-            # lanes, which also counts under row_scatter_add_masked), and
-            # the functional forms over a ShardedParam (counted under
-            # these names only)
+            # card): the sharded row gather (mv_row_gather_mesh), row
+            # scatter-add (the masked scatter over each shard's real
+            # lanes, which also counts under row_scatter_add_masked) and
+            # COO add (each shard's real lanes; a call's first launch
+            # also counts under coo_scatter_add_masked), and the
+            # functional forms over a ShardedParam (counted under these
+            # names only)
+            "coo_scatter_add_sharded": 0,
             "row_gather_sharded": 0, "row_scatter_add_sharded": 0,
             "gather_rows_mesh": 0, "row_scatter_add_mesh": 0,
             "coo_scatter_add_mesh": 0}
@@ -295,7 +297,7 @@ def row_scatter_add_masked(param: torch.Tensor, ids: torch.Tensor,
     return param
 
 
-# -- sorted COO scatter-add ---------------------------------------------------
+# -- COO scatter-add -----------------------------------------------------------
 
 
 def _check_coo(param: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
@@ -334,16 +336,31 @@ def coo_scatter_add_masked_plain(param: torch.Tensor, rows: torch.Tensor,
 
 def _launch_coo(name: str, param: torch.Tensor, rows: torch.Tensor,
                 cols: torch.Tensor, vals: torch.Tensor,
-                valid: Optional[torch.Tensor],
-                tag: Optional[str] = None) -> None:
-    """Launch ``mv_coo_scatter_add`` over row-sorted int32 lanes (rows of
-    ``param``; lanes outside it add nothing)."""
+                valid: Optional[torch.Tensor]) -> None:
+    """Launch ``mv_coo_scatter_add`` over contiguous int32 lanes (rows of
+    ``param``; lanes outside it add nothing), sorted by row for a float32
+    table, in any order for int32."""
     flat = _rows(param)
     _launch(name, "mv_coo_scatter_add", flat.data_ptr(), flat.shape[0],
             flat.shape[1], _is_int(param), rows.data_ptr(),
             cols.data_ptr(), vals.data_ptr(),
             None if valid is None else valid.data_ptr(), rows.shape[0],
-            device=param.device, tag=tag)
+            device=param.device)
+
+
+def _coo_lanes(dtype: torch.dtype, rows: torch.Tensor, cols: torch.Tensor,
+               vals: torch.Tensor) -> tuple:
+    """The COO kernel's lane operands for a table of ``dtype``: int32 rows
+    and columns and values of the table's type, contiguous. For float32
+    they are stable-sorted by row on the device, since the kernel adds
+    each element's lanes in sorted lane order (the plain version's); int32
+    sums are the same in any order, so int32 lanes go as they come."""
+    rows, cols, vals = (rows.to(torch.int32), cols.to(torch.int32),
+                        vals.to(dtype))
+    if dtype == torch.float32:
+        rows, order = torch.sort(rows, stable=True)
+        cols, vals = cols[order], vals[order]
+    return rows.contiguous(), cols.contiguous(), vals.contiguous()
 
 
 def coo_scatter_add(param, rows: torch.Tensor, cols: torch.Tensor,
@@ -353,9 +370,10 @@ def coo_scatter_add(param, rows: torch.Tensor, cols: torch.Tensor,
     to the table's type.
 
     Replaces ``build_coo_scatter_add`` (the TPU ``_coo_kernel``) behind
-    the functional ``coo_scatter_add``: the lanes are stable-sorted by row
-    on the device, then the sorted COO kernel adds them. Lanes out of
-    range are dropped by the kernel (the plain version raises). A
+    the functional ``coo_scatter_add``: the COO kernel adds an int32
+    table's lanes as they come, with no sort; a float32 table's lanes are
+    stable-sorted by row on the device first (:func:`_coo_lanes`). Lanes
+    out of range are dropped by the kernel (the plain version raises). A
     :class:`ShardedParam` goes to :func:`coo_scatter_add_mesh`."""
     if isinstance(param, ShardedParam):
         return coo_scatter_add_mesh(param, rows, cols, vals)
@@ -364,10 +382,8 @@ def coo_scatter_add(param, rows: torch.Tensor, cols: torch.Tensor,
         return coo_scatter_add_plain(param, rows, cols, vals)
     if rows.shape[0] == 0:
         return param
-    srows, order = torch.sort(rows.to(torch.int32), stable=True)
-    scols = cols.to(torch.int32)[order]
-    svals = vals.to(param.dtype)[order]
-    _launch_coo("coo_scatter_add", param, srows, scols, svals, None)
+    _launch_coo("coo_scatter_add", param,
+                *_coo_lanes(param.dtype, rows, cols, vals), None)
     return param
 
 
@@ -375,8 +391,9 @@ def coo_scatter_add_masked(param: torch.Tensor, rows: torch.Tensor,
                            cols: torch.Tensor, vals: torch.Tensor,
                            valid: torch.Tensor) -> torch.Tensor:
     """The COO add over lanes ALREADY sorted by row (the table's host prep
-    sorts them), with a per-lane write gate: lanes whose ``valid`` is 0
-    add nothing. In place; returns ``param``.
+    sorts them; an int32 table takes them in any order), with a per-lane
+    write gate: lanes whose ``valid`` is 0 add nothing. In place; returns
+    ``param``.
 
     Replaces ``build_coo_scatter_add_masked`` (the TPU
     ``_coo_masked_kernel``): the same CUDA kernel as
@@ -385,19 +402,12 @@ def coo_scatter_add_masked(param: torch.Tensor, rows: torch.Tensor,
     if param.device.type == "cpu":
         return coo_scatter_add_masked_plain(param, rows, cols, vals, valid)
     if rows.shape[0]:
-        _coo_masked_into(param, rows, cols, vals, valid)
+        _launch_coo("coo_scatter_add_masked", param,
+                    rows.to(torch.int32).contiguous(),
+                    cols.to(torch.int32).contiguous(),
+                    vals.to(param.dtype).contiguous(),
+                    valid.to(torch.int32).contiguous())
     return param
-
-
-def _coo_masked_into(param: torch.Tensor, rows: torch.Tensor,
-                     cols: torch.Tensor, vals: torch.Tensor,
-                     valid: torch.Tensor, tag: Optional[str] = None) -> None:
-    """Launch the masked COO add of a non-empty row-sorted lane batch."""
-    _launch_coo("coo_scatter_add_masked", param,
-                rows.to(torch.int32).contiguous(),
-                cols.to(torch.int32).contiguous(),
-                vals.to(param.dtype).contiguous(),
-                valid.to(torch.int32).contiguous(), tag)
 
 
 # -- KV lookup and fused probe + updater apply ---------------------------------
@@ -720,25 +730,25 @@ def kv_probe_update(keys_arr: torch.Tensor, values_arr: torch.Tensor,
 # lies elsewhere.
 #
 # Each form replaces a reference builder that wraps its flat kernel per
-# shard under shard_map. The KV and COO forms do the same: they launch the
-# flat kernel of each shard on that shard's card and current stream, and
-# their first launch also counts under the form's own ``LAUNCHES`` name.
-# The row gather and row scatter-add launch once per card (per group of
+# shard under shard_map. The KV forms do the same: they launch the flat
+# kernel of each shard on that shard's card and current stream, and their
+# first launch also counts under the form's own ``LAUNCHES`` name. The row
+# gather, row scatter-add and COO add launch once per card (per group of
 # ``MESH_MAX_SHARDS`` shards of one card) over every shard it holds, with
 # each shard's base pointer and lane rows by value, counted under the
 # form's name per launch: the gather writes each caller lane's row where
-# ``inv`` puts it (no (shards, L, C) buffer, no unpermute), the scatter
-# walks each shard's real lanes as a segment of its own. ``counts`` (host
+# ``inv`` puts it (no (shards, L, C) buffer, no unpermute), the scatters
+# walk each shard's real lanes as a segment of their own. ``counts`` (host
 # ints from the host prep, required; the plain versions take none) limits
 # the launches to the shards' real lanes: a padding run is one id, and the
-# scatters walk a run of equal ids serially, so padding launched would be
-# a long serial chain that writes nothing. A call with no real lane
-# launches nothing and counts nothing. The kernels never talk across
+# row scatter walks a run of equal ids serially, so padding launched
+# would be a long serial chain that writes nothing. A call with no real
+# lane launches nothing and counts nothing. The kernels never talk across
 # shards; the KV overflow gate is the one global value, a sum of the
 # per-shard counts on the device.
 # What bounds them: the flat kernels' bytes, plus a launch and the host's
-# wrapper work per launch; the KV and COO forms' shards that share a card
-# run in turn on its stream, so their longest runs add up.
+# wrapper work per launch; the KV forms' shards that share a card run in
+# turn on its stream, so their longest runs add up.
 #
 # The plain version beside each is the reference's sharded XLA adapter:
 # globalize the local ids (local + s * per_shard), run the flat plain
@@ -1058,22 +1068,31 @@ def coo_scatter_add_sharded_plain(shards, rows, cols, vals, valid):
 
 def coo_scatter_add_sharded(shards, rows, cols, vals, valid, *, counts):
     """Sharded COO scatter-add, in place: ``(shards, L)`` lanes with LOCAL
-    row ids sorted per shard, its first ``counts[s]`` real in row s, into
-    flat ``[rps, C]`` or tiled ``[rps, C/128, 128]`` shards.
+    row ids sorted per shard (an int32 table takes them in any order), its
+    first ``counts[s]`` real in row s, into flat ``[rps, C]`` or tiled
+    ``[rps, C/128, 128]`` shards.
 
-    Replaces ``build_coo_scatter_add_sharded``: the masked
-    ``mv_coo_scatter_add`` per shard."""
+    Replaces ``build_coo_scatter_add_sharded`` (the masked COO kernel per
+    shard): one ``mv_coo_scatter_add_shards`` per card, which runs the COO
+    kernel over the real lanes of every shard the card holds, each
+    shard's lanes a segment of their own (a float32 run never spans two
+    shards), the pads never launched. Each launch counts under
+    ``coo_scatter_add_sharded``, a call's first launch also under
+    ``coo_scatter_add_masked``."""
     if _shard_kind(shards) == "cpu":
         return coo_scatter_add_sharded_plain(shards, rows, cols, vals, valid)
-    tag = "coo_scatter_add_sharded"
-    for s, p in enumerate(shards):
-        n = int(counts[s])
-        ops = [_lane_row(x, s, p.device, n)
-               for x in (rows, cols, vals, valid)]
-        _check_coo(p, *ops)
-        if n:
-            _coo_masked_into(p, *ops, tag)
-            tag = None
+    nrows, ncols = _rows(shards[0]).shape
+    ops = (_lanes_as(rows, torch.int32), _lanes_as(cols, torch.int32),
+           _lanes_as(vals, shards[0].dtype), _lanes_as(valid, torch.int32))
+    tag = "coo_scatter_add_masked"
+    for dev, part, lanes, real in shard_lane_launches(shards, ops, counts):
+        for s, r, c, v, ok, n in zip(part, *lanes, real):
+            _check_coo(shards[s], r[:n], c[:n], v[:n], ok[:n])
+        _launch("coo_scatter_add_sharded", "mv_coo_scatter_add_shards",
+                *_shard_table(shards, part, nrows), nrows, ncols,
+                _is_int(shards[0]), *(_c_ptrs(x) for x in lanes),
+                _c_array(ctypes.c_int64, real), device=dev, tag=tag)
+        tag = None
     return shards
 
 
@@ -1100,10 +1119,11 @@ def coo_scatter_add_sharded(shards, rows, cols, vals, valid, *, counts):
 # Lanes outside a launch's windows are foreign (see csrc/row_kernels.cu
 # for why the reference's mapping of foreign lanes onto the shard's last
 # row is not copied). Lane counts per shard stay on the device, so
-# nothing syncs the host. The scatter-adds sort the lanes once, on the
-# first shard's device, for every card; sorted global ids keep every run
-# inside one shard and in the flat kernel's order, so a sharded table
-# ends bit-identical to the unsharded one. Each launch counts one under
+# nothing syncs the host. The row scatter-add sorts its ids once, and the
+# COO add a float32 table's lanes, on the first shard's device, for every
+# card; sorted global ids keep every run inside one shard and in the flat
+# kernel's order (an int32 COO sum is the same in any order), so a
+# sharded table ends bit-identical to the unsharded one. Each launch counts one under
 # the form's own ``LAUNCHES`` name. The shards of a param are equal row
 # blocks (the port's tables always split evenly), so unlike the
 # reference, which falls back to XLA for an uneven split, no form has a
@@ -1358,8 +1378,9 @@ def coo_scatter_add_mesh(param: ShardedParam, rows: torch.Tensor,
     ``param``.
 
     Replaces the reference's in-trace ``_sharded_coo_scatter_add``: one
-    stable sort of the lanes by row on the first device, then one
-    ``mv_coo_scatter_add_mesh`` per card over the shards it holds."""
+    ``mv_coo_scatter_add_mesh`` per card over the shards it holds, over
+    the lanes as they come (int32) or stable-sorted by row once on the
+    first device (float32, :func:`_coo_lanes`)."""
     kind = _check_mesh(param, ADD_DTYPES)
     _check_coo(param.shards[0], rows, cols, vals)
     if kind == "cpu":
@@ -1367,9 +1388,7 @@ def coo_scatter_add_mesh(param: ShardedParam, rows: torch.Tensor,
     n = rows.shape[0]
     if n == 0:
         return param
-    srows, order = torch.sort(rows.to(torch.int32), stable=True)
-    lanes = (srows, cols.to(torch.int32)[order],
-             vals.to(param.dtype)[order])
+    lanes = _coo_lanes(param.dtype, rows, cols, vals)
     nrows, ncols = _rows(param.shards[0]).shape
     cache = {}
     for dev, *table in param.launch_tables():

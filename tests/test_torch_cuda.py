@@ -10,7 +10,7 @@ Tolerances: the gather is exact. The scatter-add kernels add each run of
 duplicate ids (COO: each element's lanes) in sorted-lane order, the order
 in which the plain version adds on the CPU (``index_add_`` goes lane by
 lane there), so the two are compared bit for bit; int32 is exact in any
-order. The plain version on the card (``index_add_`` with atomics) adds
+order, and the int32 COO kernel takes its lanes unsorted. The plain version on the card (``index_add_`` with atomics) adds
 float32 in no fixed order and is not the reference here. The Gibbs
 sampler kernels take every float32 sum in the order their plain version
 takes it (``ops/lda_sampler.py``), so their draws, ``nkd`` and the doc
@@ -671,11 +671,9 @@ def _on(x, dev, shards=None):
 def test_sharded_row_and_coo_forms_match_cpu_plain(cuda, cols, tiles, dtype):
     """Four virtual shards on one card: each form launched over the real
     lanes of its shards equals its plain version over the full (S, L)
-    layout on the CPU, bit for bit; the row gather and scatter-add launch
-    once per card (the scatter counted under the masked kernel's name
-    too, the gather not under the flat gather's), the COO add once per
-    shard under the flat name and once per call under the sharded
-    name."""
+    layout on the CPU, bit for bit; the row gather, scatter-add and COO
+    add launch once per card (the scatters counted under the masked
+    kernel's name too, the gather not under the flat gather's)."""
     rng = np.random.default_rng(cols + tiles)
     S, rows, n = 4, 2000, 24_576
     rps = rows // S
@@ -729,8 +727,8 @@ def test_sharded_row_and_coo_forms_match_cpu_plain(cuda, cols, tiles, dtype):
     torch.cuda.synchronize()
     for a, b in zip(shards, host):
         assert torch.equal(a.cpu(), b)
-    assert tk.LAUNCHES["coo_scatter_add_sharded"] == \
-        before["coo_scatter_add_sharded"] + 1
+    for name in ("coo_scatter_add_sharded", "coo_scatter_add_masked"):
+        assert tk.LAUNCHES[name] == before[name] + 1
 
 
 @pytest.mark.parametrize("over", [False, True])
@@ -1384,3 +1382,187 @@ def test_scatter_workspace_left_zero_and_its_size_checked(cuda):
     assert err != 0
     torch.cuda.synchronize()
     assert torch.equal(p.cpu(), x)
+
+
+# -- the COO scatter-add: int32 lanes in any order, once per card -------------
+
+
+def _coo_lanes(rng, shape, n, case):
+    """(rows, cols, int32 vals) of one case, in request order: Zipf-1.1
+    rows over the table, every lane on one element, or (``n`` 1) a single
+    lane; a tenth of the values 0."""
+    rows, cols = shape[0], int(np.prod(shape[1:]))
+    if case == "one_element":
+        r = np.full(n, rows // 2, np.int32)
+        c = np.full(n, cols - 1, np.int32)
+    else:
+        r = np.clip(rng.zipf(1.1, n) - 1, 0, rows - 1).astype(np.int32)
+        c = rng.integers(0, cols, n).astype(np.int32)
+    v = rng.integers(-3, 4, n).astype(np.int32)
+    v[rng.random(n) < 0.1] = 0
+    return r, c, v
+
+
+COO_CASES = [((300, 3), 20_000, "zipf"), ((300, 128), 20_000, "zipf"),
+             ((300, 1, 128), 20_000, "zipf"), ((2_000, 1024), 200_000, "zipf"),
+             ((2_000, 8, 128), 200_000, "zipf"), ((100, 4096), 50_000, "zipf"),
+             ((1, 64), 5_000, "zipf"), ((10, 10), 1, "zipf"),
+             ((10, 16), 100_000, "one_element"),
+             ((50_001, 8, 128), 10_000_000, "zipf")]
+
+
+@pytest.mark.parametrize("shape,n,case", COO_CASES)
+def test_coo_int32_any_order_matches_plain(cuda, shape, n, case):
+    """The int32 COO kernel on lanes in random order (the functional form,
+    no sort) and in sorted order (the masked form, ``valid`` 0 on a fifth
+    of them) against the plain version on the CPU, bit for bit; the last
+    case is the LightLDA sweep-end rebuild's 10M Zipf-1.1 lanes into the
+    tiled [50,001, 1024] word table."""
+    rng = np.random.default_rng(n + len(shape))
+    r, c, v = _coo_lanes(rng, shape, n, case)
+    p = torch.from_numpy(rng.integers(-50, 50, shape).astype(np.int32))
+    lanes = [torch.from_numpy(x) for x in (r, c, v)]
+    got = tk.coo_scatter_add(p.to(cuda), *(x.to(cuda) for x in lanes))
+    want = tk.coo_scatter_add_plain(p.clone(), *lanes)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    order = np.argsort(r, kind="stable")
+    keep = (rng.random(n) < 0.8).astype(np.int32)
+    sl = [torch.from_numpy(x[order]) for x in (r, c, v)]
+    ok = torch.from_numpy(keep)
+    got = tk.coo_scatter_add_masked(p.to(cuda), *(x.to(cuda) for x in sl),
+                                    ok.to(cuda))
+    want = tk.coo_scatter_add_masked_plain(p.clone(), *sl, ok)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+def test_coo_int32_drops_lanes_out_of_range_and_wraps(cuda):
+    """Rows and columns outside the table add nothing (the plain version,
+    given only the lanes in range, is the yardstick); ``valid`` 0 gates a
+    lane off; a sum past 2^31 wraps as numpy's int32 does."""
+    rng = np.random.default_rng(31)
+    R, C, n = 40, 100, 30_000
+    r = rng.integers(-3, R + 3, n).astype(np.int32)
+    c = rng.integers(-3, C + 3, n).astype(np.int32)
+    v = rng.integers(-3, 4, n).astype(np.int32)
+    inside = (r >= 0) & (r < R) & (c >= 0) & (c < C)
+    p = torch.from_numpy(rng.integers(-9, 9, (R, C)).astype(np.int32))
+    got = tk.coo_scatter_add(p.to(cuda), *(torch.from_numpy(x).to(cuda)
+                                           for x in (r, c, v)))
+    want = tk.coo_scatter_add_plain(p.clone(), *(torch.from_numpy(x[inside])
+                                                 for x in (r, c, v)))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    # the masked form: valid 0 on every out-of-range lane and a third more
+    keep = (inside & (rng.random(n) < 0.67)).astype(np.int32)
+    order = np.argsort(r, kind="stable")
+    sl = [torch.from_numpy(x[order]) for x in (r, c, v, keep)]
+    got = tk.coo_scatter_add_masked(p.to(cuda), *(x.to(cuda) for x in sl))
+    want = tk.coo_scatter_add_masked_plain(p.clone(), *sl)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    # wrap: 2^31 - 10 plus 3,000 lanes of +1 and 1,000 of 2^20
+    big = np.concatenate([np.ones(3000, np.int32),
+                          np.full(1000, 1 << 20, np.int32)])
+    p = torch.full((4, 8), (1 << 31) - 10, dtype=torch.int32)
+    rr = torch.full((len(big),), 2, dtype=torch.int32)
+    cc = torch.full((len(big),), 5, dtype=torch.int32)
+    got = tk.coo_scatter_add(p.to(cuda), rr.to(cuda), cc.to(cuda),
+                             torch.from_numpy(rng.permutation(big)).to(cuda))
+    torch.cuda.synchronize()
+    wrapped = np.int64((1 << 31) - 10) + big.astype(np.int64).sum()
+    assert int(got[2, 5]) == int(np.array(wrapped).astype(np.int32))
+    assert int(got[2, 5]) == int(tk.coo_scatter_add_plain(
+        p.clone(), rr, cc, torch.from_numpy(big))[2, 5])
+
+
+def test_coo_float32_long_run_matches_plain(cuda):
+    """float32 keeps its order contract: a run of 100,000 lanes on one row
+    (the wrapper sorts, one thread walks the run) equals the plain version
+    on the CPU bit for bit."""
+    rng = np.random.default_rng(32)
+    R, C, n = 50, 256, 100_000
+    r = np.concatenate([np.full(n, 7, np.int32),
+                        rng.integers(0, R, 5_000).astype(np.int32)])
+    r = rng.permutation(r)
+    c = rng.integers(0, C, len(r)).astype(np.int32)
+    v = _mixed(rng, (len(r),))
+    p = torch.from_numpy(_mixed(rng, (R, C)))
+    lanes = [torch.from_numpy(x) for x in (r, c, v)]
+    got = tk.coo_scatter_add(p.to(cuda), *(x.to(cuda) for x in lanes))
+    want = tk.coo_scatter_add_plain(p.clone(), *lanes)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(want))
+
+
+def test_coo_int32_launches_no_sort(cuda, monkeypatch):
+    """An int32 table's lanes reach the kernel unsorted: the functional
+    form and the mesh form call no ``torch.sort``; a float32 table's call
+    sorts once. The mesh form on 4 shards of one card, unsorted int32
+    lanes, equals the plain version bit for bit in one launch."""
+    sorts = []
+    real_sort = torch.sort
+    monkeypatch.setattr(torch, "sort", lambda *a, **k: sorts.append(1)
+                        or real_sort(*a, **k))
+    rng = np.random.default_rng(33)
+    shape, n = (4_000, 8, 128), 300_000
+    r, c, v = _coo_lanes(rng, shape, n, "zipf")
+    lanes = [torch.from_numpy(x) for x in (r, c, v)]
+    on_card = [x.to(cuda) for x in lanes]
+    p0 = torch.from_numpy(rng.integers(-5, 5, shape).astype(np.int32))
+    got = tk.coo_scatter_add(p0.to(cuda), *on_card)
+    param = _mesh_param(p0, ["cuda:0"] * 4)
+    before = tk.LAUNCHES["coo_scatter_add_mesh"]
+    tk.coo_scatter_add(param, *on_card)
+    torch.cuda.synchronize()
+    assert sorts == []
+    assert tk.LAUNCHES["coo_scatter_add_mesh"] == before + 1
+    want = tk.coo_scatter_add_plain(p0.clone(), *lanes)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(_mesh_host(param).view(shape), want)
+    sorts.clear()  # the plain version sorts
+    tk.coo_scatter_add(p0.float().to(cuda), on_card[0], on_card[1],
+                       on_card[2].float())
+    assert len(sorts) == 1
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+@pytest.mark.parametrize("S", [4, 20])
+def test_coo_sharded_is_one_launch_per_card(cuda, S, dtype):
+    """The host-sliced sharded COO add over S shards of one card, shard 1
+    with no lane: one ``mv_coo_scatter_add_shards`` per group of 16
+    shards (1 at S = 4, 2 at S = 20), the call's first also counted
+    under the masked name; bit for bit the plain version over the full
+    (S, L) layout on the CPU."""
+    rng = np.random.default_rng(S + (dtype == np.int32))
+    rps, cols = 300, 256
+    x = (rng.integers(-9, 9, (S * rps, cols)) if dtype == np.int32
+         else _mixed(rng, (S * rps, cols))).astype(dtype)
+    gids = _zipf_ids(rng, 60_000, S * rps)
+    gids = np.sort(gids[gids // rps != 1])
+    c = rng.integers(0, cols, len(gids)).astype(np.int32)
+    v = (rng.integers(-3, 4, len(gids)) if dtype == np.int32
+         else _mixed(rng, (len(gids),))).astype(dtype)
+    (lr, sc, sv), valid, counts, _, _ = _slice_lanes(
+        gids, rps, S, [c, v], [np.int32(0), 0])
+    valid &= rng.random(valid.shape) < 0.9
+    assert counts[1] == 0
+    shards = _on(x, cuda, S)
+    before = dict(tk.LAUNCHES)
+    tk.coo_scatter_add_sharded(shards, *(_on(a, cuda)
+                                         for a in (lr, sc, sv, valid)),
+                               counts=counts)
+    host = _on(x, "cpu", S)
+    tk.coo_scatter_add_sharded_plain(host, *(_on(a, "cpu")
+                                             for a in (lr, sc, sv, valid)))
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(torch.cat([t.cpu() for t in shards])),
+                       _bits(torch.cat(host)))
+    groups = -(-int((counts > 0).sum()) // tk.MESH_MAX_SHARDS)
+    assert groups == (1 if S <= tk.MESH_MAX_SHARDS else 2)
+    assert tk.LAUNCHES["coo_scatter_add_sharded"] == \
+        before["coo_scatter_add_sharded"] + groups
+    assert tk.LAUNCHES["coo_scatter_add_masked"] == \
+        before["coo_scatter_add_masked"] + 1
+    assert tk.LAUNCHES["coo_scatter_add"] == before["coo_scatter_add"]
