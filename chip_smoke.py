@@ -80,7 +80,8 @@ its seconds):
    ``SparseLogisticRegression(cfg, mesh=...)``, from phase 10's data: its
    final keys, values and state must equal phase 10's bit for bit; the
    same numbers as phase 10, per-device peak memory, and the launches per
-   step (4 per-shard lookups, probes and commits, 1 of each sharded form).
+   step (4 per-shard lookups, one probe and one commit per card, 1 of
+   each sharded form); with ``--profile`` four steps under the profiler.
 13. word2vec of phase 4 on the (1, 4) mesh through
    ``WordEmbedding(corpus, cfg, mesh=...)``: the superstep hands the body
    both tables as ShardedParams, and every gather and scatter-add runs the
@@ -91,21 +92,27 @@ its seconds):
    beside phase 4's. Then a superstep COO add over a (1, 4)
    SparseMatrixTable at the LightLDA call's width, bit-identical to the
    (1, 1) table, one launch per card a call.
-14. The row scatter's kernel on phase 2's sorted lanes taken apart by
-   torch.profiler: each kernel's device time, the device idle between
-   them, the host's time to queue a call. Last, so that no profiler
-   session comes before a timed phase.
+14. The row scatter's kernel on phase 2's sorted lanes, and phase 2's KV
+   probe + commit calls (the flat form at the sparse-LR step's shapes,
+   the sharded form on four shards), taken apart by torch.profiler: each
+   kernel's device time (the count's fill, the probe, the commit, the
+   rest), the device idle between them, the host's time to queue a call.
+   Last, so that no profiler session comes before a timed phase.
 
 Phase 2 also holds the KV kernels against their plain versions on the CPU
 bit for bit at the sparse-LR step's shapes (a 2^25-slot table, 262,144
-padded lanes of about 159,000 keys, half present), the probe + commit under
-all six updaters, and a small sparse LR on the card against the CPU; and
+padded lanes of about 159,000 keys, half present; the probe + commit
+launched on the real lanes, beside its bound in bytes and in 32-byte
+sectors), the probe + commit under all six updaters, and a small sparse
+LR on the card against the CPU; and
 the five sharded forms at S = 4 against their plain versions on the CPU,
 bit for bit: the KV lookup and probe + commit (ftrl) at those shapes on
 four shards of 524,288 buckets (with a batch that overflows one bucket of
-shard 0), the row gather and scatter-add at the word2vec shapes (each
-beside the flat kernel on the table concatenated and the host's time to
-queue a call), the COO add at the LightLDA call's. And the three
+shard 0; the probe + commit once per card, its sector bound and the
+host's time to queue a call beside it), the row gather and scatter-add
+at the word2vec shapes (each beside the flat kernel on the table
+concatenated and the host's time to queue a call), the COO add at the
+LightLDA call's. And the three
 functional forms over a
 ShardedParam of four shards (a superstep body's gather, row scatter-add
 and COO add over a split table) against their plain versions on the CPU,
@@ -372,24 +379,34 @@ def phase_kernels(torch, tk, rng) -> list:
     return results
 
 
-def phase_scatter_parts(torch, scatter_calls) -> dict:
-    """Phase 14: the row scatter's kernel on phase 2's sorted lanes, taken
-    apart by the profiler. It runs last, so that no profiler session
-    comes before a timed phase."""
+def phase_scatter_parts(torch, tk, KVTable, mesh, scatter_calls) -> dict:
+    """Phase 14: the row scatter's kernel on phase 2's sorted lanes, and
+    phase 2's KV probe + commit calls rebuilt (:func:`kv_ftrl_call`: the
+    flat form at the sparse-LR step's shapes, the sharded form on
+    ``mesh``), taken apart by the profiler. It runs last, so that no
+    profiler session comes before a timed phase."""
     out = {}
+    what = (" ms a call (device time by kernel, the period of the queued "
+            "calls, the device idle in it, the host's time to queue one)")
     for key, longest, on_sorted in scatter_calls:
         out[key] = parts = kernel_parts(torch, on_sorted, 50)
         log(f"  row_scatter_add n={str(key):>9s} longest run {longest:6d}: "
-            + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
-            + " ms a call (device time by kernel, the period of the queued "
-            "calls, the device idle in it, the host's time to queue one)")
+            + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()) + what)
+    for key, on in (("kv_probe_update_ftrl_2", None),
+                    ("kv_probe_update_sharded", mesh)):
+        out[key] = parts = kernel_parts(
+            torch, kv_ftrl_call(tk, KVTable, on), 50)
+        log(f"  {key}: " + ", ".join(f"{k} {v:.4f}"
+                                     for k, v in parts.items()) + what)
+        free_tables(torch)
     return out
 
 
 def kernel_parts(torch, fn, iters: int) -> dict:
-    """Device ms of each kernel that ``fn`` launches (its mean over the
-    launches the trace holds), over ``iters`` calls queued behind a spin
-    kernel as in :func:`cuda_ms`, from torch.profiler's device events;
+    """Device ms a call of each kernel that ``fn`` launches (its mean over
+    the launches the trace holds, times its launches a call; a fill is
+    named "fill"), over ``iters`` calls queued behind a spin kernel as in
+    :func:`cuda_ms`, from torch.profiler's device events;
     "period" is the median time from one call's first kernel to the
     next's, "gaps" the period less the kernels (the device idle between
     them), "host" the host's time to queue a call (:func:`host_ms`,
@@ -410,15 +427,19 @@ def kernel_parts(torch, fn, iters: int) -> dict:
         if "spin_kernel" in e["name"]:
             continue
         m = re.search(r"(\w+_kernel)", e["name"])
-        name = m.group(1) if m else e["name"][:40]
+        name = ("fill" if "FillFunctor" in e["name"]
+                else m.group(1) if m else e["name"][:40])
         total[name] = total.get(name, 0.0) + e["dur"] / 1e3
         starts.setdefault(name, []).append(e["ts"])
-    parts = {k: v / len(starts[k]) for k, v in total.items()}
-    first = starts[next(iter(starts))]     # the kernel each call starts with
+    per_call = {k: max(1, round(len(v) / iters)) for k, v in starts.items()}
+    parts = {k: v / len(starts[k]) * per_call[k] for k, v in total.items()}
+    first = starts[next(iter(starts))][::per_call[next(iter(starts))]]
     period = float(np.median(np.diff(first))) / 1e3
-    lost = {k: iters - len(v) for k, v in starts.items() if len(v) != iters}
+    lost = {k: iters * per_call[k] - len(v) for k, v in starts.items()
+            if len(v) != iters * per_call[k]}
     if lost:
-        log(f"    (the trace lost launches: {lost} of {iters} each)")
+        log(f"    (the trace lost launches: {lost} of {iters} calls' "
+            "each)")
     parts.update(period=period, gaps=period - sum(parts.values()),
                  host=host_ms(fn, iters))
     return parts
@@ -682,6 +703,21 @@ def sector_bound_ms(lane_bytes: float, idx) -> float:
     flat element indices into a table of 4-byte elements)."""
     sectors = int((idx // 8).unique().numel())
     return (lane_bytes + 64 * sectors) / PEAK_BYTES_PER_S * 1e3
+
+
+def kv_sector_bound_ms(real: int, touched: int, cols: int,
+                       n_state: int) -> float:
+    """The KV probe + commit's bound when each 32-byte sector it touches
+    moves once: per touched bucket its key row (SLR_SLOTS slots of 8
+    bytes) read; per real lane a sector read and written in the values
+    and in each state leaf, the key's sector written, and the lane
+    operands (bucket, query, delta, valid) read with its slot written and
+    read again; over the card's memory rate."""
+    row = -(-SLR_SLOTS * 8 // 32) * 32
+    cell = -(-cols * 4 // 32) * 32
+    lane = 4 + 8 + 4 * cols + 1 + 8
+    per_lane = 2 * cell * (1 + n_state) + 32 + lane
+    return (touched * row + real * per_lane) / PEAK_BYTES_PER_S * 1e3
 
 
 def int32_library(row: dict) -> dict:
@@ -1279,6 +1315,33 @@ def kv_table(KVTable, updater, value_dim, capacity=SLR_CAPACITY,
                    name=f"smoke_kv_{updater}_{value_dim}", **kw)
 
 
+def kv_ftrl_call(tk, KVTable, mesh=None):
+    """Phase 2's ftrl probe + commit at value_dim 2 (the sparse-LR step's)
+    made anew from its recipe: a 2^25-slot table filled with half of
+    KV_REAL keys (seed 11, phase 2's flat keys), and a call that adds all
+    of them; on ``mesh``, the table's shards and the sharded form."""
+    rng = np.random.default_rng(11)
+    keys = kv_keys(rng, KV_REAL)
+    if mesh is None:
+        t = kv_table(KVTable, "ftrl", 2)
+    else:
+        t = KVTable(SLR_CAPACITY, value_dim=2, slots_per_bucket=SLR_SLOTS,
+                    updater="ftrl", mesh=mesh, name="smoke_kv_sharded")
+    t.add(keys[:KV_REAL // 2], rng.standard_normal(
+        (KV_REAL // 2, 2)).astype(np.float32))
+    t.wait()
+    prep = t.prepare_add(keys, rng.standard_normal((KV_REAL, 2)).astype(
+        np.float32))
+    ops = (prep.buckets, prep.query, prep.deltas, prep.valid)
+    if mesh is None:
+        return functools.partial(
+            tk.kv_probe_update, t.keys, t.values, t.state,
+            *(x[0][:KV_REAL] for x in ops), prep.option, "ftrl")
+    return functools.partial(
+        tk.kv_probe_update_sharded, t.key_shards, t.value_shards,
+        t.state_shards, *ops, prep.option, "ftrl", counts=prep.counts)
+
+
 def kv_triple(table, device=None):
     """Copies of a KVTable's (keys, values, state)."""
     to = (lambda t: t.to(device)) if device else (lambda t: t.clone())
@@ -1354,9 +1417,9 @@ def phase_kv_kernels(torch, tk, KVTable) -> dict:
         t.wait()
         prep = t.prepare_add(keys, rng.standard_normal(shape(n)).astype(
             np.float32))
-        # the one shard's lane row: the flat kernel's layout
-        lanes = (prep.buckets[0], prep.query[0], prep.deltas[0],
-                 prep.valid[0])
+        # the one shard's real lanes: the flat kernel's layout
+        lanes = (prep.buckets[0][:n], prep.query[0][:n], prep.deltas[0][:n],
+                 prep.valid[0][:n])
         cpu = kv_triple(t, "cpu")
         want = tk.kv_probe_update_plain(*cpu, *(x.cpu() for x in lanes),
                                         prep.option, name)
@@ -1378,17 +1441,17 @@ def phase_kv_kernels(torch, tk, KVTable) -> dict:
         plain_t = kv_triple(t)
         cols, ns = max(vdim, 1), len(t.state)
         touched = int(torch.unique(lanes[0]).numel())
-        nbytes = (b * (4 + 8 + 1) + b * cols * 4 + touched * SLR_SLOTS * 8
+        nbytes = (n * (4 + 8 + 1) + n * cols * 4 + touched * SLR_SLOTS * 8
                   + n * (8 + 2 * cols * 4 * (1 + ns)) + 4)
         nb_, by = bound_ms(nbytes, n * cols * KV_UPDATER_OPS[name])
         out[f"kv_probe_update_{name}_{vdim}"] = dict(
-            max_abs_err=err,
-            ms=cuda_ms(lambda: tk.kv_probe_update(*timed, *lanes,
-                                                  prep.option, name), 20),
+            max_abs_err=err, ms=cuda_ms(lambda: tk.kv_probe_update(
+                *timed, *lanes, prep.option, name), 20),
             plain_ms=cuda_ms(lambda: tk.kv_probe_update_plain(
                 *plain_t, *lanes, prep.option, name), 5),
             library_ms=None, bound_ms=nb_, bound_by=by, n=b, real=n,
-            claimed=n - len(present))
+            claimed=n - len(present),
+            sector_bound_ms=kv_sector_bound_ms(n, touched, cols, ns))
         del t, timed, plain_t, cpu, want, got, prep, lanes
         free_tables(torch)
     for name, r in out.items():
@@ -1396,7 +1459,9 @@ def phase_kv_kernels(torch, tk, KVTable) -> dict:
             f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  library none  "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})  "
             f"{r['ms'] / r['bound_ms']:.1f}x bound; bit-identical to the "
-            f"CPU plain version")
+            f"CPU plain version" + (
+                f"; sector bound {r['sector_bound_ms']:.4f} ms"
+                if "sector_bound_ms" in r else ""))
     log(f"  kv_probe_update overflow batch: {over_lanes} of 32 lanes into "
         "one bucket; n_over equal to the plain version's, the triple "
         "bit-identical after it")
@@ -1956,7 +2021,10 @@ def phase_sharded_kernels(torch, tk, core, KVTable, devices, rng) -> dict:
            nk * (4 + 8 + 1) + nk * cols * 4 + touched * SLR_SLOTS * 8
            + nk * (8 + 2 * cols * 4 * (1 + ns)) + 4 * SHARDS,
            nk * cols * KV_UPDATER_OPS["ftrl"], n=nk, lanes=lanes,
-           claimed=nk - len(present))
+           claimed=nk - len(present),
+           real_per_shard=[int(c) for c in prep.counts],
+           sector_bound_ms=kv_sector_bound_ms(nk, touched, cols, ns))
+    out["kv_probe_update_sharded"].update(host_ms=host_ms(fn, 20))
     over = kv_sharded_overflow_check(torch, tk, t, rng)
     del t, timed_t, plain_t, got, want, hk, hv, hs
     free_tables(torch)
@@ -1970,11 +2038,15 @@ def phase_sharded_kernels(torch, tk, core, KVTable, devices, rng) -> dict:
             f"a call's wall time {r['call_ms']:.4f} ms; "
             f"bit-identical to the CPU plain version; launches per call "
             f"{r['launches_per_call']}")
-        if "sector_bound_ms" in r:
+        if "index_put_ms" in r:
             log(f"    on the table concatenated: index_put_ "
                 f"{r['index_put_ms']:.4f} ms, index_add_ "
                 f"{r['index_add_ms']:.4f} ms; sector bound "
                 f"{r['sector_bound_ms']:.4f} ms")
+        if "sector_bound_ms" in r and "index_put_ms" not in r:
+            log(f"    sector bound {r['sector_bound_ms']:.4f} ms; real lanes "
+                f"per shard {r['real_per_shard']}; host time to queue a "
+                f"call {r['host_ms']:.4f} ms")
         if "flat_ms" in r:
             log(f"    the flat kernel on the table concatenated "
                 f"{r['flat_ms']:.4f} ms; host time to queue a call "
@@ -2146,7 +2218,7 @@ def phase_sharded_tables(torch, tk, mesh, MatrixTable, SparseMatrixTable,
 
 def phase_sharded_sparse_lr(torch, tk, counts, mesh, devices,
                             SparseLogisticRegression, SparseLRConfig,
-                            lr_step, data) -> tuple:
+                            lr_step, data, profile: bool) -> tuple:
     """Phase 12: sparse LR at the Criteo-like width on the (1, 4) mesh,
     from phase 10's data; its final table must equal phase 10's bit for
     bit. Returns the measured numbers and the path's launch counts."""
@@ -2163,8 +2235,10 @@ def phase_sharded_sparse_lr(torch, tk, counts, mesh, devices,
     app.train(rows, y)
     grown = {k: v - start[k] for k, v in counts().items()}
     steps = sum(e["steps"] for e in app.epoch_stats)
-    want = {"kv_lookup": SHARDS * steps, "kv_probe_update": SHARDS * steps,
-            "kv_commit": SHARDS * steps, "kv_lookup_sharded": steps,
+    # the lookup per shard; the probe and the commit once per card
+    cards = len(set(devices))
+    want = {"kv_lookup": SHARDS * steps, "kv_probe_update": cards * steps,
+            "kv_commit": cards * steps, "kv_lookup_sharded": steps,
             "kv_probe_update_sharded": steps}
     for name, n in want.items():
         if grown[name] != n:
@@ -2212,6 +2286,13 @@ def phase_sharded_sparse_lr(torch, tk, counts, mesh, devices,
         f"{ {k: round(v, 2) for k, v in peak.items()} } GB")
     log(f"  final keys, values and state bit-identical to phase 10's "
         f"unsharded table; launches per step {out['launches_per_step']}")
+    if profile:
+        mbs = [(rows[s:s + SLR_BATCH], y[s:s + SLR_BATCH])
+               for s in range(0, 4 * SLR_BATCH, SLR_BATCH)]
+        out["profile"] = profile_call(
+            torch, "slr_mesh_steps_trace.json",
+            lambda: [app.train_batch(r, yy) for r, yy in mbs],
+            4 * step_ms[-1])
     del app
     free_tables(torch)
     return out, path_counts
@@ -2700,7 +2781,7 @@ def main(argv) -> int:
           f"width on the (1, {SHARDS}) mesh {devices}")
     slr_mesh, paths["sparse_logreg_mesh"] = phase_sharded_sparse_lr(
         torch, tk, counts, mesh, devices, SparseLogisticRegression,
-        SparseLRConfig, lr_step, slr_data)
+        SparseLRConfig, lr_step, slr_data, profile)
     del slr_data
     phase_end("sharded_sparse_lr")
 
@@ -2713,9 +2794,11 @@ def main(argv) -> int:
     del w2v_run
     phase_end("w2v_mesh")
 
-    phase("scatter_parts", "phase 14: the row scatter's kernels apart "
-          "(torch.profiler, after every timed phase)")
-    scatter_parts = phase_scatter_parts(torch, scatter_calls)
+    phase("scatter_parts", "phase 14: the row scatter's and the KV probe "
+          "+ commit's kernels apart (torch.profiler, after every timed "
+          "phase)")
+    scatter_parts = phase_scatter_parts(torch, tk, KVTable, mesh,
+                                        scatter_calls)
     del scatter_calls
     phase_end("scatter_parts")
 

@@ -72,12 +72,13 @@ _SIGNATURES = {
     # (keys, values, nb, S, D, query, buckets, n, default, picked, found,
     #  stream)
     "mv_kv_lookup": [_P, _P, _I64, _I64, _I64, _P, _P, _I64, _F, _P, _P, _P],
-    # (keys, nb, S, buckets, query, valid, n, slot, n_over, stream)
-    "mv_kv_probe": [_P, _I64, _I64, _P, _P, _P, _I64, _P, _P, _P],
-    # (keys, values, st_a, st_b, nb, S, D, buckets, query, deltas, slot,
-    #  n_over, n, code, s0..s7, stream)
-    "mv_kv_commit": [_P, _P, _P, _P, _I64, _I64, _I64, _P, _P, _P, _P, _P,
-                     _I64, _I64] + [_F] * 8 + [_P],
+    # (keys, count, nb, S, buckets, query, valid, lanes, slot, n_over,
+    #  stream): per-shard arrays
+    "mv_kv_probe": [_P, _I64, _I64, _I64, _P, _P, _P, _P, _P, _P, _P],
+    # (keys, values, st_a, st_b, count, nb, S, D, buckets, query, deltas,
+    #  lanes, slot, gate, code, s0..s7, stream): per-shard arrays
+    "mv_kv_commit": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _P, _P, _P,
+                     _P, _P, _P, _I64] + [_F] * 8 + [_P],
 }
 
 

@@ -76,12 +76,15 @@ def sampled_lanes(n_sweeps: int = SAMPLED_SWEEPS):
                  for x in (app._tw, app._z, app._mask))
 
 
-def variant_source(text: str, consts: dict) -> str:
+def variant_source(text: str, consts: dict,
+                   source: str = "coo_kernels.cu") -> str:
+    """``text`` (the source ``source``) with each ``constexpr int`` of
+    ``consts`` set to its value."""
     for name, value in consts.items():
         text, hits = re.subn(rf"(constexpr int {name} = )\d+;",
                              rf"\g<1>{value};", text)
         if hits != 1:
-            raise ValueError(f"{name}: {hits} definitions in coo_kernels.cu")
+            raise ValueError(f"{name}: {hits} definitions in {source}")
     return text
 
 

@@ -16,51 +16,72 @@
 // found. A lane whose bucket is out of range is not found.
 //
 // mv_kv_probe + mv_kv_commit replace build_kv_probe_update /
-// _kv_probe_kernel (_probe_lane, _apply_write): the TPU walked the
-// bucket-sorted lanes twice in one sequential grid (pass 0 probe, pass 1
-// write if nothing overflowed). Here the two passes are two launches on
-// one stream, with the overflow count left on the device between them, as
-// the sharded pair _kv_probe_only_kernel / _kv_commit_kernel splits them.
+// _kv_probe_kernel (_probe_lane, _apply_write) and the sharded pair
+// build_kv_probe_update_sharded's _kv_probe_only_kernel /
+// _kv_commit_kernel: the TPU walked the bucket-sorted lanes twice in one
+// sequential grid (pass 0 probe, pass 1 write if nothing overflowed), one
+// grid per shard. Here the two passes are two launches on one stream, with
+// the overflow count left on the device between them, and each pair of
+// launches serves every shard of one card (up to mv::kMaxShards): shard
+// k's real lanes are segment k of the launch, in arrays of its own with
+// LOCAL bucket ids (mv::find_segment, shards.cuh), its keys, values and
+// state leaves its own base pointers. A flat table is one segment.
 //
-// - mv_kv_probe: one thread per run of valid lanes with equal bucket ids.
-//   Lanes come sorted by bucket, and within a bucket the valid lanes come
-//   first, in batch order (the host prep sorts them stably and parks the
-//   padding lanes at the end, on the last bucket). Walking its run in lane
-//   order, the thread gives each lane its matching slot, else the
-//   (claims+1)-th empty slot of the PRE-batch row, where `claims` counts
-//   the run's new keys placed so far; a new key past the row's empties
-//   overflows. slot[i] == S marks a lane that writes nothing. Overflowing
-//   lanes (and lanes of an out-of-range bucket) are added to *n_over with
-//   one atomic per run. A padding lane (valid == 0) writes its own
-//   slot = S: it never claims and never counts, and no thread walks the
-//   padding, which at the sparse-LR step is 103,144 lanes of one bucket.
-// - mv_kv_commit: one thread per (lane, value column). If *n_over == 0 and
-//   the lane has a slot, it writes the key (column 0), reads the old value
-//   and state, applies the updater (kv_updaters.cuh) and writes them back.
-//   Any overflow leaves the table untouched (the reference's
-//   all-or-nothing). Writes never conflict: a batch holds distinct keys and
-//   new keys claim distinct slots.
+// - mv_kv_probe: a group of kLaneThreads threads per lane. Lanes come
+//   sorted by bucket, and within a bucket the valid lanes come first, in
+//   batch order (the host prep sorts them stably and parks the padding
+//   lanes at the end, on the last bucket). Each group loads its lane's
+//   operands and its neighbours' bucket and valid at once; the group of a
+//   run's head walks the run in lane order, the others leave. For each
+//   lane the group reads the PRE-batch key row once, in chunks of kChunk
+//   slots, each thread its share with 8-byte loads issued together (a
+//   row of 16 slots is one chunk); a chunk's match and empty masks come
+//   from that one load, OR-ed over the group by __shfl_xor_sync. A lane
+//   takes its first matching slot, else the (claims+1)-th empty slot of
+//   the row, `claims` the run's new keys placed so far; a new key past
+//   the row's empties overflows. slot == S marks a lane that writes
+//   nothing. Overflowing lanes (every lane of an out-of-range bucket too)
+//   are summed over the warp and added to *n_over with one atomic. A
+//   padding lane (valid == 0) writes its own slot = S: it never claims
+//   and never counts; no group walks the padding, and the sharded wrapper
+//   launches only each shard's real lanes. Fewer threads a lane keep
+//   more lanes in flight, and a lane waits on two round trips (its
+//   operands, then its row): ops/kv_sweep.py measured 4 threads a lane
+//   fastest at 16 slots (with 2), 16 threads twice as slow.
+// - mv_kv_commit: a group of T threads (the power of two at or above
+//   min(D, 32)) per lane, thread c taking columns c, c + T, ... (shifts,
+//   no divide), the gate loaded with the lane's slot and bucket. If
+//   *gate == 0 and the lane has a slot, it writes the key (thread 0),
+//   reads the old value and state, applies the updater (kv_updaters.cuh)
+//   and writes them back. Any overflow leaves every shard untouched (the
+//   reference's all-or-nothing): the gate is the card's count, or the sum
+//   of every card's. Writes never conflict: a batch holds distinct keys
+//   and new keys claim distinct slots.
+// - The overflow count is zeroed by the wrapper, one fill a card (about
+//   0.001 ms on the card): a probe that zeroed it itself would race with
+//   its own blocks' adds unless a grid-wide step came between them.
 //
-// What bounds them: bytes, and at the sparse-LR step's widths (2^18 lanes,
-// S 16, D 2) the launch latency. The lookup reads per lane one 128-byte key
-// row and the S x D values; the probe reads the key row of each lane's
-// bucket (mostly one lane per bucket: 159k keys into 2M buckets); the
-// commit touches one slot per lane. A run is walked by one thread: runs
-// are short (at most S lanes of a run can match or claim), so no shared
-// memory or cross-thread scan is needed.
+// What bounds them (PERF.md): the commit, the random 32-byte sectors of
+// the value and state leaves it reads and writes, one a lane and a leaf
+// (about 0.017 ms a leaf at the sparse-LR step's 159,000 real lanes, S
+// 16, D 2, on an H100), which no thread mapping removes; the probe, the
+// round trips a lane waits on over the lanes in flight. The lookup reads
+// per lane one 128-byte key row and the S x D values.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "kv_updaters.cuh"
+#include "shards.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ bool is_empty(const int32_t* key) {
-  return key[0] == -1 && key[1] == -1;
-}
+// The probe reads a key row in chunks of kChunk slots, kLaneThreads
+// threads a lane, each holding kChunk / kLaneThreads slots of a chunk
+// (ops/kv_sweep.py times the choices on the sparse-LR step's lanes).
+constexpr int kChunk = 16;
+constexpr int kLaneThreads = 4;
 
 __global__ void __launch_bounds__(kThreads)
 kv_lookup_kernel(const int32_t* __restrict__ keys,
@@ -90,83 +111,251 @@ kv_lookup_kernel(const int32_t* __restrict__ keys,
   if (c == 0) found[lane] = hit ? 1 : 0;
 }
 
-__global__ void __launch_bounds__(kThreads)
-kv_probe_kernel(const int32_t* __restrict__ keys, int64_t nb, int S,
-                const int32_t* __restrict__ buckets,
-                const int32_t* __restrict__ query,
-                const uint8_t* __restrict__ valid, int64_t n,
-                int32_t* __restrict__ slot, int32_t* __restrict__ n_over) {
-  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  if (!valid[i]) {                              // padding: drops, never counts
-    slot[i] = S;
-    return;
+// The lanes of one probe launch: segment k is shard k's n[k] real lanes,
+// launch lanes [start[k], start[k] + n[k]); slot[start[k] + i] is lane i's.
+struct ProbeLanes {
+  const int32_t* keys[mv::kMaxShards];      // the shard's [nb, S, 2]
+  const int32_t* buckets[mv::kMaxShards];   // LOCAL bucket ids
+  const int32_t* query[mv::kMaxShards];     // [n, 2]
+  const uint8_t* valid[mv::kMaxShards];
+  int64_t start[mv::kMaxShards];
+  int64_t n[mv::kMaxShards];
+  int32_t* slot;
+  int64_t lanes;
+  int count;
+};
+
+// The lanes of one commit launch, segments as in ProbeLanes.
+struct CommitLanes {
+  int32_t* keys[mv::kMaxShards];
+  float* values[mv::kMaxShards];
+  float* st_a[mv::kMaxShards];              // nullptr: no such leaf
+  float* st_b[mv::kMaxShards];
+  const int32_t* buckets[mv::kMaxShards];
+  const int32_t* query[mv::kMaxShards];
+  const float* deltas[mv::kMaxShards];      // [n, D]
+  int64_t start[mv::kMaxShards];
+  const int32_t* slot;
+  int64_t lanes;
+  int count;
+};
+
+// The segment (shard) of launch lane u.
+struct ProbeSegment {
+  const int32_t* keys;
+  const int32_t* buckets;
+  const int32_t* query;
+  const uint8_t* valid;
+  int32_t* slot;
+  int64_t i, n;          // u's lane in the segment, the segment's lanes
+};
+
+__device__ __forceinline__ ProbeSegment probe_segment(const ProbeLanes& ln,
+                                                      int64_t u) {
+  ProbeSegment g;
+  mv::find_segment(ln.start, ln.count, u, [&](int k) {
+    g = ProbeSegment{ln.keys[k], ln.buckets[k], ln.query[k], ln.valid[k],
+                     ln.slot + ln.start[k], u - ln.start[k], ln.n[k]};
+  });
+  return g;
+}
+
+// Slot s of a key row as (hi, lo), one 8-byte load.
+__device__ __forceinline__ int2 key_at(const int32_t* row, int s) {
+  return __ldg(reinterpret_cast<const int2*>(row) + s);
+}
+
+// Lane j's query key as (hi, lo), one 8-byte load.
+__device__ __forceinline__ int2 query_at(const ProbeSegment& g, int64_t j) {
+  return __ldg(reinterpret_cast<const int2*>(g.query) + j);
+}
+
+// Whether lane j belongs to the run of bucket b (j inside the segment).
+__device__ __forceinline__ bool in_run(const ProbeSegment& g, int64_t j,
+                                       int32_t b) {
+  return j < g.n && __ldg(g.buckets + j) == b && __ldg(g.valid + j) != 0;
+}
+
+// One chunk of kChunk slots of a key row as a group of G threads holds
+// it: thread t the V = kChunk / G slots from t * V on, loaded together.
+template <int G>
+struct Chunk {
+  static constexpr int V = kChunk / G;
+  int2 k[V];
+  int live;        // the chunk's slots inside the row
+
+  __device__ __forceinline__ void load(const int32_t* row, int c0, int S,
+                                       int t) {
+    live = S - c0 < kChunk ? S - c0 : kChunk;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const int s = t * V + v;
+      k[v] = s < live ? key_at(row, c0 + s) : make_int2(0, 0);
+    }
   }
-  const int32_t b = buckets[i];
-  if (i > 0 && buckets[i - 1] == b && valid[i - 1]) return;  // not the head
-  const bool in_range = b >= 0 && b < nb;
-  const int32_t* row = keys + (in_range ? (int64_t)b * S * 2 : 0);
+
+  // The chunk's slots (bit s for slot c0 + s) whose key is (x, y), in
+  // every thread of the group: each thread's V bits, OR-ed over the group.
+  __device__ __forceinline__ unsigned mask(int x, int y, int t,
+                                           unsigned gmask) const {
+    unsigned m = 0;
+#pragma unroll
+    for (int v = 0; v < V; ++v)
+      if (t * V + v < live && k[v].x == x && k[v].y == y)
+        m |= 1u << (t * V + v);
+#pragma unroll
+    for (int off = 1; off < G; off <<= 1)
+      m |= __shfl_xor_sync(gmask, m, off);
+    return m;
+  }
+};
+
+// The position of the n-th (from 0) set bit of m; m holds more than n.
+__device__ __forceinline__ int nth_set(unsigned m, int n) {
+  for (int i = 0; i < n; ++i) m &= m - 1;
+  return __ffs(m) - 1;
+}
+
+// The probe of the run that starts at lane g.i, its bucket b inside the
+// table, by a group of G threads (thread t of the group, `gmask` the
+// group's bits in the warp). `q` is the head's query and `next` whether
+// lane g.i + 1 is in the run, both loaded with the head's other operands:
+// a run of one lane (the common case) costs one round trip for its
+// operands and one for its row (a lane after the head reads the row
+// again, from L1). Returns the run's overflowing lanes (the same in every
+// thread of the group).
+template <int G>
+__device__ __forceinline__ int probe_run(const ProbeSegment& g, int32_t b,
+                                         int2 q, bool next, int S, int t,
+                                         unsigned gmask) {
+  const int32_t* row = g.keys + (int64_t)b * S * 2;
   int claims = 0, over = 0;
-  for (int64_t j = i; j < n && buckets[j] == b && valid[j]; ++j) {
-    int sl = S;
-    if (!in_range) {
-      ++over;
-    } else {
-      const int32_t qh = query[2 * j], ql = query[2 * j + 1];
-      int match = -1, claim = -1, empties = 0;
-      for (int s = 0; s < S; ++s) {
-        const int32_t* key = row + 2 * s;
-        if (match < 0 && key[0] == qh && key[1] == ql) match = s;
-        if (is_empty(key)) {
-          if (empties == claims && claim < 0) claim = s;
-          ++empties;
-        }
+  for (int64_t j = g.i;; ++j) {
+    // one pass over the row's chunks: the first match wins, else the
+    // (claims+1)-th empty slot, `seen` the empties of the chunks before
+    int sl = -1;
+    bool matched = false;
+    for (int c0 = 0, seen = 0; c0 < S && !matched; c0 += kChunk) {
+      Chunk<G> c;
+      c.load(row, c0, S, t);
+      const unsigned m = c.mask(q.x, q.y, t, gmask);
+      if (m != 0) {
+        matched = true;
+        sl = c0 + __ffs(m) - 1;
+      } else if (sl < 0) {
+        const unsigned e = c.mask(-1, -1, t, gmask);
+        if (claims < seen + __popc(e)) sl = c0 + nth_set(e, claims - seen);
+        seen += __popc(e);
       }
-      if (match >= 0) {
-        sl = match;
-      } else if (claim >= 0) {
-        sl = claim;
+    }
+    if (!matched) {
+      if (sl >= 0) {
         ++claims;
       } else {
+        sl = S;
         ++over;
       }
     }
-    slot[j] = sl;
+    if (t == 0) g.slot[j] = sl;
+    if (!next) break;
+    q = query_at(g, j + 1);
+    next = in_run(g, j + 2, b);
   }
-  if (over) atomicAdd(n_over, over);
+  return over;
 }
 
+template <int G>
 __global__ void __launch_bounds__(kThreads)
-kv_commit_kernel(int32_t* __restrict__ keys, float* __restrict__ values,
-                 float* __restrict__ st_a, float* __restrict__ st_b,
-                 int64_t nb, int S, int D,
-                 const int32_t* __restrict__ buckets,
-                 const int32_t* __restrict__ query,
-                 const float* __restrict__ deltas,
-                 const int32_t* __restrict__ slot,
-                 const int32_t* __restrict__ n_over, int64_t n, int code,
+kv_probe_kernel(__grid_constant__ const ProbeLanes ln, int64_t nb, int S,
+                int32_t* __restrict__ n_over) {
+  static_assert(G >= 1 && G <= kChunk && kChunk % G == 0 && kChunk <= 32,
+                "a group's threads split a chunk of a row evenly");
+  const int64_t u =
+      (int64_t)(((uint64_t)blockIdx.x * kThreads + threadIdx.x) / G);
+  const int t = threadIdx.x % G;
+  const unsigned gmask = (G == 32 ? 0xffffffffu : (1u << G) - 1u)
+                         << ((threadIdx.x % 32) & ~(G - 1));
+  int over = 0;                         // the group's, kept by thread 0
+  if (u < ln.lanes) {
+    const ProbeSegment g = probe_segment(ln, u);
+    const int64_t i = g.i;
+    // the lane's operands, its neighbours' bucket and valid, at once
+    const int64_t prev = i > 0 ? i - 1 : i;
+    const int64_t after = i + 1 < g.n ? i + 1 : i;
+    const bool valid = __ldg(g.valid + i) != 0;
+    const int32_t b = __ldg(g.buckets + i);
+    const int2 q = query_at(g, i);
+    const int32_t bp = __ldg(g.buckets + prev);
+    const int32_t bn = __ldg(g.buckets + after);
+    const bool vp = __ldg(g.valid + prev) != 0;
+    const bool vn = __ldg(g.valid + after) != 0;
+    const bool head = i == 0 || bp != b || !vp;
+    const bool next = after != i && bn == b && vn;
+    if (!valid) {                       // padding: drops, never counts
+      if (t == 0) g.slot[i] = S;
+    } else if (head) {
+      int run_over = 0;
+      if (b >= 0 && b < nb) {
+        run_over = probe_run<G>(g, b, q, next, S, t, gmask);
+      } else {                          // out of range: every lane overflows
+        for (int64_t j = i; in_run(g, j, b); ++j) {
+          if (t == 0) g.slot[j] = S;
+          ++run_over;
+        }
+      }
+      if (t == 0) over = run_over;
+    }
+  }
+  over = __reduce_add_sync(0xffffffffu, over);
+  if (threadIdx.x % 32 == 0 && over != 0) atomicAdd(n_over, over);
+}
+
+template <int T>
+__global__ void __launch_bounds__(kThreads)
+kv_commit_kernel(__grid_constant__ const CommitLanes ln, int64_t nb, int S,
+                 int D, const int32_t* __restrict__ gate, int code,
                  kv::Scalars k) {
-  const int64_t idx = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (idx >= n * D) return;
-  if (*n_over != 0) return;                     // all or nothing
-  const int64_t lane = idx / D;
-  const int c = (int)(idx - lane * D);
-  const int s = slot[lane];
-  const int32_t b = buckets[lane];
+  const int64_t u =
+      (int64_t)(((uint64_t)blockIdx.x * kThreads + threadIdx.x) / T);
+  const int c0 = threadIdx.x % T;
+  if (u >= ln.lanes) return;
+  // the gate comes with the lane's slot and bucket, in one round trip
+  const int32_t closed = *gate;
+  const int s = ln.slot[u];
+  int64_t j = 0;                                // u's lane in its segment
+  const int32_t* bk = nullptr;
+  int32_t* keys = nullptr;
+  float *values = nullptr, *st_a = nullptr, *st_b = nullptr;
+  const int32_t* query = nullptr;
+  const float* deltas = nullptr;
+  mv::find_segment(ln.start, ln.count, u, [&](int kk) {
+    j = u - ln.start[kk];
+    bk = ln.buckets[kk];
+    keys = ln.keys[kk];
+    values = ln.values[kk];
+    st_a = ln.st_a[kk];
+    st_b = ln.st_b[kk];
+    query = ln.query[kk];
+    deltas = ln.deltas[kk];
+  });
+  const int32_t b = bk[j];
+  if (closed != 0) return;                      // all or nothing
   if (s < 0 || s >= S || b < 0 || b >= nb) return;
   const int64_t cell = (int64_t)b * S + s;
-  if (c == 0) {
-    keys[2 * cell] = query[2 * lane];
-    keys[2 * cell + 1] = query[2 * lane + 1];
+  if (c0 == 0) {
+    reinterpret_cast<int2*>(keys)[cell] =
+        reinterpret_cast<const int2*>(query)[j];
   }
-  const int64_t off = cell * D + c;
-  float p = values[off];
-  float a = st_a != nullptr ? st_a[off] : 0.0f;
-  float bb = st_b != nullptr ? st_b[off] : 0.0f;
-  kv::apply(code, k, deltas[idx], p, a, bb);
-  values[off] = p;
-  if (st_a != nullptr) st_a[off] = a;
-  if (st_b != nullptr) st_b[off] = bb;
+  for (int c = c0; c < D; c += T) {
+    const int64_t off = cell * D + c;
+    float p = values[off];
+    float a = st_a != nullptr ? st_a[off] : 0.0f;
+    float bb = st_b != nullptr ? st_b[off] : 0.0f;
+    kv::apply(code, k, deltas[j * D + c], p, a, bb);
+    values[off] = p;
+    if (st_a != nullptr) st_a[off] = a;
+    if (st_b != nullptr) st_b[off] = bb;
+  }
 }
 
 unsigned blocks_for(int64_t threads) {
@@ -191,33 +380,103 @@ int mv_kv_lookup(const int32_t* keys, const float* values, int64_t nb,
   return (int)cudaGetLastError();
 }
 
-// Pass 0: slot [n] (S = dropped) and *n_over += overflowing valid lanes.
-// *n_over must be zeroed by the caller.
-int mv_kv_probe(const int32_t* keys, int64_t nb, int64_t S,
-                const int32_t* buckets, const int32_t* query,
-                const uint8_t* valid, int64_t n, int32_t* slot,
-                int32_t* n_over, void* stream) {
-  if (n <= 0) return (int)cudaSuccess;
-  kv_probe_kernel<<<blocks_for(n), kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      keys, nb, (int)S, buckets, query, valid, n, slot, n_over);
+// Pass 0 over the `count` shards of one card (at most mv::kMaxShards),
+// each of nb buckets of S slots: shard k's lanes[k] lanes (at least 1) are
+// buckets[k] (LOCAL ids, sorted, valid lanes first in each bucket),
+// query[k] ([n, 2]) and valid[k] against keys[k]. Writes slot (the launch's
+// lanes, shard after shard; S = dropped) and adds the overflowing valid
+// lanes to *n_over, which the caller zeroes. Host arrays of `count`
+// entries, copied into the launch.
+int mv_kv_probe(const int32_t* const* keys, int64_t count, int64_t nb,
+                int64_t S, const int32_t* const* buckets,
+                const int32_t* const* query, const uint8_t* const* valid,
+                const int64_t* lanes, int32_t* slot, int32_t* n_over,
+                void* stream) {
+  if (count < 1 || count > mv::kMaxShards || S < 1)
+    return (int)cudaErrorInvalidValue;
+  ProbeLanes ln{};
+  for (int64_t k = 0; k < count; ++k) {
+    if (lanes[k] < 1 || !mv::aligned(keys[k], 8) ||
+        !mv::aligned(query[k], 8))
+      return (int)cudaErrorInvalidValue;
+    ln.keys[k] = keys[k];
+    ln.buckets[k] = buckets[k];
+    ln.query[k] = query[k];
+    ln.valid[k] = valid[k];
+    ln.start[k] = ln.lanes;
+    ln.n[k] = lanes[k];
+    ln.lanes += lanes[k];
+  }
+  ln.slot = slot;
+  ln.count = (int)count;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  kv_probe_kernel<kLaneThreads>
+      <<<blocks_for(ln.lanes * kLaneThreads), kThreads, 0, st>>>(
+          ln, nb, (int)S, n_over);
   return (int)cudaGetLastError();
 }
 
-// Pass 1: if *n_over == 0, write each slotted lane's key and apply updater
-// `code` to its value and state (st_a, st_b nullable), in place.
-int mv_kv_commit(int32_t* keys, float* values, float* st_a, float* st_b,
-                 int64_t nb, int64_t S, int64_t D, const int32_t* buckets,
-                 const int32_t* query, const float* deltas,
-                 const int32_t* slot, const int32_t* n_over, int64_t n,
-                 int64_t code, float s0, float s1, float s2, float s3,
-                 float s4, float s5, float s6, float s7, void* stream) {
-  if (n <= 0) return (int)cudaSuccess;
+// Pass 1 over the same shards and lanes: if *gate == 0, write each slotted
+// lane's key and apply updater `code` to its value and state (st_a, st_b:
+// arrays of `count` leaves, or null when the updater has no such leaf),
+// in place. deltas[k] is [lanes[k], D].
+int mv_kv_commit(int32_t* const* keys, float* const* values,
+                 float* const* st_a, float* const* st_b, int64_t count,
+                 int64_t nb, int64_t S, int64_t D,
+                 const int32_t* const* buckets, const int32_t* const* query,
+                 const float* const* deltas, const int64_t* lanes,
+                 const int32_t* slot, const int32_t* gate, int64_t code,
+                 float s0, float s1, float s2, float s3, float s4, float s5,
+                 float s6, float s7, void* stream) {
+  if (count < 1 || count > mv::kMaxShards || D < 1)
+    return (int)cudaErrorInvalidValue;
+  CommitLanes ln{};
+  for (int64_t k = 0; k < count; ++k) {
+    if (lanes[k] < 1 || !mv::aligned(keys[k], 8) ||
+        !mv::aligned(query[k], 8))
+      return (int)cudaErrorInvalidValue;
+    ln.keys[k] = keys[k];
+    ln.values[k] = values[k];
+    ln.st_a[k] = st_a != nullptr ? st_a[k] : nullptr;
+    ln.st_b[k] = st_b != nullptr ? st_b[k] : nullptr;
+    ln.buckets[k] = buckets[k];
+    ln.query[k] = query[k];
+    ln.deltas[k] = deltas[k];
+    ln.start[k] = ln.lanes;
+    ln.lanes += lanes[k];
+  }
+  ln.slot = slot;
+  ln.count = (int)count;
   const kv::Scalars k = {{s0, s1, s2, s3, s4, s5, s6, s7}};
-  kv_commit_kernel<<<blocks_for(n * D), kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      keys, values, st_a, st_b, nb, (int)S, (int)D, buckets, query, deltas,
-      slot, n_over, n, (int)code, k);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int t = D > 16 ? 32 : D > 8 ? 16 : D > 4 ? 8 : D > 2 ? 4 : (int)D;
+  const unsigned blocks = blocks_for(ln.lanes * t);
+  switch (t) {
+    case 1:
+      kv_commit_kernel<1><<<blocks, kThreads, 0, st>>>(
+          ln, nb, (int)S, (int)D, gate, (int)code, k);
+      break;
+    case 2:
+      kv_commit_kernel<2><<<blocks, kThreads, 0, st>>>(
+          ln, nb, (int)S, (int)D, gate, (int)code, k);
+      break;
+    case 4:
+      kv_commit_kernel<4><<<blocks, kThreads, 0, st>>>(
+          ln, nb, (int)S, (int)D, gate, (int)code, k);
+      break;
+    case 8:
+      kv_commit_kernel<8><<<blocks, kThreads, 0, st>>>(
+          ln, nb, (int)S, (int)D, gate, (int)code, k);
+      break;
+    case 16:
+      kv_commit_kernel<16><<<blocks, kThreads, 0, st>>>(
+          ln, nb, (int)S, (int)D, gate, (int)code, k);
+      break;
+    default:
+      kv_commit_kernel<32><<<blocks, kThreads, 0, st>>>(
+          ln, nb, (int)S, (int)D, gate, (int)code, k);
+      break;
+  }
   return (int)cudaGetLastError();
 }
 

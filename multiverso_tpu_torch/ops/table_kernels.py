@@ -318,10 +318,17 @@ def coo_scatter_add_plain(param: torch.Tensor, rows: torch.Tensor,
     """``param[rows[i], cols[i]] += vals[i]`` in place, in plain PyTorch: a
     stable sort by row, then ``index_add_`` on the flattened table. On the
     CPU ``index_add_`` adds lane by lane, so every element receives its
-    values in sorted lane order, the kernel's order."""
+    values in sorted lane order, the kernel's order. A lane whose row lies
+    outside ``[0, R)`` or whose column lies outside ``[0, C)`` adds
+    nothing, as in the kernel; it is dropped before the sort, so the
+    surviving lanes keep their order."""
     flat = _rows(param)
-    srows, order = torch.sort(rows.long(), stable=True)
-    idx = srows * flat.shape[1] + cols.long()[order]
+    rows, cols = rows.long(), cols.long()
+    keep = ((rows >= 0) & (rows < flat.shape[0])
+            & (cols >= 0) & (cols < flat.shape[1]))
+    rows, cols, vals = rows[keep], cols[keep], vals[keep]
+    srows, order = torch.sort(rows, stable=True)
+    idx = srows * flat.shape[1] + cols[order]
     flat.view(-1).index_add_(0, idx, vals[order].to(param.dtype))
     return param
 
@@ -373,8 +380,8 @@ def coo_scatter_add(param, rows: torch.Tensor, cols: torch.Tensor,
     the functional ``coo_scatter_add``: the COO kernel adds an int32
     table's lanes as they come, with no sort; a float32 table's lanes are
     stable-sorted by row on the device first (:func:`_coo_lanes`). Lanes
-    out of range are dropped by the kernel (the plain version raises). A
-    :class:`ShardedParam` goes to :func:`coo_scatter_add_mesh`."""
+    out of range are dropped, by the kernel and the plain version alike.
+    A :class:`ShardedParam` goes to :func:`coo_scatter_add_mesh`."""
     if isinstance(param, ShardedParam):
         return coo_scatter_add_mesh(param, rows, cols, vals)
     _check_coo(param, rows, cols, vals)
@@ -655,31 +662,41 @@ def _kv_lanes(buckets, query, deltas, valid) -> tuple:
             .contiguous())
 
 
-def _kv_probe(keys_arr: torch.Tensor, lanes: tuple, slot: torch.Tensor,
-              n_over: torch.Tensor, tag: Optional[str] = None) -> None:
-    """Launch the probe: each lane's slot, and the overflowing lanes added
-    to ``n_over`` (int32 [1], zeroed by the caller)."""
-    buckets, query, _, valid = lanes
-    _launch("kv_probe_update", "mv_kv_probe", keys_arr.data_ptr(),
-            keys_arr.shape[0], keys_arr.shape[1], buckets.data_ptr(),
-            query.data_ptr(), valid.data_ptr(), buckets.shape[0],
-            slot.data_ptr(), n_over.data_ptr(), device=keys_arr.device,
-            tag=tag)
+def _kv_probe(dev: torch.device, tables: list, rows: tuple, real: list,
+              n_over: torch.Tensor, tag: Optional[str] = None
+              ) -> torch.Tensor:
+    """Launch the probe once over the shards of one card: ``tables`` each
+    shard's ``(keys, values, leaves)``, ``rows`` the lane operands
+    (buckets, query, deltas, valid), a list of each shard's rows, of which
+    ``real`` lanes are launched. Returns the launch's slots; adds the
+    overflowing lanes to ``n_over`` (int32 [1], zeroed by the caller)."""
+    buckets, query, _, valid = rows
+    keys = tables[0][0]
+    slot = torch.empty(sum(real), dtype=torch.int32, device=dev)
+    _launch("kv_probe_update", "mv_kv_probe",
+            _c_ptrs([t[0] for t in tables]), len(tables), keys.shape[0],
+            keys.shape[1], _c_ptrs(buckets),
+            _c_ptrs(query), _c_ptrs(valid), _c_array(ctypes.c_int64, real),
+            slot.data_ptr(), n_over.data_ptr(), device=dev, tag=tag)
+    return slot
 
 
-def _kv_commit(keys_arr: torch.Tensor, values_arr: torch.Tensor,
-               leaves: list, lanes: tuple, slot: torch.Tensor,
-               n_over: torch.Tensor, upd, option) -> None:
-    """Launch the commit: if ``*n_over`` is 0, write each slotted lane's
-    key and apply the updater to its value and state, in place."""
-    buckets, query, deltas, _ = lanes
-    ptrs = [leaf.data_ptr() for leaf in leaves] + [None] * (2 - len(leaves))
-    _launch("kv_commit", "mv_kv_commit", keys_arr.data_ptr(),
-            values_arr.data_ptr(), *ptrs, keys_arr.shape[0],
-            keys_arr.shape[1], _kv_cols(values_arr), buckets.data_ptr(),
-            query.data_ptr(), deltas.data_ptr(), slot.data_ptr(),
-            n_over.data_ptr(), buckets.shape[0], KV_UPDATERS[upd.name],
-            *_kv_scalars(upd.name, option), device=keys_arr.device)
+def _kv_commit(dev: torch.device, tables: list, rows: tuple, real: list,
+               slot: torch.Tensor, gate: torch.Tensor, upd, option) -> None:
+    """Launch the commit over the probe's shards and lanes: if ``*gate``
+    is 0, write each slotted lane's key and apply the updater to its
+    value and state, in place."""
+    buckets, query, deltas, _ = rows
+    keys, values, leaves = tables[0]
+    states = [_c_ptrs([t[2][i] for t in tables]) if i < len(leaves)
+              else None for i in range(2)]
+    _launch("kv_commit", "mv_kv_commit", _c_ptrs([t[0] for t in tables]),
+            _c_ptrs([t[1] for t in tables]), *states, len(tables),
+            keys.shape[0], keys.shape[1], _kv_cols(values),
+            _c_ptrs(buckets), _c_ptrs(query), _c_ptrs(deltas),
+            _c_array(ctypes.c_int64, real), slot.data_ptr(),
+            gate.data_ptr(), KV_UPDATERS[upd.name],
+            *_kv_scalars(upd.name, option), device=dev)
 
 
 def kv_probe_update(keys_arr: torch.Tensor, values_arr: torch.Tensor,
@@ -699,22 +716,22 @@ def kv_probe_update(keys_arr: torch.Tensor, values_arr: torch.Tensor,
     host sync). Lanes must be sorted by bucket, each bucket's valid lanes
     first and in batch order, as ``KVTable.prepare_add`` lays them out
     (padding last, on the last bucket); valid lanes must hold distinct
-    keys. Values and state must be float32 on the card."""
+    keys. The kernels launch every lane they are given: a caller that
+    knows its real lanes passes only those. Values and state must be
+    float32 on the card."""
     _check_kv_add(keys_arr, values_arr, buckets, query, deltas, valid)
     if keys_arr.device.type == "cpu":
         return kv_probe_update_plain(keys_arr, values_arr, state, buckets,
                                      query, deltas, valid, option, updater)
     upd = _resolve_updater(updater)
-    leaves = _kv_leaves(values_arr, state, upd)
+    tables = [(keys_arr, values_arr, _kv_leaves(values_arr, state, upd))]
     dev = keys_arr.device
-    n = buckets.shape[0]
     n_over = torch.zeros(1, dtype=torch.int32, device=dev)
+    n = buckets.shape[0]
     if n:
-        lanes = _kv_lanes(buckets, query, deltas, valid)
-        slot = torch.empty(n, dtype=torch.int32, device=dev)
-        _kv_probe(keys_arr, lanes, slot, n_over)
-        _kv_commit(keys_arr, values_arr, leaves, lanes, slot, n_over, upd,
-                   option)
+        rows = tuple([x] for x in _kv_lanes(buckets, query, deltas, valid))
+        slot = _kv_probe(dev, tables, rows, [n], n_over)
+        _kv_commit(dev, tables, rows, [n], slot, n_over, upd, option)
     return keys_arr, values_arr, state, n_over.view(())
 
 
@@ -730,25 +747,25 @@ def kv_probe_update(keys_arr: torch.Tensor, values_arr: torch.Tensor,
 # lies elsewhere.
 #
 # Each form replaces a reference builder that wraps its flat kernel per
-# shard under shard_map. The KV forms do the same: they launch the flat
-# kernel of each shard on that shard's card and current stream, and their
-# first launch also counts under the form's own ``LAUNCHES`` name. The row
-# gather, row scatter-add and COO add launch once per card (per group of
-# ``MESH_MAX_SHARDS`` shards of one card) over every shard it holds, with
-# each shard's base pointer and lane rows by value, counted under the
-# form's name per launch: the gather writes each caller lane's row where
-# ``inv`` puts it (no (shards, L, C) buffer, no unpermute), the scatters
-# walk each shard's real lanes as a segment of their own. ``counts`` (host
+# shard under shard_map. The KV lookup does the same: it launches the flat
+# kernel of each shard on that shard's card and current stream, its first
+# launch also counted under the form's own ``LAUNCHES`` name. The row
+# gather, row scatter-add, COO add and KV probe + commit launch once per
+# card (per group of ``MESH_MAX_SHARDS`` shards of one card) over every
+# shard it holds, with each shard's base pointers and lane rows by value:
+# the gather writes each caller lane's row where ``inv`` puts it (no
+# (shards, L, C) buffer, no unpermute), the scatters and the KV pair walk
+# each shard's real lanes as a segment of their own. ``counts`` (host
 # ints from the host prep, required; the plain versions take none) limits
 # the launches to the shards' real lanes: a padding run is one id, and the
 # row scatter walks a run of equal ids serially, so padding launched
 # would be a long serial chain that writes nothing. A call with no real
 # lane launches nothing and counts nothing. The kernels never talk across
-# shards; the KV overflow gate is the one global value, a sum of the
-# per-shard counts on the device.
+# shards; the KV overflow gate is the one global value, the card's count
+# or a sum of the cards' counts on the device.
 # What bounds them: the flat kernels' bytes, plus a launch and the host's
-# wrapper work per launch; the KV forms' shards that share a card run in
-# turn on its stream, so their longest runs add up.
+# wrapper work per launch; the KV lookup's shards that share a card run
+# in turn on its stream, so their launches add up.
 #
 # The plain version beside each is the reference's sharded XLA adapter:
 # globalize the local ids (local + s * per_shard), run the flat plain
@@ -908,6 +925,22 @@ def kv_probe_update_sharded_plain(keys, values, states, buckets, query,
     return keys, values, states, n_over
 
 
+def _kv_gate(cards: dict, dev0: torch.device) -> tuple:
+    """The one global interaction of the sharded probe + commit: ANY
+    overflow voids the whole batch. ``cards``: each card's overflow count.
+    Returns ``(n_over on dev0, {card: its gate})``: one card's gate is its
+    own count (no copy, no sum); several cards' counts are summed on
+    ``dev0`` and the sum copied to each card."""
+    if len(cards) == 1:
+        ((dev, count),) = cards.items()
+        return count.to(dev0), {dev: count}
+    if not cards:
+        return torch.zeros(1, dtype=torch.int32, device=dev0), {}
+    total = torch.cat([c.to(dev0) for c in cards.values()]).sum(
+        dtype=torch.int32).view(1)
+    return total, {dev: total.to(dev) for dev in cards}
+
+
 def kv_probe_update_sharded(keys, values, states, buckets, query, deltas,
                             valid, option, updater, *, counts):
     """Sharded fused probe + updater apply, in place; returns ``(keys,
@@ -919,38 +952,40 @@ def kv_probe_update_sharded(keys, values, states, buckets, query, deltas,
     first.
 
     Replaces ``build_kv_probe_update_sharded`` (``_kv_probe_only_kernel``
-    + ``_kv_commit_kernel``): ``mv_kv_probe`` per shard into the shard's
-    own zeroed count; the gate, the sum of the counts, taken on the device
-    with no host sync (the reference's ``jnp.sum(nover)``) and copied to
-    each shard's device; ``mv_kv_commit`` per shard reading the gate."""
+    + ``_kv_commit_kernel``): once per card (:func:`shard_lane_launches`),
+    ``mv_kv_probe`` over the real lanes of every shard it holds, each
+    shard a segment, into the card's one zeroed count; then the gate, the
+    card's count itself when one card launched, else the counts summed on
+    the first shard's device (the reference's ``jnp.sum(nover)``, no host
+    sync) and copied to each card; then ``mv_kv_commit`` over the same
+    lanes, reading the gate. The probe and commit launches count under
+    ``kv_probe_update`` / ``kv_commit``, a call's first launch also under
+    ``kv_probe_update_sharded``."""
     if _shard_kind(keys) == "cpu":
         return kv_probe_update_sharded_plain(keys, values, states, buckets,
                                              query, deltas, valid, option,
                                              updater)
     upd = _resolve_updater(updater)
     dev0 = keys[0].device
-    work = []
+    ops = (_lanes_as(buckets, torch.int32), _lanes_as(query),
+           _lanes_as(deltas, torch.float32), _lanes_as(valid, torch.bool))
+    cards, work = {}, []
     tag = "kv_probe_update_sharded"
-    for s, (k, v, st) in enumerate(zip(keys, values, states)):
-        n = int(counts[s])
-        b, q, d, ok = (_lane_row(x, s, k.device, n)
-                       for x in (buckets, query, deltas, valid))
-        _check_kv_add(k, v, b, q, d, ok)
-        leaves = _kv_leaves(v, st, upd)
-        count = torch.zeros(1, dtype=torch.int32, device=k.device)
-        lanes = _kv_lanes(b, q, d, ok)
-        slot = torch.empty(n, dtype=torch.int32, device=k.device)
-        if n:
-            _kv_probe(k, lanes, slot, count, tag)
-            tag = None
-        work.append((k, v, leaves, lanes, slot, count))
-    # the one global interaction: ANY overflow voids the whole batch
-    n_over = torch.cat([w[5].to(dev0) for w in work]).sum(
-        dtype=torch.int32).view(1)
-    for k, v, leaves, lanes, slot, _ in work:
-        if slot.shape[0]:
-            _kv_commit(k, v, leaves, lanes, slot, n_over.to(k.device), upd,
-                       option)
+    for dev, part, rows, real in shard_lane_launches(keys, ops, counts):
+        tables = []
+        for i, s in enumerate(part):
+            b, q, d, ok = (r[i][:real[i]] for r in rows)
+            _check_kv_add(keys[s], values[s], b, q, d, ok)
+            tables.append((keys[s], values[s],
+                           _kv_leaves(values[s], states[s], upd)))
+        if dev not in cards:
+            cards[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
+        slot = _kv_probe(dev, tables, rows, real, cards[dev], tag)
+        tag = None
+        work.append((dev, tables, rows, real, slot))
+    n_over, gates = _kv_gate(cards, dev0)
+    for dev, tables, rows, real, slot in work:
+        _kv_commit(dev, tables, rows, real, slot, gates[dev], upd, option)
     return keys, values, states, n_over.view(())
 
 
@@ -1056,12 +1091,17 @@ def row_scatter_add_sharded(shards, ids, deltas, valid, *, counts):
 
 def coo_scatter_add_sharded_plain(shards, rows, cols, vals, valid):
     """The reference's sharded XLA COO adapter in plain PyTorch, in
-    place."""
+    place. A lane whose LOCAL row lies outside its shard adds nothing, as
+    in the kernel: it is gated off before the ids are made global, where
+    it would land in a neighbouring shard."""
     dev = shards[0].device
     whole = _global(shards)
+    local = _stacked(rows, dev).long()
+    inside = (local >= 0) & (local < shards[0].shape[0])
     coo_scatter_add_masked_plain(
-        whole, _global_ids(shards, rows), _stacked(cols, dev).reshape(-1),
-        _stacked(vals, dev).reshape(-1), _stacked(valid, dev).reshape(-1))
+        whole, _global_ids(shards, local), _stacked(cols, dev).reshape(-1),
+        _stacked(vals, dev).reshape(-1),
+        ((_stacked(valid, dev) != 0) & inside).reshape(-1))
     _write_back(shards, whole)
     return shards
 

@@ -120,15 +120,18 @@ def test_int32_sum_past_2_31_wraps_as_numpy():
 
 
 def test_plain_raises_on_a_row_outside_the_table():
-    """A row outside [0, R) raises in the plain versions (the CUDA kernel
-    drops the lane, which the card tests check)."""
+    """A row outside [0, R) no longer raises: the plain versions drop the
+    lane, as the CUDA kernel does (which the card tests check), and add
+    the lanes beside it (tests/test_torch_coo_out_of_range.py holds the
+    rule against the JAX package)."""
     p = torch.zeros(5, 4, dtype=torch.int32)
-    one = torch.ones(1, dtype=torch.int32)
-    with pytest.raises((IndexError, RuntimeError)):
-        tk.coo_scatter_add(p, torch.tensor([5], dtype=torch.int32), one, one)
-    with pytest.raises((IndexError, RuntimeError)):
-        tk.coo_scatter_add_masked(p, torch.tensor([-9], dtype=torch.int32),
-                                  one, one, one)
+    i32 = lambda *x: torch.tensor(x, dtype=torch.int32)
+    tk.coo_scatter_add(p, i32(5, 2), i32(1, 1), i32(7, 3))
+    tk.coo_scatter_add_masked(p, i32(-9, 4), i32(0, 3), i32(7, 2),
+                              i32(1, 1))
+    want = torch.zeros(5, 4, dtype=torch.int32)
+    want[2, 1], want[4, 3] = 3, 2
+    assert torch.equal(p, want)
 
 
 @pytest.mark.parametrize("masked", [False, True])

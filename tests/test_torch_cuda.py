@@ -769,8 +769,9 @@ def test_sharded_kv_forms_match_cpu_plain(cuda, name, over):
         name)[3]
     torch.cuda.synchronize()
     assert int(n_over) == int(want) and (int(want) > 0) == over
-    assert tk.LAUNCHES["kv_probe_update"] == before["kv_probe_update"] + S
-    assert tk.LAUNCHES["kv_commit"] == before["kv_commit"] + S
+    # once per card: the four shards share one probe and one commit
+    assert tk.LAUNCHES["kv_probe_update"] == before["kv_probe_update"] + 1
+    assert tk.LAUNCHES["kv_commit"] == before["kv_commit"] + 1
     assert tk.LAUNCHES["kv_probe_update_sharded"] == \
         before["kv_probe_update_sharded"] + 1
     for s in range(S):
@@ -792,6 +793,128 @@ def test_sharded_kv_forms_match_cpu_plain(cuda, name, over):
                                       _on(lb2, "cpu"), _on(inv, "cpu"), 0.5)
     assert torch.equal(got[1].cpu(), want[1])
     assert torch.equal(_bits(got[0]), _bits(want[0]))
+
+
+def _kv_scattered(rng, nb, slots, vdim):
+    """Keys int32 [nb, S, 2] with a random half of each bucket's slots
+    live, empties scattered through the row; float32 values."""
+    keys = np.full((nb, slots, 2), -1, np.int32)
+    live = rng.random((nb, slots)) < 0.5
+    n_live = int(live.sum())
+    ks = np.unique(rng.integers(1, 2 ** 63, size=2 * n_live,
+                                dtype=np.uint64))[:n_live]
+    rng.shuffle(ks)
+    keys[live] = _split(ks)
+    shape = (nb, slots, vdim) if vdim else (nb, slots)
+    return keys, rng.standard_normal(shape).astype(np.float32), live
+
+
+def _kv_runs(rng, keys, live, over, n_pad):
+    """Bucket-sorted lanes in batch order within each bucket: in every
+    third bucket its live keys and a run of new keys that fills it
+    exactly, in the others some live keys and a shorter run; with
+    ``over`` one bucket gets two new keys more than it has empties. The
+    last bucket's real lanes come before the padding on it."""
+    nb, slots = keys.shape[:2]
+    fresh = iter(np.unique(rng.integers(1, 2 ** 63, size=slots * nb + 64,
+                                        dtype=np.uint64)))
+    q, b = [], []
+    overflowing = int(rng.integers(0, nb)) if over else -1
+    for bucket in range(nb):
+        idx = np.flatnonzero(live[bucket])
+        idx = idx if bucket % 3 == 0 else idx[rng.random(len(idx)) < 0.5]
+        empties = slots - int(live[bucket].sum())
+        n_new = empties if bucket % 3 == 0 else int(
+            rng.integers(0, empties + 1))
+        if bucket == overflowing:
+            n_new = empties + 2
+        new = _split(np.asarray([next(fresh) for _ in range(n_new)],
+                                np.uint64)).reshape(-1, 2)
+        lanes = np.concatenate([keys[bucket, idx], new])
+        q.append(lanes[rng.permutation(len(lanes))])
+        b.append(np.full(len(lanes), bucket))
+    query = np.concatenate(q)
+    buckets = np.concatenate(b).astype(np.int32)
+    query = np.concatenate([query, np.full((n_pad, 2), -1, np.int32)])
+    buckets = np.concatenate([buckets, np.full(n_pad, nb - 1, np.int32)])
+    valid = np.arange(len(buckets)) < len(buckets) - n_pad
+    return query, buckets, valid
+
+
+@pytest.mark.parametrize("over", [False, True])
+@pytest.mark.parametrize("name", KV_UPDATERS)
+@pytest.mark.parametrize("vdim", [0, 2, 8])
+@pytest.mark.parametrize("slots", [8, 16, 40])
+def test_kv_probe_commit_at_every_width_match_cpu_plain(cuda, slots, vdim,
+                                                         name, over):
+    """mv_kv_probe + mv_kv_commit at 8, 16 and 40 slots a bucket (a half
+    warp, a warp, chunks of 32 slots per lane) and 1, 2 and 8 value
+    columns, on rows with scattered empties and runs that fill a bucket
+    exactly: keys, values, state and n_over bit for bit against the plain
+    version on the CPU (the flat form given only the real lanes, the plain
+    version the padded batch) and the sharded form four shards on the
+    card; an overflowing batch writes nothing."""
+    from multiverso_tpu_torch import updaters as tup
+    rng = np.random.default_rng(slots * 100 + vdim * 10
+                                + KV_UPDATERS.index(name) * 2 + over)
+    nb, S = 256, 4
+    keys, vals, live = _kv_scattered(rng, nb, slots, vdim)
+    query, buckets, valid = _kv_runs(rng, keys, live, over, 7)
+    n, real = len(buckets), int(valid.sum())
+    deltas = rng.standard_normal((n, vdim) if vdim else (n,)).astype(
+        np.float32)
+    upd = tup.get_updater(name)
+    state = {k: np.abs(rng.standard_normal(vals.shape)).astype(np.float32)
+             for k in upd.init_state(torch.from_numpy(vals))}
+    opt = tup.AddOption(**KV_OPTIONS[name])
+    lanes = [torch.from_numpy(x) for x in (buckets, query, deltas, valid)]
+
+    def triple(dev):
+        return (torch.from_numpy(keys.copy()).to(dev),
+                torch.from_numpy(vals.copy()).to(dev),
+                {k: torch.from_numpy(v.copy()).to(dev)
+                 for k, v in state.items()})
+
+    want = tk.kv_probe_update_plain(*triple("cpu"), *lanes, opt, name)
+    assert (int(want[3]) > 0) == over
+    before = dict(tk.LAUNCHES)
+    got = tk.kv_probe_update(*triple(cuda),
+                             *(x[:real].to(cuda) for x in lanes), opt, name)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["kv_probe_update"] == before["kv_probe_update"] + 1
+    assert tk.LAUNCHES["kv_commit"] == before["kv_commit"] + 1
+    assert int(got[3]) == int(want[3])
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(_bits(got[1]), _bits(want[1]))
+    for k in state:
+        assert torch.equal(_bits(got[2][k]), _bits(want[2][k])), k
+    if over:
+        assert torch.equal(got[0].cpu(), torch.from_numpy(keys))
+
+    # the same batch on four shards of the card
+    bps = nb // S
+    (lb, lq, ld), svalid, counts, _, _ = _slice_lanes(
+        buckets[:real], bps, S, [query[:real], deltas[:real]],
+        [np.int32(-1), 0])
+    split = [(_on(keys, d, S), _on(vals, d, S),
+              [{k: sh for k, sh in zip(state, parts)}
+               for parts in zip(*(_on(state[k], d, S) for k in state))]
+              if state else [{} for _ in range(S)])
+             for d in (cuda, "cpu")]
+    ops = lambda d: [_on(x, d) for x in (lb, lq, ld, svalid)]
+    g_over = tk.kv_probe_update_sharded(*split[0], *ops(cuda), opt, name,
+                                        counts=counts)[3]
+    h_over = tk.kv_probe_update_sharded_plain(*split[1], *ops("cpu"), opt,
+                                              name)[3]
+    torch.cuda.synchronize()
+    assert int(g_over) == int(h_over) == int(want[3])
+    for s in range(S):
+        assert torch.equal(split[0][0][s].cpu(), split[1][0][s])
+        assert torch.equal(_bits(split[0][1][s]), _bits(split[1][1][s]))
+        for k in state:
+            assert torch.equal(_bits(split[0][2][s][k]),
+                               _bits(split[1][2][s][k])), k
+    assert torch.equal(torch.cat(split[1][0]), want[0])
 
 
 def test_sharded_forms_count_only_real_launches(cuda):
