@@ -80,8 +80,8 @@ its seconds):
    ``SparseLogisticRegression(cfg, mesh=...)``, from phase 10's data: its
    final keys, values and state must equal phase 10's bit for bit; the
    same numbers as phase 10, per-device peak memory, and the launches per
-   step (4 per-shard lookups, one probe and one commit per card, 1 of
-   each sharded form); with ``--profile`` four steps under the profiler.
+   step (one lookup, one probe and one commit per card, 1 of each sharded
+   form); with ``--profile`` four steps under the profiler.
 13. word2vec of phase 4 on the (1, 4) mesh through
    ``WordEmbedding(corpus, cfg, mesh=...)``: the superstep hands the body
    both tables as ShardedParams, and every gather and scatter-add runs the
@@ -108,8 +108,9 @@ LR on the card against the CPU; and
 the five sharded forms at S = 4 against their plain versions on the CPU,
 bit for bit: the KV lookup and probe + commit (ftrl) at those shapes on
 four shards of 524,288 buckets (with a batch that overflows one bucket of
-shard 0; the probe + commit once per card, its sector bound and the
-host's time to queue a call beside it), the row gather and scatter-add
+shard 0; the lookup once per card on every lane of ``inv``, the probe +
+commit once per card with its sector bound, each beside the host's time
+to queue a call), the row gather and scatter-add
 at the word2vec shapes (each beside the flat kernel on the table
 concatenated and the host's time to queue a call), the COO add at the
 LightLDA call's. And the three
@@ -1726,7 +1727,7 @@ def slr_step_split(torch, tk, app, rows, y, lr_step, devices,
     uniq_pad = np.full(upad, BIAS_KEY ^ np.uint64(1), np.uint64)
     uniq_pad[:len(uniq)] = uniq
     t0 = time.perf_counter()
-    q, lb, iv, gcounts = tbl._get_lanes(uniq_pad, tbl._buckets_of(uniq_pad))
+    q, lb, iv = tbl._get_lanes(uniq_pad, tbl._buckets_of(uniq_pad))
     prep = tbl.prepare_add(uniq, np.zeros((len(uniq), 2), np.float32))
     sync_all(torch, devices)
     t_lanes = time.perf_counter() - t0
@@ -1745,7 +1746,7 @@ def slr_step_split(torch, tk, app, rows, y, lr_step, devices,
 
     def device_step():
         w, _ = tk.kv_lookup_sharded(tbl.key_shards, tbl.value_shards, q, lb,
-                                    iv, 0.0, counts=gcounts)
+                                    iv, 0.0)
         _, dw = lr_step(torch.cat([w, zero]), posd, valsd, yd, 0.0, lanesd)
         sd = dw[:u][order]
         pd = torch.zeros((len(prep.counts), lanes, 2), device=dev0)
@@ -1973,24 +1974,37 @@ def phase_sharded_kernels(torch, tk, core, KVTable, devices, rng) -> dict:
     t.add(present, rng.standard_normal((len(present), 2)).astype(np.float32))
     t.wait()
     nk = len(keys)
-    q, lb, iv, counts = t._get_lanes(keys, t._buckets_of(keys))
+    gb = t._buckets_of(keys)
+    bps = t._buckets_per_shard
+    q, lb, iv = t._get_lanes(keys, gb)
     lanes = int(to_host(torch, lb).shape[1])
     hk = [k.cpu() for k in t.key_shards]
     hv = [v.cpu() for v in t.value_shards]
     fn = lambda: tk.kv_lookup_sharded(t.key_shards, t.value_shards, q, lb,
-                                      iv, 0.0, counts=counts)
+                                      iv, 0.0)
     got = fn()
     want = tk.kv_lookup_sharded_plain(hk, hv, to_host(torch, q),
                                       to_host(torch, lb), iv.cpu(), 0.0)
     if int(want[1][:nk].sum()) != len(present):
         raise SystemExit("kv_lookup_sharded: found != the keys added")
-    touched = len(np.unique(t._buckets_of(keys)))
-    record("kv_lookup_sharded", [got[0][:nk], got[1][:nk]],
-           [want[0][:nk], want[1][:nk]], fn,
+    # every lane of inv (its pow2 padding too) is the function's work: per
+    # caller lane inv, picked (D = 2) and found; per lane slice it names
+    # (the padding names lane 0) its query and bucket; per bucket it names,
+    # the 16 slots' keys and values
+    inv_h = iv.cpu().numpy()
+    named = inv_h // lanes * bps + to_host(torch, lb).numpy().reshape(-1)[
+        inv_h]
+    touched = len(np.unique(named))
+    n_inv, distinct = len(inv_h), len(np.unique(inv_h))
+    record("kv_lookup_sharded", list(got), list(want), fn,
            lambda: tk.kv_lookup_sharded_plain(t.key_shards, t.value_shards,
                                               q, lb, iv, 0.0), 50,
-           nk * 25 + touched * SLR_SLOTS * 16, 0, n=nk, lanes=lanes,
-           real_per_shard=[int(c) for c in counts], found=len(present))
+           n_inv * (4 + 4 * 2 + 1) + distinct * (8 + 4)
+           + touched * SLR_SLOTS * (8 + 4 * 2), 0, n=n_inv, lanes=lanes,
+           keys=nk, distinct=distinct, real_per_shard=np.bincount(
+               gb // bps, minlength=SHARDS).tolist(), found=len(present),
+           touched=touched)
+    out["kv_lookup_sharded"].update(host_ms=host_ms(fn, 50))
 
     prep = t.prepare_add(keys, rng.standard_normal((nk, 2)).astype(
         np.float32))
@@ -2043,6 +2057,11 @@ def phase_sharded_kernels(torch, tk, core, KVTable, devices, rng) -> dict:
                 f"{r['index_put_ms']:.4f} ms, index_add_ "
                 f"{r['index_add_ms']:.4f} ms; sector bound "
                 f"{r['sector_bound_ms']:.4f} ms")
+        if name == "kv_lookup_sharded":
+            log(f"    every lane of inv ({r['keys']} keys, {r['distinct']} "
+                f"lanes named, real lanes per shard {r['real_per_shard']}, "
+                f"{r['touched']} buckets named); host time to queue a call "
+                f"{r['host_ms']:.4f} ms")
         if "sector_bound_ms" in r and "index_put_ms" not in r:
             log(f"    sector bound {r['sector_bound_ms']:.4f} ms; real lanes "
                 f"per shard {r['real_per_shard']}; host time to queue a "
@@ -2235,9 +2254,9 @@ def phase_sharded_sparse_lr(torch, tk, counts, mesh, devices,
     app.train(rows, y)
     grown = {k: v - start[k] for k, v in counts().items()}
     steps = sum(e["steps"] for e in app.epoch_stats)
-    # the lookup per shard; the probe and the commit once per card
+    # the lookup, the probe and the commit once per card
     cards = len(set(devices))
-    want = {"kv_lookup": SHARDS * steps, "kv_probe_update": cards * steps,
+    want = {"kv_lookup": cards * steps, "kv_probe_update": cards * steps,
             "kv_commit": cards * steps, "kv_lookup_sharded": steps,
             "kv_probe_update_sharded": steps}
     for name, n in want.items():

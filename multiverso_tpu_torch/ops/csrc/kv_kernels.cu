@@ -9,11 +9,24 @@
 // values. Query lanes carry their [hi, lo] key and their bucket id.
 //
 // mv_kv_lookup replaces multiverso_tpu/ops/table_kernels.py build_kv_lookup
-// / _kv_lookup_kernel: per lane, match the query against its bucket's S key
-// pairs, take sum over slots of (match ? v : 0) in slot order from +0 (the
-// reference's where-sum: a stored -0.0 comes back +0.0, a NaN in another
-// slot is masked out), write `found`, and fill default_value where not
-// found. A lane whose bucket is out of range is not found.
+// / _kv_lookup_kernel and build_kv_lookup_sharded (:920; the flat kernel
+// per shard under shard_map, then jnp.take through `inv`): per lane, match
+// the query against its bucket's S key pairs, take sum over slots of
+// (match ? v : 0) in slot order from +0 (the reference's where-sum: a
+// stored -0.0 comes back +0.0, a NaN in another slot is masked out), write
+// `found`, and fill default_value where not found. A lane whose bucket is
+// out of range is not found. One launch serves every shard one card holds
+// (up to mv::kMaxShards), on the model of mv_row_gather_mesh's host-sliced
+// form (row_kernels.cu): caller lane j reads k = inv[j], the flat index
+// s * L + pos of the (S, L) lane slices, finds shard s among the launch's
+// shards and computes that shard's lane pos into picked[j] / found[j], so
+// no (S, L) result buffer and no unpermute remain. A lane of a shard
+// outside the launch is foreign: zero bits on a card's first launch, left
+// as it is on a later one (a second card's partial is OR-merged by the
+// wrapper). The flat lookup is one segment with no `inv`: lane j is lane j.
+// One thread per (lane, column); what bounds it is bytes: per lane its
+// operands, and its bucket's key row of S slots and S x D values, read at
+// random.
 //
 // mv_kv_probe + mv_kv_commit replace build_kv_probe_update /
 // _kv_probe_kernel (_probe_lane, _apply_write) and the sharded pair
@@ -65,8 +78,7 @@
 // the value and state leaves it reads and writes, one a lane and a leaf
 // (about 0.017 ms a leaf at the sparse-LR step's 159,000 real lanes, S
 // 16, D 2, on an H100), which no thread mapping removes; the probe, the
-// round trips a lane waits on over the lanes in flight. The lookup reads
-// per lane one 128-byte key row and the S x D values.
+// round trips a lane waits on over the lanes in flight.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -83,27 +95,66 @@ constexpr int kThreads = 256;
 constexpr int kChunk = 16;
 constexpr int kLaneThreads = 4;
 
+// The lanes of one lookup launch, its shards' keys in an mv::Shards table
+// (base: the shard's [nb, S, 2] keys; first: its first GLOBAL bucket,
+// s * nb). `inv` null: lane j is lane j of query[0] / buckets[0].
+struct LookupLanes {
+  const float* values[mv::kMaxShards];     // the shard's [nb, S, D]
+  const int32_t* query[mv::kMaxShards];    // its row of the queries, [L, 2]
+  const int32_t* buckets[mv::kMaxShards];  // its row of LOCAL bucket ids
+  const int32_t* inv;
+  int64_t L;
+};
+
 __global__ void __launch_bounds__(kThreads)
-kv_lookup_kernel(const int32_t* __restrict__ keys,
-                 const float* __restrict__ values, int64_t nb, int S, int D,
-                 const int32_t* __restrict__ query,
-                 const int32_t* __restrict__ buckets, int64_t n,
-                 float default_value, float* __restrict__ picked,
-                 uint8_t* __restrict__ found) {
+kv_lookup_shards_kernel(__grid_constant__ const mv::Shards sh,
+                        __grid_constant__ const LookupLanes ln, int64_t nb,
+                        int S, int D, int64_t n, float default_value,
+                        int zero_foreign, float* __restrict__ picked,
+                        uint8_t* __restrict__ found) {
   const int64_t idx = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (idx >= n * D) return;
   const int64_t lane = idx / D;
   const int c = (int)(idx - lane * D);
-  const int32_t b = buckets[lane];
-  const int32_t qh = query[2 * lane], ql = query[2 * lane + 1];
+  // the lane's shard of the launch and its position in that shard's lane
+  // row; a __grid_constant__ parameter is indexed by `shard` in place
+  int shard = 0;
+  int64_t pos = lane;
+  if (ln.inv != nullptr) {
+    const unsigned k = __ldg(ln.inv + lane);  // below 2^31: 32-bit division
+    const int64_t s = k / (unsigned)ln.L;
+    pos = k - s * ln.L;
+    shard = -1;
+#pragma unroll
+    for (int i = 0; i < mv::kMaxShards; ++i) {
+      if (i >= sh.count) break;
+      if (sh.first[i] == s * nb) shard = i;
+    }
+    if (shard < 0) {                    // foreign: another launch's shard
+      if (zero_foreign) {
+        picked[idx] = 0.0f;
+        if (c == 0) found[lane] = 0;
+      }
+      return;
+    }
+  }
+  const int32_t* keys = static_cast<const int32_t*>(sh.base[shard]);
+  const float* values = ln.values[shard];
+  const int32_t* query = ln.query[shard];
+  const int32_t* buckets = ln.buckets[shard];
+  const int32_t b = buckets[pos];
+  const int32_t qh = query[2 * pos], ql = query[2 * pos + 1];
   float acc = 0.0f;
   bool hit = false;
   if (b >= 0 && b < nb) {
+    // slot by slot through stepped pointers: with the index multiplied out
+    // per slot the multiplies stayed in the loop (SASS: half again its
+    // instructions, and slower on an H100)
     const int32_t* row = keys + (int64_t)b * S * 2;
     const float* vals = values + (int64_t)b * S * D + c;
-    for (int s = 0; s < S; ++s) {
-      const bool m = row[2 * s] == qh && row[2 * s + 1] == ql;
-      acc = __fadd_rn(acc, m ? vals[(int64_t)s * D] : 0.0f);
+    for (int s = 0; s < S; ++s, row += 2, vals += D) {
+      const bool m = row[0] == qh && row[1] == ql;
+      acc = __fadd_rn(acc, m ? *vals : 0.0f);
       hit = hit || m;
     }
   }
@@ -366,16 +417,39 @@ unsigned blocks_for(int64_t threads) {
 
 extern "C" {
 
-// (keys [nb, S, 2], values [nb, S, D], query [n, 2], buckets [n]) ->
-// picked [n, D], found [n] (bool bytes).
-int mv_kv_lookup(const int32_t* keys, const float* values, int64_t nb,
-                 int64_t S, int64_t D, const int32_t* query,
-                 const int32_t* buckets, int64_t n, float default_value,
-                 float* picked, uint8_t* found, void* stream) {
+// The lookup over the `count` shards of one card (at most mv::kMaxShards),
+// each of nb buckets of S slots and D value columns: keys[k] ([nb, S, 2])
+// and values[k] ([nb, S, D]) are shard k's, firsts[k] its first GLOBAL
+// bucket; host arrays, copied into the launch. `inv` null: query[0]
+// ([n, 2]) and buckets[0] ([n], LOCAL ids) are the n lanes, of shard 0
+// (the flat lookup). Otherwise caller lane j is lane pos of the shard m
+// whose first bucket is s * nb, for inv[j] = s * L + pos (query[m],
+// buckets[m]: that shard's row of the (S, L) lane slices). Writes picked
+// [n, D] and found [n] (bool bytes); a lane no shard of the launch holds
+// gets zero bits when zero_foreign is 1 and keeps them when 0.
+int mv_kv_lookup(void* const* keys, const int64_t* firsts, int64_t count,
+                 int64_t nb, int64_t S, int64_t D,
+                 const float* const* values, const int32_t* const* query,
+                 const int32_t* const* buckets, const int32_t* inv,
+                 int64_t L, int64_t zero_foreign, int64_t n,
+                 float default_value, float* picked, uint8_t* found,
+                 void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  kv_lookup_kernel<<<blocks_for(n * D), kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      keys, values, nb, (int)S, (int)D, query, buckets, n, default_value,
+  mv::Shards sh;
+  if (!mv::make_shards(sh, keys, firsts, count) || S < 1 || D < 1 ||
+      (inv != nullptr && L <= 0))
+    return (int)cudaErrorInvalidValue;
+  LookupLanes ln{};
+  for (int64_t k = 0; k < count; ++k) {
+    ln.values[k] = values[k];
+    ln.query[k] = query[k];
+    ln.buckets[k] = buckets[k];
+  }
+  ln.inv = inv;
+  ln.L = L;
+  kv_lookup_shards_kernel<<<blocks_for(n * D), kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      sh, ln, nb, (int)S, (int)D, n, default_value, zero_foreign != 0,
       picked, found);
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,7 @@
 // The shards of one table that one launch serves, passed to a kernel by
-// value (csrc/row_kernels.cu, csrc/coo_kernels.cu), the segment lookup of
-// their host-sliced launches, and the host helpers both sources size their
-// launches with.
+// value (csrc/row_kernels.cu, csrc/coo_kernels.cu, the KV lookup of
+// csrc/kv_kernels.cu), the segment lookup of their host-sliced launches,
+// and the host helpers the sources size their launches with.
 //
 // A table split over a mesh's model axis holds equal blocks of `rows` rows;
 // shard k's first row has the global id first[k]. A launch serves every

@@ -37,7 +37,7 @@ LAUNCHES = {"row_gather": 0, "row_scatter_add": 0,
             "coo_scatter_add_masked": 0, "kv_lookup": 0,
             "kv_probe_update": 0, "kv_commit": 0,
             # the KV sharded forms: one per call that launches; their
-            # per-shard launches count above as well
+            # per-card launches count above as well
             "kv_lookup_sharded": 0, "kv_probe_update_sharded": 0,
             # one per card (per group of MESH_MAX_SHARDS shards of one
             # card): the sharded row gather (mv_row_gather_mesh), row
@@ -505,36 +505,44 @@ def kv_lookup(keys_arr: torch.Tensor, values_arr: torch.Tensor,
     kernel ``mv_kv_lookup`` takes the same slot-order where-sum, so a
     stored -0.0 comes back +0.0 and a NaN in another slot stays masked, as
     in the reference. A lane whose bucket is out of range is not found
-    (the plain version raises)."""
+    (the plain version raises). It is the sharded lookup's kernel, one
+    shard and no ``inv``."""
     _check_kv(keys_arr, values_arr, query, buckets)
     if keys_arr.device.type == "cpu":
         return kv_lookup_plain(keys_arr, values_arr, query, buckets,
                                default_value)
+    _check_f32("values", values_arr)
     n = buckets.shape[0]
     picked = torch.empty((n,) + tuple(values_arr.shape[2:]),
                          dtype=torch.float32, device=keys_arr.device)
     found = torch.empty(n, dtype=torch.bool, device=keys_arr.device)
-    _kv_lookup_into(keys_arr, values_arr, query, buckets, default_value,
-                    picked, found)
+    if n:
+        _kv_lookup_launch(keys_arr.device, [keys_arr], [values_arr], [0],
+                          [query.contiguous()],
+                          [buckets.to(torch.int32).contiguous()], None, 0, 1,
+                          default_value, picked, found)
     return picked, found
 
 
-def _kv_lookup_into(keys_arr: torch.Tensor, values_arr: torch.Tensor,
-                    query: torch.Tensor, buckets: torch.Tensor,
-                    default_value: float, picked: torch.Tensor,
-                    found: torch.Tensor, tag: Optional[str] = None) -> None:
-    """Launch the lookup of the lanes into ``picked`` / ``found``
-    (contiguous, on the table's card)."""
-    _check_f32("values", values_arr)
-    n = buckets.shape[0]
-    if n:
-        buckets = buckets.to(torch.int32).contiguous()
-        query = query.contiguous()
-        _launch("kv_lookup", "mv_kv_lookup", keys_arr.data_ptr(),
-                values_arr.data_ptr(), keys_arr.shape[0], keys_arr.shape[1],
-                _kv_cols(values_arr), query.data_ptr(), buckets.data_ptr(),
-                n, float(default_value), picked.data_ptr(), found.data_ptr(),
-                device=keys_arr.device, tag=tag)
+def _kv_lookup_launch(dev: torch.device, keys, values, part: list,
+                      query: list, buckets: list, inv: Optional[int],
+                      lanes: int, zero_foreign: int, default_value: float,
+                      picked: torch.Tensor, found: torch.Tensor,
+                      tag: Optional[str] = None) -> None:
+    """Launch ``mv_kv_lookup`` on ``dev`` over the shards ``part`` of
+    ``keys`` / ``values``, ``query`` / ``buckets`` each one's lane row on
+    ``dev``, into ``picked`` / ``found`` (all of their lanes): caller lane
+    j reads the lane ``inv[j]`` names (``inv``: a pointer to int32 on
+    ``dev``, ``lanes`` the slices' L), or lane j of the one shard's row
+    when ``inv`` is None. ``zero_foreign``: 1 to write zero bits for the
+    lanes no shard of ``part`` holds, 0 to leave them."""
+    nb, slots = keys[part[0]].shape[:2]
+    _launch("kv_lookup", "mv_kv_lookup", *_shard_table(keys, part, nb),
+            nb, slots, _kv_cols(values[part[0]]),
+            _c_ptrs([values[s] for s in part]), _c_ptrs(query),
+            _c_ptrs(buckets), inv, lanes, zero_foreign, found.shape[0],
+            float(default_value), picked.data_ptr(), found.data_ptr(),
+            device=dev, tag=tag)
 
 
 def _resolve_updater(updater):
@@ -747,25 +755,25 @@ def kv_probe_update(keys_arr: torch.Tensor, values_arr: torch.Tensor,
 # lies elsewhere.
 #
 # Each form replaces a reference builder that wraps its flat kernel per
-# shard under shard_map. The KV lookup does the same: it launches the flat
-# kernel of each shard on that shard's card and current stream, its first
-# launch also counted under the form's own ``LAUNCHES`` name. The row
-# gather, row scatter-add, COO add and KV probe + commit launch once per
-# card (per group of ``MESH_MAX_SHARDS`` shards of one card) over every
-# shard it holds, with each shard's base pointers and lane rows by value:
-# the gather writes each caller lane's row where ``inv`` puts it (no
-# (shards, L, C) buffer, no unpermute), the scatters and the KV pair walk
-# each shard's real lanes as a segment of their own. ``counts`` (host
-# ints from the host prep, required; the plain versions take none) limits
-# the launches to the shards' real lanes: a padding run is one id, and the
+# shard under shard_map. Here every form launches once per card (per group
+# of ``MESH_MAX_SHARDS`` shards of one card) over every shard it holds,
+# with each shard's base pointers and lane rows by value: the row gather
+# and the KV lookup write each caller lane's result where ``inv`` puts it
+# (no (shards, L, ...) buffer, no unpermute; a second card's partial is
+# OR-merged, :func:`_card_partials`), the scatters and the KV probe +
+# commit walk each shard's real lanes as a segment of their own. The
+# scatters, the probe + commit and the gather take ``counts`` (host ints
+# from the host prep; the plain versions take none), which limits their
+# launches to the shards' real lanes: a padding run is one id, and the
 # row scatter walks a run of equal ids serially, so padding launched
 # would be a long serial chain that writes nothing. A call with no real
-# lane launches nothing and counts nothing. The kernels never talk across
-# shards; the KV overflow gate is the one global value, the card's count
-# or a sum of the cards' counts on the device.
+# lane launches nothing and counts nothing. The lookup takes none: it
+# computes every lane ``inv`` names, its pow2 padding included, so every
+# card launches. The kernels never talk across shards; the KV overflow
+# gate is the one global value, the card's count or a sum of the cards'
+# counts on the device.
 # What bounds them: the flat kernels' bytes, plus a launch and the host's
-# wrapper work per launch; the KV lookup's shards that share a card run
-# in turn on its stream, so their launches add up.
+# wrapper work per card.
 #
 # The plain version beside each is the reference's sharded XLA adapter:
 # globalize the local ids (local + s * per_shard), run the flat plain
@@ -785,13 +793,6 @@ def _shard_kind(shards) -> str:
         raise ValueError(f"shards must be equal blocks, got shapes "
                          f"{[tuple(t.shape) for t in shards]}")
     return kinds.pop()
-
-
-def _lane_row(lanes, s: int, device: torch.device,
-              n: int) -> torch.Tensor:
-    """The first ``n`` lanes of row ``s`` of a lane operand, on
-    ``device``."""
-    return lanes[s][:n].to(device)
 
 
 def _stacked(lanes, device: torch.device) -> torch.Tensor:
@@ -863,46 +864,52 @@ def kv_lookup_sharded_plain(keys, values, query, buckets, inv,
 
 
 def kv_lookup_sharded(keys, values, query, buckets, inv,
-                      default_value: float = 0.0, *, counts):
+                      default_value: float = 0.0):
     """Sharded KV lookup -> ``(picked, found)`` in ``inv`` order, on the
     first shard's device. ``keys`` / ``values``: per-shard ``[bps, S, 2]``
     / ``[bps, S(, D)]`` tensors; ``query`` ``(shards, L, 2)`` int32 and
     ``buckets`` ``(shards, L)`` LOCAL bucket ids; ``inv`` the flat
-    ``shard * L + pos`` index of each caller lane; ``counts`` each shard's
-    real lanes.
+    ``shard * L + pos`` index of each caller lane.
 
-    Replaces ``build_kv_lookup_sharded``: ``mv_kv_lookup`` per shard into
-    one ``(shards, L)`` result on the first device, then the ``inv``
-    unpermute (an index op, as the reference's ``jnp.take`` sits outside
-    its kernel)."""
+    Replaces ``build_kv_lookup_sharded``: one ``mv_kv_lookup`` per card
+    over the shards it holds, caller lane j reading shard ``inv[j] // L``'s
+    query and bucket at ``inv[j] % L`` and writing its result to
+    ``picked[j]`` / ``found[j]`` (:func:`_card_partials`). Every lane of
+    ``inv`` is computed from the lane slices as they stand, padding
+    included, so the result equals the plain version's on all of them.
+    Each launch counts under ``kv_lookup``, a call's first also under
+    ``kv_lookup_sharded``."""
     if _shard_kind(keys) == "cpu":
         return kv_lookup_sharded_plain(keys, values, query, buckets, inv,
                                        default_value)
-    dev0 = keys[0].device
-    n_sh, lanes = len(keys), len(buckets[0])
-    vshape = tuple(values[0].shape[2:])
-    picked = torch.empty((n_sh, lanes) + vshape, dtype=torch.float32,
-                         device=dev0)
-    found = torch.empty((n_sh, lanes), dtype=torch.bool, device=dev0)
-    tag = "kv_lookup_sharded"
-    for s, (k, v) in enumerate(zip(keys, values)):
-        n = int(counts[s])
-        q, b = (_lane_row(x, s, k.device, n) for x in (query, buckets))
-        _check_kv(k, v, q, b)
-        if not n:
-            continue
-        here = k.device == dev0
-        p_s = picked[s] if here else torch.empty(
-            (n,) + vshape, dtype=torch.float32, device=k.device)
-        f_s = found[s] if here else torch.empty(n, dtype=torch.bool,
-                                                device=k.device)
-        _kv_lookup_into(k, v, q, b, default_value, p_s, f_s, tag)
-        tag = None
-        if not here:
-            picked[s, :n].copy_(p_s)
-            found[s, :n].copy_(f_s)
-    return (_unpermute(picked.view((n_sh * lanes,) + vshape), inv),
-            _unpermute(found.view(-1), inv))
+    _check_lanes("inv", inv)
+    dev0, n = keys[0].device, inv.shape[0]
+    picked = torch.empty((n,) + tuple(values[0].shape[2:]),
+                         dtype=torch.float32, device=dev0)
+    found = torch.empty(n, dtype=torch.bool, device=dev0)
+    if not n:
+        return picked, found
+    query, buckets = _lanes_as(query), _lanes_as(buckets, torch.int32)
+    lanes = len(buckets[0])
+    inv = (inv.to(dev0, torch.int32).contiguous(),)
+    cache, launches = {}, []
+    for dev, part in card_launches(keys):
+        (inv_d,) = _per_device(inv, dev0, cache, dev)
+        q_rows, b_rows = ([x[s].to(dev) for s in part]
+                          for x in (query, buckets))
+        for s, q, b in zip(part, q_rows, b_rows):
+            _check_kv(keys[s], values[s], q, b)
+            _check_f32("values", values[s])
+        launches.append((dev, part, q_rows, b_rows, inv_d,
+                         None if launches else "kv_lookup_sharded"))
+
+    def launch(dev, fresh, parts, part, q_rows, b_rows, inv_d, tag):
+        _kv_lookup_launch(dev, keys, values, part, q_rows, b_rows,
+                          inv_d.data_ptr(), lanes, fresh, default_value,
+                          *parts, tag=tag)
+
+    _card_partials((picked, found), launches, launch)
+    return picked, found
 
 
 def kv_probe_update_sharded_plain(keys, values, states, buckets, query,
@@ -1302,8 +1309,39 @@ def gather_rows_mesh_plain(param: ShardedParam,
     return gather_rows_plain(_global(param.shards), ids)
 
 
-#: the integer type of each element size, to merge gathered partials bitwise
-_BITS = {4: torch.int32, 2: torch.int16}
+#: the integer type of each element size, to merge partials bitwise
+_BITS = {4: torch.int32, 2: torch.int16, 1: torch.uint8}
+
+
+def _card_partials(outs: tuple, launches: list, launch) -> None:
+    """Call ``launch(device, zero_foreign, parts, *rest)`` for each
+    ``(device, *rest)`` of ``launches`` (the once-per-card launches of a
+    form that writes every caller lane), into ``outs`` (on the first
+    shard's device). A device's first launch writes zero bits for every
+    lane its shards do not hold (``zero_foreign`` 1), a later one leaves
+    them (0); a card other than the outputs' writes ``parts`` of its own,
+    merged into ``outs`` by :func:`_or_merge`."""
+    dev0 = outs[0].device
+    parts = {}
+    for dev, *rest in launches:
+        fresh = dev not in parts
+        if fresh:
+            parts[dev] = outs if dev == dev0 else tuple(
+                torch.empty_like(o, device=dev) for o in outs)
+        launch(dev, int(fresh), parts[dev], *rest)
+    for dev, part in parts.items():
+        if dev != dev0:
+            _or_merge(outs, part)
+
+
+def _or_merge(outs: tuple, parts: tuple) -> None:
+    """OR the bits of each of another card's ``parts`` into its output:
+    each lane's value is the bits of the one card that holds it, -0.0 and
+    NaN payloads included (the reference's ``psum`` of masked values,
+    exact), since every other card wrote it as zero bits."""
+    for out, part in zip(outs, parts):
+        bits = _BITS[out.element_size()]
+        out.view(bits).bitwise_or_(part.to(out.device).view(bits))
 
 
 def _gather_cards(name: str, out: torch.Tensor, launches: list,
@@ -1311,26 +1349,17 @@ def _gather_cards(name: str, out: torch.Tensor, launches: list,
     """Launch ``mv_row_gather_mesh`` once per entry of ``launches``,
     ``(device, bases, firsts, count, ids pointers, inv pointer or None,
     L)``, into ``out`` ([n, C] on the first shard's device), each counted
-    under ``name``. A device's first launch writes a zero row for every
-    lane its shards do not hold; a card other than out's writes a partial
-    of its own, merged into ``out`` by a bitwise OR: each lane's row is
-    the bits of the one card that holds it, -0.0 and NaN payloads
-    included (the reference's ``psum`` of masked rows, exact)."""
-    dev0 = out.device
+    under ``name``; a lane's row is zeros on a card that does not hold it
+    (:func:`_card_partials`)."""
     n, cols = out.shape
-    parts = {}
-    for dev, bases, firsts, count, ids_p, inv_p, lanes in launches:
-        fresh = dev not in parts
-        if fresh:
-            parts[dev] = out if dev == dev0 else torch.empty_like(
-                out, device=dev)
+
+    def launch(dev, fresh, parts, bases, firsts, count, ids_p, inv_p,
+               lanes):
         _launch(name, "mv_row_gather_mesh", bases, firsts, count,
                 rows_per_shard, cols, out.element_size(), ids_p, inv_p,
-                lanes, int(fresh), n, parts[dev].data_ptr(), device=dev)
-    bits = _BITS[out.element_size()]
-    for dev, part in parts.items():
-        if dev != dev0:
-            out.view(bits).bitwise_or_(part.to(dev0).view(bits))
+                lanes, fresh, n, parts[0].data_ptr(), device=dev)
+
+    _card_partials((out,), launches, launch)
 
 
 def gather_rows_mesh(param: ShardedParam, ids: torch.Tensor) -> torch.Tensor:

@@ -15,8 +15,8 @@ is ``splitmix64(key) % num_buckets``. On a mesh of S model shards
 - ``values`` ``[B, S]`` (``value_dim`` 0) or ``[B, S, value_dim]``, empty
   slots at ``default_value``; ``state``: the updater's leaves, shaped alike.
 
-``get(keys)`` is one lookup (``ops.table_kernels.kv_lookup_sharded``, the
-flat kernel per shard): missing keys give ``default_value`` and ``found``
+``get(keys)`` is one lookup (``ops.table_kernels.kv_lookup_sharded``, one
+launch per card): missing keys give ``default_value`` and ``found``
 False. ``add(keys, deltas)`` is one fused probe + updater apply
 (``kv_probe_update_sharded``): a key takes its slot if present, else the
 next empty slot of its bucket, same-bucket new keys in batch order. If any
@@ -313,11 +313,10 @@ class KVTable:
         self._check_overflow()
         keys = self._check_keys(keys)
         n = len(keys)
-        query, local, inv, counts = self._get_lanes(keys,
-                                                    self._buckets_of(keys))
+        query, local, inv = self._get_lanes(keys, self._buckets_of(keys))
         vals, found = tk.kv_lookup_sharded(
             self.key_shards, self.value_shards, query, local, inv,
-            self.default_value, counts=counts)
+            self.default_value)
         if len(inv) != n:
             vals, found = vals[:n], found[:n]
         return vals, found
@@ -327,14 +326,14 @@ class KVTable:
         slice each shard its row of local bucket ids and queries, and build
         ``inv`` (flat ``shard * L + pos`` indices, pow2-padded) that
         unpermutes the results back to caller order. Returns the device
-        operands (query, local buckets, inv) and the real-lane counts."""
+        operands (query, local buckets, inv)."""
         bps = self._buckets_per_shard
         shard_ids = lane_buckets // bps
         # a stable sort on a 16-bit key is numpy's radix sort
         order = np.argsort(shard_ids.astype(np.int16), kind="stable")
         sshard = shard_ids[order]
         local = (lane_buckets[order] - sshard * bps).astype(np.int32)
-        (sl_local, sl_query), valid, pos = shard_lane_slices(
+        (sl_local, sl_query), _, pos = shard_lane_slices(
             sshard, len(self.key_shards),
             [local, _split_keys(keys[order])],
             [np.int32(bps - 1), np.uint32(0xFFFFFFFF)])
@@ -342,7 +341,7 @@ class KVTable:
         inv[order] = (sshard * sl_local.shape[1] + pos).astype(np.int32)
         return (lanes_on(_keys_device(sl_query), self.devices),
                 lanes_on(sl_local, self.devices),
-                torch.as_tensor(inv, device=self.device), valid.sum(1))
+                torch.as_tensor(inv, device=self.device))
 
     def get(self, keys) -> Tuple[np.ndarray, np.ndarray]:
         """Batched lookup -> (values, found) on the host; missing keys give

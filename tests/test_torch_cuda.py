@@ -784,15 +784,72 @@ def test_sharded_kv_forms_match_cpu_plain(cuda, name, over):
         assert torch.equal(torch.cat(hv), torch.from_numpy(vals))
     # lookup of every batch key from the updated shards
     order = np.arange(n)
-    (lb2, lq2), _, counts2, sh, pos = _slice_lanes(
+    (lb2, lq2), _, _, sh, pos = _slice_lanes(
         buckets, bps, S, [query], [np.int32(-1)])
     inv = sh * lb2.shape[1] + pos
     got = tk.kv_lookup_sharded(gk, gv, _on(lq2, cuda), _on(lb2, cuda),
-                               _on(inv[order], cuda), 0.5, counts=counts2)
+                               _on(inv[order], cuda), 0.5)
     want = tk.kv_lookup_sharded_plain(hk, hv, _on(lq2, "cpu"),
                                       _on(lb2, "cpu"), _on(inv, "cpu"), 0.5)
     assert torch.equal(got[1].cpu(), want[1])
     assert torch.equal(_bits(got[0]), _bits(want[0]))
+
+
+@pytest.mark.parametrize("vdim", [0, 2])
+@pytest.mark.parametrize("S", [4, 20])
+def test_kv_lookup_once_per_card_matches_plain_on_every_lane(cuda, S, vdim):
+    """The sharded lookup on S shards of one card: one ``mv_kv_lookup``
+    launch per group of 16 shards, equal to the plain version bit for bit
+    on every lane of ``inv``: shard 0 has no real lanes, so ``inv``'s pow2
+    padding names its padding lane (query (-1, -1)), and S more lanes name
+    each shard's last lane; stored -0.0 values, and a NaN in a live slot
+    no query matches. The flat lookup (the same kernel, one shard, no
+    ``inv``) on the table concatenated gives the caller lanes' bits."""
+    rng = np.random.default_rng(10 * S + vdim)
+    bps, slots = 64, 16
+    nb = S * bps
+    keys, vals, live = _kv_filled(rng, nb, slots, vdim)
+    keys[bps - 1, -1], live[bps - 1, -1] = -1, False   # padding matches
+    nan_b = np.nonzero(live[:, 1])[0][:20]
+    vals.reshape(nb, slots, -1)[nan_b, 1] = np.nan
+    queried = live.copy()
+    queried[:bps] = False
+    queried[nan_b, 1] = False
+    bb, ss = np.nonzero(queried)
+    missing = _split(np.arange(10 ** 6, 10 ** 6 + 500, dtype=np.uint64))
+    q = np.concatenate([keys[bb, ss], missing])
+    gb = np.concatenate([bb, rng.integers(bps, nb, 500)]).astype(np.int32)
+    perm = rng.permutation(len(gb))
+    q, gb = q[perm], gb[perm]
+    order = np.argsort(gb // bps, kind="stable")
+    (lb, lq), valid, counts, sh, pos = _slice_lanes(
+        gb[order], bps, S, [q[order]], [np.int32(-1)])
+    L, n = lb.shape[1], len(gb)
+    inv = np.zeros(1 << (n + S - 1).bit_length(), np.int32)
+    inv[order] = sh * L + pos
+    inv[n:n + S] = np.arange(S) * L + L - 1
+    assert counts[0] == 0 and len(inv) > n + S
+    gk, gv = _on(keys, cuda, S), _on(vals, cuda, S)
+    before = dict(tk.LAUNCHES)
+    got_v, got_f = tk.kv_lookup_sharded(gk, gv, _on(lq, cuda),
+                                        _on(lb, cuda), _on(inv, cuda), 0.5)
+    want_v, want_f = tk.kv_lookup_sharded_plain(
+        _on(keys, "cpu", S), _on(vals, "cpu", S), _on(lq, "cpu"),
+        _on(lb, "cpu"), _on(inv, "cpu"), 0.5)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["kv_lookup"] == before["kv_lookup"] + (S + 15) // 16
+    assert tk.LAUNCHES["kv_lookup_sharded"] == \
+        before["kv_lookup_sharded"] + 1
+    assert got_v.shape == want_v.shape and len(got_f) == len(inv)
+    assert torch.equal(got_f.cpu(), want_f)
+    assert torch.equal(_bits(got_v), _bits(want_v))
+    assert bool(want_f[n + S:].all()) and int(want_f[:n].sum()) == len(bb)
+    flat_v, flat_f = tk.kv_lookup(*(_on(x, cuda) for x in (keys, vals, q,
+                                                           gb)), 0.5)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["kv_lookup"] == before["kv_lookup"] + (S + 15) // 16 + 1
+    assert torch.equal(flat_f.cpu(), want_f[:n])
+    assert torch.equal(_bits(flat_v), _bits(want_v[:n]))
 
 
 def _kv_scattered(rng, nb, slots, vdim):

@@ -140,7 +140,7 @@ def test_kv_lookup_sharded_matches_reference(mesh12, vdim):
     hit = np.isin(qkeys, present)
     buckets[hit] = _bucket_of(keys, qkeys[hit])
     order = np.argsort(buckets // bps, kind="stable")
-    (local, query), valid, pos, shard_ids = _slices(
+    (local, query), _, pos, shard_ids = _slices(
         buckets[order], bps, [thash._split_keys(qkeys[order])],
         [np.uint32(0xFFFFFFFF)])
     inv = _inv(shard_ids, pos, local.shape[1], order)
@@ -154,7 +154,7 @@ def test_kv_lookup_sharded_matches_reference(mesh12, vdim):
     got_v, got_f = tk.kv_lookup_sharded(
         _split(keys.view(np.int32)), _split(vals),
         torch.from_numpy(query.view(np.int32)), torch.from_numpy(local),
-        torch.from_numpy(inv), -2.5, counts=valid.sum(1))
+        torch.from_numpy(inv), -2.5)
     n = len(qkeys)
     np.testing.assert_array_equal(got_f.numpy()[:n], np.asarray(want_f)[:n])
     np.testing.assert_array_equal(got_v.numpy()[:n].view(np.int32),
