@@ -92,6 +92,19 @@ its seconds):
    beside phase 4's. Then a superstep COO add over a (1, 4)
    SparseMatrixTable at the LightLDA call's width, bit-identical to the
    (1, 1) table, one launch per card a call.
+13b. word2vec of phase 4 on a (4, 1) mesh, then on a (2, 2) mesh, both
+   tables replicated over the data axis (replica d on cuda:{d % cards}):
+   the superstep runs the body once per replica, each on its B/D lanes
+   of every step, and every scatter-add applies all the replicas' lanes on
+   every replica. From phase 4's corpus, initial weights, pairs and
+   negatives: after the calls the replicas are bit-identical, w_in and
+   w_out equal phase 4's bit for bit, the loss falls, and each replica
+   launches exactly one gather and one scatter-add a table and step on its
+   card (the flat kernels on (4, 1), the mesh forms on (2, 2)); words/s
+   beside phase 4's, the host's ms to queue a step, the device's busy
+   share over a 64-step call (torch.profiler, after every timed phase of
+   this mesh), the bytes the lane exchange moves a step, and where each
+   replica lives.
 14. The row scatter's kernel on phase 2's sorted lanes, and phase 2's KV
    probe + commit calls (the flat form at the sparse-LR step's shapes,
    the sharded form on four shards), taken apart by torch.profiler: each
@@ -125,8 +138,8 @@ the whole table. Then a small CBOW HS run on the (1, 4) card mesh
 against the same run on a (1, 4) CPU mesh.
 
 Launch counts are set to 0 before each main path (phases 3-4 word2vec,
-5, 6, 7, 8, 10, 11, 12, 13's word2vec and its COO superstep) and read
-after it. Before the last line the script prints
+5, 6, 7, 8, 10, 11, 12, 13's word2vec and its COO superstep, 13b's two
+meshes) and read after it. Before the last line the script prints
 one ``{"kernels": [...]}`` JSON line and the card's name and power limit;
 the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -612,7 +625,7 @@ def w2v_calls(torch, app, batches) -> tuple:
     t0 = time.perf_counter()
     app.train(total_steps=TIMED_CALLS * STEPS,
               batches=batches[STEPS:(1 + TIMED_CALLS) * STEPS])
-    for dev in {t.device for t in app.w_in.shards}:
+    for dev in {d for devs in app.w_in.replica_devices for d in devs}:
         torch.cuda.synchronize(dev)
     return warm, warm_s, time.perf_counter() - t0
 
@@ -2585,6 +2598,120 @@ def phase_w2v_mesh(torch, tk, counts, reset, core, W2VConfig, WordEmbedding,
     return out, paths
 
 
+def replicas_identical(torch, table) -> bool:
+    """Every replica of ``table`` holds replica 0's bits."""
+    return all(same_bits(torch, a, b) for shards in table.replicas[1:]
+               for a, b in zip(shards, table.replicas[0]))
+
+
+def phase_w2v_data_axis(torch, core, counts, reset, W2VConfig,
+                        WordEmbedding, w2v, w2v_run) -> tuple:
+    """Phase 13b: phase 4's skip-gram NS on a (4, 1) mesh, then a (2, 2)
+    mesh, replica d on cuda:{d % cards}, from phase 4's corpus, initial
+    weights, pairs and negatives (drawn once on replica 0's card and split
+    over the replicas): the replicas must end bit-identical, the tables
+    equal phase 4's bit for bit, the loss fall, and each replica launch
+    one gather and one scatter-add a table and step on its card. Prints
+    words/s beside phase 4's, the host's ms to queue a step, the device's
+    busy share over a 64-step call (torch.profiler), the bytes the lane
+    exchange moves a step, and where each replica lives. Returns
+    ({mesh: numbers}, {path: launch counts})."""
+    cards = torch.cuda.device_count()
+    batches = w2v_run["batches"]
+    steps = (1 + TIMED_CALLS) * STEPS
+    out, paths = {}, {}
+    for dp, mp in ((4, 1), (2, 2)):
+        key = f"({dp}, {mp})"
+        rows = [[f"cuda:{d % cards}"] * mp for d in range(dp)]
+        devs = sorted({d for row in rows for d in row})
+        app = WordEmbedding(w2v_run["corpus"], w2v_run["cfg"],
+                            mesh=core.Mesh(rows), name=f"smoke_w2v_dp{dp}")
+        reset()
+        warm, warm_s, dt = w2v_calls(torch, app, batches)
+        sync_all(torch, devs)
+        grown = counts()
+        paths[f"word2vec_data_{dp}x{mp}"] = grown
+        losses = app.loss_history
+        log(f"  {key}: replicas on {rows} ({cards} card(s)); warm-up call "
+            f"{warm_s:.3f} s, loss {warm:.5f}; timed calls {dt:.3f} s, "
+            f"losses {losses}")
+        if not (np.isfinite(losses).all() and losses[-1] < warm
+                < w2v["loss_start"]):
+            raise SystemExit(f"w2v on the {key} mesh: loss did not fall: "
+                             f"warm-up {warm}, then {losses}")
+        for name in ("w_in", "w_out"):
+            table = getattr(app, name)
+            if not replicas_identical(torch, table):
+                raise SystemExit(f"w2v on the {key} mesh: the replicas of "
+                                 f"{name} differ")
+            got = table.get()
+            if got.tobytes() != w2v_run[name].tobytes():
+                raise SystemExit(
+                    f"w2v on the {key} mesh: {name} != phase 4's (1, 1) "
+                    f"run (max {np.abs(got - w2v_run[name]).max()})")
+        gather, scatter = ("row_gather", "row_scatter_add") if mp == 1 \
+            else ("gather_rows_mesh", "row_scatter_add_mesh")
+        # skip-gram NS: 2 gathers + 2 scatter-adds a step on each replica,
+        # one launch each on the replica's one card
+        want = {k: 0 for k in ("row_gather", "row_scatter_add",
+                               "gather_rows_mesh", "row_scatter_add_mesh")}
+        want.update({gather: 2 * dp * steps, scatter: 2 * dp * steps})
+        if {k: grown[k] for k in want} != want:
+            raise SystemExit(f"w2v on the {key} mesh: launches "
+                             f"{ {k: grown[k] for k in want} } over {steps} "
+                             f"steps, expected {want}")
+        exchange = app._fused.exchange_bytes / STEPS
+        words_per_sec = TIMED_CALLS * STEPS * BATCH / dt \
+            / w2v_run["pairs_per_token"]
+
+        def call(n_steps):
+            part = batches[:n_steps]
+            app._dispatch(np.stack([b[0] for b in part]),
+                          np.stack([b[1] for b in part]), 0, 10)
+
+        t0 = time.perf_counter()
+        call(STEPS)
+        queue_s = time.perf_counter() - t0
+        sync_all(torch, devs)
+        call_s = time.perf_counter() - t0
+        short = 64
+
+        def run():
+            call(short)
+            sync_all(torch, devs)
+
+        run()
+        t0 = time.perf_counter()
+        run()
+        short_ms = (time.perf_counter() - t0) * 1e3
+        trace = f"w2v_dp{dp}x{mp}_trace.json"
+        prof = profile_call(torch, trace, run, short_ms)
+        os.remove(os.path.join(HERE, "chiprun_out", trace))
+        busy = prof["device_busy_ms"] / short_ms
+        out[key] = dict(
+            replicas=rows, cards=cards, words_per_sec=words_per_sec,
+            words_per_sec_one_replica=w2v["words_per_sec"], seconds=dt,
+            loss_warm=warm, losses=losses,
+            host_ms_per_step=1e3 * queue_s / STEPS,
+            wall_ms_per_step=1e3 * call_s / STEPS,
+            device_busy_share=busy, exchange_bytes_per_step=exchange,
+            launches_per_step={k: v / steps for k, v in grown.items() if v},
+            profile=prof)
+        log(f"  {key}: w_in, w_out bit-identical to phase 4's (1, 1) run, "
+            f"replicas bit-identical; {words_per_sec:.0f} words/s against "
+            f"phase 4's {w2v['words_per_sec']:.0f} "
+            f"({words_per_sec / w2v['words_per_sec']:.3f}x); host queues a "
+            f"step in {1e3 * queue_s / STEPS:.3f} ms (wall "
+            f"{1e3 * call_s / STEPS:.3f} ms); device busy "
+            f"{100 * busy:.1f}% of a {short}-step call; lane exchange "
+            f"{exchange:.0f} bytes a step; launches per step "
+            f"{grown[gather] / steps:.0f} {gather} + "
+            f"{grown[scatter] / steps:.0f} {scatter}")
+        del app
+        free_tables(torch)
+    return out, paths
+
+
 def device_events(prof, trace_name: str) -> list:
     """The device events (kernels, copies, memsets) of a finished
     torch.profiler session, through its chrome trace, which is kept under
@@ -2810,8 +2937,16 @@ def main(argv) -> int:
         torch, tk, counts, reset, core, W2VConfig, WordEmbedding,
         SparseMatrixTable, make_superstep, devices, w2v, w2v_run, profile)
     paths.update(mesh_paths)
-    del w2v_run
     phase_end("w2v_mesh")
+
+    phase("w2v_data", "phase 13b: word2vec skip-gram NS at full width on "
+          "(4, 1) and (2, 2) meshes (tables replicated over the data axis) "
+          "vs phase 4's (1, 1) run")
+    w2v_data, data_paths = phase_w2v_data_axis(
+        torch, core, counts, reset, W2VConfig, WordEmbedding, w2v, w2v_run)
+    paths.update(data_paths)
+    del w2v_run
+    phase_end("w2v_data")
 
     phase("scatter_parts", "phase 14: the row scatter's and the KV probe "
           "+ commit's kernels apart (torch.profiler, after every timed "
@@ -2852,6 +2987,13 @@ def main(argv) -> int:
         f"{w2v_mesh['words_per_sec']:.0f} words/s, "
         f"{w2v_mesh['words_per_sec'] / w2v['words_per_sec']:.3f}x the "
         f"(1, 1) run's, on {card}")
+    for key, r in w2v_data.items():
+        log(f"  word2vec on the {key} mesh: {r['words_per_sec']:.0f} "
+            f"words/s ({r['words_per_sec'] / w2v['words_per_sec']:.3f}x "
+            f"the (1, 1) run's), host {r['host_ms_per_step']:.3f} ms a "
+            f"step, device busy {100 * r['device_busy_share']:.1f}%, "
+            f"exchange {r['exchange_bytes_per_step']:.0f} bytes a step, "
+            f"{r['cards']} card(s), on {card}")
     log(f"  LightLDA doc-blocked: {lda['doc_tokens_per_sec']:.0f} "
         f"doc-tokens/s (runs {[round(r) for r in lda['runs_tok_per_sec']]}, "
         f"spread {lda['spread_pct']:.1f}%) on {card}")
@@ -2947,6 +3089,7 @@ def main(argv) -> int:
                        sharded_kernel_shapes=sharded_results,
                        sparse_lr_mesh=slr_mesh,
                        mesh_kernel_shapes=mesh_results, w2v_mesh=w2v_mesh,
+                       w2v_data_axis=w2v_data,
                        row_scatter_parts=scatter_parts,
                        seconds=time.perf_counter() - t_start), f, indent=1)
     log(f"phase seconds: { {k: round(v, 1) for k, v in phase_s.items()} }")

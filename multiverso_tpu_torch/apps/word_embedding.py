@@ -16,10 +16,22 @@ can feed both packages the same ones.
 On a (1, S) mesh (``mesh=``) both tables split their rows over the S
 model shards and the superstep hands the body each one as a
 ``ShardedParam``: every gather and scatter-add of a step then launches
-once per shard with that shard's row window, and the tables end
-bit-identical to a (1, 1) run. The constants (the NS table or alias, the
-labels, the HS paths), the pairs and the negatives' generator live on
-the first shard's device. ``python -m
+once per card over that card's shards, and the tables end bit-identical
+to a (1, 1) run. The NS table or alias and the negatives' generator live
+on the first shard's device.
+
+On a (D, S) mesh with D above 1 (data parallelism, the reference's
+default deployment) both tables hold D replicas and the pair stream is
+split over the data axis, as the reference's ``P(None, DATA_AXIS,
+None)``: replica ``d`` trains on the contiguous block ``d`` of B/D lanes
+of every step, with the same block of the negatives (drawn once as
+``[S, B, K]``, so the draws equal a one-replica run's), on its own
+copy of the tables. Each scatter-add exchanges the replicas' lanes and
+applies all of them in the global lane order on every replica (the
+superstep's counterpart of the reference's psum), and the loss is the
+whole batch's (:func:`~multiverso_tpu_torch.tables.superstep.replica_sum`).
+The constants the body reads (the NS labels, the HS paths) live on each
+replica's first device. ``python -m
 multiverso_tpu_torch.apps.word_embedding`` is the command line (:func:`main`).
 """
 
@@ -36,7 +48,9 @@ import torch.nn.functional as F
 from multiverso_tpu_torch import core
 from multiverso_tpu_torch.data.corpus import Corpus
 from multiverso_tpu_torch.tables import MatrixTable, make_superstep
-from multiverso_tpu_torch.tables.superstep import gather_rows, row_scatter_add
+from multiverso_tpu_torch.tables.superstep import (DataSplit, gather_rows,
+                                                   replica_sum,
+                                                   row_scatter_add)
 from multiverso_tpu_torch.utils import log
 from multiverso_tpu_torch.utils.async_buffer import prefetch_iterator
 
@@ -143,6 +157,7 @@ class WordEmbedding:
         self.config = config
         self.mesh = core.resolve_mesh(mesh, device)
         self.device = dev = self.mesh.shard_devices[0]
+        self.n_replicas = self.mesh.shape[core.DATA_AXIS]
         c = config
         if c.subsample is not None:
             corpus.set_subsample(c.subsample)
@@ -170,10 +185,9 @@ class WordEmbedding:
                 raise ValueError(f"ns_sampler must be 'table' or "
                                  f"'alias', got {c.ns_sampler!r}")
             # per-lane labels of [target, negatives...]
-            k1 = c.negative + 1
-            self._ns_labels = torch.zeros(k1, device=dev)
-            self._ns_labels[0] = 1.0
-            self._ns_sign = 2.0 * self._ns_labels - 1.0
+            labels = torch.zeros(c.negative + 1, device=dev)
+            labels[0] = 1.0
+            consts = dict(ns_labels=labels, ns_sign=2.0 * labels - 1.0)
         elif c.objective == "hs":
             codes, points, lengths = corpus.huffman(c.max_code_len)
             L = c.max_code_len
@@ -181,16 +195,22 @@ class WordEmbedding:
             # the scratch row, so every step has the same shapes
             msk = np.arange(L)[None, :] < lengths[:, None]
             pts = np.where(msk, points[:, :L], self._scratch)
-            self._hs_points = core.place(pts.astype(np.int32), device=dev)
-            self._hs_codes = core.place(codes[:, :L].astype(np.float32),
-                                        device=dev)
-            self._hs_mask = core.place(msk.astype(np.float32), device=dev)
+            consts = dict(
+                hs_points=core.place(pts.astype(np.int32), device=dev),
+                hs_codes=core.place(codes[:, :L].astype(np.float32),
+                                    device=dev),
+                hs_mask=core.place(msk.astype(np.float32), device=dev))
         else:
             raise ValueError(f"objective must be 'ns' or 'hs', "
                              f"got {c.objective!r}")
         if c.model not in ("skipgram", "cbow"):
             raise ValueError(f"model must be 'skipgram' or 'cbow', "
                              f"got {c.model!r}")
+        # the constants the body reads, on each replica's first device
+        self._consts = {}
+        for devs in self.w_in.replica_devices:
+            self._consts.setdefault(devs[0], {
+                k: v.to(devs[0]) for k, v in consts.items()})
         self._step_no = 0
         self._last_store = ()       # (prefix, step) of the last store
         self.loss_history: list = []
@@ -210,43 +230,44 @@ class WordEmbedding:
             return table_sample(gen, self._ns_table, shape)
         return alias_sample(gen, self._alias_prob, self._alias_idx, shape)
 
-    def _pos_neg_step(self, w_out, v, tgt, negs, lr):
+    def _pos_neg_step(self, w_out, v, tgt, negs, lr, k):
         """NS inner math: v [B,D] input vectors vs target ids [B] and
-        negatives [B,K]. Returns (w_out', -grad wrt v [B,D], mean loss)."""
+        negatives [B,K], constants ``k``. Returns (w_out', -grad wrt v
+        [B,D], the loss summed over the lanes, the lane count)."""
         ids = torch.cat([tgt[:, None], negs], dim=1).reshape(-1)  # B(1+K)
         b, d = v.shape
         u = gather_rows(w_out, ids).view(b, -1, d)            # [B, 1+K, D]
         logits = torch.bmm(u, v[:, :, None]).squeeze(2)      # [B, 1+K]
         # binary CE on (pos, negs); analytic dL/dlogit = sig - label
-        loss = -F.logsigmoid(self._ns_sign * logits).sum(dim=1).mean()
-        ng = (self._ns_labels - torch.sigmoid(logits)) * lr  # -dL/dlogit*lr
+        loss = -F.logsigmoid(k["ns_sign"] * logits).sum()
+        ng = (k["ns_labels"] - torch.sigmoid(logits)) * lr  # -dL/dlogit*lr
         neg_grad_v = torch.bmm(ng[:, None, :], u).squeeze(1)
         neg_grad_u = ng[:, :, None] * v[:, None, :]          # [B, 1+K, D]
         w_out = row_scatter_add(w_out, ids, neg_grad_u.reshape(-1, d))
-        return w_out, neg_grad_v, loss
+        return w_out, neg_grad_v, loss, torch.full_like(loss, b)
 
-    def _hs_step(self, w_out, v, tgt, lr):
-        """Hierarchical-softmax inner math along the Huffman path."""
+    def _hs_step(self, w_out, v, tgt, lr, k):
+        """Hierarchical-softmax inner math along the Huffman path; the
+        loss summed over the unmasked lanes, and their count."""
         tgt = tgt.long()
-        pts = self._hs_points.index_select(0, tgt)           # [B, L]
-        code = self._hs_codes.index_select(0, tgt)           # [B, L] 0/1
-        msk = self._hs_mask.index_select(0, tgt)             # [B, L]
+        pts = k["hs_points"].index_select(0, tgt)            # [B, L]
+        code = k["hs_codes"].index_select(0, tgt)            # [B, L] 0/1
+        msk = k["hs_mask"].index_select(0, tgt)              # [B, L]
         b, d = v.shape
         u = gather_rows(w_out, pts.reshape(-1)).view(b, -1, d)  # [B, L, D]
         logits = torch.bmm(u, v[:, :, None]).squeeze(2)
         # label = code bit: P(go-right) modeled by sigmoid
         loss = -torch.sum(msk * (code * F.logsigmoid(logits)
-                                 + (1 - code) * F.logsigmoid(-logits))
-                          ) / torch.clamp_min(torch.sum(msk), 1.0)
+                                 + (1 - code) * F.logsigmoid(-logits)))
         ng = (code - torch.sigmoid(logits)) * msk * lr       # [B, L]
         neg_grad_v = torch.bmm(ng[:, None, :], u).squeeze(1)
         neg_grad_u = ng[:, :, None] * v[:, None, :]
         w_out = row_scatter_add(w_out, pts.reshape(-1),
                                 neg_grad_u.reshape(-1, d))
-        return w_out, neg_grad_v, loss
+        return w_out, neg_grad_v, loss, torch.sum(msk)
 
-    def _step(self, w_in, w_out, src, tgt, negs, lr):
-        """One minibatch: returns (w_in', w_out', loss)."""
+    def _step(self, w_in, w_out, src, tgt, negs, lr, k):
+        """One minibatch: returns (w_in', w_out', summed loss, lanes)."""
         c = self.config
         d = w_in.shape[1]
         if c.model == "cbow":
@@ -259,10 +280,11 @@ class WordEmbedding:
         else:
             v = gather_rows(w_in, src)                        # [B, D]
         if c.objective == "ns":
-            w_out, neg_grad_v, loss = self._pos_neg_step(w_out, v, tgt,
-                                                         negs, lr)
+            w_out, neg_grad_v, loss, lanes = self._pos_neg_step(
+                w_out, v, tgt, negs, lr, k)
         else:
-            w_out, neg_grad_v, loss = self._hs_step(w_out, v, tgt, lr)
+            w_out, neg_grad_v, loss, lanes = self._hs_step(w_out, v, tgt,
+                                                           lr, k)
         if c.model == "cbow":
             # spread the input-side gradient over the context words
             gctx = (neg_grad_v / n_ctx)[:, None, :] * ctx_mask[:, :, None]
@@ -270,32 +292,39 @@ class WordEmbedding:
                                    gctx.reshape(-1, d))
         else:
             w_in = row_scatter_add(w_in, src, neg_grad_v)
-        return w_in, w_out, loss
+        return w_in, w_out, loss, lanes
 
     def _body(self, params, states, locals_, options, pairs, negatives,
               lrs):
         """The superstep body: ``pairs`` [S, B, ctx+1] (context ids and
         the target in one operand), ``negatives`` [S, B, K] or None (HS),
-        ``lrs`` [S]."""
+        ``lrs`` [S] (on a data axis, this replica's B/D lanes of each
+        step). The loss of each step is the whole batch's: its sum over
+        the lanes divided by their count, both summed over the
+        replicas."""
         w_in, w_out = params
+        k = self._consts[pairs.device]
         pairs = pairs.to(torch.int32)
         if self.config.model == "cbow":
             srcs = pairs[..., :-1].contiguous()
         else:
             srcs = pairs[..., 0].contiguous()
         tgts = pairs[..., -1].contiguous()
-        losses = []
+        sums = []
         for s in range(pairs.shape[0]):
             negs = negatives[s] if negatives is not None else None
-            w_in, w_out, loss = self._step(w_in, w_out, srcs[s], tgts[s],
-                                           negs, lrs[s])
-            losses.append(loss)
-        return (w_in, w_out), states, locals_, torch.stack(losses).mean()
+            w_in, w_out, loss, lanes = self._step(
+                w_in, w_out, srcs[s], tgts[s], negs, lrs[s], k)
+            sums.append(torch.stack([loss, lanes]))
+        sums = replica_sum(torch.stack(sums))                 # [S, 2]
+        losses = sums[:, 0] / torch.clamp_min(sums[:, 1], 1.0)
+        return (w_in, w_out), states, locals_, losses.mean()
 
     # -- data placement ----------------------------------------------------
 
-    def _place(self, srcs: np.ndarray, tgts: np.ndarray) -> torch.Tensor:
-        """One combined [S, B, ctx+1] host-to-device copy per call; ids
+    def _place(self, srcs: np.ndarray, tgts: np.ndarray):
+        """One combined [S, B, ctx+1] host-to-device copy per call (per
+        replica on a data axis, each its B/D lanes of every step); ids
         ship as int16 when the padded vocab fits (half the bytes), and the
         body widens them on the device."""
         if srcs.ndim == 2:      # skipgram: [S, B] -> [S, B, 1]
@@ -303,6 +332,8 @@ class WordEmbedding:
         pairs = np.concatenate([srcs, tgts[..., None]], axis=-1)
         if self._scratch < np.iinfo(np.int16).max:
             pairs = pairs.astype(np.int16)
+        if self.n_replicas > 1:
+            return DataSplit.of(pairs, self.mesh, axis=1)
         return core.place(pairs, device=self.device)
 
     # -- training ----------------------------------------------------------
@@ -325,6 +356,9 @@ class WordEmbedding:
         the caller's ``(src, tgt)`` minibatches (e.g. generated ahead of
         time). ``total_steps`` bounds the run."""
         c = self.config
+        if c.batch_size % self.n_replicas:
+            raise ValueError(f"batch_size {c.batch_size} not divisible by "
+                             f"data-axis size {self.n_replicas}")
         # linear lr decay over the whole corpus (reference's alpha decay);
         # skip-gram emits ~2b pairs per center, b ~ U[1, window] -> E = w+1
         tokens = self.corpus.num_tokens
@@ -397,6 +431,8 @@ class WordEmbedding:
         if c.objective == "ns":
             negatives = self.negatives(call_no, s) if negatives is None \
                 else core.place(negatives, device=self.device)
+            if self.n_replicas > 1:
+                negatives = DataSplit.of(negatives, self.mesh, axis=1)
         else:
             negatives = None
         _, loss = self._fused((), self._place(srcs, tgts), negatives,
@@ -486,10 +522,11 @@ USAGE = """python -m multiverso_tpu_torch.apps.word_embedding -train_file=PATH
     [-data_parallel=0] [-model_parallel=1] [-device=cpu]
 
 The mesh is -data_parallel x -model_parallel over every CUDA device, or
-over one device repeated with -device (-device=cpu: the CPU). A data
-axis above 1 is not ported (tables on the data axis). Not ported either:
-the fault-tolerance run flags -run_dir, -resume and -ckpt_every and the
-run checkpoint manager (wire_app); -output_file with
+over one device repeated with -device (-device=cpu: the CPU); with a data
+axis above 1 each row of the mesh holds a replica of the tables and
+trains on its share of every batch (-batch_size must divide by it).
+Not ported: the fault-tolerance run flags -run_dir, -resume and
+-ckpt_every and the run checkpoint manager (wire_app); -output_file with
 -checkpoint_interval stores the tables every N superstep calls."""
 
 

@@ -4,9 +4,11 @@ Counterpart of ``multiverso_tpu/core.py``. :func:`init` builds a
 :class:`Mesh`, a ``[data, model]`` grid of ``torch.device``s with the
 reference's axis names and rules. Tables split their leading dimension
 (rows, or KV buckets) into contiguous equal blocks over the ``model``
-axis, one tensor per shard, shard ``s`` on the device at ``[0, s]``; the
-``data`` axis holds replicas in the reference, which the port's apps do
-not use yet, so tables live on data row 0.
+axis, one tensor per shard, and hold one replica of that split per row of
+the ``data`` axis, as the reference's tables replicated over ``data`` do:
+replica ``d``'s shard ``s`` lives on the device at ``[d, s]``
+(:meth:`Mesh.replica_devices`). A SparseMatrixTable or KVTable holds
+replica 0 only, on data row 0 (:attr:`Mesh.shard_devices`).
 
 One process drives the whole mesh, as the reference's single controller
 does: every worker and server of the topology queries is one mesh
@@ -74,8 +76,14 @@ class Mesh:
 
     @property
     def shard_devices(self) -> List[torch.device]:
-        """Where a table's model shards live: data row 0 of the grid."""
-        return list(self.devices[0])
+        """Where replica 0 of a table's model shards lives: data row 0 of
+        the grid."""
+        return self.replica_devices(0)
+
+    def replica_devices(self, replica: int) -> List[torch.device]:
+        """Where replica ``replica`` of a table's model shards lives: data
+        row ``replica`` of the grid."""
+        return list(self.devices[replica])
 
     def __repr__(self) -> str:
         names = [[str(d) for d in row] for row in self.devices]
@@ -199,6 +207,22 @@ def place(value, *, dtype: Optional[torch.dtype] = None,
     if isinstance(value, torch.Tensor):
         return value.to(device=dev, dtype=dtype)
     return torch.as_tensor(np.asarray(value), dtype=dtype, device=dev)
+
+
+def sharded_zeros(shape, dtype: torch.dtype,
+                  devices: Sequence[torch.device]) -> List[torch.Tensor]:
+    """Zeros of the global ``shape``, split over ``devices`` into
+    contiguous equal row blocks, each made directly on its device (never
+    on the host): block ``i`` holds rows ``[i * n, (i + 1) * n)``, ``n =
+    shape[0] // len(devices)``. The counterpart of the reference's
+    ``sharded_zeros`` for a placement given as the devices of its
+    blocks."""
+    shape = tuple(int(x) for x in shape)
+    if not devices or shape[0] % len(devices):
+        raise ValueError(f"{shape[0]} rows do not split evenly over "
+                         f"{len(devices)} devices")
+    block = (shape[0] // len(devices),) + shape[1:]
+    return [torch.zeros(block, dtype=dtype, device=dev) for dev in devices]
 
 
 def generator(seed: int, *, device: DeviceLike = None) -> torch.Generator:

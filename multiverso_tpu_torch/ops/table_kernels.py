@@ -18,6 +18,9 @@ beside it. Nothing falls back from one to the other.
 
 Each wrapper adds one to ``LAUNCHES[<kernel>]`` where it launches its
 kernel, so a run can show that its main path went through the kernels.
+The counts and the row scatter's workspaces are shared by every host
+thread (a superstep over a data axis runs one per replica) and change
+under ``_LOCK`` only.
 
 Layouts: a table is flat ``[R, C]`` or tiled ``[R, C/128, 128]``; both
 are read as the contiguous ``[R, C]`` rows they are. Types: the gather
@@ -28,6 +31,7 @@ float32 or int32 tables.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict, Optional
 
 import torch
@@ -65,9 +69,14 @@ SCATTER_SPLIT = 32
 MESH_MAX_SHARDS = 16
 
 
+#: guards LAUNCHES and _WORKSPACES across host threads
+_LOCK = threading.Lock()
+
+
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def _rows(param: torch.Tensor) -> torch.Tensor:
@@ -145,12 +154,14 @@ def _launch(name: str, fn: str, *args, device: torch.device,
             ws = _scatter_workspace(scatter_lanes, device, stream)
             args += (ws.data_ptr(), ws.numel())
         err = getattr(lib, fn)(*args, stream)
-    (LAUNCHES if counts is None else counts)[name] += 1
-    if tag is not None:
-        LAUNCHES[tag] += 1
-    if err != 0:
-        if scatter_lanes is not None:  # a failed call may leave it non-zero
+    with _LOCK:
+        (LAUNCHES if counts is None else counts)[name] += 1
+        if tag is not None:
+            LAUNCHES[tag] += 1
+        if err != 0 and scatter_lanes is not None:
+            # a failed call may leave it non-zero
             _WORKSPACES.pop((device, stream), None)
+    if err != 0:
         raise RuntimeError(f"{fn} launch failed on {device}: CUDA error "
                            f"{err}")
 
@@ -252,12 +263,13 @@ def _scatter_workspace(n: int, device: torch.device,
                        stream: int) -> torch.Tensor:
     """The workspace for ``n`` lanes on ``stream`` of ``device``, grown
     (at least doubled) when too small."""
-    ws = _WORKSPACES.get((device, stream))
     need = scatter_workspace_size(n)
-    if ws is None or ws.numel() < need:
-        grown = need if ws is None else max(need, 2 * ws.numel())
-        ws = torch.zeros(grown, dtype=torch.int64, device=device)
-        _WORKSPACES[(device, stream)] = ws
+    with _LOCK:
+        ws = _WORKSPACES.get((device, stream))
+        if ws is None or ws.numel() < need:
+            grown = need if ws is None else max(need, 2 * ws.numel())
+            ws = torch.zeros(grown, dtype=torch.int64, device=device)
+            _WORKSPACES[(device, stream)] = ws
     return ws
 
 

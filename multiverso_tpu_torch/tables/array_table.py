@@ -16,12 +16,14 @@ class ArrayTable(Table):
                  init_value: Any = 0, updater: Optional[str] = None,
                  device: core.DeviceLike = None,
                  mesh: Optional[core.Mesh] = None, name: str = "array_table",
-                 default_option: Optional[AddOption] = None) -> None:
+                 default_option: Optional[AddOption] = None,
+                 shard_update: bool = False) -> None:
         if size <= 0:
             raise ValueError(f"ArrayTable size must be positive, got {size}")
         super().__init__(name, (size,), dtype, updater=updater,
                          device=device, mesh=mesh, init_value=init_value,
-                         default_option=default_option)
+                         default_option=default_option,
+                         shard_update=shard_update)
 
     @property
     def size(self) -> int:

@@ -14,10 +14,19 @@ Counterpart of ``multiverso_tpu/tables/base.py``:
   stored by either package loads in the other.
 
 The leading dimension is padded as the reference pads it: to a multiple
-of the model-axis size, subclasses reserving scratch rows. Shard ``s``
-holds the contiguous row block ``s`` of the padded storage on the mesh
-device ``[0, s]`` (the reference shards its leading dimension over
-``model`` the same way); a one-shard mesh holds one tensor. The logical
+of the model-axis size (of the model x data product under
+``shard_update``), subclasses reserving scratch rows. Shard ``s`` holds
+the contiguous row block ``s`` of the padded storage (the reference
+shards its leading dimension over ``model`` the same way); a one-shard
+mesh holds one tensor. On a mesh whose data axis D is above 1 an
+ArrayTable or MatrixTable holds D replicas of that split, as the
+reference replicates its tables over ``data``: replica ``d``'s shard
+``s`` lives on the mesh device ``[d, s]``. Every write keeps the
+replicas bit-identical, and a Get reads replica 0. Under
+``shard_update`` (the reference's weight-update sharding) the updater
+state is split over (model, data) instead: replica ``d`` holds row block
+``d`` of each shard's state, updates those rows only, and sends the
+updated param rows to every replica. The logical
 shape is what the API shows. ``storage_shape`` is the physical layout of
 the param: the padded shape, or a re-tiled view of it (``[R, C/128, 128]``
 for a tiled SparseMatrixTable); checkpoints always hold the global padded
@@ -139,6 +148,15 @@ def _record_events(devices) -> List[torch.cuda.Event]:
     return events
 
 
+def _placed(blocks, devices, copy: bool) -> List[torch.Tensor]:
+    """Row blocks (numpy, copied, or tensors) as contiguous tensors, block
+    i on ``devices[i]``; a tensor block is a copy when ``copy``, else it
+    may share its storage."""
+    if blocks and isinstance(blocks[0], np.ndarray):
+        return [torch.tensor(b, device=d) for b, d in zip(blocks, devices)]
+    return [b.to(d, copy=copy).contiguous() for b, d in zip(blocks, devices)]
+
+
 def lanes_on(lanes, devices: List[torch.device]):
     """A ``(shards, L, ...)`` lane array (numpy or tensor) on the shards'
     devices: one tensor when they share one device, else a list of
@@ -210,17 +228,31 @@ class Table:
     over the mesh's model axis: ``shards[s]`` holds rows
     ``[s * rows_per_shard, (s + 1) * rows_per_shard)`` of the padded
     storage on ``devices[s]``, ``shard_states[s]`` its updater state. On
-    a one-shard mesh ``param`` and ``state`` are that shard's tensors."""
+    a one-shard mesh ``param`` and ``state`` are that shard's tensors.
+
+    On a mesh with a data axis D above 1 a replicated table (``REPLICATED``)
+    holds D copies of that split: ``replicas[d]`` on
+    ``replica_devices[d]`` (data row ``d``), ``replica_states[d]`` their
+    updater state; ``shards`` / ``shard_states`` are replica 0's."""
+
+    #: whether the table holds a replica per row of the data axis
+    #: (SparseMatrixTable holds replica 0 only, on data row 0)
+    REPLICATED = True
 
     def __init__(self, name: str, shape: Tuple[int, ...], dtype: Any,
                  *, updater: Optional[str] = None,
                  device: core.DeviceLike = None,
                  mesh: Optional[core.Mesh] = None,
                  init_value: Any = 0,
-                 default_option: Optional[AddOption] = None) -> None:
+                 default_option: Optional[AddOption] = None,
+                 shard_update: bool = False) -> None:
         self.name = name
         self.mesh = core.resolve_mesh(mesh, device)
-        self.devices = self.mesh.shard_devices
+        n_replicas = self.mesh.shape[core.DATA_AXIS] \
+            if self.REPLICATED else 1
+        self.replica_devices = [self.mesh.replica_devices(d)
+                                for d in range(n_replicas)]
+        self.devices = self.replica_devices[0]
         self.device = self.devices[0]
         self.logical_shape = tuple(int(s) for s in shape)
         self.np_dtype = np.dtype(dtype)
@@ -234,24 +266,40 @@ class Table:
         # update counter behind the Handle generation contract (bumped on
         # every applied update / load)
         self.generation = 0
-        # the lead pads to a multiple of the model-axis size (subclasses
-        # reserve scratch rows); dense checkpoints repad across paddings
+        # weight-update sharding: the updater state split over (model,
+        # data), each replica updating its rows; a no-op without a data axis
+        self.shard_update = bool(shard_update) and n_replicas > 1
+        # the lead pads to a multiple of the model-axis size, of the model
+        # x data product under shard_update (subclasses reserve scratch
+        # rows); dense checkpoints repad across paddings
         lead = self.logical_shape[0] if self.logical_shape else 1
         n_shards = len(self.devices)
-        self.padded_shape = (self._pad_lead(lead, n_shards),) \
+        mult = n_shards * n_replicas if self.shard_update else n_shards
+        self.padded_shape = (self._pad_lead(lead, mult),) \
             + self.logical_shape[1:]
         self._rows_per_shard = self.padded_shape[0] // n_shards
         self.storage_shape = self.padded_shape
-        init = np.full(self.padded_shape, init_value, dtype=self.np_dtype) \
-            if np.isscalar(init_value) else self._pad(np.asarray(init_value))
-        self.shards = self._split(init)
-        self.shard_states = [self.updater.init_state(p) for p in self.shards]
+        if np.isscalar(init_value):
+            self.replicas = [core.sharded_zeros(self.padded_shape,
+                                                self.dtype, devs)
+                             for devs in self.replica_devices]
+            if init_value != 0:
+                for shards in self.replicas:
+                    for t in shards:
+                        t.fill_(init_value)
+        else:
+            init = self._pad(np.asarray(init_value))
+            self.replicas = [self._split(init, devs)
+                             for devs in self.replica_devices]
+        self.replica_states = [
+            [self.updater.init_state(p) for p in self._state_rows(d)]
+            for d in range(n_replicas)]
         self._events: list = []
         self.table_id = _register(self)
         log.debug("table %r id=%d shape=%s padded=%s updater=%s on %s",
                   name, self.table_id, self.logical_shape,
                   self.padded_shape, self.updater.name,
-                  [str(d) for d in self.devices])
+                  [[str(d) for d in devs] for devs in self.replica_devices])
 
     # -- helpers -----------------------------------------------------------
 
@@ -267,16 +315,71 @@ class Table:
         pad = [(0, p - l) for p, l in zip(self.padded_shape, arr.shape)]
         return np.pad(arr.astype(self.np_dtype, copy=False), pad)
 
-    def _split(self, whole) -> List[torch.Tensor]:
-        """A padded (or storage-shaped) value, numpy (copied) or a tensor,
-        cut into the shards' row blocks, each on its device."""
-        rps = self._rows_per_shard
-        blocks = [whole[s * rps:(s + 1) * rps]
-                  for s in range(len(self.devices))]
-        if isinstance(whole, np.ndarray):
-            return [torch.tensor(b, device=d)
-                    for b, d in zip(blocks, self.devices)]
-        return [b.to(d).contiguous() for b, d in zip(blocks, self.devices)]
+    @property
+    def n_replicas(self) -> int:
+        return len(self.replicas)
+
+    @property
+    def shards(self) -> List[torch.Tensor]:
+        """Replica 0's shards (the only replica off a data axis)."""
+        return self.replicas[0]
+
+    @property
+    def shard_states(self) -> List[Dict[str, torch.Tensor]]:
+        """Replica 0's updater state, shard by shard (under shard_update,
+        the row block of each shard's state that replica 0 holds)."""
+        return self.replica_states[0]
+
+    def _split(self, whole, devices: Optional[List[torch.device]] = None,
+               copy: bool = False) -> List[torch.Tensor]:
+        """A value of the padded (or storage) shape, numpy (copied) or a
+        tensor, cut into ``len(devices)`` (default: the shards') equal
+        row blocks, block i on ``devices[i]``; a tensor's block is a copy
+        when ``copy``, else it may share the tensor's storage."""
+        devices = self.devices if devices is None else devices
+        rows = whole.shape[0] // len(devices)
+        return _placed([whole[i * rows:(i + 1) * rows]
+                        for i in range(len(devices))], devices, copy)
+
+    def _replicate(self, whole) -> List[List[torch.Tensor]]:
+        """A padded (or storage-shaped) value as every replica's shards:
+        replica 0's may share a tensor's storage, the others copy it."""
+        return [self._split(whole, devs, copy=d > 0)
+                for d, devs in enumerate(self.replica_devices)]
+
+    def _state_rows(self, replica: int) -> List[torch.Tensor]:
+        """The rows of each of ``replica``'s shards whose updater state it
+        holds: every row, or row block ``replica`` of the shard under
+        shard_update (the reference's state split over (model, data))."""
+        shards = self.replicas[replica]
+        if not self.shard_update:
+            return list(shards)
+        q = self._rows_per_shard // self.n_replicas
+        return [p[replica * q:(replica + 1) * q] for p in shards]
+
+    def _state_split(self, whole, replica: int) -> List[torch.Tensor]:
+        """A padded state leaf (numpy or tensor) as the blocks ``replica``
+        holds, one per shard on its device (the inverse of
+        :meth:`_state_leaf`)."""
+        devs = self.replica_devices[replica]
+        if not self.shard_update:
+            return self._split(whole, devs, copy=True)
+        # the (model, data) split: block s * D + d is replica d's of shard s
+        n = self.n_replicas
+        rows = whole.shape[0] // (len(devs) * n)
+        return _placed([whole[(s * n + replica) * rows:
+                              (s * n + replica + 1) * rows]
+                        for s in range(len(devs))], devs, copy=True)
+
+    def _state_leaf(self, key: str) -> torch.Tensor:
+        """An updater-state leaf as one padded tensor on the first device:
+        the shards' leaves concatenated, under shard_update each shard's
+        row blocks gathered from the replicas that hold them."""
+        if not self.shard_update:
+            return self._whole([st[key] for st in self.shard_states])
+        return torch.cat([self.replica_states[d][s][key].to(self.device)
+                          for s in range(len(self.devices))
+                          for d in range(self.n_replicas)])
 
     def _whole(self, shards: Optional[List[torch.Tensor]] = None
                ) -> torch.Tensor:
@@ -294,63 +397,72 @@ class Table:
                 f"shards; {what} is one tensor only on a one-shard mesh "
                 "(use .shards / .shard_states)")
 
+    def _one_replica(self, what: str) -> None:
+        self._one_shard(what)
+        if self.n_replicas != 1:
+            raise NotImplementedError(
+                f"table {self.name!r} holds {self.n_replicas} replicas; "
+                f"set {what} through put_raw / load, which write them all")
+
     @property
     def param(self) -> torch.Tensor:
-        """The storage tensor of a one-shard table."""
+        """The storage tensor of a one-shard table (replica 0's)."""
         self._one_shard("param")
         return self.shards[0]
 
     @param.setter
     def param(self, value: torch.Tensor) -> None:
-        self._one_shard("param")
+        self._one_replica("param")
         self.shards[0] = value
 
     @property
     def state(self) -> Dict[str, torch.Tensor]:
-        """The updater state of a one-shard table."""
+        """The updater state of a one-shard table (replica 0's)."""
         self._one_shard("state")
         return self.shard_states[0]
 
     @state.setter
     def state(self, value: Dict[str, torch.Tensor]) -> None:
-        self._one_shard("state")
+        self._one_replica("state")
         self.shard_states[0] = value
 
-    def superstep_view(self) -> Tuple[Any, Dict[str, Any]]:
-        """``(param, state)`` as a superstep body takes them: the shard's
-        tensors on a one-shard table; on a split one a
+    def superstep_view(self, replica: int = 0) -> Tuple[Any, Dict[str, Any]]:
+        """``(param, state)`` of one replica as a superstep body takes
+        them: the shard's tensors on a one-shard table; on a split one a
         :class:`~multiverso_tpu_torch.ops.table_kernels.ShardedParam` of
         the shards, and the state as one ShardedParam per leaf (the
         reference's body sees the global arrays)."""
-        if len(self.shards) == 1:
-            return self.shards[0], self.shard_states[0]
-        return ShardedParam(self.shards), {
-            k: ShardedParam([st[k] for st in self.shard_states])
-            for k in self.shard_states[0]}
+        shards, states = self.replicas[replica], self.replica_states[replica]
+        if len(shards) == 1:
+            return shards[0], states[0]
+        return ShardedParam(shards), {
+            k: ShardedParam([st[k] for st in states]) for k in states[0]}
 
-    def _take_shards(self, value) -> List[torch.Tensor]:
+    def _take_shards(self, value, devices) -> List[torch.Tensor]:
         """A body's returned param (or state leaf) of a split table as its
-        shards: a ShardedParam's own shards, or a whole tensor of the
-        storage shape cut into row blocks."""
+        shards: a ShardedParam's own shards, or a whole tensor cut into
+        row blocks on ``devices``."""
         if isinstance(value, ShardedParam):
-            if len(value.shards) != len(self.shards):
+            if len(value.shards) != len(devices):
                 raise ValueError(
                     f"table {self.name!r}: a superstep returned "
-                    f"{len(value.shards)} shards for {len(self.shards)}")
+                    f"{len(value.shards)} shards for {len(devices)}")
             return list(value.shards)
-        return self._split(value)
+        return self._split(value, devices)
 
-    def superstep_update(self, param: Any,
-                         state: Dict[str, Any]) -> None:
-        """Take a superstep body's returned ``(param, state)`` back as the
-        table's storage (the inverse of :meth:`superstep_view`)."""
-        if len(self.shards) == 1:
-            self.shards[0], self.shard_states[0] = param, state
+    def superstep_update(self, param: Any, state: Dict[str, Any],
+                         replica: int = 0) -> None:
+        """Take a superstep body's returned ``(param, state)`` back as one
+        replica's storage (the inverse of :meth:`superstep_view`)."""
+        devs = self.replica_devices[replica]
+        if len(devs) == 1:
+            self.replicas[replica][0] = param
+            self.replica_states[replica][0] = state
             return
-        self.shards = self._take_shards(param)
-        leaves = {k: self._take_shards(v) for k, v in state.items()}
-        self.shard_states = [{k: v[s] for k, v in leaves.items()}
-                             for s in range(len(self.shards))]
+        self.replicas[replica] = self._take_shards(param, devs)
+        leaves = {k: self._take_shards(v, devs) for k, v in state.items()}
+        self.replica_states[replica] = [{k: v[s] for k, v in leaves.items()}
+                                        for s in range(len(devs))]
 
     def _resolve_option(self, option: Optional[AddOption]) -> AddOption:
         opt = option if option is not None else self.default_option
@@ -358,8 +470,11 @@ class Table:
 
     def _bump_step(self) -> int:
         """Advance step + generation; returns the new generation (mint
-        handles from it, not from a later read of ``self.generation``)."""
-        self._events = _record_events(self.devices)
+        handles from it, not from a later read of ``self.generation``).
+        Records the queued work of every replica's devices, which
+        :meth:`wait` and the handles fence."""
+        self._events = _record_events(
+            [d for devs in self.replica_devices for d in devs])
         with self._option_lock:
             self.default_option.step += 1
             self.generation += 1
@@ -384,7 +499,7 @@ class Table:
         if padded.dtype != self.dtype:
             raise ValueError(f"table {self.name!r}: put_raw dtype "
                              f"{padded.dtype} != table dtype {self.dtype}")
-        self.shards = self._split(padded)
+        self.replicas = self._replicate(padded)
         with self._option_lock:
             self.generation += 1
 
@@ -406,8 +521,10 @@ class Table:
     def add(self, delta: Any, option: Optional[AddOption] = None,
             sync: bool = False) -> Handle:
         """``WorkerTable::Add``: fold a delta (numpy array or tensor, of
-        the logical or padded shape) through the updater, shard by
-        shard."""
+        the logical or padded shape) through the updater, shard by shard
+        on every replica (under shard_update each replica its own row
+        block of each shard, whose updated rows then go to every
+        replica)."""
         if isinstance(delta, torch.Tensor):
             delta = delta.to(self.device)
             if tuple(delta.shape) == self.logical_shape \
@@ -419,17 +536,33 @@ class Table:
                 raise ValueError(f"table {self.name!r}: delta shape "
                                  f"{tuple(delta.shape)} != table shape "
                                  f"{self.logical_shape}")
-            deltas = self._split(delta)
         else:
-            deltas = self._split(self._pad(np.asarray(delta)))
+            delta = self._pad(np.asarray(delta))
         opt = self._resolve_option(option)
         shard_padded = (self._rows_per_shard,) + self.padded_shape[1:]
         shard_storage = (self._rows_per_shard,) + self.storage_shape[1:]
-        for s, d in enumerate(deltas):
-            param, self.shard_states[s] = self.updater.apply(
-                self.shards[s].view(shard_padded), self.shard_states[s], d,
-                opt)
-            self.shards[s] = param.reshape(shard_storage)
+        n = self.n_replicas
+        q = self._rows_per_shard // n
+        # blocks[s][d]: shard s's rows [d * q, (d + 1) * q) as replica d
+        # updated them under shard_update
+        blocks = [[None] * n for _ in self.devices]
+        for d, devs in enumerate(self.replica_devices):
+            rows = slice(d * q, (d + 1) * q) if self.shard_update \
+                else slice(None)
+            for s, part in enumerate(self._split(delta, devs)):
+                states = self.replica_states[d]
+                blk, states[s] = self.updater.apply(
+                    self.replicas[d][s].view(shard_padded)[rows], states[s],
+                    part.view(shard_padded)[rows], opt)
+                if self.shard_update:
+                    blocks[s][d] = blk
+                else:
+                    self.replicas[d][s] = blk.reshape(shard_storage)
+        if self.shard_update:
+            for devs, shards in zip(self.replica_devices, self.replicas):
+                for s, dev in enumerate(devs):
+                    shards[s] = torch.cat([b.to(dev) for b in blocks[s]]) \
+                        .reshape(shard_storage)
         handle = Handle(table=self, generation=self._bump_step())
         if sync:
             handle.wait()
@@ -469,8 +602,7 @@ class Table:
                    .numpy()}
         keys = state_keys(self.shard_states[0])
         for i, key in enumerate(keys):
-            payload[f"state_{i}"] = self._whole(
-                [st[key] for st in self.shard_states]).cpu().numpy()
+            payload[f"state_{i}"] = self._state_leaf(key).cpu().numpy()
         manifest["n_state_leaves"] = len(keys)
         savez_stream(uri, manifest, payload)
 
@@ -501,12 +633,16 @@ class Table:
                 arr = np.pad(arr, pad)
             return arr.astype(dtype)
 
-        self.shards = self._split(repad(data["param"], self.np_dtype)
-                                  .reshape(self.storage_shape))
-        leaves = [self._split(repad(data[f"state_{i}"], np.dtype(np.float32)))
+        self.replicas = self._replicate(
+            repad(data["param"], self.np_dtype).reshape(self.storage_shape))
+        leaves = [repad(data[f"state_{i}"], np.dtype(np.float32))
                   for i in range(len(keys))]
-        self.shard_states = [{key: leaves[i][s] for i, key in enumerate(keys)}
-                             for s in range(len(self.devices))]
+        self.replica_states = []
+        for d in range(self.n_replicas):
+            blocks = [self._state_split(leaf, d) for leaf in leaves]
+            self.replica_states.append(
+                [{key: blocks[i][s] for i, key in enumerate(keys)}
+                 for s in range(len(self.devices))])
         self.default_option.step = int(manifest.get("step", 0))
         with self._option_lock:
             self.generation += 1

@@ -7,7 +7,10 @@ is ``splitmix64(key) % num_buckets``. On a mesh of S model shards
 ``num_buckets`` rounds up to a multiple of S and shard s holds buckets
 ``[s * bps, (s + 1) * bps)`` on the mesh device ``[0, s]``
 (``key_shards``, ``value_shards``, ``state_shards``; on one shard also
-``keys``, ``values``, ``state``):
+``keys``, ``values``, ``state``). A data axis above 1 changes
+nothing: the table is one copy on data row 0, whose Get/Add equal the
+reference's table replicated over ``data`` (replicas and
+``shard_update``: ROADMAP queue A item 4):
 
 - ``keys`` int32 ``[B, S, 2]``: the ``[hi, lo]`` uint32 bit patterns of the
   64-bit keys (torch's uint32 supports few ops); an empty slot is
@@ -104,11 +107,17 @@ class KVTable:
                  device: core.DeviceLike = None,
                  mesh: Optional[core.Mesh] = None, name: str = "kv_table",
                  default_value: float = 0.0,
-                 default_option: Optional[AddOption] = None) -> None:
+                 default_option: Optional[AddOption] = None,
+                 shard_update: bool = False) -> None:
         if capacity <= 0:
             raise ValueError("capacity must be positive")
         self.name = name
         self.mesh = core.resolve_mesh(mesh, device)
+        if shard_update and self.mesh.shape[core.DATA_AXIS] > 1:
+            raise NotImplementedError(
+                f"KVTable {name!r}: shard_update over a data axis of "
+                f"{self.mesh.shape[core.DATA_AXIS]} is not ported (ROADMAP "
+                "queue A item 4)")
         self.devices = self.mesh.shard_devices
         self.device = self.devices[0]
         self.value_dim = value_dim

@@ -10,9 +10,11 @@ word2vec's embedding store):
 - ``add_rows(ids, deltas)`` under the ``default`` and ``sgd`` updaters is
   the masked sorted row scatter-add kernel, once per card over its
   shards' real lanes (``row_scatter_add_sharded``; duplicate ids
-  accumulate); stateful
+  accumulate), on every replica; stateful
   updaters gather the rows, apply the updater and write the rows back in
-  plain torch, shard by shard, as the reference leaves that path to XLA.
+  plain torch, shard by shard, as the reference leaves that path to XLA
+  (under ``shard_update`` the replica that holds a row's state applies
+  it and the updated row goes to every replica).
 - Row batches are stable-sorted on the host (scatters by row, gathers by
   shard) and sliced into per-shard lane rows of local ids
   (``hashing.shard_lane_slices``), each row padded to a power of two on
@@ -40,13 +42,15 @@ class MatrixTable(Table):
                  device: core.DeviceLike = None,
                  mesh: Optional[core.Mesh] = None,
                  name: str = "matrix_table",
-                 default_option: Optional[AddOption] = None) -> None:
+                 default_option: Optional[AddOption] = None,
+                 shard_update: bool = False) -> None:
         if num_rows <= 0 or num_cols <= 0:
             raise ValueError(f"MatrixTable dims must be positive, got "
                              f"{num_rows}x{num_cols}")
         super().__init__(name, (num_rows, num_cols), dtype, updater=updater,
                          device=device, mesh=mesh, init_value=init_value,
-                         default_option=default_option)
+                         default_option=default_option,
+                         shard_update=shard_update)
         # scratch row: the last shard's padding lanes point here, beyond
         # the logical rows
         self._scratch_row = self.padded_shape[0] - 1
@@ -140,10 +144,10 @@ class MatrixTable(Table):
                 deltas = (np.float32(-opt.learning_rate)
                           * deltas.astype(np.float32))
             local, valid, _, _, sl_d = self._pad_ids(ids, deltas, sort=True)
-            tk.row_scatter_add_sharded(
-                self.shards, *(lanes_on(x, self.devices)
-                               for x in (local, sl_d, valid)),
-                counts=valid.sum(1))
+            for shards, devs in zip(self.replicas, self.replica_devices):
+                tk.row_scatter_add_sharded(
+                    shards, *(lanes_on(x, devs) for x in (local, sl_d, valid)),
+                    counts=valid.sum(1))
         else:
             if len(np.unique(ids)) != len(ids):
                 raise ValueError(
@@ -156,27 +160,56 @@ class MatrixTable(Table):
             owner = ids // rps
             for s in np.unique(owner):
                 sel = owner == s
-                dev = self.devices[s]
-                self._apply_rows(
-                    s, torch.as_tensor(ids[sel] - s * rps, device=dev).long(),
-                    torch.as_tensor(deltas[sel].astype(self.np_dtype),
-                                    device=dev), opt)
+                self._apply_rows(s, ids[sel] - s * rps,
+                                 deltas[sel].astype(self.np_dtype), opt)
         handle = Handle(table=self, generation=self._bump_step())
         if sync:
             handle.wait()
         return handle
 
-    def _apply_rows(self, shard: int, ids: torch.Tensor,
-                    deltas: torch.Tensor, option: AddOption) -> None:
-        """Stateful row update of one shard (unique local ids): gather rows
-        and state rows, apply the updater, write them back."""
-        param, state = self.shards[shard], self.shard_states[shard]
-        rows = param.index_select(0, ids)
-        st_rows = {k: s.index_select(0, ids) for k, s in state.items()}
-        new_rows, new_st = self.updater.apply(rows, st_rows, deltas, option)
-        param.index_copy_(0, ids, new_rows.to(self.dtype))
+    def _apply_rows(self, shard: int, ids: np.ndarray, deltas: np.ndarray,
+                    option: AddOption) -> None:
+        """Stateful row update of one shard (unique local ids) on every
+        replica. Under shard_update the replica whose state block holds a
+        row applies the updater to it, and the updated row goes to every
+        replica."""
+        if not self.shard_update:
+            for d in range(self.n_replicas):
+                self._write_rows(d, shard, ids, self._update_rows(
+                    d, shard, ids, ids, deltas, option))
+            return
+        q = self._rows_per_shard // self.n_replicas
+        owner = ids // q
+        for d in np.unique(owner):
+            sel = owner == d
+            rows = self._update_rows(d, shard, ids[sel], ids[sel] - d * q,
+                                     deltas[sel], option)
+            for e in range(self.n_replicas):
+                self._write_rows(e, shard, ids[sel], rows)
+
+    def _update_rows(self, replica: int, shard: int, ids: np.ndarray,
+                     state_ids: np.ndarray, deltas: np.ndarray,
+                     option: AddOption) -> torch.Tensor:
+        """Gather rows ``ids`` of one replica's shard and rows
+        ``state_ids`` of its updater state, apply the updater, write the
+        state back; returns the updated rows."""
+        dev = self.replica_devices[replica][shard]
+        param = self.replicas[replica][shard]
+        state = self.replica_states[replica][shard]
+        st_ids = torch.as_tensor(state_ids, device=dev).long()
+        rows = param.index_select(0, torch.as_tensor(ids, device=dev).long())
+        st_rows = {k: s.index_select(0, st_ids) for k, s in state.items()}
+        new_rows, new_st = self.updater.apply(
+            rows, st_rows, torch.as_tensor(deltas, device=dev), option)
         for k, s in state.items():
-            s.index_copy_(0, ids, new_st[k])
+            s.index_copy_(0, st_ids, new_st[k])
+        return new_rows.to(self.dtype)
+
+    def _write_rows(self, replica: int, shard: int, ids: np.ndarray,
+                    rows: torch.Tensor) -> None:
+        dev = self.replica_devices[replica][shard]
+        self.replicas[replica][shard].index_copy_(
+            0, torch.as_tensor(ids, device=dev).long(), rows.to(dev))
 
     def _check_ids(self, ids: np.ndarray) -> None:
         if len(ids) == 0:

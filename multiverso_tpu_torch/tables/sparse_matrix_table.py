@@ -40,6 +40,10 @@ LANES = 128
 
 
 class SparseMatrixTable(MatrixTable):
+    #: one copy on data row 0 whatever the mesh: its Get/Add equal the
+    #: reference's replicated table (replicas: ROADMAP queue A item 3)
+    REPLICATED = False
+
     def __init__(self, num_rows: int, num_cols: int,
                  dtype: Any = "float32", *, init_value: Any = 0,
                  updater: Optional[str] = None,
@@ -63,8 +67,8 @@ class SparseMatrixTable(MatrixTable):
         if tiled:
             # each shard's rows re-tiled in place (split along rows)
             self.storage_shape = (self.padded_shape[0], self.tiles, LANES)
-            self.shards = [p.view(-1, self.tiles, LANES)
-                           for p in self.shards]
+            self.replicas[0] = [p.view(-1, self.tiles, LANES)
+                                for p in self.shards]
 
     # -- COO sparse Add ----------------------------------------------------
 

@@ -17,65 +17,349 @@ body runs eagerly on each table's live tensors: the reference's donation
 becomes an in-place update of each table's tensor (the scatter kernels
 write into it), and whatever tensors the body returns become the tables'
 storage. Bodies that gather, scatter or COO-add into table storage call
-the re-exported :func:`gather_rows` / :func:`row_scatter_add` /
-:func:`coo_scatter_add`, the port's CUDA kernels.
+:func:`gather_rows` / :func:`row_scatter_add` / :func:`coo_scatter_add`,
+the port's CUDA kernels.
 
-Tables split over the model axis of a (1, S) mesh take part too: the body
-gets each such table's storage as a
+Tables split over the model axis take part too: the body gets each such
+table's storage as a
 :class:`~multiverso_tpu_torch.ops.table_kernels.ShardedParam` (the
 shards, read like one global array), on which the three functional forms
-launch the gather once per shard with that shard's row window and the
-scatter-adds once per card over the shards it holds, the counterpart of
-the reference's ``kernel_mesh_scope`` around its dispatch. Tables
-replicated over a data axis above 1 are not ported yet.
+launch the gather and the scatter-adds once per card over the shards it
+holds, the counterpart of the reference's ``kernel_mesh_scope`` around
+its dispatch.
+
+On a mesh whose data axis D is above 1 (tables replicated over ``data``)
+the body runs once per replica, each on a host thread of its own bound
+to the replica's first device. The threads take turns on the host, from
+one exchange to the next (the GIL would let one queue work at a time
+anyway), and the replicas' queued work runs on their cards at once.
+Replica ``d`` gets its
+own copy of each table (a tensor, or a ShardedParam of data row ``d``'s
+shards), block ``d`` of every input the app split with
+:class:`DataSplit` (the reference's ``P(None, DATA_AXIS, ...)``), and
+every other input whole, on its device. On such a view:
+
+- :func:`gather_rows` reads the replica's own copy and exchanges nothing;
+- :func:`row_scatter_add` and :func:`coo_scatter_add` are the port's
+  counterpart of the psum XLA puts after the reference's scatter: each
+  replica posts its lanes, waits until every replica of that step has
+  posted, and scatters all of them, concatenated in replica order (the
+  global lane order), into its own copy through the same kernel. Every
+  replica applies the same lanes in the same order, so the replicas stay
+  bit-identical, and the lanes equal those a one-replica run on the whole
+  batch scatters;
+- :func:`replica_sum` sums a tensor over the replicas through the same
+  exchange, wherever the reference's global arrays imply a sum over the
+  whole batch (a loss).
+
+``aux`` is replica 0's. A replica that raises aborts the exchange, the
+call re-raises its exception and no table advances; a replica that waits
+longer than ``EXCHANGE_TIMEOUT`` seconds for its turn raises
+``TimeoutError``.
+The body's lanes on a view are taken to be the replica's share of the
+batch: a scatter of lanes every replica holds whole would be applied D
+times.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Optional, Sequence, Tuple
+import contextlib
+import threading
+import time
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
-from multiverso_tpu_torch.core import DATA_AXIS
-from multiverso_tpu_torch.ops.table_kernels import (ShardedParam,
-                                                    coo_scatter_add,
-                                                    gather_rows,
-                                                    row_scatter_add)
+import numpy as np
+import torch
+
+from multiverso_tpu_torch.core import DATA_AXIS, Mesh
+from multiverso_tpu_torch.ops import table_kernels as tk
+from multiverso_tpu_torch.ops.table_kernels import ShardedParam, gather_rows
 from multiverso_tpu_torch.tables.base import Handle, Table
 from multiverso_tpu_torch.updaters import AddOption
 
-__all__ = ["FusedSuperstep", "ShardedParam", "coo_scatter_add",
-           "gather_rows", "make_superstep", "row_scatter_add"]
+__all__ = ["DataSplit", "FusedSuperstep", "ShardedParam", "coo_scatter_add",
+           "gather_rows", "make_superstep", "replica_sum",
+           "row_scatter_add"]
+
+#: seconds a replica waits for its turn before the call fails
+EXCHANGE_TIMEOUT = 300.0
+
+
+class DataSplit:
+    """A superstep input split over the data axis: ``parts[d]`` is the
+    block replica ``d`` gets (the reference's ``P(None, DATA_AXIS,
+    ...)``)."""
+
+    def __init__(self, parts: Sequence[Any]) -> None:
+        self.parts = list(parts)
+
+    @classmethod
+    def of(cls, value, mesh: Mesh, axis: int = 0) -> "DataSplit":
+        """``value`` (numpy or tensor) cut along ``axis`` into the mesh's
+        D contiguous equal blocks, block ``d`` on replica ``d``'s first
+        device."""
+        n = mesh.shape[DATA_AXIS]
+        size = value.shape[axis]
+        if size % n:
+            raise ValueError(f"axis {axis} of size {size} does not split "
+                             f"over a data axis of {n}")
+        step, parts = size // n, []
+        for d in range(n):
+            index = [slice(None)] * value.ndim
+            index[axis] = slice(d * step, (d + 1) * step)
+            block, dev = value[tuple(index)], mesh.replica_devices(d)[0]
+            if isinstance(block, np.ndarray):
+                parts.append(torch.as_tensor(np.ascontiguousarray(block),
+                                             device=dev))
+            else:
+                parts.append(block.to(dev).contiguous())
+        return cls(parts)
+
+
+class _Aborted(Exception):
+    """Raised in a replica waiting at an exchange that another replica's
+    failure ended; the call re-raises that failure instead."""
+
+
+class _Exchange:
+    """The lane exchange among the D replica threads of one superstep
+    call. Round ``k`` of a replica is its ``k``-th exchange; a round
+    completes when every replica has posted to it.
+
+    The threads take turns: one runs at a time, from its start or an
+    exchange to its next exchange (or its end), then hands the turn to
+    the next replica in order, so a replica that gets the turn back at an
+    exchange finds the round complete. The GIL would let only one of
+    them queue work at a time anyway; taking turns keeps the others off
+    it (threads contending for the GIL at every torch call slowed a step
+    many times over on the card) and fixes the order in which the
+    replicas queue their work."""
+
+    def __init__(self, n: int, timeout: float) -> None:
+        self.n, self.timeout = n, timeout
+        self._lock = threading.Lock()
+        # one condition a replica: a hand-over wakes the next one only
+        self._conds = [threading.Condition(self._lock) for _ in range(n)]
+        self._turn = 0                # the replica that may run
+        self._posts: dict = {}        # round -> [(tensors, stream)] * n
+        self._reads: dict = {}        # round -> replicas that read it
+        self._rounds = [0] * n        # each replica's next round
+        self._done = [False] * n
+        self.error: Optional[BaseException] = None
+        self.bytes = 0                # bytes replicas read from others
+
+    def _hand_on(self, replica: int) -> None:
+        """Give the turn to the next replica after ``replica`` that has
+        not finished (holding the lock)."""
+        for step in range(1, self.n + 1):
+            nxt = (replica + step) % self.n
+            if not self._done[nxt]:
+                self._turn = nxt
+                self._conds[nxt].notify()
+                break
+
+    def _wake_all(self) -> None:
+        for cond in self._conds:
+            cond.notify_all()
+
+    def _fail(self, error: BaseException) -> None:
+        # holding the lock
+        if self.error is None:
+            self.error = error
+        self._wake_all()
+        raise _Aborted() from error
+
+    def _wait(self, replica: int, posts: Optional[list] = None,
+              k: int = 0) -> None:
+        """Block until it is ``replica``'s turn (and, given the posts of
+        round ``k``, until the round is complete), holding the lock."""
+        deadline = time.monotonic() + self.timeout
+        while True:
+            if self.error is not None:
+                raise _Aborted()
+            if self._turn == replica:
+                missing = [] if posts is None else \
+                    [r for r, p in enumerate(posts) if p is None]
+                if not missing:
+                    return
+                # every other replica had its turn since: they finished
+                self._fail(RuntimeError(
+                    f"superstep replica {missing[0]} returned after "
+                    f"{self._rounds[missing[0]]} exchanges while replica "
+                    f"{replica} waits at exchange {k + 1}: every replica "
+                    "must scatter and sum the same number of times"))
+            left = deadline - time.monotonic()
+            if left <= 0:
+                self._fail(TimeoutError(
+                    f"superstep replica {replica} waited {self.timeout} s "
+                    f"for its turn (replica {self._turn} holds it)"))
+            self._conds[replica].wait(left)
+
+    def start(self, replica: int) -> None:
+        with self._lock:
+            self._wait(replica)
+
+    def finish(self, replica: int) -> None:
+        with self._lock:
+            self._done[replica] = True
+            self._hand_on(replica)
+
+    def abort(self, replica: int, error: BaseException) -> None:
+        """End every wait: the first error is the call's."""
+        with self._lock:
+            if self.error is None and not isinstance(error, _Aborted):
+                self.error = error
+            self._done[replica] = True
+            self._wake_all()
+
+    def all_gather(self, replica: int, tensors: tuple) -> List[tuple]:
+        """Post ``tensors`` (this replica's, made on its current stream)
+        and return every replica's, in replica order, on ``tensors``'
+        device. The replicas take turns, so a reader whose stream on the
+        poster's card is another stream makes it wait for all the poster
+        has queued so far (a reader on the same stream needs nothing: the
+        poster queued its work first); a copy to another card then
+        follows that stream (``Tensor.to``)."""
+        dev, stream = tensors[0].device, None
+        if dev.type == "cuda":
+            stream = torch.cuda.current_stream(dev)
+        with self._lock:
+            k = self._rounds[replica]
+            self._rounds[replica] += 1
+            posts = self._posts.setdefault(k, [None] * self.n)
+            posts[replica] = (tensors, stream)
+            self._hand_on(replica)
+            self._wait(replica, posts, k)
+            self._reads[k] = self._reads.get(k, 0) + 1
+            if self._reads[k] == self.n:
+                del self._posts[k], self._reads[k]
+        out, foreign = [], 0
+        for r, (theirs, posted) in enumerate(posts):
+            if r == replica:
+                out.append(tensors)
+                continue
+            if posted is not None:
+                src = theirs[0].device
+                mine = stream if src == dev \
+                    else torch.cuda.current_stream(src)
+                if mine != posted:
+                    mine.wait_stream(posted)
+                    for t in theirs:
+                        # read on this stream too: keep its memory until
+                        # the reads are done
+                        t.record_stream(mine)
+            foreign += sum(t.numel() * t.element_size() for t in theirs)
+            out.append(tuple(t.to(dev) for t in theirs))
+        self.bytes += foreign
+        return out
+
+
+class _Replica:
+    """The replica a superstep thread runs: its exchange, its index and
+    the table views its body got."""
+
+    def __init__(self, exchange: _Exchange, index: int, views) -> None:
+        self.exchange, self.index, self.views = exchange, index, views
+
+
+_LOCAL = threading.local()
+
+
+def _replica(param=None) -> Optional[_Replica]:
+    """The running replica, when this thread runs one (and, given
+    ``param``, when ``param`` is one of its table views)."""
+    rep = getattr(_LOCAL, "replica", None)
+    if rep is None or param is None:
+        return rep
+    return rep if any(param is v for v in rep.views) else None
+
+
+def _gathered(rep: _Replica, tensors: tuple) -> List[torch.Tensor]:
+    """Every replica's ``tensors`` concatenated in replica order."""
+    posts = rep.exchange.all_gather(
+        rep.index, tuple(t.contiguous() for t in tensors))
+    return [torch.cat(parts) for parts in zip(*posts)]
+
+
+def row_scatter_add(param, ids: torch.Tensor, deltas: torch.Tensor):
+    """:func:`~multiverso_tpu_torch.ops.table_kernels.row_scatter_add`;
+    on a replica's table view, over every replica's lanes (module doc)."""
+    rep = _replica(param)
+    if rep is not None:
+        ids, deltas = _gathered(rep, (ids, deltas.reshape(ids.shape[0], -1)))
+    return tk.row_scatter_add(param, ids, deltas)
+
+
+def coo_scatter_add(param, rows: torch.Tensor, cols: torch.Tensor,
+                    vals: torch.Tensor):
+    """:func:`~multiverso_tpu_torch.ops.table_kernels.coo_scatter_add`;
+    on a replica's table view, over every replica's lanes (module doc)."""
+    rep = _replica(param)
+    if rep is not None:
+        rows, cols, vals = _gathered(rep, (rows, cols, vals))
+    return tk.coo_scatter_add(param, rows, cols, vals)
+
+
+def replica_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the replicas of a superstep over a data axis, in
+    replica order (the same bits on every replica); ``x`` itself
+    elsewhere."""
+    rep = _replica()
+    if rep is None:
+        return x
+    parts = rep.exchange.all_gather(rep.index, (x.contiguous(),))
+    total = parts[0][0]
+    for (part,) in parts[1:]:
+        total = total + part
+    return total
+
+
+def _on(device: torch.device):
+    return torch.cuda.device(device) if device.type == "cuda" \
+        else contextlib.nullcontext()
+
+
+def _input_for(value, replica: int, device: torch.device):
+    """What replica ``replica`` gets of a superstep input."""
+    if isinstance(value, DataSplit):
+        return value.parts[replica]
+    if isinstance(value, torch.Tensor):
+        return value.to(device)
+    return value
 
 
 class FusedSuperstep:
-    """A fused update bound to one or more tables that share one mesh
-    with a data axis of 1: one shard each on one device, or split the
-    same way over the model axis (a data axis above 1 raises
-    ``NotImplementedError``)."""
+    """A fused update bound to one or more tables that share one mesh:
+    one shard each on one device, or split the same way over the model
+    axis, and on a data axis above 1 replicated over it (module doc)."""
 
     def __init__(self, tables: Sequence[Table],
                  body: Callable[..., Tuple[Any, Any, Any, Any]], *,
                  name: str = "superstep") -> None:
         if not tables:
             raise ValueError("FusedSuperstep needs at least one table")
-        for t in tables:
-            if t.mesh.shape[DATA_AXIS] > 1:
-                raise NotImplementedError(
-                    f"superstep {name!r}: table {t.name!r} lives on a mesh "
-                    f"with a data axis of {t.mesh.shape[DATA_AXIS]}; tables "
-                    "replicated over the data axis are not ported yet "
-                    "(ROADMAP queue A item 1)")
         self.tables = tuple(tables)
         self.name = name
         self._body = body
         self._last_generation: Optional[int] = None
-        devs0 = self.tables[0].devices
+        #: bytes the replicas read from one another in the last call
+        self.exchange_bytes = 0
+        self.data = self.tables[0].mesh.shape[DATA_AXIS]
+        for t in self.tables:
+            if self.data > 1 and not getattr(t, "REPLICATED", False):
+                raise NotImplementedError(
+                    f"superstep {name!r}: {type(t).__name__} {t.name!r} "
+                    f"holds no replicas over the data axis of {self.data}"
+                    "; a superstep over it is not ported (ROADMAP queue A "
+                    "item 3)")
+        devs0 = self.tables[0].replica_devices
         for t in self.tables[1:]:
-            if t.devices != devs0:
+            if t.replica_devices != devs0:
                 raise ValueError(
                     f"superstep {name!r}: tables {self.tables[0].name!r} "
                     f"and {t.name!r} live on different devices "
-                    f"({[str(d) for d in devs0]} and "
-                    f"{[str(d) for d in t.devices]})")
+                    f"({[[str(d) for d in r] for r in devs0]} and "
+                    f"{[[str(d) for d in r] for r in t.replica_devices]})")
 
     def __call__(self, locals_: Any = (), *inputs: Any,
                  options: Optional[Sequence[Optional[AddOption]]] = None
@@ -88,16 +372,63 @@ class FusedSuperstep:
             options = (None,) * len(self.tables)
         opts = tuple(t._resolve_option(o)
                      for t, o in zip(self.tables, options))
-        views = [t.superstep_view() for t in self.tables]
-        new_params, new_states, new_locals, aux = self._body(
-            tuple(v[0] for v in views), tuple(v[1] for v in views),
-            locals_, opts, *inputs)
-        for t, p, s in zip(self.tables, new_params, new_states):
-            t.superstep_update(p, s)
+        if self.data > 1:
+            outs = self._run_replicas(locals_, opts, inputs)
+        else:
+            views = [t.superstep_view() for t in self.tables]
+            outs = [self._body(
+                tuple(v[0] for v in views), tuple(v[1] for v in views),
+                locals_, opts, *(x.parts[0] if isinstance(x, DataSplit)
+                                 else x for x in inputs))]
+        for d, (new_params, new_states, _, _) in enumerate(outs):
+            for t, p, s in zip(self.tables, new_params, new_states):
+                t.superstep_update(p, s, replica=d)
+        for t in self.tables:
             gen = t._bump_step()
             if t is self.tables[0]:
                 self._last_generation = gen
-        return new_locals, aux
+        return outs[0][2], outs[0][3]
+
+    def _run_replicas(self, locals_, opts, inputs) -> list:
+        """The body once per replica, each on a thread of its own;
+        returns each replica's ``(params, states, locals, aux)``."""
+        if locals_ is not None and len(locals_):
+            raise NotImplementedError(
+                f"superstep {self.name!r}: app-local carries over a data "
+                f"axis of {self.data} are not ported (ROADMAP queue A item "
+                "3)")
+        exchange = _Exchange(self.data, EXCHANGE_TIMEOUT)
+        outs: list = [None] * self.data
+
+        def run(d: int) -> None:
+            dev = self.tables[0].replica_devices[d][0]
+            try:
+                views = [t.superstep_view(d) for t in self.tables]
+                params = tuple(v[0] for v in views)
+                _LOCAL.replica = _Replica(exchange, d, params)
+                exchange.start(d)
+                with _on(dev):
+                    outs[d] = self._body(
+                        params, tuple(v[1] for v in views), locals_, opts,
+                        *(_input_for(x, d, dev) for x in inputs))
+            except BaseException as e:      # re-raised by the caller
+                exchange.abort(d, e)
+            else:
+                exchange.finish(d)
+            finally:
+                _LOCAL.replica = None
+
+        threads = [threading.Thread(target=run, args=(d,), daemon=True,
+                                    name=f"{self.name}-replica{d}")
+                   for d in range(self.data)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        if exchange.error is not None:
+            raise exchange.error
+        self.exchange_bytes = exchange.bytes
+        return outs
 
     def handle(self) -> Handle:
         """An add-handle for this superstep's latest run on the first

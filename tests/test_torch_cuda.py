@@ -1746,3 +1746,61 @@ def test_coo_sharded_is_one_launch_per_card(cuda, S, dtype):
     assert tk.LAUNCHES["coo_scatter_add_masked"] == \
         before["coo_scatter_add_masked"] + 1
     assert tk.LAUNCHES["coo_scatter_add"] == before["coo_scatter_add"]
+
+
+# -- tables replicated over the data axis ---------------------------------------
+
+
+def test_data_axis_word2vec_on_the_card_matches_one_replica(cuda, tmp_path):
+    """Skip-gram NS and CBOW HS at a small width on (4, 1) and (2, 2)
+    meshes, replica d on cuda:{d % cards}: the replicas end bit-identical,
+    and each replica launches one gather and one scatter-add a table and
+    step on its card (the flat kernels on S = 1, the mesh forms on S = 2).
+    Against the (1, S) run on the whole batch, skip-gram NS ends bit for
+    bit; CBOW HS within rtol 1e-5 / atol 1e-6 (the word2vec tolerance of
+    the CPU tests): cuBLAS picks a ``bmm`` kernel by the batch's size, and
+    its CBOW context mean and HS path products over 64 or 128 lanes round
+    a lane an ulp apart from the same products over 256 (seen on an
+    H100; at skip-gram NS's shapes they agree bit for bit)."""
+    from multiverso_tpu_torch import core
+    from multiverso_tpu_torch.apps.word_embedding import (W2VConfig,
+                                                          WordEmbedding)
+    from multiverso_tpu_torch.data import Corpus, synthetic_text
+    path = str(tmp_path / "c.txt")
+    synthetic_text(path, num_tokens=40_000, vocab_size=500, seed=3)
+    n = torch.cuda.device_count()
+    steps = 8
+    for model, objective in (("skipgram", "ns"), ("cbow", "hs")):
+        for dp, mp in ((4, 1), (2, 2)):
+            out = []
+            for rows in ([["cuda:0"] * mp],
+                         [[f"cuda:{d % n}"] * mp for d in range(dp)]):
+                corpus = Corpus.from_file(path, min_count=1)
+                app = WordEmbedding(corpus, W2VConfig(
+                    embedding_dim=100, model=model, objective=objective,
+                    batch_size=256, steps_per_call=4, seed=3),
+                    mesh=core.Mesh(rows))
+                tk.reset_launches()
+                app.train(total_steps=steps)
+                for key in ("w_in", "w_out"):
+                    table = getattr(app, key)
+                    for shards in table.replicas[1:]:
+                        assert [_same_bits(a, b) for a, b in zip(
+                            shards, table.replicas[0])] == [True] * mp, key
+                out.append((app.w_in.get(), app.w_out.get(),
+                            dict(tk.LAUNCHES)))
+            for key, a, b in zip(("w_in", "w_out"), out[0][:2], out[1][:2]):
+                if model == "skipgram":
+                    assert a.tobytes() == b.tobytes(), \
+                        (model, dp, mp, key, np.abs(a - b).max())
+                else:
+                    np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-6)
+            grown = out[1][2]
+            gather, scatter = ("row_gather", "row_scatter_add") if mp == 1 \
+                else ("gather_rows_mesh", "row_scatter_add_mesh")
+            tables = 2
+            assert grown[gather] == grown[scatter] == tables * dp * steps
+            flat_or_mesh = {"row_gather", "row_scatter_add",
+                            "gather_rows_mesh", "row_scatter_add_mesh"}
+            assert all(grown[k] == 0 for k in flat_or_mesh
+                       - {gather, scatter})

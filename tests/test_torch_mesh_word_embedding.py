@@ -35,6 +35,7 @@ from multiverso_tpu_torch.apps import word_embedding as tw2v
 from multiverso_tpu_torch.data import Corpus, synthetic_text
 from multiverso_tpu_torch.ops import table_kernels as tk
 from multiverso_tpu_torch.tables import base as tbase
+from multiverso_tpu_torch.utils import configure
 
 RTOL, ATOL = 1e-5, 1e-6
 B, S, CALLS = 64, 4, 2
@@ -56,6 +57,7 @@ def _xla(monkeypatch):
     tcore.shutdown()
     jbase.reset_tables()
     tbase.reset_tables()
+    configure.reset_flags()     # the CLI tests set -data_parallel
 
 
 @pytest.fixture(scope="module")
@@ -212,10 +214,20 @@ def test_mesh_body_runs_the_mesh_forms(text, monkeypatch):
 
 
 def test_mesh_with_a_data_axis_is_refused(text):
+    """A (2, 2) mesh trains (tests/test_torch_data_axis.py holds it
+    against the reference); what a data axis refuses is a batch it does
+    not divide, with the reference's ValueError."""
     corpus = Corpus.from_file(text, min_count=1)
-    with pytest.raises(NotImplementedError, match="queue A item 1"):
-        tw2v.WordEmbedding(corpus, tw2v.W2VConfig(**_cfg()),
-                           mesh=tcore._build_mesh(["cpu"] * 4, 2, 2))
+    app = tw2v.WordEmbedding(corpus, tw2v.W2VConfig(**_cfg()),
+                             mesh=tcore._build_mesh(["cpu"] * 4, 2, 2))
+    assert app.w_in.n_replicas == 2 and len(app.w_in.shards) == 2
+    app.train(total_steps=S)
+    assert app.w_in.generation == 1 and np.isfinite(app.loss_history).all()
+    odd = tw2v.WordEmbedding(corpus, tw2v.W2VConfig(**{**_cfg(), "batch_size": 63}),
+                             mesh=tcore._build_mesh(["cpu"] * 4, 2, 2),
+                             name="odd")
+    with pytest.raises(ValueError, match="not divisible by data-axis size"):
+        odd.train(total_steps=S)
 
 
 # -- the command line ---------------------------------------------------------
@@ -258,6 +270,9 @@ def test_cli_help_and_refusals(text, capsys):
         tw2v.main(["-device=cpu"])
     with pytest.raises(SystemExit, match="unknown arguments"):
         tw2v.main([f"-train_file={text}", "-device=cpu", "-run_dir=/x"])
-    with pytest.raises(NotImplementedError, match="queue A item 1"):
+    assert "replica of the tables" in usage
+    assert "not ported (tables on the data axis)" not in usage
+    with pytest.raises(ValueError, match="not divisible by data-axis size"):
         tw2v.main([f"-train_file={text}", "-device=cpu", "-min_count=1",
-                   "-data_parallel=2", "-model_parallel=2"])
+                   "-batch_size=63", "-data_parallel=2",
+                   "-model_parallel=2"])
