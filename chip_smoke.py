@@ -11,7 +11,10 @@ Phases (any failure ends the run with a non-zero exit code; each prints
 its seconds):
 
 1. Device: the card's name and power limit; build the CUDA kernels from
-   the sources in this checkout (``multiverso_tpu_torch/ops/csrc``).
+   the sources in this checkout (``multiverso_tpu_torch/ops/csrc``), and
+   the native data library with g++
+   (``multiverso_tpu_torch/data/csrc/mvtpu_data.cpp``): its seconds and
+   path.
 2. Kernels vs plain: each kernel against its plain PyTorch version on the
    card, with its time, the plain version's, one PyTorch library call's
    and the least time the card could take (bound). The row kernels at the
@@ -41,8 +44,17 @@ its seconds):
 4. word2vec at the bench's width (synthetic Zipf corpus of 1M tokens and
    vocab 10k, dim 100, window 5, 5 negatives, subsample 1e-3, batch 4096,
    512 steps per call): one warm-up call and two timed calls of skip-gram
-   negative sampling. The loss must fall and stay finite, and both
-   kernels' launch counts must rise by the expected count per step.
+   negative sampling, on pairs generated before the calls. The loss must
+   fall and stay finite, and both kernels' launch counts must rise by the
+   expected count per step. Before it, host pair generation over one
+   epoch of the corpus through ``Corpus.skipgram_batches``, in words/s:
+   the native backend on 1 and on 4 threads, and the Python backend.
+4c. word2vec of phase 4 through its own pair stream
+   (``WordEmbedding.train(total_steps=...)`` with no ``batches=``, the
+   path the CLI takes), once on the native data backend and once on the
+   Python one: one warm-up and two timed calls each, words/s beside
+   phase 4's pre-generated rate; the loss must fall and each row kernel
+   launch exactly twice a step.
 5. SparseMatrixTable on the card against numpy: add_sparse (int32
    ``default``, float32 ``sgd``), get_rows, get_rows_sparse, flat and
    tiled.
@@ -105,6 +117,15 @@ its seconds):
    share over a 64-step call (torch.profiler, after every timed phase of
    this mesh), the bytes the lane exchange moves a step, and where each
    replica lives.
+15. Dense logistic regression at MNIST's shape (``BASELINE.json``'s
+   first workload; 60,000 x 784 Gaussian blobs, 10 classes, since MNIST
+   cannot be downloaded): minibatch 256, 8 steps a call, sgd, lr 0.1.
+   The same 2 steps on the card, on the CPU and on a (4, 1) mesh (every
+   replica on cuda:0) from the same weights: within the CPU tests'
+   tolerance (rtol 1e-5, atol 1e-6), the replicas bit-identical. Then
+   one warm-up and two timed epochs on one replica and on the (4, 1)
+   mesh: samples/s, each epoch's loss (it must fall), the train
+   accuracy, the replicas bit-identical. It runs before phase 14.
 14. The row scatter's kernel on phase 2's sorted lanes, and phase 2's KV
    probe + commit calls (the flat form at the sparse-LR step's shapes,
    the sharded form on four shards), taken apart by torch.profiler: each
@@ -138,8 +159,8 @@ the whole table. Then a small CBOW HS run on the (1, 4) card mesh
 against the same run on a (1, 4) CPU mesh.
 
 Launch counts are set to 0 before each main path (phases 3-4 word2vec,
-5, 6, 7, 8, 10, 11, 12, 13's word2vec and its COO superstep, 13b's two
-meshes) and read after it. Before the last line the script prints
+4c on each backend, 5, 6, 7, 8, 10, 11, 12, 13's word2vec and its COO
+superstep, 13b's two meshes, 15) and read after it. Before the last line the script prints
 one ``{"kernels": [...]}`` JSON line and the card's name and power limit;
 the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -147,6 +168,8 @@ the last line is
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import functools
 import json
 import os
@@ -199,6 +222,16 @@ KV_REAL = 159_000
 KV_UPDATERS = ("default", "sgd", "adagrad", "momentum", "adam", "ftrl")
 # the sharded phases' model shards (spread over the machine's cards)
 SHARDS = 4
+# dense logistic regression at MNIST's shape (BASELINE.json's first
+# workload, "Apps/LogisticRegression on MNIST"): 60,000 samples of 784
+# features, 10 classes; MNIST cannot be downloaded, so Gaussian blobs of
+# that shape (synthetic_blobs, seed 0) stand in for it
+DENSE_N, DENSE_DIM, DENSE_CLASSES = 60_000, 784, 10
+DENSE_BATCH, DENSE_SPC, DENSE_LR = 256, 8, 0.1
+DENSE_TIMED_EPOCHS = 2
+# the CPU tests' float32 tolerance for dense logistic regression
+# (tests/test_torch_logreg.py)
+DENSE_RTOL, DENSE_ATOL = 1e-5, 1e-6
 # float32 operations per value element of each updater's apply
 KV_UPDATER_OPS = {"default": 1, "sgd": 2, "adagrad": 6, "momentum": 4,
                   "adam": 13, "ftrl": 17}
@@ -542,12 +575,10 @@ def phase_w2v(torch, tk, Corpus, synthetic_text, W2VConfig, WordEmbedding,
                     batch_size=BATCH, steps_per_call=STEPS,
                     learning_rate=LR, subsample=SUBSAMPLE, seed=1)
     app = WordEmbedding(corpus, cfg, device="cuda", name="smoke_w2v")
-    # pairs per token (words/s = pairs/s / pairs per token, as bench.py)
-    t0 = time.perf_counter()
-    gen_pairs = sum(len(s) for s, _ in corpus.skipgram_batches(
-        BATCH, window=WINDOW, seed=7, epochs=1))
-    gen_s = time.perf_counter() - t0
-    pairs_per_token = gen_pairs / corpus.num_tokens
+    gen = gen_rates(corpus)
+    # pairs per token (words/s = pairs/s / pairs per token, as bench.py),
+    # of the default stream: the native backend on one thread
+    pairs_per_token = gen["native_1"]["pairs"] / corpus.num_tokens
     need = (1 + TIMED_CALLS + int(profile)) * STEPS
     batches = []
     for b in corpus.skipgram_batches(BATCH, window=WINDOW, seed=1,
@@ -558,8 +589,11 @@ def phase_w2v(torch, tk, Corpus, synthetic_text, W2VConfig, WordEmbedding,
     if len(batches) < need:
         raise SystemExit(f"corpus gave {len(batches)} batches, need {need}")
     log(f"  corpus: vocab {corpus.vocab_size}, {corpus.num_tokens} tokens, "
-        f"{pairs_per_token:.3f} pairs/token, host pair generation "
-        f"{corpus.num_tokens / gen_s:.0f} words/s")
+        f"{pairs_per_token:.3f} pairs/token; host pair generation (one "
+        f"epoch through Corpus.skipgram_batches): native 1 thread "
+        f"{gen['native_1']['words_per_sec']:.0f} words/s, native 4 threads "
+        f"{gen['native_4']['words_per_sec']:.0f}, Python backend "
+        f"{gen['python']['words_per_sec']:.0f}")
 
     start_loss = (1 + NEGATIVE) * float(np.log(2.0))  # w_out = 0 at start
     before = dict(tk.LAUNCHES)
@@ -583,6 +617,7 @@ def phase_w2v(torch, tk, Corpus, synthetic_text, W2VConfig, WordEmbedding,
     words_per_sec = pairs / dt / pairs_per_token
     out = dict(words_per_sec=words_per_sec, seconds=dt,
                pairs_per_token=pairs_per_token, steps=steps,
+               pair_generation=gen,
                loss_start=start_loss, loss_warm=warm, losses=losses,
                launches_per_step={k: grown[k] / steps for k in grown})
     # what phase 13 repeats on the mesh and must equal bit for bit
@@ -597,6 +632,92 @@ def phase_w2v(torch, tk, Corpus, synthetic_text, W2VConfig, WordEmbedding,
             lambda: app.train(total_steps=STEPS, batches=rest),
             dt / TIMED_CALLS * 1e3)
     return out, run
+
+
+@contextlib.contextmanager
+def python_backend():
+    """The port's Python data backend in place of the native one: the
+    ``Corpus`` iterators ask ``data.corpus.backend()`` for theirs."""
+    from multiverso_tpu_torch.data import PyData
+    from multiverso_tpu_torch.data import corpus as data_corpus
+    native = data_corpus.backend
+    data_corpus.backend = PyData
+    try:
+        yield
+    finally:
+        data_corpus.backend = native
+
+
+def gen_rates(corpus) -> dict:
+    """Host skip-gram pair generation over one epoch of ``corpus`` through
+    ``Corpus.skipgram_batches`` (its prefetch thread, batches of BATCH):
+    the native backend on 1 and 4 threads, and the Python backend."""
+    out = {}
+    for key, threads, backend in (("native_1", 1, contextlib.nullcontext),
+                                  ("native_4", 4, contextlib.nullcontext),
+                                  ("python", 1, python_backend)):
+        with backend():
+            t0 = time.perf_counter()
+            pairs = sum(len(s) for s, _ in corpus.skipgram_batches(
+                BATCH, window=WINDOW, seed=7, epochs=1, gen_threads=threads))
+            dt = time.perf_counter() - t0
+        out[key] = dict(words_per_sec=corpus.num_tokens / dt, pairs=pairs,
+                        seconds=dt)
+    return out
+
+
+def phase_w2v_own_iterator(torch, counts, reset, WordEmbedding, w2v,
+                           w2v_run) -> tuple:
+    """Phase 4c: phase 4's word2vec through the app's own pair stream
+    (``WordEmbedding.train(total_steps=...)`` with no ``batches=``, the
+    path the CLI takes), once on the native backend and once on the
+    Python one: one warm-up call and TIMED_CALLS timed calls each. The
+    loss must fall and each row kernel launch twice a step. Returns
+    ({backend: numbers}, {path: launch counts})."""
+    corpus, ppt = w2v_run["corpus"], w2v_run["pairs_per_token"]
+    # an epoch gives about 668 batches: two cover the timed calls
+    cfg = dataclasses.replace(w2v_run["cfg"], epochs=2)
+    steps = (1 + TIMED_CALLS) * STEPS
+    out, paths = {}, {}
+    for key, backend in (("native", contextlib.nullcontext),
+                         ("python", python_backend)):
+        app = WordEmbedding(corpus, cfg, device="cuda",
+                            name=f"smoke_w2v_{key}")
+        reset()
+        with backend():
+            t0 = time.perf_counter()
+            warm = app.train(total_steps=STEPS)
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            app.train(total_steps=TIMED_CALLS * STEPS)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        grown = counts()
+        paths[f"word2vec_own_iterator_{key}"] = grown
+        losses = app.loss_history
+        if not (np.isfinite(losses).all() and np.isfinite(warm)
+                and losses[-1] < warm < w2v["loss_start"]):
+            raise SystemExit(f"w2v through its own iterator ({key}): loss "
+                             f"did not fall: warm-up {warm}, then {losses}")
+        for name in ("row_gather", "row_scatter_add"):
+            if grown[name] != 2 * steps:
+                raise SystemExit(f"w2v through its own iterator ({key}): "
+                                 f"{name} {grown[name]} launches over "
+                                 f"{steps} steps, expected {2 * steps}")
+        words_per_sec = TIMED_CALLS * STEPS * BATCH / dt / ppt
+        out[key] = dict(words_per_sec=words_per_sec, seconds=dt,
+                        warm_seconds=warm_s, loss_warm=warm, losses=losses,
+                        words_per_sec_pregenerated=w2v["words_per_sec"])
+        log(f"  {key} backend: warm-up call {warm_s:.3f} s, loss "
+            f"{warm:.5f}; timed calls {dt:.3f} s, losses {losses}; "
+            f"{words_per_sec:.0f} words/s against phase 4's pre-generated "
+            f"{w2v['words_per_sec']:.0f} "
+            f"({words_per_sec / w2v['words_per_sec']:.3f}x); 2 row_gather + "
+            f"2 row_scatter_add a step")
+        del app
+        free_tables(torch)
+    return out, paths
 
 
 def step_runs(torch, app, batch) -> dict:
@@ -2712,6 +2833,115 @@ def phase_w2v_data_axis(torch, core, counts, reset, W2VConfig,
     return out, paths
 
 
+def dense_weights(app) -> np.ndarray:
+    return np.concatenate([a.ravel() for a in app.weights()])
+
+
+def phase_dense_logreg(torch, core, LogisticRegression, LogRegConfig,
+                       synthetic_blobs, replica_rows) -> dict:
+    """Phase 15: dense logistic regression at MNIST's shape (60,000 x 784,
+    10 classes; Gaussian blobs), minibatch 256, 8 steps a call, sgd, lr
+    0.1. First the same 2 steps (one 2-step call from the same initial
+    weights) on the card, on the CPU and on a (4, 1) mesh: the card
+    within the CPU tests' tolerance of the CPU, the (4, 1) replicas
+    bit-identical and within it of the one-replica run. Then one warm-up
+    and DENSE_TIMED_EPOCHS timed epochs on one replica and on the (4, 1)
+    mesh: samples/s, each epoch's loss (it must fall), the train
+    accuracy; the (4, 1) replicas bit-identical."""
+    t0 = time.perf_counter()
+    X, y = synthetic_blobs(DENSE_N, DENSE_DIM, DENSE_CLASSES)
+    log(f"  data: {DENSE_N} x {DENSE_DIM} Gaussian blobs, {DENSE_CLASSES} "
+        f"classes, made in {time.perf_counter() - t0:.2f} s")
+    cfg = LogRegConfig(DENSE_DIM, DENSE_CLASSES, minibatch_size=DENSE_BATCH,
+                       steps_per_call=DENSE_SPC, updater="sgd",
+                       learning_rate=DENSE_LR)
+    meshes = {"(1, 1)": core.Mesh([["cuda:0"]]),
+              "(4, 1)": core.Mesh(replica_rows)}
+
+    def close(a, b) -> float:
+        if not np.allclose(a, b, rtol=DENSE_RTOL, atol=DENSE_ATOL):
+            raise SystemExit(f"dense logreg: weights differ by "
+                             f"{np.abs(a - b).max()} (rtol {DENSE_RTOL}, "
+                             f"atol {DENSE_ATOL})")
+        return float(np.abs(a - b).max())
+
+    def identical(app) -> bool:
+        ref = [t.cpu().numpy().tobytes() for t in app.table.replicas[0]]
+        return all([t.cpu().numpy().tobytes() for t in r] == ref
+                   for r in app.table.replicas[1:])
+
+    two = dataclasses.replace(cfg, steps_per_call=2)
+    small = {key: LogisticRegression(two, mesh=mesh, name=f"two_{key}")
+             for key, mesh in meshes.items()}
+    small["cpu"] = LogisticRegression(two, device="cpu", name="two_cpu")
+    for app in small.values():
+        app.train_epoch(X[:2 * DENSE_BATCH], y[:2 * DENSE_BATCH],
+                        shuffle_seed=0)
+    w = {key: dense_weights(app) for key, app in small.items()}
+    err_cpu = close(w["(1, 1)"], w["cpu"])
+    err_dp = close(w["(4, 1)"], w["(1, 1)"])
+    if not identical(small["(4, 1)"]):
+        raise SystemExit("dense logreg: the (4, 1) replicas differ after 2 "
+                         "steps")
+    log(f"  2 steps: the card vs the CPU max |err| {err_cpu:.3g}, (4, 1) vs "
+        f"(1, 1) {err_dp:.3g} (rtol {DENSE_RTOL}, atol {DENSE_ATOL}); "
+        f"(4, 1) replicas bit-identical")
+    del small
+    free_tables(torch)
+    out = dict(two_steps_max_abs_err_cpu=err_cpu,
+               two_steps_max_abs_err_data_axis=err_dp)
+    final = {}
+    for key, mesh in meshes.items():
+        app = LogisticRegression(cfg, mesh=mesh, name=f"dense_{key}")
+        losses, seconds = [], []
+        for e in range(1 + DENSE_TIMED_EPOCHS):
+            t0 = time.perf_counter()
+            losses.append(app.train_epoch(X, y, shuffle_seed=cfg.seed + e))
+            app.table.wait()
+            seconds.append(time.perf_counter() - t0)
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise SystemExit(f"dense logreg {key}: loss did not fall: "
+                             f"{losses}")
+        if key == "(4, 1)" and not identical(app):
+            raise SystemExit("dense logreg (4, 1): the replicas differ")
+        acc = app.accuracy(X, y)
+        rates = [DENSE_N / s for s in seconds[1:]]
+        final[key] = dense_weights(app)
+        out[key] = dict(samples_per_sec=rates, losses=losses,
+                        seconds=seconds, train_accuracy=acc,
+                        steps_per_epoch=-(-DENSE_N // DENSE_BATCH),
+                        table_steps=app.table.default_option.step)
+        log(f"  {key}: warm-up epoch {seconds[0]:.3f} s; timed epochs "
+            f"{[round(r) for r in rates]} samples/s; loss per epoch "
+            f"{losses}; train accuracy {acc:.4f}")
+        # one 8-step call under the profiler, after the timed epochs
+        group = slice(0, DENSE_SPC * DENSE_BATCH)
+        xs = X[group].reshape(DENSE_SPC, DENSE_BATCH, DENSE_DIM)
+        ys = y[group].reshape(DENSE_SPC, DENSE_BATCH)
+
+        def run():
+            app._fused((), *app._place(xs, ys))
+            app.table.wait()
+
+        run()
+        t0 = time.perf_counter()
+        run()
+        call_ms = (time.perf_counter() - t0) * 1e3
+        trace = f"dense_dp{app.n_replicas}_trace.json"
+        prof = profile_call(torch, trace, run, call_ms)
+        os.remove(os.path.join(HERE, "chiprun_out", trace))
+        out[key]["profile"] = prof
+        out[key]["device_busy_share"] = prof["device_busy_ms"] / call_ms
+        del app
+        free_tables(torch)
+    out["full_run_max_abs_diff_data_axis"] = float(
+        np.abs(final["(4, 1)"] - final["(1, 1)"]).max())
+    log(f"  (4, 1) replicas bit-identical; its weights after "
+        f"{1 + DENSE_TIMED_EPOCHS} epochs differ from the (1, 1) run's by "
+        f"{out['full_run_max_abs_diff_data_axis']:.3g} at most")
+    return out
+
+
 def device_events(prof, trace_name: str) -> list:
     """The device events (kernels, copies, memsets) of a finished
     torch.profiler session, through its chrome trace, which is kept under
@@ -2778,11 +3008,15 @@ def main(argv) -> int:
         return 2
     from multiverso_tpu_torch.apps.lightlda import (LDAConfig, LightLDA,
                                                     load_docs)
+    from multiverso_tpu_torch.apps.logreg import (LogisticRegression,
+                                                  LogRegConfig,
+                                                  synthetic_blobs)
     from multiverso_tpu_torch.apps.word_embedding import (W2VConfig,
                                                           WordEmbedding)
     from multiverso_tpu_torch.data import (Corpus, synthetic_docs,
                                            synthetic_text)
     from multiverso_tpu_torch import core
+    from multiverso_tpu_torch.data import _native_build, load_native
     from multiverso_tpu_torch.ops import _build
     from multiverso_tpu_torch.ops import lda_sampler as ls
     from multiverso_tpu_torch.ops import table_kernels as tk
@@ -2828,6 +3062,11 @@ def main(argv) -> int:
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line:
             log(f"    {line.strip()}")
+    t0 = time.perf_counter()
+    native = load_native()
+    log(f"  native data library built and loaded in "
+        f"{time.perf_counter() - t0:.2f} s (g++ "
+        f"{_native_build.build_seconds:.2f} s): {native.path}")
     phase_end("device")
 
     rng = np.random.default_rng(0)
@@ -2866,6 +3105,14 @@ def main(argv) -> int:
                                  W2VConfig, WordEmbedding, tmp, profile)
         paths["word2vec"] = counts()
         phase_end("w2v")
+
+        phase("w2v_own", "phase 4c: word2vec through its own pair stream "
+              "(WordEmbedding.train without batches=), native and Python "
+              "backends")
+        w2v_own, own_paths = phase_w2v_own_iterator(
+            torch, counts, reset, WordEmbedding, w2v, w2v_run)
+        paths.update(own_paths)
+        phase_end("w2v_own")
 
     reset()
     phase("sparse", "phase 5: SparseMatrixTable on the card vs numpy")
@@ -2948,6 +3195,14 @@ def main(argv) -> int:
     del w2v_run
     phase_end("w2v_data")
 
+    reset()
+    phase("dense_lr", "phase 15: dense logistic regression at MNIST's shape "
+          "on one replica and on a (4, 1) mesh")
+    dense = phase_dense_logreg(torch, core, LogisticRegression, LogRegConfig,
+                               synthetic_blobs, [["cuda:0"]] * 4)
+    paths["logreg_dense"] = counts()
+    phase_end("dense_lr")
+
     phase("scatter_parts", "phase 14: the row scatter's and the KV probe "
           "+ commit's kernels apart (torch.profiler, after every timed "
           "phase)")
@@ -2983,6 +3238,21 @@ def main(argv) -> int:
         f"({w2v['seconds']:.3f} s for {TIMED_CALLS} calls of "
         f"{STEPS}x{BATCH} pairs) on {card}")
     log(f"  word2vec launches per step: {w2v['launches_per_step']}")
+    gen = w2v["pair_generation"]
+    log(f"  host pair generation: native 1 thread "
+        f"{gen['native_1']['words_per_sec']:.0f} words/s, 4 threads "
+        f"{gen['native_4']['words_per_sec']:.0f}, Python backend "
+        f"{gen['python']['words_per_sec']:.0f}, on {card}")
+    for key, r in w2v_own.items():
+        log(f"  word2vec through its own iterator, {key} backend: "
+            f"{r['words_per_sec']:.0f} words/s "
+            f"({r['words_per_sec'] / w2v['words_per_sec']:.3f}x phase 4's "
+            f"pre-generated), on {card}")
+    for key in ("(1, 1)", "(4, 1)"):
+        r = dense[key]
+        log(f"  dense logreg {key}: "
+            f"{[round(x) for x in r['samples_per_sec']]} samples/s per "
+            f"epoch, train accuracy {r['train_accuracy']:.4f}, on {card}")
     log(f"  word2vec on the (1, {SHARDS}) mesh: "
         f"{w2v_mesh['words_per_sec']:.0f} words/s, "
         f"{w2v_mesh['words_per_sec'] / w2v['words_per_sec']:.3f}x the "
@@ -3090,6 +3360,7 @@ def main(argv) -> int:
                        sparse_lr_mesh=slr_mesh,
                        mesh_kernel_shapes=mesh_results, w2v_mesh=w2v_mesh,
                        w2v_data_axis=w2v_data,
+                       w2v_own_iterator=w2v_own, dense_logreg=dense,
                        row_scatter_parts=scatter_parts,
                        seconds=time.perf_counter() - t_start), f, indent=1)
     log(f"phase seconds: { {k: round(v, 1) for k, v in phase_s.items()} }")

@@ -47,7 +47,7 @@ import numpy as np
 import torch
 
 from multiverso_tpu_torch import core
-from multiverso_tpu_torch.data.pydata import PyData
+from multiverso_tpu_torch.data.corpus import backend as data_backend
 from multiverso_tpu_torch.ops.lda_sampler import (gibbs_sample_docblock,
                                                   gibbs_sample_docblock_build,
                                                   gibbs_sample_tiled)
@@ -107,7 +107,7 @@ def load_docs(path: str) -> Tuple[np.ndarray, np.ndarray, int]:
     Returns (token_words [T], token_docs [T], vocab_size): counts expanded
     to one entry per token occurrence (Gibbs assigns a topic per
     occurrence)."""
-    offsets, word_ids, word_counts = PyData().lda_read_docs(path)
+    offsets, word_ids, word_counts = data_backend().lda_read_docs(path)
     doc_of_entry = np.repeat(
         np.arange(len(offsets) - 1, dtype=np.int32),
         np.diff(offsets).astype(np.int64))

@@ -1,25 +1,48 @@
 """Corpus-level helpers: vocabulary, subsampling, negative-sampling
 distribution, Huffman codes, batch iterators, and synthetic corpora.
 
-Counterpart of ``multiverso_tpu/data/corpus.py`` on the Python backend
-(:class:`~multiverso_tpu_torch.data.pydata.PyData`); the reference's
-native C++ backend is not ported yet. Host-only (numpy).
+Counterpart of ``multiverso_tpu/data/corpus.py``. The data backend is
+the native C++ library (:mod:`multiverso_tpu_torch.data.native`), as in
+the reference; the Python backend
+(:class:`~multiverso_tpu_torch.data.pydata.PyData`) stays for tests.
+Host-only (numpy).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
 from multiverso_tpu_torch.data.corpus_data import CorpusData
+from multiverso_tpu_torch.data.native import NativeData, load_native
 from multiverso_tpu_torch.data.pydata import PyData
+from multiverso_tpu_torch.utils import log
 from multiverso_tpu_torch.utils.async_buffer import prefetch_iterator
 
 
-def backend() -> PyData:
-    """The data backend (the Python one in this port)."""
-    return PyData()
+def backend() -> NativeData:
+    """The data backend: the native library (built on first call; a
+    failed build raises)."""
+    return load_native()
+
+
+def default_gen_threads() -> int:
+    """Worker count for native pair generation: MVTPU_GEN_THREADS, else
+    ONE. Single-threaded is the default on purpose: the pair stream is
+    reproducible for a given (seed, thread count), so a default resolved
+    from the host's core count would give identical seeds different
+    (equally valid) streams on different hosts. Set MVTPU_GEN_THREADS (or
+    pass ``gen_threads=``) when the host has cores to spend."""
+    env = os.environ.get("MVTPU_GEN_THREADS")
+    if env:
+        try:
+            return max(1, int(env))
+        except ValueError:
+            log.warn("ignoring malformed MVTPU_GEN_THREADS=%r; "
+                     "defaulting to single-threaded generation", env)
+    return 1
 
 
 class Corpus:
@@ -88,6 +111,17 @@ class Corpus:
 
     # -- batch iterators ---------------------------------------------------
 
+    @staticmethod
+    def _resolve_gen_threads(be, gen_threads: Optional[int]) -> int:
+        """Thread count for the block pipeline: 1 on the Python backend
+        (GIL-bound, it ignores threads); otherwise an explicit
+        ``gen_threads``, else :func:`default_gen_threads`."""
+        if isinstance(be, PyData):
+            return 1
+        if gen_threads is not None:
+            return max(1, gen_threads)
+        return default_gen_threads()
+
     def _block_batches(self, example_fn, batch_size: int, epochs: int,
                        block_tokens: int, prefetch: int
                        ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
@@ -115,14 +149,20 @@ class Corpus:
     def skipgram_batches(self, batch_size: int, window: int = 5,
                          seed: int = 1, epochs: int = 1,
                          block_tokens: int = 1 << 20,
-                         prefetch: int = 2
+                         prefetch: int = 2,
+                         gen_threads: Optional[int] = None
                          ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
-        """Yield fixed-size (centers, contexts) int32 batches."""
+        """Yield fixed-size (centers, contexts) int32 batches.
+
+        ``gen_threads=None`` resolves through :func:`default_gen_threads`;
+        above 1 each block takes the native multi-threaded fill."""
         be = backend()
         kp = self.keep_prob()
+        threads = self._resolve_gen_threads(be, gen_threads)
 
         def examples(block, salt):
-            return be.skipgram_pairs(block, window, kp, seed=seed + salt)
+            return be.skipgram_pairs(block, window, kp, seed=seed + salt,
+                                     threads=threads)
 
         return self._block_batches(examples, batch_size, epochs,
                                    block_tokens, prefetch)
@@ -130,18 +170,22 @@ class Corpus:
     def cbow_batches(self, batch_size: int, window: int = 5,
                      seed: int = 1, epochs: int = 1,
                      block_tokens: int = 1 << 20, prefetch: int = 2,
-                     pad_id: Optional[int] = None
+                     pad_id: Optional[int] = None,
+                     gen_threads: Optional[int] = None
                      ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
         """Yield fixed-size (contexts [B, 2w], targets [B]) int32 batches.
 
         Context rows are padded to 2*window with ``pad_id`` (a scratch-row
         id keeps every gather in range); ``pad_id=None`` keeps the raw -1
-        sentinels for numpy consumers that mask explicitly."""
+        sentinels for numpy consumers that mask explicitly.
+        ``gen_threads`` as in :meth:`skipgram_batches`."""
         be = backend()
         kp = self.keep_prob()
+        threads = self._resolve_gen_threads(be, gen_threads)
 
         def examples(block, salt):
-            ctx, tgt = be.cbow_examples(block, window, kp, seed=seed + salt)
+            ctx, tgt = be.cbow_examples(block, window, kp, seed=seed + salt,
+                                        threads=threads)
             if pad_id is not None:
                 ctx = np.where(ctx < 0, pad_id, ctx)
             return ctx, tgt

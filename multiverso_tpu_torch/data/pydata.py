@@ -1,10 +1,10 @@
 """The Python data backend: corpus build, Huffman codes, skip-gram and
 CBOW example generation, LDA doc reading.
 
-Copied from ``multiverso_tpu/data/pydata.py`` (numpy only). The
-reference's native C++ backend (``data/native.py``) is not ported yet;
-its RNG streams differ from these, as pair generation is stochastic by
-contract.
+Copied from ``multiverso_tpu/data/pydata.py`` (numpy only). The default
+backend is the native one (``data/native.py``), as in the reference; this
+one stays for tests. Its RNG streams differ from the native backend's, as
+pair generation is stochastic by contract.
 """
 
 from __future__ import annotations

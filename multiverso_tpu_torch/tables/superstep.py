@@ -50,7 +50,11 @@ every other input whole, on its device. On such a view:
   batch scatters;
 - :func:`replica_sum` sums a tensor over the replicas through the same
   exchange, wherever the reference's global arrays imply a sum over the
-  whole batch (a loss).
+  whole batch (a loss);
+- :func:`replica_cat` concatenates every replica's tensor in replica
+  order, where the reference's XLA gathers a value split over ``data``
+  (the row blocks each replica updated under ``shard_update``);
+  :func:`replica_index` is the running replica's ``d``.
 
 ``aux`` is replica 0's. A replica that raises aborts the exchange, the
 call re-raises its exception and no table advances; a replica that waits
@@ -78,8 +82,8 @@ from multiverso_tpu_torch.tables.base import Handle, Table
 from multiverso_tpu_torch.updaters import AddOption
 
 __all__ = ["DataSplit", "FusedSuperstep", "ShardedParam", "coo_scatter_add",
-           "gather_rows", "make_superstep", "replica_sum",
-           "row_scatter_add"]
+           "gather_rows", "make_superstep", "replica_cat", "replica_index",
+           "replica_sum", "row_scatter_add"]
 
 #: seconds a replica waits for its turn before the call fails
 EXCHANGE_TIMEOUT = 300.0
@@ -312,6 +316,22 @@ def replica_sum(x: torch.Tensor) -> torch.Tensor:
     for (part,) in parts[1:]:
         total = total + part
     return total
+
+
+def replica_cat(x: torch.Tensor) -> torch.Tensor:
+    """Every replica's ``x`` concatenated along dim 0 in replica order (the
+    same bits on every replica); ``x`` itself elsewhere."""
+    rep = _replica()
+    if rep is None:
+        return x
+    return _gathered(rep, (x,))[0]
+
+
+def replica_index() -> int:
+    """The index ``d`` of the replica this superstep body runs; 0 off a
+    data axis."""
+    rep = _replica()
+    return 0 if rep is None else rep.index
 
 
 def _on(device: torch.device):

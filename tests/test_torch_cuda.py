@@ -1804,3 +1804,62 @@ def test_data_axis_word2vec_on_the_card_matches_one_replica(cuda, tmp_path):
                             "gather_rows_mesh", "row_scatter_add_mesh"}
             assert all(grown[k] == 0 for k in flat_or_mesh
                        - {gather, scatter})
+
+
+def test_native_data_library_builds_and_loads(cuda, tmp_path):
+    """The native data library builds with g++ into build/torch_kernels/
+    on the card's machine, and its multi-threaded fill keeps the chunk
+    oracle there too."""
+    from pathlib import Path
+
+    from multiverso_tpu_torch.data import (CHUNK_SEED_STEP, Corpus, backend,
+                                           load_native, synthetic_text)
+    nat = load_native()
+    assert Path(nat.path).parent == \
+        Path(__file__).resolve().parents[1] / "build" / "torch_kernels"
+    assert backend() is nat
+    ids = np.random.default_rng(0).integers(0, 50, 9_001).astype(np.int32)
+    got = nat.skipgram_pairs(ids, 3, None, seed=4, threads=3)
+    parts = [nat.skipgram_pairs(ids[len(ids) * t // 3:
+                                    len(ids) * (t + 1) // 3], 3, None,
+                                seed=(4 + t * CHUNK_SEED_STEP) % 2**64)
+             for t in range(3)]
+    for i in (0, 1):
+        np.testing.assert_array_equal(
+            got[i], np.concatenate([p[i] for p in parts]))
+    path = str(tmp_path / "c.txt")
+    synthetic_text(path, num_tokens=5_000, vocab_size=100, seed=1)
+    corpus = Corpus.from_file(path, min_count=1)
+    src, tgt = next(iter(corpus.skipgram_batches(64, gen_threads=2)))
+    assert src.shape == tgt.shape == (64,)
+
+
+@pytest.mark.parametrize("updater", ["sgd", "adagrad", "ftrl"])
+def test_dense_logreg_on_the_card_matches_the_cpu(cuda, updater):
+    """Dense logistic regression at MNIST's width (784 x 10): one epoch of
+    S-step calls, single steps and a short last minibatch on the card,
+    on the CPU and on a (4, 1) mesh (replica d on cuda:{d % cards}), from
+    the same weights. The card within the CPU tests' float32 tolerance
+    (rtol 1e-5, atol 1e-6) of the CPU, the replicas bit-identical and
+    within it of the one-replica run."""
+    from multiverso_tpu_torch import core
+    from multiverso_tpu_torch.apps.logreg import (LogisticRegression,
+                                                  LogRegConfig,
+                                                  synthetic_blobs)
+    X, y = synthetic_blobs(1_000, 784, 10, seed=2)
+    cfg = LogRegConfig(784, 10, minibatch_size=128, steps_per_call=4,
+                       updater=updater, regular_lambda=0.01)
+    n = torch.cuda.device_count()
+    apps = [LogisticRegression(cfg, device="cuda", name="card"),
+            LogisticRegression(cfg, device="cpu", name="cpu"),
+            LogisticRegression(cfg, mesh=core.Mesh(
+                [[f"cuda:{d % n}"] for d in range(4)]), name="dp")]
+    losses = [app.train_epoch(X, y, shuffle_seed=0) for app in apps]
+    w = [np.concatenate([a.ravel() for a in app.weights()]) for app in apps]
+    np.testing.assert_allclose(w[0], w[1], rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(w[2], w[0], rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(losses[2], losses[0], rtol=1e-5, atol=1e-6)
+    replicas = apps[2].table.replicas
+    assert all(_same_bits(r[0], replicas[0][0]) for r in replicas[1:])
+    np.testing.assert_array_equal(apps[0].predict(X), apps[1].predict(X))

@@ -1,4 +1,6 @@
-"""The port's data layer against ``multiverso_tpu.data`` (Python backend).
+"""The port's data layer against ``multiverso_tpu.data``, on each
+package's default (native) backend and on both pinned to their Python
+backends.
 
 For a fixed corpus and seed both packages must give identical vocab,
 counts, encoded ids, Huffman arrays and skip-gram / CBOW streams: the
@@ -11,6 +13,7 @@ import pytest
 from multiverso_tpu.data import corpus as jcorpus
 from multiverso_tpu.data.pydata import PyData as JPyData
 from multiverso_tpu_torch.data import Corpus, PyData, synthetic_text
+from multiverso_tpu_torch.data import corpus as tcorpus
 
 
 @pytest.fixture(scope="module")
@@ -53,17 +56,25 @@ def test_huffman_too_deep_raises_in_both(text):
             backend.huffman(counts, 8)
 
 
-def _corpora(text, monkeypatch):
-    """The same corpus in both packages; the JAX one pinned to its Python
-    backend (its native backend is another generator)."""
-    monkeypatch.setattr(jcorpus, "backend", lambda: JPyData())
+@pytest.fixture(params=["native", "python"])
+def backend(request, monkeypatch):
+    """Both packages on their native backends (the default), or both
+    pinned to their Python backends (another generator)."""
+    if request.param == "python":
+        monkeypatch.setattr(jcorpus, "backend", lambda: JPyData())
+        monkeypatch.setattr(tcorpus, "backend", lambda: PyData())
+    return request.param
+
+
+def _corpora(text):
+    """The same corpus in both packages."""
     j = jcorpus.Corpus.from_file(text, min_count=1, subsample=1e-3)
     t = Corpus.from_file(text, min_count=1, subsample=1e-3)
     return j, t
 
 
-def test_corpus_accessors_match(text, monkeypatch):
-    j, t = _corpora(text, monkeypatch)
+def test_corpus_accessors_match(text, backend):
+    j, t = _corpora(text)
     assert (t.vocab_size, t.num_tokens) == (j.vocab_size, j.num_tokens)
     np.testing.assert_array_equal(t.keep_prob(), j.keep_prob())
     np.testing.assert_array_equal(t.unigram_probs(0.75),
@@ -73,8 +84,8 @@ def test_corpus_accessors_match(text, monkeypatch):
 
 
 @pytest.mark.parametrize("window", [2, 5])
-def test_skipgram_stream_matches(text, monkeypatch, window):
-    j, t = _corpora(text, monkeypatch)
+def test_skipgram_stream_matches(text, backend, window):
+    j, t = _corpora(text)
     kw = dict(window=window, seed=9, epochs=2, block_tokens=2_048)
     ja = list(j.skipgram_batches(64, **kw))
     ta = list(t.skipgram_batches(64, **kw))
@@ -84,8 +95,8 @@ def test_skipgram_stream_matches(text, monkeypatch, window):
         np.testing.assert_array_equal(a1, b1)
 
 
-def test_cbow_stream_matches(text, monkeypatch):
-    j, t = _corpora(text, monkeypatch)
+def test_cbow_stream_matches(text, backend):
+    j, t = _corpora(text)
     kw = dict(window=3, seed=4, epochs=1, block_tokens=2_048, pad_id=999)
     ja = list(j.cbow_batches(32, **kw))
     ta = list(t.cbow_batches(32, **kw))

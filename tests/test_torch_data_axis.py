@@ -43,7 +43,6 @@ import torch
 from multiverso_tpu import core as jcore
 from multiverso_tpu.apps import word_embedding as jw2v
 from multiverso_tpu.data import corpus as jcorpus
-from multiverso_tpu.data.pydata import PyData as JPyData
 from multiverso_tpu.tables import ArrayTable as JArrayTable
 from multiverso_tpu.tables import MatrixTable as JMatrixTable
 from multiverso_tpu.tables import base as jbase
@@ -75,7 +74,6 @@ CONFIGS = [
 @pytest.fixture(autouse=True)
 def _xla(monkeypatch):
     monkeypatch.setenv("MVTPU_KERNELS", "xla")
-    monkeypatch.setattr(jcorpus, "backend", lambda: JPyData())
     yield
     jcore.shutdown()
     tcore.shutdown()

@@ -28,7 +28,6 @@ import torch
 from multiverso_tpu import core as jcore
 from multiverso_tpu.apps import word_embedding as jw2v
 from multiverso_tpu.data import corpus as jcorpus
-from multiverso_tpu.data.pydata import PyData as JPyData
 from multiverso_tpu.tables import base as jbase
 from multiverso_tpu_torch import core as tcore
 from multiverso_tpu_torch.apps import word_embedding as tw2v
@@ -51,7 +50,6 @@ CONFIGS = [
 @pytest.fixture(autouse=True)
 def _xla(monkeypatch):
     monkeypatch.setenv("MVTPU_KERNELS", "xla")
-    monkeypatch.setattr(jcorpus, "backend", lambda: JPyData())
     yield
     jcore.shutdown()
     tcore.shutdown()

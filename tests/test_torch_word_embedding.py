@@ -1,9 +1,11 @@
 """The slice as a whole: word2vec supersteps in the port against the JAX
 package's ``WordEmbedding._dispatch``.
 
-Both apps train on the same corpus from the same initial weights (carried
-across with ``multiverso_tpu_torch.convert``) and are handed the same
-packed pairs. Hierarchical softmax draws no random numbers; for negative
+Both apps train on the same corpus file from the same initial weights
+(carried across with ``multiverso_tpu_torch.convert``), each on the pairs
+its own corpus draws: both packages on their native data backends (the
+default), or both pinned to their Python backends; the two streams must be
+equal. Hierarchical softmax draws no random numbers; for negative
 sampling the negatives the JAX body draws are recomputed here from
 ``jax.random.fold_in(prng_key(seed), call_no)``, ``split`` and the
 sampler, and injected into the port. After 2 supersteps of S=4 steps,
@@ -24,7 +26,8 @@ from multiverso_tpu.data import corpus as jcorpus
 from multiverso_tpu.data.pydata import PyData as JPyData
 from multiverso_tpu.tables import base as jbase
 from multiverso_tpu_torch.apps import word_embedding as tw2v
-from multiverso_tpu_torch.data import Corpus, synthetic_text
+from multiverso_tpu_torch.data import Corpus, PyData, synthetic_text
+from multiverso_tpu_torch.data import corpus as tcorpus
 from multiverso_tpu_torch.tables import base as tbase
 
 RTOL, ATOL = 1e-5, 1e-6
@@ -47,8 +50,17 @@ def text(tmp_path_factory):
     return str(path)
 
 
-def _apps(text, mesh, monkeypatch, **cfg):
-    monkeypatch.setattr(jcorpus, "backend", lambda: JPyData())
+@pytest.fixture(params=["native", "python"])
+def backend(request, monkeypatch):
+    """Both packages on their native data backends, or both pinned to
+    their Python ones."""
+    if request.param == "python":
+        monkeypatch.setattr(jcorpus, "backend", lambda: JPyData())
+        monkeypatch.setattr(tcorpus, "backend", lambda: PyData())
+    return request.param
+
+
+def _apps(text, mesh, **cfg):
     kw = dict(embedding_dim=16, window=3, negative=3, batch_size=B,
               steps_per_call=S, learning_rate=0.025, subsample=1e-3,
               seed=7, **cfg)
@@ -89,22 +101,25 @@ def _reference_negatives(japp, call_no):
     ("skipgram", "ns", "alias"),
     ("cbow", "ns", "table"),
 ])
-def test_superstep_matches_reference(text, mesh1, monkeypatch, model,
+def test_superstep_matches_reference(text, mesh1, backend, model,
                                      objective, sampler):
-    japp, tapp, corpus = _apps(text, mesh1, monkeypatch, model=model,
+    japp, tapp, corpus = _apps(text, mesh1, model=model,
                                objective=objective, ns_sampler=sampler)
     np.testing.assert_array_equal(tapp.w_out.get(), japp.w_out.get())
-    it = (corpus.skipgram_batches(B, window=3, seed=5) if model == "skipgram"
-          else corpus.cbow_batches(B, window=3, seed=5,
-                                   pad_id=tapp._scratch))
     assert tapp._scratch == japp._scratch
+    # each app's own pair stream (its corpus, its seed, its pad id)
+    jit, tit = japp._batches(), tapp._batches()
     for call in range(CALLS):
-        batch = [next(it) for _ in range(S)]
-        src = np.stack([b[0] for b in batch])
-        tgt = np.stack([b[1] for b in batch])
+        jb = [next(jit) for _ in range(S)]
+        tb = [next(tit) for _ in range(S)]
+        src = np.stack([b[0] for b in tb])
+        tgt = np.stack([b[1] for b in tb])
+        np.testing.assert_array_equal(src, np.stack([b[0] for b in jb]))
+        np.testing.assert_array_equal(tgt, np.stack([b[1] for b in jb]))
         negs = _reference_negatives(japp, call) if objective == "ns" \
             else None
-        jl = float(japp._dispatch(src, tgt, call, 10))
+        jl = float(japp._dispatch(np.stack([b[0] for b in jb]),
+                                  np.stack([b[1] for b in jb]), call, 10))
         tl = float(tapp._dispatch(src, tgt, call, 10, negatives=negs))
         np.testing.assert_allclose(tl, jl, rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(tapp.w_in.get(), japp.w_in.get(), rtol=RTOL,
