@@ -5,7 +5,8 @@
     python3 chip_smoke.py --profile   # also torch.profiler windows on one
                                       # word2vec call (on one shard and on
                                       # the (1, 4) mesh), one LightLDA
-                                      # sweep and four sparse-LR steps
+                                      # sweep (and one of each phase 16
+                                      # run) and four sparse-LR steps
 
 Phases (any failure ends the run with a non-zero exit code; each prints
 its seconds):
@@ -66,6 +67,11 @@ its seconds):
    invariants exactly, doc-tokens/s and its spread, and launch counts per
    step (the sampler, reading the mirror's rows itself: no W gather) and
    per sweep (COO rebuild).
+6b. LightLDA ``sampler="mh"`` (two Metropolis-Hastings rounds a token)
+   at the same width and corpus: one warm-up and two timed sweeps;
+   loglik before and after (it must rise), the count invariants exactly,
+   doc-tokens/s and its spread beside phase 6's doc-blocked rate, and
+   the launches of a sweep (two COO adds a step, no row gather).
 7. LightLDA ``sampler="tiled"`` at the same width, exact and stale, one
    warm-up and one timed sweep each.
 8. At reduced depth (T 1M, D 10k): the streamed (out-of-core) doc-blocked
@@ -126,6 +132,18 @@ its seconds):
    one warm-up and two timed epochs on one replica and on the (4, 1)
    mesh: samples/s, each epoch's loss (it must fall), the train
    accuracy, the replicas bit-identical. It runs before phase 14.
+16. LightLDA tiled exact, doc-blocked and mh at the LDA metric's widths
+   (V, K, batch 512,000) and phase 8's depth (T 1M, D 10k) on (4, 1),
+   (1, 4) and (2, 2) meshes (replica d on cuda:{d % cards}), each against
+   the (1, 1) run of the same corpus and draws: after a warm-up and three
+   timed sweeps z, the word and doc counts, the summary and the loglik
+   bit for bit, the replicas identical after each sweep, and a sweep's
+   launches as designed (each replica samples its lanes and moves every lane's word
+   counts on its own table: the flat kernels on S = 1, the mesh gather
+   and COO add on S = 4; the doc-blocked kernel reads the mirror's rows
+   itself on S = 1 and takes gathered rows on S > 1). Doc-tokens/s as a
+   ratio of the (1, 1) run's and the host's ms to queue a step. It runs
+   before phase 14.
 14. The row scatter's kernel on phase 2's sorted lanes, and phase 2's KV
    probe + commit calls (the flat form at the sparse-LR step's shapes,
    the sharded form on four shards), taken apart by torch.profiler: each
@@ -159,8 +177,9 @@ the whole table. Then a small CBOW HS run on the (1, 4) card mesh
 against the same run on a (1, 4) CPU mesh.
 
 Launch counts are set to 0 before each main path (phases 3-4 word2vec,
-4c on each backend, 5, 6, 7, 8, 10, 11, 12, 13's word2vec and its COO
-superstep, 13b's two meshes, 15) and read after it. Before the last line the script prints
+4c on each backend, 5, 6, 6b, 7, 8, 10, 11, 12, 13's word2vec and its
+COO superstep, 13b's two meshes, 15, each sweep of 16) and read after
+it. Before the last line the script prints
 one ``{"kernels": [...]}`` JSON line and the card's name and power limit;
 the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -1357,6 +1376,71 @@ def phase_lda(torch, tk, ls, LightLDA, LDAConfig, tw, td,
     if profile:
         out["profile"] = profile_call(torch, "lda_sweep_trace.json",
                                       app.sweep, 1e3 * min(runs))
+    del app
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_lda_mh(torch, tk, ls, LightLDA, LDAConfig, tw, td,
+                 docblock: dict, profile: bool) -> dict:
+    """Phase 6b: sampler="mh" at the LDA metric's width: one warm-up and
+    two timed sweeps, each fenced by a host sync; loglik before and after
+    (it must rise), the count invariants exactly, doc-tokens/s with its
+    spread beside phase 6's doc-blocked rate, and the launches of a sweep
+    (two COO adds a step, no row gather)."""
+    t0 = time.perf_counter()
+    app = lda_app(LightLDA, LDAConfig, tw, td, sampler="mh")
+    _sync(torch)
+    setup_s = time.perf_counter() - t0
+    ll0 = app.loglik()
+    t0 = time.perf_counter()
+    app.sweep()
+    _sync(torch)
+    warm_s = time.perf_counter() - t0
+    runs, counts = [], None
+    for i in range(2):
+        before = {**tk.LAUNCHES, **ls.LAUNCHES}
+        t0 = time.perf_counter()
+        app.sweep()
+        _sync(torch)
+        runs.append(time.perf_counter() - t0)
+        if i == 0:
+            after = {**tk.LAUNCHES, **ls.LAUNCHES}
+            counts = {k: after[k] - before[k] for k in after}
+    ll1 = app.loglik()
+    steps = app.calls_per_sweep * app.config.steps_per_call
+    want = {"coo_scatter_add": 2 * steps, "row_gather": 0,
+            "gather_rows_mesh": 0, "coo_scatter_add_mesh": 0}
+    for name, n in want.items():
+        if counts[name] != n:
+            raise SystemExit(f"LightLDA mh sweep: {name} launched "
+                             f"{counts[name]} times, expected {n}")
+    if not (np.isfinite(ll0) and np.isfinite(ll1) and ll1 > ll0):
+        raise SystemExit(f"LightLDA mh loglik did not rise: {ll0} -> {ll1}")
+    check_lda_invariants(app, td)
+    rates = [LDA_T / r for r in runs]
+    rate = LDA_T * len(runs) / sum(runs)
+    out = dict(doc_tokens_per_sec=rate, runs_tok_per_sec=rates,
+               spread_pct=100 * (max(rates) - min(rates)) / max(rates),
+               secs_per_sweep=runs, warm_sweep_s=warm_s, setup_s=setup_s,
+               loglik_before=ll0, loglik_after=ll1,
+               calls_per_sweep=app.calls_per_sweep,
+               mh_steps=app.config.mh_steps, launches_per_sweep=counts,
+               vs_doc_blocked=rate / docblock["doc_tokens_per_sec"])
+    log(f"  setup {setup_s:.2f} s; warm-up sweep {warm_s:.3f} s; timed "
+        f"sweeps {[round(r, 4) for r in runs]} s; loglik {ll0:.5f} -> "
+        f"{ll1:.5f}; invariants exact; launches per sweep "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    log(f"  mh ({app.config.mh_steps} rounds): {rate:.0f} doc-tokens/s "
+        f"(runs {[round(r) for r in rates]}, spread "
+        f"{out['spread_pct']:.1f}%) against phase 6's doc-blocked "
+        f"{docblock['doc_tokens_per_sec']:.0f} "
+        f"({out['vs_doc_blocked']:.3f}x)")
+    if profile:
+        out["profile"] = profile_call(torch, "lda_mh_sweep_trace.json",
+                                      app.sweep, 1e3 * min(runs))
+        os.remove(os.path.join(HERE, "chiprun_out",
+                               "lda_mh_sweep_trace.json"))
     del app
     torch.cuda.empty_cache()
     return out
@@ -2833,6 +2917,177 @@ def phase_w2v_data_axis(torch, core, counts, reset, W2VConfig,
     return out, paths
 
 
+#: phase 16's meshes and LightLDA modes (every replica on cuda:{d % cards})
+LDA_MESHES = ((4, 1), (1, 4), (2, 2))
+LDA_MESH_MODES = {"tiled exact": dict(),
+                  "doc-blocked": dict(stale_words=True, doc_blocked=True),
+                  "mh": dict(sampler="mh")}
+#: phase 16's timed sweeps a run, after one warm-up
+LDA_MESH_TIMED = 3
+LDA_MESH_KERNELS = ("row_gather", "gather_rows_mesh", "coo_scatter_add",
+                    "coo_scatter_add_mesh", "gibbs_sample_tiled",
+                    "gibbs_sample_docblock", "gibbs_sample_docblock_rows")
+
+
+def lda_mesh_launches(mode: str, dp: int, mp: int, steps: int) -> dict:
+    """The launches a sweep of ``mode`` makes on a (dp, mp) mesh of one
+    card: each replica samples its lanes of every step and moves every
+    lane's word counts on its own copy of the table (one launch a card
+    for the mesh forms over a split table)."""
+    want = dict.fromkeys(LDA_MESH_KERNELS, 0)
+    gather = "row_gather" if mp == 1 else "gather_rows_mesh"
+    coo = "coo_scatter_add" if mp == 1 else "coo_scatter_add_mesh"
+    if mode == "tiled exact":
+        want["gibbs_sample_tiled"] = dp * steps
+        want["row_gather"] += dp * steps              # the doc rows
+        want[gather] += dp * steps                    # the word rows
+        want[coo] = dp * steps
+    elif mode == "doc-blocked":
+        want["gibbs_sample_docblock"] = dp * steps
+        # the mirror's rows read by the kernel, or gathered from its shards
+        want["gibbs_sample_docblock_rows" if mp == 1
+             else "gather_rows_mesh"] = dp * steps
+        want[coo] = dp                                # the rebuild
+    else:
+        want[coo] = 2 * dp * steps                    # remove, add
+    return want
+
+
+def lda_mesh_run(torch, core, counts, reset, LightLDA, LDAConfig, tw, td,
+                 mode: str, rows, profile: bool = False) -> tuple:
+    """One mode on the mesh of ``rows``: a warm-up sweep and
+    ``LDA_MESH_TIMED`` timed ones, the replicas checked identical after
+    each; returns (the state to compare, numbers)."""
+    cfg = dict(num_topics=LDA_K, batch_tokens=LDA_B, steps_per_call=1,
+               seed=1, sampler="tiled")
+    cfg.update(LDA_MESH_MODES[mode])
+    devs = sorted({d for row in rows for d in row})
+    t0 = time.perf_counter()
+    app = LightLDA(tw, td, LDA_V, LDAConfig(**cfg), mesh=core.Mesh(rows),
+                   name="smoke_lda_mesh")
+    sync_all(torch, devs)
+    setup_s = time.perf_counter() - t0
+    secs, host_s = [], []
+    for sweep in range(1 + LDA_MESH_TIMED):
+        reset()
+        t0 = time.perf_counter()
+        app.sweep()
+        host_s.append(time.perf_counter() - t0)
+        sync_all(torch, devs)
+        secs.append(time.perf_counter() - t0)
+        for table in (app.word_topic, app.summary):
+            if not replicas_identical(torch, table):
+                raise SystemExit(f"LightLDA {mode} on {rows}: the replicas "
+                                 f"of {table.name} differ after sweep "
+                                 f"{sweep}")
+        if not app._docblock and not all(
+                same_bits(torch, p, app._z_l.parts[0])
+                for p in app._z_l.parts[1:]):
+            raise SystemExit(f"LightLDA {mode} on {rows}: the replicas of "
+                             f"z differ after sweep {sweep}")
+    grown = {k: counts()[k] for k in LDA_MESH_KERNELS}
+    steps = app.calls_per_sweep * app.config.steps_per_call
+    dp, mp = len(rows), len(rows[0])
+    want = lda_mesh_launches(mode, dp, mp, steps)
+    if grown != want:
+        raise SystemExit(f"LightLDA {mode} on the ({dp}, {mp}) mesh: "
+                         f"launches a sweep {grown}, expected {want}")
+    state = dict(z=app._z_numpy().copy(), ll=app.loglik(),
+                 word_topics=app.word_topics(), doc_topics=app.doc_topics(),
+                 summary=app.summary.get())
+    profiled = None
+    if profile:
+        # one more sweep under the profiler, after the state is taken
+        trace = f"lda_mesh_{dp}x{mp}_trace.json"
+        profiled = profile_call(torch, trace, lambda: (
+            app.sweep(), sync_all(torch, devs)), 1e3 * min(secs[1:]))
+        os.remove(os.path.join(HERE, "chiprun_out", trace))
+        profiled["device_busy_share"] = profiled["device_busy_ms"] \
+            / profiled["call_ms"]
+    timed = secs[1:]
+    rates = [LDA_SMALL_T / t for t in timed]
+    numbers = dict(setup_s=setup_s, sweep_s=secs,
+                   doc_tokens_per_sec=LDA_SMALL_T * len(timed) / sum(timed),
+                   spread_pct=100 * (max(rates) - min(rates)) / max(rates),
+                   host_ms_per_step=1e3 * sum(host_s[1:]) / (len(timed)
+                                                            * steps),
+                   steps=steps, profile=profiled,
+                   launches_per_sweep={k: v for k, v in grown.items() if v})
+    if app._docblock and mp > 1:
+        # a replica's word rows of a step, gathered from its split bf16
+        # mirror (mv_row_gather_mesh), where one shard's kernel reads
+        # them itself (words=)
+        from multiverso_tpu_torch.ops import table_kernels as tk
+        mirror = app._sweep_inputs()[0].parts[0]
+        words = app._consts[0]["tw"][:app._nbs // dp].reshape(-1)
+        numbers.update(
+            gather_rows=words.numel(),
+            gather_gb=words.numel() * LDA_K * 2 / 1e9,
+            gather_ms=cuda_ms(lambda: tk.gather_rows(mirror, words), 20))
+    del app
+    free_tables(torch)
+    return state, numbers
+
+
+def phase_lda_mesh(torch, core, counts, reset, LightLDA, LDAConfig,
+                   profile: bool) -> tuple:
+    """Phase 16: LightLDA tiled exact, doc-blocked and mh at the LDA
+    metric's widths (V, K, batch) and phase 8's depth (T 1M, D 10k) on
+    the (4, 1), (1, 4) and (2, 2) meshes (replica d on cuda:{d %
+    cards}), each against the (1, 1) run of the same corpus and draws:
+    z, the word and doc counts, the summary and the loglik bit for bit
+    after a warm-up and ``LDA_MESH_TIMED`` timed sweeps, the replicas
+    identical after each sweep, and the launches of the last sweep as
+    designed. Prints each mesh's
+    doc-tokens/s as a ratio of the (1, 1) run's and the host's ms to
+    queue a step; with ``profile``, the device's busy share over one more
+    sweep of each run (torch.profiler). Returns ({mode: {mesh: numbers}},
+    {path: launches})."""
+    cards = torch.cuda.device_count()
+    tw, td = zipf_lda_corpus(LDA_V, LDA_SMALL_D, LDA_SMALL_T, seed=0)
+    out, paths = {}, {}
+    for mode in LDA_MESH_MODES:
+        ref, one = lda_mesh_run(torch, core, counts, reset, LightLDA,
+                                LDAConfig, tw, td, mode, [["cuda:0"]],
+                                profile)
+        out[mode] = {"(1, 1)": one}
+        log(f"  {mode} (1, 1): {one['doc_tokens_per_sec']:.0f} doc-tokens/s "
+            f"(timed sweeps {[round(t, 4) for t in one['sweep_s'][1:]]} s, "
+            f"spread {one['spread_pct']:.1f}%), host "
+            f"{one['host_ms_per_step']:.3f} ms a step; loglik "
+            f"{ref['ll']:.6f}")
+        for dp, mp in LDA_MESHES:
+            key = f"({dp}, {mp})"
+            rows = [[f"cuda:{d % cards}"] * mp for d in range(dp)]
+            got, r = lda_mesh_run(torch, core, counts, reset, LightLDA,
+                                  LDAConfig, tw, td, mode, rows, profile)
+            for name, want in ref.items():
+                same = got[name] == want if name == "ll" \
+                    else np.array_equal(got[name], want)
+                if not same:
+                    raise SystemExit(f"LightLDA {mode} on the {key} mesh: "
+                                     f"{name} != the (1, 1) run's")
+            r["vs_one_device"] = r["doc_tokens_per_sec"] \
+                / one["doc_tokens_per_sec"]
+            r["replicas"] = rows
+            out[mode][key] = r
+            tag = mode.replace(" ", "_").replace("-", "_")
+            paths[f"lightlda_{tag}_{dp}x{mp}"] = r["launches_per_sweep"]
+            log(f"  {mode} {key}: z, tables, doc counts, summary, loglik "
+                f"bit-identical to (1, 1), replicas identical; "
+                f"{r['doc_tokens_per_sec']:.0f} doc-tokens/s "
+                f"({r['vs_one_device']:.3f}x, spread "
+                f"{r['spread_pct']:.1f}%), host "
+                f"{r['host_ms_per_step']:.3f} ms a step; launches a sweep "
+                f"{r['launches_per_sweep']}")
+            if "gather_ms" in r:
+                log(f"    a replica's step gathers {r['gather_rows']} bf16 "
+                    f"rows of {LDA_K} ({r['gather_gb']:.3f} GB) from its "
+                    f"split mirror in {r['gather_ms']:.4f} ms before the "
+                    f"gathered-rows kernel")
+    return out, paths
+
+
 def dense_weights(app) -> np.ndarray:
     return np.concatenate([a.ravel() for a in app.weights()])
 
@@ -3134,6 +3389,13 @@ def main(argv) -> int:
     phase_end("lda")
 
     reset()
+    phase("lda_mh", "phase 6b: LightLDA sampler=mh at the same width")
+    lda_mh = phase_lda_mh(torch, tk, ls, LightLDA, LDAConfig, tw, td, lda,
+                          profile)
+    paths["lightlda_mh"] = counts()
+    phase_end("lda_mh")
+
+    reset()
     phase("lda_tiled", "phase 7: LightLDA sampler=tiled at the same width")
     lda_tiled = phase_lda_tiled(torch, tk, ls, LightLDA, LDAConfig, tw, td)
     paths["lightlda_tiled"] = counts()
@@ -3203,6 +3465,13 @@ def main(argv) -> int:
     paths["logreg_dense"] = counts()
     phase_end("dense_lr")
 
+    phase("lda_mesh", "phase 16: LightLDA tiled exact, doc-blocked and mh "
+          "on (4, 1), (1, 4) and (2, 2) meshes vs the (1, 1) run")
+    lda_mesh, mesh_lda_paths = phase_lda_mesh(torch, core, counts, reset,
+                                              LightLDA, LDAConfig, profile)
+    paths.update(mesh_lda_paths)
+    phase_end("lda_mesh")
+
     phase("scatter_parts", "phase 14: the row scatter's and the KV probe "
           "+ commit's kernels apart (torch.profiler, after every timed "
           "phase)")
@@ -3267,6 +3536,17 @@ def main(argv) -> int:
     log(f"  LightLDA doc-blocked: {lda['doc_tokens_per_sec']:.0f} "
         f"doc-tokens/s (runs {[round(r) for r in lda['runs_tok_per_sec']]}, "
         f"spread {lda['spread_pct']:.1f}%) on {card}")
+    log(f"  LightLDA mh: {lda_mh['doc_tokens_per_sec']:.0f} doc-tokens/s "
+        f"(runs {[round(r) for r in lda_mh['runs_tok_per_sec']]}, spread "
+        f"{lda_mh['spread_pct']:.1f}%; {lda_mh['vs_doc_blocked']:.3f}x "
+        f"doc-blocked) on {card}")
+    for mode, meshes in lda_mesh.items():
+        log(f"  LightLDA {mode} on meshes (T {LDA_SMALL_T}): " + "; ".join(
+            f"{key} {r['doc_tokens_per_sec']:.0f} doc-tokens/s"
+            + (f" ({r['vs_one_device']:.3f}x, host "
+               f"{r['host_ms_per_step']:.2f} ms a step)"
+               if "vs_one_device" in r else "")
+            for key, r in meshes.items()) + f", on {card}")
     log(f"  sparse LR: {[round(r) for r in slr['samples_per_sec']]} "
         f"samples/s per epoch on {card}")
     log(f"  sparse LR on the (1, {SHARDS}) mesh: "
@@ -3350,7 +3630,8 @@ def main(argv) -> int:
               "w") as f:
         json.dump(dict(card=card, kernels=kernels, w2v=w2v, lightlda=lda,
                        lightlda_tiled=lda_tiled,
-                       lightlda_streamed=lda_streamed,
+                       lightlda_streamed=lda_streamed, lightlda_mh=lda_mh,
+                       lightlda_mesh=lda_mesh,
                        launches_per_path=paths, phase_seconds=phase_s,
                        kernel_shapes={f"{k[0]}@{k[1]}": v
                                       for k, v in results.items()},

@@ -2,19 +2,23 @@
 word-topic count matrix (SparseMatrixTable) and a topic-summary row
 (ArrayTable), with worker-local doc-topic counts and per-token topics.
 
-Counterpart of ``multiverso_tpu/apps/lightlda.py`` on one device, with its
-samplers:
+Counterpart of ``multiverso_tpu/apps/lightlda.py``, with its samplers:
 
-1. ``sampler="gibbs"``: exact vectorized collapsed Gibbs in plain torch
-   (no kernel): per step the batch's own counts leave the tables, the
-   posterior's CDF is drawn from with one uniform per token, the counts
-   come back.
-2. ``sampler="tiled"``: tile-aligned ``[*, C, 128]`` counts and the fused
-   posterior + two-level draw kernel (``ops.gibbs_sample_tiled``); the
-   word counts move by COO adds every step. ``stale_words=True`` gathers
-   word rows from a bf16 mirror refreshed per sweep, keeps doc counts in
-   int16 and rebuilds the int32 word table from z at sweep end.
-3. ``doc_blocked=True`` (the production mode): whole documents packed into
+1. ``sampler="gibbs"``: exact vectorized collapsed Gibbs in plain torch:
+   per step the batch's own counts leave the tables, the posterior's CDF
+   is drawn from with one uniform per token, the counts come back.
+2. ``sampler="mh"``: LightLDA's own O(1)-per-token Metropolis-Hastings
+   sampler, the reference's algorithm-parity mode: ``mh_steps`` rounds of
+   a word proposal (a binary search of the per-sweep stale word CDF) and
+   a doc proposal (the z-array trick), each accepted against the live
+   counts. Plain torch single-element reads (the reference's body reaches
+   no Pallas kernel).
+3. ``sampler="tiled"``: tile-aligned ``[*, C, 128]`` counts and the fused
+   posterior + two-level draw kernel (``ops.gibbs_sample_tiled``).
+   ``stale_words=True`` gathers word rows from a bf16 mirror refreshed per
+   sweep, keeps doc counts in int16 and rebuilds the int32 word table from
+   z at sweep end.
+4. ``doc_blocked=True`` (the production mode): whole documents packed into
    kernel blocks that own exclusive slices of a blocked doc-count array,
    so the doc side never leaves the sampler kernel
    (``ops.gibbs_sample_docblock``). ``stream_blocks=True`` keeps the
@@ -26,14 +30,35 @@ samplers:
 Every count build and move of the word table is a COO add through the
 port's ``coo_scatter_add`` kernel; the tiled modes gather word and doc
 rows with the row gather kernel, the doc-blocked kernel reads its word
-rows from the mirror itself. The reference's ``lax.scan`` over the S steps of a call
-is a Python loop, and its ``jax.random`` uniforms are draws from a
-``torch.Generator`` on the device, seeded per call from (seed, call
-number); :meth:`LightLDA.sweep` also takes them as an input, so a caller
-can feed both packages the same ones.
+rows from the mirror itself. The reference's ``lax.scan`` over the S
+steps of a call is a Python loop, and its ``jax.random`` draws are draws
+from a ``torch.Generator`` on the device, seeded per call from (seed,
+call number); :meth:`LightLDA.sweep` also takes them as inputs, so a
+caller can feed both packages the same ones.
 
-Not in the port yet (see ROADMAP.md): ``sampler="mh"``, ``local_corpus``
-and multi-process runs, model-parallel word tables, the run-directory
+Meshes (``mesh=``, as ``core.resolve_mesh`` takes it): every mode but the
+streamed one runs on a ``(D, S)`` mesh, and equals the ``(1, 1)`` run fed
+the same draws bit for bit (every row lives in one shard, every count is
+an integer, and each lane's posterior reads the same counts).
+
+- On the model axis the word table (and a stale mode's bf16 mirror, and
+  mh's stale CDF and count copy) stays split by vocab rows: rows are read
+  through the mesh gather, counts move through the mesh COO add, and mh
+  reads its single elements from the shard that owns each row. The
+  doc-blocked kernel then takes gathered rows instead of ``words=``.
+- On the data axis the tables hold D replicas. Replica ``d`` samples the
+  contiguous ``B / D`` lanes ``d`` of every step from its block of the
+  call's draws. In the shuffled-stream modes z and the doc counts are
+  whole on every replica (``Replicated``): each replica removes and adds
+  every lane's counts, the new topics exchanged with ``replica_cat`` (and
+  a tiled kernel's summary deltas summed with ``replica_sum``). In the
+  doc-blocked mode each replica owns its blocks of every step
+  (``DataSplit``), their doc counts and z, and the summary deltas are
+  summed over the replicas. The sweep-end rebuild scatters every
+  replica's tokens into every replica's table.
+
+Not in the port yet (see ROADMAP.md): ``stream_blocks`` on a mesh above
+(1, 1), ``local_corpus`` and multi-process runs, the run-directory
 manager, telemetry spans and health rollback, cached table views.
 """
 
@@ -41,13 +66,14 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from multiverso_tpu_torch import core
 from multiverso_tpu_torch.data.corpus import backend as data_backend
+from multiverso_tpu_torch.ops import table_kernels as tk
 from multiverso_tpu_torch.ops.lda_sampler import (gibbs_sample_docblock,
                                                   gibbs_sample_docblock_build,
                                                   gibbs_sample_tiled)
@@ -55,15 +81,22 @@ from multiverso_tpu_torch.tables import (ArrayTable, SparseMatrixTable,
                                          make_superstep)
 from multiverso_tpu_torch.tables.base import (_local_path, _record_events,
                                               loadz_stream, savez_stream)
-from multiverso_tpu_torch.tables.superstep import (coo_scatter_add,
-                                                   gather_rows)
+from multiverso_tpu_torch.tables.superstep import (DataSplit, Replicated,
+                                                   ShardedParam,
+                                                   coo_scatter_add,
+                                                   gather_rows, replica_cat,
+                                                   replica_index,
+                                                   replica_sum)
 from multiverso_tpu_torch.utils import log
 from multiverso_tpu_torch.utils.async_buffer import prefetch_iterator
 
 STATE_MAGIC = "multiverso_tpu.lda_state.v1"
 
-#: ``uniforms(call_no) -> [S, n, B]`` float32 (n = 1 for gibbs, else 2)
+#: ``uniforms(call_no) -> [S, n, B]`` float32: n = 1 for gibbs, 2 for the
+#: kernel samplers, 5 * mh_steps for mh
 Uniforms = Callable[[int], "torch.Tensor | np.ndarray"]
+#: ``integers(call_no) -> [S, mh_steps, B]`` int32 in [0, K) (mh only)
+Integers = Callable[[int], "torch.Tensor | np.ndarray"]
 
 
 @dataclasses.dataclass
@@ -79,8 +112,8 @@ class LDAConfig:
     checkpoint_prefix: str = ""     # periodic mid-train checkpoints
     checkpoint_interval: int = 0    # store every N sweeps (0 = off)
     sampler: str = "gibbs"          # "gibbs" (exact O(K), plain torch)
+    #                               | "mh" (O(1) Metropolis-Hastings)
     #                               | "tiled" (sampler kernel, K%128==0)
-    #                               | "mh" (not in the port yet)
     stale_words: bool = False       # tiled only: word rows from a bf16
     # mirror refreshed per sweep, int16 doc counts, word table rebuilt
     # from z each sweep
@@ -138,26 +171,72 @@ def _eval_chunk(n: int) -> int:
     return c
 
 
+def _whole(view) -> torch.Tensor:
+    """A table view as one tensor: a one-shard table's own tensor, a split
+    one's shards concatenated on the first shard's device (a body that
+    returns it whole has the superstep split it back)."""
+    if isinstance(view, ShardedParam):
+        return torch.cat([t.to(view.device) for t in view.shards])
+    return view
+
+
+def _per_shard(view, fn):
+    """``fn`` of each shard of a table view, in the view's form."""
+    if isinstance(view, ShardedParam):
+        return ShardedParam([fn(t) for t in view.shards])
+    return fn(view)
+
+
+def _elements(view, rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """``view[rows[i], cols[i]]`` of a ``[R, C]`` table view (int64
+    indices on the caller's device), each read from the shard that owns
+    its row, in plain torch: the mh sampler's single-element reads."""
+    if not isinstance(view, ShardedParam):
+        return view.view(view.shape[0], -1)[rows, cols]
+    rps, out = view.rows_per_shard, None
+    for s, shard in enumerate(view.shards):
+        local = rows - s * rps
+        vals = shard.view(rps, -1)[local.clamp(0, rps - 1).to(shard.device),
+                                   cols.to(shard.device)].to(rows.device)
+        # every row lies in one shard: the first shard's reads of the
+        # other rows are overwritten by their owners'
+        out = vals if out is None else torch.where(
+            (local >= 0) & (local < rps), vals, out)
+    return out
+
+
 class LightLDA:
-    """The app: count tables + the Gibbs-sweep superstep."""
+    """The app: count tables + the Gibbs-sweep superstep, on ``mesh``
+    (default: the runtime's) or the (1, 1) mesh of ``device``."""
 
     def __init__(self, token_words: np.ndarray, token_docs: np.ndarray,
                  vocab_size: int, config: LDAConfig, *,
                  device: core.DeviceLike = None,
+                 mesh: Optional[core.Mesh] = None,
                  name: str = "lightlda") -> None:
         self.config = c = config
-        self.device = dev = core.resolve(device)
+        self.mesh = core.resolve_mesh(mesh, device)
+        self.device = dev = self.mesh.shard_devices[0]
+        self.n_replicas = D = self.mesh.shape[core.DATA_AXIS]
+        # each replica's first device: its locals, constants and draws
+        self._devs = [self.mesh.replica_devices(d)[0] for d in range(D)]
         self.V = vocab_size
         self.K = c.num_topics
         self.num_docs = int(token_docs.max()) + 1 if len(token_docs) else 1
         self.num_tokens = len(token_words)
-        if c.sampler == "mh" or c.local_corpus:
+        if c.local_corpus:
             raise ValueError(
-                "sampler='mh' and local_corpus are not in the port yet "
-                "(see ROADMAP.md); use sampler='gibbs' or 'tiled'")
-        if c.sampler not in ("gibbs", "tiled"):
+                "local_corpus is not in the port yet (ROADMAP queue A item "
+                "12); use the whole corpus in one process")
+        if c.sampler not in ("gibbs", "mh", "tiled"):
             raise ValueError(f"sampler must be 'gibbs', 'mh' or 'tiled', "
                              f"got {c.sampler!r}")
+        if c.sampler == "mh" and len(token_docs) \
+                and np.any(np.diff(token_docs) < 0):
+            # doc_start offsets (the doc proposal) assume a doc-contiguous
+            # stream; an interleaved one would sample another doc's topics
+            raise ValueError("token_docs must be doc-contiguous "
+                             "(non-decreasing doc ids) for sampler='mh'")
         if c.precision not in ("float32", "bfloat16"):
             raise ValueError(f"precision must be 'float32' or 'bfloat16', "
                              f"got {c.precision!r}")
@@ -173,14 +252,22 @@ class LightLDA:
                 f"got sampler={c.sampler!r}")
         if c.stream_blocks and not c.doc_blocked:
             raise ValueError("stream_blocks requires doc_blocked=True")
+        if c.stream_blocks and self.mesh.size > 1:
+            raise NotImplementedError(
+                f"stream_blocks on a {self.mesh.shape[core.DATA_AXIS]} x "
+                f"{self.mesh.shape[core.MODEL_AXIS]} mesh is not ported "
+                "(ROADMAP queue A item 3); run it on one device")
+        if c.batch_tokens % D:
+            raise ValueError(f"batch_tokens {c.batch_tokens} not divisible "
+                             f"by data-axis size {D}")
 
         # tables (the reference's server-side state); tiled storage puts
         # one word's topic row in one [C, 128] tile
         self.word_topic = SparseMatrixTable(
-            self.V, self.K, "int32", updater="default", device=dev,
+            self.V, self.K, "int32", updater="default", mesh=self.mesh,
             name=f"{name}_word_topic", tiled=tiled)
         self.summary = ArrayTable(self.K, "int32", updater="default",
-                                  device=dev, name=f"{name}_summary")
+                                  mesh=self.mesh, name=f"{name}_summary")
         self._scratch_word = self.word_topic.padded_shape[0] - 1
         self._scratch_doc = self.num_docs
         self._docblock = tiled and c.doc_blocked
@@ -194,6 +281,7 @@ class LightLDA:
                     f"stale_words stores doc counts int16; a document "
                     f"has {max_len} tokens (>= 32767)")
             ndk_dtype = torch.int16
+        self._ndk_dtype = ndk_dtype
         self._calls_done = 0
         self.ll_history: list = []
         self.doc_tokens_per_sec = 0.0   # of the last train()
@@ -211,9 +299,8 @@ class LightLDA:
                                              name="lda_docblock")
             return
 
-        ndk_shape = (self.num_docs + 1, self.K // 128, 128) if tiled \
+        self._ndk_shape = (self.num_docs + 1, self.K // 128, 128) if tiled \
             else (self.num_docs + 1, self.K)
-        self._ndk = torch.zeros(ndk_shape, dtype=ndk_dtype, device=dev)
         # token stream, padded to a whole number of superstep calls
         call_tokens = c.batch_tokens * c.steps_per_call
         T_pad = -(-max(self.num_tokens, 1) // call_tokens) * call_tokens
@@ -228,14 +315,35 @@ class LightLDA:
         # decrement; a fixed permutation spreads each doc/word over the
         # sweep (padded lanes shuffle in too, masked)
         perm = np.random.default_rng(c.seed ^ 0x5EED).permutation(T_pad)
-        self._tw = torch.as_tensor(tw[perm], device=dev)
-        self._td = torch.as_tensor(td[perm], device=dev)
-        self._mask = torch.as_tensor(mask[perm].astype(np.int32),
-                                     device=dev)
+        host = dict(tw=tw[perm], td=td[perm],
+                    mask=mask[perm].astype(np.int32))
+        if c.sampler == "mh":
+            # the doc proposal's z-array trick: the stream is doc-
+            # contiguous (checked above), so doc d's tokens sit at original
+            # positions [doc_start[d], doc_start[d] + doc_len[d]); inv_perm
+            # maps an original position to its shuffled one (z's index).
+            # One scratch-doc entry covers the padding
+            doc_len = np.bincount(token_docs, minlength=self.num_docs) \
+                if len(token_docs) else np.zeros(self.num_docs, np.int64)
+            doc_len = np.append(doc_len, max(T_pad - self.num_tokens, 1))
+            host.update(
+                doc_len=doc_len.astype(np.int32),
+                doc_start=np.concatenate([[0], np.cumsum(doc_len)])[:-1]
+                .astype(np.int32),
+                inv_perm=np.argsort(perm).astype(np.int32))
+        # the whole stream on each replica's device (read-only: replicas
+        # on one device share it)
+        per_dev: dict = {}
+        self._consts = [per_dev.setdefault(d, {
+            k: torch.as_tensor(v, device=d) for k, v in host.items()})
+            for d in self._devs]
+        self._tw, self._td, self._mask = (self._consts[0][k]
+                                          for k in ("tw", "td", "mask"))
         self.calls_per_sweep = T_pad // call_tokens
         rng = np.random.default_rng(c.seed)
-        self._z = torch.as_tensor(
-            rng.integers(0, self.K, T_pad).astype(np.int32), device=dev)
+        z0 = torch.as_tensor(rng.integers(0, self.K, T_pad).astype(np.int32),
+                             device=dev)
+        self._z_l = Replicated.of(z0, self.mesh)
         self._init_counts()
         if tiled:
             self._fused = make_superstep(
@@ -243,6 +351,9 @@ class LightLDA:
                 else (self.word_topic, self.summary),
                 self._tiled_body,
                 name="lda_tiled_stale" if self._stale else "lda_tiled")
+        elif c.sampler == "mh":
+            self._fused = make_superstep((self.word_topic, self.summary),
+                                         self._mh_body, name="lda_mh")
         else:
             self._fused = make_superstep((self.word_topic, self.summary),
                                          self._gibbs_body, name="lda_gibbs")
@@ -258,6 +369,11 @@ class LightLDA:
         if TB % 8 or B % TB:
             raise ValueError(f"block_tokens {TB} must be a multiple of 8 "
                              f"dividing batch_tokens {B}")
+        nbs = B // TB                       # blocks per step
+        if nbs % self.n_replicas:
+            raise ValueError(f"doc_blocked: blocks per step {nbs} not "
+                             f"divisible by data-axis size "
+                             f"{self.n_replicas}")
         order = np.argsort(token_docs, kind="stable")
         tw, td = token_words[order], token_docs[order]
         doc_ids, doc_starts = np.unique(td, return_index=True) \
@@ -284,7 +400,6 @@ class LightLDA:
             cur_r += 1
             cur_tok += ln
         n_blocks = (b + 1) if n_real else 1
-        nbs = B // TB                       # blocks per step
         per_call = S * nbs
         self._per_call, self._nbs = per_call, nbs
         self._tb, self._maxd = TB, MAXD
@@ -318,7 +433,7 @@ class LightLDA:
         dev = self.device
         if c.stream_blocks:
             self._tw_host, self._drel_host, self._z_host = tw_p, drel_p, z0
-            self._ndk = None
+            self._z_l = self._ndk_l = None
             # inverse packing map for doc_topics(): (block, row) -> doc
             self._doc_of_row = np.full((nb_pad, MAXD), -1, np.int64)
             valid = self._blk_of_doc >= 0
@@ -333,62 +448,159 @@ class LightLDA:
         self._rows = torch.as_tensor(
             (np.arange(nb_pad)[:, None] * MAXD + drel_p).astype(np.int32),
             device=dev)
-        self._z = torch.as_tensor(z0, device=dev)
+        # each replica's blocks of the stream (the whole of it on one)
+        parts = {k: self._split_blocks(v) for k, v in
+                 (("tw", self._tw), ("drel", self._drel),
+                  ("mask", self._mask))}
+        self._consts = [{k: v[d] for k, v in parts.items()}
+                        for d in range(self.n_replicas)]
+        self._ndk_shape = (nb_pad, MAXD, self.K // 128, 128)
+        self._z_l = DataSplit(self._split_blocks(
+            torch.as_tensor(z0, device=dev)))
         self._word_counts_from_z()
         K = self.K
+        rows, z, mask = (t.view(-1) for t in (self._rows, self._z,
+                                               self._mask))
         ndk = torch.zeros(nb_pad * MAXD, K, dtype=torch.int32, device=dev)
-        ndk.view(-1).index_add_(
-            0, self._rows.view(-1).long() * K + self._z.view(-1).long(),
-            self._mask.view(-1))
-        self._ndk = ndk.to(ndk_dtype).view(nb_pad, MAXD, K // 128, 128)
+        ndk.view(-1).index_add_(0, rows.long() * K + z.long(), mask)
+        self._set_ndk(ndk.to(ndk_dtype).view(self._ndk_shape))
         nk = torch.zeros(self.summary.padded_shape, dtype=torch.int32,
                          device=dev)
-        nk.index_add_(0, self._z.view(-1).long(), self._mask.view(-1))
+        nk.index_add_(0, z.long(), mask)
         self.summary.put_raw(nk)
 
+    def _split_blocks(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """A doc-blocked array ``[nb_pad, ...]`` as the parts the replicas
+        own: of each step's ``nbs`` blocks, replica ``d`` owns the
+        contiguous ``q = nbs / D`` blocks ``d`` (the reference's blocks
+        split over ``data``), step after step, ``[steps * q, ...]`` on its
+        device. One replica owns all of ``x``."""
+        D = self.n_replicas
+        if D == 1:
+            return [x]
+        tail = tuple(x.shape[1:])
+        steps = x.view(-1, D, self._nbs // D, *tail)
+        return [steps[:, d].reshape((-1,) + tail).to(self._devs[d])
+                for d in range(D)]
+
+    def _join_blocks(self, parts: List[torch.Tensor]) -> torch.Tensor:
+        """The inverse of :meth:`_split_blocks`, on the first device."""
+        if len(parts) == 1:
+            return parts[0]
+        tail = tuple(parts[0].shape[1:])
+        q = self._nbs // len(parts)
+        return torch.stack([p.to(self.device).view(-1, q, *tail)
+                            for p in parts], 1).reshape((-1,) + tail)
+
+    # -- sampler state: z and the doc-topic counts (app-local) -------------
+
+    @property
+    def _z(self) -> torch.Tensor:
+        """z in the (1, 1) layout, on the first device (replica 0's, or
+        the replicas' blocks joined)."""
+        if self._docblock:
+            return self._join_blocks(self._z_l.parts)
+        return self._z_l.parts[0]
+
+    @property
+    def _ndk(self) -> torch.Tensor:
+        """The doc-topic counts in the (1, 1) layout, on the first
+        device."""
+        if self._docblock:
+            return self._join_blocks(self._ndk_l.parts)
+        return self._ndk_l.parts[0]
+
+    def _set_z(self, z: torch.Tensor) -> None:
+        self._z_l = DataSplit(self._split_blocks(z)) if self._docblock \
+            else Replicated.of(z, self.mesh)
+
+    def _set_ndk(self, ndk: torch.Tensor) -> None:
+        self._ndk_l = DataSplit(self._split_blocks(ndk)) \
+            if self._docblock else Replicated.of(ndk, self.mesh)
+
+    def _token_lanes(self, d: int) -> tuple:
+        """(words, topics, mask) of every token, on replica ``d``'s
+        device: its own whole stream, or every replica's blocks."""
+        if not self._docblock:
+            k = self._consts[d]
+            return k["tw"], self._z_l.parts[d], k["mask"]
+        cols = ([k["tw"] for k in self._consts], self._z_l.parts,
+                [k["mask"] for k in self._consts])
+        return tuple(torch.cat([p.reshape(-1).to(self._devs[d])
+                                for p in parts]) for parts in cols)
+
     def _word_counts_from_z(self) -> None:
-        """Install the word-topic counts of z (in-memory stream): one COO
-        add of (word, topic, mask) per token into a zero table."""
-        nwk = torch.zeros(self.word_topic.storage_shape, dtype=torch.int32,
-                          device=self.device)
-        coo_scatter_add(nwk, self._tw.view(-1), self._z.view(-1),
-                        self._mask.view(-1))
-        self.word_topic.put_raw(nwk)
+        """Install the word-topic counts of z on every replica: one COO add
+        of (word, topic, mask) per token into a zero table (the mesh form
+        on a split one)."""
+        views = []
+        for d, devs in enumerate(self.word_topic.replica_devices):
+            shards = core.sharded_zeros(self.word_topic.storage_shape,
+                                        torch.int32, devs)
+            view = shards[0] if len(shards) == 1 else ShardedParam(shards)
+            tk.coo_scatter_add(view, *self._token_lanes(d))
+            views.append(view)
+        self.word_topic.put_views(views)
 
     def _init_counts(self) -> None:
         """Counts of the initial z (shuffled-stream modes)."""
         self._word_counts_from_z()
         K = self.K
-        ndk = torch.zeros(self._ndk.shape[0], K, dtype=torch.int32,
+        z = self._z
+        ndk = torch.zeros(self._ndk_shape[0], K, dtype=torch.int32,
                           device=self.device)
-        ndk.view(-1).index_add_(0, self._td.long() * K + self._z.long(),
+        ndk.view(-1).index_add_(0, self._td.long() * K + z.long(),
                                 self._mask)
-        self._ndk = ndk.to(self._ndk.dtype).view(self._ndk.shape)
+        self._set_ndk(ndk.to(self._ndk_dtype).view(self._ndk_shape))
         nk = torch.zeros(self.summary.padded_shape, dtype=torch.int32,
                          device=self.device)
-        nk.index_add_(0, self._z.long(), self._mask)
+        nk.index_add_(0, z.long(), self._mask)
         self.summary.put_raw(nk)
 
-    # -- uniforms ----------------------------------------------------------
+    # -- draws ---------------------------------------------------------------
+
+    def _generator(self, call_no: int, stream: int) -> torch.Generator:
+        return core.generator(self.config.seed * 0x9E3779B1 + call_no
+                              + (stream << 48), device=self.device)
 
     def uniforms(self, call_no: int) -> torch.Tensor:
         """The call's uniforms, ``[S, n, B]`` float32 (n = 1 for gibbs, 2
-        for the kernel samplers), drawn on the device from a generator
-        seeded by (seed, call number)."""
+        for the kernel samplers, 5 per round for mh: the word proposal's
+        target and acceptance, the doc proposal's slot, mixture choice and
+        acceptance), drawn on the device from a generator seeded by (seed,
+        call number)."""
         c = self.config
-        n = 1 if c.sampler == "gibbs" else 2
-        gen = core.generator(c.seed * 0x9E3779B1 + call_no,
-                             device=self.device)
+        n = {"gibbs": 1, "mh": 5 * c.mh_steps}.get(c.sampler, 2)
         return torch.rand((c.steps_per_call, n, c.batch_tokens),
-                          generator=gen, device=self.device)
+                          generator=self._generator(call_no, 0),
+                          device=self.device)
 
-    def _call_uniforms(self, uniforms: Optional[Uniforms]) -> torch.Tensor:
+    def integers(self, call_no: int) -> torch.Tensor:
+        """mh: the call's uniform topics of the doc proposals, ``[S,
+        mh_steps, B]`` int32 in ``[0, K)``, from a generator of its own."""
+        c = self.config
+        return torch.randint(0, self.K, (c.steps_per_call, c.mh_steps,
+                                         c.batch_tokens),
+                             generator=self._generator(call_no, 1),
+                             device=self.device, dtype=torch.int32)
+
+    def _call_draws(self, uniforms: Optional[Uniforms],
+                    integers: Optional[Integers]) -> list:
+        """The next call's draws (the app's own, or the caller's), each
+        split over the data axis along its lanes."""
         call_no = self._calls_done
         self._calls_done += 1
-        if uniforms is None:
-            return self.uniforms(call_no)
-        return core.place(uniforms(call_no), dtype=torch.float32,
-                          device=self.device)
+        u = self.uniforms(call_no) if uniforms is None else core.place(
+            uniforms(call_no), dtype=torch.float32, device=self.device)
+        draws = [u]
+        if self.config.sampler == "mh":
+            draws.append(self.integers(call_no) if integers is None
+                         else core.place(integers(call_no),
+                                         dtype=torch.int32,
+                                         device=self.device))
+        if self.n_replicas > 1:
+            draws = [DataSplit.of(x, self.mesh, axis=2) for x in draws]
+        return draws
 
     def _sinv(self, nk: torch.Tensor) -> torch.Tensor:
         """1 / (summary + V*beta) as the kernels' [C, 128] float32."""
@@ -396,27 +608,45 @@ class LightLDA:
                       + self.V * self.beta)
 
     # -- superstep bodies --------------------------------------------------
+    #
+    # A body runs once per replica (once off a data axis). In the shuffled-
+    # stream modes ``lo`` is the call's first stream position; the replica
+    # samples its lanes ``mine`` of each step and moves every lane's counts.
+
+    def _lanes(self, u: torch.Tensor) -> Tuple[dict, slice]:
+        """The running replica's constants and its lanes of a step."""
+        d = replica_index()
+        b = u.shape[-1]
+        return self._consts[d], slice(d * b, (d + 1) * b)
+
+    @staticmethod
+    def _move(nwk, ndk, nk, w, d, topics, delta) -> None:
+        """Every lane's count move of one step, on this replica's copies:
+        the word counts through the COO kernel, the doc counts and the
+        summary in plain torch."""
+        tk.coo_scatter_add(nwk, w, topics, delta)
+        t = topics.long()
+        ndk.index_put_((d.long(), t), delta, accumulate=True)
+        nk.index_add_(0, t, delta)
 
     def _gibbs_body(self, params, states, locals_, options, lo: int, u):
         """Exact collapsed Gibbs, plain torch: S steps of B tokens from
         stream position ``lo``."""
         c = self.config
-        nwk, nk = params
+        nwk, nk = params[0], _whole(params[1])
         ndk, z = locals_
+        k, mine = self._lanes(u)
         K, B = self.K, c.batch_tokens
         vbeta = self.V * self.beta
         ft = torch.bfloat16 if c.precision == "bfloat16" else torch.float32
         for s in range(c.steps_per_call):
             sl = slice(lo + s * B, lo + (s + 1) * B)
-            w, d = self._tw[sl].long(), self._td[sl].long()
-            one = self._mask[sl]
-            zi = z[sl].long()
+            w, d, one = k["tw"][sl], k["td"][sl], k["mask"][sl]
+            zi = z[sl]
             # remove the batch's own counts (proper collapsed Gibbs)
-            nwk.index_put_((w, zi), -one, accumulate=True)
-            ndk.index_put_((d, zi), -one, accumulate=True)
-            nk.index_add_(0, zi, -one)
-            A = ndk.index_select(0, d).to(ft)
-            W = nwk.index_select(0, w).to(ft)
+            self._move(nwk, ndk, nk, w, d, zi, -one)
+            A = ndk.index_select(0, d[mine].long()).to(ft)
+            W = gather_rows(nwk, w[mine]).to(ft)
             Sd = (nk[:K].to(torch.float32) + vbeta).to(ft)
             # linear-space posterior + inverse-CDF draw; batch-stale
             # decrements can dip below zero: clamp (AD-LDA)
@@ -424,11 +654,88 @@ class LightLDA:
                                     0.0) / Sd
             cdf = torch.cumsum(probs, 1)
             t = u[s, 0].to(ft)[:, None] * cdf[:, -1:]
-            znew = (cdf < t).sum(1).clamp_max(K - 1)
-            nwk.index_put_((w, znew), one, accumulate=True)
-            ndk.index_put_((d, znew), one, accumulate=True)
-            nk.index_add_(0, znew, one)
-            z[sl] = znew.to(torch.int32)
+            znew = replica_cat((cdf < t).sum(1).clamp_max(K - 1)
+                               .to(torch.int32))
+            self._move(nwk, ndk, nk, w, d, znew, one)
+            z[sl] = znew
+        return (nwk, nk), states, (ndk, z), None
+
+    def _mh_body(self, params, states, locals_, options, lo: int, u, ints,
+                 wcdf, nwk_stale):
+        """LightLDA's Metropolis-Hastings sampler (the reference's
+        ``_build_mh_superstep``): per step the batch's own counts leave
+        the tables, then ``mh_steps`` rounds of a word proposal and a doc
+        proposal, each accepted against the live counts; ``wcdf`` and
+        ``nwk_stale`` are the sweep's stale word CDF and counts. No
+        ``[B, K]`` tensor: every count is a single-element read."""
+        c = self.config
+        nwk, nk = params[0], _whole(params[1])
+        ndk, z = locals_
+        k, mine = self._lanes(u)
+        K, B = self.K, c.batch_tokens
+        alpha, beta, vbeta = self.alpha, self.beta, self.V * self.beta
+        f32 = torch.float32
+        # K * alpha as the reference's float32 operand
+        ka = torch.tensor(K * alpha, dtype=f32, device=u.device)
+        n_search = max(1, (K - 1).bit_length())
+        last = torch.full((u.shape[-1],), K - 1, dtype=torch.long,
+                          device=u.device)
+        for s in range(c.steps_per_call):
+            sl = slice(lo + s * B, lo + (s + 1) * B)
+            w_all, d_all, one = k["tw"][sl], k["td"][sl], k["mask"][sl]
+            zi_all = z[sl]
+            self._move(nwk, ndk, nk, w_all, d_all, zi_all, -one)
+            w, d, zi = (x[mine].long() for x in (w_all, d_all, zi_all))
+
+            def p_live(t):
+                # the collapsed posterior from the LIVE counts (own token
+                # removed); transient negatives clamped (AD-LDA)
+                return (torch.clamp_min(ndk[d, t].to(f32) + alpha, 1e-12)
+                        * torch.clamp_min(_elements(nwk, w, t).to(f32)
+                                          + beta, 1e-12)
+                        / torch.clamp_min(nk[t].to(f32) + vbeta, 1e-12))
+
+            def q_word(t):
+                # the stale proposal density, from the pre-sweep counts
+                return _elements(nwk_stale, w, t).to(f32) + beta
+
+            def q_doc(t):
+                # the z-array density: z still holds the own topic zi
+                return ndk[d, t].to(f32) + (t == zi).to(f32) + alpha
+
+            cur = zi
+            wtot = _elements(wcdf, w, last)
+            dlen = k["doc_len"][d].to(f32)
+            dstart = k["doc_start"][d].long()
+            for r in range(c.mh_steps):
+                u_target, u_word, u_slot, u_mix, u_doc = u[s, 5 * r:5 * r + 5]
+                # word proposal: binary search of the stale CDF
+                target = u_target * wtot
+                low, high = torch.zeros_like(cur), torch.full_like(cur, K)
+                for _ in range(n_search):
+                    mid = (low + high) // 2
+                    go = _elements(wcdf, w, mid.clamp_max(K - 1)) < target
+                    low = torch.where(go, mid + 1, low)
+                    high = torch.where(go, high, mid)
+                prop = low.clamp(0, K - 1)
+                ratio = p_live(prop) * q_word(cur) \
+                    / (p_live(cur) * q_word(prop))
+                cur = torch.where(u_word < ratio, prop, cur)
+                # doc proposal: a random slot of the doc's tokens, or
+                # (with the alpha mass) a uniform topic
+                pa = ka / (dlen + ka)
+                slot = torch.minimum((u_slot * dlen).to(torch.int32),
+                                     torch.clamp_min(dlen.to(torch.int32)
+                                                     - 1, 0))
+                zslot = z[k["inv_perm"][dstart + slot].long()].long()
+                prop = torch.where(u_mix < pa, ints[s, r].long(), zslot)
+                ratio = p_live(prop) * q_doc(cur) / torch.clamp_min(
+                    p_live(cur) * q_doc(prop), 1e-20)
+                cur = torch.where(u_doc < ratio, prop, cur)
+            znew = replica_cat(torch.where(one[mine] > 0, cur, zi)
+                               .to(torch.int32))
+            self._move(nwk, ndk, nk, w_all, d_all, znew, one)
+            z[sl] = znew
         return (nwk, nk), states, (ndk, z), None
 
     def _tiled_body(self, params, states, locals_, options, lo: int, u,
@@ -439,52 +746,63 @@ class LightLDA:
         mirror) leaves them to the sweep-end rebuild."""
         c = self.config
         K, B = self.K, c.batch_tokens
-        nk = params[-1]
+        nk = _whole(params[-1])
         ndk3, z = locals_
         nwk3 = None if wstale is not None else params[0]
+        k, mine = self._lanes(u)
+        b = u.shape[-1]
         ndk_flat = ndk3.view(-1)
         for s in range(c.steps_per_call):
             sl = slice(lo + s * B, lo + (s + 1) * B)
-            w, d, msk = self._tw[sl], self._td[sl], self._mask[sl]
+            w, d, msk = k["tw"][sl], k["td"][sl], k["mask"][sl]
             zi = z[sl]
-            W3 = gather_rows(nwk3 if wstale is None else wstale, w)
-            A3 = gather_rows(ndk3, d)
+            W3 = gather_rows(nwk3 if wstale is None else wstale, w[mine])
+            A3 = gather_rows(ndk3, d[mine])
             znew, nkd = gibbs_sample_tiled(
-                A3.view(B, -1, 128), W3.view(B, -1, 128), self._sinv(nk),
-                zi, msk, u[s, 0], u[s, 1], alpha=self.alpha, beta=self.beta)
+                A3.view(b, -1, 128), W3.view(b, -1, 128), self._sinv(nk),
+                zi[mine], msk[mine], u[s, 0], u[s, 1], alpha=self.alpha,
+                beta=self.beta)
+            znew = replica_cat(znew)
             one = msk.to(ndk3.dtype)
             dk = d.long() * K
             ndk_flat.index_add_(0, dk + zi.long(), -one)
             ndk_flat.index_add_(0, dk + znew.long(), one)
-            nk[:K] += nkd.view(-1)
+            nk[:K] += replica_sum(nkd).view(-1)
             if nwk3 is not None:
-                coo_scatter_add(nwk3, torch.cat([w, w]),
-                                torch.cat([zi, znew]),
-                                torch.cat([-msk, msk]))
+                tk.coo_scatter_add(nwk3, torch.cat([w, w]),
+                                   torch.cat([zi, znew]),
+                                   torch.cat([-msk, msk]))
             z[sl] = znew
-        return params, states, (ndk3, z), None
+        new = (nk,) if nwk3 is None else (nwk3, nk)
+        return new, states, (ndk3, z), None
 
-    def _docblock_body(self, params, states, locals_, options, lo: int, u,
+    def _docblock_body(self, params, states, locals_, options, t0: int, u,
                        wstale):
-        """The production step: per step, the doc-blocked kernel over the
-        step's B / TB blocks (from block ``lo``), which reads the tokens'
-        word rows from the bf16 mirror itself and moves their doc counts
-        in place."""
+        """The production step: per step ``t0 + s``, the doc-blocked
+        kernel over this replica's ``q`` blocks of the step, which reads
+        the tokens' word rows from the bf16 mirror itself (on a split
+        mirror, from rows the mesh gather fetched) and moves their doc
+        counts in place."""
         c = self.config
-        (nk,) = params
+        nk = _whole(params[0])
         ndk, z = locals_
-        B, nbs, TB = c.batch_tokens, self._nbs, self._tb
+        k = self._consts[replica_index()]
+        TB = self._tb
+        q = self._nbs // self.n_replicas
+        b = q * TB
         for s in range(c.steps_per_call):
-            off = lo + s * nbs
-            blocks = slice(off, off + nbs)
+            blocks = slice((t0 + s) * q, (t0 + s + 1) * q)
+            words = k["tw"][blocks].reshape(b)
+            W = wstale
+            if isinstance(wstale, ShardedParam):
+                W, words = gather_rows(wstale, words).view(b, -1, 128), None
             _, znew, nkd = gibbs_sample_docblock(
-                ndk[blocks], wstale, self._sinv(nk),
-                z[blocks].reshape(B), self._drel[blocks].reshape(B),
-                self._mask[blocks].reshape(B), u[s, 0], u[s, 1],
-                alpha=self.alpha, beta=self.beta, tb=TB,
-                words=self._tw[blocks].reshape(B))
-            z[blocks] = znew.view(nbs, TB)
-            nk[:self.K] += nkd.view(-1)
+                ndk[blocks], W, self._sinv(nk), z[blocks].reshape(b),
+                k["drel"][blocks].reshape(b), k["mask"][blocks].reshape(b),
+                u[s, 0], u[s, 1], alpha=self.alpha, beta=self.beta, tb=TB,
+                words=words)
+            z[blocks] = znew.view(q, TB)
+            nk[:self.K] += replica_sum(nkd).view(-1)
         return (nk,), states, (ndk, z), None
 
     def _stream_body(self, params, states, locals_, options, wstale,
@@ -569,7 +887,7 @@ class LightLDA:
                 host.numpy().reshape(-1, TB)
 
         for k, staged in self._stream_calls():
-            u = self._call_uniforms(uniforms)
+            (u,) = self._call_draws(uniforms, None)
             (acc,), z_out = self._fused((acc,), wstale, staged, u)
             pending.append((k, z_out.to("cpu", non_blocking=True),
                             _record_events([self.device])))
@@ -581,31 +899,53 @@ class LightLDA:
 
     # -- training ----------------------------------------------------------
 
-    def sweep(self, uniforms: Optional[Uniforms] = None) -> None:
-        """One full sampling pass over the corpus. ``uniforms`` (optional)
-        maps a call number to that call's ``[S, n, B]`` uniforms and
-        replaces the app's own draws (see :meth:`uniforms`)."""
+    def _word_views(self) -> list:
+        """Each replica's word table as a superstep body reads it."""
+        return [self.word_topic.superstep_view(d)[0]
+                for d in range(self.word_topic.n_replicas)]
+
+    def _sweep_inputs(self) -> tuple:
+        """The per-sweep inputs of each replica, from its own word table:
+        the stale modes' bf16 mirror, or mh's stale word CDF over
+        ``max(N_wk, 0) + beta`` (the reference's per-slice alias tables)
+        and its copy of the counts."""
+        views = self._word_views()
+        if self._stale:
+            return (Replicated([_per_shard(v, lambda t: t.to(torch.bfloat16))
+                                for v in views]),)
+        if self.config.sampler != "mh":
+            return ()
+        beta = self.beta
+        return (Replicated([_per_shard(v, lambda t: torch.cumsum(
+                    torch.clamp_min(t.to(torch.float32), 0.0) + beta, 1))
+                    for v in views]),
+                Replicated([_per_shard(v, torch.clone) for v in views]))
+
+    def sweep(self, uniforms: Optional[Uniforms] = None,
+              integers: Optional[Integers] = None) -> None:
+        """One full sampling pass over the corpus. ``uniforms`` (and, for
+        mh, ``integers``) map a call number to that call's draws and
+        replace the app's own (see :meth:`uniforms`, :meth:`integers`)."""
         c = self.config
         if self._docblock and c.stream_blocks:
             self._sweep_streamed(uniforms)
             return
-        # a call's first block (doc-blocked) or stream position
-        per_call = self._per_call if self._docblock \
+        # a call's first step (doc-blocked) or stream position
+        per_call = c.steps_per_call if self._docblock \
             else c.batch_tokens * c.steps_per_call
-        # the stale modes read word rows from a bf16 mirror of the table
-        mirror = (self.word_topic.raw().to(torch.bfloat16),) \
-            if self._stale else ()
+        extra = self._sweep_inputs()
         for call in range(self.calls_per_sweep):
-            u = self._call_uniforms(uniforms)
-            (self._ndk, self._z), _ = self._fused(
-                (self._ndk, self._z), call * per_call, u, *mirror)
+            draws = self._call_draws(uniforms, integers)
+            (self._ndk_l, self._z_l), _ = self._fused(
+                (self._ndk_l, self._z_l), call * per_call, *draws, *extra)
         if self._stale:
             # fold the sweep's moves into the int32 table (the reference's
             # block-end Add of accumulated deltas)
             self._word_counts_from_z()
 
     def train(self, num_iterations: Optional[int] = None,
-              uniforms: Optional[Uniforms] = None) -> float:
+              uniforms: Optional[Uniforms] = None,
+              integers: Optional[Integers] = None) -> float:
         """Run Gibbs sweeps; returns the final per-token log-likelihood.
         Eval runs every ``eval_every`` sweeps and on the last."""
         c = self.config
@@ -614,7 +954,7 @@ class LightLDA:
         every = max(c.eval_every, 1)
         t0 = time.perf_counter()
         for it in range(iters):
-            self.sweep(uniforms)
+            self.sweep(uniforms, integers)
             if c.checkpoint_interval > 0 and c.checkpoint_prefix \
                     and (it + 1) % c.checkpoint_interval == 0:
                 self.store(c.checkpoint_prefix)
@@ -636,7 +976,7 @@ class LightLDA:
         """The predictive log-likelihood of one call's tokens, summed in
         float32 over chunks of ~64k tokens (eval rows stay bounded)."""
         K = self.K
-        S = self.summary.raw()[:K].to(torch.float32)
+        S = self.summary.get_tensor().to(torch.float32)
         n = _eval_chunk(ws.shape[0])
         tot = torch.zeros((), dtype=torch.float32, device=self.device)
         for lo in range(0, ws.shape[0], n):
@@ -650,10 +990,10 @@ class LightLDA:
 
     def loglik(self) -> float:
         """Mean per-token predictive log-likelihood (the reference's
-        `Eval` role) over the device-resident stream."""
+        `Eval` role) over the device-resident stream, from replica 0."""
         c = self.config
         K = self.K
-        nwk = self.word_topic.raw()
+        nwk = self.word_topic.superstep_view(0)[0]
         total = 0.0
         if self._docblock and c.stream_blocks:
             S, B, TB, MAXD = (c.steps_per_call, c.batch_tokens, self._tb,
@@ -670,22 +1010,21 @@ class LightLDA:
                                                 tw, r, msk))
             return total / max(self.num_tokens, 1)
         call_tokens = c.batch_tokens * c.steps_per_call
+        ndk_flat = self._ndk.view(-1, K)
         if self._docblock:
-            ndk_flat = self._ndk.view(-1, K)
             ws, rows, ms = (t.view(-1) for t in (self._tw, self._rows,
                                                  self._mask))
         else:
-            ndk_flat = self._ndk.view(-1, K)
             ws, rows, ms = self._tw, self._td, self._mask
         for lo in range(0, ws.shape[0], call_tokens):
             sl = slice(lo, lo + call_tokens)
-            if c.sampler == "gibbs":
+            if c.sampler in ("gibbs", "mh"):
                 # the reference's one-shot gibbs eval: no chunks
                 A = ndk_flat.index_select(0, rows[sl].long()).to(
                     torch.float32)
-                W = nwk.index_select(0, ws[sl].long()).to(torch.float32)
+                W = gather_rows(nwk, ws[sl]).to(torch.float32)
                 total += float(_predictive_ll(
-                    A, W, self.summary.raw()[:K].to(torch.float32),
+                    A, W, self.summary.get_tensor().to(torch.float32),
                     ms[sl].to(torch.float32), self.alpha, self.beta, K,
                     self.V * self.beta))
             else:
@@ -707,16 +1046,16 @@ class LightLDA:
                 valid = (tw != self._scratch_word) & (docs >= 0)
                 np.add.at(out, (docs[valid], z[valid]), 1)
             return out
+        ndk = self._ndk.cpu().numpy()
         if self._docblock:
-            blocked = self._ndk.cpu().numpy()
             out = np.zeros((self.num_docs, self.K), np.int32)
             valid = self._blk_of_doc >= 0
-            out[valid] = blocked[self._blk_of_doc[valid],
-                                 self._row_of_doc[valid]].reshape(
+            out[valid] = ndk[self._blk_of_doc[valid],
+                             self._row_of_doc[valid]].reshape(
                 int(valid.sum()), self.K)
             return out
-        return self._ndk[: self.num_docs].cpu().numpy().reshape(
-            self.num_docs, self.K).astype(np.int32)
+        return ndk[: self.num_docs].reshape(self.num_docs, self.K).astype(
+            np.int32)
 
     def word_topics(self) -> np.ndarray:
         """[V, K] word-topic counts from the table."""
@@ -756,13 +1095,13 @@ class LightLDA:
         the doc-topic counts (dense [D+1, K])."""
         if self._docblock:
             ndk_dtype = np.int16 if self.config.stream_blocks \
-                else torch.empty(0, dtype=self._ndk.dtype).numpy().dtype
+                else torch.empty(0, dtype=self._ndk_dtype).numpy().dtype
             dense = np.zeros((self.num_docs + 1, self.K), ndk_dtype)
             dense[:self.num_docs] = self.doc_topics()
             layout = "docblock"
         else:
-            dense = self._ndk.cpu().numpy().reshape(self.num_docs + 1,
-                                                    self.K)
+            dense = self._ndk.cpu().numpy().reshape(
+                self.num_docs + 1, self.K)
             layout = "stream"
         z = self._z_numpy()
         manifest = {"magic": STATE_MAGIC,
@@ -836,9 +1175,10 @@ class LightLDA:
 
     def _install_sampler_state(self, z: np.ndarray, dense: np.ndarray) -> None:
         """Install z (in this app's layout, flattened) and the dense doc
-        counts ([D, K] or [D+1, K])."""
+        counts ([D, K] or [D+1, K]) on every replica."""
         streamed = self._docblock and self.config.stream_blocks
-        z_shape = self._z_host.shape if streamed else tuple(self._z.shape)
+        z_shape = self._z_host.shape if streamed \
+            else tuple(self._z.shape)
         if z.size != int(np.prod(z_shape)):
             raise ValueError(
                 f"checkpoint z length {z.size} != app stream "
@@ -850,9 +1190,9 @@ class LightLDA:
             # from it per call
             self._z_host = z
             return
-        self._z = torch.as_tensor(z, device=self.device)
+        self._set_z(torch.as_tensor(z, device=self.device))
         dense = dense[:self.num_docs].reshape(self.num_docs, self.K)
-        np_dtype = torch.empty(0, dtype=self._ndk.dtype).numpy().dtype
+        np_dtype = torch.empty(0, dtype=self._ndk_dtype).numpy().dtype
         if self._docblock:
             blocked = np.zeros((self._nb_pad * self._maxd, self.K),
                                np_dtype)
@@ -860,13 +1200,11 @@ class LightLDA:
             rows = (self._blk_of_doc[valid] * self._maxd
                     + self._row_of_doc[valid])
             blocked[rows] = dense[valid]
-            self._ndk = torch.as_tensor(blocked, device=self.device).view(
-                self._ndk.shape)
         else:
-            full = np.zeros((self.num_docs + 1, self.K), np_dtype)
-            full[:self.num_docs] = dense
-            self._ndk = torch.as_tensor(full, device=self.device).view(
-                self._ndk.shape)
+            blocked = np.zeros((self.num_docs + 1, self.K), np_dtype)
+            blocked[:self.num_docs] = dense
+        self._set_ndk(torch.as_tensor(blocked, device=self.device).view(
+            self._ndk_shape))
 
     def load_numpy(self, state) -> None:
         """Install ``{"z", "ndk", "word_topic", "summary"}`` numpy state,
@@ -876,8 +1214,27 @@ class LightLDA:
         load_lightlda(self, state)
 
 
+USAGE = """python -m multiverso_tpu_torch.apps.lightlda -input_file=PATH
+    [-num_topics=100] [-alpha=-1 (50/K)] [-beta=0.01]
+    [-num_iterations=10] [-eval_every=1] [-batch_tokens=4096]
+    [-steps_per_call=16] [-sampler=gibbs|mh|tiled] [-mh_steps=2]
+    [-stale_words=false] [-doc_blocked=false] [-block_tokens=512]
+    [-block_docs=16] [-stream_blocks=false] [-seed=0]
+    [-output_file=PREFIX] [-dump_file=PATH] [-checkpoint_interval=0]
+    [-data_parallel=0] [-model_parallel=1] [-device=cpu]
+
+The mesh is -data_parallel x -model_parallel over every CUDA device, or
+over one device repeated with -device (-device=cpu: the CPU); with a data
+axis above 1 each row of the mesh holds a replica of the tables and
+samples its share of every batch (-batch_tokens must divide by it, and
+in doc-blocked mode the blocks of a step). -stream_blocks runs on one
+device only. Not ported: -local_corpus and the multi-process runs, and
+the fault-tolerance run flags."""
+
+
 def main(argv=None) -> None:
-    """CLI mirroring the reference lightlda binary's flags."""
+    """CLI mirroring the reference lightlda binary's flags; ``-help``
+    prints them."""
     from multiverso_tpu_torch.utils import configure
     flags = [
         (configure.define_string, "input_file", "",
@@ -897,7 +1254,10 @@ def main(argv=None) -> None:
         (configure.define_string, "dump_file", "",
          "sparse text model dump (word k:count ...)"),
         (configure.define_string, "sampler", "gibbs",
-         "gibbs | tiled (K%128==0; sampler kernel)"),
+         "gibbs | mh (Metropolis-Hastings) | tiled (K%128==0; sampler "
+         "kernel)"),
+        (configure.define_int, "mh_steps", 2,
+         "mh: rounds of word + doc proposal per token"),
         (configure.define_bool, "stale_words", False,
          "tiled: bf16 word mirror"),
         (configure.define_bool, "doc_blocked", False,
@@ -907,20 +1267,29 @@ def main(argv=None) -> None:
         (configure.define_int, "block_docs", 16,
          "doc_blocked: docs per block"),
         (configure.define_bool, "stream_blocks", False,
-         "doc_blocked: host-resident stream and z"),
+         "doc_blocked: host-resident stream and z (one device)"),
         (configure.define_int, "seed", 0, "random seed"),
         (configure.define_string, "device", "",
-         "torch device (default cuda:0)"),
+         "one torch device for every shard (default: the CUDA devices as "
+         "a mesh of -data_parallel x -model_parallel)"),
         (configure.define_int, "checkpoint_interval", 0,
          "store -output_file every N sweeps (0 = only at end)"),
     ]
     for define, name, default, help_str in flags:
         define(name, default, help_str, overwrite=True)
-    configure.parse_flags(argv or [])
-    core.init(device=configure.get_flag("device") or None)
+    argv = list(argv or [])
+    if any(a.lstrip("-") in ("help", "h") for a in argv):
+        print(USAGE + "\n\n" + configure.describe_flags())
+        return
+    configure.parse_flags(argv)
     path = configure.get_flag("input_file")
     if not path:
-        raise SystemExit("-input_file is required")
+        raise SystemExit(f"-input_file is required\n\n{USAGE}")
+    dp = configure.get_flag("data_parallel")
+    mp = configure.get_flag("model_parallel")
+    dev = configure.get_flag("device")
+    mesh = core.init(devices=[dev] * (max(dp, 1) * mp) if dev else None,
+                     data_parallel=dp, model_parallel=mp)
     tw, td, vocab = load_docs(path)
     a = configure.get_flag("alpha")
     cfg = LDAConfig(
@@ -932,6 +1301,7 @@ def main(argv=None) -> None:
         num_iterations=configure.get_flag("num_iterations"),
         eval_every=configure.get_flag("eval_every"),
         sampler=configure.get_flag("sampler"),
+        mh_steps=configure.get_flag("mh_steps"),
         stale_words=configure.get_flag("stale_words"),
         doc_blocked=configure.get_flag("doc_blocked"),
         block_tokens=configure.get_flag("block_tokens"),
@@ -941,7 +1311,7 @@ def main(argv=None) -> None:
         checkpoint_prefix=configure.get_flag("output_file"),
         checkpoint_interval=configure.get_flag("checkpoint_interval"),
     )
-    app = LightLDA(tw, td, vocab, cfg)
+    app = LightLDA(tw, td, vocab, cfg, mesh=mesh)
     app.train()
     out = configure.get_flag("output_file")
     if out and app._last_store != (out, app._calls_done):

@@ -37,7 +37,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from multiverso_tpu_torch.ops.table_kernels import _launch
+from multiverso_tpu_torch.ops.table_kernels import _LOCK, _launch
 
 LANES = 128
 WARP = 32
@@ -53,8 +53,9 @@ W_DTYPES = (torch.int32, torch.bfloat16)
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 # -- plain versions ------------------------------------------------------------
@@ -397,7 +398,8 @@ def _docblock_launch(name: str, ndk_blk, W, sinv, zi, drel, msk, u1, u2,
                 c, float(alpha), float(beta), znew.data_ptr(),
                 nkd.data_ptr(), device=W.device, counts=LAUNCHES)
         if words is not None:
-            LAUNCHES["gibbs_sample_docblock_rows"] += 1
+            with _LOCK:     # replica threads launch at once
+                LAUNCHES["gibbs_sample_docblock_rows"] += 1
     return znew, nkd
 
 

@@ -20,7 +20,9 @@ Each wrapper adds one to ``LAUNCHES[<kernel>]`` where it launches its
 kernel, so a run can show that its main path went through the kernels.
 The counts and the row scatter's workspaces are shared by every host
 thread (a superstep over a data axis runs one per replica) and change
-under ``_LOCK`` only.
+under ``_LOCK`` only; a thread queues a row scatter's two kernels under
+``_SCATTER_LOCK``, so that no other scatter on the same workspace comes
+between them.
 
 Layouts: a table is flat ``[R, C]`` or tiled ``[R, C/128, 128]``; both
 are read as the contiguous ``[R, C]`` rows they are. Types: the gather
@@ -71,6 +73,8 @@ MESH_MAX_SHARDS = 16
 
 #: guards LAUNCHES and _WORKSPACES across host threads
 _LOCK = threading.Lock()
+#: held while a thread queues a row scatter's kernels on a workspace
+_SCATTER_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
@@ -150,10 +154,16 @@ def _launch(name: str, fn: str, *args, device: torch.device,
     lib = _build.load()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        if scatter_lanes is not None:
-            ws = _scatter_workspace(scatter_lanes, device, stream)
-            args += (ws.data_ptr(), ws.numel())
-        err = getattr(lib, fn)(*args, stream)
+        if scatter_lanes is None:
+            err = getattr(lib, fn)(*args, stream)
+        else:
+            # the call's two kernels share the stream's workspace: no other
+            # thread's scatter may queue between them (one that did handed
+            # its long runs to this call's second kernel)
+            with _SCATTER_LOCK:
+                ws = _scatter_workspace(scatter_lanes, device, stream)
+                err = getattr(lib, fn)(*args, ws.data_ptr(), ws.numel(),
+                                       stream)
     with _LOCK:
         (LAUNCHES if counts is None else counts)[name] += 1
         if tag is not None:

@@ -8,6 +8,7 @@ from multiverso_tpu_torch.tables.kv_table import KVTable, KVTableOption
 from multiverso_tpu_torch.tables.matrix_table import MatrixTable
 from multiverso_tpu_torch.tables.sparse_matrix_table import SparseMatrixTable
 from multiverso_tpu_torch.tables.superstep import (DataSplit, FusedSuperstep,
+                                                   Replicated,
                                                    coo_scatter_add,
                                                    gather_rows,
                                                    make_superstep,
@@ -15,7 +16,7 @@ from multiverso_tpu_torch.tables.superstep import (DataSplit, FusedSuperstep,
                                                    row_scatter_add)
 
 __all__ = ["ArrayTable", "DataSplit", "FusedSuperstep", "Handle", "KVTable",
-           "KVTableOption", "MatrixTable",
+           "KVTableOption", "MatrixTable", "Replicated",
            "SparseMatrixTable", "Table", "coo_scatter_add", "gather_rows",
            "get_table", "make_superstep", "num_tables", "replica_sum",
            "reset_tables", "row_scatter_add"]

@@ -18,8 +18,8 @@ of the model-axis size (of the model x data product under
 ``shard_update``), subclasses reserving scratch rows. Shard ``s`` holds
 the contiguous row block ``s`` of the padded storage (the reference
 shards its leading dimension over ``model`` the same way); a one-shard
-mesh holds one tensor. On a mesh whose data axis D is above 1 an
-ArrayTable or MatrixTable holds D replicas of that split, as the
+mesh holds one tensor. On a mesh whose data axis D is above 1 a table
+holds D replicas of that split, as the
 reference replicates its tables over ``data``: replica ``d``'s shard
 ``s`` lives on the mesh device ``[d, s]``. Every write keeps the
 replicas bit-identical, and a Get reads replica 0. Under
@@ -235,8 +235,8 @@ class Table:
     ``replica_devices[d]`` (data row ``d``), ``replica_states[d]`` their
     updater state; ``shards`` / ``shard_states`` are replica 0's."""
 
-    #: whether the table holds a replica per row of the data axis
-    #: (SparseMatrixTable holds replica 0 only, on data row 0)
+    #: whether the table holds a replica per row of the data axis (every
+    #: Table does; a KVTable keeps one copy on data row 0)
     REPLICATED = True
 
     def __init__(self, name: str, shape: Tuple[int, ...], dtype: Any,
@@ -500,6 +500,25 @@ class Table:
             raise ValueError(f"table {self.name!r}: put_raw dtype "
                              f"{padded.dtype} != table dtype {self.dtype}")
         self.replicas = self._replicate(padded)
+        with self._option_lock:
+            self.generation += 1
+
+    def put_views(self, views) -> None:
+        """Replace each replica's storage with ``views[d]`` in the form
+        :meth:`superstep_view` gives it (a tensor of the storage shape on
+        a one-shard table, else a ShardedParam of its shards), on that
+        replica's devices; advances the generation as :meth:`put_raw`
+        does. Updater state is untouched."""
+        if len(views) != self.n_replicas:
+            raise ValueError(f"table {self.name!r}: {len(views)} views for "
+                             f"{self.n_replicas} replicas")
+        for d, view in enumerate(views):
+            if view.dtype != self.dtype:
+                raise ValueError(f"table {self.name!r}: put_views dtype "
+                                 f"{view.dtype} != table dtype {self.dtype}")
+            devs = self.replica_devices[d]
+            self.replicas[d] = [view] if len(devs) == 1 \
+                else self._take_shards(view, devs)
         with self._option_lock:
             self.generation += 1
 

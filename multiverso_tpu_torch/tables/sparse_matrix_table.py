@@ -11,7 +11,8 @@ split over the mesh's model axis like every table:
   lanes by row on the host (stable), slices them per shard, each row
   padded to a power of two on its shard's last local row (the last
   shard's is the scratch row), and runs the masked COO kernel per shard
-  (:func:`~multiverso_tpu_torch.ops.table_kernels.coo_scatter_add_sharded`).
+  (:func:`~multiverso_tpu_torch.ops.table_kernels.coo_scatter_add_sharded`)
+  on every replica.
 - :meth:`get_rows_sparse` counts each requested row's nonzeros on the
   device, extracts the top-k entries by magnitude there (k the largest
   count, rounded up to a power of two) and builds the CSR on the host, so
@@ -40,9 +41,9 @@ LANES = 128
 
 
 class SparseMatrixTable(MatrixTable):
-    #: one copy on data row 0 whatever the mesh: its Get/Add equal the
-    #: reference's replicated table (replicas: ROADMAP queue A item 3)
-    REPLICATED = False
+    """On a data axis D above 1 it holds D bit-identical replicas, as
+    every Table does (the reference replicates it over ``data``): each
+    write applies to all of them, a Get reads replica 0."""
 
     def __init__(self, num_rows: int, num_cols: int,
                  dtype: Any = "float32", *, init_value: Any = 0,
@@ -65,10 +66,11 @@ class SparseMatrixTable(MatrixTable):
                 f"SparseMatrixTable supports stateless updaters "
                 f"(default, sgd), got {self.updater.name!r}")
         if tiled:
-            # each shard's rows re-tiled in place (split along rows)
+            # each shard's rows re-tiled in place (split along rows), on
+            # every replica
             self.storage_shape = (self.padded_shape[0], self.tiles, LANES)
-            self.replicas[0] = [p.view(-1, self.tiles, LANES)
-                                for p in self.shards]
+            self.replicas = [[p.view(-1, self.tiles, LANES) for p in shards]
+                             for shards in self.replicas]
 
     # -- COO sparse Add ----------------------------------------------------
 
@@ -108,10 +110,10 @@ class SparseMatrixTable(MatrixTable):
             shard_ids, len(self.shards),
             [local, cols, values.astype(self.np_dtype, copy=False)],
             [np.int32(rps - 1), np.int32(0), 0])
-        tk.coo_scatter_add_sharded(
-            self.shards, *(lanes_on(x, self.devices)
-                           for x in (*sliced, valid)),
-            counts=valid.sum(1))
+        for shards, devs in zip(self.replicas, self.replica_devices):
+            tk.coo_scatter_add_sharded(
+                shards, *(lanes_on(x, devs) for x in (*sliced, valid)),
+                counts=valid.sum(1))
         handle = Handle(table=self, generation=self._bump_step())
         if sync:
             handle.wait()

@@ -35,9 +35,18 @@ one exchange to the next (the GIL would let one queue work at a time
 anyway), and the replicas' queued work runs on their cards at once.
 Replica ``d`` gets its
 own copy of each table (a tensor, or a ShardedParam of data row ``d``'s
-shards), block ``d`` of every input the app split with
-:class:`DataSplit` (the reference's ``P(None, DATA_AXIS, ...)``), and
-every other input whole, on its device. On such a view:
+shards), part ``d`` of every input the app split with
+:class:`DataSplit` (the reference's ``P(None, DATA_AXIS, ...)``) or gave
+each replica with :class:`Replicated`, and every other input whole, on
+its device. The app-local carries ``locals_`` are each a
+:class:`Replicated` (a whole value every replica keeps, the reference's
+``P()``) or a :class:`DataSplit` (the part each replica owns, the
+reference's ``P(DATA_AXIS)``): replica ``d`` gets part ``d`` and returns
+its new part, and the call hands each local back in the kind it came
+(off a data axis a wrapped local is its one part; a plain one goes as it
+is). A whole local's moves over every lane of a step are the body's to
+apply on every replica, each lane once: from lanes every replica holds,
+or from lanes exchanged with :func:`replica_cat`. On a view:
 
 - :func:`gather_rows` reads the replica's own copy and exchanges nothing;
 - :func:`row_scatter_add` and :func:`coo_scatter_add` are the port's
@@ -62,7 +71,8 @@ longer than ``EXCHANGE_TIMEOUT`` seconds for its turn raises
 ``TimeoutError``.
 The body's lanes on a view are taken to be the replica's share of the
 batch: a scatter of lanes every replica holds whole would be applied D
-times.
+times (a body whose replicas each hold every lane applies them with the
+kernels of ``ops.table_kernels`` directly, as LightLDA's does).
 """
 
 from __future__ import annotations
@@ -81,9 +91,9 @@ from multiverso_tpu_torch.ops.table_kernels import ShardedParam, gather_rows
 from multiverso_tpu_torch.tables.base import Handle, Table
 from multiverso_tpu_torch.updaters import AddOption
 
-__all__ = ["DataSplit", "FusedSuperstep", "ShardedParam", "coo_scatter_add",
-           "gather_rows", "make_superstep", "replica_cat", "replica_index",
-           "replica_sum", "row_scatter_add"]
+__all__ = ["DataSplit", "FusedSuperstep", "Replicated", "ShardedParam",
+           "coo_scatter_add", "gather_rows", "make_superstep", "replica_cat",
+           "replica_index", "replica_sum", "row_scatter_add"]
 
 #: seconds a replica waits for its turn before the call fails
 EXCHANGE_TIMEOUT = 300.0
@@ -118,6 +128,26 @@ class DataSplit:
             else:
                 parts.append(block.to(dev).contiguous())
         return cls(parts)
+
+
+class Replicated:
+    """A superstep input or app-local carry that every replica of a data
+    axis holds whole: ``parts[d]`` is replica ``d``'s own copy, on its
+    device (the reference's ``P()`` placement)."""
+
+    def __init__(self, parts: Sequence[Any]) -> None:
+        self.parts = list(parts)
+
+    @classmethod
+    def of(cls, value: torch.Tensor, mesh: Mesh) -> "Replicated":
+        """``value`` on each replica's first device: replica 0's part may
+        share its storage, every other part is a copy."""
+        return cls([value.to(mesh.replica_devices(d)[0], copy=d > 0)
+                    for d in range(mesh.shape[DATA_AXIS])])
+
+
+#: what a superstep hands replica ``d`` of an input or local: part ``d``
+_PER_REPLICA = (DataSplit, Replicated)
 
 
 class _Aborted(Exception):
@@ -339,9 +369,14 @@ def _on(device: torch.device):
         else contextlib.nullcontext()
 
 
+def _part0(value):
+    """What the one replica off a data axis gets of an input or local."""
+    return value.parts[0] if isinstance(value, _PER_REPLICA) else value
+
+
 def _input_for(value, replica: int, device: torch.device):
     """What replica ``replica`` gets of a superstep input."""
-    if isinstance(value, DataSplit):
+    if isinstance(value, _PER_REPLICA):
         return value.parts[replica]
     if isinstance(value, torch.Tensor):
         return value.to(device)
@@ -370,8 +405,8 @@ class FusedSuperstep:
                 raise NotImplementedError(
                     f"superstep {name!r}: {type(t).__name__} {t.name!r} "
                     f"holds no replicas over the data axis of {self.data}"
-                    "; a superstep over it is not ported (ROADMAP queue A "
-                    "item 3)")
+                    "; a superstep over a KVTable on a data axis is not "
+                    "ported (ROADMAP queue A item 4)")
         devs0 = self.tables[0].replica_devices
         for t in self.tables[1:]:
             if t.replica_devices != devs0:
@@ -392,14 +427,21 @@ class FusedSuperstep:
             options = (None,) * len(self.tables)
         opts = tuple(t._resolve_option(o)
                      for t, o in zip(self.tables, options))
+        locals_ = tuple(locals_) if locals_ is not None else ()
         if self.data > 1:
+            for x in locals_:
+                if not isinstance(x, _PER_REPLICA):
+                    raise ValueError(
+                        f"superstep {self.name!r}: on a data axis of "
+                        f"{self.data} an app-local carry is Replicated or "
+                        f"a DataSplit, got {type(x).__name__}")
             outs = self._run_replicas(locals_, opts, inputs)
         else:
             views = [t.superstep_view() for t in self.tables]
             outs = [self._body(
                 tuple(v[0] for v in views), tuple(v[1] for v in views),
-                locals_, opts, *(x.parts[0] if isinstance(x, DataSplit)
-                                 else x for x in inputs))]
+                tuple(_part0(x) for x in locals_), opts,
+                *(_part0(x) for x in inputs))]
         for d, (new_params, new_states, _, _) in enumerate(outs):
             for t, p, s in zip(self.tables, new_params, new_states):
                 t.superstep_update(p, s, replica=d)
@@ -407,16 +449,17 @@ class FusedSuperstep:
             gen = t._bump_step()
             if t is self.tables[0]:
                 self._last_generation = gen
-        return outs[0][2], outs[0][3]
+        # each local handed back as it came: a Replicated or DataSplit of
+        # every replica's returned part, anything else replica 0's
+        new_locals = tuple(
+            type(x)([out[2][i] for out in outs])
+            if isinstance(x, _PER_REPLICA) else outs[0][2][i]
+            for i, x in enumerate(locals_))
+        return new_locals, outs[0][3]
 
     def _run_replicas(self, locals_, opts, inputs) -> list:
         """The body once per replica, each on a thread of its own;
         returns each replica's ``(params, states, locals, aux)``."""
-        if locals_ is not None and len(locals_):
-            raise NotImplementedError(
-                f"superstep {self.name!r}: app-local carries over a data "
-                f"axis of {self.data} are not ported (ROADMAP queue A item "
-                "3)")
         exchange = _Exchange(self.data, EXCHANGE_TIMEOUT)
         outs: list = [None] * self.data
 
@@ -429,7 +472,8 @@ class FusedSuperstep:
                 exchange.start(d)
                 with _on(dev):
                     outs[d] = self._body(
-                        params, tuple(v[1] for v in views), locals_, opts,
+                        params, tuple(v[1] for v in views),
+                        tuple(x.parts[d] for x in locals_), opts,
                         *(_input_for(x, d, dev) for x in inputs))
             except BaseException as e:      # re-raised by the caller
                 exchange.abort(d, e)

@@ -428,6 +428,86 @@ def test_lightlda_on_the_card_matches_cpu(cuda, tmp_path):
                                   np.bincount(td, minlength=a.num_docs))
 
 
+def test_lightlda_mh_on_the_card_matches_cpu(cuda, tmp_path):
+    """sampler="mh" on the card against the same run on the CPU, from the
+    same uniforms and integers: z agrees on at least 99% of tokens (the
+    stale word CDF is a float32 cumulative sum, which the card adds in
+    another order, so a target on a boundary can pick the next topic),
+    and on each device the counts are exactly those of its own z."""
+    from multiverso_tpu_torch.apps.lightlda import (LDAConfig, LightLDA,
+                                                    load_docs)
+    from multiverso_tpu_torch.data import synthetic_docs
+    path = tmp_path / "docs.txt"
+    synthetic_docs(str(path), num_docs=300, vocab_size=500, avg_doc_len=60,
+                   num_topics=10, seed=1)
+    tw, td, vocab = load_docs(str(path))
+    cfg = LDAConfig(num_topics=64, batch_tokens=4096, steps_per_call=2,
+                    seed=2, sampler="mh")
+    apps = [LightLDA(tw, td, vocab, cfg, device=d) for d in (cuda, "cpu")]
+    for _ in range(2):
+        for a in apps:
+            a.sweep(uniforms=apps[1].uniforms, integers=apps[1].integers)
+    z = [a._z_numpy() for a in apps]
+    assert np.mean(z[0] == z[1]) >= 0.99
+    for a, zz in zip(apps, z):
+        nwk = a.word_topics()
+        mask = a._mask.cpu().numpy().astype(bool)
+        want = np.zeros_like(nwk)
+        np.add.at(want, (a._tw.cpu().numpy()[mask], zz[mask]), 1)
+        assert np.array_equal(nwk, want)
+        assert np.array_equal(a.summary.get(), nwk.sum(0))
+        assert np.array_equal(a.doc_topics().sum(1),
+                              np.bincount(td, minlength=a.num_docs))
+
+
+LDA_MODES = {
+    "gibbs": dict(num_topics=64, batch_tokens=4096, steps_per_call=2),
+    "mh": dict(num_topics=64, batch_tokens=4096, steps_per_call=2,
+               sampler="mh"),
+    "tiled": dict(num_topics=256, batch_tokens=4096, steps_per_call=2,
+                  sampler="tiled"),
+    "tiled_stale": dict(num_topics=256, batch_tokens=4096, steps_per_call=2,
+                        sampler="tiled", stale_words=True),
+    "doc_blocked": dict(num_topics=256, batch_tokens=4096, steps_per_call=2,
+                        sampler="tiled", doc_blocked=True, block_tokens=256,
+                        block_docs=8),
+}
+
+
+@pytest.mark.parametrize("mode", sorted(LDA_MODES))
+def test_lightlda_mesh_on_the_card_matches_one_device(cuda, tmp_path, mode):
+    """Each mode on a (2, 2) mesh of the card (replica d on cuda:{d %
+    cards}) against its (1, 1) run, fed the app's own draws: z, the word
+    and doc counts, the summary and the loglik bit for bit after two
+    sweeps, and the replicas of the tables and of z identical."""
+    from multiverso_tpu_torch import core
+    from multiverso_tpu_torch.apps.lightlda import (LDAConfig, LightLDA,
+                                                    load_docs)
+    from multiverso_tpu_torch.data import synthetic_docs
+    path = tmp_path / "docs.txt"
+    synthetic_docs(str(path), num_docs=300, vocab_size=500, avg_doc_len=60,
+                   num_topics=10, seed=1)
+    tw, td, vocab = load_docs(str(path))
+    n = torch.cuda.device_count()
+    out = []
+    for rows in ([["cuda:0"]], [[f"cuda:{d % n}"] * 2 for d in range(2)]):
+        app = LightLDA(tw, td, vocab, LDAConfig(seed=2, **LDA_MODES[mode]),
+                       mesh=core.Mesh(rows))
+        app.train(num_iterations=2)
+        for table in (app.word_topic, app.summary):
+            for shards in table.replicas[1:]:
+                assert all(_same_bits(a, b) for a, b in
+                           zip(shards, table.replicas[0]))
+        parts = app._z_l.parts
+        if not app._docblock:
+            assert all(_same_bits(p, parts[0]) for p in parts[1:])
+        out.append((app._z_numpy(), app.word_topics(), app.doc_topics(),
+                    app.summary.get(), app.ll_history))
+    for a, b in zip(out[0][:4], out[1][:4]):
+        assert np.array_equal(a, b)
+    assert out[0][4] == out[1][4]
+
+
 # -- KVTable kernels -------------------------------------------------------------
 
 KV_UPDATERS = ["default", "sgd", "adagrad", "momentum", "adam", "ftrl"]
@@ -1863,3 +1943,91 @@ def test_dense_logreg_on_the_card_matches_the_cpu(cuda, updater):
     replicas = apps[2].table.replicas
     assert all(_same_bits(r[0], replicas[0][0]) for r in replicas[1:])
     np.testing.assert_array_equal(apps[0].predict(X), apps[1].predict(X))
+
+
+class _FreeRunningExchange:
+    """Built in the test: ``tables.superstep._Exchange`` with its turns
+    taken out. Every replica thread runs at once from its start, and an
+    exchange waits only until every replica has posted to its round."""
+
+    @staticmethod
+    def make():
+        import time
+        from multiverso_tpu_torch.tables import superstep as ss
+
+        class FreeRunning(ss._Exchange):
+            def start(self, replica):
+                pass
+
+            def _hand_on(self, replica):
+                self._wake_all()
+
+            def finish(self, replica):
+                with self._lock:
+                    self._done[replica] = True
+                    self._wake_all()
+
+            def _wait(self, replica, posts=None, k=0):
+                deadline = time.monotonic() + self.timeout
+                while True:
+                    if self.error is not None:
+                        raise ss._Aborted()
+                    if posts is None or all(p is not None for p in posts):
+                        return
+                    if any(p is None and self._done[r]
+                           for r, p in enumerate(posts)):
+                        self._fail(RuntimeError("a replica returned early"))
+                    left = deadline - time.monotonic()
+                    if left <= 0:
+                        self._fail(TimeoutError("exchange timed out"))
+                    self._conds[replica].wait(left)
+
+        return FreeRunning
+
+
+def test_free_running_replicas_stay_identical(cuda, tmp_path, monkeypatch):
+    """Fault F2: word2vec's (4, 1) replicas with the superstep's turns
+    taken out, so that the four replica threads queue their work at once.
+    At phase 4's widths (batch 4,096, dim 100, vocab 10k, 5 negatives),
+    the replicas must stay bit-identical after every one of 16 calls, and
+    end equal to the run that takes turns. Without ``_SCATTER_LOCK`` a
+    replica 1 differed after call 10 on an H100: two threads' row
+    scatters on one stream interleaved their two kernels, and the first
+    call's long-run kernel took both calls' long runs from the shared
+    workspace."""
+    from multiverso_tpu_torch import core
+    from multiverso_tpu_torch.apps.word_embedding import (W2VConfig,
+                                                          WordEmbedding)
+    from multiverso_tpu_torch.data import Corpus, synthetic_text
+    from multiverso_tpu_torch.tables import superstep as ss
+    path = str(tmp_path / "c.txt")
+    synthetic_text(path, num_tokens=300_000, vocab_size=10_000, seed=3)
+    n = torch.cuda.device_count()
+    mesh = core.Mesh([[f"cuda:{d % n}"] for d in range(4)])
+    calls, steps = 16, 8
+
+    def run(free):
+        corpus = Corpus.from_file(path, min_count=1)
+        app = WordEmbedding(corpus, W2VConfig(
+            embedding_dim=100, batch_size=4096, steps_per_call=steps,
+            learning_rate=0.01, seed=3), mesh=mesh)
+        batches = iter(corpus.skipgram_batches(4096, window=5, seed=3,
+                                               epochs=50))
+        with monkeypatch.context() as m:
+            if free:
+                m.setattr(ss, "_Exchange", _FreeRunningExchange.make())
+            for call in range(calls):
+                src, tgt = zip(*(next(batches) for _ in range(steps)))
+                app._dispatch(np.stack(src), np.stack(tgt), call, calls)
+                if free:
+                    for key in ("w_in", "w_out"):
+                        table = getattr(app, key)
+                        for d, shards in enumerate(table.replicas[1:], 1):
+                            assert _same_bits(shards[0],
+                                              table.replicas[0][0]), \
+                                f"call {call}: {key} replica {d} differs"
+        return app.w_in.get(), app.w_out.get()
+
+    free, turns = run(True), run(False)
+    for a, b in zip(free, turns):
+        assert a.tobytes() == b.tobytes()

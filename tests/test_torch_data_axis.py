@@ -127,7 +127,10 @@ def test_replicas_live_on_their_data_rows(shape):
         _replicas_identical(t)
     kv = KVTable(64, value_dim=2, mesh=mesh, name="kv")
     sp = SparseMatrixTable(9, 3, "int32", mesh=mesh, name="sp")
-    assert sp.n_replicas == 1 and sp.devices == mesh.shard_devices
+    assert sp.n_replicas == dp and sp.devices == mesh.shard_devices
+    assert [[x.device for x in r] for r in sp.replicas] == \
+        sp.replica_devices
+    _replicas_identical(sp)
     assert kv.devices == mesh.shard_devices
 
 
@@ -461,13 +464,13 @@ def test_superstep_refusals_on_a_data_axis():
     mesh = _tmesh((2, 2))
     t = MatrixTable(8, 2, mesh=mesh, name="t")
     step = make_superstep((t,), lambda p, s, l, o: (p, s, l, None))
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
+    # a local carried over replicas says how: Replicated or DataSplit
+    with pytest.raises(ValueError, match="Replicated or a DataSplit"):
         step((torch.zeros(1),))
     step(())
     assert t.generation == 1
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
-        make_superstep((SparseMatrixTable(8, 2, mesh=mesh, name="s"),),
-                       lambda *a: a)
+    with pytest.raises(NotImplementedError, match="queue A item 4"):
+        make_superstep((KVTable(64, mesh=mesh, name="kv"),), lambda *a: a)
     with pytest.raises(ValueError, match="different devices"):
         make_superstep((t, MatrixTable(8, 2, mesh=_tmesh((1, 2)),
                                        name="u")), lambda *a: a)

@@ -4,9 +4,10 @@ meshes of the same model-axis size.
 The port's tables live on ``["cpu"] * S`` meshes (S model shards, the
 device repeated), where the sharded kernel forms run their plain versions;
 the reference's on (1, S) and 4x2 meshes of its virtual CPU devices, in its
-default CPU engine (XLA). On a 4x2 mesh a port MatrixTable holds a
-replica per data row (``tests/test_torch_data_axis.py``), a
-SparseMatrixTable or KVTable one copy per model shard, on data row 0.
+default CPU engine (XLA). On a 4x2 mesh a port MatrixTable or
+SparseMatrixTable holds a replica per data row
+(``tests/test_torch_data_axis.py``), a KVTable one copy per model shard,
+on data row 0.
 
 Tolerances: geometry, keys, found, ``len()``, overflow verdicts (count and
 bucket ids named), integer tables, row tables under ``default`` / ``sgd``
@@ -345,9 +346,9 @@ def test_whole_table_add_and_param_access(devices):
 
 def test_superstep_refuses_sharded_tables(devices):
     """A superstep takes tables split over the model axis of a (1, S)
-    mesh, and on a (2, 2) mesh a MatrixTable (replicated over the data
-    axis); it refuses a SparseMatrixTable there, which holds no replicas
-    (ROADMAP queue A item 3)."""
+    mesh, and on a (2, 2) mesh a MatrixTable and a SparseMatrixTable
+    (both replicated over the data axis); it refuses a KVTable there,
+    which holds no replicas (ROADMAP queue A item 4)."""
     _, tm = _meshes(devices, (1, 2))
     t = MatrixTable(8, 2, mesh=tm, name="ss_sh")
     make_superstep([t], lambda *a: a)
@@ -356,9 +357,10 @@ def test_superstep_refuses_sharded_tables(devices):
     assert replicated.n_replicas == 2
     make_superstep([replicated], lambda *a: a)
     sparse = SparseMatrixTable(8, 2, "int32", mesh=dp, name="ss_sp")
-    assert sparse.n_replicas == 1
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
-        make_superstep([sparse], lambda *a: a)
+    assert sparse.n_replicas == 2
+    make_superstep([sparse], lambda *a: a)
+    with pytest.raises(NotImplementedError, match="queue A item 4"):
+        make_superstep([KVTable(64, mesh=dp, name="ss_kv")], lambda *a: a)
     one = MatrixTable(8, 2, device="cpu", name="ss_one")
     make_superstep([one], lambda *a: a)
 
