@@ -81,10 +81,11 @@ its seconds):
    the raises (duplicate keys, the empty key, a deferred bucket overflow
    that leaves the table untouched), store -> load, len().
 10. Sparse logistic regression at a Criteo-like width (39 hashed features
-   per sample plus the bias, 2^24 dims, 131,072 samples, minibatch 4,096,
-   ftrl, a 2^25-slot KVTable): 2 epochs of 32 steps; samples/s and mean
+   per sample plus the bias, 2^24 dims, 65,536 samples, minibatch 4,096,
+   ftrl, a 2^25-slot KVTable): 2 epochs of 16 steps; samples/s and mean
    loss per epoch, train accuracy, live keys, peak device memory, launches
-   per step, and one step's host prep against its device time.
+   per step, and one step's host prep against its device time. Its adds
+   (each step's keys and delta) are kept for phase 17.
 11. Tables split over a mesh of four model shards (``SHARDS``; on a
    one-card machine all four on cuda:0) against the same tables
    unsharded: MatrixTable 10,000 x 100 under default, sgd and adagrad
@@ -96,7 +97,9 @@ its seconds):
    SparseMatrixTable add_sparse one launch per card.
 12. Sparse logistic regression of phase 10 on the (1, 4) mesh through
    ``SparseLogisticRegression(cfg, mesh=...)``, from phase 10's data: its
-   final keys, values and state must equal phase 10's bit for bit; the
+   final keys, values and state must equal phase 10's bit for bit, and
+   its train accuracy (the predict path through the sharded lookup at the
+   whole dataset's lanes) phase 10's; the
    same numbers as phase 10, per-device peak memory, and the launches per
    step (one lookup, one probe and one commit per card, 1 of each sharded
    form); with ``--profile`` four steps under the profiler.
@@ -132,18 +135,31 @@ its seconds):
    one warm-up and two timed epochs on one replica and on the (4, 1)
    mesh: samples/s, each epoch's loss (it must fall), the train
    accuracy, the replicas bit-identical. It runs before phase 14.
-16. LightLDA tiled exact, doc-blocked and mh at the LDA metric's widths
-   (V, K, batch 512,000) and phase 8's depth (T 1M, D 10k) on (4, 1),
-   (1, 4) and (2, 2) meshes (replica d on cuda:{d % cards}), each against
-   the (1, 1) run of the same corpus and draws: after a warm-up and three
-   timed sweeps z, the word and doc counts, the summary and the loglik
-   bit for bit, the replicas identical after each sweep, and a sweep's
-   launches as designed (each replica samples its lanes and moves every lane's word
+16. LightLDA tiled exact, doc-blocked (in memory and streamed) and mh at
+   the LDA metric's widths (V, K, batch 512,000) and phase 8's depth (T
+   1M, D 10k) on (4, 1), (1, 4) and (2, 2) meshes (replica d on cuda:{d %
+   cards}), each against the (1, 1) run of the same corpus and draws:
+   after a warm-up and three timed sweeps (the streamed mode two) z, the
+   word and doc counts, the summary and the loglik bit for bit, the
+   replicas identical after each sweep, and a sweep's launches as
+   designed (each replica samples its lanes and moves every lane's word
    counts on its own table: the flat kernels on S = 1, the mesh gather
-   and COO add on S = 4; the doc-blocked kernel reads the mirror's rows
-   itself on S = 1 and takes gathered rows on S > 1). Doc-tokens/s as a
-   ratio of the (1, 1) run's and the host's ms to queue a step. It runs
-   before phase 14.
+   and COO add on S = 4; the doc-blocked kernels read the mirror's rows
+   themselves on S = 1 and take gathered rows on S > 1; the streamed
+   mode stages each replica its lanes of a call and adds every replica's
+   lanes to each replica's word accumulator). Doc-tokens/s as a ratio of
+   the (1, 1) run's and the host's ms to queue a step. It runs before
+   phase 14.
+17. KVTable on a data axis: phase 10's adds replayed on 2^25-slot tables
+   on (4, 1) and (2, 2) meshes of cuda:0, with and without
+   ``shard_update``, under ftrl and adagrad, beside a (1, 1) table fed
+   the same: every Get of an add's keys (and of keys never added) equal
+   to the (1, 1) table's bit for bit, the replicas bit-identical after
+   each add, one probe and one commit a card per add, and each state
+   block holding exactly its buckets. Then phase 10's sparse LR on the
+   (4, 1) mesh: its final table equal to phase 10's bit for bit, the
+   replicas identical, the host's and the device's ms a step beside phase
+   10's, and the card's peak memory. It runs before phase 14.
 14. The row scatter's kernel on phase 2's sorted lanes, and phase 2's KV
    probe + commit calls (the flat form at the sparse-LR step's shapes,
    the sharded form on four shards), taken apart by torch.profiler: each
@@ -157,6 +173,13 @@ padded lanes of about 159,000 keys, half present; the probe + commit
 launched on the real lanes, beside its bound in bytes and in 32-byte
 sectors), the probe + commit under all six updaters, and a small sparse
 LR on the card against the CPU; and
+the KV probe + commit, flat and sharded (S = 4), at bfloat16 and float16
+values under ftrl and adagrad on the same keys and lanes (then under ftrl
+the lookup, flat and sharded, of every key on the table the add left),
+bit for bit against the plain version on the same inputs: under ftrl on
+the CPU, under adagrad on the card; each beside the float32 form's
+time and its bounds in bytes and in 32-byte sectors (one formula for
+every value type); and
 the five sharded forms at S = 4 against their plain versions on the CPU,
 bit for bit: the KV lookup and probe + commit (ftrl) at those shapes on
 four shards of 524,288 buckets (with a batch that overflows one bucket of
@@ -178,8 +201,8 @@ against the same run on a (1, 4) CPU mesh.
 
 Launch counts are set to 0 before each main path (phases 3-4 word2vec,
 4c on each backend, 5, 6, 6b, 7, 8, 10, 11, 12, 13's word2vec and its
-COO superstep, 13b's two meshes, 15, each sweep of 16) and read after
-it. Before the last line the script prints
+COO superstep, 13b's two meshes, 15, each sweep of 16, 17's sparse LR)
+and read after it. Before the last line the script prints
 one ``{"kernels": [...]}`` JSON line and the card's name and power limit;
 the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -860,17 +883,19 @@ def sector_bound_ms(lane_bytes: float, idx) -> float:
 
 
 def kv_sector_bound_ms(real: int, touched: int, cols: int,
-                       n_state: int) -> float:
+                       n_state: int, value_bytes: int = 4) -> float:
     """The KV probe + commit's bound when each 32-byte sector it touches
     moves once: per touched bucket its key row (SLR_SLOTS slots of 8
     bytes) read; per real lane a sector read and written in the values
-    and in each state leaf, the key's sector written, and the lane
-    operands (bucket, query, delta, valid) read with its slot written and
-    read again; over the card's memory rate."""
+    (of ``value_bytes`` an element) and in each float32 state leaf, the
+    key's sector written, and the lane operands (bucket, query, float32
+    delta, valid) read with its slot written and read again; over the
+    card's memory rate."""
     row = -(-SLR_SLOTS * 8 // 32) * 32
     cell = -(-cols * 4 // 32) * 32
+    vcell = -(-cols * value_bytes // 32) * 32
     lane = 4 + 8 + 4 * cols + 1 + 8
-    per_lane = 2 * cell * (1 + n_state) + 32 + lane
+    per_lane = 2 * (vcell + cell * n_state) + 32 + lane
     return (touched * row + real * per_lane) / PEAK_BYTES_PER_S * 1e3
 
 
@@ -1512,7 +1537,8 @@ def phase_lda_streamed(torch, LightLDA, LDAConfig) -> dict:
 
 def bits(torch, t):
     """A float tensor's bit patterns on the host."""
-    return t.detach().contiguous().cpu().view(torch.int32)
+    kind = torch.int16 if t.element_size() == 2 else torch.int32
+    return t.detach().contiguous().cpu().view(kind)
 
 
 def same_bits(torch, a, b) -> bool:
@@ -1583,13 +1609,150 @@ def free_tables(torch) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_kv_kernels(torch, tk, KVTable) -> dict:
-    """Phase 2, the KV kernels vs their plain versions on the CPU at the
-    sparse-LR step's shapes; returns {name: row}."""
+def kv_shards(t, device=None) -> tuple:
+    """Copies of a KVTable's (key, value, state) shard lists, on
+    ``device`` (default: where they lie)."""
+    to = (lambda x: x.to(device)) if device else (lambda x: x.clone())
+    return ([to(k) for k in t.key_shards], [to(v) for v in t.value_shards],
+            [{k: to(v) for k, v in st.items()} for st in t.state_shards])
+
+
+def same_cells(torch, a, b) -> bool:
+    """Bit for bit, on ``a``'s device (``b`` moved there)."""
+    kind = torch.int16 if a.element_size() == 2 else torch.int32
+    return a.dtype == b.dtype and torch.equal(
+        a.view(kind), b.to(a.device).view(kind))
+
+
+def same_shards(torch, a, b) -> bool:
+    """Two (key, value, state) shard lists bit for bit."""
+    cells = lambda r: ([*r[0], *r[1]] + [st[k] for st in r[2]
+                                         for k in sorted(st)])
+    return sorted(a[2][0]) == sorted(b[2][0]) and all(
+        same_cells(torch, x, y) for x, y in zip(cells(a), cells(b)))
+
+
+def kv_probe_bytes(n: int, touched: int, cols: int, n_state: int,
+                   value_bytes: int = 4, shards: int = 1) -> int:
+    """The bytes the KV probe + commit must move: per real lane its
+    bucket, query and valid read, its float32 delta read, its key
+    written, its value cell (of ``value_bytes`` an element) and each
+    float32 state leaf's read and written; per touched bucket its key row
+    read; each shard's overflow count written."""
+    return (n * (4 + 8 + 1) + n * cols * 4 + touched * SLR_SLOTS * 8
+            + n * (8 + 2 * cols * (value_bytes + 4 * n_state)) + 4 * shards)
+
+
+def kv_lookup_bytes(n: int, distinct: int, touched: int, cols: int,
+                    value_bytes: int = 4, inv: bool = False) -> int:
+    """The bytes the KV lookup must move: per caller lane its result and
+    found written (and its ``inv`` entry read); per distinct lane its
+    query and bucket read; per bucket named its key row and value cells
+    read."""
+    return (n * ((4 if inv else 0) + cols * value_bytes + 1) + distinct * 12
+            + touched * SLR_SLOTS * (8 + cols * value_bytes))
+
+
+def kv_flat_lanes(torch, t, keys) -> tuple:
+    """The flat lookup's lanes of ``keys`` on ``t``: queries and buckets
+    on the card, padded to a power of two (empty query, bucket 0)."""
     from multiverso_tpu_torch.tables.hashing import _bucket, _split_keys
+    n, b = len(keys), _bucket(len(keys))
+    query = np.full((b, 2), 0xFFFFFFFF, np.uint32)
+    query[:n] = _split_keys(keys)
+    buckets = np.zeros(b, np.int32)
+    buckets[:n] = t._buckets_of(keys)
+    return (torch.as_tensor(query.view(np.int32), device="cuda"),
+            torch.as_tensor(buckets, device="cuda"))
+
+
+def kv_add_case(torch, tk, KVTable, keys, present, rng, name: str,
+                vdim: int, dtype: str = "float32", mesh=None,
+                plain_on: str = "cpu") -> tuple:
+    """One of phase 2's KV probe + commit cases at the sparse-LR step's
+    shapes: a 2^25-slot table of ``dtype`` values (``vdim`` columns; on
+    ``mesh`` its shards and the sharded form) pre-filled with ``present``
+    by one add, then a call that adds every key of ``keys``, launched on
+    the real lanes. The kernel against the plain version on the same
+    inputs, bit for bit, on the CPU or on the card (``plain_on="cuda"``).
+    Returns ``(row, table, plain)``: the table after the add and the
+    plain version's shard lists, equal to it."""
+    t = KVTable(SLR_CAPACITY, value_dim=vdim, dtype=dtype,
+                slots_per_bucket=SLR_SLOTS, updater=name, mesh=mesh,
+                device=None if mesh else "cuda",
+                name=f"smoke_kv_{name}_{vdim}_{dtype}")
+    shape = lambda m: (m, vdim) if vdim else (m,)
+    t.add(present, rng.standard_normal(shape(len(present))).astype(
+        np.float32))
+    t.wait()
+    n = len(keys)
+    prep = t.prepare_add(keys, rng.standard_normal(shape(n)).astype(
+        np.float32))
+    ops = (prep.buckets, prep.query, prep.deltas, prep.valid)
+    if mesh is None:
+        # the one shard's real lanes: the flat kernel's layout
+        ops = tuple(x[0][:n] for x in ops)
+        kernel = lambda tr: tk.kv_probe_update(
+            tr[0][0], tr[1][0], tr[2][0], *ops, prep.option, name)
+        plain = lambda tr, o=ops: tk.kv_probe_update_plain(
+            tr[0][0], tr[1][0], tr[2][0], *o, prep.option, name)
+    else:
+        kernel = lambda tr: tk.kv_probe_update_sharded(
+            *tr, *ops, prep.option, name, counts=prep.counts)
+        plain = lambda tr, o=ops: tk.kv_probe_update_sharded_plain(
+            *tr, *o, prep.option, name)
+    on_cpu = plain_on == "cpu"
+    want_t = kv_shards(t, "cpu" if on_cpu else None)
+    want = plain(want_t, [to_host(torch, x) for x in ops] if on_cpu
+                 else ops)
+    timed = kv_shards(t)
+    plain_t = kv_shards(t) if on_cpu else want_t
+    got = kernel((t.key_shards, t.value_shards, t.state_shards))
+    _sync(torch)
+    label = (f"kv_probe_update{'_sharded' * (mesh is not None)} {name} "
+             f"D={vdim} {dtype}")
+    if int(got[3]) != 0 or int(want[3]) != 0:
+        raise SystemExit(f"{label}: overflowed ({int(got[3])}, plain "
+                         f"{int(want[3])})")
+    if not same_shards(torch, want_t, (t.key_shards, t.value_shards,
+                                       t.state_shards)):
+        raise SystemExit(f"{label}: kernel != plain version on the "
+                         f"{'CPU' if on_cpu else 'card'}")
+    cols, ns = max(vdim, 1), len(t.state_shards[0])
+    vb = t.value_shards[0].element_size()
+    touched = len(np.unique(t._buckets_of(keys)))
+    b_ms, by = bound_ms(kv_probe_bytes(n, touched, cols, ns, vb,
+                                       len(t.key_shards)),
+                        n * cols * KV_UPDATER_OPS[name])
+    row = dict(
+        max_abs_err=0.0, ms=cuda_ms(lambda: kernel(timed), 20),
+        plain_ms=cuda_ms(lambda: plain(plain_t), 5), library_ms=None,
+        bound_ms=b_ms, bound_by=by,
+        n=int(to_host(torch, prep.buckets).numel()), real=n, claimed=n - len(present), plain_on=plain_on,
+        sector_bound_ms=kv_sector_bound_ms(n, touched, cols, ns, vb))
+    return row, t, want_t
+
+
+def kv_log(out: dict) -> None:
+    for name, r in out.items():
+        f32 = f" (float32 {r['f32_ms']:.4f} ms)" if r.get("f32_ms") else ""
+        plain = f"  plain {r['plain_ms']:.4f} ms" if r["plain_ms"] else ""
+        where = "card" if r.get("plain_on") == "cuda" else "CPU"
+        log(f"  {name:40s} n={r['n']:7d} ({r['real']} real) kernel "
+            f"{r['ms']:.4f} ms{f32}{plain}  library none  bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})  "
+            f"{r['ms'] / r['bound_ms']:.1f}x bound; bit-identical to the "
+            f"plain version on the {where}" + (
+                f"; sector bound {r['sector_bound_ms']:.4f} ms"
+                if "sector_bound_ms" in r else ""))
+
+
+def phase_kv_kernels(torch, tk, KVTable) -> dict:
+    """Phase 2, the float32 KV kernels vs their plain versions on the CPU
+    at the sparse-LR step's shapes; returns {name: row}."""
     rng = np.random.default_rng(11)
     keys = kv_keys(rng, KV_REAL)
-    present, missing = keys[:KV_REAL // 2], keys[KV_REAL // 2:]
+    present = keys[:KV_REAL // 2]
     out = {}
 
     # lookup: a table pre-filled with the present half by one add
@@ -1597,13 +1760,9 @@ def phase_kv_kernels(torch, tk, KVTable) -> dict:
     t.add(present, rng.standard_normal((len(present), 2)).astype(
         np.float32))
     t.wait()
-    n, b = len(keys), _bucket(len(keys))
-    query = np.full((b, 2), 0xFFFFFFFF, np.uint32)
-    query[:n] = _split_keys(keys)
-    buckets = np.zeros(b, np.int32)
-    buckets[:n] = t._buckets_of(keys)
-    qd = torch.as_tensor(query.view(np.int32), device="cuda")
-    bd = torch.as_tensor(buckets, device="cuda")
+    n = len(keys)
+    qd, bd = kv_flat_lanes(torch, t, keys)
+    b = qd.shape[0]
     got_v, got_f = tk.kv_lookup(t.keys, t.values, qd, bd, 0.0)
     want_v, want_f = tk.kv_lookup_plain(t.keys.cpu(), t.values.cpu(),
                                         qd.cpu(), bd.cpu(), 0.0)
@@ -1615,7 +1774,7 @@ def phase_kv_kernels(torch, tk, KVTable) -> dict:
         raise SystemExit("kv_lookup: found != the keys added")
     err = float((got_v.cpu() - want_v).abs().max())
     touched = int(torch.unique(bd).numel())
-    nb_, by = bound_ms(b * 12 + touched * SLR_SLOTS * (8 + 8) + b * 9, 0)
+    nb_, by = bound_ms(kv_lookup_bytes(b, b, touched, 2), 0)
     out["kv_lookup"] = dict(
         max_abs_err=err,
         ms=cuda_ms(lambda: tk.kv_lookup(t.keys, t.values, qd, bd), 50),
@@ -1629,62 +1788,116 @@ def phase_kv_kernels(torch, tk, KVTable) -> dict:
     # probe + commit: every updater at value_dim 2, default at 0, on a
     # table pre-filled by one add (the batch matches half and claims half)
     for name, vdim in [(u, 2) for u in KV_UPDATERS] + [("default", 0)]:
-        t = kv_table(KVTable, name, vdim)
-        shape = lambda m: (m, vdim) if vdim else (m,)
-        t.add(present, rng.standard_normal(shape(len(present))).astype(
-            np.float32))
-        t.wait()
-        prep = t.prepare_add(keys, rng.standard_normal(shape(n)).astype(
-            np.float32))
-        # the one shard's real lanes: the flat kernel's layout
-        lanes = (prep.buckets[0][:n], prep.query[0][:n], prep.deltas[0][:n],
-                 prep.valid[0][:n])
-        cpu = kv_triple(t, "cpu")
-        want = tk.kv_probe_update_plain(*cpu, *(x.cpu() for x in lanes),
-                                        prep.option, name)
-        timed = kv_triple(t)
-        got = tk.kv_probe_update(t.keys, t.values, t.state, *lanes,
-                                 prep.option, name)
-        _sync(torch)
-        if int(got[3]) != 0 or int(want[3]) != 0:
-            raise SystemExit(f"kv_probe_update {name}: overflowed "
-                             f"({int(got[3])}, plain {int(want[3])})")
-        if not same_triple(torch, got[:3], want[:3]):
-            raise SystemExit(f"kv_probe_update {name} D={vdim}: kernel != "
-                             "plain version on the CPU")
-        err = max([float((got[1].cpu() - want[1]).abs().max())]
-                  + [float((got[2][k].cpu() - want[2][k]).abs().max())
-                     for k in want[2]])
+        row, t, _ = kv_add_case(torch, tk, KVTable, keys, present, rng,
+                                name, vdim)
+        out[f"kv_probe_update_{name}_{vdim}"] = row
         if name == "ftrl" and vdim == 2:
             over_lanes = kv_overflow_check(torch, tk, t, rng)
-        plain_t = kv_triple(t)
-        cols, ns = max(vdim, 1), len(t.state)
-        touched = int(torch.unique(lanes[0]).numel())
-        nbytes = (n * (4 + 8 + 1) + n * cols * 4 + touched * SLR_SLOTS * 8
-                  + n * (8 + 2 * cols * 4 * (1 + ns)) + 4)
-        nb_, by = bound_ms(nbytes, n * cols * KV_UPDATER_OPS[name])
-        out[f"kv_probe_update_{name}_{vdim}"] = dict(
-            max_abs_err=err, ms=cuda_ms(lambda: tk.kv_probe_update(
-                *timed, *lanes, prep.option, name), 20),
-            plain_ms=cuda_ms(lambda: tk.kv_probe_update_plain(
-                *plain_t, *lanes, prep.option, name), 5),
-            library_ms=None, bound_ms=nb_, bound_by=by, n=b, real=n,
-            claimed=n - len(present),
-            sector_bound_ms=kv_sector_bound_ms(n, touched, cols, ns))
-        del t, timed, plain_t, cpu, want, got, prep, lanes
+        del t, _
         free_tables(torch)
-    for name, r in out.items():
-        log(f"  {name:30s} n={r['n']:7d} ({r['real']} real) kernel "
-            f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  library none  "
-            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})  "
-            f"{r['ms'] / r['bound_ms']:.1f}x bound; bit-identical to the "
-            f"CPU plain version" + (
-                f"; sector bound {r['sector_bound_ms']:.4f} ms"
-                if "sector_bound_ms" in r else ""))
+    kv_log(out)
     log(f"  kv_probe_update overflow batch: {over_lanes} of 32 lanes into "
         "one bucket; n_over equal to the plain version's, the triple "
         "bit-identical after it")
     return out
+
+
+#: phase 2's 2-byte KV value types, each under these updaters: ftrl held
+#: against the plain version on the CPU, adagrad against the plain version
+#: on the card (whose torch divides by a CPU scalar as a product with its
+#: reciprocal, so ftrl's and adam's plain versions round otherwise there)
+KV_TWO_BYTE = ("bfloat16", "float16")
+KV_TWO_BYTE_UPDATERS = ("ftrl", "adagrad")
+
+
+def phase_kv_dtypes(torch, tk, KVTable, devices, kv_results,
+                    sharded_results) -> dict:
+    """Phase 2, the KV kernels at bfloat16 and float16 values at the
+    sparse-LR step's shapes, through :func:`kv_add_case` on the float32
+    cases' keys and lanes: the probe + commit flat and sharded (S = 4 on
+    ``devices``) under ftrl and adagrad, then under ftrl the lookup of
+    every key on the table the add left, flat and sharded. Each kernel is
+    held bit for bit against its plain version on the same inputs: under
+    ftrl on the CPU, under adagrad on the card, which costs no copy of a
+    table to the host. Each time beside the float32 form's. Returns
+    {name: row}."""
+    from multiverso_tpu_torch import core
+    keys = kv_keys(np.random.default_rng(11), KV_REAL)
+    present = keys[:KV_REAL // 2]
+    mesh = core.Mesh([devices])
+    out = {}
+    for dtype in KV_TWO_BYTE:
+        for name in KV_TWO_BYTE_UPDATERS:
+            for sharded in (False, True):
+                on_cpu = name == "ftrl"
+                row, t, host = kv_add_case(
+                    torch, tk, KVTable, keys, present,
+                    np.random.default_rng(12), name, 2, dtype,
+                    mesh if sharded else None, "cpu" if on_cpu else "cuda")
+                if not sharded:
+                    f32 = kv_results[f"kv_probe_update_{name}_2"]
+                elif name == "ftrl":
+                    f32 = sharded_results["kv_probe_update_sharded"]
+                else:
+                    f32 = None
+                row["f32_ms"] = f32 and f32["ms"]
+                tag = "_sharded" * sharded
+                out[f"kv_probe_update{tag}_{name}_{dtype}"] = row
+                if name == "ftrl":
+                    out[f"kv_lookup{tag}_{dtype}"] = kv_lookup_case(
+                        torch, tk, t, keys, host if on_cpu else None,
+                        sharded_results["kv_lookup_sharded"] if sharded
+                        else kv_results["kv_lookup"])
+                del t, host
+                free_tables(torch)
+    kv_log(out)
+    return out
+
+
+def kv_lookup_case(torch, tk, t, keys, host, f32) -> dict:
+    """The lookup of every key of ``keys`` on table ``t`` (flat, or the
+    sharded form on every lane of ``inv``) against the plain version: on
+    ``host``, the table's (key, value) shard lists on the CPU, or when
+    that is None on the card. The values' type out, bit for bit. Returns
+    its row (the plain version timed on the card), beside ``f32``'s
+    time."""
+    n = len(keys)
+    if len(t.key_shards) == 1:
+        qd, bd = kv_flat_lanes(torch, t, keys)
+        look = lambda: tk.kv_lookup(t.keys, t.values, qd, bd, 0.0)
+        plain = lambda: tk.kv_lookup_plain(t.keys, t.values, qd, bd, 0.0)
+        want = plain() if host is None else tk.kv_lookup_plain(
+            host[0][0], host[1][0], qd.cpu(), bd.cpu(), 0.0)
+        lanes, distinct, inv = qd.shape[0], qd.shape[0], False
+    else:
+        q, lb, iv = t._get_lanes(keys, t._buckets_of(keys))
+        look = lambda: tk.kv_lookup_sharded(t.key_shards, t.value_shards,
+                                            q, lb, iv, 0.0)
+        plain = lambda: tk.kv_lookup_sharded_plain(
+            t.key_shards, t.value_shards, q, lb, iv, 0.0)
+        want = plain() if host is None else tk.kv_lookup_sharded_plain(
+            host[0], host[1], to_host(torch, q), to_host(torch, lb),
+            iv.cpu(), 0.0)
+        lanes, distinct, inv = iv.shape[0], len(np.unique(
+            iv.cpu().numpy())), True
+    got_v, got_f = look()
+    _sync(torch)
+    label = f"kv_lookup{'_sharded' * inv} {t.dtype}"
+    if got_v.dtype != t.dtype or not (
+            torch.equal(got_f.cpu(), want[1].cpu())
+            and same_cells(torch, want[0], got_v)):
+        raise SystemExit(f"{label}: kernel != plain version on the "
+                         f"{'card' if host is None else 'CPU'}")
+    if int(want[1][:n].sum()) != n:
+        raise SystemExit(f"{label}: found != the keys added")
+    touched = len(np.unique(t._buckets_of(keys)))
+    b_ms, by = bound_ms(kv_lookup_bytes(lanes, distinct, touched, 2,
+                                        t.value_shards[0].element_size(),
+                                        inv), 0)
+    return dict(max_abs_err=0.0, ms=cuda_ms(look, 50),
+                plain_ms=cuda_ms(plain, 10), library_ms=None,
+                bound_ms=b_ms, bound_by=by, f32_ms=f32["ms"], n=lanes,
+                real=n, plain_on="cuda" if host is None else "cpu")
 
 
 def kv_overflow_check(torch, tk, t, rng) -> int:
@@ -1872,11 +2085,23 @@ def phase_sparse_lr(torch, tk, counts, SparseLogisticRegression,
     free_tables(torch)                  # the earlier phases' tables
     torch.cuda.reset_peak_memory_stats()
     app = SparseLogisticRegression(cfg, device="cuda", name="smoke_slr")
+    # the run's adds, kept for phase 17 to replay: each step's unique keys
+    # and its delta (a tensor the step made and nothing writes again), so
+    # keeping them costs the step nothing
+    adds, add = [], app.table.add
+
+    def recording_add(keys, deltas, *args, **kw):
+        adds.append((keys, deltas))
+        return add(keys, deltas, *args, **kw)
+
+    app.table.add = recording_add
     start = counts()
     app.train(rows, y)
+    app.table.add = add
     grown = {k: v - start[k] for k, v in counts().items()}
     keys_, vals_, state_ = app.table.global_arrays()
     data = dict(rows=rows, y=y, losses=[e["loss"] for e in app.epoch_stats],
+                adds=adds,
                 triple=(keys_.cpu(), vals_.cpu(),
                         {k: v.cpu() for k, v in state_.items()}))
     del keys_, vals_, state_
@@ -1891,6 +2116,7 @@ def phase_sparse_lr(torch, tk, counts, SparseLogisticRegression,
     t0 = time.perf_counter()
     acc = app.accuracy(rows, y)
     acc_s = time.perf_counter() - t0
+    data["accuracy"] = acc
     path_counts = counts()
     live = len(app.table)
     peak = torch.cuda.max_memory_allocated() / 1e9
@@ -1970,10 +2196,13 @@ def slr_step_split(torch, tk, app, rows, y, lr_step, devices,
         pd = torch.zeros((len(prep.counts), lanes, 2), device=dev0)
         for s, (st, c) in enumerate(zip(starts, prep.counts)):
             pd[s, :c] = sd[st:st + c]
-        tk.kv_probe_update_sharded(tbl.key_shards, tbl.value_shards,
-                                   tbl.state_shards, prep.buckets,
-                                   prep.query, pd, prep.valid, prep.option,
-                                   tbl.updater, counts=prep.counts)
+        tk.kv_probe_update_sharded(
+            tbl.key_shards, tbl.value_shards, tbl.state_shards,
+            prep.buckets, prep.query, pd, prep.valid, prep.option,
+            tbl.updater, counts=prep.counts,
+            replicas=list(zip(tbl.replica_keys[1:], tbl.replica_values[1:],
+                              tbl.replica_states[1:])),
+            state_blocks=tbl.shard_update)
         join(torch, devices)
     device_ms = cuda_ms(device_step, 10)
     host_ms = step_ms - device_ms
@@ -2217,9 +2446,8 @@ def phase_sharded_kernels(torch, tk, core, KVTable, devices, rng) -> dict:
     record("kv_lookup_sharded", list(got), list(want), fn,
            lambda: tk.kv_lookup_sharded_plain(t.key_shards, t.value_shards,
                                               q, lb, iv, 0.0), 50,
-           n_inv * (4 + 4 * 2 + 1) + distinct * (8 + 4)
-           + touched * SLR_SLOTS * (8 + 4 * 2), 0, n=n_inv, lanes=lanes,
-           keys=nk, distinct=distinct, real_per_shard=np.bincount(
+           kv_lookup_bytes(n_inv, distinct, touched, 2, inv=True), 0,
+           n=n_inv, lanes=lanes, keys=nk, distinct=distinct, real_per_shard=np.bincount(
                gb // bps, minlength=SHARDS).tolist(), found=len(present),
            touched=touched)
     out["kv_lookup_sharded"].update(host_ms=host_ms(fn, 50))
@@ -2250,8 +2478,7 @@ def phase_sharded_kernels(torch, tk, core, KVTable, devices, rng) -> dict:
     record("kv_probe_update_sharded", flat(got[:3]), flat(want[:3]), fn,
            lambda: tk.kv_probe_update_sharded_plain(*plain_t, *ops,
                                                     prep.option, "ftrl"), 20,
-           nk * (4 + 8 + 1) + nk * cols * 4 + touched * SLR_SLOTS * 8
-           + nk * (8 + 2 * cols * 4 * (1 + ns)) + 4 * SHARDS,
+           kv_probe_bytes(nk, touched, cols, ns, shards=SHARDS),
            nk * cols * KV_UPDATER_OPS["ftrl"], n=nk, lanes=lanes,
            claimed=nk - len(present),
            real_per_shard=[int(c) for c in prep.counts],
@@ -2497,6 +2724,9 @@ def phase_sharded_sparse_lr(torch, tk, counts, mesh, devices,
     t0 = time.perf_counter()
     acc = app.accuracy(rows, y)
     acc_s = time.perf_counter() - t0
+    if acc != data["accuracy"]:
+        raise SystemExit(f"sharded sparse LR: train accuracy {acc} != "
+                         f"phase 10's {data['accuracy']}")
     path_counts = counts()
     live = len(tbl)
     peak = {dev: torch.cuda.max_memory_allocated(dev) / 1e9
@@ -2533,6 +2763,205 @@ def phase_sharded_sparse_lr(torch, tk, counts, mesh, devices,
     del app
     free_tables(torch)
     return out, path_counts
+
+
+#: phase 17's data-axis meshes (every replica on cuda:0: a replica on
+#: another card is a path this script does not claim)
+KV_DATA_MESHES = ((4, 1), (2, 2))
+KV_DATA_UPDATERS = ("ftrl", "adagrad")
+
+
+def kv_replicas_identical(torch, t) -> bool:
+    """Every replica's keys and values (and, off shard_update, its state)
+    hold replica 0's bits."""
+    for r in range(1, t.n_replicas):
+        for s in range(len(t.devices)):
+            pairs = [(t.replica_keys[r][s], t.key_shards[s]),
+                     (t.replica_values[r][s], t.value_shards[s])]
+            if not t.shard_update:
+                pairs += [(t.replica_states[r][s][k], v)
+                          for k, v in t.state_shards[s].items()]
+            if not all(torch.equal(a, b) for a, b in pairs):
+                return False
+    return True
+
+
+def kv_blocks_hold_their_buckets(torch, t, one) -> bool:
+    """Each replica's state (its block under shard_update, else the whole
+    shard) equals the one-device table's rows of the same buckets, bit
+    for bit (the same bucket count: 2^21 divides by S * D here)."""
+    bps = t.num_buckets // len(t.devices)
+    q = bps // t.n_replicas if t.shard_update else bps
+    for r in range(t.n_replicas):
+        lo0 = r * q if t.shard_update else 0
+        for s in range(len(t.devices)):
+            lo = s * bps + lo0
+            for k, leaf in t.replica_states[r][s].items():
+                if leaf.shape[0] != q or not torch.equal(
+                        leaf, one.state[k][lo:lo + q]):
+                    return False
+    return True
+
+
+def kv_replay(torch, tk, core, KVTable, AddOption, adds) -> dict:
+    """Phase 17's replay of phase 10's ``adds`` (see
+    :func:`phase_kv_data_axis`); returns its host prep numbers. Its
+    tables die with its frame, before the sparse-LR run's peak memory is
+    taken."""
+    options = {"ftrl": AddOption.for_ftrl(0.1), "adagrad": AddOption(
+        learning_rate=0.1)}
+    make = lambda upd, name, **kw: KVTable(
+        SLR_CAPACITY, value_dim=2, slots_per_bucket=SLR_SLOTS, updater=upd,
+        default_option=dataclasses.replace(options[upd]), name=name, **kw)
+    ones = {u: make(u, f"kv_one_{u}", device="cuda:0")
+            for u in KV_DATA_UPDATERS}
+    tabs = {}
+    for (dp, mp) in KV_DATA_MESHES:
+        mesh = core._build_mesh(["cuda:0"] * (dp * mp), dp, mp)
+        for flag in (False, True):
+            for u in KV_DATA_UPDATERS:
+                tabs[(dp, mp, flag, u)] = make(
+                    u, f"kv_{dp}x{mp}_{flag}_{u}", mesh=mesh,
+                    shard_update=flag)
+    for t in tabs.values():
+        if t.num_buckets != ones["ftrl"].num_buckets:
+            raise SystemExit(f"{t.name}: {t.num_buckets} buckets, the "
+                             "(1, 1) table has "
+                             f"{ones['ftrl'].num_buckets}")
+    by_shards = {}                 # the tables that share a lane layout
+    for key, t in tabs.items():
+        by_shards.setdefault(len(t.devices), t)
+    by_shards[1] = ones["ftrl"]
+    missing = kv_keys(np.random.default_rng(17), 1000) | np.uint64(1 << 62)
+    add_s = get_s = 0.0
+    for i, (keys, deltas) in enumerate(adds):
+        t0 = time.perf_counter()
+        preps = {S: t.prepare_add(keys, deltas)
+                 for S, t in by_shards.items()}
+        add_s += time.perf_counter() - t0
+        for u in KV_DATA_UPDATERS:
+            opt = dataclasses.replace(options[u], step=i)
+            ones[u].add_prepared(dataclasses.replace(preps[1], option=opt))
+        for key, t in tabs.items():
+            opt = dataclasses.replace(options[key[3]], step=i)
+            before = dict(tk.LAUNCHES)
+            t.add_prepared(dataclasses.replace(preps[len(t.devices)],
+                                               option=opt))
+            grown = {k: tk.LAUNCHES[k] - before[k]
+                     for k in ("kv_probe_update", "kv_commit")}
+            if grown != {"kv_probe_update": 1, "kv_commit": 1}:
+                raise SystemExit(f"{t.name}: add {i} launched {grown}, "
+                                 "expected one probe and one commit")
+        q = np.concatenate([keys, missing])
+        t0 = time.perf_counter()
+        lanes = {S: t._get_lanes(q, t._buckets_of(q))
+                 for S, t in by_shards.items()}
+        get_s += time.perf_counter() - t0
+        # the caller's lanes only: inv's pow2 padding names a lane of the
+        # layout, which differs with the shard count
+        n = len(q)
+        want = {u: [x[:n] for x in tk.kv_lookup_sharded(
+            t.key_shards, t.value_shards, *lanes[1], 0.0)]
+                for u, t in ones.items()}
+        for key, t in tabs.items():
+            t.wait()
+            got = [x[:n] for x in tk.kv_lookup_sharded(
+                t.key_shards, t.value_shards, *lanes[len(t.devices)], 0.0)]
+            w = want[key[3]]
+            if not (torch.equal(got[0], w[0]) and torch.equal(got[1], w[1])):
+                raise SystemExit(f"{t.name}: the Get after add {i} != the "
+                                 "(1, 1) table's")
+            if not kv_replicas_identical(torch, t):
+                raise SystemExit(f"{t.name}: the replicas differ after add "
+                                 f"{i}")
+    for key, t in tabs.items():
+        one = ones[key[3]]
+        if not (all(torch.equal(a, b) for a, b in zip(
+                t.global_arrays()[:2], one.global_arrays()[:2]))
+                and kv_blocks_hold_their_buckets(torch, t, one)):
+            raise SystemExit(f"{t.name}: its cells or state blocks differ "
+                             "from the (1, 1) table's")
+    found = int(ones["ftrl"].get_tensor(adds[-1][0])[1].sum())
+    log(f"  {len(adds)} adds of phase 10 replayed on (1, 1) and on "
+        f"{', '.join(f'{t.name}' for t in tabs.values())}: every Get of "
+        f"an add's keys and of {len(missing)} keys never added equal to the "
+        f"(1, 1) table's bit for bit, replicas identical after each add, "
+        f"each add one probe and one commit, state blocks holding exactly "
+        f"their buckets ({found} keys found of the last add); host prep "
+        f"{1e3 * add_s / len(adds):.1f} ms an add for both lane layouts, "
+        f"Get lanes {1e3 * get_s / len(adds):.1f} ms")
+    return dict(replay_adds=len(adds), replay_prep_ms=1e3 * add_s / len(adds),
+                replay_get_lanes_ms=1e3 * get_s / len(adds))
+
+
+def phase_kv_data_axis(torch, tk, counts, reset, core, KVTable, AddOption,
+                       SparseLogisticRegression, SparseLRConfig, lr_step,
+                       data, slr) -> dict:
+    """Phase 17: KVTable on a data axis at the sparse-LR width. First
+    phase 10's adds (the app's own batches, at most its 32) replayed on
+    2^25-slot tables (value_dim 2) on (4, 1) and (2, 2) meshes of cuda:0,
+    with and without shard_update, under ftrl and adagrad, beside a (1, 1)
+    table fed the same: after every add each table's Get of the add's
+    keys (and of keys never added) equals the (1, 1) table's bit for bit,
+    values and found, the replicas stay bit-identical, and the add is one
+    probe and one commit on the card; at the end each state block holds
+    exactly its buckets. Then phase 10's SparseLogisticRegression on the
+    (4, 1) mesh from phase 10's data: its final table equals phase 10's
+    bit for bit, its replicas identical; the host's and the device's ms a
+    step beside phase 10's, and the card's peak memory. Returns the
+    numbers."""
+    replay = kv_replay(torch, tk, core, KVTable, AddOption, data["adds"])
+    free_tables(torch)
+
+    rows, y = data["rows"], data["y"]
+    cfg = SparseLRConfig(capacity=SLR_CAPACITY, slots_per_bucket=SLR_SLOTS,
+                         max_features=64, minibatch_size=SLR_BATCH,
+                         updater="ftrl", learning_rate=0.1,
+                         epochs=SLR_EPOCHS)
+    torch.cuda.reset_peak_memory_stats()
+    mesh = core._build_mesh(["cuda:0"] * 4, 4, 1)
+    app = SparseLogisticRegression(cfg, mesh=mesh, name="smoke_slr_data")
+    reset()
+    app.train(rows, y)
+    grown = counts()
+    steps = sum(e["steps"] for e in app.epoch_stats)
+    for name in ("kv_lookup", "kv_probe_update", "kv_commit"):
+        if grown[name] != steps:
+            raise SystemExit(f"sparse LR (4, 1): {name} launched "
+                             f"{grown[name]} times in {steps} steps")
+    tbl = app.table
+    if not same_triple(torch, tbl.global_arrays(), data["triple"]):
+        raise SystemExit("sparse LR (4, 1): the final table differs from "
+                         "phase 10's")
+    if not kv_replicas_identical(torch, tbl):
+        raise SystemExit("sparse LR (4, 1): the replicas differ")
+    losses = [e["loss"] for e in app.epoch_stats]
+    if losses != data["losses"]:
+        raise SystemExit(f"sparse LR (4, 1): losses {losses} != phase 10's "
+                         f"{data['losses']}")
+    peak = torch.cuda.max_memory_allocated(0) / 1e9
+    step_ms = [1e3 * e["seconds"] / e["steps"] for e in app.epoch_stats]
+    split = slr_step_split(torch, tk, app, rows, y, lr_step, ["cuda:0"],
+                           step_ms[-1])
+    out = dict(replay, slr_step_ms=step_ms, slr_epoch_loss=losses,
+               slr_peak_mem_gb=peak, slr_launches=grown,
+               table_bytes_per_replica=sum(
+                   x.numel() * x.element_size() for x in
+                   tbl.replica_keys[0] + tbl.replica_values[0]
+                   + [v for st in tbl.replica_states[0]
+                      for v in st.values()]),
+               **{f"slr_{k}": v for k, v in split.items()})
+    log(f"  sparse LR on (4, 1): final keys, values and state bit-identical "
+        f"to phase 10's, replicas identical; ms a step {step_ms} (phase "
+        f"10: {[round(m, 1) for m in slr['step_ms']]}); host "
+        f"{split['host_prep_ms']:.1f} ms and device "
+        f"{split['device_ms']:.3f} ms a step (phase 10: host "
+        f"{slr['host_prep_ms']:.1f} ms, device {slr['device_ms']:.3f} ms); "
+        f"cuda:0 peak {peak:.2f} GB for 4 replicas of "
+        f"{out['table_bytes_per_replica'] / 1e9:.2f} GB")
+    del app, tbl
+    free_tables(torch)
+    return out
 
 
 def phase_mesh_kernels(torch, tk, devices, rng) -> dict:
@@ -2921,12 +3350,18 @@ def phase_w2v_data_axis(torch, core, counts, reset, W2VConfig,
 LDA_MESHES = ((4, 1), (1, 4), (2, 2))
 LDA_MESH_MODES = {"tiled exact": dict(),
                   "doc-blocked": dict(stale_words=True, doc_blocked=True),
+                  "doc-blocked streamed": dict(stale_words=True,
+                                               doc_blocked=True,
+                                               stream_blocks=True),
                   "mh": dict(sampler="mh")}
-#: phase 16's timed sweeps a run, after one warm-up
+#: phase 16's timed sweeps a run, after one warm-up (the streamed mode's
+#: two keep the script's time)
 LDA_MESH_TIMED = 3
+LDA_MESH_TIMED_OF = {"doc-blocked streamed": 2}
 LDA_MESH_KERNELS = ("row_gather", "gather_rows_mesh", "coo_scatter_add",
                     "coo_scatter_add_mesh", "gibbs_sample_tiled",
-                    "gibbs_sample_docblock", "gibbs_sample_docblock_rows")
+                    "gibbs_sample_docblock", "gibbs_sample_docblock_rows",
+                    "gibbs_sample_docblock_build")
 
 
 def lda_mesh_launches(mode: str, dp: int, mp: int, steps: int) -> dict:
@@ -2948,6 +3383,13 @@ def lda_mesh_launches(mode: str, dp: int, mp: int, steps: int) -> dict:
         want["gibbs_sample_docblock_rows" if mp == 1
              else "gather_rows_mesh"] = dp * steps
         want[coo] = dp                                # the rebuild
+    elif mode == "doc-blocked streamed":
+        want["gibbs_sample_docblock_build"] = dp * steps
+        want["gibbs_sample_docblock_rows" if mp == 1
+             else "gather_rows_mesh"] = dp * steps
+        # each replica adds every replica's lanes of a call (one step a
+        # call) to its own word accumulator
+        want[coo] = dp * steps
     else:
         want[coo] = 2 * dp * steps                    # remove, add
     return want
@@ -2968,7 +3410,7 @@ def lda_mesh_run(torch, core, counts, reset, LightLDA, LDAConfig, tw, td,
     sync_all(torch, devs)
     setup_s = time.perf_counter() - t0
     secs, host_s = [], []
-    for sweep in range(1 + LDA_MESH_TIMED):
+    for sweep in range(1 + LDA_MESH_TIMED_OF.get(mode, LDA_MESH_TIMED)):
         reset()
         t0 = time.perf_counter()
         app.sweep()
@@ -3013,7 +3455,7 @@ def lda_mesh_run(torch, core, counts, reset, LightLDA, LDAConfig, tw, td,
                                                             * steps),
                    steps=steps, profile=profiled,
                    launches_per_sweep={k: v for k, v in grown.items() if v})
-    if app._docblock and mp > 1:
+    if app._docblock and mp > 1 and not app.config.stream_blocks:
         # a replica's word rows of a step, gathered from its split bf16
         # mirror (mv_row_gather_mesh), where one shard's kernel reads
         # them itself (words=)
@@ -3031,12 +3473,13 @@ def lda_mesh_run(torch, core, counts, reset, LightLDA, LDAConfig, tw, td,
 
 def phase_lda_mesh(torch, core, counts, reset, LightLDA, LDAConfig,
                    profile: bool) -> tuple:
-    """Phase 16: LightLDA tiled exact, doc-blocked and mh at the LDA
-    metric's widths (V, K, batch) and phase 8's depth (T 1M, D 10k) on
-    the (4, 1), (1, 4) and (2, 2) meshes (replica d on cuda:{d %
-    cards}), each against the (1, 1) run of the same corpus and draws:
-    z, the word and doc counts, the summary and the loglik bit for bit
-    after a warm-up and ``LDA_MESH_TIMED`` timed sweeps, the replicas
+    """Phase 16: LightLDA tiled exact, doc-blocked (in memory and
+    streamed) and mh at the LDA metric's widths (V, K, batch) and phase
+    8's depth (T 1M, D 10k) on the (4, 1), (1, 4) and (2, 2) meshes
+    (replica d on cuda:{d % cards}), each against the (1, 1) run of the
+    same corpus and draws: z, the word and doc counts, the summary and the
+    loglik bit for bit after a warm-up and ``LDA_MESH_TIMED`` timed sweeps
+    (the streamed mode's ``LDA_MESH_TIMED_OF``), the replicas
     identical after each sweep, and the launches of the last sweep as
     designed. Prints each mesh's
     doc-tokens/s as a ratio of the (1, 1) run's and the host's ms to
@@ -3332,7 +3775,7 @@ def main(argv) -> int:
               "row scatter within the float32 sum-order bound against the "
               "card's; Gibbs samplers under the tie rule, counts exact; KV "
               "lookup and probe + commit bit-identical to the CPU plain "
-              "version)")
+              "version, 2-byte adagrad to the card's)")
         results = phase_kernels(torch, tk, rng)
         scatter_calls = results.pop("scatter_calls")
         lda_results = phase_lda_kernels(torch, tk, ls)
@@ -3342,6 +3785,8 @@ def main(argv) -> int:
         sharded_results = phase_sharded_kernels(torch, tk, core, KVTable,
                                                 devices, rng)
         mesh_results = phase_mesh_kernels(torch, tk, devices, rng)
+        kv_dtype_results = phase_kv_dtypes(torch, tk, KVTable, devices,
+                                           kv_results, sharded_results)
         w2v_small_parity(torch, Corpus, synthetic_text, W2VConfig,
                          WordEmbedding, tmp)
         w2v_mesh_small_parity(torch, core, Corpus, synthetic_text,
@@ -3437,7 +3882,6 @@ def main(argv) -> int:
     slr_mesh, paths["sparse_logreg_mesh"] = phase_sharded_sparse_lr(
         torch, tk, counts, mesh, devices, SparseLogisticRegression,
         SparseLRConfig, lr_step, slr_data, profile)
-    del slr_data
     phase_end("sharded_sparse_lr")
 
     phase("w2v_mesh", f"phase 13: word2vec skip-gram NS at full width on "
@@ -3471,6 +3915,16 @@ def main(argv) -> int:
                                               LightLDA, LDAConfig, profile)
     paths.update(mesh_lda_paths)
     phase_end("lda_mesh")
+
+    phase("kv_data_axis", "phase 17: KVTable on (4, 1) and (2, 2) meshes, "
+          "with and without shard_update, and sparse LR on (4, 1)")
+    reset()
+    kv_data = phase_kv_data_axis(torch, tk, counts, reset, core, KVTable,
+                                 AddOption, SparseLogisticRegression,
+                                 SparseLRConfig, lr_step, slr_data, slr)
+    paths["sparse_logreg_data_axis"] = kv_data["slr_launches"]
+    del slr_data
+    phase_end("kv_data_axis")
 
     phase("scatter_parts", "phase 14: the row scatter's and the KV probe "
           "+ commit's kernels apart (torch.profiler, after every timed "
@@ -3636,12 +4090,14 @@ def main(argv) -> int:
                        kernel_shapes={f"{k[0]}@{k[1]}": v
                                       for k, v in results.items()},
                        lda_kernel_shapes=lda_results,
-                       kv_kernel_shapes=kv_results, sparse_lr=slr,
+                       kv_kernel_shapes=kv_results,
+                       kv_two_byte_shapes=kv_dtype_results, sparse_lr=slr,
                        sharded_kernel_shapes=sharded_results,
                        sparse_lr_mesh=slr_mesh,
                        mesh_kernel_shapes=mesh_results, w2v_mesh=w2v_mesh,
                        w2v_data_axis=w2v_data,
                        w2v_own_iterator=w2v_own, dense_logreg=dense,
+                       kv_data_axis=kv_data,
                        row_scatter_parts=scatter_parts,
                        seconds=time.perf_counter() - t_start), f, indent=1)
     log(f"phase seconds: { {k: round(v, 1) for k, v in phase_s.items()} }")

@@ -36,10 +36,10 @@ from a ``torch.Generator`` on the device, seeded per call from (seed,
 call number); :meth:`LightLDA.sweep` also takes them as inputs, so a
 caller can feed both packages the same ones.
 
-Meshes (``mesh=``, as ``core.resolve_mesh`` takes it): every mode but the
-streamed one runs on a ``(D, S)`` mesh, and equals the ``(1, 1)`` run fed
-the same draws bit for bit (every row lives in one shard, every count is
-an integer, and each lane's posterior reads the same counts).
+Meshes (``mesh=``, as ``core.resolve_mesh`` takes it): every mode runs on
+a ``(D, S)`` mesh, and equals the ``(1, 1)`` run fed the same draws bit
+for bit (every row lives in one shard, every count is an integer, and
+each lane's posterior reads the same counts).
 
 - On the model axis the word table (and a stale mode's bf16 mirror, and
   mh's stale CDF and count copy) stays split by vocab rows: rows are read
@@ -55,11 +55,18 @@ an integer, and each lane's posterior reads the same counts).
   doc-blocked mode each replica owns its blocks of every step
   (``DataSplit``), their doc counts and z, and the summary deltas are
   summed over the replicas. The sweep-end rebuild scatters every
-  replica's tokens into every replica's table.
+  replica's tokens into every replica's table. The streamed mode stages
+  each call once on the host, pinned, and gives replica ``d`` its
+  contiguous ``B / D`` lanes of every step (its whole blocks, the
+  reference's ``P(None, None, data)``); each replica adds every
+  replica's (word, topic) lanes, exchanged with ``replica_cat``, to its
+  own word-count accumulator, and the call's z comes back from replica 0
+  in replica order, each replica's lanes written where the host layout
+  puts them (:meth:`LightLDA._block_rows`).
 
-Not in the port yet (see ROADMAP.md): ``stream_blocks`` on a mesh above
-(1, 1), ``local_corpus`` and multi-process runs, the run-directory
-manager, telemetry spans and health rollback, cached table views.
+Not in the port yet (see ROADMAP.md): ``local_corpus`` and multi-process
+runs, the run-directory manager, telemetry spans and health rollback,
+cached table views.
 """
 
 from __future__ import annotations
@@ -83,7 +90,6 @@ from multiverso_tpu_torch.tables.base import (_local_path, _record_events,
                                               loadz_stream, savez_stream)
 from multiverso_tpu_torch.tables.superstep import (DataSplit, Replicated,
                                                    ShardedParam,
-                                                   coo_scatter_add,
                                                    gather_rows, replica_cat,
                                                    replica_index,
                                                    replica_sum)
@@ -252,11 +258,6 @@ class LightLDA:
                 f"got sampler={c.sampler!r}")
         if c.stream_blocks and not c.doc_blocked:
             raise ValueError("stream_blocks requires doc_blocked=True")
-        if c.stream_blocks and self.mesh.size > 1:
-            raise NotImplementedError(
-                f"stream_blocks on a {self.mesh.shape[core.DATA_AXIS]} x "
-                f"{self.mesh.shape[core.MODEL_AXIS]} mesh is not ported "
-                "(ROADMAP queue A item 3); run it on one device")
         if c.batch_tokens % D:
             raise ValueError(f"batch_tokens {c.batch_tokens} not divisible "
                              f"by data-axis size {D}")
@@ -529,17 +530,24 @@ class LightLDA:
         return tuple(torch.cat([p.reshape(-1).to(self._devs[d])
                                 for p in parts]) for parts in cols)
 
+    def _zero_word_views(self) -> list:
+        """A zero word table for each replica, in the form its superstep
+        view takes (a tensor, or a ShardedParam of its shards)."""
+        views = []
+        for devs in self.word_topic.replica_devices:
+            shards = core.sharded_zeros(self.word_topic.storage_shape,
+                                        torch.int32, devs)
+            views.append(shards[0] if len(shards) == 1
+                         else ShardedParam(shards))
+        return views
+
     def _word_counts_from_z(self) -> None:
         """Install the word-topic counts of z on every replica: one COO add
         of (word, topic, mask) per token into a zero table (the mesh form
         on a split one)."""
-        views = []
-        for d, devs in enumerate(self.word_topic.replica_devices):
-            shards = core.sharded_zeros(self.word_topic.storage_shape,
-                                        torch.int32, devs)
-            view = shards[0] if len(shards) == 1 else ShardedParam(shards)
+        views = self._zero_word_views()
+        for d, view in enumerate(views):
             tk.coo_scatter_add(view, *self._token_lanes(d))
-            views.append(view)
         self.word_topic.put_views(views)
 
     def _init_counts(self) -> None:
@@ -807,48 +815,73 @@ class LightLDA:
 
     def _stream_body(self, params, states, locals_, options, wstale,
                      staged, u):
-        """One staged call of the out-of-core mode: ``staged`` [3, S, B]
-        holds (words, doc rows, z). The kernel builds each block's doc
-        counts from z; the call's word counts are added to ``acc``, which
-        after a sweep IS the new word table (the per-call +/- deltas of an
-        incremental update telescope to counts(z_end)). Returns the call's
-        new z as aux."""
+        """One staged call of the out-of-core mode on one replica:
+        ``staged`` [3, S, b] holds (words, doc rows, z) of its ``q`` blocks
+        of every step (all of them off a data axis). The kernel builds
+        each block's doc counts from z, reading its word rows from the
+        mirror itself (``words=``), or from rows the mesh gather fetched
+        off a split mirror; the call's word counts, every replica's lanes,
+        are added to ``acc``, which after a sweep IS the new word table
+        (the per-call +/- deltas of an incremental update telescope to
+        counts(z_end)). Returns every replica's new z as aux, ``[D, S,
+        b]`` in replica order."""
         c = self.config
-        (nk,) = params
+        nk = _whole(params[0])
         (acc,) = locals_
-        S, B, TB, nbs = c.steps_per_call, c.batch_tokens, self._tb, self._nbs
+        S, TB = c.steps_per_call, self._tb
+        q = self._nbs // self.n_replicas
+        b = q * TB
         tw, drel = staged[0], staged[1]
         msk = (tw != self._scratch_word).to(torch.int32)
-        z = staged[2].reshape(S * nbs, TB)
+        z = staged[2].reshape(S * q, TB)
         for s in range(S):
-            blocks = slice(s * nbs, (s + 1) * nbs)
+            blocks = slice(s * q, (s + 1) * q)
+            W, words = wstale, tw[s]
+            if isinstance(wstale, ShardedParam):
+                W, words = gather_rows(wstale, words).view(b, -1, 128), None
             znew, nkd = gibbs_sample_docblock_build(
-                wstale, self._sinv(nk), z[blocks].reshape(B), drel[s],
-                msk[s], u[s, 0], u[s, 1], alpha=self.alpha, beta=self.beta,
-                tb=TB, maxd=self._maxd, words=tw[s])
-            z[blocks] = znew.view(nbs, TB)
-            nk[:self.K] += nkd.view(-1)
-        z_out = z.view(S, B)
-        coo_scatter_add(acc, tw.reshape(-1), z_out.reshape(-1),
-                        msk.reshape(-1))
-        return (nk,), states, (acc,), z_out
+                W, self._sinv(nk), z[blocks].reshape(b), drel[s], msk[s],
+                u[s, 0], u[s, 1], alpha=self.alpha, beta=self.beta, tb=TB,
+                maxd=self._maxd, words=words)
+            z[blocks] = znew.view(q, TB)
+            nk[:self.K] += replica_sum(nkd).view(-1)
+        # every replica's (word, topic) lanes, in replica order
+        lanes = replica_cat(torch.stack([tw.reshape(-1), z.reshape(-1)]
+                                        ).view(1, 2, -1))
+        tw_all, z_all = lanes[:, 0].reshape(-1), lanes[:, 1].reshape(-1)
+        tk.coo_scatter_add(acc, tw_all, z_all,
+                           (tw_all != self._scratch_word).to(torch.int32))
+        return (nk,), states, (acc,), lanes[:, 1].view(-1, S, b)
 
     # -- out-of-core (streamed) doc-blocked mode ---------------------------
 
+    def _block_rows(self, k: int, d: int) -> np.ndarray:
+        """The host blocks of replica ``d``'s lanes of call ``k``, ``[S,
+        q]``: of step s, blocks ``d * q .. (d + 1) * q - 1`` (the
+        reference's ``_block_rows``, the one (step, lane) -> host block
+        map that staging and the z readback share)."""
+        q = self._nbs // self.n_replicas
+        return (k * self._per_call
+                + np.arange(self.config.steps_per_call)[:, None] * self._nbs
+                + d * q + np.arange(q)[None, :])
+
     def _stream_stage(self, k: int) -> np.ndarray:
-        """Host side of staging call ``k``: one stacked [3, S, B] int32
-        array (words, doc rows, z), a single host-to-device copy."""
-        c = self.config
-        S, B = c.steps_per_call, c.batch_tokens
-        sl = slice(k * self._per_call, (k + 1) * self._per_call)
-        return np.stack([self._tw_host[sl].reshape(S, B),
-                         self._drel_host[sl].reshape(S, B),
-                         self._z_host[sl].reshape(S, B)])
+        """Host side of staging call ``k``: one stacked int32 array ``[D,
+        3, S, b]``, each replica's (words, doc rows, z) of its lanes of
+        every step (``[1, 3, S, B]``, the whole call, off a data axis)."""
+        S = self.config.steps_per_call
+        out = []
+        for d in range(self.n_replicas):
+            rows = self._block_rows(k, d)
+            out.append(np.stack([h[rows].reshape(S, -1) for h in (
+                self._tw_host, self._drel_host, self._z_host)]))
+        return np.stack(out)
 
     def _stream_calls(self):
         """Double-buffered staging: host slices are stacked on a prefetch
-        thread and copied to the device (asynchronously from pinned memory
-        on a card), so call k+1's copy overlaps call k's sweep."""
+        thread and copied to each replica's device (asynchronously from
+        pinned memory on a card), so call k+1's copy overlaps call k's
+        sweep. Yields ``(k, DataSplit of the replicas' [3, S, b])``."""
         def gen():
             for k in range(self.calls_per_sweep):
                 host = torch.from_numpy(self._stream_stage(k))
@@ -857,34 +890,49 @@ class LightLDA:
                 yield k, host
 
         for k, host in prefetch_iterator(gen(), depth=2):
-            yield k, host.to(self.device, non_blocking=True)
+            yield k, DataSplit([host[d].to(dev, non_blocking=True)
+                                for d, dev in enumerate(self._devs)])
+
+    def _whole_call(self, staged: DataSplit) -> torch.Tensor:
+        """A staged call as the whole ``[3, S, B]`` on the first device
+        (the replicas' lanes joined along each step)."""
+        return torch.cat([p.to(self.device) for p in staged.parts], 2)
 
     def _init_streamed_counts(self) -> None:
-        master = torch.zeros(self.word_topic.storage_shape,
-                             dtype=torch.int32, device=self.device)
+        """The word counts and the summary of the initial z, one staged
+        call at a time, on every replica: each replica's table takes every
+        replica's lanes (the mesh COO add on a split one)."""
+        views = self._zero_word_views()
         nk = torch.zeros(self.summary.padded_shape, dtype=torch.int32,
                          device=self.device)
         for _k, staged in self._stream_calls():
-            tw, zf = staged[0].reshape(-1), staged[2].reshape(-1)
-            msk = (tw != self._scratch_word).to(torch.int32)
-            coo_scatter_add(master, tw, zf, msk)
-            nk.index_add_(0, zf.long(), msk)
-        self.word_topic.put_raw(master)
+            for part in staged.parts:
+                tw, zf = part[0].reshape(-1), part[2].reshape(-1)
+                msk = (tw != self._scratch_word).to(torch.int32)
+                for view, dev in zip(views, self._devs):
+                    tk.coo_scatter_add(view, tw.to(dev), zf.to(dev),
+                                       msk.to(dev))
+                nk.index_add_(0, zf.long().to(self.device),
+                              msk.to(self.device))
+        self.word_topic.put_views(views)
         self.summary.put_raw(nk)
 
     def _sweep_streamed(self, uniforms: Optional[Uniforms]) -> None:
-        wstale = self.word_topic.raw().to(torch.bfloat16)
-        acc = torch.zeros(self.word_topic.storage_shape, dtype=torch.int32,
-                          device=self.device)
-        per_call, TB = self._per_call, self._tb
+        views = self._word_views()
+        wstale = Replicated([_per_shard(v, lambda t: t.to(torch.bfloat16))
+                             for v in views])
+        acc = Replicated([_per_shard(v, torch.zeros_like) for v in views])
+        TB = self._tb
         pending: list = []
 
         def drain(item):
             k, host, events = item
             for event in events:
                 event.synchronize()
-            self._z_host[k * per_call:(k + 1) * per_call] = \
-                host.numpy().reshape(-1, TB)
+            z = host.numpy()                        # [D, S, b]
+            for d in range(self.n_replicas):
+                self._z_host[self._block_rows(k, d).reshape(-1)] = \
+                    z[d].reshape(-1, TB)
 
         for k, staged in self._stream_calls():
             (u,) = self._call_draws(uniforms, None)
@@ -895,7 +943,7 @@ class LightLDA:
                 drain(pending.pop(0))
         for item in pending:
             drain(item)
-        self.word_topic.put_raw(acc)
+        self.word_topic.put_views(acc.parts)
 
     # -- training ----------------------------------------------------------
 
@@ -1000,7 +1048,8 @@ class LightLDA:
                               self._maxd)
             rows = ((torch.arange(S * B, device=self.device) // TB) * MAXD)
             for _k, staged in self._stream_calls():
-                tw, drel, zf = (staged[i].reshape(-1) for i in range(3))
+                whole = self._whole_call(staged)
+                tw, drel, zf = (whole[i].reshape(-1) for i in range(3))
                 msk = (tw != self._scratch_word).to(torch.int32)
                 r = rows + drel
                 ndk = torch.zeros(S * B // TB * MAXD, K, dtype=torch.int32,
@@ -1227,9 +1276,8 @@ The mesh is -data_parallel x -model_parallel over every CUDA device, or
 over one device repeated with -device (-device=cpu: the CPU); with a data
 axis above 1 each row of the mesh holds a replica of the tables and
 samples its share of every batch (-batch_tokens must divide by it, and
-in doc-blocked mode the blocks of a step). -stream_blocks runs on one
-device only. Not ported: -local_corpus and the multi-process runs, and
-the fault-tolerance run flags."""
+in doc-blocked mode the blocks of a step). Not ported: -local_corpus and
+the multi-process runs, and the fault-tolerance run flags."""
 
 
 def main(argv=None) -> None:
@@ -1267,7 +1315,7 @@ def main(argv=None) -> None:
         (configure.define_int, "block_docs", 16,
          "doc_blocked: docs per block"),
         (configure.define_bool, "stream_blocks", False,
-         "doc_blocked: host-resident stream and z (one device)"),
+         "doc_blocked: host-resident stream and z"),
         (configure.define_int, "seed", 0, "random seed"),
         (configure.define_string, "device", "",
          "one torch device for every shard (default: the CUDA devices as "

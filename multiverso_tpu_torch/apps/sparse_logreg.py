@@ -123,9 +123,10 @@ def lr_step(w: torch.Tensor, pos: torch.Tensor, vals: torch.Tensor,
 
 class SparseLogisticRegression:
     """The app: a KVTable-backed linear model over hashed sparse
-    features. The table lives on ``mesh`` (split over its model axis),
-    or on the (1, 1) mesh of ``device``, or on the runtime's mesh; the
-    step runs on the mesh's first device."""
+    features. The table lives on ``mesh`` (split over its model axis,
+    replicated over its data axis: a step's Get reads replica 0, its
+    Add writes every replica), or on the (1, 1) mesh of ``device``, or
+    on the runtime's mesh; the step runs on the mesh's first device."""
 
     def __init__(self, config: SparseLRConfig, *,
                  device: core.DeviceLike = None,

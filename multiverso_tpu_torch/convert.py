@@ -57,12 +57,16 @@ def load_kv_table(table, keys: np.ndarray, values: np.ndarray,
                   state) -> None:
     """Install a ``multiverso_tpu`` KVTable's triple into a
     :class:`~multiverso_tpu_torch.tables.KVTable` of the same geometry,
-    split into the table's shards: ``keys`` its ``np.asarray(table.keys)``
-    (the global ``[B, S, 2]`` uint32 array, whatever its mesh), ``values``
-    its values and ``state`` its updater-state leaves in
-    ``jax.tree.leaves`` order (a dict state's leaves sorted by name).
+    split into the table's shards on every replica: ``keys`` its
+    ``np.asarray(table.keys)`` (the global ``[B, S, 2]`` uint32 array,
+    whatever its mesh), ``values`` its values (a bfloat16 table's as
+    ``ml_dtypes`` or raw two-byte arrays, or any numpy floats) and
+    ``state`` its updater-state leaves in ``jax.tree.leaves`` order (a
+    dict state's leaves sorted by name), each the global array: under
+    ``shard_update`` every replica gets its block of each shard's state.
     Advances the table's generation."""
     from multiverso_tpu_torch.tables.base import state_keys
+    from multiverso_tpu_torch.tables.kv_table import host_values
     keys = np.ascontiguousarray(keys, np.uint32)
     want = (table.num_buckets, table.slots, 2)
     if keys.shape != want:
@@ -77,6 +81,7 @@ def load_kv_table(table, keys: np.ndarray, values: np.ndarray,
         raise ValueError(f"{len(leaves)} state leaves; updater "
                          f"{table.updater.name!r} has {len(names)}")
     table._check_overflow()
-    table.install_arrays(keys, values, [np.asarray(x) for x in leaves])
+    table.install_arrays(keys, host_values(values, table.dtype),
+                         [np.asarray(x) for x in leaves])
     with table._option_lock:
         table.generation += 1

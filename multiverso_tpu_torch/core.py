@@ -7,8 +7,8 @@ reference's axis names and rules. Tables split their leading dimension
 axis, one tensor per shard, and hold one replica of that split per row of
 the ``data`` axis, as the reference's tables replicated over ``data`` do:
 replica ``d``'s shard ``s`` lives on the device at ``[d, s]``
-(:meth:`Mesh.replica_devices`). A KVTable holds replica 0 only, on
-data row 0 (:attr:`Mesh.shard_devices`).
+(:meth:`Mesh.replica_devices`; replica 0's are
+:attr:`Mesh.shard_devices`).
 
 One process drives the whole mesh, as the reference's single controller
 does: every worker and server of the topology queries is one mesh

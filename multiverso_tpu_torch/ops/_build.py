@@ -69,17 +69,19 @@ _SIGNATURES = {
     #  msk, u1, u2, nb, tb, maxd, C, alpha, beta, znew, nkd, stream)
     "mv_gibbs_docblock": [_P, _I64, _P, _I64, _P, _I64, _P, _P, _P, _P, _P,
                           _P, _I64, _I64, _I64, _I64, _F, _F, _P, _P, _P],
-    # (keys, firsts, count, nb, S, D, values, query, buckets, inv, L,
-    #  zero_foreign, n, default, picked, found, stream): per-shard arrays
-    "mv_kv_lookup": [_P, _P, _I64, _I64, _I64, _I64, _P, _P, _P, _P, _I64,
-                     _I64, _I64, _F, _P, _P, _P],
+    # (keys, firsts, count, nb, S, D, vtype, values, query, buckets, inv,
+    #  L, zero_foreign, n, default, picked, found, stream): per-shard arrays
+    "mv_kv_lookup": [_P, _P, _I64, _I64, _I64, _I64, _I64, _P, _P, _P, _P,
+                     _I64, _I64, _I64, _F, _P, _P, _P],
     # (keys, count, nb, S, buckets, query, valid, lanes, slot, n_over,
     #  stream): per-shard arrays
     "mv_kv_probe": [_P, _I64, _I64, _I64, _P, _P, _P, _P, _P, _P, _P],
-    # (keys, values, st_a, st_b, count, nb, S, D, buckets, query, deltas,
-    #  lanes, slot, gate, code, s0..s7, stream): per-shard arrays
-    "mv_kv_commit": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _P, _P, _P,
-                     _P, _P, _P, _I64] + [_F] * 8 + [_P],
+    # (keys, values, st_a, st_b, count, replicas, nb, S, D, q, vtype,
+    #  buckets, query, deltas, lanes, slot, gate, code, s0..s7, stream):
+    #  per-copy and per-shard arrays
+    "mv_kv_commit": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64,
+                     _I64, _P, _P, _P, _P, _P, _P, _I64] + [_F] * 8
+                    + [_P],
 }
 
 

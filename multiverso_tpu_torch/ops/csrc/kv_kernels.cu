@@ -5,8 +5,11 @@
 //
 // Storage (KVTable, one device): keys int32 [B, S, 2], the [hi, lo] uint32
 // bit patterns of 64-bit keys, an empty slot holding (-1, -1); values
-// float32 [B, S, D] (D = 1 for scalar values); updater state leaves like
-// values. Query lanes carry their [hi, lo] key and their bucket id.
+// [B, S, D] (D = 1 for scalar values) of float32, bfloat16 or float16
+// (the kernels are templated on it, kv_updaters.cuh); updater state leaves
+// shaped like values, of float32 (the updaters make them so). Query lanes carry
+// their [hi, lo] key and their bucket id; deltas come as float32 (a
+// 2-byte delta converts exactly).
 //
 // mv_kv_lookup replaces multiverso_tpu/ops/table_kernels.py build_kv_lookup
 // / _kv_lookup_kernel and build_kv_lookup_sharded (:920; the flat kernel
@@ -69,7 +72,13 @@
 //   and writes them back. Any overflow leaves every shard untouched (the
 //   reference's all-or-nothing): the gate is the card's count, or the sum
 //   of every card's. Writes never conflict: a batch holds distinct keys
-//   and new keys claim distinct slots.
+//   and new keys claim distinct slots. A table replicated over a mesh's
+//   data axis (R replicas) hands the commit each shard's R copies by
+//   value: the lane writes its key and value to every copy, and its state
+//   to every copy or, under shard_update (each replica holding a block of
+//   nb / R buckets of the shard's state), to the block that owns its
+//   bucket; no slot the batch does not touch is written, and the probe
+//   reads replica 0's keys (every replica's are the same).
 // - The overflow count is zeroed by the wrapper, one fill a card (about
 //   0.001 ms on the card): a probe that zeroed it itself would race with
 //   its own blocks' adds unless a grid-wide step came between them.
@@ -99,18 +108,19 @@ constexpr int kLaneThreads = 4;
 // (base: the shard's [nb, S, 2] keys; first: its first GLOBAL bucket,
 // s * nb). `inv` null: lane j is lane j of query[0] / buckets[0].
 struct LookupLanes {
-  const float* values[mv::kMaxShards];     // the shard's [nb, S, D]
+  const void* values[mv::kMaxShards];      // the shard's [nb, S, D] of V
   const int32_t* query[mv::kMaxShards];    // its row of the queries, [L, 2]
   const int32_t* buckets[mv::kMaxShards];  // its row of LOCAL bucket ids
   const int32_t* inv;
   int64_t L;
 };
 
+template <typename V>
 __global__ void __launch_bounds__(kThreads)
 kv_lookup_shards_kernel(__grid_constant__ const mv::Shards sh,
                         __grid_constant__ const LookupLanes ln, int64_t nb,
                         int S, int D, int64_t n, float default_value,
-                        int zero_foreign, float* __restrict__ picked,
+                        int zero_foreign, V* __restrict__ picked,
                         uint8_t* __restrict__ found) {
   const int64_t idx = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (idx >= n * D) return;
@@ -132,14 +142,14 @@ kv_lookup_shards_kernel(__grid_constant__ const mv::Shards sh,
     }
     if (shard < 0) {                    // foreign: another launch's shard
       if (zero_foreign) {
-        picked[idx] = 0.0f;
+        kv::Elem<V>::store(picked + idx, 0.0f);
         if (c == 0) found[lane] = 0;
       }
       return;
     }
   }
   const int32_t* keys = static_cast<const int32_t*>(sh.base[shard]);
-  const float* values = ln.values[shard];
+  const V* values = static_cast<const V*>(ln.values[shard]);
   const int32_t* query = ln.query[shard];
   const int32_t* buckets = ln.buckets[shard];
   const int32_t b = buckets[pos];
@@ -151,14 +161,15 @@ kv_lookup_shards_kernel(__grid_constant__ const mv::Shards sh,
     // per slot the multiplies stayed in the loop (SASS: half again its
     // instructions, and slower on an H100)
     const int32_t* row = keys + (int64_t)b * S * 2;
-    const float* vals = values + (int64_t)b * S * D + c;
+    const V* vals = values + (int64_t)b * S * D + c;
     for (int s = 0; s < S; ++s, row += 2, vals += D) {
       const bool m = row[0] == qh && row[1] == ql;
-      acc = __fadd_rn(acc, m ? *vals : 0.0f);
+      acc = __fadd_rn(acc, m ? kv::Elem<V>::load(vals) : 0.0f);
       hit = hit || m;
     }
   }
-  picked[idx] = hit ? acc : default_value;
+  // one slot at most matches, so the float32 sum is that value exactly
+  kv::Elem<V>::store(picked + idx, hit ? acc : default_value);
   if (c == 0) found[lane] = hit ? 1 : 0;
 }
 
@@ -176,10 +187,15 @@ struct ProbeLanes {
   int count;
 };
 
-// The lanes of one commit launch, segments as in ProbeLanes.
+// The lanes of one commit launch, segments as in ProbeLanes. A table held
+// in R replicas gives each segment k R copies: copy r * count + k is
+// replica r's shard k (keys and values), and of the state either replica
+// r's whole shard (q == nb) or, under shard_update, its block r of the
+// shard, buckets [r * q, (r + 1) * q) (q = nb / R). R * count is at most
+// mv::kMaxShards.
 struct CommitLanes {
   int32_t* keys[mv::kMaxShards];
-  float* values[mv::kMaxShards];
+  void* values[mv::kMaxShards];             // of V
   float* st_a[mv::kMaxShards];              // nullptr: no such leaf
   float* st_b[mv::kMaxShards];
   const int32_t* buckets[mv::kMaxShards];
@@ -188,7 +204,9 @@ struct CommitLanes {
   int64_t start[mv::kMaxShards];
   const int32_t* slot;
   int64_t lanes;
+  int64_t q;                                // buckets of a state copy
   int count;
+  int replicas;
 };
 
 // The segment (shard) of launch lane u.
@@ -361,7 +379,7 @@ kv_probe_kernel(__grid_constant__ const ProbeLanes ln, int64_t nb, int S,
   if (threadIdx.x % 32 == 0 && over != 0) atomicAdd(n_over, over);
 }
 
-template <int T>
+template <typename V, int T>
 __global__ void __launch_bounds__(kThreads)
 kv_commit_kernel(__grid_constant__ const CommitLanes ln, int64_t nb, int S,
                  int D, const int32_t* __restrict__ gate, int code,
@@ -374,18 +392,14 @@ kv_commit_kernel(__grid_constant__ const CommitLanes ln, int64_t nb, int S,
   const int32_t closed = *gate;
   const int s = ln.slot[u];
   int64_t j = 0;                                // u's lane in its segment
+  int seg = 0;
   const int32_t* bk = nullptr;
-  int32_t* keys = nullptr;
-  float *values = nullptr, *st_a = nullptr, *st_b = nullptr;
   const int32_t* query = nullptr;
   const float* deltas = nullptr;
   mv::find_segment(ln.start, ln.count, u, [&](int kk) {
     j = u - ln.start[kk];
+    seg = kk;
     bk = ln.buckets[kk];
-    keys = ln.keys[kk];
-    values = ln.values[kk];
-    st_a = ln.st_a[kk];
-    st_b = ln.st_b[kk];
     query = ln.query[kk];
     deltas = ln.deltas[kk];
   });
@@ -393,19 +407,36 @@ kv_commit_kernel(__grid_constant__ const CommitLanes ln, int64_t nb, int S,
   if (closed != 0) return;                      // all or nothing
   if (s < 0 || s >= S || b < 0 || b >= nb) return;
   const int64_t cell = (int64_t)b * S + s;
+  // the state copy that holds bucket b: every replica's (the first is
+  // read), or under shard_update the one block that owns it
+  const int owner = ln.q == nb ? 0 : (int)(b / ln.q);
+  const int64_t scell = (int64_t)(b - owner * ln.q) * S + s;
+  const int sc = owner * ln.count + seg;
+  const float* st_a = ln.st_a[sc];
+  const float* st_b = ln.st_b[sc];
+  const V* value0 = static_cast<const V*>(ln.values[seg]);
   if (c0 == 0) {
-    reinterpret_cast<int2*>(keys)[cell] =
-        reinterpret_cast<const int2*>(query)[j];
+    const int2 key = reinterpret_cast<const int2*>(query)[j];
+    for (int r = 0; r < ln.replicas; ++r)
+      reinterpret_cast<int2*>(ln.keys[r * ln.count + seg])[cell] = key;
   }
   for (int c = c0; c < D; c += T) {
-    const int64_t off = cell * D + c;
-    float p = values[off];
-    float a = st_a != nullptr ? st_a[off] : 0.0f;
-    float bb = st_b != nullptr ? st_b[off] : 0.0f;
-    kv::apply(code, k, deltas[j * D + c], p, a, bb);
-    values[off] = p;
-    if (st_a != nullptr) st_a[off] = a;
-    if (st_b != nullptr) st_b[off] = bb;
+    const int64_t off = cell * D + c, soff = scell * D + c;
+    float p = kv::Elem<V>::load(value0 + off);
+    float a = st_a != nullptr ? st_a[soff] : 0.0f;
+    float bb = st_b != nullptr ? st_b[soff] : 0.0f;
+    kv::apply<V>(code, k, deltas[j * D + c], p, a, bb);
+    for (int r = 0; r < ln.replicas; ++r)
+      kv::Elem<V>::store(static_cast<V*>(ln.values[r * ln.count + seg]) + off,
+                         p);
+    // the state: the owning block only, or every replica's copy
+    const int r0 = ln.q == nb ? 0 : owner;
+    const int r1 = ln.q == nb ? ln.replicas : owner + 1;
+    for (int r = r0; r < r1; ++r) {
+      const int cp = r * ln.count + seg;
+      if (st_a != nullptr) ln.st_a[cp][soff] = a;
+      if (st_b != nullptr) ln.st_b[cp][soff] = bb;
+    }
   }
 }
 
@@ -417,27 +448,32 @@ unsigned blocks_for(int64_t threads) {
 
 extern "C" {
 
+// The element types of values and state leaves (ops/table_kernels.py
+// KV_DTYPES): 0 float32, 1 bfloat16, 2 float16.
+enum DType : int { kF32 = 0, kBF16 = 1, kF16 = 2 };
+
 // The lookup over the `count` shards of one card (at most mv::kMaxShards),
-// each of nb buckets of S slots and D value columns: keys[k] ([nb, S, 2])
-// and values[k] ([nb, S, D]) are shard k's, firsts[k] its first GLOBAL
-// bucket; host arrays, copied into the launch. `inv` null: query[0]
-// ([n, 2]) and buckets[0] ([n], LOCAL ids) are the n lanes, of shard 0
-// (the flat lookup). Otherwise caller lane j is lane pos of the shard m
-// whose first bucket is s * nb, for inv[j] = s * L + pos (query[m],
-// buckets[m]: that shard's row of the (S, L) lane slices). Writes picked
-// [n, D] and found [n] (bool bytes); a lane no shard of the launch holds
-// gets zero bits when zero_foreign is 1 and keeps them when 0.
+// each of nb buckets of S slots and D value columns of type `vtype`:
+// keys[k] ([nb, S, 2]) and values[k] ([nb, S, D]) are shard k's, firsts[k]
+// its first GLOBAL bucket; host arrays, copied into the launch. `inv` null:
+// query[0] ([n, 2]) and buckets[0] ([n], LOCAL ids) are the n lanes, of
+// shard 0 (the flat lookup). Otherwise caller lane j is lane pos of the
+// shard m whose first bucket is s * nb, for inv[j] = s * L + pos
+// (query[m], buckets[m]: that shard's row of the (S, L) lane slices).
+// Writes picked [n, D] (of vtype) and found [n] (bool bytes); a lane no
+// shard of the launch holds gets zero bits when zero_foreign is 1 and
+// keeps them when 0.
 int mv_kv_lookup(void* const* keys, const int64_t* firsts, int64_t count,
-                 int64_t nb, int64_t S, int64_t D,
-                 const float* const* values, const int32_t* const* query,
+                 int64_t nb, int64_t S, int64_t D, int64_t vtype,
+                 const void* const* values, const int32_t* const* query,
                  const int32_t* const* buckets, const int32_t* inv,
                  int64_t L, int64_t zero_foreign, int64_t n,
-                 float default_value, float* picked, uint8_t* found,
+                 float default_value, void* picked, uint8_t* found,
                  void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   mv::Shards sh;
   if (!mv::make_shards(sh, keys, firsts, count) || S < 1 || D < 1 ||
-      (inv != nullptr && L <= 0))
+      (inv != nullptr && L <= 0) || vtype < kF32 || vtype > kF16)
     return (int)cudaErrorInvalidValue;
   LookupLanes ln{};
   for (int64_t k = 0; k < count; ++k) {
@@ -447,10 +483,22 @@ int mv_kv_lookup(void* const* keys, const int64_t* firsts, int64_t count,
   }
   ln.inv = inv;
   ln.L = L;
-  kv_lookup_shards_kernel<<<blocks_for(n * D), kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      sh, ln, nb, (int)S, (int)D, n, default_value, zero_foreign != 0,
-      picked, found);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const unsigned blocks = blocks_for(n * D);
+  const int zf = zero_foreign != 0;
+  if (vtype == kF32) {
+    kv_lookup_shards_kernel<float><<<blocks, kThreads, 0, st>>>(
+        sh, ln, nb, (int)S, (int)D, n, default_value, zf,
+        static_cast<float*>(picked), found);
+  } else if (vtype == kBF16) {
+    kv_lookup_shards_kernel<__nv_bfloat16><<<blocks, kThreads, 0, st>>>(
+        sh, ln, nb, (int)S, (int)D, n, default_value, zf,
+        static_cast<__nv_bfloat16*>(picked), found);
+  } else {
+    kv_lookup_shards_kernel<__half><<<blocks, kThreads, 0, st>>>(
+        sh, ln, nb, (int)S, (int)D, n, default_value, zf,
+        static_cast<__half*>(picked), found);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -490,67 +538,102 @@ int mv_kv_probe(const int32_t* const* keys, int64_t count, int64_t nb,
   return (int)cudaGetLastError();
 }
 
+}  // extern "C"
+
+namespace {
+
+// The commit at value type V, its group width T from D.
+template <typename V>
+void launch_commit(const CommitLanes& ln, int64_t nb, int S, int D,
+                   const int32_t* gate, int code, const kv::Scalars& k,
+                   cudaStream_t st) {
+  const int t = D > 16 ? 32 : D > 8 ? 16 : D > 4 ? 8 : D > 2 ? 4 : D;
+  const unsigned blocks = blocks_for(ln.lanes * t);
+  switch (t) {
+    case 1:
+      kv_commit_kernel<V, 1><<<blocks, kThreads, 0, st>>>(
+          ln, nb, S, D, gate, code, k);
+      break;
+    case 2:
+      kv_commit_kernel<V, 2><<<blocks, kThreads, 0, st>>>(
+          ln, nb, S, D, gate, code, k);
+      break;
+    case 4:
+      kv_commit_kernel<V, 4><<<blocks, kThreads, 0, st>>>(
+          ln, nb, S, D, gate, code, k);
+      break;
+    case 8:
+      kv_commit_kernel<V, 8><<<blocks, kThreads, 0, st>>>(
+          ln, nb, S, D, gate, code, k);
+      break;
+    case 16:
+      kv_commit_kernel<V, 16><<<blocks, kThreads, 0, st>>>(
+          ln, nb, S, D, gate, code, k);
+      break;
+    default:
+      kv_commit_kernel<V, 32><<<blocks, kThreads, 0, st>>>(
+          ln, nb, S, D, gate, code, k);
+      break;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
 // Pass 1 over the same shards and lanes: if *gate == 0, write each slotted
-// lane's key and apply updater `code` to its value and state (st_a, st_b:
-// arrays of `count` leaves, or null when the updater has no such leaf),
-// in place. deltas[k] is [lanes[k], D].
-int mv_kv_commit(int32_t* const* keys, float* const* values,
+// lane's key and apply updater `code` to its value and state, in place, on
+// each of the `replicas` copies of the table. keys, values, st_a and st_b
+// hold replicas * count pointers, copy r * count + k being replica r's of
+// shard k (st_a, st_b: null when the updater has no such leaf). A state
+// copy is replica r's whole shard (q == nb; the first is read, every one
+// written) or, under shard_update, its block of q = nb / replicas buckets
+// from r * q (only the block that owns a lane's bucket is read and
+// written). Values are of `vtype`, state leaves float32; deltas[k] is
+// float32 [lanes[k], D].
+int mv_kv_commit(int32_t* const* keys, void* const* values,
                  float* const* st_a, float* const* st_b, int64_t count,
-                 int64_t nb, int64_t S, int64_t D,
+                 int64_t replicas, int64_t nb, int64_t S, int64_t D,
+                 int64_t q, int64_t vtype,
                  const int32_t* const* buckets, const int32_t* const* query,
                  const float* const* deltas, const int64_t* lanes,
                  const int32_t* slot, const int32_t* gate, int64_t code,
                  float s0, float s1, float s2, float s3, float s4, float s5,
                  float s6, float s7, void* stream) {
-  if (count < 1 || count > mv::kMaxShards || D < 1)
+  if (count < 1 || replicas < 1 || count * replicas > mv::kMaxShards ||
+      D < 1 || vtype < kF32 || vtype > kF16 || q < 1 ||
+      (q != nb && q * replicas != nb))
     return (int)cudaErrorInvalidValue;
   CommitLanes ln{};
   for (int64_t k = 0; k < count; ++k) {
-    if (lanes[k] < 1 || !mv::aligned(keys[k], 8) ||
-        !mv::aligned(query[k], 8))
+    if (lanes[k] < 1 || !mv::aligned(query[k], 8))
       return (int)cudaErrorInvalidValue;
-    ln.keys[k] = keys[k];
-    ln.values[k] = values[k];
-    ln.st_a[k] = st_a != nullptr ? st_a[k] : nullptr;
-    ln.st_b[k] = st_b != nullptr ? st_b[k] : nullptr;
     ln.buckets[k] = buckets[k];
     ln.query[k] = query[k];
     ln.deltas[k] = deltas[k];
     ln.start[k] = ln.lanes;
     ln.lanes += lanes[k];
   }
+  for (int64_t c = 0; c < count * replicas; ++c) {
+    if (!mv::aligned(keys[c], 8)) return (int)cudaErrorInvalidValue;
+    ln.keys[c] = keys[c];
+    ln.values[c] = values[c];
+    ln.st_a[c] = st_a != nullptr ? st_a[c] : nullptr;
+    ln.st_b[c] = st_b != nullptr ? st_b[c] : nullptr;
+  }
   ln.slot = slot;
+  ln.q = q;
   ln.count = (int)count;
+  ln.replicas = (int)replicas;
   const kv::Scalars k = {{s0, s1, s2, s3, s4, s5, s6, s7}};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int t = D > 16 ? 32 : D > 8 ? 16 : D > 4 ? 8 : D > 2 ? 4 : (int)D;
-  const unsigned blocks = blocks_for(ln.lanes * t);
-  switch (t) {
-    case 1:
-      kv_commit_kernel<1><<<blocks, kThreads, 0, st>>>(
-          ln, nb, (int)S, (int)D, gate, (int)code, k);
-      break;
-    case 2:
-      kv_commit_kernel<2><<<blocks, kThreads, 0, st>>>(
-          ln, nb, (int)S, (int)D, gate, (int)code, k);
-      break;
-    case 4:
-      kv_commit_kernel<4><<<blocks, kThreads, 0, st>>>(
-          ln, nb, (int)S, (int)D, gate, (int)code, k);
-      break;
-    case 8:
-      kv_commit_kernel<8><<<blocks, kThreads, 0, st>>>(
-          ln, nb, (int)S, (int)D, gate, (int)code, k);
-      break;
-    case 16:
-      kv_commit_kernel<16><<<blocks, kThreads, 0, st>>>(
-          ln, nb, (int)S, (int)D, gate, (int)code, k);
-      break;
-    default:
-      kv_commit_kernel<32><<<blocks, kThreads, 0, st>>>(
-          ln, nb, (int)S, (int)D, gate, (int)code, k);
-      break;
-  }
+  if (vtype == kF32)
+    launch_commit<float>(ln, nb, (int)S, (int)D, gate, (int)code, k, st);
+  else if (vtype == kBF16)
+    launch_commit<__nv_bfloat16>(ln, nb, (int)S, (int)D, gate, (int)code, k,
+                                 st);
+  else
+    launch_commit<__half>(ln, nb, (int)S, (int)D, gate, (int)code, k, st);
   return (int)cudaGetLastError();
 }
 

@@ -1,5 +1,6 @@
 // The six updaters of multiverso_tpu_torch/updaters/updaters.py on one
-// float32 element, for the KV commit kernel (kv_kernels.cu).
+// element, for the KV commit kernel (kv_kernels.cu), with values of type V
+// (float, __nv_bfloat16 or __half) and float32 state leaves.
 //
 // Each repeats its torch op for op and in its order, with the _rn
 // intrinsics: nvcc would otherwise contract a*b + c into one FMA, and the
@@ -8,9 +9,20 @@
 // once per call (adam's 1 - b1, 1 - b2, 1 - b1^t and 1 - b2^t) come
 // computed by the wrapper in float32 on the CPU, so the kernel does only
 // correctly rounded + - * / sqrt, abs, sign, max and select.
+//
+// Two-byte values follow the reference's promotion (JAX, the option
+// scalars and the state float32 arrays): every expression that meets a
+// float32 operand is float32, so a value is read as float32 exactly and
+// rounded once where the reference casts (``.astype(p.dtype)`` of the
+// step, then the 2-byte subtraction). A 2-byte op is computed in float32
+// and rounded to its type: for + - of 2-byte operands that is the
+// correctly rounded result (float32 has more than twice their significand
+// bits plus two).
 
 #pragma once
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace kv {
@@ -36,27 +48,68 @@ struct Scalars {
   float s[8];
 };
 
-// Apply updater `code` to one element: param p, delta d, state a and b
-// (adagrad h in a; momentum v in a; adam m in a, v in b; ftrl z in a, n in
-// b). Updates p, a and b in place.
+// An element type's load (exact, to float32), store (rounded to nearest
+// even) and rounding of a float32 to the nearest value of the type.
+template <typename T>
+struct Elem;
+
+template <>
+struct Elem<float> {
+  static __device__ __forceinline__ float load(const float* p) { return *p; }
+  static __device__ __forceinline__ void store(float* p, float x) { *p = x; }
+  static __device__ __forceinline__ float round(float x) { return x; }
+};
+
+template <>
+struct Elem<__nv_bfloat16> {
+  static __device__ __forceinline__ float load(const __nv_bfloat16* p) {
+    return __bfloat162float(*p);
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+    *p = __float2bfloat16_rn(x);
+  }
+  static __device__ __forceinline__ float round(float x) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  }
+};
+
+template <>
+struct Elem<__half> {
+  static __device__ __forceinline__ float load(const __half* p) {
+    return __half2float(*p);
+  }
+  static __device__ __forceinline__ void store(__half* p, float x) {
+    *p = __float2half_rn(x);
+  }
+  static __device__ __forceinline__ float round(float x) {
+    return __half2float(__float2half_rn(x));
+  }
+};
+
+// Apply updater `code` to one element: param p (a value of V, as float32),
+// delta d, state a and b (adagrad h in a; momentum v in a; adam m in a, v
+// in b; ftrl z in a, n in b). Updates p, a and b in place; p leaves as a
+// value of V.
+template <typename V>
 __device__ __forceinline__ void apply(int code, const Scalars& k, float d,
                                       float& p, float& a, float& b) {
+  auto rv = [](float x) { return Elem<V>::round(x); };
   switch (code) {
-    case kDefault:                      // param + delta
-      p = __fadd_rn(p, d);
+    case kDefault:                      // param + delta.astype(V)
+      p = rv(__fadd_rn(p, rv(d)));
       break;
-    case kSgd:                          // param - lr * delta
-      p = __fsub_rn(p, __fmul_rn(k.s[0], d));
+    case kSgd:                          // param - (lr * delta).astype(V)
+      p = rv(__fsub_rn(p, rv(__fmul_rn(k.s[0], d))));
       break;
     case kAdagrad: {                    // h += d*d; p -= lr*d / (sqrt(h) + eps)
       a = __fadd_rn(a, __fmul_rn(d, d));
       const float den = __fadd_rn(__fsqrt_rn(a), k.s[1]);
-      p = __fsub_rn(p, __fdiv_rn(__fmul_rn(k.s[0], d), den));
+      p = rv(__fsub_rn(p, rv(__fdiv_rn(__fmul_rn(k.s[0], d), den))));
       break;
     }
     case kMomentum:                     // v = mu*v + d; p -= lr*v
       a = __fadd_rn(__fmul_rn(k.s[1], a), d);
-      p = __fsub_rn(p, __fmul_rn(k.s[0], a));
+      p = rv(__fsub_rn(p, rv(__fmul_rn(k.s[0], a))));
       break;
     case kAdam: {
       // m = b1*m + (1-b1)*d; v = b2*v + (1-b2)*d*d;
@@ -66,7 +119,7 @@ __device__ __forceinline__ void apply(int code, const Scalars& k, float d,
       const float mhat = __fdiv_rn(a, k.s[6]);
       const float vhat = __fdiv_rn(b, k.s[7]);
       const float den = __fadd_rn(__fsqrt_rn(vhat), k.s[3]);
-      p = __fsub_rn(p, __fdiv_rn(__fmul_rn(k.s[0], mhat), den));
+      p = rv(__fsub_rn(p, rv(__fdiv_rn(__fmul_rn(k.s[0], mhat), den))));
       break;
     }
     case kFtrl: {
@@ -91,7 +144,7 @@ __device__ __forceinline__ void apply(int code, const Scalars& k, float d,
       }
       a = z_new;
       b = n_new;
-      p = w;
+      p = rv(w);
       break;
     }
     default:

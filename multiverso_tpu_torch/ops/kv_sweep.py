@@ -129,11 +129,12 @@ def launches(fns, triple, lanes, real, option):
     def pair():
         count.zero_()
         probe()
+        # one replica, its state whole, float32 values
         err = commit_fn(one(keys), one(values), one(leaves[0]),
-                        one(leaves[1]), 1, keys.shape[0], keys.shape[1], 2,
-                        one(b), one(q), one(d), real_arr, slot.data_ptr(),
-                        count.data_ptr(), tk.KV_UPDATERS["ftrl"], *scalars,
-                        stream())
+                        one(leaves[1]), 1, 1, keys.shape[0], keys.shape[1],
+                        2, keys.shape[0], 0, one(b), one(q), one(d),
+                        real_arr, slot.data_ptr(), count.data_ptr(),
+                        tk.KV_UPDATERS["ftrl"], *scalars, stream())
         if err:
             raise RuntimeError(f"mv_kv_commit: CUDA error {err}")
 

@@ -444,12 +444,16 @@ def coo_scatter_add_masked(param: torch.Tensor, rows: torch.Tensor,
 # KVTable storage: keys int32 [B, S, 2] holding the [hi, lo] uint32 bit
 # patterns of 64-bit keys (an empty slot is (-1, -1)); values [B, S] or
 # [B, S, D]; updater state leaves shaped like values. A lane carries its
-# query key int32 [2] and its bucket id. The CUDA kernels take float32
-# values and state only.
+# query key int32 [2] and its bucket id. The CUDA kernels take values of
+# float32, bfloat16 or float16 (KV_DTYPES) and state leaves of float32 (the
+# updaters make them so); deltas go to them as float32 (a 2-byte delta
+# converts exactly), and the lookup returns the values' type.
 
 #: updater name -> the commit kernel's code (csrc/kv_updaters.cuh)
 KV_UPDATERS = {"default": 0, "sgd": 1, "adagrad": 2, "momentum": 3,
                "adam": 4, "ftrl": 5}
+#: value types -> the kernels' type codes (csrc/kv_kernels.cu)
+KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # each updater's state leaves in the kernel's (a, b) operand order
 _KV_STATE = {"adagrad": ("h",), "momentum": ("v",), "adam": ("m", "v"),
              "ftrl": ("z", "n")}
@@ -486,10 +490,12 @@ def _kv_cols(values_arr: torch.Tensor) -> int:
     return values_arr.shape[2] if values_arr.dim() == 3 else 1
 
 
-def _check_f32(what: str, t: torch.Tensor) -> None:
-    if t.dtype != torch.float32:
-        raise TypeError(f"the CUDA KV kernels take float32 {what}, got "
-                        f"{t.dtype}")
+def _kv_dtype(what: str, t: torch.Tensor) -> int:
+    """The kernels' type code of ``t``; raises on a type they do not take."""
+    if t.dtype not in KV_DTYPES:
+        raise TypeError(f"the CUDA KV kernels take {what} of "
+                        f"{_dtype_names(KV_DTYPES)}, got {t.dtype}")
+    return KV_DTYPES[t.dtype]
 
 
 def kv_lookup_plain(keys_arr: torch.Tensor, values_arr: torch.Tensor,
@@ -533,10 +539,10 @@ def kv_lookup(keys_arr: torch.Tensor, values_arr: torch.Tensor,
     if keys_arr.device.type == "cpu":
         return kv_lookup_plain(keys_arr, values_arr, query, buckets,
                                default_value)
-    _check_f32("values", values_arr)
+    _kv_dtype("values", values_arr)
     n = buckets.shape[0]
     picked = torch.empty((n,) + tuple(values_arr.shape[2:]),
-                         dtype=torch.float32, device=keys_arr.device)
+                         dtype=values_arr.dtype, device=keys_arr.device)
     found = torch.empty(n, dtype=torch.bool, device=keys_arr.device)
     if n:
         _kv_lookup_launch(keys_arr.device, [keys_arr], [values_arr], [0],
@@ -560,7 +566,7 @@ def _kv_lookup_launch(dev: torch.device, keys, values, part: list,
     lanes no shard of ``part`` holds, 0 to leave them."""
     nb, slots = keys[part[0]].shape[:2]
     _launch("kv_lookup", "mv_kv_lookup", *_shard_table(keys, part, nb),
-            nb, slots, _kv_cols(values[part[0]]),
+            nb, slots, _kv_cols(values[part[0]]), KV_DTYPES[picked.dtype],
             _c_ptrs([values[s] for s in part]), _c_ptrs(query),
             _c_ptrs(buckets), inv, lanes, zero_foreign, found.shape[0],
             float(default_value), picked.data_ptr(), found.data_ptr(),
@@ -586,6 +592,16 @@ def kv_probe_update_plain(keys_arr: torch.Tensor, values_arr: torch.Tensor,
     bucket ids). If any valid lane finds no slot, nothing is written (all
     or nothing). Written lanes store their key and the updater's result.
     Returns ``(keys, values, state, n_over)``, n_over an int32 0-d tensor."""
+    n_over = _kv_probe_plain(keys_arr, values_arr, state, buckets, query,
+                             deltas, valid, option, updater)[2]
+    return keys_arr, values_arr, state, n_over
+
+
+def _kv_probe_plain(keys_arr, values_arr, state, buckets, query, deltas,
+                    valid, option, updater) -> tuple:
+    """:func:`kv_probe_update_plain`'s work; returns the written cells
+    ``(buckets, slots)`` (int64, none when anything overflowed) and
+    ``n_over``."""
     upd = _resolve_updater(updater)
     b = buckets.long()
     ok_lane = valid != 0
@@ -623,7 +639,7 @@ def kv_probe_update_plain(keys_arr: torch.Tensor, values_arr: torch.Tensor,
     values_arr[bw, sw] = new_val.to(values_arr.dtype)
     for k, leaf in state.items():
         leaf[bw, sw] = new_state[k].to(leaf.dtype)
-    return keys_arr, values_arr, state, n_over
+    return bw, sw, n_over
 
 
 def _kv_scalars(name: str, option) -> list:
@@ -652,23 +668,28 @@ def _kv_scalars(name: str, option) -> list:
 
 
 def _kv_leaves(values_arr: torch.Tensor, state: Dict[str, torch.Tensor],
-               upd) -> list:
+               upd, rows: Optional[int] = None) -> list:
     """The updater's state leaves in the commit kernel's (a, b) operand
-    order, checked for the card."""
+    order, checked for the card: float32, contiguous, shaped like the
+    values (with ``rows`` buckets when given: a state block)."""
     if upd.name not in KV_UPDATERS:
         raise ValueError(f"no CUDA KV commit for updater {upd.name!r}; "
                          f"the kernel has {sorted(KV_UPDATERS)}")
-    _check_f32("values", values_arr)
+    _kv_dtype("values", values_arr)
     names = _KV_STATE.get(upd.name, ())
     if sorted(state) != sorted(names):
         raise ValueError(f"updater {upd.name!r} state {sorted(state)} != "
                          f"{sorted(names)}")
     leaves = [state[k] for k in names]
+    want = tuple(values_arr.shape) if rows is None \
+        else (rows,) + tuple(values_arr.shape[1:])
     for leaf in leaves:
-        _check_f32("state", leaf)
-        if leaf.shape != values_arr.shape or not leaf.is_contiguous():
-            raise ValueError("state leaves must be contiguous and shaped "
-                             "like the values")
+        if leaf.dtype != torch.float32:
+            raise TypeError(f"the CUDA KV kernels take float32 state "
+                            f"leaves, got {leaf.dtype}")
+        if tuple(leaf.shape) != want or not leaf.is_contiguous():
+            raise ValueError(f"state leaves must be contiguous and shaped "
+                             f"{want}, got {tuple(leaf.shape)}")
     return leaves
 
 
@@ -711,20 +732,24 @@ def _kv_probe(dev: torch.device, tables: list, rows: tuple, real: list,
     return slot
 
 
-def _kv_commit(dev: torch.device, tables: list, rows: tuple, real: list,
-               slot: torch.Tensor, gate: torch.Tensor, upd, option) -> None:
+def _kv_commit(dev: torch.device, copies: list, rows: tuple, real: list,
+               slot: torch.Tensor, gate: torch.Tensor, upd, option,
+               q: int) -> None:
     """Launch the commit over the probe's shards and lanes: if ``*gate``
     is 0, write each slotted lane's key and apply the updater to its
-    value and state, in place."""
+    value and state, in place. ``copies[r]``: replica ``r``'s ``(keys,
+    values, leaves)`` of each shard of the launch; ``q``: the buckets of a
+    state copy (the shard's, or of a block under shard_update)."""
     buckets, query, deltas, _ = rows
-    keys, values, leaves = tables[0]
-    states = [_c_ptrs([t[2][i] for t in tables]) if i < len(leaves)
+    keys, values, leaves = copies[0][0]
+    flat = [t for shards in copies for t in shards]
+    states = [_c_ptrs([t[2][i] for t in flat]) if i < len(leaves)
               else None for i in range(2)]
-    _launch("kv_commit", "mv_kv_commit", _c_ptrs([t[0] for t in tables]),
-            _c_ptrs([t[1] for t in tables]), *states, len(tables),
-            keys.shape[0], keys.shape[1], _kv_cols(values),
-            _c_ptrs(buckets), _c_ptrs(query), _c_ptrs(deltas),
-            _c_array(ctypes.c_int64, real), slot.data_ptr(),
+    _launch("kv_commit", "mv_kv_commit", _c_ptrs([t[0] for t in flat]),
+            _c_ptrs([t[1] for t in flat]), *states, len(copies[0]),
+            len(copies), keys.shape[0], keys.shape[1], _kv_cols(values), q,
+            KV_DTYPES[values.dtype], _c_ptrs(buckets), _c_ptrs(query),
+            _c_ptrs(deltas), _c_array(ctypes.c_int64, real), slot.data_ptr(),
             gate.data_ptr(), KV_UPDATERS[upd.name],
             *_kv_scalars(upd.name, option), device=dev)
 
@@ -747,8 +772,8 @@ def kv_probe_update(keys_arr: torch.Tensor, values_arr: torch.Tensor,
     first and in batch order, as ``KVTable.prepare_add`` lays them out
     (padding last, on the last bucket); valid lanes must hold distinct
     keys. The kernels launch every lane they are given: a caller that
-    knows its real lanes passes only those. Values and state must be
-    float32 on the card."""
+    knows its real lanes passes only those. On the card values are
+    float32, bfloat16 or float16, state leaves float32."""
     _check_kv_add(keys_arr, values_arr, buckets, query, deltas, valid)
     if keys_arr.device.type == "cpu":
         return kv_probe_update_plain(keys_arr, values_arr, state, buckets,
@@ -761,7 +786,8 @@ def kv_probe_update(keys_arr: torch.Tensor, values_arr: torch.Tensor,
     if n:
         rows = tuple([x] for x in _kv_lanes(buckets, query, deltas, valid))
         slot = _kv_probe(dev, tables, rows, [n], n_over)
-        _kv_commit(dev, tables, rows, [n], slot, n_over, upd, option)
+        _kv_commit(dev, [tables], rows, [n], slot, n_over, upd, option,
+                   keys_arr.shape[0])
     return keys_arr, values_arr, state, n_over.view(())
 
 
@@ -907,7 +933,7 @@ def kv_lookup_sharded(keys, values, query, buckets, inv,
     _check_lanes("inv", inv)
     dev0, n = keys[0].device, inv.shape[0]
     picked = torch.empty((n,) + tuple(values[0].shape[2:]),
-                         dtype=torch.float32, device=dev0)
+                         dtype=values[0].dtype, device=dev0)
     found = torch.empty(n, dtype=torch.bool, device=dev0)
     if not n:
         return picked, found
@@ -921,7 +947,7 @@ def kv_lookup_sharded(keys, values, query, buckets, inv,
                           for x in (query, buckets))
         for s, q, b in zip(part, q_rows, b_rows):
             _check_kv(keys[s], values[s], q, b)
-            _check_f32("values", values[s])
+            _kv_dtype("values", values[s])
         launches.append((dev, part, q_rows, b_rows, inv_d,
                          None if launches else "kv_lookup_sharded"))
 
@@ -934,23 +960,64 @@ def kv_lookup_sharded(keys, values, query, buckets, inv,
     return picked, found
 
 
+def _global_state(copies: list, state_blocks: bool) -> dict:
+    """The updater state as global tensors on the first shard's device:
+    replica 0's shards concatenated, or under ``state_blocks`` every
+    shard's blocks in (shard, replica) order (the reference's state split
+    over (model, data))."""
+    first = copies[0]
+    order = [(r, s) for s in range(len(first)) for r in range(len(copies))] \
+        if state_blocks else [(0, s) for s in range(len(first))]
+    return {k: _global([copies[r][s][k] for r, s in order])
+            for k in first[0]}
+
+
+def _put_cells(shards, bw: torch.Tensor, sw: torch.Tensor,
+               src: torch.Tensor, first: int = 0) -> None:
+    """Write ``src[i]`` to cell ``(bw[i], sw[i])`` of the table whose
+    blocks are ``shards`` (block k's first bucket ``first + k * rows``);
+    cells outside every block are left."""
+    per = shards[0].shape[0]
+    for k, t in enumerate(shards):
+        lo = first + k * per
+        sel = (bw >= lo) & (bw < lo + per)
+        if bool(sel.any()):
+            t[(bw[sel] - lo).to(t.device), sw[sel].to(t.device)] = \
+                src[sel].to(t.device, t.dtype)
+
+
 def kv_probe_update_sharded_plain(keys, values, states, buckets, query,
-                                  deltas, valid, option, updater):
+                                  deltas, valid, option, updater,
+                                  replicas=(), state_blocks: bool = False):
     """The reference's sharded XLA probe-update adapter in plain PyTorch,
-    in place; ``n_over`` is global."""
+    in place; ``n_over`` is global. With ``replicas`` (each a ``(keys,
+    values, states)`` of replicas 1, 2, ...) the written cells go to every
+    replica, their state to every copy or, under ``state_blocks``, to the
+    block that holds it."""
     dev = keys[0].device
+    copies = [states] + [r[2] for r in replicas]
     gk, gv = _global(keys), _global(values)
-    gs = {k: _global([st[k] for st in states]) for k in states[0]}
+    gs = _global_state(copies, state_blocks)
     d = _stacked(deltas, dev)
-    _, _, _, n_over = kv_probe_update_plain(
+    bw, sw, n_over = _kv_probe_plain(
         gk, gv, gs, _global_ids(keys, buckets),
         _stacked(query, dev).reshape(-1, 2),
         d.reshape((-1,) + tuple(d.shape[2:])),
         _stacked(valid, dev).reshape(-1), option, updater)
-    _write_back(keys, gk)
-    _write_back(values, gv)
-    for k, whole in gs.items():
-        _write_back([st[k] for st in states], whole)
+    bps = keys[0].shape[0]
+    R = len(copies)
+    for r, (ks, vs) in enumerate([(keys, values)]
+                                 + [(x[0], x[1]) for x in replicas]):
+        _put_cells(ks, bw, sw, gk[bw, sw])
+        _put_cells(vs, bw, sw, gv[bw, sw])
+        for k, whole in gs.items():
+            leaves = [st[k] for st in copies[r]]
+            if not state_blocks:
+                _put_cells(leaves, bw, sw, whole[bw, sw])
+                continue
+            q = bps // R
+            for s, leaf in enumerate(leaves):
+                _put_cells([leaf], bw, sw, whole[bw, sw], s * bps + r * q)
     return keys, values, states, n_over
 
 
@@ -971,14 +1038,19 @@ def _kv_gate(cards: dict, dev0: torch.device) -> tuple:
 
 
 def kv_probe_update_sharded(keys, values, states, buckets, query, deltas,
-                            valid, option, updater, *, counts):
+                            valid, option, updater, *, counts, replicas=(),
+                            state_blocks: bool = False):
     """Sharded fused probe + updater apply, in place; returns ``(keys,
     values, states, n_over)``, ``n_over`` the GLOBAL overflow count (int32
     0-d, on the first shard's device): if any lane of any shard overflows,
     no shard is written. ``states`` holds each shard's updater-state dict;
     the lane operands are ``(shards, L, ...)`` with LOCAL bucket ids,
     each shard's lanes sorted by bucket, its ``counts[s]`` valid lanes
-    first.
+    first. ``replicas``: the ``(keys, values, states)`` shard lists of a
+    table's replicas 1, 2, ... over a data axis (replica 0 is the first
+    three arguments), each on its own devices; ``state_blocks``: every
+    replica's ``states[s]`` holds block ``r`` (``bps / R`` buckets) of
+    shard ``s``'s state, the reference's state split over (model, data).
 
     Replaces ``build_kv_probe_update_sharded`` (``_kv_probe_only_kernel``
     + ``_kv_commit_kernel``): once per card (:func:`shard_lane_launches`),
@@ -987,34 +1059,65 @@ def kv_probe_update_sharded(keys, values, states, buckets, query, deltas,
     card's count itself when one card launched, else the counts summed on
     the first shard's device (the reference's ``jnp.sum(nover)``, no host
     sync) and copied to each card; then ``mv_kv_commit`` over the same
-    lanes, reading the gate. The probe and commit launches count under
-    ``kv_probe_update`` / ``kv_commit``, a call's first launch also under
-    ``kv_probe_update_sharded``."""
+    lanes, reading the gate and writing each written cell to every
+    replica (its state to every copy, or to the one block that holds it).
+    A card launches for replica 0's shards; R replicas give a launch at
+    most ``MESH_MAX_SHARDS // R`` shards, and every replica's copy of them
+    must lie on that card: the commit stores through the pointers it is
+    given, and the port enables no peer access, so a replica on another
+    card raises ``NotImplementedError``. The probe and commit launches
+    count under ``kv_probe_update`` / ``kv_commit``, a call's first launch
+    also under ``kv_probe_update_sharded``."""
     if _shard_kind(keys) == "cpu":
         return kv_probe_update_sharded_plain(keys, values, states, buckets,
                                              query, deltas, valid, option,
-                                             updater)
+                                             updater, replicas, state_blocks)
     upd = _resolve_updater(updater)
     dev0 = keys[0].device
+    R = 1 + len(replicas)
+    if R > MESH_MAX_SHARDS:
+        raise ValueError(f"the KV commit writes at most {MESH_MAX_SHARDS} "
+                         f"replicas, got {R}")
+    copies = [(keys, values, states)] + [tuple(r) for r in replicas]
+    bps = keys[0].shape[0]
+    q = bps // R if state_blocks else bps
+    if q * (R if state_blocks else 1) != bps:
+        raise ValueError(f"{bps} buckets a shard do not split into {R} "
+                         "state blocks")
     ops = (_lanes_as(buckets, torch.int32), _lanes_as(query),
            _lanes_as(deltas, torch.float32), _lanes_as(valid, torch.bool))
     cards, work = {}, []
     tag = "kv_probe_update_sharded"
-    for dev, part, rows, real in shard_lane_launches(keys, ops, counts):
-        tables = []
+    for dev, part, rows, real in shard_lane_launches(
+            keys, ops, counts, MESH_MAX_SHARDS // R):
+        launch = [[] for _ in copies]
         for i, s in enumerate(part):
-            b, q, d, ok = (r[i][:real[i]] for r in rows)
-            _check_kv_add(keys[s], values[s], b, q, d, ok)
-            tables.append((keys[s], values[s],
-                           _kv_leaves(values[s], states[s], upd)))
+            b, qy, d, ok = (x[i][:real[i]] for x in rows)
+            _check_kv_add(keys[s], values[s], b, qy, d, ok)
+            for r, (ks, vs, sts) in enumerate(copies):
+                if (ks[s].shape, vs[s].shape, vs[s].dtype) != (
+                        keys[s].shape, values[s].shape, values[s].dtype) \
+                        or not (ks[s].is_contiguous()
+                                and vs[s].is_contiguous()):
+                    raise ValueError(
+                        f"replica {r}'s shard {s} is not replica 0's "
+                        "shape and type, contiguous")
+                leaves = _kv_leaves(vs[s], sts[s], upd, q)
+                if any(t.device != dev for t in (ks[s], vs[s], *leaves)):
+                    raise NotImplementedError(
+                        f"replica {r}'s shard {s} lies on {vs[s].device}, "
+                        f"its commit launches on {dev}: a KV commit that "
+                        "writes another card's replica is not ported")
+                launch[r].append((ks[s], vs[s], leaves))
         if dev not in cards:
             cards[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
-        slot = _kv_probe(dev, tables, rows, real, cards[dev], tag)
+        slot = _kv_probe(dev, launch[0], rows, real, cards[dev], tag)
         tag = None
-        work.append((dev, tables, rows, real, slot))
+        work.append((dev, launch, rows, real, slot))
     n_over, gates = _kv_gate(cards, dev0)
-    for dev, tables, rows, real, slot in work:
-        _kv_commit(dev, tables, rows, real, slot, gates[dev], upd, option)
+    for dev, launch, rows, real, slot in work:
+        _kv_commit(dev, launch, rows, real, slot, gates[dev], upd, option,
+                   q)
     return keys, values, states, n_over.view(())
 
 

@@ -4,11 +4,23 @@
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Optional
 
 from multiverso_tpu_torch import core
 from multiverso_tpu_torch.tables.base import Table
 from multiverso_tpu_torch.updaters import AddOption
+
+
+@dataclasses.dataclass
+class ArrayTableOption:
+    """``ArrayTableOption<T>`` analog for the create_table factory."""
+    size: int
+    dtype: Any = "float32"
+    init_value: Any = 0
+    updater: Optional[str] = None
+    name: str = "array_table"
+    shard_update: bool = False   # data-axis weight-update sharding
 
 
 class ArrayTable(Table):

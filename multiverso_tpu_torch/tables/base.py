@@ -57,8 +57,19 @@ CHECKPOINT_MAGIC = "multiverso_tpu.table.v1"
 
 
 def torch_dtype(dtype: Any) -> torch.dtype:
-    """The torch dtype of a numpy dtype (name)."""
+    """The torch dtype of a numpy dtype (name), of ``"bfloat16"`` (which
+    numpy lacks) and of a torch dtype itself."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    if str(dtype) == "bfloat16":
+        return torch.bfloat16
     return torch.from_numpy(np.zeros(0, np.dtype(dtype))).dtype
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """The reference's name of a table type (numpy's, or ``"bfloat16"``),
+    as checkpoint manifests carry it."""
+    return str(dtype).replace("torch.", "")
 
 
 # -- checkpoint format ---------------------------------------------------------
@@ -236,7 +247,7 @@ class Table:
     updater state; ``shards`` / ``shard_states`` are replica 0's."""
 
     #: whether the table holds a replica per row of the data axis (every
-    #: Table does; a KVTable keeps one copy on data row 0)
+    #: table does)
     REPLICATED = True
 
     def __init__(self, name: str, shape: Tuple[int, ...], dtype: Any,

@@ -1,48 +1,61 @@
 """KVTable: a fixed-capacity hashed key -> value table, split over the
-mesh's model axis.
+mesh's model axis and replicated over its data axis.
 
 Counterpart of ``multiverso_tpu/tables/kv_table.py``. The open hash is
 ``num_buckets x slots_per_bucket`` slots in fixed tensors; a key's bucket
 is ``splitmix64(key) % num_buckets``. On a mesh of S model shards
 ``num_buckets`` rounds up to a multiple of S and shard s holds buckets
-``[s * bps, (s + 1) * bps)`` on the mesh device ``[0, s]``
-(``key_shards``, ``value_shards``, ``state_shards``; on one shard also
-``keys``, ``values``, ``state``). A data axis above 1 changes
-nothing: the table is one copy on data row 0, whose Get/Add equal the
-reference's table replicated over ``data`` (replicas and
-``shard_update``: ROADMAP queue A item 4):
+``[s * bps, (s + 1) * bps)``. On a data axis D above 1 the table holds D
+replicas of that split, as the reference replicates its keys and values
+over ``data``: replica ``d``'s shard ``s`` lives on the mesh device
+``[d, s]`` (``replica_keys[d]``, ``replica_values[d]``,
+``replica_states[d]``; ``key_shards``, ``value_shards``, ``state_shards``
+are replica 0's, and on one shard and one replica ``keys``, ``values``,
+``state`` their tensors). A Get reads replica 0; every add writes each
+cell it touches to every replica, so they stay bit-identical. Under
+``shard_update`` (the reference's updater state split over (model,
+data)) ``num_buckets`` rounds up to a multiple of S * D and replica ``d``
+holds block ``d`` of each shard's state leaves, buckets
+``[d * q, (d + 1) * q)`` of the shard with ``q = bps / D``; an add updates
+a cell's state in the block that holds it:
 
 - ``keys`` int32 ``[B, S, 2]``: the ``[hi, lo]`` uint32 bit patterns of the
   64-bit keys (torch's uint32 supports few ops); an empty slot is
   ``(-1, -1)``, the planes of the reserved ``EMPTY_KEY``.
-- ``values`` ``[B, S]`` (``value_dim`` 0) or ``[B, S, value_dim]``, empty
-  slots at ``default_value``; ``state``: the updater's leaves, shaped alike.
+- ``values`` ``[B, S]`` (``value_dim`` 0) or ``[B, S, value_dim]`` of the
+  table's ``dtype`` (float32, bfloat16 or float16 on the card), empty
+  slots at ``default_value``; ``state``: the updater's float32 leaves,
+  shaped alike.
 
 ``get(keys)`` is one lookup (``ops.table_kernels.kv_lookup_sharded``, one
 launch per card): missing keys give ``default_value`` and ``found``
 False. ``add(keys, deltas)`` is one fused probe + updater apply
-(``kv_probe_update_sharded``): a key takes its slot if present, else the
-next empty slot of its bucket, same-bucket new keys in batch order. If any
-key of the batch finds no slot, the whole batch is dropped on the device
-(on every shard) and the error is raised at a later table op (the
-reference's deferred overflow), so adds never wait for the device. The
-host prep sorts lanes by bucket, which sorts them by shard, and slices
-them per shard (``hashing.shard_lane_slices``); on one shard that is the
-reference's flat layout, the batch padded to a power of two.
+(``kv_probe_update_sharded``, one probe and one commit launch per card,
+the commit writing every replica): a key takes its slot if present, else
+the next empty slot of its bucket, same-bucket new keys in batch order.
+If any key of the batch finds no slot, the whole batch is dropped on the
+device (on every shard and replica) and the error is raised at a later
+table op (the reference's deferred overflow), so adds never wait for the
+device. The host prep sorts lanes by bucket, which sorts them by shard,
+and slices them per shard (``hashing.shard_lane_slices``); on one shard
+that is the reference's flat layout, the batch padded to a power of two.
 
 Tensors are updated in place (the reference donated its buffers). The
 checkpoint is the reference's ``multiverso_tpu.kvtable.v1`` npz of the
-global arrays (the shards concatenated): keys as uint32 ``[B, S, 2]``,
-values, ``bucket_fill`` and the state leaves sorted by name; a table
-stored by either package loads in the other, into any geometry and shard
-count (a different bucket count is rehashed on the host).
+global arrays (the shards concatenated; under ``shard_update`` each
+shard's state blocks joined in replica order): keys as uint32
+``[B, S, 2]``, values (bfloat16 as the raw two-byte array the reference
+writes, under its ``dtype`` name), ``bucket_fill`` and the state leaves
+sorted by name; a table stored by either package loads in the other,
+into any geometry, shard count and replica count (a different bucket
+count is rehashed on the host).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -50,9 +63,10 @@ import torch
 from multiverso_tpu_torch import core
 from multiverso_tpu_torch.ops import table_kernels as tk
 from multiverso_tpu_torch.tables.base import (Handle, _record_events,
-                                              _register, lanes_on,
-                                              loadz_stream, savez_stream,
-                                              state_keys, torch_dtype)
+                                              _register, dtype_name,
+                                              lanes_on, loadz_stream,
+                                              savez_stream, state_keys,
+                                              torch_dtype)
 from multiverso_tpu_torch.tables.hashing import (EMPTY_KEY, _bucket,
                                                  _hash_u64, _join_keys,
                                                  _split_keys,
@@ -72,6 +86,7 @@ class KVTableOption:
     slots_per_bucket: int = 8
     updater: Optional[str] = None
     name: str = "kv_table"
+    shard_update: bool = False   # data-axis updater-state sharding
 
 
 @dataclasses.dataclass
@@ -97,9 +112,48 @@ def _keys_device(split: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(split, np.uint32).view(np.int32)
 
 
+def host_values(arr, dtype: torch.dtype) -> np.ndarray:
+    """A host array of values in the host form of a table of ``dtype``:
+    numpy's own type, or for bfloat16 (which numpy lacks) its uint16 bit
+    patterns. A two-byte array numpy cannot name (a checkpoint's void
+    ``V2``, ``ml_dtypes``' bfloat16) already holds them."""
+    arr = np.asarray(arr)
+    if dtype != torch.bfloat16:
+        return arr.astype(torch.empty(0, dtype=dtype).numpy().dtype,
+                          copy=False)
+    if arr.dtype.kind not in "fiub":
+        if arr.dtype.itemsize != 2:
+            raise TypeError(f"{arr.dtype} values are not bfloat16 bits")
+        return np.ascontiguousarray(arr).view(np.uint16)
+    bits = torch.from_numpy(np.ascontiguousarray(arr, np.float32)).to(
+        torch.bfloat16).view(torch.int16)
+    return bits.numpy().view(np.uint16)
+
+
+def from_host(arr: np.ndarray, dtype: torch.dtype,
+              device=None) -> torch.Tensor:
+    """A host-form array (:func:`host_values`) as a tensor of ``dtype``
+    (a copy) on ``device``."""
+    arr = np.ascontiguousarray(arr)
+    if dtype == torch.bfloat16:
+        return torch.tensor(arr.view(np.int16), device=device).view(dtype)
+    return torch.tensor(arr, device=device)
+
+
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a host-form array (:func:`host_values`)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
 class KVTable:
     """Fixed-capacity hashed table: get/add/store/load on the
     (keys, values, state) triple; registers a table id."""
+
+    #: whether the table holds a replica per row of the data axis
+    REPLICATED = True
 
     def __init__(self, capacity: int, value_dim: int = 0,
                  dtype: Any = "float32", *, slots_per_bucket: int = 8,
@@ -113,16 +167,14 @@ class KVTable:
             raise ValueError("capacity must be positive")
         self.name = name
         self.mesh = core.resolve_mesh(mesh, device)
-        if shard_update and self.mesh.shape[core.DATA_AXIS] > 1:
-            raise NotImplementedError(
-                f"KVTable {name!r}: shard_update over a data axis of "
-                f"{self.mesh.shape[core.DATA_AXIS]} is not ported (ROADMAP "
-                "queue A item 4)")
-        self.devices = self.mesh.shard_devices
+        n_replicas = self.mesh.shape[core.DATA_AXIS]
+        self.replica_devices = [self.mesh.replica_devices(d)
+                                for d in range(n_replicas)]
+        self.devices = self.replica_devices[0]
         self.device = self.devices[0]
         self.value_dim = value_dim
-        self.np_dtype = np.dtype(dtype)
-        self.dtype = torch_dtype(self.np_dtype)
+        self.dtype = torch_dtype(dtype)
+        self.dtype_name = dtype_name(self.dtype)
         self.slots = slots_per_bucket
         self.default_value = default_value
         updater_name = updater if updater is not None \
@@ -133,23 +185,29 @@ class KVTable:
         self._option_lock = threading.Lock()
         self.generation = 0
         # the reference's geometry: buckets round up to a multiple of the
-        # model-axis size; shard s owns buckets [s * bps, (s + 1) * bps),
-        # so a sort by bucket IS a sort by shard, then bucket
+        # model-axis size (of model x data under shard_update); shard s
+        # owns buckets [s * bps, (s + 1) * bps), so a sort by bucket IS a
+        # sort by shard, then bucket
+        self.shard_update = bool(shard_update) and n_replicas > 1
         n_shards = len(self.devices)
+        mult = n_shards * n_replicas if self.shard_update else n_shards
         buckets = -(-capacity // self.slots)
-        self.num_buckets = -(-buckets // n_shards) * n_shards
+        self.num_buckets = -(-buckets // mult) * mult
         self.capacity = self.num_buckets * self.slots
         self._buckets_per_shard = self.num_buckets // n_shards
         shard_shape = (self._buckets_per_shard, self.slots)
         vtail = (value_dim,) if value_dim else ()
-        self.key_shards = [torch.full(shard_shape + (2,), -1,
-                                      dtype=torch.int32, device=d)
-                           for d in self.devices]
-        self.value_shards = [torch.full(shard_shape + vtail, default_value,
-                                        dtype=self.dtype, device=d)
-                             for d in self.devices]
-        self.state_shards = [self.updater.init_state(v)
-                             for v in self.value_shards]
+        self.replica_keys = [[torch.full(shard_shape + (2,), -1,
+                                         dtype=torch.int32, device=d)
+                              for d in devs]
+                             for devs in self.replica_devices]
+        self.replica_values = [[torch.full(shard_shape + vtail,
+                                           default_value, dtype=self.dtype,
+                                           device=d) for d in devs]
+                               for devs in self.replica_devices]
+        self.replica_states = [
+            [self.updater.init_state(v[self._state_block(r)]) for v in vals]
+            for r, vals in enumerate(self.replica_values)]
         # deferred overflow: (n_over device tensor, CUDA events, host
         # bucket ids) per add, drained without blocking in add and
         # blocking at every other table op
@@ -158,17 +216,57 @@ class KVTable:
         self.table_id = _register(self)  # type: ignore[arg-type]
         log.debug("kv table %r: %d buckets x %d slots (capacity %d) on %s",
                   name, self.num_buckets, self.slots, self.capacity,
-                  [str(d) for d in self.devices])
+                  [[str(d) for d in devs] for devs in self.replica_devices])
 
     # -- storage ------------------------------------------------------------
 
-    def _one_shard(self, what: str) -> None:
+    @property
+    def n_replicas(self) -> int:
+        return len(self.replica_keys)
+
+    @property
+    def key_shards(self) -> List[torch.Tensor]:
+        """Replica 0's keys, shard by shard."""
+        return self.replica_keys[0]
+
+    @property
+    def value_shards(self) -> List[torch.Tensor]:
+        """Replica 0's values, shard by shard."""
+        return self.replica_values[0]
+
+    @property
+    def state_shards(self) -> List[Dict[str, torch.Tensor]]:
+        """Replica 0's updater state, shard by shard (under shard_update,
+        the block of each shard that replica 0 holds)."""
+        return self.replica_states[0]
+
+    def _state_block(self, replica: int) -> slice:
+        """The buckets of a shard whose state ``replica`` holds."""
+        if not self.shard_update:
+            return slice(None)
+        q = self._buckets_per_shard // self.n_replicas
+        return slice(replica * q, (replica + 1) * q)
+
+    def _one_shard(self, what: str, whole_state: bool = False) -> None:
         if len(self.key_shards) != 1:
             raise NotImplementedError(
                 f"kv table {self.name!r} is split into "
                 f"{len(self.key_shards)} shards; {what} is one tensor only "
                 "on a one-shard mesh (use the *_shards lists or "
                 "global_arrays())")
+        if whole_state and self.shard_update:
+            raise NotImplementedError(
+                f"kv table {self.name!r} splits its state over "
+                f"{self.n_replicas} replicas (shard_update); use "
+                "replica_states or global_arrays()")
+
+    def _one_copy(self, what: str) -> None:
+        self._one_shard(what)
+        if self.n_replicas != 1:
+            raise NotImplementedError(
+                f"kv table {self.name!r} holds {self.n_replicas} replicas; "
+                f"set {what} through load or convert.load_kv_table, which "
+                "write them all")
 
     @property
     def keys(self) -> torch.Tensor:
@@ -177,7 +275,7 @@ class KVTable:
 
     @keys.setter
     def keys(self, value: torch.Tensor) -> None:
-        self._one_shard("keys")
+        self._one_copy("keys")
         self.key_shards[0] = value
 
     @property
@@ -187,49 +285,57 @@ class KVTable:
 
     @values.setter
     def values(self, value: torch.Tensor) -> None:
-        self._one_shard("values")
+        self._one_copy("values")
         self.value_shards[0] = value
 
     @property
     def state(self) -> Dict[str, torch.Tensor]:
-        self._one_shard("state")
+        self._one_shard("state", whole_state=True)
         return self.state_shards[0]
 
     @state.setter
     def state(self, value: Dict[str, torch.Tensor]) -> None:
-        self._one_shard("state")
+        self._one_copy("state")
         self.state_shards[0] = value
 
     def global_arrays(self):
         """Fresh copies of the global (keys, values, state) on the first
-        device: the shards concatenated in bucket order."""
+        device: replica 0's shards concatenated in bucket order, under
+        shard_update each shard's state blocks in replica order."""
         cat = lambda ts: torch.cat([t.to(self.device) for t in ts])
+        shards = range(len(self.devices))
+        reps = range(self.n_replicas) if self.shard_update else (0,)
         return (cat(self.key_shards), cat(self.value_shards),
-                {k: cat([st[k] for st in self.state_shards])
+                {k: cat([self.replica_states[r][s][k]
+                         for s in shards for r in reps])
                  for k in self.state_shards[0]})
 
     def install_arrays(self, keys: np.ndarray, values: np.ndarray,
                        state_leaves) -> None:
         """Replace the triple with global host arrays of this geometry
-        (keys as the uint32 planes; state leaves in checkpoint order), cut
-        into the shards' bucket blocks. Commits only once every tensor is
-        placed."""
+        (keys as the uint32 planes; values in the table's host form,
+        :func:`host_values`; state leaves in checkpoint order) on every
+        replica, cut into the shards' bucket blocks and, under
+        shard_update, each shard's state into the replicas' blocks.
+        Commits only once every tensor is placed."""
         bps = self._buckets_per_shard
         names = state_keys(self.state_shards[0])
-
-        def split(arr, dtype):
-            return [torch.tensor(np.ascontiguousarray(
-                arr[s * bps:(s + 1) * bps]), device=d).to(dtype)
-                for s, d in enumerate(self.devices)]
-
-        key_shards = split(_keys_device(keys), torch.int32)
-        value_shards = split(np.asarray(values).astype(self.np_dtype),
-                             self.dtype)
-        leaves = [split(leaf, self.state_shards[0][k].dtype)
-                  for k, leaf in zip(names, state_leaves)]
-        self.key_shards, self.value_shards = key_shards, value_shards
-        self.state_shards = [{k: leaves[i][s] for i, k in enumerate(names)}
-                             for s in range(len(self.devices))]
+        leaf_dtypes = [self.state_shards[0][k].dtype for k in names]
+        keys = _keys_device(keys)
+        rk, rv, rs = [], [], []
+        for r, devs in enumerate(self.replica_devices):
+            blk = self._state_block(r)
+            rk.append([torch.tensor(keys[s * bps:(s + 1) * bps], device=d)
+                       for s, d in enumerate(devs)])
+            rv.append([from_host(values[s * bps:(s + 1) * bps], self.dtype,
+                                 d) for s, d in enumerate(devs)])
+            rs.append([{k: torch.tensor(np.ascontiguousarray(
+                np.asarray(leaf)[s * bps:(s + 1) * bps][blk]),
+                device=d).to(dt)
+                for k, dt, leaf in zip(names, leaf_dtypes, state_leaves)}
+                for s, d in enumerate(devs)])
+        self.replica_keys, self.replica_values, self.replica_states = \
+            rk, rv, rs
 
     # -- keys and overflow ------------------------------------------------
 
@@ -354,8 +460,11 @@ class KVTable:
 
     def get(self, keys) -> Tuple[np.ndarray, np.ndarray]:
         """Batched lookup -> (values, found) on the host; missing keys give
-        ``default_value``."""
+        ``default_value``. A bfloat16 table's values come as float32
+        (numpy has no bfloat16; the widening is exact)."""
         vals, found = self.get_tensor(keys)
+        if vals.dtype == torch.bfloat16:
+            vals = vals.float()
         return vals.cpu().numpy(), found.cpu().numpy()
 
     def get_async(self, keys) -> Handle:
@@ -439,15 +548,20 @@ class KVTable:
     def add_prepared(self, prepared: PreparedKVAdd,
                      sync: bool = False) -> Handle:
         """Device half of an Add: one fused probe + updater apply on the
-        staged batch. The overflow count stays on the device until a later
-        table op reads it."""
+        staged batch, written to every replica. The overflow count stays
+        on the device until a later table op reads it."""
         self._poll_overflow()
         n_over = tk.kv_probe_update_sharded(
             self.key_shards, self.value_shards, self.state_shards,
             prepared.buckets, prepared.query, prepared.deltas,
             prepared.valid, prepared.option, self.updater,
-            counts=prepared.counts)[3]
-        self._events = _record_events(self.devices)
+            counts=prepared.counts,
+            replicas=list(zip(self.replica_keys[1:],
+                              self.replica_values[1:],
+                              self.replica_states[1:])),
+            state_blocks=self.shard_update)[3]
+        self._events = _record_events(
+            [d for devs in self.replica_devices for d in devs])
         self._pending_over.append((n_over, self._events,
                                    prepared.host_buckets))
         with self._option_lock:
@@ -499,7 +613,7 @@ class KVTable:
         manifest = {"magic": KV_MAGIC, "name": self.name,
                     "capacity": self.capacity, "value_dim": self.value_dim,
                     "slots": self.slots, "num_buckets": self.num_buckets,
-                    "dtype": self.np_dtype.name,
+                    "dtype": self.dtype_name,
                     "updater": self.updater.name,
                     "step": self.default_option.step}
 
@@ -507,7 +621,12 @@ class KVTable:
             host_keys = keys.cpu().numpy().view(np.uint32)
             # slots fill contiguously (no deletion), so fill = live count
             fill = (~(host_keys == 0xFFFFFFFF).all(-1)).sum(-1)
-            payload = {"keys": host_keys, "values": vals.cpu().numpy(),
+            host_vals = to_host(vals)
+            if vals.dtype == torch.bfloat16:
+                # the reference's bfloat16 array, as numpy writes it: two
+                # bytes a value with no numpy type name
+                host_vals = host_vals.view(np.dtype("V2"))
+            payload = {"keys": host_keys, "values": host_vals,
                        "bucket_fill": fill.astype(np.int32)}
             for i, leaf in enumerate(leaves):
                 payload[f"state_{i}"] = leaf.cpu().numpy()
@@ -524,7 +643,7 @@ class KVTable:
         self._check_overflow()
         manifest, data = loadz_stream(uri, KV_MAGIC)
         for field, mine in (("value_dim", self.value_dim),
-                            ("dtype", self.np_dtype.name)):
+                            ("dtype", self.dtype_name)):
             if manifest[field] != mine:
                 raise ValueError(
                     f"kv table {field} mismatch: checkpoint "
@@ -539,13 +658,14 @@ class KVTable:
                 f"checkpoint has {manifest['n_state_leaves']} state "
                 f"leaves, updater {self.updater.name!r} has {len(names)}")
         new_buckets = self.num_buckets
+        host_keys = data["keys"]
+        host_vals = host_values(data["values"], self.dtype)
+        host_state = [data[f"state_{i}"] for i in range(len(names))]
         if manifest["num_buckets"] != self.num_buckets \
                 or manifest["slots"] != self.slots:
             new_buckets, host_keys, host_vals, host_state = \
-                self._rehash_checkpoint(manifest, data)
-        else:
-            host_keys, host_vals = data["keys"], data["values"]
-            host_state = [data[f"state_{i}"] for i in range(len(names))]
+                self._rehash_checkpoint(manifest, host_keys, host_vals,
+                                        host_state)
         grown = new_buckets != self.num_buckets
         if grown:
             self._buckets_per_shard = new_buckets // len(self.devices)
@@ -564,15 +684,15 @@ class KVTable:
         with self._option_lock:
             self.generation += 1
 
-    def _rehash_checkpoint(self, manifest, data):
-        """Re-insert a checkpoint's live (key, value, state) triples into
-        this table's (num_buckets, slots) geometry, on the host. Within a
-        bucket the slots follow the checkpoint's bucket-major order. If a
-        bucket would overflow, the bucket count doubles until every key
-        fits (it stays a multiple of the shard count). Returns
-        (num_buckets, keys, values, state leaves) without touching the
-        table."""
-        ck_keys = data["keys"]                        # [B0, S0, 2] u32
+    def _rehash_checkpoint(self, manifest, ck_keys, ck_vals, ck_state):
+        """Re-insert a checkpoint's live (key, value, state) triples
+        (values in host form, :func:`host_values`) into this table's
+        (num_buckets, slots) geometry, on the host. Within a bucket the
+        slots follow the checkpoint's bucket-major order. If a bucket
+        would overflow, the bucket count doubles until every key fits (it
+        stays a multiple of the shard count, of shards x replicas under
+        shard_update). Returns (num_buckets, keys, values, state leaves)
+        without touching the table."""
         live = ~(ck_keys == np.uint32(0xFFFFFFFF)).all(-1)
         bb, ss = np.nonzero(live)
         k2 = ck_keys[bb, ss]                          # [n, 2]
@@ -606,9 +726,9 @@ class KVTable:
             out[sb, lane] = arr[bb, ss][order]
             return out
 
-        new_vals = remap(data["values"], self.default_value)
-        new_state = [remap(data[f"state_{i}"], 0)
-                     for i in range(manifest["n_state_leaves"])]
+        new_vals = remap(ck_vals, host_values(
+            np.float32(self.default_value), self.dtype))
+        new_state = [remap(leaf, 0) for leaf in ck_state]
         return nb, new_keys, new_vals, new_state
 
 

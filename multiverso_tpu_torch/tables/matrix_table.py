@@ -24,6 +24,7 @@ word2vec's embedding store):
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Optional
 
 import numpy as np
@@ -34,6 +35,18 @@ from multiverso_tpu_torch.ops import table_kernels as tk
 from multiverso_tpu_torch.tables.base import Handle, Table, lanes_on
 from multiverso_tpu_torch.tables.hashing import _bucket, shard_lane_slices
 from multiverso_tpu_torch.updaters import AddOption
+
+
+@dataclasses.dataclass
+class MatrixTableOption:
+    """``MatrixTableOption<T>`` analog for the create_table factory."""
+    num_rows: int
+    num_cols: int
+    dtype: Any = "float32"
+    init_value: Any = 0
+    updater: Optional[str] = None
+    name: str = "matrix_table"
+    shard_update: bool = False   # data-axis weight-update sharding
 
 
 class MatrixTable(Table):

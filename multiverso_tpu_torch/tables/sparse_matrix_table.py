@@ -25,6 +25,7 @@ Only the stateless updaters (``default``, the LDA count case, and
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Optional, Tuple
 
 import numpy as np
@@ -38,6 +39,19 @@ from multiverso_tpu_torch.tables.matrix_table import MatrixTable
 from multiverso_tpu_torch.updaters import AddOption
 
 LANES = 128
+
+
+@dataclasses.dataclass
+class SparseMatrixTableOption:
+    """``SparseMatrixTableOption<T>`` analog for the create_table
+    factory."""
+    num_rows: int
+    num_cols: int
+    dtype: Any = "float32"
+    init_value: Any = 0
+    updater: Optional[str] = None
+    name: str = "sparse_matrix_table"
+    tiled: bool = False
 
 
 class SparseMatrixTable(MatrixTable):

@@ -401,12 +401,12 @@ class FusedSuperstep:
         self.exchange_bytes = 0
         self.data = self.tables[0].mesh.shape[DATA_AXIS]
         for t in self.tables:
-            if self.data > 1 and not getattr(t, "REPLICATED", False):
+            if not isinstance(t, Table):
                 raise NotImplementedError(
-                    f"superstep {name!r}: {type(t).__name__} {t.name!r} "
-                    f"holds no replicas over the data axis of {self.data}"
-                    "; a superstep over a KVTable on a data axis is not "
-                    "ported (ROADMAP queue A item 4)")
+                    f"superstep {name!r}: {type(t).__name__} {t.name!r} is "
+                    "not a dense table; the reference's superstep takes "
+                    "dense tables only (it reads a table's param and "
+                    "shardings, which a KVTable has not)")
         devs0 = self.tables[0].replica_devices
         for t in self.tables[1:]:
             if t.replica_devices != devs0:

@@ -4,7 +4,10 @@ option) -> (param, state)`` on tensors, with state a dict of tensors.
 Counterpart of ``multiverso_tpu/updaters/updaters.py``. The option's
 scalars enter the arithmetic as float32 0-d tensors, as the reference's
 traced float32 scalars do, so both packages round alike (a Python float
-would make ``b2 ** t`` a float64 power)."""
+would make ``b2 ** t`` a float64 power). A 2-byte delta meets them as JAX
+promotes it: a float32 array makes the expression float32, where torch
+would keep a dimensioned 2-byte tensor's type against a 0-d float32 one,
+so such a delta is read as float32 first. State leaves are float32."""
 
 from __future__ import annotations
 
@@ -76,7 +79,7 @@ def _default_apply(param, state, delta, option):
 
 def _sgd_apply(param, state, delta, option):
     lr = _f32(option.learning_rate)
-    return param - (lr * delta).to(param.dtype), state
+    return param - (lr * delta.to(torch.float32)).to(param.dtype), state
 
 
 def _adagrad_init(param: torch.Tensor) -> State:

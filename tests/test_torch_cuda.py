@@ -508,6 +508,37 @@ def test_lightlda_mesh_on_the_card_matches_one_device(cuda, tmp_path, mode):
     assert out[0][4] == out[1][4]
 
 
+def test_streamed_lightlda_on_a_data_axis_matches_one_device(cuda):
+    """The streamed doc-blocked mode on a (2, 1) mesh of the card against
+    its (1, 1) run: z, the counts, the summary and the loglik bit for bit
+    after two sweeps, the replicas identical."""
+    from multiverso_tpu_torch import core
+    from multiverso_tpu_torch.apps.lightlda import (LDAConfig, LightLDA,
+                                                    load_docs)
+    from multiverso_tpu_torch.data import synthetic_docs
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/docs.txt"
+        synthetic_docs(path, num_docs=300, vocab_size=500, avg_doc_len=60,
+                       num_topics=10, seed=1)
+        tw, td, vocab = load_docs(path)
+    out = []
+    for rows in ([["cuda:0"]], [["cuda:0"], ["cuda:0"]]):
+        app = LightLDA(tw, td, vocab, LDAConfig(
+            seed=2, stream_blocks=True, **LDA_MODES["doc_blocked"]),
+            mesh=core.Mesh(rows))
+        app.train(num_iterations=2)
+        for table in (app.word_topic, app.summary):
+            for shards in table.replicas[1:]:
+                assert all(_same_bits(a, b) for a, b in
+                           zip(shards, table.replicas[0]))
+        out.append((app._z_numpy().copy(), app.word_topics(),
+                    app.doc_topics(), app.summary.get(), app.ll_history))
+    for a, b in zip(out[0][:4], out[1][:4]):
+        assert np.array_equal(a, b)
+    assert out[0][4] == out[1][4]
+
+
 # -- KVTable kernels -------------------------------------------------------------
 
 KV_UPDATERS = ["default", "sgd", "adagrad", "momentum", "adam", "ftrl"]
@@ -686,14 +717,171 @@ def test_kv_table_on_the_card_matches_cpu(cuda):
 
 
 def test_kv_table_raises_on_other_value_dtypes(cuda):
+    """A KVTable of a type the kernels do not take (float64) raises on the
+    card, naming the three they take; a float16 one runs."""
     from multiverso_tpu_torch.tables import KVTable
-    t = KVTable(64, value_dim=2, dtype="float16", updater="default",
-                device=cuda, name="kv_f16")
     keys = np.asarray([1, 2], np.uint64)
-    with pytest.raises(TypeError, match="float32"):
-        t.add(keys, np.ones((2, 2), np.float16))
-    with pytest.raises(TypeError, match="float32"):
+    t = KVTable(64, value_dim=2, dtype="float64", updater="default",
+                device=cuda, name="kv_f64")
+    with pytest.raises(TypeError, match="float32, bfloat16, float16"):
+        t.add(keys, np.ones((2, 2), np.float64))
+    with pytest.raises(TypeError, match="float32, bfloat16, float16"):
         t.get(keys)
+    t16 = KVTable(64, value_dim=2, dtype="float16", updater="default",
+                  device=cuda, name="kv_f16")
+    t16.add(keys, np.ones((2, 2), np.float16))
+    assert t16.get_tensor(keys)[0].dtype == torch.float16
+
+
+KV_DTYPES = [torch.bfloat16, torch.float16]
+
+
+def _as_kv(vals, dtype):
+    """float32 test values as ``dtype`` (rounded once)."""
+    return torch.from_numpy(vals).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", KV_DTYPES)
+@pytest.mark.parametrize("vdim", [0, 2])
+def test_kv_lookup_two_byte_matches_cpu_plain(cuda, dtype, vdim):
+    """The lookup at bfloat16 and float16: the values' type out, bit for
+    bit with the plain version, the default rounded to the type."""
+    rng = np.random.default_rng(60 + vdim)
+    nb, slots = 1500, 16
+    keys, vals, live = _kv_filled(rng, nb, slots, vdim)
+    bb, ss = np.nonzero(live)
+    missing = _split(np.arange(10 ** 6, 10 ** 6 + 500, dtype=np.uint64))
+    query = np.concatenate([keys[bb, ss], missing])
+    buckets = np.concatenate([bb, rng.integers(0, nb, 500)]).astype(
+        np.int32)
+    args = [torch.from_numpy(keys), _as_kv(vals, dtype),
+            torch.from_numpy(query), torch.from_numpy(buckets)]
+    want_v, want_f = tk.kv_lookup_plain(*args, default_value=0.1)
+    got_v, got_f = tk.kv_lookup(*(x.to(cuda) for x in args),
+                                default_value=0.1)
+    assert got_v.dtype == dtype
+    assert torch.equal(got_f.cpu(), want_f)
+    assert torch.equal(got_v.cpu().view(torch.int16),
+                       want_v.view(torch.int16))
+
+
+@pytest.mark.parametrize("dtype", KV_DTYPES)
+@pytest.mark.parametrize("name", KV_UPDATERS)
+def test_kv_probe_update_two_byte_matches_cpu_plain(cuda, name, dtype):
+    """The probe + commit at bfloat16 and float16 values (state float32,
+    as the updaters make it), flat and sharded (2 shards): keys, values
+    and state bit for bit against the plain versions."""
+    from multiverso_tpu_torch import updaters as tup
+    rng = np.random.default_rng(KV_UPDATERS.index(name) * 7 + 3)
+    nb, slots, vdim = 512, 8, 2
+    keys, vals, live = _kv_filled(rng, nb, slots, vdim)
+    query, buckets, valid = _kv_batch(rng, keys, live, False, 5)
+    n = len(buckets)
+    deltas = rng.standard_normal((n, vdim)).astype(np.float32)
+    upd = tup.get_updater(name)
+    state = {k: torch.from_numpy(np.abs(rng.standard_normal(vals.shape))
+                                 .astype(np.float32))
+             for k in upd.init_state(torch.from_numpy(vals))}
+    opt = tup.AddOption(**KV_OPTIONS[name])
+    lanes = [torch.from_numpy(x) for x in (buckets, query, deltas, valid)]
+
+    def triple(dev):
+        return (torch.from_numpy(keys.copy()).to(dev),
+                _as_kv(vals, dtype).to(dev),
+                {k: v.clone().to(dev) for k, v in state.items()})
+
+    want = tk.kv_probe_update_plain(*triple("cpu"), *lanes, opt, name)
+    got = tk.kv_probe_update(*triple(cuda), *(x.to(cuda) for x in lanes),
+                             opt, name)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu().view(torch.int16),
+                       want[1].view(torch.int16))
+    for k in state:
+        assert torch.equal(got[2][k].cpu().view(torch.int32),
+                           want[2][k].view(torch.int32)), k
+    # the sharded form over 2 shards of the same table
+    half = nb // 2
+    local = lanes[0] % half
+    shard = (lanes[0] // half).numpy()
+    order = np.argsort(shard, kind="stable")
+    counts = [int((shard[valid] == s).sum()) for s in range(2)]
+
+    def rows(x):
+        x = x[torch.from_numpy(order)]
+        out = torch.zeros((2, n) + tuple(x.shape[1:]), dtype=x.dtype)
+        start = 0
+        for s in range(2):
+            c = int((shard == s).sum())
+            out[s, :c] = x[start:start + c]
+            start += c
+        return out
+
+    sl = [rows(local), rows(lanes[1]), rows(lanes[2]), rows(lanes[3])]
+    for dev in ("cpu", cuda):
+        k0, v0, s0 = triple(dev)
+        ks = [k0[:half].clone(), k0[half:].clone()]
+        vs = [v0[:half].clone(), v0[half:].clone()]
+        ss = [{k: v[:half].clone() for k, v in s0.items()},
+              {k: v[half:].clone() for k, v in s0.items()}]
+        tk.kv_probe_update_sharded(ks, vs, ss, *(x.to(dev) for x in sl),
+                                   opt, name, counts=counts)
+        if dev == "cpu":
+            want_sh = (ks, vs, ss)
+    torch.cuda.synchronize()
+    for a, b in zip(ks + vs, want_sh[0] + want_sh[1]):
+        w = torch.int32 if a.dtype in (torch.int32, torch.float32) \
+            else torch.int16
+        assert torch.equal(a.cpu().view(w), b.view(w))
+    for s in range(2):
+        for k in state:
+            assert torch.equal(ss[s][k].cpu().view(torch.int32),
+                               want_sh[2][s][k].view(torch.int32)), (s, k)
+
+
+@pytest.mark.parametrize("shard_update", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_replicated_kv_table_on_the_card_matches_cpu(cuda, dtype,
+                                                     shard_update):
+    """A (2, 2) KVTable on cuda:0 (replicas and, under shard_update, state
+    blocks) against the same table on a (2, 2) CPU mesh: every replica's
+    keys, values and state bit for bit after each add, one probe and one
+    commit a card per add, Gets equal to the one-device table's."""
+    from multiverso_tpu_torch import core
+    from multiverso_tpu_torch.tables import KVTable
+    rng = np.random.default_rng(40)
+    tabs = [KVTable(1 << 15, value_dim=2, slots_per_bucket=8, updater="adagrad",
+                    dtype=dtype, shard_update=shard_update, name=f"kv{i}",
+                    mesh=core._build_mesh([d] * 4, 2, 2))
+            for i, d in enumerate(("cuda:0", "cpu"))]
+    one = KVTable(1 << 15, value_dim=2, slots_per_bucket=8, updater="adagrad",
+                  dtype=dtype, device=cuda, name="one")
+    pool = np.unique(rng.integers(1, 2 ** 40, 2000, dtype=np.uint64))
+    w = torch.int32 if dtype == "float32" else torch.int16
+    for step in range(4):
+        keys = rng.choice(pool, size=700, replace=False)
+        d = rng.standard_normal((700, 2)).astype(np.float32)
+        before = dict(tk.LAUNCHES)
+        for t in tabs + [one]:
+            t.add(keys, d)
+        assert tk.LAUNCHES["kv_probe_update"] - before["kv_probe_update"] \
+            == 2 and tk.LAUNCHES["kv_commit"] - before["kv_commit"] == 2
+        gpu, host = tabs
+        gpu.wait()
+        for r in range(2):
+            for s in range(2):
+                assert torch.equal(gpu.replica_keys[r][s].cpu(),
+                                   host.replica_keys[r][s])
+                assert torch.equal(gpu.replica_values[r][s].cpu().view(w),
+                                   host.replica_values[r][s].view(w))
+                for k, leaf in host.replica_states[r][s].items():
+                    assert torch.equal(
+                        gpu.replica_states[r][s][k].cpu().view(torch.int32),
+                        leaf.view(torch.int32))
+        q = rng.choice(pool, size=500)
+        a, b = gpu.get_tensor(q), one.get_tensor(q)
+        assert torch.equal(a[0].view(w), b[0].view(w))
+        assert torch.equal(a[1], b[1])
 
 
 def test_sparse_logreg_on_the_card_matches_cpu(cuda):

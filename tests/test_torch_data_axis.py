@@ -131,7 +131,16 @@ def test_replicas_live_on_their_data_rows(shape):
     assert [[x.device for x in r] for r in sp.replicas] == \
         sp.replica_devices
     _replicas_identical(sp)
-    assert kv.devices == mesh.shard_devices
+    # a KVTable holds D replicas of its keys, values and state too
+    assert kv.devices == mesh.shard_devices and kv.n_replicas == dp
+    for d in range(dp):
+        assert kv.replica_devices[d] == list(mesh.devices[d])
+        for part in (kv.replica_keys[d], kv.replica_values[d]):
+            assert [x.device for x in part] == kv.replica_devices[d]
+    assert kv.key_shards is kv.replica_keys[0]
+    assert kv.value_shards is kv.replica_values[0]
+    ptrs = {x.data_ptr() for r in kv.replica_values for x in r}
+    assert len(ptrs) == dp * mp
 
 
 @pytest.mark.parametrize("updater", ["default", "sgd", "adagrad", "adam"])
@@ -327,10 +336,16 @@ def test_shard_update_noop_without_data_axis():
     t = ArrayTable(40, updater="adagrad", shard_update=True,
                    mesh=_tmesh((1, 4)), name="dp1")
     assert not t.shard_update and t.padded_shape == (40,)
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
-        KVTable(64, mesh=_tmesh((2, 1)), shard_update=True, name="kv")
-    assert not KVTable(64, mesh=_tmesh((1, 2)), shard_update=True,
-                       name="kv1").mesh.shape["data"] > 1
+    # a KVTable on a data axis splits its state over (model, data); off
+    # one the flag is a no-op
+    kv = KVTable(64, mesh=_tmesh((2, 1)), shard_update=True, name="kv",
+                 updater="adagrad")
+    assert kv.shard_update and kv.num_buckets % 2 == 0
+    assert [st["h"].shape[0] for st in
+            (kv.replica_states[0][0], kv.replica_states[1][0])] == \
+        [kv.num_buckets // 2] * 2
+    kv1 = KVTable(64, mesh=_tmesh((1, 2)), shard_update=True, name="kv1")
+    assert not kv1.shard_update and kv1.mesh.shape["data"] == 1
 
 
 # -- the superstep ---------------------------------------------------------------
@@ -469,8 +484,11 @@ def test_superstep_refusals_on_a_data_axis():
         step((torch.zeros(1),))
     step(())
     assert t.generation == 1
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
-        make_superstep((KVTable(64, mesh=mesh, name="kv"),), lambda *a: a)
+    # the reference's superstep takes dense tables only, on any mesh
+    for m in (mesh, _tmesh((1, 1))):
+        with pytest.raises(NotImplementedError,
+                           match="takes dense tables only"):
+            make_superstep((KVTable(64, mesh=m, name="kv"),), lambda *a: a)
     with pytest.raises(ValueError, match="different devices"):
         make_superstep((t, MatrixTable(8, 2, mesh=_tmesh((1, 2)),
                                        name="u")), lambda *a: a)

@@ -103,10 +103,10 @@ def _check_launch(call, keys, values, query, buckets, part, inv, L,
     """One ``mv_kv_lookup`` launch over the shards ``part``, each its
     first global bucket, values and lane rows, into ``picked`` /
     ``found`` (pointers checked where they are CPU tensors)."""
-    (bases, firsts, count, nb, slots, d, vals, q_rows, b_rows, inv_p, lanes,
-     zero, n, default, p_ptr, f_ptr) = call["args"]
+    (bases, firsts, count, nb, slots, d, vtype, vals, q_rows, b_rows, inv_p,
+     lanes, zero, n, default, p_ptr, f_ptr) = call["args"]
     assert call["fn"] == "mv_kv_lookup" and call["name"] == "kv_lookup"
-    assert (count, nb, slots, d) == (len(part), 6, 4, VDIM)
+    assert (count, nb, slots, d, vtype) == (len(part), 6, 4, VDIM, 0)
     assert list(firsts) == [s * nb for s in part]
     assert (lanes, zero, n, default) == (L, zero_foreign, len(inv),
                                          DEFAULT)
@@ -203,11 +203,12 @@ def test_flat_form_is_one_segment_with_no_inv(monkeypatch):
     buckets = torch.zeros(9, dtype=torch.int32, device="meta")
     picked, found = tk.kv_lookup(keys, values, query, buckets, DEFAULT)
     (call,) = card.calls
-    (bases, firsts, count, nb, slots, d, vals, q_rows, b_rows, inv_p, lanes,
-     zero, n, default, *_) = call["args"]
+    (bases, firsts, count, nb, slots, d, vtype, vals, q_rows, b_rows, inv_p,
+     lanes, zero, n, default, *_) = call["args"]
     assert (call["fn"], call["name"], call["tag"]) == (
         "mv_kv_lookup", "kv_lookup", None)
-    assert (list(firsts), count, nb, slots, d) == ([0], 1, 6, 4, 1)
+    assert (list(firsts), count, nb, slots, d, vtype) == ([0], 1, 6, 4, 1,
+                                                          0)
     assert [len(x) for x in (bases, vals, q_rows, b_rows)] == [1] * 4
     assert (inv_p, lanes, zero, n, default) == (None, 0, 1, 9, DEFAULT)
     assert picked.shape == (9,) and found.shape == (9,)

@@ -126,10 +126,13 @@ def _check_pair(probe, commit, keys, values, states, ops, part, counts):
     assert probe["fn"] == "mv_kv_probe" and probe["name"] == "kv_probe_update"
     assert (p_count, nb, slots) == (len(part), 6, 4)
     assert list(p_lanes) == real
-    (c_keys, c_vals, c_a, c_b, c_count, c_nb, c_slots, c_d, c_bk, c_q,
-     c_dl, c_lanes, c_slot, c_gate, code, *scalars) = commit["args"]
+    (c_keys, c_vals, c_a, c_b, c_count, c_replicas, c_nb, c_slots, c_d,
+     c_rows, c_vtype, c_bk, c_q, c_dl, c_lanes, c_slot, c_gate,
+     code, *scalars) = commit["args"]
     assert commit["fn"] == "mv_kv_commit" and commit["name"] == "kv_commit"
     assert (c_count, c_nb, c_slots, c_d) == (len(part), 6, 4, VDIM)
+    # one replica, its state whole, float32 values and state
+    assert (c_replicas, c_rows, c_vtype) == (1, 6, 0)
     assert list(c_lanes) == real
     assert code == tk.KV_UPDATERS["ftrl"] and len(scalars) == 8
     assert c_slot == p_slot
@@ -224,6 +227,37 @@ def test_a_card_with_no_real_lanes_launches_nothing(monkeypatch):
     assert n_over.device == torch.device("cpu")
 
 
+@pytest.mark.parametrize("where", ["same card", "another card"])
+def test_a_replica_on_another_card_is_refused(monkeypatch, where):
+    """Replicas over a data axis: the commit writes every replica's copy
+    of a card's shards through the pointers it is given. A replica on the
+    launch's card gives one probe and one commit naming both copies; a
+    replica on another card raises NotImplementedError before anything
+    launches (the port enables no peer access)."""
+    keys, values, states = _shards(["cpu"] * 2)
+    other = _shards(["cpu" if where == "same card" else "meta"] * 2)
+    counts = [3, 2]
+    ops = _lane_ops(counts)
+    card = _Card(monkeypatch)
+
+    def call():
+        tk.kv_probe_update_sharded(
+            keys, values, states, *ops, tup.AddOption(**OPTIONS["ftrl"]),
+            "ftrl", counts=counts, replicas=[other])
+
+    if where == "another card":
+        with pytest.raises(NotImplementedError, match="another card"):
+            call()
+        assert card.calls == []
+        return
+    call()
+    assert [c["fn"] for c in card.calls] == ["mv_kv_probe", "mv_kv_commit"]
+    c_keys, c_vals, _, _, c_count, c_replicas = card.calls[1]["args"][:6]
+    assert (c_count, c_replicas) == (2, 2)
+    assert list(c_keys) == [t.data_ptr() for t in keys + other[0]]
+    assert list(c_vals) == [t.data_ptr() for t in values + other[1]]
+
+
 def test_twenty_shards_of_one_card_launch_in_groups(monkeypatch):
     """A card holding more than ``MESH_MAX_SHARDS`` shards launches a
     pair per group of at most that many, every probe adding into the
@@ -266,8 +300,8 @@ def test_flat_form_launches_the_lanes_it_is_given(monkeypatch):
     assert [(c["fn"], c["tag"]) for c in card.calls] == [
         ("mv_kv_probe", None), ("mv_kv_commit", None)]
     probe, commit = card.calls
-    assert list(probe["args"][7]) == list(commit["args"][11]) == [5]
-    assert probe["args"][-1] == commit["args"][13]
+    assert list(probe["args"][7]) == list(commit["args"][14]) == [5]
+    assert probe["args"][-1] == commit["args"][16]
     assert out[3].shape == () and out[3].device.type == "meta"
     card.calls.clear()
     tk.kv_probe_update(keys[0], values[0], states[0], meta(b)[:0],

@@ -1,7 +1,8 @@
 """LightLDA on (D, S) meshes of CPU "devices" against the port's own
 (1, 1) run, bit for bit.
 
-Every mode but the streamed one runs on (2, 1), (1, 2) and (2, 2) meshes
+Every mode runs on (2, 1), (1, 2) and (2, 2) meshes (the streamed one in
+tests/test_torch_lightlda_streamed_mesh.py)
 (``core.Mesh`` of ``"cpu"`` repeated): the word table and the summary
 hold a replica per data row, split over the model axis; replica ``d``
 samples lanes ``d`` of every step. Fed the same draws, each run equals
@@ -199,12 +200,23 @@ def test_outputs_on_a_mesh_equal_one_device(docs, tmp_path, mode):
 
 
 def test_stream_blocks_refused_on_a_mesh(docs):
+    """The streamed mode is no longer refused on a mesh: on each it
+    constructs with the (1, 1) app's host stream and counts, and one
+    sweep gives the (1, 1) app's z (tests/test_torch_lightlda_streamed_
+    mesh.py holds the rest bit for bit)."""
     tw, td, V = docs
     cfg = tl.LDAConfig(seed=1, stream_blocks=True, **MODES["doc_blocked"])
+    one = tl.LightLDA(tw, td, V, cfg, mesh=_mesh((1, 1)), name="one")
+    want = (one._z_numpy().copy(), one.word_topics())
+    one.train(num_iterations=1)
     for shape in MESHES:
-        with pytest.raises(NotImplementedError, match="queue A item 3"):
-            tl.LightLDA(tw, td, V, cfg, mesh=_mesh(shape))
-    tl.LightLDA(tw, td, V, cfg, mesh=_mesh((1, 1)))
+        app = tl.LightLDA(tw, td, V, cfg, mesh=_mesh(shape), name="st")
+        np.testing.assert_array_equal(app._z_numpy(), want[0])
+        np.testing.assert_array_equal(app.word_topics(), want[1])
+        _same_replicas(app.word_topic.replicas, "word_topic")
+        app.train(num_iterations=1)
+        np.testing.assert_array_equal(app._z_numpy(), one._z_numpy())
+        tbase.reset_tables()
 
 
 def test_mesh_geometry_refusals(docs):

@@ -347,8 +347,9 @@ def test_whole_table_add_and_param_access(devices):
 def test_superstep_refuses_sharded_tables(devices):
     """A superstep takes tables split over the model axis of a (1, S)
     mesh, and on a (2, 2) mesh a MatrixTable and a SparseMatrixTable
-    (both replicated over the data axis); it refuses a KVTable there,
-    which holds no replicas (ROADMAP queue A item 4)."""
+    (both replicated over the data axis); it refuses a KVTable on every
+    mesh, (1, 1) too, as the reference's superstep takes dense tables
+    only."""
     _, tm = _meshes(devices, (1, 2))
     t = MatrixTable(8, 2, mesh=tm, name="ss_sh")
     make_superstep([t], lambda *a: a)
@@ -359,8 +360,11 @@ def test_superstep_refuses_sharded_tables(devices):
     sparse = SparseMatrixTable(8, 2, "int32", mesh=dp, name="ss_sp")
     assert sparse.n_replicas == 2
     make_superstep([sparse], lambda *a: a)
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
-        make_superstep([KVTable(64, mesh=dp, name="ss_kv")], lambda *a: a)
+    for m in (dp, tm, tcore.Mesh.single("cpu")):
+        with pytest.raises(NotImplementedError,
+                           match="takes dense tables only"):
+            make_superstep([KVTable(64, mesh=m, name="ss_kv")],
+                           lambda *a: a)
     one = MatrixTable(8, 2, device="cpu", name="ss_one")
     make_superstep([one], lambda *a: a)
 
