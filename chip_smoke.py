@@ -166,6 +166,25 @@ its seconds):
    kernel's device time (the count's fill, the probe, the commit, the
    rest), the device idle between them, the host's time to queue a call.
    Last, so that no profiler session comes before a timed phase.
+18. Telemetry, in parts beside the phases whose apps it reuses (its
+   seconds are their sum): (a) right after phase 4, phase 4's app and
+   pairs, one call each with the span trace and metric-event sinks off,
+   on, on, off: words/s off and on, each call's ``dispatch_s`` (the host's
+   time to queue it) beside its wall time; one ``w2v.superstep`` span,
+   ``step`` record and ``app.step.seconds`` observation a call,
+   ``profile.calls`` of the superstep once a call (not a step), no
+   ``table.*`` counter moved, phase 4's launches; (b) one sweep of phase
+   6's LightLDA and four steps of phase 10's sparse LR with the sinks on:
+   their spans, step records and counters, the KV ``table.add.bytes`` as
+   the reference counts it (2 bytes a value on a bfloat16 KVTable too);
+   (c) ``maybe_watchdog`` with a 1 s deadline over a queued gather and up
+   to 3 s without a beat: a dump under ``MVTPU_DUMP_DIR`` with every
+   thread's stack and the metrics snapshot; (d) ``record_device_memory``
+   within 1% of the allocator's own reads, and phase 1's builds recorded
+   as compiles (one each, its seconds, when it compiled); (e) after
+   phase 14, a ``profile_window`` over one 16-step word2vec call: its
+   Chrome trace names ``mv_row_gather``, ``mv_row_scatter_add``, their
+   kernels and the ``w2v.superstep`` range.
 
 Phase 2 also holds the KV kernels against their plain versions on the CPU
 bit for bit at the sparse-LR step's shapes (a 2^25-slot table, 262,144
@@ -504,22 +523,33 @@ def kernel_parts(torch, fn, iters: int) -> dict:
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(SPIN_CYCLES)
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total, starts = {}, {}
-    for e in sorted(device_events(prof, "kernel_parts_trace.json"),
-                    key=lambda e: e["ts"]):
-        if "spin_kernel" in e["name"]:
-            continue
-        m = re.search(r"(\w+_kernel)", e["name"])
-        name = ("fill" if "FillFunctor" in e["name"]
-                else m.group(1) if m else e["name"][:40])
-        total[name] = total.get(name, 0.0) + e["dur"] / 1e3
-        starts.setdefault(name, []).append(e["ts"])
+    # a session now and then comes back with none of the calls' device
+    # events (seen once on an H100 in this phase): capture again, at
+    # most twice more
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(SPIN_CYCLES)
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total, starts = {}, {}
+        for e in sorted(device_events(prof, "kernel_parts_trace.json"),
+                        key=lambda e: e["ts"]):
+            if "spin_kernel" in e["name"]:
+                continue
+            m = re.search(r"(\w+_kernel)", e["name"])
+            name = ("fill" if "FillFunctor" in e["name"]
+                    else m.group(1) if m else e["name"][:40])
+            total[name] = total.get(name, 0.0) + e["dur"] / 1e3
+            starts.setdefault(name, []).append(e["ts"])
+        if starts:
+            break
+        log(f"    (profiler session {attempt + 1} held none of the calls' "
+            "device events; capturing again)")
+    else:
+        raise SystemExit("kernel_parts: three profiler sessions held none "
+                         "of the calls' device events")
     per_call = {k: max(1, round(len(v) / iters)) for k, v in starts.items()}
     parts = {k: v / len(starts[k]) * per_call[k] for k, v in total.items()}
     first = starts[next(iter(starts))][::per_call[next(iter(starts))]]
@@ -665,7 +695,7 @@ def phase_w2v(torch, tk, Corpus, synthetic_text, W2VConfig, WordEmbedding,
     # what phase 13 repeats on the mesh and must equal bit for bit
     run = dict(corpus=corpus, cfg=cfg, batches=batches,
                pairs_per_token=pairs_per_token, w_in=app.w_in.get(),
-               w_out=app.w_out.get())
+               w_out=app.w_out.get(), app=app)
     if profile:
         rest = batches[(1 + TIMED_CALLS) * STEPS:]
         out["longest_runs"] = step_runs(torch, app, rest[0])
@@ -1337,8 +1367,9 @@ def lda_app(LightLDA, LDAConfig, tw, td, **extra):
 
 
 def phase_lda(torch, tk, ls, LightLDA, LDAConfig, tw, td,
-              profile: bool) -> dict:
-    """Phase 6: LightLDA doc-blocked at the LDA metric of record."""
+              profile: bool, then=None) -> dict:
+    """Phase 6: LightLDA doc-blocked at the LDA metric of record;
+    ``then(app)`` runs on the app once the phase is done with it."""
     t0 = time.perf_counter()
     app = lda_app(LightLDA, LDAConfig, tw, td, stale_words=True,
                   doc_blocked=True)
@@ -1401,6 +1432,8 @@ def phase_lda(torch, tk, ls, LightLDA, LDAConfig, tw, td,
     if profile:
         out["profile"] = profile_call(torch, "lda_sweep_trace.json",
                                       app.sweep, 1e3 * min(runs))
+    if then is not None:
+        then(app)
     del app
     torch.cuda.empty_cache()
     return out
@@ -2070,10 +2103,11 @@ def phase_kv_table(torch, KVTable, AddOption, rng, tmp) -> None:
 
 def phase_sparse_lr(torch, tk, counts, SparseLogisticRegression,
                     SparseLRConfig, synthetic_sparse, lr_step,
-                    profile: bool):
+                    profile: bool, then=None):
     """Phase 10: sparse LR at the Criteo-like width. Returns the measured
     numbers, the launch counts read right after training and the accuracy
-    pass, and the data with the final table on the host (for phase 12)."""
+    pass, and the data with the final table on the host (for phase 12);
+    ``then(app, rows, y)`` runs once the phase is done with the app."""
     t0 = time.perf_counter()
     rows, y = synthetic_sparse(n=SLR_N, dim=SLR_DIM, num_classes=2,
                                nnz=SLR_NNZ, seed=0)
@@ -2148,6 +2182,8 @@ def phase_sparse_lr(torch, tk, counts, SparseLogisticRegression,
             torch, "slr_steps_trace.json",
             lambda: [app.train_batch(r, yy) for r, yy in mbs],
             4 * step_ms[-1])
+    if then is not None:
+        then(app, rows, y)
     del app
     torch.cuda.empty_cache()
     return out, path_counts, data
@@ -3640,6 +3676,372 @@ def phase_dense_logreg(torch, core, LogisticRegression, LogRegConfig,
     return out
 
 
+# -- phase 18: telemetry ---------------------------------------------------
+
+
+def tel_state(telemetry) -> dict:
+    """Every counter's value and every histogram's count (``#count``)."""
+    snap = telemetry.snapshot()
+    out = dict(snap["counters"])
+    out.update({f"{k}#count": h["count"]
+                for k, h in snap["histograms"].items()})
+    return out
+
+
+def tel_moved(before: dict, after: dict) -> dict:
+    """What moved between two :func:`tel_state` readings."""
+    return {k: v - before.get(k, 0) for k, v in after.items()
+            if v != before.get(k, 0)}
+
+
+@contextlib.contextmanager
+def tel_sinks(telemetry, trace, path: str):
+    """The span trace at ``path`` and the metric events beside it
+    (``.events``), as ``MVTPU_TRACE_JSONL`` / ``MVTPU_METRICS_JSONL``
+    would open them at import."""
+    trace.set_trace_file(path)
+    telemetry.registry().set_jsonl(path + ".events")
+    try:
+        yield
+    finally:
+        trace.set_trace_file(None)
+        telemetry.registry().set_jsonl(None)
+
+
+@contextlib.contextmanager
+def env_set(**values: str):
+    """The environment variables ``values`` set for the block, then put
+    back as they were."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def tel_expect(what: str, moved: dict, want: dict) -> None:
+    """Each key of ``want`` moved by exactly its value, and no
+    ``table.*`` counter moved unless ``want`` names it."""
+    for key, n in want.items():
+        if moved.get(key, 0) != n:
+            raise SystemExit(f"telemetry, {what}: {key} moved by "
+                             f"{moved.get(key, 0)}, expected {n}")
+    stray = [k for k in moved if k.startswith("table.") and k not in want]
+    if stray:
+        raise SystemExit(f"telemetry, {what}: table counters moved: "
+                         f"{ {k: moved[k] for k in stray} }")
+
+
+def tel_record_us(telemetry, trace, tmp: str, n: int = 2000) -> dict:
+    """Microseconds a word2vec call spends recording itself (what
+    ``WordEmbedding._dispatch`` records around its superstep: a span, a
+    step record, a histogram observation and a beat), with the sinks off
+    and on: the median of 5 loops of ``n``, on the host alone."""
+    def loop() -> float:
+        t0 = time.perf_counter()
+        for i in range(n):
+            t_step = time.perf_counter()
+            with telemetry.span("w2v.superstep"):
+                pass
+            telemetry.step_timeline("w2v.cost", i, pairs=STEPS * BATCH,
+                                    dispatch_s=time.perf_counter() - t_step)
+            telemetry.histogram(
+                "app.step.seconds", telemetry.LATENCY_BUCKETS,
+                app="w2v.cost").observe(time.perf_counter() - t_step)
+            telemetry.beat()
+        return (time.perf_counter() - t0) / n * 1e6
+
+    out = {"off": float(np.median([loop() for _ in range(5)]))}
+    with tel_sinks(telemetry, trace, os.path.join(tmp, "telemetry_us.jsonl")):
+        out["on"] = float(np.median([loop() for _ in range(5)]))
+    return out
+
+
+def phase_telemetry_w2v(torch, tk, telemetry, trace, app, batches,
+                        pairs_per_token: float, tmp: str) -> dict:
+    """Phase 18a: phase 4's app and pairs, one call each with the sinks
+    off, on, on, off. Each call records one ``w2v.superstep`` span, one
+    ``step`` record and one ``app.step.seconds`` observation (the sinks
+    on), moves ``profile.calls`` of the superstep by one (a call, not its
+    512 steps) and no ``table.*`` counter, and launches phase 4's two
+    gathers and two scatter-adds a step."""
+    path = os.path.join(tmp, "telemetry_w2v.jsonl")
+    fn = f"profile.calls{{fn=superstep.{app._fused.name}}}"
+    rates, walls = {"off": [], "on": []}, []
+    for mode in ("off", "on", "on", "off"):
+        sinks = tel_sinks(telemetry, trace, path) if mode == "on" \
+            else contextlib.nullcontext()
+        before, launches = tel_state(telemetry), dict(tk.LAUNCHES)
+        with sinks:
+            t0 = time.perf_counter()
+            app.train(total_steps=STEPS, batches=batches[:STEPS])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        tel_expect(f"w2v call, sinks {mode}",
+                   tel_moved(before, tel_state(telemetry)),
+                   {fn: 1, "app.step.seconds{app=w2v}#count": 1,
+                    "w2v.pairs": STEPS * BATCH})
+        for name in ("row_gather", "row_scatter_add"):
+            if tk.LAUNCHES[name] - launches[name] != 2 * STEPS:
+                raise SystemExit(f"telemetry, w2v call: {name} launched "
+                                 f"{tk.LAUNCHES[name] - launches[name]} "
+                                 f"times, expected {2 * STEPS}")
+        rates[mode].append(STEPS * BATCH / dt / pairs_per_token)
+        if mode == "on":
+            walls.append(dt)
+    records = trace.read_trace(path)
+    spans = [r["name"] for r in records if r["kind"] == "span"]
+    steps = [r for r in records if r["kind"] == "step"]
+    events = [r["metric"] for r in trace.read_trace(path + ".events")]
+    if spans != ["w2v.superstep"] * 2 or len(steps) != 2 \
+            or any(r["pairs"] != STEPS * BATCH for r in steps) \
+            or events != ["w2v.words_per_sec"] * 2:
+        raise SystemExit(f"telemetry, w2v: spans {spans}, step records "
+                         f"{steps}, metric events {events}")
+    dispatch = [r["dispatch_s"] for r in steps]
+    out = dict(words_per_sec_off=rates["off"], words_per_sec_on=rates["on"],
+               on_vs_off=sum(rates["on"]) / sum(rates["off"]),
+               dispatch_s=dispatch, call_wall_s=walls,
+               dispatch_s_median=float(np.median(dispatch)),
+               call_wall_s_median=float(np.median(walls)),
+               record_us=tel_record_us(telemetry, trace, tmp))
+    log(f"  18a what a call records, alone: "
+        f"{out['record_us']['off']:.1f} us with the sinks off, "
+        f"{out['record_us']['on']:.1f} us on (median of 5 x 2,000), "
+        f"{1e-4 * out['record_us']['on'] / out['call_wall_s_median']:.5f}% "
+        f"of a call")
+    log(f"  18a w2v, calls off/on/on/off: words/s off "
+        f"{[round(r) for r in rates['off']]}, on "
+        f"{[round(r) for r in rates['on']]} ({out['on_vs_off']:.3f}x); "
+        f"dispatch_s a call {[round(d, 4) for d in dispatch]} (median "
+        f"{out['dispatch_s_median']:.4f} s) against the call's wall "
+        f"{[round(w, 4) for w in walls]} s; one span, step record and "
+        f"app.step.seconds a call, profile.calls 1 a call of {STEPS} "
+        f"steps, no table counter moved")
+    return out
+
+
+def phase_telemetry_watchdog(torch, tk, telemetry, tmp: str) -> dict:
+    """Phase 18c: ``maybe_watchdog`` armed by ``MVTPU_WATCHDOG=1`` over a
+    region that queues a gather and then goes 3 s without a beat: a dump
+    must appear under ``MVTPU_DUMP_DIR`` with every thread's stack and
+    the port's metrics snapshot."""
+    dump_dir = os.path.join(tmp, "dumps")
+    p = torch.randn(VOCAB + 1, DIM, device="cuda")
+    ids = torch.randint(0, VOCAB, (BATCH,), dtype=torch.int32,
+                        device="cuda")
+    with env_set(MVTPU_WATCHDOG="1", MVTPU_DUMP_DIR=dump_dir), \
+            telemetry.maybe_watchdog("smoke") as w:
+        if w is None:
+            raise SystemExit("telemetry: MVTPU_WATCHDOG=1 armed no "
+                             "watchdog")
+        tk.gather_rows(p, ids)
+        t0 = time.perf_counter()
+        while w.last_dump_path is None and time.perf_counter() - t0 < 3.0:
+            time.sleep(0.05)
+        waited = time.perf_counter() - t0
+    dump = w.last_dump_path
+    if not dump or os.path.dirname(dump) != dump_dir:
+        raise SystemExit(f"telemetry: no watchdog dump under {dump_dir} "
+                         f"({dump})")
+    with open(os.path.join(dump, "stacks.txt")) as f:
+        stacks = f.read()
+    with open(os.path.join(dump, "metrics.json")) as f:
+        snap = json.load(f)
+    if "File " not in stacks or snap.get("kind") != "mvtpu.metrics.v1" \
+            or not snap["counters"].get("w2v.pairs"):
+        raise SystemExit(f"telemetry: the dump {dump} lacks the thread "
+                         "stacks or the port's metrics snapshot")
+    log(f"  18c watchdog: 1 s deadline, dump after {waited:.2f} s without "
+        f"a beat: {sorted(os.listdir(dump))}, {stacks.count('Thread ')} "
+        f"threads, {len(snap['counters'])} counters")
+    return dict(dump_after_s=waited, files=sorted(os.listdir(dump)))
+
+
+def phase_telemetry_memory(torch, telemetry) -> dict:
+    """Phase 18d: ``record_device_memory`` against the allocator's own
+    reads of cuda:0 (within 1%)."""
+    torch.cuda.synchronize()
+    out = telemetry.record_device_memory()
+    alloc = torch.cuda.memory_allocated(0)
+    peak = torch.cuda.max_memory_allocated(0)
+    gauges = telemetry.snapshot()["gauges"]
+    for key, want in (("bytes_in_use", alloc), ("peak_bytes_in_use", peak)):
+        got = out.get(f"cuda:0.{key}")
+        if got is None or abs(got - want) > 0.01 * want \
+                or gauges.get(f"device.{key}{{device=cuda:0}}") != got:
+            raise SystemExit(f"telemetry: device.{key} {got} against the "
+                             f"allocator's {want}")
+    log(f"  18d device memory: in use {out['cuda:0.bytes_in_use'] / 1e9:.3f}"
+        f" GB (memory_allocated {alloc / 1e9:.3f}), peak "
+        f"{out['cuda:0.peak_bytes_in_use'] / 1e9:.3f} GB "
+        f"(max_memory_allocated {peak / 1e9:.3f}), limit "
+        f"{out['cuda:0.bytes_limit'] / 1e9:.1f} GB, "
+        f"{out['live_buffers']} live blocks")
+    return out
+
+
+def phase_telemetry_compiles(telemetry, builds: dict) -> dict:
+    """Phase 18d: phase 1's builds on the record. A build that compiled
+    (not a cached library) counts one ``profile.compiles{fn=<name>}``,
+    its seconds the build's own; a cached one counts none."""
+    snap = telemetry.snapshot()
+    out = {}
+    for name, mod in builds.items():
+        n = snap["counters"].get(f"profile.compiles{{fn={name}}}", 0)
+        last = snap["gauges"].get(f"profile.compile.last_s{{fn={name}}}")
+        want = 1 if mod.build_seconds > 0 else 0
+        if n != want or (want and last != mod.build_seconds):
+            raise SystemExit(f"telemetry: {name} built in "
+                             f"{mod.build_seconds:.2f} s, recorded {n} "
+                             f"compile(s) of {last} s")
+        out[name] = dict(compiles=n, seconds=last)
+    log(f"  18d builds on the record: {out}")
+    return out
+
+
+def phase_telemetry_lda(torch, telemetry, trace, app, tmp: str) -> dict:
+    """Phase 18b, LightLDA: one sweep of phase 6's app through
+    ``train(num_iterations=1)`` with the sinks on: one ``lda.sweep`` span
+    and ``step`` record, the sweep's tokens counted, ``profile.calls`` of
+    the superstep once a call, no ``table.*`` counter moved."""
+    path = os.path.join(tmp, "telemetry_lda.jsonl")
+    fn = f"profile.calls{{fn=superstep.{app._fused.name}}}"
+    before = tel_state(telemetry)
+    with tel_sinks(telemetry, trace, path):
+        app.train(num_iterations=1)
+        torch.cuda.synchronize()
+    tel_expect("LightLDA sweep", tel_moved(before, tel_state(telemetry)),
+               {fn: app.calls_per_sweep, "lda.tokens": app.num_tokens,
+                "app.step.seconds{app=lda}#count": 1})
+    records = trace.read_trace(path)
+    spans = [r["name"] for r in records if r["kind"] == "span"]
+    steps = [r for r in records if r["kind"] == "step"]
+    if spans != ["lda.sweep"] or len(steps) != 1 \
+            or steps[0]["tokens"] != app.num_tokens:
+        raise SystemExit(f"telemetry, LightLDA: spans {spans}, step "
+                         f"records {steps}")
+    log(f"  18b LightLDA: one sweep, {app.calls_per_sweep} superstep calls, "
+        f"dispatch_s {steps[0]['dispatch_s']:.4f} s")
+    return dict(dispatch_s=steps[0]["dispatch_s"])
+
+
+def phase_telemetry_slr(torch, tk, telemetry, trace, KVTable, app, rows, y,
+                        tmp: str) -> dict:
+    """Phase 18b, sparse LR: four steps of phase 10's app through
+    ``train`` with the sinks on. Each step's span holds its KV table's Get
+    and Add spans; the table's ``table.add.bytes`` is the deltas' size
+    times the value type's itemsize (the reference's formula), also for a
+    bfloat16 KVTable (2 bytes a value)."""
+    path = os.path.join(tmp, "telemetry_slr.jsonl")
+    n = 4 * SLR_BATCH
+    app.config = dataclasses.replace(app.config, epochs=1)
+    t = app.table
+    lbl = f"{{table={t.table_id}:{t.name}}}"
+    elems, add = [], t.add
+
+    def counting_add(keys, deltas, *args, **kw):
+        elems.append(deltas.numel())
+        return add(keys, deltas, *args, **kw)
+
+    t.add = counting_add
+    before, launches = tel_state(telemetry), dict(tk.LAUNCHES)
+    try:
+        with tel_sinks(telemetry, trace, path):
+            app.train(rows[:n], y[:n])
+    finally:
+        t.add = add
+    moved = tel_moved(before, tel_state(telemetry))
+    tel_expect("sparse LR steps", moved, {
+        "app.step.seconds{app=sparse_logreg}#count": 4,
+        "sparse_logreg.samples": n,
+        f"profile.calls{{fn=kv.lookup.{t.name}}}": 4,
+        f"profile.calls{{fn=kv.apply.{t.name}}}": 4,
+        f"table.get.ops{lbl}": 4, f"table.add.ops{lbl}": 4,
+        f"table.get.elems{lbl}": moved.get(f"table.get.elems{lbl}", -1),
+        f"table.get.bytes{lbl}": 4 * moved.get(f"table.get.elems{lbl}", -1),
+        f"table.get.seconds{lbl}#count": 4,
+        f"table.add.seconds{lbl}#count": 4,
+        f"table.add.elems{lbl}": sum(elems),
+        f"table.add.bytes{lbl}": 4 * sum(elems)})
+    for name in ("kv_lookup", "kv_probe_update", "kv_commit"):
+        if tk.LAUNCHES[name] - launches[name] != 4:
+            raise SystemExit(f"telemetry, sparse LR: {name} launched "
+                             f"{tk.LAUNCHES[name] - launches[name]} times "
+                             "in 4 steps")
+    records = trace.read_trace(path)
+    spans = [r for r in records if r["kind"] == "span"]
+    steps = [r for r in records if r["kind"] == "step"]
+    if [r["name"] for r in spans] != ["table.get", "table.add",
+                                      "sparse_logreg.step"] * 4 \
+            or any(spans[i]["parent"] != spans[i + 2 - i % 3]["id"]
+                   for i in range(12) if i % 3 < 2) \
+            or [r["samples"] for r in steps] != [SLR_BATCH] * 4:
+        named = [(r["name"], r["id"], r["parent"]) for r in spans]
+        raise SystemExit(f"telemetry, sparse LR: spans {named}, step "
+                         f"records {steps}")
+    # a bfloat16 KVTable: 2 bytes a value whatever the delta's own type
+    kv = KVTable(1 << 16, 2, "bfloat16", updater="sgd", device="cuda",
+                 name="smoke_kv_bf16")
+    keys = np.arange(1, SLR_BATCH + 1, dtype=np.uint64)
+    before = tel_state(telemetry)
+    kv.add(keys, np.ones((SLR_BATCH, 2), np.float32), sync=True)
+    lbl = f"{{table={kv.table_id}:{kv.name}}}"
+    tel_expect("bfloat16 KV add", tel_moved(before, tel_state(telemetry)), {
+        f"table.add.ops{lbl}": 1, f"table.add.elems{lbl}": 2 * SLR_BATCH,
+        f"table.add.bytes{lbl}": 2 * 2 * SLR_BATCH,
+        f"table.add.seconds{lbl}#count": 1})
+    dispatch = [r["dispatch_s"] for r in steps]
+    log(f"  18b sparse LR: 4 steps, each span holding its table.get and "
+        f"table.add; table.add.bytes {4 * sum(elems)} = 4 x "
+        f"{sum(elems)} elements; bfloat16 KV add {2 * 2 * SLR_BATCH} bytes "
+        f"for {2 * SLR_BATCH} values; dispatch_s a step "
+        f"{[round(d, 4) for d in dispatch]}")
+    return dict(dispatch_s=dispatch, add_elems=sum(elems))
+
+
+def phase_telemetry_profile(torch, telemetry, app, batches, tmp: str,
+                            steps: int = 16) -> dict:
+    """Phase 18e, after every timed phase: a ``profile_window`` (under
+    ``MVTPU_PROFILE_DIR``) over one word2vec call of ``steps`` steps
+    through the app's dispatch; its Chrome trace must name the C entry
+    points ``mv_row_gather`` and ``mv_row_scatter_add`` (the wrappers'
+    profiler ranges), their kernels and the ``w2v.superstep`` range. (A
+    trace of a whole 512-step call runs to tens of MiB.)"""
+    src = np.stack([b[0] for b in batches[:steps]])
+    tgt = np.stack([b[1] for b in batches[:steps]])
+    app._dispatch(src, tgt, 0, 1)                 # the call's shapes, warm
+    torch.cuda.synchronize()
+    with env_set(MVTPU_PROFILE_DIR=os.path.join(tmp, "profile")), \
+            telemetry.profile_window("w2v") as out:
+        if out is None:
+            raise SystemExit("telemetry: profile_window did not start")
+        app._dispatch(src, tgt, 0, 1)
+        torch.cuda.synchronize()
+    (name,) = os.listdir(out)
+    size = os.path.getsize(os.path.join(out, name))
+    with open(os.path.join(out, name)) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    kernels = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    want = ("mv_row_gather", "mv_row_scatter_add", "w2v.superstep",
+            "profile.window")
+    missing = [w for w in want if w not in names]
+    if missing or not any("row_gather" in k for k in kernels) \
+            or not any("scatter" in k for k in kernels):
+        raise SystemExit(f"telemetry: the profile window's trace lacks "
+                         f"{missing} (kernels {sorted(kernels)[:8]})")
+    log(f"  18e profile window: {name}, {size / 1e6:.1f} MB, "
+        f"{len(events)} events; names {list(want)} and the kernels "
+        f"{sorted(k[:40] for k in kernels)[:4]}")
+    return dict(trace_mb=size / 1e6, events=len(events))
+
+
 def device_events(prof, trace_name: str) -> list:
     """The device events (kernels, copies, memsets) of a finished
     torch.profiler session, through its chrome trace, which is kept under
@@ -3724,6 +4126,8 @@ def main(argv) -> int:
                                              SparseMatrixTable,
                                              make_superstep)
     from multiverso_tpu_torch.updaters import AddOption
+    from multiverso_tpu_torch import telemetry
+    from multiverso_tpu_torch.telemetry import trace
     profile = "--profile" in argv
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3744,6 +4148,16 @@ def main(argv) -> int:
     def reset() -> None:
         tk.reset_launches()
         ls.reset_launches()
+
+    # phase 18 runs in parts beside the phases whose apps it reuses; its
+    # seconds are their sum
+    tel, tel_dir = {}, tempfile.TemporaryDirectory()
+    phase_s["telemetry"] = 0.0
+
+    def tel_part(key: str, fn, *args) -> None:
+        t0 = time.perf_counter()
+        tel[key] = fn(*args)
+        phase_s["telemetry"] += time.perf_counter() - t0
 
     phase("device", "phase 1: device")
     card = subprocess.run(
@@ -3806,6 +4220,19 @@ def main(argv) -> int:
         paths["word2vec"] = counts()
         phase_end("w2v")
 
+        log("phase 18: telemetry (a: phase 4's word2vec, sinks off, on, "
+            "on, off; c: the watchdog; d: device memory)")
+        tel_app = w2v_run.pop("app")
+        tel_batches = w2v_run["batches"][:16]
+        tel_part("w2v", phase_telemetry_w2v, torch, tk, telemetry, trace,
+                 tel_app, w2v_run["batches"], w2v_run["pairs_per_token"],
+                 tel_dir.name)
+        tel_part("watchdog", phase_telemetry_watchdog, torch, tk, telemetry,
+                 tel_dir.name)
+        tel_part("device_memory", phase_telemetry_memory, torch, telemetry)
+        tel_part("compiles", phase_telemetry_compiles, telemetry,
+                 {"torch_kernels": _build, "mvtpu_data": _native_build})
+
         phase("w2v_own", "phase 4c: word2vec through its own pair stream "
               "(WordEmbedding.train without batches=), native and Python "
               "backends")
@@ -3829,7 +4256,10 @@ def main(argv) -> int:
         f"{100 * np.bincount(tw).max() / LDA_T:.1f}% of the tokens")
     reset()
     torch.cuda.reset_peak_memory_stats()
-    lda = phase_lda(torch, tk, ls, LightLDA, LDAConfig, tw, td, profile)
+    lda = phase_lda(torch, tk, ls, LightLDA, LDAConfig, tw, td, profile,
+                    then=lambda app: tel_part(
+                        "lightlda", phase_telemetry_lda, torch, telemetry,
+                        trace, app, tel_dir.name))
     paths["lightlda_doc_blocked"] = counts()
     phase_end("lda")
 
@@ -3864,7 +4294,10 @@ def main(argv) -> int:
           "Criteo-like width")
     slr, paths["sparse_logreg"], slr_data = phase_sparse_lr(
         torch, tk, counts, SparseLogisticRegression, SparseLRConfig,
-        synthetic_sparse, lr_step, profile)
+        synthetic_sparse, lr_step, profile,
+        then=lambda app, rows, y: tel_part(
+            "sparse_lr", phase_telemetry_slr, torch, tk, telemetry, trace,
+            KVTable, app, rows, y, tel_dir.name))
     phase_end("sparse_lr")
 
     mesh = core.Mesh([devices])
@@ -3933,6 +4366,15 @@ def main(argv) -> int:
                                         scatter_calls)
     del scatter_calls
     phase_end("scatter_parts")
+
+    log("phase 18e: a profile window over one word2vec call (after every "
+        "timed phase)")
+    tel_part("profile_window", phase_telemetry_profile, torch, telemetry,
+             tel_app, tel_batches, tel_dir.name)
+    del tel_app, tel_batches
+    tel_dir.cleanup()
+    log(f"  [telemetry (phase 18, all parts): {phase_s['telemetry']:.1f} "
+        f"s]")
 
     # each kernel's launches on the main path that carries it
     main_path = {
@@ -4007,6 +4449,14 @@ def main(argv) -> int:
         f"{[round(r) for r in slr_mesh['samples_per_sec']]} samples/s per "
         f"epoch on {card}")
     log(f"  launches per path: {paths}")
+    t18 = tel["w2v"]
+    log(f"  telemetry: word2vec words/s with the sinks off "
+        f"{[round(r) for r in t18['words_per_sec_off']]}, on "
+        f"{[round(r) for r in t18['words_per_sec_on']]} "
+        f"({t18['on_vs_off']:.3f}x); dispatch_s a call "
+        f"{t18['dispatch_s_median']:.4f} s (median) against the call's "
+        f"wall {t18['call_wall_s_median']:.4f} s; phase 18 "
+        f"{phase_s['telemetry']:.1f} s; on {card}")
 
     row_src = "multiverso_tpu_torch/ops/csrc/row_kernels.cu"
     coo_src = "multiverso_tpu_torch/ops/csrc/coo_kernels.cu"
@@ -4098,7 +4548,7 @@ def main(argv) -> int:
                        w2v_data_axis=w2v_data,
                        w2v_own_iterator=w2v_own, dense_logreg=dense,
                        kv_data_axis=kv_data,
-                       row_scatter_parts=scatter_parts,
+                       row_scatter_parts=scatter_parts, telemetry=tel,
                        seconds=time.perf_counter() - t_start), f, indent=1)
     log(f"phase seconds: { {k: round(v, 1) for k, v in phase_s.items()} }")
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -65,8 +65,7 @@ each lane's posterior reads the same counts).
   puts them (:meth:`LightLDA._block_rows`).
 
 Not in the port yet (see ROADMAP.md): ``local_corpus`` and multi-process
-runs, the run-directory manager, telemetry spans and health rollback,
-cached table views.
+runs, the run-directory manager, health rollback, cached table views.
 """
 
 from __future__ import annotations
@@ -78,7 +77,7 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from multiverso_tpu_torch import core
+from multiverso_tpu_torch import core, telemetry
 from multiverso_tpu_torch.data.corpus import backend as data_backend
 from multiverso_tpu_torch.ops import table_kernels as tk
 from multiverso_tpu_torch.ops.lda_sampler import (gibbs_sample_docblock,
@@ -1002,7 +1001,16 @@ class LightLDA:
         every = max(c.eval_every, 1)
         t0 = time.perf_counter()
         for it in range(iters):
-            self.sweep(uniforms, integers)
+            t_sweep = time.perf_counter()
+            with telemetry.span("lda.sweep"):
+                self.sweep(uniforms, integers)
+            telemetry.step_timeline(
+                "lda", it, tokens=self.num_tokens,
+                dispatch_s=time.perf_counter() - t_sweep)
+            telemetry.histogram(
+                "app.step.seconds", telemetry.LATENCY_BUCKETS,
+                app="lda").observe(time.perf_counter() - t_sweep)
+            telemetry.beat()    # flight recorder: a heartbeat per sweep
             if c.checkpoint_interval > 0 and c.checkpoint_prefix \
                     and (it + 1) % c.checkpoint_interval == 0:
                 self.store(c.checkpoint_prefix)
@@ -1013,7 +1021,11 @@ class LightLDA:
             log.info("lightlda iter %d: loglik/token=%.4f", it, ll)
         self.summary.wait()
         dt = time.perf_counter() - t0
-        self.doc_tokens_per_sec = self.num_tokens * iters / max(dt, 1e-12)
+        tokens = self.num_tokens * iters
+        self.doc_tokens_per_sec = tokens / max(dt, 1e-12)
+        telemetry.counter("lda.tokens").inc(tokens)
+        telemetry.emit("lda.doc_tokens_per_sec", self.doc_tokens_per_sec,
+                       "tokens/s")
         log.info("lightlda done: %d iters, %.0f doc-tokens/s", iters,
                  self.doc_tokens_per_sec)
         return self.ll_history[-1] if self.ll_history else float("nan")
@@ -1024,7 +1036,7 @@ class LightLDA:
         """The predictive log-likelihood of one call's tokens, summed in
         float32 over chunks of ~64k tokens (eval rows stay bounded)."""
         K = self.K
-        S = self.summary.get_tensor().to(torch.float32)
+        S = self.summary.logical_tensor().to(torch.float32)
         n = _eval_chunk(ws.shape[0])
         tot = torch.zeros((), dtype=torch.float32, device=self.device)
         for lo in range(0, ws.shape[0], n):
@@ -1073,7 +1085,7 @@ class LightLDA:
                     torch.float32)
                 W = gather_rows(nwk, ws[sl]).to(torch.float32)
                 total += float(_predictive_ll(
-                    A, W, self.summary.get_tensor().to(torch.float32),
+                    A, W, self.summary.logical_tensor().to(torch.float32),
                     ms[sl].to(torch.float32), self.alpha, self.beta, K,
                     self.V * self.beta))
             else:
@@ -1360,7 +1372,11 @@ def main(argv=None) -> None:
         checkpoint_interval=configure.get_flag("checkpoint_interval"),
     )
     app = LightLDA(tw, td, vocab, cfg, mesh=mesh)
-    app.train()
+    # flight recorder: env-gated stall watchdog + device capture (the
+    # per-sweep beat is in train)
+    with telemetry.maybe_watchdog("lda"), telemetry.profile_window("lda"):
+        app.train()
+    telemetry.record_device_memory()
     out = configure.get_flag("output_file")
     if out and app._last_store != (out, app._calls_done):
         app.store(out)

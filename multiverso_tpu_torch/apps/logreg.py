@@ -39,7 +39,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from multiverso_tpu_torch import core
+from multiverso_tpu_torch import core, telemetry
 from multiverso_tpu_torch.tables import ArrayTable, make_superstep
 from multiverso_tpu_torch.tables.superstep import (DataSplit, replica_cat,
                                                    replica_index,
@@ -330,17 +330,37 @@ class LogisticRegression:
         S = max(c.steps_per_call, 1)
         groups = [full[g:g + S]
                   for g in range(0, len(full) - len(full) % S, S)]
+        n_scan = len(groups)
         groups += [[s] for s in full[len(full) - len(full) % S:] + tail]
-        for grp in groups:
+        for step_no, grp in enumerate(groups):
             idx = [order[s:s + c.minibatch_size] for s in grp]
             xs = np.stack([X[i] for i in idx])
             ys = np.stack([y[i] for i in idx])
-            _, lg = self._fused((), *self._place(xs, ys))
+            placed = self._place(xs, ys)
+            # the reference's names: an S-step group is a superstep, the
+            # trailing partial group and the short minibatch single steps
+            scan = step_no < n_scan
+            t_step = time.perf_counter()
+            with telemetry.span("logreg.superstep" if scan
+                                else "logreg.step"):
+                _, lg = self._fused((), *placed)
+            telemetry.step_timeline(
+                "logreg", step_no,
+                samples=S * c.minibatch_size if scan else len(idx[0]),
+                dispatch_s=time.perf_counter() - t_step)
+            telemetry.histogram(
+                "app.step.seconds", telemetry.LATENCY_BUCKETS,
+                app="logreg").observe(time.perf_counter() - t_step)
+            telemetry.beat()
             losses.append(lg)
         # one device-to-host copy for the whole loss list
         mean_loss = float(torch.cat(losses).cpu().numpy().mean()) \
             if losses else float("nan")
         dt = time.perf_counter() - t0
+        telemetry.counter("logreg.samples").inc(n)
+        telemetry.emit("logreg.samples_per_sec", n / dt, "samples/s")
+        # logreg.weight_norm waits for the cached view (ROADMAP queue A
+        # item 9): the reference sets it only from its _view
         log.info("logreg epoch done: loss=%.4f %.0f samples/s",
                  mean_loss, n / dt)
         return mean_loss
@@ -374,7 +394,7 @@ class LogisticRegression:
     def predict(self, X: np.ndarray) -> np.ndarray:
         c = self.config
         k = c.input_dim * c.num_classes
-        w_flat = self.table.get_tensor()
+        w_flat = self.table.logical_tensor()
         x = core.place(np.asarray(X, np.float32), device=self.device)
         logits = x @ w_flat[:k].view(c.input_dim, c.num_classes) \
             + w_flat[k:]
@@ -422,8 +442,8 @@ device repeated with -device (-device=cpu: the CPU); with a data axis
 above 1 each row of the mesh holds a replica of the weights and trains on
 its share of every minibatch. Not ported: the fault-tolerance run flags
 -run_dir, -resume and -ckpt_every and the run checkpoint manager
-(wire_app), the telemetry, watchdog and profile windows, the health
-rollback, and the cached weight view (MVTPU_STALENESS)."""
+(wire_app), the health rollback, and the cached weight view
+(MVTPU_STALENESS)."""
 
 
 def main(argv=None) -> None:
@@ -498,7 +518,13 @@ def main(argv=None) -> None:
                         np.float32)
     else:
         X, y = synthetic_blobs(20000, cfg.input_dim, cfg.num_classes)
-    app.train(X, y)
+    # flight recorder: MVTPU_WATCHDOG=<s> arms a stall watchdog (the
+    # per-step beat is in train_epoch); MVTPU_PROFILE_DIR captures a
+    # torch.profiler trace of the whole training run
+    with telemetry.maybe_watchdog("logreg"), \
+            telemetry.profile_window("logreg"):
+        app.train(X, y)
+    telemetry.record_device_memory()
     log.info("train accuracy: %.4f", app.accuracy(X, y))
     if test_file:
         Xt, yt = _densify(*parsed[test_file], cfg.input_dim, base,

@@ -34,7 +34,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from multiverso_tpu_torch import core
+from multiverso_tpu_torch import core, telemetry
 from multiverso_tpu_torch.apps.logreg import _parse_libsvm
 from multiverso_tpu_torch.ops.table_kernels import row_scatter_add
 from multiverso_tpu_torch.tables import KVTable
@@ -225,20 +225,37 @@ class SparseLogisticRegression:
         c = self.config
         n = len(rows)
         loss = float("nan")
+        t_train = time.perf_counter()
+        step_no = 0
         for e in range(c.epochs):
             t0 = time.perf_counter()
             order = np.random.default_rng(c.seed + e).permutation(n)
             losses = []
             for s in range(0, n, c.minibatch_size):
                 idx = order[s:s + c.minibatch_size]
-                losses.append(self.train_batch([rows[i] for i in idx],
-                                               y[idx]))
+                t_step = time.perf_counter()
+                with telemetry.span("sparse_logreg.step"):
+                    losses.append(self.train_batch([rows[i] for i in idx],
+                                                   y[idx]))
+                telemetry.step_timeline(
+                    "sparse_logreg", step_no, samples=len(idx),
+                    dispatch_s=time.perf_counter() - t_step)
+                telemetry.histogram(
+                    "app.step.seconds", telemetry.LATENCY_BUCKETS,
+                    app="sparse_logreg").observe(
+                    time.perf_counter() - t_step)
+                telemetry.beat()
+                step_no += 1
             self.table.wait()
             loss = float(np.mean(losses))
             self.epoch_stats.append(dict(
                 epoch=e, loss=loss, seconds=time.perf_counter() - t0,
                 samples=n, steps=len(losses)))
             log.info("sparse_logreg epoch %d: loss=%.4f", e, loss)
+        dt = time.perf_counter() - t_train
+        telemetry.counter("sparse_logreg.samples").inc(n * c.epochs)
+        telemetry.emit("sparse_logreg.samples_per_sec",
+                       n * c.epochs / dt, "samples/s")
         return loss
 
     # -- inference ---------------------------------------------------------
@@ -297,7 +314,12 @@ def main(argv=None) -> None:
         regular_lambda=configure.get_flag("regular_lambda"),
         epochs=configure.get_flag("epoch"))
     app = SparseLogisticRegression(cfg)
-    app.train(rows, y)
+    # flight recorder: env-gated stall watchdog + device capture (the
+    # per-step beat is in train)
+    with telemetry.maybe_watchdog("sparse_logreg"), \
+            telemetry.profile_window("sparse_logreg"):
+        app.train(rows, y)
+    telemetry.record_device_memory()
     log.info("train accuracy: %.4f", app.accuracy(rows, y))
     test = configure.get_flag("test_file")
     if test:

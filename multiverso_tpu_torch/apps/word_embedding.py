@@ -45,7 +45,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from multiverso_tpu_torch import core
+from multiverso_tpu_torch import core, telemetry
 from multiverso_tpu_torch.data.corpus import Corpus
 from multiverso_tpu_torch.tables import MatrixTable, make_superstep
 from multiverso_tpu_torch.tables.superstep import (DataSplit, gather_rows,
@@ -406,6 +406,8 @@ class WordEmbedding:
         pairs_done = call_no * c.steps_per_call * c.batch_size
         est_ppt = (c.window + 1) if c.model == "skipgram" else 1.0
         self.words_per_sec = pairs_done / est_ppt / dt
+        telemetry.counter("w2v.pairs").inc(pairs_done)
+        telemetry.emit("w2v.words_per_sec", self.words_per_sec, "words/s")
         # one device-to-host copy for the whole loss list
         self.loss_history = torch.stack(losses).tolist() if losses else []
         final = float(np.mean(self.loss_history[-10:])) \
@@ -435,8 +437,17 @@ class WordEmbedding:
                 negatives = DataSplit.of(negatives, self.mesh, axis=1)
         else:
             negatives = None
-        _, loss = self._fused((), self._place(srcs, tgts), negatives,
-                              core.place(lrs, device=self.device))
+        pd = self._place(srcs, tgts)
+        t_step = time.perf_counter()
+        with telemetry.span("w2v.superstep"):
+            _, loss = self._fused((), pd, negatives,
+                                  core.place(lrs, device=self.device))
+        telemetry.step_timeline("w2v", call_no, pairs=s * c.batch_size,
+                                dispatch_s=time.perf_counter() - t_step)
+        telemetry.histogram(
+            "app.step.seconds", telemetry.LATENCY_BUCKETS,
+            app="w2v").observe(time.perf_counter() - t_step)
+        telemetry.beat()    # flight recorder: one heartbeat per dispatch
         self._step_no += s
         return loss
 
@@ -590,7 +601,12 @@ def main(argv=None) -> None:
         checkpoint_interval=configure.get_flag("checkpoint_interval"),
     )
     app = WordEmbedding(corpus, cfg, mesh=mesh)
-    app.train()
+    # flight recorder: MVTPU_WATCHDOG=<s> arms a stall watchdog (the
+    # per-dispatch beat is in _dispatch); MVTPU_PROFILE_DIR captures a
+    # torch.profiler trace of the whole training run
+    with telemetry.maybe_watchdog("w2v"), telemetry.profile_window("w2v"):
+        app.train()
+    telemetry.record_device_memory()
     out = configure.get_flag("output_file")
     # skip the end-of-train store when the last periodic one wrote this
     # exact state

@@ -25,11 +25,14 @@ is absent: the CPU is used only when the caller names it.
 from __future__ import annotations
 
 import threading
+import time
 from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
+from multiverso_tpu_torch.telemetry import metrics as telemetry
+from multiverso_tpu_torch.telemetry.slo import maybe_slo_monitor
 from multiverso_tpu_torch.utils import configure, log
 
 DeviceLike = Union[str, torch.device, None]
@@ -139,6 +142,10 @@ def init(argv: Optional[Sequence[str]] = None, *,
         log.set_level(configure.get_flag("log_level"))
         if configure.get_flag("log_file"):
             log.set_file(configure.get_flag("log_file"))
+        # MVTPU_SLO arms the tail-latency monitor (idempotent across
+        # re-inits); statusz, health and the controller wait for ROADMAP
+        # queue A items 11, 6 and 7
+        maybe_slo_monitor()
         if device is not None:
             if devices is not None:
                 raise ValueError("pass device= or devices=, not both")
@@ -158,6 +165,18 @@ def init(argv: Optional[Sequence[str]] = None, *,
         if first.type == "cuda":
             torch.cuda.set_device(first)
         _RT.mesh = mesh
+        # topology on the record: one registry snapshot then identifies
+        # the mesh shape a run's per-table byte counts came from
+        dist = torch.distributed
+        up = dist.is_available() and dist.is_initialized()
+        telemetry.counter("core.init.ops").inc()
+        telemetry.gauge("core.devices").set(len(devices))
+        telemetry.gauge("core.data_parallel").set(mesh.shape[DATA_AXIS])
+        telemetry.gauge("core.model_parallel").set(mesh.shape[MODEL_AXIS])
+        telemetry.gauge("core.processes").set(
+            dist.get_world_size() if up else 1)
+        telemetry.gauge("core.process_index").set(
+            dist.get_rank() if up else 0)
         log.info("multiverso_tpu_torch.init: mesh data=%d model=%d on %s",
                  mesh.shape[DATA_AXIS], mesh.shape[MODEL_AXIS],
                  sorted({str(d) for d in mesh.devices.flat}))
@@ -237,9 +256,13 @@ def barrier(name: Optional[str] = None) -> None:
     finished its queued work (one process: the only party to wait for)."""
     m = mesh()
     _RT.barrier_count += 1
+    t0 = time.perf_counter()
     for dev in sorted({d for d in m.devices.flat if d.type == "cuda"},
                       key=lambda d: d.index):
         torch.cuda.synchronize(dev)
+    telemetry.counter("core.barrier.ops").inc()
+    telemetry.histogram("core.barrier.seconds").observe(
+        time.perf_counter() - t0)
 
 
 def shutdown() -> None:

@@ -22,6 +22,8 @@ import time
 from pathlib import Path
 from typing import List
 
+from multiverso_tpu_torch.telemetry.profiling import record_compile
+
 SOURCE = Path(__file__).resolve().parent / "csrc" / "mvtpu_data.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 CXX = "g++"
@@ -49,7 +51,9 @@ def library_path(cflags: List[str]) -> Path:
 
 def build() -> Path:
     """Compile the source unless a library of this hash exists; returns
-    its path. Raises ``RuntimeError`` with g++'s output on failure."""
+    its path. Raises ``RuntimeError`` with g++'s output on failure. A
+    real build is recorded as ``profile.compiles{fn=mvtpu_data}`` and its
+    seconds."""
     global build_seconds
     cflags = flags()
     so = library_path(cflags)
@@ -57,7 +61,7 @@ def build() -> Path:
         build_seconds = 0.0
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
+    ts, t0 = time.time(), time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
         tmp = os.path.join(work, so.name)
         proc = subprocess.run([CXX, *cflags, "-o", tmp, str(SOURCE)],
@@ -68,4 +72,5 @@ def build() -> Path:
                 f"{CXX} failed ({proc.returncode}) building {SOURCE}:\n"
                 f"{proc.stdout}{proc.stderr}")
         os.replace(tmp, so)  # atomic: a concurrent loader sees all or none
+    record_compile("mvtpu_data", build_seconds, ts)
     return so

@@ -20,6 +20,8 @@ import threading
 import time
 from pathlib import Path
 
+from multiverso_tpu_torch.telemetry.profiling import record_compile
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -107,7 +109,9 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the sources unless a library of this source hash exists."""
+    """Compile the sources unless a library of this source hash exists;
+    a real build is recorded as ``profile.compiles{fn=torch_kernels}``
+    and its seconds."""
     global build_seconds, build_log
     so = library_path()
     if so.exists():
@@ -115,7 +119,7 @@ def build() -> Path:
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    t0 = time.perf_counter()
+    ts, t0 = time.time(), time.perf_counter()
     cu = [s for s in sources() if s.suffix == ".cu"]
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
         objs = [os.path.join(work, s.stem + ".o") for s in cu]
@@ -143,6 +147,7 @@ def build() -> Path:
             raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n"
                                f"{build_log}")
         os.replace(tmp, so)  # atomic: a concurrent loader sees all or none
+    record_compile("torch_kernels", build_seconds, ts)
     return so
 
 

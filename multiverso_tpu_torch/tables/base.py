@@ -41,6 +41,7 @@ import json
 import os
 import tempfile
 import threading
+import time
 import zlib
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -49,6 +50,9 @@ import torch
 
 from multiverso_tpu_torch import core
 from multiverso_tpu_torch.ops.table_kernels import ShardedParam
+from multiverso_tpu_torch.telemetry import metrics as telemetry
+from multiverso_tpu_torch.telemetry import trace as tracing
+from multiverso_tpu_torch.telemetry.profiling import profiled
 from multiverso_tpu_torch.updaters import (AddOption, Updater, get_updater,
                                            resolve_default_option)
 from multiverso_tpu_torch.utils import configure, log
@@ -306,13 +310,41 @@ class Table:
             [self.updater.init_state(p) for p in self._state_rows(d)]
             for d in range(n_replicas)]
         self._events: list = []
+        # profiled: profile.calls{fn=table.apply.<name>} is the dispatch
+        # count of the Add path, profile.calls{fn=table.snapshot.<name>}
+        # of the whole-table Get (the reference's names)
+        self._apply = profiled(self._apply_delta, f"table.apply.{name}")
+        self._snapshot = profiled(self.logical_tensor,
+                                  f"table.snapshot.{name}")
         self.table_id = _register(self)
+        lbl = f"{self.table_id}:{self.name}"
+        # tail-latency histograms over the Get/Add paths (the SLO
+        # monitor's table.{get,add}.p99 targets)
+        self._h_get = telemetry.histogram(
+            "table.get.seconds", telemetry.LATENCY_BUCKETS, table=lbl)
+        self._h_add = telemetry.histogram(
+            "table.add.seconds", telemetry.LATENCY_BUCKETS, table=lbl)
         log.debug("table %r id=%d shape=%s padded=%s updater=%s on %s",
                   name, self.table_id, self.logical_shape,
                   self.padded_shape, self.updater.name,
                   [[str(d) for d in devs] for devs in self.replica_devices])
 
     # -- helpers -----------------------------------------------------------
+
+    def _record_op(self, op: str, elems: int, nbytes: int) -> None:
+        """Per-table op accounting: ``table.<op>.{ops,elems,bytes}``
+        keyed by ``table=<id>:<name>``, what the Get/Add/Store/Load
+        contract moved. KVTable (not a subclass) shares it, as in the
+        reference."""
+        lbl = f"{self.table_id}:{self.name}"
+        telemetry.counter(f"table.{op}.ops", table=lbl).inc()
+        telemetry.counter(f"table.{op}.elems", table=lbl).inc(int(elems))
+        telemetry.counter(f"table.{op}.bytes", table=lbl).inc(int(nbytes))
+
+    def _elems(self) -> int:
+        """Elements of the logical shape (what a whole-table op moves)."""
+        return int(np.prod(self.logical_shape)) if self.logical_shape \
+            else 1
 
     def _pad_lead(self, lead: int, shards: int) -> int:
         return -(-lead // shards) * shards
@@ -536,6 +568,18 @@ class Table:
     def get_tensor(self) -> torch.Tensor:
         """The logical value (padding sliced off) as a fresh tensor on the
         first device."""
+        t0 = time.monotonic()
+        with tracing.span("table.get", table=f"{self.table_id}:{self.name}"):
+            elems = self._elems()
+            self._record_op("get", elems, elems * self.np_dtype.itemsize)
+            out = self._snapshot()
+        self._h_get.observe(time.monotonic() - t0)
+        return out
+
+    def logical_tensor(self) -> torch.Tensor:
+        """What :meth:`get_tensor` returns, without its Get accounting:
+        an app's own read of its table inside a computation (the
+        reference reads ``raw()`` inside its jitted programs)."""
         return self._whole().view(self.padded_shape)[
             tuple(slice(0, l) for l in self.logical_shape)].clone()
 
@@ -555,20 +599,34 @@ class Table:
         on every replica (under shard_update each replica its own row
         block of each shard, whose updated rows then go to every
         replica)."""
-        if isinstance(delta, torch.Tensor):
-            delta = delta.to(self.device)
-            if tuple(delta.shape) == self.logical_shape \
-                    and self.logical_shape != self.padded_shape:
-                pad = [0, 0] * (len(self.padded_shape) - 1) + \
-                    [0, self.padded_shape[0] - self.logical_shape[0]]
-                delta = torch.nn.functional.pad(delta, pad)
-            elif tuple(delta.shape) != self.padded_shape:
-                raise ValueError(f"table {self.name!r}: delta shape "
-                                 f"{tuple(delta.shape)} != table shape "
-                                 f"{self.logical_shape}")
-        else:
-            delta = self._pad(np.asarray(delta))
-        opt = self._resolve_option(option)
+        t0 = time.monotonic()
+        with tracing.span("table.add", table=f"{self.table_id}:{self.name}",
+                          sync=sync):
+            if isinstance(delta, torch.Tensor):
+                delta = delta.to(self.device)
+                if tuple(delta.shape) == self.logical_shape \
+                        and self.logical_shape != self.padded_shape:
+                    pad = [0, 0] * (len(self.padded_shape) - 1) + \
+                        [0, self.padded_shape[0] - self.logical_shape[0]]
+                    delta = torch.nn.functional.pad(delta, pad)
+                elif tuple(delta.shape) != self.padded_shape:
+                    raise ValueError(f"table {self.name!r}: delta shape "
+                                     f"{tuple(delta.shape)} != table shape "
+                                     f"{self.logical_shape}")
+            else:
+                delta = self._pad(np.asarray(delta))
+            elems = self._elems()
+            self._record_op("add", elems, elems * self.np_dtype.itemsize)
+            self._apply(delta, self._resolve_option(option))
+            handle = Handle(table=self, generation=self._bump_step())
+            if sync:
+                handle.wait()
+        self._h_add.observe(time.monotonic() - t0)
+        return handle
+
+    def _apply_delta(self, delta, opt: AddOption) -> None:
+        """The updater over a padded delta, shard by shard on every
+        replica."""
         shard_padded = (self._rows_per_shard,) + self.padded_shape[1:]
         shard_storage = (self._rows_per_shard,) + self.storage_shape[1:]
         n = self.n_replicas
@@ -593,10 +651,6 @@ class Table:
                 for s, dev in enumerate(devs):
                     shards[s] = torch.cat([b.to(dev) for b in blocks[s]]) \
                         .reshape(shard_storage)
-        handle = Handle(table=self, generation=self._bump_step())
-        if sync:
-            handle.wait()
-        return handle
 
     add_async = add
 
@@ -634,6 +688,8 @@ class Table:
         for i, key in enumerate(keys):
             payload[f"state_{i}"] = self._state_leaf(key).cpu().numpy()
         manifest["n_state_leaves"] = len(keys)
+        self._record_op("store", payload["param"].size,
+                        sum(a.nbytes for a in payload.values()))
         savez_stream(uri, manifest, payload)
 
     def load(self, uri: str) -> None:
@@ -652,6 +708,9 @@ class Table:
             raise ValueError(
                 f"checkpoint has {manifest['n_state_leaves']} state "
                 f"leaves, updater {self.updater.name!r} has {len(keys)}")
+        self._record_op("load", data["param"].size,
+                        data["param"].nbytes + sum(data[f"state_{i}"].nbytes
+                                                   for i in range(len(keys))))
 
         def repad(arr: np.ndarray, dtype: np.dtype) -> np.ndarray:
             # slice to the logical region, then pad to this table's padded

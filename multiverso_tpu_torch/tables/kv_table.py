@@ -55,6 +55,7 @@ from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -62,15 +63,18 @@ import torch
 
 from multiverso_tpu_torch import core
 from multiverso_tpu_torch.ops import table_kernels as tk
-from multiverso_tpu_torch.tables.base import (Handle, _record_events,
-                                              _register, dtype_name,
-                                              lanes_on, loadz_stream,
-                                              savez_stream, state_keys,
-                                              torch_dtype)
+from multiverso_tpu_torch.tables.base import (Handle, Table,
+                                              _record_events, _register,
+                                              dtype_name, lanes_on,
+                                              loadz_stream, savez_stream,
+                                              state_keys, torch_dtype)
 from multiverso_tpu_torch.tables.hashing import (EMPTY_KEY, _bucket,
                                                  _hash_u64, _join_keys,
                                                  _split_keys,
                                                  shard_lane_slices)
+from multiverso_tpu_torch.telemetry import metrics as telemetry
+from multiverso_tpu_torch.telemetry import trace as tracing
+from multiverso_tpu_torch.telemetry.profiling import profiled
 from multiverso_tpu_torch.updaters import (AddOption, get_updater,
                                            resolve_default_option)
 from multiverso_tpu_torch.utils import configure, log
@@ -105,6 +109,10 @@ class PreparedKVAdd:
     host_buckets: Any
     #: each shard's real lane count (its lanes are a row prefix)
     counts: Any
+    #: the delta's elements and their bytes in the table's value type
+    #: (the reference's ``table.add`` accounting)
+    elems: int
+    nbytes: int
 
 
 def _keys_device(split: np.ndarray) -> np.ndarray:
@@ -213,10 +221,23 @@ class KVTable:
         # blocking at every other table op
         self._pending_over: list = []
         self._events: list = []
+        # profiled: profile.calls{fn=kv.lookup/kv.apply.<name>} are the
+        # Get/Add dispatch counts (the reference's names)
+        self._lookup = profiled(tk.kv_lookup_sharded, f"kv.lookup.{name}")
+        self._probe_update = profiled(tk.kv_probe_update_sharded,
+                                      f"kv.apply.{name}")
         self.table_id = _register(self)  # type: ignore[arg-type]
+        lbl = f"{self.table_id}:{self.name}"
+        self._h_get = telemetry.histogram(
+            "table.get.seconds", telemetry.LATENCY_BUCKETS, table=lbl)
+        self._h_add = telemetry.histogram(
+            "table.add.seconds", telemetry.LATENCY_BUCKETS, table=lbl)
         log.debug("kv table %r: %d buckets x %d slots (capacity %d) on %s",
                   name, self.num_buckets, self.slots, self.capacity,
                   [[str(d) for d in devs] for devs in self.replica_devices])
+
+    # per-table op accounting, shared with the dense tables
+    _record_op = Table._record_op
 
     # -- storage ------------------------------------------------------------
 
@@ -428,12 +449,18 @@ class KVTable:
         self._check_overflow()
         keys = self._check_keys(keys)
         n = len(keys)
-        query, local, inv = self._get_lanes(keys, self._buckets_of(keys))
-        vals, found = tk.kv_lookup_sharded(
-            self.key_shards, self.value_shards, query, local, inv,
-            self.default_value)
-        if len(inv) != n:
-            vals, found = vals[:n], found[:n]
+        t0 = time.monotonic()
+        with tracing.span("table.get", table=f"{self.table_id}:{self.name}",
+                          n=n):
+            elems = n * max(self.value_dim, 1)
+            self._record_op("get", elems, elems * self.dtype.itemsize)
+            query, local, inv = self._get_lanes(keys, self._buckets_of(keys))
+            vals, found = self._lookup(
+                self.key_shards, self.value_shards, query, local, inv,
+                self.default_value)
+            if len(inv) != n:
+                vals, found = vals[:n], found[:n]
+        self._h_get.observe(time.monotonic() - t0)
         return vals, found
 
     def _get_lanes(self, keys: np.ndarray, lane_buckets: np.ndarray):
@@ -540,10 +567,12 @@ class KVTable:
         else:
             sl_deltas = sliced[2]
         put = lambda a: lanes_on(a, self.devices)
+        elems = int(np.prod(tuple(deltas.shape)))
         return PreparedKVAdd(
             buckets=put(sliced[0]), query=put(_keys_device(sliced[1])),
             deltas=put(sl_deltas), valid=put(valid), option=opt,
-            host_buckets=lane_buckets, counts=counts)
+            host_buckets=lane_buckets, counts=counts, elems=elems,
+            nbytes=elems * self.dtype.itemsize)
 
     def add_prepared(self, prepared: PreparedKVAdd,
                      sync: bool = False) -> Handle:
@@ -551,26 +580,31 @@ class KVTable:
         staged batch, written to every replica. The overflow count stays
         on the device until a later table op reads it."""
         self._poll_overflow()
-        n_over = tk.kv_probe_update_sharded(
-            self.key_shards, self.value_shards, self.state_shards,
-            prepared.buckets, prepared.query, prepared.deltas,
-            prepared.valid, prepared.option, self.updater,
-            counts=prepared.counts,
-            replicas=list(zip(self.replica_keys[1:],
-                              self.replica_values[1:],
-                              self.replica_states[1:])),
-            state_blocks=self.shard_update)[3]
-        self._events = _record_events(
-            [d for devs in self.replica_devices for d in devs])
-        self._pending_over.append((n_over, self._events,
-                                   prepared.host_buckets))
-        with self._option_lock:
-            self.default_option.step += 1
-            self.generation += 1
-            gen = self.generation
-        handle = Handle(table=self, generation=gen)
-        if sync:
-            handle.wait()
+        t0 = time.monotonic()
+        with tracing.span("table.add", table=f"{self.table_id}:{self.name}",
+                          sync=sync):
+            self._record_op("add", prepared.elems, prepared.nbytes)
+            n_over = self._probe_update(
+                self.key_shards, self.value_shards, self.state_shards,
+                prepared.buckets, prepared.query, prepared.deltas,
+                prepared.valid, prepared.option, self.updater,
+                counts=prepared.counts,
+                replicas=list(zip(self.replica_keys[1:],
+                                  self.replica_values[1:],
+                                  self.replica_states[1:])),
+                state_blocks=self.shard_update)[3]
+            self._events = _record_events(
+                [d for devs in self.replica_devices for d in devs])
+            self._pending_over.append((n_over, self._events,
+                                       prepared.host_buckets))
+            with self._option_lock:
+                self.default_option.step += 1
+                self.generation += 1
+                gen = self.generation
+            handle = Handle(table=self, generation=gen)
+            if sync:
+                handle.wait()
+        self._h_add.observe(time.monotonic() - t0)
         return handle
 
     def add(self, keys, deltas, option: Optional[AddOption] = None,
@@ -631,6 +665,8 @@ class KVTable:
             for i, leaf in enumerate(leaves):
                 payload[f"state_{i}"] = leaf.cpu().numpy()
             manifest["n_state_leaves"] = len(leaves)
+            self._record_op("store", payload["values"].size,
+                            sum(a.nbytes for a in payload.values()))
             return manifest, payload
         return finish
 
@@ -669,6 +705,8 @@ class KVTable:
         grown = new_buckets != self.num_buckets
         if grown:
             self._buckets_per_shard = new_buckets // len(self.devices)
+        self._record_op("load", data["values"].size,
+                        data["keys"].nbytes + data["values"].nbytes)
         self.install_arrays(host_keys, host_vals, host_state)
         if grown:
             log.warn(

@@ -34,6 +34,7 @@ from multiverso_tpu_torch import core
 from multiverso_tpu_torch.ops import table_kernels as tk
 from multiverso_tpu_torch.tables.base import Handle, Table, lanes_on
 from multiverso_tpu_torch.tables.hashing import _bucket, shard_lane_slices
+from multiverso_tpu_torch.telemetry.profiling import profiled
 from multiverso_tpu_torch.updaters import AddOption
 
 
@@ -67,6 +68,14 @@ class MatrixTable(Table):
         # scratch row: the last shard's padding lanes point here, beyond
         # the logical rows
         self._scratch_row = self.padded_shape[0] - 1
+        # profiled: profile.calls{fn=table.{gather,scatter_add,
+        # apply_rows}.<name>} count the row-path dispatches, one per call
+        # (the reference splits them by engine; the port has one a device)
+        self._gather_rows = profiled(self._gather, f"table.gather.{name}")
+        self._scatter_add = profiled(self._scatter_rows,
+                                     f"table.scatter_add.{name}")
+        self._apply_rows_all = profiled(self._apply_stateful,
+                                        f"table.apply_rows.{name}")
 
     def _pad_lead(self, lead: int, shards: int) -> int:
         return -(-(lead + 1) // shards) * shards
@@ -127,14 +136,17 @@ class MatrixTable(Table):
 
     def get_rows(self, row_ids) -> np.ndarray:
         """Fetch a list of rows (``MatrixWorkerTable::Get(row_ids, ...)``)."""
-        ids = np.asarray(row_ids, dtype=np.int32)
-        self._check_ids(ids)
-        return self._gather(ids).cpu().numpy()
+        return self._get_rows(row_ids).cpu().numpy()
 
     def get_rows_async(self, row_ids) -> Handle:
+        return Handle(self._get_rows(row_ids))
+
+    def _get_rows(self, row_ids) -> torch.Tensor:
         ids = np.asarray(row_ids, dtype=np.int32)
         self._check_ids(ids)
-        return Handle(self._gather(ids))
+        n = len(ids) * self.num_cols
+        self._record_op("get", n, n * self.np_dtype.itemsize)
+        return self._gather_rows(ids)
 
     def add_rows(self, row_ids, deltas, option: Optional[AddOption] = None,
                  sync: bool = False) -> Handle:
@@ -150,35 +162,46 @@ class MatrixTable(Table):
         if deltas.shape != (len(ids), self.num_cols):
             raise ValueError(f"deltas shape {deltas.shape} != "
                              f"({len(ids)}, {self.num_cols})")
+        self._record_op("add", deltas.size,
+                        deltas.size * self.np_dtype.itemsize)
         if self.updater.name in ("default", "sgd"):
             if self.updater.name == "sgd":
                 # stateless: scatter-add of -lr*delta, duplicate-safe
                 opt = option if option is not None else self.default_option
                 deltas = (np.float32(-opt.learning_rate)
                           * deltas.astype(np.float32))
-            local, valid, _, _, sl_d = self._pad_ids(ids, deltas, sort=True)
-            for shards, devs in zip(self.replicas, self.replica_devices):
-                tk.row_scatter_add_sharded(
-                    shards, *(lanes_on(x, devs) for x in (local, sl_d, valid)),
-                    counts=valid.sum(1))
+            self._scatter_add(ids, deltas)
         else:
             if len(np.unique(ids)) != len(ids):
                 raise ValueError(
                     f"add_rows with stateful updater "
                     f"{self.updater.name!r} requires unique row ids; "
                     "pre-aggregate duplicates (Aggregator role)")
-            opt = self._resolve_option(option)
-            # each shard applies the updater to the rows it owns
-            rps = self._rows_per_shard
-            owner = ids // rps
-            for s in np.unique(owner):
-                sel = owner == s
-                self._apply_rows(s, ids[sel] - s * rps,
-                                 deltas[sel].astype(self.np_dtype), opt)
+            self._apply_rows_all(ids, deltas, self._resolve_option(option))
         handle = Handle(table=self, generation=self._bump_step())
         if sync:
             handle.wait()
         return handle
+
+    def _scatter_rows(self, ids: np.ndarray, deltas: np.ndarray) -> None:
+        """The duplicate-safe row scatter-add of ``deltas`` into rows
+        ``ids`` on every replica, once per card over its shards."""
+        local, valid, _, _, sl_d = self._pad_ids(ids, deltas, sort=True)
+        for shards, devs in zip(self.replicas, self.replica_devices):
+            tk.row_scatter_add_sharded(
+                shards, *(lanes_on(x, devs) for x in (local, sl_d, valid)),
+                counts=valid.sum(1))
+
+    def _apply_stateful(self, ids: np.ndarray, deltas: np.ndarray,
+                        option: AddOption) -> None:
+        """A stateful updater over rows ``ids`` (unique): each shard
+        applies it to the rows it owns."""
+        rps = self._rows_per_shard
+        owner = ids // rps
+        for s in np.unique(owner):
+            sel = owner == s
+            self._apply_rows(s, ids[sel] - s * rps,
+                             deltas[sel].astype(self.np_dtype), option)
 
     def _apply_rows(self, shard: int, ids: np.ndarray, deltas: np.ndarray,
                     option: AddOption) -> None:

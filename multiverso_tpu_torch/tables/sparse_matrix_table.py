@@ -36,6 +36,7 @@ from multiverso_tpu_torch.ops import table_kernels as tk
 from multiverso_tpu_torch.tables.base import Handle, lanes_on
 from multiverso_tpu_torch.tables.hashing import _bucket, shard_lane_slices
 from multiverso_tpu_torch.tables.matrix_table import MatrixTable
+from multiverso_tpu_torch.telemetry.profiling import profiled
 from multiverso_tpu_torch.updaters import AddOption
 
 LANES = 128
@@ -85,6 +86,10 @@ class SparseMatrixTable(MatrixTable):
             self.storage_shape = (self.padded_shape[0], self.tiles, LANES)
             self.replicas = [[p.view(-1, self.tiles, LANES) for p in shards]
                              for shards in self.replicas]
+        # profiled: profile.calls{fn=table.coo_scatter_add.<name>} is the
+        # COO Add dispatch count, one per add_sparse
+        self._coo_scatter_add = profiled(self._coo_rows,
+                                         f"table.coo_scatter_add.{name}")
 
     # -- COO sparse Add ----------------------------------------------------
 
@@ -108,6 +113,8 @@ class SparseMatrixTable(MatrixTable):
         self._check_ids(rows)
         if cols.min() < 0 or cols.max() >= self.num_cols:
             raise ValueError(f"col ids out of range [0, {self.num_cols})")
+        n = len(rows)
+        self._record_op("add", n, n * self.np_dtype.itemsize)
         order = np.argsort(rows, kind="stable")
         rows, cols, values = rows[order], cols[order], values[order]
         if self.updater.name == "sgd":
@@ -124,14 +131,19 @@ class SparseMatrixTable(MatrixTable):
             shard_ids, len(self.shards),
             [local, cols, values.astype(self.np_dtype, copy=False)],
             [np.int32(rps - 1), np.int32(0), 0])
-        for shards, devs in zip(self.replicas, self.replica_devices):
-            tk.coo_scatter_add_sharded(
-                shards, *(lanes_on(x, devs) for x in (*sliced, valid)),
-                counts=valid.sum(1))
+        self._coo_scatter_add(sliced, valid)
         handle = Handle(table=self, generation=self._bump_step())
         if sync:
             handle.wait()
         return handle
+
+    def _coo_rows(self, sliced, valid: np.ndarray) -> None:
+        """The masked COO add of per-shard lane rows ``sliced`` (local
+        rows, columns, values) on every replica."""
+        for shards, devs in zip(self.replicas, self.replica_devices):
+            tk.coo_scatter_add_sharded(
+                shards, *(lanes_on(x, devs) for x in (*sliced, valid)),
+                counts=valid.sum(1))
 
     # -- sparse Get --------------------------------------------------------
 
@@ -159,6 +171,8 @@ class SparseMatrixTable(MatrixTable):
         ri, ci = np.nonzero(vals != 0)
         ecols = cols[ri, ci]
         order = np.lexsort((ecols, ri))
+        self._record_op("get", len(ecols),
+                        len(ecols) * self.np_dtype.itemsize)
         return indptr, ecols[order], vals[ri, ci][order]
 
 

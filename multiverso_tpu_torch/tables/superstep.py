@@ -89,6 +89,7 @@ from multiverso_tpu_torch.core import DATA_AXIS, Mesh
 from multiverso_tpu_torch.ops import table_kernels as tk
 from multiverso_tpu_torch.ops.table_kernels import ShardedParam, gather_rows
 from multiverso_tpu_torch.tables.base import Handle, Table
+from multiverso_tpu_torch.telemetry.profiling import profiled
 from multiverso_tpu_torch.updaters import AddOption
 
 __all__ = ["DataSplit", "FusedSuperstep", "Replicated", "ShardedParam",
@@ -396,6 +397,10 @@ class FusedSuperstep:
         self.tables = tuple(tables)
         self.name = name
         self._body = body
+        # profiled: profile.calls{fn=superstep.<name>} counts calls (the
+        # reference's name). Nothing inside a call records telemetry: the
+        # reference traces its body once, so it records nothing per step
+        self._run = profiled(self._run_body, f"superstep.{name}")
         self._last_generation: Optional[int] = None
         #: bytes the replicas read from one another in the last call
         self.exchange_bytes = 0
@@ -435,13 +440,7 @@ class FusedSuperstep:
                         f"superstep {self.name!r}: on a data axis of "
                         f"{self.data} an app-local carry is Replicated or "
                         f"a DataSplit, got {type(x).__name__}")
-            outs = self._run_replicas(locals_, opts, inputs)
-        else:
-            views = [t.superstep_view() for t in self.tables]
-            outs = [self._body(
-                tuple(v[0] for v in views), tuple(v[1] for v in views),
-                tuple(_part0(x) for x in locals_), opts,
-                *(_part0(x) for x in inputs))]
+        outs = self._run(locals_, opts, inputs)
         for d, (new_params, new_states, _, _) in enumerate(outs):
             for t, p, s in zip(self.tables, new_params, new_states):
                 t.superstep_update(p, s, replica=d)
@@ -456,6 +455,17 @@ class FusedSuperstep:
             if isinstance(x, _PER_REPLICA) else outs[0][2][i]
             for i, x in enumerate(locals_))
         return new_locals, outs[0][3]
+
+    def _run_body(self, locals_, opts, inputs) -> list:
+        """The body once (or once per replica on a data axis); returns
+        each replica's ``(params, states, locals, aux)``."""
+        if self.data > 1:
+            return self._run_replicas(locals_, opts, inputs)
+        views = [t.superstep_view() for t in self.tables]
+        return [self._body(
+            tuple(v[0] for v in views), tuple(v[1] for v in views),
+            tuple(_part0(x) for x in locals_), opts,
+            *(_part0(x) for x in inputs))]
 
     def _run_replicas(self, locals_, opts, inputs) -> list:
         """The body once per replica, each on a thread of its own;

@@ -1,0 +1,79 @@
+"""Telemetry spine of the port: typed metrics, span tracing, the flight
+recorder (watchdog, SLO monitor, windowed history) and the device-side
+profiling hooks.
+
+Counterpart of ``multiverso_tpu/telemetry``, with the same metric names,
+record shapes, snapshot kind and environment variables, so the
+reference's ``report`` CLI renders the port's files:
+
+- :mod:`~multiverso_tpu_torch.telemetry.metrics` — Counter / Gauge /
+  Histogram in a process-wide registry; JSONL event sink
+  (``MVTPU_METRICS_JSONL``), JSON snapshots, Prometheus text.
+- :mod:`~multiverso_tpu_torch.telemetry.trace` — nestable :func:`span`
+  + per-superstep :func:`step_timeline`, JSONL trace files
+  (``MVTPU_TRACE_JSONL`` / ``MVTPU_TRACE_DIR``, ``MVTPU_TRACE_MAX_MB``);
+  a span enters ``torch.profiler.record_function`` while a profiler runs.
+- :mod:`~multiverso_tpu_torch.telemetry.watchdog` — heartbeat
+  :class:`Watchdog` (+ :func:`beat`) dumping thread stacks, a metrics
+  snapshot and the trace tail into ``MVTPU_DUMP_DIR`` on a missed
+  deadline (``MVTPU_WATCHDOG``, ``MVTPU_WATCHDOG_ACTION``).
+- :mod:`~multiverso_tpu_torch.telemetry.slo` — ``MVTPU_SLO`` tail-latency
+  rules escalated through the watchdog.
+- :mod:`~multiverso_tpu_torch.telemetry.timeseries` — windowed history
+  of the registry (``MVTPU_TS_EVERY``); loaded on demand, as in the
+  reference.
+- :mod:`~multiverso_tpu_torch.telemetry.profiling` — :func:`profiled`
+  (``profile.calls``; the reference's ``profiled_jit``), the kernel and
+  data-library builds' compile times, :func:`record_device_memory` (the
+  CUDA allocator's gauges) and :func:`profile_window`
+  (``MVTPU_PROFILE_DIR``-gated ``torch.profiler`` capture).
+
+Not ported yet (ROADMAP.md queue A): ``health`` (``HealthMonitor``,
+``maybe_health_monitor``; item 6), ``statusz`` (``StatuszServer``,
+``maybe_statusz``, ``publish_fleet``), ``aggregate`` (``gather_metrics``,
+``merge_snapshots``, ``fleet_snapshot``), ``attribution`` and ``report``
+(item 11). The legacy ``utils.dashboard`` API keeps working as a shim
+over this registry.
+"""
+
+from multiverso_tpu_torch.telemetry import (metrics, profiling, trace,
+                                            watchdog)
+from multiverso_tpu_torch.telemetry.metrics import (LATENCY_BUCKETS,
+                                                    Counter, Gauge,
+                                                    Histogram,
+                                                    MetricRegistry,
+                                                    QueueGauges, counter,
+                                                    emit, gauge, histogram,
+                                                    host_index,
+                                                    log_spaced_bounds,
+                                                    registry, snapshot,
+                                                    snapshot_quantile,
+                                                    write_snapshot)
+from multiverso_tpu_torch.telemetry.profiling import (profile_window,
+                                                      profiled,
+                                                      record_device_memory)
+from multiverso_tpu_torch.telemetry.trace import (adopt, current_request,
+                                                  link, new_request_id,
+                                                  read_trace, request,
+                                                  set_trace_file, span,
+                                                  step_timeline)
+from multiverso_tpu_torch.telemetry.watchdog import (Watchdog,
+                                                     active_watchdogs, beat,
+                                                     maybe_watchdog)
+# slo imports AFTER the siblings above: it resolves metrics/watchdog
+# through the already-bound package attributes
+from multiverso_tpu_torch.telemetry import slo
+from multiverso_tpu_torch.telemetry.slo import SloMonitor, maybe_slo_monitor
+
+__all__ = [
+    "metrics", "profiling", "slo", "trace", "watchdog",
+    "Counter", "Gauge", "Histogram", "MetricRegistry", "QueueGauges",
+    "LATENCY_BUCKETS", "log_spaced_bounds", "snapshot_quantile",
+    "counter", "gauge", "histogram", "emit", "host_index", "registry",
+    "snapshot", "write_snapshot",
+    "span", "step_timeline", "set_trace_file", "read_trace",
+    "request", "new_request_id", "current_request", "link", "adopt",
+    "Watchdog", "beat", "maybe_watchdog", "active_watchdogs",
+    "SloMonitor", "maybe_slo_monitor",
+    "profiled", "profile_window", "record_device_memory",
+]

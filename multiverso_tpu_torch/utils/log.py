@@ -17,21 +17,14 @@ import threading
 import time
 from typing import Optional, TextIO
 
+from multiverso_tpu_torch.telemetry.metrics import host_index
+
 DEBUG, INFO, WARN, ERROR, FATAL = 0, 1, 2, 3, 4
 
 _LEVEL_NAMES = {DEBUG: "DEBUG", INFO: "INFO", WARN: "WARN",
                 ERROR: "ERROR", FATAL: "FATAL"}
 _NAME_LEVELS = {v.lower(): k for k, v in _LEVEL_NAMES.items()}
 _NAME_LEVELS["warning"] = WARN
-
-
-def _host_index() -> int:
-    """Host identity stamp (``MVTPU_HOST_ID``, default 0), so logs of
-    several hosts correlate by (host, pid)."""
-    try:
-        return int(os.environ.get("MVTPU_HOST_ID", "0"))
-    except ValueError:
-        return 0
 
 
 class Logger:
@@ -66,7 +59,7 @@ class Logger:
             return
         msg = (fmt % args) if args else fmt
         stamp = time.strftime("%Y-%m-%d %H:%M:%S", time.localtime())
-        ident = f"h{_host_index()}:{os.getpid()}"
+        ident = f"h{host_index()}:{os.getpid()}"
         line = f"[{_LEVEL_NAMES[level]}] [{stamp}] [{ident}] {msg}"
         with self._lock:
             print(line, file=sys.stderr, flush=True)

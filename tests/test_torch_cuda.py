@@ -2219,3 +2219,87 @@ def test_free_running_replicas_stay_identical(cuda, tmp_path, monkeypatch):
     free, turns = run(True), run(False)
     for a, b in zip(free, turns):
         assert a.tobytes() == b.tobytes()
+
+
+# -- telemetry on the card ----------------------------------------------------
+
+
+def test_record_device_memory_reads_the_allocator(cuda):
+    """The gauges of cuda:0 equal ``memory_allocated`` /
+    ``max_memory_allocated`` (one allocator read, no allocation between),
+    and ``bytes_limit`` the card's memory."""
+    from multiverso_tpu_torch import telemetry
+    keep = torch.ones(1 << 20, device=cuda)           # 4 MiB live
+    torch.cuda.synchronize()
+    out = telemetry.record_device_memory(prefix="t.card")
+    assert out["cuda:0.bytes_in_use"] == torch.cuda.memory_allocated(0)
+    assert out["cuda:0.peak_bytes_in_use"] \
+        == torch.cuda.max_memory_allocated(0)
+    assert out["cuda:0.bytes_limit"] \
+        == torch.cuda.get_device_properties(0).total_memory
+    assert out["live_bytes"] >= keep.numel() * 4 and out["live_buffers"] >= 1
+    gauges = telemetry.snapshot()["gauges"]
+    assert gauges["t.card.bytes_in_use{device=cuda:0}"] \
+        == out["cuda:0.bytes_in_use"]
+    assert gauges["t.card.live_buffers"] == out["live_buffers"]
+
+
+def test_profile_window_traces_a_launched_kernel(cuda, tmp_path, monkeypatch):
+    """``profile_window`` under ``MVTPU_PROFILE_DIR`` writes a Chrome trace
+    that names the row gather's kernel and the span around it."""
+    import json
+    import os
+    from multiverso_tpu_torch import telemetry
+    monkeypatch.setenv("MVTPU_PROFILE_DIR", str(tmp_path))
+    p = torch.randn(1000, 64, device=cuda)
+    ids = torch.randint(0, 1000, (4096,), dtype=torch.int32, device=cuda)
+    tk.gather_rows(p, ids)                            # build and warm
+    torch.cuda.synchronize()
+    with telemetry.profile_window("card") as out:
+        with telemetry.span("card.gather"):
+            tk.gather_rows(p, ids)
+        torch.cuda.synchronize()
+    (name,) = os.listdir(out)
+    with open(os.path.join(out, name)) as f:
+        names = [e.get("name", "") for e in json.load(f)["traceEvents"]]
+    assert any("mv_row_gather" in n for n in names), sorted(set(names))[:40]
+    assert "card.gather" in names and "profile.window" in names
+
+
+def test_word2vec_telemetry_counts_its_calls(cuda, tmp_path):
+    """A word2vec run on the card: one ``w2v.superstep`` span, one
+    ``step`` record and one ``app.step.seconds`` observation a call,
+    ``profile.calls`` of the superstep a call (not a step), no ``table.*``
+    counter moved by the supersteps, and the kernels' launches as the
+    steps require."""
+    from multiverso_tpu_torch import telemetry
+    from multiverso_tpu_torch.apps.word_embedding import (W2VConfig,
+                                                          WordEmbedding)
+    from multiverso_tpu_torch.data import Corpus, synthetic_text
+    from multiverso_tpu_torch.telemetry import trace
+    path = str(tmp_path / "c.txt")
+    synthetic_text(path, num_tokens=40_000, vocab_size=500, seed=3)
+    # reset before the app: its wrappers cache their counters
+    telemetry.registry().reset()
+    app = WordEmbedding(Corpus.from_file(path, min_count=1), W2VConfig(
+        embedding_dim=100, batch_size=256, steps_per_call=4, seed=3),
+        device="cuda")
+    sink = str(tmp_path / "trace.jsonl")
+    trace.set_trace_file(sink)
+    tk.reset_launches()
+    try:
+        app.train(total_steps=12)
+    finally:
+        trace.set_trace_file(None)
+    snap = telemetry.snapshot()
+    records = trace.read_trace(sink)
+    assert [r["name"] for r in records if r["kind"] == "span"] \
+        == ["w2v.superstep"] * 3
+    assert [r["step"] for r in records if r["kind"] == "step"] == [0, 1, 2]
+    assert snap["histograms"]["app.step.seconds{app=w2v}"]["count"] == 3
+    assert snap["counters"]["profile.calls{fn=superstep.w2v_superstep}"] \
+        == 3
+    assert not any(k.startswith("table.") for k in snap["counters"])
+    assert snap["counters"]["w2v.pairs"] == 12 * 256
+    assert tk.LAUNCHES["row_gather"] == tk.LAUNCHES["row_scatter_add"] \
+        == 2 * 12
