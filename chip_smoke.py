@@ -185,6 +185,25 @@ its seconds):
    phase 14, a ``profile_window`` over one 16-step word2vec call: its
    Chrome trace names ``mv_row_gather``, ``mv_row_scatter_add``, their
    kernels and the ``w2v.superstep`` range.
+19. Health and checkpoints, in parts (its seconds are their sum): (a)
+   after phase 17, the stat reduction (``ops/stat_kernels.py``) against
+   ``numpy_reference`` at word2vec's 10,001 x 100 float32 table and
+   LightLDA's 50,001 x 1,024 word table's shape (float32 with NaN, Inf and
+   zeros planted, and int32 counts) and on a ShardedParam of 4: counts and
+   abs_max exact, l2 within 1e-4; one ``summarize`` of each table's type
+   timed on the device (beside its bound) and on the host; (b) after
+   phase 18a, phase 4's app, one call each with ``MVTPU_HEALTH`` unset,
+   set, set, unset, twice: words/s both ways, each audited call's two table
+   samples ingested, and what a call records alone; (c) after (a), the
+   dense logreg at MNIST's shape for 4 epochs with a run directory at
+   ``-ckpt_every=1``, ``MVTPU_HEALTH_ACTION=rollback`` and a chaos NaN in
+   epoch 3's ``table.add``: one rollback, and the final weights equal a
+   clean run's bit for bit; (d) a generation of phase 4's tables with a
+   call queued right after the save (the generation holds the pre-call
+   values), and of phase 6's word table and summary: the dispatch half,
+   the write half and the resume's time each; the dense logreg killed
+   after generation 2 and resumed, bit for bit the uninterrupted run.
+   Last, no health error, no dropped sample, no failed checkpoint.
 
 Phase 2 also holds the KV kernels against their plain versions on the CPU
 bit for bit at the sparse-LR step's shapes (a 2^25-slot table, 262,144
@@ -235,6 +254,7 @@ import functools
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -4092,6 +4112,354 @@ def profile_call(torch, trace_name: str, run, call_ms: float) -> dict:
                 top=[dict(name=k, ms=m, count=c) for k, m, c in rows[:12]])
 
 
+# phase 19: the stat reduction's l2 against numpy's float64 sum (the card
+# sums float32 in its own order); the dense logreg's epochs under a
+# health rollback and a kill, and the positions planted in a float table
+STAT_L2_RTOL = 1e-4
+HEALTH_EPOCHS = 4
+STAT_PLANTS = ((1, float("nan")), (3, float("inf")), (5, float("-inf")),
+               (7, 0.0), (11, 0.0), (-1, float("nan")), (-2, 0.0))
+
+
+def stats_want(sk, x: np.ndarray) -> dict:
+    """``numpy_reference`` with the counts rounded once to float32, as the
+    packed lanes hold them (exact below 2^24 elements)."""
+    want = sk.numpy_reference(x)
+    n = float(np.float32(x.size))
+    zeros = float(np.float32(np.count_nonzero(x == 0)))
+    want.update(count=n, zero_frac=zeros / n if n else 0.0)
+    return want
+
+
+def stats_check(what: str, got: dict, want: dict) -> None:
+    for k in ("absmax", "nan_count", "inf_count", "zero_frac", "count"):
+        if got[k] != want[k]:
+            raise SystemExit(f"stats, {what}: {k} {got[k]} != {want[k]}")
+    if abs(got["l2"] - want["l2"]) > STAT_L2_RTOL * abs(want["l2"]):
+        raise SystemExit(f"stats, {what}: l2 {got['l2']} vs {want['l2']} "
+                         f"(rtol {STAT_L2_RTOL})")
+
+
+def phase_stats(torch, sk, ShardedParam) -> dict:
+    """Phase 19a: the stat reduction on the card against
+    ``numpy_reference`` (counts and abs_max exact, the counts rounded once
+    to float32 as the packed lanes hold them; l2 within STAT_L2_RTOL): at
+    word2vec's 10,001 x 100 float32 table and LightLDA's 50,001 x 1,024
+    word table's shape in float32 with NaN, Inf and zeros planted, the
+    word table's int32 counts, and the word2vec table's first 10,000 rows
+    as a ShardedParam of 4 on cuda:0. Then one ``summarize`` at the two
+    tables' own types: its device time (CUDA events), its bound (the
+    operand read once at PEAK_BYTES_PER_S) and the host's time to queue
+    it."""
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    w2v = torch.randn((ROWS, DIM), generator=gen, device="cuda")
+    wide = torch.randn((LDA_V + 1, LDA_K), generator=gen, device="cuda")
+    counts = torch.randint(0, 8, (LDA_V + 1, LDA_K), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    for x in (w2v, wide):
+        flat = x.view(-1)
+        for i, v in STAT_PLANTS:
+            flat[i] = v
+    cases = {"w2v 10,001 x 100 float32": w2v,
+             "lda 50,001 x 1,024 float32": wide,
+             "lda 50,001 x 1,024 int32": counts,
+             "w2v 10,000 x 100 as 4 shards": ShardedParam(
+                 list(w2v[:ROWS - 1].chunk(SHARDS)))}
+    for what, x in cases.items():
+        got = sk.unpack(sk.summarize(x))
+        host = torch.cat(x.shards) if isinstance(x, ShardedParam) else x
+        stats_check(what, got, stats_want(sk, host.cpu().numpy()))
+    del wide
+    out = {}
+    for what, x in (("w2v_table", w2v), ("lda_word_table", counts)):
+        nbytes = x.numel() * x.element_size()
+        out[what] = dict(
+            shape=list(x.shape), dtype=str(x.dtype),
+            ms=cuda_ms(lambda: sk.summarize(x), 10),
+            host_ms=host_ms(lambda: sk.summarize(x), 10),
+            bound_ms=1e3 * nbytes / PEAK_BYTES_PER_S, bytes=nbytes)
+        r = out[what]
+        log(f"  19a summarize {what} {r['shape']} {r['dtype']}: "
+            f"{r['ms']:.4f} ms on the device (bound {r['bound_ms']:.4f} "
+            f"ms, {r['bound_ms'] / r['ms']:.3f} of it), {r['host_ms']:.4f} "
+            f"ms to queue")
+    log(f"  19a {len(cases)} operands against numpy_reference: counts "
+        f"and abs_max exact, l2 within {STAT_L2_RTOL}")
+    return out
+
+
+def phase_health_w2v(torch, thealth, telemetry, app, batches,
+                     pairs_per_token: float) -> dict:
+    """Phase 19b: phase 4's app and pairs, one 512-step call each with
+    ``MVTPU_HEALTH`` unset, set, set, unset, twice (the monitor armed as
+    ``core.init`` arms it): words/s both ways; a call with health on
+    audits both tables once (the superstep's ``observe_param``, gated to
+    every 16th call of a table: a fresh monitor's first call is due) and
+    the monitor ingests them with no error and no drop. Then what a call
+    records alone: the superstep's two ``observe_param`` calls, every 16th
+    of them queueing a reduction (median of 5 loops of 1,600 calls)."""
+    rates = {"off": [], "on": []}
+    spec = "*.nan_count > 0, *.update_norm spike>10x"
+    for mode in ("off", "on", "on", "off") * 2:
+        if mode == "on":
+            with env_set(MVTPU_HEALTH=spec):
+                mon = thealth.maybe_health_monitor()
+        t0 = time.perf_counter()
+        app.train(total_steps=STEPS, batches=batches[:STEPS])
+        torch.cuda.synchronize()
+        rates[mode].append(STEPS * BATCH / (time.perf_counter() - t0)
+                           / pairs_per_token)
+        if mode == "on":
+            if not mon.drain(timeout=60):
+                raise SystemExit("health, w2v: the monitor did not drain")
+            st = mon.status()
+            audited = sorted(st["tables"])
+            if audited != sorted(f"{t.name}/param"
+                                 for t in (app.w_in, app.w_out)) \
+                    or st["violations"] or st["dropped"]:
+                raise SystemExit(f"health, w2v call: {st}")
+            thealth.uninstall()
+
+    mon = thealth.HealthMonitor(thealth.parse_health(spec)).start()
+    thealth.install(mon)
+    tables = (app.w_in, app.w_out)
+
+    def loop(n: int = 1600) -> float:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            for t in tables:
+                thealth.observe_param(t)
+        return (time.perf_counter() - t0) / n * 1e6
+
+    record_us = float(np.median([loop() for _ in range(5)]))
+    if not mon.drain(timeout=60) or mon.status()["dropped"]:
+        raise SystemExit(f"health, w2v record loop: {mon.status()}")
+    thealth.uninstall()
+    out = dict(words_per_sec_off=rates["off"], words_per_sec_on=rates["on"],
+               on_vs_off=sum(rates["on"]) / sum(rates["off"]),
+               record_us=record_us)
+    log(f"  19b w2v calls (off, on, on, off) x 2: words/s off "
+        f"{[round(r) for r in rates['off']]}, on "
+        f"{[round(r) for r in rates['on']]} ({out['on_vs_off']:.3f}x); "
+        f"each on call audited both tables once, no violation, no drop")
+    log(f"  19b what a call records alone: {record_us:.2f} us (two "
+        f"observe_param, every 16th queueing a reduction; median of 5 x "
+        f"1,600)")
+    return out
+
+
+def ckpt_generation(torch, tckpt, tables, run_dir: str, telemetry,
+                    then=None) -> dict:
+    """One generation of ``tables`` through a background manager: the
+    dispatch half (``save`` returning), ``then()`` queued right after it,
+    the write half (the writer's ``ckpt.store.seconds``) and the time to
+    resume it into the same tables (their devices synchronized)."""
+    mgr = tckpt.RunCheckpointManager(run_dir, tables=list(tables))
+    torch.cuda.synchronize()
+    before = telemetry.snapshot()["histograms"].get(
+        "ckpt.store.seconds", {"sum": 0.0})["sum"]
+    t0 = time.perf_counter()
+    mgr.save(1)
+    dispatch = time.perf_counter() - t0
+    if then is not None:
+        then()
+    mgr.close()                 # a write failure raises here
+    write = telemetry.snapshot()["histograms"]["ckpt.store.seconds"][
+        "sum"] - before
+    nbytes = sum(os.path.getsize(os.path.join(run_dir, "gen-0000000001", f))
+                 for f in os.listdir(os.path.join(run_dir,
+                                                  "gen-0000000001")))
+    t0 = time.perf_counter()
+    restored = tckpt.RunCheckpointManager(
+        run_dir, tables=list(tables), background=False).resume()
+    torch.cuda.synchronize()
+    resume = time.perf_counter() - t0
+    if restored is None or restored.step != 1:
+        raise SystemExit(f"checkpoint: resume of {run_dir} gave {restored}")
+    return dict(dispatch_s=dispatch, write_s=write, resume_s=resume,
+                bytes=nbytes)
+
+
+def phase_ckpt_w2v(torch, tckpt, tbase, telemetry, app, batches,
+                   tmp: str) -> dict:
+    """Phase 19d (word2vec): a generation of phase 4's two tables (2 x 4
+    MB) saved, and at once a 512-step call that writes both tables in
+    place: the generation holds the pre-call values bit for bit, and the
+    resume puts them back; the dispatch and write halves and the resume's
+    time."""
+    tables = (app.w_in, app.w_out)
+    pre = [t.get() for t in tables]
+    run_dir = os.path.join(tmp, "ckpt_w2v")
+    r = ckpt_generation(
+        torch, tckpt, tables, run_dir, telemetry,
+        then=lambda: app.train(total_steps=STEPS, batches=batches[:STEPS]))
+    for t, want in zip(tables, pre):
+        _, data = tbase.loadz_stream(os.path.join(
+            run_dir, "gen-0000000001", f"table-{t.name}.npz"),
+            tbase.CHECKPOINT_MAGIC)
+        if data["param"][:len(want)].tobytes() != want.tobytes():
+            raise SystemExit(f"checkpoint, w2v: the generation of "
+                             f"{t.name} is not its pre-add value")
+        if t.get().tobytes() != want.tobytes():
+            raise SystemExit(f"checkpoint, w2v: the resume of {t.name} "
+                             "did not restore it")
+    log(f"  19d w2v generation (2 x {ROWS} x {DIM} float32, "
+        f"{r['bytes'] / 1e6:.1f} MB): dispatch half {1e3 * r['dispatch_s']:.2f} "
+        f"ms, write half {1e3 * r['write_s']:.1f} ms, resume "
+        f"{1e3 * r['resume_s']:.1f} ms; a call queued right after the "
+        f"save left the generation at its pre-call values")
+    return r
+
+
+def phase_ckpt_lda(torch, tckpt, telemetry, app, tmp: str) -> dict:
+    """Phase 19d (LightLDA): a generation of phase 6's word table (int32
+    [50,001, 1,024], 205 MB) and summary: the dispatch and write halves
+    and the resume's time; the resumed tables equal the saved ones."""
+    wt = app.word_topic.superstep_view(0)[0].clone()
+    r = ckpt_generation(torch, tckpt, (app.word_topic, app.summary),
+                        os.path.join(tmp, "ckpt_lda"), telemetry)
+    if not torch.equal(app.word_topic.superstep_view(0)[0], wt):
+        raise SystemExit("checkpoint, lightlda: the resumed word table "
+                         "differs from the saved one")
+    del wt
+    shutil.rmtree(os.path.join(tmp, "ckpt_lda"))
+    log(f"  19d LightLDA generation ({r['bytes'] / 1e6:.1f} MB): dispatch "
+        f"half {1e3 * r['dispatch_s']:.2f} ms, write half "
+        f"{1e3 * r['write_s']:.1f} ms, resume {1e3 * r['resume_s']:.1f} ms")
+    return r
+
+
+class Killed(BaseException):
+    """A simulated eviction of a training run (nothing recovers it)."""
+
+
+def phase_health_logreg(torch, core, thealth, tchaos, tckpt, configure,
+                        telemetry, LogisticRegression, LogRegConfig,
+                        synthetic_blobs, tmp: str) -> dict:
+    """Phase 19c and 19d's kill: phase 15's dense logreg at MNIST's shape
+    for HEALTH_EPOCHS epochs, each epoch opening with a zero
+    ``table.add`` (a no-op on the sgd weights). (c) With
+    ``MVTPU_HEALTH="*.nan_count > 0"``, ``MVTPU_HEALTH_ACTION=rollback``
+    and ``MVTPU_CHAOS=table.add:nan:after=2,times=1`` (armed by
+    ``core.init``) and a run directory at ``-ckpt_every=1`` (``wire_app``):
+    the chaos poisons epoch 3's add, the monitor arms a rollback, the loop
+    restores generation 2 and replays; one rollback, and the final weights
+    equal the clean run's bit for bit. (d) A run killed after generation 2
+    and resumed in a fresh app (``-resume=true``) equals it too. Each
+    epoch ends by draining the monitor, so the rollback lands at the next
+    epoch's start."""
+    from multiverso_tpu_torch.ft.checkpoint import define_run_flags, wire_app
+    X, y = synthetic_blobs(DENSE_N, DENSE_DIM, DENSE_CLASSES)
+    cfg = LogRegConfig(DENSE_DIM, DENSE_CLASSES, minibatch_size=DENSE_BATCH,
+                       steps_per_call=DENSE_SPC, updater="sgd",
+                       learning_rate=DENSE_LR, epochs=HEALTH_EPOCHS)
+
+    def make(kill_after=None):
+        app = LogisticRegression(cfg, device="cuda:0", name="health_lr")
+        epoch = app.train_epoch
+
+        def each(X, y, shuffle_seed=None):
+            if app._epoch_done == kill_after:
+                raise Killed()
+            app.table.add(np.zeros(app.n_weights, np.float32))
+            loss = epoch(X, y, shuffle_seed=shuffle_seed)
+            app.table.wait()
+            thealth.drain()
+            return loss
+        app.train_epoch = each
+        return app
+
+    def run_flags(run_dir: str, resume: bool) -> None:
+        define_run_flags()
+        configure.parse_flags([f"-run_dir={run_dir}", "-ckpt_every=1",
+                               f"-resume={'true' if resume else 'false'}"])
+
+    t0 = time.perf_counter()
+    clean = make()
+    clean.train(X, y)
+    want = clean.table.get().tobytes()
+    clean_s = time.perf_counter() - t0
+
+    with env_set(MVTPU_HEALTH="*.nan_count > 0",
+                 MVTPU_HEALTH_ACTION="rollback",
+                 MVTPU_CHAOS="table.add:nan:after=2,times=1"):
+        core.init(device="cuda:0")
+    if thealth.monitor() is None or tchaos.installed_chaos() is None:
+        raise SystemExit("health: core.init armed no monitor or chaos")
+    before = tel_state(telemetry)
+    run_flags(os.path.join(tmp, "health_run"), False)
+    t0 = time.perf_counter()
+    app = make()
+    mgr = wire_app(app, [app.table], every_default=1)
+    app.train(X, y)
+    mgr.close()
+    rolled_s = time.perf_counter() - t0
+    moved = tel_moved(before, tel_state(telemetry))
+    status = thealth.status()
+    thealth.uninstall()
+    tchaos.uninstall_chaos()
+    rolled_to = telemetry.snapshot()["gauges"].get("ckpt.resumed_step")
+    fired = moved.get("chaos.fired{kind=nan,point=table.add}", 0)
+    violations = sum(v for k, v in moved.items()
+                     if k.startswith("health.violations"))
+    if fired != 1 or moved.get("health.rollbacks", 0) != 1 \
+            or violations < 1 or status["divergence"] is not None:
+        raise SystemExit(f"health rollback: chaos fired {fired}, moved "
+                         f"{ {k: v for k, v in moved.items() if 'health' in k or 'chaos' in k} }, "
+                         f"status {status}")
+    if app.table.get().tobytes() != want:
+        raise SystemExit("health rollback: the final weights differ from "
+                         "the clean run's")
+    gens = [g.step for g in mgr.scan()]
+
+    kill_dir = os.path.join(tmp, "kill_run")
+    run_flags(kill_dir, False)
+    killed = make(kill_after=2)
+    kmgr = wire_app(killed, [killed.table], every_default=1)
+    try:
+        killed.train(X, y)
+        raise SystemExit("kill: the run was not killed")
+    except Killed:
+        pass
+    kmgr.close()
+    run_flags(kill_dir, True)
+    res = make()
+    rmgr = wire_app(res, [res.table], every_default=1)
+    if res._epoch_done != 2:
+        raise SystemExit(f"kill: resumed at epoch {res._epoch_done}, not 2")
+    res.train(X, y)
+    rmgr.close()
+    configure.parse_flags(["-run_dir=", "-ckpt_every=0", "-resume=false"])
+    if res.table.get().tobytes() != want:
+        raise SystemExit("kill: the resumed run's weights differ from the "
+                         "uninterrupted run's")
+    out = dict(clean_s=clean_s, rolled_back_s=rolled_s,
+               rolled_back_to=rolled_to,
+               rollbacks=moved.get("health.rollbacks", 0),
+               violations=violations, generations_kept=gens,
+               ckpt_store_ops=moved.get("ckpt.store.ops", 0))
+    log(f"  19c dense logreg {HEALTH_EPOCHS} epochs: clean {clean_s:.2f} "
+        f"s; with the chaos NaN in epoch 3: {violations} violation(s), 1 "
+        f"rollback to generation {rolled_to}, {out['ckpt_store_ops']} "
+        f"generations "
+        f"written, {rolled_s:.2f} s, final weights bit-identical to the "
+        f"clean run")
+    log("  19d dense logreg killed after generation 2 and resumed "
+        "(-resume=true): bit-identical to the uninterrupted run")
+    return out
+
+
+def health_clean(telemetry) -> None:
+    """Phase 19's last check: no health error, no dropped sample, no
+    failed checkpoint GC (a failed write raised at its manager's close)."""
+    c = telemetry.snapshot()["counters"]
+    bad = {k: c.get(k, 0) for k in ("health.errors", "health.dropped",
+                                    "ckpt.gc.failures")}
+    if any(bad.values()):
+        raise SystemExit(f"health / checkpoints: {bad}")
+    log(f"  19: {bad}")
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4128,6 +4496,13 @@ def main(argv) -> int:
     from multiverso_tpu_torch.updaters import AddOption
     from multiverso_tpu_torch import telemetry
     from multiverso_tpu_torch.telemetry import trace
+    from multiverso_tpu_torch.ft import chaos as tchaos
+    from multiverso_tpu_torch.ft import checkpoint as tckpt
+    from multiverso_tpu_torch.ops import stat_kernels
+    from multiverso_tpu_torch.ops.table_kernels import ShardedParam
+    from multiverso_tpu_torch.tables import base as tbase
+    from multiverso_tpu_torch.telemetry import health as thealth
+    from multiverso_tpu_torch.utils import configure
     profile = "--profile" in argv
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4158,6 +4533,15 @@ def main(argv) -> int:
         t0 = time.perf_counter()
         tel[key] = fn(*args)
         phase_s["telemetry"] += time.perf_counter() - t0
+
+    # so does phase 19 (health and checkpoints)
+    h19 = {}
+    phase_s["health"] = 0.0
+
+    def h19_part(key: str, fn, *args) -> None:
+        t0 = time.perf_counter()
+        h19[key] = fn(*args)
+        phase_s["health"] += time.perf_counter() - t0
 
     phase("device", "phase 1: device")
     card = subprocess.run(
@@ -4227,6 +4611,13 @@ def main(argv) -> int:
         tel_part("w2v", phase_telemetry_w2v, torch, tk, telemetry, trace,
                  tel_app, w2v_run["batches"], w2v_run["pairs_per_token"],
                  tel_dir.name)
+        log("phase 19b/d: phase 4's word2vec with MVTPU_HEALTH unset, "
+            "set, set, unset; a generation of its tables and a call "
+            "queued right after the save")
+        h19_part("w2v", phase_health_w2v, torch, thealth, telemetry,
+                 tel_app, w2v_run["batches"], w2v_run["pairs_per_token"])
+        h19_part("ckpt_w2v", phase_ckpt_w2v, torch, tckpt, tbase,
+                 telemetry, tel_app, w2v_run["batches"], tel_dir.name)
         tel_part("watchdog", phase_telemetry_watchdog, torch, tk, telemetry,
                  tel_dir.name)
         tel_part("device_memory", phase_telemetry_memory, torch, telemetry)
@@ -4257,9 +4648,11 @@ def main(argv) -> int:
     reset()
     torch.cuda.reset_peak_memory_stats()
     lda = phase_lda(torch, tk, ls, LightLDA, LDAConfig, tw, td, profile,
-                    then=lambda app: tel_part(
-                        "lightlda", phase_telemetry_lda, torch, telemetry,
-                        trace, app, tel_dir.name))
+                    then=lambda app: (
+                        tel_part("lightlda", phase_telemetry_lda, torch,
+                                 telemetry, trace, app, tel_dir.name),
+                        h19_part("ckpt_lda", phase_ckpt_lda, torch, tckpt,
+                                 telemetry, app, tel_dir.name)))
     paths["lightlda_doc_blocked"] = counts()
     phase_end("lda")
 
@@ -4359,6 +4752,17 @@ def main(argv) -> int:
     del slr_data
     phase_end("kv_data_axis")
 
+    log("phase 19a/c/d: the stat reduction vs numpy; the dense logreg "
+        "under a chaos NaN with MVTPU_HEALTH_ACTION=rollback, and killed "
+        "after generation 2 and resumed")
+    with tempfile.TemporaryDirectory() as tmp:
+        h19_part("stats", phase_stats, torch, stat_kernels, ShardedParam)
+        h19_part("logreg", phase_health_logreg, torch, core, thealth,
+                 tchaos, tckpt, configure, telemetry, LogisticRegression,
+                 LogRegConfig, synthetic_blobs, tmp)
+    health_clean(telemetry)
+    log(f"  [health (phase 19, all parts): {phase_s['health']:.1f} s]")
+
     phase("scatter_parts", "phase 14: the row scatter's and the KV probe "
           "+ commit's kernels apart (torch.profiler, after every timed "
           "phase)")
@@ -4457,6 +4861,21 @@ def main(argv) -> int:
         f"{t18['dispatch_s_median']:.4f} s (median) against the call's "
         f"wall {t18['call_wall_s_median']:.4f} s; phase 18 "
         f"{phase_s['telemetry']:.1f} s; on {card}")
+    h = h19
+    log(f"  health: word2vec words/s with MVTPU_HEALTH unset "
+        f"{[round(r) for r in h['w2v']['words_per_sec_off']]}, set "
+        f"{[round(r) for r in h['w2v']['words_per_sec_on']]} "
+        f"({h['w2v']['on_vs_off']:.3f}x), {h['w2v']['record_us']:.2f} us a "
+        f"call recorded; summarize "
+        + "; ".join(f"{k} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, "
+                    f"queue {r['host_ms']:.4f})"
+                    for k, r in h["stats"].items())
+        + "; generations (dispatch / write / resume ms): "
+        + "; ".join(f"{k} {1e3 * r['dispatch_s']:.2f} / "
+                    f"{1e3 * r['write_s']:.1f} / {1e3 * r['resume_s']:.1f}"
+                    for k, r in (("w2v", h["ckpt_w2v"]),
+                                 ("lightlda", h["ckpt_lda"])))
+        + f"; phase 19 {phase_s['health']:.1f} s; on {card}")
 
     row_src = "multiverso_tpu_torch/ops/csrc/row_kernels.cu"
     coo_src = "multiverso_tpu_torch/ops/csrc/coo_kernels.cu"
@@ -4549,6 +4968,7 @@ def main(argv) -> int:
                        w2v_own_iterator=w2v_own, dense_logreg=dense,
                        kv_data_axis=kv_data,
                        row_scatter_parts=scatter_parts, telemetry=tel,
+                       health=h19,
                        seconds=time.perf_counter() - t_start), f, indent=1)
     log(f"phase seconds: { {k: round(v, 1) for k, v in phase_s.items()} }")
     log(f"total {time.perf_counter() - t_start:.1f} s")

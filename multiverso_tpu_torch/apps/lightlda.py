@@ -64,8 +64,10 @@ each lane's posterior reads the same counts).
   in replica order, each replica's lanes written where the host layout
   puts them (:meth:`LightLDA._block_rows`).
 
-Not in the port yet (see ROADMAP.md): ``local_corpus`` and multi-process
-runs, the run-directory manager, health rollback, cached table views.
+The run checkpoint manager (``run_state`` / ``restore_run_state``) and
+the health rollback ride the sweep loop. Not in the port yet (see
+ROADMAP.md): ``local_corpus`` and multi-process runs, cached table
+views.
 """
 
 from __future__ import annotations
@@ -79,14 +81,15 @@ import torch
 
 from multiverso_tpu_torch import core, telemetry
 from multiverso_tpu_torch.data.corpus import backend as data_backend
+from multiverso_tpu_torch.io import open_stream
 from multiverso_tpu_torch.ops import table_kernels as tk
 from multiverso_tpu_torch.ops.lda_sampler import (gibbs_sample_docblock,
                                                   gibbs_sample_docblock_build,
                                                   gibbs_sample_tiled)
 from multiverso_tpu_torch.tables import (ArrayTable, SparseMatrixTable,
                                          make_superstep)
-from multiverso_tpu_torch.tables.base import (_local_path, _record_events,
-                                              loadz_stream, savez_stream)
+from multiverso_tpu_torch.tables.base import (_record_events, loadz_stream,
+                                              savez_stream)
 from multiverso_tpu_torch.tables.superstep import (DataSplit, Replicated,
                                                    ShardedParam,
                                                    gather_rows, replica_cat,
@@ -286,6 +289,12 @@ class LightLDA:
         self.ll_history: list = []
         self.doc_tokens_per_sec = 0.0   # of the last train()
         self._last_store = ()
+        # fault tolerance (ft.checkpoint.wire_app): the run checkpoint
+        # manager and the sweep cursor; the restored offset is consumed by
+        # the FIRST train() after a resume
+        self.run_ckpt = None
+        self._sweep_done = 0
+        self._resume_sweeps = 0
         if self._docblock:
             self._setup_docblock(token_words, token_docs, ndk_dtype)
             if c.stream_blocks:
@@ -1000,7 +1009,19 @@ class LightLDA:
             else c.num_iterations
         every = max(c.eval_every, 1)
         t0 = time.perf_counter()
-        for it in range(iters):
+        # the restored cursor applies ONCE (the resume); later train()
+        # calls start from 0
+        it = start = min(self._resume_sweeps, iters)
+        self._resume_sweeps = 0
+        while it < iters:
+            # divergence rollback (MVTPU_HEALTH_ACTION=rollback):
+            # restore_run_state moved the sweep cursor back to the last
+            # clean generation; replay from there (the draws derive from
+            # _calls_done, which the restore rewound too)
+            if telemetry.health.maybe_rollback(self) is not None:
+                it = min(self._resume_sweeps, iters)
+                self._resume_sweeps = 0
+                continue
             t_sweep = time.perf_counter()
             with telemetry.span("lda.sweep"):
                 self.sweep(uniforms, integers)
@@ -1011,17 +1032,21 @@ class LightLDA:
                 "app.step.seconds", telemetry.LATENCY_BUCKETS,
                 app="lda").observe(time.perf_counter() - t_sweep)
             telemetry.beat()    # flight recorder: a heartbeat per sweep
-            if c.checkpoint_interval > 0 and c.checkpoint_prefix \
+            self._sweep_done = it + 1
+            if self.run_ckpt is not None:
+                self.run_ckpt.maybe_save(it + 1, self.run_state)
+            elif c.checkpoint_interval > 0 and c.checkpoint_prefix \
                     and (it + 1) % c.checkpoint_interval == 0:
                 self.store(c.checkpoint_prefix)
-            if (it + 1) % every and it + 1 != iters:
+            it += 1
+            if it % every and it != iters:
                 continue
             ll = self.loglik()
             self.ll_history.append(ll)
-            log.info("lightlda iter %d: loglik/token=%.4f", it, ll)
+            log.info("lightlda iter %d: loglik/token=%.4f", it - 1, ll)
         self.summary.wait()
         dt = time.perf_counter() - t0
-        tokens = self.num_tokens * iters
+        tokens = self.num_tokens * (iters - start)
         self.doc_tokens_per_sec = tokens / max(dt, 1e-12)
         telemetry.counter("lda.tokens").inc(tokens)
         telemetry.emit("lda.doc_tokens_per_sec", self.doc_tokens_per_sec,
@@ -1131,7 +1156,7 @@ class LightLDA:
         the NONZERO entries. Fetches go through
         :meth:`SparseMatrixTable.get_rows_sparse`, so only nonzero entries
         leave the device."""
-        with open(_local_path(uri), "wb") as stream:
+        with open_stream(uri, "wb") as stream:
             for lo in range(0, self.V, rows_per_fetch):
                 ids = np.arange(lo, min(lo + rows_per_fetch, self.V))
                 indptr, cols, vals = self.word_topic.get_rows_sparse(ids)
@@ -1234,6 +1259,23 @@ class LightLDA:
                                     np.asarray(data["ndk"]))
         self._calls_done = int(manifest.get("calls_done", 0))
 
+    # -- run state (the run checkpoint manager's contract) ------------------
+
+    def run_state(self) -> dict:
+        """The train state for the run checkpoint manager: the sampler
+        state (z and the doc-topic counts, as :meth:`store` writes them)
+        and the sweep cursor. The tables ride the manager's own table
+        export."""
+        manifest, payload = self._export_sampler_state()
+        # the scalars flatten into the app-state manifest, the arrays into
+        # its payload; restore_run_state reassembles both
+        return {**manifest, **payload, "sweep_done": self._sweep_done}
+
+    def restore_run_state(self, restored) -> None:
+        self._import_sampler_state(restored.state, restored.arrays)
+        self._sweep_done = int(restored.get("sweep_done", 0))
+        self._resume_sweeps = self._sweep_done
+
     def _install_sampler_state(self, z: np.ndarray, dense: np.ndarray) -> None:
         """Install z (in this app's layout, flattened) and the dense doc
         counts ([D, K] or [D+1, K]) on every replica."""
@@ -1283,13 +1325,17 @@ USAGE = """python -m multiverso_tpu_torch.apps.lightlda -input_file=PATH
     [-block_docs=16] [-stream_blocks=false] [-seed=0]
     [-output_file=PREFIX] [-dump_file=PATH] [-checkpoint_interval=0]
     [-data_parallel=0] [-model_parallel=1] [-device=cpu]
+    [-run_dir=DIR] [-resume=false] [-ckpt_every=0]
 
 The mesh is -data_parallel x -model_parallel over every CUDA device, or
 over one device repeated with -device (-device=cpu: the CPU); with a data
 axis above 1 each row of the mesh holds a replica of the tables and
 samples its share of every batch (-batch_tokens must divide by it, and
-in doc-blocked mode the blocks of a step). Not ported: -local_corpus and
-the multi-process runs, and the fault-tolerance run flags."""
+in doc-blocked mode the blocks of a step). -run_dir (or MVTPU_RUN_DIR)
+keeps a run directory of checkpoint generations (tables and sampler
+state), one every -ckpt_every sweeps (default: the -checkpoint_interval,
+else 1); -resume (or MVTPU_RESUME=1) restarts from its latest complete
+one. Not ported: -local_corpus and the multi-process runs."""
 
 
 def main(argv=None) -> None:
@@ -1337,6 +1383,8 @@ def main(argv=None) -> None:
     ]
     for define, name, default, help_str in flags:
         define(name, default, help_str, overwrite=True)
+    from multiverso_tpu_torch.ft.checkpoint import define_run_flags, wire_app
+    define_run_flags()
     argv = list(argv or [])
     if any(a.lstrip("-") in ("help", "h") for a in argv):
         print(USAGE + "\n\n" + configure.describe_flags())
@@ -1372,10 +1420,17 @@ def main(argv=None) -> None:
         checkpoint_interval=configure.get_flag("checkpoint_interval"),
     )
     app = LightLDA(tw, td, vocab, cfg, mesh=mesh)
+    # fault tolerance: run-level checkpoint/resume, cadence in SWEEPS;
+    # -run_dir routes the periodic trigger through the manager, the
+    # -checkpoint_interval value still sets the cadence
+    mgr = wire_app(app, [app.word_topic, app.summary],
+                   every_default=cfg.checkpoint_interval or 1)
     # flight recorder: env-gated stall watchdog + device capture (the
     # per-sweep beat is in train)
     with telemetry.maybe_watchdog("lda"), telemetry.profile_window("lda"):
         app.train()
+    if mgr is not None:
+        mgr.close()     # drain pending background checkpoint writes
     telemetry.record_device_memory()
     out = configure.get_flag("output_file")
     if out and app._last_store != (out, app._calls_done):

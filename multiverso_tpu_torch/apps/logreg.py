@@ -213,6 +213,8 @@ class LogisticRegression:
         # train() after a restore
         self._epoch_done = 0
         self._resume_epochs = 0
+        # fault tolerance: the run checkpoint manager wire_app attaches
+        self.run_ckpt = None
         self._fused = make_superstep((self.table,), self._body,
                                      name="logreg_superstep")
 
@@ -373,16 +375,25 @@ class LogisticRegression:
         e = min(self._resume_epochs, self.config.epochs)
         self._resume_epochs = 0
         while e < self.config.epochs:
+            # divergence rollback (MVTPU_HEALTH_ACTION=rollback): the
+            # restore ran restore_run_state, so re-read the cursor and
+            # replay from the last clean generation
+            if telemetry.health.maybe_rollback(self) is not None:
+                e = min(self._resume_epochs, self.config.epochs)
+                self._resume_epochs = 0
+                continue
             loss = self.train_epoch(X, y, shuffle_seed=self.config.seed + e)
             self._epoch_done = e + 1
+            if self.run_ckpt is not None:
+                self.run_ckpt.maybe_save(self._epoch_done, self.run_state)
             e += 1
         return loss
 
     # -- run state ---------------------------------------------------------
 
     def run_state(self) -> dict:
-        """The app's train state: the epoch cursor (the shuffle seeds fold
-        the epoch index)."""
+        """The app's train state for the run checkpoint manager: the epoch
+        cursor (the shuffle seeds fold the epoch index)."""
         return {"epoch_done": self._epoch_done}
 
     def restore_run_state(self, restored) -> None:
@@ -434,16 +445,16 @@ USAGE = """python -m multiverso_tpu_torch.apps.logreg [-train_file=PATH]
     [-minibatch_size=256] [-train_epoch=1] [-learning_rate=0.1]
     [-regular_lambda=0.0] [-updater_type=sgd] [-shard_update=false]
     [-output_model_file=URI] [-data_parallel=0] [-model_parallel=1]
-    [-device=cpu]
+    [-device=cpu] [-run_dir=DIR] [-resume=false] [-ckpt_every=0]
 
 Without -train_file it trains on 20,000 synthetic Gaussian blobs. The mesh
 is -data_parallel x -model_parallel over every CUDA device, or over one
 device repeated with -device (-device=cpu: the CPU); with a data axis
 above 1 each row of the mesh holds a replica of the weights and trains on
-its share of every minibatch. Not ported: the fault-tolerance run flags
--run_dir, -resume and -ckpt_every and the run checkpoint manager
-(wire_app), the health rollback, and the cached weight view
-(MVTPU_STALENESS)."""
+its share of every minibatch. -run_dir (or MVTPU_RUN_DIR) keeps a run
+directory of checkpoint generations, one every -ckpt_every epochs
+(default 1); -resume (or MVTPU_RESUME=1) restarts from its latest complete
+one. Not ported: the cached weight view (MVTPU_STALENESS)."""
 
 
 def main(argv=None) -> None:
@@ -469,6 +480,8 @@ def main(argv=None) -> None:
     ]
     for define, name, default, help_str in flags:
         define(name, default, help_str, overwrite=True)
+    from multiverso_tpu_torch.ft.checkpoint import define_run_flags, wire_app
+    define_run_flags()
     argv = list(argv or [])
     if any(a.lstrip("-") in ("help", "h") for a in argv):
         print(USAGE + "\n\n" + configure.describe_flags())
@@ -518,12 +531,18 @@ def main(argv=None) -> None:
                         np.float32)
     else:
         X, y = synthetic_blobs(20000, cfg.input_dim, cfg.num_classes)
+    # fault tolerance: -run_dir/-resume (or MVTPU_RUN_DIR/MVTPU_RESUME)
+    # enable run-level checkpoint/resume, cadence in EPOCHS (default:
+    # every epoch once a run dir is configured)
+    mgr = wire_app(app, [app.table], every_default=1)
     # flight recorder: MVTPU_WATCHDOG=<s> arms a stall watchdog (the
     # per-step beat is in train_epoch); MVTPU_PROFILE_DIR captures a
     # torch.profiler trace of the whole training run
     with telemetry.maybe_watchdog("logreg"), \
             telemetry.profile_window("logreg"):
         app.train(X, y)
+    if mgr is not None:
+        mgr.close()     # drain pending background checkpoint writes
     telemetry.record_device_memory()
     log.info("train accuracy: %.4f", app.accuracy(X, y))
     if test_file:

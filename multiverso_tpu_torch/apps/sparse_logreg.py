@@ -146,6 +146,11 @@ class SparseLogisticRegression:
         self.device = self.table.device
         #: one dict per trained epoch: loss, seconds, samples
         self.epoch_stats: List[dict] = []
+        # fault tolerance (ft.checkpoint.wire_app): the epoch cursor; the
+        # restored offset is consumed by the FIRST train() after a resume
+        self.run_ckpt = None
+        self._epoch_done = 0
+        self._resume_epochs = 0
 
     # -- batch packing -----------------------------------------------------
 
@@ -227,7 +232,19 @@ class SparseLogisticRegression:
         loss = float("nan")
         t_train = time.perf_counter()
         step_no = 0
-        for e in range(c.epochs):
+        # a resume applies ONCE: the table is restored exactly at an epoch
+        # boundary and each epoch's permutation seed derives from its
+        # index, so the remaining epochs replay as in the uninterrupted run
+        e = min(self._resume_epochs, c.epochs)
+        self._resume_epochs = 0
+        while e < c.epochs:
+            # divergence rollback (MVTPU_HEALTH_ACTION=rollback):
+            # restore_run_state just moved the cursor; replay from the
+            # last clean generation
+            if telemetry.health.maybe_rollback(self) is not None:
+                e = min(self._resume_epochs, c.epochs)
+                self._resume_epochs = 0
+                continue
             t0 = time.perf_counter()
             order = np.random.default_rng(c.seed + e).permutation(n)
             losses = []
@@ -252,11 +269,27 @@ class SparseLogisticRegression:
                 epoch=e, loss=loss, seconds=time.perf_counter() - t0,
                 samples=n, steps=len(losses)))
             log.info("sparse_logreg epoch %d: loss=%.4f", e, loss)
+            self._epoch_done = e + 1
+            if self.run_ckpt is not None:
+                self.run_ckpt.maybe_save(self._epoch_done, self.run_state)
+            e += 1
         dt = time.perf_counter() - t_train
         telemetry.counter("sparse_logreg.samples").inc(n * c.epochs)
         telemetry.emit("sparse_logreg.samples_per_sec",
                        n * c.epochs / dt, "samples/s")
         return loss
+
+    # -- run state (the run checkpoint manager's contract) ------------------
+
+    def run_state(self) -> dict:
+        """The epoch cursor: the KVTable (weights, updater state, key
+        layout) rides the manager's table export; minibatch order derives
+        from the epoch index."""
+        return {"epoch_done": self._epoch_done}
+
+    def restore_run_state(self, restored) -> None:
+        self._epoch_done = int(restored.get("epoch_done", 0))
+        self._resume_epochs = self._epoch_done
 
     # -- inference ---------------------------------------------------------
 
@@ -299,6 +332,8 @@ def main(argv=None) -> None:
     ]
     for define, name, default, help_str in flags:
         define(name, default, help_str, overwrite=True)
+    from multiverso_tpu_torch.ft.checkpoint import define_run_flags, wire_app
+    define_run_flags()
     configure.parse_flags(argv or [])
     core.init(device=configure.get_flag("device") or None)
     path = configure.get_flag("train_file")
@@ -314,11 +349,15 @@ def main(argv=None) -> None:
         regular_lambda=configure.get_flag("regular_lambda"),
         epochs=configure.get_flag("epoch"))
     app = SparseLogisticRegression(cfg)
+    # fault tolerance: run-level checkpoint/resume, cadence in epochs
+    mgr = wire_app(app, [app.table], every_default=1)
     # flight recorder: env-gated stall watchdog + device capture (the
     # per-step beat is in train)
     with telemetry.maybe_watchdog("sparse_logreg"), \
             telemetry.profile_window("sparse_logreg"):
         app.train(rows, y)
+    if mgr is not None:
+        mgr.close()     # drain pending background checkpoint writes
     telemetry.record_device_memory()
     log.info("train accuracy: %.4f", app.accuracy(rows, y))
     test = configure.get_flag("test_file")

@@ -212,6 +212,12 @@ class WordEmbedding:
             self._consts.setdefault(devs[0], {
                 k: v.to(devs[0]) for k, v in consts.items()})
         self._step_no = 0
+        # a resume continues the stored run's LR decay and negative-draw
+        # sequence: its planned call count and the calls already done
+        self._sched_offset = 0
+        self._sched_plan = 0
+        self._train_plan = 0        # the last train()'s effective plan
+        self.run_ckpt = None        # ft.checkpoint.wire_app attaches it
         self._last_store = ()       # (prefix, step) of the last store
         self.loss_history: list = []
         self.words_per_sec = 0.0    # of the last train()
@@ -368,6 +374,9 @@ class WordEmbedding:
                         (c.batch_size * c.steps_per_call), 1)
         if total_steps is not None:
             est_calls = max(total_steps // c.steps_per_call, 1)
+        # the plan a run checkpoint records: the original schedule when
+        # resumed, else this run's own estimate
+        self._train_plan = self._sched_plan or est_calls
         srcs_buf, tgts_buf = [], []
         losses, call_no = [], 0
         t0 = time.perf_counter()
@@ -383,7 +392,18 @@ class WordEmbedding:
                                          est_calls))
             srcs_buf, tgts_buf = [], []
             call_no += 1
-            if c.checkpoint_interval > 0 and c.checkpoint_prefix \
+            if telemetry.health.maybe_rollback(self) is not None:
+                # divergence rollback: tables and the step cursor are back
+                # at the last clean generation (the LR decay and the
+                # negatives' seeds re-align through _step_no). The pair
+                # stream cannot rewind: training goes on with fresh
+                # batches from the restored parameters. Checked before
+                # maybe_save so a diverged state is never committed.
+                continue
+            if self.run_ckpt is not None:
+                self.run_ckpt.maybe_save(
+                    self._step_no // c.steps_per_call, self.run_state)
+            elif c.checkpoint_interval > 0 and c.checkpoint_prefix \
                     and call_no % c.checkpoint_interval == 0:
                 self.store(c.checkpoint_prefix)
             if total_steps is not None \
@@ -424,6 +444,11 @@ class WordEmbedding:
         call's own draw (NS only)."""
         c = self.config
         s = srcs.shape[0]
+        if self._sched_plan:
+            # a resume continues the original run's decay and draws (past
+            # the plan's end the LR floor holds)
+            call_no += self._sched_offset
+            est_calls = max(self._sched_plan, 1)
         frac = min(call_no / est_calls, 1.0)
         lr_hi = c.learning_rate * (1.0 - frac)
         lr_lo = c.learning_rate * (1.0 - min((call_no + 1) / est_calls, 1.0))
@@ -517,6 +542,32 @@ class WordEmbedding:
                     f"table is at step {table.default_option.step}")
         self._step_no = int(manifest["step_no"])
 
+    # -- run state (the run checkpoint manager's contract) ------------------
+
+    def run_state(self) -> dict:
+        """The train state for the run checkpoint manager: the step cursor
+        and the ORIGINAL planned call count, so a resumed run continues
+        the stored run's LR decay and negative draws instead of restarting
+        them."""
+        return {"step_no": self._step_no,
+                "steps_per_call": self.config.steps_per_call,
+                "sched_plan": self._sched_plan or self._train_plan}
+
+    def restore_run_state(self, restored) -> None:
+        spc = int(restored.get("steps_per_call",
+                               self.config.steps_per_call))
+        if spc != self.config.steps_per_call:
+            raise ValueError(
+                f"run checkpoint was written with steps_per_call={spc}, "
+                f"this app uses {self.config.steps_per_call}: the resume "
+                "offset and the negatives' seeds are call-indexed — "
+                "construct the app with the original steps_per_call")
+        self._step_no = int(restored.get("step_no", 0))
+        self._sched_plan = int(restored.get("sched_plan", 0))
+        if self._sched_plan:
+            self._sched_offset = \
+                self._step_no // self.config.steps_per_call
+
     def load_numpy(self, weights) -> None:
         """Install ``{"w_in": ..., "w_out": ...}`` numpy weights, e.g. a
         ``multiverso_tpu`` WordEmbedding's
@@ -531,13 +582,16 @@ USAGE = """python -m multiverso_tpu_torch.apps.word_embedding -train_file=PATH
     [-sample=1e-3] [-min_count=5] [-output_file=PREFIX]
     [-output_text=PATH] [-checkpoint_interval=0]
     [-data_parallel=0] [-model_parallel=1] [-device=cpu]
+    [-run_dir=DIR] [-resume=false] [-ckpt_every=0]
 
 The mesh is -data_parallel x -model_parallel over every CUDA device, or
 over one device repeated with -device (-device=cpu: the CPU); with a data
 axis above 1 each row of the mesh holds a replica of the tables and
 trains on its share of every batch (-batch_size must divide by it).
-Not ported: the fault-tolerance run flags -run_dir, -resume and
--ckpt_every and the run checkpoint manager (wire_app); -output_file with
+-run_dir (or MVTPU_RUN_DIR) keeps a run directory of checkpoint
+generations, one every -ckpt_every superstep calls (default: the
+-checkpoint_interval, else 50); -resume (or MVTPU_RESUME=1) restarts from
+its latest complete one. Without -run_dir, -output_file with
 -checkpoint_interval stores the tables every N superstep calls."""
 
 
@@ -568,6 +622,8 @@ def main(argv=None) -> None:
     ]
     for define, name, default, help_str in flags:
         define(name, default, help_str, overwrite=True)
+    from multiverso_tpu_torch.ft.checkpoint import define_run_flags, wire_app
+    define_run_flags()
     argv = list(argv or [])
     if any(a.lstrip("-") in ("help", "h") for a in argv):
         print(USAGE + "\n\n" + configure.describe_flags())
@@ -601,11 +657,18 @@ def main(argv=None) -> None:
         checkpoint_interval=configure.get_flag("checkpoint_interval"),
     )
     app = WordEmbedding(corpus, cfg, mesh=mesh)
+    # fault tolerance: run-level checkpoint/resume, cadence in superstep
+    # calls (-ckpt_every / MVTPU_CKPT_EVERY; else the -checkpoint_interval
+    # cadence, else 50 calls)
+    mgr = wire_app(app, [app.w_in, app.w_out],
+                   every_default=cfg.checkpoint_interval or 50)
     # flight recorder: MVTPU_WATCHDOG=<s> arms a stall watchdog (the
     # per-dispatch beat is in _dispatch); MVTPU_PROFILE_DIR captures a
     # torch.profiler trace of the whole training run
     with telemetry.maybe_watchdog("w2v"), telemetry.profile_window("w2v"):
         app.train()
+    if mgr is not None:
+        mgr.close()     # drain pending background checkpoint writes
     telemetry.record_device_memory()
     out = configure.get_flag("output_file")
     # skip the end-of-train store when the last periodic one wrote this

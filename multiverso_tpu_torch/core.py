@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from multiverso_tpu_torch.telemetry import metrics as telemetry
+from multiverso_tpu_torch.telemetry.health import maybe_health_monitor
 from multiverso_tpu_torch.telemetry.slo import maybe_slo_monitor
 from multiverso_tpu_torch.utils import configure, log
 
@@ -142,10 +143,16 @@ def init(argv: Optional[Sequence[str]] = None, *,
         log.set_level(configure.get_flag("log_level"))
         if configure.get_flag("log_file"):
             log.set_file(configure.get_flag("log_file"))
-        # MVTPU_SLO arms the tail-latency monitor (idempotent across
-        # re-inits); statusz, health and the controller wait for ROADMAP
-        # queue A items 11, 6 and 7
+        # fault injection rides init: one env var turns any run into a
+        # chaos run
+        from multiverso_tpu_torch.ft.chaos import chaos_from_env
+        chaos_from_env()
+        # MVTPU_SLO arms the tail-latency monitor, MVTPU_HEALTH the
+        # training-health monitor (both idempotent across re-inits);
+        # statusz and the controller wait for ROADMAP queue A items 11
+        # and 7
         maybe_slo_monitor()
+        maybe_health_monitor()
         if device is not None:
             if devices is not None:
                 raise ValueError("pass device= or devices=, not both")
@@ -255,6 +262,10 @@ def barrier(name: Optional[str] = None) -> None:
     """``MV_Barrier``: wait until every CUDA device of the mesh has
     finished its queued work (one process: the only party to wait for)."""
     m = mesh()
+    # fault point: a 'latency' rule models a straggler, an 'error' rule a
+    # lost peer
+    from multiverso_tpu_torch.ft.chaos import chaos_point
+    chaos_point("core.barrier")
     _RT.barrier_count += 1
     t0 = time.perf_counter()
     for dev in sorted({d for d in m.devices.flat if d.type == "cuda"},

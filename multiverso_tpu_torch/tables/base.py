@@ -10,8 +10,15 @@ Counterpart of ``multiverso_tpu/tables/base.py``:
   ``apply(param, state, delta, option)`` on the table's tensors.
 - ``ServerTable::Store/Load`` -> :meth:`Table.store` / :meth:`Table.load`,
   in the reference's checkpoint format (an ``.npz`` of a JSON manifest and
-  the padded arrays, each stamped with its CRC32), on local files: a table
-  stored by either package loads in the other.
+  the padded arrays, each stamped with its CRC32), through the URI stream
+  layer (``io/stream.py``: local files, ``mem://``, fsspec schemes) under
+  the IO retry policy: a table stored by either package loads in the
+  other. :meth:`Table.export_checkpoint_async` splits a store into a
+  dispatch half (copies queued into pinned host memory) and a blocking
+  half, the run checkpoint manager's overlap (``ft/checkpoint.py``).
+- The ``table.get`` / ``table.add`` fault points of ``ft/chaos.py`` and
+  the numerics audit of ``telemetry/health.py`` sit where the reference
+  puts them.
 
 The leading dimension is padded as the reference pads it: to a multiple
 of the model-axis size (of the model x data product under
@@ -38,18 +45,19 @@ from __future__ import annotations
 
 import io
 import json
-import os
-import tempfile
 import threading
 import time
 import zlib
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from multiverso_tpu_torch import core
+from multiverso_tpu_torch.ft.chaos import chaos_corrupt, chaos_point
+from multiverso_tpu_torch.io import open_stream
 from multiverso_tpu_torch.ops.table_kernels import ShardedParam
+from multiverso_tpu_torch.telemetry import health as _health
 from multiverso_tpu_torch.telemetry import metrics as telemetry
 from multiverso_tpu_torch.telemetry import trace as tracing
 from multiverso_tpu_torch.telemetry.profiling import profiled
@@ -79,14 +87,6 @@ def dtype_name(dtype: torch.dtype) -> str:
 # -- checkpoint format ---------------------------------------------------------
 
 
-def _local_path(uri: str) -> str:
-    if uri.startswith("file://"):
-        return uri[len("file://"):]
-    if "://" in uri:
-        raise ValueError(f"only local files are supported, got {uri!r}")
-    return uri
-
-
 def _payload_crc32(arr: np.ndarray) -> int:
     """CRC32 over an array's raw bytes (C order)."""
     return int(zlib.crc32(np.ascontiguousarray(arr).tobytes()))
@@ -94,31 +94,35 @@ def _payload_crc32(arr: np.ndarray) -> int:
 
 def savez_stream(uri: str, manifest: Dict[str, Any],
                  payload: Dict[str, np.ndarray]) -> None:
-    """Write an npz (manifest json + arrays), the manifest stamped with a
-    per-array CRC32. The file appears whole or not at all (write to a
-    temporary file, then rename)."""
+    """Write an npz (manifest json + arrays) through the stream layer, the
+    manifest stamped with a per-array CRC32. The write is atomic in the
+    stream layer (a local file lands in a temp file renamed into place)
+    and guarded by the env-configured IO retry policy
+    (:func:`~multiverso_tpu_torch.ft.retry.io_retry_policy`)."""
+    from multiverso_tpu_torch.ft.retry import io_retry_policy
     manifest = dict(manifest)
     manifest["crc32"] = {k: _payload_crc32(v) for k, v in payload.items()}
     buf = io.BytesIO()
     np.savez(buf, manifest=json.dumps(manifest), **payload)
-    path = _local_path(uri)
-    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(os.path.abspath(path)),
-                               prefix=".tmp_ckpt_")
-    try:
-        with os.fdopen(fd, "wb") as f:
-            f.write(buf.getvalue())
-        os.replace(tmp, path)
-    except BaseException:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-        raise
+    data = buf.getvalue()
+
+    def write() -> None:
+        with open_stream(uri, "wb") as stream:
+            stream.write(data)
+    io_retry_policy("io.store").call(write)
 
 
 def loadz_stream(uri: str, magic: str):
-    """Read an npz; validate its manifest magic and the per-array CRC32
-    checksums (when present). Returns (manifest dict, npz data)."""
-    with open(_local_path(uri), "rb") as f:
-        data = np.load(io.BytesIO(f.read()), allow_pickle=False)
+    """Read an npz through the stream layer (under the IO retry policy);
+    validate its manifest magic and the per-array CRC32 checksums (when
+    present). Returns (manifest dict, npz data)."""
+    from multiverso_tpu_torch.ft.retry import io_retry_policy
+
+    def read() -> bytes:
+        with open_stream(uri, "rb") as stream:
+            return stream.read()
+    data = np.load(io.BytesIO(io_retry_policy("io.load").call(read)),
+                   allow_pickle=False)
     try:
         manifest = json.loads(str(data["manifest"]))
     except Exception:
@@ -161,6 +165,58 @@ def _record_events(devices) -> List[torch.cuda.Event]:
             event.record(torch.cuda.current_stream(dev))
             events.append(event)
     return events
+
+
+class HostCopy:
+    """Tensors queued into one host buffer: the dispatch half of a
+    checkpoint export.
+
+    The flattened elements of ``parts``, in order, make up an array of
+    ``shape`` (default: the parts stacked along their first dimension).
+    Each part is copied with ``non_blocking`` into its slice of one host
+    tensor (pinned when a part lives on a card), and an event is recorded
+    on each card's current stream after its copies. :meth:`numpy` waits
+    on those events and returns the host array; it touches no CUDA tensor,
+    so a writer thread may call it.
+
+    Stream order keeps the copy whole although the port's kernels write
+    tables in place: every op of the port queues on each card's current
+    stream, which no module of the port changes (a replica thread only
+    enters ``torch.cuda.device``), and a stream runs its work in order. So
+    no add queued after the copies, from any thread, writes the bytes
+    before the copy has read them. A caller that queues table work on a
+    stream of its own must make that stream wait on :attr:`events` first.
+    """
+
+    def __init__(self, parts: Sequence[torch.Tensor],
+                 shape: Optional[Tuple[int, ...]] = None) -> None:
+        parts = list(parts)
+        if shape is None:
+            shape = (sum(int(t.shape[0]) for t in parts),) \
+                + tuple(parts[0].shape[1:])
+        self.shape = tuple(int(d) for d in shape)
+        self.host = torch.empty(
+            int(np.prod(self.shape)), dtype=parts[0].dtype,
+            pin_memory=any(t.is_cuda for t in parts))
+        off = 0
+        for t in parts:
+            n = t.numel()
+            self.host[off:off + n].copy_(t.reshape(-1), non_blocking=True)
+            off += n
+        if off != self.host.numel():
+            raise ValueError(f"parts of {off} elements for shape "
+                             f"{self.shape}")
+        self.events = _record_events([t.device for t in parts])
+
+    def numpy(self) -> np.ndarray:
+        """The host array, once the copies are done (bfloat16 as its
+        uint16 bit patterns, which numpy can hold)."""
+        for event in self.events:
+            event.synchronize()
+        host = self.host.view(self.shape)
+        if host.dtype == torch.bfloat16:
+            return host.view(torch.int16).numpy().view(np.uint16)
+        return host.numpy()
 
 
 def _placed(blocks, devices, copy: bool) -> List[torch.Tensor]:
@@ -403,7 +459,7 @@ class Table:
     def _state_split(self, whole, replica: int) -> List[torch.Tensor]:
         """A padded state leaf (numpy or tensor) as the blocks ``replica``
         holds, one per shard on its device (the inverse of
-        :meth:`_state_leaf`)."""
+        :meth:`_state_parts`)."""
         devs = self.replica_devices[replica]
         if not self.shard_update:
             return self._split(whole, devs, copy=True)
@@ -415,14 +471,10 @@ class Table:
                         for s in range(len(devs))], devs, copy=True)
 
     def _state_leaf(self, key: str) -> torch.Tensor:
-        """An updater-state leaf as one padded tensor on the first device:
-        the shards' leaves concatenated, under shard_update each shard's
-        row blocks gathered from the replicas that hold them."""
-        if not self.shard_update:
-            return self._whole([st[key] for st in self.shard_states])
-        return torch.cat([self.replica_states[d][s][key].to(self.device)
-                          for s in range(len(self.devices))
-                          for d in range(self.n_replicas)])
+        """An updater-state leaf as one padded tensor on the first device
+        (:meth:`_state_parts` concatenated)."""
+        return self._whole([t.to(self.device)
+                            for t in self._state_parts(key)])
 
     def _whole(self, shards: Optional[List[torch.Tensor]] = None
                ) -> torch.Tensor:
@@ -568,10 +620,12 @@ class Table:
     def get_tensor(self) -> torch.Tensor:
         """The logical value (padding sliced off) as a fresh tensor on the
         first device."""
+        chaos_point("table.get")
         t0 = time.monotonic()
         with tracing.span("table.get", table=f"{self.table_id}:{self.name}"):
             elems = self._elems()
             self._record_op("get", elems, elems * self.np_dtype.itemsize)
+            _health.observe_param(self)
             out = self._snapshot()
         self._h_get.observe(time.monotonic() - t0)
         return out
@@ -599,6 +653,8 @@ class Table:
         on every replica (under shard_update each replica its own row
         block of each shard, whose updated rows then go to every
         replica)."""
+        chaos_point("table.add")
+        delta = chaos_corrupt("table.add", delta)
         t0 = time.monotonic()
         with tracing.span("table.add", table=f"{self.table_id}:{self.name}",
                           sync=sync):
@@ -617,7 +673,9 @@ class Table:
                 delta = self._pad(np.asarray(delta))
             elems = self._elems()
             self._record_op("add", elems, elems * self.np_dtype.itemsize)
+            _health.observe_update(self, delta)
             self._apply(delta, self._resolve_option(option))
+            _health.observe_param(self)
             handle = Handle(table=self, generation=self._bump_step())
             if sync:
                 handle.wait()
@@ -678,22 +736,61 @@ class Table:
             "step": self.default_option.step,
         }
 
-    def store(self, uri: str) -> None:
-        """Serialize param + updater state: the global padded arrays, the
-        shards concatenated."""
+    def flush_coalesced(self) -> None:
+        """Flush the deltas parked in attached coalescing buffers; a no-op
+        until the client pipeline (ROADMAP.md queue A item 9) brings
+        them."""
+
+    def _state_parts(self, key: str) -> List[torch.Tensor]:
+        """An updater-state leaf's blocks in global row order (the
+        shards', under shard_update each shard's blocks in replica
+        order): a checkpoint's padded leaf, concatenated."""
+        if not self.shard_update:
+            return [st[key] for st in self.shard_states]
+        return [self.replica_states[d][s][key]
+                for s in range(len(self.devices))
+                for d in range(self.n_replicas)]
+
+    def export_checkpoint_async(self):
+        """The checkpoint export in two halves (the run checkpoint
+        manager's overlap, ``ft/checkpoint.py``):
+
+        - the DISPATCH half runs here, on the thread that queues the
+          table's work: replica 0's param shards and every state leaf are
+          queued into pinned host buffers (:class:`HostCopy`, whose
+          docstring says why no later add reaches the exported bytes);
+        - the returned ``finish()`` is the BLOCKING half, safe on a
+          worker thread: it waits on the copies' events, assembles the
+          payload and records the accounting.
+
+        ``finish()`` returns ``(manifest, payload)`` ready for
+        :func:`savez_stream`: the global padded arrays, the shards
+        concatenated."""
+        self.flush_coalesced()
         manifest = self._manifest()
-        payload = {"param": self._whole().view(self.padded_shape).cpu()
-                   .numpy()}
+        param = HostCopy(self.shards, self.padded_shape)
         keys = state_keys(self.shard_states[0])
-        for i, key in enumerate(keys):
-            payload[f"state_{i}"] = self._state_leaf(key).cpu().numpy()
-        manifest["n_state_leaves"] = len(keys)
-        self._record_op("store", payload["param"].size,
-                        sum(a.nbytes for a in payload.values()))
+        leaves = [HostCopy(self._state_parts(k)) for k in keys]
+
+        def finish():
+            payload = {"param": param.numpy()}
+            for i, leaf in enumerate(leaves):
+                payload[f"state_{i}"] = leaf.numpy()
+            manifest["n_state_leaves"] = len(keys)
+            self._record_op("store", payload["param"].size,
+                            sum(a.nbytes for a in payload.values()))
+            return manifest, payload
+        return finish
+
+    def store(self, uri: str) -> None:
+        """Serialize param + updater state through the stream layer."""
+        manifest, payload = self.export_checkpoint_async()()
         savez_stream(uri, manifest, payload)
 
     def load(self, uri: str) -> None:
         """Restore a checkpoint of any padding and shard count."""
+        # buffered deltas refer to the pre-load state: they land first
+        self.flush_coalesced()
         manifest, data = loadz_stream(uri, CHECKPOINT_MAGIC)
         if tuple(manifest["logical_shape"]) != self.logical_shape:
             raise ValueError(

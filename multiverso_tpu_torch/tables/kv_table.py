@@ -62,8 +62,9 @@ import numpy as np
 import torch
 
 from multiverso_tpu_torch import core
+from multiverso_tpu_torch.ft.chaos import chaos_corrupt
 from multiverso_tpu_torch.ops import table_kernels as tk
-from multiverso_tpu_torch.tables.base import (Handle, Table,
+from multiverso_tpu_torch.tables.base import (Handle, HostCopy, Table,
                                               _record_events, _register,
                                               dtype_name, lanes_on,
                                               loadz_stream, savez_stream,
@@ -72,6 +73,7 @@ from multiverso_tpu_torch.tables.hashing import (EMPTY_KEY, _bucket,
                                                  _hash_u64, _join_keys,
                                                  _split_keys,
                                                  shard_lane_slices)
+from multiverso_tpu_torch.telemetry import health as _health
 from multiverso_tpu_torch.telemetry import metrics as telemetry
 from multiverso_tpu_torch.telemetry import trace as tracing
 from multiverso_tpu_torch.telemetry.profiling import profiled
@@ -146,14 +148,6 @@ def from_host(arr: np.ndarray, dtype: torch.dtype,
     if dtype == torch.bfloat16:
         return torch.tensor(arr.view(np.int16), device=device).view(dtype)
     return torch.tensor(arr, device=device)
-
-
-def to_host(t: torch.Tensor) -> np.ndarray:
-    """A tensor as a host-form array (:func:`host_values`)."""
-    t = t.detach().cpu()
-    if t.dtype == torch.bfloat16:
-        return t.view(torch.int16).numpy().view(np.uint16)
-    return t.numpy()
 
 
 class KVTable:
@@ -524,6 +518,7 @@ class KVTable:
             deltas = np.asarray(deltas)
         if tuple(deltas.shape) != want:
             raise ValueError(f"deltas shape {tuple(deltas.shape)} != {want}")
+        deltas = chaos_corrupt("table.add", deltas)
         lane_buckets = self._buckets_of(keys)
         order = np.argsort(lane_buckets, kind="stable")
         if isinstance(deltas, torch.Tensor):
@@ -584,6 +579,7 @@ class KVTable:
         with tracing.span("table.add", table=f"{self.table_id}:{self.name}",
                           sync=sync):
             self._record_op("add", prepared.elems, prepared.nbytes)
+            _health.observe_update(self, prepared.deltas)
             n_over = self._probe_update(
                 self.key_shards, self.value_shards, self.state_shards,
                 prepared.buckets, prepared.query, prepared.deltas,
@@ -593,6 +589,7 @@ class KVTable:
                                   self.replica_values[1:],
                                   self.replica_states[1:])),
                 state_blocks=self.shard_update)[3]
+            _health.observe_param(self, self.value_shards)
             self._events = _record_events(
                 [d for devs in self.replica_devices for d in devs])
             self._pending_over.append((n_over, self._events,
@@ -636,14 +633,25 @@ class KVTable:
 
     # -- checkpoint --------------------------------------------------------
 
+    #: flushes attached coalescing buffers (a no-op until ROADMAP.md
+    #: queue A item 9), as the reference's KVTable shares Table's
+    flush_coalesced = Table.flush_coalesced
+
     def export_checkpoint_async(self):
-        """Checkpoint export in two halves: device copies of the triple
-        now (later adds update the live tensors in place), the host
-        payload in the returned ``finish()``."""
+        """Checkpoint export split like ``Table.export_checkpoint_async``:
+        the dispatch half here (a pending overflow raises first, then
+        replica 0's keys, values and every state leaf are queued into
+        pinned host buffers, :class:`~multiverso_tpu_torch.tables.base.
+        HostCopy`), the blocking half in the returned ``finish()``."""
+        self.flush_coalesced()
         self._check_overflow()
-        keys, vals, state = self.global_arrays()
-        names = state_keys(state)
-        leaves = [state[k] for k in names]
+        reps = range(self.n_replicas) if self.shard_update else (0,)
+        names = state_keys(self.state_shards[0])
+        keys = HostCopy(self.key_shards)
+        vals = HostCopy(self.value_shards)
+        leaves = [HostCopy([self.replica_states[r][s][k]
+                            for s in range(len(self.devices))
+                            for r in reps]) for k in names]
         manifest = {"magic": KV_MAGIC, "name": self.name,
                     "capacity": self.capacity, "value_dim": self.value_dim,
                     "slots": self.slots, "num_buckets": self.num_buckets,
@@ -652,18 +660,18 @@ class KVTable:
                     "step": self.default_option.step}
 
         def finish():
-            host_keys = keys.cpu().numpy().view(np.uint32)
+            host_keys = keys.numpy().view(np.uint32)
             # slots fill contiguously (no deletion), so fill = live count
             fill = (~(host_keys == 0xFFFFFFFF).all(-1)).sum(-1)
-            host_vals = to_host(vals)
-            if vals.dtype == torch.bfloat16:
+            host_vals = vals.numpy()
+            if vals.host.dtype == torch.bfloat16:
                 # the reference's bfloat16 array, as numpy writes it: two
                 # bytes a value with no numpy type name
                 host_vals = host_vals.view(np.dtype("V2"))
             payload = {"keys": host_keys, "values": host_vals,
                        "bucket_fill": fill.astype(np.int32)}
             for i, leaf in enumerate(leaves):
-                payload[f"state_{i}"] = leaf.cpu().numpy()
+                payload[f"state_{i}"] = leaf.numpy()
             manifest["n_state_leaves"] = len(leaves)
             self._record_op("store", payload["values"].size,
                             sum(a.nbytes for a in payload.values()))
@@ -675,7 +683,9 @@ class KVTable:
         savez_stream(uri, manifest, payload)
 
     def load(self, uri: str) -> None:
-        # a pending overflow is about the pre-load state: raise it first
+        # buffered deltas and a pending overflow are about the pre-load
+        # state: flush and raise them first
+        self.flush_coalesced()
         self._check_overflow()
         manifest, data = loadz_stream(uri, KV_MAGIC)
         for field, mine in (("value_dim", self.value_dim),

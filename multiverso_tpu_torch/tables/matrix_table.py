@@ -31,9 +31,11 @@ import numpy as np
 import torch
 
 from multiverso_tpu_torch import core
+from multiverso_tpu_torch.ft.chaos import chaos_corrupt
 from multiverso_tpu_torch.ops import table_kernels as tk
 from multiverso_tpu_torch.tables.base import Handle, Table, lanes_on
 from multiverso_tpu_torch.tables.hashing import _bucket, shard_lane_slices
+from multiverso_tpu_torch.telemetry import health as _health
 from multiverso_tpu_torch.telemetry.profiling import profiled
 from multiverso_tpu_torch.updaters import AddOption
 
@@ -162,8 +164,10 @@ class MatrixTable(Table):
         if deltas.shape != (len(ids), self.num_cols):
             raise ValueError(f"deltas shape {deltas.shape} != "
                              f"({len(ids)}, {self.num_cols})")
+        deltas = chaos_corrupt("table.add", deltas)
         self._record_op("add", deltas.size,
                         deltas.size * self.np_dtype.itemsize)
+        _health.observe_update(self, deltas)
         if self.updater.name in ("default", "sgd"):
             if self.updater.name == "sgd":
                 # stateless: scatter-add of -lr*delta, duplicate-safe

@@ -32,10 +32,12 @@ import numpy as np
 import torch
 
 from multiverso_tpu_torch import core
+from multiverso_tpu_torch.ft.chaos import chaos_corrupt
 from multiverso_tpu_torch.ops import table_kernels as tk
 from multiverso_tpu_torch.tables.base import Handle, lanes_on
 from multiverso_tpu_torch.tables.hashing import _bucket, shard_lane_slices
 from multiverso_tpu_torch.tables.matrix_table import MatrixTable
+from multiverso_tpu_torch.telemetry import health as _health
 from multiverso_tpu_torch.telemetry.profiling import profiled
 from multiverso_tpu_torch.updaters import AddOption
 
@@ -114,7 +116,9 @@ class SparseMatrixTable(MatrixTable):
         if cols.min() < 0 or cols.max() >= self.num_cols:
             raise ValueError(f"col ids out of range [0, {self.num_cols})")
         n = len(rows)
+        values = chaos_corrupt("table.add", values)
         self._record_op("add", n, n * self.np_dtype.itemsize)
+        _health.observe_update(self, values)
         order = np.argsort(rows, kind="stable")
         rows, cols, values = rows[order], cols[order], values[order]
         if self.updater.name == "sgd":

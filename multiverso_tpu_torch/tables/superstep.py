@@ -89,6 +89,7 @@ from multiverso_tpu_torch.core import DATA_AXIS, Mesh
 from multiverso_tpu_torch.ops import table_kernels as tk
 from multiverso_tpu_torch.ops.table_kernels import ShardedParam, gather_rows
 from multiverso_tpu_torch.tables.base import Handle, Table
+from multiverso_tpu_torch.telemetry import health as _health
 from multiverso_tpu_torch.telemetry.profiling import profiled
 from multiverso_tpu_torch.updaters import AddOption
 
@@ -445,6 +446,11 @@ class FusedSuperstep:
             for t, p, s in zip(self.tables, new_params, new_states):
                 t.superstep_update(p, s, replica=d)
         for t in self.tables:
+            # a superstep's update never passes through add(), so the
+            # numerics audit samples the written-back storage here: once a
+            # call, on this thread, replica 0's (stride-gated inside
+            # observe_param; a no-op when health is off)
+            _health.observe_param(t)
             gen = t._bump_step()
             if t is self.tables[0]:
                 self._last_generation = gen

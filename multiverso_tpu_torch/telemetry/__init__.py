@@ -28,12 +28,16 @@ reference's ``report`` CLI renders the port's files:
   CUDA allocator's gauges) and :func:`profile_window`
   (``MVTPU_PROFILE_DIR``-gated ``torch.profiler`` capture).
 
-Not ported yet (ROADMAP.md queue A): ``health`` (``HealthMonitor``,
-``maybe_health_monitor``; item 6), ``statusz`` (``StatuszServer``,
-``maybe_statusz``, ``publish_fleet``), ``aggregate`` (``gather_metrics``,
-``merge_snapshots``, ``fleet_snapshot``), ``attribution`` and ``report``
-(item 11). The legacy ``utils.dashboard`` API keeps working as a shim
-over this registry.
+- :mod:`~multiverso_tpu_torch.telemetry.health` — the training-health
+  monitor: packed numerics stats of the tables' updates and storage,
+  ``MVTPU_HEALTH`` drift rules, and the warn / dump / rollback actions
+  (``MVTPU_HEALTH_ACTION``).
+
+Not ported yet (ROADMAP.md queue A item 11): ``statusz``
+(``StatuszServer``, ``maybe_statusz``, ``publish_fleet``), ``aggregate``
+(``gather_metrics``, ``merge_snapshots``, ``fleet_snapshot``),
+``attribution`` and ``report``. The legacy ``utils.dashboard`` API keeps
+working as a shim over this registry.
 """
 
 from multiverso_tpu_torch.telemetry import (metrics, profiling, trace,
@@ -64,9 +68,12 @@ from multiverso_tpu_torch.telemetry.watchdog import (Watchdog,
 # through the already-bound package attributes
 from multiverso_tpu_torch.telemetry import slo
 from multiverso_tpu_torch.telemetry.slo import SloMonitor, maybe_slo_monitor
+from multiverso_tpu_torch.telemetry import health
+from multiverso_tpu_torch.telemetry.health import (HealthMonitor,
+                                                   maybe_health_monitor)
 
 __all__ = [
-    "metrics", "profiling", "slo", "trace", "watchdog",
+    "health", "metrics", "profiling", "slo", "trace", "watchdog",
     "Counter", "Gauge", "Histogram", "MetricRegistry", "QueueGauges",
     "LATENCY_BUCKETS", "log_spaced_bounds", "snapshot_quantile",
     "counter", "gauge", "histogram", "emit", "host_index", "registry",
@@ -75,5 +82,6 @@ __all__ = [
     "request", "new_request_id", "current_request", "link", "adopt",
     "Watchdog", "beat", "maybe_watchdog", "active_watchdogs",
     "SloMonitor", "maybe_slo_monitor",
+    "HealthMonitor", "maybe_health_monitor",
     "profiled", "profile_window", "record_device_memory",
 ]

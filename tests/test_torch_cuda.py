@@ -2303,3 +2303,51 @@ def test_word2vec_telemetry_counts_its_calls(cuda, tmp_path):
     assert snap["counters"]["w2v.pairs"] == 12 * 256
     assert tk.LAUNCHES["row_gather"] == tk.LAUNCHES["row_scatter_add"] \
         == 2 * 12
+
+
+def test_summarize_on_the_card_matches_the_cpu(cuda):
+    """The stat reduction of a card tensor (and of a ShardedParam of its
+    row blocks) against the same reduction on the CPU: counts and abs_max
+    exact, l2 within 1e-5 (another float32 sum order); its copy to the
+    host is read through the Summary's event."""
+    from multiverso_tpu_torch.ops import stat_kernels as sk
+    from multiverso_tpu_torch.ops.table_kernels import ShardedParam
+    x = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(4001, 33)).astype(np.float32))
+    flat = x.view(-1)
+    flat[[2, 9, 40, 77]] = torch.tensor([float("nan"), float("inf"), 0.0,
+                                         float("-inf")])
+    cases = [(x.to(cuda), x),
+             (ShardedParam(list(x[:4000].to(cuda).chunk(4))), x[:4000]),
+             (x.to(cuda, torch.bfloat16), x.to(torch.bfloat16))]
+    for operand, on_cpu in cases:
+        s = sk.summarize(operand)
+        assert s.event is not None and s.host.is_pinned()
+        got, want = sk.unpack(s), sk.unpack(sk.summarize(on_cpu))
+        for k in ("absmax", "nan_count", "inf_count", "zero_frac", "count"):
+            assert got[k] == want[k], k
+        assert got["l2"] == pytest.approx(want["l2"], rel=1e-5)
+        assert got["nan_count"] == 1 and got["inf_count"] == 2
+
+
+def test_export_holds_the_values_before_an_in_place_add(cuda, tmp_path):
+    """A generation saved and, at once, a row scatter-add that writes the
+    table in place: the generation holds the pre-add values (the copy
+    into pinned memory is queued first on the card's stream)."""
+    from multiverso_tpu_torch.ft.checkpoint import RunCheckpointManager
+    from multiverso_tpu_torch.tables.base import (CHECKPOINT_MAGIC,
+                                                  loadz_stream)
+    t = MatrixTable(100_001, 64, device="cuda", name="ex_card")
+    t.add_rows(np.arange(0, 100_001, 7), np.ones((14_286, 64), np.float32))
+    pre = t.get()
+    mgr = RunCheckpointManager(str(tmp_path), tables=[t])
+    mgr.save(1)
+    for _ in range(20):
+        t.add_rows(np.arange(0, 100_001, 3),
+                   np.full((33_334, 64), 2.0, np.float32))
+    mgr.close()
+    _, data = loadz_stream(str(tmp_path / "gen-0000000001" /
+                               "table-ex_card.npz"),
+                           CHECKPOINT_MAGIC)
+    assert data["param"][:100_001].tobytes() == pre.tobytes()
+    assert not np.array_equal(t.get(), pre)

@@ -105,7 +105,8 @@ class TestWatchdog:
         assert manifest["kind"] == wd.DUMP_KIND == "mvtpu.watchdog.dump.v1"
         assert manifest["name"] == "t.stall"
         assert manifest["silent_s"] >= 0.2
-        # not ported yet: ft, server, control, health (sys.modules only)
+        # no run checkpoint committed, no health monitor armed, and no
+        # server or controller in the port yet (sys.modules only)
         assert manifest["latest_checkpoint"] is None
         assert manifest["slow_requests"] == []
         assert manifest["control_decisions"] == []

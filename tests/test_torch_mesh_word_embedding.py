@@ -263,11 +263,12 @@ def test_cli_help_and_refusals(text, capsys):
     tw2v.main(["-help"])
     usage = capsys.readouterr().out
     assert "-train_file" in usage and "-model_parallel" in usage
-    assert "-ckpt_every" in usage and "Not ported" in usage
+    assert "-ckpt_every" in usage and "-run_dir" in usage
+    assert "Not ported" not in usage
     with pytest.raises(SystemExit, match="train_file is required"):
         tw2v.main(["-device=cpu"])
     with pytest.raises(SystemExit, match="unknown arguments"):
-        tw2v.main([f"-train_file={text}", "-device=cpu", "-run_dir=/x"])
+        tw2v.main([f"-train_file={text}", "-device=cpu", "stray"])
     assert "replica of the tables" in usage
     assert "not ported (tables on the data axis)" not in usage
     with pytest.raises(ValueError, match="not divisible by data-axis size"):

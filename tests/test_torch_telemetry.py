@@ -35,18 +35,23 @@ DROP = ("ts", "dur_s", "tid")
 
 @pytest.fixture(autouse=True)
 def _fresh(monkeypatch):
-    """Empty registries, no sinks, span and request ids from 1."""
+    """Empty registries and dashboards, no sinks, span and request ids
+    from 1."""
     for m, t in PAIRS:
         m.registry().reset()
         m.registry().set_jsonl(None)
         t.set_trace_file(None)
         monkeypatch.setattr(t, "_IDS", itertools.count(1))
         monkeypatch.setattr(t, "_REQS", itertools.count(1))
+    for dash in (jdash, tdash):
+        dash.dashboard().reset()
     yield
     for m, t in PAIRS:
         m.registry().reset()
         m.registry().set_jsonl(None)
         t.set_trace_file(None)
+    for dash in (jdash, tdash):
+        dash.dashboard().reset()
 
 
 def _drive_metrics(m):
@@ -331,12 +336,11 @@ def test_histogram_counts_match_numpy():
 
 def test_exports_are_the_reference_s_less_what_waits():
     """The package exports the reference's ``__all__`` less what later
-    ROADMAP items port (aggregate, health, statusz and their names), with
+    ROADMAP items port (aggregate, statusz and their names), with
     ``profiled`` in place of ``profiled_jit``."""
     from multiverso_tpu import telemetry as jtelemetry
-    waits = {"aggregate", "health", "statusz", "gather_metrics",
-             "merge_snapshots", "fleet_snapshot", "HealthMonitor",
-             "maybe_health_monitor", "StatuszServer", "maybe_statusz",
+    waits = {"aggregate", "statusz", "gather_metrics", "merge_snapshots",
+             "fleet_snapshot", "StatuszServer", "maybe_statusz",
              "publish_fleet", "profiled_jit"}
     assert set(ttelemetry.__all__) \
         == (set(jtelemetry.__all__) - waits) | {"profiled"}
