@@ -204,6 +204,29 @@ its seconds):
    the write half and the resume's time each; the dense logreg killed
    after generation 2 and resumed, bit for bit the uninterrupted run.
    Last, no health error, no dropped sample, no failed checkpoint.
+20. The client pipeline and the control plane, in parts (its seconds
+   are their sum): (a) after phase 10, its sparse LR with
+   ``MVTPU_COALESCE=4`` in pairs with the uncoalesced run (off, on, on,
+   off; the packs memoised from phase 10): 8 flushes, 8 probes + 8
+   commits against 32 + 32, the pre-sum's row scatter launched once a
+   flush; the coalesced table bit for bit the same run's with the
+   pre-sum forced to its plain version on the CPU, the uncoalesced ones
+   phase 10's; the pre-sum's device ms at a flush's shapes and its share
+   of a flush's wall; (b) after phase 19b/d, phase 4's word2vec with
+   ``MVTPU_STALENESS=1`` (six calls under one view, then words/s with the
+   view on and off in pairs), and inside phase 6 its LightLDA with
+   ``MVTPU_STALENESS=2`` over the 205 MB word table: the staleness served,
+   hits and misses, the refresh's ms on the dispatch thread and the
+   worker's wait, every served array bit for bit the table at its
+   generation and unchanged afterwards, one pinned buffer a view; (c)
+   phase 10's 32 adds through ``stage_kv_adds(depth=2)`` and directly,
+   bit for bit, both wall times; (d) the sparse LR with
+   ``MVTPU_COALESCE=2`` under ``AUTOTUNE_SPEC``, ``check_once()`` after
+   every fourth minibatch: K from 2 in +2 steps, the decision ring and
+   the ``control.decision`` spans of a trace file, the table bit for bit
+   a replay of its flush schedule, ``MVTPU_AUTOTUNE=0`` vetoing every
+   apply, ``core.init`` arming one controller thread and
+   ``core.shutdown`` leaving none.
 
 Phase 2 also holds the KV kernels against their plain versions on the CPU
 bit for bit at the sparse-LR step's shapes (a 2^25-slot table, 262,144
@@ -240,7 +263,8 @@ against the same run on a (1, 4) CPU mesh.
 Launch counts are set to 0 before each main path (phases 3-4 word2vec,
 4c on each backend, 5, 6, 6b, 7, 8, 10, 11, 12, 13's word2vec and its
 COO superstep, 13b's two meshes, 15, each sweep of 16, 17's sparse LR)
-and read after it. Before the last line the script prints
+and read after it; phase 20 reads each run's launches as the difference
+of the counts around it. Before the last line the script prints
 one ``{"kernels": [...]}`` JSON line and the card's name and power limit;
 the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -251,6 +275,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import gc
 import json
 import os
 import re
@@ -1659,6 +1684,7 @@ def free_tables(torch) -> None:
     alive) and give their device memory back."""
     from multiverso_tpu_torch.tables import reset_tables
     reset_tables()
+    gc.collect()            # apps whose wrappers hold them in a cycle
     torch.cuda.empty_cache()
 
 
@@ -2127,7 +2153,8 @@ def phase_sparse_lr(torch, tk, counts, SparseLogisticRegression,
     """Phase 10: sparse LR at the Criteo-like width. Returns the measured
     numbers, the launch counts read right after training and the accuracy
     pass, and the data with the final table on the host (for phase 12);
-    ``then(app, rows, y)`` runs once the phase is done with the app."""
+    ``then(app, rows, y)`` runs once the phase is done with the app. The
+    run fills the data's ``pack_memo`` (phase 20's runs read it)."""
     t0 = time.perf_counter()
     rows, y = synthetic_sparse(n=SLR_N, dim=SLR_DIM, num_classes=2,
                                nnz=SLR_NNZ, seed=0)
@@ -2139,6 +2166,8 @@ def phase_sparse_lr(torch, tk, counts, SparseLogisticRegression,
     free_tables(torch)                  # the earlier phases' tables
     torch.cuda.reset_peak_memory_stats()
     app = SparseLogisticRegression(cfg, device="cuda", name="smoke_slr")
+    memo = PackMemo()
+    memo.wrap(app)
     # the run's adds, kept for phase 17 to replay: each step's unique keys
     # and its delta (a tensor the step made and nothing writes again), so
     # keeping them costs the step nothing
@@ -2155,7 +2184,7 @@ def phase_sparse_lr(torch, tk, counts, SparseLogisticRegression,
     grown = {k: v - start[k] for k, v in counts().items()}
     keys_, vals_, state_ = app.table.global_arrays()
     data = dict(rows=rows, y=y, losses=[e["loss"] for e in app.epoch_stats],
-                adds=adds,
+                adds=adds, pack_memo=memo,
                 triple=(keys_.cpu(), vals_.cpu(),
                         {k: v.cpu() for k, v in state_.items()}))
     del keys_, vals_, state_
@@ -4460,6 +4489,556 @@ def health_clean(telemetry) -> None:
     log(f"  19: {bad}")
 
 
+# -- phase 20: the client pipeline and the control plane ---------------------
+
+# phase 20a's coalescing depth: 32 adds in 8 flushes
+SLR_COALESCE = 4
+# phase 20d's objective: violated on any card (no add takes under 1 us)
+AUTOTUNE_SPEC = "table.add.seconds.p99 < 1us -> client.coalesce_k+"
+
+
+class PackMemo:
+    """``SparseLogisticRegression._pack`` memoised by minibatch. Every
+    sparse-LR run at phase 10's shape packs the same minibatches (an
+    epoch's order derives from its index); phase 10 fills the memo and
+    prints the pack's time, so phase 20's runs time what the client
+    pipeline changes, not the pack again."""
+
+    def __init__(self) -> None:
+        self.cache = {}
+
+    def wrap(self, app) -> None:
+        pack = app._pack
+
+        def memo(rows):
+            key = (len(rows), id(rows[0]), id(rows[-1]))
+            if key not in self.cache:
+                self.cache[key] = pack(rows)
+            return self.cache[key]
+        app._pack = memo
+
+
+def slr_app(SparseLogisticRegression, SparseLRConfig, name: str,
+            coalesce: int = 0):
+    """Phase 10's sparse LR app on the card, built with
+    ``MVTPU_COALESCE=coalesce`` (0: no coalescer)."""
+    cfg = SparseLRConfig(capacity=SLR_CAPACITY, slots_per_bucket=SLR_SLOTS,
+                         max_features=64, minibatch_size=SLR_BATCH,
+                         updater="ftrl", learning_rate=0.1,
+                         epochs=SLR_EPOCHS)
+    with env_set(MVTPU_COALESCE=str(coalesce)):
+        return SparseLogisticRegression(cfg, device="cuda", name=name)
+
+
+def slr_run(torch, counts, app, data, hook=None) -> dict:
+    """Train ``app`` on phase 10's data (packs memoised; ``hook`` wraps
+    ``train_batch``): its seconds, samples/s, launches and final table on
+    the host."""
+    data["pack_memo"].wrap(app)
+    if hook is not None:
+        app.train_batch = hook(app.train_batch)
+    start = counts()
+    t0 = time.perf_counter()
+    app.train(data["rows"], data["y"])
+    app.table.wait()
+    dt = time.perf_counter() - t0
+    grown = {k: v - start[k] for k, v in counts().items()}
+    keys, vals, state = app.table.global_arrays()
+    losses = [e["loss"] for e in app.epoch_stats]
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise SystemExit(f"sparse LR {app.table.name}: epoch losses {losses}")
+    return dict(seconds=dt, samples_per_sec=SLR_N * SLR_EPOCHS / dt,
+                launches=grown, losses=losses,
+                triple=(keys.cpu(), vals.cpu(),
+                        {k: v.cpu() for k, v in state.items()}))
+
+
+def phase_coalesced_slr(torch, tk, counts, coalesce, telemetry, client,
+                        KVTable, AddOption, SparseLogisticRegression,
+                        SparseLRConfig, data, card: str) -> dict:
+    """Phase 20a: phase 10's sparse LR with ``MVTPU_COALESCE=4`` (8 flushes
+    of 4 minibatches, each pre-summed by key on the card through the row
+    scatter-add), in pairs with the uncoalesced run (off, on, on, off).
+    Each coalesced run launches 8 probes + 8 commits and 32 + 8 row
+    scatters (the gradient's and the pre-sum's); both coalesced runs, and
+    a third with the pre-sum forced to its plain version on the CPU,
+    leave the same table bit for bit; the uncoalesced runs leave phase
+    10's. The pre-sum's device time at a flush's shapes, beside its bound
+    and ``index_add_``, and a flush's host parts beside the adds it
+    replaces (:func:`flush_parts`)."""
+    steps = SLR_EPOCHS * SLR_N // SLR_BATCH
+    flushes = steps // SLR_COALESCE
+    runs, triples = {"off": [], "on": []}, {"off": [], "on": []}
+    for i, mode in enumerate(("off", "on", "on", "off")):
+        free_tables(torch)
+        app = slr_app(SparseLogisticRegression, SparseLRConfig,
+                      f"smoke_slr_co{i}",
+                      SLR_COALESCE if mode == "on" else 0)
+        r = slr_run(torch, counts, app, data)
+        want = {"kv_probe_update": steps, "kv_commit": steps,
+                "kv_lookup": steps, "row_scatter_add": steps}
+        if mode == "on":
+            want.update(kv_probe_update=flushes, kv_commit=flushes,
+                        row_scatter_add=steps + flushes)
+            if app._coalescer.flush_generation != flushes:
+                raise SystemExit(f"20a: {app._coalescer.flush_generation} "
+                                 f"flushes, expected {flushes}")
+            lbl = app._coalescer._lbl
+            h = telemetry.snapshot()["histograms"][
+                f"client.flush.seconds{{table={lbl}}}"]
+            r["flush_wall_ms"] = 1e3 * h["sum"] / h["count"]
+        for name, n in want.items():
+            if r["launches"][name] != n:
+                raise SystemExit(f"20a {mode}: {name} launched "
+                                 f"{r['launches'][name]} times, expected {n}")
+        runs[mode].append(r)
+        triples[mode].append(r.pop("triple"))
+        del app
+    if not same_triple(torch, triples["off"][0], data["triple"]) \
+            or not same_triple(torch, triples["off"][1], data["triple"]):
+        raise SystemExit("20a: an uncoalesced run differs from phase 10's")
+    if not same_triple(torch, triples["on"][0], triples["on"][1]):
+        raise SystemExit("20a: the two coalesced runs differ")
+    # the same coalesced run with the pre-sum's plain version on the CPU;
+    # the first flush's operands are kept to time the kernel on them
+    kept, presum = [], coalesce.presum
+
+    def plain(zeros, inv, deltas):
+        if not kept:
+            kept.append((zeros.shape, inv.clone(), deltas.clone()))
+        zeros.copy_(tk.row_scatter_add_plain(zeros.cpu(), inv.cpu(),
+                                             deltas.cpu()))
+        return zeros
+
+    free_tables(torch)
+    app = slr_app(SparseLogisticRegression, SparseLRConfig, "smoke_slr_pl",
+                  SLR_COALESCE)
+    coalesce.presum = plain
+    try:
+        r = slr_run(torch, counts, app, data)
+    finally:
+        coalesce.presum = presum
+    del app
+    if r["launches"]["row_scatter_add"] != steps:
+        raise SystemExit("20a: the plain pre-sum launched a row scatter")
+    if not same_triple(torch, r["triple"], triples["on"][0]):
+        raise SystemExit("20a: the coalesced table differs from the same "
+                         "run with the plain pre-sum (bit for bit)")
+    del triples, r
+    free_tables(torch)
+    shape, inv, deltas = kept[0]
+    zeros = torch.zeros(shape, device="cuda")
+    before = tk.LAUNCHES["row_scatter_add"]
+    got = coalesce.presum(zeros, inv, deltas)
+    if tk.LAUNCHES["row_scatter_add"] != before + 1 or not torch.equal(
+            got.cpu(), tk.row_scatter_add_plain(
+                torch.zeros(shape), inv.cpu(), deltas.cpu())):
+        raise SystemExit("20a: the pre-sum kernel != its plain version")
+    n, (u, c) = inv.shape[0], shape
+    ms = cuda_ms(lambda: coalesce.presum(zeros, inv, deltas), 50)
+    lib = cuda_ms(lambda: zeros.index_add_(0, inv, deltas), 50)
+    b, by = bound_ms(n * 4 + n * c * 4 + 2 * u * c * 4, n * c)
+    on, off = runs["on"], runs["off"]
+    flush_ms = float(np.mean([r["flush_wall_ms"] for r in on]))
+    out = dict(
+        samples_per_sec_off=[r["samples_per_sec"] for r in off],
+        samples_per_sec_on=[r["samples_per_sec"] for r in on],
+        on_vs_off=sum(r["samples_per_sec"] for r in on)
+        / sum(r["samples_per_sec"] for r in off),
+        flushes=flushes, launches_on=on[0]["launches"],
+        launches_off=off[0]["launches"], presum_lanes=n, presum_unique=u,
+        presum_ms=ms, presum_index_add_ms=lib, presum_bound_ms=b,
+        presum_bound_by=by, flush_wall_ms=flush_ms,
+        presum_share_of_flush=ms / flush_ms,
+        losses_on=on[0]["losses"], losses_off=off[0]["losses"],
+        flush_parts=flush_parts(torch, KVTable, AddOption, client,
+                                data["adds"]))
+    fp = out["flush_parts"]
+    log(f"  20a {flushes} flushes of {SLR_COALESCE} minibatches; launches "
+        f"coalesced: probe {on[0]['launches']['kv_probe_update']} + commit "
+        f"{on[0]['launches']['kv_commit']}, row scatter "
+        f"{on[0]['launches']['row_scatter_add']} (the gradient's {steps} + "
+        f"the pre-sum's {flushes}); uncoalesced: probe "
+        f"{off[0]['launches']['kv_probe_update']} + commit "
+        f"{off[0]['launches']['kv_commit']}")
+    log(f"  20a pre-sum at a flush's shapes ({n} lanes, {u} keys, C {c}): "
+        f"{ms:.4f} ms on the device (index_add_ {lib:.4f}, bound {b:.4f} "
+        f"{by}), {100 * out['presum_share_of_flush']:.2f}% of a flush's "
+        f"{flush_ms:.2f} ms wall; tables: coalesced runs identical, equal "
+        f"to the plain pre-sum's bit for bit; uncoalesced equal phase 10's")
+    log(f"  20a a flush of {SLR_COALESCE} adds apart (host ms, each fenced):"
+        f" the pre-sum {fp['presum_ms']:.1f}, prepare_add of {fp['keys']} "
+        f"keys {fp['prepare_ms']:.1f}, add_prepared {fp['apply_ms']:.1f}; "
+        f"the {SLR_COALESCE} direct adds: prepare_add "
+        f"{fp['direct_prepare_ms']:.1f}, add_prepared "
+        f"{fp['direct_apply_ms']:.1f}")
+    log(f"  20a samples/s (packs memoised) off "
+        f"{[round(x) for x in out['samples_per_sec_off']]}, on "
+        f"{[round(x) for x in out['samples_per_sec_on']]} "
+        f"({out['on_vs_off']:.3f}x); epoch losses on "
+        f"{[round(x, 5) for x in out['losses_on']]}, off "
+        f"{[round(x, 5) for x in out['losses_off']]}; on {card}")
+    return out
+
+
+def flush_parts(torch, KVTable, AddOption, client, adds) -> dict:
+    """One 20a flush taken apart on the host's clock, each part fenced by
+    a device sync: the coalescer's pre-sum (the keys' ``np.unique`` and
+    #2), the table's host prep (``prepare_add``) and its device half
+    (``add_prepared``), beside the same parts of the SLR_COALESCE direct
+    adds the flush replaces; fresh 2^25-slot tables."""
+    def table(name):
+        return KVTable(SLR_CAPACITY, value_dim=2, slots_per_bucket=SLR_SLOTS,
+                       updater="ftrl", default_option=AddOption.for_ftrl(0.1),
+                       device="cuda", name=name)
+
+    def timed(fn):
+        _sync(torch)
+        t0 = time.perf_counter()
+        r = fn()
+        _sync(torch)
+        return r, 1e3 * (time.perf_counter() - t0)
+
+    group = adds[:SLR_COALESCE]
+    out = {"direct_prepare_ms": 0.0, "direct_apply_ms": 0.0}
+    free_tables(torch)
+    t = table("smoke_kv_parts_direct")
+    for keys, deltas in group:
+        prep, ms = timed(lambda: t.prepare_add(keys, deltas))
+        out["direct_prepare_ms"] += ms
+        out["direct_apply_ms"] += timed(lambda: t.add_prepared(prep))[1]
+    del t
+    free_tables(torch)
+    t = table("smoke_kv_parts_flush")
+    buf = client.CoalescingBuffer(t, max_deltas=1 << 30)
+    for keys, deltas in group:
+        buf.add_kv(keys, deltas)
+    (uniq, summed), out["presum_ms"] = timed(buf._summed_unique)
+    prep, out["prepare_ms"] = timed(lambda: t.prepare_add(uniq, summed))
+    out["apply_ms"] = timed(lambda: t.add_prepared(prep))[1]
+    out["keys"] = int(len(uniq))
+    del t, buf, prep, summed
+    free_tables(torch)
+    return out
+
+
+def phase_staged_adds(torch, KVTable, AddOption, client, adds,
+                      card: str) -> dict:
+    """Phase 20c: phase 10's 32 adds (each step's keys and card delta)
+    replayed on fresh 2^25-slot ftrl tables, directly and through
+    ``stage_kv_adds(depth=2)``: keys, values and state bit for bit, and
+    both wall times."""
+    out = {}
+    triples = {}
+    for mode in ("direct", "staged", "staged", "direct"):
+        free_tables(torch)
+        t = KVTable(SLR_CAPACITY, value_dim=2, slots_per_bucket=SLR_SLOTS,
+                    updater="ftrl", default_option=AddOption.for_ftrl(0.1),
+                    device="cuda", name=f"smoke_kv_{mode}")
+        _sync(torch)
+        t0 = time.perf_counter()
+        if mode == "direct":
+            for keys, deltas in adds:
+                t.add(keys, deltas)
+        else:
+            client.stage_kv_adds(t, adds, depth=2)
+        t.wait()
+        out.setdefault(f"{mode}_s", []).append(time.perf_counter() - t0)
+        keys, vals, state = t.global_arrays()
+        triple = (keys.cpu(), vals.cpu(), {k: v.cpu()
+                                           for k, v in state.items()})
+        if mode in triples and not same_triple(torch, triple,
+                                               triples[mode]):
+            raise SystemExit(f"20c: two {mode} replays differ")
+        triples[mode] = triple
+        del t, keys, vals, state
+    if not same_triple(torch, triples["direct"], triples["staged"]):
+        raise SystemExit("20c: staged adds != direct adds (bit for bit)")
+    free_tables(torch)
+    log(f"  20c {len(adds)} adds: direct "
+        f"{[round(x, 3) for x in out['direct_s']]} s, staged (depth 2) "
+        f"{[round(x, 3) for x in out['staged_s']]} s; keys, values and "
+        f"state bit for bit; on {card}")
+    return out
+
+
+def record_generations(torch, table, keep: int):
+    """Copies on the card of ``table``'s logical value at each generation
+    from now on (the newest ``keep``), taken as each bump notifies the
+    views. Returns (the dict, a function that stops the recording)."""
+    history = {table.generation: table.logical_tensor()}
+    notify = table._notify_views
+
+    def recording():
+        history[table.generation] = table.logical_tensor()
+        for g in sorted(history)[:-keep]:
+            del history[g]
+        notify()
+
+    table._notify_views = recording
+    return history, lambda: table.__dict__.pop("_notify_views")
+
+
+def check_served(torch, view, history, served, bound: int, what: str):
+    """The array ``view`` served last: within ``bound``, equal bit for bit
+    to the table at the served generation; keeps it with a copy so that a
+    later check finds it unchanged."""
+    got, gen = served[-1][0], view.generation
+    if view._table.generation - gen > bound:
+        raise SystemExit(f"20b {what}: served generation {gen}, table at "
+                         f"{view._table.generation}, bound {bound}")
+    if gen not in history or not np.array_equal(
+            got, history[gen].cpu().numpy()):
+        raise SystemExit(f"20b {what}: the served array != the table at "
+                         f"generation {gen}")
+    return view._table.generation - gen
+
+
+def view_counts(telemetry, view) -> tuple:
+    c = telemetry.snapshot()["counters"]
+    return (c.get(f"client.cache.hits{{table={view._lbl}}}", 0),
+            c.get(f"client.cache.misses{{table={view._lbl}}}", 0))
+
+
+def phase_view_w2v(torch, client, telemetry, app, batches,
+                   pairs_per_token: float, card: str) -> dict:
+    """Phase 20b (word2vec): phase 4's app with ``MVTPU_STALENESS=1``,
+    ``embeddings()`` read after each 512-step call. Six calls under one
+    view: the staleness served (never above 1), hits and misses, the
+    refresh's ms on the dispatch thread and the worker's wait, every
+    served array equal to ``w_in`` at its generation and unchanged after
+    the later refreshes, one pinned buffer. Then words/s with the view on
+    and off, four calls a side in pairs (a call and its read, fenced)."""
+    table = app.w_in
+    with env_set(MVTPU_STALENESS="1"):
+        view = client.maybe_cached_view(table)
+    app._emb_view = view
+    history, stop = record_generations(torch, table, keep=4)
+    served, stale, refresh_ms, wait_ms = [], [], [], []
+    try:
+        for _ in range(6):
+            n = view.refreshes
+            app.train(total_steps=STEPS, batches=batches[:STEPS])
+            if view.refreshes > n:
+                refresh_ms.append(1e3 * view.last_refresh_s)
+            got = app.embeddings()
+            served.append((got, got.copy()))
+            stale.append(check_served(torch, view, history, served, 1,
+                                      "w2v"))
+            wait_ms.append(1e3 * view.last_wait_s)
+    finally:
+        stop()
+    if any(not np.array_equal(g, c) for g, c in served):
+        raise SystemExit("20b w2v: a served array changed afterwards")
+    hits, misses = view_counts(telemetry, view)
+    allocs, refreshes = view.staging_allocs, view.refreshes
+    view.close()
+    del history, served
+    rates = {"off": [], "on": []}
+    for mode in ("on", "off", "off", "on") * 2:
+        app._emb_view = None
+        if mode == "on":
+            with env_set(MVTPU_STALENESS="1"):
+                app._emb_view = client.maybe_cached_view(table)
+        t0 = time.perf_counter()
+        app.train(total_steps=STEPS, batches=batches[:STEPS])
+        app.embeddings()
+        torch.cuda.synchronize()
+        rates[mode].append(STEPS * BATCH / (time.perf_counter() - t0)
+                           / pairs_per_token)
+        if app._emb_view is not None:
+            app._emb_view.close()
+    app._emb_view = None
+    out = dict(staleness=stale, hits=hits, misses=misses,
+               refreshes=refreshes, refresh_ms=refresh_ms, wait_ms=wait_ms,
+               staging_allocs=allocs,
+               words_per_sec_on=rates["on"], words_per_sec_off=rates["off"],
+               on_vs_off=sum(rates["on"]) / sum(rates["off"]))
+    log(f"  20b w2v, 6 calls, bound 1: staleness served {stale}, hits "
+        f"{hits:.0f}, misses {misses:.0f}, {refreshes} background "
+        f"refreshes, each on the dispatch thread "
+        f"{[round(x, 3) for x in refresh_ms]} ms, the worker's wait "
+        f"{[round(x, 3) for x in wait_ms]} ms, {allocs} pinned buffer; "
+        f"every served array = w_in at its generation, none changed")
+    log(f"  20b w2v words/s (a call + embeddings()), view on "
+        f"{[round(r) for r in rates['on']]}, off "
+        f"{[round(r) for r in rates['off']]} ({out['on_vs_off']:.3f}x); "
+        f"on {card}")
+    return out
+
+
+def phase_view_lda(torch, client, telemetry, app, card: str) -> dict:
+    """Phase 20b (LightLDA): phase 6's doc-blocked app with
+    ``MVTPU_STALENESS=2`` over its 205 MB word table, ``word_topics()``
+    read after each of 3 sweeps (22 generations a sweep): the refresh's
+    ms on the dispatch thread, the worker's wait and copy-out, the
+    staleness served, every served array equal to the table at its
+    generation and unchanged afterwards, and one pinned buffer for every
+    refresh."""
+    table = app.word_topic
+    with env_set(MVTPU_STALENESS="2"):
+        view = client.maybe_cached_view(table)
+    app._wt_view = view
+    history, stop = record_generations(torch, table, keep=3)
+    served, stale, refresh_ms, wait_ms, copy_ms = [], [], [], [], []
+    try:
+        for _ in range(3):
+            n = view.refreshes
+            app.sweep()
+            got = app.word_topics()
+            served.append((got, got.copy()))
+            stale.append(check_served(torch, view, history, served, 2,
+                                      "lightlda"))
+            if view.refreshes > n:
+                refresh_ms.append(1e3 * view.last_refresh_s)
+            wait_ms.append(1e3 * view.last_wait_s)
+            copy_ms.append(1e3 * view.last_copy_s)
+        got = view.get(max_staleness=0)      # a refresh after the sweeps
+        served.append((got, got.copy()))
+        check_served(torch, view, history, served, 0, "lightlda")
+    finally:
+        stop()
+    if any(not np.array_equal(g, c) for g, c in served):
+        raise SystemExit("20b lightlda: a served array changed afterwards")
+    if view.staging_allocs != 1:
+        raise SystemExit(f"20b lightlda: {view.staging_allocs} pinned "
+                         "buffers for one table")
+    hits, misses = view_counts(telemetry, view)
+    mb, refreshes = served[0][0].nbytes / 1e6, view.refreshes
+    view.close()
+    app._wt_view = None
+    del history, served
+    out = dict(staleness=stale, hits=hits, misses=misses,
+               refreshes=refreshes, refresh_ms=refresh_ms, wait_ms=wait_ms,
+               copy_ms=copy_ms, table_mb=mb, staging_allocs=1)
+    log(f"  20b LightLDA ({mb:.1f} MB word table), 3 sweeps, bound 2: "
+        f"staleness served {stale}, hits {hits:.0f}, misses {misses:.0f}, "
+        f"{refreshes} background refreshes; "
+        f"refresh on the dispatch thread {[round(x, 3) for x in refresh_ms]}"
+        f" ms, the worker's wait {[round(x, 3) for x in wait_ms]} ms and "
+        f"copy-out {[round(x, 2) for x in copy_ms]} ms; one pinned buffer; "
+        f"every served array = the table at its generation; on {card}")
+    return out
+
+
+def controller_threads() -> int:
+    import threading
+    return sum(1 for t in threading.enumerate()
+               if t.name == "mvtpu-control" and t.is_alive())
+
+
+def phase_autotune_slr(torch, tk, counts, mvt, core, ctl, trace,
+                       SparseLogisticRegression, SparseLRConfig, data,
+                       tmp: str, card: str) -> dict:
+    """Phase 20d: 20a's sparse LR with ``MVTPU_COALESCE=2`` under the
+    objective ``AUTOTUNE_SPEC``, ``check_once()`` driven after every
+    fourth minibatch (confirm 1, hold 0): K from 2 in clamped +2 steps,
+    one a check, each move in the decision ring and a
+    ``control.decision`` span of the trace file; the table bit for bit a
+    replay of the same flush schedule without the controller;
+    ``MVTPU_AUTOTUNE=0`` vetoing every apply; ``core.init`` with
+    ``MVTPU_AUTOTUNE`` arming one controller thread and ``core.shutdown``
+    leaving none."""
+    free_tables(torch)
+    app = slr_app(SparseLogisticRegression, SparseLRConfig, "smoke_slr_tune",
+                  2)
+    buf = app._coalescer
+    (obj,) = ctl.parse_objectives(AUTOTUNE_SPEC)
+    c = ctl.Controller([obj], confirm=1, hold=0)
+    ks, flushed_after, seen = [buf.max_deltas], [], [0, 0]
+    ring0 = len(ctl.recent_decisions())
+
+    def hook(train_batch):
+        def run(rows, y):
+            loss = train_batch(rows, y)
+            seen[0] += 1
+            if buf.flush_generation != seen[1]:
+                flushed_after.append(seen[0])
+                seen[1] = buf.flush_generation
+            if seen[0] % 4 == 0:
+                c.check_once()
+                ks.append(buf.max_deltas)
+            return loss
+        return run
+
+    path = os.path.join(tmp, "autotune_trace.jsonl")
+    trace.set_trace_file(path)
+    try:
+        tuned = slr_run(torch, counts, app, data, hook)
+    finally:
+        trace.set_trace_file(None)
+    checks = len(ks) - 1
+    want = [2 + 2 * i for i in range(checks + 1)]
+    if ks != want:
+        raise SystemExit(f"20d: K went {ks}, expected {want}")
+    ring = [e for e in ctl.recent_decisions()[ring0:]
+            if e.get("knob") == "client.coalesce_k"
+            and e["label"] == buf._lbl]
+    spans = [r["attrs"] for r in trace.read_trace(path)
+             if r.get("kind") == "span" and r["name"] == "control.decision"
+             and r["attrs"]["label"] == buf._lbl]
+    moves = [(k, k + 2) for k in want[:-1]]
+    if [(e["from"], e["to"]) for e in ring] != moves \
+            or [(a["from"], a["to"]) for a in spans] != moves \
+            or any(a["rule"] != AUTOTUNE_SPEC for a in spans):
+        raise SystemExit(f"20d: ring {ring}, spans {spans}")
+    with env_set(MVTPU_AUTOTUNE="0"):
+        k = buf.max_deltas
+        if c.check_once() or ctl.apply_step("client.coalesce_k", 1) \
+                or ctl.apply_set("client.coalesce_k", 64) \
+                or buf.max_deltas != k:
+            raise SystemExit("20d: MVTPU_AUTOTUNE=0 did not veto an apply")
+    del app, buf
+
+    # the same flush schedule, replayed without the controller
+    free_tables(torch)
+    app = slr_app(SparseLogisticRegression, SparseLRConfig,
+                  "smoke_slr_replay", 2)
+    app._coalescer.max_deltas = 1 << 30
+    n = [0]
+
+    def replay(train_batch):
+        def run(rows, y):
+            loss = train_batch(rows, y)
+            n[0] += 1
+            if n[0] in flushed_after:
+                app._coalescer.flush()
+            return loss
+        return run
+
+    replayed = slr_run(torch, counts, app, data, replay)
+    del app
+    free_tables(torch)
+    if not same_triple(torch, tuned["triple"], replayed["triple"]):
+        raise SystemExit("20d: the tuned table != the replay of its flush "
+                         "schedule (bit for bit)")
+
+    # arming from core.init, and none left after core.shutdown
+    before = controller_threads()
+    with env_set(MVTPU_AUTOTUNE=AUTOTUNE_SPEC, MVTPU_AUTOTUNE_EVERY="3600"):
+        core.init(device="cuda:0")
+        core.init(device="cuda:0")
+        armed = controller_threads() - before
+    core.shutdown()
+    left = controller_threads()
+    mvt.init()
+    if armed != 1 or left != 0:
+        raise SystemExit(f"20d: core.init armed {armed} controller "
+                         f"thread(s); {left} left after core.shutdown")
+    out = dict(k_sequence=ks, flushed_after=flushed_after,
+               ring=[(e["from"], e["to"]) for e in ring],
+               spans=len(spans), samples_per_sec=tuned["samples_per_sec"],
+               armed_threads=armed, threads_after_shutdown=left)
+    log(f"  20d K after each of {checks} checks: {ks}; flushes after "
+        f"minibatches {flushed_after}; the ring and {len(spans)} "
+        f"control.decision spans: {out['ring']}; the table = the replay of "
+        f"its flush schedule bit for bit; MVTPU_AUTOTUNE=0 vetoed every "
+        f"apply; core.init armed {armed} controller thread, "
+        f"{left} after core.shutdown; {tuned['samples_per_sec']:.0f} "
+        f"samples/s; on {card}")
+    return out
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4503,6 +5082,9 @@ def main(argv) -> int:
     from multiverso_tpu_torch.tables import base as tbase
     from multiverso_tpu_torch.telemetry import health as thealth
     from multiverso_tpu_torch.utils import configure
+    from multiverso_tpu_torch import client as tclient
+    from multiverso_tpu_torch.client import coalesce
+    from multiverso_tpu_torch.control import controller as tctl
     profile = "--profile" in argv
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4542,6 +5124,15 @@ def main(argv) -> int:
         t0 = time.perf_counter()
         h19[key] = fn(*args)
         phase_s["health"] += time.perf_counter() - t0
+
+    # and phase 20 (the client pipeline and the control plane)
+    c20 = {}
+    phase_s["client"] = 0.0
+
+    def c20_part(key: str, fn, *args) -> None:
+        t0 = time.perf_counter()
+        c20[key] = fn(*args)
+        phase_s["client"] += time.perf_counter() - t0
 
     phase("device", "phase 1: device")
     card = subprocess.run(
@@ -4618,6 +5209,11 @@ def main(argv) -> int:
                  tel_app, w2v_run["batches"], w2v_run["pairs_per_token"])
         h19_part("ckpt_w2v", phase_ckpt_w2v, torch, tckpt, tbase,
                  telemetry, tel_app, w2v_run["batches"], tel_dir.name)
+        log("phase 20b: phase 4's word2vec with MVTPU_STALENESS=1, "
+            "embeddings() through the cached view")
+        c20_part("view_w2v", phase_view_w2v, torch, tclient, telemetry,
+                 tel_app, w2v_run["batches"], w2v_run["pairs_per_token"],
+                 card)
         tel_part("watchdog", phase_telemetry_watchdog, torch, tk, telemetry,
                  tel_dir.name)
         tel_part("device_memory", phase_telemetry_memory, torch, telemetry)
@@ -4652,7 +5248,12 @@ def main(argv) -> int:
                         tel_part("lightlda", phase_telemetry_lda, torch,
                                  telemetry, trace, app, tel_dir.name),
                         h19_part("ckpt_lda", phase_ckpt_lda, torch, tckpt,
-                                 telemetry, app, tel_dir.name)))
+                                 telemetry, app, tel_dir.name),
+                        log("phase 20b: phase 6's LightLDA with "
+                            "MVTPU_STALENESS=2, word_topics() through the "
+                            "cached view"),
+                        c20_part("view_lda", phase_view_lda, torch, tclient,
+                                 telemetry, app, card)))
     paths["lightlda_doc_blocked"] = counts()
     phase_end("lda")
 
@@ -4692,6 +5293,20 @@ def main(argv) -> int:
             "sparse_lr", phase_telemetry_slr, torch, tk, telemetry, trace,
             KVTable, app, rows, y, tel_dir.name))
     phase_end("sparse_lr")
+
+    log("phase 20a/c/d: phase 10's sparse LR coalesced (MVTPU_COALESCE=4), "
+        "its adds staged, and K tuned live by the controller")
+    c20_part("coalesced_slr", phase_coalesced_slr, torch, tk, counts,
+             coalesce, telemetry, tclient, KVTable, AddOption,
+             SparseLogisticRegression, SparseLRConfig, slr_data, card)
+    c20_part("staged_adds", phase_staged_adds, torch, KVTable, AddOption,
+             tclient, slr_data["adds"], card)
+    with tempfile.TemporaryDirectory() as tmp:
+        c20_part("autotune", phase_autotune_slr, torch, tk, counts, mvt,
+                 core, tctl, trace, SparseLogisticRegression,
+                 SparseLRConfig, slr_data, tmp, card)
+    log(f"  [client and control (phase 20, all parts so far): "
+        f"{phase_s['client']:.1f} s]")
 
     mesh = core.Mesh([devices])
     reset()
@@ -4876,6 +5491,21 @@ def main(argv) -> int:
                     for k, r in (("w2v", h["ckpt_w2v"]),
                                  ("lightlda", h["ckpt_lda"])))
         + f"; phase 19 {phase_s['health']:.1f} s; on {card}")
+    a, w, l, d = (c20["coalesced_slr"], c20["view_w2v"], c20["view_lda"],
+                  c20["autotune"])
+    log(f"  client: sparse LR coalesced x{SLR_COALESCE}: {a['flushes']} "
+        f"flushes, probe + commit {a['launches_on']['kv_probe_update']} + "
+        f"{a['launches_on']['kv_commit']} (uncoalesced "
+        f"{a['launches_off']['kv_probe_update']} + "
+        f"{a['launches_off']['kv_commit']}), pre-sum {a['presum_ms']:.4f} "
+        f"ms ({100 * a['presum_share_of_flush']:.2f}% of a flush), samples/s "
+        f"on/off {a['on_vs_off']:.3f}x; views: w2v staleness {w['staleness']}"
+        f", words/s on/off {w['on_vs_off']:.3f}x; LightLDA refresh "
+        f"{[round(x, 3) for x in l['refresh_ms']]} ms on the dispatch "
+        f"thread, wait {[round(x, 2) for x in l['wait_ms']]} ms; staged "
+        f"adds {c20['staged_adds']['staged_s']} s vs direct "
+        f"{c20['staged_adds']['direct_s']} s; autotune K {d['k_sequence']}; "
+        f"phase 20 {phase_s['client']:.1f} s; on {card}")
 
     row_src = "multiverso_tpu_torch/ops/csrc/row_kernels.cu"
     coo_src = "multiverso_tpu_torch/ops/csrc/coo_kernels.cu"
@@ -4968,7 +5598,7 @@ def main(argv) -> int:
                        w2v_own_iterator=w2v_own, dense_logreg=dense,
                        kv_data_axis=kv_data,
                        row_scatter_parts=scatter_parts, telemetry=tel,
-                       health=h19,
+                       health=h19, client=c20,
                        seconds=time.perf_counter() - t_start), f, indent=1)
     log(f"phase seconds: { {k: round(v, 1) for k, v in phase_s.items()} }")
     log(f"total {time.perf_counter() - t_start:.1f} s")

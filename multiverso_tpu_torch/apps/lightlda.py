@@ -79,7 +79,7 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from multiverso_tpu_torch import core, telemetry
+from multiverso_tpu_torch import client, core, telemetry
 from multiverso_tpu_torch.data.corpus import backend as data_backend
 from multiverso_tpu_torch.io import open_stream
 from multiverso_tpu_torch.ops import table_kernels as tk
@@ -271,6 +271,10 @@ class LightLDA:
             name=f"{name}_word_topic", tiled=tiled)
         self.summary = ArrayTable(self.K, "int32", updater="default",
                                   mesh=self.mesh, name=f"{name}_summary")
+        # MVTPU_STALENESS=S: word_topics() reads a bounded-staleness
+        # cached view of the word table (logging / eval reads skip the
+        # blocking whole-table fetch)
+        self._wt_view = client.maybe_cached_view(self.word_topic)
         self._scratch_word = self.word_topic.padded_shape[0] - 1
         self._scratch_doc = self.num_docs
         self._docblock = tiled and c.doc_blocked
@@ -1144,8 +1148,17 @@ class LightLDA:
             np.int32)
 
     def word_topics(self) -> np.ndarray:
-        """[V, K] word-topic counts from the table."""
+        """[V, K] word-topic counts from the table (a bounded-staleness
+        cached view under ``MVTPU_STALENESS`` — logging/eval reads skip
+        the per-call blocking fetch)."""
+        if self._wt_view is not None:
+            return self._wt_view.get()
         return self.word_topic.get()
+
+    def close(self) -> None:
+        """Close the cached view (``MVTPU_STALENESS``): the app is done."""
+        if self._wt_view is not None:
+            self._wt_view.close()
 
     def top_words(self, topic: int, k: int = 10) -> np.ndarray:
         return np.argsort(-self.word_topics()[:, topic])[:k]
@@ -1438,6 +1451,7 @@ def main(argv=None) -> None:
     dump = configure.get_flag("dump_file")
     if dump:
         app.dump_model(dump)
+    app.close()
     core.barrier()
 
 

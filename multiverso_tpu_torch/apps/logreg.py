@@ -39,7 +39,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from multiverso_tpu_torch import core, telemetry
+from multiverso_tpu_torch import client, core, telemetry
 from multiverso_tpu_torch.tables import ArrayTable, make_superstep
 from multiverso_tpu_torch.tables.superstep import (DataSplit, replica_cat,
                                                    replica_index,
@@ -208,6 +208,9 @@ class LogisticRegression:
             mesh=self.mesh, name=name, default_option=opt,
             shard_update=c.shard_update)
         self.device = self.table.device
+        # MVTPU_STALENESS=S: weights() and the epoch's weight-norm gauge
+        # read a bounded-staleness cached view (logging-only reads)
+        self._view = client.maybe_cached_view(self.table)
         # _epoch_done counts completed epochs (what run_state records);
         # _resume_epochs is a restored offset, consumed by the FIRST
         # train() after a restore
@@ -361,8 +364,11 @@ class LogisticRegression:
         dt = time.perf_counter() - t0
         telemetry.counter("logreg.samples").inc(n)
         telemetry.emit("logreg.samples_per_sec", n / dt, "samples/s")
-        # logreg.weight_norm waits for the cached view (ROADMAP queue A
-        # item 9): the reference sets it only from its _view
+        if self._view is not None:
+            # logging-only read off the cached view: within the staleness
+            # bound, no extra snapshot
+            telemetry.gauge("logreg.weight_norm").set(
+                float(np.linalg.norm(self._view.get())))
         log.info("logreg epoch done: loss=%.4f %.0f samples/s",
                  mean_loss, n / dt)
         return mean_loss
@@ -415,12 +421,18 @@ class LogisticRegression:
         return float(np.mean(self.predict(X) == y))
 
     def weights(self) -> Tuple[np.ndarray, np.ndarray]:
-        w_flat = self.table.get()
+        w_flat = self._view.get() if self._view is not None \
+            else self.table.get()
         c = self.config
         w = w_flat[: c.input_dim * c.num_classes].reshape(
             c.input_dim, c.num_classes)
         b = w_flat[c.input_dim * c.num_classes:].reshape(c.num_classes)
         return w, b
+
+    def close(self) -> None:
+        """Close the cached view (``MVTPU_STALENESS``): the app is done."""
+        if self._view is not None:
+            self._view.close()
 
     # -- checkpoint --------------------------------------------------------
 
@@ -552,6 +564,7 @@ def main(argv=None) -> None:
     out = configure.get_flag("output_model_file")
     if out:
         app.store(out)
+    app.close()
     core.barrier()
 
 

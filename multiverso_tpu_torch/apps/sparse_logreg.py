@@ -19,7 +19,11 @@ Per minibatch (the reference worker's Get -> train -> Add loop):
   same bits on every run and on every shard count;
 - ``table.add(uniq_keys, delta)`` folds the delta through the table's
   updater (sgd / adagrad / ftrl; the state lives with the table, per key),
-  the delta staying on the device.
+  the delta staying on the device. Under ``MVTPU_COALESCE=K`` the adds
+  go through a :class:`~multiverso_tpu_torch.client.CoalescingBuffer`:
+  K minibatches' deltas pre-sum by key on the device and flush as ONE
+  probe + commit (the reference's client-side Aggregator), and the Gets
+  then serve weights up to K minibatches stale.
 
 Samples are padded to ``max_features`` features (more raise), unique-key
 counts to powers of two, and padding lanes point at a zero sentinel row.
@@ -34,7 +38,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from multiverso_tpu_torch import core, telemetry
+from multiverso_tpu_torch import client, core, telemetry
 from multiverso_tpu_torch.apps.logreg import _parse_libsvm
 from multiverso_tpu_torch.ops.table_kernels import row_scatter_add
 from multiverso_tpu_torch.tables import KVTable
@@ -144,6 +148,9 @@ class SparseLogisticRegression:
             slots_per_bucket=c.slots_per_bucket, updater=c.updater,
             device=device, mesh=mesh, name=name, default_option=opt)
         self.device = self.table.device
+        # MVTPU_COALESCE=K: the per-minibatch add coalesces (see the
+        # module docstring)
+        self._coalescer = client.maybe_coalescing(self.table)
         #: one dict per trained epoch: loss, seconds, samples
         self.epoch_stats: List[dict] = []
         # fault tolerance (ft.checkpoint.wire_app): the epoch cursor; the
@@ -220,7 +227,10 @@ class SparseLogisticRegression:
             torch.as_tensor(np.flatnonzero(pos.ravel() != upad),
                             device=dev))
         if len(uniq):           # all-zero minibatch has nothing to update
-            self.table.add(uniq, dw[:len(uniq)])
+            if self._coalescer is not None:
+                self._coalescer.add_kv(uniq, dw[:len(uniq)])
+            else:
+                self.table.add(uniq, dw[:len(uniq)])
         return float(loss)
 
     def train(self, rows, y: np.ndarray) -> float:
@@ -271,8 +281,13 @@ class SparseLogisticRegression:
             log.info("sparse_logreg epoch %d: loss=%.4f", e, loss)
             self._epoch_done = e + 1
             if self.run_ckpt is not None:
+                # the export flushes the coalescer, so the checkpoint
+                # observes every buffered delta
                 self.run_ckpt.maybe_save(self._epoch_done, self.run_state)
             e += 1
+        if self._coalescer is not None:
+            # the tail partial group must land before eval/checkpoint
+            self._coalescer.flush()
         dt = time.perf_counter() - t_train
         telemetry.counter("sparse_logreg.samples").inc(n * c.epochs)
         telemetry.emit("sparse_logreg.samples_per_sec",
@@ -294,6 +309,8 @@ class SparseLogisticRegression:
     # -- inference ---------------------------------------------------------
 
     def predict(self, rows) -> np.ndarray:
+        if self._coalescer is not None:
+            self._coalescer.flush()     # eval reads are exact
         keys, vals, uniq = self._pack(rows)
         w_ext, upad = self._fetch(uniq)
         pos = self._positions(keys, vals, uniq, upad)
@@ -302,6 +319,13 @@ class SparseLogisticRegression:
 
     def accuracy(self, rows, y: np.ndarray) -> float:
         return float(np.mean(self.predict(rows) == y))
+
+    def close(self) -> None:
+        """Flush and drop the coalescer (``MVTPU_COALESCE``): the app is
+        done."""
+        if self._coalescer is not None:
+            self._coalescer.flush()
+            self._coalescer = None
 
     # -- checkpoint --------------------------------------------------------
 
@@ -367,6 +391,7 @@ def main(argv=None) -> None:
     out = configure.get_flag("output_file")
     if out:
         app.store(out)
+    app.close()
     core.barrier()
 
 

@@ -45,7 +45,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from multiverso_tpu_torch import core, telemetry
+from multiverso_tpu_torch import client, core, telemetry
 from multiverso_tpu_torch.data.corpus import Corpus
 from multiverso_tpu_torch.tables import MatrixTable, make_superstep
 from multiverso_tpu_torch.tables.superstep import (DataSplit, gather_rows,
@@ -172,6 +172,9 @@ class WordEmbedding:
                                  updater="default", mesh=self.mesh,
                                  name=f"{name}_out")
         self._scratch = self.w_in.padded_shape[0] - 1  # masked-lane row
+        # MVTPU_STALENESS=S: embeddings() reads a bounded-staleness
+        # cached view of w_in (the reference's client-side cache)
+        self._emb_view = client.maybe_cached_view(self.w_in)
         if c.objective == "ns":
             if c.ns_sampler == "table":
                 self._ns_table = core.place(build_unigram_table(
@@ -479,8 +482,18 @@ class WordEmbedding:
     # -- embeddings out / eval --------------------------------------------
 
     def embeddings(self) -> np.ndarray:
-        """The trained input embeddings [V, D] (the reference saves W_in)."""
+        """The trained input embeddings [V, D] (the reference saves
+        W_in). Under ``MVTPU_STALENESS`` this is a bounded-staleness
+        cached read — mid-train eval (nearest/similarity/analogy) stops
+        paying a blocking whole-table fetch per call."""
+        if self._emb_view is not None:
+            return self._emb_view.get()
         return self.w_in.get()
+
+    def close(self) -> None:
+        """Close the cached view (``MVTPU_STALENESS``): the app is done."""
+        if self._emb_view is not None:
+            self._emb_view.close()
 
     def nearest(self, word_id: int, k: int = 10) -> np.ndarray:
         """Top-k neighbor ids by cosine similarity (excluding self)."""
@@ -678,6 +691,7 @@ def main(argv=None) -> None:
     out_text = configure.get_flag("output_text")
     if out_text:
         app.save_text(out_text)
+    app.close()
     core.barrier()
 
 

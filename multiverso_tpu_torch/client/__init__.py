@@ -1,0 +1,90 @@
+"""Worker-side client pipeline (counterpart of ``multiverso_tpu/client``).
+
+The reference parameter server's worker perf model, over the table
+contract: deltas coalesce locally and flush as ONE add
+(:class:`CoalescingBuffer`), reads come from a bounded-staleness local
+cache refreshed in the background (:class:`CachedView` — the SSP-style
+bound), and KV Add batches double-buffer their host prep against the
+device apply (:class:`KVStagingWriter`). Everything is layered ON the
+tables — no table semantics change unless a buffer/view is attached.
+
+Opt-in env knobs, honored by the apps:
+
+- ``MVTPU_COALESCE=<K>`` — coalesce K adds per flush (0/unset: off),
+- ``MVTPU_STALENESS=<S>`` — serve logging-only reads from a CachedView
+  within S generations (unset: off; ``0`` is a valid bound — it dedupes
+  reads of an unchanged table).
+
+Telemetry: ``client.coalesce.{flushes,deltas,bytes}``,
+``client.cache.{hits,misses,staleness}``, ``client.stage.{batches,
+inflight}`` — and the per-dispatch proof lives in
+``profile.calls{fn=table.apply.*/kv.apply.*}``.
+
+The reference's wire transport and fleet router (``WireClient``,
+``FleetClient`` and their tables) come with the server fleet (ROADMAP.md
+queue A item 11).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional
+
+from multiverso_tpu_torch.client.cache import CachedView
+from multiverso_tpu_torch.client.coalesce import (CoalescingBuffer,
+                                                  PendingHandle)
+from multiverso_tpu_torch.client.staging import (KVStagingWriter,
+                                                 stage_kv_adds)
+from multiverso_tpu_torch.control import knobs as _knobs
+
+# env names come from the control-plane knob table — one source of
+# truth for name, bounds, and docs (control/knobs.py)
+COALESCE_ENV = _knobs.spec("client.coalesce_k").env
+STALENESS_ENV = _knobs.spec("client.staleness").env
+
+
+def coalesce_from_env() -> int:
+    """``MVTPU_COALESCE`` as an int (0 = coalescing off — OFF is
+    outside the knob's clamped range, hence the raw read)."""
+    raw = _knobs.env_raw("client.coalesce_k")
+    try:
+        return max(int(raw or "0"), 0)
+    except ValueError:
+        return 0
+
+
+def staleness_from_env() -> Optional[int]:
+    """``MVTPU_STALENESS`` as an int bound, or None when unset/invalid
+    (0 is a VALID bound — dedupe-only caching)."""
+    raw = _knobs.env_raw("client.staleness")
+    if raw is None or raw == "":
+        return None
+    try:
+        return _knobs.spec("client.staleness").clamp(int(raw))
+    except ValueError:
+        return None
+
+
+def maybe_coalescing(table: Any, **kwargs) -> Optional[CoalescingBuffer]:
+    """A CoalescingBuffer over ``table`` when ``MVTPU_COALESCE`` asks
+    for one, else None (the app wiring shape: buffer or passthrough)."""
+    k = coalesce_from_env()
+    if k <= 1:
+        return None
+    return CoalescingBuffer(table, max_deltas=k, **kwargs)
+
+
+def maybe_cached_view(table: Any, **kwargs) -> Optional[CachedView]:
+    """A CachedView over ``table`` when ``MVTPU_STALENESS`` asks for
+    one, else None."""
+    s = staleness_from_env()
+    if s is None:
+        return None
+    return CachedView(table, max_staleness=s, **kwargs)
+
+
+__all__ = [
+    "CachedView", "CoalescingBuffer", "KVStagingWriter", "PendingHandle",
+    "COALESCE_ENV", "STALENESS_ENV", "coalesce_from_env",
+    "maybe_cached_view", "maybe_coalescing", "staleness_from_env",
+    "stage_kv_adds",
+]

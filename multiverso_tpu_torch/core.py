@@ -31,6 +31,8 @@ from typing import Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from multiverso_tpu_torch.control.controller import (maybe_controller,
+                                                     shutdown_controllers)
 from multiverso_tpu_torch.telemetry import metrics as telemetry
 from multiverso_tpu_torch.telemetry.health import maybe_health_monitor
 from multiverso_tpu_torch.telemetry.slo import maybe_slo_monitor
@@ -149,10 +151,12 @@ def init(argv: Optional[Sequence[str]] = None, *,
         chaos_from_env()
         # MVTPU_SLO arms the tail-latency monitor, MVTPU_HEALTH the
         # training-health monitor (both idempotent across re-inits);
-        # statusz and the controller wait for ROADMAP queue A items 11
-        # and 7
+        # statusz waits for ROADMAP queue A item 11
         maybe_slo_monitor()
         maybe_health_monitor()
+        # MVTPU_AUTOTUNE closes the loop: the controller reads the
+        # monitors' metrics and actuates the knob table
+        maybe_controller()
         if device is not None:
             if devices is not None:
                 raise ValueError("pass device= or devices=, not both")
@@ -277,9 +281,10 @@ def barrier(name: Optional[str] = None) -> None:
 
 
 def shutdown() -> None:
-    """``MV_ShutDown``: forget the mesh."""
+    """``MV_ShutDown``: forget the mesh and stop the controller threads."""
     with _RT.lock:
         _RT.mesh = None
+    shutdown_controllers()
 
 
 # -- Topology queries (reference MV_* names) ---------------------------------

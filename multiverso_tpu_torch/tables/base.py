@@ -19,6 +19,10 @@ Counterpart of ``multiverso_tpu/tables/base.py``:
 - The ``table.get`` / ``table.add`` fault points of ``ft/chaos.py`` and
   the numerics audit of ``telemetry/health.py`` sit where the reference
   puts them.
+- The client pipeline's hooks (``client/``): every generation bump wakes
+  the attached cached views, and ops that must observe every issued delta
+  (supersteps, store / load, the checkpoint export) flush the attached
+  coalescing buffers first.
 
 The leading dimension is padded as the reference pads it: to a multiple
 of the model-axis size (of the model x data product under
@@ -47,6 +51,7 @@ import io
 import json
 import threading
 import time
+import weakref
 import zlib
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -337,6 +342,14 @@ class Table:
         # update counter behind the Handle generation contract (bumped on
         # every applied update / load)
         self.generation = 0
+        # client-pipeline hooks (weakrefs — a dropped CachedView or
+        # CoalescingBuffer must not be pinned by its table): views are
+        # woken on every generation bump so their background refresh
+        # starts at the update, not at the next read; coalescers are
+        # flushed by ops that must observe every buffered delta
+        # (supersteps, store/load)
+        self._view_refs: List[weakref.ref] = []
+        self._coalescer_refs: List[weakref.ref] = []
         # weight-update sharding: the updater state split over (model,
         # data), each replica updating its rows; a no-op without a data axis
         self.shard_update = bool(shard_update) and n_replicas > 1
@@ -573,7 +586,53 @@ class Table:
         with self._option_lock:
             self.default_option.step += 1
             self.generation += 1
-            return self.generation
+            gen = self.generation
+        self._notify_views()
+        return gen
+
+    # -- client-pipeline hooks (multiverso_tpu_torch.client) ---------------
+
+    def _attach_view(self, view: Any) -> None:
+        """Register a CachedView for update notification (weakref)."""
+        self._view_refs.append(weakref.ref(view))
+
+    def _attach_coalescer(self, buf: Any) -> None:
+        """Register a CoalescingBuffer so flush-demanding table ops
+        (supersteps, store/load) can force its buffered deltas out."""
+        self._coalescer_refs.append(weakref.ref(buf))
+
+    def _notify_views(self) -> None:
+        """Wake attached CachedViews: the generation advanced, so their
+        background refresh should start NOW rather than at the next
+        read. Must stay cheap — it runs on every applied update."""
+        refs = self._view_refs
+        if not refs:
+            return
+        live = []
+        for r in refs:
+            v = r()
+            if v is not None:
+                v._on_table_update()
+                live.append(r)
+        self._view_refs[:] = live
+
+    def flush_coalesced(self) -> None:
+        """Flush every attached CoalescingBuffer's pending deltas into
+        the table. Called by ops whose contract requires observing all
+        prior adds (fused supersteps before they read the storage,
+        store/load around checkpoints); plain ``get`` does NOT call this
+        — a buffered delta is invisible until its flush, the bounded-
+        staleness semantics coalescing opts into."""
+        refs = self._coalescer_refs
+        if not refs:
+            return
+        live = []
+        for r in refs:
+            b = r()
+            if b is not None:
+                b.flush()
+                live.append(r)
+        self._coalescer_refs[:] = live
 
     # -- the Get/Add contract ---------------------------------------------
 
@@ -597,6 +656,7 @@ class Table:
         self.replicas = self._replicate(padded)
         with self._option_lock:
             self.generation += 1
+        self._notify_views()
 
     def put_views(self, views) -> None:
         """Replace each replica's storage with ``views[d]`` in the form
@@ -616,6 +676,7 @@ class Table:
                 else self._take_shards(view, devs)
         with self._option_lock:
             self.generation += 1
+        self._notify_views()
 
     def get_tensor(self) -> torch.Tensor:
         """The logical value (padding sliced off) as a fresh tensor on the
@@ -736,11 +797,6 @@ class Table:
             "step": self.default_option.step,
         }
 
-    def flush_coalesced(self) -> None:
-        """Flush the deltas parked in attached coalescing buffers; a no-op
-        until the client pipeline (ROADMAP.md queue A item 9) brings
-        them."""
-
     def _state_parts(self, key: str) -> List[torch.Tensor]:
         """An updater-state leaf's blocks in global row order (the
         shards', under shard_update each shard's blocks in replica
@@ -832,6 +888,7 @@ class Table:
         self.default_option.step = int(manifest.get("step", 0))
         with self._option_lock:
             self.generation += 1
+        self._notify_views()
 
     def load_numpy(self, arr: np.ndarray) -> None:
         """Install a value given as a numpy array of the logical or the

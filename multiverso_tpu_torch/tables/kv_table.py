@@ -186,6 +186,9 @@ class KVTable:
                                                      default_option)
         self._option_lock = threading.Lock()
         self.generation = 0
+        # client-pipeline hooks, shared with the dense tables
+        self._view_refs: list = []
+        self._coalescer_refs: list = []
         # the reference's geometry: buckets round up to a multiple of the
         # model-axis size (of model x data under shard_update); shard s
         # owns buckets [s * bps, (s + 1) * bps), so a sort by bucket IS a
@@ -230,8 +233,13 @@ class KVTable:
                   name, self.num_buckets, self.slots, self.capacity,
                   [[str(d) for d in devs] for devs in self.replica_devices])
 
-    # per-table op accounting, shared with the dense tables
+    # per-table op accounting + client-pipeline hooks, shared with the
+    # dense tables (KVTable is contract-compatible, not a subclass)
     _record_op = Table._record_op
+    _attach_view = Table._attach_view
+    _attach_coalescer = Table._attach_coalescer
+    _notify_views = Table._notify_views
+    flush_coalesced = Table.flush_coalesced
 
     # -- storage ------------------------------------------------------------
 
@@ -598,6 +606,7 @@ class KVTable:
                 self.default_option.step += 1
                 self.generation += 1
                 gen = self.generation
+            self._notify_views()
             handle = Handle(table=self, generation=gen)
             if sync:
                 handle.wait()
@@ -631,11 +640,18 @@ class KVTable:
         self._check_overflow()
         return sum(int((k != -1).any(-1).sum()) for k in self.key_shards)
 
-    # -- checkpoint --------------------------------------------------------
+    def snapshot_kv_async(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Light copies of replica 0's (keys, values) for read replicas:
+        device copies of the shards concatenated (a fresh tensor even on
+        one shard), queued on the current stream, so the next in-place
+        add cannot reach them. Unlike :meth:`export_checkpoint_async` this
+        does NOT flush coalescers or read the overflow flags — it is a
+        dispatch-thread hot-path call and must never block or raise for
+        unrelated pending adds."""
+        cat = lambda ts: torch.cat([t.to(self.device) for t in ts])
+        return cat(self.key_shards), cat(self.value_shards)
 
-    #: flushes attached coalescing buffers (a no-op until ROADMAP.md
-    #: queue A item 9), as the reference's KVTable shares Table's
-    flush_coalesced = Table.flush_coalesced
+    # -- checkpoint --------------------------------------------------------
 
     def export_checkpoint_async(self):
         """Checkpoint export split like ``Table.export_checkpoint_async``:
@@ -731,6 +747,7 @@ class KVTable:
         self.default_option.step = int(manifest.get("step", 0))
         with self._option_lock:
             self.generation += 1
+        self._notify_views()
 
     def _rehash_checkpoint(self, manifest, ck_keys, ck_vals, ck_state):
         """Re-insert a checkpoint's live (key, value, state) triples

@@ -431,6 +431,11 @@ class FusedSuperstep:
         ``table.wait()`` or a returned value to fence."""
         if options is None:
             options = (None,) * len(self.tables)
+        # client pipeline: buffered coalesced deltas must land BEFORE the
+        # body reads each table's storage — applying them after would
+        # reorder updates across the superstep
+        for t in self.tables:
+            t.flush_coalesced()
         opts = tuple(t._resolve_option(o)
                      for t, o in zip(self.tables, options))
         locals_ = tuple(locals_) if locals_ is not None else ()

@@ -32,9 +32,9 @@ so the flight recorder finally carries history, not just final values.
 Arming: ``MVTPU_TS_EVERY`` sets the sampler cadence in seconds; 0
 disables. When unset, the sampler turns on automatically the moment
 statusz is armed (an introspection port without history answers half
-the questions); until the port's ``control`` package (queue A item 7)
-exists, the cadence is read from ``MVTPU_TS_EVERY`` directly. Pure
-stdlib, no torch, no numpy — same discipline as the report CLI.
+the questions); the cadence comes through the knob table
+(``control.knobs.env_raw("telemetry.ts_every")``). Pure stdlib, no
+torch, no numpy — same discipline as the report CLI.
 """
 
 from __future__ import annotations
@@ -492,11 +492,9 @@ def maybe_sampler(default_on: bool = False) -> Optional[Sampler]:
     with _LOCK:
         if _SAMPLER is not None:
             return _SAMPLER
-        try:
-            from multiverso_tpu_torch.control import knobs as _knobs
-            raw = _knobs.env_raw("telemetry.ts_every")
-        except Exception:       # noqa: BLE001 — knob table optional
-            raw = os.environ.get("MVTPU_TS_EVERY")
+        # lazy: control.controller imports this module
+        from multiverso_tpu_torch.control import knobs as _knobs
+        raw = _knobs.env_raw("telemetry.ts_every")
         if raw is None:
             if not default_on:
                 return None

@@ -2351,3 +2351,122 @@ def test_export_holds_the_values_before_an_in_place_add(cuda, tmp_path):
                            CHECKPOINT_MAGIC)
     assert data["param"][:100_001].tobytes() == pre.tobytes()
     assert not np.array_equal(t.get(), pre)
+
+
+# -- the client pipeline on the card ---------------------------------------------
+
+
+@pytest.mark.parametrize("width", [1, 2])
+def test_presum_through_row_scatter_at_narrow_widths(cuda, width):
+    """The coalescer's duplicate-key pre-sum: the row scatter-add kernel
+    at widths 1 and 2 (a COO group, the sparse-LR classes), with runs of
+    a key longer than 32 lanes (the long-run kernel), against its plain
+    version on the CPU, bit for bit; one launch a pre-sum."""
+    from multiverso_tpu_torch.client import coalesce
+    rng = np.random.default_rng(width)
+    n_unique = 40_000
+    inv = np.concatenate([rng.integers(0, n_unique, 120_000),
+                          np.full(300, 7), np.full(70, n_unique - 1),
+                          np.full(33, 11)]).astype(np.int64)
+    rng.shuffle(inv)
+    d = (rng.standard_normal((len(inv), width))
+         * 10.0 ** rng.integers(-3, 4, (len(inv), 1))).astype(np.float32)
+    before = tk.LAUNCHES["row_scatter_add"]
+    got = coalesce.presum(torch.zeros(n_unique, width, device=cuda),
+                          torch.from_numpy(inv).to(cuda),
+                          torch.from_numpy(d).to(cuda))
+    want = tk.row_scatter_add_plain(torch.zeros(n_unique, width),
+                                    torch.from_numpy(inv),
+                                    torch.from_numpy(d))
+    assert torch.equal(got.cpu(), want)
+    assert tk.LAUNCHES["row_scatter_add"] == before + 1
+    np_want = np.zeros((n_unique, width), np.float32)
+    np.add.at(np_want, inv, d)
+    assert np.array_equal(want.numpy(), np_want)
+
+
+def test_coalesced_card_deltas_equal_host_deltas(cuda):
+    """A KVTable on the card fed the same K batches through a coalescer as
+    card tensors (pre-sum on the card) and as host arrays (np.add.at):
+    keys, values and state bit for bit."""
+    from multiverso_tpu_torch import client
+    from multiverso_tpu_torch.tables import KVTable
+    rng = np.random.default_rng(3)
+    batches = []
+    for _ in range(8):
+        keys = rng.choice(np.arange(1, 5000, dtype=np.uint64), 1500,
+                          replace=False)
+        batches.append((keys, rng.standard_normal((1500, 2)).astype(
+            np.float32)))
+    out = []
+    for form in ("host", "card"):
+        t = KVTable(1 << 16, value_dim=2, slots_per_bucket=16,
+                    updater="ftrl", device=cuda, name=f"co_{form}")
+        buf = client.CoalescingBuffer(t, max_deltas=4)
+        for keys, d in batches:
+            buf.add_kv(keys, torch.from_numpy(d).to(cuda)
+                       if form == "card" else d)
+        assert buf.flush_generation == 2
+        out.append((t.keys.cpu(), t.values.cpu(),
+                    {k: v.cpu() for k, v in t.state.items()}))
+    assert torch.equal(out[0][0], out[1][0])
+    assert torch.equal(out[0][1], out[1][1])
+    for k in out[0][2]:
+        assert torch.equal(out[0][2][k], out[1][2][k])
+
+
+def test_cached_view_arrays_survive_later_adds_and_reuse_staging(cuda):
+    """A view's refreshed array is unchanged after later in-place adds and
+    refreshes, and every refresh reuses the one pinned staging buffer
+    (the same data pointer)."""
+    from multiverso_tpu_torch import client
+    rng = np.random.default_rng(4)
+    t = MatrixTable(5000, 64, device=cuda, name="view_card")
+    view = client.CachedView(t, max_staleness=0)
+    try:
+        served, ptrs = [], set()
+        for i in range(6):
+            ids = rng.integers(0, 5000, 4096).astype(np.int32)
+            t.add_rows(ids, rng.standard_normal((4096, 64)).astype(
+                np.float32))
+            assert view._staging is not None and view._staging.is_pinned()
+            ptrs.add(view._staging.data_ptr())
+            got = view.get()
+            assert view.generation == t.generation
+            assert np.array_equal(got, t.get())
+            served.append((got, got.copy()))
+        for got, snap in served:
+            assert np.array_equal(got, snap)
+        assert len(ptrs) == 1 and view.staging_allocs == 1
+    finally:
+        view.close()
+
+
+def test_stage_kv_adds_equal_direct_adds(cuda):
+    """The staging writer's worker-thread prep (host lanes copied to the
+    card, a card delta permuted there) on the card: the table equals
+    direct adds bit for bit, for host and card deltas."""
+    from multiverso_tpu_torch import client
+    from multiverso_tpu_torch.tables import KVTable
+    rng = np.random.default_rng(5)
+    batches = []
+    for _ in range(12):
+        keys = rng.choice(np.arange(1, 1 << 20, dtype=np.uint64), 20_000,
+                          replace=False)
+        batches.append((keys, rng.standard_normal((20_000, 2)).astype(
+            np.float32)))
+    for form in ("host", "card"):
+        bs = [(k, torch.from_numpy(d).to(cuda) if form == "card" else d)
+              for k, d in batches]
+        a = KVTable(1 << 22, value_dim=2, slots_per_bucket=16,
+                    updater="adagrad", device=cuda, name="st_direct")
+        for k, d in bs:
+            a.add(k, d)
+        b = KVTable(1 << 22, value_dim=2, slots_per_bucket=16,
+                    updater="adagrad", device=cuda, name="st_staged")
+        client.stage_kv_adds(b, bs, depth=2).wait()
+        a.wait()
+        assert torch.equal(a.keys.cpu(), b.keys.cpu())
+        assert torch.equal(a.values.cpu(), b.values.cpu())
+        for k in a.state:
+            assert torch.equal(a.state[k].cpu(), b.state[k].cpu())
