@@ -160,6 +160,31 @@ its seconds):
    (4, 1) mesh: its final table equal to phase 10's bit for bit, the
    replicas identical, the host's and the device's ms a step beside phase
    10's, and the card's peak memory. It runs before phase 14.
+21. Tiered KV storage (``multiverso_tpu_torch/storage``), after phase 17:
+   (a) phase 10's first 4 adds (ftrl, value_dim 2, about 159,000 keys
+   each) through a TieredKVTable on cuda:0 at phase 10's logical
+   capacity of 2^25 slots in buckets of 8 (4,194,304 logical buckets, a
+   sixteenth on the card, a thirty-second in the pinned host arena, the
+   rest in a spill file of 272-byte records) beside a plain 2^25-slot
+   KVTable fed the same: every Get of an add's keys and of keys never
+   added, and one chunked Get of the first two adds' keys, bit for bit
+   the plain table's; a RunCheckpointManager generation after the third
+   add; at the end buckets on every tier, demotions and disk fills above
+   0, the export's keys, values, bucket_fill and state the plain table's
+   bit for bit; a fresh tiered table resumed from the generation (every
+   tier populated) finishes the replay with the same export; one probe and
+   one commit an add chunk, one lookup a Get chunk; each add's host ms of
+   plan, demote and fill and its probe + commit's device ms, the miss
+   ratio, demotions and fills by tier, the spill file's bytes, the card's
+   peak memory. (b) At a sixteenth of the geometry and of the first 3
+   adds' keys, the tiered table on (1, 4) and (2, 2) meshes of cuda:0 (with and
+   without shard_update) beside a (1, 1) one: replicas identical, one
+   probe and one commit a card per add chunk, every Get and export bit for
+   bit the (1, 1) table's. (c) The quantizers at word2vec's w_in shape:
+   the 1-bit one against the same call on the CPU (signs and packing bit
+   for bit, scales and residual within rtol 1e-6 + atol 1e-6), the int8
+   rounding one with a generator on the card (in range, within a step,
+   the mean of 300 draws within 0.01). It runs before phase 14.
 14. The row scatter's kernel on phase 2's sorted lanes, and phase 2's KV
    probe + commit calls (the flat form at the sparse-LR step's shapes,
    the sharded form on four shards), taken apart by torch.profiler: each
@@ -262,9 +287,9 @@ against the same run on a (1, 4) CPU mesh.
 
 Launch counts are set to 0 before each main path (phases 3-4 word2vec,
 4c on each backend, 5, 6, 6b, 7, 8, 10, 11, 12, 13's word2vec and its
-COO superstep, 13b's two meshes, 15, each sweep of 16, 17's sparse LR)
-and read after it; phase 20 reads each run's launches as the difference
-of the counts around it. Before the last line the script prints
+COO superstep, 13b's two meshes, 15, each sweep of 16, 17's sparse LR,
+21a) and read after it; phases 20 and 21 read each run's launches as the
+difference of the counts around it. Before the last line the script prints
 one ``{"kernels": [...]}`` JSON line and the card's name and power limit;
 the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -5039,6 +5064,422 @@ def phase_autotune_slr(torch, tk, counts, mvt, core, ctl, trace,
     return out
 
 
+# phase 21: tiered KV storage. 21a replays phase 10's adds (ftrl,
+# value_dim 2) through a TieredKVTable at phase 10's logical capacity of
+# 2^25 slots, in buckets of 8 (4,194,304 logical buckets; a record is 256
+# bytes of keys, values and ftrl state plus a 16-byte header on disk): a
+# sixteenth of the buckets on the card, a thirty-second in the pinned host
+# arena, the rest spilled to disk. Each steady-state add moves about
+# 150,000 buckets one at a time on the host, a spill opening the file
+# anew, so the replay is cut to the fewest adds that reach every check:
+# the host arena fills during the third, the save follows it, and the
+# fourth fills buckets back from disk and finishes the resumed run.
+TIERED_SLOTS = 8
+TIERED_BUCKETS = SLR_CAPACITY // TIERED_SLOTS
+TIERED_DEVICE, TIERED_HOST = TIERED_BUCKETS // 16, TIERED_BUCKETS // 32
+TIERED_ADDS, TIERED_SAVE_AT = 4, 3
+# 21b: the same ratios and the first sixteenth of the first 3 adds' keys
+# (the arena fills and spills during the third) at a sixteenth of the
+# logical geometry, on meshes of cuda:0
+TIERED_SMALL, TIERED_MESH_ADDS = 16, 3
+TIERED_MESHES = ((1, 4, False), (2, 2, False), (2, 2, True))
+# 21c: word2vec's w_in as the delta; the CPU tests' tolerance for the 1-bit
+# scales and residual (tests/test_torch_quantization.py) and the bound of
+# tests/test_quantization.py::test_rounding_unbiased (mean of 300 draws)
+QUANT_RTOL = QUANT_ATOL = 1e-6
+QUANT_DRAWS, QUANT_MEAN_ATOL = 300, 0.01
+KV_LAUNCH_NAMES = ("kv_lookup", "kv_probe_update", "kv_commit")
+
+
+def tier_moves(telemetry, name: str) -> dict:
+    """The tier counters of table ``name``: device hits, misses, fills and
+    demotions by tier, spills."""
+    c = lambda n, **lb: telemetry.counter(n, table=name, **lb).value
+    return dict(
+        hits=c("storage.hits", tier="device"),
+        misses={t: c("storage.misses", tier=t)
+                for t in ("host", "disk", "virgin")},
+        fills={t: c("storage.fills", tier=t)
+               for t in ("host", "disk", "virgin")},
+        demotions={t: c("storage.demotions", tier=t)
+                   for t in ("host", "disk")},
+        spills=c("storage.spills"))
+
+
+def moves_since(before: dict, after: dict) -> dict:
+    return {k: ({t: after[k][t] - v for t, v in before[k].items()}
+                if isinstance(before[k], dict) else after[k] - before[k])
+            for k in before}
+
+
+def timed_probes(torch, table) -> list:
+    """Bracket each probe + commit call of ``table`` by CUDA events; the
+    (start, end) pairs land in the returned list."""
+    spans, inner = [], table._probe_update
+
+    def timed(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = inner(*args, **kw)
+        end.record()
+        spans.append((start, end))
+        return out
+    table._probe_update = timed
+    return spans
+
+
+def chunks_of(t, keys) -> int:
+    """How many chunks a tiered op on ``keys`` takes."""
+    return len(t._chunk_spans(np.sort(t._buckets_of(keys))))
+
+
+def launches_into(tk, total: dict, before: dict) -> dict:
+    grown = {k: tk.LAUNCHES[k] - before[k] for k in KV_LAUNCH_NAMES}
+    for k, v in grown.items():
+        total[k] += v
+    return grown
+
+
+def tiered_add(torch, tk, t, keys, deltas, spans, launches) -> dict:
+    """One add through the tiers, synced: its chunks, the host ms of the
+    fault-in by part, the probe + commit's device ms (CUDA events around
+    the launches) and its wall ms; one probe and one commit a chunk."""
+    chunks = chunks_of(t, keys)
+    f0, n0, before = dict(t.fault_in_s), len(spans), dict(tk.LAUNCHES)
+    t0 = time.perf_counter()
+    t.add(keys, deltas)
+    t.wait()
+    wall = time.perf_counter() - t0
+    grown = launches_into(tk, launches, before)
+    if grown != {"kv_lookup": 0, "kv_probe_update": chunks,
+                 "kv_commit": chunks}:
+        raise SystemExit(f"{t.name}: an add of {chunks} chunk(s) launched "
+                         f"{grown}")
+    return dict(keys=len(keys), chunks=chunks, wall_ms=1e3 * wall,
+                device_ms=sum(s.elapsed_time(e) for s, e in spans[n0:]),
+                **{f"{k}_ms": 1e3 * (t.fault_in_s[k] - f0[k])
+                   for k in f0})
+
+
+def tiered_get(torch, tk, t, q, launches) -> tuple:
+    """A tiered Get of ``q``: one lookup a chunk."""
+    chunks = chunks_of(t, q)
+    before = dict(tk.LAUNCHES)
+    vals, found = t.get_tensor(q)
+    grown = launches_into(tk, launches, before)
+    if grown["kv_lookup"] != chunks or grown["kv_probe_update"]:
+        raise SystemExit(f"{t.name}: a Get of {chunks} chunk(s) launched "
+                         f"{grown}")
+    return vals, found, chunks
+
+
+def same_get(torch, a, b) -> bool:
+    return torch.equal(a[1], b[1]) and same_bits(torch, a[0], b[0])
+
+
+def same_export(a: dict, b: dict, keys) -> bool:
+    """Two checkpoint payloads' ``keys`` arrays byte for byte."""
+    return all(a[k].shape == b[k].shape and a[k].dtype == b[k].dtype
+               and np.array_equal(a[k].view(np.uint8), b[k].view(np.uint8))
+               for k in keys)
+
+
+def content_keys(payload: dict) -> list:
+    return ["keys", "values", "bucket_fill"] + sorted(
+        k for k in payload if k.startswith("state_"))
+
+
+def phase_tiered_kv(torch, tk, KVTable, TieredKVTable, AddOption, tckpt,
+                    telemetry, adds, tmp: str, card: str) -> dict:
+    """Phase 21a (see TIERED_*): phase 10's first adds replayed through a
+    TieredKVTable on cuda:0 and a plain 2^25-slot KVTable of the same
+    geometry. After each add a Get of its keys and of 1,000 keys never
+    added equals the plain table's bit for bit; after the second, one Get
+    of the first two adds' keys (shuffled) takes more than one chunk and
+    equals the plain table's, in the caller's order; a RunCheckpointManager
+    generation after the third; at the end every tier holds buckets, some
+    came back from disk, and the export's keys, values, bucket_fill and
+    state equal the plain table's bit for bit. Then a fresh tiered table
+    resumed from the generation (every tier populated again) finishes the
+    replay, and its export equals the uninterrupted run's. One probe and
+    one commit an add chunk, one lookup a Get chunk. Returns the numbers."""
+    free_tables(torch)
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+
+    def tiered(sub: str):
+        return TieredKVTable(
+            SLR_CAPACITY, value_dim=2, slots_per_bucket=TIERED_SLOTS,
+            updater="ftrl", device="cuda:0", name="smoke_tiered",
+            default_option=AddOption.for_ftrl(0.1),
+            device_buckets=TIERED_DEVICE, host_buckets=TIERED_HOST,
+            spill_dir=os.path.join(tmp, sub))
+    t = tiered("a")
+    plain = KVTable(SLR_CAPACITY, value_dim=2, slots_per_bucket=TIERED_SLOTS,
+                    updater="ftrl", device="cuda:0",
+                    name="smoke_tiered_plain",
+                    default_option=AddOption.for_ftrl(0.1))
+    geometry = (t.total_buckets, plain.num_buckets, t.tiers.device_buckets,
+                t.tiers.host.capacity, t.spec.payload_nbytes,
+                t.tiers.disk.record_nbytes)
+    if geometry != (TIERED_BUCKETS, TIERED_BUCKETS, TIERED_DEVICE,
+                    TIERED_HOST, 256, 272) or not t.tiers.host.pinned:
+        raise SystemExit(f"tiered table geometry {geometry}, pinned "
+                         f"{t.tiers.host.pinned}")
+    spans = timed_probes(torch, t)
+    launches = dict.fromkeys(KV_LAUNCH_NAMES, 0)
+    missing = kv_keys(np.random.default_rng(21), 1000) | np.uint64(1 << 62)
+    run_dir = os.path.join(tmp, "run")
+    mgr = tckpt.RunCheckpointManager(run_dir, keep=1, tables=[t],
+                                     background=False)
+    moves0 = tier_moves(telemetry, t.name)
+    replay = adds[:TIERED_ADDS]
+    per_add, out = [], {}
+    for i, (keys, deltas) in enumerate(replay):
+        r = tiered_add(torch, tk, t, keys, deltas, spans, launches)
+        plain.add(keys, deltas)
+        plain.wait()
+        q = np.concatenate([keys, missing])
+        got = tiered_get(torch, tk, t, q, launches)
+        if not same_get(torch, got, plain.get_tensor(q)):
+            raise SystemExit(f"tiered: the Get after add {i} differs from "
+                             "the plain table's")
+        r["counts"] = t.tiers.counts()
+        per_add.append(r)
+        log(f"  21a add {i}: {r['keys']} keys, {r['chunks']} chunk(s); "
+            f"host plan {r['plan_ms']:.1f} ms, demote {r['demote_ms']:.1f} "
+            f"ms, fill {r['fill_ms']:.1f} ms; probe + commit "
+            f"{r['device_ms']:.3f} ms on the card; wall {r['wall_ms']:.1f} "
+            f"ms; buckets by tier {r['counts']}")
+        if i == 1:
+            u = np.unique(np.concatenate([replay[0][0], replay[1][0]]))
+            u = u[np.random.default_rng(22).permutation(len(u))]
+            t0 = time.perf_counter()
+            got = tiered_get(torch, tk, t, u, launches)
+            union_ms = 1e3 * (time.perf_counter() - t0)
+            if got[2] < 2 or not same_get(torch, got,
+                                          plain.get_tensor(u)):
+                raise SystemExit(f"tiered: the Get of {len(u)} keys took "
+                                 f"{got[2]} chunk(s) or differs from the "
+                                 "plain table's")
+            out["union_get"] = dict(keys=len(u), chunks=got[2],
+                                    wall_ms=union_ms)
+            log(f"  21a one Get of the first two adds' {len(u)} keys "
+                f"(shuffled): {got[2]} chunks, {union_ms:.1f} ms, equal to "
+                "the plain table's in the caller's order")
+        if i + 1 == TIERED_SAVE_AT:
+            t0 = time.perf_counter()
+            mgr.save(i + 1, {"round": i + 1})
+            out["save_s"] = time.perf_counter() - t0
+            out["counts_at_save"] = t.tiers.counts()
+    mgr.close()
+    moves = moves_since(moves0, tier_moves(telemetry, t.name))
+    counts = t.tiers.counts()
+    if min(counts["device"], counts["host"], counts["disk"],
+           *out["counts_at_save"].values()) <= 0 \
+            or moves["demotions"]["host"] <= 0 \
+            or moves["fills"]["disk"] <= 0:
+        raise SystemExit(f"tiered: tiers {counts} (at the save "
+                         f"{out['counts_at_save']}), moves {moves}")
+    t0 = time.perf_counter()
+    ea = t.export_checkpoint_async()()[1]
+    export_s = time.perf_counter() - t0
+    ep = plain.export_checkpoint_async()()[1]
+    if not same_export(ea, ep, content_keys(ep)):
+        raise SystemExit("tiered: the export differs from the plain "
+                         "table's")
+    del ep
+    spill_bytes = os.path.getsize(t.tiers.disk.path)
+    total = sum(moves["misses"].values()) + moves["hits"]
+    miss_ratio = sum(moves["misses"].values()) / total
+
+    b = tiered("b")
+    t0 = time.perf_counter()
+    st = tckpt.RunCheckpointManager(run_dir, keep=1, tables=[b],
+                                    background=False).resume()
+    resume_s = time.perf_counter() - t0
+    resumed_counts = b.tiers.counts()
+    if st is None or st.state["round"] != TIERED_SAVE_AT \
+            or min(resumed_counts[k] for k in ("device", "host",
+                                               "disk")) <= 0:
+        raise SystemExit(f"tiered: resumed {st and st.state} with tiers "
+                         f"{resumed_counts}")
+    b_spans = timed_probes(torch, b)
+    b_adds = [tiered_add(torch, tk, b, keys, deltas, b_spans,
+                         dict.fromkeys(KV_LAUNCH_NAMES, 0))
+              for keys, deltas in replay[TIERED_SAVE_AT:]]
+    eb = b.export_checkpoint_async()()[1]
+    if not same_export(eb, ea, content_keys(ea)):
+        raise SystemExit("tiered: the resumed run's export differs from "
+                         "the uninterrupted run's")
+    placement_same = bool(np.array_equal(eb["tier_of"], ea["tier_of"]))
+    peak = torch.cuda.max_memory_allocated(0) / 1e9
+    out.update(adds=per_add, resumed_adds=b_adds, launches=launches,
+               moves=moves, miss_ratio=miss_ratio, counts=counts,
+               resumed_counts=resumed_counts, resume_s=resume_s,
+               export_s=export_s, spill_file_bytes=spill_bytes,
+               disk_records=len(t.tiers.disk),
+               resumed_placement_same=placement_same, peak_mem_gb=peak,
+               seconds=time.perf_counter() - t_phase)
+    log(f"  21a {TIERED_ADDS} adds of phase 10 through the tiers "
+        f"({TIERED_BUCKETS} logical buckets of {TIERED_SLOTS}; "
+        f"{TIERED_DEVICE} on the card, {TIERED_HOST} in the pinned arena): "
+        f"every Get and the export equal to the plain 2^25-slot table's "
+        f"bit for bit; miss ratio {miss_ratio:.4f}; demotions "
+        f"{moves['demotions']}, fills {moves['fills']}, spills "
+        f"{moves['spills']}; buckets by tier {counts}; spill file "
+        f"{spill_bytes} bytes ({len(t.tiers.disk)} records); launches "
+        f"{launches}; generation after add {TIERED_SAVE_AT} in "
+        f"{out['save_s']:.1f} s (tiers {out['counts_at_save']}), resumed "
+        f"in {resume_s:.1f} s (tiers {resumed_counts}), the resumed run's "
+        f"export equal to the uninterrupted run's (placement "
+        f"{'the same' if placement_same else 'different'}); export "
+        f"{export_s:.1f} s; cuda:0 peak {peak:.2f} GB; "
+        f"{out['seconds']:.1f} s; on {card}")
+    del t, b, plain, ea, eb
+    free_tables(torch)
+    return out
+
+
+def phase_tiered_meshes(torch, tk, core, TieredKVTable, AddOption, adds,
+                        tmp: str, card: str) -> dict:
+    """Phase 21b: the tiered table on (1, 4) and (2, 2) meshes of cuda:0
+    (with and without shard_update) beside a (1, 1) one, at a sixteenth of
+    21a's geometry and keys (the same budgets' ratios): after each add the
+    replicas identical, one probe and one commit a card per add chunk, and
+    a Get of its keys and of keys never added (one lookup a card per Get
+    chunk) bit for bit the (1, 1) table's; at the end every export array,
+    tier_of included."""
+    t_phase = time.perf_counter()
+    cap = SLR_CAPACITY // TIERED_SMALL
+
+    def make(name, **where):
+        return TieredKVTable(
+            cap, value_dim=2, slots_per_bucket=TIERED_SLOTS, updater="ftrl",
+            name=name, default_option=AddOption.for_ftrl(0.1),
+            device_buckets=TIERED_DEVICE // TIERED_SMALL,
+            host_buckets=TIERED_HOST // TIERED_SMALL,
+            spill_dir=os.path.join(tmp, name), **where)
+    one = make("tiered_1x1", device="cuda:0")
+    tabs = {key: make(f"tiered_{key[0]}x{key[1]}_{key[2]}",
+                      mesh=core._build_mesh(["cuda:0"] * (key[0] * key[1]),
+                                            key[0], key[1]),
+                      shard_update=key[2])
+            for key in TIERED_MESHES}
+    n = len(adds[0][0]) // TIERED_SMALL
+    missing = kv_keys(np.random.default_rng(23), 500) | np.uint64(1 << 62)
+    chunks = get_chunks = 0
+    for i, (keys, deltas) in enumerate(adds[:TIERED_MESH_ADDS]):
+        keys, deltas = keys[:n], deltas[:n]
+        c = chunks_of(one, keys)
+        chunks += c
+        one.add(keys, deltas)
+        one.wait()
+        q = np.concatenate([keys, missing])
+        want = one.get_tensor(q)
+        for key, t in tabs.items():
+            before = dict(tk.LAUNCHES)
+            t.add(keys, deltas)
+            t.wait()
+            grown = {k: tk.LAUNCHES[k] - before[k] for k in
+                     ("kv_probe_update", "kv_commit",
+                      "kv_probe_update_sharded")}
+            if grown != dict.fromkeys(grown, c):
+                raise SystemExit(f"{t.name}: add {i} of {c} chunk(s) "
+                                 f"launched {grown}")
+            if not kv_replicas_identical(torch, t):
+                raise SystemExit(f"{t.name}: the replicas differ after add "
+                                 f"{i}")
+            cg = chunks_of(t, q)
+            before = dict(tk.LAUNCHES)
+            got = t.get_tensor(q)
+            grown = {k: tk.LAUNCHES[k] - before[k] for k in
+                     ("kv_lookup", "kv_lookup_sharded")}
+            if grown != dict.fromkeys(grown, cg) \
+                    or not same_get(torch, got, want):
+                raise SystemExit(f"{t.name}: the Get after add {i} ({cg} "
+                                 f"chunk(s), launched {grown}) differs from "
+                                 "the (1, 1) table's")
+            get_chunks += cg
+    po = one.export_checkpoint_async()()[1]
+    for key, t in tabs.items():
+        if not same_export(t.export_checkpoint_async()()[1], po, list(po)):
+            raise SystemExit(f"{t.name}: its export differs from the (1, 1) "
+                             "table's")
+    counts = one.tiers.counts()
+    if min(counts["device"], counts["host"], counts["disk"]) <= 0:
+        raise SystemExit(f"tiered (1, 1) small: tiers {counts}")
+    get_chunks //= len(tabs)
+    out = dict(keys_per_add=n, chunks=chunks, get_chunks=get_chunks,
+               counts=counts, seconds=time.perf_counter() - t_phase)
+    log(f"  21b {TIERED_MESH_ADDS} adds of {n} keys on "
+        f"{', '.join(t.name for t in tabs.values())} beside tiered_1x1 "
+        f"({cap // TIERED_SLOTS} logical buckets): replicas identical, one "
+        f"probe and one commit a card per add chunk ({chunks} a table), one "
+        f"lookup a card per Get chunk ({get_chunks} a table), every Get "
+        f"and export bit for bit the (1, 1) table's; tiers "
+        f"{counts}; {out['seconds']:.1f} s; on {card}")
+    del one, tabs
+    free_tables(torch)
+    return out
+
+
+def phase_quantizers(torch, quant, card: str) -> dict:
+    """Phase 21c: the quantizers on cuda:0 at word2vec's w_in (10,001 x
+    100 float32). OneBitQuantizer against the same call on the CPU: signs
+    and packed signs bit for bit, scales and residual within the CPU
+    tests' tolerance, pack / unpack exact. RoundingQuantizer (int8) with a
+    generator on the card: every q within [-127, 127], every element
+    within one grid step, and the mean of 300 draws within 0.01 of the
+    delta. Times (CUDA events)."""
+    rng = np.random.default_rng(24)
+    x = rng.standard_normal((ROWS, DIM)).astype(np.float32)
+    r = (0.1 * rng.standard_normal((ROWS, DIM))).astype(np.float32)
+    xh, rh = torch.from_numpy(x), torch.from_numpy(r)
+    xc, rc = xh.cuda(), rh.cuda()
+    q = quant.OneBitQuantizer()
+    got = q.quantize(xc, rc)
+    want = q.quantize(xh, rh)
+    packed = q.pack_signs(got[0])
+    ok = (torch.equal(got[0].cpu(), want[0])
+          and torch.equal(packed.cpu(), q.pack_signs(want[0]))
+          and torch.equal(q.unpack_signs(packed), got[0])
+          and packed.shape == (got[0].shape[0], got[0].shape[1] // 8))
+    errs = [float(((a.cpu() - b).abs() - QUANT_RTOL * b.abs()).max())
+            for a, b in zip(got[1:], want[1:])]
+    if not ok or max(errs) > QUANT_ATOL:
+        raise SystemExit(f"1-bit quantizer on the card: signs/packing "
+                         f"{ok}, scale/residual excess {errs}")
+    rq = quant.RoundingQuantizer(bits=8)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    qq, scale = rq.quantize(xc, gen)
+    deq = rq.dequantize(qq, scale, x.shape).cpu().numpy()
+    step = np.repeat(scale.cpu().numpy(), rq.block)[:x.size].reshape(
+        x.shape)
+    acc = torch.zeros_like(xc)
+    for _ in range(QUANT_DRAWS):
+        acc += rq.dequantize(*rq.quantize(xc, gen), x.shape)
+    mean_err = float((acc / QUANT_DRAWS - xc).abs().max())
+    if qq.dtype != torch.int8 or int(qq.abs().max()) > 127 \
+            or not np.all(np.abs(deq - x) <= step + 1e-6) \
+            or mean_err > QUANT_MEAN_ATOL:
+        raise SystemExit(f"rounding quantizer on the card: {qq.dtype}, "
+                         f"|q| max {int(qq.abs().max())}, mean error "
+                         f"{mean_err}")
+    out = dict(one_bit_ms=cuda_ms(lambda: q.quantize(xc, rc), 10),
+               pack_ms=cuda_ms(lambda: q.pack_signs(got[0]), 10),
+               rounding_ms=cuda_ms(lambda: rq.quantize(xc, gen), 10),
+               scale_residual_excess=errs, rounding_mean_error=mean_err)
+    log(f"  21c quantizers on {x.shape}: 1-bit signs and packing bit for "
+        f"bit the CPU's, scales/residual within rtol {QUANT_RTOL} + atol "
+        f"{QUANT_ATOL}; int8 rounding in range, within a step, mean of "
+        f"{QUANT_DRAWS} draws off by {mean_err:.5f}; 1-bit "
+        f"{out['one_bit_ms']:.3f} ms, pack {out['pack_ms']:.3f} ms, "
+        f"rounding {out['rounding_ms']:.3f} ms; on {card}")
+    return out
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5085,6 +5526,8 @@ def main(argv) -> int:
     from multiverso_tpu_torch import client as tclient
     from multiverso_tpu_torch.client import coalesce
     from multiverso_tpu_torch.control import controller as tctl
+    from multiverso_tpu_torch.storage import TieredKVTable
+    from multiverso_tpu_torch.utils import quantization as quant
     profile = "--profile" in argv
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5364,8 +5807,24 @@ def main(argv) -> int:
                                  AddOption, SparseLogisticRegression,
                                  SparseLRConfig, lr_step, slr_data, slr)
     paths["sparse_logreg_data_axis"] = kv_data["slr_launches"]
-    del slr_data
     phase_end("kv_data_axis")
+
+    phase("tiered_kv", f"phase 21: tiered KV storage (a: phase 10's first "
+          f"{TIERED_ADDS} adds through a TieredKVTable on cuda:0 beside a "
+          "plain table, saved and resumed; b: on (1, 4) and (2, 2) meshes; "
+          "c: the quantizers)")
+    reset()
+    with tempfile.TemporaryDirectory() as tmp:
+        tiered = phase_tiered_kv(torch, tk, KVTable, TieredKVTable,
+                                 AddOption, tckpt, telemetry,
+                                 slr_data["adds"], tmp, card)
+        paths["tiered_kv"] = tiered["launches"]
+        tiered["meshes"] = phase_tiered_meshes(
+            torch, tk, core, TieredKVTable, AddOption, slr_data["adds"],
+            tmp, card)
+    tiered["quantizers"] = phase_quantizers(torch, quant, card)
+    del slr_data
+    phase_end("tiered_kv")
 
     log("phase 19a/c/d: the stat reduction vs numpy; the dense logreg "
         "under a chaos NaN with MVTPU_HEALTH_ACTION=rollback, and killed "
@@ -5507,6 +5966,17 @@ def main(argv) -> int:
         f"{c20['staged_adds']['direct_s']} s; autotune K {d['k_sequence']}; "
         f"phase 20 {phase_s['client']:.1f} s; on {card}")
 
+    ta = tiered
+    log(f"  tiered KV: {TIERED_ADDS} adds of phase 10, host ms a part "
+        f"(plan / demote / fill) "
+        + "; ".join(f"{r['plan_ms']:.0f} / {r['demote_ms']:.0f} / "
+                    f"{r['fill_ms']:.0f}" for r in ta["adds"])
+        + f", probe + commit "
+        f"{[round(r['device_ms'], 3) for r in ta['adds']]} ms on the card; "
+        f"miss ratio {ta['miss_ratio']:.4f}; spill file "
+        f"{ta['spill_file_bytes']} bytes; launches {ta['launches']}; "
+        f"phase 21 {phase_s['tiered_kv']:.1f} s; on {card}")
+
     row_src = "multiverso_tpu_torch/ops/csrc/row_kernels.cu"
     coo_src = "multiverso_tpu_torch/ops/csrc/coo_kernels.cu"
     lda_src = "multiverso_tpu_torch/ops/csrc/lda_kernels.cu"
@@ -5598,7 +6068,7 @@ def main(argv) -> int:
                        w2v_own_iterator=w2v_own, dense_logreg=dense,
                        kv_data_axis=kv_data,
                        row_scatter_parts=scatter_parts, telemetry=tel,
-                       health=h19, client=c20,
+                       health=h19, client=c20, tiered_kv=tiered,
                        seconds=time.perf_counter() - t_start), f, indent=1)
     log(f"phase seconds: { {k: round(v, 1) for k, v in phase_s.items()} }")
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -66,8 +66,7 @@ each lane's posterior reads the same counts).
 
 The run checkpoint manager (``run_state`` / ``restore_run_state``) and
 the health rollback ride the sweep loop. Not in the port yet (see
-ROADMAP.md): ``local_corpus`` and multi-process runs, cached table
-views.
+ROADMAP.md): ``local_corpus`` and multi-process runs.
 """
 
 from __future__ import annotations

@@ -4,8 +4,8 @@ registry.
 Counterpart of ``multiverso_tpu/control/knobs.py``, copied: the same
 specs, env names, bounds and steps, so that one table stays the source
 of truth for every ``MVTPU_*`` tunable of both packages (the rows whose
-owners, the server and the storage tiers, the port does not have yet
-included).
+owner, the server, the port does not have yet included; the storage
+tiers' rows are read and bound by ``storage/manager.py``).
 
 Every knob has one :class:`Knob` spec — name, seeding env var, bounds,
 a rate-limit step, the owner subsystem — and owners register live

@@ -64,6 +64,11 @@ Fault points in the port (grep ``chaos_point(`` for ground truth):
 ``ckpt.commit``       RunCheckpointManager manifest commit
                       (``ft/checkpoint.py``)
 ``ckpt.gc``           RunCheckpointManager retention delete
+``storage.spill``     tiered KV: bucket record spill to the cold-tier
+                      file (``storage/tiers.py``) — the write itself is
+                      additionally covered by ``io.write`` + retry
+``storage.fill``      tiered KV: cold-tier bucket fill (ranged read,
+                      CRC-verified)
 ====================  =====================================================
 
 The injector is process-global and OFF unless installed: fault points

@@ -450,13 +450,22 @@ class KVTable:
         sentinel, whose lanes are sliced off)."""
         self._check_overflow()
         keys = self._check_keys(keys)
+        return self._get_with_buckets(keys, self._buckets_of(keys))
+
+    def _get_with_buckets(self, keys: np.ndarray, lane_buckets: np.ndarray
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Dispatch half of a Get for per-lane bucket ids already in the
+        DEVICE geometry: the seam the tiered store drives after it has
+        translated logical buckets to resident device slots
+        (``storage/tiered_kv.py``); :meth:`get_tensor` is the identity
+        translation."""
         n = len(keys)
         t0 = time.monotonic()
         with tracing.span("table.get", table=f"{self.table_id}:{self.name}",
                           n=n):
             elems = n * max(self.value_dim, 1)
             self._record_op("get", elems, elems * self.dtype.itemsize)
-            query, local, inv = self._get_lanes(keys, self._buckets_of(keys))
+            query, local, inv = self._get_lanes(keys, lane_buckets)
             vals, found = self._lookup(
                 self.key_shards, self.value_shards, query, local, inv,
                 self.default_value)

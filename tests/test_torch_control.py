@@ -59,12 +59,16 @@ def _reset(ctl, metrics):
 
 @pytest.fixture(autouse=True)
 def control_clean(monkeypatch):
-    """Every test starts unarmed, unkilled, with an empty decision ring
-    and a fresh registry in both packages (knob bindings are weakrefs —
-    they die with their test-local owners)."""
+    """Every test starts unarmed, unkilled, with an empty decision ring,
+    a fresh registry and no knob bindings in both packages (bindings are
+    weakrefs that die with their test-local owners; an owner another test
+    file left alive on the same worker, such as an app's cached view, is
+    dropped here so it cannot show in ``control_status``)."""
     monkeypatch.delenv("MVTPU_AUTOTUNE", raising=False)
-    for ctl, _, metrics, _ in PKGS.values():
+    for ctl, knobs, metrics, _ in PKGS.values():
         _reset(ctl, metrics)
+        with knobs._LOCK:
+            knobs._BINDINGS.clear()
     yield
     for ctl, _, metrics, trace in PKGS.values():
         _reset(ctl, metrics)

@@ -2470,3 +2470,120 @@ def test_stage_kv_adds_equal_direct_adds(cuda):
         assert torch.equal(a.values.cpu(), b.values.cpu())
         for k in a.state:
             assert torch.equal(a.state[k].cpu(), b.state[k].cpu())
+
+
+def _tbits(t):
+    """A tensor's bit patterns on the host (2- or 4-byte elements)."""
+    kind = torch.int16 if t.element_size() == 2 else torch.int32
+    return t.cpu().contiguous().view(kind)
+
+
+def _tiered_pair(cuda, tmp_path, name, **kw):
+    """The same small tiered table on the card and on the CPU, each its own
+    spill directory."""
+    from multiverso_tpu_torch.storage import TieredKVTable
+    kw = dict(dict(value_dim=3, updater="adagrad", slots_per_bucket=8,
+                   device_buckets=16, host_buckets=8), **kw)
+    return [TieredKVTable(2048, device=d, name=f"{name}{i}",
+                          spill_dir=str(tmp_path / f"tiers{i}"), **kw)
+            for i, d in enumerate((cuda, "cpu"))]
+
+
+def _same_tiered(gpu, host):
+    assert torch.equal(gpu.keys.cpu(), host.keys)
+    assert torch.equal(_tbits(gpu.values), _tbits(host.values))
+    for k in host.state:
+        assert torch.equal(_tbits(gpu.state[k]), _tbits(host.state[k]))
+    for name in ("tier", "slot_of", "bucket_at"):
+        assert np.array_equal(getattr(gpu.tiers, name),
+                              getattr(host.tiers, name))
+
+
+def test_tiered_chunked_get_on_the_card_matches_cpu(cuda, tmp_path):
+    """A Get wider than the device tier (chunked: one lookup launch a
+    chunk) on the card: the CPU table's values and found, bit for bit, in
+    the caller's order; the host arena pinned on the card only."""
+    gpu, host = _tiered_pair(cuda, tmp_path, "tg", device_buckets=4,
+                             host_buckets=2)
+    assert gpu.tiers.host.pinned and not host.tiers.host.pinned
+    rng = np.random.default_rng(40)
+    keys = rng.choice(2 ** 40, 200, replace=False).astype(np.uint64)
+    d = rng.standard_normal((200, 3)).astype(np.float32)
+    for t in (gpu, host):
+        t.add(keys, d, sync=True)
+    q = np.concatenate([keys[::-1], np.arange(1, 40, dtype=np.uint64)])
+    chunks = len(gpu._chunk_spans(np.sort(gpu._buckets_of(q))))
+    assert chunks > 1
+    before = tk.LAUNCHES["kv_lookup"]
+    vg, fg = gpu.get_tensor(q)
+    assert tk.LAUNCHES["kv_lookup"] - before == chunks
+    vh, fh = host.get_tensor(q)
+    assert torch.equal(fg.cpu(), fh)
+    assert torch.equal(_tbits(vg), _tbits(vh))
+    _same_tiered(gpu, host)
+
+
+def test_tiered_add_through_disk_on_the_card_matches_cpu(cuda, tmp_path):
+    """Adds that demote buckets to the host arena and the spill file and
+    fill them back (disk fills above 0): the card's table, every tier's
+    records and every Get equal the CPU table's bit for bit; one probe and
+    one commit a chunk."""
+    from multiverso_tpu_torch.telemetry import metrics as telemetry
+    gpu, host = _tiered_pair(cuda, tmp_path, "ta")
+    rng = np.random.default_rng(41)
+    pool = rng.choice(2 ** 40, 500, replace=False).astype(np.uint64)
+    fills = lambda t: telemetry.counter("storage.fills", tier="disk",
+                                        table=t.name).value
+    for step in range(6):
+        keys = rng.choice(pool, 150, replace=False)
+        d = rng.standard_normal((150, 3)).astype(np.float32)
+        chunks = len(gpu._chunk_spans(np.sort(gpu._buckets_of(keys))))
+        before = dict(tk.LAUNCHES)
+        for t in (gpu, host):
+            t.add(keys, d, sync=True)
+        for name in ("kv_probe_update", "kv_commit"):
+            assert tk.LAUNCHES[name] - before[name] == chunks
+        _same_tiered(gpu, host)
+    assert fills(gpu) == fills(host) > 0
+    for b in gpu.tiers.disk.buckets():
+        a, h = gpu.tiers.disk.peek(b), host.tiers.disk.peek(b)
+        assert gpu.spec.pack(a) == host.spec.pack(h)
+    for b in gpu.tiers.host.buckets():
+        assert gpu.spec.pack(gpu.tiers.host.peek(b)) == \
+            host.spec.pack(host.tiers.host.peek(b))
+    vg, fg = gpu.get(pool)
+    vh, fh = host.get(pool)
+    assert np.array_equal(fg, fh) and vg.tobytes() == vh.tobytes()
+
+
+def test_tiered_store_load_on_the_card_matches_cpu(cuda, tmp_path):
+    """store -> load on the card: the file is the CPU table's, byte for
+    byte, and the restored card table (every tier populated) equals the
+    CPU table restored from the same file."""
+    gpu, host = _tiered_pair(cuda, tmp_path, "ts", dtype="bfloat16",
+                             updater="ftrl")
+    rng = np.random.default_rng(42)
+    keys = rng.choice(2 ** 40, 400, replace=False).astype(np.uint64)
+    for _ in range(2):
+        d = rng.standard_normal((400, 3)).astype(np.float32)
+        for t in (gpu, host):
+            t.add(keys, d, sync=True)
+    paths = [str(tmp_path / f"{t.name}.ckpt") for t in (gpu, host)]
+    for t, p in zip((gpu, host), paths):
+        t.store(p)
+    mg, pg = gpu.export_checkpoint_async()()
+    mh, ph = host.export_checkpoint_async()()
+    assert sorted(pg) == sorted(ph)
+    for k in pg:
+        assert pg[k].tobytes() == ph[k].tobytes(), k
+    rg, rh = _tiered_pair(cuda, tmp_path / "r", "tr", dtype="bfloat16",
+                          updater="ftrl")
+    rg.load(paths[0])
+    rh.load(paths[0])
+    c = rg.tiers.counts()
+    assert c["device"] > 0 and c["host"] > 0 and c["disk"] > 0
+    _same_tiered(rg, rh)
+    vg, fg = rg.get_tensor(keys)
+    vh, fh = host.get_tensor(keys)
+    assert torch.equal(fg.cpu(), fh) and torch.equal(_tbits(vg),
+                                                     _tbits(vh))
