@@ -185,6 +185,35 @@ its seconds):
    for bit, scales and residual within rtol 1e-6 + atol 1e-6), the int8
    rounding one with a generator on the card (in range, within a step,
    the mean of 300 draws within 0.01). It runs before phase 14.
+22. The wire server (``multiverso_tpu_torch/server``), after phase 21:
+   (a) a TableServer on cuda:0 (fuse 1, a unix socket) with a kv table at
+   phase 10's geometry (2^25 slots, value_dim 2, ftrl); one WireClient
+   replays phase 10's 32 adds (about 159,000 keys each) as kv_add frames,
+   each followed by a kv_get of its keys, and a local KVTable on cuda:0
+   takes the same adds: every Get reply and the table's export at the end
+   equal the local table's bit for bit; one probe + commit a kv_add and
+   one lookup a kv_get (the counts' differences around each frame); the
+   wall p50 / p99 of both frames, requests a second, the server's stages
+   (queue, execute) from its exemplar ring, the probe + commit's device ms
+   a kv_add (CUDA events around it on the dispatch thread). (d) After each
+   add a second client reads 4,096 of the first add's keys and 4,096 keys
+   never added with a staleness bound of 8: the first read arms the
+   replica; at least one is answered off it on a reader thread, each such
+   answer within its bound and equal to the local table at its
+   generation, each other equal to the table now. (c) On two fresh ftrl
+   tables of that server, 6 of the adds pipelined quietly and under a
+   chaos storm (``wire.send`` drop and torn, ``wire.recv`` drop): the
+   tables bit for bit equal. (b) Four worker processes that load the
+   port's transport by file path and import no torch (over unix, TCP, shm
+   and shm) pipeline 16 overlapping-key adds of 65,536 keys each (integer
+   deltas, default updater, 2^25 slots) into a fresh server with fuse 16,
+   then into one with fuse 1: the two tables bit for bit equal and equal
+   to the exact sums, fused groups above 0, probe + commit launches equal
+   to the groups plus the frames that ran alone; each worker's bytes a
+   second on the wire. (c) On the fusing server a shm worker SIGKILLed
+   mid-stream: a survivor's and a fresh worker's adds land and the server
+   answers. No handler error reply anywhere; the card's peak memory. It
+   runs before phase 14.
 14. The row scatter's kernel on phase 2's sorted lanes, and phase 2's KV
    probe + commit calls (the flat form at the sparse-LR step's shapes,
    the sharded form on four shards), taken apart by torch.profiler: each
@@ -288,8 +317,8 @@ against the same run on a (1, 4) CPU mesh.
 Launch counts are set to 0 before each main path (phases 3-4 word2vec,
 4c on each backend, 5, 6, 6b, 7, 8, 10, 11, 12, 13's word2vec and its
 COO superstep, 13b's two meshes, 15, each sweep of 16, 17's sparse LR,
-21a) and read after it; phases 20 and 21 read each run's launches as the
-difference of the counts around it. Before the last line the script prints
+21a, 22) and read after it; phases 20, 21 and 22 read each run's
+launches as the difference of the counts around it. Before the last line the script prints
 one ``{"kernels": [...]}`` JSON line and the card's name and power limit;
 the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -305,6 +334,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -5480,6 +5510,472 @@ def phase_quantizers(torch, quant, card: str) -> dict:
     return out
 
 
+# phase 22: the wire server on the card. 22a replays every one of phase
+# 10's adds over the wire; 22d reads WIRE_PROBE_KEYS of them (and as many
+# keys never added) with a staleness bound of WIRE_STALENESS generations
+# after each; 22b's four workers each pipeline WIRE_WORKER_ADDS adds of
+# WIRE_WORKER_KEYS keys; 22c's storm replays WIRE_STORM_ADDS of phase 10's
+# adds, and its SIGKILL victim would send WIRE_KILL_ADDS
+WIRE_STALENESS, WIRE_PROBE_KEYS = 8, 4096
+WIRE_WORKER_ADDS, WIRE_WORKER_KEYS = 16, 65_536
+WIRE_STORM_ADDS, WIRE_KILL_ADDS = 6, 400
+WIRE_STORM = ("seed=5;wire.send:drop:times=3;wire.send:torn:after=4,"
+              "times=2;wire.recv:drop:times=2")
+WIRE_FUSE = 16
+# every 22a request lands in the server's exemplar ring
+WIRE_EXEMPLARS = 512
+
+# one worker's adds, shared by the worker processes and the check: add j
+# of worker ``rank`` overlaps its neighbours' (each worker starts half a
+# batch after the last, each add a quarter batch after the last, cycling
+# over four), with small integer deltas, whose float32 sums are exact
+WIRE_ADD_SRC = '''
+def worker_add(rank, j, n):
+    start = (rank * n) // 2 + (j % 4) * (n // 4)
+    keys = (np.arange(start, start + n, dtype=np.uint64)
+            * np.uint64(0x9E3779B1) + np.uint64(1))
+    base = (keys % np.uint64(5)).astype(np.float32) + 1 + rank
+    return keys, np.stack([base, 2 * base - (j % 3)], axis=1)
+'''
+_wire_ns = {"np": np}
+exec(WIRE_ADD_SRC, _wire_ns)
+worker_add = _wire_ns["worker_add"]
+
+# a worker process: the port's transport loaded by file path, no torch
+WIRE_WORKER_SRC = '''
+import importlib.util, json, os, sys, time
+import numpy as np
+pkg, addr, rank, adds, n, name, cap = sys.argv[1:8]
+spec = importlib.util.spec_from_file_location(
+    "multiverso_tpu_torch.client.transport",
+    os.path.join(pkg, "client", "transport.py"))
+transport = importlib.util.module_from_spec(spec)
+sys.modules[spec.name] = transport
+spec.loader.exec_module(transport)
+assert "torch" not in sys.modules and "jax" not in sys.modules
+''' + WIRE_ADD_SRC + '''
+rank, adds, n = int(rank), int(adds), int(n)
+c = transport.connect(addr, client=f"w{rank}", quant=None)
+t = c.create_kv(name, int(cap), value_dim=2)
+t0 = time.perf_counter()
+for j in range(adds):
+    t.add(*worker_add(rank, j, n))
+    print(json.dumps({"rank": rank, "step": j}), flush=True)
+c.drain()
+dt = time.perf_counter() - t0
+print(json.dumps({"rank": rank, "done": True, "seconds": dt,
+                  "tx_bytes": c.tx_bytes, "rx_bytes": c.rx_bytes,
+                  "transport": c.transport, "torch": "torch" in sys.modules}),
+      flush=True)
+c.close()
+'''
+
+
+def pct(xs, q: float) -> float:
+    return float(np.percentile(np.asarray(xs, np.float64), q))
+
+
+def grown_since(tk, before: dict) -> dict:
+    return {k: tk.LAUNCHES[k] - before[k] for k in KV_LAUNCH_NAMES}
+
+
+def server_errors(telemetry) -> float:
+    """Handler errors the wire servers of this process replied so far."""
+    snap = telemetry.snapshot()
+    return sum(v for k, v in snap.get("counters", {}).items()
+               if k.startswith("wire.server.errors"))
+
+
+def same_reply(arrays, want) -> bool:
+    return len(arrays) == 2 and all(
+        a.dtype == w.dtype and a.shape == w.shape
+        and a.tobytes() == w.tobytes() for a, w in zip(arrays, want))
+
+
+def wire_replay(torch, tk, KVTable, TableServer, transport, tchaos,
+                telemetry, adds, tmp: str, card: str) -> dict:
+    """22a + 22d + 22c's storm: phase 10's adds as kv_add frames into a
+    TableServer on cuda:0 (fuse 1), each followed by a kv_get of its keys
+    and a staleness read of the probe keys from a second client; a local
+    KVTable on cuda:0 fed the same adds. Every Get, every replica answer
+    (at its generation) and the export equal the local table's bit for
+    bit. Then the storm over two fresh tables of the same server."""
+    name = "smoke_wire_a"
+    os.environ["MVTPU_SERVER_EXEMPLARS"] = str(WIRE_EXEMPLARS)
+    try:
+        s = TableServer(f"unix:{tmp}/a.sock", name=name, device="cuda:0",
+                        fuse=1)
+    finally:
+        del os.environ["MVTPU_SERVER_EXEMPLARS"]
+    addr = s.start()
+    local = KVTable(SLR_CAPACITY, value_dim=2, updater="ftrl",
+                    device="cuda:0", name="smoke_wire_local")
+    hits = telemetry.counter("server.replica.hits", server=name)
+    launches = dict.fromkeys(KV_LAUNCH_NAMES, 0)
+    add_ms, get_ms, stale = [], [], []
+    try:
+        with transport.connect(addr, client="slr", quant=None) as c, \
+                transport.connect(addr, client="reader",
+                                  quant=None) as rd:
+            t = c.create_kv("wire_slr", SLR_CAPACITY, value_dim=2,
+                            updater="ftrl")
+            table = s._tables[t.table_id]
+            if table.device.type != "cuda" or table.num_buckets \
+                    != local.num_buckets or t.dtype != np.float32:
+                raise SystemExit(f"wire: the served table lies on "
+                                 f"{table.device}, {table.num_buckets} "
+                                 f"buckets, {t.dtype}")
+            spans = timed_probes(torch, table)
+            missing = kv_keys(np.random.default_rng(23),
+                              WIRE_PROBE_KEYS) | np.uint64(1 << 62)
+            probe = np.concatenate([adds[0][0][:WIRE_PROBE_KEYS],
+                                    missing])
+            at_gen = {0: local.get(probe)}
+
+            def stale_read(gen_now: int) -> None:
+                before = dict(tk.LAUNCHES)
+                t0 = time.perf_counter()
+                hdr, arrays = rd.call("kv_get", {
+                    "table": t.table_id, "staleness": WIRE_STALENESS},
+                    [probe])
+                wall = 1e3 * (time.perf_counter() - t0)
+                grown = grown_since(tk, before)
+                if hdr.get("replica"):
+                    gen, lag = int(hdr["gen"]), int(hdr["staleness"])
+                    ok = (lag <= WIRE_STALENESS and lag == gen_now - gen
+                          and not hdr.get("relaxed")
+                          and not hdr.get("degraded")
+                          and same_reply(arrays, at_gen[gen])
+                          and not any(grown.values()))
+                else:
+                    gen, lag = gen_now, 0
+                    ok = (same_reply(arrays, at_gen[gen_now])
+                          and grown["kv_lookup"] == 1)
+                    launches["kv_lookup"] += grown["kv_lookup"]
+                if not ok:
+                    raise SystemExit(f"wire 22d: a staleness read at "
+                                     f"generation {gen_now} ({hdr}) "
+                                     "differs from the local table at "
+                                     f"its generation, or launched "
+                                     f"{grown}")
+                stale.append(dict(replica=bool(hdr.get("replica")),
+                                  gen=gen, lag=lag, wall_ms=wall))
+
+            for i, (keys, deltas) in enumerate(adds):
+                before = dict(tk.LAUNCHES)
+                t0 = time.perf_counter()
+                t.add(keys, deltas, sync=True)
+                add_ms.append(1e3 * (time.perf_counter() - t0))
+                grown = grown_since(tk, before)
+                before = dict(tk.LAUNCHES)
+                t0 = time.perf_counter()
+                got = t.get(keys)
+                get_ms.append(1e3 * (time.perf_counter() - t0))
+                g2 = grown_since(tk, before)
+                if grown != {"kv_lookup": 0, "kv_probe_update": 1,
+                             "kv_commit": 1} or g2 != {
+                        "kv_lookup": 1, "kv_probe_update": 0,
+                        "kv_commit": 0}:
+                    raise SystemExit(f"wire 22a: add {i} launched "
+                                     f"{grown}, its Get {g2}")
+                for k in KV_LAUNCH_NAMES:
+                    launches[k] += grown[k] + g2[k]
+                local.add(keys, deltas)
+                if not same_reply(list(got), local.get(keys)):
+                    raise SystemExit(f"wire 22a: the Get after add {i} "
+                                     "differs from the local table's")
+                at_gen[i + 1] = local.get(probe)
+                stale_read(i + 1)
+            # the replica catches up with the last add: poll until a
+            # read is answered on a reader thread
+            deadline = time.monotonic() + 60
+            while not any(r["replica"] for r in stale) \
+                    and time.monotonic() < deadline:
+                stale_read(len(adds))
+                time.sleep(0.05)
+            if not any(r["replica"] for r in stale) or hits.value <= 0:
+                raise SystemExit("wire 22d: no staleness read was "
+                                 "answered off the replica")
+            exemplars = s.slow_exemplars()
+            torch.cuda.synchronize()
+            device_ms = [a.elapsed_time(b) for a, b in spans]
+            ea = table.export_checkpoint_async()()[1]
+            el = local.export_checkpoint_async()()[1]
+            if not same_export(ea, el, content_keys(el)):
+                raise SystemExit("wire 22a: the served table's export "
+                                 "differs from the local table's")
+            del ea, el
+            status = s.status()
+        # the server keeps its tables alive; the local one goes
+        del local, table
+        free_tables(torch)
+        storm = wire_storm(torch, s, transport, tchaos, addr,
+                           adds[:WIRE_STORM_ADDS])
+    finally:
+        s.stop()
+    n_req = 2 * len(adds)
+    by_op = {op: [r for r in exemplars
+                  if r["op"] == op and r["client"] == "slr"]
+             for op in ("kv_add", "kv_get")}
+    stages = {op: dict(queue_ms=pct([r["stages"]["queue_ms"] for r in rows],
+                                    50),
+                       execute_ms=pct([r["stages"]["execute_ms"]
+                                       for r in rows], 50),
+                       execute_ms_p99=pct([r["stages"]["execute_ms"]
+                                           for r in rows], 99),
+                       n=len(rows))
+              for op, rows in by_op.items() if rows}
+    out = dict(adds=len(adds), keys_per_add=float(np.mean(
+                   [len(k) for k, _ in adds])),
+               requests_per_sec=n_req / (1e-3 * (sum(add_ms)
+                                                 + sum(get_ms))),
+               kv_add_ms=dict(p50=pct(add_ms, 50), p99=pct(add_ms, 99)),
+               kv_get_ms=dict(p50=pct(get_ms, 50), p99=pct(get_ms, 99)),
+               device_ms_per_add=dict(p50=pct(device_ms, 50),
+                                      mean=float(np.mean(device_ms))),
+               stages=stages, slowest=exemplars[:4], launches=launches,
+               stale_reads=len(stale),
+               replica_hits=sum(r["replica"] for r in stale),
+               replica_lags=sorted({r["lag"] for r in stale
+                                    if r["replica"]}),
+               replica_wall_ms=pct([r["wall_ms"] for r in stale
+                                    if r["replica"]], 50),
+               fused=status["fused"], storm=storm)
+    log(f"  22a {len(adds)} kv_add frames of {out['keys_per_add']:.0f} "
+        f"keys (ftrl, 2^25 slots) and their kv_gets: every Get and the "
+        f"export bit for bit the local table's; {out['requests_per_sec']:.1f}"
+        f" requests/s; kv_add wall p50 {out['kv_add_ms']['p50']:.2f} / p99 "
+        f"{out['kv_add_ms']['p99']:.2f} ms, kv_get p50 "
+        f"{out['kv_get_ms']['p50']:.2f} / p99 {out['kv_get_ms']['p99']:.2f}"
+        f" ms; server stages (median queue / execute ms) "
+        + "; ".join(f"{op} {r['queue_ms']:.3f} / {r['execute_ms']:.2f}"
+                    for op, r in stages.items())
+        + f"; probe + commit {out['device_ms_per_add']['p50']:.3f} ms a "
+        f"kv_add on the card; launches {launches}; on {card}")
+    log(f"  22d {len(stale)} staleness reads (bound {WIRE_STALENESS}): "
+        f"{out['replica_hits']} answered off the replica on a reader "
+        f"thread (lags {out['replica_lags']}, median wall "
+        f"{out['replica_wall_ms']:.2f} ms), each equal to the local table "
+        f"at its generation")
+    log(f"  22a slowest requests: "
+        + "; ".join(f"{r['op']} {r['total_ms']:.1f} ms (queue "
+                    f"{r['stages']['queue_ms']:.1f}, execute "
+                    f"{r['stages']['execute_ms']:.1f})"
+                    for r in out["slowest"]))
+    return out
+
+
+def wire_storm(torch, s, transport, tchaos, addr, adds) -> dict:
+    """22c's storm: the same adds pipelined into two fresh ftrl tables of
+    the server, quiet and under WIRE_STORM (wire.send drop and torn,
+    wire.recv drop, process-wide: the server's sends and reads too). The
+    tables end bit for bit equal: dedup keeps every replay exactly-once."""
+    with transport.connect(addr, client="storm", quant=None) as c:
+        quiet = c.create_kv("wire_quiet", SLR_CAPACITY, value_dim=2,
+                            updater="ftrl")
+        for keys, deltas in adds:
+            quiet.add(keys, deltas)
+        c.drain()
+        stormy = c.create_kv("wire_stormy", SLR_CAPACITY, value_dim=2,
+                             updater="ftrl")
+        t0 = time.perf_counter()
+        tchaos.install_chaos(WIRE_STORM)
+        try:
+            for keys, deltas in adds:
+                stormy.add(keys, deltas)
+            c.drain()
+        finally:
+            tchaos.uninstall_chaos()
+        storm_s = time.perf_counter() - t0
+        reconnects = c.reconnects
+    a, b = s._tables[quiet.table_id], s._tables[stormy.table_id]
+    same = same_shards(torch, (a.key_shards, a.value_shards,
+                               a.state_shards),
+                       (b.key_shards, b.value_shards, b.state_shards))
+    if not same or reconnects < 1 or a.generation != b.generation:
+        raise SystemExit(f"wire 22c: the storm's table equal to the quiet "
+                         f"one: {same}, reconnects {reconnects}, "
+                         f"generations {a.generation} / {b.generation}")
+    log(f"  22c storm ({WIRE_STORM}) over {len(adds)} pipelined kv_adds: "
+        f"{reconnects} reconnects, {storm_s:.2f} s, the table bit for bit "
+        "the quiet run's")
+    return dict(adds=len(adds), reconnects=reconnects, seconds=storm_s)
+
+
+def spawn_worker(script: str, addr: str, rank: int, adds: int, n: int,
+                 name: str, cap: int):
+    return subprocess.Popen(
+        [sys.executable, script, os.path.join(HERE, "multiverso_tpu_torch"),
+         addr, str(rank), str(adds), str(n), name, str(cap)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def worker_result(proc, timeout: float = 300) -> dict:
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise SystemExit("wire: a worker process timed out")
+    lines = [json.loads(x) for x in out.splitlines() if x.strip()]
+    if proc.returncode != 0 or not lines or not lines[-1].get("done") \
+            or lines[-1].get("torch"):
+        raise SystemExit(f"wire: worker exited {proc.returncode}: "
+                         f"{err[-2000:]}")
+    return lines[-1]
+
+
+def wire_fusion_run(torch, tk, TableServer, transport, telemetry,
+                    script: str, tmp: str, fuse: int, tag: str,
+                    union: np.ndarray, kill: bool) -> dict:
+    """22b: four torch-free worker processes (unix, TCP, shm, shm)
+    pipeline their adds into a fresh server on cuda:0 (``fuse``); the
+    union of their keys is read back. With ``kill`` (22c) a victim worker
+    is SIGKILLed mid-stream while a survivor and then a fresh worker
+    finish on the same server."""
+    name = f"smoke_wire_{tag}"
+    s = TableServer(f"unix:{tmp}/{tag}.sock,tcp:127.0.0.1:0,"
+                    f"shm://{tmp}/{tag}-shm.sock", name=name,
+                    device="cuda:0", fuse=fuse)
+    addrs = s.start().split(",")
+    groups = telemetry.counter("server.fuse.groups", server=name)
+    frames = telemetry.counter("server.fuse.frames", server=name)
+    out = {}
+    try:
+        before = dict(tk.LAUNCHES)
+        t0 = time.perf_counter()
+        procs = [spawn_worker(script, a, r, WIRE_WORKER_ADDS,
+                              WIRE_WORKER_KEYS, "wire_fused", SLR_CAPACITY)
+                 for r, a in enumerate([addrs[0], addrs[1], addrs[2],
+                                        addrs[2]])]
+        workers = [worker_result(p) for p in procs]
+        wall = time.perf_counter() - t0
+        launches = grown_since(tk, before)
+        n_frames = 4 * WIRE_WORKER_ADDS
+        n_groups, n_fused = int(groups.value), int(frames.value)
+        singles = n_frames - n_fused
+        if launches != {"kv_lookup": 0, "kv_probe_update": n_groups + singles,
+                        "kv_commit": n_groups + singles}:
+            raise SystemExit(f"wire 22b ({tag}): {launches} for "
+                             f"{n_groups} fused groups and {singles} "
+                             "frames alone")
+        with transport.connect(addrs[0], client="check",
+                               quant=None) as c:
+            t = c.create_kv("wire_fused", SLR_CAPACITY, value_dim=2)
+            out["values"], out["found"] = t.get(union)
+            if kill:
+                out["kill"] = wire_kill(script, addrs, c)
+        out.update(groups=n_groups, fused_frames=n_fused, frames=n_frames, launches=launches, seconds=wall,
+                   workers=[dict(w, address=a.split(":")[0]) for w, a in
+                            zip(workers, [addrs[0], addrs[1], addrs[2],
+                                          addrs[2]])])
+    finally:
+        s.stop()
+    return out
+
+
+def wire_kill(script: str, addrs, c) -> dict:
+    """22c: SIGKILL one shm worker mid-stream; a unix survivor and then a
+    fresh TCP worker finish every add on the same server."""
+    cap = 1 << 22
+    victim = spawn_worker(script, addrs[2], 10, WIRE_KILL_ADDS, 4096,
+                          "wire_kill", cap)
+    survivor = spawn_worker(script, addrs[0], 11, 8, 4096, "wire_kill",
+                            cap)
+    first = victim.stdout.readline()
+    if not first:
+        raise SystemExit("wire 22c: the victim made no progress: "
+                         f"{victim.stderr.read()[-2000:]}")
+    victim.send_signal(signal.SIGKILL)
+    victim.wait(timeout=30)
+    victim.stdout.close()
+    victim.stderr.close()
+    done = worker_result(survivor)
+    fresh = worker_result(spawn_worker(script, addrs[1], 12, 4, 4096,
+                                       "wire_kill", cap))
+    if victim.returncode != -signal.SIGKILL or not c.ping():
+        raise SystemExit(f"wire 22c: victim {victim.returncode}, server "
+                         "not answering after the kill")
+    log(f"  22c a worker SIGKILLed mid-stream (over shm): the survivor's "
+        f"8 adds and a fresh worker's 4 landed, the server answers")
+    return dict(victim_rc=victim.returncode,
+                survivor_s=done["seconds"], fresh_s=fresh["seconds"])
+
+
+def phase_wire_server(torch, tk, KVTable, TableServer, transport, tchaos,
+                      telemetry, adds, card: str) -> dict:
+    """Phase 22: the wire server on cuda:0 (see wire_replay and
+    wire_fusion_run). Returns the numbers."""
+    free_tables(torch)
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    errors0 = server_errors(telemetry)
+    # set-up: the adds' deltas on the host, as a worker would send them
+    host = [(np.asarray(k, np.uint64),
+             d.cpu().numpy() if hasattr(d, "cpu") else np.asarray(d))
+            for k, d in adds]
+    with tempfile.TemporaryDirectory() as tmp:
+        out = {"a": wire_replay(torch, tk, KVTable, TableServer, transport,
+                                tchaos, telemetry, host, tmp, card)}
+        free_tables(torch)
+        script = os.path.join(tmp, "wire_worker.py")
+        with open(script, "w") as f:
+            f.write(WIRE_WORKER_SRC)
+        keys, sums = [], []
+        for r in range(4):
+            for j in range(WIRE_WORKER_ADDS):
+                k, d = worker_add(r, j, WIRE_WORKER_KEYS)
+                keys.append(k)
+                sums.append(d.astype(np.float64))
+        union, inv = np.unique(np.concatenate(keys), return_inverse=True)
+        want = np.zeros((len(union), 2))
+        np.add.at(want, inv.reshape(-1), np.concatenate(sums))
+        want = want.astype(np.float32)
+        fused = wire_fusion_run(torch, tk, TableServer, transport,
+                                telemetry, script, tmp, WIRE_FUSE, "b16",
+                                union, kill=True)
+        free_tables(torch)
+        single = wire_fusion_run(torch, tk, TableServer, transport,
+                                 telemetry, script, tmp, 1, "b1", union,
+                                 kill=False)
+        free_tables(torch)
+    if fused["groups"] <= 0 or single["groups"] != 0 \
+            or not (fused["found"].all() and single["found"].all()) \
+            or fused["values"].tobytes() != single["values"].tobytes() \
+            or fused["values"].tobytes() != want.tobytes():
+        raise SystemExit(f"wire 22b: fused groups {fused['groups']}, the "
+                         "fused run's table differs from the unfused run's "
+                         "or from the exact sums")
+    errors = server_errors(telemetry) - errors0
+    if errors:
+        raise SystemExit(f"wire: {errors} handler error replies")
+    for run in (fused, single):
+        del run["values"], run["found"]
+    out.update(b=fused, b_unfused=single,
+               peak_mem_gb=torch.cuda.max_memory_allocated(0) / 1e9,
+               seconds=time.perf_counter() - t_phase)
+    rate = {}
+    for run in (fused, single):
+        for w in run["workers"]:
+            rate.setdefault(w["address"], []).append(
+                w["tx_bytes"] / w["seconds"] / 1e6)
+    out["tx_mb_per_s"] = rate
+    log(f"  22b 4 torch-free workers (unix, tcp, shm, shm) x "
+        f"{WIRE_WORKER_ADDS} pipelined adds of {WIRE_WORKER_KEYS} keys: "
+        f"fuse {WIRE_FUSE} formed {fused['groups']} groups of "
+        f"{fused['fused_frames']} frames ({fused['frames']} frames), "
+        f"probe + commit {fused['launches']['kv_probe_update']} + "
+        f"{fused['launches']['kv_commit']} = groups + frames alone; "
+        f"{len(union)} keys bit for bit the fuse-1 run's and the exact "
+        f"sums; {fused['seconds']:.2f} s fused, {single['seconds']:.2f} s "
+        f"unfused; wire MB/s sent per worker "
+        + "; ".join(f"{k} {[round(x, 1) for x in v]}"
+                    for k, v in rate.items())
+        + f"; cuda:0 peak {out['peak_mem_gb']:.2f} GB; "
+        f"{out['seconds']:.1f} s; on {card}")
+    return out
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5528,6 +6024,8 @@ def main(argv) -> int:
     from multiverso_tpu_torch.control import controller as tctl
     from multiverso_tpu_torch.storage import TieredKVTable
     from multiverso_tpu_torch.utils import quantization as quant
+    from multiverso_tpu_torch.server.table_server import TableServer
+    from multiverso_tpu_torch.client import transport as wire_transport
     profile = "--profile" in argv
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5823,8 +6321,20 @@ def main(argv) -> int:
             torch, tk, core, TieredKVTable, AddOption, slr_data["adds"],
             tmp, card)
     tiered["quantizers"] = phase_quantizers(torch, quant, card)
-    del slr_data
     phase_end("tiered_kv")
+
+    phase("wire_server", "phase 22: the wire server on cuda:0 (a: phase "
+          "10's adds served as kv_add / kv_get frames; b: four torch-free "
+          "worker processes over unix, TCP and shm into a fusing server; "
+          "c: a SIGKILLed worker and a chaos storm; d: staleness reads off "
+          "the replica)")
+    reset()
+    wire22 = phase_wire_server(torch, tk, KVTable, TableServer,
+                               wire_transport, tchaos, telemetry,
+                               slr_data["adds"], card)
+    paths["wire_server"] = wire22["a"]["launches"]
+    del slr_data
+    phase_end("wire_server")
 
     log("phase 19a/c/d: the stat reduction vs numpy; the dense logreg "
         "under a chaos NaN with MVTPU_HEALTH_ACTION=rollback, and killed "
@@ -5976,6 +6486,16 @@ def main(argv) -> int:
         f"miss ratio {ta['miss_ratio']:.4f}; spill file "
         f"{ta['spill_file_bytes']} bytes; launches {ta['launches']}; "
         f"phase 21 {phase_s['tiered_kv']:.1f} s; on {card}")
+    wa = wire22["a"]
+    log(f"  wire server: {wa['adds']} kv_adds of {wa['keys_per_add']:.0f} "
+        f"keys + their kv_gets at {wa['requests_per_sec']:.1f} requests/s; "
+        f"kv_add p50/p99 {wa['kv_add_ms']['p50']:.2f} / "
+        f"{wa['kv_add_ms']['p99']:.2f} ms, kv_get "
+        f"{wa['kv_get_ms']['p50']:.2f} / {wa['kv_get_ms']['p99']:.2f} ms; "
+        f"probe + commit {wa['device_ms_per_add']['p50']:.3f} ms a kv_add; "
+        f"replica hits {wa['replica_hits']} of {wa['stale_reads']}; fused "
+        f"groups {wire22['b']['groups']}; phase 22 "
+        f"{phase_s['wire_server']:.1f} s; on {card}")
 
     row_src = "multiverso_tpu_torch/ops/csrc/row_kernels.cu"
     coo_src = "multiverso_tpu_torch/ops/csrc/coo_kernels.cu"
@@ -6069,6 +6589,7 @@ def main(argv) -> int:
                        kv_data_axis=kv_data,
                        row_scatter_parts=scatter_parts, telemetry=tel,
                        health=h19, client=c20, tiered_kv=tiered,
+                       wire_server=wire22,
                        seconds=time.perf_counter() - t_start), f, indent=1)
     log(f"phase seconds: { {k: round(v, 1) for k, v in phase_s.items()} }")
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -6,8 +6,10 @@ superstep and the apps, on a (data, model) mesh of ``torch.device``s
 whose model axis splits tables into shards. Entry points run on the CUDA
 devices unless the caller names others (the tests pass ``"cpu"``, where
 every kernel runs its plain PyTorch version). ``client`` (the coalescing
-buffer, the cached view, the KV staging writer) and ``control`` (the knob
-table and the autotuning controller) come with the package.
+buffer, the cached view, the KV staging writer, and the wire transport
+loaded on demand) and ``control`` (the knob table and the autotuning
+controller) come with the package; ``server`` (the wire server) is
+imported on demand.
 """
 
 from multiverso_tpu_torch.version import __version__

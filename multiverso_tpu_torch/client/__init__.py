@@ -20,9 +20,15 @@ Telemetry: ``client.coalesce.{flushes,deltas,bytes}``,
 inflight}`` — and the per-dispatch proof lives in
 ``profile.calls{fn=table.apply.*/kv.apply.*}``.
 
-The reference's wire transport and fleet router (``WireClient``,
-``FleetClient`` and their tables) come with the server fleet (ROADMAP.md
-queue A item 11).
+The multi-PROCESS worker path lives in :mod:`.transport`
+(``WireClient``, ``RemoteArrayTable``, ``RemoteKVTable``): the same
+table surface over a socket to a
+:class:`~multiverso_tpu_torch.server.table_server.TableServer` process
+(the port's or the reference's), with the CoalescingBuffer working over
+remote tables unchanged. It is re-exported lazily (PEP 562), so that
+only code that talks to a wire loads the wire. The reference's fleet
+router (``FleetClient`` and its tables, ``connect_fleet``) is still to
+come (ROADMAP.md queue A item 11c).
 """
 
 from __future__ import annotations
@@ -35,6 +41,33 @@ from multiverso_tpu_torch.client.coalesce import (CoalescingBuffer,
 from multiverso_tpu_torch.client.staging import (KVStagingWriter,
                                                  stage_kv_adds)
 from multiverso_tpu_torch.control import knobs as _knobs
+
+_TRANSPORT_NAMES = ("WireClient", "RemoteArrayTable", "RemoteKVTable",
+                    "RemoteHandle", "DeltaBatcher", "RemoteError",
+                    "connect", "wire_retry_policy")
+
+#: the reference's scatter-gather fleet names, not ported yet
+_ROUTER_NAMES = ("FleetClient", "FleetArrayTable", "FleetKVTable",
+                 "FleetHandle", "connect_fleet", "connect_fleet_file",
+                 "fleet_addresses")
+
+
+def __getattr__(name: str):
+    if name in _TRANSPORT_NAMES or name == "transport":
+        # import_module, NOT `from ... import transport`: the from-
+        # import resolves the submodule via getattr on this package,
+        # which lands back here before sys.modules is populated
+        import importlib
+        transport = importlib.import_module(
+            "multiverso_tpu_torch.client.transport")
+        return transport if name == "transport" \
+            else getattr(transport, name)
+    if name in _ROUTER_NAMES or name == "router":
+        raise AttributeError(
+            f"{__name__}.{name}: the fleet router is not ported yet "
+            "(ROADMAP A11c)")
+    raise AttributeError(
+        f"module {__name__!r} has no attribute {name!r}")
 
 # env names come from the control-plane knob table — one source of
 # truth for name, bounds, and docs (control/knobs.py)
@@ -86,5 +119,5 @@ __all__ = [
     "CachedView", "CoalescingBuffer", "KVStagingWriter", "PendingHandle",
     "COALESCE_ENV", "STALENESS_ENV", "coalesce_from_env",
     "maybe_cached_view", "maybe_coalescing", "staleness_from_env",
-    "stage_kv_adds",
+    "stage_kv_adds", *_TRANSPORT_NAMES,
 ]

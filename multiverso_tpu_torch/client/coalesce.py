@@ -84,9 +84,12 @@ def _nbytes(x: Any) -> int:
 
 def _np_dtype(table: Any) -> np.dtype:
     """The numpy type of the table's values (a KVTable keeps a torch
-    type); a bfloat16 table, which numpy cannot sum, raises."""
+    type, a remote table of the wire transport a numpy one); a bfloat16
+    table, which numpy cannot sum, raises."""
     if hasattr(table, "np_dtype"):
         return table.np_dtype
+    if isinstance(table.dtype, np.dtype):
+        return table.dtype
     if table.dtype == torch.bfloat16:
         raise TypeError(
             f"kv table {table.name!r}: coalescing a bfloat16 table is not "

@@ -21,8 +21,13 @@ Spec grammar (semicolon-separated rules)::
     the payload is written and before the commit rename,
   - ``crash``   — raise :class:`ChaosCrash` (NOT an OSError: retry
     policies never swallow it — it simulates the process dying),
-  - ``drop``    — raise :class:`ChaosConnDrop` (a ``ConnectionError``;
-    the wire points that take it come with the server),
+  - ``drop``    — for wire points: connection drop. Raises
+    :class:`ChaosConnDrop` (a ``ConnectionError``, so transport retry
+    policies reconnect); the wire layer closes the socket first, so
+    the peer sees a real EOF/reset, not just a client-side exception.
+    At ``wire.send`` a ``torn`` rule means a TORN FRAME: the transport
+    puts PART of the encoded frame on the wire, then drops the
+    connection — the receiver must discard the partial frame,
   - ``nan``     — VALUE corruption: poison deterministic elements of the
     array or tensor flowing through a :func:`chaos_corrupt` point (the
     ``table.add`` delta paths) with NaN. Nothing raises; the training
@@ -69,7 +74,44 @@ Fault points in the port (grep ``chaos_point(`` for ground truth):
                       additionally covered by ``io.write`` + retry
 ``storage.fill``      tiered KV: cold-tier bucket fill (ranged read,
                       CRC-verified)
+``wire.send``         one frame onto a parameter-server wire socket
+                      (``client/transport.py`` + ``server/table_server.py``)
+                      — ``torn`` here = a TORN FRAME: partial bytes hit
+                      the wire, then the connection drops
+``wire.recv``         one frame off a wire socket (``drop`` = the
+                      connection dies before/while the reply arrives)
+``wire.accept``       server accept loop (``server/table_server.py``) —
+                      ``drop`` closes the just-accepted connection
+``wire.shm.ring``     one frame into a shared-memory ring
+                      (``server/wire.py`` ShmChannel over ``io/shmring.py``)
+                      — ``torn`` publishes HALF a ring record then
+                      closes (the peer sees a producer that died
+                      mid-copy); ``latency`` models a slow same-host
+                      hop; ``drop`` closes the doorbell socket
+``server.fuse``       one fused dispatch cycle's group execute
+                      (``server/table_server.py``) — an ``error`` here
+                      exercises the per-frame fallback: affected
+                      requests re-run individually, the dispatch
+                      thread never dies
+``server.flood``      frame intake on a server reader thread
+                      (``server/table_server.py``) — an ``error``/
+                      ``drop`` firing injects a burst of 32 synthetic
+                      ``noop`` frames from client ``chaos-flood``
+                      AHEAD of the real frame, driving the admission
+                      layer (token buckets, fair queue, bounded-queue
+                      shedding) exactly like a real flooder; the real
+                      frame is never lost
+``server.dequeue``    one dispatch-cycle dequeue
+                      (``server/table_server.py``) — ``latency`` stalls
+                      the single dispatch thread (the overload the
+                      admission layer must absorb); ``error``/``drop``
+                      are contained (logged, the cycle proceeds) —
+                      the dispatch thread never dies; ``crash`` still
+                      models process death
 ====================  =====================================================
+
+The reference's ``reshard.handoff`` point comes with live resharding
+(ROADMAP queue A item 11b).
 
 The injector is process-global and OFF unless installed: fault points
 cost one ``is None`` check when no chaos is active.

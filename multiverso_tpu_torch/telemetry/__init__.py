@@ -33,10 +33,14 @@ reference's ``report`` CLI renders the port's files:
   ``MVTPU_HEALTH`` drift rules, and the warn / dump / rollback actions
   (``MVTPU_HEALTH_ACTION``).
 
-Not ported yet (ROADMAP.md queue A item 11): ``statusz``
+- :mod:`~multiverso_tpu_torch.telemetry.attribution` — the wire server's
+  top talkers (space-saving top-K, count-min) and range heat
+  (``MVTPU_TOPK_K``, ``MVTPU_TOPK_HEAT``); loaded on demand.
+
+Not ported yet (ROADMAP.md queue A item 11e): ``statusz``
 (``StatuszServer``, ``maybe_statusz``, ``publish_fleet``), ``aggregate``
-(``gather_metrics``, ``merge_snapshots``, ``fleet_snapshot``),
-``attribution`` and ``report``. The legacy ``utils.dashboard`` API keeps
+(``gather_metrics``, ``merge_snapshots``, ``fleet_snapshot``) and
+``report``. The legacy ``utils.dashboard`` API keeps
 working as a shim over this registry.
 """
 

@@ -19,7 +19,10 @@ and types. No kernel stands behind them.
 The numpy twins the parameter-server wire uses (``one_bit_quantize_np``
 and the rest) and :class:`ResidualStore` are carried here unchanged from
 ``multiverso_tpu/server/wire.py``, which the reference re-exports from
-this module.
+this module; the port's ``server/wire.py`` re-exports them from here.
+The module imports torch only inside the torch quantizers, so the wire
+and the client transport load it in worker processes that have no
+torch.
 """
 
 from __future__ import annotations
@@ -29,12 +32,12 @@ import threading
 from typing import Dict, Optional, Tuple
 
 import numpy as np
-import torch
 
 
 def _block_view(x: torch.Tensor, block: int) -> Tuple[torch.Tensor, int]:
     """Flatten and zero-pad to whole blocks; returns ([n_blocks, block],
     original size)."""
+    import torch
     flat = x.reshape(-1)
     n = flat.shape[0]
     pad = (-n) % block
@@ -53,6 +56,7 @@ class OneBitQuantizer:
         """Returns (sign int8 [n_blocks, block] in {0,1} — UNPACKED, one
         byte per element; use :meth:`pack_signs` for the 1-bit wire format
         — pos/neg scales f32 [n_blocks], new_residual like delta)."""
+        import torch
         if residual is not None:
             delta = delta + residual
         blocks, n = _block_view(delta, self.block)
@@ -75,6 +79,7 @@ class OneBitQuantizer:
                 neg_scale.to(torch.float32), new_residual)
 
     def dequantize(self, sign, pos_scale, neg_scale, shape):
+        import torch
         deq = torch.where(sign.to(torch.bool), pos_scale[:, None],
                           -neg_scale[:, None])
         n = int(np.prod(shape))
@@ -84,6 +89,7 @@ class OneBitQuantizer:
         """[n_blocks, block] {0,1} → uint8 [n_blocks, block//8]: the 1-bit
         wire format (8 signs per byte, LSB-first). ``block`` must be a
         multiple of 8 (the default 512 is)."""
+        import torch
         nb, blk = sign.shape
         grouped = sign.to(torch.uint8).reshape(nb, blk // 8, 8)
         shifts = torch.arange(8, dtype=torch.uint8, device=sign.device)
@@ -91,6 +97,7 @@ class OneBitQuantizer:
 
     def unpack_signs(self, packed: torch.Tensor) -> torch.Tensor:
         """uint8 [n_blocks, block//8] → int8 [n_blocks, block] {0,1}."""
+        import torch
         nb, nbytes = packed.shape
         shifts = torch.arange(8, dtype=torch.uint8, device=packed.device)
         bits = (packed[..., None] >> shifts) & 1
@@ -110,6 +117,7 @@ class RoundingQuantizer:
     def quantize(self, delta: torch.Tensor, generator: torch.Generator):
         """Returns (q int8/int16 [n_blocks, block], scales f32). The
         uniform draws come from ``generator`` (on ``delta``'s device)."""
+        import torch
         blocks, _ = _block_view(delta, self.block)
         scale = blocks.abs().amax(1) / self._qmax
         scale = scale.clamp(min=1e-30)
@@ -123,6 +131,7 @@ class RoundingQuantizer:
         return q.to(dtype), scale.to(torch.float32)
 
     def dequantize(self, q, scale, shape):
+        import torch
         deq = q.to(torch.float32) * scale[:, None]
         n = int(np.prod(shape))
         return deq.reshape(-1)[:n].reshape(shape)

@@ -18,6 +18,8 @@ counts are compared bit for bit too (tightened from the tie rule that
 holds against the JAX package: on the card no draw differed).
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -2587,3 +2589,100 @@ def test_tiered_store_load_on_the_card_matches_cpu(cuda, tmp_path):
     vh, fh = host.get_tensor(keys)
     assert torch.equal(fg.cpu(), fh) and torch.equal(_tbits(vg),
                                                      _tbits(vh))
+
+
+# -- the wire server on the card ----------------------------------------------
+
+def _served(device, tmp_path, tag):
+    """One stream of frames through a TableServer on ``device`` (fuse 8),
+    from the port's WireClient: KV adds and Gets on an ftrl table, a
+    pipelined burst that fuses into groups on a default table, staleness
+    reads answered off the replica, and a tiered table spread over all
+    three tiers. Returns every reply's arrays and the fused-group count."""
+    import os
+    from multiverso_tpu_torch.client import transport
+    from multiverso_tpu_torch.ft import chaos
+    from multiverso_tpu_torch.server.table_server import TableServer
+    from multiverso_tpu_torch.tables import reset_tables
+    from multiverso_tpu_torch.telemetry import metrics
+    env = {"MVTPU_TIER_DIR": str(tmp_path / f"tiers-{tag}"),
+           "MVTPU_TIER_DEVICE_BUCKETS": "8", "MVTPU_TIER_HOST_BUCKETS": "8"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    name = f"cw-{tag}"
+    s = TableServer(f"unix:{tmp_path}/{tag}.sock", name=name,
+                    device=device, fuse=8)
+    addr = s.start()
+    rng = np.random.default_rng(50)
+    out = []
+    try:
+        with transport.connect(addr, client="w", quant=None) as c:
+            kv = c.create_kv("c_kv", 1 << 15, value_dim=2, updater="ftrl")
+            pool = np.unique(rng.integers(1, 2 ** 40, 3000, dtype=np.uint64))
+            for _ in range(4):
+                keys = rng.choice(pool, 700, replace=False)
+                kv.add(keys, rng.standard_normal((700, 2)).astype(
+                    np.float32), sync=True)
+                out += list(kv.get(np.append(keys, [7, 8]).astype(
+                    np.uint64)))
+            fused = c.create_kv("c_fused", 1 << 15, value_dim=2)
+            chaos.install_chaos("server.dequeue:latency:ms=200,times=1")
+            try:
+                for j in range(16):
+                    fused.add(pool[j * 50:j * 50 + 400],
+                              np.full((400, 2), float(j % 3 + 1),
+                                      np.float32))
+                c.drain()
+            finally:
+                chaos.uninstall_chaos()
+            out += list(fused.get(pool[:1200]))
+            hits = metrics.counter("server.replica.hits", server=name)
+            h0 = hits.value
+            replica = None
+            for _ in range(200):
+                header, arrays = c.call("kv_get", {"table": kv.table_id,
+                                                   "staleness": 0},
+                                        [pool[:500]])
+                if header.get("replica"):
+                    replica = [np.array(a) for a in arrays]
+                    break
+                time.sleep(0.02)
+            assert replica is not None and hits.value > h0
+            out += replica
+            tiered = c.create_kv("c_tiered", 1 << 15, value_dim=2,
+                                 updater="adagrad", tiered=True)
+            for i in range(3):
+                keys = rng.choice(pool, 900, replace=False)
+                tiered.add(keys, rng.standard_normal((900, 2)).astype(
+                    np.float32), sync=True)
+            out += list(tiered.get(pool))
+        groups = metrics.counter("server.fuse.groups", server=name).value
+    finally:
+        s.stop()
+        reset_tables()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return out, groups
+
+
+def test_wire_server_on_the_card_matches_cpu(cuda, tmp_path):
+    """A TableServer on cuda:0 answers the same frames as the same server
+    on the CPU, bit for bit: KV adds and Gets (the probe + commit and the
+    lookup kernels), a fused KV group, a staleness read off the replica
+    and a tiered_kv table."""
+    from multiverso_tpu_torch.server.table_server import TableServer
+    assert TableServer.__init__.__kwdefaults__["device"] == "cuda:0"
+    before = dict(tk.LAUNCHES)
+    gpu, g_groups = _served("cuda:0", tmp_path, "gpu")
+    grown = {k: tk.LAUNCHES[k] - before[k]
+             for k in ("kv_lookup", "kv_probe_update", "kv_commit")}
+    host, h_groups = _served("cpu", tmp_path, "cpu")
+    assert g_groups >= 1 and h_groups >= 1
+    assert len(gpu) == len(host)
+    for a, b in zip(gpu, host):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert a.tobytes() == b.tobytes()
+    assert min(grown.values()) > 0, grown
