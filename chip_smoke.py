@@ -214,6 +214,30 @@ its seconds):
    mid-stream: a survivor's and a fresh worker's adds land and the server
    answers. No handler error reply anywhere; the card's peak memory. It
    runs before phase 14.
+23. The server fleet (``multiverso_tpu_torch/server``,
+   ``client/router.py``), after phase 22: ``python -m
+   multiverso_tpu_torch.server --fleet 2 --replicas 2 --device cuda:0``
+   starts two primaries and a follower each, four processes on cuda:0,
+   and the port's router dials them through the fleet file. (a) Phase
+   10's 32 adds (ftrl, 2^26 slots over the two ranks: a member fills
+   only the half of its buckets in its share of the map, so each holds
+   phase 10's usable slots) through the router, each followed by a Get of its keys, equal bit for bit to a
+   local KVTable on cuda:0 fed the same adds, and by a bounded read
+   (staleness 8) of 4,096 keys through the router and of each rank's
+   follower directly: follower reads and fallbacks counted, every lag
+   within the bound; at the end the whole table equals the local one and
+   each follower its primary. (b) Rank 0's primary SIGKILLed with 4 adds
+   in flight and 4 more after: its follower is promoted (map v2, the
+   fleet file rewritten), the time from the kill to the first acked add
+   after it, and the table bit for bit the local one. (c) A fresh
+   2-member fleet grown to 3 by ``--grow`` while a worker thread streams
+   adds of 159,006 keys (small integer deltas, default updater, 2^26
+   slots) and of a 4M-element ArrayTable through the router: every value
+   the exact sum after the commit, then ``--shrink`` back to 2 bit for
+   bit; the moved bytes below the live bytes. The members count their
+   own launches and log them when they stop: #6 and #7 per member, and
+   the card's memory peak over every process (nvidia-smi). It runs
+   before phase 14.
 14. The row scatter's kernel on phase 2's sorted lanes, and phase 2's KV
    probe + commit calls (the flat form at the sparse-LR step's shapes,
    the sharded form on four shards), taken apart by torch.profiler: each
@@ -318,7 +342,9 @@ Launch counts are set to 0 before each main path (phases 3-4 word2vec,
 4c on each backend, 5, 6, 6b, 7, 8, 10, 11, 12, 13's word2vec and its
 COO superstep, 13b's two meshes, 15, each sweep of 16, 17's sparse LR,
 21a, 22) and read after it; phases 20, 21 and 22 read each run's
-launches as the difference of the counts around it. Before the last line the script prints
+launches as the difference of the counts around it; phase 23's member
+processes count from 0 at their start and log their counts when they
+stop. Before the last line the script prints
 one ``{"kernels": [...]}`` JSON line and the card's name and power limit;
 the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -338,6 +364,7 @@ import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -5976,6 +6003,496 @@ def phase_wire_server(torch, tk, KVTable, TableServer, transport, tchaos,
     return out
 
 
+# phase 23: the server fleet on the card. A launcher (``python -m
+# multiverso_tpu_torch.server --fleet 2 --replicas 2 --device cuda:0``)
+# starts two primaries and a follower each, all processes on cuda:0; the
+# port's router dials them through the fleet file. 23a replays phase 10's
+# adds through the router (each rank's follower applies every forwarded
+# frame itself) with a bounded read (staleness FLEET_STALENESS) after
+# each; 23b SIGKILLs rank 0's primary with FLEET_KILL_ADDS more adds in
+# flight; 23c grows a fresh 2-member fleet to 3 while a worker thread
+# streams adds (FLEET_GROW_KEYS keys of phase 10's adds, small integer
+# deltas) into a default-updater KV table and a FLEET_GROW_DENSE-element
+# ArrayTable, then shrinks it back to 2
+FLEET_STALENESS = 8
+FLEET_KILL_ADDS = 8
+# the fleet's KV tables: a member of a 2-rank fleet hashes its keys into
+# its local buckets with the fleet map's own splitmix64, so it can fill
+# only the half of them whose index falls in its share of the map's
+# buckets (the reference's geometry; ROADMAP queue C). Twice phase 10's
+# capacity gives each member as many usable slots as phase 10's table
+FLEET_CAPACITY = 2 * SLR_CAPACITY
+FLEET_GROW_DENSE = 1 << 22
+FLEET_GROW_KEYS = 159_006
+FLEET_GROW_AFTER = 4            # worker adds after the grow returned
+FLEET_START_S = 180
+# the router's redial budget: a dead primary costs a few redials, then
+# the failover (the client default is 10 attempts within 60 s)
+FLEET_RETRY = {"MVTPU_RETRY_ATTEMPTS": "4", "MVTPU_RETRY_DEADLINE_S": "10",
+               "MVTPU_SHRINK_LINGER_S": "0.5",
+               "MVTPU_RESHARD_TIMEOUT_S": "240"}
+# the launches are a flat JSON object: match it alone, so a record that
+# another member's record follows on the same line still parses
+_LAUNCH_LINE = re.compile(
+    r"table server '([^']+)': kernel launches (\{[^{}]*\})")
+
+
+def fleet_cmd(*args: str) -> list:
+    return [sys.executable, "-m", "multiverso_tpu_torch.server",
+            "--device", "cuda:0", *args]
+
+
+def fleet_env() -> dict:
+    env = dict(os.environ)
+    env["PYTHONPATH"] = HERE + (os.pathsep + env["PYTHONPATH"]
+                                if env.get("PYTHONPATH") else "")
+    return env
+
+
+def card_memory_mib() -> int:
+    """Device memory in use on the card, all processes (nvidia-smi)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used",
+         "--format=csv,noheader,nounits"], capture_output=True,
+        text=True, check=True).stdout.split()
+    return int(out[0])
+
+
+def fleet_launch(tmp: str, tag: str, n: int, replicas: int):
+    """A launcher process of ``n`` members (and their followers) on
+    cuda:0; returns (process, fleet file, base address, log path) once
+    the fleet file is written. A member that fails to start fails the
+    phase."""
+    ffile = os.path.join(tmp, f"{tag}.fleet.json")
+    base = f"unix:{tmp}/{tag}.sock"
+    log_path = os.path.join(tmp, f"{tag}.log")
+    with open(log_path, "w") as logf:
+        proc = subprocess.Popen(
+            fleet_cmd("--fleet", str(n), "--replicas", str(replicas),
+                      "--fleet-file", ffile, "--address", base,
+                      "--name", tag),
+            cwd=HERE, env=fleet_env(), stdout=logf,
+            stderr=subprocess.STDOUT)
+    deadline = time.monotonic() + FLEET_START_S
+    while not os.path.exists(ffile):
+        if proc.poll() is not None or time.monotonic() > deadline:
+            fleet_stop(proc, None, log_path)
+            with open(log_path) as f:
+                tail = f.read()[-3000:]
+            raise SystemExit(f"fleet {tag}: the launcher exited "
+                             f"{proc.returncode} before its members were "
+                             f"up: {tail}")
+        time.sleep(0.05)
+    return proc, ffile, base, log_path
+
+
+def fleet_pids(ffile) -> list:
+    from multiverso_tpu_torch.server import partition
+    doc = partition.read_fleet_file(ffile) if ffile else None
+    pids = []
+    for m in (doc or {}).get("members", []):
+        pids.append(int(m["pid"]))
+        pids += [int(r["pid"]) for r in m.get("replicas", [])]
+    return pids
+
+
+def fleet_stop(proc, ffile, *logs) -> dict:
+    """Stop a launcher (SIGTERM reaches every member it started) and any
+    member it did not start (a grown one); returns each member's kernel
+    launches from the logs."""
+    pids = fleet_pids(ffile)
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    for pid in pids:
+        with contextlib.suppress(OSError):
+            os.kill(pid, signal.SIGTERM)
+    deadline = time.monotonic() + 30
+    for pid in pids:
+        while time.monotonic() < deadline:
+            try:
+                os.kill(pid, 0)
+            except OSError:
+                break
+            time.sleep(0.05)
+        with contextlib.suppress(OSError):
+            os.kill(pid, signal.SIGKILL)
+    launches = {}
+    for path in logs:
+        if path and os.path.exists(path):
+            with open(path) as f:
+                for m in _LAUNCH_LINE.finditer(f.read()):
+                    launches[m.group(1)] = json.loads(m.group(2))
+    return launches
+
+
+def process_gone(pid: int, timeout: float = 30) -> bool:
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        try:
+            os.kill(pid, 0)
+        except OSError:
+            return True
+        time.sleep(0.02)
+    return False
+
+
+def replica_counts(telemetry) -> tuple:
+    """The router's follower reads and fallbacks so far (all ranks)."""
+    snap = telemetry.snapshot().get("counters", {})
+    reads = sum(v for k, v in snap.items()
+                if k.startswith("fleet.replica.reads"))
+    falls = sum(v for k, v in snap.items()
+                if k.startswith("fleet.replica.fallbacks"))
+    return reads, falls
+
+
+def followers_match(router, transport, fc, t, keys) -> None:
+    """Each rank's follower answers bit for bit what its primary answers
+    (staleness 0: every acked add is on the follower)."""
+    owner = fc.pmap.kv_owner(keys)
+    reps = router.replica_addresses(fc._fleet_file)
+    for r in range(fc.pmap.n):
+        mine = keys[owner == r]
+        if not reps[r] or not len(mine):
+            continue
+        want = t.get_shard(r).get(mine)
+        c = transport.WireClient(reps[r][0], client=f"check{r}",
+                                 quant=None, partition=fc.pmap.to_wire())
+        try:
+            _, got = c.call("kv_get", {"table": t.table_id,
+                                       "staleness": 0}, [mine])
+        finally:
+            c.close()
+        if not same_reply(got, [np.asarray(w) for w in want]):
+            raise SystemExit(f"fleet 23a: rank {r}'s follower differs "
+                             "from its primary")
+
+
+def fleet_replicate(torch, KVTable, router, transport, telemetry, adds,
+                    union, ffile, card: str) -> tuple:
+    """23a: phase 10's adds through the router into the fleet, a local
+    KVTable on cuda:0 fed the same adds; every Get equals the local
+    table's; a direct bounded read of each rank's follower records its
+    lag, and a bounded read through the router counts follower hits and
+    fallbacks."""
+    local = KVTable(SLR_CAPACITY, value_dim=2, updater="ftrl",
+                    device="cuda:0", name="smoke_fleet_local")
+    fc = router.connect_fleet_file(ffile, client="slr", quant=None,
+                                   read_replica=1)
+    t = fc.create_kv("fleet_slr", FLEET_CAPACITY, value_dim=2,
+                     updater="ftrl")
+    probe = adds[0][0][:WIRE_PROBE_KEYS]
+    owner = fc.pmap.kv_owner(probe)
+    reps = router.replica_addresses(ffile)
+    lag_clients = [transport.WireClient(reps[r][0], client=f"lag{r}",
+                                        quant=None,
+                                        partition=fc.pmap.to_wire())
+                   for r in range(fc.pmap.n)]
+    add_ms, get_ms, bounded_ms, lags = [], [], [], []
+    reads0, falls0 = replica_counts(telemetry)
+    try:
+        for i, (keys, deltas) in enumerate(adds):
+            t0 = time.perf_counter()
+            t.add(keys, deltas, sync=True)
+            add_ms.append(1e3 * (time.perf_counter() - t0))
+            local.add(keys, deltas)
+            t0 = time.perf_counter()
+            got = t.get(keys)
+            get_ms.append(1e3 * (time.perf_counter() - t0))
+            if not same_reply(list(got), local.get(keys)):
+                raise SystemExit(f"fleet 23a: the Get after add {i} "
+                                 "differs from the local table's")
+            for r, c in enumerate(lag_clients):
+                hdr, _ = c.call("kv_get", {
+                    "table": t.table_id, "staleness": FLEET_STALENESS},
+                    [probe[owner == r]])
+                if not hdr.get("follower"):
+                    raise SystemExit(f"fleet 23a: rank {r}'s follower "
+                                     f"did not answer as one: {hdr}")
+                lags.append(dict(rank=r, lag=int(hdr["lag"]),
+                                 reader=bool(hdr.get("replica"))))
+            t0 = time.perf_counter()
+            t.get(probe, staleness=FLEET_STALENESS)
+            bounded_ms.append(1e3 * (time.perf_counter() - t0))
+        reads, falls = replica_counts(telemetry)
+        reads, falls = reads - reads0, falls - falls0
+        if reads <= 0 or max(x["lag"] for x in lags) > FLEET_STALENESS:
+            raise SystemExit(f"fleet 23a: {reads} follower reads, lags "
+                             f"{sorted({x['lag'] for x in lags})}")
+        got = t.get(union)
+        if not same_reply(list(got), local.get(union)):
+            raise SystemExit("fleet 23a: the fleet's table differs from "
+                             "the local table")
+        followers_match(router, transport, fc, t, union)
+    finally:
+        for c in lag_clients:
+            c.close()
+    out = dict(adds=len(adds),
+               add_ms=dict(p50=pct(add_ms, 50), p99=pct(add_ms, 99)),
+               get_ms=dict(p50=pct(get_ms, 50), p99=pct(get_ms, 99)),
+               bounded_get_ms=dict(p50=pct(bounded_ms, 50),
+                                   p99=pct(bounded_ms, 99)),
+               follower_reads=reads, follower_fallbacks=falls,
+               lags=sorted({x["lag"] for x in lags}),
+               lag_reader_answers=sum(x["reader"] for x in lags),
+               lag_reads=len(lags), card_mib=card_memory_mib())
+    log(f"  23a {len(adds)} adds of {np.mean([len(k) for k, _ in adds]):.0f}"
+        f" keys (ftrl, 2^26 slots over 2 ranks x primary + follower) "
+        f"through the router: every Get and the whole table bit for bit "
+        f"the local table's, each follower its primary's; add wall p50 "
+        f"{out['add_ms']['p50']:.2f} / p99 {out['add_ms']['p99']:.2f} ms, "
+        f"get p50 {out['get_ms']['p50']:.2f} / p99 "
+        f"{out['get_ms']['p99']:.2f} ms, bounded get p50 "
+        f"{out['bounded_get_ms']['p50']:.2f} ms; follower reads {reads}, "
+        f"fallbacks {falls}; follower lags {out['lags']} (bound "
+        f"{FLEET_STALENESS}; {out['lag_reader_answers']} of "
+        f"{len(lags)} answered on a reader thread); on {card}")
+    return fc, t, local, out
+
+
+def fleet_failover(router, fc, t, local, adds, union, ffile,
+                   card: str) -> dict:
+    """23b: SIGKILL rank 0's primary with adds in flight; the router
+    promotes its follower. Every acked add lands exactly once: the final
+    table equals the local table bit for bit."""
+    from multiverso_tpu_torch.server import partition
+    doc = partition.read_fleet_file(ffile)
+    row0 = doc["members"][0]
+    victim, heir = int(row0["pid"]), row0["replicas"][0]["addresses"][0]
+    half = FLEET_KILL_ADDS // 2
+    handles = []
+    for keys, deltas in adds[:half]:
+        handles.append(t.add(keys, deltas))
+        local.add(keys, deltas)
+    os.kill(victim, signal.SIGKILL)
+    t_kill = time.perf_counter()
+    if not process_gone(victim):
+        raise SystemExit("fleet 23b: the killed primary never went away")
+    keys, deltas = adds[half]
+    h = t.add(keys, deltas)
+    local.add(keys, deltas)
+    h.wait()
+    ttr = time.perf_counter() - t_kill
+    for keys, deltas in adds[half + 1:FLEET_KILL_ADDS]:
+        handles.append(t.add(keys, deltas))
+        local.add(keys, deltas)
+    for h in handles:
+        h.wait()
+    fc.drain()
+    doc = partition.read_fleet_file(ffile)
+    if fc.pmap.version != 2 or doc["members"][0]["addresses"][0] != heir:
+        raise SystemExit(f"fleet 23b: map v{fc.pmap.version}, rank 0 at "
+                         f"{doc['members'][0]['addresses']} (the follower "
+                         f"was {heir})")
+    got = t.get(union)
+    if not same_reply(list(got), local.get(union)):
+        raise SystemExit("fleet 23b: after the failover the fleet's table "
+                         "differs from the local table")
+    out = dict(adds=FLEET_KILL_ADDS, recover_s=ttr,
+               map_version=fc.pmap.version)
+    log(f"  23b rank 0's primary SIGKILLed with {half} adds in flight: "
+        f"its follower promoted (map v{fc.pmap.version}), the first add "
+        f"after the kill acked in {ttr:.2f} s; after {FLEET_KILL_ADDS} "
+        f"adds the table is bit for bit the local table's (every acked "
+        f"add exactly once); on {card}")
+    return out
+
+
+def grow_add(j: int, keys):
+    """Worker add j of 23c: small integer deltas, exact in any order."""
+    base = (keys % np.uint64(5)).astype(np.float32) + 1 + (j % 3)
+    return np.stack([base, 2 * base - (j % 3)], axis=1)
+
+
+def grow_dense(j: int) -> np.ndarray:
+    return ((np.arange(FLEET_GROW_DENSE) + j) % 7 + 1).astype(np.float32)
+
+
+def fleet_grow(router, adds, tmp: str, card: str) -> dict:
+    """23c: a fresh 2-member fleet grows to 3 while a worker thread
+    streams adds into a default-updater KV table and a dense ArrayTable,
+    then shrinks back to 2 with no traffic; both reads are exact."""
+    proc, ffile, base, log_path = fleet_launch(tmp, "sg", 2, 1)
+    key_sets = [k[:FLEET_GROW_KEYS] for k, _ in adds]
+    union = np.unique(np.concatenate(key_sets))
+    out = {}
+    try:
+        fc = router.connect_fleet_file(ffile, client="grow", quant=None)
+        kv = fc.create_kv("grow_kv", FLEET_CAPACITY, value_dim=2,
+                          updater="default")
+        dense = fc.create_array("grow_dense", FLEET_GROW_DENSE)
+        done, stamps, errors = [], [], []
+        stop = threading.Event()
+
+        def stream():
+            try:
+                j = 0
+                while not stop.is_set() or j < 2:
+                    keys = key_sets[j % len(key_sets)]
+                    kv.add(keys, grow_add(j, keys), sync=True)
+                    dense.add(grow_dense(j), sync=True)
+                    done.append(j)
+                    stamps.append(time.perf_counter())
+                    j += 1
+                for k in range(FLEET_GROW_AFTER):
+                    keys = key_sets[j % len(key_sets)]
+                    kv.add(keys, grow_add(j, keys), sync=True)
+                    dense.add(grow_dense(j), sync=True)
+                    done.append(j)
+                    j += 1
+            except BaseException as exc:    # noqa: BLE001 — the check
+                errors.append(exc)          # below fails the phase
+        worker = threading.Thread(target=stream, name="grow-worker")
+        worker.start()
+        time.sleep(0.5)
+        mem0 = card_memory_mib()
+        t0 = time.perf_counter()
+        grow = subprocess.run(fleet_cmd("--grow", "--fleet-file", ffile,
+                                        "--address", base, "--name", "sg"),
+                              cwd=HERE, env=fleet_env(),
+                              capture_output=True, text=True, timeout=600)
+        t1 = time.perf_counter()
+        mem1 = card_memory_mib()
+        stop.set()
+        worker.join(timeout=600)
+        if errors or worker.is_alive() or grow.returncode != 0:
+            raise SystemExit(f"fleet 23c: grow rc {grow.returncode} "
+                             f"({grow.stderr[-2000:]}), worker {errors}")
+        summary = json.loads(grow.stdout.strip().splitlines()[-1])
+        during = sum(t0 <= s <= t1 for s in stamps)
+        # the exact sums, in float64 (small integers: exact in float32)
+        inv = [np.searchsorted(union, k) for k in key_sets]
+        want = np.zeros((len(union), 2))
+        want_dense = np.zeros(FLEET_GROW_DENSE)
+        for j in done:
+            a = j % len(key_sets)
+            want[inv[a]] += grow_add(j, key_sets[a])
+            want_dense += grow_dense(j)
+        want = want.astype(np.float32)
+        want_dense = want_dense.astype(np.float32)
+
+        def check(what: str) -> None:
+            vals, found = kv.get(union)
+            if not found.all() or vals.tobytes() != want.tobytes() \
+                    or dense.get().tobytes() != want_dense.tobytes():
+                raise SystemExit(f"fleet 23c: after the {what} the "
+                                 "tables differ from the exact sums")
+        check("grow")
+        if fc.pmap.n != 3 or not summary.get("ok") \
+                or summary.get("n_to") != 3 or during < 1:
+            raise SystemExit(f"fleet 23c: grow {summary}, router n "
+                             f"{fc.pmap.n}, {during} adds during it")
+        live = len(union) * (8 + 2 * 4) + FLEET_GROW_DENSE * 4
+        t2 = time.perf_counter()
+        shrink = subprocess.run(fleet_cmd("--shrink", "--fleet-file",
+                                          ffile, "--address", base,
+                                          "--name", "sg"),
+                                cwd=HERE, env=fleet_env(),
+                                capture_output=True, text=True,
+                                timeout=600)
+        t3 = time.perf_counter()
+        if shrink.returncode != 0:
+            raise SystemExit(f"fleet 23c: shrink rc {shrink.returncode}: "
+                             f"{shrink.stderr[-2000:]}")
+        back = json.loads(shrink.stdout.strip().splitlines()[-1])
+        check("shrink")
+        for s in (summary, back):
+            if not 0 < s["moved_bytes"] < live:
+                raise SystemExit(f"fleet 23c: moved {s['moved_bytes']} "
+                                 f"bytes of {live} live")
+        if fc.pmap.n != 2 or back.get("n_to") != 2:
+            raise SystemExit(f"fleet 23c: shrink {back}, router n "
+                             f"{fc.pmap.n}")
+        fc.close()
+        out = dict(adds=len(done), adds_during_grow=during,
+                   grow=dict(seconds=t1 - t0, **{
+                       k: summary[k] for k in ("moved_bytes", "chunks",
+                                               "forwards", "elapsed_s")}),
+                   shrink=dict(seconds=t3 - t2, **{
+                       k: back[k] for k in ("moved_bytes", "chunks",
+                                            "forwards", "elapsed_s")}),
+                   live_bytes=live, keys=len(union),
+                   card_mib=max(mem0, mem1))
+    finally:
+        out["launches"] = fleet_stop(proc, ffile, log_path,
+                                     f"{ffile}.r2.log")
+    log(f"  23c grow 2 -> 3 under a worker's {out['adds']} adds "
+        f"({out['adds_during_grow']} while the grow ran; "
+        f"{FLEET_GROW_KEYS} keys, default updater, 2^26 slots, and a "
+        f"{FLEET_GROW_DENSE}-element ArrayTable): {out['grow']['seconds']:.2f}"
+        f" s, moved {out['grow']['moved_bytes']} of {live} live bytes "
+        f"({out['grow']['chunks']} chunks, {out['grow']['forwards']} "
+        f"forwards); every value the exact sum. Shrink 3 -> 2: "
+        f"{out['shrink']['seconds']:.2f} s, moved "
+        f"{out['shrink']['moved_bytes']} bytes, bit for bit; on {card}")
+    return out
+
+
+def phase_fleet(torch, KVTable, router, transport, telemetry, adds,
+                card: str) -> dict:
+    """Phase 23: the server fleet on cuda:0 (see fleet_replicate,
+    fleet_failover, fleet_grow). Returns the numbers."""
+    free_tables(torch)
+    t_phase = time.perf_counter()
+    host = [(np.asarray(k, np.uint64),
+             d.cpu().numpy() if hasattr(d, "cpu") else np.asarray(d))
+            for k, d in adds]
+    union = np.unique(np.concatenate([k for k, _ in host]))
+    saved = {k: os.environ.get(k) for k in FLEET_RETRY}
+    os.environ.update(FLEET_RETRY)
+    out = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            proc, ffile, _base, log_path = fleet_launch(tmp, "sf", 2, 2)
+            try:
+                fc, t, local, out["a"] = fleet_replicate(
+                    torch, KVTable, router, transport, telemetry, host,
+                    union, ffile, card)
+                out["b"] = fleet_failover(router, fc, t, local, host,
+                                          union, ffile, card)
+                out["card_mib"] = card_memory_mib()
+                fc.close()
+                del local
+                free_tables(torch)
+            finally:
+                launches = fleet_stop(proc, ffile, log_path)
+            out["launches"] = launches
+            out["c"] = fleet_grow(router, host, tmp, card)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    members = {**out["launches"], **out["c"]["launches"]}
+    for name in ("sf-1", "sf-0f1", "sf-1f1"):
+        got = members.get(name, {})
+        if not got.get("kv_probe_update") or not got.get("kv_commit"):
+            raise SystemExit(f"fleet: member {name} launched {got}: the "
+                             "KV probe + commit never ran there")
+    if not members.get("sf-1", {}).get("kv_lookup"):
+        raise SystemExit("fleet: rank 1's primary never launched the KV "
+                         "lookup")
+    out.update(members=members,
+               peak_card_mib=max(out["a"]["card_mib"], out["card_mib"],
+                                 out["c"]["card_mib"]),
+               seconds=time.perf_counter() - t_phase)
+    log("  23 kernel launches per member (#6 kv_lookup, #7 kv_probe_update "
+        "+ kv_commit): " + "; ".join(
+            f"{name} {v.get('kv_lookup', 0)} / {v.get('kv_probe_update', 0)}"
+            f" + {v.get('kv_commit', 0)}" for name, v in sorted(
+                members.items())) + f" (sf-0 SIGKILLed, not counted); card "
+        f"memory peak {out['peak_card_mib']} MiB (nvidia-smi, every "
+        f"process); {out['seconds']:.1f} s; on {card}")
+    return out
+
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6026,6 +6543,7 @@ def main(argv) -> int:
     from multiverso_tpu_torch.utils import quantization as quant
     from multiverso_tpu_torch.server.table_server import TableServer
     from multiverso_tpu_torch.client import transport as wire_transport
+    from multiverso_tpu_torch.client import router as fleet_router
     profile = "--profile" in argv
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -6333,8 +6851,18 @@ def main(argv) -> int:
                                wire_transport, tchaos, telemetry,
                                slr_data["adds"], card)
     paths["wire_server"] = wire22["a"]["launches"]
-    del slr_data
     phase_end("wire_server")
+
+    phase("fleet", "phase 23: the server fleet on cuda:0 (2 ranks x "
+          "primary + follower, launched by the CLI, through the router; "
+          "a: phase 10's adds replicated, bounded reads off the "
+          "followers; b: rank 0's primary SIGKILLed, its follower "
+          "promoted; c: a live grow 2 -> 3 under a worker's adds, then a "
+          "shrink back)")
+    fleet23 = phase_fleet(torch, KVTable, fleet_router, wire_transport,
+                          telemetry, slr_data["adds"], card)
+    del slr_data
+    phase_end("fleet")
 
     log("phase 19a/c/d: the stat reduction vs numpy; the dense logreg "
         "under a chaos NaN with MVTPU_HEALTH_ACTION=rollback, and killed "
@@ -6496,6 +7024,18 @@ def main(argv) -> int:
         f"replica hits {wa['replica_hits']} of {wa['stale_reads']}; fused "
         f"groups {wire22['b']['groups']}; phase 22 "
         f"{phase_s['wire_server']:.1f} s; on {card}")
+    fa, fc23 = fleet23["a"], fleet23["c"]
+    log(f"  fleet: add p50/p99 {fa['add_ms']['p50']:.2f} / "
+        f"{fa['add_ms']['p99']:.2f} ms, get {fa['get_ms']['p50']:.2f} / "
+        f"{fa['get_ms']['p99']:.2f} ms; follower reads "
+        f"{fa['follower_reads']:.0f}, fallbacks "
+        f"{fa['follower_fallbacks']:.0f}; recover "
+        f"{fleet23['b']['recover_s']:.2f} s; grow "
+        f"{fc23['grow']['seconds']:.1f} s / shrink "
+        f"{fc23['shrink']['seconds']:.1f} s, "
+        f"{fc23['grow']['moved_bytes']} of {fc23['live_bytes']} bytes "
+        f"moved; card peak {fleet23['peak_card_mib']} MiB; phase 23 "
+        f"{phase_s['fleet']:.1f} s; on {card}")
 
     row_src = "multiverso_tpu_torch/ops/csrc/row_kernels.cu"
     coo_src = "multiverso_tpu_torch/ops/csrc/coo_kernels.cu"
@@ -6589,7 +7129,7 @@ def main(argv) -> int:
                        kv_data_axis=kv_data,
                        row_scatter_parts=scatter_parts, telemetry=tel,
                        health=h19, client=c20, tiered_kv=tiered,
-                       wire_server=wire22,
+                       wire_server=wire22, fleet=fleet23,
                        seconds=time.perf_counter() - t_start), f, indent=1)
     log(f"phase seconds: { {k: round(v, 1) for k, v in phase_s.items()} }")
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -26,9 +26,10 @@ table surface over a socket to a
 :class:`~multiverso_tpu_torch.server.table_server.TableServer` process
 (the port's or the reference's), with the CoalescingBuffer working over
 remote tables unchanged. It is re-exported lazily (PEP 562), so that
-only code that talks to a wire loads the wire. The reference's fleet
-router (``FleetClient`` and its tables, ``connect_fleet``) is still to
-come (ROADMAP.md queue A item 11c).
+only code that talks to a wire loads the wire. So is the scatter-gather
+fleet router in :mod:`.router` (``FleetClient`` and its tables,
+``connect_fleet``, ``connect_fleet_file``), which drives a fleet of
+either package's servers.
 """
 
 from __future__ import annotations
@@ -46,7 +47,8 @@ _TRANSPORT_NAMES = ("WireClient", "RemoteArrayTable", "RemoteKVTable",
                     "RemoteHandle", "DeltaBatcher", "RemoteError",
                     "connect", "wire_retry_policy")
 
-#: the reference's scatter-gather fleet names, not ported yet
+#: scatter-gather fleet names, lazily re-exported from .router (same
+#: rationale as the transport names: only wire code loads the wire)
 _ROUTER_NAMES = ("FleetClient", "FleetArrayTable", "FleetKVTable",
                  "FleetHandle", "connect_fleet", "connect_fleet_file",
                  "fleet_addresses")
@@ -63,9 +65,10 @@ def __getattr__(name: str):
         return transport if name == "transport" \
             else getattr(transport, name)
     if name in _ROUTER_NAMES or name == "router":
-        raise AttributeError(
-            f"{__name__}.{name}: the fleet router is not ported yet "
-            "(ROADMAP A11c)")
+        import importlib
+        router = importlib.import_module(
+            "multiverso_tpu_torch.client.router")
+        return router if name == "router" else getattr(router, name)
     raise AttributeError(
         f"module {__name__!r} has no attribute {name!r}")
 
@@ -119,5 +122,5 @@ __all__ = [
     "CachedView", "CoalescingBuffer", "KVStagingWriter", "PendingHandle",
     "COALESCE_ENV", "STALENESS_ENV", "coalesce_from_env",
     "maybe_cached_view", "maybe_coalescing", "staleness_from_env",
-    "stage_kv_adds", *_TRANSPORT_NAMES,
+    "stage_kv_adds", *_TRANSPORT_NAMES, *_ROUTER_NAMES,
 ]

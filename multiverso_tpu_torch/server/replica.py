@@ -38,9 +38,8 @@ a miss (no snapshot yet, bound exceeded, in-flight refresh) falls back
 to the dispatch queue, where the miss handler kicks another refresh.
 Tiered KV tables are not replicated: their device arrays hold only the
 resident tier, so a device snapshot would serve wrong (tier-partial)
-reads. The reference's follower mode (a replica of a replication
-follower, its staleness measured against the repl stream) comes with
-ROADMAP queue A item 11b.
+reads. On a replication follower a replica measures its staleness
+against the repl stream (``stream``), as the reference's does.
 """
 
 from __future__ import annotations
@@ -95,11 +94,21 @@ class TableReplica:
     """One table's read replica (see module docstring)."""
 
     def __init__(self, table: Any, kind: str, *,
-                 server: str = "tables") -> None:
+                 server: str = "tables", stream: Any = None,
+                 tid: Optional[int] = None) -> None:
         if kind not in ("array", "kv"):
             raise ValueError(f"no replica for table kind {kind!r}")
         self.table = table
         self.kind = kind
+        # on a FOLLOWER the honest staleness reference is not the
+        # local generation but the newest primary generation the repl
+        # stream has ANNOUNCED at intake (frames noted but not yet
+        # applied are real lag the local generation can't see):
+        # ``stream`` is the server's FollowerState, or None on a
+        # primary. ``tid`` is the WIRE table id the stream keys on
+        # (the registry id on ``table`` is a different id space).
+        self.stream = stream
+        self.tid = int(tid) if tid is not None else None
         # a missing key's value in the table's host form (bfloat16 bits)
         self._fill = host_array(torch.tensor(
             float(getattr(table, "default_value", 0.0)),
@@ -240,6 +249,11 @@ class TableReplica:
             self._c_misses.inc()
             return None
         lag = max(self.table.generation - gen, 0)   # plain int reads
+        if self.stream is not None and self.tid is not None:
+            # follower: lag vs the stream's noted primary generation
+            # (>= local generation — frames noted at intake but not
+            # yet applied are real lag the local generation can't see)
+            lag = max(lag, self.stream.lag(self.tid, gen))
         degraded = False
         relaxed = False
         if lag > bound:
@@ -260,6 +274,11 @@ class TableReplica:
         self._g_stale.set(float(lag))
         head = {"ok": True, "gen": gen, "replica": True,
                 "staleness": lag}
+        if self.stream is not None:
+            # follower-served replies carry the same markers the
+            # dispatch-path follower serve annotates
+            head["follower"] = True
+            head["lag"] = lag
         # trace echo (the wire's TRACE_KEY, read raw): a replica-served
         # reply names the request it answered, like shed/expired
         # replies do

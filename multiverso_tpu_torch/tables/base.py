@@ -658,6 +658,30 @@ class Table:
             self.generation += 1
         self._notify_views()
 
+    def _host_range(self, lo: int, hi: int) -> np.ndarray:
+        """Rows [lo, hi) of the storage, on the host (a live reshard's
+        chunk: the reference slices ``raw()``)."""
+        return self._whole()[lo:hi].cpu().numpy()
+
+    def _put_range(self, lo: int, values: np.ndarray) -> None:
+        """Set rows [lo, lo + len(values)) of the storage on every
+        replica, shard by shard; advances the generation as
+        :meth:`put_raw` does (the reference writes ``raw()`` back whole).
+        Updater state is untouched."""
+        src = torch.from_numpy(np.ascontiguousarray(
+            values, self.np_dtype))
+        hi = lo + len(src)
+        rows = self._rows_per_shard
+        for shards in self.replicas:
+            for s, shard in enumerate(shards):
+                x, y = max(lo, s * rows), min(hi, (s + 1) * rows)
+                if x < y:
+                    shard[x - s * rows:y - s * rows] = \
+                        src[x - lo:y - lo].to(shard.device)
+        with self._option_lock:
+            self.generation += 1
+        self._notify_views()
+
     def put_views(self, views) -> None:
         """Replace each replica's storage with ``views[d]`` in the form
         :meth:`superstep_view` gives it (a tensor of the storage shape on

@@ -362,6 +362,48 @@ class KVTable:
 
     # -- keys and overflow ------------------------------------------------
 
+    def _bucket_rows(self, buckets: np.ndarray
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+        """Whole bucket rows of replica 0 on the host: keys as uint32
+        planes (m, S, 2) and values (m, S[, V]) in the host form
+        (:func:`host_values`)."""
+        bps = self._buckets_per_shard
+        hk = np.empty((len(buckets), self.slots, 2), np.uint32)
+        vtail = (self.value_dim,) if self.value_dim else ()
+        hv = np.empty((len(buckets), self.slots) + vtail,
+                      np.uint16 if self.dtype == torch.bfloat16
+                      else torch.empty(0, dtype=self.dtype).numpy().dtype)
+        shard = buckets // bps
+        for s in np.unique(shard):
+            sel = np.flatnonzero(shard == s)
+            keys, vals = self.key_shards[s], self.value_shards[s]
+            rows = torch.as_tensor(buckets[sel] - s * bps,
+                                   device=keys.device)
+            hk[sel] = keys.index_select(0, rows).cpu().numpy().view(
+                np.uint32)
+            got = vals.index_select(0, rows).cpu()
+            hv[sel] = got.view(torch.int16).numpy().view(np.uint16) \
+                if self.dtype == torch.bfloat16 else got.numpy()
+        return hk, hv
+
+    def _put_bucket_rows(self, buckets: np.ndarray, hk: np.ndarray,
+                         hv: np.ndarray) -> None:
+        """Write whole bucket rows (as :meth:`_bucket_rows` gives them)
+        to every replica, keys and values; the updater state stays."""
+        bps = self._buckets_per_shard
+        shard = buckets // bps
+        for s in np.unique(shard):
+            sel = np.flatnonzero(shard == s)
+            local = buckets[sel] - s * bps
+            k = torch.from_numpy(_keys_device(hk[sel]))
+            v = from_host(hv[sel], self.dtype)
+            for r in range(self.n_replicas):
+                keys = self.replica_keys[r][s]
+                rows = torch.as_tensor(local, device=keys.device)
+                keys.index_copy_(0, rows, k.to(keys.device))
+                vals = self.replica_values[r][s]
+                vals.index_copy_(0, rows, v.to(vals.device))
+
     def _buckets_of(self, keys: np.ndarray) -> np.ndarray:
         return (_hash_u64(keys) % np.uint64(self.num_buckets)).astype(
             np.int32)

@@ -61,10 +61,15 @@ class Logger:
         stamp = time.strftime("%Y-%m-%d %H:%M:%S", time.localtime())
         ident = f"h{host_index()}:{os.getpid()}"
         line = f"[{_LEVEL_NAMES[level]}] [{stamp}] [{ident}] {msg}"
+        # one write a record: print() sends the newline in a write of
+        # its own when the stream is unbuffered (python -u), and then
+        # processes sharing one log file interleave their records
         with self._lock:
-            print(line, file=sys.stderr, flush=True)
+            sys.stderr.write(line + "\n")
+            sys.stderr.flush()
             if self._file is not None:
-                print(line, file=self._file, flush=True)
+                self._file.write(line + "\n")
+                self._file.flush()
         if level >= FATAL:
             raise SystemExit(line)
 

@@ -2686,3 +2686,86 @@ def test_wire_server_on_the_card_matches_cpu(cuda, tmp_path):
         assert a.dtype == b.dtype and a.shape == b.shape
         assert a.tobytes() == b.tobytes()
     assert min(grown.values()) > 0, grown
+
+
+# -- a replicated pair on the card --------------------------------------------
+
+def _replicated_pair(device, tmp_path, tag):
+    """A 1-rank primary (fuse 8) streaming to its follower, both on
+    ``device``, behind the port's router: an unfused ftrl KV stream
+    (each add acked before the next) and a pipelined default-updater
+    stream that fuses into groups. Returns the primary's and the
+    follower's answers and the fused-group count."""
+    from multiverso_tpu_torch.client import router
+    from multiverso_tpu_torch.ft import chaos
+    from multiverso_tpu_torch.server import partition
+    from multiverso_tpu_torch.server.table_server import TableServer
+    from multiverso_tpu_torch.tables import reset_tables
+    from multiverso_tpu_torch.telemetry import metrics
+    pmap = partition.PartitionMap(1, replicas=2)
+    fol = TableServer(f"unix:{tmp_path}/{tag}-f.sock", name=f"rf-{tag}",
+                      partition=partition.PartitionMember(pmap, 0),
+                      follower=True, replica_idx=1, device=device)
+    fol_addr = fol.start()
+    pri = TableServer(f"unix:{tmp_path}/{tag}-p.sock", name=f"rp-{tag}",
+                      partition=partition.PartitionMember(pmap, 0),
+                      replicate_to=[fol_addr], device=device, fuse=8)
+    pri_addr = pri.start()
+    rng = np.random.default_rng(51)
+    pool = np.unique(rng.integers(1, 2 ** 40, 3000, dtype=np.uint64))
+    out = []
+    try:
+        fc = router.connect_fleet([pri_addr], replicas=2,
+                                  replica_addrs=[[fol_addr]], quant=None,
+                                  read_replica=1, client="w")
+        kv = fc.create_kv("r_kv", 1 << 15, value_dim=2, updater="ftrl")
+        for _ in range(4):
+            keys = rng.choice(pool, 700, replace=False)
+            kv.add(keys, rng.standard_normal((700, 2)).astype(np.float32),
+                   sync=True)
+        fused = fc.create_kv("r_fused", 1 << 15, value_dim=2)
+        chaos.install_chaos("server.dequeue:latency:ms=200,times=1")
+        try:
+            for j in range(16):
+                fused.add(pool[j * 50:j * 50 + 400],
+                          np.full((400, 2), float(j % 3 + 1), np.float32))
+            fc.drain()
+        finally:
+            chaos.uninstall_chaos()
+        for t in (kv, fused):
+            prim = t.get_shard(0).get(pool)
+            foll = t.get(pool, staleness=0)
+            for a, b in zip(prim, foll):
+                assert a.tobytes() == b.tobytes()
+            out += list(prim)
+        assert pri._tables[fused.table_id].generation == \
+            fol._tables[fused.table_id].generation
+        groups = metrics.counter("server.fuse.groups",
+                                 server=f"rp-{tag}").value
+        fc.close()
+    finally:
+        pri.stop()
+        fol.stop()
+        reset_tables()
+    return out, groups
+
+
+def test_replicated_pair_on_the_card_matches_cpu(cuda, tmp_path):
+    """A primary + follower pair on cuda:0 takes a fused and an unfused
+    KV stream; its follower equals its primary, and both equal the same
+    pair on the CPU, bit for bit. The follower applies each forwarded
+    frame through the KV probe + commit kernels itself."""
+    before = dict(tk.LAUNCHES)
+    gpu, g_groups = _replicated_pair("cuda:0", tmp_path, "gpu")
+    grown = {k: tk.LAUNCHES[k] - before[k]
+             for k in ("kv_lookup", "kv_probe_update", "kv_commit")}
+    host, h_groups = _replicated_pair("cpu", tmp_path, "cpu")
+    assert g_groups >= 1 and h_groups >= 1
+    assert len(gpu) == len(host)
+    for a, b in zip(gpu, host):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert a.tobytes() == b.tobytes()
+    # the primary's and the follower's adds: 4 ftrl + the fused default
+    # groups and singles, each applied on both
+    assert grown["kv_probe_update"] >= 2 * (4 + g_groups), grown
+    assert grown["kv_lookup"] > 0, grown

@@ -858,31 +858,166 @@ class TestPortSurface:
         assert vals.tobytes() == want.tobytes()
         assert found.tolist() == [True] * 5 + [False]
 
-    def test_not_ported_ops_reply_structured_errors(self, server):
-        _, addr = server
-        with _connect(addr, client="w0") as c:
-            for op in ("repl", "promote", "adopt") + wire.MIGRATE_OPS:
-                with pytest.raises(mv_client.RemoteError,
-                                   match="ROADMAP A11b"):
-                    c.call(op, {})
-            assert c.ping()
+    @pytest.mark.parametrize("op", ("repl", "promote", "adopt")
+                             + wire.MIGRATE_OPS)
+    def test_fleet_ops_reply_as_the_reference(self, tmp_path, op):
+        """Each replication and reshard op at a standalone server (no
+        partition, not a follower) replies what the reference's does:
+        ``repl`` the structured non-follower error, ``promote``
+        ``already``, ``adopt`` ``ignored``, ``migrate_state`` ``idle``,
+        ``migrate_begin`` the no-partition refusal, and so on."""
+        replies = []
+        for cls in (RefTableServer, TableServer):
+            s = cls(f"unix:{tmp_path}/{len(replies)}.sock", name="twin")
+            addr = s.start()
+            try:
+                with _connect(addr, client="w0") as c:
+                    try:
+                        head, _ = c.call(op, {})
+                    except mv_client.RemoteError as exc:
+                        head = dict(exc.header)
+                    assert c.ping()
+            finally:
+                s.stop()
+            head.pop("rid", None)
+            replies.append(head)
+        assert replies[0] == replies[1]
 
-    @pytest.mark.parametrize("kw", [{"fleet_file": "/x.json"},
+    @pytest.mark.parametrize("kw", [{"fleet_file": "fleet.json"},
                                     {"follower": True},
                                     {"replica_idx": 1},
-                                    {"replicate_to": ["unix:/x"]}])
-    def test_replication_arguments_refused(self, tmp_path, kw):
-        with pytest.raises(NotImplementedError, match="ROADMAP A11b"):
-            TableServer(f"unix:{tmp_path}/n.sock", **kw)
+                                    {"replicate_to": ["unix:/nowhere"]}])
+    def test_replication_arguments_taken_as_the_reference(self, tmp_path,
+                                                          kw):
+        """``fleet_file``, ``follower``, ``replica_idx`` and
+        ``replicate_to`` build the server the reference builds: the same
+        replication role in ``status()`` (a follower, a primary with a
+        tap, or none) on a partition member."""
+        from multiverso_tpu.server import partition as ref_partition
+        from multiverso_tpu_torch.server import partition
+        kw = dict(kw)
+        if "fleet_file" in kw:
+            kw["fleet_file"] = str(tmp_path / kw["fleet_file"])
+        rows = []
+        for cls, part in ((RefTableServer, ref_partition),
+                          (TableServer, partition)):
+            member = part.PartitionMember(part.PartitionMap(1), 0)
+            s = cls(f"unix:{tmp_path}/{len(rows)}.sock", name="twin",
+                    partition=member, **kw)
+            st = s.status()["replication"]
+            rows.append(None if st is None else
+                        {k: st[k] for k in ("role", "follower", "slack")
+                         if k in st})
+            assert s._follower == bool(kw.get("follower"))
+            assert s._replica_idx == kw.get("replica_idx")
+        assert rows[0] == rows[1]
 
-    @pytest.mark.parametrize("args", [["--fleet", "2"], ["--grow"],
-                                      ["--shrink"], ["--replicas", "2"],
-                                      ["--replica-of", "0"],
-                                      ["--fleet-file", "/x.json"]])
-    def test_cli_refuses_fleet_flags(self, args):
+    @pytest.mark.parametrize("case", ["grow-no-file", "shrink-no-file",
+                                      "grow-missing-file",
+                                      "shrink-last-member", "launcher",
+                                      "follower-member"])
+    def test_cli_fleet_flags_act_as_the_reference(self, tmp_path,
+                                                  monkeypatch, case):
+        """The fleet, reshard and replica flags do what the reference's
+        do: ``--grow`` / ``--shrink`` without a usable fleet file (or
+        shrinking the last member) exit 2; ``--fleet 2 --replicas 2``
+        spawns the reference's member commands on
+        ``multiverso_tpu_torch.server``, each with ``--device``, and
+        writes the fleet file; ``--replica-of`` / ``--replica-idx``
+        start a follower member with the given partition."""
+        from multiverso_tpu.server import __main__ as ref_cli
         from multiverso_tpu_torch.server import __main__ as cli
-        assert cli.main(args) == 2
+        from multiverso_tpu_torch.server import partition
+        ffile = str(tmp_path / "f.json")
+        if case == "grow-no-file":
+            args = ["--grow"]
+        elif case == "shrink-no-file":
+            args = ["--shrink"]
+        elif case == "grow-missing-file":
+            args = ["--grow", "--fleet-file", ffile]
+        elif case == "shrink-last-member":
+            partition.write_fleet_file(
+                ffile, partition.PartitionMap(1),
+                [{"rank": 0, "name": "m", "addresses": ["unix:/x"],
+                  "statusz_port": None, "pid": 0, "replicas": []}])
+            args = ["--shrink", "--fleet-file", ffile]
+        if case not in ("launcher", "follower-member"):
+            assert ref_cli.main(args) == 2
+            assert cli.main(args) == 2
+            return
+        # the launcher and a member install SIGTERM / SIGINT handlers:
+        # keep this process's own
+        monkeypatch.setattr(signal, "signal", lambda *a: None)
+        if case == "launcher":
+            spawned = {}
 
+            class FakeProc:
+                pid = 4242
+
+                def __init__(self, cmd, env=None, **kw):
+                    ready = cmd[cmd.index("--ready-file") + 1]
+                    addr = cmd[cmd.index("--address") + 1]
+                    with open(ready, "w") as f:
+                        f.write(addr)
+                    spawned.setdefault(mod, []).append(cmd)
+
+                def poll(self):
+                    return None
+
+                def wait(self):
+                    return 0
+
+            out = {}
+            for mod, main in (("ref", ref_cli.main), ("port", cli.main)):
+                monkeypatch.setattr(subprocess, "Popen", FakeProc)
+                path = str(tmp_path / f"{mod}.json")
+                extra = ["--device", "cpu"] if mod == "port" else []
+                assert main(["--fleet", "2", "--replicas", "2",
+                             "--address", f"unix:{tmp_path}/{mod}.sock",
+                             "--fleet-file", path] + extra) == 0
+                out[mod] = json.load(open(path))
+            ref_cmds, port_cmds = spawned["ref"], spawned["port"]
+            assert len(port_cmds) == len(ref_cmds) == 4
+            for rc, pc in zip(ref_cmds, port_cmds):
+                assert pc[pc.index("-m") + 1] == \
+                    "multiverso_tpu_torch.server"
+                assert pc[pc.index("--device") + 1] == "cpu"
+                strip = [a.replace("ref", "X").replace("port", "X")
+                         for a in pc if a not in ("--device", "cpu")]
+                assert strip[3:] == [a.replace("ref", "X")
+                                     for a in rc][3:]
+            assert out["port"]["map"] == out["ref"]["map"]
+            assert [len(m["replicas"]) for m in out["port"]["members"]] \
+                == [1, 1]
+            return
+        made = {}
+
+        class FakeServer:
+            def __init__(self, address, **kw):
+                made.update(kw, address=address)
+
+            def start(self):
+                return made["address"]
+
+            def serve_forever(self):
+                pass
+
+            def stop(self):
+                pass
+
+        from multiverso_tpu_torch import core as port_core
+        monkeypatch.setattr(port_core, "init", lambda **kw: None)
+        ns = type("A", (), dict(
+            fleet_n=2, fleet_rank=1, fleet_version=3, kv_buckets=64,
+            replicas=2, device="cpu", replica_idx=1,
+            replicate_to=None, address=f"unix:{tmp_path}/f.sock",
+            name="fm", fuse=None, qos=None, queue=None,
+            fleet_file=ffile, ready_file=None))
+        assert cli._member_main(ns, FakeServer, partition) == 0
+        assert made["follower"] is True and made["replica_idx"] == 1
+        assert made["device"] == "cpu" and made["fleet_file"] == ffile
+        assert made["partition"].rank == 1
+        assert made["partition"].map.version == 3
     def test_default_device_is_the_card(self, tmp_path):
         s = _TableServer(f"unix:{tmp_path}/d.sock")
         assert str(s._device) == "cuda:0"
@@ -913,9 +1048,10 @@ class TestPortSurface:
 
     def test_lazy_server_package(self):
         import multiverso_tpu_torch.server as srv
+        from multiverso_tpu_torch.client import router
         assert srv.TableServer is _TableServer
-        with pytest.raises(AttributeError, match="ROADMAP A11c"):
-            mv_client.FleetClient
+        assert mv_client.FleetClient is router.FleetClient
+        assert mv_client.connect_fleet_file is router.connect_fleet_file
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float16", "bfloat16"])
