@@ -161,12 +161,13 @@ its seconds):
    replicas identical, the host's and the device's ms a step beside phase
    10's, and the card's peak memory. It runs before phase 14.
 21. Tiered KV storage (``multiverso_tpu_torch/storage``), after phase 17:
-   (a) phase 10's first 4 adds (ftrl, value_dim 2, about 159,000 keys
-   each) through a TieredKVTable on cuda:0 at phase 10's logical
-   capacity of 2^25 slots in buckets of 8 (4,194,304 logical buckets, a
-   sixteenth on the card, a thirty-second in the pinned host arena, the
-   rest in a spill file of 272-byte records) beside a plain 2^25-slot
-   KVTable fed the same: every Get of an add's keys and of keys never
+   (a) the first half of the keys of phase 10's first 4 adds (ftrl,
+   value_dim 2, about 79,500 keys each) through a TieredKVTable on cuda:0
+   at half phase 10's logical capacity, 2^24 slots in buckets of 8
+   (2,097,152 logical buckets, a sixteenth on the card, a thirty-second in
+   the pinned host arena, the rest in a spill file of 272-byte records)
+   beside a plain 2^24-slot KVTable fed the same: every Get of an add's
+   keys and of keys never
    added, and one chunked Get of the first two adds' keys, bit for bit
    the plain table's; a RunCheckpointManager generation after the third
    add; at the end buckets on every tier, demotions and disk fills above
@@ -238,6 +239,26 @@ its seconds):
    own launches and log them when they stop: #6 and #7 per member, and
    the card's memory peak over every process (nvidia-smi). It runs
    before phase 14.
+24. Fleet observability and control (``telemetry/statusz.py``,
+   ``aggregate.py``, ``report.py``, ``control.FleetController``), on
+   phase 23's fleet between 23a and 23b: every member serves statusz
+   (the launcher's ``MVTPU_STATUSZ_PORT=0``) and traces spans
+   (``MVTPU_TRACE_DIR``). (a) Each member's ``/statusz`` (its pid, the
+   served KV table, one wire server, its ``server.fuse`` binding, live
+   #7 launches), ``/healthz`` 200, and every other endpoint timed. (b)
+   ``/metrics?json=1`` of the four merged by ``merge_snapshots``: 4
+   hosts, the primaries' ``kv_add`` requests and the followers'
+   replication frames exactly what 23a sent. (c) ``/statusz?fleet=1`` on
+   rank 1's follower: both ranks with the map's bucket ranges. (d) A
+   ``FleetController`` whose objective extra connections to one member
+   violate: one ``check_once`` steps ``server.fuse`` on all four members
+   (``origin: fleet`` in each ring), a second after they close moves
+   nothing, a ``set`` restores it. (e) ``python -m
+   multiverso_tpu_torch.telemetry.report --fleet`` with the script's own
+   trace: a 4-host snapshot and a Chrome trace with a track per member
+   and each member's ``control.decision`` under (d)'s
+   ``control.retune``. (f) After 23b, ``/statusz?fleet=1`` names rank
+   0's promoted follower.
 14. The row scatter's kernel on phase 2's sorted lanes, and phase 2's KV
    probe + commit calls (the flat form at the sparse-LR step's shapes,
    the sharded form on four shards), taken apart by torch.profiler: each
@@ -344,7 +365,7 @@ COO superstep, 13b's two meshes, 15, each sweep of 16, 17's sparse LR,
 21a, 22) and read after it; phases 20, 21 and 22 read each run's
 launches as the difference of the counts around it; phase 23's member
 processes count from 0 at their start and log their counts when they
-stop. Before the last line the script prints
+stop (phase 24 reads them live off each member's statusz too). Before the last line the script prints
 one ``{"kernels": [...]}`` JSON line and the card's name and power limit;
 the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -5122,17 +5143,19 @@ def phase_autotune_slr(torch, tk, counts, mvt, core, ctl, trace,
 
 
 # phase 21: tiered KV storage. 21a replays phase 10's adds (ftrl,
-# value_dim 2) through a TieredKVTable at phase 10's logical capacity of
-# 2^25 slots, in buckets of 8 (4,194,304 logical buckets; a record is 256
+# value_dim 2) through a TieredKVTable in buckets of 8 (a record is 256
 # bytes of keys, values and ftrl state plus a 16-byte header on disk): a
 # sixteenth of the buckets on the card, a thirty-second in the pinned host
-# arena, the rest spilled to disk. Each steady-state add moves about
-# 150,000 buckets one at a time on the host, a spill opening the file
-# anew, so the replay is cut to the fewest adds that reach every check:
-# the host arena fills during the third, the save follows it, and the
-# fourth fills buckets back from disk and finishes the resumed run.
-TIERED_SLOTS = 8
-TIERED_BUCKETS = SLR_CAPACITY // TIERED_SLOTS
+# arena, the rest spilled to disk. Each steady-state add moves about as
+# many buckets as it has keys, one at a time on the host, so the replay
+# is cut to the fewest adds that reach every check (the host arena fills
+# during the third, the save follows it, and the fourth fills buckets
+# back from disk and finishes the resumed run), and its scale to
+# 1/TIERED_SCALE: the table's capacity (2^24 slots, 2,097,152 logical
+# buckets) and each add's keys (its first half), the ratios kept
+TIERED_SLOTS, TIERED_SCALE = 8, 2
+TIERED_CAPACITY = SLR_CAPACITY // TIERED_SCALE
+TIERED_BUCKETS = TIERED_CAPACITY // TIERED_SLOTS
 TIERED_DEVICE, TIERED_HOST = TIERED_BUCKETS // 16, TIERED_BUCKETS // 32
 TIERED_ADDS, TIERED_SAVE_AT = 4, 3
 # 21b: the same ratios and the first sixteenth of the first 3 adds' keys
@@ -5250,7 +5273,7 @@ def content_keys(payload: dict) -> list:
 def phase_tiered_kv(torch, tk, KVTable, TieredKVTable, AddOption, tckpt,
                     telemetry, adds, tmp: str, card: str) -> dict:
     """Phase 21a (see TIERED_*): phase 10's first adds replayed through a
-    TieredKVTable on cuda:0 and a plain 2^25-slot KVTable of the same
+    TieredKVTable on cuda:0 and a plain 2^24-slot KVTable of the same
     geometry. After each add a Get of its keys and of 1,000 keys never
     added equals the plain table's bit for bit; after the second, one Get
     of the first two adds' keys (shuffled) takes more than one chunk and
@@ -5267,13 +5290,14 @@ def phase_tiered_kv(torch, tk, KVTable, TieredKVTable, AddOption, tckpt,
 
     def tiered(sub: str):
         return TieredKVTable(
-            SLR_CAPACITY, value_dim=2, slots_per_bucket=TIERED_SLOTS,
+            TIERED_CAPACITY, value_dim=2, slots_per_bucket=TIERED_SLOTS,
             updater="ftrl", device="cuda:0", name="smoke_tiered",
             default_option=AddOption.for_ftrl(0.1),
             device_buckets=TIERED_DEVICE, host_buckets=TIERED_HOST,
             spill_dir=os.path.join(tmp, sub))
     t = tiered("a")
-    plain = KVTable(SLR_CAPACITY, value_dim=2, slots_per_bucket=TIERED_SLOTS,
+    plain = KVTable(TIERED_CAPACITY, value_dim=2,
+                    slots_per_bucket=TIERED_SLOTS,
                     updater="ftrl", device="cuda:0",
                     name="smoke_tiered_plain",
                     default_option=AddOption.for_ftrl(0.1))
@@ -5291,7 +5315,8 @@ def phase_tiered_kv(torch, tk, KVTable, TieredKVTable, AddOption, tckpt,
     mgr = tckpt.RunCheckpointManager(run_dir, keep=1, tables=[t],
                                      background=False)
     moves0 = tier_moves(telemetry, t.name)
-    replay = adds[:TIERED_ADDS]
+    replay = [(k[:len(k) // TIERED_SCALE], d[:len(k) // TIERED_SCALE])
+              for k, d in adds[:TIERED_ADDS]]
     per_add, out = [], {}
     for i, (keys, deltas) in enumerate(replay):
         r = tiered_add(torch, tk, t, keys, deltas, spans, launches)
@@ -5382,7 +5407,7 @@ def phase_tiered_kv(torch, tk, KVTable, TieredKVTable, AddOption, tckpt,
     log(f"  21a {TIERED_ADDS} adds of phase 10 through the tiers "
         f"({TIERED_BUCKETS} logical buckets of {TIERED_SLOTS}; "
         f"{TIERED_DEVICE} on the card, {TIERED_HOST} in the pinned arena): "
-        f"every Get and the export equal to the plain 2^25-slot table's "
+        f"every Get and the export equal to the plain 2^24-slot table's "
         f"bit for bit; miss ratio {miss_ratio:.4f}; demotions "
         f"{moves['demotions']}, fills {moves['fills']}, spills "
         f"{moves['spills']}; buckets by tier {counts}; spill file "
@@ -5415,8 +5440,8 @@ def phase_tiered_meshes(torch, tk, core, TieredKVTable, AddOption, adds,
         return TieredKVTable(
             cap, value_dim=2, slots_per_bucket=TIERED_SLOTS, updater="ftrl",
             name=name, default_option=AddOption.for_ftrl(0.1),
-            device_buckets=TIERED_DEVICE // TIERED_SMALL,
-            host_buckets=TIERED_HOST // TIERED_SMALL,
+            device_buckets=cap // TIERED_SLOTS // 16,
+            host_buckets=cap // TIERED_SLOTS // 32,
             spill_dir=os.path.join(tmp, name), **where)
     one = make("tiered_1x1", device="cuda:0")
     tabs = {key: make(f"tiered_{key[0]}x{key[1]}_{key[2]}",
@@ -6058,11 +6083,12 @@ def card_memory_mib() -> int:
     return int(out[0])
 
 
-def fleet_launch(tmp: str, tag: str, n: int, replicas: int):
+def fleet_launch(tmp: str, tag: str, n: int, replicas: int,
+                 env: dict = None):
     """A launcher process of ``n`` members (and their followers) on
-    cuda:0; returns (process, fleet file, base address, log path) once
-    the fleet file is written. A member that fails to start fails the
-    phase."""
+    cuda:0, ``env`` added to the script's environment; returns
+    (process, fleet file, base address, log path) once the fleet file is
+    written. A member that fails to start fails the phase."""
     ffile = os.path.join(tmp, f"{tag}.fleet.json")
     base = f"unix:{tmp}/{tag}.sock"
     log_path = os.path.join(tmp, f"{tag}.log")
@@ -6071,7 +6097,7 @@ def fleet_launch(tmp: str, tag: str, n: int, replicas: int):
             fleet_cmd("--fleet", str(n), "--replicas", str(replicas),
                       "--fleet-file", ffile, "--address", base,
                       "--name", tag),
-            cwd=HERE, env=fleet_env(), stdout=logf,
+            cwd=HERE, env={**fleet_env(), **(env or {})}, stdout=logf,
             stderr=subprocess.STDOUT)
     deadline = time.monotonic() + FLEET_START_S
     while not os.path.exists(ffile):
@@ -6303,6 +6329,309 @@ def fleet_failover(router, fc, t, local, adds, union, ffile,
     return out
 
 
+# phase 24: fleet observability and control on phase 23's fleet (see
+# fleet_observe). The members trace spans into FLEET_TRACE_DIR of the
+# fleet's temporary directory; the script's own spans of phase 24 go to
+# a file beside them, which the report merges as the client trace
+FLEET_TRACE_DIR = "traces"
+FLEET_ENDPOINTS = ("/statusz", "/healthz", "/metrics", "/metrics?json=1",
+                   "/trace", "/vars?window=30", "/topk")
+# the FleetController's objective holds while no member has more than
+# FLEET_CTL_EXTRA wire connections above the fleet's busiest; phase 24d
+# opens one more than that to one member
+FLEET_CTL_EXTRA = 2
+
+
+def http_get(port: int, path: str, timeout: float = 10.0) -> tuple:
+    """(status, body, ms) of one GET on a member's statusz port; an HTTP
+    error status comes back, not raised."""
+    import urllib.error
+    import urllib.request
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=timeout) as r:
+            code, body = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        code, body = e.code, e.read()
+    return code, body, 1e3 * (time.perf_counter() - t0)
+
+
+def http_post(port: int, doc: dict, timeout: float = 10.0) -> tuple:
+    """(status, reply) of one ``POST /control``."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/control", data=json.dumps(doc).encode(),
+        headers={"Content-Type": "application/json"}, method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+def statusz_doc(port: int, path: str = "/statusz") -> dict:
+    code, body, _ = http_get(port, path)
+    if code != 200:
+        raise SystemExit(f"fleet 24: {path} on port {port} answered {code}")
+    return json.loads(body)
+
+
+def fuse_values(members) -> dict:
+    """Each member's live ``server.fuse`` binding off its /statusz."""
+    return {m["name"]: statusz_doc(m["statusz_port"])["control"]["knobs"]
+            .get("server.fuse", {}).get(m["name"]) for m in members}
+
+
+def merged_fleet(aggregate, members) -> tuple:
+    """Every member's /metrics?json=1 and their merge."""
+    snaps = [json.loads(http_get(m["statusz_port"], "/metrics?json=1")[1])
+             for m in members]
+    return snaps, aggregate.merge_snapshots(snaps)
+
+
+def counter_sum(snap: dict, name: str, **labels) -> float:
+    """The sum of a counter's series whose labels include ``labels``."""
+    want = [f"{k}={v}" for k, v in labels.items()]
+    total = 0.0
+    for key, v in snap.get("counters", {}).items():
+        base, _, rest = key.partition("{")
+        if base == name and all(w in rest.rstrip("}").split(",")
+                                for w in want):
+            total += v
+    return total
+
+
+def max_gauge(snap: dict, name: str) -> float:
+    return max((v for k, v in snap.get("gauges", {}).items()
+                if k.partition("{")[0] == name), default=0.0)
+
+
+def wait_gauge(aggregate, members, name: str, done, what: str) -> float:
+    """Poll the fleet's merged gauge until ``done(value)`` (10 s)."""
+    deadline = time.monotonic() + 10
+    while True:
+        value = max_gauge(merged_fleet(aggregate, members)[1], name)
+        if done(value):
+            return value
+        if time.monotonic() > deadline:
+            raise SystemExit(f"fleet 24d: {name} stayed {value} ({what})")
+        time.sleep(0.05)
+
+
+def fleet_observe(transport, fc, t, adds, ffile, tmp: str,
+                  card: str) -> dict:
+    """Phase 24 (a)-(e) on phase 23's fleet after 23a. Returns the
+    numbers."""
+    from multiverso_tpu_torch.control import controller as ctl
+    from multiverso_tpu_torch.server import partition
+    from multiverso_tpu_torch.telemetry import aggregate, metrics, trace
+    t_phase = time.perf_counter()
+    host = metrics.host_index()
+    doc = partition.read_fleet_file(ffile)
+    members = partition.fleet_members(doc)
+    names = [m["name"] for m in members]
+    if len(members) != 4 or not all(
+            isinstance(m.get("statusz_port"), int) and m["statusz_port"] > 0
+            for m in members):
+        raise SystemExit(f"fleet 24a: statusz ports "
+                         f"{[m.get('statusz_port') for m in members]}")
+    # (a) each member's own endpoints
+    walls = {path: [] for path in FLEET_ENDPOINTS}
+    for m in members:
+        port = m["statusz_port"]
+        for path in FLEET_ENDPOINTS:
+            code, body, ms = http_get(port, path)
+            walls[path].append(ms)
+            if code != 200 or not body:
+                raise SystemExit(f"fleet 24a: {m['name']} {path} answered "
+                                 f"{code} ({len(body)} bytes)")
+        sz = statusz_doc(port)
+        ctl_knobs = (sz.get("control") or {}).get("knobs", {})
+        servers = (sz.get("transport") or {}).get("servers") or []
+        launches = sz["kernels"].get("launches", {})
+        if sz.get("kind") != "mvtpu.statusz.v1" or sz.get("pid") != m["pid"] \
+                or t.name not in [x.get("name") for x in sz["tables"]] \
+                or len(servers) != 1 or servers[0].get("name") != m["name"] \
+                or m["name"] not in ctl_knobs.get("server.fuse", {}) \
+                or not launches.get("kv_probe_update") \
+                or not launches.get("kv_commit"):
+            raise SystemExit(
+                f"fleet 24a: {m['name']}'s /statusz: kind {sz.get('kind')}, "
+                f"pid {sz.get('pid')} (fleet file {m['pid']}), tables "
+                f"{[x.get('name') for x in sz['tables']]}, servers "
+                f"{[x.get('name') for x in servers]}, server.fuse "
+                f"{ctl_knobs.get('server.fuse')}, launches {launches}")
+    # (b) the merged metrics, predicted from what 23a sent: one kv_add a
+    # rank an add, one replication frame a forwarded add and a create
+    snaps, fleet = merged_fleet(aggregate, members)
+    sent = sum(len(np.unique(fc.pmap.kv_owner(k))) for k, _ in adds)
+    got_adds = counter_sum(fleet, "wire.requests", op="kv_add")
+    got_repl = counter_sum(fleet, "wire.requests", op="repl")
+    primaries = sum(counter_sum(s, "wire.requests", op="kv_add")
+                    for s, m in zip(snaps, members) if "idx" not in m)
+    if fleet.get("hosts") != 4 or got_adds != sent or primaries != sent \
+            or got_repl != sent + fc.pmap.n:
+        raise SystemExit(f"fleet 24b: {fleet.get('hosts')} hosts, kv_add "
+                         f"{got_adds} (primaries {primaries}), repl "
+                         f"{got_repl}; 23a sent {sent} rank adds to "
+                         f"{fc.pmap.n} ranks")
+    # (c) the fleet view off rank 1's follower
+    fol1 = next(m for m in members if m.get("rank") == 1 and "idx" in m)
+    code, body, ms = http_get(fol1["statusz_port"], "/statusz?fleet=1")
+    walls["/statusz?fleet=1"] = [ms]
+    view = json.loads(body)
+    ranges = {}
+    for entry in view.get("partitions", []):
+        rows = [tb for p in entry.get("partitions") or []
+                for tb in p.get("tables") or [] if tb.get("name") == t.name]
+        ranges[entry.get("rank")] = rows[0].get("buckets") if rows else None
+    want = {r: list(fc.pmap.bucket_range(r)) for r in range(fc.pmap.n)}
+    if code != 200 or ranges != want:
+        raise SystemExit(f"fleet 24c: /statusz?fleet=1 on {fol1['name']} "
+                         f"answered {code}, ranges {ranges} (map {want})")
+    # (d) FleetController: extra connections to one member violate
+    # wire.connections < bound; a check_once steps server.fuse on every
+    # member; once they close, a second check moves nothing
+    before = fuse_values(members)
+    base = max_gauge(fleet, "wire.connections")
+    bound = int(base) + FLEET_CTL_EXTRA
+    spec = f"wire.connections < {bound} -> server.fuse+"
+    own_trace = os.path.join(tmp, "smoke-trace.jsonl")
+    prev_sink = trace.trace_path()
+    trace.set_trace_file(own_trace)
+    extra = []
+    try:
+        extra = [transport.WireClient(fol1["addresses"][0],
+                                      client=f"ctl{i}", quant=None,
+                                      partition=fc.pmap.to_wire())
+                 for i in range(bound + 1)]
+        for c in extra:
+            c.call("ping", {}, [])
+        wait_gauge(aggregate, members, "wire.connections",
+                   lambda v: v > bound, f"bound {bound}")
+        fctl = ctl.FleetController(ffile, ctl.parse_objectives(spec),
+                                   confirm=1, hold=0)
+        t0 = time.perf_counter()
+        moved = fctl.check_once()
+        check_ms = 1e3 * (time.perf_counter() - t0)
+        after = fuse_values(members)
+        ports = sorted(m["statusz_port"] for m in members)
+        rings = [statusz_doc(m["statusz_port"])["control"]["decisions"]
+                 for m in members]
+        if sorted(ch["port"] for ch in moved) != ports \
+                or any(after[n] == before[n] or after[n] is None
+                       for n in names) \
+                or not all(any(d.get("origin") == "fleet"
+                               and d.get("knob") == "server.fuse"
+                               and d.get("to") == after[n] for d in ring)
+                           for n, ring in zip(names, rings)):
+            raise SystemExit(f"fleet 24d: check_once moved {moved}; "
+                             f"server.fuse {before} -> {after}")
+        for c in extra:
+            c.close()
+        extra = []
+        wait_gauge(aggregate, members, "wire.connections",
+                   lambda v: v <= bound, f"bound {bound}, closed")
+        t0 = time.perf_counter()
+        again = fctl.check_once()
+        check2_ms = 1e3 * (time.perf_counter() - t0)
+        if again or fuse_values(members) != after:
+            raise SystemExit(f"fleet 24d: a healthy check moved {again}")
+    finally:
+        for c in extra:
+            c.close()
+        trace.set_trace_file(prev_sink)
+    for m in members:
+        code, reply = http_post(m["statusz_port"], {
+            "op": "set", "knob": "server.fuse", "value": before[m["name"]],
+            "label": m["name"], "origin": "smoke"})
+        if code != 200 or not reply.get("ok"):
+            raise SystemExit(f"fleet 24d: restoring {m['name']}: {code} "
+                             f"{reply}")
+    if fuse_values(members) != before:
+        raise SystemExit("fleet 24d: server.fuse not restored")
+    # (e) the report CLI over the fleet, the script's trace merged in
+    snap_out = os.path.join(tmp, "fleet-snapshot.json")
+    chrome_out = os.path.join(tmp, "fleet-chrome.json")
+    t0 = time.perf_counter()
+    rep = subprocess.run(
+        [sys.executable, "-m", "multiverso_tpu_torch.telemetry.report",
+         "--fleet", ffile, "--client-trace", own_trace, "--snapshot-out",
+         snap_out, "--chrome-trace", chrome_out], cwd=HERE, env=fleet_env(),
+        capture_output=True, text=True, timeout=300)
+    report_ms = 1e3 * (time.perf_counter() - t0)
+    if rep.returncode != 0:
+        raise SystemExit(f"fleet 24e: report rc {rep.returncode}: "
+                         f"{rep.stderr[-2000:]}")
+    with open(snap_out) as f:
+        rsnap = json.load(f)
+    with open(chrome_out) as f:
+        events = json.load(f)["traceEvents"]
+    tracks = {e["args"]["name"].split(" ")[0]: e["pid"] for e in events
+              if e.get("ph") == "M" and e.get("name") == "process_name"}
+    roots = [e for e in events if e.get("ph") == "X"
+             and e.get("name") == "control.retune"]
+    linked = set()
+    for root in roots:
+        rp = f"h{host}:p{os.getpid()}:s{root['args']['span_id']}"
+        for e in events:
+            if e.get("ph") == "X" and e.get("name") == "control.decision" \
+                    and e["args"].get("req") == root["args"].get("req") \
+                    and e["args"].get("rparent") == rp:
+                linked.add(e["pid"])
+    member_tracks = {tracks.get(f"host{host}/pid{m['pid']}")
+                     for m in members}
+    if rsnap.get("kind") != "mvtpu.metrics.v1" or rsnap.get("hosts") != 4 \
+            or None in member_tracks or len(roots) != 1 \
+            or linked != member_tracks:
+        raise SystemExit(f"fleet 24e: snapshot {rsnap.get('kind')} over "
+                         f"{rsnap.get('hosts')} hosts; tracks {tracks}; "
+                         f"{len(roots)} control.retune roots; decisions "
+                         f"under it on tracks {sorted(linked)} (members "
+                         f"{sorted(member_tracks, key=str)})")
+    p50 = {path: pct(ms, 50) for path, ms in walls.items()}
+    out = dict(scrape_ms_p50=p50, check_once_ms=check_ms,
+               healthy_check_ms=check2_ms, report_ms=report_ms,
+               kv_adds=sent, fuse=dict(before=before, after=after),
+               bound=bound, chrome_events=len(events),
+               seconds=time.perf_counter() - t_phase)
+    log("  24a-e statusz on all 4 members; scrape wall p50 over them: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in p50.items()) + " ms; the "
+        f"merge: 4 hosts, {sent} kv_adds, {got_repl:.0f} repl frames; "
+        f"FleetController check_once {check_ms:.1f} ms (server.fuse "
+        f"{sorted(set(before.values()))} -> {sorted(set(after.values()))} "
+        f"on 4 members), a healthy check {check2_ms:.1f} ms; report "
+        f"--fleet {report_ms:.0f} ms ({len(events)} chrome events, 4 "
+        f"member tracks under one control.retune); {out['seconds']:.1f} s; "
+        f"on {card}")
+    return out
+
+
+def fleet_promoted_view(ffile, heir: dict) -> dict:
+    """Phase 24f after 23b: /statusz?fleet=1 on rank 1's primary names
+    rank 0's promoted follower as its primary."""
+    from multiverso_tpu_torch.server import partition
+    t0 = time.perf_counter()
+    doc = partition.read_fleet_file(ffile)
+    port = doc["members"][1]["statusz_port"]
+    code, body, ms = http_get(port, "/statusz?fleet=1")
+    view = json.loads(body) if code == 200 else {}
+    rank0 = next((e for e in view.get("partitions", [])
+                  if e.get("rank") == 0), {})
+    served = [p.get("server") for p in rank0.get("partitions") or []]
+    if rank0.get("name") != heir["name"] or rank0.get("pid") != heir["pid"] \
+            or served != [heir["name"]] or "error" in rank0:
+        raise SystemExit(f"fleet 24f: after the promotion rank 0 reads "
+                         f"{rank0} (the follower was {heir['name']}, pid "
+                         f"{heir['pid']})")
+    out = dict(view_ms=ms, seconds=time.perf_counter() - t0)
+    log(f"  24f after 23b /statusz?fleet=1 names {heir['name']} (pid "
+        f"{heir['pid']}) rank 0's primary, in {ms:.2f} ms")
+    return out
+
+
 def grow_add(j: int, keys):
     """Worker add j of 23c: small integer deltas, exact in any order."""
     base = (keys % np.uint64(5)).astype(np.float32) + 1 + (j % 3)
@@ -6436,7 +6765,9 @@ def fleet_grow(router, adds, tmp: str, card: str) -> dict:
 def phase_fleet(torch, KVTable, router, transport, telemetry, adds,
                 card: str) -> dict:
     """Phase 23: the server fleet on cuda:0 (see fleet_replicate,
-    fleet_failover, fleet_grow). Returns the numbers."""
+    fleet_failover, fleet_grow), and phase 24 on it between 23a and 23b
+    (fleet_observe, fleet_promoted_view). Returns the numbers."""
+    from multiverso_tpu_torch.server import partition
     free_tables(torch)
     t_phase = time.perf_counter()
     host = [(np.asarray(k, np.uint64),
@@ -6448,13 +6779,20 @@ def phase_fleet(torch, KVTable, router, transport, telemetry, adds,
     out = {}
     try:
         with tempfile.TemporaryDirectory() as tmp:
-            proc, ffile, _base, log_path = fleet_launch(tmp, "sf", 2, 2)
+            proc, ffile, _base, log_path = fleet_launch(
+                tmp, "sf", 2, 2,
+                {"MVTPU_TRACE_DIR": os.path.join(tmp, FLEET_TRACE_DIR)})
             try:
                 fc, t, local, out["a"] = fleet_replicate(
                     torch, KVTable, router, transport, telemetry, host,
                     union, ffile, card)
+                heir = partition.read_fleet_file(
+                    ffile)["members"][0]["replicas"][0]
+                out["obs"] = fleet_observe(transport, fc, t, host, ffile,
+                                           tmp, card)
                 out["b"] = fleet_failover(router, fc, t, local, host,
                                           union, ffile, card)
+                out["obs"]["f"] = fleet_promoted_view(ffile, heir)
                 out["card_mib"] = card_memory_mib()
                 fc.close()
                 del local
@@ -6825,10 +7163,10 @@ def main(argv) -> int:
     paths["sparse_logreg_data_axis"] = kv_data["slr_launches"]
     phase_end("kv_data_axis")
 
-    phase("tiered_kv", f"phase 21: tiered KV storage (a: phase 10's first "
-          f"{TIERED_ADDS} adds through a TieredKVTable on cuda:0 beside a "
-          "plain table, saved and resumed; b: on (1, 4) and (2, 2) meshes; "
-          "c: the quantizers)")
+    phase("tiered_kv", f"phase 21: tiered KV storage (a: the first half of "
+          f"the keys of phase 10's first {TIERED_ADDS} adds through a "
+          "2^24-slot TieredKVTable on cuda:0 beside a plain table, saved "
+          "and resumed; b: on (1, 4) and (2, 2) meshes; c: the quantizers)")
     reset()
     with tempfile.TemporaryDirectory() as tmp:
         tiered = phase_tiered_kv(torch, tk, KVTable, TieredKVTable,
@@ -6858,7 +7196,9 @@ def main(argv) -> int:
           "a: phase 10's adds replicated, bounded reads off the "
           "followers; b: rank 0's primary SIGKILLed, its follower "
           "promoted; c: a live grow 2 -> 3 under a worker's adds, then a "
-          "shrink back)")
+          "shrink back); phase 24 between a and b: statusz on every "
+          "member, the merged metrics, a FleetController, the report CLI; "
+          "f after b")
     fleet23 = phase_fleet(torch, KVTable, fleet_router, wire_transport,
                           telemetry, slr_data["adds"], card)
     del slr_data
@@ -7024,7 +7364,7 @@ def main(argv) -> int:
         f"replica hits {wa['replica_hits']} of {wa['stale_reads']}; fused "
         f"groups {wire22['b']['groups']}; phase 22 "
         f"{phase_s['wire_server']:.1f} s; on {card}")
-    fa, fc23 = fleet23["a"], fleet23["c"]
+    fa, fc23, fo24 = fleet23["a"], fleet23["c"], fleet23["obs"]
     log(f"  fleet: add p50/p99 {fa['add_ms']['p50']:.2f} / "
         f"{fa['add_ms']['p99']:.2f} ms, get {fa['get_ms']['p50']:.2f} / "
         f"{fa['get_ms']['p99']:.2f} ms; follower reads "
@@ -7035,7 +7375,13 @@ def main(argv) -> int:
         f"{fc23['shrink']['seconds']:.1f} s, "
         f"{fc23['grow']['moved_bytes']} of {fc23['live_bytes']} bytes "
         f"moved; card peak {fleet23['peak_card_mib']} MiB; phase 23 "
-        f"{phase_s['fleet']:.1f} s; on {card}")
+        f"{phase_s['fleet'] - fo24['seconds'] - fo24['f']['seconds']:.1f} "
+        f"s; on {card}")
+    log("  fleet observability: scrape wall p50 over the members "
+        + ", ".join(f"{k} {v:.2f}" for k, v in fo24["scrape_ms_p50"].items())
+        + f" ms; FleetController check_once {fo24['check_once_ms']:.1f} ms; "
+        f"report --fleet {fo24['report_ms']:.0f} ms; phase 24 "
+        f"{fo24['seconds'] + fo24['f']['seconds']:.1f} s; on {card}")
 
     row_src = "multiverso_tpu_torch/ops/csrc/row_kernels.cu"
     coo_src = "multiverso_tpu_torch/ops/csrc/coo_kernels.cu"

@@ -4,9 +4,9 @@ control plane.
 Counterpart of ``multiverso_tpu/control/controller.py``: the per-process
 :class:`Controller` thread (armed by ``MVTPU_AUTOTUNE``) evaluates
 *objectives* against the live registry snapshot and moves knobs through
-``control/knobs.py``. The reference's ``FleetController``, which scrapes
-a fleet's ``/metrics`` and actuates members through their ``/control``
-POST, comes with the server fleet (ROADMAP.md queue A item 11).
+``control/knobs.py``; a :class:`FleetController` runs the same state
+machine over the merged ``/metrics?json=1`` scrape of a whole fleet and
+actuates members through their ``/control`` POST endpoint.
 
 Objective grammar — the ``MVTPU_SLO`` rule grammar with an action
 suffix, semicolon-separated::
@@ -32,12 +32,17 @@ Stability over speed, by construction:
   ratchets, it does not oscillate on a noisy boundary.
 
 Kill switch, twice over: ``MVTPU_AUTOTUNE=0`` refuses arming AND
-vetoes every ``apply_*``, and :func:`kill` latches a process-wide veto.
+vetoes every ``apply_*`` (so a fleet controller cannot push knobs into
+an opted-out process), and :func:`kill` — or a ``/control`` POST
+``{"op": "kill"}`` — latches a process-wide veto.
 
 Every decision is an audit span —
 ``control.decision{knob, from, to, rule, evidence}`` — plus a
 ``control.decisions{knob}`` counter and an entry in the decision ring
-that :func:`control_status` serves and watchdog dumps carry.
+that :func:`control_status` serves (``/statusz``) and watchdog dumps
+carry. Fleet-driven decisions adopt the remote trace context shipped in
+the POST, so a tuning episode reads as ONE tree across processes in
+``report --fleet``.
 
 Stdlib + telemetry only, like the rest of the observability plane.
 """
@@ -327,7 +332,7 @@ def parse_objectives(spec: str) -> List[Objective]:
 def disabled() -> bool:
     """True when autotuning is vetoed — by ``MVTPU_AUTOTUNE=0`` in the
     environment or by a :func:`kill` latch. Checked on every apply, so
-    the env veto also blocks an operator's ``apply_set``."""
+    the env veto also blocks fleet-pushed actuation."""
     if _KILLED:
         return True
     raw = os.environ.get(AUTOTUNE_ENV, "").strip().lower()
@@ -361,8 +366,8 @@ def _record(changes: List[Tuple[str, Any, Any]], *, knob: str,
             ctx: Optional[dict] = None) -> List[dict]:
     """Every knob move funnels through here: ring entry + counter +
     ``control.decision`` audit span per changed binding. ``ctx`` is a
-    remote trace context (the reference's fleet POST carries one) —
-    adopting it parent-links the decision span under the remote span."""
+    remote trace context (fleet POST) — adopting it parent-links the
+    local decision span under the fleet controller's retune span."""
     out: List[dict] = []
     ts = time.time()
     for label, frm, to in changes:
@@ -417,7 +422,7 @@ def recent_decisions(limit: int = _RING_DEPTH) -> List[dict]:
 
 
 def control_status(limit: int = 16) -> dict:
-    """The reference's ``/statusz`` control section: armed objectives,
+    """The ``/statusz`` control section: armed objectives,
     live knob values, last N decisions with evidence."""
     with _LOCK:
         ctls = list(_CONTROLLERS)
@@ -444,8 +449,8 @@ class _ObjectiveState:
 
 def _tick(states: List[_ObjectiveState], snap: dict, *, confirm: int,
           hold: int, actuate: Callable[..., List[dict]]) -> List[dict]:
-    """One evaluation pass (the reference's fleet controller shares
-    it): confirm-streak hysteresis in, cooldown hold out, ``actuate`` is
+    """One evaluation pass shared by the local and fleet controllers:
+    confirm-streak hysteresis in, cooldown hold out, ``actuate`` is
     the only side effect."""
     decisions: List[dict] = []
     for st in states:
@@ -552,3 +557,125 @@ def shutdown_controllers() -> None:
         _CONTROLLERS.clear()
     for c in ctls:
         c.stop()
+
+
+# -- fleet control loop ----------------------------------------------------
+
+class FleetController:
+    """The fleet-level loop: scrape every member's ``/metrics?json=1``
+    (each rank's primary and its followers, as the launcher's fleet
+    file names them), evaluate objectives against the MERGED snapshot,
+    and actuate by POSTing ``/control`` steps to every member — each
+    POST carries this process's trace context, so members'
+    ``control.decision`` spans parent-link under one ``control.retune``
+    root and the episode merges into a single tree in
+    ``report --fleet``. Members of either package answer the same
+    POST."""
+
+    def __init__(self, fleet_file: str, objectives: List[Objective],
+                 *, every_s: float = 2.0, confirm: int = 2,
+                 hold: int = 2, timeout: float = 5.0) -> None:
+        self.fleet_file = fleet_file
+        self.objectives = list(objectives)
+        self.every_s = float(every_s)
+        self.confirm = max(int(confirm), 1)
+        self.hold = max(int(hold), 0)
+        self.timeout = float(timeout)
+        self._states = [_ObjectiveState(o) for o in self.objectives]
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def _ports(self) -> List[int]:
+        from multiverso_tpu_torch.server import partition
+        doc = partition.read_fleet_file(self.fleet_file)
+        if doc is None:
+            raise ValueError(f"not a fleet file: {self.fleet_file}")
+        return [m["statusz_port"] for m in partition.fleet_members(doc)
+                if m.get("statusz_port")]
+
+    def _scrape(self, ports: List[int]) -> Optional[dict]:
+        import urllib.request
+        from multiverso_tpu_torch.telemetry import aggregate
+        snaps = []
+        for port in ports:
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}/metrics?json=1",
+                        timeout=self.timeout) as resp:
+                    snap = json.loads(resp.read())
+            except (OSError, ValueError) as e:
+                log.info("control: fleet scrape port=%s failed: %r",
+                         port, e)
+                continue
+            if snap.get("kind") == _metrics.SNAPSHOT_KIND:
+                snaps.append(snap)
+        return aggregate.merge_snapshots(snaps) if snaps else None
+
+    def _post(self, port: int, doc: dict) -> List[dict]:
+        import urllib.request
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/control",
+            data=json.dumps(doc).encode("utf-8"),
+            headers={"Content-Type": "application/json"},
+            method="POST")
+        with urllib.request.urlopen(req, timeout=self.timeout) as resp:
+            reply = json.loads(resp.read())
+        return reply.get("changes", [])
+
+    def check_once(self) -> List[dict]:
+        if disabled():
+            return []
+        ports = self._ports()
+        snap = self._scrape(ports)
+        if snap is None:
+            return []
+
+        def actuate(name: str, direction: int, *, rule: str,
+                    evidence: Optional[dict]) -> List[dict]:
+            decisions: List[dict] = []
+            # one retune span per triggered action — every member's
+            # control.decision span adopts its ctx, so the episode is
+            # one tree across processes
+            with _trace.request("control.retune", knob=name,
+                                rule=rule):
+                ctx = _trace.wire_context()
+                doc = {"op": "step", "knob": name, "dir": direction,
+                       "rule": rule, "evidence": evidence,
+                       "origin": "fleet", "ctx": ctx}
+                for port in ports:
+                    try:
+                        changes = self._post(port, doc)
+                    except (OSError, ValueError) as e:
+                        log.info("control: fleet actuate port=%s "
+                                 "failed: %r", port, e)
+                        continue
+                    for ch in changes:
+                        ch = dict(ch)
+                        ch["port"] = port
+                        decisions.append(ch)
+                        _ring({**ch, "origin": "fleet"})
+            return decisions
+
+        return _tick(self._states, snap, confirm=self.confirm,
+                     hold=self.hold, actuate=actuate)
+
+    def start(self) -> "FleetController":
+        if self._thread is None:
+            self._thread = threading.Thread(
+                target=self._run, name="mvtpu-fleet-control",
+                daemon=True)
+            self._thread.start()
+        return self
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.every_s):
+            try:
+                self.check_once()
+            except Exception as e:
+                log.info("control: fleet check failed: %r", e)
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=2.0)
+            self._thread = None

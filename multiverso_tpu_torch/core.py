@@ -36,6 +36,7 @@ from multiverso_tpu_torch.control.controller import (maybe_controller,
 from multiverso_tpu_torch.telemetry import metrics as telemetry
 from multiverso_tpu_torch.telemetry.health import maybe_health_monitor
 from multiverso_tpu_torch.telemetry.slo import maybe_slo_monitor
+from multiverso_tpu_torch.telemetry.statusz import maybe_statusz
 from multiverso_tpu_torch.utils import configure, log
 
 DeviceLike = Union[str, torch.device, None]
@@ -149,9 +150,11 @@ def init(argv: Optional[Sequence[str]] = None, *,
         # chaos run
         from multiverso_tpu_torch.ft.chaos import chaos_from_env
         chaos_from_env()
-        # MVTPU_SLO arms the tail-latency monitor, MVTPU_HEALTH the
-        # training-health monitor (both idempotent across re-inits);
-        # statusz waits for ROADMAP queue A item 11
+        # observability rides init the same way: MVTPU_STATUSZ_PORT
+        # arms the live introspection server, MVTPU_SLO the tail-
+        # latency monitor, MVTPU_HEALTH the training-health monitor
+        # (all idempotent across re-inits)
+        maybe_statusz()
         maybe_slo_monitor()
         maybe_health_monitor()
         # MVTPU_AUTOTUNE closes the loop: the controller reads the

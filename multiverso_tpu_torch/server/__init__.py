@@ -12,8 +12,9 @@ frames being the same bytes). Standalone::
     python -m multiverso_tpu_torch.server --address unix:/tmp/mvtpu.sock \\
         --device cuda:0
 
-The replication stream, live resharding and the fleet launcher wait for
-ROADMAP queue A item 11b.
+``--fleet N`` launches a sharded fleet of such servers (replication,
+failover and live resharding in :mod:`.replication` and
+:mod:`.table_server`), each member serving statusz.
 
 ``TableServer`` is imported lazily (PEP 562): :mod:`.wire` must stay
 importable by torch-free worker processes, and pulling the table layer

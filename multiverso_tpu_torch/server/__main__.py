@@ -12,8 +12,11 @@ listens on rank-derived addresses, owns partition r of every table per
 writes one fleet file naming the whole fleet — addresses, pids, and the
 authoritative partition map — which ``client/router.py``'s
 ``connect_fleet_file`` consumes (either package's router reads it).
-A member's ``statusz_port`` is null: the port's statusz comes with
-ROADMAP queue A item 11e.
+Every member serves statusz: the launcher (and ``--grow``) sets
+``MVTPU_STATUSZ_PORT=0`` for the members unless the caller set it, a
+member appends ``,statusz:<port>`` to its ready file, and the fleet file
+names each member's ``statusz_port`` — what ``report --fleet``,
+``FleetController`` and ``/statusz?fleet=1`` scrape.
 
 Flags:
 
@@ -44,8 +47,9 @@ Flags:
     after binding, atomically write the RESOLVED dialable address list
     here (comma-separated, same order as ``--address``): how a launcher
     waits for the bind, and how an ephemeral tcp port gets back to the
-    workers. Under ``--fleet`` the launcher's ready file is the fleet
-    file itself (JSON, ``mvtpu.fleet.v1``).
+    workers; ``,statusz:<port>`` follows when statusz is armed
+    (``MVTPU_STATUSZ_PORT``). Under ``--fleet`` the launcher's ready
+    file is the fleet file itself (JSON, ``mvtpu.fleet.v1``).
 
 Fleet flags:
 
@@ -53,9 +57,11 @@ Fleet flags:
     launcher mode: spawn N member processes. Rank r's addresses derive
     from ``--address`` (unix/shm paths gain a ``.r`` suffix; an
     explicit tcp port becomes port+r, an ephemeral ``:0`` stays
-    ephemeral). SIGTERM/SIGINT forward to every member; one member
-    dying does NOT take the rest down (a partition outage is partial
-    by design — the launcher keeps the survivors).
+    ephemeral). Members get statusz armed (ephemeral) unless
+    ``MVTPU_STATUSZ_PORT`` is already set. SIGTERM/SIGINT forward to
+    every member; one member dying does NOT take the rest down (a
+    partition outage is partial by design — the launcher keeps the
+    survivors).
 ``--fleet-file PATH``
     where the fleet file lands (default: ``--ready-file``, else
     ``<first unix/shm path>.fleet.json``).
@@ -170,7 +176,14 @@ def _member_main(args, server_cls, partition) -> int:
                         replicate_to=replicate_to, device=args.device)
     bound = server.start()
     if args.ready_file:
-        _write_ready(args.ready_file, bound)
+        ready = bound
+        from multiverso_tpu_torch.telemetry import statusz
+        http = statusz.server()
+        if http is not None:
+            # the launcher lifts this into the fleet file; ?fleet=1
+            # scrapes peers through it
+            ready += f",statusz:{http.port}"
+        _write_ready(args.ready_file, ready)
 
     def _stop(signum, frame):
         server.stop()
@@ -204,6 +217,7 @@ def _fleet_main(args, partition) -> int:
             + ".fleet.json"
 
     env = dict(os.environ)
+    env.setdefault("MVTPU_STATUSZ_PORT", "0")
     # one spec per process: rank's primary (idx None) then its
     # followers (idx 1..R-1), all partition-member rank — a follower
     # sizes its shard exactly like its primary
@@ -371,6 +385,7 @@ def _reshard_main(args, partition, grow: bool) -> int:
                  if a.strip()]
     if grow:
         env = dict(os.environ)
+        env.setdefault("MVTPU_STATUSZ_PORT", "0")
         fol_addrs = [[_replica_address(a, n, new_n, idx)
                       for a in addresses] for idx in range(1, r)]
         specs = [(None, [_rank_address(a, n) for a in addresses])] \

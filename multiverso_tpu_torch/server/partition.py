@@ -411,6 +411,20 @@ def promote_in_doc(doc: Dict[str, Any], rank: int,
 
 # -- fleet-aggregated introspection ----------------------------------------
 
+def fleet_members(doc: Dict[str, Any]) -> List[Dict[str, Any]]:
+    """Every member row of a fleet-file document: each rank's primary,
+    then its followers (a follower's row gets its rank's ``rank``). The
+    fleet's scrapers (``report --fleet``, ``FleetController``) walk
+    these, so a follower's registry and knobs count with its
+    primary's."""
+    out: List[Dict[str, Any]] = []
+    for m in doc.get("members", []):
+        out.append(m)
+        for rep in m.get("replicas") or []:
+            out.append(dict(rep, rank=m.get("rank")))
+    return out
+
+
 def member_summary(doc: Dict[str, Any]) -> List[Dict[str, Any]]:
     """Per-partition digest of one member's /statusz document: the
     owned row/bucket ranges, queue depth, and fuse/admission counters

@@ -37,15 +37,28 @@ reference's ``report`` CLI renders the port's files:
   top talkers (space-saving top-K, count-min) and range heat
   (``MVTPU_TOPK_K``, ``MVTPU_TOPK_HEAT``); loaded on demand.
 
-Not ported yet (ROADMAP.md queue A item 11e): ``statusz``
-(``StatuszServer``, ``maybe_statusz``, ``publish_fleet``), ``aggregate``
-(``gather_metrics``, ``merge_snapshots``, ``fleet_snapshot``) and
-``report``. The legacy ``utils.dashboard`` API keeps
-working as a shim over this registry.
+- :mod:`~multiverso_tpu_torch.telemetry.aggregate` —
+  :func:`gather_metrics` / :func:`fleet_snapshot` all-gather per-host
+  snapshots over the run's ``torch.distributed`` group (single-host
+  fallback: local only); :func:`merge_snapshots` folds them.
+- :mod:`~multiverso_tpu_torch.telemetry.statusz` — live introspection
+  over stdlib HTTP (``MVTPU_STATUSZ_PORT``): ``/metrics``, ``/healthz``,
+  ``/statusz`` (``?fleet=1``), ``/trace``, ``/vars``, ``/topk`` and the
+  ``POST /control`` actuation surface.
+- ``python -m multiverso_tpu_torch.telemetry.report <file>`` — render
+  any telemetry artifact as a table, Perfetto-loadable Chrome trace
+  (``--chrome-trace``) or hot list (``--top N``); ``--fleet`` scrapes a
+  running fleet.
+
+The legacy ``utils.dashboard`` API keeps working as a shim over this
+registry.
 """
 
-from multiverso_tpu_torch.telemetry import (metrics, profiling, trace,
-                                            watchdog)
+from multiverso_tpu_torch.telemetry import (aggregate, metrics, profiling,
+                                            trace, watchdog)
+from multiverso_tpu_torch.telemetry.aggregate import (fleet_snapshot,
+                                                      gather_metrics,
+                                                      merge_snapshots)
 from multiverso_tpu_torch.telemetry.metrics import (LATENCY_BUCKETS,
                                                     Counter, Gauge,
                                                     Histogram,
@@ -68,24 +81,29 @@ from multiverso_tpu_torch.telemetry.trace import (adopt, current_request,
 from multiverso_tpu_torch.telemetry.watchdog import (Watchdog,
                                                      active_watchdogs, beat,
                                                      maybe_watchdog)
-# slo imports AFTER the siblings above: it resolves metrics/watchdog
-# through the already-bound package attributes
-from multiverso_tpu_torch.telemetry import slo
-from multiverso_tpu_torch.telemetry.slo import SloMonitor, maybe_slo_monitor
-from multiverso_tpu_torch.telemetry import health
+# statusz/slo/health import AFTER the siblings above: they resolve
+# metrics/trace/watchdog through the already-bound package attributes
+from multiverso_tpu_torch.telemetry import health, slo, statusz
 from multiverso_tpu_torch.telemetry.health import (HealthMonitor,
                                                    maybe_health_monitor)
+from multiverso_tpu_torch.telemetry.slo import SloMonitor, maybe_slo_monitor
+from multiverso_tpu_torch.telemetry.statusz import (StatuszServer,
+                                                    maybe_statusz,
+                                                    publish_fleet)
 
 __all__ = [
-    "health", "metrics", "profiling", "slo", "trace", "watchdog",
+    "aggregate", "health", "metrics", "profiling", "slo", "statusz",
+    "trace", "watchdog",
     "Counter", "Gauge", "Histogram", "MetricRegistry", "QueueGauges",
     "LATENCY_BUCKETS", "log_spaced_bounds", "snapshot_quantile",
     "counter", "gauge", "histogram", "emit", "host_index", "registry",
     "snapshot", "write_snapshot",
+    "gather_metrics", "merge_snapshots", "fleet_snapshot",
     "span", "step_timeline", "set_trace_file", "read_trace",
     "request", "new_request_id", "current_request", "link", "adopt",
     "Watchdog", "beat", "maybe_watchdog", "active_watchdogs",
     "SloMonitor", "maybe_slo_monitor",
     "HealthMonitor", "maybe_health_monitor",
+    "StatuszServer", "maybe_statusz", "publish_fleet",
     "profiled", "profile_window", "record_device_memory",
 ]

@@ -475,8 +475,8 @@ class HealthMonitor:
         return list(self._violations)
 
     def status(self) -> dict:
-        """JSON-safe summary for the watchdog manifest (and statusz,
-        which comes with ROADMAP.md queue A item 11)."""
+        """JSON-safe summary for the watchdog manifest and the statusz
+        ``health`` section."""
         return {
             "rules": [r.raw for r in self.rules],
             "action": self.action,

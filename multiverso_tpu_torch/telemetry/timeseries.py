@@ -20,9 +20,8 @@ is an interval delta between two retained samples:
   counts fed through the same interpolation the lifetime quantiles use
   (:func:`metrics.quantile_from_counts`).
 
-Surfacing: the reference's statusz serves ``/vars?window=30`` built
-from :func:`vars_doc` (kind ``mvtpu.series.v1``; the port's statusz and
-aggregate wait for ROADMAP queue A item 11); member docs merge
+Surfacing: statusz serves ``/vars?window=30`` built from
+:func:`vars_doc` (kind ``mvtpu.series.v1``); member docs merge
 fleet-wide with :func:`merge_vars` (rates/deltas add, gauges max,
 histogram interval buckets add — the same rules as
 :mod:`telemetry.aggregate`, applied to deltas). The watchdog embeds

@@ -4,9 +4,9 @@ tests/test_attribution.py mirrored: space-saving top-K error bounds
 under adversarial eviction streams, cross-member sketch merge vs a
 single-stream sketch, count-min overestimate-only semantics, table heat
 histograms, the plane's record/shed/topk_doc surface and the fleet
-``merge_topk`` aggregation. The reference's ``/topk`` over HTTP waits
-for the port's statusz (ROADMAP A11e): its case here holds the port's
-``topk_doc`` against the reference's for the same stream.
+``merge_topk`` aggregation. The case here holds the port's ``topk_doc``
+against the reference's for the same stream; ``/topk`` over HTTP is
+served by the port's statusz (``tests/test_torch_statusz.py``).
 
 Sketch properties are asserted against exact ground-truth counts kept
 alongside the stream — the classic space-saving guarantees are

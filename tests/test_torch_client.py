@@ -15,7 +15,7 @@ reference's (its engine series summed).
 
 Not carried over here: the reference's ``TestGetAsync`` (a JAX future
 type), ``test_bucketed_signature_reuse`` (jit compile counts) and the
-wire transport (ROADMAP.md queue A item 11). The overflow deferral
+wire transport (``tests/test_torch_wire*.py``). The overflow deferral
 reads the port's ``(flag, events, host_buckets)`` entries (ROADMAP queue
 C, reference failure 3). Card-only cases (the pre-sum through the CUDA
 kernel, the pinned staging buffer) are in ``tests/test_torch_cuda.py``.

@@ -16,8 +16,9 @@ JAX package's, case by case after ``tests/test_control.py``.
   ``core.shutdown`` leaves none; the time-series cadence comes through
   the knob table; a watchdog dump carries the decision ring.
 
-The reference's ``/control`` POST, ``statusz`` and ``FleetController``
-cases wait for the server fleet (ROADMAP.md queue A item 11).
+The reference's ``/control`` POST and ``statusz`` cases run in
+``tests/test_torch_statusz.py``, its ``FleetController`` and decision
+audit cases in ``tests/test_torch_fleet_control.py``.
 """
 
 import json

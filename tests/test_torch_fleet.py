@@ -8,7 +8,8 @@ exactly once per shard under a chaos wire storm, and one member going
 down leaving the surviving partitions serving. Then the fleet-tree case
 of tests/test_distributed_trace.py, the launcher (``python -m
 multiverso_tpu_torch.server --fleet 2 --device cpu``) served through
-its fleet file, and the packages against each other: the port's router
+its fleet file, its members' statusz scraped by the reference's
+``report --fleet``, and the packages against each other: the port's router
 over a reference fleet, and fleet files, maps and map diffs written by
 one package read by the other as the same value."""
 
@@ -294,10 +295,12 @@ def test_launcher_fleet_on_the_cpu_serves_through_its_fleet_file(
         tmp_path):
     """``python -m multiverso_tpu_torch.server --fleet 2 --replicas 2
     --device cpu`` starts two primaries and their followers, writes the
-    fleet file once every member is up, and ``connect_fleet_file``
-    serves create_kv / add / get through it; the followers answer
-    bounded reads bit for bit what the primaries answer. SIGTERM stops
-    every member, each logging its kernel launches (none on the CPU)."""
+    fleet file once every member is up, each member's row naming its
+    statusz port, and ``connect_fleet_file`` serves create_kv / add /
+    get through it; the followers answer bounded reads bit for bit what
+    the primaries answer, and ``/statusz?fleet=1`` on a follower lists
+    both ranks with the map's bucket ranges. SIGTERM stops every member,
+    each logging its kernel launches (none on the CPU)."""
     ffile = tmp_path / "fleet.json"
     env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu")
     proc = subprocess.Popen(
@@ -316,7 +319,11 @@ def test_launcher_fleet_on_the_cpu_serves_through_its_fleet_file(
         doc = json.loads(ffile.read_text())
         assert [m["rank"] for m in doc["members"]] == [0, 1]
         assert all(len(m["replicas"]) == 1 for m in doc["members"])
-        assert all(m["statusz_port"] is None for m in doc["members"])
+        rows = partition.fleet_members(doc)
+        assert len(rows) == 4
+        assert all(isinstance(m["statusz_port"], int)
+                   and m["statusz_port"] > 0 for m in rows)
+        assert len({m["statusz_port"] for m in rows}) == 4
         fc = router.connect_fleet_file(str(ffile), client="w0",
                                        quant=None, read_replica=1)
         kv = fc.create_kv("lf_kv", 1 << 12, value_dim=2)
@@ -329,6 +336,20 @@ def test_launcher_fleet_on_the_cpu_serves_through_its_fleet_file(
         fol, ffound = kv.get(keys, staleness=0)
         assert ffound.all() and fol.tobytes() == got.tobytes()
         fc.close()
+        import urllib.request
+        port = doc["members"][0]["replicas"][0]["statusz_port"]
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/statusz?fleet=1",
+                timeout=10) as r:
+            view = json.loads(r.read())
+        pmap = partition.PartitionMap.from_wire(doc["map"])
+        assert [e["rank"] for e in view["partitions"]] == [0, 1]
+        for e in view["partitions"]:
+            assert "error" not in e
+            (part,) = e["partitions"]
+            (tab,) = part["tables"]
+            assert tab["name"] == "lf_kv"
+            assert tab["buckets"] == list(pmap.bucket_range(e["rank"]))
     finally:
         proc.terminate()
         try:
@@ -338,6 +359,65 @@ def test_launcher_fleet_on_the_cpu_serves_through_its_fleet_file(
             _, err = proc.communicate()
     assert proc.returncode == 0, err[-3000:]
     assert err.count("kernel launches {}") == 4
+
+
+def test_reference_report_scrapes_a_port_fleet(tmp_path, capsys):
+    """The reference's ``report --fleet`` over a port fleet on the CPU
+    (``--fleet 2 --replicas 2 --device cpu``): every primary's
+    ``/trace`` and ``/metrics?json=1`` scraped, no scrape error, the
+    merged snapshot counting the adds each primary served; the port's
+    report scrapes the followers too."""
+    from multiverso_tpu.telemetry import report as jreport
+    from multiverso_tpu_torch.telemetry import report as treport
+    ffile = tmp_path / "fleet.json"
+    env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu",
+               MVTPU_TRACE_DIR=str(tmp_path / "traces"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "multiverso_tpu_torch.server",
+         "--fleet", "2", "--replicas", "2", "--device", "cpu",
+         "--address", f"unix:{tmp_path}/rr.sock",
+         "--fleet-file", str(ffile), "--name", "rr"],
+        env=env, cwd=REPO, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        deadline = time.monotonic() + 120
+        while not ffile.exists():
+            assert proc.poll() is None, proc.communicate()[1][-3000:]
+            assert time.monotonic() < deadline, "fleet never came up"
+            time.sleep(0.05)
+        fc = router.connect_fleet_file(str(ffile), client="w0",
+                                       quant=None)
+        kv = fc.create_kv("rr_kv", 1 << 12, value_dim=2)
+        keys = np.arange(1, 301, dtype=np.uint64) * 7919
+        for _ in range(3):
+            kv.add(keys, np.ones((300, 2), np.float32), sync=True)
+        fc.close()
+        snap_out = str(tmp_path / "ref-snap.json")
+        chrome_out = str(tmp_path / "ref-chrome.json")
+        assert jreport.main(["--fleet", str(ffile), "--snapshot-out",
+                             snap_out, "--chrome-trace", chrome_out]) == 0
+        assert "fleet scrape:" not in capsys.readouterr().err
+        snap = json.load(open(snap_out))
+        assert snap["kind"] == "mvtpu.metrics.v1" and snap["hosts"] == 2
+        assert snap["counters"]["wire.requests{op=kv_add}"] == 6
+        doc = json.loads(ffile.read_text())
+        tracks = {e["args"]["name"] for e in json.load(
+            open(chrome_out))["traceEvents"]
+            if e.get("name") == "process_name"}
+        assert {f"host0/pid{m['pid']}" for m in doc["members"]} <= tracks
+        assert jreport.main(["--fleet", str(ffile)]) == 0
+        assert "spans:" in capsys.readouterr().out
+        _, tsnap, errors = treport.scrape_fleet(str(ffile))
+        assert errors == [] and tsnap["hosts"] == 4
+        assert tsnap["counters"]["wire.requests{op=kv_add}"] == 6
+        assert tsnap["counters"]["wire.requests{op=repl}"] == 8
+    finally:
+        proc.terminate()
+        try:
+            proc.communicate(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
 
 
 def test_member_log_records_keep_a_line_each_when_unbuffered(tmp_path):

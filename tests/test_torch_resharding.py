@@ -698,7 +698,8 @@ def test_cli_grow_under_a_stream_then_shrink_bit_exact(tmp_path):
     dense array (every order of sum is exact): after the commit every
     value is the exact sum; a ``--shrink`` back to 2 with no traffic
     reads back bit for bit; each reshard moves its share of the rows,
-    not all of them."""
+    not all of them. Every member, the grown one too, names its statusz
+    port."""
     ffile = str(tmp_path / "fleet.json")
     base = f"unix:{tmp_path}/m.sock"
     env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu",
@@ -756,6 +757,9 @@ def test_cli_grow_under_a_stream_then_shrink_bit_exact(tmp_path):
         summary = json.loads(grow.stdout.strip().splitlines()[-1])
         assert summary["ok"] and summary["n_to"] == 3
         pids = [m["pid"] for m in _members_of(ffile)]
+        # the grown member serves statusz too (--grow's default)
+        assert all(isinstance(m["statusz_port"], int)
+                   for m in _members_of(ffile))
         keys = np.array(sorted(want_kv), np.uint64)
         want = np.array([want_kv[int(k)] for k in keys], np.float32)
         got, found = kv.get(keys)

@@ -7,10 +7,10 @@ against the JAX package's, driven by the same calls.
 - Sinks: the span trace and the metric-event JSONL hold identical
   records once ``ts``, ``dur_s`` and ``tid`` are dropped (both modules'
   id counters restarted at 1).
-- The JAX package's ``report`` CLI (``multiverso_tpu.telemetry.report``,
-  whose port is ROADMAP queue A item 11) renders the port's snapshot,
-  trace and event files, and its Prometheus rendering of a port snapshot
-  equals the port's own text.
+- The JAX package's ``report`` CLI (``multiverso_tpu.telemetry.report``;
+  the port's own is held to it in ``tests/test_torch_report.py``)
+  renders the port's snapshot, trace and event files, and its Prometheus
+  rendering of a port snapshot equals the port's own text.
 """
 
 import itertools
@@ -335,13 +335,11 @@ def test_histogram_counts_match_numpy():
 
 
 def test_exports_are_the_reference_s_less_what_waits():
-    """The package exports the reference's ``__all__`` less what later
-    ROADMAP items port (aggregate, statusz and their names), with
-    ``profiled`` in place of ``profiled_jit``."""
+    """The package exports the reference's ``__all__`` (aggregate,
+    statusz and their names included), with ``profiled`` in place of
+    ``profiled_jit``."""
     from multiverso_tpu import telemetry as jtelemetry
-    waits = {"aggregate", "statusz", "gather_metrics", "merge_snapshots",
-             "fleet_snapshot", "StatuszServer", "maybe_statusz",
-             "publish_fleet", "profiled_jit"}
+    waits = {"profiled_jit"}
     assert set(ttelemetry.__all__) \
         == (set(jtelemetry.__all__) - waits) | {"profiled"}
     for name in ttelemetry.__all__:
