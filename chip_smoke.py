@@ -259,6 +259,27 @@ its seconds):
    and each member's ``control.decision`` under (d)'s
    ``control.retune``. (f) After 23b, ``/statusz?fleet=1`` names rank
    0's promoted follower.
+25. The multi-process runtime, after phase 23: two worker processes
+   (``chip_smoke.py --mp-worker``, started by the script) on cuda:0, one
+   gloo group over a ``FileStore``, ``-data_parallel=2
+   -model_parallel=1``: each process holds one replica (data row). (a)
+   word2vec ``local_data`` at phase 4's width (vocab 10k, dim 100, window
+   5, 5 negatives, global batch 4,096, 2,048 a process, lr 0.01), a
+   warm-up call and ``MP_W2V_CALLS`` timed calls of ``MP_W2V_STEPS``
+   steps, each process streaming its own shard of one dictionary: the two
+   processes' tables equal (CRC32 over ``allgather_bytes``), and equal to
+   a one-process (2, 1) run on cuda:0 fed the same global batches (run
+   by the script after the workers); each process's words/s, and the
+   gloo gathers' share of its timed calls. (b) LightLDA streamed,
+   doc-blocked, ``local_corpus``, K 1,024, on phase 8's corpus (T 1M, D
+   10k), each process the docs of its parity, two sweeps: the word
+   counts sum to the global token count and equal the processes' recounts
+   of their own (word, z) summed, each process's doc counts are those of
+   its own z, the loglik is finite, and a per-rank store and load gives z
+   and the tables back bit for bit. (c) A KVTable of 2^20 slots: 8
+   collective adds of 20,000 keys and their gets against a numpy model,
+   equal on both processes. Each process counts its launches from 0
+   after its init and must launch #1, #2, #4, #6, #7 and #11 or #12.
 14. The row scatter's kernel on phase 2's sorted lanes, and phase 2's KV
    probe + commit calls (the flat form at the sparse-LR step's shapes,
    the sharded form on four shards), taken apart by torch.profiler: each
@@ -362,7 +383,7 @@ against the same run on a (1, 4) CPU mesh.
 Launch counts are set to 0 before each main path (phases 3-4 word2vec,
 4c on each backend, 5, 6, 6b, 7, 8, 10, 11, 12, 13's word2vec and its
 COO superstep, 13b's two meshes, 15, each sweep of 16, 17's sparse LR,
-21a, 22) and read after it; phases 20, 21 and 22 read each run's
+21a, 22, each worker of 25) and read after it; phases 20, 21 and 22 read each run's
 launches as the difference of the counts around it; phase 23's member
 processes count from 0 at their start and log their counts when they
 stop (phase 24 reads them live off each member's statusz too). Before the last line the script prints
@@ -6831,6 +6852,316 @@ def phase_fleet(torch, KVTable, router, transport, telemetry, adds,
 
 
 
+# -- phase 25: the multi-process runtime ----------------------------------------
+# two worker processes on cuda:0 over one gloo group (NCCL refuses two
+# ranks on one card); phase 4's word2vec width, phase 8's LightLDA depth
+MP_PROCS = 2
+MP_W2V_STEPS, MP_W2V_CALLS = 64, 3
+MP_W2V_TOKENS = 300_000          # each process's shard
+MP_KV_SLOTS, MP_KV_ADDS, MP_KV_KEYS = 1 << 20, 8, 20_000
+MP_TIMEOUT_S = 600
+#: what every worker must launch: #1, #2, #4, #6, #7, and #11 or #12
+MP_KERNELS = ("row_gather", "row_scatter_add", "coo_scatter_add",
+              "kv_lookup", "kv_probe_update")
+MP_SAMPLERS = ("gibbs_sample_docblock", "gibbs_sample_docblock_build")
+
+
+def mp_sizes() -> dict:
+    """The sizes a worker runs (a CPU rehearsal passes smaller ones)."""
+    return dict(device="cuda:0", vocab=VOCAB, dim=DIM, window=WINDOW,
+                negative=NEGATIVE, batch=BATCH, steps=MP_W2V_STEPS,
+                calls=MP_W2V_CALLS, tokens=MP_W2V_TOKENS, lr=LR,
+                lda_v=LDA_V, lda_d=LDA_SMALL_D, lda_t=LDA_SMALL_T,
+                lda_k=LDA_K, lda_b=LDA_B, lda_tb=LDA_TB,
+                lda_maxd=LDA_MAXD, kv_slots=MP_KV_SLOTS,
+                kv_adds=MP_KV_ADDS, kv_keys=MP_KV_KEYS)
+
+
+def mp_shard(Corpus, CorpusData, z: dict, rank: int):
+    """Rank ``rank``'s word2vec shard: one dictionary (the counts of a
+    shared Zipf sample), its own Zipf token stream."""
+    counts = np.maximum(np.bincount(
+        zipf_words(np.random.default_rng(7), z["vocab"], 1_000_000),
+        minlength=z["vocab"]), 1).astype(np.int64)
+    ids = zipf_words(np.random.default_rng(100 + rank), z["vocab"],
+                     z["tokens"])
+    return Corpus(CorpusData(words=[f"w{i}" for i in range(z["vocab"])],
+                             counts=counts, ids=ids,
+                             total_raw_tokens=len(ids)),
+                  subsample=SUBSAMPLE)
+
+
+def mp_w2v_config(W2VConfig, z: dict, local: bool):
+    return W2VConfig(embedding_dim=z["dim"], window=z["window"],
+                     negative=z["negative"], batch_size=z["batch"],
+                     steps_per_call=z["steps"], learning_rate=z["lr"],
+                     subsample=SUBSAMPLE, seed=1, local_data=local)
+
+
+def table_crc(app) -> list:
+    import zlib
+    return [zlib.crc32(np.ascontiguousarray(t.get()).tobytes())
+            for t in (app.w_in, app.w_out)]
+
+
+def mp_worker(argv) -> int:
+    """One worker of phase 25 (``chip_smoke.py --mp-worker <rank> <store
+    file> <out dir> <sizes json>``): joins the group, drives word2vec
+    ``local_data``, LightLDA ``local_corpus`` and a KVTable through the
+    port on its replica, checks them, and writes its numbers to
+    ``<out dir>/rank<rank>.json``."""
+    import zlib
+    rank, store, out, z = int(argv[0]), argv[1], argv[2], json.loads(argv[3])
+    import torch
+    sys.path.insert(0, HERE)
+    from multiverso_tpu_torch import core
+    from multiverso_tpu_torch.apps.lightlda import LDAConfig, LightLDA
+    from multiverso_tpu_torch.apps.word_embedding import (W2VConfig,
+                                                          WordEmbedding)
+    from multiverso_tpu_torch.data.corpus import Corpus
+    from multiverso_tpu_torch.data.native import CorpusData
+    from multiverso_tpu_torch.ops import lda_sampler as ls
+    from multiverso_tpu_torch.ops import table_kernels as tk
+    from multiverso_tpu_torch.parallel import multihost
+    from multiverso_tpu_torch.tables import KVTable, reset_tables
+    dev = torch.device(z["device"])
+    mesh = core.init(["-num_processes=2", f"-process_id={rank}",
+                      "-data_parallel=2", "-model_parallel=1"],
+                     devices=[dev], store=torch.distributed.FileStore(
+                         store, MP_PROCS))
+    if mesh.local_rows != [rank] or core.size() != MP_PROCS:
+        raise SystemExit(f"rank {rank}: mesh {mesh}")
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    res = {"rank": rank}
+    tk.reset_launches()
+    ls.reset_launches()
+    # (a) word2vec local_data: a warm-up call, then the timed calls
+    app = WordEmbedding(mp_shard(Corpus, CorpusData, z, rank),
+                        mp_w2v_config(W2VConfig, z, True), name="mp_w2v")
+    if app._local_batch != z["batch"] // MP_PROCS:
+        raise SystemExit(f"rank {rank}: local batch {app._local_batch}")
+    fused, gathers = app._fused, []
+
+    def timed_fused(*args, **kwargs):
+        r = fused(*args, **kwargs)
+        gathers.append(fused.exchange_seconds)
+        return r
+
+    app._fused = timed_fused
+    app.train(total_steps=z["steps"])
+    sync()
+    gathers.clear()
+    t0 = time.perf_counter()
+    app.train(total_steps=z["steps"] * z["calls"])
+    sync()
+    dt = time.perf_counter() - t0
+    if not all(np.isfinite(app.loss_history)):
+        raise SystemExit(f"rank {rank}: w2v loss {app.loss_history}")
+    # this worker's own share of the pairs (its local batch)
+    pairs = z["steps"] * z["calls"] * app._local_batch
+    res["w2v"] = dict(seconds=dt, pairs_per_sec=pairs / dt,
+                      words_per_sec=pairs / dt / (z["window"] + 1),
+                      gather_share=sum(gathers) / dt,
+                      losses=app.loss_history, crc=table_crc(app))
+    if len(set(multihost.allgather_bytes(
+            json.dumps(res["w2v"]["crc"]).encode("ascii")))) != 1:
+        raise SystemExit("w2v local_data: the processes' tables differ")
+    del app, fused
+    reset_tables()
+
+    # (b) LightLDA streamed, doc-blocked, local_corpus
+    tw, td = zipf_lda_corpus(z["lda_v"], z["lda_d"], z["lda_t"], seed=0)
+    mine = (td % MP_PROCS) == rank
+    lda = LightLDA(tw[mine], td[mine], z["lda_v"], LDAConfig(
+        num_topics=z["lda_k"], batch_tokens=z["lda_b"], steps_per_call=1,
+        seed=1, sampler="tiled", doc_blocked=True, block_tokens=z["lda_tb"],
+        block_docs=z["lda_maxd"], stream_blocks=True, local_corpus=True),
+        name="mp_lda")
+    if lda.num_tokens != z["lda_t"]:
+        raise SystemExit(f"rank {rank}: {lda.num_tokens} global tokens")
+    sweeps = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        lda.sweep()
+        sync()
+        sweeps.append(time.perf_counter() - t0)
+    nwk = lda.word_topics()
+    if int(nwk.sum()) != z["lda_t"]:
+        raise SystemExit(f"rank {rank}: word counts sum to {nwk.sum()}")
+    valid = lda._tw_host != lda._scratch_word
+    own = np.zeros(nwk.shape, np.int64)
+    np.add.at(own, (lda._tw_host[valid], lda._z_host[valid]), 1)
+    total = multihost.allgather_i64(own.reshape(-1)).sum(0)
+    if not np.array_equal(total.reshape(nwk.shape), nwk):
+        raise SystemExit("LightLDA local_corpus: the word counts are not "
+                         "the processes' own recounts summed")
+    doc = lda.doc_topics()
+    want = np.zeros_like(doc)
+    blocks = np.nonzero(valid)[0]
+    np.add.at(want, (lda._doc_of_row[blocks, lda._drel_host[valid]],
+                     lda._z_host[valid]), 1)
+    if not np.array_equal(doc, want) or int(doc.sum()) != int(mine.sum()):
+        raise SystemExit(f"rank {rank}: doc counts are not its own z's")
+    ll = lda.loglik()
+    if not np.isfinite(ll):
+        raise SystemExit(f"rank {rank}: loglik {ll}")
+    prefix = os.path.join(out, "lda")
+    z_before, nk_before = lda._z_host.copy(), lda.summary.get()
+    lda.store(prefix)
+    if not os.path.exists(f"{prefix}.state.rank{rank}.npz"):
+        raise SystemExit(f"rank {rank}: no per-rank state file")
+    lda.load(prefix)
+    if not (np.array_equal(lda._z_host, z_before)
+            and np.array_equal(lda.word_topics(), nwk)
+            and np.array_equal(lda.summary.get(), nk_before)):
+        raise SystemExit(f"rank {rank}: the per-rank store and load did "
+                         "not round-trip")
+    res["lda"] = dict(sweep_s=sweeps, loglik=ll,
+                      local_tokens=int(mine.sum()),
+                      tokens_per_sec=z["lda_t"] / min(sweeps))
+    del lda
+    reset_tables()
+
+    # (c) a KVTable: collective adds and gets against a numpy model
+    kv = KVTable(z["kv_slots"], value_dim=2, slots_per_bucket=16,
+                 name="mp_kv")
+    rng = np.random.default_rng(11)
+    model: dict = {}
+    for _ in range(z["kv_adds"]):
+        keys = np.unique(rng.integers(1, 1 << 40, z["kv_keys"]).astype(
+            np.uint64))
+        deltas = rng.standard_normal((len(keys), 2)).astype(np.float32)
+        kv.add(keys, deltas)
+        for k, d in zip(keys.tolist(), deltas):
+            model[k] = model.get(k, np.zeros(2, np.float32)) + d
+    keys = np.array(sorted(model), np.uint64)
+    vals, found = kv.get(keys)
+    if not found.all() or not np.array_equal(
+            vals, np.stack([model[k] for k in keys.tolist()])):
+        raise SystemExit(f"rank {rank}: KVTable gets differ from the model")
+    _, missing = kv.get(np.array([3, 5], np.uint64))
+    if missing.any() or len(kv) != len(keys):
+        raise SystemExit(f"rank {rank}: KVTable found missing keys")
+    if len(set(multihost.allgather_bytes(
+            str(zlib.crc32(vals.tobytes())).encode()))) != 1:
+        raise SystemExit("KVTable: the processes' values differ")
+    res["kv"] = dict(keys=len(keys))
+    res["launches"] = {**tk.LAUNCHES, **ls.LAUNCHES}
+    core.barrier()
+    core.shutdown()
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    print(f"MP_WORKER_OK rank={rank}", flush=True)
+    return 0
+
+
+def mp_one_process(torch, z: dict) -> list:
+    """The one-process (2, 1) run of phase 25a on one device, fed the
+    same global batches: each rank's stream, its lanes chunk r of every
+    batch. Returns its tables' CRC32s."""
+    from multiverso_tpu_torch import core
+    from multiverso_tpu_torch.apps.word_embedding import (W2VConfig,
+                                                          WordEmbedding,
+                                                          local_batches)
+    from multiverso_tpu_torch.data.corpus import Corpus
+    from multiverso_tpu_torch.data.native import CorpusData
+    shards = [mp_shard(Corpus, CorpusData, z, r) for r in range(MP_PROCS)]
+    cfg = mp_w2v_config(W2VConfig, z, False)
+    app = WordEmbedding(shards[0], cfg, name="mp_w2v_one",
+                        mesh=core.Mesh([[z["device"]]] * MP_PROCS))
+
+    def batches():
+        streams = [local_batches(c, cfg, r, z["batch"] // MP_PROCS,
+                                 app._scratch)
+                   for r, c in enumerate(shards)]
+        for items in zip(*streams):
+            yield tuple(np.concatenate(x) for x in zip(*items))
+
+    app.train(total_steps=z["steps"], batches=batches())
+    app.train(total_steps=z["steps"] * z["calls"], batches=batches())
+    crc = table_crc(app)
+    del app
+    free_tables(torch)
+    return crc
+
+
+def phase_multiprocess(torch, card: str, z=None) -> dict:
+    """Phase 25 (see ``MP_*`` and the module doc): the two workers, then
+    the one-process run they must equal. A worker that fails ends the
+    other at once (a rank left in a collective would wait out the
+    group's timeout), and the phase fails."""
+    z = mp_sizes() if z is None else z
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ, PYTHONUNBUFFERED="1")
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mp-worker",
+             str(r), os.path.join(tmp, "store"), tmp, json.dumps(z)],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for r in range(MP_PROCS)]
+        deadline = time.monotonic() + MP_TIMEOUT_S
+        try:
+            while any(p.poll() is None for p in procs):
+                if any(p.poll() not in (None, 0) for p in procs) \
+                        or time.monotonic() > deadline:
+                    break
+                time.sleep(0.2)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+            logs = [p.communicate()[0] for p in procs]
+        for r, (p, out) in enumerate(zip(procs, logs)):
+            if p.returncode != 0 or f"MP_WORKER_OK rank={r}" not in out:
+                raise SystemExit(f"phase 25: worker {r} failed (rc "
+                                 f"{p.returncode}):\n{out[-4000:]}")
+        workers = []
+        for r in range(MP_PROCS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                workers.append(json.load(f))
+    workers_s = time.perf_counter() - t_phase
+    for w in workers:
+        short = [k for k in MP_KERNELS if w["launches"].get(k, 0) <= 0]
+        if not any(w["launches"].get(k, 0) > 0 for k in MP_SAMPLERS):
+            short.append(" or ".join(MP_SAMPLERS))
+        if short:
+            raise SystemExit(f"phase 25: worker {w['rank']} launched no "
+                             f"{short}: {w['launches']}")
+    t0 = time.perf_counter()
+    one = mp_one_process(torch, z)
+    one_s = time.perf_counter() - t0
+    if one != workers[0]["w2v"]["crc"]:
+        raise SystemExit(f"phase 25a: the workers' tables "
+                         f"{workers[0]['w2v']['crc']} != the one-process "
+                         f"(2, 1) run's {one}")
+    # the system's rate: every worker's pairs over the slowest worker's
+    # time
+    system_wps = z["steps"] * z["calls"] * z["batch"] / (
+        z["window"] + 1) / max(w["w2v"]["seconds"] for w in workers)
+    for w in workers:
+        a, b = w["w2v"], w["lda"]
+        log(f"  worker {w['rank']}: word2vec local_data "
+            f"{a['words_per_sec']:.0f} words/s (its own pairs / "
+            f"(window + 1) over its {a['seconds']:.3f} s), gloo gathers "
+            f"{100 * a['gather_share']:.1f}% of its timed calls; LightLDA "
+            f"local_corpus sweeps {[round(x, 3) for x in b['sweep_s']]} s "
+            f"({b['local_tokens']} of its tokens), loglik "
+            f"{b['loglik']:.6f}; KV {w['kv']['keys']} keys; launches "
+            f"{ {k: v for k, v in w['launches'].items() if v} }")
+    log(f"  word2vec local_data: {system_wps:.0f} words/s for the system "
+        f"(global pairs / (window + 1) over the slowest worker's timed "
+        f"calls); both workers' tables equal the one-process (2, 1) run's "
+        f"bit for bit (CRC32 {one}); workers {workers_s:.1f} s, the "
+        f"one-process run {one_s:.1f} s; on {card}")
+    return dict(workers=workers, system_words_per_sec=system_wps,
+                one_process_crc=one, workers_s=workers_s,
+                one_process_s=one_s)
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7204,6 +7535,14 @@ def main(argv) -> int:
     del slr_data
     phase_end("fleet")
 
+    phase("multiprocess", "phase 25: the multi-process runtime (two worker "
+          "processes on cuda:0 over gloo, a (2, 1) mesh: a: word2vec "
+          "local_data vs the one-process (2, 1) run; b: LightLDA streamed "
+          "local_corpus; c: a KVTable)")
+    free_tables(torch)
+    mp25 = phase_multiprocess(torch, card)
+    phase_end("multiprocess")
+
     log("phase 19a/c/d: the stat reduction vs numpy; the dense logreg "
         "under a chaos NaN with MVTPU_HEALTH_ACTION=rollback, and killed "
         "after generation 2 and resumed")
@@ -7476,7 +7815,7 @@ def main(argv) -> int:
                        row_scatter_parts=scatter_parts, telemetry=tel,
                        health=h19, client=c20, tiered_kv=tiered,
                        wire_server=wire22, fleet=fleet23,
-                       seconds=time.perf_counter() - t_start), f, indent=1)
+                       multiprocess=mp25, seconds=time.perf_counter() - t_start), f, indent=1)
     log(f"phase seconds: { {k: round(v, 1) for k, v in phase_s.items()} }")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
@@ -7488,4 +7827,6 @@ def main(argv) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mp-worker"]:
+        sys.exit(mp_worker(sys.argv[2:]))
     sys.exit(main(sys.argv[1:]))

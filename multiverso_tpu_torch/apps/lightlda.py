@@ -64,9 +64,19 @@ each lane's posterior reads the same counts).
   in replica order, each replica's lanes written where the host layout
   puts them (:meth:`LightLDA._block_rows`).
 
+Over several processes (``core``'s module doc) each process holds the
+replicas of its data rows: its parts of the ``DataSplit`` and
+``Replicated`` carries, and its lanes of each staged call. The streamed
+mode stages and reads back only this process's lanes; the count rebuilds
+take every process's lanes over the group, and a full-z consumer
+(``doc_topics``, ``store``) first completes the host z
+(:meth:`LightLDA._sync_z_host`). Under ``local_corpus`` each process
+passes only its own docs and packs them into the block slots its
+replicas own; z starts from :func:`_hash_z` of the global slot, and the
+sampler state is stored per rank.
+
 The run checkpoint manager (``run_state`` / ``restore_run_state``) and
-the health rollback ride the sweep loop. Not in the port yet (see
-ROADMAP.md): ``local_corpus`` and multi-process runs.
+the health rollback ride the sweep loop.
 """
 
 from __future__ import annotations
@@ -91,7 +101,9 @@ from multiverso_tpu_torch.tables.base import (_record_events, loadz_stream,
                                               savez_stream)
 from multiverso_tpu_torch.tables.superstep import (DataSplit, Replicated,
                                                    ShardedParam,
-                                                   gather_rows, replica_cat,
+                                                   gather_rows,
+                                                   local_replica_index,
+                                                   replica_cat,
                                                    replica_index,
                                                    replica_sum)
 from multiverso_tpu_torch.utils import log
@@ -130,8 +142,12 @@ class LDAConfig:
     block_docs: int = 16            # doc_blocked: max docs per block
     stream_blocks: bool = False     # doc_blocked only: stream, z and doc
     # counts stay on the host; one call is staged at a time
-    local_corpus: bool = False      # per-process corpus shards (not in the
-    # port yet)
+    local_corpus: bool = False      # stream_blocks only: PER-PROCESS
+    # corpus shards: each process passes ONLY its own (token_words,
+    # token_docs) slice (global doc ids, disjoint doc sets) and packs its
+    # docs into exactly the block slots its replicas own; calls per sweep
+    # and the global doc and token counts are agreed at init, and z
+    # starts from a hash of (seed, global block, position)
     mh_steps: int = 2               # MH rounds (sampler "mh")
     precision: str = "float32"      # gibbs posterior/CDF dtype (bfloat16)
     seed: int = 0
@@ -155,6 +171,19 @@ def load_docs(path: str) -> Tuple[np.ndarray, np.ndarray, int]:
     token_docs = np.repeat(doc_of_entry, word_counts)
     vocab = int(word_ids.max()) + 1 if len(word_ids) else 1
     return token_words, token_docs, vocab
+
+
+def _hash_z(seed: int, gblocks: np.ndarray, tb: int, K: int) -> np.ndarray:
+    """Process-independent z init for local_corpus mode: splitmix64 of
+    (seed, global block, position) mod K, so any process computes the
+    same draw for a slot without the global stream (the reference's)."""
+    x = (gblocks.astype(np.uint64)[:, None] * np.uint64(tb)
+         + np.arange(tb, dtype=np.uint64)[None, :]
+         + (np.uint64(seed & 0xFFFFFFFF) << np.uint64(32)))
+    x = (x ^ (x >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+    x = (x ^ (x >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+    x = x ^ (x >> np.uint64(31))
+    return (x % np.uint64(K)).astype(np.int32)
 
 
 def _predictive_ll(A, W, S, m, alpha, beta, K, vbeta) -> torch.Tensor:
@@ -225,16 +254,25 @@ class LightLDA:
         self.mesh = core.resolve_mesh(mesh, device)
         self.device = dev = self.mesh.shard_devices[0]
         self.n_replicas = D = self.mesh.shape[core.DATA_AXIS]
-        # each replica's first device: its locals, constants and draws
-        self._devs = [self.mesh.replica_devices(d)[0] for d in range(D)]
+        # each local replica's first device: its locals, constants and
+        # draws (every replica's on one process)
+        self._devs = [self.mesh.replica_devices(d)[0]
+                      for d in self.mesh.local_rows]
         self.V = vocab_size
         self.K = c.num_topics
         self.num_docs = int(token_docs.max()) + 1 if len(token_docs) else 1
         self.num_tokens = len(token_words)
-        if c.local_corpus:
-            raise ValueError(
-                "local_corpus is not in the port yet (ROADMAP queue A item "
-                "12); use the whole corpus in one process")
+        if c.local_corpus and not c.stream_blocks:
+            raise ValueError("local_corpus requires stream_blocks=True")
+        if c.local_corpus and self.mesh.processes > 1:
+            # per-process corpus shards: agree on the global doc-id space
+            # and token count (loglik normalisation, count invariants)
+            # before any geometry is derived
+            from multiverso_tpu_torch.parallel.multihost import \
+                allgather_i64
+            g = allgather_i64([self.num_docs, self.num_tokens])
+            self.num_docs = int(g[:, 0].max())
+            self.num_tokens = int(g[:, 1].sum())
         if c.sampler not in ("gibbs", "mh", "tiled"):
             raise ValueError(f"sampler must be 'gibbs', 'mh' or 'tiled', "
                              f"got {c.sampler!r}")
@@ -415,14 +453,32 @@ class LightLDA:
         per_call = S * nbs
         self._per_call, self._nbs = per_call, nbs
         self._tb, self._maxd = TB, MAXD
-        n_calls = -(-n_blocks // per_call)
-        nb_pad = n_calls * per_call
+        local = c.stream_blocks and c.local_corpus
+        if local:
+            # per-process corpus shard: this process packs its docs into
+            # ONLY the block slots its replicas own; the other processes
+            # fill the rest of the global block space
+            self._own_offs = self._owned_call_offsets()
+            self._own_per_call = cap = len(self._own_offs)
+            n_calls = -(-n_blocks // cap)
+            if self.mesh.processes > 1:
+                from multiverso_tpu_torch.parallel.multihost import (
+                    allgather_i64, validate_single_owner)
+                mask = np.zeros(per_call, np.int32)
+                mask[self._own_offs] = 1
+                validate_single_owner(mask, "local_corpus")
+                n_calls = int(allgather_i64([n_calls]).max())
+        else:
+            cap = per_call
+            n_calls = -(-n_blocks // cap)
+        nb_alloc = n_calls * cap            # blocks on THIS process
+        nb_pad = n_calls * per_call         # the global padded block count
         self.calls_per_sweep = n_calls
         self._nb_pad = nb_pad
 
-        tw_p = np.full((nb_pad, TB), self._scratch_word, np.int32)
-        drel_p = np.full((nb_pad, TB), MAXD - 1, np.int32)
-        mask_p = np.zeros((nb_pad, TB), np.int32)
+        tw_p = np.full((nb_alloc, TB), self._scratch_word, np.int32)
+        drel_p = np.full((nb_alloc, TB), MAXD - 1, np.int32)
+        mask_p = np.zeros((nb_alloc, TB), np.int32)
         # -1 = document with zero tokens (never packed into any block)
         self._blk_of_doc = np.full(self.num_docs, -1, np.int64)
         self._row_of_doc = np.full(self.num_docs, -1, np.int64)
@@ -435,19 +491,26 @@ class LightLDA:
             mask_p.reshape(-1)[flat] = 1
             self._blk_of_doc[doc_ids] = blk
             self._row_of_doc[doc_ids] = row
-        self.packing_fill = float(mask_p.sum() / max(nb_pad * TB, 1))
+        self.packing_fill = float(mask_p.sum() / max(nb_alloc * TB, 1))
         log.info("lda doc_blocked: %d blocks (%d/call, %.0f%% fill)",
-                 nb_pad, per_call, 100 * self.packing_fill)
+                 nb_alloc, cap, 100 * self.packing_fill)
         # init z, shared by both residency modes so the streamed and
-        # in-memory runs are bit-identical for the same seed
-        rng = np.random.default_rng(c.seed)
-        z0 = rng.integers(0, self.K, (nb_pad, TB)).astype(np.int32)
+        # in-memory runs are bit-identical for the same seed; local mode
+        # hashes (seed, GLOBAL block, position) instead, so a slot's
+        # draw does not depend on the process that owns it
+        if local:
+            z0 = _hash_z(c.seed, self._global_of_local(
+                np.arange(nb_alloc, dtype=np.int64)), TB, self.K)
+        else:
+            rng = np.random.default_rng(c.seed)
+            z0 = rng.integers(0, self.K, (nb_pad, TB)).astype(np.int32)
         dev = self.device
         if c.stream_blocks:
             self._tw_host, self._drel_host, self._z_host = tw_p, drel_p, z0
+            self._z_synced = True    # the initial z is globally complete
             self._z_l = self._ndk_l = None
             # inverse packing map for doc_topics(): (block, row) -> doc
-            self._doc_of_row = np.full((nb_pad, MAXD), -1, np.int64)
+            self._doc_of_row = np.full((nb_alloc, MAXD), -1, np.int64)
             valid = self._blk_of_doc >= 0
             self._doc_of_row[self._blk_of_doc[valid],
                              self._row_of_doc[valid]] = np.nonzero(valid)[0]
@@ -465,7 +528,7 @@ class LightLDA:
                  (("tw", self._tw), ("drel", self._drel),
                   ("mask", self._mask))}
         self._consts = [{k: v[d] for k, v in parts.items()}
-                        for d in range(self.n_replicas)]
+                        for d in range(len(self._devs))]
         self._ndk_shape = (nb_pad, MAXD, self.K // 128, 128)
         self._z_l = DataSplit(self._split_blocks(
             torch.as_tensor(z0, device=dev)))
@@ -486,19 +549,27 @@ class LightLDA:
         own: of each step's ``nbs`` blocks, replica ``d`` owns the
         contiguous ``q = nbs / D`` blocks ``d`` (the reference's blocks
         split over ``data``), step after step, ``[steps * q, ...]`` on its
-        device. One replica owns all of ``x``."""
+        device (this process's replicas' parts). One replica owns all of
+        ``x``."""
         D = self.n_replicas
         if D == 1:
             return [x]
         tail = tuple(x.shape[1:])
         steps = x.view(-1, D, self._nbs // D, *tail)
-        return [steps[:, d].reshape((-1,) + tail).to(self._devs[d])
-                for d in range(D)]
+        return [steps[:, d].reshape((-1,) + tail).to(dev)
+                for d, dev in zip(self.mesh.local_rows, self._devs)]
 
     def _join_blocks(self, parts: List[torch.Tensor]) -> torch.Tensor:
-        """The inverse of :meth:`_split_blocks`, on the first device."""
-        if len(parts) == 1:
+        """The inverse of :meth:`_split_blocks`, on the first device; over
+        several processes the other processes' parts come over the group
+        (a collective)."""
+        if self.n_replicas == 1:
             return parts[0]
+        if self.mesh.processes > 1:
+            from multiverso_tpu_torch.parallel.multihost import \
+                allgather_tensors
+            parts = [p for theirs in allgather_tensors(parts)
+                     for p in theirs]
         tail = tuple(parts[0].shape[1:])
         q = self._nbs // len(parts)
         return torch.stack([p.to(self.device).view(-1, q, *tail)
@@ -531,11 +602,16 @@ class LightLDA:
             if self._docblock else Replicated.of(ndk, self.mesh)
 
     def _token_lanes(self, d: int) -> tuple:
-        """(words, topics, mask) of every token, on replica ``d``'s
-        device: its own whole stream, or every replica's blocks."""
+        """(words, topics, mask) of every token, on local replica ``d``'s
+        device: its own whole stream, or every replica's blocks (over
+        several processes, the whole stream in the (1, 1) layout: the
+        int32 counts do not depend on the lanes' order)."""
         if not self._docblock:
             k = self._consts[d]
             return k["tw"], self._z_l.parts[d], k["mask"]
+        if self.mesh.processes > 1:
+            return tuple(t.reshape(-1).to(self._devs[d]) for t in (
+                self._tw, self._z, self._mask))
         cols = ([k["tw"] for k in self._consts], self._z_l.parts,
                 [k["mask"] for k in self._consts])
         return tuple(torch.cat([p.reshape(-1).to(self._devs[d])
@@ -636,7 +712,7 @@ class LightLDA:
         """The running replica's constants and its lanes of a step."""
         d = replica_index()
         b = u.shape[-1]
-        return self._consts[d], slice(d * b, (d + 1) * b)
+        return self._consts[local_replica_index()], slice(d * b, (d + 1) * b)
 
     @staticmethod
     def _move(nwk, ndk, nk, w, d, topics, delta) -> None:
@@ -805,7 +881,7 @@ class LightLDA:
         c = self.config
         nk = _whole(params[0])
         ndk, z = locals_
-        k = self._consts[replica_index()]
+        k = self._consts[local_replica_index()]
         TB = self._tb
         q = self._nbs // self.n_replicas
         b = q * TB
@@ -867,23 +943,51 @@ class LightLDA:
     # -- out-of-core (streamed) doc-blocked mode ---------------------------
 
     def _block_rows(self, k: int, d: int) -> np.ndarray:
-        """The host blocks of replica ``d``'s lanes of call ``k``, ``[S,
+        """The global blocks of replica ``d``'s lanes of call ``k``, ``[S,
         q]``: of step s, blocks ``d * q .. (d + 1) * q - 1`` (the
-        reference's ``_block_rows``, the one (step, lane) -> host block
-        map that staging and the z readback share)."""
+        reference's ``_block_rows``, the one (step, lane) -> block map
+        that staging, the z readback and the z sync share; under
+        local_corpus :meth:`_local_of_global` maps it to the host
+        arrays)."""
         q = self._nbs // self.n_replicas
         return (k * self._per_call
                 + np.arange(self.config.steps_per_call)[:, None] * self._nbs
                 + d * q + np.arange(q)[None, :])
 
+    def _owned_call_offsets(self) -> np.ndarray:
+        """The sorted per-call block offsets this process's replicas own
+        (call 0's global blocks are the offsets)."""
+        return np.sort(np.concatenate([
+            self._block_rows(0, d).reshape(-1)
+            for d in self.mesh.local_rows])).astype(np.int64)
+
+    def _global_of_local(self, l: np.ndarray) -> np.ndarray:
+        """local_corpus: host-array block index -> global block id (the
+        identity otherwise: the host arrays are globally indexed)."""
+        if not (self.config.stream_blocks and self.config.local_corpus):
+            return l
+        k, pos = np.divmod(l, self._own_per_call)
+        return k * self._per_call + self._own_offs[pos]
+
+    def _local_of_global(self, g: np.ndarray) -> np.ndarray:
+        """local_corpus: global block id -> host-array index, for blocks
+        this process owns (the identity otherwise)."""
+        if not (self.config.stream_blocks and self.config.local_corpus):
+            return g
+        k, off = np.divmod(g, self._per_call)
+        return k * self._own_per_call + np.searchsorted(self._own_offs,
+                                                        off)
+
     def _stream_stage(self, k: int) -> np.ndarray:
-        """Host side of staging call ``k``: one stacked int32 array ``[D,
-        3, S, b]``, each replica's (words, doc rows, z) of its lanes of
-        every step (``[1, 3, S, B]``, the whole call, off a data axis)."""
+        """Host side of staging call ``k``: one stacked int32 array
+        ``[n, 3, S, b]``, each of this process's n replicas' (words, doc
+        rows, z) of its lanes of every step (``[1, 3, S, B]``, the whole
+        call, off a data axis). The host never reads another process's
+        lanes."""
         S = self.config.steps_per_call
         out = []
-        for d in range(self.n_replicas):
-            rows = self._block_rows(k, d)
+        for d in self.mesh.local_rows:
+            rows = self._local_of_global(self._block_rows(k, d))
             out.append(np.stack([h[rows].reshape(S, -1) for h in (
                 self._tw_host, self._drel_host, self._z_host)]))
         return np.stack(out)
@@ -905,19 +1009,32 @@ class LightLDA:
                                 for d, dev in enumerate(self._devs)])
 
     def _whole_call(self, staged: DataSplit) -> torch.Tensor:
-        """A staged call as the whole ``[3, S, B]`` on the first device
-        (the replicas' lanes joined along each step)."""
+        """A staged call as ``[3, S, n * b]`` on the first device, this
+        process's n replicas' lanes joined along each step (the whole
+        ``[3, S, B]`` call on one process)."""
         return torch.cat([p.to(self.device) for p in staged.parts], 2)
+
+    def _all_parts(self, staged: DataSplit) -> list:
+        """Every replica's ``[3, S, b]`` part of a staged call: this
+        process's, and over several processes the others' (CPU tensors,
+        a collective) in replica order."""
+        if self.mesh.processes == 1:
+            return staged.parts
+        from multiverso_tpu_torch.parallel.multihost import \
+            allgather_tensors
+        return [p for theirs in allgather_tensors(staged.parts)
+                for p in theirs]
 
     def _init_streamed_counts(self) -> None:
         """The word counts and the summary of the initial z, one staged
         call at a time, on every replica: each replica's table takes every
-        replica's lanes (the mesh COO add on a split one)."""
+        replica's lanes (the mesh COO add on a split one; over several
+        processes the others' lanes come over the group)."""
         views = self._zero_word_views()
         nk = torch.zeros(self.summary.padded_shape, dtype=torch.int32,
                          device=self.device)
         for _k, staged in self._stream_calls():
-            for part in staged.parts:
+            for part in self._all_parts(staged):
                 tw, zf = part[0].reshape(-1), part[2].reshape(-1)
                 msk = (tw != self._scratch_word).to(torch.int32)
                 for view, dev in zip(views, self._devs):
@@ -936,25 +1053,55 @@ class LightLDA:
         TB = self._tb
         pending: list = []
 
+        rows = self.mesh.local_rows
+
         def drain(item):
+            # each process writes back only its own replicas' lanes
             k, host, events = item
             for event in events:
                 event.synchronize()
-            z = host.numpy()                        # [D, S, b]
-            for d in range(self.n_replicas):
-                self._z_host[self._block_rows(k, d).reshape(-1)] = \
-                    z[d].reshape(-1, TB)
+            z = host.numpy()                        # [n, S, b]
+            for i, d in enumerate(rows):
+                self._z_host[self._local_of_global(
+                    self._block_rows(k, d)).reshape(-1)] = \
+                    z[i].reshape(-1, TB)
 
         for k, staged in self._stream_calls():
             (u,) = self._call_draws(uniforms, None)
             (acc,), z_out = self._fused((acc,), wstale, staged, u)
-            pending.append((k, z_out.to("cpu", non_blocking=True),
+            mine = z_out[rows[0]:rows[-1] + 1]
+            pending.append((k, mine.to("cpu", non_blocking=True),
                             _record_events([self.device])))
             if len(pending) > 2:
                 drain(pending.pop(0))
         for item in pending:
             drain(item)
+        # the other processes' lanes of the host z are now stale
+        self._z_synced = self.mesh.processes == 1
         self.word_topic.put_views(acc.parts)
+
+    def _sync_z_host(self) -> None:
+        """Make the host z globally complete (several processes, not
+        local_corpus). Training never needs it: each process stages and
+        reads back its own lanes. Full-z consumers (doc_topics, store)
+        call it: the owned slabs of each call are exchanged with one
+        all-gather per call (every process owns as many lanes), which
+        keeps the host transfer of one exchange bounded. A collective.
+        Under local_corpus z is per-process by design: nothing to do."""
+        if self.mesh.processes == 1 or self._z_synced \
+                or self.config.local_corpus:
+            return
+        from multiverso_tpu_torch.parallel.multihost import (
+            allgather_i64, allgather_tensors)
+        offs = self._owned_call_offsets()
+        all_offs = allgather_i64(offs)
+        for k in range(self.calls_per_sweep):
+            vals = allgather_tensors([torch.from_numpy(
+                self._z_host[k * self._per_call + offs])])
+            for p, (theirs,) in enumerate(vals):
+                self._z_host[k * self._per_call + all_offs[p]] = \
+                    theirs.numpy()
+        self._z_synced = True
 
     # -- training ----------------------------------------------------------
 
@@ -1084,8 +1231,10 @@ class LightLDA:
         nwk = self.word_topic.superstep_view(0)[0]
         total = 0.0
         if self._docblock and c.stream_blocks:
-            S, B, TB, MAXD = (c.steps_per_call, c.batch_tokens, self._tb,
-                              self._maxd)
+            # this process's lanes of each call; over several processes
+            # the partial sums are added in rank order
+            S, TB, MAXD = c.steps_per_call, self._tb, self._maxd
+            B = c.batch_tokens * len(self._devs) // self.n_replicas
             rows = ((torch.arange(S * B, device=self.device) // TB) * MAXD)
             for _k, staged in self._stream_calls():
                 whole = self._whole_call(staged)
@@ -1097,6 +1246,11 @@ class LightLDA:
                 ndk.view(-1).index_add_(0, r * K + zf.long(), msk)
                 total += float(self._chunked_ll(nwk, ndk.to(torch.int16),
                                                 tw, r, msk))
+            if self.mesh.processes > 1:
+                from multiverso_tpu_torch.parallel.multihost import \
+                    allgather_tensors
+                total = sum(float(t) for (t,) in allgather_tensors(
+                    [torch.tensor([total], dtype=torch.float64)]))
             return total / max(self.num_tokens, 1)
         call_tokens = c.batch_tokens * c.steps_per_call
         ndk_flat = self._ndk.view(-1, K)
@@ -1122,8 +1276,12 @@ class LightLDA:
         return total / max(self.num_tokens, 1)
 
     def doc_topics(self) -> np.ndarray:
-        """[num_docs, K] doc-topic counts (worker-local state)."""
+        """[num_docs, K] doc-topic counts (worker-local state). Over
+        several processes a collective (the z sync, or the join of the
+        replicas' doc counts); under local_corpus the counts of THIS
+        process's docs, the other rows zero."""
         if self._docblock and self.config.stream_blocks:
+            self._sync_z_host()
             out = np.zeros((self.num_docs, self.K), np.int32)
             chunk = max(1, (1 << 22) // self._tb)     # ~4M tokens
             for lo in range(0, len(self._tw_host), chunk):
@@ -1185,13 +1343,19 @@ class LightLDA:
 
     def _z_numpy(self) -> np.ndarray:
         if self._docblock and self.config.stream_blocks:
+            self._sync_z_host()
             return self._z_host.reshape(-1)
         return self._z.cpu().numpy().reshape(-1)
 
     def _export_sampler_state(self):
         """(manifest scalars, payload arrays) of the sampler state: z and
-        the doc-topic counts (dense [D+1, K])."""
-        if self._docblock:
+        the doc-topic counts (dense [D+1, K]); under local_corpus this
+        process's z alone (its shard's blocks). Over several processes a
+        collective (:meth:`doc_topics`)."""
+        if self._docblock and self.config.local_corpus:
+            dense = np.zeros((0, self.K), np.int16)
+            layout = "docblock"
+        elif self._docblock:
             ndk_dtype = np.int16 if self.config.stream_blocks \
                 else torch.empty(0, dtype=self._ndk_dtype).numpy().dtype
             dense = np.zeros((self.num_docs + 1, self.K), ndk_dtype)
@@ -1212,7 +1376,34 @@ class LightLDA:
         if self._docblock:
             manifest["block_tokens"] = self.config.block_tokens
             manifest["block_docs"] = self.config.block_docs
+        if self.config.local_corpus:
+            # a per-process shard: the same process layout and the same
+            # shard (its digest) are required to resume
+            manifest["layout"] = "docblock_local"
+            manifest["processes"] = self.mesh.processes
+            crc, ntok = self._local_shard_digest()
+            manifest["shard_crc32"] = crc
+            manifest["local_tokens"] = ntok
         return manifest, {"z": z, "ndk": dense}
+
+    def _local_shard_digest(self) -> Tuple[int, int]:
+        """(crc32, local token count) of THIS process's shard and its
+        packing: the words, the doc rows and the owned block offsets, so
+        a resume with another split or ordering of equal sizes is
+        refused."""
+        import zlib
+        crc = zlib.crc32(self._tw_host.tobytes())
+        crc = zlib.crc32(self._drel_host.tobytes(), crc)
+        crc = zlib.crc32(np.ascontiguousarray(
+            np.asarray(self._own_offs, np.int64)).tobytes(), crc)
+        return int(crc), int((self._tw_host != self._scratch_word).sum())
+
+    def _state_path(self, uri_prefix: str) -> str:
+        """The sampler state's file: one per rank under local_corpus,
+        else one that every process writes with the same bytes."""
+        if self.config.local_corpus:
+            return f"{uri_prefix}.state.rank{self.mesh.rank}.npz"
+        return f"{uri_prefix}.state.npz"
 
     def store(self, uri_prefix: str) -> None:
         """Checkpoint tables AND sampler state (z, doc-topic counts), in
@@ -1220,20 +1411,39 @@ class LightLDA:
         self.word_topic.store(f"{uri_prefix}.word_topic.npz")
         self.summary.store(f"{uri_prefix}.summary.npz")
         manifest, payload = self._export_sampler_state()
-        savez_stream(f"{uri_prefix}.state.npz", manifest, payload)
+        # every process writes: the table files and a shared state file
+        # with the same bytes (atomic renames), a local_corpus state file
+        # per rank
+        savez_stream(self._state_path(uri_prefix), manifest, payload)
         self._last_store = (uri_prefix, self._calls_done)
 
     def load(self, uri_prefix: str) -> None:
         self.word_topic.load(f"{uri_prefix}.word_topic.npz")
         self.summary.load(f"{uri_prefix}.summary.npz")
-        manifest, data = loadz_stream(f"{uri_prefix}.state.npz", STATE_MAGIC)
+        manifest, data = loadz_stream(self._state_path(uri_prefix),
+                                      STATE_MAGIC)
         self._import_sampler_state(manifest, data)
 
     def _import_sampler_state(self, manifest, data) -> None:
         """Validate sampler state against the live tables and install it."""
-        if manifest.get("layout") == "docblock_local":
-            raise ValueError("local_corpus checkpoints are not readable by "
-                             "the port yet (per-process z shards)")
+        if self.config.local_corpus and \
+                manifest.get("processes") != self.mesh.processes:
+            raise ValueError(
+                f"local_corpus checkpoint was written by "
+                f"{manifest.get('processes')} processes, app has "
+                f"{self.mesh.processes}: z shards are per-process")
+        if self.config.local_corpus and "shard_crc32" in manifest:
+            crc, ntok = self._local_shard_digest()
+            if (manifest["shard_crc32"], manifest["local_tokens"]) \
+                    != (crc, ntok):
+                raise ValueError(
+                    f"local_corpus checkpoint rank shard mismatch "
+                    f"(crc32 {manifest['shard_crc32']:#x}/"
+                    f"{manifest['local_tokens']} tokens != this app's "
+                    f"{crc:#x}/{ntok}): the doc-to-process split and "
+                    "device order must match the checkpointing run — "
+                    "loading z against a different shard silently "
+                    "corrupts counts")
         if manifest["num_tokens"] != self.num_tokens:
             raise ValueError(
                 f"checkpoint has {manifest['num_tokens']} tokens, app has "
@@ -1254,7 +1464,8 @@ class LightLDA:
                 f"{manifest['perm_seed']}, app has seed "
                 f"{self.config.seed}: z is indexed in the seed-derived "
                 "stream permutation, so the seeds must match to resume")
-        my_layout = "docblock" if self._docblock else "stream"
+        my_layout = "stream" if not self._docblock else \
+            ("docblock_local" if self.config.local_corpus else "docblock")
         ck_layout = manifest.get("layout", "stream")
         if ck_layout != my_layout:
             raise ValueError(
@@ -1302,8 +1513,9 @@ class LightLDA:
         z = z.reshape(z_shape).astype(np.int32)
         if streamed:
             # host z is the sampler state; blocked doc counts are derived
-            # from it per call
+            # from it per call (a stored z is globally complete)
             self._z_host = z
+            self._z_synced = True
             return
         self._set_z(torch.as_tensor(z, device=self.device))
         dense = dense[:self.num_docs].reshape(self.num_docs, self.K)
@@ -1347,7 +1559,10 @@ in doc-blocked mode the blocks of a step). -run_dir (or MVTPU_RUN_DIR)
 keeps a run directory of checkpoint generations (tables and sampler
 state), one every -ckpt_every sweeps (default: the -checkpoint_interval,
 else 1); -resume (or MVTPU_RESUME=1) restarts from its latest complete
-one. Not ported: -local_corpus and the multi-process runs."""
+one. Over several processes (-machine_file, -num_processes, -process_id)
+every process reads the whole -input_file (local_corpus, each process
+its own shard, is a LightLDA(..., LDAConfig(local_corpus=True)) option,
+as in the reference)."""
 
 
 def main(argv=None) -> None:

@@ -263,7 +263,7 @@ class LogisticRegression:
         t = self.table
         if not t.shard_update:
             return t.updater.apply(w, state, grad, opt)
-        n_shards, n_rep = len(t.devices), t.n_replicas
+        n_shards, n_rep = len(t.devices), t.n_data
         rows = t._rows_per_shard
         q = rows // n_rep
         d = replica_index()

@@ -74,6 +74,13 @@ class W2VConfig:
     # table (one uniform + one gather per draw) | "alias": exact Vose alias
     ns_table_size: int = 1 << 20    # unigram-table slots
     max_code_len: int = 40      # HS: Huffman code pad length
+    local_data: bool = False    # multi-process: each process generates
+    # ONLY its replicas' share of every batch from ITS OWN corpus shard
+    # (seed folded with the rank so streams differ), the reference's
+    # workers-each-stream-their-own-corpus model. batch_size stays the
+    # GLOBAL batch; processes must own disjoint data lanes (validated).
+    # Call counts are agreed collectively from the shards' sizes; each
+    # process cycles its local corpus to fill the agreed schedule
     checkpoint_prefix: str = ""     # periodic mid-train checkpoints
     checkpoint_interval: int = 0    # store every N superstep calls
     seed: int = 0
@@ -141,6 +148,36 @@ def alias_sample(gen: torch.Generator, prob: torch.Tensor,
                       device=prob.device)
     u = torch.rand(shape, generator=gen, device=prob.device)
     return torch.where(u < prob[j], j, alias[j].long()).to(torch.int32)
+
+
+def local_batches(corpus: Corpus, config: W2VConfig, rank: int,
+                  batch: int, pad_id: int
+                  ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """``local_data``: rank ``rank``'s ``[batch]`` share of every batch
+    from its corpus shard, epoch after epoch with the seed ``seed + 7919
+    * (rank + 1) + 104729 * epoch`` (the reference's rule), forever; the
+    caller bounds the loop. An empty shard raises: it would leave this
+    process out of the agreed collective schedule (a deadlock)."""
+    c = config
+    epoch = 0
+    while True:
+        seed = c.seed + 7919 * (rank + 1) + 104729 * epoch
+        if c.model == "skipgram":
+            it = corpus.skipgram_batches(batch, window=c.window, seed=seed,
+                                         epochs=1)
+        else:
+            it = corpus.cbow_batches(batch, window=c.window, seed=seed,
+                                     epochs=1, pad_id=pad_id)
+        got = False
+        for item in it:
+            got = True
+            yield item
+        if not got:
+            raise ValueError(
+                f"local_data: this process's corpus shard yields no "
+                f"{batch}-pair batches; every process must contribute "
+                "data (or drop local_data)")
+        epoch += 1
 
 
 class WordEmbedding:
@@ -224,8 +261,49 @@ class WordEmbedding:
         self._last_store = ()       # (prefix, step) of the last store
         self.loss_history: list = []
         self.words_per_sec = 0.0    # of the last train()
+        # local_data: [(b0, b1)] of the global batch this process's
+        # replicas own, in offset order (None: every lane is generated
+        # from this process's corpus)
+        self._local_chunks = None
+        if c.local_data and self.mesh.processes > 1:
+            self._setup_local_data()
         self._fused = make_superstep((self.w_in, self.w_out), self._body,
                                      name="w2v_superstep")
+
+    def _setup_local_data(self) -> None:
+        """Per-process data lanes: the contiguous chunks of the global
+        batch this process's replicas own, with a single-owner check
+        across processes and a shared-dictionary check (the NS table, the
+        Huffman arrays and the table shapes all come from the local
+        corpus, so every process must hold the SAME dictionary; only the
+        token stream is per-process)."""
+        import zlib
+
+        from multiverso_tpu_torch.parallel.multihost import (
+            allgather_i64, owned_axis_slices, validate_single_owner)
+        c = self.config
+        B = c.batch_size
+        slices = owned_axis_slices(self.mesh, (c.steps_per_call, B, 1),
+                                   axis=1)
+        # distinct chunks (a row's model shards share one), in order
+        self._local_chunks = sorted({(b0, b1) for _, b0, b1 in slices})
+        self._local_batch = sum(b1 - b0 for b0, b1 in self._local_chunks)
+        mask = np.zeros(B, np.int32)
+        for b0, b1 in self._local_chunks:
+            mask[b0:b1] = 1
+        validate_single_owner(mask, "local_data")
+        counts = np.ascontiguousarray(
+            np.asarray(self.corpus.unigram_probs(c.unigram_power),
+                       np.float64))
+        digest = np.array([self.corpus.vocab_size,
+                           zlib.crc32(counts.tobytes())], np.int64)
+        gathered = allgather_i64(digest)
+        if not np.all(gathered == gathered[0]):
+            raise ValueError(
+                "local_data requires the SAME dictionary (vocab + "
+                "frequencies) on every process — only the token stream "
+                f"is per-process; got per-rank (vocab, counts-crc32) = "
+                f"{gathered.tolist()}")
 
     # -- the superstep --------------------------------------------------------
 
@@ -341,6 +419,18 @@ class WordEmbedding:
         pairs = np.concatenate([srcs, tgts[..., None]], axis=-1)
         if self._scratch < np.iinfo(np.int16).max:
             pairs = pairs.astype(np.int16)
+        if self._local_chunks is not None:
+            # local_data: ``pairs`` is this process's [S, B_local, C]
+            # share, its replicas' chunks in order: each replica gets its
+            # own, and no process ships another's lanes
+            parts, at = [], 0
+            for (b0, b1), row in zip(self._local_chunks,
+                                     self.mesh.local_rows):
+                parts.append(torch.as_tensor(np.ascontiguousarray(
+                    pairs[:, at:at + b1 - b0]),
+                    device=self.mesh.replica_devices(row)[0]))
+                at += b1 - b0
+            return DataSplit(parts)
         if self.n_replicas > 1:
             return DataSplit.of(pairs, self.mesh, axis=1)
         return core.place(pairs, device=self.device)
@@ -349,6 +439,9 @@ class WordEmbedding:
 
     def _batches(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
         c = self.config
+        if self._local_chunks is not None:
+            return local_batches(self.corpus, c, self.mesh.rank,
+                                 self._local_batch, self._scratch)
         if c.model == "skipgram":
             return self.corpus.skipgram_batches(
                 c.batch_size, window=c.window, seed=c.seed, epochs=c.epochs)
@@ -371,12 +464,22 @@ class WordEmbedding:
         # linear lr decay over the whole corpus (reference's alpha decay);
         # skip-gram emits ~2b pairs per center, b ~ U[1, window] -> E = w+1
         tokens = self.corpus.num_tokens
+        if self._local_chunks is not None:
+            # local_data: the schedule must be the same on every process:
+            # agree on the GLOBAL token count
+            from multiverso_tpu_torch.parallel.multihost import \
+                allgather_i64
+            tokens = int(allgather_i64([tokens]).sum())
         est_pairs = tokens * c.epochs * (c.window + 1) \
             if c.model == "skipgram" else tokens * c.epochs
         est_calls = max(int(est_pairs) //
                         (c.batch_size * c.steps_per_call), 1)
         if total_steps is not None:
             est_calls = max(total_steps // c.steps_per_call, 1)
+        elif self._local_chunks is not None and batches is None:
+            # the cycling local stream never ends: the agreed schedule
+            # is the stop condition
+            total_steps = est_calls * c.steps_per_call
         # the plan a run checkpoint records: the original schedule when
         # resumed, else this run's own estimate
         self._train_plan = self._sched_plan or est_calls
@@ -515,8 +618,11 @@ class WordEmbedding:
 
     def save_text(self, path: str) -> None:
         """The reference word2vec's text output: a ``vocab_size dim``
-        header, then one ``word v1 .. vD`` line per word."""
+        header, then one ``word v1 .. vD`` line per word. Over several
+        processes only process 0 writes."""
         emb = self.w_in.get()
+        if self.mesh.rank != 0:
+            return
         with open(path, "w", encoding="utf-8") as f:
             f.write(f"{len(self.corpus.words)} {emb.shape[1]}\n")
             for w, row in zip(self.corpus.words, emb):

@@ -10,9 +10,18 @@ replica ``d``'s shard ``s`` lives on the device at ``[d, s]``
 (:meth:`Mesh.replica_devices`; replica 0's are
 :attr:`Mesh.shard_devices`).
 
-One process drives the whole mesh, as the reference's single controller
-does: every worker and server of the topology queries is one mesh
-device, and this process is rank 0 of 1.
+One process drives the whole mesh by default, as the reference's single
+controller does: every worker and server of the topology queries is one
+mesh device, and the process is rank 0 of 1. With ``-machine_file`` (or
+a ``store=``) P processes run one program in lockstep (SPMD), as
+``jax.distributed`` runs the reference: :func:`init` joins a
+``torch.distributed`` group, every process names its own local devices,
+and the global ``[data, model]`` grid lays them out process-major, as
+``jax.devices()`` orders the reference's. Process ``p`` owns the data
+rows ``[p * D / P, (p + 1) * D / P)`` (:attr:`Mesh.local_rows`); a table
+holds the replicas of those rows only. The model axis stays inside a
+process: a layout whose model axis crosses processes raises (ROADMAP.md
+queue A item 12).
 
 One deliberate difference from a JAX mesh: a device may repeat.
 ``devices=["cuda:0"] * 4`` gives four shards on one card, and
@@ -24,9 +33,11 @@ is absent: the CPU is used only when the caller names it.
 
 from __future__ import annotations
 
+import datetime
+import os
 import threading
 import time
-from typing import Dict, List, Optional, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -54,11 +65,16 @@ def _device(dev: Union[str, torch.device]) -> torch.device:
 
 
 class Mesh:
-    """A ``[data, model]`` grid of torch devices (devices may repeat)."""
+    """A ``[data, model]`` grid of torch devices (devices may repeat).
+
+    Over ``processes`` processes, process ``rank`` owns the contiguous
+    block of data rows :attr:`local_rows`; the devices of the other rows
+    are the names their processes gave (never used here)."""
 
     axis_names = (DATA_AXIS, MODEL_AXIS)
 
-    def __init__(self, devices) -> None:
+    def __init__(self, devices, *, processes: int = 1,
+                 rank: int = 0) -> None:
         grid = np.empty(np.shape(devices)[:2], dtype=object)
         if grid.ndim != 2 or grid.size == 0:
             raise ValueError("a mesh is a non-empty [data, model] grid of "
@@ -66,6 +82,19 @@ class Mesh:
         for idx in np.ndindex(grid.shape):
             grid[idx] = _device(devices[idx[0]][idx[1]])
         self.devices = grid
+        rows = grid.shape[0]
+        if processes < 1 or not 0 <= rank < processes:
+            raise ValueError(f"rank {rank} of {processes} processes")
+        if rows % processes:
+            raise ValueError(
+                f"a data axis of {rows} rows does not split over "
+                f"{processes} processes: the model axis would cross "
+                "processes, which is not ported (ROADMAP.md queue A item "
+                "12)")
+        self.processes, self.rank = int(processes), int(rank)
+        per = rows // processes
+        #: the data rows (replicas) this process owns
+        self.local_rows = list(range(rank * per, (rank + 1) * per))
 
     @classmethod
     def single(cls, device: Union[str, torch.device]) -> "Mesh":
@@ -83,9 +112,14 @@ class Mesh:
 
     @property
     def shard_devices(self) -> List[torch.device]:
-        """Where replica 0 of a table's model shards lives: data row 0 of
-        the grid."""
-        return self.replica_devices(0)
+        """Where this process's first replica of a table's model shards
+        lives: its first data row (row 0 on one process)."""
+        return self.replica_devices(self.local_rows[0])
+
+    @property
+    def local_devices(self) -> List[torch.device]:
+        """The devices of this process's data rows, row by row."""
+        return [d for r in self.local_rows for d in self.devices[r]]
 
     def replica_devices(self, replica: int) -> List[torch.device]:
         """Where replica ``replica`` of a table's model shards lives: data
@@ -94,12 +128,15 @@ class Mesh:
 
     def __repr__(self) -> str:
         names = [[str(d) for d in row] for row in self.devices]
+        procs = f", processes={self.processes}, rank={self.rank}" \
+            if self.processes > 1 else ""
         return f"Mesh(data={self.shape[DATA_AXIS]}, " \
-               f"model={self.shape[MODEL_AXIS]}, devices={names})"
+               f"model={self.shape[MODEL_AXIS]}, devices={names}{procs})"
 
 
 def _build_mesh(devices: Sequence[DeviceLike], data_parallel: int,
-                model_parallel: int) -> Mesh:
+                model_parallel: int, processes: int = 1,
+                rank: int = 0) -> Mesh:
     n = len(devices)
     if model_parallel <= 0:
         raise ValueError("model_parallel must be >= 1")
@@ -108,9 +145,20 @@ def _build_mesh(devices: Sequence[DeviceLike], data_parallel: int,
     if data_parallel * model_parallel != n:
         raise ValueError(
             f"mesh {data_parallel}x{model_parallel} != {n} devices")
+    if (n // processes) % model_parallel:
+        raise ValueError(
+            f"{n // processes} devices a process do not hold whole rows of "
+            f"a model axis of {model_parallel}: a model axis across "
+            "processes is not ported (ROADMAP.md queue A item 12)")
     flat = list(devices)
     return Mesh([flat[r * model_parallel:(r + 1) * model_parallel]
-                 for r in range(data_parallel)])
+                 for r in range(data_parallel)],
+                processes=processes, rank=rank)
+
+
+#: seconds a collective of the process group waits before it fails (a
+#: rank that died must not leave the others waiting forever)
+GROUP_TIMEOUT_S = 300.0
 
 
 class _Runtime:
@@ -118,16 +166,84 @@ class _Runtime:
         self.mesh: Optional[Mesh] = None
         self.lock = threading.Lock()
         self.barrier_count = 0
+        # the torch.distributed group init made (shutdown destroys it)
+        self.own_group = False
 
 
 _RT = _Runtime()
+
+
+def _coordinator() -> Tuple[str, int, int]:
+    """``(address, processes, rank)`` from the multi-host flags, as the
+    reference's init reads them: ``-machine_file`` is a file listing one
+    host per line (the first is the coordinator; the line count gives
+    ``-num_processes`` when that is unset) or a bare ``host`` /
+    ``host:port``; the rank is ``-process_id``."""
+    coordinator = configure.get_flag("machine_file")
+    if os.path.exists(coordinator):
+        with open(coordinator) as f:
+            machines = [m for m in (ln.strip() for ln in f)
+                        if m and not m.startswith("#")]
+        if not machines:
+            raise ValueError(
+                f"machine_file {coordinator!r} lists no machines")
+        coordinator = machines[0]
+        if configure.get_flag("num_processes") == 0:
+            configure.set_flag("num_processes", len(machines))
+    if ":" in coordinator:
+        address = coordinator
+    else:
+        address = f"{coordinator}:{configure.get_flag('port') or 8476}"
+    nproc = configure.get_flag("num_processes")
+    pid = configure.get_flag("process_id")
+    if nproc <= 0 or pid < 0:
+        raise ValueError(
+            "a multi-process init needs -num_processes (or a machine file) "
+            f"and -process_id; got {nproc} and {pid}")
+    return address, nproc, pid
+
+
+def _join_group(store) -> None:
+    """Join the ``torch.distributed`` group of the run (gloo: the port's
+    collectives move host arrays; two ranks can share one card over it,
+    which NCCL refuses). A group the caller already made is used as
+    it is."""
+    dist = torch.distributed
+    if dist.is_initialized():
+        return
+    timeout = datetime.timedelta(seconds=GROUP_TIMEOUT_S)
+    if store is not None:
+        dist.init_process_group(
+            "gloo", store=store, world_size=configure.get_flag(
+                "num_processes"), rank=configure.get_flag("process_id"),
+            timeout=timeout)
+    else:
+        address, nproc, pid = _coordinator()
+        dist.init_process_group("gloo", init_method=f"tcp://{address}",
+                                world_size=nproc, rank=pid, timeout=timeout)
+    _RT.own_group = True
+
+
+def _global_devices(local: List[torch.device]) -> List[str]:
+    """Every process's device names, process-major (a collective): each
+    process names its own local devices, and each must name as many."""
+    import json
+
+    from multiverso_tpu_torch.parallel import multihost
+    names = [json.loads(p) for p in multihost.allgather_bytes(
+        json.dumps([str(d) for d in local]).encode())]
+    if len({len(n) for n in names}) != 1:
+        raise ValueError("every process must name as many local devices; "
+                         f"got {[len(n) for n in names]}")
+    return [d for n in names for d in n]
 
 
 def init(argv: Optional[Sequence[str]] = None, *,
          device: DeviceLike = None,
          devices: Optional[Sequence[DeviceLike]] = None,
          data_parallel: Optional[int] = None,
-         model_parallel: Optional[int] = None) -> Mesh:
+         model_parallel: Optional[int] = None,
+         store=None) -> Mesh:
     """Parse ``-name=value`` flags and build the runtime's mesh.
 
     ``devices`` (default: every CUDA device, an error without CUDA) are
@@ -135,14 +251,25 @@ def init(argv: Optional[Sequence[str]] = None, *,
     default to the ``-data_parallel`` / ``-model_parallel`` flags, and
     ``data_parallel`` 0 means ``len(devices) // model_parallel``.
     ``device=`` is the shorthand for the (1, 1) mesh on that device. A
-    second call with no arguments returns the mesh already built."""
+    second call with no arguments returns the mesh already built.
+
+    Multi-process: with ``-machine_file`` (a file of hosts, or ``host`` /
+    ``host:port``), ``-num_processes`` and ``-process_id``, or with a
+    ``torch.distributed`` ``store=`` (then the two flags), the process
+    joins a gloo group (module doc); ``devices`` are then this process's
+    own, and the grid is laid out over every process's devices."""
     with _RT.lock:
         if argv:
             configure.parse_flags(argv)
         if _RT.mesh is not None and not argv and device is None \
                 and devices is None and data_parallel is None \
-                and model_parallel is None:
+                and model_parallel is None and store is None:
             return _RT.mesh
+        # a later init of a multi-process run keeps its group
+        multi = bool(configure.get_flag("machine_file")) \
+            or store is not None or _RT.own_group
+        if multi:
+            _join_group(store)
         log.set_level(configure.get_flag("log_level"))
         if configure.get_flag("log_file"):
             log.set_file(configure.get_flag("log_file"))
@@ -174,26 +301,33 @@ def init(argv: Optional[Sequence[str]] = None, *,
             else configure.get_flag("data_parallel")
         mp = model_parallel if model_parallel is not None \
             else configure.get_flag("model_parallel")
-        mesh = _build_mesh(devices, dp, mp)
-        first = mesh.devices[0, 0]
+        processes, rank = 1, 0
+        if multi:
+            from multiverso_tpu_torch.parallel import multihost
+            processes, rank = multihost.process_count(), \
+                multihost.process_index()
+            local = [_device(d) for d in devices]
+            names = _global_devices(local)
+            n = len(local)
+            devices = names[:rank * n] + local + names[(rank + 1) * n:]
+        mesh = _build_mesh(devices, dp, mp, processes, rank)
+        first = mesh.local_devices[0]
         if first.type == "cuda":
             torch.cuda.set_device(first)
         _RT.mesh = mesh
         # topology on the record: one registry snapshot then identifies
         # the mesh shape a run's per-table byte counts came from
-        dist = torch.distributed
-        up = dist.is_available() and dist.is_initialized()
         telemetry.counter("core.init.ops").inc()
         telemetry.gauge("core.devices").set(len(devices))
         telemetry.gauge("core.data_parallel").set(mesh.shape[DATA_AXIS])
         telemetry.gauge("core.model_parallel").set(mesh.shape[MODEL_AXIS])
-        telemetry.gauge("core.processes").set(
-            dist.get_world_size() if up else 1)
-        telemetry.gauge("core.process_index").set(
-            dist.get_rank() if up else 0)
-        log.info("multiverso_tpu_torch.init: mesh data=%d model=%d on %s",
-                 mesh.shape[DATA_AXIS], mesh.shape[MODEL_AXIS],
-                 sorted({str(d) for d in mesh.devices.flat}))
+        telemetry.gauge("core.processes").set(mesh.processes)
+        telemetry.gauge("core.process_index").set(mesh.rank)
+        log.info("multiverso_tpu_torch.init: mesh data=%d model=%d on %s, "
+                 "process %d/%d", mesh.shape[DATA_AXIS],
+                 mesh.shape[MODEL_AXIS],
+                 sorted({str(d) for d in mesh.local_devices}),
+                 rank, processes)
         return mesh
 
 
@@ -213,8 +347,8 @@ def set_mesh(m: Mesh) -> None:
 
 
 def device() -> torch.device:
-    """The runtime mesh's first device."""
-    return mesh().devices[0, 0]
+    """The runtime mesh's first device of this process."""
+    return mesh().local_devices[0]
 
 
 def resolve(dev: DeviceLike = None) -> torch.device:
@@ -266,8 +400,10 @@ def generator(seed: int, *, device: DeviceLike = None) -> torch.Generator:
 
 
 def barrier(name: Optional[str] = None) -> None:
-    """``MV_Barrier``: wait until every CUDA device of the mesh has
-    finished its queued work (one process: the only party to wait for)."""
+    """``MV_Barrier``: wait until every CUDA device of this process's
+    share of the mesh has finished its queued work, then, over several
+    processes, until every process has come here (``dist.barrier`` on
+    the gloo group of :mod:`~multiverso_tpu_torch.parallel.multihost`)."""
     m = mesh()
     # fault point: a 'latency' rule models a straggler, an 'error' rule a
     # lost peer
@@ -275,30 +411,42 @@ def barrier(name: Optional[str] = None) -> None:
     chaos_point("core.barrier")
     _RT.barrier_count += 1
     t0 = time.perf_counter()
-    for dev in sorted({d for d in m.devices.flat if d.type == "cuda"},
+    for dev in sorted({d for d in m.local_devices if d.type == "cuda"},
                       key=lambda d: d.index):
         torch.cuda.synchronize(dev)
+    from multiverso_tpu_torch.parallel import multihost
+    multihost.barrier()
     telemetry.counter("core.barrier.ops").inc()
     telemetry.histogram("core.barrier.seconds").observe(
         time.perf_counter() - t0)
 
 
 def shutdown() -> None:
-    """``MV_ShutDown``: forget the mesh and stop the controller threads."""
+    """``MV_ShutDown``: forget the mesh, stop the controller threads and
+    destroy the process group that :func:`init` made."""
     with _RT.lock:
         _RT.mesh = None
+        own, _RT.own_group = _RT.own_group, False
     shutdown_controllers()
+    if own and torch.distributed.is_initialized():
+        from multiverso_tpu_torch.parallel import multihost
+        multihost.forget_group()
+        torch.distributed.destroy_process_group()
 
 
 # -- Topology queries (reference MV_* names) ---------------------------------
 
 def rank() -> int:
-    """Host-process rank: one process drives the mesh."""
-    return 0
+    """Host-process rank (reference: node rank): the mesh's, 0 before
+    :func:`init` (a ``torch.distributed`` group that :func:`init` did not
+    lay the mesh over leaves the process rank 0 of 1)."""
+    return _RT.mesh.rank if _RT.mesh is not None else 0
 
 
 def size() -> int:
-    return 1
+    """Number of host processes (reference: node count): the mesh's, 1
+    before :func:`init`."""
+    return _RT.mesh.processes if _RT.mesh is not None else 1
 
 
 def num_workers() -> int:
@@ -312,9 +460,10 @@ def num_servers() -> int:
 
 
 def worker_id() -> int:
-    """This process's first device's position in the mesh."""
-    mesh()
-    return 0
+    """This process's first device's position in the mesh (per-host
+    worker id)."""
+    m = mesh()
+    return m.local_rows[0] * m.shape[MODEL_AXIS]
 
 
 def server_id() -> int:

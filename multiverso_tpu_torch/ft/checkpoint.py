@@ -18,9 +18,21 @@ counter, data-stream cursor, config fingerprint), all of which must land
       gen-0000000020/
         ...
 
+Over several processes (the topology of ``core``'s mesh) every process
+writes the table files and the manifest, with the same bytes but for the
+manifest's ``host`` and the app file's size (the stream layer's atomic
+rename keeps same-path writers safe, as the reference's ranks are), and
+the app train-state per rank: ``app.rank<p>.npz``, the manifest naming
+``app.rank{rank}.npz`` and the process count (an app's state may be
+per-process, as LightLDA's ``local_corpus`` z is). A resume over another
+process count refuses such a generation.
+
 A generation is **complete** iff its ``MANIFEST.json`` parses and every
-file it lists exists — a crash mid-write leaves an incomplete (ignored)
-generation, never a half-trusted one. Retention keeps the last ``keep``
+file it lists exists — for ``app.rank{rank}.npz``, the file of every
+one of its processes, so every process that reads the run dir calls the
+same generations complete, whichever ranks a crash cut short. A crash
+mid-write leaves an incomplete (ignored) generation, never a
+half-trusted one. Retention keeps the last ``keep``
 complete generations (older ones GC'd after each commit).
 
 **Write overlap.** The *dispatch half* of every table export
@@ -220,10 +232,14 @@ class RunCheckpointManager:
                     "— table names must be unique within a run")
             seen[fname] = 1
             entries.append((t.name, fname, self._table_export(t)))
+        from multiverso_tpu_torch import core
+        processes = core.size()
         if app_state:
-            entries.append(("", "app.npz",
+            fname = "app.npz" if processes == 1 \
+                else f"app.rank{core.rank()}.npz"
+            entries.append(("", fname,
                             self._app_export(step, dict(app_state))))
-        job = (step, entries)
+        job = (step, entries, processes)
         if self._worker is None:
             self._write_generation(*job)
         else:
@@ -279,7 +295,8 @@ class RunCheckpointManager:
             finally:
                 self._q.task_done()
 
-    def _write_generation(self, step: int, entries: List[tuple]) -> None:
+    def _write_generation(self, step: int, entries: List[tuple],
+                          processes: int = 1) -> None:
         t0 = time.perf_counter()
         gen_dir = os.path.join(self.run_dir, f"{GEN_PREFIX}{step:010d}")
         os.makedirs(gen_dir, exist_ok=True)
@@ -300,7 +317,11 @@ class RunCheckpointManager:
                 if name:
                     tables_map[name] = fname
                 else:
-                    app_file = fname
+                    # one name on every rank: the manifests agree
+                    app_file = fname if processes == 1 \
+                        else "app.rank{rank}.npz"
+                    files.pop(fname)
+                    files[app_file] = nbytes
             manifest = {
                 "magic": RUN_MAGIC,
                 "step": step,
@@ -311,6 +332,8 @@ class RunCheckpointManager:
                 "unix_time": time.time(),
                 "host": telemetry.host_index(),
             }
+            if processes > 1:
+                manifest["processes"] = processes
             # the commit: manifest lands atomically (temp+rename), LAST
             # — everything before this point is an incomplete
             # generation the resume scan ignores
@@ -409,7 +432,8 @@ class RunCheckpointManager:
 
     def scan(self) -> List[CheckpointGeneration]:
         """All COMPLETE generations, oldest first. Complete = manifest
-        parses with the right magic AND every listed file exists."""
+        parses with the right magic AND every listed file exists (a
+        per-rank file: every process's)."""
         out = []
         for d in self._gen_dirs():
             mpath = os.path.join(d, MANIFEST_NAME)
@@ -420,8 +444,10 @@ class RunCheckpointManager:
                 continue
             if manifest.get("magic") != RUN_MAGIC:
                 continue
-            if not all(os.path.exists(os.path.join(d, fn))
-                       for fn in manifest.get("files", {})):
+            ranks = range(int(manifest.get("processes", 1)))
+            if not all(os.path.exists(os.path.join(d, fn.format(rank=r)))
+                       for fn in manifest.get("files", {})
+                       for r in (ranks if "{rank}" in fn else [0])):
                 continue
             out.append(CheckpointGeneration(
                 step=int(manifest["step"]), path=d, manifest=manifest))
@@ -451,6 +477,9 @@ class RunCheckpointManager:
             gens = [g for g in gens if g.step <= max_step]
         cover = list(tables) if tables is not None \
             else self._resolve_tables()
+        from multiverso_tpu_torch import core
+        if core.size() > 1:
+            gens = _agreed_generations(gens)
         for gen in reversed(gens):
             if self.fingerprint is not None \
                     and gen.manifest.get("fingerprint") is not None \
@@ -462,11 +491,17 @@ class RunCheckpointManager:
                     "under a changed config silently trains wrong; "
                     "start a fresh run dir (or match the config)")
             try:
-                restored = self._restore(gen, cover)
+                restored, failure = self._restore(gen, cover), None
             except Exception as exc:
+                restored, failure = None, exc
+            if core.size() > 1 and not _all_processes_restored(
+                    failure is None):
+                failure = failure or RuntimeError(
+                    "another process could not restore it")
+            if failure is not None:
                 telemetry.counter("ft.recover.fallbacks").inc()
                 log.warn("run checkpoint %r unusable (%r); falling "
-                         "back to an older generation", gen.path, exc)
+                         "back to an older generation", gen.path, failure)
                 continue
             telemetry.counter("ft.recover.ops").inc()
             telemetry.gauge("ckpt.resumed_step").set(gen.step)
@@ -494,6 +529,14 @@ class RunCheckpointManager:
         state: Dict[str, Any] = {}
         arrays: Dict[str, np.ndarray] = {}
         app_file = gen.manifest.get("app")
+        if app_file and "{rank}" in app_file:
+            from multiverso_tpu_torch import core
+            if gen.manifest.get("processes") != core.size():
+                raise ValueError(
+                    f"generation {gen.path!r} holds the app state of "
+                    f"{gen.manifest.get('processes')} processes, this run "
+                    f"has {core.size()}")
+            app_file = app_file.format(rank=core.rank())
         if app_file:
             from multiverso_tpu_torch.tables.base import loadz_stream
             manifest, data = loadz_stream(
@@ -503,6 +546,26 @@ class RunCheckpointManager:
                       if k != "manifest"}
         return RestoredState(step=gen.step, path=gen.path, state=state,
                              arrays=arrays)
+
+
+def _agreed_generations(gens: List[CheckpointGeneration]
+                        ) -> List[CheckpointGeneration]:
+    """Of ``gens``, those every process's scan holds (a collective): the
+    processes of a run then try the same generations in the same order,
+    even where a run dir's files reach them at different times."""
+    from multiverso_tpu_torch.parallel.multihost import allgather_bytes
+    steps = [set(json.loads(p)) for p in allgather_bytes(
+        json.dumps([g.step for g in gens]).encode())]
+    common = set.intersection(*steps)
+    return [g for g in gens if g.step in common]
+
+
+def _all_processes_restored(ok: bool) -> bool:
+    """Whether every process restored the generation it tried (a
+    collective): one that failed sends them all to an older one, so no
+    two processes resume different steps."""
+    from multiverso_tpu_torch.parallel.multihost import allgather_i64
+    return bool(allgather_i64([int(ok)]).min())
 
 
 def config_fingerprint(config: Any) -> str:

@@ -16,16 +16,19 @@ truncates int64 without x64; ``torch.distributed`` all-gathers int64
 directly, with the same results (values past 2^31 and negative values
 come back exactly).
 
-``owned_axis_slices`` (the reference's per-device chunks of a JAX
-sharding) is ported with the multi-process apps that call it
-(word2vec ``local_data``; ROADMAP.md queue A item 12).
+:func:`owned_axis_slices` is the reference's per-device chunks of a JAX
+sharding, over the port's :class:`~multiverso_tpu_torch.core.Mesh`: an
+axis split over the mesh's data axis, each of this process's devices
+with the chunk of its data row. :func:`allgather_tensors` moves tensors
+of any dtype and of shapes that differ between processes (the
+superstep's lane exchange, the state blocks of ``shard_update``).
 """
 
 from __future__ import annotations
 
 import sys
 import threading
-from typing import List
+from typing import List, Sequence, Tuple
 
 import numpy as np
 
@@ -60,6 +63,34 @@ def process_count() -> int:
         return int(dist.get_world_size())
     except Exception:  # pragma: no cover - half-torn-down group
         return 1
+
+
+def process_index() -> int:
+    """Rank of this process in the initialised ``torch.distributed``
+    group, else 0 (the reference's ``jax.process_index()``)."""
+    dist = _dist()
+    if dist is None:
+        return 0
+    try:
+        return int(dist.get_rank())
+    except Exception:  # pragma: no cover - half-torn-down group
+        return 0
+
+
+def barrier() -> None:
+    """Wait until every process has come here (nothing on one)."""
+    if process_count() == 1:
+        return
+    dist = _dist()
+    dist.barrier(group=_group(dist))
+
+
+def forget_group() -> None:
+    """Drop the gloo group made for the current default group (before
+    the default group is destroyed)."""
+    global _GLOO
+    with _GLOO_LOCK:
+        _GLOO = None
 
 
 def _group(dist):
@@ -139,3 +170,85 @@ def validate_single_owner(mask: np.ndarray, what: str) -> None:
             f"one process (got per-lane owner counts "
             f"{sorted(set(owners.tolist()))}); shard the mesh's data "
             "axis across processes")
+
+
+def allgather_tensors(tensors: Sequence, *,
+                      same_shapes: bool = False) -> List[List]:
+    """Every process's ``tensors`` as CPU tensors, ``[P][n_p]`` in rank
+    order (single-process: ``[tensors]`` moved to the CPU, no
+    collective). The processes may pass different numbers of tensors, of
+    any shapes and dtypes: a JSON header (dtypes and shapes) goes first
+    (:func:`allgather_bytes`), then every process's tensors as one byte
+    tensor padded to the longest, in one all-gather; each returned
+    tensor is a view of the bytes its process sent.
+
+    ``same_shapes=True`` says that every process passes tensors of this
+    process's dtypes and shapes (lockstep code whose shapes do not
+    depend on the process's data): the header is skipped, so the call
+    is the one all-gather, whose bytes open with a CRC32 of the shapes
+    that every process checks (a process that passed others raises).
+
+    COLLECTIVE — all processes must call in lockstep."""
+    import json
+    import zlib
+
+    import torch
+    host = [t.detach().to("cpu").contiguous() for t in tensors]
+    if process_count() == 1:
+        return [host]
+    spec = [[str(t.dtype).replace("torch.", ""), list(t.shape)]
+            for t in host]
+    if same_shapes:
+        heads = [[(t.dtype, list(t.shape)) for t in host]] * process_count()
+        sig = zlib.crc32(json.dumps(spec).encode())
+    else:
+        heads = [[(getattr(torch, d), shape) for d, shape in json.loads(h)]
+                 for h in allgather_bytes(json.dumps(spec).encode())]
+    sizes = [[int(np.prod(shape)) * torch.empty(0, dtype=d).element_size()
+              for d, shape in h] for h in heads]
+    # each tensor starts on an 8-byte boundary, so its bytes view as its
+    # dtype; with same_shapes the first 8 bytes hold the shapes' CRC32
+    lead = 8 if same_shapes else 0
+    step = [[-(-nb // 8) * 8 for nb in n] for n in sizes]
+    mine = torch.zeros(lead + max(max(sum(a) for a in step), 8),
+                       dtype=torch.uint8)
+    if same_shapes:
+        mine[:8] = torch.tensor([sig], dtype=torch.int64).view(torch.uint8)
+    off = lead
+    for t, a in zip(host, step[process_index()]):
+        raw = t.reshape(-1).view(torch.uint8)
+        mine[off:off + raw.numel()] = raw
+        off += a
+    dist = _dist()
+    got = [torch.empty_like(mine) for _ in heads]
+    dist.all_gather(got, mine, group=_group(dist))
+    out = []
+    for p, (h, n, a, raw) in enumerate(zip(heads, sizes, step, got)):
+        if same_shapes and not torch.equal(raw[:8], mine[:8]):
+            raise ValueError(
+                f"allgather_tensors(same_shapes=True): process {p} passed "
+                f"other shapes than process {process_index()}'s {spec}")
+        parts, off = [], lead
+        for (dtype, shape), nb, al in zip(h, n, a):
+            parts.append(raw[off:off + nb].view(dtype).reshape(shape))
+            off += al
+        out.append(parts)
+    return out
+
+
+def owned_axis_slices(mesh, shape: Tuple[int, ...],
+                      axis: int) -> List[Tuple[object, int, int]]:
+    """``[(device, lo, hi)]``: every device of this process's data rows
+    with its chunk of ``axis`` when that axis is split over the mesh's
+    data axis into contiguous equal blocks (the reference's
+    ``NamedSharding(mesh, P(..., DATA_AXIS, ...))``); model-axis replicas
+    share their row's chunk. The counterpart of the reference's
+    ``owned_axis_slices(sharding, shape, axis)``."""
+    rows = mesh.devices.shape[0]
+    size = int(shape[axis])
+    if size % rows:
+        raise ValueError(f"axis {axis} of size {size} does not split "
+                         f"over a data axis of {rows}")
+    step = size // rows
+    return [(dev, r * step, (r + 1) * step)
+            for r in mesh.local_rows for dev in mesh.devices[r]]

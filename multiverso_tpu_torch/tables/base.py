@@ -37,7 +37,16 @@ replicas bit-identical, and a Get reads replica 0. Under
 ``shard_update`` (the reference's weight-update sharding) the updater
 state is split over (model, data) instead: replica ``d`` holds row block
 ``d`` of each shard's state, updates those rows only, and sends the
-updated param rows to every replica. The logical
+updated param rows to every replica. Over several processes (SPMD,
+``core``'s module doc) a table holds the replicas of its process's data
+rows only (:attr:`Table.replica_ids`, global data rows): every process
+calls every op with the same host values, an add updates the local
+replicas, a Get reads the first local one, and under ``shard_update``
+the row blocks other processes updated, and the state blocks a
+checkpoint needs, come over
+:func:`~multiverso_tpu_torch.parallel.multihost.allgather_tensors`. Every
+process writes a checkpoint's file, with the same bytes (the stream
+layer's atomic rename), as the reference's ranks do. The logical
 shape is what the API shows. ``storage_shape`` is the physical layout of
 the param: the padded shape, or a re-tiled view of it (``[R, C/128, 128]``
 for a tiled SparseMatrixTable); checkpoints always hold the global padded
@@ -309,7 +318,9 @@ class Table:
     On a mesh with a data axis D above 1 a replicated table (``REPLICATED``)
     holds D copies of that split: ``replicas[d]`` on
     ``replica_devices[d]`` (data row ``d``), ``replica_states[d]`` their
-    updater state; ``shards`` / ``shard_states`` are replica 0's."""
+    updater state; ``shards`` / ``shard_states`` are replica 0's. Over
+    several processes the lists hold this process's replicas only, local
+    ``i`` being data row ``replica_ids[i]`` of ``n_data``."""
 
     #: whether the table holds a replica per row of the data axis (every
     #: table does)
@@ -324,10 +335,14 @@ class Table:
                  shard_update: bool = False) -> None:
         self.name = name
         self.mesh = core.resolve_mesh(mesh, device)
-        n_replicas = self.mesh.shape[core.DATA_AXIS] \
+        #: the global data rows of this process's replicas, and D
+        self.replica_ids = list(self.mesh.local_rows) if self.REPLICATED \
+            else [self.mesh.local_rows[0]]
+        self.n_data = self.mesh.shape[core.DATA_AXIS] \
             if self.REPLICATED else 1
+        n_replicas = self.n_data
         self.replica_devices = [self.mesh.replica_devices(d)
-                                for d in range(n_replicas)]
+                                for d in self.replica_ids]
         self.devices = self.replica_devices[0]
         self.device = self.devices[0]
         self.logical_shape = tuple(int(s) for s in shape)
@@ -377,7 +392,7 @@ class Table:
                              for devs in self.replica_devices]
         self.replica_states = [
             [self.updater.init_state(p) for p in self._state_rows(d)]
-            for d in range(n_replicas)]
+            for d in range(len(self.replica_ids))]
         self._events: list = []
         # profiled: profile.calls{fn=table.apply.<name>} is the dispatch
         # count of the Add path, profile.calls{fn=table.snapshot.<name>}
@@ -466,8 +481,9 @@ class Table:
         shards = self.replicas[replica]
         if not self.shard_update:
             return list(shards)
-        q = self._rows_per_shard // self.n_replicas
-        return [p[replica * q:(replica + 1) * q] for p in shards]
+        q = self._rows_per_shard // self.n_data
+        g = self.replica_ids[replica]
+        return [p[g * q:(g + 1) * q] for p in shards]
 
     def _state_split(self, whole, replica: int) -> List[torch.Tensor]:
         """A padded state leaf (numpy or tensor) as the blocks ``replica``
@@ -477,10 +493,10 @@ class Table:
         if not self.shard_update:
             return self._split(whole, devs, copy=True)
         # the (model, data) split: block s * D + d is replica d's of shard s
-        n = self.n_replicas
+        n, g = self.n_data, self.replica_ids[replica]
         rows = whole.shape[0] // (len(devs) * n)
-        return _placed([whole[(s * n + replica) * rows:
-                              (s * n + replica + 1) * rows]
+        return _placed([whole[(s * n + g) * rows:
+                              (s * n + g + 1) * rows]
                         for s in range(len(devs))], devs, copy=True)
 
     def _state_leaf(self, key: str) -> torch.Tensor:
@@ -772,13 +788,13 @@ class Table:
         replica."""
         shard_padded = (self._rows_per_shard,) + self.padded_shape[1:]
         shard_storage = (self._rows_per_shard,) + self.storage_shape[1:]
-        n = self.n_replicas
-        q = self._rows_per_shard // n
-        # blocks[s][d]: shard s's rows [d * q, (d + 1) * q) as replica d
+        q = self._rows_per_shard // self.n_data
+        # blocks[s][g]: shard s's rows [g * q, (g + 1) * q) as replica g
         # updated them under shard_update
-        blocks = [[None] * n for _ in self.devices]
+        blocks = [[None] * self.n_data for _ in self.devices]
         for d, devs in enumerate(self.replica_devices):
-            rows = slice(d * q, (d + 1) * q) if self.shard_update \
+            g = self.replica_ids[d]
+            rows = slice(g * q, (g + 1) * q) if self.shard_update \
                 else slice(None)
             for s, part in enumerate(self._split(delta, devs)):
                 states = self.replica_states[d]
@@ -786,14 +802,35 @@ class Table:
                     self.replicas[d][s].view(shard_padded)[rows], states[s],
                     part.view(shard_padded)[rows], opt)
                 if self.shard_update:
-                    blocks[s][d] = blk
+                    blocks[s][g] = blk
                 else:
                     self.replicas[d][s] = blk.reshape(shard_storage)
         if self.shard_update:
+            self._fill_remote(blocks)
             for devs, shards in zip(self.replica_devices, self.replicas):
                 for s, dev in enumerate(devs):
                     shards[s] = torch.cat([b.to(dev) for b in blocks[s]]) \
                         .reshape(shard_storage)
+
+    def _fill_remote(self, blocks: List[list],
+                     rows: Optional[List[int]] = None) -> None:
+        """``blocks[s][g]``, given for this process's replicas ``g`` among
+        ``rows`` (default: every data row), filled in for every other
+        process's (CPU tensors) by one all-gather (a collective; nothing
+        on one process)."""
+        if self.mesh.processes == 1:
+            return
+        from multiverso_tpu_torch.parallel import multihost
+        rows = range(self.n_data) if rows is None else rows
+        per = len(self.replica_ids)
+        of = [[g for g in rows if g // per == p]
+              for p in range(self.mesh.processes)]
+        mine = [row[g] for row in blocks for g in of[self.mesh.rank]]
+        for p, theirs in enumerate(multihost.allgather_tensors(mine)):
+            if p != self.mesh.rank:
+                for i, t in enumerate(theirs):
+                    s, j = divmod(i, len(of[p]))
+                    blocks[s][of[p][j]] = t
 
     add_async = add
 
@@ -827,9 +864,13 @@ class Table:
         order): a checkpoint's padded leaf, concatenated."""
         if not self.shard_update:
             return [st[key] for st in self.shard_states]
-        return [self.replica_states[d][s][key]
-                for s in range(len(self.devices))
-                for d in range(self.n_replicas)]
+        blocks = [[None] * self.n_data for _ in self.devices]
+        for d, g in enumerate(self.replica_ids):
+            for s in range(len(self.devices)):
+                blocks[s][g] = self.replica_states[d][s][key]
+        # other processes' blocks come over the group (a collective)
+        self._fill_remote(blocks)
+        return [b for row in blocks for b in row]
 
     def export_checkpoint_async(self):
         """The checkpoint export in two halves (the run checkpoint

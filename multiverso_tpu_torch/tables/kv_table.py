@@ -169,9 +169,13 @@ class KVTable:
             raise ValueError("capacity must be positive")
         self.name = name
         self.mesh = core.resolve_mesh(mesh, device)
-        n_replicas = self.mesh.shape[core.DATA_AXIS]
+        # over several processes: this process's replicas only (the
+        # probe is a pure function of table state and batch, so every
+        # process's replicas stay identical with no traffic)
+        self.replica_ids = list(self.mesh.local_rows)
+        self.n_data = n_replicas = self.mesh.shape[core.DATA_AXIS]
         self.replica_devices = [self.mesh.replica_devices(d)
-                                for d in range(n_replicas)]
+                                for d in self.replica_ids]
         self.devices = self.replica_devices[0]
         self.device = self.devices[0]
         self.value_dim = value_dim
@@ -194,6 +198,11 @@ class KVTable:
         # owns buckets [s * bps, (s + 1) * bps), so a sort by bucket IS a
         # sort by shard, then bucket
         self.shard_update = bool(shard_update) and n_replicas > 1
+        if self.shard_update and self.mesh.processes > 1:
+            raise NotImplementedError(
+                f"kv table {name!r}: shard_update over {self.mesh.processes}"
+                " processes (state blocks a commit of another process must "
+                "read) is not ported (ROADMAP.md queue A item 12)")
         n_shards = len(self.devices)
         mult = n_shards * n_replicas if self.shard_update else n_shards
         buckets = -(-capacity // self.slots)

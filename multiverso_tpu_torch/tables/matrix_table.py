@@ -212,20 +212,27 @@ class MatrixTable(Table):
         """Stateful row update of one shard (unique local ids) on every
         replica. Under shard_update the replica whose state block holds a
         row applies the updater to it, and the updated row goes to every
-        replica."""
+        replica (from another process's replica over the group)."""
         if not self.shard_update:
             for d in range(self.n_replicas):
                 self._write_rows(d, shard, ids, self._update_rows(
                     d, shard, ids, ids, deltas, option))
             return
-        q = self._rows_per_shard // self.n_replicas
+        q = self._rows_per_shard // self.n_data
         owner = ids // q
-        for d in np.unique(owner):
-            sel = owner == d
-            rows = self._update_rows(d, shard, ids[sel], ids[sel] - d * q,
-                                     deltas[sel], option)
+        owners = np.unique(owner).tolist()
+        # blocks[0][g]: the rows replica g updated (the base's layout)
+        blocks = [[None] * self.n_data]
+        for d, g in enumerate(self.replica_ids):
+            if g in owners:
+                sel = owner == g
+                blocks[0][g] = self._update_rows(
+                    d, shard, ids[sel], ids[sel] - g * q, deltas[sel],
+                    option)
+        self._fill_remote(blocks, owners)
+        for g in owners:
             for e in range(self.n_replicas):
-                self._write_rows(e, shard, ids[sel], rows)
+                self._write_rows(e, shard, ids[owner == g], blocks[0][g])
 
     def _update_rows(self, replica: int, shard: int, ids: np.ndarray,
                      state_ids: np.ndarray, deltas: np.ndarray,

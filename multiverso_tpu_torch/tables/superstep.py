@@ -65,7 +65,19 @@ or from lanes exchanged with :func:`replica_cat`. On a view:
   (the row blocks each replica updated under ``shard_update``);
   :func:`replica_index` is the running replica's ``d``.
 
-``aux`` is replica 0's. A replica that raises aborts the exchange, the
+Over several processes (``core``'s module doc) each process runs the
+threads of its own replicas only; ``DataSplit`` / ``Replicated`` parts
+are this process's replicas', and :func:`replica_index` is the global
+data row. An exchange round completes when the local replicas have
+posted and one cross-process all-gather of the local posts
+(:func:`~multiverso_tpu_torch.parallel.multihost.allgather_tensors`)
+has returned; every replica then reads every replica's tensors in
+global replica order, so each row's float32 sum is taken in the order
+of the one-process run on the same global mesh, and the tables equal
+that run bit for bit.
+
+``aux`` is the first local replica's (replica 0's on one process). A
+replica that raises aborts the exchange, the
 call re-raises its exception and no table advances; a replica that waits
 longer than ``EXCHANGE_TIMEOUT`` seconds for its turn raises
 ``TimeoutError``.
@@ -94,8 +106,9 @@ from multiverso_tpu_torch.telemetry.profiling import profiled
 from multiverso_tpu_torch.updaters import AddOption
 
 __all__ = ["DataSplit", "FusedSuperstep", "Replicated", "ShardedParam",
-           "coo_scatter_add", "gather_rows", "make_superstep", "replica_cat",
-           "replica_index", "replica_sum", "row_scatter_add"]
+           "coo_scatter_add", "gather_rows", "local_replica_index",
+           "make_superstep", "replica_cat", "replica_index", "replica_sum",
+           "row_scatter_add"]
 
 #: seconds a replica waits for its turn before the call fails
 EXCHANGE_TIMEOUT = 300.0
@@ -113,14 +126,14 @@ class DataSplit:
     def of(cls, value, mesh: Mesh, axis: int = 0) -> "DataSplit":
         """``value`` (numpy or tensor) cut along ``axis`` into the mesh's
         D contiguous equal blocks, block ``d`` on replica ``d``'s first
-        device."""
+        device (this process's replicas' blocks only)."""
         n = mesh.shape[DATA_AXIS]
         size = value.shape[axis]
         if size % n:
             raise ValueError(f"axis {axis} of size {size} does not split "
                              f"over a data axis of {n}")
         step, parts = size // n, []
-        for d in range(n):
+        for d in mesh.local_rows:
             index = [slice(None)] * value.ndim
             index[axis] = slice(d * step, (d + 1) * step)
             block, dev = value[tuple(index)], mesh.replica_devices(d)[0]
@@ -142,10 +155,10 @@ class Replicated:
 
     @classmethod
     def of(cls, value: torch.Tensor, mesh: Mesh) -> "Replicated":
-        """``value`` on each replica's first device: replica 0's part may
-        share its storage, every other part is a copy."""
-        return cls([value.to(mesh.replica_devices(d)[0], copy=d > 0)
-                    for d in range(mesh.shape[DATA_AXIS])])
+        """``value`` on each (local) replica's first device: the first
+        part may share its storage, every other part is a copy."""
+        return cls([value.to(mesh.replica_devices(d)[0], copy=i > 0)
+                    for i, d in enumerate(mesh.local_rows)])
 
 
 #: what a superstep hands replica ``d`` of an input or local: part ``d``
@@ -171,8 +184,12 @@ class _Exchange:
     many times over on the card) and fixes the order in which the
     replicas queue their work."""
 
-    def __init__(self, n: int, timeout: float) -> None:
+    def __init__(self, n: int, timeout: float, first: int = 0,
+                 processes: int = 1) -> None:
+        # n local replicas, global rows first .. first + n - 1
         self.n, self.timeout = n, timeout
+        self.first, self.processes = first, processes
+        self._remote: dict = {}       # round -> every process's posts
         self._lock = threading.Lock()
         # one condition a replica: a hand-over wakes the next one only
         self._conds = [threading.Condition(self._lock) for _ in range(n)]
@@ -183,6 +200,7 @@ class _Exchange:
         self._done = [False] * n
         self.error: Optional[BaseException] = None
         self.bytes = 0                # bytes replicas read from others
+        self.gather_s = 0.0           # seconds in cross-process gathers
 
     def _hand_on(self, replica: int) -> None:
         """Give the turn to the next replica after ``replica`` that has
@@ -248,14 +266,43 @@ class _Exchange:
             self._done[replica] = True
             self._wake_all()
 
+    def _gather_processes(self, posts: list) -> list:
+        """Every process's posts of a round (complete here), in global
+        replica order: this process's as ``None`` (read from ``posts``),
+        the others' as CPU tensors. One collective, issued by the first
+        local reader of the round while it holds the turn, so every
+        process issues its rounds' gathers in the same order. Every
+        replica of a round posts the same shapes (lockstep lanes), so the
+        gather takes them from the local posts (``same_shapes``)."""
+        from multiverso_tpu_torch.parallel import multihost
+        t0 = time.perf_counter()
+        m = len(posts[0][0])
+        mine = []
+        for tensors, posted in posts:
+            if posted is not None:
+                posted.synchronize()
+            mine.extend(tensors)
+        out = []
+        for p, theirs in enumerate(multihost.allgather_tensors(
+                mine, same_shapes=True)):
+            if p * self.n == self.first:
+                out.extend([None] * self.n)
+                continue
+            out.extend(tuple(theirs[i * m:(i + 1) * m])
+                       for i in range(len(theirs) // m))
+        self.gather_s += time.perf_counter() - t0
+        return out
+
     def all_gather(self, replica: int, tensors: tuple) -> List[tuple]:
         """Post ``tensors`` (this replica's, made on its current stream)
-        and return every replica's, in replica order, on ``tensors``'
-        device. The replicas take turns, so a reader whose stream on the
-        poster's card is another stream makes it wait for all the poster
-        has queued so far (a reader on the same stream needs nothing: the
-        poster queued its work first); a copy to another card then
-        follows that stream (``Tensor.to``)."""
+        and return every replica's, in global replica order, on
+        ``tensors``' device. The replicas take turns, so a reader whose
+        stream on the poster's card is another stream makes it wait for
+        all the poster has queued so far (a reader on the same stream
+        needs nothing: the poster queued its work first); a copy to
+        another card then follows that stream (``Tensor.to``). Over
+        several processes the round's first reader also gathers the
+        other processes' posts (:meth:`_gather_processes`)."""
         dev, stream = tensors[0].device, None
         if dev.type == "cuda":
             stream = torch.cuda.current_stream(dev)
@@ -266,11 +313,26 @@ class _Exchange:
             posts[replica] = (tensors, stream)
             self._hand_on(replica)
             self._wait(replica, posts, k)
+            glob = [None] * self.n
+            if self.processes > 1:
+                if k not in self._remote:
+                    try:
+                        self._remote[k] = self._gather_processes(posts)
+                    except BaseException as e:
+                        self._fail(e)
+                glob = self._remote[k]
             self._reads[k] = self._reads.get(k, 0) + 1
             if self._reads[k] == self.n:
                 del self._posts[k], self._reads[k]
+                self._remote.pop(k, None)
         out, foreign = [], 0
-        for r, (theirs, posted) in enumerate(posts):
+        for g, remote in enumerate(glob):
+            if remote is not None:
+                foreign += sum(t.numel() * t.element_size() for t in remote)
+                out.append(tuple(t.to(dev) for t in remote))
+                continue
+            r = g - self.first if self.processes > 1 else g
+            theirs, posted = posts[r]
             if r == replica:
                 out.append(tensors)
                 continue
@@ -291,11 +353,13 @@ class _Exchange:
 
 
 class _Replica:
-    """The replica a superstep thread runs: its exchange, its index and
-    the table views its body got."""
+    """The replica a superstep thread runs: its exchange, its local
+    index, its global data row and the table views its body got."""
 
-    def __init__(self, exchange: _Exchange, index: int, views) -> None:
+    def __init__(self, exchange: _Exchange, index: int, views,
+                 row: int) -> None:
         self.exchange, self.index, self.views = exchange, index, views
+        self.row = row
 
 
 _LOCAL = threading.local()
@@ -360,8 +424,15 @@ def replica_cat(x: torch.Tensor) -> torch.Tensor:
 
 
 def replica_index() -> int:
-    """The index ``d`` of the replica this superstep body runs; 0 off a
-    data axis."""
+    """The index ``d`` of the replica this superstep body runs, its data
+    row of the global mesh; 0 off a data axis."""
+    rep = _replica()
+    return 0 if rep is None else rep.row
+
+
+def local_replica_index() -> int:
+    """The position of the running replica among this process's (its
+    part of a ``DataSplit`` / ``Replicated``); 0 off a data axis."""
     rep = _replica()
     return 0 if rep is None else rep.index
 
@@ -403,9 +474,12 @@ class FusedSuperstep:
         # reference traces its body once, so it records nothing per step
         self._run = profiled(self._run_body, f"superstep.{name}")
         self._last_generation: Optional[int] = None
-        #: bytes the replicas read from one another in the last call
+        #: bytes the replicas read from one another in the last call, and
+        #: the seconds its cross-process gathers took (0 on one process)
         self.exchange_bytes = 0
-        self.data = self.tables[0].mesh.shape[DATA_AXIS]
+        self.exchange_seconds = 0.0
+        self.mesh = self.tables[0].mesh
+        self.data = self.mesh.shape[DATA_AXIS]
         for t in self.tables:
             if not isinstance(t, Table):
                 raise NotImplementedError(
@@ -481,15 +555,17 @@ class FusedSuperstep:
     def _run_replicas(self, locals_, opts, inputs) -> list:
         """The body once per replica, each on a thread of its own;
         returns each replica's ``(params, states, locals, aux)``."""
-        exchange = _Exchange(self.data, EXCHANGE_TIMEOUT)
-        outs: list = [None] * self.data
+        rows = self.mesh.local_rows
+        exchange = _Exchange(len(rows), EXCHANGE_TIMEOUT, rows[0],
+                             self.mesh.processes)
+        outs: list = [None] * len(rows)
 
         def run(d: int) -> None:
             dev = self.tables[0].replica_devices[d][0]
             try:
                 views = [t.superstep_view(d) for t in self.tables]
                 params = tuple(v[0] for v in views)
-                _LOCAL.replica = _Replica(exchange, d, params)
+                _LOCAL.replica = _Replica(exchange, d, params, rows[d])
                 exchange.start(d)
                 with _on(dev):
                     outs[d] = self._body(
@@ -504,8 +580,8 @@ class FusedSuperstep:
                 _LOCAL.replica = None
 
         threads = [threading.Thread(target=run, args=(d,), daemon=True,
-                                    name=f"{self.name}-replica{d}")
-                   for d in range(self.data)]
+                                    name=f"{self.name}-replica{rows[d]}")
+                   for d in range(len(rows))]
         for th in threads:
             th.start()
         for th in threads:
@@ -513,6 +589,7 @@ class FusedSuperstep:
         if exchange.error is not None:
             raise exchange.error
         self.exchange_bytes = exchange.bytes
+        self.exchange_seconds = exchange.gather_s
         return outs
 
     def handle(self) -> Handle:

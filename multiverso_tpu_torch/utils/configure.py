@@ -167,13 +167,22 @@ def describe_flags() -> str:
     return _REGISTRY.describe()
 
 
-# Core framework flags, mirroring the reference's known set. The
-# multi-host flags of multiverso_tpu wait for a multi-process port.
+# Core framework flags, mirroring the reference's known set.
 define_bool("sync", True, "synchronous (BSP) mode")
 define_string("updater_type", "default",
               "server-side updater: default|sgd|adagrad|momentum|adam|ftrl")
 define_string("log_level", "info", "logging level: debug|info|warn|error|fatal")
 define_string("log_file", "", "optional log file sink (empty = stderr only)")
+define_string("machine_file", "",
+              "coordinator address list for multi-host bootstrap "
+              "(reference: ZMQ machine list; here: torch.distributed)")
+define_int("port", 0, "coordinator port for multi-host bootstrap")
+define_int("num_processes", 0,
+           "multi-host process count (0 = the machine file's line count; "
+           "required with a bare host address)")
+define_int("process_id", -1,
+           "this host's process id (-1 = unset; required for "
+           "multi-process runs)")
 define_int("data_parallel", 0,
            "data-parallel mesh axis size (0 = all devices / model_parallel)")
 define_int("model_parallel", 1, "model-parallel mesh axis size")

@@ -210,7 +210,7 @@ def test_bfloat16_precision_trains(docs):
     (dict(num_topics=128, sampler="tiled", stream_blocks=True),
      "requires doc_blocked"),
     (dict(num_topics=8, sampler="banana"), "sampler must be"),
-    (dict(num_topics=8, local_corpus=True), "not in the port yet"),
+    (dict(num_topics=8, local_corpus=True), "requires stream_blocks"),
     (dict(num_topics=128, sampler="tiled", doc_blocked=True,
           batch_tokens=2048, block_tokens=300), "multiple of 8"),
 ])
