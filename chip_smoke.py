@@ -280,6 +280,38 @@ its seconds):
    collective adds of 20,000 keys and their gets against a numpy model,
    equal on both processes. Each process counts its launches from 0
    after its init and must launch #1, #2, #4, #6, #7 and #11 or #12.
+26. The binding-compat API, the three examples, pipeline and ring
+   attention (``multiverso_tpu_torch/{bindings,examples,parallel}``), after
+   phase 25, each part timed: (a) ``bindings.init``, the topology queries
+   and ``barrier`` on one card, an ``ArrayTableHandler`` round trip of 1M
+   floats, and a ``MatrixTableHandler`` at word2vec's ``w_out`` width
+   (10,001 x 100 float32) on (1, 1) and (1, 4) meshes of cuda:0:
+   ``BIND_ROUNDS`` rounds of a row add of phase 2's 24,576 Zipf-1.2 ids
+   and a get of the same ids, against a float64 numpy accumulation within
+   rtol 1e-5 (the deltas are multiples of 1/16, so it is exact); the row
+   gather and row scatter-add launch once a call (``paths["bindings"]``).
+   (b) ``mlp_cifar.main`` at its defaults (20,000 samples, hidden (256,
+   128), batch 128, lr 0.05, 3 epochs, a ``ParamManager`` sync a step):
+   accuracy above 0.8; one epoch with ``compress="1bit"``: above 0.45;
+   samples/s and the syncs' share of the wall. (c) ResNet-50 at full width
+   (23,513,162 float32 parameters in 153 leaves) at image size 32 and
+   batch 256 (lr ``RESNET_LR``, a tenth of main's, at which both packages
+   diverge): one ``ResNetTrainer`` step on (1, 1) and on a (4, 1) mesh of
+   cuda:0 from the same weights, the parameters within rtol 1e-4, atol
+   1e-5; ``RESNET_STEPS`` steps of each with finite losses;
+   ``BindingResNetTrainer`` with a sync a step for ``RESNET_BIND_STEPS``
+   steps (the handler's generation counts the syncs); the tiny arch on an
+   (8, 1) mesh at 70 steps: accuracy above 0.5; images/s and a sync's
+   share. (d) ``pipeline_mlp.main`` on a (1, 8) mesh of cuda:0 (8
+   stages): the last 5 losses' mean below 0.6x the first 5's, and
+   ``pipeline_apply`` within 2e-5 of ``sequential_oracle`` forward and
+   5e-4 in the gradients. (e) ring and Ulysses attention on an (8, 1)
+   mesh of cuda:0 (B 1, H 8, D 128, float32): at S 4,096, causal and not,
+   within 2e-4 of a float64 dense attention on the card; their causal
+   gradients against dense autograd in float64, cosine above 0.9999 and
+   the norm ratio within 1%; at S 32,768 causal, the ms of each beside
+   ``F.scaled_dot_product_attention`` on the same tensors (a yardstick
+   that the port does not call).
 14. The row scatter's kernel on phase 2's sorted lanes, and phase 2's KV
    probe + commit calls (the flat form at the sparse-LR step's shapes,
    the sharded form on four shards), taken apart by torch.profiler: each
@@ -7162,6 +7194,397 @@ def phase_multiprocess(torch, card: str, z=None) -> dict:
                 one_process_s=one_s)
 
 
+# -- phase 26: the binding-compat API, the examples, pipeline and ring ------
+
+#: 26a: rounds of a Zipf-1.2 row add + get on the word2vec w_out-wide handler
+BIND_ROUNDS = 32
+#: 26c: ResNet-50 at the example main's image size and batch. Its
+#: learning rate is a tenth of main's 0.1: at 0.1 the first momentum step
+#: blows the loss up, in the reference's trainer as in the port's, and the
+#: port's reached NaN at step 16 on the card
+RESNET_N, RESNET_SIZE, RESNET_BATCH, RESNET_STEPS = 8192, 32, 256, 20
+RESNET_LR = 0.01
+RESNET_BIND_STEPS, RESNET_TINY_STEPS = 10, 70
+#: ResNet-50's parameters and leaves (the reference's 94.05 MB)
+RESNET50_SIZE = (23_513_162, 153)
+#: 26e: ring / Ulysses attention shapes
+ATTN_B, ATTN_H, ATTN_D, ATTN_S, ATTN_LONG_S = 1, 8, 128, 4096, 32768
+
+
+@contextlib.contextmanager
+def timed_method(cls, name: str):
+    """Accumulate the wall seconds (and the calls) of ``cls.name`` while
+    the block runs, into the yielded dict."""
+    fn = getattr(cls, name)
+    acc = {"seconds": 0.0, "calls": 0}
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            acc["seconds"] += time.perf_counter() - t0
+            acc["calls"] += 1
+
+    setattr(cls, name, timed)
+    try:
+        yield acc
+    finally:
+        setattr(cls, name, fn)
+
+
+def bind_rows(torch, core, mvb, devices, rng) -> dict:
+    """26a on one mesh: BIND_ROUNDS rounds of a row add of phase 2's
+    ``main_n`` Zipf-1.2 ids (deltas in multiples of 1/16, so a float64
+    accumulation is exact) and a get of the same ids, on a fresh
+    10,001 x 100 handler; the table against the accumulation."""
+    core.set_mesh(core.Mesh([devices]))
+    n = BATCH * (1 + NEGATIVE)
+    h = mvb.MatrixTableHandler(ROWS, DIM, name=f"bind_rows_{len(devices)}")
+    acc = torch.zeros((ROWS, DIM), dtype=torch.float64)
+    err, t_round = 0.0, []
+    for _ in range(BIND_ROUNDS):
+        ids = zipf_ids(rng, n, ROWS)
+        d = rng.integers(-16, 17, (n, DIM)).astype(np.float32) / 16
+        acc.index_add_(0, torch.from_numpy(ids).long(),
+                       torch.from_numpy(d).double())
+        t0 = time.perf_counter()
+        h.add(d, row_ids=ids)
+        got = h.get(row_ids=ids)
+        t_round.append(1e3 * (time.perf_counter() - t0))
+        want = acc.numpy()[ids]
+        err = max(err, float(np.abs(got - want).max()))
+        np.testing.assert_allclose(got, want, rtol=1e-5)
+    whole, acc = h.get(), acc.numpy()
+    np.testing.assert_allclose(whole, acc, rtol=1e-5)
+    err = max(err, float(np.abs(whole - acc).max()))
+    del h
+    free_tables(torch)
+    return dict(round_ms=t_round, max_abs_err=err)
+
+
+def phase_bindings(torch, core, counts, reset, card, dev) -> tuple:
+    """26a: the binding surface on the script's mesh; returns the row
+    path's launches (``paths["bindings"]``) beside the results."""
+    from multiverso_tpu_torch import bindings as mvb
+    core.set_mesh(core.Mesh([[dev]]))
+    mvb.init(sync=True)
+    topo = dict(workers=mvb.workers_num(), worker=mvb.worker_id(),
+                server=mvb.server_id(), master=mvb.is_master_worker())
+    if topo != dict(workers=1, worker=0, server=0, master=True):
+        raise SystemExit(f"phase 26a: topology {topo} on one card")
+    mvb.barrier()
+    rng = np.random.default_rng(26)
+    arr = mvb.ArrayTableHandler(1_000_000, init_value=0.5, name="bind_arr")
+    a = rng.integers(-64, 65, 1_000_000).astype(np.float32) / 16
+    arr.add(a)
+    arr.add(a, sync=True)
+    if not np.array_equal(arr.get(), 0.5 + 2 * a):
+        raise SystemExit("phase 26a: ArrayTableHandler round trip differs")
+    del arr
+    free_tables(torch)
+    reset()
+    rows = {f"(1, {s})": bind_rows(torch, core, mvb, [dev] * s, rng)
+            for s in (1, 4)}
+    launches = counts()
+    want = len(rows) * BIND_ROUNDS
+    for name in ("row_gather_sharded", "row_scatter_add_sharded"):
+        if launches[name] != want:
+            raise SystemExit(f"phase 26a: {name} launched "
+                             f"{launches[name]} times, not {want} (one a "
+                             "call on one card)")
+    for key, r in rows.items():
+        log(f"  26a MatrixTableHandler {ROWS} x {DIM} on {key} of {dev}: "
+            f"{BIND_ROUNDS} rounds of add + get of {BATCH * (1 + NEGATIVE)} "
+            f"Zipf-1.2 ids, {np.median(r['round_ms']):.3f} ms a round "
+            f"(median), max abs err vs float64 {r['max_abs_err']}; on {card}")
+    log(f"  26a launches {({k: v for k, v in launches.items() if v})}")
+    return dict(topology=topo, rows=rows), launches
+
+
+def phase_mlp_cifar(torch, card, dev) -> dict:
+    """26b: ``mlp_cifar.main`` at its defaults on ``dev``, syncing through
+    ``ParamManager`` every step; then one epoch with 1-bit syncs."""
+    from multiverso_tpu_torch.bindings.torch_ext import ParamManager
+    from multiverso_tpu_torch.examples import mlp_cifar
+    t0 = time.perf_counter()
+    with timed_method(ParamManager, "sync_all_param") as sync:
+        acc = mlp_cifar.main([f"-device={dev}"])
+    wall = time.perf_counter() - t0
+    if not acc > 0.8:
+        raise SystemExit(f"phase 26b: mlp_cifar accuracy {acc} <= 0.8")
+    n, batch, epochs = 20_000, 128, 3
+    samples = epochs * (n // batch) * batch
+    X, y = mlp_cifar.synthetic_cifar(n)
+    t1 = time.perf_counter()
+    pm = ParamManager(mlp_cifar.init_mlp(), name="mlp_1bit",
+                      compress="1bit")
+    with timed_method(ParamManager, "sync_all_param") as sync1:
+        params, loss = mlp_cifar.train(X, y, epochs=1, manager=pm)
+    acc1 = mlp_cifar.accuracy(params, X, y)
+    wall1 = time.perf_counter() - t1
+    if not (np.isfinite(loss) and acc1 > 0.45):
+        raise SystemExit(f"phase 26b: 1-bit epoch accuracy {acc1}, loss "
+                         f"{loss}")
+    free_tables(torch)
+    out = dict(accuracy=acc, seconds=wall, samples_per_sec=samples / wall,
+               syncs=sync["calls"], sync_share=sync["seconds"] / wall,
+               one_bit=dict(accuracy=acc1, seconds=wall1,
+                            samples_per_sec=(n // batch) * batch / wall1,
+                            sync_share=sync1["seconds"] / wall1))
+    log(f"  26b mlp_cifar main (20,000 samples, hidden (256, 128), batch "
+        f"128, 3 epochs, a sync a step): accuracy {acc:.4f}, "
+        f"{out['samples_per_sec']:.0f} samples/s over main's wall "
+        f"{wall:.2f} s (data made inside it), {sync['calls']} syncs "
+        f"{100 * out['sync_share']:.1f}% of it; one 1-bit epoch: accuracy "
+        f"{acc1:.4f}, {out['one_bit']['samples_per_sec']:.0f} samples/s, "
+        f"syncs {100 * out['one_bit']['sync_share']:.1f}%; on {card}")
+    return out
+
+
+def resnet_fit(torch, trainer, X, y, steps: int) -> dict:
+    _sync(torch)
+    t0 = time.perf_counter()
+    losses = trainer.fit(X, y, steps=steps, batch_size=RESNET_BATCH,
+                         seed=1)
+    wall = time.perf_counter() - t0
+    if not np.all(np.isfinite(losses)):
+        raise SystemExit(f"phase 26c: non-finite losses {losses}")
+    return dict(losses=losses, seconds=wall,
+                images_per_sec=steps * RESNET_BATCH / wall)
+
+
+def phase_resnet(torch, core, card, dev) -> dict:
+    """26c: ResNet-50 at full width; one step on (1, 1) and (4, 1) meshes
+    of ``dev`` from the same weights, then steps of each, then through the
+    binding, then the tiny arch's learning bar."""
+    from multiverso_tpu_torch.bindings.torch_ext import ParamManager
+    from multiverso_tpu_torch.examples import resnet_imagenet as rn
+    X, y = rn.synthetic_imagenet(RESNET_N, size=RESNET_SIZE)
+    meshes = {"(1, 1)": core.Mesh([[dev]]), "(4, 1)": core.Mesh([[dev]] * 4)}
+    trainers = {k: rn.ResNetTrainer("resnet50", learning_rate=RESNET_LR,
+                                    mesh=m) for k, m in meshes.items()}
+    n_params = sum(v.numel() for v in trainers["(1, 1)"].params.values())
+    leaves = len(trainers["(1, 1)"].params)
+    if (n_params, leaves) != RESNET50_SIZE:
+        raise SystemExit(f"phase 26c: ResNet-50 has {n_params} parameters "
+                         f"in {leaves} leaves")
+    idx = np.random.default_rng(0).integers(0, RESNET_N, RESNET_BATCH)
+    one = {k: float(t.train_step(X[idx], y[idx]))
+           for k, t in trainers.items()}
+    a, b = (t.params for t in trainers.values())
+    worst = 0.0
+    for k in a:
+        diff = (a[k] - b[k]).abs()
+        worst = max(worst, float(diff.max()))
+        if not torch.all(diff <= 1e-5 + 1e-4 * b[k].abs()):
+            raise SystemExit(f"phase 26c: {k} after one step differs "
+                             f"between (1, 1) and (4, 1) by "
+                             f"{float(diff.max())}")
+    runs = {k: resnet_fit(torch, t, X, y, RESNET_STEPS)
+            for k, t in trainers.items()}
+    del trainers, a, b
+    free_tables(torch)
+    core.set_mesh(meshes["(1, 1)"])
+    bind = rn.BindingResNetTrainer("resnet50", learning_rate=RESNET_LR,
+                                   sync_every=1, mesh=meshes["(1, 1)"])
+    with timed_method(ParamManager, "sync_all_param") as sync:
+        b_run = resnet_fit(torch, bind, X, y, RESNET_BIND_STEPS)
+    gen = bind.pm._table._table.generation
+    if gen != 1 + RESNET_BIND_STEPS:
+        raise SystemExit(f"phase 26c: the handler's generation {gen} != "
+                         f"1 + {RESNET_BIND_STEPS} syncs")
+    b_run.update(sync_s=sync["seconds"] / sync["calls"],
+                 sync_share=sync["seconds"] / b_run["seconds"],
+                 generation=gen, sync_bytes=4 * n_params)
+    del bind
+    free_tables(torch)
+    Xt, yt = rn.synthetic_imagenet(2048, size=16, seed=2)
+    tiny = rn.ResNetTrainer("tiny", learning_rate=0.05,
+                            mesh=core.Mesh([[dev]] * 8), seed=2)
+    t0 = time.perf_counter()
+    t_losses = tiny.fit(Xt, yt, steps=RESNET_TINY_STEPS, batch_size=256,
+                        seed=2)
+    t_acc = tiny.accuracy(Xt, yt)
+    t_s = time.perf_counter() - t0
+    if not (np.all(np.isfinite(t_losses)) and t_acc > 0.5
+            and np.mean(t_losses[-5:]) < np.mean(t_losses[:5])):
+        raise SystemExit(f"phase 26c: tiny accuracy {t_acc}, losses "
+                         f"{t_losses[:5]} ... {t_losses[-5:]}")
+    for k, r in runs.items():
+        log(f"  26c ResNet-50 ({n_params} params, {leaves} leaves) on "
+            f"{k} of {dev}, batch {RESNET_BATCH} of {RESNET_SIZE}x"
+            f"{RESNET_SIZE}, lr {RESNET_LR}: {r['images_per_sec']:.1f} "
+            f"images/s over "
+            f"{RESNET_STEPS} steps, loss {r['losses'][0]:.4f} -> "
+            f"{r['losses'][-1]:.4f}; on {card}")
+    log(f"  26c one step (1, 1) vs (4, 1): losses {one}, params max abs "
+        f"diff {worst:.3g}; BindingResNetTrainer sync_every=1: "
+        f"{b_run['images_per_sec']:.1f} images/s, a sync "
+        f"{1e3 * b_run['sync_s']:.1f} ms ({b_run['sync_bytes']} bytes each "
+        f"way, {100 * b_run['sync_share']:.1f}% of the steps' wall), "
+        f"generation {gen}; tiny (8, 1) {RESNET_TINY_STEPS} steps: accuracy "
+        f"{t_acc:.4f} in {t_s:.1f} s; on {card}")
+    return dict(params=n_params, leaves=leaves, one_step_losses=one,
+                one_step_max_abs_diff=worst, runs=runs, binding=b_run,
+                tiny=dict(accuracy=t_acc, seconds=t_s,
+                          losses=[float(x) for x in t_losses]))
+
+
+def phase_pipeline(torch, core, card, dev) -> dict:
+    """26d: ``pipeline_mlp.main`` on a (1, 8) mesh of ``dev``, then
+    ``pipeline_apply`` against ``sequential_oracle`` there."""
+    from multiverso_tpu_torch.examples import pipeline_mlp
+    from multiverso_tpu_torch.parallel.pipeline import (pipeline_apply,
+                                                        sequential_oracle)
+    t0 = time.perf_counter()
+    losses = pipeline_mlp.main([f"-device={dev}", "-data_parallel=1",
+                                "-model_parallel=8"])
+    main_s = time.perf_counter() - t0
+    if core.mesh().shape["model"] != 8:
+        raise SystemExit(f"phase 26d: main's mesh {core.mesh()}")
+    first, last = float(losses[:5].mean()), float(losses[-5:].mean())
+    if not (np.all(np.isfinite(losses)) and last < 0.6 * first):
+        raise SystemExit(f"phase 26d: losses {first} -> {last}")
+    rng = np.random.default_rng(6)
+    p = {"w": torch.tensor(rng.normal(0, 0.5, (8, 16, 16)).astype(
+            np.float32), device=dev, requires_grad=True),
+         "b": torch.tensor(rng.normal(0, 0.1, (8, 16)).astype(np.float32),
+                           device=dev, requires_grad=True)}
+    x = torch.tensor(rng.normal(size=(32, 16)).astype(np.float32),
+                     device=dev)
+
+    def fn(q, h):
+        return torch.tanh(h @ q["w"] + q["b"])
+
+    outs = []
+    for run in (lambda: pipeline_apply(p, x, fn),
+                lambda: sequential_oracle(p, x, fn)):
+        y = run()
+        outs.append((y.detach(), torch.autograd.grad((y ** 2).sum(),
+                                                     [p["w"], p["b"]])))
+    fwd = float((outs[0][0] - outs[1][0]).abs().max())
+    grad = max(float((g - h).abs().max())
+               for g, h in zip(outs[0][1], outs[1][1]))
+    if not (torch.allclose(outs[0][0], outs[1][0], rtol=2e-5, atol=2e-5)
+            and all(torch.allclose(g, h, rtol=5e-4, atol=5e-4)
+                    for g, h in zip(outs[0][1], outs[1][1]))):
+        raise SystemExit(f"phase 26d: pipeline_apply vs the oracle: "
+                         f"forward {fwd}, grads {grad}")
+    log(f"  26d pipeline_mlp main (8 stages on the model axis of {dev}, "
+        f"60 steps of 256): loss {first:.4f} -> {last:.4f} "
+        f"({last / first:.3f}x) in {main_s:.2f} s; pipeline_apply vs "
+        f"sequential_oracle max abs diff forward {fwd:.3g}, grads "
+        f"{grad:.3g}; on {card}")
+    return dict(first5=first, last5=last, main_s=main_s,
+                forward_max_abs=fwd, grad_max_abs=grad)
+
+
+def dense_attention(torch, q, k, v, causal: bool):
+    """Dense attention in q's dtype (float64 for the checks)."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) / q.shape[-1] ** 0.5
+    if causal:
+        n = s.shape[-1]
+        mask = torch.ones(n, n, dtype=torch.bool, device=s.device).tril()
+        s = s.masked_fill(~mask, float("-inf"))
+    return torch.einsum("bhqk,bkhd->bqhd", s.softmax(-1), v)
+
+
+def phase_attention(torch, core, card, dev) -> dict:
+    """26e: ring and Ulysses attention on an (8, 1) mesh of ``dev`` against
+    float64 dense attention, their gradients against dense autograd, and
+    their time at S 32,768 beside SDPA's."""
+    from multiverso_tpu_torch.parallel import ring_attention, \
+        ulysses_attention
+    mesh = core.Mesh([[dev]] * 8)
+    gen = torch.Generator(device=dev).manual_seed(26)
+    shape = (ATTN_B, ATTN_S, ATTN_H, ATTN_D)
+    q, k, v = (torch.randn(shape, device=dev, generator=gen)
+               for _ in range(3))
+    q64, k64, v64 = (t.double() for t in (q, k, v))
+    out, fns = {}, {"ring": ring_attention, "ulysses": ulysses_attention}
+    for causal in (False, True):
+        want = dense_attention(torch, q64, k64, v64, causal)
+        for name, fn in fns.items():
+            with torch.no_grad():
+                got = fn(q, k, v, mesh=mesh, causal=causal)
+            err = float((got.double() - want).abs().max())
+            if got.dtype != q.dtype or not torch.allclose(
+                    got.double(), want, rtol=2e-4, atol=2e-4):
+                raise SystemExit(f"phase 26e: {name} causal={causal} max "
+                                 f"abs err {err} vs float64 dense")
+            out[f"{name}_causal={causal}_max_abs_err"] = err
+    leaves = [t.clone().requires_grad_(True) for t in (q64, k64, v64)]
+    want = torch.autograd.grad(
+        (dense_attention(torch, *leaves, True) ** 2).sum(), leaves)
+    for name, fn in fns.items():
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        got = torch.autograd.grad(
+            (fn(*leaves, mesh=mesh, causal=True) ** 2).sum(), leaves)
+        for which, g, w in zip("qkv", got, want):
+            g, w = g.double().flatten(), w.flatten()
+            cos = float(g @ w / (g.norm() * w.norm()))
+            ratio = float(g.norm() / w.norm())
+            if not (cos > 0.9999 and 0.99 < ratio < 1.01):
+                raise SystemExit(f"phase 26e: {name} d{which}: cosine "
+                                 f"{cos}, norm ratio {ratio}")
+            out[f"{name}_d{which}"] = dict(cosine=cos, norm_ratio=ratio)
+    del q64, k64, v64, leaves, want
+    torch.cuda.empty_cache()
+    shape = (ATTN_B, ATTN_LONG_S, ATTN_H, ATTN_D)
+    q, k, v = (torch.randn(shape, device=dev, generator=gen)
+               for _ in range(3))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    F = torch.nn.functional
+    with torch.no_grad():
+        times = {name: cuda_ms(lambda fn=fn: fn(q, k, v, mesh=mesh,
+                                                causal=True), 2)
+                 for name, fn in fns.items()}
+        times["sdpa"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), 2)
+    out["long_ms"] = times
+    log(f"  26e ring / Ulysses on (8, 1) of {dev} (B {ATTN_B}, H {ATTN_H}, "
+        f"D {ATTN_D}, float32): S {ATTN_S} within 2e-4 of float64 dense "
+        f"(max abs err "
+        + ", ".join(f"{k.replace('_max_abs_err', '')} {v:.2e}"
+                    for k, v in out.items() if k.endswith("err"))
+        + "); gradients (causal) cosine >= "
+        f"{min(v['cosine'] for k, v in out.items() if '_d' in k):.7f}, "
+        f"norm ratio within "
+        f"{max(abs(v['norm_ratio'] - 1) for k, v in out.items() if '_d' in k):.2e}"
+        f"; S {ATTN_LONG_S} causal: ring {times['ring']:.1f} ms, Ulysses "
+        f"{times['ulysses']:.1f} ms, SDPA (yardstick) {times['sdpa']:.1f} "
+        f"ms; on {card}")
+    return out
+
+
+def phase_binding_examples(torch, core, counts, reset, card,
+                           dev: str = "cuda:0") -> tuple:
+    """Phase 26 (module doc) on ``dev``: its five parts, each timed;
+    returns the results and the binding row path's launches. The runtime
+    mesh is restored after it."""
+    before = core.mesh()
+    parts, seconds = {}, {}
+    try:
+        for key, fn in (
+                ("a", lambda: phase_bindings(torch, core, counts, reset,
+                                             card, dev)),
+                ("b", lambda: phase_mlp_cifar(torch, card, dev)),
+                ("c", lambda: phase_resnet(torch, core, card, dev)),
+                ("d", lambda: phase_pipeline(torch, core, card, dev)),
+                ("e", lambda: phase_attention(torch, core, card, dev))):
+            t0 = time.perf_counter()
+            parts[key] = fn()
+            seconds[key] = time.perf_counter() - t0
+            log(f"  [26{key}: {seconds[key]:.1f} s]")
+            free_tables(torch)
+    finally:
+        core.set_mesh(before)
+    parts["a"], launches = parts["a"]
+    parts["seconds"] = seconds
+    return parts, launches
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7543,6 +7966,14 @@ def main(argv) -> int:
     mp25 = phase_multiprocess(torch, card)
     phase_end("multiprocess")
 
+    phase("bindings", "phase 26: the binding-compat API (a), mlp_cifar "
+          "(b), ResNet-50 (c), pipeline_mlp (d), ring and Ulysses "
+          "attention (e) on cuda:0")
+    free_tables(torch)
+    p26, paths["bindings"] = phase_binding_examples(torch, core, counts,
+                                                    reset, card)
+    phase_end("bindings")
+
     log("phase 19a/c/d: the stat reduction vs numpy; the dense logreg "
         "under a chaos NaN with MVTPU_HEALTH_ACTION=rollback, and killed "
         "after generation 2 and resumed")
@@ -7594,6 +8025,9 @@ def main(argv) -> int:
     for name, path in main_path.items():
         if paths[path][name] <= 0:
             raise SystemExit(f"{name}: no launch on the {path} path")
+    for name in ("row_gather_sharded", "row_scatter_add_sharded"):
+        if paths["bindings"][name] <= 0:
+            raise SystemExit(f"{name}: no launch on the bindings path")
     log(f"  word2vec: {w2v['words_per_sec']:.0f} words/s "
         f"({w2v['seconds']:.3f} s for {TIMED_CALLS} calls of "
         f"{STEPS}x{BATCH} pairs) on {card}")
@@ -7815,7 +8249,8 @@ def main(argv) -> int:
                        row_scatter_parts=scatter_parts, telemetry=tel,
                        health=h19, client=c20, tiered_kv=tiered,
                        wire_server=wire22, fleet=fleet23,
-                       multiprocess=mp25, seconds=time.perf_counter() - t_start), f, indent=1)
+                       multiprocess=mp25, bindings_examples=p26,
+                       seconds=time.perf_counter() - t_start), f, indent=1)
     log(f"phase seconds: { {k: round(v, 1) for k, v in phase_s.items()} }")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

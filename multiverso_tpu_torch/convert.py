@@ -4,7 +4,10 @@ The JAX package's parameters arrive as numpy arrays (``np.asarray`` of a
 table's ``get()`` or ``raw()``, or the arrays of its checkpoint), so this
 module needs neither JAX nor the JAX package. Whole tables with updater
 state travel through the shared checkpoint format instead
-(:meth:`Table.store` / :meth:`Table.load` in either package).
+(:meth:`Table.store` / :meth:`Table.load` in either package). The
+examples' parameters (``examples/``) install into the port's examples
+through :func:`load_mlp`, :func:`load_resnet` (conv weights HWIO ->
+OIHW) and :func:`load_pipeline_mlp`.
 """
 
 from __future__ import annotations
@@ -85,3 +88,67 @@ def load_kv_table(table, keys: np.ndarray, values: np.ndarray,
                          [np.asarray(x) for x in leaves])
     with table._option_lock:
         table.generation += 1
+
+
+def _install(target: dict, weights: dict, what: str, path: str = "",
+             layout=None) -> None:
+    """Copy ``weights`` (a nested dict of arrays with ``target``'s keys)
+    into the tensors of ``target`` in place, each array through
+    ``layout`` first when given. An unknown or missing key or a wrong
+    shape raises ``ValueError`` before anything is written."""
+    pairs = []
+
+    def walk(tgt, src, prefix):
+        if not isinstance(src, dict) or set(src) != set(tgt):
+            have = sorted(src) if isinstance(src, dict) else type(src)
+            raise ValueError(f"{what} weights{prefix}: keys {have}; "
+                             f"expected {sorted(tgt)}")
+        for key, t in tgt.items():
+            if isinstance(t, dict):
+                walk(t, src[key], f"{prefix}[{key!r}]")
+                continue
+            arr = np.asarray(src[key], dtype=np.float32)
+            if layout is not None:
+                arr = layout(arr)
+            if arr.shape != tuple(t.shape):
+                raise ValueError(f"{what} weights{prefix}[{key!r}]: shape "
+                                 f"{arr.shape} != {tuple(t.shape)}")
+            pairs.append((t, arr))
+
+    walk(target, weights, path)
+    with torch.no_grad():
+        for t, arr in pairs:
+            t.copy_(torch.tensor(arr))
+
+
+def load_mlp(params: Dict[str, torch.Tensor],
+             weights: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """Install the JAX package's ``examples/mlp_cifar.py`` parameters
+    (``{"w0", "b0", ...}``) into the port's MLP ``params`` in place;
+    returns ``params``."""
+    _install(params, weights, "MLP")
+    return params
+
+
+def hwio_to_oihw(arr: np.ndarray) -> np.ndarray:
+    """A conv weight from the reference's HWIO layout to the port's OIHW;
+    other arrays as they are."""
+    return arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr
+
+
+def load_resnet(trainer, weights: Dict[str, np.ndarray]) -> None:
+    """Install the JAX package's ``examples/resnet_imagenet.py`` parameters
+    (its 153 leaves for ResNet-50, conv weights HWIO) into every replica of
+    a :class:`~multiverso_tpu_torch.examples.resnet_imagenet.ResNetTrainer`
+    of the same architecture, conv weights as OIHW."""
+    for rep in trainer.replicas:
+        _install(rep, weights, "ResNet", layout=hwio_to_oihw)
+
+
+def load_pipeline_mlp(trainer, weights: dict) -> None:
+    """Install the JAX package's ``examples/pipeline_mlp.py`` parameters
+    (``{"embed", "trunk": {"w", "b"}, "head"}``, the trunk stacked over the
+    stages) into a
+    :class:`~multiverso_tpu_torch.examples.pipeline_mlp.PipelineMLPTrainer`
+    with as many stages."""
+    _install(trainer.params, weights, "pipeline MLP")

@@ -126,6 +126,18 @@ class Mesh:
         row ``replica`` of the grid."""
         return list(self.devices[replica])
 
+    def axis_devices(self, axis: str) -> List[torch.device]:
+        """The devices of one line of the grid along ``axis``, the ring a
+        collective over that axis walks: the model axis is
+        :attr:`shard_devices`, the data axis the first device of each data
+        row."""
+        if axis == MODEL_AXIS:
+            return self.shard_devices
+        if axis == DATA_AXIS:
+            return [row[0] for row in self.devices]
+        raise ValueError(f"unknown mesh axis {axis!r}; the axes are "
+                         f"{self.axis_names}")
+
     def __repr__(self) -> str:
         names = [[str(d) for d in row] for row in self.devices]
         procs = f", processes={self.processes}, rank={self.rank}" \

@@ -2769,3 +2769,82 @@ def test_replicated_pair_on_the_card_matches_cpu(cuda, tmp_path):
     # groups and singles, each applied on both
     assert grown["kv_probe_update"] >= 2 * (4 + g_groups), grown
     assert grown["kv_lookup"] > 0, grown
+
+
+@pytest.mark.parametrize("shards", [1, 4])
+def test_matrix_handler_rows_on_the_card_match_plain(cuda, shards):
+    """The binding's MatrixTableHandler on cuda:0: its row get / add run
+    the sharded row kernels (one launch of each per call on one card) and
+    equal the same handler on CPU shards (the plain versions) exactly: the
+    deltas are multiples of 1/16, so every sum is exact in any order."""
+    from multiverso_tpu_torch import core
+    from multiverso_tpu_torch.bindings import MatrixTableHandler
+    from multiverso_tpu_torch.tables import reset_tables
+    rng = np.random.default_rng(shards)
+    rows, cols = 10_001, 100
+    tables = {}
+    for where in ("cuda:0", "cpu"):
+        core.set_mesh(core.Mesh([[where] * shards]))
+        tables[where] = MatrixTableHandler(rows, cols, name="rows")
+    try:
+        tk.reset_launches()
+        for _ in range(4):
+            ids = _zipf_ids(rng, 4096, rows)
+            d = rng.integers(-16, 17, (4096, cols)).astype(np.float32) / 16
+            for t in tables.values():
+                t.add(d, row_ids=ids)
+            q = _zipf_ids(rng, 4096, rows)
+            got, want = (t.get(row_ids=q) for t in tables.values())
+            assert np.array_equal(got, want)
+        assert tk.LAUNCHES["row_gather_sharded"] == 4
+        assert tk.LAUNCHES["row_scatter_add_sharded"] == 4
+        assert np.array_equal(tables["cuda:0"].get(), tables["cpu"].get())
+    finally:
+        reset_tables()
+        core.shutdown()
+
+
+def test_pipeline_and_ring_on_the_card_match_the_cpu(cuda):
+    """pipeline_apply (8 stages on cuda:0) and ring / Ulysses attention on
+    an (8, 1) mesh of cuda:0 against the same calls on CPU meshes: forward
+    within 1e-5 and the pipeline's gradients within 1e-4 (cuBLAS and the
+    CPU sum in other orders; TF32 off)."""
+    from multiverso_tpu_torch import core
+    from multiverso_tpu_torch.parallel import (ring_attention,
+                                               ulysses_attention)
+    from multiverso_tpu_torch.parallel.pipeline import (pipeline_apply,
+                                                        sequential_oracle)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(0)
+    w = rng.normal(0, 0.5, (8, 16, 16)).astype(np.float32)
+    b = rng.normal(0, 0.1, (8, 16)).astype(np.float32)
+    x = rng.normal(size=(32, 16)).astype(np.float32)
+
+    def fn(p, h):
+        return torch.tanh(h @ p["w"] + p["b"])
+
+    outs = {}
+    for where in ("cuda:0", "cpu"):
+        mesh = core.Mesh([[where] * 8])
+        p = {"w": torch.tensor(w, device=where, requires_grad=True),
+             "b": torch.tensor(b, device=where, requires_grad=True)}
+        y = pipeline_apply(p, torch.tensor(x, device=where), fn, mesh=mesh)
+        grads = torch.autograd.grad((y ** 2).sum(), [p["w"], p["b"]])
+        outs[where] = [t.detach().cpu().numpy() for t in (y, *grads)]
+        oracle = sequential_oracle(p, torch.tensor(x, device=where), fn)
+        np.testing.assert_allclose(outs[where][0],
+                                   oracle.detach().cpu().numpy(),
+                                   rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(outs["cuda:0"][0], outs["cpu"][0], rtol=1e-5,
+                               atol=1e-5)
+    for g, h in zip(outs["cuda:0"][1:], outs["cpu"][1:]):
+        np.testing.assert_allclose(g, h, rtol=1e-4, atol=1e-4)
+    q, k, v = (rng.normal(0, 1, (2, 64, 8, 16)).astype(np.float32)
+               for _ in range(3))
+    for fn_attn in (ring_attention, ulysses_attention):
+        for causal in (False, True):
+            got, want = (fn_attn(
+                *(torch.tensor(a, device=where) for a in (q, k, v)),
+                mesh=core.Mesh([[where]] * 8), causal=causal).cpu().numpy()
+                for where in ("cuda:0", "cpu"))
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
