@@ -280,6 +280,26 @@ its seconds):
    collective adds of 20,000 keys and their gets against a numpy model,
    equal on both processes. Each process counts its launches from 0
    after its init and must launch #1, #2, #4, #6, #7 and #11 or #12.
+27. A model axis across processes, after phase 25: two worker
+   processes (``--mp-worker`` in the mode ``model_axis``) on cuda:0, one
+   gloo group over a ``FileStore``. (a) Plain word2vec at phase 4's width
+   (vocab 10k, dim 100, window 5, 5 negatives, batch 4,096, lr 0.01, every
+   process feeding the same global batch) on a ``(1, 2)`` mesh, each
+   process one shard of both tables: a warm-up call and
+   ``MA_W2V_CALLS - 1`` timed calls of ``MA_W2V_STEPS`` steps, each
+   gather's partial OR-merged over the group. (b) Sparse LR at phase 10's
+   width (39 hashed features and the bias over 2^24 dims, ftrl, minibatch
+   4,096) on a 2^25-slot KVTable split over the two processes:
+   ``MA_SLR_STEPS`` steps (one warm-up) of a Get and an Add each, the
+   overflow gate summed over the group. (c) The first ``MA_KV_ADDS`` of
+   (b)'s adds on a ``(2, 1)`` KVTable under ``shard_update``: each
+   process commits the lanes of its state block and the cells it wrote
+   cross to the other (fewer bytes an add than a block). Every part's
+   tables equal, by CRC32, a one-process run of the same mesh shape on
+   cuda:0 (run by the script after the workers); each worker holds its
+   own cell only, launches #9b's two mesh forms, #9's lookup and #8's
+   probe and commit, and reports each part's seconds, the all-gathers'
+   share of them and the bytes they brought a step.
 26. The binding-compat API, the three examples, pipeline and ring
    attention (``multiverso_tpu_torch/{bindings,examples,parallel}``), after
    phase 25, each part timed: (a) ``bindings.init``, the topology queries
@@ -415,7 +435,7 @@ against the same run on a (1, 4) CPU mesh.
 Launch counts are set to 0 before each main path (phases 3-4 word2vec,
 4c on each backend, 5, 6, 6b, 7, 8, 10, 11, 12, 13's word2vec and its
 COO superstep, 13b's two meshes, 15, each sweep of 16, 17's sparse LR,
-21a, 22, each worker of 25) and read after it; phases 20, 21 and 22 read each run's
+21a, 22, each worker of 25 and of 27) and read after it; phases 20, 21 and 22 read each run's
 launches as the difference of the counts around it; phase 23's member
 processes count from 0 at their start and log their counts when they
 stop (phase 24 reads them live off each member's statusz too). Before the last line the script prints
@@ -6944,6 +6964,8 @@ def mp_worker(argv) -> int:
     ``<out dir>/rank<rank>.json``."""
     import zlib
     rank, store, out, z = int(argv[0]), argv[1], argv[2], json.loads(argv[3])
+    if z.get("mode") == "model_axis":
+        return ma_worker(rank, store, out, z)
     import torch
     sys.path.insert(0, HERE)
     from multiverso_tpu_torch import core
@@ -7121,6 +7143,39 @@ def mp_one_process(torch, z: dict) -> list:
     return crc
 
 
+def mp_spawn(z: dict, tmp: str, what: str) -> list:
+    """Start the ``MP_PROCS`` workers (``--mp-worker``) on sizes ``z``
+    over one FileStore in ``tmp``, wait for them, end every one at the
+    first failure or the timeout, and return each one's JSON."""
+    env = dict(os.environ, PYTHONUNBUFFERED="1")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mp-worker",
+         str(r), os.path.join(tmp, "store"), tmp, json.dumps(z)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(MP_PROCS)]
+    deadline = time.monotonic() + MP_TIMEOUT_S
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) \
+                    or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        logs = [p.communicate()[0] for p in procs]
+    for r, (p, out) in enumerate(zip(procs, logs)):
+        if p.returncode != 0 or f"MP_WORKER_OK rank={r}" not in out:
+            raise SystemExit(f"{what}: worker {r} failed (rc "
+                             f"{p.returncode}):\n{out[-4000:]}")
+    workers = []
+    for r in range(MP_PROCS):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            workers.append(json.load(f))
+    return workers
+
+
 def phase_multiprocess(torch, card: str, z=None) -> dict:
     """Phase 25 (see ``MP_*`` and the module doc): the two workers, then
     the one-process run they must equal. A worker that fails ends the
@@ -7129,32 +7184,7 @@ def phase_multiprocess(torch, card: str, z=None) -> dict:
     z = mp_sizes() if z is None else z
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        env = dict(os.environ, PYTHONUNBUFFERED="1")
-        procs = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--mp-worker",
-             str(r), os.path.join(tmp, "store"), tmp, json.dumps(z)],
-            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True) for r in range(MP_PROCS)]
-        deadline = time.monotonic() + MP_TIMEOUT_S
-        try:
-            while any(p.poll() is None for p in procs):
-                if any(p.poll() not in (None, 0) for p in procs) \
-                        or time.monotonic() > deadline:
-                    break
-                time.sleep(0.2)
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-            logs = [p.communicate()[0] for p in procs]
-        for r, (p, out) in enumerate(zip(procs, logs)):
-            if p.returncode != 0 or f"MP_WORKER_OK rank={r}" not in out:
-                raise SystemExit(f"phase 25: worker {r} failed (rc "
-                                 f"{p.returncode}):\n{out[-4000:]}")
-        workers = []
-        for r in range(MP_PROCS):
-            with open(os.path.join(tmp, f"rank{r}.json")) as f:
-                workers.append(json.load(f))
+        workers = mp_spawn(z, tmp, "phase 25")
     workers_s = time.perf_counter() - t_phase
     for w in workers:
         short = [k for k in MP_KERNELS if w["launches"].get(k, 0) <= 0]
@@ -7191,6 +7221,279 @@ def phase_multiprocess(torch, card: str, z=None) -> dict:
         f"one-process run {one_s:.1f} s; on {card}")
     return dict(workers=workers, system_words_per_sec=system_wps,
                 one_process_crc=one, workers_s=workers_s,
+                one_process_s=one_s)
+
+
+# -- phase 27: a model axis across processes ----------------------------------
+
+#: 27a: word2vec calls (a warm-up, then timed) of MA_W2V_STEPS steps
+MA_W2V_STEPS, MA_W2V_CALLS = 64, 3
+#: 27b: sparse-LR minibatches (a warm-up, then timed); 27c: phase 10's
+#: first adds replayed on the shard_update table
+MA_SLR_STEPS, MA_KV_ADDS = 6, 4
+#: what every worker must launch: #9b's two mesh forms, #9's lookup, #8's
+#: probe and commit
+MA_KERNELS = ("gather_rows_mesh", "row_scatter_add_mesh",
+              "kv_lookup_sharded", "kv_probe_update", "kv_commit")
+
+
+def ma_sizes() -> dict:
+    """The sizes a phase-27 worker runs (a CPU rehearsal passes smaller
+    ones)."""
+    return dict(mode="model_axis", device="cuda:0", vocab=VOCAB, dim=DIM,
+                window=WINDOW, negative=NEGATIVE, batch=BATCH,
+                steps=MA_W2V_STEPS, calls=MA_W2V_CALLS,
+                tokens=MP_W2V_TOKENS, lr=LR, slr_batch=SLR_BATCH,
+                slr_steps=MA_SLR_STEPS, slr_dim=SLR_DIM, slr_nnz=SLR_NNZ,
+                slr_capacity=SLR_CAPACITY, slr_slots=SLR_SLOTS,
+                kv_adds=MA_KV_ADDS)
+
+
+def ma_crc(torch, tensors) -> list:
+    """CRC32 of each tensor's bytes (on the host)."""
+    import zlib
+    return [zlib.crc32(bits(torch, t.detach().cpu().contiguous())
+                       .numpy().tobytes()) for t in tensors]
+
+
+def ma_run(torch, z: dict, mesh12, mesh21, sync, traffic=None) -> dict:
+    """Phase 27's three parts on the (1, 2) mesh ``mesh12`` and the (2, 1)
+    mesh ``mesh21``, over two processes or in one: (a) word2vec, (b)
+    sparse LR, (c) the sparse LR's first adds replayed on a shard_update
+    KVTable. ``traffic``: the worker's ``multihost`` module, whose
+    all-gathers each timed part reads. Returns each part's CRC32s and
+    numbers."""
+    from multiverso_tpu_torch.apps.sparse_logreg import (
+        SparseLogisticRegression, SparseLRConfig, synthetic_sparse)
+    from multiverso_tpu_torch.apps.word_embedding import (W2VConfig,
+                                                          WordEmbedding)
+    from multiverso_tpu_torch.data.corpus import Corpus
+    from multiverso_tpu_torch.data.native import CorpusData
+    from multiverso_tpu_torch.ops import table_kernels as tk
+    from multiverso_tpu_torch.tables import KVTable, reset_tables
+    from multiverso_tpu_torch.updaters import AddOption
+
+    def timed(fn):
+        sync()
+        if traffic is not None:
+            traffic.reset_traffic()
+        before = dict(tk.LAUNCHES)
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        dt = time.perf_counter() - t0
+        moved = dict(traffic.TRAFFIC) if traffic is not None else \
+            dict(calls=0, seconds=0.0, bytes=0)
+        return dt, moved, {k: v - before[k] for k, v in tk.LAUNCHES.items()
+                           if v > before[k]}
+
+    res = {}
+    # (a) plain word2vec: every process feeds the same global batch
+    app = WordEmbedding(mp_shard(Corpus, CorpusData, z, 0),
+                        mp_w2v_config(W2VConfig, z, False), name="ma_w2v",
+                        mesh=mesh12)
+    app.train(total_steps=z["steps"])
+    steps = z["steps"] * (z["calls"] - 1)
+    dt, moved, grown = timed(lambda: app.train(total_steps=steps))
+    if not all(np.isfinite(app.loss_history)):
+        raise SystemExit(f"27a: w2v losses {app.loss_history}")
+    res["w2v"] = dict(seconds=dt, steps=steps, losses=app.loss_history,
+                      merge_seconds=moved["seconds"],
+                      merge_calls=moved["calls"],
+                      bytes_per_step=moved["bytes"] / steps,
+                      launches=grown, held=held_shards(app.w_in),
+                      crc=ma_crc(torch, [app.w_in.get_tensor(),
+                                         app.w_out.get_tensor()]))
+    del app
+    reset_tables()
+    # (b) sparse LR at phase 10's width on a 2^25-slot table split in two
+    b, n_steps = z["slr_batch"], z["slr_steps"]
+    rows, y = synthetic_sparse(n=b * n_steps, dim=z["slr_dim"],
+                               num_classes=2, nnz=z["slr_nnz"], seed=0)
+    cfg = SparseLRConfig(capacity=z["slr_capacity"],
+                         slots_per_bucket=z["slr_slots"], max_features=64,
+                         minibatch_size=b, updater="ftrl", learning_rate=0.1,
+                         epochs=1)
+    slr = SparseLogisticRegression(cfg, mesh=mesh12, name="ma_slr")
+    adds, add = [], slr.table.add
+
+    def recording_add(keys, deltas, *args, **kw):
+        adds.append((keys, deltas))
+        return add(keys, deltas, *args, **kw)
+
+    slr.table.add = recording_add
+    losses = [slr.train_batch(rows[:b], y[:b])]
+
+    def steps_b():
+        for s in range(1, n_steps):
+            losses.append(slr.train_batch(rows[s * b:(s + 1) * b],
+                                          y[s * b:(s + 1) * b]))
+
+    dt, moved, grown = timed(steps_b)
+    if not np.all(np.isfinite(losses)):
+        raise SystemExit(f"27b: sparse-LR losses {losses}")
+    res["slr"] = dict(seconds=dt, steps=n_steps - 1, losses=losses,
+                      samples_per_sec=(n_steps - 1) * b / dt,
+                      merge_seconds=moved["seconds"],
+                      merge_calls=moved["calls"],
+                      bytes_per_step=moved["bytes"] / (n_steps - 1),
+                      launches=grown, live_keys=len(slr.table),
+                      held=held_shards(slr.table),
+                      crc=ma_crc(torch, ma_kv(slr.table)))
+    del slr
+    reset_tables()
+    # (c) the first adds on a (2, 1) KVTable whose ftrl state is split
+    # over the two processes' rows: each commits its block's lanes, and
+    # the cells it wrote go to the other
+    kvs = KVTable(z["slr_capacity"], value_dim=2,
+                  slots_per_bucket=z["slr_slots"], updater="ftrl",
+                  mesh=mesh21, shard_update=True, name="ma_kvs",
+                  default_option=AddOption.for_ftrl(
+                      0.1, cfg.ftrl_l1, cfg.ftrl_l2, cfg.ftrl_beta))
+
+    def adds_c():
+        for keys, deltas in adds[:z["kv_adds"]]:
+            kvs.add(keys, deltas)
+
+    dt, moved, grown = timed(adds_c)
+    kvs.wait()
+    block = kvs._buckets_per_shard // 2 * kvs.slots * (8 + 4 * 2)
+    res["kv_shard_update"] = dict(
+        seconds=dt, adds=z["kv_adds"], merge_seconds=moved["seconds"],
+        merge_calls=moved["calls"],
+        bytes_per_add=moved["bytes"] / z["kv_adds"], block_bytes=block,
+        launches=grown, held=held_shards(kvs),
+        crc=ma_crc(torch, ma_kv(kvs)))
+    del kvs, adds
+    reset_tables()
+    return res
+
+
+def ma_kv(table) -> list:
+    """A KVTable's global keys, values and state leaves (a collective
+    when parts lie in other processes)."""
+    keys, vals, state = table.global_arrays()
+    return [keys, vals] + [state[k] for k in sorted(state)]
+
+
+def held_shards(table) -> list:
+    """``[data row, shard]`` of every shard tensor the table allocated
+    (keys for a KVTable)."""
+    lists = table.replica_keys if hasattr(table, "replica_keys") \
+        else table.replicas
+    return [[table.replica_ids[r], s] for r, shards in enumerate(lists)
+            for s, x in enumerate(shards) if x is not None]
+
+
+def ma_worker(rank: int, store: str, out: str, z: dict) -> int:
+    """One worker of phase 27 (``chip_smoke.py --mp-worker <rank> <store
+    file> <out dir> <sizes json>`` with ``mode`` "model_axis"): joins the
+    group on a (1, 2) mesh, runs :func:`ma_run`, checks that it holds its
+    own cells only, and writes ``<out dir>/rank<rank>.json``."""
+    import torch
+    sys.path.insert(0, HERE)
+    from multiverso_tpu_torch import core
+    from multiverso_tpu_torch.ops import table_kernels as tk
+    from multiverso_tpu_torch.parallel import multihost
+    dev = torch.device(z["device"])
+    mesh12 = core.init(["-num_processes=2", f"-process_id={rank}",
+                        "-data_parallel=1", "-model_parallel=2"],
+                       devices=[dev], store=torch.distributed.FileStore(
+                           store, MP_PROCS))
+    if mesh12.cells != [(0, rank)] or not mesh12.model_split:
+        raise SystemExit(f"rank {rank}: mesh {mesh12}")
+    mesh21 = core.Mesh([[dev], [dev]], processes=MP_PROCS, rank=rank)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    tk.reset_launches()
+    res = ma_run(torch, z, mesh12, mesh21, sync, multihost)
+    res["rank"] = rank
+    res["launches"] = dict(tk.LAUNCHES)
+    for part, want in (("w2v", [[0, rank]]), ("slr", [[0, rank]]),
+                       ("kv_shard_update", [[rank, 0]])):
+        if res[part]["held"] != want:
+            raise SystemExit(f"rank {rank}: 27 {part} holds "
+                             f"{res[part]['held']}, not its cell {want}")
+    core.barrier()
+    core.shutdown()
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    print(f"MP_WORKER_OK rank={rank}", flush=True)
+    return 0
+
+
+def phase_model_axis(torch, card: str, z=None) -> dict:
+    """Phase 27 (see ``MA_*`` and the module doc): the two workers, then
+    the one-process (1, 2) and (2, 1) runs they must equal. A worker that
+    fails ends the other at once, and the phase fails."""
+    from multiverso_tpu_torch import core
+    z = ma_sizes() if z is None else z
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        workers = mp_spawn(z, tmp, "phase 27")
+    workers_s = time.perf_counter() - t_phase
+    for w in workers:
+        short = [k for k in MA_KERNELS if w["launches"].get(k, 0) <= 0]
+        if short:
+            raise SystemExit(f"phase 27: worker {w['rank']} launched no "
+                             f"{short}: {w['launches']}")
+    t0 = time.perf_counter()
+    dev = torch.device(z["device"])
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    one = ma_run(torch, z, core.Mesh([[dev, dev]]),
+                 core.Mesh([[dev], [dev]]), sync)
+    one_s = time.perf_counter() - t0
+    free_tables(torch)
+    for part in ("w2v", "slr", "kv_shard_update"):
+        for w in workers:
+            if w[part]["crc"] != one[part]["crc"]:
+                raise SystemExit(
+                    f"phase 27 {part}: worker {w['rank']}'s tables "
+                    f"{w[part]['crc']} != the one-process run's "
+                    f"{one[part]['crc']}")
+    for w in workers:
+        c = w["kv_shard_update"]
+        if c["bytes_per_add"] >= c["block_bytes"]:
+            raise SystemExit(f"phase 27c: {c['bytes_per_add']} bytes an "
+                             f"add moved, a state block is "
+                             f"{c['block_bytes']}")
+    slowest = {part: max(w[part]["seconds"] for w in workers)
+               for part in ("w2v", "slr", "kv_shard_update")}
+    a = workers[0]["w2v"]
+    system_wps = a["steps"] * z["batch"] / (z["window"] + 1) \
+        / slowest["w2v"]
+    system_sps = workers[0]["slr"]["samples_per_sec"] * \
+        workers[0]["slr"]["seconds"] / slowest["slr"]
+    for w in workers:
+        parts = []
+        for part in ("w2v", "slr", "kv_shard_update"):
+            r = w[part]
+            per = r.get("bytes_per_step", r.get("bytes_per_add"))
+            parts.append(f"{part} {r['seconds']:.3f} s, merges and gate "
+                         f"{100 * r['merge_seconds'] / r['seconds']:.1f}% "
+                         f"({r['merge_calls']} all-gathers), "
+                         f"{per:.0f} bytes in a "
+                         f"{'step' if part != 'kv_shard_update' else 'add'}")
+        log(f"  worker {w['rank']}: " + "; ".join(parts) + "; launches "
+            f"{ {k: v for k, v in w['launches'].items() if v} }")
+    log(f"  27a word2vec on (1, 2) over two processes: {system_wps:.0f} "
+        f"words/s for the system (global pairs / (window + 1) over the "
+        f"slowest worker's timed calls); 27b sparse LR: "
+        f"{system_sps:.0f} samples/s; 27c shard_update KV on (2, 1): "
+        f"{1e3 * slowest['kv_shard_update'] / z['kv_adds']:.1f} ms an "
+        f"add; every part's tables equal the one-process (1, 2) / (2, 1) "
+        f"run's bit for bit; workers {workers_s:.1f} s, the one-process "
+        f"runs {one_s:.1f} s; on {card}")
+    return dict(workers=workers, one_process=one,
+                system_words_per_sec=system_wps,
+                system_samples_per_sec=system_sps, workers_s=workers_s,
                 one_process_s=one_s)
 
 
@@ -7966,6 +8269,16 @@ def main(argv) -> int:
     mp25 = phase_multiprocess(torch, card)
     phase_end("multiprocess")
 
+    phase("model_axis", "phase 27: a model axis across processes (two "
+          "worker processes on cuda:0 over gloo: a: word2vec and b: "
+          "sparse LR on a (1, 2) mesh, each process one shard; c: a "
+          "shard_update KVTable on (2, 1); each vs the one-process run)")
+    free_tables(torch)
+    ma27 = phase_model_axis(torch, card)
+    for w in ma27["workers"]:
+        paths[f"model_axis_rank{w['rank']}"] = w["launches"]
+    phase_end("model_axis")
+
     phase("bindings", "phase 26: the binding-compat API (a), mlp_cifar "
           "(b), ResNet-50 (c), pipeline_mlp (d), ring and Ulysses "
           "attention (e) on cuda:0")
@@ -8227,6 +8540,10 @@ def main(argv) -> int:
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
+        if name in MA_KERNELS:
+            # phase 27's path: each worker's launches
+            kernels[-1]["model_axis_launches"] = [
+                w["launches"][name] for w in ma27["workers"]]
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"),
               "w") as f:
@@ -8249,7 +8566,8 @@ def main(argv) -> int:
                        row_scatter_parts=scatter_parts, telemetry=tel,
                        health=h19, client=c20, tiered_kv=tiered,
                        wire_server=wire22, fleet=fleet23,
-                       multiprocess=mp25, bindings_examples=p26,
+                       multiprocess=mp25, model_axis=ma27,
+                       bindings_examples=p26,
                        seconds=time.perf_counter() - t_start), f, indent=1)
     log(f"phase seconds: { {k: round(v, 1) for k, v in phase_s.items()} }")
     log(f"total {time.perf_counter() - t_start:.1f} s")

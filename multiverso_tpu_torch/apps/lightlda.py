@@ -252,6 +252,7 @@ class LightLDA:
                  name: str = "lightlda") -> None:
         self.config = c = config
         self.mesh = core.resolve_mesh(mesh, device)
+        core.refuse_model_split(self.mesh, "LightLDA")
         self.device = dev = self.mesh.shard_devices[0]
         self.n_replicas = D = self.mesh.shape[core.DATA_AXIS]
         # each local replica's first device: its locals, constants and

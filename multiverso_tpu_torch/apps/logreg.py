@@ -203,6 +203,8 @@ class LogisticRegression:
         opt = AddOption.for_ftrl(c.learning_rate, c.ftrl_l1, c.ftrl_l2,
                                  c.ftrl_beta) if c.updater == "ftrl" \
             else AddOption(learning_rate=c.learning_rate)
+        if c.shard_update:
+            core.refuse_model_split(self.mesh, "logreg's shard_update")
         self.table = ArrayTable(
             self.n_weights, "float32", init_value=init, updater=c.updater,
             mesh=self.mesh, name=name, default_option=opt,
@@ -445,11 +447,11 @@ class LogisticRegression:
 
 def _whole(value) -> torch.Tensor:
     """A superstep view (a tensor, or a ShardedParam of a split table) as
-    one tensor on its first shard's device."""
+    one tensor on its first shard's device (the shards of other
+    processes merged in, :meth:`ShardedParam.whole`)."""
     if isinstance(value, torch.Tensor):
         return value
-    dev = value.shards[0].device
-    return torch.cat([t.to(dev) for t in value.shards])
+    return value.whole()
 
 
 USAGE = """python -m multiverso_tpu_torch.apps.logreg [-train_file=PATH]

@@ -193,7 +193,7 @@ class WordEmbedding:
         self.corpus = corpus
         self.config = config
         self.mesh = core.resolve_mesh(mesh, device)
-        self.device = dev = self.mesh.shard_devices[0]
+        self.device = dev = self.mesh.row_device(self.mesh.local_rows[0])
         self.n_replicas = self.mesh.shape[core.DATA_AXIS]
         c = config
         if c.subsample is not None:
@@ -248,9 +248,10 @@ class WordEmbedding:
                              f"got {c.model!r}")
         # the constants the body reads, on each replica's first device
         self._consts = {}
-        for devs in self.w_in.replica_devices:
-            self._consts.setdefault(devs[0], {
-                k: v.to(devs[0]) for k, v in consts.items()})
+        for row in self.w_in.replica_ids:
+            rdev = self.mesh.row_device(row)
+            self._consts.setdefault(rdev, {
+                k: v.to(rdev) for k, v in consts.items()})
         self._step_no = 0
         # a resume continues the stored run's LR decay and negative-draw
         # sequence: its planned call count and the calls already done
@@ -428,7 +429,7 @@ class WordEmbedding:
                                      self.mesh.local_rows):
                 parts.append(torch.as_tensor(np.ascontiguousarray(
                     pairs[:, at:at + b1 - b0]),
-                    device=self.mesh.replica_devices(row)[0]))
+                    device=self.mesh.row_device(row)))
                 at += b1 - b0
             return DataSplit(parts)
         if self.n_replicas > 1:

@@ -17,6 +17,7 @@ from typing import Any, Optional, Sequence
 
 import numpy as np
 
+from multiverso_tpu_torch import core
 from multiverso_tpu_torch.tables import ArrayTable, MatrixTable
 from multiverso_tpu_torch.updaters import AddOption
 
@@ -35,6 +36,7 @@ class ArrayTableHandler(TableHandler):
     def __init__(self, size: int, init_value: Any = None,
                  dtype: Any = "float32", updater: str = "default",
                  name: str = "array_handler") -> None:
+        core.refuse_model_split(core.mesh(), "the binding table handlers")
         self._table = ArrayTable(
             size, dtype, init_value=0 if init_value is None else init_value,
             updater=updater, name=name)
@@ -56,6 +58,7 @@ class MatrixTableHandler(TableHandler):
     def __init__(self, num_rows: int, num_cols: int, init_value: Any = None,
                  dtype: Any = "float32", updater: str = "default",
                  name: str = "matrix_handler") -> None:
+        core.refuse_model_split(core.mesh(), "the binding table handlers")
         self._table = MatrixTable(
             num_rows, num_cols, dtype,
             init_value=0 if init_value is None else init_value,

@@ -70,6 +70,13 @@ class CachedView:
                  background: bool = True) -> None:
         if max_staleness < 0:
             raise ValueError("max_staleness must be >= 0")
+        mesh = getattr(table, "mesh", None)
+        if mesh is not None and mesh.model_split:
+            # a snapshot of such a table is a collective, which a refresh
+            # on a generation bump calls on one process and not another
+            raise NotImplementedError(
+                "a cached view of a table whose model axis crosses "
+                "processes is not ported (ROADMAP.md queue A item 12)")
         self._table = table
         self.max_staleness = int(max_staleness)
         self._lock = threading.Lock()

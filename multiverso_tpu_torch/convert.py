@@ -78,7 +78,7 @@ def load_kv_table(table, keys: np.ndarray, values: np.ndarray,
     want_v = want[:2] + ((table.value_dim,) if table.value_dim else ())
     if values.shape != want_v:
         raise ValueError(f"values shape {values.shape} != {want_v}")
-    names = state_keys(table.state_shards[0])
+    names = state_keys(table._state0())
     leaves = list(state)
     if len(leaves) != len(names):
         raise ValueError(f"{len(leaves)} state leaves; updater "

@@ -17,11 +17,15 @@ a ``store=``) P processes run one program in lockstep (SPMD), as
 ``jax.distributed`` runs the reference: :func:`init` joins a
 ``torch.distributed`` group, every process names its own local devices,
 and the global ``[data, model]`` grid lays them out process-major, as
-``jax.devices()`` orders the reference's. Process ``p`` owns the data
-rows ``[p * D / P, (p + 1) * D / P)`` (:attr:`Mesh.local_rows`); a table
-holds the replicas of those rows only. The model axis stays inside a
-process: a layout whose model axis crosses processes raises (ROADMAP.md
-queue A item 12).
+``jax.devices()`` orders the reference's. Each process names L devices,
+and process ``p`` owns the cells ``[d, s]`` of the grid whose position
+``d * M + s`` in that process-major, row-major order lies in
+``[p * L, (p + 1) * L)`` (:attr:`Mesh.cells`). A table holds the shards
+of those cells only: whole data rows when L is a multiple of M, part of
+one row when M is a multiple of L (the model axis then crosses
+processes), or, in general, the end of one row and the start of the
+next. A foreign cell is absent: its entry in :meth:`Mesh.replica_devices`
+is None, and a table allocates nothing for it.
 
 One deliberate difference from a JAX mesh: a device may repeat.
 ``devices=["cuda:0"] * 4`` gives four shards on one card, and
@@ -67,9 +71,9 @@ def _device(dev: Union[str, torch.device]) -> torch.device:
 class Mesh:
     """A ``[data, model]`` grid of torch devices (devices may repeat).
 
-    Over ``processes`` processes, process ``rank`` owns the contiguous
-    block of data rows :attr:`local_rows`; the devices of the other rows
-    are the names their processes gave (never used here)."""
+    Over ``processes`` processes, process ``rank`` owns the cells
+    :attr:`cells` (module doc); the devices of the other cells are the
+    names their processes gave (never used here)."""
 
     axis_names = (DATA_AXIS, MODEL_AXIS)
 
@@ -82,19 +86,57 @@ class Mesh:
         for idx in np.ndindex(grid.shape):
             grid[idx] = _device(devices[idx[0]][idx[1]])
         self.devices = grid
-        rows = grid.shape[0]
         if processes < 1 or not 0 <= rank < processes:
             raise ValueError(f"rank {rank} of {processes} processes")
-        if rows % processes:
-            raise ValueError(
-                f"a data axis of {rows} rows does not split over "
-                f"{processes} processes: the model axis would cross "
-                "processes, which is not ported (ROADMAP.md queue A item "
-                "12)")
+        if grid.size % processes:
+            raise ValueError(f"{grid.size} devices do not split over "
+                             f"{processes} processes")
         self.processes, self.rank = int(processes), int(rank)
-        per = rows // processes
-        #: the data rows (replicas) this process owns
-        self.local_rows = list(range(rank * per, (rank + 1) * per))
+        #: the devices each process names (L)
+        self.per_process = grid.size // processes
+        #: the cells [d, s] this process owns, in row-major order
+        self.cells = self.cells_of(rank)
+        #: the data rows (replicas) in which this process owns a cell
+        self.local_rows = self.rows_of(rank)
+        #: True when some process holds only part of the model axis: a
+        #: table's shards then live in different processes, and a read of
+        #: a whole shard list is a collective
+        self.model_split = any(
+            len({s for _, s in self.cells_of(p)}) < grid.shape[1]
+            for p in range(processes))
+        #: True when some data row has cells in several processes: a
+        #: superstep replica's view of it then holds part of its shards,
+        #: and its reads merge over the row's processes
+        self.rows_split = any(
+            len({self.owner(d, s) for s in range(grid.shape[1])}) > 1
+            for d in range(grid.shape[0]))
+
+    def owner(self, row: int, shard: int) -> int:
+        """The process that owns cell ``[row, shard]``."""
+        return (row * self.devices.shape[1] + shard) // self.per_process
+
+    def cells_of(self, process: int) -> List[Tuple[int, int]]:
+        """The cells ``[d, s]`` process ``process`` owns, row-major."""
+        cols = self.devices.shape[1]
+        return [divmod(i, cols) for i in range(
+            process * self.per_process, (process + 1) * self.per_process)]
+
+    def rows_of(self, process: int) -> List[int]:
+        """The data rows in which process ``process`` owns a cell."""
+        return sorted({d for d, _ in self.cells_of(process)})
+
+    def owns(self, row: int, shard: int) -> bool:
+        return self.owner(row, shard) == self.rank
+
+    def row_device(self, row: int) -> torch.device:
+        """This process's first device in data row ``row`` (one of its
+        :attr:`local_rows`): where a replica's inputs and constants
+        live."""
+        for dev in self.replica_devices(row):
+            if dev is not None:
+                return dev
+        raise ValueError(f"process {self.rank} owns no cell of data row "
+                         f"{row}")
 
     @classmethod
     def single(cls, device: Union[str, torch.device]) -> "Mesh":
@@ -111,20 +153,23 @@ class Mesh:
         return self.devices.size
 
     @property
-    def shard_devices(self) -> List[torch.device]:
+    def shard_devices(self) -> List[Optional[torch.device]]:
         """Where this process's first replica of a table's model shards
-        lives: its first data row (row 0 on one process)."""
+        lives: its first data row (row 0 on one process), None for a
+        shard another process holds."""
         return self.replica_devices(self.local_rows[0])
 
     @property
     def local_devices(self) -> List[torch.device]:
-        """The devices of this process's data rows, row by row."""
-        return [d for r in self.local_rows for d in self.devices[r]]
+        """The devices of this process's cells, in row-major order."""
+        return [self.devices[d, s] for d, s in self.cells]
 
-    def replica_devices(self, replica: int) -> List[torch.device]:
+    def replica_devices(self, replica: int) -> List[Optional[torch.device]]:
         """Where replica ``replica`` of a table's model shards lives: data
-        row ``replica`` of the grid."""
-        return list(self.devices[replica])
+        row ``replica`` of the grid, None where another process owns the
+        cell."""
+        return [dev if self.owns(replica, s) else None
+                for s, dev in enumerate(self.devices[replica])]
 
     def axis_devices(self, axis: str) -> List[torch.device]:
         """The devices of one line of the grid along ``axis``, the ring a
@@ -157,11 +202,6 @@ def _build_mesh(devices: Sequence[DeviceLike], data_parallel: int,
     if data_parallel * model_parallel != n:
         raise ValueError(
             f"mesh {data_parallel}x{model_parallel} != {n} devices")
-    if (n // processes) % model_parallel:
-        raise ValueError(
-            f"{n // processes} devices a process do not hold whole rows of "
-            f"a model axis of {model_parallel}: a model axis across "
-            "processes is not ported (ROADMAP.md queue A item 12)")
     flat = list(devices)
     return Mesh([flat[r * model_parallel:(r + 1) * model_parallel]
                  for r in range(data_parallel)],
@@ -368,6 +408,16 @@ def resolve(dev: DeviceLike = None) -> torch.device:
     return torch.device(dev) if dev is not None else device()
 
 
+def refuse_model_split(m: Mesh, what: str) -> None:
+    """Raise for ``what`` on a mesh whose model axis crosses processes
+    (a data row with cells in several processes), which it does not
+    support yet."""
+    if m.rows_split:
+        raise NotImplementedError(
+            f"{what} on a mesh whose model axis crosses processes is not "
+            "ported (ROADMAP.md queue A item 12)")
+
+
 def resolve_mesh(m: Optional[Mesh] = None,
                  dev: DeviceLike = None) -> Mesh:
     """An explicit mesh, the (1, 1) mesh of an explicit device, or the
@@ -393,7 +443,8 @@ def sharded_zeros(shape, dtype: torch.dtype,
     """Zeros of the global ``shape``, split over ``devices`` into
     contiguous equal row blocks, each made directly on its device (never
     on the host): block ``i`` holds rows ``[i * n, (i + 1) * n)``, ``n =
-    shape[0] // len(devices)``. The counterpart of the reference's
+    shape[0] // len(devices)``; a None device (a cell of another
+    process) gets None. The counterpart of the reference's
     ``sharded_zeros`` for a placement given as the devices of its
     blocks."""
     shape = tuple(int(x) for x in shape)
@@ -401,7 +452,9 @@ def sharded_zeros(shape, dtype: torch.dtype,
         raise ValueError(f"{shape[0]} rows do not split evenly over "
                          f"{len(devices)} devices")
     block = (shape[0] // len(devices),) + shape[1:]
-    return [torch.zeros(block, dtype=dtype, device=dev) for dev in devices]
+    return [None if dev is None else torch.zeros(block, dtype=dtype,
+                                                  device=dev)
+            for dev in devices]
 
 
 def generator(seed: int, *, device: DeviceLike = None) -> torch.Generator:
@@ -474,8 +527,8 @@ def num_servers() -> int:
 def worker_id() -> int:
     """This process's first device's position in the mesh (per-host
     worker id)."""
-    m = mesh()
-    return m.local_rows[0] * m.shape[MODEL_AXIS]
+    d, s = mesh().cells[0]
+    return d * mesh().shape[MODEL_AXIS] + s
 
 
 def server_id() -> int:

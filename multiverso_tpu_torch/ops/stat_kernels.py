@@ -75,12 +75,13 @@ def stats_vector(x: torch.Tensor) -> torch.Tensor:
 
 
 def _shards(x) -> list:
-    """The operand as a list of tensors (one per shard)."""
+    """The operand as a list of tensors (one per shard held here: a
+    shard of another process, None, is that process's to audit)."""
     shards = getattr(x, "shards", None)
     if shards is not None:
-        return list(shards)
+        return [t for t in shards if t is not None]
     if isinstance(x, (list, tuple)):
-        return list(x)
+        return [t for t in x if t is not None]
     if isinstance(x, torch.Tensor):
         return [x]
     return [torch.from_numpy(np.ascontiguousarray(x))]

@@ -602,10 +602,12 @@ def kv_probe_update_plain(keys_arr: torch.Tensor, values_arr: torch.Tensor,
 
 
 def _kv_probe_plain(keys_arr, values_arr, state, buckets, query, deltas,
-                    valid, option, updater) -> tuple:
+                    valid, option, updater, gate=None) -> tuple:
     """:func:`kv_probe_update_plain`'s work; returns the written cells
     ``(buckets, slots)`` (int64, none when anything overflowed) and
-    ``n_over``."""
+    ``n_over``. ``gate``: a callable that turns this call's overflow
+    count into the one that decides the write (the count of every
+    process, :func:`kv_probe_update_sharded`)."""
     upd = _resolve_updater(updater)
     b = buckets.long()
     ok_lane = valid != 0
@@ -633,6 +635,8 @@ def _kv_probe_plain(keys_arr, values_arr, state, buckets, query, deltas,
     elane = hit.to(torch.int32).argmax(1)
     ok = matched | placed
     n_over = (~ok & ok_lane).sum().to(torch.int32)
+    if gate is not None:
+        n_over = gate(n_over.view(1)).view(())
     slot = torch.where(matched, mlane, elane)
     w = torch.nonzero(ok & ok_lane & (n_over == 0)).view(-1)
     bw, sw = b[w], slot[w].long()
@@ -833,9 +837,20 @@ def kv_probe_update(keys_arr: torch.Tensor, values_arr: torch.Tensor,
 # It keeps the full (shards, L) layout.
 
 
+def _present(shards):
+    """The first shard this process holds (a list may hold None for a
+    shard of another process: a table whose model axis crosses
+    processes)."""
+    for t in shards:
+        if t is not None:
+            return t
+    raise ValueError("every shard of the list lies in another process")
+
+
 def _shard_kind(shards) -> str:
-    """'cpu' when every shard lies on the CPU, 'cuda' when every one lies
-    on a card; raises otherwise."""
+    """'cpu' when every shard held here lies on the CPU, 'cuda' when every
+    one lies on a card; raises otherwise."""
+    shards = [t for t in shards if t is not None]
     kinds = {t.device.type for t in shards}
     if len(kinds) != 1 or not kinds <= {"cpu", "cuda"}:
         raise ValueError(
@@ -848,30 +863,37 @@ def _shard_kind(shards) -> str:
 
 
 def _stacked(lanes, device: torch.device) -> torch.Tensor:
-    """A lane operand as one (shards, L, ...) tensor on ``device``."""
+    """A lane operand as one (shards, L, ...) tensor on ``device`` (the
+    row of a shard held elsewhere, None, as zeros)."""
     if isinstance(lanes, torch.Tensor):
         return lanes.to(device)
-    return torch.stack([row.to(device) for row in lanes])
+    like = _present(lanes)
+    return torch.stack([(torch.zeros_like(like) if row is None else row)
+                        .to(device) for row in lanes])
 
 
 def _global(shards) -> torch.Tensor:
-    """The shards concatenated on the first shard's device."""
-    dev = shards[0].device
-    return torch.cat([t.to(dev) for t in shards])
+    """The shards concatenated on the first held shard's device, a shard
+    held elsewhere (None) as zeros."""
+    first = _present(shards)
+    return torch.cat([torch.zeros_like(first) if t is None
+                      else t.to(first.device) for t in shards])
 
 
 def _write_back(shards, whole: torch.Tensor) -> None:
-    per = shards[0].shape[0]
+    per = _present(shards).shape[0]
     for s, t in enumerate(shards):
-        t.copy_(whole[s * per:(s + 1) * per])
+        if t is not None:
+            t.copy_(whole[s * per:(s + 1) * per])
 
 
 def _global_ids(shards, ids) -> torch.Tensor:
     """Local lane ids made global (local + s * per_shard), flattened
-    shard-major, on the first shard's device."""
-    dev = shards[0].device
+    shard-major, on the first held shard's device."""
+    first = _present(shards)
+    dev = first.device
     local = _stacked(ids, dev).long()
-    offs = torch.arange(len(shards), device=dev)[:, None] * shards[0].shape[0]
+    offs = torch.arange(len(shards), device=dev)[:, None] * first.shape[0]
     return (local + offs).reshape(-1)
 
 
@@ -886,7 +908,7 @@ def _lanes_as(lanes, dtype: Optional[torch.dtype] = None):
         return (t if dtype is None else t.to(dtype)).contiguous()
     if isinstance(lanes, torch.Tensor):
         return conv(lanes)
-    return [conv(row) for row in lanes]
+    return [None if row is None else conv(row) for row in lanes]
 
 
 def _c_array(ctype, values) -> ctypes.Array:
@@ -905,18 +927,42 @@ def _c_ptrs(tensors) -> ctypes.Array:
     return _c_array(ctypes.c_void_p, [t.data_ptr() for t in tensors])
 
 
+def _zero_foreign(outs: tuple, shards, inv: torch.Tensor,
+                  lanes: int) -> None:
+    """Zero bits for every lane of ``inv`` whose shard is held elsewhere
+    (None), as a kernel launch over the held shards writes them."""
+    foreign = [s for s, t in enumerate(shards) if t is None]
+    if not foreign:
+        return
+    shard = inv.to(outs[0].device).long() // lanes
+    gone = torch.isin(shard, torch.tensor(foreign, device=shard.device))
+    for out in outs:
+        out[gone] = torch.zeros((), dtype=out.dtype, device=out.device)
+
+
+def _merged(outs: tuple, merge) -> tuple:
+    """``outs`` after the cross-process merge ``merge`` (a callable that
+    ORs other processes' partials in place; None: nothing to merge)."""
+    if merge is not None:
+        merge(outs)
+    return outs
+
+
 def kv_lookup_sharded_plain(keys, values, query, buckets, inv,
-                            default_value: float = 0.0):
-    """The reference's sharded XLA lookup adapter in plain PyTorch."""
-    dev = keys[0].device
+                            default_value: float = 0.0, *, merge=None):
+    """The reference's sharded XLA lookup adapter in plain PyTorch (a
+    shard held elsewhere gives zero bits, then ``merge``)."""
+    dev = _present(keys).device
     picked, found = kv_lookup_plain(
         _global(keys), _global(values), _stacked(query, dev).reshape(-1, 2),
         _global_ids(keys, buckets), default_value)
-    return _unpermute(picked, inv), _unpermute(found, inv)
+    out = (_unpermute(picked, inv), _unpermute(found, inv))
+    _zero_foreign(out, keys, inv, _stacked(buckets, dev).shape[1])
+    return _merged(out, merge)
 
 
 def kv_lookup_sharded(keys, values, query, buckets, inv,
-                      default_value: float = 0.0):
+                      default_value: float = 0.0, *, merge=None):
     """Sharded KV lookup -> ``(picked, found)`` in ``inv`` order, on the
     first shard's device. ``keys`` / ``values``: per-shard ``[bps, S, 2]``
     / ``[bps, S(, D)]`` tensors; ``query`` ``(shards, L, 2)`` int32 and
@@ -930,19 +976,26 @@ def kv_lookup_sharded(keys, values, query, buckets, inv,
     ``inv`` is computed from the lane slices as they stand, padding
     included, so the result equals the plain version's on all of them.
     Each launch counts under ``kv_lookup``, a call's first also under
-    ``kv_lookup_sharded``."""
+    ``kv_lookup_sharded``.
+
+    A table whose model axis crosses processes passes None for each
+    shard another process holds, and ``merge``: the lanes of those
+    shards come out as zero bits, and ``merge`` ORs the other processes'
+    partials in (:func:`multiverso_tpu_torch.parallel.multihost.
+    or_partials`)."""
     if _shard_kind(keys) == "cpu":
         return kv_lookup_sharded_plain(keys, values, query, buckets, inv,
-                                       default_value)
+                                       default_value, merge=merge)
     _check_lanes("inv", inv)
-    dev0, n = keys[0].device, inv.shape[0]
-    picked = torch.empty((n,) + tuple(values[0].shape[2:]),
-                         dtype=values[0].dtype, device=dev0)
+    dev0, n = _present(keys).device, inv.shape[0]
+    vals0 = _present(values)
+    picked = torch.empty((n,) + tuple(vals0.shape[2:]),
+                         dtype=vals0.dtype, device=dev0)
     found = torch.empty(n, dtype=torch.bool, device=dev0)
     if not n:
         return picked, found
     query, buckets = _lanes_as(query), _lanes_as(buckets, torch.int32)
-    lanes = len(buckets[0])
+    lanes = len(_present(buckets))
     inv = (inv.to(dev0, torch.int32).contiguous(),)
     cache, launches = {}, []
     for dev, part in card_launches(keys):
@@ -961,7 +1014,7 @@ def kv_lookup_sharded(keys, values, query, buckets, inv,
                           *parts, tag=tag)
 
     _card_partials((picked, found), launches, launch)
-    return picked, found
+    return _merged((picked, found), merge)
 
 
 def _global_state(copies: list, state_blocks: bool) -> dict:
@@ -972,17 +1025,21 @@ def _global_state(copies: list, state_blocks: bool) -> dict:
     first = copies[0]
     order = [(r, s) for s in range(len(first)) for r in range(len(copies))] \
         if state_blocks else [(0, s) for s in range(len(first))]
-    return {k: _global([copies[r][s][k] for r, s in order])
-            for k in first[0]}
+    return {k: _global([None if copies[r][s] is None else copies[r][s][k]
+                        for r, s in order])
+            for k in _present(first)}
 
 
 def _put_cells(shards, bw: torch.Tensor, sw: torch.Tensor,
                src: torch.Tensor, first: int = 0) -> None:
     """Write ``src[i]`` to cell ``(bw[i], sw[i])`` of the table whose
     blocks are ``shards`` (block k's first bucket ``first + k * rows``);
-    cells outside every block are left."""
-    per = shards[0].shape[0]
+    cells outside every block, or in a block held elsewhere (None), are
+    left."""
+    per = _present(shards).shape[0]
     for k, t in enumerate(shards):
+        if t is None:
+            continue
         lo = first + k * per
         sel = (bw >= lo) & (bw < lo + per)
         if bool(sel.any()):
@@ -992,13 +1049,15 @@ def _put_cells(shards, bw: torch.Tensor, sw: torch.Tensor,
 
 def kv_probe_update_sharded_plain(keys, values, states, buckets, query,
                                   deltas, valid, option, updater,
-                                  replicas=(), state_blocks: bool = False):
+                                  replicas=(), state_blocks: bool = False,
+                                  *, gate=None, cells=None):
     """The reference's sharded XLA probe-update adapter in plain PyTorch,
     in place; ``n_over`` is global. With ``replicas`` (each a ``(keys,
     values, states)`` of replicas 1, 2, ...) the written cells go to every
     replica, their state to every copy or, under ``state_blocks``, to the
-    block that holds it."""
-    dev = keys[0].device
+    block that holds it. ``gate`` and ``cells`` as in
+    :func:`kv_probe_update_sharded`."""
+    dev = _present(keys).device
     copies = [states] + [r[2] for r in replicas]
     gk, gv = _global(keys), _global(values)
     gs = _global_state(copies, state_blocks)
@@ -1007,21 +1066,25 @@ def kv_probe_update_sharded_plain(keys, values, states, buckets, query,
         gk, gv, gs, _global_ids(keys, buckets),
         _stacked(query, dev).reshape(-1, 2),
         d.reshape((-1,) + tuple(d.shape[2:])),
-        _stacked(valid, dev).reshape(-1), option, updater)
-    bps = keys[0].shape[0]
+        _stacked(valid, dev).reshape(-1), option, updater, gate)
+    if cells is not None and not int(n_over):
+        cells.append((bw, sw))
+    bps = _present(keys).shape[0]
     R = len(copies)
     for r, (ks, vs) in enumerate([(keys, values)]
                                  + [(x[0], x[1]) for x in replicas]):
         _put_cells(ks, bw, sw, gk[bw, sw])
         _put_cells(vs, bw, sw, gv[bw, sw])
         for k, whole in gs.items():
-            leaves = [st[k] for st in copies[r]]
+            leaves = [None if st is None else st[k] for st in copies[r]]
             if not state_blocks:
                 _put_cells(leaves, bw, sw, whole[bw, sw])
                 continue
             q = bps // R
             for s, leaf in enumerate(leaves):
-                _put_cells([leaf], bw, sw, whole[bw, sw], s * bps + r * q)
+                if leaf is not None:
+                    _put_cells([leaf], bw, sw, whole[bw, sw],
+                               s * bps + r * q)
     return keys, values, states, n_over
 
 
@@ -1043,7 +1106,8 @@ def _kv_gate(cards: dict, dev0: torch.device) -> tuple:
 
 def kv_probe_update_sharded(keys, values, states, buckets, query, deltas,
                             valid, option, updater, *, counts, replicas=(),
-                            state_blocks: bool = False):
+                            state_blocks: bool = False, gate=None,
+                            cells=None):
     """Sharded fused probe + updater apply, in place; returns ``(keys,
     values, states, n_over)``, ``n_over`` the GLOBAL overflow count (int32
     0-d, on the first shard's device): if any lane of any shard overflows,
@@ -1071,19 +1135,30 @@ def kv_probe_update_sharded(keys, values, states, buckets, query, deltas,
     given, and the port enables no peer access, so a replica on another
     card raises ``NotImplementedError``. The probe and commit launches
     count under ``kv_probe_update`` / ``kv_commit``, a call's first launch
-    also under ``kv_probe_update_sharded``."""
+    also under ``kv_probe_update_sharded``.
+
+    A table whose model axis crosses processes passes None for a shard
+    this process holds no copy of (its lanes must be none), and ``gate``:
+    a callable that turns the local overflow count (int32 [1] on the
+    first held shard's device) into every process's, called once a call
+    after every probe of this process, before any commit (a collective,
+    through the host). ``cells``: a list to which the call appends the
+    cells it wrote, ``(global bucket, slot)`` int64 tensors (nothing
+    when the gate was closed), for the table to send to the processes
+    that hold other copies."""
     if _shard_kind(keys) == "cpu":
         return kv_probe_update_sharded_plain(keys, values, states, buckets,
                                              query, deltas, valid, option,
-                                             updater, replicas, state_blocks)
+                                             updater, replicas, state_blocks,
+                                             gate=gate, cells=cells)
     upd = _resolve_updater(updater)
-    dev0 = keys[0].device
+    dev0 = _present(keys).device
     R = 1 + len(replicas)
     if R > MESH_MAX_SHARDS:
         raise ValueError(f"the KV commit writes at most {MESH_MAX_SHARDS} "
                          f"replicas, got {R}")
     copies = [(keys, values, states)] + [tuple(r) for r in replicas]
-    bps = keys[0].shape[0]
+    bps = _present(keys).shape[0]
     q = bps // R if state_blocks else bps
     if q * (R if state_blocks else 1) != bps:
         raise ValueError(f"{bps} buckets a shard do not split into {R} "
@@ -1117,21 +1192,39 @@ def kv_probe_update_sharded(keys, values, states, buckets, query, deltas,
             cards[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
         slot = _kv_probe(dev, launch[0], rows, real, cards[dev], tag)
         tag = None
-        work.append((dev, launch, rows, real, slot))
+        work.append((dev, part, launch, rows, real, slot))
     n_over, gates = _kv_gate(cards, dev0)
-    for dev, launch, rows, real, slot in work:
+    if gate is not None:
+        # every process's count, which every card then reads
+        n_over = gate(n_over).to(dev0)
+        gates = {dev: n_over.to(dev) for dev in cards}
+    for dev, _, launch, rows, real, slot in work:
         _kv_commit(dev, launch, rows, real, slot, gates[dev], upd, option,
                    q)
+    if cells is not None and not int(n_over):
+        slots = _present(keys).shape[1]
+        for dev, part, _, rows, real, slot in work:
+            at = 0
+            for s, b, n in zip(part, rows[0], real):
+                sl = slot[at:at + n].long()
+                at += n
+                ok = (sl >= 0) & (sl < slots)
+                cells.append(((b[:n].long() + s * bps)[ok].to(dev0),
+                              sl[ok].to(dev0)))
     return keys, values, states, n_over.view(())
 
 
-def gather_rows_sharded_plain(shards, ids, inv) -> torch.Tensor:
-    """The reference's sharded XLA gather adapter in plain PyTorch."""
-    return _unpermute(gather_rows_plain(_global(shards),
-                                        _global_ids(shards, ids)), inv)
+def gather_rows_sharded_plain(shards, ids, inv, *,
+                              merge=None) -> torch.Tensor:
+    """The reference's sharded XLA gather adapter in plain PyTorch (a
+    shard held elsewhere reads as zeros, then ``merge``)."""
+    out = _unpermute(gather_rows_plain(_global(shards),
+                                       _global_ids(shards, ids)), inv)
+    return _merged((out,), merge)[0]
 
 
-def gather_rows_sharded(shards, ids, inv, *, counts) -> torch.Tensor:
+def gather_rows_sharded(shards, ids, inv, *, counts,
+                        merge=None) -> torch.Tensor:
     """Sharded row gather -> ``[len(inv), C]`` on the first shard's
     device: ``ids`` ``(shards, L)`` LOCAL row ids, its first ``counts[s]``
     real in row s; ``inv`` the flat ``shard * L + pos`` index of each
@@ -1140,20 +1233,27 @@ def gather_rows_sharded(shards, ids, inv, *, counts) -> torch.Tensor:
     Replaces ``build_row_gather_sharded``: one ``mv_row_gather_mesh`` per
     card over the shards it holds, caller lane j reading shard
     ``inv[j] // L``'s local id at ``inv[j] % L`` and writing that row to
-    ``out[j]`` (:func:`_gather_cards`)."""
+    ``out[j]`` (:func:`_gather_cards`). A table whose model axis crosses
+    processes passes None for the shards of other processes, and
+    ``merge``, as :func:`kv_lookup_sharded` does."""
     if _shard_kind(shards) == "cpu":
-        return gather_rows_sharded_plain(shards, ids, inv)
-    for p in shards:
+        return gather_rows_sharded_plain(shards, ids, inv, merge=merge)
+    held = [p for p in shards if p is not None]
+    for p in held:
         _check_table(p, GATHER_DTYPES)
     _check_lanes("inv", inv)
-    dev0 = shards[0].device
-    rows, cols = _rows(shards[0]).shape
-    out = torch.empty((inv.shape[0], cols), dtype=shards[0].dtype,
+    dev0 = held[0].device
+    rows, cols = _rows(held[0]).shape
+    out = torch.empty((inv.shape[0], cols), dtype=held[0].dtype,
                       device=dev0)
-    if not inv.shape[0] or not any(int(c) for c in counts):
+    if not inv.shape[0]:
         return out
+    if not any(int(counts[s]) for s, p in enumerate(shards)
+               if p is not None):
+        out.zero_()
+        return _merged((out,), merge)[0]
     ids = _lanes_as(ids, torch.int32)
-    lanes = len(ids[0])
+    lanes = len(_present(ids))
     inv = (inv.to(dev0, torch.int32).contiguous(),)
     cache, launches, keep = {}, [], []
     for dev, part in card_launches(shards):
@@ -1165,13 +1265,13 @@ def gather_rows_sharded(shards, ids, inv, *, counts) -> torch.Tensor:
         launches.append((dev, *_shard_table(shards, part, rows),
                          _c_ptrs(id_rows), inv_d.data_ptr(), lanes))
     _gather_cards("row_gather_sharded", out, launches, rows)
-    return out
+    return _merged((out,), merge)[0]
 
 
 def row_scatter_add_sharded_plain(shards, ids, deltas, valid):
     """The reference's sharded XLA scatter-add adapter in plain PyTorch,
-    in place."""
-    dev = shards[0].device
+    in place (a shard held elsewhere, None, is left)."""
+    dev = _present(shards).device
     whole = _global(shards)
     row_scatter_add_masked_plain(
         whole, _global_ids(shards, ids),
@@ -1210,7 +1310,8 @@ def row_scatter_add_sharded(shards, ids, deltas, valid, *, counts):
     ``row_scatter_add_sharded`` and ``row_scatter_add_masked``."""
     if _shard_kind(shards) == "cpu":
         return row_scatter_add_sharded_plain(shards, ids, deltas, valid)
-    rows, cols = _rows(shards[0]).shape
+    first = _present(shards)
+    rows, cols = _rows(first).shape
     ops = (_lanes_as(ids, torch.int32), _lanes_as(deltas),
            _lanes_as(valid, torch.int32))
     for dev, part, (i_r, d_r, v_r), real in shard_lane_launches(
@@ -1219,7 +1320,7 @@ def row_scatter_add_sharded(shards, ids, deltas, valid, *, counts):
             _check(shards[s], i[:n], d[:n], v[:n])
         _launch("row_scatter_add_sharded", "mv_row_scatter_add_shards",
                 *_shard_table(shards, part, rows), rows, cols,
-                _is_int(shards[0]), _c_ptrs(i_r), _c_ptrs(d_r),
+                _is_int(first), _c_ptrs(i_r), _c_ptrs(d_r),
                 _c_ptrs(v_r), _c_array(ctypes.c_int64, real), device=dev,
                 tag="row_scatter_add_masked", scatter_lanes=sum(real))
     return shards
@@ -1230,10 +1331,11 @@ def coo_scatter_add_sharded_plain(shards, rows, cols, vals, valid):
     place. A lane whose LOCAL row lies outside its shard adds nothing, as
     in the kernel: it is gated off before the ids are made global, where
     it would land in a neighbouring shard."""
-    dev = shards[0].device
+    first = _present(shards)
+    dev = first.device
     whole = _global(shards)
     local = _stacked(rows, dev).long()
-    inside = (local >= 0) & (local < shards[0].shape[0])
+    inside = (local >= 0) & (local < first.shape[0])
     coo_scatter_add_masked_plain(
         whole, _global_ids(shards, local), _stacked(cols, dev).reshape(-1),
         _stacked(vals, dev).reshape(-1),
@@ -1257,16 +1359,17 @@ def coo_scatter_add_sharded(shards, rows, cols, vals, valid, *, counts):
     ``coo_scatter_add_masked``."""
     if _shard_kind(shards) == "cpu":
         return coo_scatter_add_sharded_plain(shards, rows, cols, vals, valid)
-    nrows, ncols = _rows(shards[0]).shape
+    first = _present(shards)
+    nrows, ncols = _rows(first).shape
     ops = (_lanes_as(rows, torch.int32), _lanes_as(cols, torch.int32),
-           _lanes_as(vals, shards[0].dtype), _lanes_as(valid, torch.int32))
+           _lanes_as(vals, first.dtype), _lanes_as(valid, torch.int32))
     tag = "coo_scatter_add_masked"
     for dev, part, lanes, real in shard_lane_launches(shards, ops, counts):
         for s, r, c, v, ok, n in zip(part, *lanes, real):
             _check_coo(shards[s], r[:n], c[:n], v[:n], ok[:n])
         _launch("coo_scatter_add_sharded", "mv_coo_scatter_add_shards",
                 *_shard_table(shards, part, nrows), nrows, ncols,
-                _is_int(shards[0]), *(_c_ptrs(x) for x in lanes),
+                _is_int(first), *(_c_ptrs(x) for x in lanes),
                 _c_array(ctypes.c_int64, real), device=dev, tag=tag)
         tag = None
     return shards
@@ -1318,29 +1421,48 @@ class ShardedParam:
     (s + 1) * rps)`` on its own device. ``shape`` is the padded global
     shape, ``dtype`` the shards' type and ``device`` the first shard's
     device, where the forms take their lane operands and return
-    gathers."""
+    gathers.
 
-    def __init__(self, shards) -> None:
+    When the table's model axis crosses processes, ``shards[s]`` is None
+    for each shard another process holds, and ``merge`` ORs the other
+    processes' partials of a gather into this process's
+    (:func:`~multiverso_tpu_torch.parallel.multihost.or_partials`, or a
+    superstep's exchange among the processes of one data row): the forms
+    then read the held shards only, the gather's other rows come as zero
+    bits and ``merge`` fills them in, and :meth:`whole` gives the global
+    array."""
+
+    def __init__(self, shards, merge=None) -> None:
         shards = list(shards)
-        if not shards:
+        held = [t for t in shards if t is not None]
+        if not held:
             raise ValueError("a sharded param needs at least one shard")
-        if len({(tuple(t.shape), t.dtype) for t in shards}) != 1:
+        if len({(tuple(t.shape), t.dtype) for t in held}) != 1:
             raise ValueError(
                 "a sharded param splits its rows evenly: shards must be "
                 f"equal blocks of one dtype, got "
-                f"{[(tuple(t.shape), t.dtype) for t in shards]}")
+                f"{[(tuple(t.shape), t.dtype) for t in held]}")
+        if len(held) != len(shards) and merge is None:
+            raise ValueError("a sharded param with shards held elsewhere "
+                             "needs a merge")
         self.shards = shards
+        self.merge = merge
         # (shard pointers, their launch tables, their kind)
         self._launches = (None, [], None)
+
+    @property
+    def _first(self) -> torch.Tensor:
+        return _present(self.shards)
 
     def _refresh(self) -> tuple:
         """The launch tables and kind, built and checked again only when a
         shard's storage moved."""
-        ptrs = tuple(t.data_ptr() for t in self.shards)
+        ptrs = tuple(0 if t is None else t.data_ptr() for t in self.shards)
         if self._launches[0] != ptrs:
             kind = _shard_kind(self.shards)
             for t in self.shards:
-                _check_table(t, (self.dtype,))
+                if t is not None:
+                    _check_table(t, (self.dtype,))
             self._launches = (ptrs, [
                 (dev, (ctypes.c_void_p * len(bases))(*bases),
                  (ctypes.c_int64 * len(firsts))(*firsts), len(bases))
@@ -1358,26 +1480,34 @@ class ShardedParam:
         a contiguous table on one kind of device."""
         return self._refresh()[2]
 
+    def whole(self) -> torch.Tensor:
+        """The global array on :attr:`device`: the shards concatenated,
+        a shard held elsewhere filled in by :attr:`merge` (zero bits
+        here, OR-ed with the holder's)."""
+        out = _global(self.shards)
+        return _merged((out,), self.merge)[0] if self.merge else out
+
     @property
     def rows_per_shard(self) -> int:
-        return self.shards[0].shape[0]
+        return self._first.shape[0]
 
     @property
     def shape(self) -> torch.Size:
-        first = self.shards[0].shape
+        first = self._first.shape
         return torch.Size((first[0] * len(self.shards),) + tuple(first[1:]))
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.shards[0].dtype
+        return self._first.dtype
 
     @property
     def device(self) -> torch.device:
-        return self.shards[0].device
+        return self._first.device
 
     def __repr__(self) -> str:
+        devs = [None if t is None else str(t.device) for t in self.shards]
         return (f"ShardedParam(shape={tuple(self.shape)}, dtype={self.dtype}"
-                f", devices={[str(t.device) for t in self.shards]})")
+                f", devices={devs})")
 
 
 def _check_mesh(param: ShardedParam, dtypes) -> str:
@@ -1390,10 +1520,12 @@ def _check_mesh(param: ShardedParam, dtypes) -> str:
 
 def shard_groups(shards) -> list:
     """The shards grouped by device, in shard order: ``[(device, [shard
-    index, ...]), ...]``, devices in the order of their first shard."""
+    index, ...]), ...]``, devices in the order of their first shard; a
+    shard another process holds (None) is in no group."""
     groups: Dict[torch.device, list] = {}
     for s, t in enumerate(shards):
-        groups.setdefault(t.device, []).append(s)
+        if t is not None:
+            groups.setdefault(t.device, []).append(s)
     return list(groups.items())
 
 
@@ -1434,12 +1566,15 @@ def _per_device(tensors, dev0: torch.device, cache: dict,
 
 def gather_rows_mesh_plain(param: ShardedParam,
                            ids: torch.Tensor) -> torch.Tensor:
-    """The reference's XLA gather on the global table, in plain PyTorch."""
-    return gather_rows_plain(_global(param.shards), ids)
+    """The reference's XLA gather on the global table, in plain PyTorch
+    (the rows of a shard held elsewhere as zero bits, then the param's
+    merge)."""
+    return _merged((gather_rows_plain(_global(param.shards), ids),),
+                   param.merge)[0]
 
 
 #: the integer type of each element size, to merge partials bitwise
-_BITS = {4: torch.int32, 2: torch.int16, 1: torch.uint8}
+_BITS = {8: torch.int64, 4: torch.int32, 2: torch.int16, 1: torch.uint8}
 
 
 def _card_partials(outs: tuple, launches: list, launch) -> None:
@@ -1449,8 +1584,13 @@ def _card_partials(outs: tuple, launches: list, launch) -> None:
     shard's device). A device's first launch writes zero bits for every
     lane its shards do not hold (``zero_foreign`` 1), a later one leaves
     them (0); a card other than the outputs' writes ``parts`` of its own,
-    merged into ``outs`` by :func:`_or_merge`."""
+    merged into ``outs`` by :func:`_or_merge`. When no launch is on the
+    outputs' card (every shard held here has no lane, or lies on another
+    card), ``outs`` start as zero bits."""
     dev0 = outs[0].device
+    if all(dev != dev0 for dev, *_ in launches):
+        for out in outs:
+            out.zero_()
     parts = {}
     for dev, *rest in launches:
         fresh = dev not in parts
@@ -1464,10 +1604,10 @@ def _card_partials(outs: tuple, launches: list, launch) -> None:
 
 
 def _or_merge(outs: tuple, parts: tuple) -> None:
-    """OR the bits of each of another card's ``parts`` into its output:
-    each lane's value is the bits of the one card that holds it, -0.0 and
-    NaN payloads included (the reference's ``psum`` of masked values,
-    exact), since every other card wrote it as zero bits."""
+    """OR the bits of each of another card's (or process's) ``parts`` into
+    its output: each lane's value is the bits of the one card that holds
+    it, -0.0 and NaN payloads included (the reference's ``psum`` of masked
+    values, exact), since every other card wrote it as zero bits."""
     for out, part in zip(outs, parts):
         bits = _BITS[out.element_size()]
         out.view(bits).bitwise_or_(part.to(out.device).view(bits))
@@ -1500,11 +1640,11 @@ def gather_rows_mesh(param: ShardedParam, ids: torch.Tensor) -> torch.Tensor:
     card over all ``n`` lanes and every shard the card holds, each lane
     finding its shard by the row windows (:func:`_gather_cards`)."""
     kind = _check_mesh(param, GATHER_DTYPES)
-    _check(param.shards[0], ids, dtypes=GATHER_DTYPES)
+    _check(param._first, ids, dtypes=GATHER_DTYPES)
     if kind == "cpu":
         return gather_rows_mesh_plain(param, ids)
     dev0, n = param.device, ids.shape[0]
-    out = torch.empty((n, _rows(param.shards[0]).shape[1]),
+    out = torch.empty((n, _rows(param._first).shape[1]),
                       dtype=param.dtype, device=dev0)
     if not n:
         return out
@@ -1514,7 +1654,7 @@ def gather_rows_mesh(param: ShardedParam, ids: torch.Tensor) -> torch.Tensor:
         (i_dev,) = _per_device(ids, dev0, cache, dev)
         launches.append((dev, *table, _c_ptrs([i_dev]), None, 0))
     _gather_cards("gather_rows_mesh", out, launches, param.rows_per_shard)
-    return out
+    return _merged((out,), param.merge)[0]
 
 
 def row_scatter_add_mesh_plain(param: ShardedParam, ids: torch.Tensor,
@@ -1538,7 +1678,7 @@ def row_scatter_add_mesh(param: ShardedParam, ids: torch.Tensor,
     holds, on its current stream, reading the deltas through the sort's
     permutation."""
     kind = _check_mesh(param, ADD_DTYPES)
-    _check(param.shards[0], ids, deltas)
+    _check(param._first, ids, deltas)
     if kind == "cpu":
         return row_scatter_add_mesh_plain(param, ids, deltas)
     n = ids.shape[0]
@@ -1546,12 +1686,12 @@ def row_scatter_add_mesh(param: ShardedParam, ids: torch.Tensor,
         return param
     sids, order = torch.sort(ids.to(torch.int32), stable=True)
     lanes = (sids, order, deltas.contiguous())
-    rows, cols = _rows(param.shards[0]).shape
+    rows, cols = _rows(param._first).shape
     cache = {}
     for dev, *table in param.launch_tables():
         i_s, o_s, d_s = _per_device(lanes, param.device, cache, dev)
         _launch("row_scatter_add_mesh", "mv_row_scatter_add_mesh", *table,
-                rows, cols, _is_int(param.shards[0]), i_s.data_ptr(),
+                rows, cols, _is_int(param._first), i_s.data_ptr(),
                 o_s.data_ptr(), d_s.data_ptr(), None, n, device=dev,
                 scatter_lanes=n)
     return param
@@ -1580,19 +1720,19 @@ def coo_scatter_add_mesh(param: ShardedParam, rows: torch.Tensor,
     the lanes as they come (int32) or stable-sorted by row once on the
     first device (float32, :func:`_coo_lanes`)."""
     kind = _check_mesh(param, ADD_DTYPES)
-    _check_coo(param.shards[0], rows, cols, vals)
+    _check_coo(param._first, rows, cols, vals)
     if kind == "cpu":
         return coo_scatter_add_mesh_plain(param, rows, cols, vals)
     n = rows.shape[0]
     if n == 0:
         return param
     lanes = _coo_lanes(param.dtype, rows, cols, vals)
-    nrows, ncols = _rows(param.shards[0]).shape
+    nrows, ncols = _rows(param._first).shape
     cache = {}
     for dev, *table in param.launch_tables():
         r_s, c_s, v_s = _per_device(lanes, param.device, cache, dev)
         _launch("coo_scatter_add_mesh", "mv_coo_scatter_add_mesh", *table,
-                nrows, ncols, _is_int(param.shards[0]), r_s.data_ptr(),
+                nrows, ncols, _is_int(param._first), r_s.data_ptr(),
                 c_s.data_ptr(), v_s.data_ptr(), None, n, device=dev)
     return param
 

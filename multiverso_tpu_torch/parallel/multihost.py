@@ -18,8 +18,11 @@ come back exactly).
 
 :func:`owned_axis_slices` is the reference's per-device chunks of a JAX
 sharding, over the port's :class:`~multiverso_tpu_torch.core.Mesh`: an
-axis split over the mesh's data axis, each of this process's devices
-with the chunk of its data row. :func:`allgather_tensors` moves tensors
+axis split over the mesh's data axis, each device of this process's
+cells with the chunk of its data row. :func:`or_partials` merges partial
+results whose elements each process holds part of (a table whose model
+axis crosses processes) by a bitwise OR, as the per-card merge of
+``ops/table_kernels.py`` does across cards. :func:`allgather_tensors` moves tensors
 of any dtype and of shapes that differ between processes (the
 superstep's lane exchange, the state blocks of ``shard_update``).
 """
@@ -28,6 +31,7 @@ from __future__ import annotations
 
 import sys
 import threading
+import time
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -35,6 +39,26 @@ import numpy as np
 _GLOO_LOCK = threading.Lock()
 #: (default group, the gloo group the host collectives use)
 _GLOO = None
+
+#: the all-gathers of this process since :func:`reset_traffic`: how many,
+#: the seconds spent in them (copies to the host excluded) and the bytes
+#: they brought from the other processes
+TRAFFIC = {"calls": 0, "seconds": 0.0, "bytes": 0}
+
+
+def reset_traffic() -> None:
+    with _GLOO_LOCK:
+        TRAFFIC.update(calls=0, seconds=0.0, bytes=0)
+
+
+def _all_gather(dist, out: list, t, group) -> None:
+    """``dist.all_gather`` into ``out``, counted in :data:`TRAFFIC`."""
+    t0 = time.perf_counter()
+    dist.all_gather(out, t, group=group)
+    with _GLOO_LOCK:
+        TRAFFIC["calls"] += 1
+        TRAFFIC["seconds"] += time.perf_counter() - t0
+        TRAFFIC["bytes"] += (len(out) - 1) * t.numel() * t.element_size()
 
 
 def _dist():
@@ -118,7 +142,7 @@ def _allgather(arr: np.ndarray) -> np.ndarray:
     group = _group(dist)
     t = torch.from_numpy(np.ascontiguousarray(arr))
     out = [torch.empty_like(t) for _ in range(process_count())]
-    dist.all_gather(out, t, group=group)
+    _all_gather(dist, out, t, group)
     return torch.stack(out).numpy()
 
 
@@ -221,7 +245,7 @@ def allgather_tensors(tensors: Sequence, *,
         off += a
     dist = _dist()
     got = [torch.empty_like(mine) for _ in heads]
-    dist.all_gather(got, mine, group=_group(dist))
+    _all_gather(dist, got, mine, _group(dist))
     out = []
     for p, (h, n, a, raw) in enumerate(zip(heads, sizes, step, got)):
         if same_shapes and not torch.equal(raw[:8], mine[:8]):
@@ -238,11 +262,11 @@ def allgather_tensors(tensors: Sequence, *,
 
 def owned_axis_slices(mesh, shape: Tuple[int, ...],
                       axis: int) -> List[Tuple[object, int, int]]:
-    """``[(device, lo, hi)]``: every device of this process's data rows
-    with its chunk of ``axis`` when that axis is split over the mesh's
-    data axis into contiguous equal blocks (the reference's
-    ``NamedSharding(mesh, P(..., DATA_AXIS, ...))``); model-axis replicas
-    share their row's chunk. The counterpart of the reference's
+    """``[(device, lo, hi)]``: every device of this process's cells with
+    its chunk of ``axis`` when that axis is split over the mesh's data
+    axis into contiguous equal blocks (the reference's
+    ``NamedSharding(mesh, P(..., DATA_AXIS, ...))``); the model shards of
+    a data row share its chunk. The counterpart of the reference's
     ``owned_axis_slices(sharding, shape, axis)``."""
     rows = mesh.devices.shape[0]
     size = int(shape[axis])
@@ -250,5 +274,25 @@ def owned_axis_slices(mesh, shape: Tuple[int, ...],
         raise ValueError(f"axis {axis} of size {size} does not split "
                          f"over a data axis of {rows}")
     step = size // rows
-    return [(dev, r * step, (r + 1) * step)
-            for r in mesh.local_rows for dev in mesh.devices[r]]
+    return [(mesh.devices[r, s], r * step, (r + 1) * step)
+            for r, s in mesh.cells]
+
+
+def or_partials(outs: Sequence) -> None:
+    """OR the bits of every other process's partials into ``outs``
+    (tensors, in place): each process passes its own partials of the
+    same shapes, in which every element it does not hold is zero bits,
+    and gets every other process's OR-ed in, in process order. The merge
+    is bitwise, so -0.0 and NaN payloads come through exact, and an
+    element two processes both hold (the same bits) stays as it is.
+    Nothing on one process.
+
+    COLLECTIVE — all processes must call in lockstep."""
+    from multiverso_tpu_torch.ops.table_kernels import _or_merge
+    if process_count() == 1:
+        return
+    outs = tuple(outs)
+    me = process_index()
+    for p, theirs in enumerate(allgather_tensors(outs, same_shapes=True)):
+        if p != me:
+            _or_merge(outs, theirs)

@@ -420,6 +420,8 @@ class TableServer:
         self.name = name
         # the tables' home: a mesh when given, else the (1, 1) mesh of
         # ``device`` (no fallback: a missing card fails the first create)
+        if mesh is not None:
+            core.refuse_model_split(mesh, "the table server")
         self._mesh = mesh
         self._device = core.resolve(device) if mesh is None \
             else mesh.replica_devices(0)[0]

@@ -131,6 +131,8 @@ class TieredKVTable(KVTable):
                  tier_alpha: Optional[float] = None) -> None:
         if capacity <= 0:
             raise ValueError("capacity must be positive")
+        core.refuse_model_split(core.resolve_mesh(mesh, device),
+                                "the tiered KV table")
         total = -(-capacity // slots_per_bucket)
         cfg = TierConfig.from_env(total, device_buckets=device_buckets,
                                   host_buckets=host_buckets,

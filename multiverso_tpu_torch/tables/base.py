@@ -38,13 +38,19 @@ replicas bit-identical, and a Get reads replica 0. Under
 state is split over (model, data) instead: replica ``d`` holds row block
 ``d`` of each shard's state, updates those rows only, and sends the
 updated param rows to every replica. Over several processes (SPMD,
-``core``'s module doc) a table holds the replicas of its process's data
-rows only (:attr:`Table.replica_ids`, global data rows): every process
-calls every op with the same host values, an add updates the local
-replicas, a Get reads the first local one, and under ``shard_update``
-the row blocks other processes updated, and the state blocks a
-checkpoint needs, come over
-:func:`~multiverso_tpu_torch.parallel.multihost.allgather_tensors`. Every
+``core``'s module doc) a table holds the shards of its process's cells
+only (:attr:`Table.replica_ids`, the global data rows in which it owns a
+cell; a shard of another process's cell is None in ``replicas[d]``, and
+nothing is allocated for it): every process calls every op with the
+same host values, an add updates the local shards, and under
+``shard_update`` the row blocks other processes updated, and the state
+blocks a checkpoint needs, come over
+:func:`~multiverso_tpu_torch.parallel.multihost.allgather_tensors`. A Get
+reads each shard from the first local replica that holds it; when the
+model axis crosses processes (``mesh.model_split``) the shards no local
+replica holds come over the group from row 0's owner of each (a
+collective), and a row gather ORs each process's partial
+(:func:`~multiverso_tpu_torch.parallel.multihost.or_partials`). Every
 process writes a checkpoint's file, with the same bytes (the stream
 layer's atomic rename), as the reference's ranks do. The logical
 shape is what the API shows. ``storage_shape`` is the physical layout of
@@ -174,7 +180,7 @@ def _record_events(devices) -> List[torch.cuda.Event]:
     returns)."""
     events = []
     for dev in dict.fromkeys(devices):
-        if dev.type == "cuda":
+        if dev is not None and dev.type == "cuda":
             event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(dev))
             events.append(event)
@@ -236,20 +242,24 @@ class HostCopy:
 def _placed(blocks, devices, copy: bool) -> List[torch.Tensor]:
     """Row blocks (numpy, copied, or tensors) as contiguous tensors, block
     i on ``devices[i]``; a tensor block is a copy when ``copy``, else it
-    may share its storage."""
+    may share its storage. A None device (a cell of another process)
+    gets None."""
     if blocks and isinstance(blocks[0], np.ndarray):
-        return [torch.tensor(b, device=d) for b, d in zip(blocks, devices)]
-    return [b.to(d, copy=copy).contiguous() for b, d in zip(blocks, devices)]
+        return [None if d is None else torch.tensor(b, device=d)
+                for b, d in zip(blocks, devices)]
+    return [None if d is None else b.to(d, copy=copy).contiguous()
+            for b, d in zip(blocks, devices)]
 
 
 def lanes_on(lanes, devices: List[torch.device]):
     """A ``(shards, L, ...)`` lane array (numpy or tensor) on the shards'
     devices: one tensor when they share one device, else a list of
     per-shard rows, row s on ``devices[s]`` (the sharded kernel forms take
-    either)."""
-    if len(set(devices)) == 1:
-        return torch.as_tensor(lanes, device=devices[0])
-    return [torch.as_tensor(row, device=dev)
+    either); a shard of another process (None) gets no row."""
+    held = {d for d in devices if d is not None}
+    if len(held) == 1:
+        return torch.as_tensor(lanes, device=held.pop())
+    return [None if dev is None else torch.as_tensor(row, device=dev)
             for row, dev in zip(lanes, devices)]
 
 
@@ -344,7 +354,7 @@ class Table:
         self.replica_devices = [self.mesh.replica_devices(d)
                                 for d in self.replica_ids]
         self.devices = self.replica_devices[0]
-        self.device = self.devices[0]
+        self.device = self.mesh.row_device(self.replica_ids[0])
         self.logical_shape = tuple(int(s) for s in shape)
         self.np_dtype = np.dtype(dtype)
         self.dtype = torch_dtype(self.np_dtype)
@@ -385,13 +395,15 @@ class Table:
             if init_value != 0:
                 for shards in self.replicas:
                     for t in shards:
-                        t.fill_(init_value)
+                        if t is not None:
+                            t.fill_(init_value)
         else:
             init = self._pad(np.asarray(init_value))
             self.replicas = [self._split(init, devs)
                              for devs in self.replica_devices]
         self.replica_states = [
-            [self.updater.init_state(p) for p in self._state_rows(d)]
+            [None if p is None else self.updater.init_state(p)
+             for p in self._state_rows(d)]
             for d in range(len(self.replica_ids))]
         self._events: list = []
         # profiled: profile.calls{fn=table.apply.<name>} is the dispatch
@@ -483,7 +495,7 @@ class Table:
             return list(shards)
         q = self._rows_per_shard // self.n_data
         g = self.replica_ids[replica]
-        return [p[g * q:(g + 1) * q] for p in shards]
+        return [None if p is None else p[g * q:(g + 1) * q] for p in shards]
 
     def _state_split(self, whole, replica: int) -> List[torch.Tensor]:
         """A padded state leaf (numpy or tensor) as the blocks ``replica``
@@ -507,12 +519,51 @@ class Table:
 
     def _whole(self, shards: Optional[List[torch.Tensor]] = None
                ) -> torch.Tensor:
-        """The shards as one tensor on the first device: the live shard
-        on a one-shard mesh, their concatenation otherwise."""
-        shards = self.shards if shards is None else shards
+        """The shards (default: :meth:`_read_shards`, filled in over the
+        group) as one tensor on the first device: the live shard on a
+        one-shard mesh, their concatenation otherwise."""
+        shards = self._filled(self._read_shards()) if shards is None \
+            else shards
         if len(shards) == 1:
             return shards[0]
         return torch.cat([t.to(self.device) for t in shards])
+
+    def _read_shards(self, copies=None) -> list:
+        """Each shard of ``copies`` (default: the replicas' storage; or
+        the replicas' lists of any per-shard value) from the first local
+        replica that holds it; None where no local replica does."""
+        copies = self.replicas if copies is None else copies
+        return [next((c[s] for c in copies if c[s] is not None), None)
+                for s in range(len(self.devices))]
+
+    def _filled(self, shards: list) -> list:
+        """``shards`` (a per-shard list from :meth:`_read_shards`) with
+        every None filled in by the process that owns row 0's cell of that
+        shard (CPU tensors, :meth:`_fill_remote` over row 0): a COLLECTIVE
+        when the model axis crosses processes, else ``shards`` itself."""
+        if not self.mesh.model_split:
+            return shards
+        blocks = [[t] for t in shards]
+        self._fill_remote(blocks, rows=[0])
+        return [t if t is not None else b[0]
+                for t, b in zip(shards, blocks)]
+
+    def _merge(self, outs: tuple) -> None:
+        """OR every process's partial of a row read into ``outs`` (a
+        table whose model axis crosses processes; a collective)."""
+        from multiverso_tpu_torch.parallel import multihost
+        multihost.or_partials(outs)
+
+    @property
+    def _merger(self):
+        """The cross-process merge of a row read: :meth:`_merge` when the
+        model axis crosses processes, else None."""
+        return self._merge if self.mesh.model_split else None
+
+    def _state0(self) -> Dict[str, torch.Tensor]:
+        """An updater-state dict held here (its keys name the leaves)."""
+        return next(st for sts in self.replica_states for st in sts
+                    if st is not None)
 
     def _one_shard(self, what: str) -> None:
         if len(self.shards) != 1:
@@ -559,8 +610,12 @@ class Table:
         shards, states = self.replicas[replica], self.replica_states[replica]
         if len(shards) == 1:
             return shards[0], states[0]
-        return ShardedParam(shards), {
-            k: ShardedParam([st[k] for st in states]) for k in states[0]}
+        # a row split over processes merges its reads over the group (a
+        # superstep over a data axis merges over the row's processes)
+        merge = self._merge if self.mesh.rows_split else None
+        return ShardedParam(shards, merge), {
+            k: ShardedParam([None if st is None else st[k] for st in states],
+                            merge) for k in self._state0()}
 
     def _take_shards(self, value, devices) -> List[torch.Tensor]:
         """A body's returned param (or state leaf) of a split table as its
@@ -585,8 +640,9 @@ class Table:
             return
         self.replicas[replica] = self._take_shards(param, devs)
         leaves = {k: self._take_shards(v, devs) for k, v in state.items()}
-        self.replica_states[replica] = [{k: v[s] for k, v in leaves.items()}
-                                        for s in range(len(devs))]
+        self.replica_states[replica] = [
+            None if devs[s] is None else {k: v[s] for k, v in leaves.items()}
+            for s in range(len(devs))]
 
     def _resolve_option(self, option: Optional[AddOption]) -> AddOption:
         opt = option if option is not None else self.default_option
@@ -691,7 +747,7 @@ class Table:
         for shards in self.replicas:
             for s, shard in enumerate(shards):
                 x, y = max(lo, s * rows), min(hi, (s + 1) * rows)
-                if x < y:
+                if x < y and shard is not None:
                     shard[x - s * rows:y - s * rows] = \
                         src[x - lo:y - lo].to(shard.device)
         with self._option_lock:
@@ -797,6 +853,8 @@ class Table:
             rows = slice(g * q, (g + 1) * q) if self.shard_update \
                 else slice(None)
             for s, part in enumerate(self._split(delta, devs)):
+                if part is None:        # another process's cell
+                    continue
                 states = self.replica_states[d]
                 blk, states[s] = self.updater.apply(
                     self.replicas[d][s].view(shard_padded)[rows], states[s],
@@ -809,28 +867,32 @@ class Table:
             self._fill_remote(blocks)
             for devs, shards in zip(self.replica_devices, self.replicas):
                 for s, dev in enumerate(devs):
-                    shards[s] = torch.cat([b.to(dev) for b in blocks[s]]) \
-                        .reshape(shard_storage)
+                    if dev is not None:
+                        shards[s] = torch.cat([b.to(dev)
+                                               for b in blocks[s]]) \
+                            .reshape(shard_storage)
 
     def _fill_remote(self, blocks: List[list],
-                     rows: Optional[List[int]] = None) -> None:
-        """``blocks[s][g]``, given for this process's replicas ``g`` among
-        ``rows`` (default: every data row), filled in for every other
-        process's (CPU tensors) by one all-gather (a collective; nothing
-        on one process)."""
-        if self.mesh.processes == 1:
+                     rows: Optional[List[int]] = None,
+                     shards: Optional[List[int]] = None) -> None:
+        """``blocks[i][g]`` (``i`` the position of shard ``shards[i]``,
+        default every shard), given for the cells ``[g, shard]`` this
+        process owns among ``rows`` (default: every data row), filled in
+        for every other process's cells (CPU tensors) by one all-gather
+        (a collective; nothing on one process)."""
+        m = self.mesh
+        if m.processes == 1:
             return
         from multiverso_tpu_torch.parallel import multihost
         rows = range(self.n_data) if rows is None else rows
-        per = len(self.replica_ids)
-        of = [[g for g in rows if g // per == p]
-              for p in range(self.mesh.processes)]
-        mine = [row[g] for row in blocks for g in of[self.mesh.rank]]
+        shards = range(len(blocks)) if shards is None else shards
+        cells = [[(i, g) for i, s in enumerate(shards) for g in rows
+                  if m.owner(g, s) == p] for p in range(m.processes)]
+        mine = [blocks[i][g] for i, g in cells[m.rank]]
         for p, theirs in enumerate(multihost.allgather_tensors(mine)):
-            if p != self.mesh.rank:
-                for i, t in enumerate(theirs):
-                    s, j = divmod(i, len(of[p]))
-                    blocks[s][of[p][j]] = t
+            if p != m.rank:
+                for (i, g), t in zip(cells[p], theirs):
+                    blocks[i][g] = t
 
     add_async = add
 
@@ -863,11 +925,15 @@ class Table:
         shards', under shard_update each shard's blocks in replica
         order): a checkpoint's padded leaf, concatenated."""
         if not self.shard_update:
-            return [st[key] for st in self.shard_states]
+            # shards no local replica holds come over the group
+            return self._filled([None if st is None else st[key]
+                                 for st in self._read_shards(
+                                     self.replica_states)])
         blocks = [[None] * self.n_data for _ in self.devices]
         for d, g in enumerate(self.replica_ids):
             for s in range(len(self.devices)):
-                blocks[s][g] = self.replica_states[d][s][key]
+                if self.replica_states[d][s] is not None:
+                    blocks[s][g] = self.replica_states[d][s][key]
         # other processes' blocks come over the group (a collective)
         self._fill_remote(blocks)
         return [b for row in blocks for b in row]
@@ -877,9 +943,12 @@ class Table:
         manager's overlap, ``ft/checkpoint.py``):
 
         - the DISPATCH half runs here, on the thread that queues the
-          table's work: replica 0's param shards and every state leaf are
-          queued into pinned host buffers (:class:`HostCopy`, whose
-          docstring says why no later add reaches the exported bytes);
+          table's work: the param shards and every state leaf are queued
+          into pinned host buffers (:class:`HostCopy`, whose docstring
+          says why no later add reaches the exported bytes), the parts
+          other processes hold gathered first (a collective, called here
+          and never on a writer thread, so every process calls its
+          collectives in one order);
         - the returned ``finish()`` is the BLOCKING half, safe on a
           worker thread: it waits on the copies' events, assembles the
           payload and records the accounting.
@@ -889,8 +958,9 @@ class Table:
         concatenated."""
         self.flush_coalesced()
         manifest = self._manifest()
-        param = HostCopy(self.shards, self.padded_shape)
-        keys = state_keys(self.shard_states[0])
+        param = HostCopy(self._filled(self._read_shards()),
+                         self.padded_shape)
+        keys = state_keys(self._state0())
         leaves = [HostCopy(self._state_parts(k)) for k in keys]
 
         def finish():
@@ -921,7 +991,7 @@ class Table:
             raise ValueError(
                 f"checkpoint updater {manifest['updater']!r} != table "
                 f"updater {self.updater.name!r}")
-        keys = state_keys(self.shard_states[0])
+        keys = state_keys(self._state0())
         if int(manifest["n_state_leaves"]) != len(keys):
             raise ValueError(
                 f"checkpoint has {manifest['n_state_leaves']} state "
@@ -948,7 +1018,8 @@ class Table:
         for d in range(self.n_replicas):
             blocks = [self._state_split(leaf, d) for leaf in leaves]
             self.replica_states.append(
-                [{key: blocks[i][s] for i, key in enumerate(keys)}
+                [None if self.replicas[d][s] is None
+                 else {key: blocks[i][s] for i, key in enumerate(keys)}
                  for s in range(len(self.devices))])
         self.default_option.step = int(manifest.get("step", 0))
         with self._option_lock:

@@ -40,6 +40,23 @@ device. The host prep sorts lanes by bucket, which sorts them by shard,
 and slices them per shard (``hashing.shard_lane_slices``); on one shard
 that is the reference's flat layout, the batch padded to a power of two.
 
+Over several processes (``core``'s module doc) a table holds the shards
+of its process's cells only, None for the others. Every process hashes
+and sorts the same batch; when the model axis crosses processes, or the
+state is split over a data axis that does (``shard_update``), each lane
+is committed by ONE process, the one that owns the cell of its shard's
+state (row 0's cell, or under ``shard_update`` the cell of its block),
+which probes and commits it on its own copies. The overflow gate is the
+sum of every process's count, brought through the host
+(:func:`~multiverso_tpu_torch.parallel.multihost.allgather_i64`) after
+this process's probes and before any commit, so an overflow on any
+process voids the batch on every one. Then, where another process holds
+a copy of a shard, the processes exchange the cells they wrote (bucket,
+slot, key, value, and the state when every copy holds it), never whole
+blocks, and write them into their copies. A Get reads each shard from a
+local replica that holds it and ORs every process's partial in
+(:func:`~multiverso_tpu_torch.parallel.multihost.or_partials`).
+
 Tensors are updated in place (the reference donated its buffers). The
 checkpoint is the reference's ``multiverso_tpu.kvtable.v1`` npz of the
 global arrays (the shards concatenated; under ``shard_update`` each
@@ -169,15 +186,16 @@ class KVTable:
             raise ValueError("capacity must be positive")
         self.name = name
         self.mesh = core.resolve_mesh(mesh, device)
-        # over several processes: this process's replicas only (the
-        # probe is a pure function of table state and batch, so every
-        # process's replicas stay identical with no traffic)
+        # over several processes: the shards of this process's cells only
+        # (the probe is a pure function of table state and batch, so every
+        # process's copies stay identical; see the module doc for a model
+        # axis that crosses processes)
         self.replica_ids = list(self.mesh.local_rows)
         self.n_data = n_replicas = self.mesh.shape[core.DATA_AXIS]
         self.replica_devices = [self.mesh.replica_devices(d)
                                 for d in self.replica_ids]
         self.devices = self.replica_devices[0]
-        self.device = self.devices[0]
+        self.device = self.mesh.row_device(self.replica_ids[0])
         self.value_dim = value_dim
         self.dtype = torch_dtype(dtype)
         self.dtype_name = dtype_name(self.dtype)
@@ -198,12 +216,16 @@ class KVTable:
         # owns buckets [s * bps, (s + 1) * bps), so a sort by bucket IS a
         # sort by shard, then bucket
         self.shard_update = bool(shard_update) and n_replicas > 1
-        if self.shard_update and self.mesh.processes > 1:
-            raise NotImplementedError(
-                f"kv table {name!r}: shard_update over {self.mesh.processes}"
-                " processes (state blocks a commit of another process must "
-                "read) is not ported (ROADMAP.md queue A item 12)")
+        m = self.mesh
+        #: each lane committed by one process, the gate summed over them
+        self._cross = m.processes > 1 and (m.model_split
+                                           or self.shard_update)
         n_shards = len(self.devices)
+        #: whether another process holds a copy of a shard whose cells
+        #: this one writes (then the written cells are exchanged)
+        self._shared = self._cross and any(
+            len({m.owner(g, s) for g in range(n_replicas)}) > 1
+            for s in range(n_shards))
         mult = n_shards * n_replicas if self.shard_update else n_shards
         buckets = -(-capacity // self.slots)
         self.num_buckets = -(-buckets // mult) * mult
@@ -211,16 +233,19 @@ class KVTable:
         self._buckets_per_shard = self.num_buckets // n_shards
         shard_shape = (self._buckets_per_shard, self.slots)
         vtail = (value_dim,) if value_dim else ()
-        self.replica_keys = [[torch.full(shard_shape + (2,), -1,
+        self.replica_keys = [[None if d is None else
+                              torch.full(shard_shape + (2,), -1,
                                          dtype=torch.int32, device=d)
                               for d in devs]
                              for devs in self.replica_devices]
-        self.replica_values = [[torch.full(shard_shape + vtail,
+        self.replica_values = [[None if d is None else
+                                torch.full(shard_shape + vtail,
                                            default_value, dtype=self.dtype,
                                            device=d) for d in devs]
                                for devs in self.replica_devices]
         self.replica_states = [
-            [self.updater.init_state(v[self._state_block(r)]) for v in vals]
+            [None if v is None else
+             self.updater.init_state(v[self._state_block(r)]) for v in vals]
             for r, vals in enumerate(self.replica_values)]
         # deferred overflow: (n_over device tensor, CUDA events, host
         # bucket ids) per add, drained without blocking in add and
@@ -249,6 +274,13 @@ class KVTable:
     _attach_coalescer = Table._attach_coalescer
     _notify_views = Table._notify_views
     flush_coalesced = Table.flush_coalesced
+    # the shards of a model axis that crosses processes
+    _read_shards = Table._read_shards
+    _filled = Table._filled
+    _fill_remote = Table._fill_remote
+    _merge = Table._merge
+    _merger = Table._merger
+    _state0 = Table._state0
 
     # -- storage ------------------------------------------------------------
 
@@ -273,11 +305,14 @@ class KVTable:
         return self.replica_states[0]
 
     def _state_block(self, replica: int) -> slice:
-        """The buckets of a shard whose state ``replica`` holds."""
+        """The buckets of a shard whose state local replica ``replica``
+        (global data row ``replica_ids[replica]``) holds."""
         if not self.shard_update:
             return slice(None)
-        q = self._buckets_per_shard // self.n_replicas
-        return slice(replica * q, (replica + 1) * q)
+        q = self._buckets_per_shard // self.n_data
+        g = self.replica_ids[replica]
+        return slice(g * q, (g + 1) * q)
+
 
     def _one_shard(self, what: str, whole_state: bool = False) -> None:
         if len(self.key_shards) != 1:
@@ -330,17 +365,40 @@ class KVTable:
         self._one_copy("state")
         self.state_shards[0] = value
 
+    def _global_parts(self):
+        """The global (keys, values, {leaf: state}) as per-shard part
+        lists in bucket order (under shard_update each shard's state
+        blocks in replica order): each shard from a local replica that
+        holds it, the parts other processes hold gathered over the group
+        (a COLLECTIVE when the model axis crosses processes or under a
+        shard_update split across processes)."""
+        keys = self._filled(self._read_shards(self.replica_keys))
+        vals = self._filled(self._read_shards(self.replica_values))
+        names = state_keys(self._state0())
+        if not self.shard_update:
+            states = self._read_shards(self.replica_states)
+            return keys, vals, {k: self._filled(
+                [None if st is None else st[k] for st in states])
+                for k in names}
+        out = {}
+        for k in names:
+            blocks = [[None] * self.n_data for _ in self.devices]
+            for r, g in enumerate(self.replica_ids):
+                for s, st in enumerate(self.replica_states[r]):
+                    if st is not None:
+                        blocks[s][g] = st[k]
+            self._fill_remote(blocks)
+            out[k] = [b for row in blocks for b in row]
+        return keys, vals, out
+
     def global_arrays(self):
         """Fresh copies of the global (keys, values, state) on the first
-        device: replica 0's shards concatenated in bucket order, under
-        shard_update each shard's state blocks in replica order."""
+        device: the shards concatenated in bucket order, under
+        shard_update each shard's state blocks in replica order (a
+        collective when parts lie in other processes)."""
         cat = lambda ts: torch.cat([t.to(self.device) for t in ts])
-        shards = range(len(self.devices))
-        reps = range(self.n_replicas) if self.shard_update else (0,)
-        return (cat(self.key_shards), cat(self.value_shards),
-                {k: cat([self.replica_states[r][s][k]
-                         for s in shards for r in reps])
-                 for k in self.state_shards[0]})
+        keys, vals, states = self._global_parts()
+        return cat(keys), cat(vals), {k: cat(v) for k, v in states.items()}
 
     def install_arrays(self, keys: np.ndarray, values: np.ndarray,
                        state_leaves) -> None:
@@ -351,18 +409,22 @@ class KVTable:
         shard_update, each shard's state into the replicas' blocks.
         Commits only once every tensor is placed."""
         bps = self._buckets_per_shard
-        names = state_keys(self.state_shards[0])
-        leaf_dtypes = [self.state_shards[0][k].dtype for k in names]
+        st0 = self._state0()
+        names = state_keys(st0)
+        leaf_dtypes = [st0[k].dtype for k in names]
         keys = _keys_device(keys)
         rk, rv, rs = [], [], []
         for r, devs in enumerate(self.replica_devices):
             blk = self._state_block(r)
-            rk.append([torch.tensor(keys[s * bps:(s + 1) * bps], device=d)
+            rk.append([None if d is None else
+                       torch.tensor(keys[s * bps:(s + 1) * bps], device=d)
                        for s, d in enumerate(devs)])
-            rv.append([from_host(values[s * bps:(s + 1) * bps], self.dtype,
+            rv.append([None if d is None else
+                       from_host(values[s * bps:(s + 1) * bps], self.dtype,
                                  d) for s, d in enumerate(devs)])
-            rs.append([{k: torch.tensor(np.ascontiguousarray(
-                np.asarray(leaf)[s * bps:(s + 1) * bps][blk]),
+            rs.append([None if d is None else {k: torch.tensor(
+                np.ascontiguousarray(
+                    np.asarray(leaf)[s * bps:(s + 1) * bps][blk]),
                 device=d).to(dt)
                 for k, dt, leaf in zip(names, leaf_dtypes, state_leaves)}
                 for s, d in enumerate(devs)])
@@ -456,12 +518,20 @@ class KVTable:
                             return_counts=True)
         bps = self._buckets_per_shard
         fill = np.zeros(len(ub), np.int64)
+        held = self._read_shards(self.replica_keys)
         for s in np.unique(ub // bps):
             sel = ub // bps == s
-            keys = self.key_shards[s]
+            keys = held[s]
+            if keys is None:            # another process's shard
+                continue
             rows = keys[torch.as_tensor(ub[sel] - s * bps,
                                         device=keys.device)].cpu()
             fill[sel] = (rows != -1).any(-1).sum(-1).numpy()
+        if self.mesh.model_split:
+            # every process's fills (a collective: a pending overflow is
+            # drained at the same op on every process)
+            from multiverso_tpu_torch.parallel import multihost
+            fill = multihost.allgather_i64(fill).max(0)
         return [int(b) for b in ub[(fill + cnt) > self.slots]]
 
     def _drain_overflow(self, entries) -> None:
@@ -518,8 +588,9 @@ class KVTable:
             self._record_op("get", elems, elems * self.dtype.itemsize)
             query, local, inv = self._get_lanes(keys, lane_buckets)
             vals, found = self._lookup(
-                self.key_shards, self.value_shards, query, local, inv,
-                self.default_value)
+                self._read_shards(self.replica_keys),
+                self._read_shards(self.replica_values), query, local, inv,
+                self.default_value, merge=self._merger)
             if len(inv) != n:
                 vals, found = vals[:n], found[:n]
         self._h_get.observe(time.monotonic() - t0)
@@ -543,8 +614,11 @@ class KVTable:
             [np.int32(bps - 1), np.uint32(0xFFFFFFFF)])
         inv = np.zeros(_bucket(len(keys)), np.int32)
         inv[order] = (sshard * sl_local.shape[1] + pos).astype(np.int32)
-        return (lanes_on(_keys_device(sl_query), self.devices),
-                lanes_on(sl_local, self.devices),
+        # the lookup launches over the shards held here only
+        devs = [None if t is None else t.device
+                for t in self._read_shards(self.replica_keys)]
+        return (lanes_on(_keys_device(sl_query), devs),
+                lanes_on(sl_local, devs),
                 torch.as_tensor(inv, device=self.device))
 
     def get(self, keys) -> Tuple[np.ndarray, np.ndarray]:
@@ -606,8 +680,17 @@ class KVTable:
         layout)."""
         bps = self._buckets_per_shard
         n_shards = len(self.key_shards)
+        elems = int(np.prod(tuple(deltas.shape)))
+        host_buckets = lane_buckets
         shard_ids = lane_buckets // bps
         local = (lane_buckets - shard_ids * bps).astype(np.int32)
+        if self._cross:
+            # this process probes and commits the lanes of the cells it
+            # owns (module doc); the others' lanes go nowhere
+            mine = self._committer(shard_ids, local) == self.mesh.rank
+            keys, shard_ids, local = keys[mine], shard_ids[mine], local[mine]
+            deltas = deltas[torch.as_tensor(mine, device=deltas.device)] \
+                if isinstance(deltas, torch.Tensor) else deltas[mine]
         arrays = [local, _split_keys(keys)]
         pads = [np.int32(bps - 1), np.uint32(0xFFFFFFFF)]
         if not isinstance(deltas, torch.Tensor):
@@ -629,13 +712,25 @@ class KVTable:
                 sl_deltas[s, :c] = deltas[st:st + c]
         else:
             sl_deltas = sliced[2]
-        put = lambda a: lanes_on(a, self.devices)
-        elems = int(np.prod(tuple(deltas.shape)))
+        devs = [None if t is None else t.device
+                for t in self._read_shards(self.replica_keys)]
+        put = lambda a: lanes_on(a, devs)
         return PreparedKVAdd(
             buckets=put(sliced[0]), query=put(_keys_device(sliced[1])),
             deltas=put(sl_deltas), valid=put(valid), option=opt,
-            host_buckets=lane_buckets, counts=counts, elems=elems,
+            host_buckets=host_buckets, counts=counts, elems=elems,
             nbytes=elems * self.dtype.itemsize)
+
+    def _committer(self, shard_ids: np.ndarray,
+                   local: np.ndarray) -> np.ndarray:
+        """The process that commits each lane (shard, local bucket): the
+        owner of the shard's row-0 cell, or under shard_update of the
+        cell of the state block that holds the bucket."""
+        m = self.mesh
+        rows = local // (self._buckets_per_shard // self.n_data) \
+            if self.shard_update else np.zeros_like(local)
+        return (rows.astype(np.int64) * m.devices.shape[1]
+                + shard_ids) // m.per_process
 
     def add_prepared(self, prepared: PreparedKVAdd,
                      sync: bool = False) -> Handle:
@@ -648,19 +743,14 @@ class KVTable:
                           sync=sync):
             self._record_op("add", prepared.elems, prepared.nbytes)
             _health.observe_update(self, prepared.deltas)
-            n_over = self._probe_update(
-                self.key_shards, self.value_shards, self.state_shards,
-                prepared.buckets, prepared.query, prepared.deltas,
-                prepared.valid, prepared.option, self.updater,
-                counts=prepared.counts,
-                replicas=list(zip(self.replica_keys[1:],
-                                  self.replica_values[1:],
-                                  self.replica_states[1:])),
-                state_blocks=self.shard_update)[3]
+            n_over = self._commit(prepared)
             _health.observe_param(self, self.value_shards)
             self._events = _record_events(
                 [d for devs in self.replica_devices for d in devs])
-            self._pending_over.append((n_over, self._events,
+            # a count brought through the host is read at once, on every
+            # process at the same op
+            self._pending_over.append((n_over, [] if self._cross
+                                       else self._events,
                                        prepared.host_buckets))
             with self._option_lock:
                 self.default_option.step += 1
@@ -672,6 +762,110 @@ class KVTable:
                 handle.wait()
         self._h_add.observe(time.monotonic() - t0)
         return handle
+
+    def _copies(self) -> List[Tuple[list, list, list]]:
+        """The copies the commit writes, ``(keys, values, states)`` shard
+        lists: under shard_update one per global data row (the kernel
+        finds a bucket's state block by row), else one per local replica.
+        A cell this process does not own takes a local copy of its shard
+        in its place (the commit then writes the same cell twice, and
+        never reads that copy's state: its lanes are another process's),
+        or None where no local replica holds the shard."""
+        held = [self._read_shards(c) for c in (
+            self.replica_keys, self.replica_values, self.replica_states)]
+        rows = range(self.n_data) if self.shard_update \
+            else self.replica_ids
+        out = []
+        for g in rows:
+            r = self.replica_ids.index(g) if g in self.replica_ids else None
+            out.append(tuple(
+                [h[s] if r is None or mine[r][s] is None else mine[r][s]
+                 for s in range(len(self.devices))]
+                for h, mine in zip(held, (self.replica_keys,
+                                          self.replica_values,
+                                          self.replica_states))))
+        return out
+
+    def _gate(self, local: torch.Tensor) -> torch.Tensor:
+        """Every process's overflow count, from this process's (a
+        collective through the host, after this process's probes)."""
+        from multiverso_tpu_torch.parallel import multihost
+        total = int(multihost.allgather_i64([int(local.sum())]).sum())
+        return torch.tensor([total], dtype=torch.int32,
+                            device=local.device)
+
+    def _commit(self, prepared: PreparedKVAdd) -> torch.Tensor:
+        """The probe + commit of an add on this process's copies; returns
+        the overflow count (0-d; on the device, or on the host when lanes
+        are committed by one process each: then the gate is every
+        process's, and the written cells go to the processes that hold
+        other copies, module doc)."""
+        copies = self._copies()
+        cells: list = [] if self._shared else None
+        n_over = self._probe_update(
+            *copies[0], prepared.buckets, prepared.query, prepared.deltas,
+            prepared.valid, prepared.option, self.updater,
+            counts=prepared.counts, replicas=copies[1:],
+            state_blocks=self.shard_update,
+            gate=self._gate if self._cross else None,
+            cells=cells)[3]
+        if not self._cross:
+            return n_over
+        n_over = n_over.cpu()
+        if cells is not None and not int(n_over):
+            self._exchange_cells(cells)
+        return n_over
+
+    def _exchange_cells(self, cells: list) -> None:
+        """Send the cells this process wrote, ``(global bucket, slot)``
+        pairs, with their keys and values (and state when every copy
+        holds it) to every process; write the other processes' cells
+        into each local copy of their shards (a collective)."""
+        from multiverso_tpu_torch.parallel import multihost
+        bps = self._buckets_per_shard
+        dev = self.device
+        bw = torch.cat([c[0].to(dev) for c in cells]) if cells \
+            else torch.zeros(0, dtype=torch.int64, device=dev)
+        sw = torch.cat([c[1].to(dev) for c in cells]) if cells \
+            else torch.zeros(0, dtype=torch.int64, device=dev)
+        names = [] if self.shard_update else state_keys(self._state0())
+        held = [self._read_shards(c) for c in (
+            self.replica_keys, self.replica_values, self.replica_states)]
+        vtail = (self.value_dim,) if self.value_dim else ()
+        out = [bw, sw.to(torch.int32),
+               torch.empty((len(bw), 2), dtype=torch.int32, device=dev),
+               torch.empty((len(bw),) + vtail, dtype=self.dtype,
+                           device=dev)] + \
+            [torch.empty((len(bw),) + vtail, dtype=torch.float32,
+                         device=dev) for _ in names]
+        shard = bw // bps
+        for s in torch.unique(shard).tolist():
+            sel = shard == s
+            k, v, st = (h[s] for h in held)
+            b, sl = (bw[sel] - s * bps).to(k.device), sw[sel].to(k.device)
+            out[2][sel] = k[b, sl].to(dev)
+            out[3][sel] = v[b, sl].to(dev)
+            for i, name in enumerate(names):
+                out[4 + i][sel] = st[name][b, sl].to(dev)
+        got = multihost.allgather_tensors(out)
+        for p, theirs in enumerate(got):
+            if p == self.mesh.rank or not len(theirs[0]):
+                continue
+            bw_p, sw_p = theirs[0], theirs[1].long()
+            shard = bw_p // bps
+            for s in torch.unique(shard).tolist():
+                sel = shard == s
+                for r in range(self.n_replicas):
+                    k = self.replica_keys[r][s]
+                    if k is None:
+                        continue
+                    d = k.device
+                    b, sl = (bw_p[sel] - s * bps).to(d), sw_p[sel].to(d)
+                    k[b, sl] = theirs[2][sel].to(d)
+                    self.replica_values[r][s][b, sl] = theirs[3][sel].to(d)
+                    for i, name in enumerate(names):
+                        self.replica_states[r][s][name][b, sl] = \
+                            theirs[4 + i][sel].to(d)
 
     def add(self, keys, deltas, option: Optional[AddOption] = None,
             sync: bool = False) -> Handle:
@@ -696,9 +890,19 @@ class KVTable:
             else list(self.value_shards)
 
     def __len__(self) -> int:
-        """Number of live keys (counted on the devices)."""
+        """Number of live keys (counted on the devices; over the group
+        when the model axis crosses processes, each shard by the owner of
+        its row-0 cell)."""
         self._check_overflow()
-        return sum(int((k != -1).any(-1).sum()) for k in self.key_shards)
+        m = self.mesh
+        held = self._read_shards(self.replica_keys)
+        n = sum(int((k != -1).any(-1).sum()) for s, k in enumerate(held)
+                if k is not None and (not m.model_split
+                                      or m.owner(0, s) == m.rank))
+        if m.model_split:
+            from multiverso_tpu_torch.parallel import multihost
+            n = int(multihost.allgather_i64([n]).sum())
+        return n
 
     def snapshot_kv_async(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """Light copies of replica 0's (keys, values) for read replicas:
@@ -715,19 +919,18 @@ class KVTable:
 
     def export_checkpoint_async(self):
         """Checkpoint export split like ``Table.export_checkpoint_async``:
-        the dispatch half here (a pending overflow raises first, then
-        replica 0's keys, values and every state leaf are queued into
-        pinned host buffers, :class:`~multiverso_tpu_torch.tables.base.
-        HostCopy`), the blocking half in the returned ``finish()``."""
+        the dispatch half here (a pending overflow raises first, then the
+        keys, values and every state leaf are queued into pinned host
+        buffers, :class:`~multiverso_tpu_torch.tables.base.HostCopy`, the
+        parts other processes hold gathered first, on this thread), the
+        blocking half in the returned ``finish()``."""
         self.flush_coalesced()
         self._check_overflow()
-        reps = range(self.n_replicas) if self.shard_update else (0,)
-        names = state_keys(self.state_shards[0])
-        keys = HostCopy(self.key_shards)
-        vals = HostCopy(self.value_shards)
-        leaves = [HostCopy([self.replica_states[r][s][k]
-                            for s in range(len(self.devices))
-                            for r in reps]) for k in names]
+        key_parts, val_parts, state_parts = self._global_parts()
+        keys = HostCopy(key_parts)
+        vals = HostCopy(val_parts)
+        leaves = [HostCopy(state_parts[k])
+                  for k in state_keys(self._state0())]
         manifest = {"magic": KV_MAGIC, "name": self.name,
                     "capacity": self.capacity, "value_dim": self.value_dim,
                     "slots": self.slots, "num_buckets": self.num_buckets,
@@ -774,7 +977,7 @@ class KVTable:
             raise ValueError(
                 f"checkpoint updater {manifest['updater']!r} != "
                 f"{self.updater.name!r}")
-        names = state_keys(self.state_shards[0])
+        names = state_keys(self._state0())
         if int(manifest["n_state_leaves"]) != len(names):
             raise ValueError(
                 f"checkpoint has {manifest['n_state_leaves']} state "

@@ -131,10 +131,15 @@ class MatrixTable(Table):
 
     def _gather(self, ids: np.ndarray) -> torch.Tensor:
         local, valid, inv, n, _ = self._pad_ids(ids)
+        # each shard from a local replica that holds it; when the model
+        # axis crosses processes the others' rows come as zero bits and
+        # the merge ORs their holders' in
+        shards = self._read_shards()
         return tk.gather_rows_sharded(
-            self.shards, lanes_on(local, self.devices),
+            shards, lanes_on(local, [None if t is None else t.device
+                                     for t in shards]),
             torch.as_tensor(inv[:n], device=self.device),
-            counts=valid.sum(1))
+            counts=valid.sum(1), merge=self._merger)
 
     def get_rows(self, row_ids) -> np.ndarray:
         """Fetch a list of rows (``MatrixWorkerTable::Get(row_ids, ...)``)."""
@@ -213,8 +218,10 @@ class MatrixTable(Table):
         replica. Under shard_update the replica whose state block holds a
         row applies the updater to it, and the updated row goes to every
         replica (from another process's replica over the group)."""
+        held = [d for d in range(self.n_replicas)
+                if self.replicas[d][shard] is not None]
         if not self.shard_update:
-            for d in range(self.n_replicas):
+            for d in held:
                 self._write_rows(d, shard, ids, self._update_rows(
                     d, shard, ids, ids, deltas, option))
             return
@@ -223,15 +230,16 @@ class MatrixTable(Table):
         owners = np.unique(owner).tolist()
         # blocks[0][g]: the rows replica g updated (the base's layout)
         blocks = [[None] * self.n_data]
-        for d, g in enumerate(self.replica_ids):
+        for d in held:
+            g = self.replica_ids[d]
             if g in owners:
                 sel = owner == g
                 blocks[0][g] = self._update_rows(
                     d, shard, ids[sel], ids[sel] - g * q, deltas[sel],
                     option)
-        self._fill_remote(blocks, owners)
+        self._fill_remote(blocks, owners, [shard])
         for g in owners:
-            for e in range(self.n_replicas):
+            for e in held:
                 self._write_rows(e, shard, ids[owner == g], blocks[0][g])
 
     def _update_rows(self, replica: int, shard: int, ids: np.ndarray,

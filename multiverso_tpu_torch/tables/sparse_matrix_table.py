@@ -86,7 +86,9 @@ class SparseMatrixTable(MatrixTable):
             # each shard's rows re-tiled in place (split along rows), on
             # every replica
             self.storage_shape = (self.padded_shape[0], self.tiles, LANES)
-            self.replicas = [[p.view(-1, self.tiles, LANES) for p in shards]
+            self.replicas = [[None if p is None
+                              else p.view(-1, self.tiles, LANES)
+                              for p in shards]
                              for shards in self.replicas]
         # profiled: profile.calls{fn=table.coo_scatter_add.<name>} is the
         # COO Add dispatch count, one per add_sparse

@@ -66,15 +66,26 @@ or from lanes exchanged with :func:`replica_cat`. On a view:
   :func:`replica_index` is the running replica's ``d``.
 
 Over several processes (``core``'s module doc) each process runs the
-threads of its own replicas only; ``DataSplit`` / ``Replicated`` parts
-are this process's replicas', and :func:`replica_index` is the global
-data row. An exchange round completes when the local replicas have
-posted and one cross-process all-gather of the local posts
+threads of its own replicas only (the data rows in which it owns a
+cell); ``DataSplit`` / ``Replicated`` parts are this process's
+replicas', and :func:`replica_index` is the global data row. An
+exchange round completes when the local replicas have posted and one
+cross-process all-gather of the local posts
 (:func:`~multiverso_tpu_torch.parallel.multihost.allgather_tensors`)
 has returned; every replica then reads every replica's tensors in
-global replica order, so each row's float32 sum is taken in the order
-of the one-process run on the same global mesh, and the tables equal
-that run bit for bit.
+global replica order, each row's from the first process that owns a
+cell of it (a row two processes share is read once), so each row's
+float32 sum is taken in the order of the one-process run on the same
+global mesh, and the tables equal that run bit for bit.
+
+When the model axis crosses processes a replica's view holds only the
+shards of this process's cells (a ShardedParam with None for the
+others): its scatter-adds write those shards only (every process of the
+row applies the same lanes), and its gathers, and
+:meth:`~multiverso_tpu_torch.ops.table_kernels.ShardedParam.whole`,
+merge the partials of the row's processes by a bitwise OR in an
+exchange round of their own (off a data axis, over the whole group), in
+lockstep with the others.
 
 ``aux`` is the first local replica's (replica 0's on one process). A
 replica that raises aborts the exchange, the
@@ -136,7 +147,7 @@ class DataSplit:
         for d in mesh.local_rows:
             index = [slice(None)] * value.ndim
             index[axis] = slice(d * step, (d + 1) * step)
-            block, dev = value[tuple(index)], mesh.replica_devices(d)[0]
+            block, dev = value[tuple(index)], mesh.row_device(d)
             if isinstance(block, np.ndarray):
                 parts.append(torch.as_tensor(np.ascontiguousarray(block),
                                              device=dev))
@@ -157,7 +168,7 @@ class Replicated:
     def of(cls, value: torch.Tensor, mesh: Mesh) -> "Replicated":
         """``value`` on each (local) replica's first device: the first
         part may share its storage, every other part is a copy."""
-        return cls([value.to(mesh.replica_devices(d)[0], copy=i > 0)
+        return cls([value.to(mesh.row_device(d), copy=i > 0)
                     for i, d in enumerate(mesh.local_rows)])
 
 
@@ -184,11 +195,23 @@ class _Exchange:
     many times over on the card) and fixes the order in which the
     replicas queue their work."""
 
-    def __init__(self, n: int, timeout: float, first: int = 0,
-                 processes: int = 1) -> None:
-        # n local replicas, global rows first .. first + n - 1
+    def __init__(self, n: int, timeout: float,
+                 mesh: Optional[Mesh] = None) -> None:
+        # n local replicas: global data rows self.rows
         self.n, self.timeout = n, timeout
-        self.first, self.processes = first, processes
+        self.rows = list(mesh.local_rows) if mesh is not None \
+            else list(range(n))
+        self.processes = mesh.processes if mesh is not None else 1
+        self.rank = mesh.rank if mesh is not None else 0
+        if self.processes > 1:
+            self.rows_of = rows_of = [mesh.rows_of(p)
+                                      for p in range(self.processes)]
+            # each row's lanes come from the first process owning a cell
+            # of it
+            self.source = {g: min(p for p, rows in enumerate(rows_of)
+                                  if g in rows)
+                           for g in range(mesh.shape[DATA_AXIS])}
+            self.same_shapes = not mesh.rows_split
         self._remote: dict = {}       # round -> every process's posts
         self._lock = threading.Lock()
         # one condition a replica: a hand-over wakes the next one only
@@ -266,43 +289,44 @@ class _Exchange:
             self._done[replica] = True
             self._wake_all()
 
-    def _gather_processes(self, posts: list) -> list:
-        """Every process's posts of a round (complete here), in global
-        replica order: this process's as ``None`` (read from ``posts``),
-        the others' as CPU tensors. One collective, issued by the first
-        local reader of the round while it holds the turn, so every
-        process issues its rounds' gathers in the same order. Every
-        replica of a round posts the same shapes (lockstep lanes), so the
-        gather takes them from the local posts (``same_shapes``)."""
+    def _gather_processes(self, posts: list, merge: bool) -> dict:
+        """The other processes' posts of a round (complete here), as
+        ``{(process, data row): tensors}`` (CPU tensors). One collective,
+        started by the first local reader of the round while it holds the
+        turn, so every process starts its rounds' gathers in the same
+        order. A lane round (``merge`` False) sends the posts of the rows
+        this process is the source of, a merge round every local post
+        (each holds the partial of this process's cells of its row). On
+        whole rows every process posts the same shapes (lockstep lanes),
+        so the gather takes them from the local posts (``same_shapes``)."""
         from multiverso_tpu_torch.parallel import multihost
         t0 = time.perf_counter()
         m = len(posts[0][0])
         mine = []
-        for tensors, posted in posts:
-            if posted is not None:
-                posted.synchronize()
-            mine.extend(tensors)
-        out = []
-        for p, theirs in enumerate(multihost.allgather_tensors(
-                mine, same_shapes=True)):
-            if p * self.n == self.first:
-                out.extend([None] * self.n)
+        for i, (tensors, posted) in enumerate(posts):
+            if merge or self.source[self.rows[i]] == self.rank:
+                if posted is not None:
+                    posted.synchronize()
+                mine.extend(tensors)
+        out = {}
+        got = multihost.allgather_tensors(mine,
+                                          same_shapes=self.same_shapes)
+        for p, theirs in enumerate(got):
+            if p == self.rank:
                 continue
-            out.extend(tuple(theirs[i * m:(i + 1) * m])
-                       for i in range(len(theirs) // m))
+            rows = [g for g in self.rows_of[p]
+                    if merge or self.source[g] == p]
+            for i, g in enumerate(rows):
+                out[(p, g)] = tuple(theirs[i * m:(i + 1) * m])
         self.gather_s += time.perf_counter() - t0
         return out
 
-    def all_gather(self, replica: int, tensors: tuple) -> List[tuple]:
-        """Post ``tensors`` (this replica's, made on its current stream)
-        and return every replica's, in global replica order, on
-        ``tensors``' device. The replicas take turns, so a reader whose
-        stream on the poster's card is another stream makes it wait for
-        all the poster has queued so far (a reader on the same stream
-        needs nothing: the poster queued its work first); a copy to
-        another card then follows that stream (``Tensor.to``). Over
-        several processes the round's first reader also gathers the
-        other processes' posts (:meth:`_gather_processes`)."""
+    def _round(self, replica: int, tensors: tuple, merge: bool) -> tuple:
+        """Post ``tensors`` to this replica's next round and wait until it
+        is complete; returns ``(posts, remote, stream)``: the local
+        replicas' ``(tensors, stream)``, the other processes' posts
+        (:meth:`_gather_processes`; empty on one process) and this
+        replica's current stream (None on the CPU)."""
         dev, stream = tensors[0].device, None
         if dev.type == "cuda":
             stream = torch.cuda.current_stream(dev)
@@ -313,25 +337,44 @@ class _Exchange:
             posts[replica] = (tensors, stream)
             self._hand_on(replica)
             self._wait(replica, posts, k)
-            glob = [None] * self.n
+            remote = {}
             if self.processes > 1:
                 if k not in self._remote:
                     try:
-                        self._remote[k] = self._gather_processes(posts)
+                        self._remote[k] = self._gather_processes(posts,
+                                                                 merge)
                     except BaseException as e:
                         self._fail(e)
-                glob = self._remote[k]
+                remote = self._remote[k]
             self._reads[k] = self._reads.get(k, 0) + 1
             if self._reads[k] == self.n:
                 del self._posts[k], self._reads[k]
                 self._remote.pop(k, None)
+        return posts, remote, stream
+
+    def all_gather(self, replica: int, tensors: tuple) -> List[tuple]:
+        """Post ``tensors`` (this replica's, made on its current stream)
+        and return every replica's, in global replica order, on
+        ``tensors``' device. The replicas take turns, so a reader whose
+        stream on the poster's card is another stream makes it wait for
+        all the poster has queued so far (a reader on the same stream
+        needs nothing: the poster queued its work first); a copy to
+        another card then follows that stream (``Tensor.to``). Over
+        several processes the round's first reader also gathers the
+        other processes' posts (:meth:`_gather_processes`), a row this
+        process holds read from its own replica."""
+        dev = tensors[0].device
+        posts, remote, stream = self._round(replica, tensors, False)
+        glob = list(range(len(self.source))) if self.processes > 1 \
+            else self.rows
         out, foreign = [], 0
-        for g, remote in enumerate(glob):
-            if remote is not None:
-                foreign += sum(t.numel() * t.element_size() for t in remote)
-                out.append(tuple(t.to(dev) for t in remote))
+        for g in glob:
+            if g not in self.rows:
+                theirs = remote[(self.source[g], g)]
+                foreign += sum(t.numel() * t.element_size() for t in theirs)
+                out.append(tuple(t.to(dev) for t in theirs))
                 continue
-            r = g - self.first if self.processes > 1 else g
+            r = self.rows.index(g)
             theirs, posted = posts[r]
             if r == replica:
                 out.append(tensors)
@@ -350,6 +393,19 @@ class _Exchange:
             out.append(tuple(t.to(dev) for t in theirs))
         self.bytes += foreign
         return out
+
+    def or_merge(self, replica: int, outs: tuple) -> None:
+        """OR into ``outs`` (this replica's partials of a read of a view
+        whose shards lie in several processes) the partials of the other
+        processes that own cells of its data row, in process order."""
+        from multiverso_tpu_torch.ops.table_kernels import _or_merge
+        _, remote, _ = self._round(replica, tuple(outs), True)
+        row = self.rows[replica]
+        for (p, g), theirs in sorted(remote.items()):
+            if g != row:
+                continue
+            self.bytes += sum(t.numel() * t.element_size() for t in theirs)
+            _or_merge(outs, theirs)
 
 
 class _Replica:
@@ -556,14 +612,22 @@ class FusedSuperstep:
         """The body once per replica, each on a thread of its own;
         returns each replica's ``(params, states, locals, aux)``."""
         rows = self.mesh.local_rows
-        exchange = _Exchange(len(rows), EXCHANGE_TIMEOUT, rows[0],
-                             self.mesh.processes)
+        exchange = _Exchange(len(rows), EXCHANGE_TIMEOUT, self.mesh)
         outs: list = [None] * len(rows)
 
         def run(d: int) -> None:
-            dev = self.tables[0].replica_devices[d][0]
+            dev = self.mesh.row_device(rows[d])
             try:
                 views = [t.superstep_view(d) for t in self.tables]
+                if self.mesh.rows_split:
+                    # the view's reads merge among the row's processes
+                    # (every replica's, so that every process takes part
+                    # in the same rounds)
+                    merge = lambda outs, d=d: exchange.or_merge(d, outs)
+                    for v in views:
+                        for x in (v[0], *v[1].values()):
+                            if isinstance(x, ShardedParam):
+                                x.merge = merge
                 params = tuple(v[0] for v in views)
                 _LOCAL.replica = _Replica(exchange, d, params, rows[d])
                 exchange.start(d)

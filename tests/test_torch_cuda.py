@@ -2848,3 +2848,112 @@ def test_pipeline_and_ring_on_the_card_match_the_cpu(cuda):
                 mesh=core.Mesh([[where]] * 8), causal=causal).cpu().numpy()
                 for where in ("cuda:0", "cpu"))
             np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _or_into(partial):
+    """A merge that ORs ``partial`` (another process's outputs) in."""
+    def merge(outs):
+        for out, part in zip(outs, partial):
+            bits = {4: torch.int32, 1: torch.uint8}[out.element_size()]
+            out.view(bits).bitwise_or_(part.to(out.device).view(bits))
+    return merge
+
+
+def test_held_shard_reads_merge_to_the_whole_on_the_card(cuda):
+    """A model axis across processes: each half of a two-shard table read
+    by the kernels over the shard held here (the other None) gives zero
+    bits elsewhere; the OR of the halves equals the whole table's read
+    bit for bit, -0.0 and a NaN payload included. The mesh gather, the
+    host-sliced gather and the KV lookup."""
+    rng = np.random.default_rng(27)
+    x = torch.from_numpy(rng.standard_normal((200, 16)).astype(np.float32))
+    x[3, 0], x[150, 2] = -0.0, float("nan")
+    halves = [x[:100].clone().to(cuda), x[100:].clone().to(cuda)]
+    ids = torch.from_numpy(_zipf_ids(rng, 999, 200)).to(cuda)
+    other = tk.gather_rows_mesh(tk.ShardedParam(
+        [None, halves[1]], merge=lambda outs: None), ids)
+    got = tk.gather_rows_mesh(tk.ShardedParam(
+        [halves[0], None], merge=_or_into((other,))), ids)
+    assert torch.equal(got.cpu().view(torch.int32),
+                       x[ids.cpu().long()].view(torch.int32))
+    # the host-sliced gather: lanes sorted by shard, local ids
+    sid = ids.cpu().numpy()
+    order = np.argsort(sid // 100, kind="stable")
+    local = (sid[order] % 100).astype(np.int32)
+    counts = np.bincount(sid[order] // 100, minlength=2)
+    lanes = int(counts.max())
+    lid = np.full((2, lanes), 99, np.int32)
+    inv = np.zeros(len(sid), np.int32)
+    at = 0
+    for s in range(2):
+        lid[s, :counts[s]] = local[at:at + counts[s]]
+        inv[order[at:at + counts[s]]] = s * lanes + np.arange(counts[s])
+        at += counts[s]
+    lid_t, inv_t = torch.from_numpy(lid).to(cuda), torch.from_numpy(inv)
+    part = tk.gather_rows_sharded([None, halves[1]], lid_t, inv_t.to(cuda),
+                                  counts=counts, merge=lambda outs: None)
+    got = tk.gather_rows_sharded([halves[0], None], lid_t, inv_t.to(cuda),
+                                 counts=counts, merge=_or_into((part,)))
+    assert torch.equal(got.cpu().view(torch.int32),
+                       x[ids.cpu().long()].view(torch.int32))
+    # the KV lookup: two shards of 8 buckets x 4 slots, values D 3
+    keys = [torch.full((8, 4, 2), -1, dtype=torch.int32) for _ in range(2)]
+    vals = [torch.from_numpy(rng.standard_normal((8, 4, 3)).astype(
+        np.float32)) for _ in range(2)]
+    keys[0][2, 1] = torch.tensor([0, 5])
+    keys[1][6, 3] = torch.tensor([1, 9])
+    query = torch.tensor([[[0, 5], [0, 6]], [[1, 9], [0, 5]]],
+                         dtype=torch.int32)
+    buckets = torch.tensor([[2, 7], [6, 6]], dtype=torch.int32)
+    inv = torch.tensor([3, 0, 2, 1], dtype=torch.int32)
+    whole = tk.kv_lookup_sharded(keys, vals, query, buckets, inv, 0.25)
+    on = [[t.to(cuda) for t in keys], [t.to(cuda) for t in vals]]
+    q, b, i = query.to(cuda), buckets.to(cuda), inv.to(cuda)
+    part = tk.kv_lookup_sharded([None, on[0][1]], [None, on[1][1]], q, b, i,
+                                0.25, merge=lambda outs: None)
+    got = tk.kv_lookup_sharded([on[0][0], None], [on[1][0], None], q, b, i,
+                               0.25, merge=_or_into(part))
+    for a, w in zip(got, whole):
+        assert torch.equal(a.cpu(), w)
+
+
+def test_gated_kv_probe_update_on_the_card_matches_plain(cuda):
+    """The sharded probe + commit over the shard held here with a gate
+    (every process's count) and the written cells: a closed gate writes
+    nothing and lists no cell, an open one writes the cells the plain
+    version writes, bit for bit."""
+    from multiverso_tpu_torch.updaters import AddOption
+
+    def table(dev):
+        keys = [torch.full((8, 4, 2), -1, dtype=torch.int32, device=dev),
+                None]
+        vals = [torch.zeros(8, 4, 2, device=dev), None]
+        return keys, vals, [{"h": torch.zeros(8, 4, 2, device=dev)}, None]
+
+    lanes = dict(
+        buckets=torch.tensor([[1, 1, 5], [0, 0, 0]], dtype=torch.int32),
+        query=torch.tensor([[[0, 3], [0, 4], [2, 8]], [[0, 0]] * 3],
+                           dtype=torch.int32),
+        deltas=torch.ones(2, 3, 2),
+        valid=torch.tensor([[True, True, True], [False] * 3]))
+    opt = AddOption(learning_rate=0.5, lam=1e-8)
+    out = {}
+    for dev in ("cpu", cuda):
+        for extra in (7, 0):
+            k, v, st = table(dev)
+            cells = []
+            n = tk.kv_probe_update_sharded(
+                k, v, st, *(x.to(dev) for x in lanes.values()), opt,
+                "adagrad", counts=[3, 0], gate=lambda c: c + extra,
+                cells=cells)[3]
+            assert int(n) == extra
+            if extra:
+                assert cells == [] and (k[0] == -1).all().item()
+            else:
+                (bw, sw), = cells
+                out[str(dev)] = (k[0].cpu(), v[0].cpu(), st[0]["h"].cpu(),
+                                 sorted(zip(bw.tolist(), sw.tolist())))
+    a, b = out["cpu"], out[str(torch.device(cuda))]
+    for x, y in zip(a[:3], b[:3]):
+        assert torch.equal(x, y)
+    assert a[3] == b[3]

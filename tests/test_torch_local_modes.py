@@ -305,10 +305,21 @@ def test_multi_process_flags_required():
 
 
 def test_model_axis_across_processes_names_the_roadmap():
-    with pytest.raises(ValueError, match="ROADMAP.md queue A item 12"):
-        core._build_mesh(["cpu"] * 4, 1, 4, processes=2, rank=0)
-    with pytest.raises(ValueError, match="ROADMAP.md queue A item 12"):
-        core.Mesh([["cpu"] * 2] * 3, processes=2, rank=1)
+    # the layouts build now: each process owns its cells of the grid
+    m = core._build_mesh(["cpu"] * 4, 1, 4, processes=2, rank=0)
+    assert m.model_split and m.cells == [(0, 0), (0, 1)]
+    assert m.replica_devices(0)[2:] == [None, None]
+    m = core.Mesh([["cpu"] * 2] * 3, processes=2, rank=1)
+    assert m.cells == [(1, 1), (2, 0), (2, 1)] and m.local_rows == [1, 2]
+    # every process holds every shard, but data row 1 is split
+    assert m.rows_split and not m.model_split
+    m = core._build_mesh(["cpu"] * 4, 1, 4, processes=2, rank=1)
+    # what a split model axis does not support yet names the roadmap
+    from multiverso_tpu_torch.apps.lightlda import LDAConfig, LightLDA
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md queue A item 12"):
+        LightLDA(np.zeros(8, np.int32), np.zeros(8, np.int32), 4,
+                 LDAConfig(num_topics=8, batch_tokens=8), mesh=m)
 
 
 @pytest.mark.parametrize("P,rank", [(2, 1), (4, 2)])

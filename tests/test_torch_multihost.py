@@ -479,19 +479,23 @@ def child(P: int, rank: int, store: str, out: str) -> None:
 # -- the parent ----------------------------------------------------------------
 
 
-def _spawn(P: int, ranks, tmp, **env_extra) -> list:
-    """Run ``ranks`` of the child at P over one FileStore; kill every
-    child on the first failure or at the timeout. Returns the outputs."""
-    store = str(tmp / f"store{P}")
+def _spawn(P: int, ranks, tmp, *, script: str = __file__, args=(),
+           timeout: float = SPAWN_TIMEOUT_S, tag: str = "",
+           **env_extra) -> list:
+    """Run ``ranks`` of the child ``script`` (this file's by default) at P
+    over one FileStore, each as ``script P rank store out *args``; kill
+    every child on the first failure or at the timeout. Returns the
+    outputs."""
+    store = str(tmp / f"store{tag}{P}")
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1",
                **env_extra)
     env.pop("MVTPU_HOST_ID", None)
-    outs = [str(tmp / f"p{P}_r{r}.npz") for r in ranks]
+    outs = [str(tmp / f"p{tag}{P}_r{r}.npz") for r in ranks]
     procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), str(P), str(r), store,
-         o], env=env, cwd=REPO, stdout=subprocess.PIPE,
+        [sys.executable, os.path.abspath(script), str(P), str(r), store,
+         o, *args], env=env, cwd=REPO, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for r, o in zip(ranks, outs)]
-    deadline = time.monotonic() + SPAWN_TIMEOUT_S
+    deadline = time.monotonic() + timeout
     try:
         while any(p.poll() is None for p in procs):
             if any(p.poll() not in (None, 0) for p in procs):
