@@ -21,7 +21,10 @@ its seconds):
    and the least time the card could take (bound). The row kernels at the
    word2vec path's shapes (table 10,001 x 100; 4,096 and 24,576 Zipf-1.2
    ids, and 24,576 lanes of one id; each case's longest run beside its
-   time, and the row scatter's sort apart from its kernel); the COO kernels
+   time; the row scatter's plan kernel, its stable sort by row and table
+   of runs, element for element its plain version, and the call's parts
+   apart: the plan beside ``torch.sort``, a yardstick the port never
+   calls, and the scatter along the plan); the COO kernels
    at a LightLDA call's 512,000 lanes into a [50,001, 1024] int32 table in
    request order (the kernel alone beside the call; ``index_put_`` and
    ``index_add_``; the bound in bytes and in 32-byte sectors), into a
@@ -106,10 +109,12 @@ its seconds):
 13. word2vec of phase 4 on the (1, 4) mesh through
    ``WordEmbedding(corpus, cfg, mesh=...)``: the superstep hands the body
    both tables as ShardedParams, and every gather and scatter-add runs the
-   functional form over them (one launch per card over its shards). From
+   functional form over them (one launch per card over its shards, a
+   scatter-add along one plan of its ids). From
    phase 4's corpus, initial weights, pairs and negatives: w_in and w_out
    must equal phase 4's bit for bit, the loss must fall, the launches must
-   be exactly 1 per gather and 1 per scatter-add (one card); words/s
+   be exactly 1 per gather and 1 plan and 1 per scatter-add (one card);
+   words/s
    beside phase 4's. Then a superstep COO add over a (1, 4)
    SparseMatrixTable at the LightLDA call's width, bit-identical to the
    (1, 1) table, one launch per card a call.
@@ -332,11 +337,13 @@ its seconds):
    the norm ratio within 1%; at S 32,768 causal, the ms of each beside
    ``F.scaled_dot_product_attention`` on the same tensors (a yardstick
    that the port does not call).
-14. The row scatter's kernel on phase 2's sorted lanes, and phase 2's KV
-   probe + commit calls (the flat form at the sparse-LR step's shapes,
-   the sharded form on four shards), taken apart by torch.profiler: each
-   kernel's device time (the count's fill, the probe, the commit, the
-   rest), the device idle between them, the host's time to queue a call.
+14. Phase 2's row scatter calls (one ``mv_row_scatter_add`` each: the
+   plan's digit count, sort passes and run scan, then the scatter along
+   the plan), and phase 2's KV probe + commit calls (the flat form at the
+   sparse-LR step's shapes, the sharded form on four shards), taken apart
+   by torch.profiler: each kernel's device time (the count's fill, the
+   probe, the commit, the rest), the device idle between them, the host's
+   time to queue a call.
    Last, so that no profiler session comes before a timed phase.
 18. Telemetry, in parts beside the phases whose apps it reuses (its
    seconds are their sum): (a) right after phase 4, phase 4's app and
@@ -446,6 +453,7 @@ the last line is
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import functools
@@ -588,6 +596,59 @@ def scatter_tolerance(torch, param, ids, deltas, valid=None):
     return 2.0 * m[:, None] * 2.0 ** -24 * mag
 
 
+def plan_parts(torch, tk, param, ids, deltas, rows: int, iters: int) -> dict:
+    """The row scatter's plan kernel (``mv_row_scatter_plan``: the stable
+    sort by row, then the table of runs) held against its plain version
+    (``row_scatter_plan_plain``) element for element, and a call's parts
+    timed apart on ``ids`` (over ``rows`` global rows): the plan into a
+    workspace of its own, ``torch.sort(stable=True)`` beside it (the
+    yardstick it replaced; the port never calls it), the plain plan on the
+    card, and the scatter along that plan alone (``mv_row_scatter_add_mesh``
+    over ``param``, a ShardedParam; a flat table as one shard). Launches
+    made here count apart from ``tk.LAUNCHES``."""
+    n = ids.shape[0]
+    got = tk.row_scatter_plan(ids, rows)
+    want = tk.row_scatter_plan_plain(ids.cpu(), rows)
+    for name, g_, w_ in zip(want._fields, got, want):
+        if not torch.equal(g_.cpu(), w_):
+            raise SystemExit(f"row_scatter_plan n={n}: {name} != the plain "
+                             "version's")
+    dev = ids.device
+    ids32 = ids.to(torch.int32).contiguous()
+    ws = torch.zeros(tk.scatter_workspace_size(n), dtype=torch.int64,
+                     device=dev)
+    lay = tk.plan_layout(n)
+    counts = collections.defaultdict(int)
+
+    def plan():
+        tk._launch("plan", "mv_row_scatter_plan", ids32.data_ptr(), n, rows,
+                   ws.data_ptr(), ws.numel(), device=dev, counts=counts)
+    plan()
+    plan_w = ws.view(torch.int32)[lay["plan"]:lay["keys"]]
+    # each card's copy of the plan and the deltas (the form's own copies)
+    tables = [(table, plan_w.to(table[0]), deltas.to(table[0]))
+              for table in param.launch_tables()]
+    rps = param.shards[0].shape[0]
+    cols = param.shards[0].numel() // rps
+
+    def scatter():
+        for (card, bases, firsts, count), plan_d, d_d in tables:
+            tk._launch("scatter", "mv_row_scatter_add_mesh", bases, firsts,
+                       count, rps, cols, int(param.dtype == torch.int32),
+                       plan_d.data_ptr(), d_d.data_ptr(), n, device=card,
+                       counts=counts)
+    runs, longs = len(got.rows), len(got.long)
+    # the plan's bytes: the ids read, the permutation, the run table (first,
+    # end, row) and the long-run list written
+    b, by = bound_ms(4 * n + 4 * n + 12 * runs + 4 * longs, 0)
+    return dict(plan_ms=cuda_ms(plan, iters),
+                plan_plain_ms=cuda_ms(
+                    lambda: tk.row_scatter_plan_plain(ids, rows), iters),
+                sort_ms=cuda_ms(lambda: torch.sort(ids, stable=True), iters),
+                scatter_ms=cuda_ms(scatter, iters), plan_bound_ms=b,
+                plan_bound_by=by, runs=runs, long_runs=longs)
+
+
 def phase_kernels(torch, tk, rng) -> list:
     """Phase 2: each kernel vs its plain version; returns the JSON rows.
     The row kernels at 4,096 and 24,576 Zipf ids and at 24,576 lanes of
@@ -644,24 +705,26 @@ def phase_kernels(torch, tk, rng) -> list:
             raise SystemExit(f"row_scatter_add n={key}: kernel != plain "
                              "version on the CPU (same sum order)")
         p_t = param0.clone()
-        ms = cuda_ms(lambda: tk.row_scatter_add(p_t, ids, deltas), 200)
+        call = functools.partial(tk.row_scatter_add, p_t, ids, deltas)
+        ms = cuda_ms(call, 200)
         plain = cuda_ms(lambda: tk.row_scatter_add_plain(p_t, ids, deltas),
                         200)
         lib = cuda_ms(lambda: p_t.index_add_(0, ids, deltas), 200)
-        # the call's two parts: the stable sort of the ids, and the kernel
-        # on the sorted lanes
-        sort_ms = cuda_ms(lambda: torch.sort(ids, stable=True), 200)
-        sids, order = torch.sort(ids, stable=True)
-        # bound now: phase 14 calls it after the loop has moved on
-        on_sorted = functools.partial(tk._launch_scatter, "row_scatter_add",
-                                      p_t, sids, order, deltas, None)
-        kernel_ms = cuda_ms(on_sorted, 200)
-        scatter_calls.append((key, longest, on_sorted))
+        # the call's parts: the plan (beside torch.sort), and the scatter
+        # along it; phase 14 takes the whole call apart by kernel
+        parts = plan_parts(torch, tk, tk.ShardedParam([p_t]), ids, deltas,
+                           ROWS, 200)
+        scatter_calls.append((key, longest, call))
         b, by = bound_ms(n * 4 + n * DIM * 4 + 2 * uniq * DIM * 4, n * DIM)
         results[("row_scatter_add", key)] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
             bound_ms=b, bound_by=by, n=n, unique_rows=uniq,
-            longest_run=longest, sort_ms=sort_ms, sorted_kernel_ms=kernel_ms)
+            longest_run=longest, **parts)
+        results[("row_scatter_plan", key)] = dict(
+            max_abs_err=0.0, ms=parts["plan_ms"],
+            plain_ms=parts["plan_plain_ms"], library_ms=parts["sort_ms"],
+            bound_ms=parts["plan_bound_ms"], bound_by=parts["plan_bound_by"],
+            n=n, unique_rows=uniq, longest_run=longest)
 
         # masked scatter-add over sorted ids (the table's add_rows form)
         sids = torch.sort(ids).values
@@ -701,24 +764,30 @@ def phase_kernels(torch, tk, rng) -> list:
             f"{'none' if lib is None else f'{lib:.4f}'} ms  "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})  "
             f"max|err| {r['max_abs_err']:.3g}"
-            + (f"; of it the stable sort {r['sort_ms']:.4f} ms, the kernel "
-               f"on sorted lanes {r['sorted_kernel_ms']:.4f} ms"
-               if "sort_ms" in r else ""))
+            + (f"; of it the plan {r['plan_ms']:.4f} ms (torch.sort "
+               f"{r['sort_ms']:.4f} ms; {r['runs']} runs, {r['long_runs']} "
+               f"long), the scatter on the plan {r['scatter_ms']:.4f} ms"
+               if "plan_ms" in r else "")
+            + ("; the plan kernel equals its plain version element for "
+               "element (library: torch.sort stable, the permutation "
+               "alone)" if name == "row_scatter_plan" else ""))
     results["scatter_calls"] = scatter_calls
     return results
 
 
 def phase_scatter_parts(torch, tk, KVTable, mesh, scatter_calls) -> dict:
-    """Phase 14: the row scatter's kernel on phase 2's sorted lanes, and
-    phase 2's KV probe + commit calls rebuilt (:func:`kv_ftrl_call`: the
-    flat form at the sparse-LR step's shapes, the sharded form on
-    ``mesh``), taken apart by the profiler. It runs last, so that no
-    profiler session comes before a timed phase."""
+    """Phase 14: phase 2's row scatter calls (the plan's digit count, sort
+    passes and run scan, and the scatter along the plan, queued by one
+    ``mv_row_scatter_add``), and phase 2's KV probe + commit calls rebuilt
+    (:func:`kv_ftrl_call`: the flat form at the sparse-LR step's shapes,
+    the sharded form on ``mesh``), taken apart by the profiler, with the
+    host's time to queue a call. It runs last, so that no profiler session
+    comes before a timed phase."""
     out = {}
     what = (" ms a call (device time by kernel, the period of the queued "
             "calls, the device idle in it, the host's time to queue one)")
-    for key, longest, on_sorted in scatter_calls:
-        out[key] = parts = kernel_parts(torch, on_sorted, 50)
+    for key, longest, call in scatter_calls:
+        out[key] = parts = kernel_parts(torch, call, 50)
         log(f"  row_scatter_add n={str(key):>9s} longest run {longest:6d}: "
             + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()) + what)
     for key, on in (("kv_probe_update_ftrl_2", None),
@@ -901,8 +970,9 @@ def phase_w2v(torch, tk, Corpus, synthetic_text, W2VConfig, WordEmbedding,
     if not (losses[-1] < warm < start_loss):
         raise SystemExit(f"w2v loss did not fall: start {start_loss:.5f}, "
                          f"warm-up {warm:.5f}, last {losses[-1]:.5f}")
-    # skip-gram NS: 2 gathers (w_in, w_out) + 2 scatter-adds per step
-    for name in ("row_gather", "row_scatter_add"):
+    # skip-gram NS: 2 gathers (w_in, w_out) + 2 scatter-adds per step, each
+    # scatter through its plan
+    for name in ("row_gather", "row_scatter_add", "row_scatter_plan"):
         if grown[name] != 2 * steps:
             raise SystemExit(f"{name}: {grown[name]} launches over {steps} "
                              f"steps, expected {2 * steps}")
@@ -3232,7 +3302,9 @@ def phase_mesh_kernels(torch, tk, devices, rng) -> dict:
     2,501; 4,096 and 24,576 Zipf-1.2 ids in request order), the COO add at
     a LightLDA call's (512,000 lanes into 4 x 12,501 x 1024 int32, tiled).
     Exact against the plain versions on the CPU, and the scatters equal
-    to the flat kernel on the whole table; returns {name@n: row}."""
+    to the flat kernel on the whole table; the row scatter-add's plan
+    held against its plain version and the call's parts timed apart
+    (:func:`plan_parts`); returns {name@n: row}."""
     out = {}
     cpus = ["cpu"] * SHARDS
     g = torch.Generator(device="cpu").manual_seed(13)
@@ -3303,6 +3375,10 @@ def phase_mesh_kernels(torch, tk, devices, rng) -> dict:
                host_ms=host_ms(fn, 50), flat_host_ms=host_ms(flat_fn, 50),
                longest_run_per_shard=longest_runs(ids_h.numpy(),
                                                   lead // SHARDS))
+        # the call's parts: one plan over the global rows, every card's
+        # scatter along it
+        out[f"row_scatter_add_mesh@{n}"].update(
+            plan_parts(torch, tk, timed_p, ids, d, lead, 50))
     del whole, lib_t, timed_p, param, flat
 
     lead = -(-(LDA_V + 1) // SHARDS) * SHARDS      # 50,004
@@ -3349,6 +3425,13 @@ def phase_mesh_kernels(torch, tk, devices, rng) -> dict:
                 + (f"; longest run per shard "
                    f"{row['longest_run_per_shard']}"
                    if "longest_run_per_shard" in row else ""))
+        if "plan_ms" in row:
+            log(f"    of it the plan {row['plan_ms']:.4f} ms (plain "
+                f"{row['plan_plain_ms']:.4f}, torch.sort "
+                f"{row['sort_ms']:.4f}, bound {row['plan_bound_ms']:.5f}; "
+                f"{row['runs']} runs, {row['long_runs']} long; equal to the "
+                f"plain plan), the scatter on the plan "
+                f"{row['scatter_ms']:.4f} ms")
     log("  row_scatter_add_mesh: the sharded tables equal the flat "
         "kernel's whole table bit for bit")
     return out
@@ -3427,7 +3510,8 @@ def phase_w2v_mesh(torch, tk, counts, reset, core, W2VConfig, WordEmbedding,
     # per card
     cards = len(set(devices))
     for name, per_call in (("gather_rows_mesh", cards),
-                           ("row_scatter_add_mesh", cards)):
+                           ("row_scatter_add_mesh", cards),
+                           ("row_scatter_plan", 1)):
         if grown[name] != per_call * 2 * steps:
             raise SystemExit(f"{name}: {grown[name]} launches over {steps} "
                              f"steps, expected {per_call * 2 * steps}")
@@ -8318,6 +8402,7 @@ def main(argv) -> int:
     # each kernel's launches on the main path that carries it
     main_path = {
         "row_gather": "word2vec", "row_scatter_add": "word2vec",
+        "row_scatter_plan": "word2vec",
         "row_scatter_add_masked": "word2vec",
         "coo_scatter_add": "lightlda_doc_blocked",
         "coo_scatter_add_masked": "sparse_tables",
@@ -8470,10 +8555,12 @@ def main(argv) -> int:
         f"{fo24['seconds'] + fo24['f']['seconds']:.1f} s; on {card}")
 
     row_src = "multiverso_tpu_torch/ops/csrc/row_kernels.cu"
+    plan_src = "multiverso_tpu_torch/ops/csrc/row_plan.cu"
     coo_src = "multiverso_tpu_torch/ops/csrc/coo_kernels.cu"
     lda_src = "multiverso_tpu_torch/ops/csrc/lda_kernels.cu"
     kv_src = "multiverso_tpu_torch/ops/csrc/kv_kernels.cu"
     source_of = {"row_gather": row_src, "row_scatter_add": row_src,
+                 "row_scatter_plan": plan_src,
                  "row_scatter_add_masked": row_src,
                  "coo_scatter_add": coo_src,
                  "coo_scatter_add_masked": coo_src,
@@ -8493,6 +8580,8 @@ def main(argv) -> int:
     replaces = {
         "row_gather": "multiverso_tpu/ops/table_kernels.py:580",
         "row_scatter_add": "multiverso_tpu/ops/table_kernels.py:610",
+        # no Pallas kernel: the XLA argsort that feeds _row_scatter_kernel
+        "row_scatter_plan": "multiverso_tpu/ops/table_kernels.py:1340",
         "row_scatter_add_masked": "multiverso_tpu/ops/table_kernels.py:990",
         "coo_scatter_add": "multiverso_tpu/ops/table_kernels.py:652",
         "coo_scatter_add_masked": "multiverso_tpu/ops/table_kernels.py:1068",
@@ -8517,7 +8606,7 @@ def main(argv) -> int:
     main_n = BATCH * (1 + NEGATIVE)       # the w_out gather/scatter width
     measured = {name: results[(name, main_n)]
                 for name in ("row_gather", "row_scatter_add",
-                             "row_scatter_add_masked")}
+                             "row_scatter_plan", "row_scatter_add_masked")}
     measured.update({name: lda_results[name] for name in source_of
                      if name in lda_results})
     # the doc-blocked sweep's one COO add is its 10M-lane rebuild

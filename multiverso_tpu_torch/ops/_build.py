@@ -41,14 +41,15 @@ _SIGNATURES = {
     #  zero_foreign, n, out, stream)
     "mv_row_gather_mesh": [_P, _P, _I64, _I64, _I64, _I64, _P, _P, _I64,
                            _I64, _I64, _P, _P],
-    # (param, rows, cols, is_int, ids, order, deltas, valid, n, workspace,
+    # (param, rows, cols, is_int, ids, sorted, deltas, valid, n, workspace,
     #  ws_words, stream)
-    "mv_row_scatter_add": [_P, _I64, _I64, _I64, _P, _P, _P, _P, _I64, _P,
+    "mv_row_scatter_add": [_P, _I64, _I64, _I64, _P, _I64, _P, _P, _I64, _P,
                            _I64, _P],
-    # (bases, firsts, count, rows, cols, is_int, ids, order, deltas, valid,
-    #  n, workspace, ws_words, stream)
-    "mv_row_scatter_add_mesh": [_P, _P, _I64, _I64, _I64, _I64, _P, _P, _P,
-                                _P, _I64, _P, _I64, _P],
+    # (ids, n, R, workspace, ws_words, stream)
+    "mv_row_scatter_plan": [_P, _I64, _I64, _P, _I64, _P],
+    # (bases, firsts, count, rows, cols, is_int, plan, deltas, n, stream)
+    "mv_row_scatter_add_mesh": [_P, _P, _I64, _I64, _I64, _I64, _P, _P,
+                                _I64, _P],
     # (bases, firsts, count, rows, cols, is_int, ids, deltas, valid, lanes,
     #  workspace, ws_words, stream): per-shard lane arrays
     "mv_row_scatter_add_shards": [_P, _P, _I64, _I64, _I64, _I64, _P, _P,

@@ -9,14 +9,21 @@
 // (float32 and int32 tables, the LDA's bf16 word-count mirror and int16
 // doc counts) as bytes.
 //
-// Sorted row scatter-add (mv_row_scatter_add) replaces
+// Row scatter-add (mv_row_scatter_add) replaces
 // multiverso_tpu/ops/table_kernels.py build_row_scatter_add /
 // _row_scatter_kernel and, with `valid` non-null,
-// build_row_scatter_add_masked / _row_scatter_masked_kernel: for ids
-// sorted ascending, every run of equal ids adds its (valid) deltas to its
-// row, which is read once and written once; rows no id names are not
-// touched (the table is updated in place, the counterpart of the TPU
-// kernel's input_output_aliases). float32 and int32 tables.
+// build_row_scatter_add_masked / _row_scatter_masked_kernel: every run of
+// equal ids adds its (valid) deltas to its row, which is read once and
+// written once; rows no id names are not touched (the table is updated in
+// place, the counterpart of the TPU kernel's input_output_aliases).
+// float32 and int32 tables. One call queues its plan (csrc/row_plan.cu's
+// stable sort by row, which replaces the XLA argsort that feeds the TPU
+// kernel, then the run scan here) and the scatter that walks it. The plan
+// is bound by latency, not bytes (12 bytes a lane a pass): its kernels
+// chain their tiles by decoupled look-back, wait on no counter of
+// finished blocks but the run scan's, and are launched as programmatic
+// dependents of one another (mv::launch_dependent), the scatter too, so
+// the gaps between the call's five launches are hidden.
 //
 // What bounds them: bytes moved. Both do one add per element at most, far
 // below the card's rate. A word2vec step (batch 4096, 5 negatives,
@@ -53,28 +60,32 @@
 //
 // The TPU scatter relied on its sequential grid to keep a row resident
 // across consecutive equal ids. Hopper blocks run in parallel and in no
-// order, so here lane i works only if it starts a run (i == 0 ||
-// ids[i] != ids[i-1]); it finds where the run ends with a galloping search
-// over the sorted ids. Each row receives row + d[first] + d[second] + ...,
-// its valid deltas in sorted lane order (the TPU kernel's order, and the
-// plain version's on the CPU), read once and written once; no two threads
-// touch one row, so there are no atomics and the result is deterministic.
-// That order is part of the function (it is what keeps sharded tables
-// bit-identical to unsharded ones), so a run is never split into partial
-// sums: what the design changes is how many loads are in flight while one
-// thread per column adds in order.
+// order, so the call first plans the runs (csrc/row_plan.cuh): the stable
+// permutation of the lanes by row, then, from the sorted lanes, the table
+// of runs (each run's first and last lane and its row, numbered in lane
+// order by an exclusive scan with look-back, no search) and the list of
+// long runs. The scatter walks that table; each row receives row +
+// d[first] + d[second] + ..., its valid deltas in sorted lane order (the
+// TPU kernel's order, and the plain version's on the CPU), read once and
+// written once; no two threads touch one row, so there are no atomics and
+// the result is deterministic. That order is part of the function (it is
+// what keeps sharded tables bit-identical to unsharded ones), so a run is
+// never split into partial sums: what the design changes is how many loads
+// are in flight while one thread per column adds in order.
 //
+// The scatter is one persistent launch (at most kLongBlocksPerSM blocks an
+// SM): each block first takes long-run items, then its warps take short
+// runs, so a call with no long run costs one launch, not two.
 // - A short run (at most kSplit lanes) is one warp's: it gathers its
 //   lanes' delta rows into registers kShortLoads at a time, each batch's
 //   loads issued before its adds, and adds them in lane order.
 // - A long run (a frequent word: Zipf ids put thousands of lanes on the
-//   top word) is appended to a list in the caller's workspace, and a
-//   second kernel cuts it into 32-byte column slices, a block each. The
-//   block stages its slice of the run's delta rows, gathered through
-//   `order`, in a ring of shared-memory stages with cp.async (the delta
-//   row indices come in the same way, a ring ahead), and the threads that
-//   own the slice's columns add the staged rows in lane order from shared
-//   memory and write their columns once.
+//   top word) is cut into 32-byte column slices, a block each. The block
+//   stages its slice of the run's delta rows, gathered through `order`,
+//   in a ring of shared-memory stages with cp.async (the delta row indices
+//   come in the same way, a ring ahead), and the threads that own the
+//   slice's columns add the staged rows in lane order from shared memory
+//   and write their columns once.
 //
 // Why slices: one SM pulls scattered rows at a few tens of GB/s, so a
 // block that stages whole 400-byte rows of one run is bound by its loads,
@@ -97,17 +108,22 @@
 // write gate. Here that would make a second run of that row (a second
 // owner that rewrites it unchanged while the real run's owner adds to
 // it: a lost update) and a serial walk over every lane below the shard.
-// Here a foreign lane exits at the run-owner and window checks, and
+// Here a foreign lane's run is passed over at the window check (the mesh
+// form plans once, on the ids' card, and every card walks that plan), and
 // sorted global ids keep every run inside one shard, so each shard's rows
 // come out bit for bit the flat kernel's.
 //
 // The scatter's lanes (GlobalLanes, ShardLanes) come in segments. The
-// flat and mesh forms have one segment of global ids, read through
-// `order`. The host-sliced form has a segment a shard: that shard's real
+// flat and mesh forms have one segment of global ids, read through the
+// plan's `order` (the masked form's ids come sorted: no sort, lane j's
+// row is j). The host-sliced form has a segment a shard: that shard's real
 // lanes in its own arrays, LOCAL ids, the pads after them never launched
 // (with Zipf ids the shards' pads are runs of thousands of one id: walked,
 // they would be the serial chain of the KV probe's padding fault). A run
-// never crosses a segment, so two shards' equal local ids stay two runs.
+// never crosses a segment (the run scan starts a run at each segment's
+// first lane), so two shards' equal local ids stay two runs; the
+// host-sliced form's lanes come sorted a shard, so it runs the run scan
+// alone.
 // The gather writes a foreign lane's out row as zeros when `zero_foreign`
 // is set (the first launch into an output) and leaves it untouched
 // otherwise (a card's second group of shards).
@@ -115,6 +131,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "row_plan.cuh"
 #include "shards.cuh"
 
 namespace {
@@ -131,19 +148,15 @@ constexpr unsigned kFull = 0xffffffffu;
 // one warp's (table_kernels.SCATTER_SPLIT holds the same number, to size
 // the workspace); ops/scatter_sweep.py times it against 64-256 (PERF.md).
 constexpr int64_t kSplit = 32;
-// The workspace: [0] the count of long runs, [1] the long-run kernel's
-// finished blocks (its last block sets both back to 0, so the workspace is
-// zero between calls), then a (first lane, length) pair for each long run.
-constexpr int64_t kListHead = 2;
 // A long run is cut into column slices of kSliceBytes, one block each (a
 // work item): one SM pulls a few tens of GB/s of scattered rows, so a run
 // staged by one block is bound by its loads; a 32-byte slice keeps one
 // block near its serial add chain. Each block: kLongThreads threads, a
 // ring of kStages stages of kStageRows rows of its slice, the rows' flags
-// (int32) and, two rings deep, their delta rows (the low 32 bits of
-// order[], which holds ids below 2^31). These sizes, the add batch and the
-// short-run load depth are the fastest of ops/scatter_sweep.py's variants
-// at chip_smoke.py phase 2's cases, or within the spread of one (PERF.md).
+// (int32) and, two rings deep, their delta rows (order[] entries). These
+// sizes, the add batch and the short-run load depth are the fastest of
+// ops/scatter_sweep.py's variants at chip_smoke.py phase 2's cases, or
+// within the spread of one (PERF.md).
 constexpr int kLongThreads = 128;
 constexpr int kSliceBytes = 32;
 constexpr int kStages = 2;
@@ -151,13 +164,13 @@ constexpr int kStageRows = 512;
 constexpr int kLongSmem = kStages * kStageRows * (kSliceBytes + 4 + 2 * 4);
 // within the 48 KB a block gets without opting in
 static_assert(kLongSmem <= 48 * 1024, "the long-run ring outgrew 48 KB");
-// long-run blocks resident on one SM (kLongSmem each)
+// scatter blocks resident on one SM (kLongSmem each)
 constexpr int kLongBlocksPerSM = 4;
 // rows a column owner loads before it adds them
 constexpr int kBatch = 16;
-// the short-run kernel: warps a block, and the delta rows a warp loads
-// before it adds them (registers bound how many warps stay resident)
-constexpr int kShortWarps = 2;
+// a scatter block's warps, each of which takes short runs in turn, and the
+// delta rows a warp loads before it adds them
+constexpr int kScatterWarps = kLongThreads / 32;
 constexpr int kShortLoads = 8;
 // the mesh gather: warps a block, lanes a warp (at most kWarp: a thread
 // resolves one lane) and units each thread loads before it stores them;
@@ -299,32 +312,6 @@ row_gather_mesh_kernel(__grid_constant__ const Shards sh,
   }
 }
 
-// The first lane after the run of id r that starts at i (sorted ids), by
-// the whole warp: 32 probes at a stride that grows 32-fold while every
-// probe still holds r, then 32 probes at strides 32-fold smaller. Sorted
-// ids make the probes that hold r a prefix of the lanes.
-__device__ __forceinline__ int64_t run_end(const int32_t* __restrict__ ids,
-                                           int64_t n, int64_t i, int32_t r,
-                                           int lane) {
-  int64_t lo = i, stride = 1;  // ids[lo] == r
-  for (;;) {
-    const int64_t p = lo + stride * (lane + 1);
-    const unsigned m = __ballot_sync(kFull, p < n && ids[p] == r);
-    if (m != kFull) {
-      lo += stride * __popc(m);
-      break;
-    }
-    lo += stride * kWarp;
-    stride *= kWarp;
-  }
-  while (stride > 1) {  // ids[lo] == r; lo + stride is past the run
-    stride /= kWarp;
-    const int64_t p = lo + stride * (lane + 1);
-    lo += stride * __popc(__ballot_sync(kFull, p < n && ids[p] == r));
-  }
-  return lo + 1;
-}
-
 // One segment of a scatter launch's lanes: its arrays, its first launch
 // lane and its length, and its ids' global offset (-1: the ids are
 // global).
@@ -336,11 +323,14 @@ struct Segment {
 };
 
 // The lanes of a launch of GLOBAL ids (the flat and mesh forms): one
-// segment over every shard of the launch, its deltas rows read through
-// `order` (nullable), `valid` nullable (`masked` says which).
+// segment over every shard of the launch. `ids` are sorted: the plan's
+// keys, or the masked form's ids, which come sorted; only the run scan
+// reads them. Delta rows are read through `order` (the plan's
+// permutation; null: lane j's row is j), `valid` nullable (`masked` says
+// which).
 struct GlobalLanes {
   const int32_t* ids;
-  const int64_t* order;
+  const int32_t* order;
   const void* deltas;
   const int32_t* valid;
   int64_t n;
@@ -354,12 +344,12 @@ struct GlobalLanes {
 
 // The lanes of a launch of the host-sliced form: segment k is shard k's
 // real lanes [start[k], start[k + 1]) of the launch, in their own arrays
-// ids[k] (LOCAL ids), deltas[k] (a row a lane) and valid[k] (every one
-// null, or none: `masked` says which); no permutation. Its own type, so
-// that the flat and mesh launches do not carry these arrays (about 500
-// bytes of parameters cost 0.85 us a call).
+// ids[k] (LOCAL ids, sorted), deltas[k] (a row a lane) and valid[k]
+// (every one null, or none: `masked` says which); no permutation. Its own
+// type, so that the flat and mesh launches do not carry these arrays
+// (about 500 bytes of parameters cost 0.85 us a call).
 struct ShardLanes {
-  static constexpr const int64_t* order = nullptr;
+  static constexpr const int32_t* order = nullptr;
   const int32_t* ids[mv::kMaxShards];
   const void* deltas[mv::kMaxShards];
   const int32_t* valid[mv::kMaxShards];
@@ -380,76 +370,147 @@ struct ShardLanes {
   bool deltas_aligned(unsigned bytes) const;
 };
 
-// The global id of a segment's id r: a local id outside [0, rows) maps to
-// -1, which no shard holds.
-__device__ __forceinline__ int64_t global_id(const Segment& s, int32_t r,
-                                             int64_t rows) {
-  if (s.first < 0) return r;
-  return r >= 0 && r < rows ? s.first + r : -1;
+// The plan a scatter walks (csrc/row_plan.cuh): counts[0] runs and
+// counts[1] long runs; run k is launch lanes [first[k], end[k]) of the
+// row with global id row[k]; longs[] lists the long runs in run order.
+struct Plan {
+  const uint32_t* counts;
+  const int32_t* first;
+  const int32_t* end;
+  const int32_t* row;
+  const int32_t* longs;
+};
+
+// Where the run scan writes the plan, and its scratch (tile t's
+// look-back word after the sort's sets in its row, mv::status_row).
+struct RunsOut {
+  uint32_t* counts;
+  int32_t* first;
+  int32_t* end;
+  int32_t* row;
+  int32_t* longs;
+  uint32_t* top;
+  uint32_t* ctl;
+  uint32_t* digits;
+  __device__ __forceinline__ uint64_t* word(int64_t t) const {
+    return reinterpret_cast<uint64_t*>(mv::status_row(top, t) +
+                                       mv::kRunsWord);
+  }
+};
+
+template <typename T>
+T* at(void* ws, int64_t words) {
+  return reinterpret_cast<T*>(static_cast<uint32_t*>(ws) + words);
 }
 
-// E is the element type, V the access type (E or a 16-byte vector of E);
-// `vcols` counts V units per row. One warp per lane; the owner of a run of
-// at most kSplit lanes adds it, a longer run goes to the list in `ws`
-// (by its first launch lane). A run ends at its segment's end.
-template <typename E, typename V, typename L>
-__global__ void __launch_bounds__(kWarp * kShortWarps)
-scatter_short_kernel(__grid_constant__ const Shards sh,
-                     __grid_constant__ const L ln, int64_t rows,
-                     int64_t vcols, int64_t n,
-                     unsigned long long* __restrict__ ws) {
-  const int lane = threadIdx.x % kWarp;
-  const int64_t g = (int64_t)blockIdx.x * kShortWarps + threadIdx.x / kWarp;
-  if (g >= n) return;
-  const Segment seg = ln.segment(sh, g);
-  const int32_t* __restrict__ ids = seg.ids;
-  const int32_t* __restrict__ valid = seg.valid;
-  const int64_t i = g - seg.start;
-  const int32_t r = ids[i];
-  if (i > 0 && ids[i - 1] == r) return;  // the run's first lane owns the row
-  V* row = shard_row<V>(sh, rows, vcols, global_id(seg, r, rows));
-  if (row == nullptr) return;  // foreign or out of range
-  const int64_t end = run_end(ids, seg.n, i, r, lane);
-  if (end - i > kSplit) {
-    if (lane == 0) {
-      const unsigned long long k = atomicAdd(ws, 1ull);
-      ws[kListHead + 2 * k] = (unsigned long long)g;
-      ws[kListHead + 2 * k + 1] = (unsigned long long)(end - i);
+// The plan that starts at `plan` (offsets from there).
+Plan plan_at(const void* plan, const mv::PlanLayout& lay) {
+  void* w = const_cast<void*>(plan);
+  return Plan{at<uint32_t>(w, lay.counts), at<int32_t>(w, lay.first),
+              at<int32_t>(w, lay.end), at<int32_t>(w, lay.row),
+              at<int32_t>(w, lay.longs)};
+}
+
+// A run scan's look-back word: a flag (bits 62-63), the runs (bits
+// 31-61) and the long runs (bits 0-30) of one tile or of every tile up
+// to it; 0 until written.
+constexpr uint64_t kRunsA = 1ull << 62, kRunsP = 2ull << 62;
+constexpr uint64_t kRunsCounts = kRunsA - 1;
+constexpr int kLongBits = 31;
+constexpr uint64_t kLongMask = (1ull << kLongBits) - 1;
+
+// The table of runs (the plan's second half) over a launch's sorted
+// lanes. A lane starts a run when its id names a row (in [0, R): the
+// table's rows, or a shard's for the host-sliced form) and differs from
+// the lane before it in its segment, and ends one when it differs from
+// the lane after it. A run is long when the lane kSplit after its first
+// still holds its id: the lanes are sorted, so that lane lies in the run
+// exactly when the run has more than kSplit lanes, and no search is
+// needed. Runs and long runs are numbered in lane order: a thread takes
+// kPlanItems consecutive lanes, a block a tile, an exclusive sum over the
+// block and a look-back over the earlier tiles (as in a sort pass) give
+// each its numbers (tile blockIdx.x a block). The last tile writes the
+// counts; block 0 zeroes the sort's digit counts for the next call, and
+// the last block to finish the look-back words and its counter.
+template <typename L>
+__global__ void __launch_bounds__(mv::kPlanThreads)
+plan_runs_kernel(__grid_constant__ const Shards sh,
+                 __grid_constant__ const L ln, int64_t R, int64_t n,
+                 __grid_constant__ const RunsOut out) {
+  __shared__ uint64_t s_before;
+  __shared__ int s_last;
+  const int tid = threadIdx.x;
+  const int64_t t = blockIdx.x;
+  mv::let_next_start();
+  mv::wait_prior();
+  if (t == 0)
+    for (int x = tid; x < mv::kMaxPasses * mv::kMaxBins;
+         x += mv::kPlanThreads)
+      out.digits[x] = 0;
+  const int64_t g0 = t * mv::kPlanTile + (int64_t)tid * mv::kPlanItems;
+  unsigned starts = 0, ends = 0, longs = 0;  // bit k: lane g0 + k
+  int32_t gid[mv::kPlanItems];
+  // every load unconditional on another's value, so all are in flight at
+  // once
+#pragma unroll
+  for (int k = 0; k < mv::kPlanItems; ++k) {
+    const int64_t g = g0 + k;
+    const Segment seg = ln.segment(sh, g);
+    const int32_t* __restrict__ ids = seg.ids;
+    const int64_t i = g - seg.start;
+    const bool in = g < n;
+    const int32_t r = in ? ids[i] : -1;
+    const int32_t r_before = in && i > 0 ? ids[i - 1] : 0;
+    const int32_t r_after = in && i + 1 < seg.n ? ids[i + 1] : 0;
+    const int32_t r_far = in && i + kSplit < seg.n ? ids[i + kSplit] : 0;
+    const bool real = in && r >= 0 && r < R;
+    gid[k] = (int32_t)((seg.first < 0 ? 0 : seg.first) + r);
+    if (real && (i == 0 || r_before != r)) {
+      starts |= 1u << k;
+      if (i + kSplit < seg.n && r_far == r) longs |= 1u << k;
     }
-    return;
+    if (real && (i + 1 == seg.n || r_after != r)) ends |= 1u << k;
   }
-  const V* dv = static_cast<const V*>(seg.deltas);
-  // one pass per 32 V units of the row
-  for (int64_t c = lane; c - lane < vcols; c += kWarp) {
-    const bool has_col = c < vcols;
-    V acc = has_col ? row[c] : V{};
-    for (int64_t j0 = i; j0 < end; j0 += kWarp) {
-      const int64_t j = j0 + lane;
-      const int m = end - j0 < kWarp ? (int)(end - j0) : kWarp;
-      int64_t src = 0;
-      bool ok = false;
-      if (j < end) {
-        src = ln.order != nullptr ? ln.order[j] : j;
-        ok = !ln.masked || valid[src] != 0;
-      }
-      const unsigned okm = __ballot_sync(kFull, ok);
-      // kShortLoads loads of the chunk before their adds
-      for (int k0 = 0; k0 < m; k0 += kShortLoads) {
-        V buf[kShortLoads];
-#pragma unroll
-        for (int k = 0; k < kShortLoads; ++k) {
-          if (k0 + k >= m) break;
-          const int64_t s = __shfl_sync(kFull, src, k0 + k);
-          if (has_col && ((okm >> (k0 + k)) & 1u)) buf[k] = dv[s * vcols + c];
-        }
-#pragma unroll
-        for (int k = 0; k < kShortLoads; ++k) {
-          if (k0 + k >= m) break;
-          if (has_col && ((okm >> (k0 + k)) & 1u)) vadd(acc, buf[k]);
-        }
-      }
+  // runs in the high half, long runs in the low: at most kPlanTile each
+  uint32_t total;
+  const uint32_t mine = mv::block_exclusive_sum(
+      (uint32_t)__popc(starts) << 16 | (uint32_t)__popc(longs), &total);
+  if (tid == 0) {
+    const uint64_t count =
+        (uint64_t)(total >> 16) << kLongBits | (total & 0xffffu);
+    mv::store_volatile(out.word(t), (t == 0 ? kRunsP : kRunsA) | count);
+    const uint64_t before = mv::look_back<uint64_t>(
+        t, [&](int64_t j) { return out.word(j); }, kRunsP, kRunsCounts);
+    if (t > 0) mv::store_volatile(out.word(t), kRunsP | (before + count));
+    if (t == gridDim.x - 1) {
+      out.counts[0] = (uint32_t)((before + count) >> kLongBits);
+      out.counts[1] = (uint32_t)((before + count) & kLongMask);
     }
-    if (has_col) row[c] = acc;
+    s_before = before;
+  }
+  __syncthreads();
+  int64_t run = (int64_t)(s_before >> kLongBits) + (mine >> 16);
+  int64_t lng = (int64_t)(s_before & kLongMask) + (mine & 0xffffu);
+#pragma unroll
+  for (int k = 0; k < mv::kPlanItems; ++k) {
+    const int64_t g = g0 + k;
+    if ((starts >> k) & 1u) {
+      out.first[run] = (int32_t)g;
+      out.row[run] = gid[k];
+      if ((longs >> k) & 1u) out.longs[lng++] = (int32_t)run;
+      ++run;
+    }
+    if ((ends >> k) & 1u) out.end[run - 1] = (int32_t)(g + 1);
+  }
+  // every look-back read of this block returned before its count goes
+  // in, so the last block may zero the words
+  if (tid == 0)
+    s_last = atomicAdd(out.ctl + mv::kRunsDone, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (s_last) {
+    for (int64_t x = tid; x < gridDim.x; x += mv::kPlanThreads)
+      *out.word(x) = 0;
+    if (tid == 0) out.ctl[mv::kRunsDone] = 0;
   }
 }
 
@@ -498,25 +559,78 @@ __device__ __forceinline__ E add_staged(E acc, const E* src, const int* ok,
   return acc;
 }
 
-// The work items of the long runs in `ws`: (run, column slice), taken by
-// the blocks in turn. Per item: stage t's rows of the slice are added in
-// lane order by the slice's column owners, one element each (threads
-// 0..7 of the first warp: one add chain a thread), while the other warps
-// copy stage t + kStages - 1 in with cp.async, in V units, and with it the
+// The short runs of a plan (at most kSplit lanes), a warp each, taken by
+// the launch's warps in turn: the warp gathers its lanes' delta rows into
+// registers kShortLoads at a time, each batch's loads issued before its
+// adds, and adds them in lane order, one pass per 32 V units of the row.
+template <typename E, typename V, typename L>
+__device__ __forceinline__ void short_runs(const Shards& sh, const L& ln,
+                                           int64_t rows, int64_t vcols,
+                                           const Plan& plan) {
+  const int lane = threadIdx.x % kWarp;
+  const int64_t runs = plan.counts[0];
+  const int64_t step = (int64_t)gridDim.x * kScatterWarps;
+  for (int64_t k = (int64_t)blockIdx.x * kScatterWarps + threadIdx.x / kWarp;
+       k < runs; k += step) {
+    const int64_t g = plan.first[k], g_end = plan.end[k];
+    if (g_end - g > kSplit) continue;  // a long run: blocks take it
+    V* row = shard_row<V>(sh, rows, vcols, plan.row[k]);
+    if (row == nullptr) continue;  // another card's row
+    const Segment seg = ln.segment(sh, g);
+    const int32_t* __restrict__ valid = seg.valid;
+    const int64_t i = g - seg.start, end = g_end - seg.start;
+    const V* dv = static_cast<const V*>(seg.deltas);
+    for (int64_t c = lane; c - lane < vcols; c += kWarp) {
+      const bool has_col = c < vcols;
+      V acc = has_col ? row[c] : V{};
+      for (int64_t j0 = i; j0 < end; j0 += kWarp) {
+        const int64_t j = j0 + lane;
+        const int m = end - j0 < kWarp ? (int)(end - j0) : kWarp;
+        int64_t src = 0;
+        bool ok = false;
+        if (j < end) {
+          src = ln.order != nullptr ? ln.order[j] : j;
+          ok = !ln.masked || valid[src] != 0;
+        }
+        const unsigned okm = __ballot_sync(kFull, ok);
+        // kShortLoads loads of the chunk before their adds
+        for (int k0 = 0; k0 < m; k0 += kShortLoads) {
+          V buf[kShortLoads];
+#pragma unroll
+          for (int q = 0; q < kShortLoads; ++q) {
+            if (k0 + q >= m) break;
+            const int64_t s = __shfl_sync(kFull, src, k0 + q);
+            if (has_col && ((okm >> (k0 + q)) & 1u)) buf[q] = dv[s * vcols + c];
+          }
+#pragma unroll
+          for (int q = 0; q < kShortLoads; ++q) {
+            if (k0 + q >= m) break;
+            if (has_col && ((okm >> (k0 + q)) & 1u)) vadd(acc, buf[q]);
+          }
+        }
+      }
+      if (has_col) row[c] = acc;
+    }
+  }
+}
+
+// The long runs of a plan as work items (run, column slice), taken by the
+// blocks in turn. Per item: stage t's rows of the slice are added in lane
+// order by the slice's column owners, one element each (threads 0..7 of
+// the first warp: one add chain a thread), while the other warps copy
+// stage t + kStages - 1 in with cp.async, in V units, and with it the
 // delta rows of stage t + 2 kStages - 1, so no load of the loop waits on
 // another. Masked lanes' rows are copied too; their flags (valid[],
-// copied beside them) keep them out of the sum. The last block to finish
-// zeroes the workspace's head for the next call on the stream.
+// copied beside them) keep them out of the sum.
 template <typename E, typename V, typename L>
-__global__ void __launch_bounds__(kLongThreads)
-scatter_long_kernel(__grid_constant__ const Shards sh,
-                    __grid_constant__ const L ln, int64_t rows,
-                    int64_t vcols, unsigned long long* __restrict__ ws) {
+__device__ __forceinline__ void long_runs(const Shards& sh, const L& ln,
+                                          int64_t rows, int64_t vcols,
+                                          const Plan& plan) {
   constexpr int kUnits = kSliceBytes / (int)sizeof(V);  // V units a slice
   constexpr int kLanes = kSliceBytes / (int)sizeof(E);  // its elements
   constexpr int kSrcSlots = 2 * kStages;
   const int64_t slices = (vcols + kUnits - 1) / kUnits;
-  const int64_t items = (int64_t)ws[0] * slices;
+  const int64_t items = (int64_t)plan.counts[1] * slices;
   extern __shared__ __align__(16) unsigned char smem[];
   V* ring = reinterpret_cast<V*>(smem);
   int* ring_ok = reinterpret_cast<int*>(
@@ -526,19 +640,19 @@ scatter_long_kernel(__grid_constant__ const Shards sh,
   const int ptid = tid - kWarp;  // producers: the warps after the first
   constexpr int kProducers = kLongThreads - kWarp;
   for (int64_t item = blockIdx.x; item < items; item += gridDim.x) {
-    const int64_t run = item / slices, c0 = (item % slices) * kUnits;
-    const int64_t g = (int64_t)ws[kListHead + 2 * run];
-    const int64_t len = (int64_t)ws[kListHead + 2 * run + 1];
+    const int64_t run = plan.longs[item / slices];
+    const int64_t c0 = (item % slices) * kUnits;
+    V* row_v = shard_row<V>(sh, rows, vcols, plan.row[run]);
+    if (row_v == nullptr) continue;  // another card's row (block-uniform)
+    const int64_t g = plan.first[run];
+    const int64_t len = plan.end[run] - g;
     const Segment seg = ln.segment(sh, g);
     const int64_t start = g - seg.start;  // in the segment
     const int32_t* __restrict__ valid = seg.valid;
     const V* dv = static_cast<const V*>(seg.deltas);
     const int w = vcols - c0 < kUnits ? (int)(vcols - c0) : kUnits;
     const int owners = w * (int)(sizeof(V) / sizeof(E));
-    E* row = reinterpret_cast<E*>(
-        shard_row<V>(sh, rows, vcols,
-                     global_id(seg, seg.ids[start], rows)) +
-        c0);  // listed: in a shard
+    E* row = reinterpret_cast<E*>(row_v + c0);
     const int64_t stages = (len + kStageRows - 1) / kStageRows;
     auto rows_in = [&](int64_t t) {
       return len - t * kStageRows < kStageRows ? (int)(len - t * kStageRows)
@@ -552,7 +666,7 @@ scatter_long_kernel(__grid_constant__ const Shards sh,
       const int64_t j0 = start + t * kStageRows;
       for (int r = from; r < rows_in(t); r += step) {
         if (ln.order != nullptr)
-          copy_async(dst + r, ln.order + j0 + r, 4);  // the low word
+          copy_async(dst + r, ln.order + j0 + r, 4);
         else
           dst[r] = (int)(j0 + r);
       }
@@ -600,19 +714,27 @@ scatter_long_kernel(__grid_constant__ const Shards sh,
     wait_copies<0>();
     __syncthreads();  // the rings are free for the next item
   }
-  __syncthreads();  // every thread of the block has read ws[0]
-  if (tid == 0) {
-    __threadfence();
-    if (atomicAdd(ws + 1, 1ull) == gridDim.x - 1) {  // the last block
-      ws[0] = 0;
-      ws[1] = 0;
-    }
-  }
+}
+
+// The scatter along a plan (E the element type, V the access type: E or a
+// 16-byte vector of E; `vcols` V units a row), one persistent launch: each
+// block takes long-run items first (the long chains start at once), then
+// its warps take short runs. A run whose row no shard of the launch holds
+// is passed over: the mesh form shares one plan among its cards.
+template <typename E, typename V, typename L>
+__global__ void __launch_bounds__(kLongThreads, kLongBlocksPerSM)
+scatter_kernel(__grid_constant__ const Shards sh,
+               __grid_constant__ const L ln, int64_t rows, int64_t vcols,
+               __grid_constant__ const Plan plan) {
+  mv::wait_prior();
+  long_runs<E, V>(sh, ln, rows, vcols, plan);
+  short_runs<E, V>(sh, ln, rows, vcols, plan);
 }
 
 inline unsigned blocks_for(int64_t n, int warps = kWarpsPerBlock) {
   return (unsigned)((n + warps - 1) / warps);
 }
+
 
 bool GlobalLanes::deltas_aligned(unsigned bytes) const {
   return aligned(deltas, bytes);
@@ -624,54 +746,85 @@ bool ShardLanes::deltas_aligned(unsigned bytes) const {
   return ok;
 }
 
+// The run scan over `ln` (R: the rows a lane's id must name) into the
+// workspace laid out as `lay`.
+template <typename L>
+int plan_runs(const Shards& sh, const L& ln, int64_t R, void* ws,
+              int64_t ws_words, const mv::PlanLayout& lay, cudaStream_t s) {
+  void* plan = at<uint32_t>(ws, lay.plan);
+  const RunsOut out{at<uint32_t>(plan, lay.counts),
+                    at<int32_t>(plan, lay.first),
+                    at<int32_t>(plan, lay.end),
+                    at<int32_t>(plan, lay.row),
+                    at<int32_t>(plan, lay.longs),
+                    at<uint32_t>(ws, 2 * ws_words),
+                    at<uint32_t>(ws, lay.ctl),
+                    at<uint32_t>(ws, lay.digits)};
+  return (int)mv::launch_dependent(plan_runs_kernel<L>, (unsigned)lay.tiles,
+                                   mv::kPlanThreads, 0, s, sh, ln, R,
+                                   ln.lanes(), out);
+}
+
+// The whole plan of GLOBAL ids over R rows: the sort, then the run scan
+// over its keys; `ln` is left reading the deltas through its order.
+int plan_global(const int32_t* ids, int64_t n, int64_t R, void* ws,
+                int64_t ws_words, const mv::PlanLayout& lay,
+                GlobalLanes* ln, cudaStream_t s) {
+  const cudaError_t err =
+      mv::sort_rows(ids, n, R, static_cast<uint32_t*>(ws),
+                    at<uint32_t>(ws, 2 * ws_words), lay, s);
+  if (err != cudaSuccess) return (int)err;
+  ln->ids = at<int32_t>(ws, lay.keys);
+  ln->order = at<int32_t>(ws, lay.plan + lay.order);
+  return plan_runs(Shards{}, *ln, R, ws, ws_words, lay, s);
+}
+
+// A workspace of ws_words int64 holds the layout for n lanes.
+bool fits(const void* ws, int64_t ws_words, int64_t n) {
+  return ws != nullptr && n < mv::kMaxPlanLanes &&
+         2 * ws_words >= mv::PlanLayout(n, kSplit).words;
+}
+
 template <typename E, typename V, typename L>
 int launch_scatter_as(const Shards& sh, const L& ln, int64_t rows,
-                      int64_t vcols, int64_t n, unsigned long long* ws,
+                      int64_t vcols, int64_t n, const Plan& plan,
                       cudaStream_t s) {
-  scatter_short_kernel<E, V, L><<<blocks_for(n, kShortWarps),
-                                  kWarp * kShortWarps, 0, s>>>(
-      sh, ln, rows, vcols, n, ws);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  // one block per work item, at most as many as stay resident: a block
-  // takes items in turn (blocks past the items exit)
+  // enough blocks for a warp a run or a block a long-run item, at most as
+  // many as stay resident (a block takes its work in turn)
   int sms = 0;
-  err = sm_count(&sms);
+  const cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return (int)err;
   constexpr int kUnits = kSliceBytes / (int)sizeof(V);
-  const int64_t items = (n / kSplit + 1) * ((vcols + kUnits - 1) / kUnits);
+  const int64_t items = (n / (kSplit + 1)) * ((vcols + kUnits - 1) / kUnits);
+  const int64_t warps = (n + kScatterWarps - 1) / kScatterWarps;
+  const int64_t want = items > warps ? items : warps;
   const int64_t resident = (int64_t)sms * kLongBlocksPerSM;
-  scatter_long_kernel<E, V, L>
-      <<<(unsigned)(items < resident ? items : resident), kLongThreads,
-         kLongSmem, s>>>(sh, ln, rows, vcols, ws);
-  return (int)cudaGetLastError();
+  return (int)mv::launch_dependent(
+      scatter_kernel<E, V, L>,
+      (unsigned)(want < resident ? want : resident), kLongThreads,
+      kLongSmem, s, sh, ln, rows, vcols, plan);
 }
 
 template <typename E, typename V4, typename L>
 int launch_scatter(const Shards& sh, const L& ln, int64_t rows, int64_t cols,
-                   int64_t n, void* ws, cudaStream_t s) {
-  auto* list = static_cast<unsigned long long*>(ws);
+                   const Plan& plan, cudaStream_t s) {
+  const int64_t n = ln.lanes();
   bool vec = cols % 4 == 0 && ln.deltas_aligned(16);
   for (int k = 0; k < sh.count; ++k) vec = vec && aligned(sh.base[k], 16);
   if (vec)
-    return launch_scatter_as<E, V4>(sh, ln, rows, cols / 4, n, list, s);
-  return launch_scatter_as<E, E>(sh, ln, rows, cols, n, list, s);
+    return launch_scatter_as<E, V4>(sh, ln, rows, cols / 4, n, plan, s);
+  return launch_scatter_as<E, E>(sh, ln, rows, cols, n, plan, s);
 }
 
 template <typename L>
 int scatter(const Shards& sh, const L& ln, int64_t rows, int64_t cols,
-            int64_t is_int, void* ws, int64_t ws_words, void* stream) {
-  const int64_t n = ln.lanes();
-  if (n <= 0) return (int)cudaSuccess;
-  if (ws == nullptr || ws_words < kListHead + 2 * (n / kSplit + 1))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+            int64_t is_int, const Plan& plan, cudaStream_t s) {
   if (is_int)
-    return launch_scatter<int32_t, int4>(sh, ln, rows, cols, n, ws, s);
-  return launch_scatter<float, float4>(sh, ln, rows, cols, n, ws, s);
+    return launch_scatter<int32_t, int4>(sh, ln, rows, cols, plan, s);
+  return launch_scatter<float, float4>(sh, ln, rows, cols, plan, s);
 }
 
-GlobalLanes global_lanes(const int32_t* ids, const int64_t* order,
+GlobalLanes global_lanes(const int32_t* ids, const int32_t* order,
                          const void* deltas, const int32_t* valid,
                          int64_t n) {
   return GlobalLanes{ids, order, deltas, valid, n, valid != nullptr};
@@ -764,42 +917,76 @@ int mv_row_gather_mesh(void* const* bases, const int64_t* firsts,
 }
 
 // `is_int`: 0 for float32 tables and deltas, 1 for int32. Ids outside
-// [0, rows) add nothing. `order` (nullable): deltas row of sorted lane j
-// is order[j], else j. `valid` (nullable): indexed like deltas rows; 0
+// [0, rows) add nothing. `sorted` 0: the ids come in any order, and the
+// call plans them (the sort, then the run scan) before the scatter reads
+// each sorted lane's delta row through the plan's permutation; 1: the ids
+// come sorted ascending, the run scan takes them as they are and lane j
+// reads delta row j. `valid` (nullable): indexed like delta rows; 0
 // gates the lane off. `workspace`: `ws_words` int64 on the card, zero
-// before the first call and left zero by each call on the stream; at
-// least 2 + 2 * (n / kSplit + 1) for the n lanes launched (the long-run
-// list), or the call fails.
+// when first used, and left by each call as the next call on the stream
+// needs it (csrc/row_plan.cuh); at least the layout for n lanes, or the
+// call fails and nothing launches.
 int mv_row_scatter_add(void* param, int64_t rows, int64_t cols,
-                       int64_t is_int, const int32_t* ids,
-                       const int64_t* order, const void* deltas,
-                       const int32_t* valid, int64_t n, void* workspace,
-                       int64_t ws_words, void* stream) {
-  return scatter(mv::one_shard(param), global_lanes(ids, order, deltas,
-                                                    valid, n),
-                 rows, cols, is_int, workspace, ws_words, stream);
+                       int64_t is_int, const int32_t* ids, int64_t sorted,
+                       const void* deltas, const int32_t* valid, int64_t n,
+                       void* workspace, int64_t ws_words, void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  if (!fits(workspace, ws_words, n) || rows < 1 || rows > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const mv::PlanLayout lay(n, kSplit);
+  GlobalLanes ln = global_lanes(ids, nullptr, deltas, valid, n);
+  const int err =
+      sorted ? plan_runs(Shards{}, ln, rows, workspace, ws_words, lay, s)
+             : plan_global(ids, n, rows, workspace, ws_words, lay, &ln, s);
+  if (err != 0) return err;
+  return scatter(mv::one_shard(param), ln, rows, cols, is_int,
+                 plan_at(at<uint32_t>(workspace, lay.plan), lay), s);
 }
 
-// The same over the `count` shards of one card (at most mv::kMaxShards),
-// each of `rows` rows: bases[k] is shard k's row 0, firsts[k] its global
-// id; ids are global. Host arrays, copied into the launch.
+// The plan alone of n ids in any order over a table of R rows (global
+// ids: a sharded table's rows all together), into `workspace` as for
+// mv_row_scatter_add; the mesh form shares it among its cards.
+int mv_row_scatter_plan(const int32_t* ids, int64_t n, int64_t R,
+                        void* workspace, int64_t ws_words, void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  if (!fits(workspace, ws_words, n) || R < 1 || R > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  GlobalLanes ln = global_lanes(ids, nullptr, nullptr, nullptr, n);
+  return plan_global(ids, n, R, workspace, ws_words,
+                     mv::PlanLayout(n, kSplit), &ln,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// The scatter of n lanes (deltas in request order, a row each) along the
+// plan that mv_row_scatter_plan left at `plan` (the plan_words of its
+// workspace that start at its plan offset, here on this card), over the `count` shards of one card (at
+// most mv::kMaxShards), each of `rows` rows: bases[k] is shard k's row 0,
+// firsts[k] its global id. Host arrays, copied into the launch. A run
+// whose row no shard of the launch holds adds nothing.
 int mv_row_scatter_add_mesh(void* const* bases, const int64_t* firsts,
                             int64_t count, int64_t rows, int64_t cols,
-                            int64_t is_int, const int32_t* ids,
-                            const int64_t* order, const void* deltas,
-                            const int32_t* valid, int64_t n, void* workspace,
-                            int64_t ws_words, void* stream) {
+                            int64_t is_int, const void* plan,
+                            const void* deltas, int64_t n, void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
   Shards sh;
-  if (!mv::make_shards(sh, bases, firsts, count))
+  if (!mv::make_shards(sh, bases, firsts, count) || plan == nullptr ||
+      n >= mv::kMaxPlanLanes)
     return (int)cudaErrorInvalidValue;
-  return scatter(sh, global_lanes(ids, order, deltas, valid, n), rows, cols,
-                 is_int, workspace, ws_words, stream);
+  const mv::PlanLayout lay(n, kSplit);
+  const GlobalLanes ln = global_lanes(
+      nullptr, at<int32_t>(const_cast<void*>(plan), lay.order), deltas,
+      nullptr, n);
+  return scatter(sh, ln, rows, cols, is_int, plan_at(plan, lay),
+                 static_cast<cudaStream_t>(stream));
 }
 
 // The same over each shard's own lanes (the host-sliced form): shard k's
 // lanes[k] lanes (at least 1) are ids[k] (LOCAL ids, sorted ascending),
 // deltas[k] (a row each) and valid[k] (all null or none); no permutation.
-// Host arrays of `count` entries, copied into the launch.
+// Host arrays of `count` entries, copied into the launch. The run scan
+// takes each shard's lanes as a segment of their own, so two shards'
+// equal local ids stay two runs.
 int mv_row_scatter_add_shards(void* const* bases, const int64_t* firsts,
                               int64_t count, int64_t rows, int64_t cols,
                               int64_t is_int, const int32_t* const* ids,
@@ -808,7 +995,8 @@ int mv_row_scatter_add_shards(void* const* bases, const int64_t* firsts,
                               const int64_t* lanes, void* workspace,
                               int64_t ws_words, void* stream) {
   Shards sh;
-  if (!mv::make_shards(sh, bases, firsts, count))
+  if (!mv::make_shards(sh, bases, firsts, count) || rows < 1 ||
+      rows > INT32_MAX)
     return (int)cudaErrorInvalidValue;
   ShardLanes ln{};
   ln.masked = valid[0] != nullptr;
@@ -821,7 +1009,14 @@ int mv_row_scatter_add_shards(void* const* bases, const int64_t* firsts,
     ln.start[k + 1] = ln.start[k] + lanes[k];
   }
   ln.count = (int)count;
-  return scatter(sh, ln, rows, cols, is_int, workspace, ws_words, stream);
+  const int64_t n = ln.lanes();
+  if (!fits(workspace, ws_words, n)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const mv::PlanLayout lay(n, kSplit);
+  const int err = plan_runs(sh, ln, rows, workspace, ws_words, lay, s);
+  if (err != 0) return err;
+  return scatter(sh, ln, rows, cols, is_int,
+                 plan_at(at<uint32_t>(workspace, lay.plan), lay), s);
 }
 
 }  // extern "C"

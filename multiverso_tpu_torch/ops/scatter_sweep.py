@@ -5,9 +5,10 @@ Each variant is the source with one or two ``constexpr`` values replaced
 (the run split ``kSplit``, the ring's depth ``kStages`` and rows
 ``kStageRows``, the long-run blocks an SM holds ``kLongBlocksPerSM``, the
 add batch ``kBatch``, the short-run load depth ``kShortLoads``, the
-column slice ``kSliceBytes``), built with ``nvcc`` into a library of its
-own (every build started at once), and called on the sorted lanes of
-``chip_smoke.py`` phase 2's row-scatter cases: 4,096 and 24,576 Zipf-1.2
+column slice ``kSliceBytes``), built with ``nvcc`` with ``row_plan.cu``
+into a library of its own (every build started at once), and called on
+``chip_smoke.py`` phase 2's row-scatter cases in request order (the whole
+call: the plan, then the scatter along it): 4,096 and 24,576 Zipf-1.2
 ids and 24,576 lanes of one id into the 10,001 x 100 float32 word2vec
 table, and 24,576 uniform ids. Every variant must equal
 the plain version on the CPU bit for bit; its time is the mean of CUDA
@@ -78,7 +79,7 @@ def build_all(work: str) -> dict:
         procs[name] = (so, subprocess.Popen(
             [_build._nvcc(), *_build.ARCH_FLAGS, "-std=c++17", "-O3",
              "-shared", "-Xcompiler", "-fPIC", "-I", str(_build.CSRC),
-             "-o", so, cu],
+             "-o", so, cu, str(_build.CSRC / "row_plan.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (so, proc) in procs.items():
@@ -133,7 +134,6 @@ def main(argv=None) -> int:
             deltas_h = torch.randn(n, DIM, generator=g)
             ids = torch.as_tensor(ids_h, dtype=torch.int32, device="cuda")
             deltas = deltas_h.cuda()
-            sids, order = torch.sort(ids, stable=True)
             want = tk.row_scatter_add_plain(param0.clone(),
                                             torch.as_tensor(ids_h), deltas_h)
             ws = torch.zeros(tk.scatter_workspace_size(n), dtype=torch.int64,
@@ -143,8 +143,8 @@ def main(argv=None) -> int:
                 p = param0.cuda()
 
                 def call():
-                    err = fn(p.data_ptr(), ROWS, DIM, 0, sids.data_ptr(),
-                             order.data_ptr(), deltas.data_ptr(), None, n,
+                    err = fn(p.data_ptr(), ROWS, DIM, 0, ids.data_ptr(), 0,
+                             deltas.data_ptr(), None, n,
                              ws.data_ptr(), ws.numel(),
                              torch.cuda.current_stream().cuda_stream)
                     if err:
@@ -164,7 +164,7 @@ def main(argv=None) -> int:
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
-    print(f"ms of the kernel on sorted lanes, bit-identical to the CPU "
+    print(f"ms of a call (plan and scatter), bit-identical to the CPU "
           f"plain version in every variant; {gpu}")
     if args.json:
         with open(args.json, "w") as f:

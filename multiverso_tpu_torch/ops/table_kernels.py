@@ -11,8 +11,9 @@ Counterpart of ``multiverso_tpu/ops/table_kernels.py`` (``build_row_gather``,
 ``build_kv_lookup``, ``build_kv_probe_update``, the ``*_sharded``
 builders and the functional ``gather_rows`` / ``row_scatter_add`` /
 ``coo_scatter_add``). On CUDA tensors each wrapper launches its
-hand-written kernel from ``csrc/row_kernels.cu``, ``csrc/coo_kernels.cu``
-or ``csrc/kv_kernels.cu`` on the tensors' card and its current stream, or
+hand-written kernel from ``csrc/row_kernels.cu`` (with the row scatter's
+stable sort by row in ``csrc/row_plan.cu``), ``csrc/coo_kernels.cu`` or
+``csrc/kv_kernels.cu`` on the tensors' card and its current stream, or
 raises; on CPU tensors it runs the plain PyTorch version that stands
 beside it. Nothing falls back from one to the other.
 
@@ -20,9 +21,9 @@ Each wrapper adds one to ``LAUNCHES[<kernel>]`` where it launches its
 kernel, so a run can show that its main path went through the kernels.
 The counts and the row scatter's workspaces are shared by every host
 thread (a superstep over a data axis runs one per replica) and change
-under ``_LOCK`` only; a thread queues a row scatter's two kernels under
-``_SCATTER_LOCK``, so that no other scatter on the same workspace comes
-between them.
+under ``_LOCK`` only; a thread queues a row scatter's kernels (its plan
+and the scatter that reads it) under ``_SCATTER_LOCK``, so that no other
+scatter on the same workspace comes between them.
 
 Layouts: a table is flat ``[R, C]`` or tiled ``[R, C/128, 128]``; both
 are read as the contiguous ``[R, C]`` rows they are. Types: the gather
@@ -34,13 +35,17 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
 from multiverso_tpu_torch.telemetry.trace import profiler_range
 
 LAUNCHES = {"row_gather": 0, "row_scatter_add": 0,
+            # the row scatter's stable sort by row and its run scan: one
+            # per call that sorts (the flat form, which also counts under
+            # row_scatter_add, and the mesh form's one plan a call)
+            "row_scatter_plan": 0,
             "row_scatter_add_masked": 0, "coo_scatter_add": 0,
             "coo_scatter_add_masked": 0, "kv_lookup": 0,
             "kv_probe_update": 0, "kv_commit": 0,
@@ -68,6 +73,13 @@ ADD_DTYPES = (torch.float32, torch.int32)
 #: a shorter run is one warp's. It sizes the workspace here; the C entry
 #: point refuses a workspace too small for its own constant
 SCATTER_SPLIT = 32
+#: ``kPlanTile``, ``kMaxBins`` and ``kStatusWords`` of csrc/row_plan.cuh:
+#: a plan kernel's block takes a tile of this many lanes; a tile's row of
+#: look-back words at the workspace's top holds two sets of this many
+#: digits for the sort passes, then the run scan's 64-bit word
+PLAN_TILE = 1024
+PLAN_MAX_BINS = 256
+PLAN_STATUS_WORDS = 2 * PLAN_MAX_BINS + 4
 #: the most shards one mesh launch serves (``kMaxShards``,
 #: csrc/shards.cuh); a card holding more launches in groups
 MESH_MAX_SHARDS = 16
@@ -75,8 +87,9 @@ MESH_MAX_SHARDS = 16
 
 #: guards LAUNCHES and _WORKSPACES across host threads
 _LOCK = threading.Lock()
-#: held while a thread queues a row scatter's kernels on a workspace
-_SCATTER_LOCK = threading.Lock()
+#: held while a thread queues a row scatter's kernels on a workspace (the
+#: mesh form holds it over its plan and every card's scatter)
+_SCATTER_LOCK = threading.RLock()
 
 
 def reset_launches() -> None:
@@ -143,17 +156,18 @@ def _is_int(param: torch.Tensor) -> int:
 def _launch(name: str, fn: str, *args, device: torch.device,
             counts: Optional[Dict[str, int]] = None,
             tag: Optional[str] = None,
-            scatter_lanes: Optional[int] = None) -> None:
+            scatter_lanes: Optional[int] = None) -> Optional[torch.Tensor]:
     """Call C entry point ``fn`` on ``device`` (the operands' card), on
     that device's current stream; count the launch under ``name`` in
     ``counts`` (this module's ``LAUNCHES`` by default), and under ``tag``
     in ``LAUNCHES`` too when given (a launch a second name counts: a KV
-    or COO sharded form's first launch, each sharded row scatter); raise
-    on a CUDA error. ``scatter_lanes``: the row scatter's
-    lane count; its workspace (pointer, words) goes in before the
-    stream."""
+    or COO sharded form's first launch, each sharded row scatter, a flat
+    row scatter's plan); raise on a CUDA error. ``scatter_lanes``: the
+    row scatter's lane count; its workspace (pointer, words) goes in
+    before the stream, and is returned."""
     from multiverso_tpu_torch.ops import _build
     lib = _build.load()
+    ws = None
     # under an active torch.profiler the capture names the C entry point
     # around its kernels; otherwise a null context
     with profiler_range(fn), torch.cuda.device(device):
@@ -161,9 +175,9 @@ def _launch(name: str, fn: str, *args, device: torch.device,
         if scatter_lanes is None:
             err = getattr(lib, fn)(*args, stream)
         else:
-            # the call's two kernels share the stream's workspace: no other
-            # thread's scatter may queue between them (one that did handed
-            # its long runs to this call's second kernel)
+            # the call's kernels share the stream's workspace: no other
+            # thread's scatter may queue between them (one that did
+            # overwrote this call's plan before its scatter read it)
             with _SCATTER_LOCK:
                 ws = _scatter_workspace(scatter_lanes, device, stream)
                 err = getattr(lib, fn)(*args, ws.data_ptr(), ws.numel(),
@@ -178,6 +192,7 @@ def _launch(name: str, fn: str, *args, device: torch.device,
     if err != 0:
         raise RuntimeError(f"{fn} launch failed on {device}: CUDA error "
                            f"{err}")
+    return ws
 
 
 # -- row gather --------------------------------------------------------------
@@ -213,7 +228,74 @@ def gather_rows(param, ids: torch.Tensor) -> torch.Tensor:
     return out
 
 
-# -- sorted row scatter-add ---------------------------------------------------
+# -- row scatter-add and its plan ----------------------------------------------
+
+
+class RowScatterPlan(NamedTuple):
+    """A row scatter's plan, as int64 tensors: ``order`` the stable
+    permutation of the lanes by row (sorted lane j is request lane
+    ``order[j]``; a lane whose id lies outside ``[0, R)`` after every
+    real run), and its runs in row order: each run's ``rows``, its
+    ``first`` sorted lane and its ``counts`` of lanes; ``long`` the
+    indices of the runs of more than ``SCATTER_SPLIT`` lanes."""
+    order: torch.Tensor
+    rows: torch.Tensor
+    first: torch.Tensor
+    counts: torch.Tensor
+    long: torch.Tensor
+
+
+def row_scatter_plan_plain(ids: torch.Tensor, rows: int) -> RowScatterPlan:
+    """The plan of :func:`row_scatter_plan` in plain PyTorch: a stable
+    ``torch.sort`` of the ids (an id outside ``[0, rows)`` taken as
+    ``rows``), ``torch.unique_consecutive`` for the runs, and the runs
+    longer than ``SCATTER_SPLIT``."""
+    key = ids.long()
+    key = torch.where((key >= 0) & (key < rows), key,
+                      torch.full_like(key, rows))
+    skey, order = torch.sort(key, stable=True)
+    uniq, counts = torch.unique_consecutive(skey, return_counts=True)
+    first = torch.cumsum(counts, 0) - counts
+    real = uniq < rows
+    uniq, first, counts = uniq[real], first[real], counts[real]
+    return RowScatterPlan(order, uniq, first, counts,
+                          torch.nonzero(counts > SCATTER_SPLIT).flatten())
+
+
+def row_scatter_plan(ids: torch.Tensor, rows: int) -> RowScatterPlan:
+    """The plan a row scatter over ``ids`` (any order) into a table of
+    ``rows`` rows walks, read back whole: on a card, ``mv_row_scatter_plan``
+    (csrc/row_plan.cu's stable sort by row, then the run scan) into a
+    workspace of its own; on the CPU its plain version. The scatter-adds
+    queue the plan themselves; this form is for holding the kernel
+    against its plain version."""
+    _check_lanes("ids", ids)
+    if ids.device.type == "cpu":
+        return row_scatter_plan_plain(ids, rows)
+    n = ids.shape[0]
+    if n == 0:
+        empty = torch.zeros(0, dtype=torch.int64, device=ids.device)
+        return RowScatterPlan(*(empty,) * 5)
+    ids = ids.to(torch.int32).contiguous()
+    ws = torch.zeros(scatter_workspace_size(n), dtype=torch.int64,
+                     device=ids.device)
+    _launch("row_scatter_plan", "mv_row_scatter_plan", ids.data_ptr(), n,
+            rows, ws.data_ptr(), ws.numel(), device=ids.device)
+    return _read_plan(ws, n)
+
+
+def _read_plan(ws: torch.Tensor, n: int) -> RowScatterPlan:
+    """The plan that a workspace holds for ``n`` lanes
+    (:func:`plan_layout`), as a :class:`RowScatterPlan`."""
+    lay = plan_layout(n)
+    w = ws.view(torch.int32)
+    runs, longs = (int(x) for x in w[lay["counts"]:lay["counts"] + 2].tolist())
+
+    def part(key, count):
+        return w[lay[key]:lay[key] + count].long()
+    first = part("first", runs)
+    return RowScatterPlan(part("order", n), part("row", runs), first,
+                          part("end", runs) - first, part("longs", longs))
 
 
 def row_scatter_add_plain(param: torch.Tensor, ids: torch.Tensor,
@@ -241,35 +323,63 @@ def row_scatter_add(param, ids: torch.Tensor, deltas: torch.Tensor):
     """Duplicate-safe ``param[ids] += deltas``, in place; returns ``param``.
 
     Replaces ``build_row_scatter_add`` (the TPU ``_row_scatter_kernel``)
-    behind the functional ``row_scatter_add``: ids in any order are
-    stable-sorted on the device and the kernel reads each sorted lane's
-    delta through the sort's permutation. Ids out of ``[0, R)`` are
-    dropped by the kernel (the plain version raises). A
-    :class:`ShardedParam` goes to :func:`row_scatter_add_mesh`."""
+    behind the functional ``row_scatter_add``, and the XLA argsort that
+    feeds it: one ``mv_row_scatter_add`` queues the call's plan (the
+    hand-written stable sort of the ids by row, then the table of runs)
+    and the scatter that walks it, reading each sorted lane's delta
+    through the plan's permutation. Ids out of ``[0, R)`` are dropped by
+    the kernel (the plain version raises). A :class:`ShardedParam` goes to
+    :func:`row_scatter_add_mesh`."""
     if isinstance(param, ShardedParam):
         return row_scatter_add_mesh(param, ids, deltas)
     _check(param, ids, deltas)
     if param.device.type == "cpu":
         return row_scatter_add_plain(param, ids, deltas)
-    if ids.shape[0] == 0:
-        return param
-    sids, order = torch.sort(ids.to(torch.int32), stable=True)
-    _launch_scatter("row_scatter_add", param, sids, order,
-                    deltas.contiguous(), None)
+    if ids.shape[0]:
+        _launch_scatter("row_scatter_add", param,
+                        ids.to(torch.int32).contiguous(), False,
+                        deltas.contiguous(), None, tag="row_scatter_plan")
     return param
+
+
+def plan_layout(n: int) -> Dict[str, int]:
+    """The row scatter's workspace for ``n`` lanes, in 32-bit words
+    (``PlanLayout`` of csrc/row_plan.cuh). From its base: the counter and
+    digit counts that every call leaves zero (``ctl``, ``digits``), the
+    plan (``counts``, ``order``, ``first``, ``end``, ``row``, ``longs``;
+    ``plan_words`` from ``plan`` on), the sort's ``keys`` and buffers; and
+    at the workspace's top, counted down from its last word,
+    ``status_words`` of look-back rows (``PLAN_STATUS_WORDS`` a tile of
+    ``PLAN_TILE`` lanes). ``words``: all of it. Every region from the base
+    starts on a multiple of 4 words."""
+    def r4(w):
+        return (w + 3) // 4 * 4
+    m, tiles = r4(n), -(-n // PLAN_TILE)
+    lay = {"ctl": 0, "digits": 16}
+    lay["plan"] = lay["counts"] = lay["digits"] + 4 * PLAN_MAX_BINS
+    lay["order"] = lay["plan"] + 4
+    lay["first"] = lay["order"] + m
+    lay["end"] = lay["first"] + m
+    lay["row"] = lay["end"] + m
+    lay["longs"] = lay["row"] + m
+    lay["keys"] = lay["longs"] + r4(n // (SCATTER_SPLIT + 1) + 1)
+    lay["plan_words"] = lay["keys"] - lay["plan"]
+    lay["status_words"] = tiles * PLAN_STATUS_WORDS
+    lay["words"] = lay["keys"] + 5 * m + lay["status_words"]
+    return lay
 
 
 def scatter_workspace_size(n: int) -> int:
     """int64 words of ``mv_row_scatter_add``'s workspace for ``n`` lanes:
-    the count of long runs and the long-run kernel's finished blocks, then
-    a (first lane, length) pair for each of at most ``n // SCATTER_SPLIT +
-    1`` runs longer than ``SCATTER_SPLIT``."""
-    return 2 + 2 * (n // SCATTER_SPLIT + 1)
+    :func:`plan_layout`'s 32-bit words, rounded up."""
+    return (plan_layout(n)["words"] + 1) // 2
 
 
-#: the row scatter's workspace of each (device, stream): zeroed when made,
-#: and left zero by every call (the kernel's last block clears it), so a
-#: call allocates and clears nothing; calls on one stream run in turn
+#: the row scatter's workspace of each (device, stream): zeroed when made;
+#: a call zeroes the sort's look-back words it is about to use one kernel
+#: ahead and leaves its counter, digit counts and run-scan words zero (the
+#: run scan clears them), and the next call overwrites its plan, so a call
+#: allocates and clears nothing itself; calls on one stream run in turn
 _WORKSPACES: Dict[tuple, torch.Tensor] = {}
 
 
@@ -288,18 +398,19 @@ def _scatter_workspace(n: int, device: torch.device,
 
 
 def _launch_scatter(name: str, param: torch.Tensor, ids: torch.Tensor,
-                    order: Optional[torch.Tensor], deltas: torch.Tensor,
-                    valid: Optional[torch.Tensor]) -> None:
-    """Launch ``mv_row_scatter_add`` over sorted int32 ``ids`` (rows of
-    ``param``; lanes outside it add nothing), deltas read through
-    ``order`` when given, gated by ``valid`` when given."""
+                    is_sorted: bool, deltas: torch.Tensor,
+                    valid: Optional[torch.Tensor],
+                    tag: Optional[str] = None) -> None:
+    """Launch ``mv_row_scatter_add`` over contiguous int32 ``ids`` (rows
+    of ``param``; lanes outside it add nothing): in any order, planned by
+    the call's sort, or ``is_sorted`` (ascending: the run scan alone, lane
+    j's delta row j); gated by ``valid`` when given."""
     flat = _rows(param)
     n = ids.shape[0]
     _launch(name, "mv_row_scatter_add", flat.data_ptr(), flat.shape[0],
-            flat.shape[1], _is_int(param), ids.data_ptr(),
-            None if order is None else order.data_ptr(), deltas.data_ptr(),
-            None if valid is None else valid.data_ptr(), n,
-            device=param.device, scatter_lanes=n)
+            flat.shape[1], _is_int(param), ids.data_ptr(), int(is_sorted),
+            deltas.data_ptr(), None if valid is None else valid.data_ptr(),
+            n, device=param.device, tag=tag, scatter_lanes=n)
 
 
 def row_scatter_add_masked(param: torch.Tensor, ids: torch.Tensor,
@@ -310,14 +421,15 @@ def row_scatter_add_masked(param: torch.Tensor, ids: torch.Tensor,
     0 add nothing. In place; returns ``param``.
 
     Replaces ``build_row_scatter_add_masked`` (the TPU
-    ``_row_scatter_masked_kernel``): the same CUDA kernel as
-    :func:`row_scatter_add`, with its mask operand set."""
+    ``_row_scatter_masked_kernel``): the same CUDA entry point as
+    :func:`row_scatter_add`, its mask operand set and its sort skipped
+    (the run scan takes the sorted ids as they come)."""
     _check(param, ids, deltas, valid)
     if param.device.type == "cpu":
         return row_scatter_add_masked_plain(param, ids, deltas, valid)
     if ids.shape[0]:
         _launch_scatter("row_scatter_add_masked", param,
-                        ids.to(torch.int32).contiguous(), None,
+                        ids.to(torch.int32).contiguous(), True,
                         deltas.contiguous(),
                         valid.to(torch.int32).contiguous())
     return param
@@ -1304,9 +1416,10 @@ def row_scatter_add_sharded(shards, ids, deltas, valid, *, counts):
 
     Replaces ``build_row_scatter_add_sharded`` (the masked row scatter per
     shard): one ``mv_row_scatter_add_shards`` per card, which runs the
-    masked scatter's kernels over the real lanes of every shard the card
-    holds, each shard's lanes a segment of their own (a run never spans
-    two shards), nothing sorted again. Each launch counts under
+    masked scatter's kernels (the run scan, then the scatter along its
+    table) over the real lanes of every shard the card holds, each
+    shard's lanes a segment of their own (a run never spans two shards),
+    nothing sorted again. Each launch counts under
     ``row_scatter_add_sharded`` and ``row_scatter_add_masked``."""
     if _shard_kind(shards) == "cpu":
         return row_scatter_add_sharded_plain(shards, ids, deltas, valid)
@@ -1398,8 +1511,9 @@ def coo_scatter_add_sharded(shards, rows, cols, vals, valid, *, counts):
 # Lanes outside a launch's windows are foreign (see csrc/row_kernels.cu
 # for why the reference's mapping of foreign lanes onto the shard's last
 # row is not copied). Lane counts per shard stay on the device, so
-# nothing syncs the host. The row scatter-add sorts its ids once, and the
-# COO add a float32 table's lanes, on the first shard's device, for every
+# nothing syncs the host. The row scatter-add plans its ids once (the
+# hand-written stable sort by row and the table of runs), and the COO add
+# sorts a float32 table's lanes, on the first shard's device, for every
 # card; sorted global ids keep every run inside one shard and in the flat
 # kernel's order (an int32 COO sum is the same in any order), so a
 # sharded table ends bit-identical to the unsharded one. Each launch counts one under
@@ -1673,10 +1787,14 @@ def row_scatter_add_mesh(param: ShardedParam, ids: torch.Tensor,
     place, global ids in any order; returns ``param``.
 
     Replaces the reference's in-trace ``_sharded_row_scatter_add``: one
-    stable sort of the ids on the first device, shared by every card,
-    then one ``mv_row_scatter_add_mesh`` per card over the shards it
-    holds, on its current stream, reading the deltas through the sort's
-    permutation."""
+    plan of the ids (``mv_row_scatter_plan``: the stable sort by row and
+    the table of runs over the global rows) on the first device, shared
+    by every card (copied to another card as one block), then one
+    ``mv_row_scatter_add_mesh`` per card over the shards it holds, on its
+    current stream, walking the plan and reading the deltas through its
+    permutation. The plan and every card's scatter are queued under
+    ``_SCATTER_LOCK``: the first card's scatter reads the plan where the
+    workspace holds it."""
     kind = _check_mesh(param, ADD_DTYPES)
     _check(param._first, ids, deltas)
     if kind == "cpu":
@@ -1684,16 +1802,21 @@ def row_scatter_add_mesh(param: ShardedParam, ids: torch.Tensor,
     n = ids.shape[0]
     if n == 0:
         return param
-    sids, order = torch.sort(ids.to(torch.int32), stable=True)
-    lanes = (sids, order, deltas.contiguous())
+    ids, deltas = ids.to(torch.int32).contiguous(), deltas.contiguous()
     rows, cols = _rows(param._first).shape
-    cache = {}
-    for dev, *table in param.launch_tables():
-        i_s, o_s, d_s = _per_device(lanes, param.device, cache, dev)
-        _launch("row_scatter_add_mesh", "mv_row_scatter_add_mesh", *table,
-                rows, cols, _is_int(param._first), i_s.data_ptr(),
-                o_s.data_ptr(), d_s.data_ptr(), None, n, device=dev,
-                scatter_lanes=n)
+    dev0 = param.device
+    with _SCATTER_LOCK:
+        ws = _launch("row_scatter_plan", "mv_row_scatter_plan",
+                     ids.data_ptr(), n, param.shape[0], device=dev0,
+                     scatter_lanes=n)
+        lay = plan_layout(n)
+        plan = ws.view(torch.int32)[lay["plan"]:lay["keys"]]
+        cache = {}
+        for dev, *table in param.launch_tables():
+            p_d, d_d = _per_device((plan, deltas), dev0, cache, dev)
+            _launch("row_scatter_add_mesh", "mv_row_scatter_add_mesh",
+                    *table, rows, cols, _is_int(param._first),
+                    p_d.data_ptr(), d_d.data_ptr(), n, device=dev)
     return param
 
 
@@ -1753,5 +1876,7 @@ __all__ = ["ADD_DTYPES", "GATHER_DTYPES", "KV_UPDATERS", "LAUNCHES",
            "row_scatter_add_masked_plain", "row_scatter_add_mesh",
            "row_scatter_add_mesh_plain", "row_scatter_add_plain",
            "row_scatter_add_sharded", "row_scatter_add_sharded_plain",
-           "scatter_workspace_size", "shard_groups",
+           "RowScatterPlan", "plan_layout", "row_scatter_plan",
+           "row_scatter_plan_plain", "scatter_workspace_size",
+           "shard_groups",
            "shard_lane_launches"]

@@ -1805,9 +1805,10 @@ def test_mesh_coo_is_one_launch_per_card(cuda):
 
 
 def test_scatter_workspace_left_zero_and_its_size_checked(cuda):
-    """The long-run kernel's last block zeroes the workspace's head, so the
-    next call on the stream starts from an empty list; a workspace smaller
-    than the kernel's own split needs is refused, and nothing launches."""
+    """A call leaves the counter, the digit counts and the run scan's
+    look-back words zero and zeroes the sort's before it reads them, so
+    the next call on the stream, larger or smaller, finds a clean scratch; a workspace smaller than the plan's layout is
+    refused, and nothing launches."""
     from multiverso_tpu_torch.ops import _build
     rng = np.random.default_rng(9)
     ids = torch.from_numpy(np.concatenate([
@@ -1818,20 +1819,152 @@ def test_scatter_workspace_left_zero_and_its_size_checked(cuda):
         d = torch.from_numpy(_mixed(rng, (len(ids), 100)))
         got, want = _scatter_on_card(cuda, x, ids, d)
         assert torch.equal(_bits(got), _bits(want))
+    # a smaller call after them finds its scratch where they left it zero
+    small_ids = ids[rng.permutation(len(ids))[:999]]
+    got, want = _scatter_on_card(cuda, x, small_ids, d[:999])
+    assert torch.equal(_bits(got), _bits(want))
     dev = torch.device("cuda", torch.cuda.current_device())
     ws = tk._WORKSPACES[(dev, torch.cuda.current_stream().cuda_stream)]
-    assert ws[:2].tolist() == [0, 0]
     n = len(ids)
+    lay = tk.plan_layout(n)
+    # the counter and digit counts, and each tile's run-scan word (the
+    # last two of its row's first 2 * PLAN_MAX_BINS + 2 below the top)
+    w = ws.view(torch.int32)
+    assert not w[:lay["plan"]].any()
+    rows = w[w.numel() - lay["status_words"]:].view(-1, tk.PLAN_STATUS_WORDS)
+    run_words = 2 * tk.PLAN_MAX_BINS
+    assert not rows[:, run_words:run_words + 2].any()
     p, i, dd = x.to(cuda), ids.to(cuda), d.to(cuda)
     small = torch.zeros(tk.scatter_workspace_size(n) - 1, dtype=torch.int64,
                         device=cuda)
     err = _build.load().mv_row_scatter_add(
-        p.data_ptr(), 400, 100, 0, i.data_ptr(), None, dd.data_ptr(), None,
+        p.data_ptr(), 400, 100, 0, i.data_ptr(), 0, dd.data_ptr(), None,
         n, small.data_ptr(), small.numel(),
         torch.cuda.current_stream().cuda_stream)
     assert err != 0
     torch.cuda.synchronize()
     assert torch.equal(p.cpu(), x)
+    assert not small.any()
+
+
+# -- the row scatter's plan: the stable sort by row and its table of runs ------
+
+
+def _plan_case(case, rng):
+    """(int32 ids in request order, R) of one plan case: Zipf-1.2 at
+    phase 2's sizes, one id, sorted, reversed, ids outside [0, R), R 1,
+    2^20 and 2^30 + 5 (four sort passes), one lane, a count that is no
+    multiple of 32, and the sparse-LR gradient's shape (three passes,
+    many tiles)."""
+    R = 10_001
+
+    def zipf(n, rows=R, a=1.2):
+        return np.clip(rng.zipf(a, n) - 1, 0, rows - 1).astype(np.int32)
+    if case.startswith("zipf"):
+        return zipf(int(case[4:])), R
+    if case == "one":
+        return np.full(24_576, 7, np.int32), R
+    if case == "sorted":
+        return np.sort(zipf(24_576)), R
+    if case == "reversed":
+        return np.sort(zipf(24_576))[::-1].copy(), R
+    if case == "out_of_range":
+        ids = zipf(5_000)
+        bad = rng.random(5_000) < 0.2
+        ids[bad] = rng.choice(np.array([-1, -5, R, R + 7, -2**31, 2**31 - 1],
+                                       np.int32), int(bad.sum()))
+        return ids, R
+    if case == "r1":
+        return rng.choice(np.array([-1, 0, 0, 0, 1], np.int32), 3_000), 1
+    if case == "r2p20":
+        return zipf(50_000, 1 << 20, 1.05), 1 << 20
+    if case == "r2p30":
+        return rng.integers(0, 1 << 30, 10_000).astype(np.int32), 2**30 + 5
+    if case == "n1":
+        return np.array([5], np.int32), R
+    if case == "n1000":
+        return zipf(1_000), R
+    if case == "slr":
+        return zipf(262_144, 159_007, 1.1), 159_007
+    raise ValueError(case)
+
+
+PLAN_CASES = ["zipf4096", "zipf24576", "one", "sorted", "reversed",
+              "out_of_range", "r1", "r2p20", "r2p30", "n1", "n1000", "slr"]
+
+
+@pytest.mark.parametrize("case", PLAN_CASES)
+def test_plan_kernel_equals_plain(cuda, case):
+    """mv_row_scatter_plan against row_scatter_plan_plain (torch.sort
+    stable, unique_consecutive, the long-run filter): the permutation,
+    the runs and the long-run list element for element; one count."""
+    rng = np.random.default_rng(PLAN_CASES.index(case))
+    ids, R = _plan_case(case, rng)
+    before = tk.LAUNCHES["row_scatter_plan"]
+    got = tk.row_scatter_plan(torch.from_numpy(ids).to(cuda), R)
+    want = tk.row_scatter_plan_plain(torch.from_numpy(ids), R)
+    assert tk.LAUNCHES["row_scatter_plan"] == before + 1
+    for name, g, w in zip(want._fields, got, want):
+        assert torch.equal(g.cpu(), w), name
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+@pytest.mark.parametrize("case", [c for c in PLAN_CASES if c != "r2p30"])
+def test_row_scatter_forms_equal_plain_on_plan_cases(cuda, case, dtype):
+    """The four row scatters on the plan's cases, bit for bit the plain
+    version on the CPU over the lanes they keep: #2 (any order, planned),
+    #9b (the same ids on four shards of one card, one plan), #3 (the ids
+    sorted, a fifth of the lanes gated off) and #9's host-sliced form (the
+    sorted lanes cut per shard). A lane outside the table adds nothing."""
+    rng = np.random.default_rng(100 + PLAN_CASES.index(case))
+    ids, R = _plan_case(case, rng)
+    S = 4
+    Rp = -(-R // S) * S        # the mesh's padded rows
+    cols = 100 if R <= 10_001 else 8
+    if dtype == np.float32:
+        x = _mixed(rng, (Rp, cols))
+        d = _mixed(rng, (len(ids), cols))
+    else:
+        x = rng.integers(-50, 50, (Rp, cols)).astype(dtype)
+        d = rng.integers(-9, 9, (len(ids), cols)).astype(dtype)
+
+    def plain(rows, lanes, deltas, valid=None):
+        keep = (lanes >= 0) & (lanes < rows)
+        if valid is not None:
+            keep &= valid
+        out = torch.from_numpy(x[:rows].copy())
+        return tk.row_scatter_add_plain(out, torch.from_numpy(lanes[keep]),
+                                        torch.from_numpy(deltas[keep]))
+
+    def card(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    before = dict(tk.LAUNCHES)
+    flat = tk.row_scatter_add(card(x[:R]), card(ids), card(d))
+    mesh = _mesh_param(torch.from_numpy(x), ["cuda:0"] * S)
+    tk.row_scatter_add(mesh, card(ids), card(d))
+    order = np.argsort(ids, kind="stable")
+    sids, sd = ids[order], d[order]
+    valid = rng.random(len(ids)) > 0.2
+    masked = tk.row_scatter_add_masked(card(x[:R]), card(sids), card(sd),
+                                       card(valid))
+    inside = (sids >= 0) & (sids < Rp)
+    (local, ld, lv), _, counts, _, _ = _slice_lanes(
+        sids[inside], Rp // S, S, [sd[inside], valid[inside]], [0, False])
+    shards = _on(x, cuda, S)
+    tk.row_scatter_add_sharded(shards, _on(local, cuda), _on(ld, cuda),
+                               _on(lv, cuda), counts=counts)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(flat), _bits(plain(R, ids, d)))
+    assert torch.equal(_bits(_mesh_host(mesh)), _bits(plain(Rp, ids, d)))
+    assert torch.equal(_bits(masked), _bits(plain(R, sids, sd, valid)))
+    assert torch.equal(_bits(torch.cat([t.cpu() for t in shards])),
+                       _bits(plain(Rp, sids, sd, valid)))
+    grown = {k: tk.LAUNCHES[k] - before[k] for k in tk.LAUNCHES}
+    assert grown["row_scatter_add"] == 1
+    assert grown["row_scatter_plan"] == 2       # the flat form's, the mesh's
+    assert grown["row_scatter_add_mesh"] == 1
+    assert grown["row_scatter_add_masked"] == 2  # #3, and #9's one launch
+    assert grown["row_scatter_add_sharded"] == 1
 
 
 # -- the COO scatter-add: int32 lanes in any order, once per card -------------

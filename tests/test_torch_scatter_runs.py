@@ -16,7 +16,7 @@ those are held
   package's own tests run them) on a long run over a Zipf background, at
   rtol 1e-6 as in ``tests/test_torch_table_kernels.py``.
 
-The host pieces of the dispatch (the long-run workspace, the grouping of a
+The host pieces of the dispatch (the plan's workspace, the grouping of a
 sharded param's shards by device, the per-card launch tables) are plain
 functions, tested here on CPU tensors. The CUDA kernels are held against
 the plain versions on the card by ``tests/test_torch_cuda.py``.
@@ -136,18 +136,44 @@ def test_masked_long_run_matches_pallas(length):
 
 @pytest.mark.parametrize("n", [1, 32, 33, 65, 20_000, 24_576])
 def test_workspace_holds_every_long_run(n):
-    """Room for the count, the long-run kernel's block counter and a
-    (start, length) pair per run longer than the split: at most
-    n // (split + 1) such runs fit in n lanes."""
-    words = tk.scatter_workspace_size(n)
-    assert words == 2 + 2 * (n // tk.SCATTER_SPLIT + 1)
-    assert (words - 2) // 2 >= n // (tk.SCATTER_SPLIT + 1)
+    """The workspace's regions in order, each on a 16-byte boundary: the
+    counter and digit counts every call leaves zero, at offsets no n
+    moves; the plan (the counts, a run table of n entries, at most one run
+    a lane, and a long-run list for the at most n // (split + 1) runs
+    longer than the split); the sorted keys and two buffers of keys and of
+    lanes; and, counted down from the top, a row of look-back words for
+    every tile of ``PLAN_TILE`` lanes. The int64 words hold all of it."""
+    lay = tk.plan_layout(n)
+    order = ["ctl", "digits", "plan", "order", "first", "end", "row",
+             "longs", "keys", "words"]
+    offsets = [lay[k] for k in order]
+    assert offsets == sorted(offsets)
+    assert all(o % 4 == 0 for o in offsets)
+    assert (lay["ctl"], lay["digits"], lay["plan"]) == \
+        (0, 16, 16 + 4 * tk.PLAN_MAX_BINS)
+    tiles = -(-n // tk.PLAN_TILE)
+    assert lay["status_words"] == tiles * tk.PLAN_STATUS_WORDS
+    assert lay["counts"] == lay["plan"] and lay["order"] - lay["plan"] >= 2
+    for a, b in (("order", "first"), ("first", "end"), ("end", "row"),
+                 ("row", "longs")):
+        assert lay[b] - lay[a] >= n
+    assert lay["keys"] - lay["longs"] >= n // (tk.SCATTER_SPLIT + 1)
+    assert lay["plan_words"] == lay["keys"] - lay["plan"]
+    assert lay["words"] - lay["status_words"] - lay["keys"] >= 5 * n
+    assert 2 * tk.scatter_workspace_size(n) >= lay["words"]
 
 
 def test_scatter_split_is_the_kernels_constant():
     from multiverso_tpu_torch.ops import _build
     src = (_build.CSRC / "row_kernels.cu").read_text()
     assert f"constexpr int64_t kSplit = {tk.SCATTER_SPLIT};" in src
+    plan = (_build.CSRC / "row_plan.cuh").read_text()
+    assert "constexpr int kPlanThreads = 256;" in plan
+    assert "constexpr int kPlanItems = 4;" in plan
+    assert tk.PLAN_TILE == 256 * 4
+    assert f"constexpr int kMaxBins = {tk.PLAN_MAX_BINS};" in plan
+    assert "constexpr int64_t kStatusWords = 2 * kMaxBins + 4;" in plan
+    assert tk.PLAN_STATUS_WORDS == 2 * tk.PLAN_MAX_BINS + 4
 
 
 def test_workspace_is_kept_per_stream_and_grown():

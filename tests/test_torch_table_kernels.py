@@ -144,5 +144,6 @@ def test_library_is_keyed_by_source_hash():
     assert path.parent.parts[-2:] == ("build", "torch_kernels")
     assert [s.name for s in _build.sources()] == [
         "coo_kernels.cu", "kv_kernels.cu", "lda_kernels.cu", "row_kernels.cu",
-        "kv_updaters.cuh", "lda_draw.cuh", "shards.cuh"]
+        "row_plan.cu", "kv_updaters.cuh", "lda_draw.cuh", "row_plan.cuh",
+        "shards.cuh"]
     assert path == _build.library_path()        # stable for one source set
