@@ -28,8 +28,12 @@ its seconds):
    at a LightLDA call's 512,000 lanes into a [50,001, 1024] int32 table in
    request order (the kernel alone beside the call; ``index_put_`` and
    ``index_add_``; the bound in bytes and in 32-byte sectors), into a
-   float32 table (sorted by row), and at the sweep-end rebuild's 10M
-   token lanes (exact against the plain version on the CPU); the Gibbs sampler
+   float32 table (the call's plan by element and its walk; the masked
+   form on the lanes row-sorted under a bool mask; the plan alone, element
+   for element its plain version, beside ``torch.sort`` of the element
+   keys and of the rows; every lane on one element, one chain), and at
+   the sweep-end rebuild's 10M token lanes (each exact against the plain
+   version on the CPU); the Gibbs sampler
    kernels at the LightLDA step (B 512,000, K 1024, blocks of 512 tokens
    and 16 docs) in the production dtypes
    (int16 doc counts, bf16 word rows) and the exact-tiled ones (int32),
@@ -428,16 +432,18 @@ commit once per card with its sector bound, each beside the host's time
 to queue a call), the row gather and scatter-add
 at the word2vec shapes (each beside the flat kernel on the table
 concatenated and the host's time to queue a call), the COO add at the
-LightLDA call's. And the three
+LightLDA call's, int32 (taken apart: the segment form, the mesh form over
+the same lanes as one segment, each segment's lanes shuffled, no mask
+read) and float32. And the three
 functional forms over a
 ShardedParam of four shards (a superstep body's gather, row scatter-add
 and COO add over a split table) against their plain versions on the CPU,
 bit for bit, with their times beside ``index_select`` / ``index_add_`` /
 ``index_put_`` on the table concatenated: the gather and scatter at the
 word2vec shapes (4 x 2,501 rows), the COO add at the LightLDA call's (4 x
-12,501 x 1024 int32); the sharded scatter also against the flat kernel on
-the whole table. Then a small CBOW HS run on the (1, 4) card mesh
-against the same run on a (1, 4) CPU mesh.
+12,501 x 1024, int32 and float32); the sharded scatter also against the
+flat kernel on the whole table. Then a small CBOW HS run on the (1, 4)
+card mesh against the same run on a (1, 4) CPU mesh.
 
 Launch counts are set to 0 before each main path (phases 3-4 word2vec,
 4c on each backend, 5, 6, 6b, 7, 8, 10, 11, 12, 13's word2vec and its
@@ -455,6 +461,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import ctypes
 import dataclasses
 import functools
 import gc
@@ -1285,29 +1292,71 @@ def coo_rows(torch, tk, table0, rows, cols, vals, masked, key: str,
                                       valid)
     _sync(torch)
     err_m = float((got_m.cpu() - want_m).abs().max())
-    if not torch.equal(got_m.cpu(), want_m):
+    if not torch.equal(got_m.cpu().view(torch.int32),
+                       want_m.view(torch.int32)):
         raise SystemExit(f"coo_scatter_add_masked{key}: kernel != plain on "
                          f"the CPU (max abs err {err_m})")
     del got_m, want_m
-    keep = valid > 0
+    keep = valid != 0
+    valid_i = valid.to(torch.int32)
     idx_m = (srows.long() * K + scols.long())[keep]
     v_m = svals[keep].to(t.dtype)
     nv = int(keep.sum())
     touched_m = int(idx_m.unique().numel())
-    b, by = bound_ms(n * 16 + touched_m * 8, nv)
+    b, by = bound_ms(n * 13 + touched_m * 8, nv)
     out["coo_scatter_add_masked" + key] = dict(
         max_abs_err=err_m, ms=cuda_ms(lambda: tk.coo_scatter_add_masked(
             t, srows, scols, svals, valid), iters),
         plain_ms=cuda_ms(lambda: tk.coo_scatter_add_masked_plain(
             t, srows, scols, svals, valid), iters),
         library_ms=None,
-        # index_add_ of the valid lanes, selected beforehand
+        # index_put_ and index_add_ of the valid lanes, selected beforehand
+        index_put_ms=cuda_ms(lambda: t.view(-1).index_put_(
+            (idx_m,), v_m, accumulate=True), iters),
         index_add_ms=cuda_ms(lambda: t.view(-1).index_add_(0, idx_m, v_m),
                              iters),
+        # the call with an int32 mask, which the wrapper casts to bytes
+        int32_mask_ms=cuda_ms(lambda: tk.coo_scatter_add_masked(
+            t, srows, scols, svals, valid_i), iters),
         bound_ms=b, bound_by=by,
-        sector_bound_ms=sector_bound_ms(n * 16, idx_m), n=n,
+        sector_bound_ms=sector_bound_ms(n * 13, idx_m), n=n,
         touched=touched_m, dtype=str(t.dtype).replace("torch.", ""))
     return out
+
+
+def coo_plan_row(torch, tk, rows, cols, R: int, C: int,
+                 iters: int = 20) -> dict:
+    """Phase 2's row of the float32 COO add's plan alone
+    (``mv_coo_scatter_plan`` on the stream's COO workspace, as the mesh
+    form queues it): its permutation and runs equal the plain plan's,
+    element for element; beside it ``torch.sort(stable=True)`` of the
+    same int64 element keys (the permutation alone) and, as the parent's
+    float32 path sorted, of the int32 rows. The bound: the lanes' rows and
+    columns read, the permutation and a run table entry (16 bytes) a
+    touched element written."""
+    got = tk.coo_scatter_plan(rows, cols, R, C)
+    want = tk.coo_scatter_plan_plain(rows.cpu(), cols.cpu(), R, C)
+    for name, a, b in zip(want._fields, got, want):
+        if not torch.equal(a.cpu(), b):
+            raise SystemExit(f"coo_scatter_plan: kernel != plain ({name})")
+    n, runs = rows.shape[0], int(want.rows.numel())
+    r32, c32 = rows.to(torch.int32), cols.to(torch.int32)
+    key = rows.long() * C + cols.long()
+
+    def plan():
+        tk._launch("coo_scatter_plan", "mv_coo_scatter_plan",
+                   r32.data_ptr(), c32.data_ptr(), None, n, R, C,
+                   device=rows.device, scatter_lanes=n, plan="coo")
+    b, by = bound_ms(n * 12 + runs * 16, 0)
+    return {"coo_scatter_plan": dict(
+        max_abs_err=0.0, ms=cuda_ms(plan, iters),
+        plain_ms=cuda_ms(lambda: tk.coo_scatter_plan_plain(rows, cols, R, C),
+                         iters),
+        library_ms=cuda_ms(lambda: torch.sort(key, stable=True), iters),
+        torch_sort_rows_ms=cuda_ms(lambda: torch.sort(r32, stable=True),
+                                   iters),
+        bound_ms=b, bound_by=by, n=n, runs=runs,
+        longest_run=int(want.counts.max()))}
 
 
 def phase_lda_kernels(torch, tk, ls) -> dict:
@@ -1329,16 +1378,24 @@ def phase_lda_kernels(torch, tk, ls) -> dict:
                          device="cuda")
     srows, order = torch.sort(rows, stable=True)
     scols, svals = cols[order], vals[order]
-    valid = torch.as_tensor((rng.random(B) < 0.9).astype(np.int32),
-                            device="cuda")
+    # a bool mask, as SparseMatrixTable's host prep makes it (the COO
+    # kernels read a byte a lane)
+    valid = torch.as_tensor(rng.random(B) < 0.9, device="cuda")
     out.update(coo_rows(torch, tk, table0, rows, cols, vals,
                         (srows, scols, svals, valid), key=""))
     # the same lanes into a float32 table (the sgd updater's sparse Add):
-    # the call sorts them by row, each element sums in lane order
+    # the call plans them by element, each element sums in lane order; the
+    # masked form on the row-sorted lanes with the same gate; the plan
+    # alone beside torch.sort; every lane on one element (one chain)
     g = torch.Generator(device="cuda").manual_seed(5)
     f_vals = torch.randn(B, generator=g, device="cuda")
-    out.update(coo_rows(torch, tk, table0.float(), rows, cols, f_vals, None,
-                        key="_f32"))
+    out.update(coo_rows(torch, tk, table0.float(), rows, cols, f_vals,
+                        (srows, scols, f_vals[order], valid), key="_f32"))
+    out.update(coo_plan_row(torch, tk, rows, cols, LDA_V + 1, K))
+    one_r = torch.full_like(rows, LDA_V // 2)
+    one_c = torch.full_like(cols, K - 1)
+    out.update(coo_rows(torch, tk, table0.float(), one_r, one_c, f_vals,
+                        None, key="_f32_one_element", iters=3))
     del table0
     # the sweep-end rebuild's 10M token lanes (Zipf-1.1 words in token
     # order, the 0/1 mask as the value) into a zero table, with the uniform
@@ -2602,6 +2659,69 @@ def launch_delta(tk, fn) -> dict:
             if v != before[k]}
 
 
+def coo_sharded_split(torch, tk, devices, rps, gids, cols, vals, lr, sc, sv,
+                      valid, counts, table0, want, seg_fn) -> dict:
+    """#9's int32 segment form taken apart on the same real lanes (the
+    LightLDA call's, sorted by word, on four shards): (a) the segment form
+    as it is (``seg_fn``), (b) the mesh form over the same lanes as one
+    segment of global ids (no segment lookup), (c) the segment form with
+    each segment's lanes shuffled (no sorted head row), (d) the segment
+    form with ``valid`` null (no mask read: every real lane is valid
+    here). Each equals the plain version (``want``, CPU shards) bit for
+    bit; times in turns a, b, c, d, a, and the table concatenated's
+    ``index_add_`` beside them."""
+    from multiverso_tpu_torch.ops import _build
+    dev0 = devices[0]
+    order = np.random.default_rng(12)
+    shuffled = [x.copy() for x in (lr, sc, sv)]
+    for s_ in range(SHARDS):
+        perm = order.permutation(int(counts[s_]))
+        for x in shuffled:
+            x[s_, :len(perm)] = x[s_, perm]
+    ops_c = [torch.as_tensor(x, device=dev0)
+             for x in (*shuffled, valid)]
+    ops_d = [torch.as_tensor(x, device=dev0) for x in (lr, sc, sv)]
+    shards_c = on_shards(torch, table0, devices)
+    shards_d = on_shards(torch, table0, devices)
+    param_b = tk.ShardedParam(on_shards(torch, table0, devices))
+    g_r, g_c, g_v = (torch.as_tensor(x, device=dev0)
+                     for x in (gids, cols, vals))
+    lib = _build.load()
+    none = (ctypes.c_void_p * SHARDS)(*([None] * SHARDS))
+    scratch = {"coo_scatter_add_sharded": 0}
+    launches = tk.shard_lane_launches(shards_d, ops_d, counts)
+
+    def mesh_b():
+        tk.coo_scatter_add(param_b, g_r, g_c, g_v)
+
+    def seg_c():
+        tk.coo_scatter_add_sharded(shards_c, *ops_c, counts=counts)
+
+    def seg_d():
+        for dev, part, lanes, real in launches:
+            tk._launch("coo_scatter_add_sharded", "mv_coo_scatter_add_shards",
+                       *tk._shard_table(shards_d, part, rps), rps, LDA_K,
+                       1, *(tk._c_ptrs(x) for x in lanes), none,
+                       tk._c_array(ctypes.c_int64, real), None, 0,
+                       device=dev, counts=scratch)
+    for fn, got in ((mesh_b, param_b.shards), (seg_c, shards_c),
+                    (seg_d, shards_d)):
+        fn()
+        sync_all(torch, devices)
+        if not all(torch.equal(a.cpu(), b) for a, b in zip(got, want)):
+            raise SystemExit("coo_scatter_add_sharded split: a variant != "
+                             "the plain version on the CPU")
+    whole = torch.as_tensor(table0, device=dev0).view(-1)
+    idx = g_r.long() * LDA_K + g_c.long()
+    out = {}
+    for key, fn in (("a", seg_fn), ("b_mesh_one_segment", mesh_b),
+                    ("c_shuffled", seg_c), ("d_no_mask_read", seg_d),
+                    ("a_again", seg_fn)):
+        out[key + "_ms"] = cuda_ms(fn, 50)
+    out["index_add_ms"] = cuda_ms(lambda: whole.index_add_(0, idx, g_v), 50)
+    return out
+
+
 def phase_sharded_kernels(torch, tk, core, KVTable, devices, rng) -> dict:
     """Phase 2, the sharded forms at S = 4 against their plain versions on
     the CPU, bit for bit; returns {name: row}."""
@@ -2739,7 +2859,43 @@ def phase_sharded_kernels(torch, tk, core, KVTable, devices, rng) -> dict:
         index_add_ms=cuda_ms(lambda: whole.index_add_(0, idx, v_all), 20),
         sector_bound_ms=sector_bound_ms(LDA_B * 13, idx))
     int32_library(out["coo_scatter_add_sharded"])
-    del shards, host, ops, table0, whole
+    out["coo_scatter_add_sharded"]["split"] = coo_sharded_split(
+        torch, tk, devices, rps, tw[order], cols[order], vals[order], lr,
+        sc, sv, valid, counts, table0, host, fn)
+    del shards, host, ops, whole
+
+    # the same lanes into float32 shards (SparseMatrixTable's default
+    # dtype: add_sparse's path), each element's lanes folded in lane order
+    g32 = torch.Generator(device="cpu").manual_seed(11)
+    f_all = torch.randn(LDA_B, generator=g32).numpy()
+    (lr, sc, sf), valid, counts, _, _ = lane_slices(
+        tw[order], rps, [cols[order], f_all[order]],
+        [np.int32(0), np.float32(0)])
+    table_f = np.zeros((lead, LDA_K // 128, 128), np.float32)
+    host = on_shards(torch, table_f, cpus)
+    tk.coo_scatter_add_sharded_plain(host, *(torch.as_tensor(x)
+                                             for x in (lr, sc, sf, valid)))
+    shards = on_shards(torch, table_f, devices)
+    ops = [torch.as_tensor(x, device=devices[0]) for x in (lr, sc, sf, valid)]
+    tk.coo_scatter_add_sharded(shards, *ops, counts=counts)
+    whole = torch.as_tensor(table_f, device=devices[0]).view(-1)
+    gidx = torch.as_tensor(tw[order].astype(np.int64) * LDA_K + cols[order],
+                           device=devices[0])
+    f_sorted = torch.as_tensor(f_all[order], device=devices[0])
+    fn = lambda: tk.coo_scatter_add_sharded(shards, *ops, counts=counts)
+    record("coo_scatter_add_sharded_f32", shards, host, fn,
+           lambda: tk.coo_scatter_add_sharded_plain(shards, *ops), 20,
+           LDA_B * 13 + touched * 8, LDA_B,
+           library=lambda: whole.index_put_((gidx,), f_sorted,
+                                            accumulate=True),
+           n=LDA_B, lanes=lr.shape[1], touched=touched)
+    row = out.pop("coo_scatter_add_sharded_f32")
+    row.update(index_put_ms=row["library_ms"],
+               index_add_ms=cuda_ms(lambda: whole.index_add_(
+                   0, gidx, f_sorted), 20),
+               sector_bound_ms=sector_bound_ms(LDA_B * 13, gidx))
+    out["coo_scatter_add_sharded"]["f32"] = row
+    del shards, host, ops, table0, table_f, whole
 
     # KV at the sparse-LR step's shapes: a 2^25-slot ftrl table at
     # value_dim 2 on four shards of 524,288 buckets, filled with half of
@@ -3300,7 +3456,8 @@ def phase_mesh_kernels(torch, tk, devices, rng) -> dict:
     over (1, 4) tables) against their plain versions: the row gather and
     scatter-add at word2vec's shapes (w_out's 10,004 x 100 rows as 4 x
     2,501; 4,096 and 24,576 Zipf-1.2 ids in request order), the COO add at
-    a LightLDA call's (512,000 lanes into 4 x 12,501 x 1024 int32, tiled).
+    a LightLDA call's (512,000 lanes into 4 x 12,501 x 1024, tiled, int32
+    and float32).
     Exact against the plain versions on the CPU, and the scatters equal
     to the flat kernel on the whole table; the row scatter-add's plan
     held against its plain version and the call's parts timed apart
@@ -3406,7 +3563,27 @@ def phase_mesh_kernels(torch, tk, devices, rng) -> dict:
     coo_mesh = out[f"coo_scatter_add_mesh@{LDA_B}"]
     coo_mesh["index_put_ms"] = coo_mesh["library_ms"]
     int32_library(coo_mesh)
-    del param, timed_p, lib_t, table0
+    # the same lanes into float32 shards: one plan on the lanes' card over
+    # the global rows, then a walk a card
+    f_h = torch.randn(LDA_B, generator=g)
+    f = f_h.to(devices[0])
+    table_f = torch.zeros((lead, LDA_K // 128, 128))
+    param = sharded(table_f, devices)
+    tk.coo_scatter_add(param, r, c, f)
+    want = host(tk.coo_scatter_add(sharded(table_f, cpus), r_h, c_h, f_h))
+    lib_t = table_f.to(devices[0]).view(lead, LDA_K)
+    timed_p = sharded(table_f, devices)
+    key = f"coo_scatter_add_mesh_f32@{LDA_B}"
+    record(key, host(param), want,
+           lambda: tk.coo_scatter_add(timed_p, r, c, f),
+           lambda: tk.coo_scatter_add_mesh_plain(timed_p, r, c, f),
+           lambda: lib_t.view(-1).index_put_((idx,), f, accumulate=True),
+           20, LDA_B * 12 + touched * 8, LDA_B, n=LDA_B, touched=touched,
+           index_add_ms=cuda_ms(
+               lambda: lib_t.view(-1).index_add_(0, idx, f), 20),
+           sector_bound_ms=sector_bound_ms(LDA_B * 12, idx))
+    out[key]["index_put_ms"] = out[key]["library_ms"]
+    del param, timed_p, lib_t, table0, table_f
     for key, row in out.items():
         log(f"  {key:30s} ({SHARDS} shards) kernel {row['ms']:.4f} ms  "
             f"plain {row['plain_ms']:.4f} ms  library "
@@ -8406,6 +8583,7 @@ def main(argv) -> int:
         "row_scatter_add_masked": "word2vec",
         "coo_scatter_add": "lightlda_doc_blocked",
         "coo_scatter_add_masked": "sparse_tables",
+        "coo_scatter_plan": "sparse_tables",
         "gibbs_sample_tiled": "lightlda_tiled",
         "gibbs_sample_docblock": "lightlda_doc_blocked",
         "gibbs_sample_docblock_rows": "lightlda_doc_blocked",
@@ -8564,6 +8742,7 @@ def main(argv) -> int:
                  "row_scatter_add_masked": row_src,
                  "coo_scatter_add": coo_src,
                  "coo_scatter_add_masked": coo_src,
+                 "coo_scatter_plan": coo_src,
                  "gibbs_sample_tiled": lda_src,
                  "gibbs_sample_docblock": lda_src,
                  "gibbs_sample_docblock_rows": lda_src,
@@ -8585,6 +8764,8 @@ def main(argv) -> int:
         "row_scatter_add_masked": "multiverso_tpu/ops/table_kernels.py:990",
         "coo_scatter_add": "multiverso_tpu/ops/table_kernels.py:652",
         "coo_scatter_add_masked": "multiverso_tpu/ops/table_kernels.py:1068",
+        # no Pallas kernel: the XLA argsort that feeds _coo_kernel
+        "coo_scatter_plan": "multiverso_tpu/ops/table_kernels.py:1360",
         "gibbs_sample_tiled": "multiverso_tpu/ops/lda_sampler.py:80",
         "gibbs_sample_docblock": "multiverso_tpu/ops/lda_sampler.py:187",
         "gibbs_sample_docblock_rows": "multiverso_tpu/ops/lda_sampler.py:187",

@@ -54,16 +54,20 @@ _SIGNATURES = {
     #  workspace, ws_words, stream): per-shard lane arrays
     "mv_row_scatter_add_shards": [_P, _P, _I64, _I64, _I64, _I64, _P, _P,
                                   _P, _P, _P, _I64, _P],
-    # (param, rows, cols, is_int, rows_ids, cols_ids, vals, valid, n, stream)
-    "mv_coo_scatter_add": [_P, _I64, _I64, _I64, _P, _P, _P, _P, _I64, _P],
+    # (param, rows, cols, is_int, rows_ids, cols_ids, vals, valid, n,
+    #  workspace, ws_words, stream)
+    "mv_coo_scatter_add": [_P, _I64, _I64, _I64, _P, _P, _P, _P, _I64, _P,
+                           _I64, _P],
+    # (rows_ids, cols_ids, valid, n, R, C, workspace, ws_words, stream)
+    "mv_coo_scatter_plan": [_P, _P, _P, _I64, _I64, _I64, _P, _I64, _P],
     # (bases, firsts, count, rows, cols, is_int, rows_ids, cols_ids, vals,
-    #  valid, n, stream)
+    #  valid, n, plan, stream)
     "mv_coo_scatter_add_mesh": [_P, _P, _I64, _I64, _I64, _I64, _P, _P, _P,
-                                _P, _I64, _P],
+                                _P, _I64, _P, _P],
     # (bases, firsts, count, rows, cols, is_int, rows_ids, cols_ids, vals,
-    #  valid, lanes, stream): per-shard lane arrays
+    #  valid, lanes, workspace, ws_words, stream): per-shard lane arrays
     "mv_coo_scatter_add_shards": [_P, _P, _I64, _I64, _I64, _I64, _P, _P,
-                                  _P, _P, _P, _P],
+                                  _P, _P, _P, _P, _I64, _P],
     # (A, a_int16, W, w_bf16, sinv, zi, msk, u1, u2, b, C, alpha, beta,
     #  znew, nkd, stream)
     "mv_gibbs_tiled": [_P, _I64, _P, _I64, _P, _P, _P, _P, _P, _I64, _I64,

@@ -381,21 +381,13 @@ struct Plan {
   const int32_t* longs;
 };
 
-// Where the run scan writes the plan, and its scratch (tile t's
-// look-back word after the sort's sets in its row, mv::status_row).
+// Where the run scan writes the plan, and its scratch.
 struct RunsOut {
-  uint32_t* counts;
   int32_t* first;
   int32_t* end;
   int32_t* row;
   int32_t* longs;
-  uint32_t* top;
-  uint32_t* ctl;
-  uint32_t* digits;
-  __device__ __forceinline__ uint64_t* word(int64_t t) const {
-    return reinterpret_cast<uint64_t*>(mv::status_row(top, t) +
-                                       mv::kRunsWord);
-  }
+  mv::RunScratch scratch;
 };
 
 template <typename T>
@@ -411,14 +403,6 @@ Plan plan_at(const void* plan, const mv::PlanLayout& lay) {
               at<int32_t>(w, lay.longs)};
 }
 
-// A run scan's look-back word: a flag (bits 62-63), the runs (bits
-// 31-61) and the long runs (bits 0-30) of one tile or of every tile up
-// to it; 0 until written.
-constexpr uint64_t kRunsA = 1ull << 62, kRunsP = 2ull << 62;
-constexpr uint64_t kRunsCounts = kRunsA - 1;
-constexpr int kLongBits = 31;
-constexpr uint64_t kLongMask = (1ull << kLongBits) - 1;
-
 // The table of runs (the plan's second half) over a launch's sorted
 // lanes. A lane starts a run when its id names a row (in [0, R): the
 // table's rows, or a shard's for the host-sliced form) and differs from
@@ -429,24 +413,19 @@ constexpr uint64_t kLongMask = (1ull << kLongBits) - 1;
 // needed. Runs and long runs are numbered in lane order: a thread takes
 // kPlanItems consecutive lanes, a block a tile, an exclusive sum over the
 // block and a look-back over the earlier tiles (as in a sort pass) give
-// each its numbers (tile blockIdx.x a block). The last tile writes the
-// counts; block 0 zeroes the sort's digit counts for the next call, and
-// the last block to finish the look-back words and its counter.
+// each its numbers (mv::number_runs: tile blockIdx.x a block). The last
+// tile writes the counts; block 0 zeroes the sort's digit counts for the
+// next call, and the last block to finish the look-back words and its
+// counter (mv::finish_runs).
 template <typename L>
 __global__ void __launch_bounds__(mv::kPlanThreads)
 plan_runs_kernel(__grid_constant__ const Shards sh,
                  __grid_constant__ const L ln, int64_t R, int64_t n,
                  __grid_constant__ const RunsOut out) {
-  __shared__ uint64_t s_before;
-  __shared__ int s_last;
   const int tid = threadIdx.x;
   const int64_t t = blockIdx.x;
   mv::let_next_start();
   mv::wait_prior();
-  if (t == 0)
-    for (int x = tid; x < mv::kMaxPasses * mv::kMaxBins;
-         x += mv::kPlanThreads)
-      out.digits[x] = 0;
   const int64_t g0 = t * mv::kPlanTile + (int64_t)tid * mv::kPlanItems;
   unsigned starts = 0, ends = 0, longs = 0;  // bit k: lane g0 + k
   int32_t gid[mv::kPlanItems];
@@ -471,47 +450,20 @@ plan_runs_kernel(__grid_constant__ const Shards sh,
     }
     if (real && (i + 1 == seg.n || r_after != r)) ends |= 1u << k;
   }
-  // runs in the high half, long runs in the low: at most kPlanTile each
-  uint32_t total;
-  const uint32_t mine = mv::block_exclusive_sum(
-      (uint32_t)__popc(starts) << 16 | (uint32_t)__popc(longs), &total);
-  if (tid == 0) {
-    const uint64_t count =
-        (uint64_t)(total >> 16) << kLongBits | (total & 0xffffu);
-    mv::store_volatile(out.word(t), (t == 0 ? kRunsP : kRunsA) | count);
-    const uint64_t before = mv::look_back<uint64_t>(
-        t, [&](int64_t j) { return out.word(j); }, kRunsP, kRunsCounts);
-    if (t > 0) mv::store_volatile(out.word(t), kRunsP | (before + count));
-    if (t == gridDim.x - 1) {
-      out.counts[0] = (uint32_t)((before + count) >> kLongBits);
-      out.counts[1] = (uint32_t)((before + count) & kLongMask);
-    }
-    s_before = before;
-  }
-  __syncthreads();
-  int64_t run = (int64_t)(s_before >> kLongBits) + (mine >> 16);
-  int64_t lng = (int64_t)(s_before & kLongMask) + (mine & 0xffffu);
+  mv::RunNumbers num = mv::number_runs(out.scratch, __popc(starts),
+                                       __popc(longs));
 #pragma unroll
   for (int k = 0; k < mv::kPlanItems; ++k) {
     const int64_t g = g0 + k;
     if ((starts >> k) & 1u) {
-      out.first[run] = (int32_t)g;
-      out.row[run] = gid[k];
-      if ((longs >> k) & 1u) out.longs[lng++] = (int32_t)run;
-      ++run;
+      out.first[num.run] = (int32_t)g;
+      out.row[num.run] = gid[k];
+      if ((longs >> k) & 1u) out.longs[num.lng++] = (int32_t)num.run;
+      ++num.run;
     }
-    if ((ends >> k) & 1u) out.end[run - 1] = (int32_t)(g + 1);
+    if ((ends >> k) & 1u) out.end[num.run - 1] = (int32_t)(g + 1);
   }
-  // every look-back read of this block returned before its count goes
-  // in, so the last block may zero the words
-  if (tid == 0)
-    s_last = atomicAdd(out.ctl + mv::kRunsDone, 1u) == gridDim.x - 1;
-  __syncthreads();
-  if (s_last) {
-    for (int64_t x = tid; x < gridDim.x; x += mv::kPlanThreads)
-      *out.word(x) = 0;
-    if (tid == 0) out.ctl[mv::kRunsDone] = 0;
-  }
+  mv::finish_runs(out.scratch);
 }
 
 // cp.async of one V unit from device memory into shared memory
@@ -752,14 +704,12 @@ template <typename L>
 int plan_runs(const Shards& sh, const L& ln, int64_t R, void* ws,
               int64_t ws_words, const mv::PlanLayout& lay, cudaStream_t s) {
   void* plan = at<uint32_t>(ws, lay.plan);
-  const RunsOut out{at<uint32_t>(plan, lay.counts),
-                    at<int32_t>(plan, lay.first),
-                    at<int32_t>(plan, lay.end),
-                    at<int32_t>(plan, lay.row),
-                    at<int32_t>(plan, lay.longs),
-                    at<uint32_t>(ws, 2 * ws_words),
-                    at<uint32_t>(ws, lay.ctl),
-                    at<uint32_t>(ws, lay.digits)};
+  const RunsOut out{
+      at<int32_t>(plan, lay.first), at<int32_t>(plan, lay.end),
+      at<int32_t>(plan, lay.row), at<int32_t>(plan, lay.longs),
+      mv::RunScratch{at<uint32_t>(ws, 2 * ws_words), at<uint32_t>(ws, lay.ctl),
+                     at<uint32_t>(ws, lay.digits), lay.digit_words(),
+                     at<uint32_t>(plan, lay.counts)}};
   return (int)mv::launch_dependent(plan_runs_kernel<L>, (unsigned)lay.tiles,
                                    mv::kPlanThreads, 0, s, sh, ln, R,
                                    ln.lanes(), out);
@@ -770,9 +720,9 @@ int plan_runs(const Shards& sh, const L& ln, int64_t R, void* ws,
 int plan_global(const int32_t* ids, int64_t n, int64_t R, void* ws,
                 int64_t ws_words, const mv::PlanLayout& lay,
                 GlobalLanes* ln, cudaStream_t s) {
-  const cudaError_t err =
-      mv::sort_rows(ids, n, R, static_cast<uint32_t*>(ws),
-                    at<uint32_t>(ws, 2 * ws_words), lay, s);
+  const cudaError_t err = mv::sort_keys(
+      mv::SortKeys{{ids, nullptr}, {R, 0}, 1}, n, static_cast<uint32_t*>(ws),
+      at<uint32_t>(ws, 2 * ws_words), lay, s);
   if (err != cudaSuccess) return (int)err;
   ln->ids = at<int32_t>(ws, lay.keys);
   ln->order = at<int32_t>(ws, lay.plan + lay.order);

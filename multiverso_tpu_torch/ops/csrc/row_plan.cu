@@ -1,6 +1,7 @@
-// The row scatter-add's stable sort by row, for Hopper (sm_90a): the
-// first half of its plan (csrc/row_plan.cuh; the table of runs and the
-// scatter are in csrc/row_kernels.cu).
+// The scatter-adds' stable sort, for Hopper (sm_90a): the first half of
+// the row scatter's plan (csrc/row_plan.cuh; the table of runs and the
+// scatter are in csrc/row_kernels.cu) and of the float32 COO add's
+// (csrc/coo_kernels.cu, which keys each lane by its element).
 //
 // What it replaces: no Pallas kernel. The reference feeds its sequential
 // _row_scatter_kernel (multiverso_tpu/ops/table_kernels.py:610) ids sorted
@@ -37,6 +38,13 @@
 // call (csrc/row_plan.cuh), and the run scan clears the digit counts.
 // Each kernel is a programmatic dependent of the one before it
 // (mv::launch_dependent), so the launch gaps between them are hidden.
+//
+// A key of two words (the COO add's (row, column) where row * C + column
+// does not fit 31 bits) is sorted word by word, the low word first, as
+// LSD passes are: the digit count counts every pass of both words (a
+// lane's digits do not depend on its place), and the high word's first
+// pass reads each lane's key through the permutation the low word's
+// passes left, so no key wider than 32 bits is ever stored.
 
 #include "row_plan.cuh"
 #include "shards.cuh"
@@ -57,15 +65,25 @@ constexpr uint32_t kFlagP = 2u << 30;  // the count of this and every
                                        // earlier tile
 constexpr uint32_t kCount = kFlagA - 1;
 
+// Where each pass of a sort takes its digit: the key word it sorts on and
+// the first bit of that word; d bits a pass.
+struct PassPlan {
+  int word[kMaxPasses];
+  int shift[kMaxPasses];
+  int d[kMaxPasses];
+  int passes;
+};
+
 // The digit counts of every pass, added into digits[pass][digit] (zero
 // before the call): a block's counts in shared memory, each warp's equal
 // digits added once (digit_peers), then one atomic per digit a block.
 // Its blocks also zero the look-back rows of the call's `tiles` in both
 // sort sets, for passes 0 and 1.
 __global__ void __launch_bounds__(kPlanThreads)
-digit_count_kernel(const int32_t* __restrict__ ids, int64_t n, uint32_t R,
-                   int d, int passes, uint32_t* __restrict__ digits,
-                   uint32_t* top, int64_t tiles) {
+digit_count_kernel(__grid_constant__ const mv::SortKeys k, int64_t n,
+                   __grid_constant__ const PassPlan pp,
+                   uint32_t* __restrict__ digits, uint32_t* top,
+                   int64_t tiles) {
   __shared__ uint32_t hist[kMaxPasses * kMaxBins];
   mv::let_next_start();
   for (int x = threadIdx.x; x < kMaxPasses * kMaxBins; x += kPlanThreads)
@@ -77,43 +95,49 @@ digit_count_kernel(const int32_t* __restrict__ ids, int64_t n, uint32_t R,
     mv::status_row(top, x / (2 * kMaxBins))[x % (2 * kMaxBins)] = 0;
   __syncthreads();
   const int lane = threadIdx.x % 32;
-  const uint32_t mask = (1u << d) - 1;
   // the loop is uniform over each warp: i0 is the warp's first lane
   for (int64_t i0 = (int64_t)blockIdx.x * kPlanThreads + (threadIdx.x & ~31);
        i0 < n; i0 += all) {
     const int64_t i = i0 + lane;
     const bool ok = i < n;
-    const uint32_t key = ok ? mv::plan_key(ids[i], R) : 0;
-    for (int p = 0; p < passes; ++p) {
-      const uint32_t dig = (key >> (p * d)) & mask;
-      const unsigned peers = mv::digit_peers(dig, d, ok);
+    uint32_t key[mv::kMaxWords];
+#pragma unroll
+    for (int w = 0; w < mv::kMaxWords; ++w)
+      key[w] = ok && w < k.words
+                   ? mv::plan_key(k.word[w][i], (uint32_t)k.limit[w])
+                   : 0;
+    for (int p = 0; p < pp.passes; ++p) {
+      const uint32_t word = pp.word[p] == 0 ? key[0] : key[1];
+      const uint32_t dig = (word >> pp.shift[p]) & ((1u << pp.d[p]) - 1);
+      const unsigned peers = mv::digit_peers(dig, pp.d[p], ok);
       if (peers != 0 && lane == __ffs(peers) - 1)
         atomicAdd(hist + p * kMaxBins + dig, (uint32_t)__popc(peers));
     }
   }
   __syncthreads();
-  const int bins = 1 << d;
-  for (int x = threadIdx.x; x < passes * bins; x += kPlanThreads) {
-    const int p = x / bins, b = x % bins;
-    const uint32_t c = hist[p * kMaxBins + b];
-    if (c) atomicAdd(digits + p * kMaxBins + b, c);
+  for (int x = threadIdx.x; x < pp.passes * kMaxBins; x += kPlanThreads) {
+    const uint32_t c = hist[x];
+    if (c) atomicAdd(digits + x, c);
   }
 }
 
 struct PassArgs {
-  const int32_t* ids;       // pass 0 reads the lanes' ids
-  const uint32_t* in_keys;  // a later pass: the previous pass's keys
-  const uint32_t* in_vals;  // and lanes
+  const int32_t* ids;       // a word's first pass reads the lanes' words
+  const uint32_t* in_keys;  // a later pass of a word: its previous pass's
+                            // keys (null in a word's first pass)
+  const uint32_t* in_vals;  // a pass after the first: the previous pass's
+                            // lanes (a later word's first pass reads its
+                            // keys through them)
   uint32_t* out_keys;
   uint32_t* out_vals;
   const uint32_t* digits;  // every pass's counts; this pass's at [pass]
   uint32_t* top;           // the workspace's end: the look-back rows below
   int64_t n;
-  uint32_t R;
-  int pass, d;
+  uint32_t R;              // the word's limit
+  int pass, shift, d;
 };
 
-// One stable pass on bits [pass * d, pass * d + d) of the keys: tile
+// One stable pass on bits [shift, shift + d) of a key word: tile
 // blockIdx.x of kPlanTile lanes a block (see the file's note). It reads
 // look-back set pass % 2 and zeroes its tile's row of the other set (the
 // previous pass's) for the next pass.
@@ -122,7 +146,7 @@ sort_pass_kernel(__grid_constant__ const PassArgs a) {
   __shared__ uint32_t hist[kWarps][kMaxBins];
   __shared__ uint32_t base[kMaxBins];
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int bins = 1 << a.d, shift = a.pass * a.d;
+  const int bins = 1 << a.d, shift = a.shift;
   const uint32_t mask = (uint32_t)bins - 1;
   const int64_t t = blockIdx.x;
   uint32_t* row = mv::status_row(a.top, t);
@@ -140,10 +164,10 @@ sort_pass_kernel(__grid_constant__ const PassArgs a) {
   for (int k = 0; k < kPlanItems; ++k) {
     const int64_t i = lane0 + k * 32 + lane;
     const bool ok = i < a.n;
+    val[k] = !ok ? 0u : a.in_vals != nullptr ? a.in_vals[i] : (uint32_t)i;
     key[k] = !ok ? 0u
              : a.in_keys != nullptr ? a.in_keys[i]
-                                    : mv::plan_key(a.ids[i], a.R);
-    val[k] = !ok ? 0u : a.in_vals != nullptr ? a.in_vals[i] : (uint32_t)i;
+                                    : mv::plan_key(a.ids[val[k]], a.R);
   }
   // where each digit starts among all the lanes (synchronises the block)
   uint32_t total;
@@ -199,15 +223,25 @@ sort_pass_kernel(__grid_constant__ const PassArgs a) {
 
 namespace mv {
 
-cudaError_t sort_rows(const int32_t* ids, int64_t n, int64_t R,
-                      uint32_t* ws, uint32_t* top, const PlanLayout& lay,
-                      cudaStream_t s) {
+cudaError_t sort_keys(const SortKeys& k, int64_t n, uint32_t* ws,
+                      uint32_t* top, const PlanLayout& lay, cudaStream_t s) {
   if (n <= 0) return cudaSuccess;
-  if (n >= kMaxPlanLanes || R < 1 || R > INT32_MAX)
+  if (n >= kMaxPlanLanes || k.words < 1 || k.words > kMaxWords)
     return cudaErrorInvalidValue;
-  const int bits = 32 - __builtin_clz((uint32_t)R);  // keys 0..R
-  const int passes = (bits + 7) / 8;
-  const int d = (bits + passes - 1) / passes;
+  // each word's bits, as evenly split into passes of at most 8 as they go
+  PassPlan pp{};
+  for (int w = 0; w < k.words; ++w) {
+    if (k.limit[w] < 1 || k.limit[w] > INT32_MAX) return cudaErrorInvalidValue;
+    const int bits = 32 - __builtin_clz((uint32_t)k.limit[w]);  // 0..limit
+    const int passes = (bits + 7) / 8;
+    const int d = (bits + passes - 1) / passes;
+    for (int q = 0; q < passes; ++q, ++pp.passes) {
+      pp.word[pp.passes] = w;
+      pp.shift[pp.passes] = q * d;
+      pp.d[pp.passes] = d;
+    }
+  }
+  if (pp.passes * kMaxBins > lay.digit_words()) return cudaErrorInvalidValue;
   int sms = 0;
   cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return err;
@@ -216,23 +250,25 @@ cudaError_t sort_rows(const int32_t* ids, int64_t n, int64_t R,
   const int64_t count_blocks =
       warps < 4 * (int64_t)sms ? warps : 4 * (int64_t)sms;
   err = launch_dependent(digit_count_kernel, (unsigned)count_blocks,
-                         kPlanThreads, 0, s, ids, n, (uint32_t)R, d, passes,
-                         ws + lay.digits, top, lay.tiles);
+                         kPlanThreads, 0, s, k, n, pp, ws + lay.digits, top,
+                         lay.tiles);
   if (err != cudaSuccess) return err;
-  for (int p = 0; p < passes; ++p) {
+  for (int p = 0; p < pp.passes; ++p) {
     PassArgs a{};
-    const bool last = p == passes - 1;
-    a.ids = ids;
-    a.in_keys = p == 0 ? nullptr : ws + lay.tmp_keys[(p - 1) % 2];
+    const bool last = p == pp.passes - 1;
+    const bool first_of_word = p == 0 || pp.word[p - 1] != pp.word[p];
+    a.ids = k.word[pp.word[p]];
+    a.in_keys = first_of_word ? nullptr : ws + lay.tmp_keys[(p - 1) % 2];
     a.in_vals = p == 0 ? nullptr : ws + lay.tmp_vals[(p - 1) % 2];
     a.out_keys = last ? ws + lay.keys : ws + lay.tmp_keys[p % 2];
     a.out_vals = last ? ws + lay.plan + lay.order : ws + lay.tmp_vals[p % 2];
     a.digits = ws + lay.digits;
     a.top = top;
     a.n = n;
-    a.R = (uint32_t)R;
+    a.R = (uint32_t)k.limit[pp.word[p]];
     a.pass = p;
-    a.d = d;
+    a.shift = pp.shift[p];
+    a.d = pp.d[p];
     err = launch_dependent(sort_pass_kernel, (unsigned)lay.tiles,
                            kPlanThreads, 0, s, a);
     if (err != cudaSuccess) return err;

@@ -1,14 +1,17 @@
-// The row scatter-add's plan: the workspace layout that csrc/row_plan.cu
-// (the stable sort of a call's lanes by row) and csrc/row_kernels.cu (the
-// table of runs, and the scatter that walks it) share, and the block-wide
-// helpers both use. ops/table_kernels.py mirrors the layout
-// (plan_layout) to size the workspace; the C entry points refuse one that
-// is too small.
+// The plans of the scatter-adds: the workspace layout that csrc/row_plan.cu
+// (the stable LSD radix sort of a call's lanes by key), csrc/row_kernels.cu
+// (the row scatter's table of runs, and the scatter that walks it) and
+// csrc/coo_kernels.cu (the float32 COO add's table of element runs, and its
+// walk) share, and the block-wide helpers they use. ops/table_kernels.py
+// mirrors the layout (plan_layout) to size the workspace; the C entry
+// points refuse one that is too small.
 //
 // A workspace for n lanes, in 32-bit words. At its base,
 //   ctl[16]     the run scan's finished-block counter (0 between calls)
-//   digits[kMaxPasses * kMaxBins]  each pass's digit counts (0 between
-//               calls: the run scan clears them)
+//   digits[passes * kMaxBins]  each pass's digit counts (0 between calls:
+//               the run scan clears them); `passes` is kWordPasses for
+//               the row scatter's one-word keys, kMaxPasses for the COO
+//               add's keys of up to two words
 // and at its top, counted down from its last word, a row of kStatusWords
 // look-back words for each tile of kPlanTile lanes: two sets of kMaxBins
 // for the sort passes (pass p uses set p % 2), then the run scan's one
@@ -16,17 +19,21 @@
 // ahead (the digit count clears both sets' rows, pass p the set that pass
 // p - 1 used), so it reads none that an earlier call left behind, however
 // many tiles that call had; the run scan's last block zeroes the words it
-// used. After the digits, the plan (what the scatter reads; the mesh form
-// copies it whole to another card), its offsets taken from its own start:
+// used. After the digits, the plan (what the scatter reads; the mesh forms
+// copy it whole to another card), its offsets taken from its own start:
 //   counts[4]   the number of runs and of long runs (more than kSplit lanes)
 //   order[n]    the stable permutation: sorted lane j is request lane
-//               order[j] (ids outside [0, R) after every real run)
+//               order[j] (lanes that add nothing after every real run)
 //   first[n]    run k's first sorted lane, end[n] one past its last,
 //   row[n]      its row (a global id)
-//   longs[n / (kSplit + 1) + 1]  the long runs' indices, in run order
-// then the sort's keys[n], and two key and two lane buffers of n between
-// passes. Every region but the look-back rows starts on a multiple of 4
-// words (16 bytes); each row's 64-bit word on a multiple of 2.
+//   longs[n / (split + 1) + 1]  the long runs' indices, in run order; the
+//               COO plan (split 0) keeps each run's column here
+// then the sort's keys[n], two key and two lane buffers of n between
+// passes, and `key_words` arrays of n lane keys (the COO add's keys, made
+// before the sort). Every region but the look-back rows starts on a
+// multiple of 4 words (16 bytes); each row's 64-bit word on a multiple of
+// 2. The row scatter and the COO add keep a workspace each: their plans
+// lie differently over the words below the look-back rows.
 
 #pragma once
 
@@ -43,10 +50,13 @@ namespace mv {
 constexpr int kPlanThreads = 256;
 constexpr int kPlanItems = 4;
 constexpr int64_t kPlanTile = (int64_t)kPlanThreads * kPlanItems;
-// A sort pass takes at most 8 bits of the key; a key of up to 32 bits
-// takes at most 4 passes.
+// A sort pass takes at most 8 bits of a key word; a word of up to 32 bits
+// takes at most kWordPasses passes, a key of up to kMaxWords words at most
+// kMaxPasses.
 constexpr int kMaxBins = 256;
-constexpr int kMaxPasses = 4;
+constexpr int kWordPasses = 4;
+constexpr int kMaxWords = 2;
+constexpr int kMaxPasses = kWordPasses * kMaxWords;
 // Look-back words keep a count in 30 bits (the sort) or 31 (the runs).
 constexpr int64_t kMaxPlanLanes = (int64_t)1 << 30;
 // the ctl word of the run scan's finished blocks
@@ -62,15 +72,19 @@ inline int64_t round4(int64_t words) { return (words + 3) & ~(int64_t)3; }
 struct PlanLayout {
   // from the workspace's base; `words`: all a workspace needs, the
   // look-back rows included
-  int64_t ctl, digits, plan, keys, tmp_keys[2], tmp_vals[2], words, tiles;
+  int64_t ctl, digits, plan, keys, tmp_keys[2], tmp_vals[2], lane_keys,
+      words, tiles;
   // from the plan's start
   int64_t counts, order, first, end, row, longs, plan_words;
-  PlanLayout(int64_t n, int64_t split) {
+  // n lanes; split: the scatter's kSplit (0: the COO plan); passes: the
+  // digit rows; key_words: the lane-key arrays
+  PlanLayout(int64_t n, int64_t split, int passes = kWordPasses,
+             int key_words = 0) {
     const int64_t m = round4(n);
     tiles = (n + kPlanTile - 1) / kPlanTile;
     ctl = 0;
     digits = 16;
-    plan = digits + kMaxPasses * kMaxBins;
+    plan = digits + passes * kMaxBins;
     counts = 0;
     order = 4;
     first = order + m;
@@ -83,8 +97,10 @@ struct PlanLayout {
     tmp_keys[1] = tmp_keys[0] + m;
     tmp_vals[0] = tmp_keys[1] + m;
     tmp_vals[1] = tmp_vals[0] + m;
-    words = tmp_vals[1] + m + tiles * kStatusWords;
+    lane_keys = tmp_vals[1] + m;
+    words = lane_keys + key_words * m + tiles * kStatusWords;
   }
+  int64_t digit_words() const { return plan - digits; }
 };
 
 // Tile t's row of look-back words in a workspace whose last word is
@@ -218,13 +234,100 @@ __device__ __forceinline__ uint32_t block_exclusive_sum(uint32_t v,
   return before + x - v;
 }
 
-// The stable sort by row of a plan: the lanes' keys (plan_key of ids[i]
-// against R) sorted to keys[], their lanes to order[], in the workspace
-// `ws` (its last word top[-1]) laid out for n lanes (split: the scatter's
-// kSplit). One digit count kernel, then one kernel a pass. R in
-// [1, 2^31), n in [1, kMaxPlanLanes).
-cudaError_t sort_rows(const int32_t* ids, int64_t n, int64_t R,
-                      uint32_t* ws, uint32_t* top, const PlanLayout& lay,
-                      cudaStream_t s);
+// A sort's key: up to kMaxWords words, word[0] the least significant.
+// Lane l's word w is plan_key(word[w][l], limit[w]): a value in [0,
+// limit[w]), or limit[w] for any other (so that a lane keyed limit[w] in
+// its last word sorts after every real lane). limit[w] in [1, 2^31).
+struct SortKeys {
+  const int32_t* word[kMaxWords];
+  int64_t limit[kMaxWords];
+  int words;
+};
+
+// The stable LSD radix sort of n lanes by key: the last word's keys
+// sorted to keys[], their lanes to order[], in the workspace `ws` (its last
+// word top[-1]) laid out as `lay`. One digit count kernel, then one kernel
+// a pass: each word's passes in turn from word 0, each over at most 8 of
+// that word's bits; the first pass of a later word reads its keys through
+// the permutation the earlier words left. n in [1, kMaxPlanLanes).
+cudaError_t sort_keys(const SortKeys& k, int64_t n, uint32_t* ws,
+                      uint32_t* top, const PlanLayout& lay, cudaStream_t s);
+
+// A run scan's look-back word: a flag (bits 62-63), the runs (bits
+// 31-61) and the long runs (bits 0-30) of one tile or of every tile up
+// to it; 0 until written.
+constexpr uint64_t kRunsA = 1ull << 62, kRunsP = 2ull << 62;
+constexpr uint64_t kRunsCounts = kRunsA - 1;
+constexpr int kLongBits = 31;
+constexpr uint64_t kLongMask = (1ull << kLongBits) - 1;
+
+// A run scan's scratch: tile t's look-back word (after the sort's sets in
+// its row, status_row), the finished-block counter, the digit counts it
+// clears for the next call, and the plan's counts[] it writes.
+struct RunScratch {
+  uint32_t* top;
+  uint32_t* ctl;
+  uint32_t* digits;
+  int64_t digit_words;
+  uint32_t* counts;
+  __device__ __forceinline__ uint64_t* word(int64_t t) const {
+    return reinterpret_cast<uint64_t*>(status_row(top, t) + kRunsWord);
+  }
+};
+
+// The number of the first run and of the first long run that this
+// thread's lanes start, in lane order, given the counts of each it starts
+// (`starts`, `longs`; at most kPlanTile a tile): an exclusive sum over
+// the block, and over the earlier tiles a look-back as in a sort pass
+// (tile blockIdx.x a block; blocks start in index order). The last tile
+// writes the totals to counts[0] and counts[1]; block 0 zeroes the digit
+// counts. Every thread of the block calls it.
+struct RunNumbers {
+  int64_t run, lng;
+};
+
+__device__ __forceinline__ RunNumbers number_runs(const RunScratch& rs,
+                                                  unsigned starts,
+                                                  unsigned longs) {
+  __shared__ uint64_t s_before;
+  const int64_t t = blockIdx.x;
+  if (t == 0)
+    for (int64_t x = threadIdx.x; x < rs.digit_words; x += kPlanThreads)
+      rs.digits[x] = 0;
+  // runs in the high half, long runs in the low: at most kPlanTile each
+  uint32_t total;
+  const uint32_t mine = block_exclusive_sum(starts << 16 | longs, &total);
+  if (threadIdx.x == 0) {
+    const uint64_t count =
+        (uint64_t)(total >> 16) << kLongBits | (total & 0xffffu);
+    store_volatile(rs.word(t), (t == 0 ? kRunsP : kRunsA) | count);
+    const uint64_t before = look_back<uint64_t>(
+        t, [&](int64_t j) { return rs.word(j); }, kRunsP, kRunsCounts);
+    if (t > 0) store_volatile(rs.word(t), kRunsP | (before + count));
+    if (t == gridDim.x - 1) {
+      rs.counts[0] = (uint32_t)((before + count) >> kLongBits);
+      rs.counts[1] = (uint32_t)((before + count) & kLongMask);
+    }
+    s_before = before;
+  }
+  __syncthreads();
+  return RunNumbers{(int64_t)(s_before >> kLongBits) + (mine >> 16),
+                    (int64_t)(s_before & kLongMask) + (mine & 0xffffu)};
+}
+
+// A run scan's end: every look-back read of this block returned before
+// its count goes in, so the last block to finish zeroes the look-back
+// words and the counter for the next call. Every thread calls it.
+__device__ __forceinline__ void finish_runs(const RunScratch& rs) {
+  __shared__ int s_last;
+  if (threadIdx.x == 0)
+    s_last = atomicAdd(rs.ctl + kRunsDone, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (s_last) {
+    for (int64_t x = threadIdx.x; x < gridDim.x; x += kPlanThreads)
+      *rs.word(x) = 0;
+    if (threadIdx.x == 0) rs.ctl[kRunsDone] = 0;
+  }
+}
 
 }  // namespace mv

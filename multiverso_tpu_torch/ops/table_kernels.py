@@ -12,7 +12,8 @@ Counterpart of ``multiverso_tpu/ops/table_kernels.py`` (``build_row_gather``,
 builders and the functional ``gather_rows`` / ``row_scatter_add`` /
 ``coo_scatter_add``). On CUDA tensors each wrapper launches its
 hand-written kernel from ``csrc/row_kernels.cu`` (with the row scatter's
-stable sort by row in ``csrc/row_plan.cu``), ``csrc/coo_kernels.cu`` or
+stable sort by row in ``csrc/row_plan.cu``), ``csrc/coo_kernels.cu``
+(whose float32 add sorts its lanes by element with the same sort) or
 ``csrc/kv_kernels.cu`` on the tensors' card and its current stream, or
 raises; on CPU tensors it runs the plain PyTorch version that stands
 beside it. Nothing falls back from one to the other.
@@ -21,9 +22,10 @@ Each wrapper adds one to ``LAUNCHES[<kernel>]`` where it launches its
 kernel, so a run can show that its main path went through the kernels.
 The counts and the row scatter's workspaces are shared by every host
 thread (a superstep over a data axis runs one per replica) and change
-under ``_LOCK`` only; a thread queues a row scatter's kernels (its plan
-and the scatter that reads it) under ``_SCATTER_LOCK``, so that no other
-scatter on the same workspace comes between them.
+under ``_LOCK`` only; a thread queues a row scatter's or a float32 COO
+add's kernels (its plan and the scatter or walk that reads it) under
+``_SCATTER_LOCK``, so that no other call on the same workspace comes
+between them.
 
 Layouts: a table is flat ``[R, C]`` or tiled ``[R, C/128, 128]``; both
 are read as the contiguous ``[R, C]`` rows they are. Types: the gather
@@ -46,6 +48,11 @@ LAUNCHES = {"row_gather": 0, "row_scatter_add": 0,
             # per call that sorts (the flat form, which also counts under
             # row_scatter_add, and the mesh form's one plan a call)
             "row_scatter_plan": 0,
+            # the float32 COO add's plan (its keys, the stable sort by
+            # element, the run scan): one per call or card launch that
+            # plans (each float32 COO form, which also counts under its
+            # own name, and the mesh form's one plan a call)
+            "coo_scatter_plan": 0,
             "row_scatter_add_masked": 0, "coo_scatter_add": 0,
             "coo_scatter_add_masked": 0, "kv_lookup": 0,
             "kv_probe_update": 0, "kv_commit": 0,
@@ -80,6 +87,11 @@ SCATTER_SPLIT = 32
 PLAN_TILE = 1024
 PLAN_MAX_BINS = 256
 PLAN_STATUS_WORDS = 2 * PLAN_MAX_BINS + 4
+#: ``kWordPasses`` and ``kMaxWords`` of csrc/row_plan.cuh: the sort passes
+#: of one 32-bit key word (the row scatter's digit rows), and the words of
+#: the COO add's keys (its digit rows: both words' passes)
+PLAN_WORD_PASSES = 4
+PLAN_MAX_WORDS = 2
 #: the most shards one mesh launch serves (``kMaxShards``,
 #: csrc/shards.cuh); a card holding more launches in groups
 MESH_MAX_SHARDS = 16
@@ -87,8 +99,9 @@ MESH_MAX_SHARDS = 16
 
 #: guards LAUNCHES and _WORKSPACES across host threads
 _LOCK = threading.Lock()
-#: held while a thread queues a row scatter's kernels on a workspace (the
-#: mesh form holds it over its plan and every card's scatter)
+#: held while a thread queues a row scatter's or a float32 COO add's
+#: kernels on a workspace (the mesh forms hold it over their plan and
+#: every card's scatter or walk)
 _SCATTER_LOCK = threading.RLock()
 
 
@@ -155,16 +168,18 @@ def _is_int(param: torch.Tensor) -> int:
 
 def _launch(name: str, fn: str, *args, device: torch.device,
             counts: Optional[Dict[str, int]] = None,
-            tag: Optional[str] = None,
-            scatter_lanes: Optional[int] = None) -> Optional[torch.Tensor]:
+            tag=None, scatter_lanes: Optional[int] = None,
+            plan: str = "row") -> Optional[torch.Tensor]:
     """Call C entry point ``fn`` on ``device`` (the operands' card), on
     that device's current stream; count the launch under ``name`` in
     ``counts`` (this module's ``LAUNCHES`` by default), and under ``tag``
-    in ``LAUNCHES`` too when given (a launch a second name counts: a KV
-    or COO sharded form's first launch, each sharded row scatter, a flat
-    row scatter's plan); raise on a CUDA error. ``scatter_lanes``: the
-    row scatter's lane count; its workspace (pointer, words) goes in
-    before the stream, and is returned."""
+    (a name, or a tuple of names and None) in ``LAUNCHES`` too when given
+    (a launch a second name counts: a KV or COO sharded form's first
+    launch, each sharded row scatter, a flat row scatter's or a float32
+    COO add's plan); raise on a CUDA error. ``scatter_lanes``: the lane
+    count of a call that plans (``plan``: "row" for a row scatter, "coo"
+    for a float32 COO add); the stream's workspace of that kind (pointer,
+    words) goes in before the stream, and is returned."""
     from multiverso_tpu_torch.ops import _build
     lib = _build.load()
     ws = None
@@ -179,16 +194,17 @@ def _launch(name: str, fn: str, *args, device: torch.device,
             # thread's scatter may queue between them (one that did
             # overwrote this call's plan before its scatter read it)
             with _SCATTER_LOCK:
-                ws = _scatter_workspace(scatter_lanes, device, stream)
+                ws = _scatter_workspace(scatter_lanes, device, stream, plan)
                 err = getattr(lib, fn)(*args, ws.data_ptr(), ws.numel(),
                                        stream)
     with _LOCK:
         (LAUNCHES if counts is None else counts)[name] += 1
-        if tag is not None:
-            LAUNCHES[tag] += 1
+        for t in tag if isinstance(tag, tuple) else (tag,):
+            if t is not None:
+                LAUNCHES[t] += 1
         if err != 0 and scatter_lanes is not None:
             # a failed call may leave it non-zero
-            _WORKSPACES.pop((device, stream), None)
+            _WORKSPACES.pop(_workspace_key(device, stream, plan), None)
     if err != 0:
         raise RuntimeError(f"{fn} launch failed on {device}: CUDA error "
                            f"{err}")
@@ -342,40 +358,59 @@ def row_scatter_add(param, ids: torch.Tensor, deltas: torch.Tensor):
     return param
 
 
-def plan_layout(n: int) -> Dict[str, int]:
+def plan_layout(n: int, split: int = SCATTER_SPLIT,
+                passes: int = PLAN_WORD_PASSES,
+                key_words: int = 0) -> Dict[str, int]:
     """The row scatter's workspace for ``n`` lanes, in 32-bit words
     (``PlanLayout`` of csrc/row_plan.cuh). From its base: the counter and
-    digit counts that every call leaves zero (``ctl``, ``digits``), the
-    plan (``counts``, ``order``, ``first``, ``end``, ``row``, ``longs``;
-    ``plan_words`` from ``plan`` on), the sort's ``keys`` and buffers; and
-    at the workspace's top, counted down from its last word,
-    ``status_words`` of look-back rows (``PLAN_STATUS_WORDS`` a tile of
-    ``PLAN_TILE`` lanes). ``words``: all of it. Every region from the base
-    starts on a multiple of 4 words."""
+    digit counts that every call leaves zero (``ctl``, ``digits``:
+    ``passes`` rows), the plan (``counts``, ``order``, ``first``, ``end``,
+    ``row``, ``longs``; ``plan_words`` from ``plan`` on), the sort's
+    ``keys`` and buffers, ``key_words`` arrays of lane keys at
+    ``lane_keys``; and at the workspace's top, counted down from its last
+    word, ``status_words`` of look-back rows (``PLAN_STATUS_WORDS`` a tile
+    of ``PLAN_TILE`` lanes). ``words``: all of it. Every region from the
+    base starts on a multiple of 4 words. :func:`coo_plan_layout` gives
+    the float32 COO add's."""
     def r4(w):
         return (w + 3) // 4 * 4
     m, tiles = r4(n), -(-n // PLAN_TILE)
     lay = {"ctl": 0, "digits": 16}
-    lay["plan"] = lay["counts"] = lay["digits"] + 4 * PLAN_MAX_BINS
+    lay["plan"] = lay["counts"] = lay["digits"] + passes * PLAN_MAX_BINS
     lay["order"] = lay["plan"] + 4
     lay["first"] = lay["order"] + m
     lay["end"] = lay["first"] + m
     lay["row"] = lay["end"] + m
     lay["longs"] = lay["row"] + m
-    lay["keys"] = lay["longs"] + r4(n // (SCATTER_SPLIT + 1) + 1)
+    lay["keys"] = lay["longs"] + r4(n // (split + 1) + 1)
     lay["plan_words"] = lay["keys"] - lay["plan"]
+    lay["lane_keys"] = lay["keys"] + 5 * m
     lay["status_words"] = tiles * PLAN_STATUS_WORDS
-    lay["words"] = lay["keys"] + 5 * m + lay["status_words"]
+    lay["words"] = lay["lane_keys"] + key_words * m + lay["status_words"]
     return lay
 
 
-def scatter_workspace_size(n: int) -> int:
-    """int64 words of ``mv_row_scatter_add``'s workspace for ``n`` lanes:
-    :func:`plan_layout`'s 32-bit words, rounded up."""
-    return (plan_layout(n)["words"] + 1) // 2
+def coo_plan_layout(n: int) -> Dict[str, int]:
+    """The float32 COO add's workspace for ``n`` lanes (``coo_layout`` of
+    csrc/coo_kernels.cu): :func:`plan_layout` with each run's column at
+    ``longs`` (split 0: room for a column a lane), digit rows for both key
+    words' passes and two arrays of lane keys."""
+    return plan_layout(n, 0, PLAN_WORD_PASSES * PLAN_MAX_WORDS,
+                       PLAN_MAX_WORDS)
 
 
-#: the row scatter's workspace of each (device, stream): zeroed when made;
+def scatter_workspace_size(n: int, plan: str = "row") -> int:
+    """int64 words of ``mv_row_scatter_add``'s workspace for ``n`` lanes
+    (``plan`` "coo": a float32 COO add's): the layout's 32-bit words,
+    rounded up."""
+    lay = plan_layout(n) if plan == "row" else coo_plan_layout(n)
+    return (lay["words"] + 1) // 2
+
+
+#: the row scatter's workspace of each (device, stream), and the float32
+#: COO add's of each (device, stream, "coo") (the two plans lie
+#: differently below the look-back rows, so a call of one kind would leave
+#: plan words where the other keeps its zero-kept words): zeroed when made;
 #: a call zeroes the sort's look-back words it is about to use one kernel
 #: ahead and leaves its counter, digit counts and run-scan words zero (the
 #: run scan clears them), and the next call overwrites its plan, so a call
@@ -383,17 +418,22 @@ def scatter_workspace_size(n: int) -> int:
 _WORKSPACES: Dict[tuple, torch.Tensor] = {}
 
 
-def _scatter_workspace(n: int, device: torch.device,
-                       stream: int) -> torch.Tensor:
-    """The workspace for ``n`` lanes on ``stream`` of ``device``, grown
-    (at least doubled) when too small."""
-    need = scatter_workspace_size(n)
+def _workspace_key(device: torch.device, stream: int, plan: str) -> tuple:
+    return (device, stream) if plan == "row" else (device, stream, plan)
+
+
+def _scatter_workspace(n: int, device: torch.device, stream: int,
+                       plan: str = "row") -> torch.Tensor:
+    """The workspace of kind ``plan`` for ``n`` lanes on ``stream`` of
+    ``device``, grown (at least doubled) when too small."""
+    need = scatter_workspace_size(n, plan)
+    key = _workspace_key(device, stream, plan)
     with _LOCK:
-        ws = _WORKSPACES.get((device, stream))
+        ws = _WORKSPACES.get(key)
         if ws is None or ws.numel() < need:
             grown = need if ws is None else max(need, 2 * ws.numel())
             ws = torch.zeros(grown, dtype=torch.int64, device=device)
-            _WORKSPACES[(device, stream)] = ws
+            _WORKSPACES[key] = ws
     return ws
 
 
@@ -479,33 +519,114 @@ def coo_scatter_add_masked_plain(param: torch.Tensor, rows: torch.Tensor,
     return coo_scatter_add_plain(param, rows[keep], cols[keep], vals[keep])
 
 
+class CooScatterPlan(NamedTuple):
+    """A float32 COO add's plan, as int64 tensors: ``order`` the stable
+    permutation of the lanes by element (sorted lane j is request lane
+    ``order[j]``; a lane that adds nothing, gated off by ``valid`` or
+    outside the table, after every real run), and its runs in element
+    order, one a touched element: each run's ``rows`` and ``cols``, its
+    ``first`` sorted lane and its ``counts`` of lanes."""
+    order: torch.Tensor
+    rows: torch.Tensor
+    cols: torch.Tensor
+    first: torch.Tensor
+    counts: torch.Tensor
+
+
+def coo_scatter_plan_plain(rows: torch.Tensor, cols: torch.Tensor, R: int,
+                           C: int, valid: Optional[torch.Tensor] = None
+                           ) -> CooScatterPlan:
+    """The plan of :func:`coo_scatter_plan` in plain PyTorch: a stable
+    ``torch.sort`` of the element keys ``row * C + col`` (a lane that adds
+    nothing keyed ``R * C``), ``torch.unique_consecutive`` for the runs."""
+    r, c = rows.long(), cols.long()
+    ok = (r >= 0) & (r < R) & (c >= 0) & (c < C)
+    if valid is not None:
+        ok &= valid != 0
+    key = torch.where(ok, r * C + c, torch.full_like(r, R * C))
+    skey, order = torch.sort(key, stable=True)
+    uniq, counts = torch.unique_consecutive(skey, return_counts=True)
+    first = torch.cumsum(counts, 0) - counts
+    real = uniq < R * C
+    uniq, first, counts = uniq[real], first[real], counts[real]
+    return CooScatterPlan(order, uniq // C, uniq % C, first, counts)
+
+
+def coo_scatter_plan(rows: torch.Tensor, cols: torch.Tensor, R: int,
+                     C: int, valid: Optional[torch.Tensor] = None
+                     ) -> CooScatterPlan:
+    """The plan a float32 COO add over lanes ``(rows, cols)`` (any order;
+    ``valid`` gates lanes off) into an ``[R, C]`` table walks, read back
+    whole: on a card, ``mv_coo_scatter_plan`` (csrc/coo_kernels.cu's
+    element keys, csrc/row_plan.cu's stable sort, the run scan) into a
+    workspace of its own; on the CPU its plain version. The COO adds queue
+    the plan themselves; this form is for holding the kernel against its
+    plain version."""
+    _check_lanes("rows", rows)
+    _check_lanes("cols", cols)
+    if rows.device.type == "cpu":
+        return coo_scatter_plan_plain(rows, cols, R, C, valid)
+    n = rows.shape[0]
+    if n == 0:
+        empty = torch.zeros(0, dtype=torch.int64, device=rows.device)
+        return CooScatterPlan(*(empty,) * 5)
+    rows, cols = (x.to(torch.int32).contiguous() for x in (rows, cols))
+    if valid is not None:
+        valid = _coo_mask(valid)
+    ws = torch.zeros(scatter_workspace_size(n, "coo"), dtype=torch.int64,
+                     device=rows.device)
+    _launch("coo_scatter_plan", "mv_coo_scatter_plan", rows.data_ptr(),
+            cols.data_ptr(), None if valid is None else valid.data_ptr(), n,
+            R, C, ws.data_ptr(), ws.numel(), device=rows.device)
+    lay = coo_plan_layout(n)
+    w = ws.view(torch.int32)
+    runs = int(w[lay["counts"]])
+
+    def part(key, count):
+        return w[lay[key]:lay[key] + count].long()
+    first = part("first", runs)
+    return CooScatterPlan(part("order", n), part("row", runs),
+                          part("longs", runs), first,
+                          part("end", runs) - first)
+
+
+def _coo_mask(valid: torch.Tensor) -> torch.Tensor:
+    """The COO kernels' mask, a byte a lane: a bool or uint8 mask as it
+    lies (the tables' host prep makes bool masks), any other as
+    ``valid != 0``."""
+    if valid.dtype not in (torch.bool, torch.uint8):
+        valid = valid != 0
+    return valid.contiguous()
+
+
 def _launch_coo(name: str, param: torch.Tensor, rows: torch.Tensor,
                 cols: torch.Tensor, vals: torch.Tensor,
                 valid: Optional[torch.Tensor]) -> None:
     """Launch ``mv_coo_scatter_add`` over contiguous int32 lanes (rows of
-    ``param``; lanes outside it add nothing), sorted by row for a float32
-    table, in any order for int32."""
+    ``param``; lanes outside it add nothing) in any order: an int32
+    table's add as they come, a float32 table's call planned in the
+    stream's COO workspace (its plan also counted under
+    ``coo_scatter_plan``)."""
     flat = _rows(param)
-    _launch(name, "mv_coo_scatter_add", flat.data_ptr(), flat.shape[0],
-            flat.shape[1], _is_int(param), rows.data_ptr(),
-            cols.data_ptr(), vals.data_ptr(),
-            None if valid is None else valid.data_ptr(), rows.shape[0],
-            device=param.device)
+    n = rows.shape[0]
+    args = (flat.data_ptr(), flat.shape[0], flat.shape[1], _is_int(param),
+            rows.data_ptr(), cols.data_ptr(), vals.data_ptr(),
+            None if valid is None else valid.data_ptr(), n)
+    if _is_int(param):
+        _launch(name, "mv_coo_scatter_add", *args, None, 0,
+                device=param.device)
+    else:
+        _launch(name, "mv_coo_scatter_add", *args, device=param.device,
+                tag="coo_scatter_plan", scatter_lanes=n, plan="coo")
 
 
 def _coo_lanes(dtype: torch.dtype, rows: torch.Tensor, cols: torch.Tensor,
                vals: torch.Tensor) -> tuple:
     """The COO kernel's lane operands for a table of ``dtype``: int32 rows
-    and columns and values of the table's type, contiguous. For float32
-    they are stable-sorted by row on the device, since the kernel adds
-    each element's lanes in sorted lane order (the plain version's); int32
-    sums are the same in any order, so int32 lanes go as they come."""
-    rows, cols, vals = (rows.to(torch.int32), cols.to(torch.int32),
-                        vals.to(dtype))
-    if dtype == torch.float32:
-        rows, order = torch.sort(rows, stable=True)
-        cols, vals = cols[order], vals[order]
-    return rows.contiguous(), cols.contiguous(), vals.contiguous()
+    and columns and values of the table's type, contiguous, in request
+    order (a float32 call sorts them by element on the card itself)."""
+    return tuple(x.to(t).contiguous() for x, t in (
+        (rows, torch.int32), (cols, torch.int32), (vals, dtype)))
 
 
 def coo_scatter_add(param, rows: torch.Tensor, cols: torch.Tensor,
@@ -516,10 +637,12 @@ def coo_scatter_add(param, rows: torch.Tensor, cols: torch.Tensor,
 
     Replaces ``build_coo_scatter_add`` (the TPU ``_coo_kernel``) behind
     the functional ``coo_scatter_add``: the COO kernel adds an int32
-    table's lanes as they come, with no sort; a float32 table's lanes are
-    stable-sorted by row on the device first (:func:`_coo_lanes`). Lanes
-    out of range are dropped, by the kernel and the plain version alike.
-    A :class:`ShardedParam` goes to :func:`coo_scatter_add_mesh`."""
+    table's lanes as they come, with no sort; a float32 table's call
+    plans its lanes (a hand-written stable sort by element, the table of
+    element runs) and walks the plan, each element's lanes in lane order
+    (:func:`_launch_coo`). Lanes out of range are dropped, by the kernel
+    and the plain version alike. A :class:`ShardedParam` goes to
+    :func:`coo_scatter_add_mesh`."""
     if isinstance(param, ShardedParam):
         return coo_scatter_add_mesh(param, rows, cols, vals)
     _check_coo(param, rows, cols, vals)
@@ -536,22 +659,22 @@ def coo_scatter_add_masked(param: torch.Tensor, rows: torch.Tensor,
                            cols: torch.Tensor, vals: torch.Tensor,
                            valid: torch.Tensor) -> torch.Tensor:
     """The COO add over lanes ALREADY sorted by row (the table's host prep
-    sorts them; an int32 table takes them in any order), with a per-lane
-    write gate: lanes whose ``valid`` is 0 add nothing. In place; returns
-    ``param``.
+    sorts them; the kernels take them in any order), with a per-lane
+    write gate: lanes whose ``valid`` is 0 add nothing (the kernels read a
+    byte a lane: a bool mask goes as it lies, any other is compared with
+    0 first). In place; returns ``param``.
 
     Replaces ``build_coo_scatter_add_masked`` (the TPU
-    ``_coo_masked_kernel``): the same CUDA kernel as
-    :func:`coo_scatter_add`, with its mask operand set."""
+    ``_coo_masked_kernel``): the same CUDA entry point as
+    :func:`coo_scatter_add`, with its mask operand set (a float32 call's
+    plan keys a gated lane after every real run)."""
     _check_coo(param, rows, cols, vals, valid)
     if param.device.type == "cpu":
         return coo_scatter_add_masked_plain(param, rows, cols, vals, valid)
     if rows.shape[0]:
         _launch_coo("coo_scatter_add_masked", param,
-                    rows.to(torch.int32).contiguous(),
-                    cols.to(torch.int32).contiguous(),
-                    vals.to(param.dtype).contiguous(),
-                    valid.to(torch.int32).contiguous())
+                    *_coo_lanes(param.dtype, rows, cols, vals),
+                    _coo_mask(valid))
     return param
 
 
@@ -1465,25 +1588,35 @@ def coo_scatter_add_sharded(shards, rows, cols, vals, valid, *, counts):
 
     Replaces ``build_coo_scatter_add_sharded`` (the masked COO kernel per
     shard): one ``mv_coo_scatter_add_shards`` per card, which runs the COO
-    kernel over the real lanes of every shard the card holds, each
-    shard's lanes a segment of their own (a float32 run never spans two
-    shards), the pads never launched. Each launch counts under
+    kernels over the real lanes of every shard the card holds, each
+    shard's lanes a segment of their own, the pads never launched (int32:
+    the add as the lanes come; float32: the card's plan, each segment's
+    rows keyed apart so that a run never spans two shards, and its walk,
+    in the stream's COO workspace). Each launch counts under
     ``coo_scatter_add_sharded``, a call's first launch also under
-    ``coo_scatter_add_masked``."""
+    ``coo_scatter_add_masked``, a float32 launch also under
+    ``coo_scatter_plan``."""
     if _shard_kind(shards) == "cpu":
         return coo_scatter_add_sharded_plain(shards, rows, cols, vals, valid)
     first = _present(shards)
     nrows, ncols = _rows(first).shape
+    # the mask as the host prep makes it, a byte a lane (a bool mask goes
+    # as it lies: no copy of the (shards, L) mask a call)
     ops = (_lanes_as(rows, torch.int32), _lanes_as(cols, torch.int32),
-           _lanes_as(vals, first.dtype), _lanes_as(valid, torch.int32))
-    tag = "coo_scatter_add_masked"
+           _lanes_as(vals, first.dtype), _lanes_as(valid, torch.bool))
+    tag, is_int = "coo_scatter_add_masked", _is_int(first)
     for dev, part, lanes, real in shard_lane_launches(shards, ops, counts):
         for s, r, c, v, ok, n in zip(part, *lanes, real):
             _check_coo(shards[s], r[:n], c[:n], v[:n], ok[:n])
-        _launch("coo_scatter_add_sharded", "mv_coo_scatter_add_shards",
-                *_shard_table(shards, part, nrows), nrows, ncols,
-                _is_int(first), *(_c_ptrs(x) for x in lanes),
-                _c_array(ctypes.c_int64, real), device=dev, tag=tag)
+        args = (*_shard_table(shards, part, nrows), nrows, ncols, is_int,
+                *(_c_ptrs(x) for x in lanes), _c_array(ctypes.c_int64, real))
+        if is_int:
+            _launch("coo_scatter_add_sharded", "mv_coo_scatter_add_shards",
+                    *args, None, 0, device=dev, tag=tag)
+        else:
+            _launch("coo_scatter_add_sharded", "mv_coo_scatter_add_shards",
+                    *args, device=dev, tag=(tag, "coo_scatter_plan"),
+                    scatter_lanes=sum(real), plan="coo")
         tag = None
     return shards
 
@@ -1513,10 +1646,11 @@ def coo_scatter_add_sharded(shards, rows, cols, vals, valid, *, counts):
 # row is not copied). Lane counts per shard stay on the device, so
 # nothing syncs the host. The row scatter-add plans its ids once (the
 # hand-written stable sort by row and the table of runs), and the COO add
-# sorts a float32 table's lanes, on the first shard's device, for every
-# card; sorted global ids keep every run inside one shard and in the flat
-# kernel's order (an int32 COO sum is the same in any order), so a
-# sharded table ends bit-identical to the unsharded one. Each launch counts one under
+# plans a float32 table's lanes (the stable sort by element and the table
+# of element runs), on the first shard's device, for every card; sorted
+# global ids keep every run inside one shard and in the flat kernel's
+# order (an int32 COO sum is the same in any order), so a sharded table
+# ends bit-identical to the unsharded one. Each launch counts one under
 # the form's own ``LAUNCHES`` name. The shards of a param are equal row
 # blocks (the port's tables always split evenly), so unlike the
 # reference, which falls back to XLA for an uneven split, no form has a
@@ -1840,8 +1974,12 @@ def coo_scatter_add_mesh(param: ShardedParam, rows: torch.Tensor,
 
     Replaces the reference's in-trace ``_sharded_coo_scatter_add``: one
     ``mv_coo_scatter_add_mesh`` per card over the shards it holds, over
-    the lanes as they come (int32) or stable-sorted by row once on the
-    first device (float32, :func:`_coo_lanes`)."""
+    the lanes as they come (int32) or, for float32, along one plan of the
+    lanes over the global rows (``mv_coo_scatter_plan``, counted under
+    ``coo_scatter_plan``) made on the first device and shared by every
+    card (copied to another card as one block with the values). The plan
+    and every card's walk are queued under ``_SCATTER_LOCK``: the first
+    card's walk reads the plan where the workspace holds it."""
     kind = _check_mesh(param, ADD_DTYPES)
     _check_coo(param._first, rows, cols, vals)
     if kind == "cpu":
@@ -1851,21 +1989,37 @@ def coo_scatter_add_mesh(param: ShardedParam, rows: torch.Tensor,
         return param
     lanes = _coo_lanes(param.dtype, rows, cols, vals)
     nrows, ncols = _rows(param._first).shape
-    cache = {}
-    for dev, *table in param.launch_tables():
-        r_s, c_s, v_s = _per_device(lanes, param.device, cache, dev)
-        _launch("coo_scatter_add_mesh", "mv_coo_scatter_add_mesh", *table,
-                nrows, ncols, _is_int(param._first), r_s.data_ptr(),
-                c_s.data_ptr(), v_s.data_ptr(), None, n, device=dev)
+    dev0, cache = param.device, {}
+    if _is_int(param._first):
+        for dev, *table in param.launch_tables():
+            r_s, c_s, v_s = _per_device(lanes, dev0, cache, dev)
+            _launch("coo_scatter_add_mesh", "mv_coo_scatter_add_mesh",
+                    *table, nrows, ncols, 1, r_s.data_ptr(), c_s.data_ptr(),
+                    v_s.data_ptr(), None, n, None, device=dev)
+        return param
+    with _SCATTER_LOCK:
+        ws = _launch("coo_scatter_plan", "mv_coo_scatter_plan",
+                     lanes[0].data_ptr(), lanes[1].data_ptr(), None, n,
+                     param.shape[0], ncols, device=dev0, scatter_lanes=n,
+                     plan="coo")
+        lay = coo_plan_layout(n)
+        plan = ws.view(torch.int32)[lay["plan"]:lay["keys"]]
+        for dev, *table in param.launch_tables():
+            p_d, v_d = _per_device((plan, lanes[2]), dev0, cache, dev)
+            _launch("coo_scatter_add_mesh", "mv_coo_scatter_add_mesh",
+                    *table, nrows, ncols, 0, None, None, v_d.data_ptr(),
+                    None, n, p_d.data_ptr(), device=dev)
     return param
 
 
 __all__ = ["ADD_DTYPES", "GATHER_DTYPES", "KV_UPDATERS", "LAUNCHES",
-           "ShardedParam", "coo_scatter_add", "coo_scatter_add_masked",
+           "CooScatterPlan", "ShardedParam", "coo_plan_layout",
+           "coo_scatter_add", "coo_scatter_add_masked",
            "coo_scatter_add_masked_plain", "coo_scatter_add_mesh",
            "coo_scatter_add_mesh_plain", "coo_scatter_add_plain",
            "coo_scatter_add_sharded", "coo_scatter_add_sharded_plain",
-           "gather_rows", "gather_rows_mesh", "gather_rows_mesh_plain",
+           "coo_scatter_plan", "coo_scatter_plan_plain", "gather_rows",
+           "gather_rows_mesh", "gather_rows_mesh_plain",
            "gather_rows_plain", "gather_rows_sharded",
            "gather_rows_sharded_plain", "kv_lookup", "kv_lookup_plain",
            "kv_lookup_sharded", "kv_lookup_sharded_plain", "kv_probe_update",

@@ -271,7 +271,8 @@ def test_sharded_launch_plan_is_once_per_card(monkeypatch, plan):
         assert call["tag"] == ("coo_scatter_add_masked" if i == 0 else None)
         assert call["device"] == torch.device("cpu")
         (bases, firsts, count, nrows, ncols, is_int, r_p, c_p, v_p, ok_p,
-         lanes) = call["args"]
+         lanes, ws, ws_words) = call["args"]
+        assert (ws, ws_words) == (None, 0)  # an int32 add plans nothing
         assert list(bases) == [shards[s].data_ptr() for s in part]
         assert list(firsts) == [s * rps for s in part]
         assert (count, nrows, ncols, is_int) == (len(part), rps, cols, 1)

@@ -2081,9 +2081,10 @@ def test_coo_float32_long_run_matches_plain(cuda):
 
 def test_coo_int32_launches_no_sort(cuda, monkeypatch):
     """An int32 table's lanes reach the kernel unsorted: the functional
-    form and the mesh form call no ``torch.sort``; a float32 table's call
-    sorts once. The mesh form on 4 shards of one card, unsorted int32
-    lanes, equals the plain version bit for bit in one launch."""
+    form and the mesh form call no ``torch.sort``; nor does a float32
+    table's call, which sorts its lanes by element in its own plan kernel.
+    The mesh form on 4 shards of one card, unsorted int32 lanes, equals
+    the plain version bit for bit in one launch."""
     sorts = []
     real_sort = torch.sort
     monkeypatch.setattr(torch, "sort", lambda *a, **k: sorts.append(1)
@@ -2105,9 +2106,12 @@ def test_coo_int32_launches_no_sort(cuda, monkeypatch):
     assert torch.equal(got.cpu(), want)
     assert torch.equal(_mesh_host(param).view(shape), want)
     sorts.clear()  # the plain version sorts
+    before = tk.LAUNCHES["coo_scatter_plan"]
     tk.coo_scatter_add(p0.float().to(cuda), on_card[0], on_card[1],
                        on_card[2].float())
-    assert len(sorts) == 1
+    torch.cuda.synchronize()
+    assert sorts == []
+    assert tk.LAUNCHES["coo_scatter_plan"] == before + 1
 
 
 @pytest.mark.parametrize("dtype", [np.int32, np.float32])
@@ -2149,6 +2153,181 @@ def test_coo_sharded_is_one_launch_per_card(cuda, S, dtype):
     assert tk.LAUNCHES["coo_scatter_add_masked"] == \
         before["coo_scatter_add_masked"] + 1
     assert tk.LAUNCHES["coo_scatter_add"] == before["coo_scatter_add"]
+    assert tk.LAUNCHES["coo_scatter_plan"] == before["coo_scatter_plan"] + (
+        groups if dtype == np.float32 else 0)
+
+
+# -- the float32 COO add: a plan by element, and its walk ---------------------
+
+
+def _coo_f32_case(case, rng, R, C, n):
+    """(rows, cols, float32 vals of mixed magnitude) in request order:
+    Zipf-1.1 rows (phase 2's skew), every lane on one row, or every lane
+    on one element; a twentieth of the rows and columns out of range in
+    "out_of_range"."""
+    if case == "one_row":
+        r = np.full(n, R // 3, np.int32)
+    elif case == "one_element":
+        r = np.full(n, R - 1, np.int32)
+    else:
+        r = np.clip(rng.zipf(1.1, n) - 1, 0, R - 1).astype(np.int32)
+    c = (np.full(n, C // 2, np.int32) if case == "one_element"
+         else rng.integers(0, C, n).astype(np.int32))
+    if case == "out_of_range":
+        bad = rng.random(n) < 0.05
+        r[bad] = rng.choice(np.array([-1, R, R + 9, -2**31], np.int32),
+                            int(bad.sum()))
+        bad = rng.random(n) < 0.05
+        c[bad] = rng.choice(np.array([-1, C, 2**31 - 1], np.int32),
+                            int(bad.sum()))
+    return r, c, _mixed(rng, (n,))
+
+
+COO_F32_CASES = ["zipf", "one_row", "one_element", "out_of_range"]
+
+
+@pytest.mark.parametrize("shape,n", [((5_000, 1024), 200_000),
+                                     ((300, 2, 128), 20_000),
+                                     ((40, 100), 7_777)])
+@pytest.mark.parametrize("case", COO_F32_CASES)
+def test_coo_float32_forms_match_plain(cuda, case, shape, n):
+    """Every float32 COO form bit for bit its plain version on the CPU:
+    the flat form (lanes in any order), the masked form (row-sorted, a
+    fifth gated off), the mesh form over 4 shards of one card (one plan,
+    a walk a card) and the segment form (each shard's real lanes); each
+    call plans once, and no ``torch.sort`` runs on the card."""
+    rng = np.random.default_rng(COO_F32_CASES.index(case) + n)
+    R, C = shape[0], int(np.prod(shape[1:]))
+    r, c, v = _coo_f32_case(case, rng, R, C, n)
+    x = torch.from_numpy(_mixed(rng, shape))
+    lanes = [torch.from_numpy(a) for a in (r, c, v)]
+    before = dict(tk.LAUNCHES)
+    got = tk.coo_scatter_add(x.to(cuda), *(a.to(cuda) for a in lanes))
+    want = tk.coo_scatter_add_plain(x.clone(), *lanes)
+    assert torch.equal(_bits(got), _bits(want))
+    order = np.argsort(r, kind="stable")
+    ok = (rng.random(n) < 0.8).astype(np.int32)
+    sl = [torch.from_numpy(a[order]) for a in (r, c, v)] + [
+        torch.from_numpy(ok)]
+    got = tk.coo_scatter_add_masked(x.to(cuda), *(a.to(cuda) for a in sl))
+    want = tk.coo_scatter_add_masked_plain(x.clone(), *sl)
+    assert torch.equal(_bits(got), _bits(want))
+    S = 4
+    Rp = -(-R // S) * S
+    xp = torch.cat([x, torch.from_numpy(_mixed(rng, (Rp - R,) + shape[1:]))])
+    mesh = _mesh_param(xp, ["cuda:0"] * S)
+    tk.coo_scatter_add(mesh, *(a.to(cuda) for a in lanes))
+    want = tk.coo_scatter_add_plain(xp.clone(), *lanes)
+    assert torch.equal(_bits(_mesh_host(mesh)), _bits(want))
+    inside = (r >= 0) & (r < Rp)
+    srt = np.argsort(np.where(inside, r, 0), kind="stable")
+    srt = srt[inside[srt]]
+    (lr, sc, sv, sok), valid, counts, _, _ = _slice_lanes(
+        r[srt], Rp // S, S, [c[srt], v[srt], ok[srt]],
+        [np.int32(0), np.float32(0), np.int32(0)])
+    valid &= sok.astype(bool)
+    shards = _on(xp.numpy(), cuda, S)
+    tk.coo_scatter_add_sharded(shards, *(_on(a, cuda)
+                                         for a in (lr, sc, sv, valid)),
+                               counts=counts)
+    host = _on(xp.numpy(), "cpu", S)
+    tk.coo_scatter_add_sharded_plain(host, *(_on(a, "cpu")
+                                             for a in (lr, sc, sv, valid)))
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(torch.cat([t.cpu() for t in shards])),
+                       _bits(torch.cat(host)))
+    grown = {k: tk.LAUNCHES[k] - before[k] for k in tk.LAUNCHES}
+    # flat, masked, the mesh form's one plan, the segment form's one card
+    assert grown["coo_scatter_plan"] == 4
+    assert grown["coo_scatter_add_mesh"] == 1
+    assert grown["coo_scatter_add_sharded"] == 1
+
+
+PLAN_COO_CASES = ["zipf", "one_row", "one_element", "out_of_range",
+                  "valid", "two_words", "n1"]
+
+
+@pytest.mark.parametrize("case", PLAN_COO_CASES)
+def test_coo_plan_kernel_equals_plain(cuda, case):
+    """mv_coo_scatter_plan against coo_scatter_plan_plain (a stable sort
+    of row * C + col, unique_consecutive): the permutation and the runs
+    (row, column, first lane, count) element for element. "two_words":
+    R * C past 2^31, keyed (column, row) in two words."""
+    rng = np.random.default_rng(50 + PLAN_COO_CASES.index(case))
+    R, C, n = 50_001, 1024, 512_000
+    valid = None
+    if case == "two_words":
+        R, C, n = 3_000_000, 1_000, 300_000
+    if case == "n1":
+        n = 1
+    r, c, _ = _coo_f32_case(case if case in COO_F32_CASES else "zipf", rng,
+                            R, C, n)
+    if case == "valid":
+        valid = torch.from_numpy((rng.random(n) < 0.7).astype(np.int32))
+    lanes = [torch.from_numpy(a) for a in (r, c)]
+    before = tk.LAUNCHES["coo_scatter_plan"]
+    got = tk.coo_scatter_plan(*(a.to(cuda) for a in lanes), R, C,
+                              None if valid is None else valid.to(cuda))
+    want = tk.coo_scatter_plan_plain(*lanes, R, C, valid)
+    assert tk.LAUNCHES["coo_scatter_plan"] == before + 1
+    for name, g, w in zip(want._fields, got, want):
+        assert torch.equal(g.cpu(), w), name
+
+
+def test_coo_float32_after_larger_and_smaller_calls(cuda):
+    """The stream's COO workspace reused by calls of 300,000, then 999,
+    then 300,000 lanes again, then the row scatter on its own workspace:
+    every call bit for bit its plain version (no call meets a plan or a
+    look-back word that an earlier one left), and the counter, the digit
+    counts and the run scan's words are zero after each."""
+    rng = np.random.default_rng(61)
+    R, C = 2_000, 512
+    x = torch.from_numpy(_mixed(rng, (R, C)))
+    for n in (300_000, 999, 300_000, 12_345):
+        r, c, v = _coo_f32_case("zipf", rng, R, C, n)
+        lanes = [torch.from_numpy(a) for a in (r, c, v)]
+        got = tk.coo_scatter_add(x.to(cuda), *(a.to(cuda) for a in lanes))
+        want = tk.coo_scatter_add_plain(x.clone(), *lanes)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(got), _bits(want)), n
+        ids = torch.from_numpy(_zipf_ids(rng, 4096, R))
+        d = torch.from_numpy(_mixed(rng, (4096, C)))
+        got, want = _scatter_on_card(cuda, x, ids, d)
+        assert torch.equal(_bits(got), _bits(want)), n
+        dev = torch.device("cuda", torch.cuda.current_device())
+        ws = tk._WORKSPACES[(dev, torch.cuda.current_stream().cuda_stream,
+                             "coo")]
+        lay = tk.coo_plan_layout(n)
+        w = ws.view(torch.int32)
+        assert not w[:lay["plan"]].any()
+        rows = w[w.numel() - lay["status_words"]:].view(
+            -1, tk.PLAN_STATUS_WORDS)
+        run_words = 2 * tk.PLAN_MAX_BINS
+        assert not rows[:, run_words:run_words + 2].any()
+
+
+def test_coo_float32_two_word_keys_match_plain(cuda):
+    """A float32 table of 2,200,000 x 1,000 (R * C past 2^31: the plan keys
+    (column, row) in two words): the touched elements equal the plain
+    version's, run on the touched rows alone (the order within an element
+    is the lanes' order whatever the rows' numbers), and a row no lane
+    names stays 0."""
+    rng = np.random.default_rng(62)
+    R, C, n = 2_200_000, 1_000, 200_000
+    r = np.clip(rng.zipf(1.1, n) * 37 % R, 0, R - 1).astype(np.int32)
+    c = rng.integers(0, C, n).astype(np.int32)
+    v = _mixed(rng, (n,))
+    table = torch.zeros((R, C), dtype=torch.float32, device=cuda)
+    tk.coo_scatter_add(table, *(torch.from_numpy(a).to(cuda)
+                                for a in (r, c, v)))
+    uniq, inv = np.unique(r, return_inverse=True)
+    want = tk.coo_scatter_add_plain(
+        torch.zeros((len(uniq), C)), torch.from_numpy(inv.astype(np.int32)),
+        torch.from_numpy(c), torch.from_numpy(v))
+    got = table[torch.from_numpy(uniq).long().to(cuda)].cpu()
+    assert torch.equal(_bits(got), _bits(want))
+    untouched = np.setdiff1d(np.arange(0, R, 997), uniq)[:50]
+    assert not table[torch.from_numpy(untouched).long().to(cuda)].any()
 
 
 # -- tables replicated over the data axis ---------------------------------------
