@@ -303,12 +303,24 @@ its seconds):
    overflow gate summed over the group. (c) The first ``MA_KV_ADDS`` of
    (b)'s adds on a ``(2, 1)`` KVTable under ``shard_update``: each
    process commits the lanes of its state block and the cells it wrote
-   cross to the other (fewer bytes an add than a block). Every part's
-   tables equal, by CRC32, a one-process run of the same mesh shape on
-   cuda:0 (run by the script after the workers); each worker holds its
-   own cell only, launches #9b's two mesh forms, #9's lookup and #8's
-   probe and commit, and reports each part's seconds, the all-gathers'
-   share of them and the bytes they brought a step.
+   cross to the other (fewer bytes an add than a block). (d) LightLDA on
+   the ``(1, 2)`` mesh at phase 6's width (V 50,000, K 1,024, batch
+   512,000, blocks of 512 tokens and 16 docs) and phase 25's corpus (T
+   1M, D 10k), each process one shard of the word table and the
+   summary: doc-blocked (a warm-up and two timed sweeps), doc-blocked
+   streamed (one and one) and tiled exact (one), ``MA_LDA_SWEEPS``. The
+   doc-blocked modes all-gather the whole bf16 mirror once a sweep and
+   read it with ``words=`` (#11 / #12, no row gather); tiled exact
+   gathers a step's distinct rows (#9b) and each lane's row from them
+   (#1). Each worker's launches equal ``ma_lda_launches``; z, the
+   summary and its shard equal, by CRC32, the one-process ``(1, 2)``
+   run's on cuda:0; it prints the system's doc-tokens/s, each worker's
+   bytes in a timed sweep and the all-gathers' share of it. Every
+   part's tables equal, by CRC32, a one-process run of the same mesh
+   shape on cuda:0 (run by the script after the workers); each worker
+   holds its own cell only, launches #9b's two mesh forms, #9's lookup
+   and #8's probe and commit, and reports each part's seconds, the
+   all-gathers' share of them and the bytes they brought a step.
 26. The binding-compat API, the three examples, pipeline and ring
    attention (``multiverso_tpu_torch/{bindings,examples,parallel}``), after
    phase 25, each part timed: (a) ``bindings.init``, the topology queries
@@ -7496,6 +7508,19 @@ MA_SLR_STEPS, MA_KV_ADDS = 6, 4
 #: probe and commit
 MA_KERNELS = ("gather_rows_mesh", "row_scatter_add_mesh",
               "kv_lookup_sharded", "kv_probe_update", "kv_commit")
+#: 27d: LightLDA on the (1, 2) mesh across the two processes at phase 6's
+#: width and phase 25's depth: each mode's (warm-up, timed) sweeps
+MA_LDA_SWEEPS = {"doc-blocked": (1, 2), "doc-blocked streamed": (1, 1),
+                 "tiled exact": (0, 1)}
+MA_LDA_MODES = {"doc-blocked": dict(doc_blocked=True),
+                "doc-blocked streamed": dict(doc_blocked=True,
+                                             stream_blocks=True),
+                "tiled exact": dict()}
+#: the kernels of 27d's path (#1, #9b's gather and COO add, #10-#12)
+MA_LDA_KERNELS = ("row_gather", "gather_rows_mesh", "coo_scatter_add_mesh",
+                  "gibbs_sample_tiled", "gibbs_sample_docblock",
+                  "gibbs_sample_docblock_build",
+                  "gibbs_sample_docblock_rows")
 
 
 def ma_sizes() -> dict:
@@ -7507,7 +7532,9 @@ def ma_sizes() -> dict:
                 tokens=MP_W2V_TOKENS, lr=LR, slr_batch=SLR_BATCH,
                 slr_steps=MA_SLR_STEPS, slr_dim=SLR_DIM, slr_nnz=SLR_NNZ,
                 slr_capacity=SLR_CAPACITY, slr_slots=SLR_SLOTS,
-                kv_adds=MA_KV_ADDS)
+                kv_adds=MA_KV_ADDS, lda_v=LDA_V, lda_d=LDA_SMALL_D,
+                lda_t=LDA_SMALL_T, lda_k=LDA_K, lda_b=LDA_B,
+                lda_tb=LDA_TB, lda_maxd=LDA_MAXD)
 
 
 def ma_crc(torch, tensors) -> list:
@@ -7630,6 +7657,89 @@ def ma_run(torch, z: dict, mesh12, mesh21, sync, traffic=None) -> dict:
     return res
 
 
+def ma_lda_launches(mode: str, steps: int, calls: int,
+                    sweeps: int) -> dict:
+    """What 27d's ``mode`` launches on a worker over its construction
+    and ``sweeps`` sweeps of ``steps`` steps in ``calls`` calls, one
+    shard of the word table held (the one-process run, which holds both,
+    gathers the doc-blocked rows from its split mirror instead): the
+    doc-blocked kernels read the whole mirror with ``words=`` and no row
+    gather; tiled exact gathers a step's distinct rows (#9b), each lane's
+    row from them and its doc row (#1), and adds the step's moves (#9b's
+    COO add)."""
+    want = dict.fromkeys(MA_LDA_KERNELS, 0)
+    if mode == "doc-blocked":
+        want["gibbs_sample_docblock"] = sweeps * steps
+        want["gibbs_sample_docblock_rows"] = sweeps * steps
+        want["coo_scatter_add_mesh"] = 1 + sweeps      # init, rebuilds
+    elif mode == "doc-blocked streamed":
+        want["gibbs_sample_docblock_build"] = sweeps * steps
+        want["gibbs_sample_docblock_rows"] = sweeps * steps
+        want["coo_scatter_add_mesh"] = calls * (1 + sweeps)
+    else:
+        want["gibbs_sample_tiled"] = sweeps * steps
+        want["gather_rows_mesh"] = sweeps * steps
+        want["row_gather"] = 2 * sweeps * steps
+        want["coo_scatter_add_mesh"] = 1 + sweeps * steps
+    return want
+
+
+def ma_lda(torch, z: dict, mesh12, sync, traffic=None) -> dict:
+    """27d: LightLDA on the (1, 2) mesh ``mesh12`` at phase 6's width
+    and phase 25's depth, over two processes or in one: each mode of
+    ``MA_LDA_MODES`` built, then its warm-up and timed sweeps
+    (``MA_LDA_SWEEPS``). Returns each mode's CRC32s (z, the summary, each
+    held shard of the word table), launches (a worker's are held
+    against :func:`ma_lda_launches`), sweep seconds and, with
+    ``traffic``, each timed sweep's all-gathered bytes and seconds."""
+    from multiverso_tpu_torch.apps.lightlda import LDAConfig, LightLDA
+    from multiverso_tpu_torch.ops import lda_sampler as ls
+    from multiverso_tpu_torch.ops import table_kernels as tk
+    tw, td = zipf_lda_corpus(z["lda_v"], z["lda_d"], z["lda_t"], seed=0)
+    out = {}
+    for mode, extra in MA_LDA_MODES.items():
+        warm, timed = MA_LDA_SWEEPS[mode]
+        tk.reset_launches()
+        ls.reset_launches()
+        t0 = time.perf_counter()
+        app = LightLDA(tw, td, z["lda_v"], LDAConfig(
+            num_topics=z["lda_k"], batch_tokens=z["lda_b"],
+            steps_per_call=1, seed=1, sampler="tiled",
+            block_tokens=z["lda_tb"], block_docs=z["lda_maxd"], **extra),
+            mesh=mesh12, name="ma_lda")
+        sync()
+        setup_s = time.perf_counter() - t0
+        secs, moved = [], []
+        for sweep in range(warm + timed):
+            if traffic is not None:
+                traffic.reset_traffic()
+            t0 = time.perf_counter()
+            app.sweep()
+            sync()
+            secs.append(time.perf_counter() - t0)
+            if traffic is not None:
+                moved.append(dict(traffic.TRAFFIC))
+        grown = {k: {**tk.LAUNCHES, **ls.LAUNCHES}[k]
+                 for k in MA_LDA_KERNELS}
+        steps = app.calls_per_sweep * app.config.steps_per_call
+        wt = app.word_topic
+        shards = [t for t in wt.shards if t is not None]
+        out[mode] = dict(
+            setup_s=setup_s, sweep_s=secs, steps=steps,
+            doc_tokens_per_sec=z["lda_t"] * timed / sum(secs[warm:]),
+            bytes_per_sweep=[m["bytes"] for m in moved[warm:]],
+            gather_s=[m["seconds"] for m in moved[warm:]],
+            gather_calls=[m["calls"] for m in moved[warm:]],
+            launches=grown, calls=app.calls_per_sweep,
+            held=held_shards(wt),
+            crc=ma_crc(torch, [torch.from_numpy(app._z_numpy()),
+                               app.summary.get_tensor()]),
+            shard_crc=ma_crc(torch, shards))
+        del app
+        free_tables(torch)
+    return out
+
+
 def ma_kv(table) -> list:
     """A KVTable's global keys, values and state leaves (a collective
     when parts lie in other processes)."""
@@ -7673,11 +7783,15 @@ def ma_worker(rank: int, store: str, out: str, z: dict) -> int:
     res = ma_run(torch, z, mesh12, mesh21, sync, multihost)
     res["rank"] = rank
     res["launches"] = dict(tk.LAUNCHES)
+    res["lda"] = ma_lda(torch, z, mesh12, sync, multihost)
     for part, want in (("w2v", [[0, rank]]), ("slr", [[0, rank]]),
-                       ("kv_shard_update", [[rank, 0]])):
-        if res[part]["held"] != want:
+                       ("kv_shard_update", [[rank, 0]])) + tuple(
+            (("lda", mode), [[0, rank]]) for mode in MA_LDA_MODES):
+        got = res[part[0]][part[1]] if isinstance(part, tuple) \
+            else res[part]
+        if got["held"] != want:
             raise SystemExit(f"rank {rank}: 27 {part} holds "
-                             f"{res[part]['held']}, not its cell {want}")
+                             f"{got['held']}, not its cell {want}")
     core.barrier()
     core.shutdown()
     with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
@@ -7701,6 +7815,13 @@ def phase_model_axis(torch, card: str, z=None) -> dict:
         if short:
             raise SystemExit(f"phase 27: worker {w['rank']} launched no "
                              f"{short}: {w['launches']}")
+        for mode, r in w["lda"].items():
+            want = ma_lda_launches(mode, r["steps"], r["calls"],
+                                   sum(MA_LDA_SWEEPS[mode]))
+            if r["launches"] != want:
+                raise SystemExit(f"phase 27d: worker {w['rank']}'s "
+                                 f"LightLDA {mode} launched "
+                                 f"{r['launches']}, expected {want}")
     t0 = time.perf_counter()
     dev = torch.device(z["device"])
 
@@ -7712,6 +7833,20 @@ def phase_model_axis(torch, card: str, z=None) -> dict:
                  core.Mesh([[dev], [dev]]), sync)
     one_s = time.perf_counter() - t0
     free_tables(torch)
+    t0 = time.perf_counter()
+    one_lda = ma_lda(torch, z, core.Mesh([[dev, dev]]), sync)
+    one_lda_s = time.perf_counter() - t0
+    free_tables(torch)
+    for mode, want in one_lda.items():
+        for w in workers:
+            got = w["lda"][mode]
+            if got["crc"] != want["crc"] \
+                    or got["shard_crc"] != [want["shard_crc"][w["rank"]]]:
+                raise SystemExit(
+                    f"phase 27d {mode}: worker {w['rank']}'s z, summary "
+                    f"and shard {got['crc']} {got['shard_crc']} != the "
+                    f"one-process (1, 2) run's {want['crc']} "
+                    f"{want['shard_crc']}")
     for part in ("w2v", "slr", "kv_shard_update"):
         for w in workers:
             if w[part]["crc"] != one[part]["crc"]:
@@ -7744,6 +7879,30 @@ def phase_model_axis(torch, card: str, z=None) -> dict:
                          f"{'step' if part != 'kv_shard_update' else 'add'}")
         log(f"  worker {w['rank']}: " + "; ".join(parts) + "; launches "
             f"{ {k: v for k, v in w['launches'].items() if v} }")
+    lda = {}
+    for mode in MA_LDA_MODES:
+        slowest_sweep = max(min(w["lda"][mode]["sweep_s"][
+            MA_LDA_SWEEPS[mode][0]:]) for w in workers)
+        lda[mode] = dict(system_doc_tokens_per_sec=z["lda_t"]
+                         / slowest_sweep,
+                         one_process=one_lda[mode]["doc_tokens_per_sec"])
+        for w in workers:
+            r = w["lda"][mode]
+            timed = r["sweep_s"][MA_LDA_SWEEPS[mode][0]:]
+            share = [round(100 * g / t, 1)
+                     for g, t in zip(r["gather_s"], timed)]
+            log(f"  27d worker {w['rank']} LightLDA {mode}: sweeps "
+                f"{[round(x, 4) for x in r['sweep_s']]} s (setup "
+                f"{r['setup_s']:.2f} s), timed {[round(x, 4) for x in timed]}"
+                f"; bytes in a timed sweep {r['bytes_per_sweep']} in "
+                f"{r['gather_calls']} all-gathers, {share}% of the sweep; "
+                f"launches {r['launches']}")
+        log(f"  27d LightLDA {mode} on (1, 2) over two processes: "
+            f"{lda[mode]['system_doc_tokens_per_sec']:.0f} doc-tokens/s "
+            f"for the system (T {z['lda_t']} over the slowest worker's "
+            f"best timed sweep); the one-process (1, 2) run "
+            f"{lda[mode]['one_process']:.0f}; z, summary and each "
+            f"worker's shard equal the one-process run's (CRC32)")
     log(f"  27a word2vec on (1, 2) over two processes: {system_wps:.0f} "
         f"words/s for the system (global pairs / (window + 1) over the "
         f"slowest worker's timed calls); 27b sparse LR: "
@@ -7752,10 +7911,11 @@ def phase_model_axis(torch, card: str, z=None) -> dict:
         f"add; every part's tables equal the one-process (1, 2) / (2, 1) "
         f"run's bit for bit; workers {workers_s:.1f} s, the one-process "
         f"runs {one_s:.1f} s; on {card}")
-    return dict(workers=workers, one_process=one,
-                system_words_per_sec=system_wps,
+    log(f"  27d the one-process (1, 2) LightLDA runs {one_lda_s:.1f} s")
+    return dict(workers=workers, one_process=one, one_process_lda=one_lda,
+                lda=lda, system_words_per_sec=system_wps,
                 system_samples_per_sec=system_sps, workers_s=workers_s,
-                one_process_s=one_s)
+                one_process_s=one_s, one_process_lda_s=one_lda_s)
 
 
 # -- phase 26: the binding-compat API, the examples, pipeline and ring ------
@@ -8533,11 +8693,15 @@ def main(argv) -> int:
     phase("model_axis", "phase 27: a model axis across processes (two "
           "worker processes on cuda:0 over gloo: a: word2vec and b: "
           "sparse LR on a (1, 2) mesh, each process one shard; c: a "
-          "shard_update KVTable on (2, 1); each vs the one-process run)")
+          "shard_update KVTable on (2, 1); d: LightLDA on (1, 2); each vs "
+          "the one-process run)")
     free_tables(torch)
     ma27 = phase_model_axis(torch, card)
     for w in ma27["workers"]:
         paths[f"model_axis_rank{w['rank']}"] = w["launches"]
+        paths[f"model_axis_lda_rank{w['rank']}"] = {
+            k: sum(r["launches"][k] for r in w["lda"].values())
+            for k in MA_LDA_KERNELS}
     phase_end("model_axis")
 
     phase("bindings", "phase 26: the binding-compat API (a), mlp_cifar "
@@ -8814,6 +8978,11 @@ def main(argv) -> int:
             # phase 27's path: each worker's launches
             kernels[-1]["model_axis_launches"] = [
                 w["launches"][name] for w in ma27["workers"]]
+        if name in MA_LDA_KERNELS:
+            # phase 27d's path: each worker's LightLDA launches
+            kernels[-1]["model_axis_lda_launches"] = [
+                paths[f"model_axis_lda_rank{w['rank']}"][name]
+                for w in ma27["workers"]]
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"),
               "w") as f:

@@ -75,6 +75,42 @@ passes only its own docs and packs them into the block slots its
 replicas own; z starts from :func:`_hash_z` of the global slot, and the
 sampler state is stored per rank.
 
+When the model axis crosses processes (a data row whose cells lie in
+several processes, ``mesh.rows_split``) each process holds its cells'
+shards of the word table and the summary, and every process of a row
+runs that row's body on every lane of it, so each holds the row's z and
+doc counts whole. Count moves exchange nothing: each process adds the
+lanes whose rows its shards hold (the mesh COO add over the shards it
+holds). Word-row reads do, each mode in its own way, and a run equals
+the one-process run on the same global mesh fed the same draws, bit for
+bit:
+
+- the stale modes (tiled stale, doc-blocked, streamed) read no word row
+  across processes within a sweep: at its start each process converts
+  its shards to bf16 and the row's processes all-gather them, so every
+  process holds the WHOLE ``[V_pad, C, 128]`` mirror as one tensor, and
+  the doc-blocked kernels read it with ``words=`` (the tiled kernel's
+  rows through the row gather). That trades memory for traffic: at V
+  50,000, K 1,024 the mirror is 102.4 MB on every process, less than
+  the ``[B, C, 128]`` bf16 rows of one 512,000-lane step (1.05 GB) that
+  a one-process split mirror gathers, and its foreign half crosses
+  once a sweep where lane partials would cross every step;
+- the exact modes (gibbs, tiled exact, loglik) read a step's DISTINCT
+  rows from the split table (``torch.unique``), the row's processes'
+  partials of that ``[U, C]`` block OR-merged, and give each lane its
+  row from the block through the row gather;
+- mh reads single elements: the process whose shard holds a lane's row
+  runs that lane's proposal and acceptance (the stale CDF's search and
+  the live reads), the others write zero bits, and the lanes' new
+  topics OR-merge, 4 bytes a lane twice a round. Its stale CDF and count
+  copy stay split;
+- whole-table reads (``word_topics``, ``dump_model``, ``store``, the
+  run checkpoints, the summary inside a body) go through the tables'
+  collectives.
+
+``local_corpus`` on a row two processes share raises, as in the
+reference (each data lane must have one owner).
+
 The run checkpoint manager (``run_state`` / ``restore_run_state``) and
 the health rollback ride the sweep loop.
 """
@@ -209,28 +245,63 @@ def _eval_chunk(n: int) -> int:
 
 def _whole(view) -> torch.Tensor:
     """A table view as one tensor: a one-shard table's own tensor, a split
-    one's shards concatenated on the first shard's device (a body that
-    returns it whole has the superstep split it back)."""
+    one's shards concatenated on the first held shard's device, the
+    shards of other processes merged in (a body that returns it whole
+    has the superstep split it back)."""
     if isinstance(view, ShardedParam):
-        return torch.cat([t.to(view.device) for t in view.shards])
+        return view.whole()
     return view
 
 
 def _per_shard(view, fn):
-    """``fn`` of each shard of a table view, in the view's form."""
+    """``fn`` of each shard of a table view held here, in the view's form
+    (a shard of another process stays None)."""
     if isinstance(view, ShardedParam):
-        return ShardedParam([fn(t) for t in view.shards])
+        return ShardedParam([None if t is None else fn(t)
+                             for t in view.shards], view.merge)
     return fn(view)
+
+
+def _split_view(view) -> bool:
+    """True for a view whose shards lie partly in other processes (its
+    reads merge over the row's processes)."""
+    return isinstance(view, ShardedParam) and view.merge is not None
+
+
+def _read_rows(view, ids: torch.Tensor) -> torch.Tensor:
+    """Word rows ``view[ids]`` -> ``[n, C]``. Off a split row the row
+    gather itself; on one, the distinct rows are gathered (their partials
+    OR-merged over the row's processes: ``[U, C]``, not ``[n, C]``) and
+    each lane takes its row from them through the row gather."""
+    if not _split_view(view):
+        return gather_rows(view, ids)
+    uniq, inv = torch.unique(ids, return_inverse=True)
+    return gather_rows(gather_rows(view, uniq), inv)
+
+
+def _held(view, rows: torch.Tensor) -> Optional[torch.Tensor]:
+    """Which of ``rows`` lie in a shard of the view held here (None when
+    every shard is)."""
+    if not _split_view(view):
+        return None
+    rps = view.rows_per_shard
+    held = torch.tensor([t is not None for t in view.shards],
+                        device=rows.device)
+    return held[(rows // rps).clamp_max(len(view.shards) - 1)]
 
 
 def _elements(view, rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
     """``view[rows[i], cols[i]]`` of a ``[R, C]`` table view (int64
     indices on the caller's device), each read from the shard that owns
-    its row, in plain torch: the mh sampler's single-element reads."""
+    its row, in plain torch: the mh sampler's single-element reads. A row
+    of a shard another process holds reads as some element of a held
+    shard (:func:`_held` says which lanes are right)."""
     if not isinstance(view, ShardedParam):
         return view.view(view.shape[0], -1)[rows, cols]
     rps, out = view.rows_per_shard, None
     for s, shard in enumerate(view.shards):
+        if shard is None:
+            continue
         local = rows - s * rps
         vals = shard.view(rps, -1)[local.clamp(0, rps - 1).to(shard.device),
                                    cols.to(shard.device)].to(rows.device)
@@ -252,13 +323,13 @@ class LightLDA:
                  name: str = "lightlda") -> None:
         self.config = c = config
         self.mesh = core.resolve_mesh(mesh, device)
-        core.refuse_model_split(self.mesh, "LightLDA")
-        self.device = dev = self.mesh.shard_devices[0]
+        # this process's first device of its first data row (of its
+        # first local replica): its constants, draws and host reads
+        self.device = dev = self.mesh.row_device(self.mesh.local_rows[0])
         self.n_replicas = D = self.mesh.shape[core.DATA_AXIS]
         # each local replica's first device: its locals, constants and
         # draws (every replica's on one process)
-        self._devs = [self.mesh.replica_devices(d)[0]
-                      for d in self.mesh.local_rows]
+        self._devs = [self.mesh.row_device(d) for d in self.mesh.local_rows]
         self.V = vocab_size
         self.K = c.num_topics
         self.num_docs = int(token_docs.max()) + 1 if len(token_docs) else 1
@@ -566,15 +637,41 @@ class LightLDA:
         (a collective)."""
         if self.n_replicas == 1:
             return parts[0]
-        if self.mesh.processes > 1:
-            from multiverso_tpu_torch.parallel.multihost import \
-                allgather_tensors
-            parts = [p for theirs in allgather_tensors(parts)
-                     for p in theirs]
+        parts = self._every_row(parts)
         tail = tuple(parts[0].shape[1:])
         q = self._nbs // len(parts)
         return torch.stack([p.to(self.device).view(-1, q, *tail)
                             for p in parts], 1).reshape((-1,) + tail)
+
+    @property
+    def _rows_everywhere(self) -> bool:
+        """True when every process holds every data row (one process, or
+        a data axis of 1): no row's state need cross processes."""
+        m = self.mesh
+        return all(len(m.rows_of(p)) == self.n_replicas
+                   for p in range(m.processes))
+
+    def _every_row(self, parts: list) -> list:
+        """Every data row's part, in row order, given this process's
+        replicas' ``parts``: its own, and the others from the first
+        process that owns a cell of each row, over the group (a
+        collective unless every process holds every row; a row two
+        processes share is sent once)."""
+        m = self.mesh
+        if self._rows_everywhere:
+            return list(parts)
+        from multiverso_tpu_torch.parallel.multihost import \
+            allgather_tensors
+        rows_of = [m.rows_of(p) for p in range(m.processes)]
+        source = [min(p for p, rows in enumerate(rows_of) if g in rows)
+                  for g in range(self.n_replicas)]
+        sent = [[g for g in rows if source[g] == p]
+                for p, rows in enumerate(rows_of)]
+        got = allgather_tensors([parts[m.local_rows.index(g)]
+                                 for g in sent[m.rank]])
+        return [parts[m.local_rows.index(g)] if g in m.local_rows
+                else got[source[g]][sent[source[g]].index(g)]
+                for g in range(self.n_replicas)]
 
     # -- sampler state: z and the doc-topic counts (app-local) -------------
 
@@ -602,40 +699,43 @@ class LightLDA:
         self._ndk_l = DataSplit(self._split_blocks(ndk)) \
             if self._docblock else Replicated.of(ndk, self.mesh)
 
-    def _token_lanes(self, d: int) -> tuple:
-        """(words, topics, mask) of every token, on local replica ``d``'s
+    def _token_lanes(self) -> list:
+        """(words, topics, mask) of every token, on each local replica's
         device: its own whole stream, or every replica's blocks (over
-        several processes, the whole stream in the (1, 1) layout: the
-        int32 counts do not depend on the lanes' order)."""
+        several processes, the whole stream in the (1, 1) layout, joined
+        once: the int32 counts do not depend on the lanes' order)."""
         if not self._docblock:
-            k = self._consts[d]
-            return k["tw"], self._z_l.parts[d], k["mask"]
+            return [(k["tw"], z, k["mask"])
+                    for k, z in zip(self._consts, self._z_l.parts)]
         if self.mesh.processes > 1:
-            return tuple(t.reshape(-1).to(self._devs[d]) for t in (
-                self._tw, self._z, self._mask))
-        cols = ([k["tw"] for k in self._consts], self._z_l.parts,
-                [k["mask"] for k in self._consts])
-        return tuple(torch.cat([p.reshape(-1).to(self._devs[d])
-                                for p in parts]) for parts in cols)
+            whole = [t.reshape(-1) for t in (self._tw, self._z, self._mask)]
+        else:
+            whole = [torch.cat([p.reshape(-1).to(self.device)
+                                for p in parts])
+                     for parts in ([k["tw"] for k in self._consts],
+                                   self._z_l.parts,
+                                   [k["mask"] for k in self._consts])]
+        return [tuple(t.to(dev) for t in whole) for dev in self._devs]
 
     def _zero_word_views(self) -> list:
         """A zero word table for each replica, in the form its superstep
-        view takes (a tensor, or a ShardedParam of its shards)."""
+        view takes (a tensor, or a ShardedParam of the shards held
+        here)."""
         views = []
         for devs in self.word_topic.replica_devices:
             shards = core.sharded_zeros(self.word_topic.storage_shape,
                                         torch.int32, devs)
             views.append(shards[0] if len(shards) == 1
-                         else ShardedParam(shards))
+                         else ShardedParam(shards, self.word_topic._merger))
         return views
 
     def _word_counts_from_z(self) -> None:
         """Install the word-topic counts of z on every replica: one COO add
         of (word, topic, mask) per token into a zero table (the mesh form
-        on a split one)."""
+        on a split one, over the shards held here)."""
         views = self._zero_word_views()
-        for d, view in enumerate(views):
-            tk.coo_scatter_add(view, *self._token_lanes(d))
+        for view, lanes in zip(views, self._token_lanes()):
+            tk.coo_scatter_add(view, *lanes)
         self.word_topic.put_views(views)
 
     def _init_counts(self) -> None:
@@ -742,7 +842,7 @@ class LightLDA:
             # remove the batch's own counts (proper collapsed Gibbs)
             self._move(nwk, ndk, nk, w, d, zi, -one)
             A = ndk.index_select(0, d[mine].long()).to(ft)
-            W = gather_rows(nwk, w[mine]).to(ft)
+            W = _read_rows(nwk, w[mine]).to(ft)
             Sd = (nk[:K].to(torch.float32) + vbeta).to(ft)
             # linear-space posterior + inverse-CDF draw; batch-stale
             # decrements can dip below zero: clamp (AD-LDA)
@@ -763,7 +863,9 @@ class LightLDA:
         the tables, then ``mh_steps`` rounds of a word proposal and a doc
         proposal, each accepted against the live counts; ``wcdf`` and
         ``nwk_stale`` are the sweep's stale word CDF and counts. No
-        ``[B, K]`` tensor: every count is a single-element read."""
+        ``[B, K]`` tensor: every count is a single-element read. On a row
+        split over processes each lane's proposals run on the process
+        that holds its word row, and their outcomes merge (module doc)."""
         c = self.config
         nwk, nk = params[0], _whole(params[1])
         ndk, z = locals_
@@ -782,6 +884,17 @@ class LightLDA:
             zi_all = z[sl]
             self._move(nwk, ndk, nk, w_all, d_all, zi_all, -one)
             w, d, zi = (x[mine].long() for x in (w_all, d_all, zi_all))
+            own = _held(nwk, w)
+
+            def settle(t):
+                # the topics of the lanes whose word row is held here,
+                # OR-merged with the other processes' (zero bits for the
+                # lanes they do not hold)
+                if own is None:
+                    return t
+                t = torch.where(own, t, 0).to(torch.int32)
+                nwk.merge((t,))
+                return t.long()
 
             def p_live(t):
                 # the collapsed posterior from the LIVE counts (own token
@@ -816,7 +929,7 @@ class LightLDA:
                 prop = low.clamp(0, K - 1)
                 ratio = p_live(prop) * q_word(cur) \
                     / (p_live(cur) * q_word(prop))
-                cur = torch.where(u_word < ratio, prop, cur)
+                cur = settle(torch.where(u_word < ratio, prop, cur))
                 # doc proposal: a random slot of the doc's tokens, or
                 # (with the alpha mass) a uniform topic
                 pa = ka / (dlen + ka)
@@ -827,7 +940,7 @@ class LightLDA:
                 prop = torch.where(u_mix < pa, ints[s, r].long(), zslot)
                 ratio = p_live(prop) * q_doc(cur) / torch.clamp_min(
                     p_live(cur) * q_doc(prop), 1e-20)
-                cur = torch.where(u_doc < ratio, prop, cur)
+                cur = settle(torch.where(u_doc < ratio, prop, cur))
             znew = replica_cat(torch.where(one[mine] > 0, cur, zi)
                                .to(torch.int32))
             self._move(nwk, ndk, nk, w_all, d_all, znew, one)
@@ -852,7 +965,7 @@ class LightLDA:
             sl = slice(lo + s * B, lo + (s + 1) * B)
             w, d, msk = k["tw"][sl], k["td"][sl], k["mask"][sl]
             zi = z[sl]
-            W3 = gather_rows(nwk3 if wstale is None else wstale, w[mine])
+            W3 = _read_rows(nwk3 if wstale is None else wstale, w[mine])
             A3 = gather_rows(ndk3, d[mine])
             znew, nkd = gibbs_sample_tiled(
                 A3.view(b, -1, 128), W3.view(b, -1, 128), self._sinv(nk),
@@ -1016,15 +1129,10 @@ class LightLDA:
         return torch.cat([p.to(self.device) for p in staged.parts], 2)
 
     def _all_parts(self, staged: DataSplit) -> list:
-        """Every replica's ``[3, S, b]`` part of a staged call: this
-        process's, and over several processes the others' (CPU tensors,
-        a collective) in replica order."""
-        if self.mesh.processes == 1:
-            return staged.parts
-        from multiverso_tpu_torch.parallel.multihost import \
-            allgather_tensors
-        return [p for theirs in allgather_tensors(staged.parts)
-                for p in theirs]
+        """Every replica's ``[3, S, b]`` part of a staged call, in replica
+        order: this process's, and over several processes the others'
+        (:meth:`_every_row`)."""
+        return self._every_row(staged.parts)
 
     def _init_streamed_counts(self) -> None:
         """The word counts and the summary of the initial z, one staged
@@ -1048,8 +1156,7 @@ class LightLDA:
 
     def _sweep_streamed(self, uniforms: Optional[Uniforms]) -> None:
         views = self._word_views()
-        wstale = Replicated([_per_shard(v, lambda t: t.to(torch.bfloat16))
-                             for v in views])
+        wstale = self._mirrors(views)
         acc = Replicated([_per_shard(v, torch.zeros_like) for v in views])
         TB = self._tb
         pending: list = []
@@ -1077,8 +1184,8 @@ class LightLDA:
                 drain(pending.pop(0))
         for item in pending:
             drain(item)
-        # the other processes' lanes of the host z are now stale
-        self._z_synced = self.mesh.processes == 1
+        # the lanes of rows a process lacks are now stale in its host z
+        self._z_synced = self._rows_everywhere
         self.word_topic.put_views(acc.parts)
 
     def _sync_z_host(self) -> None:
@@ -1089,13 +1196,14 @@ class LightLDA:
         all-gather per call (every process owns as many lanes), which
         keeps the host transfer of one exchange bounded. A collective.
         Under local_corpus z is per-process by design: nothing to do."""
-        if self.mesh.processes == 1 or self._z_synced \
-                or self.config.local_corpus:
+        if self._z_synced or self.config.local_corpus:
             return
-        from multiverso_tpu_torch.parallel.multihost import (
-            allgather_i64, allgather_tensors)
+        from multiverso_tpu_torch.parallel.multihost import \
+            allgather_tensors
         offs = self._owned_call_offsets()
-        all_offs = allgather_i64(offs)
+        # processes may own different numbers of rows
+        all_offs = [o.numpy() for (o,) in allgather_tensors(
+            [torch.from_numpy(offs)])]
         for k in range(self.calls_per_sweep):
             vals = allgather_tensors([torch.from_numpy(
                 self._z_host[k * self._per_call + offs])])
@@ -1111,6 +1219,24 @@ class LightLDA:
         return [self.word_topic.superstep_view(d)[0]
                 for d in range(self.word_topic.n_replicas)]
 
+    def _mirrors(self, views: list) -> Replicated:
+        """The stale modes' bf16 mirror of each replica's word table, in
+        its view's form. On a row split over processes, the whole mirror
+        as one ``[V_pad, C, 128]`` tensor on each replica's device: the
+        shards held here converted, the others' converted by their
+        holders and all-gathered (row 0's owner of each; a collective,
+        once a sweep), so that the sweep's steps read their rows with
+        ``words=`` and exchange none (module doc)."""
+        if not self.mesh.rows_split:
+            return Replicated([_per_shard(v, lambda t: t.to(torch.bfloat16))
+                               for v in views])
+        wt = self.word_topic
+        shards = wt._filled([None if t is None else t.to(torch.bfloat16)
+                             for t in wt._read_shards()])
+        whole: dict = {}
+        return Replicated([whole.setdefault(dev, torch.cat(
+            [t.to(dev) for t in shards])) for dev in self._devs])
+
     def _sweep_inputs(self) -> tuple:
         """The per-sweep inputs of each replica, from its own word table:
         the stale modes' bf16 mirror, or mh's stale word CDF over
@@ -1118,8 +1244,7 @@ class LightLDA:
         and its copy of the counts."""
         views = self._word_views()
         if self._stale:
-            return (Replicated([_per_shard(v, lambda t: t.to(torch.bfloat16))
-                                for v in views]),)
+            return (self._mirrors(views),)
         if self.config.sampler != "mh":
             return ()
         beta = self.beta
@@ -1218,7 +1343,7 @@ class LightLDA:
         for lo in range(0, ws.shape[0], n):
             sl = slice(lo, lo + n)
             A = ndk_flat.index_select(0, rows[sl].long()).to(torch.float32)
-            W = gather_rows(nwk3, ws[sl]).to(torch.float32)
+            W = _read_rows(nwk3, ws[sl]).to(torch.float32)
             tot = tot + _predictive_ll(A, W, S, m[sl].to(torch.float32),
                                        self.alpha, self.beta, K,
                                        self.V * self.beta)
@@ -1233,12 +1358,17 @@ class LightLDA:
         total = 0.0
         if self._docblock and c.stream_blocks:
             # this process's lanes of each call; over several processes
-            # the partial sums are added in rank order
+            # the partial sums are added in rank order. Where processes
+            # share a row, each takes every row's lanes (the reads of a
+            # split table merge over processes that read the same lanes)
             S, TB, MAXD = c.steps_per_call, self._tb, self._maxd
-            B = c.batch_tokens * len(self._devs) // self.n_replicas
+            split = self.mesh.rows_split
+            n = self.n_replicas if split else len(self._devs)
+            B = c.batch_tokens * n // self.n_replicas
             rows = ((torch.arange(S * B, device=self.device) // TB) * MAXD)
             for _k, staged in self._stream_calls():
-                whole = self._whole_call(staged)
+                whole = self._whole_call(
+                    DataSplit(self._all_parts(staged)) if split else staged)
                 tw, drel, zf = (whole[i].reshape(-1) for i in range(3))
                 msk = (tw != self._scratch_word).to(torch.int32)
                 r = rows + drel
@@ -1247,7 +1377,7 @@ class LightLDA:
                 ndk.view(-1).index_add_(0, r * K + zf.long(), msk)
                 total += float(self._chunked_ll(nwk, ndk.to(torch.int16),
                                                 tw, r, msk))
-            if self.mesh.processes > 1:
+            if self.mesh.processes > 1 and not split:
                 from multiverso_tpu_torch.parallel.multihost import \
                     allgather_tensors
                 total = sum(float(t) for (t,) in allgather_tensors(
@@ -1266,7 +1396,7 @@ class LightLDA:
                 # the reference's one-shot gibbs eval: no chunks
                 A = ndk_flat.index_select(0, rows[sl].long()).to(
                     torch.float32)
-                W = gather_rows(nwk, ws[sl]).to(torch.float32)
+                W = _read_rows(nwk, ws[sl]).to(torch.float32)
                 total += float(_predictive_ll(
                     A, W, self.summary.logical_tensor().to(torch.float32),
                     ms[sl].to(torch.float32), self.alpha, self.beta, K,
@@ -1563,7 +1693,10 @@ else 1); -resume (or MVTPU_RESUME=1) restarts from its latest complete
 one. Over several processes (-machine_file, -num_processes, -process_id)
 every process reads the whole -input_file (local_corpus, each process
 its own shard, is a LightLDA(..., LDAConfig(local_corpus=True)) option,
-as in the reference)."""
+as in the reference); with -device, -data_parallel x -model_parallel is
+the whole grid and each process names its share of it, so
+-data_parallel=1 -model_parallel=2 over two processes splits the word
+table's rows between them."""
 
 
 def main(argv=None) -> None:
@@ -1624,7 +1757,13 @@ def main(argv=None) -> None:
     dp = configure.get_flag("data_parallel")
     mp = configure.get_flag("model_parallel")
     dev = configure.get_flag("device")
-    mesh = core.init(devices=[dev] * (max(dp, 1) * mp) if dev else None,
+    # -device names every device of a -data_parallel x -model_parallel
+    # grid; under -machine_file each process names its share of it (with
+    # -data_parallel 0, a row of -model_parallel each)
+    n = max(dp, 1) * mp
+    if dp > 0:
+        n //= core.flag_processes()
+    mesh = core.init(devices=[dev] * n if dev else None,
                      data_parallel=dp, model_parallel=mp)
     tw, td, vocab = load_docs(path)
     a = configure.get_flag("alpha")

@@ -255,6 +255,15 @@ def _coordinator() -> Tuple[str, int, int]:
     return address, nproc, pid
 
 
+def flag_processes() -> int:
+    """The process count the multi-host flags name: 1 without
+    ``-machine_file``, else ``-num_processes`` or the machine file's
+    line count."""
+    if not configure.get_flag("machine_file"):
+        return 1
+    return _coordinator()[1]
+
+
 def _join_group(store) -> None:
     """Join the ``torch.distributed`` group of the run (gloo: the port's
     collectives move host arrays; two ranks can share one card over it,

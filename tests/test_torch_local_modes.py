@@ -315,11 +315,11 @@ def test_model_axis_across_processes_names_the_roadmap():
     assert m.rows_split and not m.model_split
     m = core._build_mesh(["cpu"] * 4, 1, 4, processes=2, rank=1)
     # what a split model axis does not support yet names the roadmap
-    from multiverso_tpu_torch.apps.lightlda import LDAConfig, LightLDA
+    # (LightLDA runs there since: tests/test_torch_lightlda_model_axis.py)
+    from multiverso_tpu_torch.storage.tiered_kv import TieredKVTable
     with pytest.raises(NotImplementedError,
                        match="ROADMAP.md queue A item 12"):
-        LightLDA(np.zeros(8, np.int32), np.zeros(8, np.int32), 4,
-                 LDAConfig(num_topics=8, batch_tokens=8), mesh=m)
+        TieredKVTable(128, value_dim=2, mesh=m)
 
 
 @pytest.mark.parametrize("P,rank", [(2, 1), (4, 2)])

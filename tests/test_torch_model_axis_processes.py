@@ -22,9 +22,10 @@ leaves shards empty, KVTable collective adds and gets, an overflow on
 the last process's shard that voids every process's write, KVTable
 ``shard_update`` across processes with store and load, logreg, sparse LR
 and plain word2vec; and the refusals of what a split model axis does not
-support yet (``local_data`` on a shared row, LightLDA, the tiered KV
-table, the table server, the binding handlers, logreg's
-``shard_update``).
+support yet (``local_data`` on a shared row, the tiered KV table, the
+table server, the binding handlers, the cached view, logreg's
+``shard_update``). LightLDA on these layouts is
+``tests/test_torch_lightlda_model_axis.py``'s.
 
 Each layout runs in P processes over gloo (a ``FileStore``, the spawn and
 kill machinery of ``tests/test_torch_multihost.py``) and in ONE process
@@ -370,15 +371,12 @@ def scenarios(layout: str, multi: bool, rank: int, out: str,
     core.barrier()
 
     if multi:
-        from multiverso_tpu_torch.apps.lightlda import LDAConfig, LightLDA
         from multiverso_tpu_torch.bindings.table_handlers import (
             ArrayTableHandler)
         from multiverso_tpu_torch.client.cache import CachedView
         from multiverso_tpu_torch.server.table_server import TableServer
         from multiverso_tpu_torch.storage.tiered_kv import TieredKVTable
         refusals = [
-            lambda: LightLDA(np.zeros(8, np.int32), np.zeros(8, np.int32),
-                             4, LDAConfig(num_topics=8, batch_tokens=8)),
             lambda: TieredKVTable(128, value_dim=2),
             lambda: TableServer("unix:/nonexistent", mesh=mesh),
             lambda: ArrayTableHandler(8),
